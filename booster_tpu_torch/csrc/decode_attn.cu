@@ -1,8 +1,8 @@
-// T = 1 GQA decode attention over one layer of the stacked bf16 KV cache.
+// T = 1 GQA decode attention over one layer of the stacked KV cache.
 //
 // Replaces _decode_attn_kernel_merged (booster_tpu/ops/pallas_attention.py),
-// bf16 cache; it also covers the per-b twin _decode_attn_kernel, which
-// computes the same function.
+// bf16 cache (Q = false) and int8 cache (Q = true, `quantized=True`); it also
+// covers the per-b twin _decode_attn_kernel, which computes the same function.
 //
 // For each (b, kv head h) and each of the G query heads of that kv head:
 //   s_j = q · k_j (f32) over the valid columns j in [lens - win + selfok, lens),
@@ -13,6 +13,15 @@
 // q arrives pre-scaled and rounded to bf16 [B, Hkv, G, D]; the cache is
 // [L, B, Hkv, S, D] with D the lane-padded storage width (zero pad lanes),
 // and the wrapper passes the base of layer l.  Out is f32 [B, Hkv, G, D].
+//
+// int8 cache (with f32 scales ks, vs [B, Hkv, S] of the layer): k_j and v_j
+// are cast to f32 exactly and the scales stay out of the [S, D] tiles, as in
+// the TPU kernel: s_j = (q · k_j) · ks_j (the scale after the dot), l sums
+// the unrounded p_j, and PV takes bf16(p_j · vs_j) against v_j.  The self
+// term's k/v (bf16 rows not yet in the cache) go through the storage round
+// trip first, in f32 as the append computes it (scale = amax · f32(1/127),
+// rint(x / max(scale, 1e-12)) · scale with IEEE division and
+// round-half-even), the row the append will write; a zero row stays zero.  The int8 form moves half the cache bytes.
 //
 // What bounds it on the H100: the K and V bytes of the valid columns,
 // 2·2·D bytes per column per kv head, over 3.35 TB/s; the FLOPs (4·G·D per
@@ -40,6 +49,7 @@ constexpr int kChunk = 64;
 constexpr int kHeadGroups = kThreads / kChunk;  // scores: heads g ≡ t / kChunk (mod 4)
 constexpr int kMaxG = 16;
 constexpr float kNeg = -1e30f;
+constexpr float kRcp127 = 0x1.020408p-7f;  // f32(1/127): the int8 scale is amax · kRcp127
 
 __device__ __forceinline__ float bf16f(uint16_t b) {
   return __uint_as_float(static_cast<uint32_t>(b) << 16);
@@ -63,8 +73,10 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 struct AttnParams {
   const uint16_t* q;    // [B, Hkv, G, D] bf16, pre-scaled
-  const uint16_t* k;    // [B, Hkv, S, D] bf16: layer l of the stacked cache
-  const uint16_t* v;
+  const void* k;        // [B, Hkv, S, D] bf16 or int8: layer l of the stacked cache
+  const void* v;
+  const float* ks;      // [B, Hkv, S] f32 scales of an int8 layer, else null
+  const float* vs;
   const uint16_t* sk;   // [B, Hkv, D] bf16 self-term k, or null
   const uint16_t* sv;
   const int* lens;      // [B] valid cache columns
@@ -78,7 +90,7 @@ template <int D>
 size_t smem_bytes(int G) {
   return sizeof(float) * (static_cast<size_t>(G) * D + static_cast<size_t>(kChunk) * (D + 1)
                           + static_cast<size_t>(kChunk) * D + static_cast<size_t>(G) * kChunk
-                          + 2 * static_cast<size_t>(G));
+                          + 2 * static_cast<size_t>(G) + 2 * kChunk);
 }
 
 // one chunk of n rows of K or V ([S, D] bf16 from row c0) → f32 shared
@@ -111,7 +123,39 @@ __device__ __forceinline__ void load_chunk(const uint16_t* src, int c0, int n, f
   }
 }
 
+// the same for an int8 [S, D] source: 16 values per 16-byte load
 template <int D>
+__device__ __forceinline__ void load_chunk_i8(const int8_t* src, int c0, int n, float* dst,
+                                              int stride) {
+  constexpr int kVec = D / 16;
+  constexpr int kIters = (kChunk * kVec + kThreads - 1) / kThreads;
+  uint4 r[kIters];
+#pragma unroll
+  for (int it = 0; it < kIters; ++it) {
+    const int i = threadIdx.x + it * kThreads;
+    const int j = i / kVec;
+    if (j < n) r[it] = __ldg(reinterpret_cast<const uint4*>(src + static_cast<size_t>(c0 + j) * D) + (i % kVec));
+  }
+#pragma unroll
+  for (int it = 0; it < kIters; ++it) {
+    const int i = threadIdx.x + it * kThreads;
+    const int j = i / kVec, d = (i % kVec) * 16;
+    if (j < n) {
+      const uint32_t w[4] = {r[it].x, r[it].y, r[it].z, r[it].w};
+      float* o = dst + j * stride + d;
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        o[e] = static_cast<float>(static_cast<int8_t>((w[e / 4] >> (8 * (e % 4))) & 0xffu));
+    }
+  }
+}
+
+// the storage round trip of one self-term value, scale = amax/127 of its row
+__device__ __forceinline__ float mirror_i8(float x, float scale) {
+  return __fmul_rn(rintf(__fdiv_rn(x, fmaxf(scale, 1e-12f))), scale);
+}
+
+template <int D, bool Q>
 __global__ void __launch_bounds__(kThreads) decode_attn_kernel(AttnParams p) {
   constexpr int KP = D + 1;     // K row stride in shared memory
   constexpr int DL = D / 32;    // dims per lane in PV: lane + 32·e
@@ -123,6 +167,8 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(AttnParams p) {
   float* ps = vs + kChunk * D;    // [G][kChunk]: scores, then bf16(p)
   float* mrow = ps + G * kChunk;  // [G] running max
   float* lrow = mrow + G;         // [G] running sum of p
+  float* kss = lrow + G;          // [kChunk] k scales of the chunk (int8)
+  float* vss = kss + kChunk;      // [kChunk] v scales of the chunk (int8)
 
   const int bh = blockIdx.x;  // b * Hkv + h
   const int b = bh / p.Hkv;
@@ -150,8 +196,16 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(AttnParams p) {
   const int hg = tid / kChunk;        // the scores' head group
   for (int c0 = lo; c0 < hi; c0 += kChunk) {
     const int n = min(kChunk, hi - c0);
-    load_chunk<D>(p.k + kv_base, c0, n, ks, KP);
-    load_chunk<D>(p.v + kv_base, c0, n, vs, D);
+    if constexpr (Q) {
+      load_chunk_i8<D>(static_cast<const int8_t*>(p.k) + kv_base, c0, n, ks, KP);
+      load_chunk_i8<D>(static_cast<const int8_t*>(p.v) + kv_base, c0, n, vs, D);
+      const size_t sbase = static_cast<size_t>(bh) * p.S + c0;
+      if (tid < n) kss[tid] = p.ks[sbase + tid];
+      else if (tid >= kChunk && tid - kChunk < n) vss[tid - kChunk] = p.vs[sbase + tid - kChunk];
+    } else {
+      load_chunk<D>(static_cast<const uint16_t*>(p.k) + kv_base, c0, n, ks, KP);
+      load_chunk<D>(static_cast<const uint16_t*>(p.v) + kv_base, c0, n, vs, D);
+    }
     __syncthreads();
     // scores of column j_s for heads hg, hg + 4, ...
     {
@@ -175,7 +229,11 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(AttnParams p) {
         const int g = hg + a * kHeadGroups;
         if (g < G) {
           float v = kNeg;
-          if (j_s < n) v = p.softcap > 0.f ? p.softcap * tanhf(s[a] / p.softcap) : s[a];
+          if (j_s < n) {
+            v = s[a];
+            if constexpr (Q) v = __fmul_rn(v, kss[j_s]);
+            if (p.softcap > 0.f) v = p.softcap * tanhf(v / p.softcap);
+          }
           ps[g * kChunk + j_s] = v;
         }
       }
@@ -193,12 +251,13 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(AttnParams p) {
       const float m_new = fmaxf(m_prev, warp_max(mx));
       float sum = 0.f;
       for (int j = lane; j < kChunk; j += 32) {
-        float e = 0.f;
+        float e = 0.f, w = 0.f;
         if (j < n) {
           e = expf(ps[g * kChunk + j] - m_new);
           sum += e;
+          w = Q ? __fmul_rn(e, vss[j]) : e;
         }
-        ps[g * kChunk + j] = round_bf16(e);
+        ps[g * kChunk + j] = round_bf16(w);
       }
       sum = warp_sum(sum);
       const float alpha = expf(m_prev - m_new);  // m_prev, m_new are warp-uniform
@@ -222,6 +281,31 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(AttnParams p) {
   }
 
   const bool self_term = ok && p.sk != nullptr;
+  // the self term's k and v rows, lane owns dims lane + 32·e (every warp
+  // holds both rows; for int8 their storage round trip)
+  float skr[DL], svr[DL];
+  if (self_term) {
+#pragma unroll
+    for (int e = 0; e < DL; ++e) {
+      skr[e] = bf16f(p.sk[static_cast<size_t>(bh) * D + lane + 32 * e]);
+      svr[e] = bf16f(p.sv[static_cast<size_t>(bh) * D + lane + 32 * e]);
+    }
+    if constexpr (Q) {
+      float ak = 0.f, av = 0.f;
+#pragma unroll
+      for (int e = 0; e < DL; ++e) {
+        ak = fmaxf(ak, fabsf(skr[e]));
+        av = fmaxf(av, fabsf(svr[e]));
+      }
+      const float sck = __fmul_rn(warp_max(ak), kRcp127);
+      const float scv = __fmul_rn(warp_max(av), kRcp127);
+#pragma unroll
+      for (int e = 0; e < DL; ++e) {
+        skr[e] = mirror_i8(skr[e], sck);
+        svr[e] = mirror_i8(svr[e], scv);
+      }
+    }
+  }
 #pragma unroll
   for (int a = 0; a < kMaxG / kWarps; ++a) {
     const int g = warp + a * kWarps;
@@ -229,8 +313,8 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(AttnParams p) {
     float l = lrow[g];
     if (self_term) {
       float s = 0.f;
-      for (int d = lane; d < D; d += 32)
-        s = __fmaf_rn(qs[g * D + d], bf16f(p.sk[static_cast<size_t>(bh) * D + d]), s);
+#pragma unroll
+      for (int e = 0; e < DL; ++e) s = __fmaf_rn(qs[g * D + lane + 32 * e], skr[e], s);
       s = warp_sum(s);
       if (p.softcap > 0.f) s = p.softcap * tanhf(s / p.softcap);
       const float m_prev = mrow[g];
@@ -238,9 +322,7 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(AttnParams p) {
       const float alpha = expf(m_prev - m2);
       const float ps_self = expf(s - m2);
 #pragma unroll
-      for (int e = 0; e < DL; ++e)
-        acc[a][e] = acc[a][e] * alpha
-                    + ps_self * bf16f(p.sv[static_cast<size_t>(bh) * D + lane + 32 * e]);
+      for (int e = 0; e < DL; ++e) acc[a][e] = acc[a][e] * alpha + ps_self * svr[e];
       l = l * alpha + ps_self;
     }
     l = fmaxf(l, 1e-30f);
@@ -250,37 +332,37 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(AttnParams p) {
   }
 }
 
-template <int D>
+template <int D, bool Q>
 cudaError_t launch(const AttnParams& p, int B, cudaStream_t st) {
   // raise the dynamic shared memory limit once, for the largest G taken
-  // (before any stream capture: the first launch of each D does it)
+  // (before any stream capture: the first launch of each form does it)
   static const cudaError_t configured = cudaFuncSetAttribute(
-      decode_attn_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      decode_attn_kernel<D, Q>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem_bytes<D>(kMaxG)));
   if (configured != cudaSuccess) return configured;
   const size_t smem = smem_bytes<D>(p.G);
-  decode_attn_kernel<D><<<B * p.Hkv, kThreads, smem, st>>>(p);
+  decode_attn_kernel<D, Q><<<B * p.Hkv, kThreads, smem, st>>>(p);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // D (the cache's storage head dim) must be 128, the only width ported yet
-// (head dims up to 128 are stored lane-padded to it), and G <= 16.
+// (head dims up to 128 are stored lane-padded to it), and G <= 16.  ks and
+// vs non-null select the int8 form (k, v int8), null the bf16 form.
 // Returns the CUDA error of the launch (0 on success).
-extern "C" int bt_decode_attn(const void* q, const void* k, const void* v, const void* sk,
-                              const void* sv, const void* lens, const void* self_ok, void* out,
-                              int B, int Hkv, int G, int S, int D, int win, float softcap,
-                              void* stream) {
-  AttnParams p{static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-               static_cast<const uint16_t*>(v), static_cast<const uint16_t*>(sk),
+extern "C" int bt_decode_attn(const void* q, const void* k, const void* v, const void* ks,
+                              const void* vs, const void* sk, const void* sv, const void* lens,
+                              const void* self_ok, void* out, int B, int Hkv, int G, int S,
+                              int D, int win, float softcap, void* stream) {
+  AttnParams p{static_cast<const uint16_t*>(q), k, v, static_cast<const float*>(ks),
+               static_cast<const float*>(vs), static_cast<const uint16_t*>(sk),
                static_cast<const uint16_t*>(sv), static_cast<const int*>(lens),
                static_cast<const int*>(self_ok), static_cast<float*>(out),
                Hkv, G, S, win, softcap};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (G > kMaxG || G < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e;
-  if (D == 128) e = launch<128>(p, B, st);
-  else e = cudaErrorInvalidValue;
+  if (G > kMaxG || G < 1 || D != 128 || (ks == nullptr) != (vs == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = ks != nullptr ? launch<128, true>(p, B, st) : launch<128, false>(p, B, st);
   return static_cast<int>(e);
 }

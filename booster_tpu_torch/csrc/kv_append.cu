@@ -1,8 +1,9 @@
 // Deferred decode KV append: every layer's new row for every slot, in one launch.
 //
-// Replaces _append_all_kernel_plain (booster_tpu/ops/pallas_kv.py), the bf16
-// cache variant of kv_append_all_layers.  After the layer loop of a T = 1
-// decode step, the new k/v rows [L, B, H, d] are written at row offsets[b]
+// bt_kv_append replaces _append_all_kernel_plain (booster_tpu/ops/pallas_kv.py),
+// the bf16 cache variant of kv_append_all_layers; bt_kv_append_i8 replaces
+// _append_all_kernel_quant, its int8 variant (kv_append_i8_kernel below).
+// After the layer loop of a T = 1 decode step, the new k/v rows [L, B, H, d] are written at row offsets[b]
 // (clamped to S - 1) of every layer of the stacked cache [L, B, H, S, D],
 // zero-padded from d to the storage width D.  Unlike the TPU kernel, which
 // rewrites an aligned 8-row window (and clobbers the rows after the offset,
@@ -19,6 +20,8 @@
 
 namespace {
 
+constexpr float kRcp127 = 0x1.020408p-7f;  // f32(1/127), the reference's compiled scale factor
+
 __global__ void kv_append_kernel(uint16_t* k, uint16_t* v, const uint16_t* nk,
                                  const uint16_t* nv, const int* offsets,
                                  int B, int H, int S, int D, int d) {
@@ -33,7 +36,62 @@ __global__ void kv_append_kernel(uint16_t* k, uint16_t* v, const uint16_t* nk,
   }
 }
 
+// int8 cache: each new row (zero-padded from d to D = 128 lanes, one thread
+// per lane) is quantized as the reference computes it, in f32: scale =
+// amax · f32(1/127) (the reference's amax / 127.0 as XLA compiles it),
+// q = round-half-even(x / max(scale, 1e-12)).  Explicit rounding
+// (__fmul_rn, IEEE __fdiv_rn, rintf) keeps payload and scale bit-exact with
+// the plain version and with the self term that decode attention mirrors
+// before the append lands; a zero row gives scale 0 and payload 0.  The
+// payload row and its scale go to row min(offsets[b], S - 1).  Bound on the
+// H100: like the bf16 form, the launch (the rows read and written are ~1 MB
+// at L = 22, B = 64).
+__global__ void __launch_bounds__(128) kv_append_i8_kernel(
+    int8_t* k, int8_t* v, float* ks, float* vs, const uint16_t* nk, const uint16_t* nv,
+    const int* offsets, int B, int H, int S, int d) {
+  constexpr int D = 128;
+  __shared__ float red[2][4];
+  const int row = blockIdx.x;  // (l * B + b) * H + h
+  const int b = (row / H) % B;
+  const int off = min(max(offsets[b], 0), S - 1);
+  const int i = threadIdx.x, lane = i & 31, warp = i >> 5;
+  const size_t src = static_cast<size_t>(row) * d;
+  float x[2];
+  x[0] = i < d ? __uint_as_float(static_cast<uint32_t>(nk[src + i]) << 16) : 0.f;
+  x[1] = i < d ? __uint_as_float(static_cast<uint32_t>(nv[src + i]) << 16) : 0.f;
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    float a = fabsf(x[t]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, o));
+    if (lane == 0) red[t][warp] = a;
+  }
+  __syncthreads();
+  const size_t dst = static_cast<size_t>(row) * S + off;
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    const float amax = fmaxf(fmaxf(red[t][0], red[t][1]), fmaxf(red[t][2], red[t][3]));
+    const float scale = __fmul_rn(amax, kRcp127);
+    const float q = rintf(__fdiv_rn(x[t], fmaxf(scale, 1e-12f)));
+    (t == 0 ? k : v)[dst * D + i] = static_cast<int8_t>(q);
+    if (i == 0) (t == 0 ? ks : vs)[dst] = scale;
+  }
+}
+
 }  // namespace
+
+// k, v: [L, B, H, S, 128] int8 and ks, vs: [L, B, H, S] f32 (updated in
+// place); nk, nv: [L, B, H, d] bf16, d <= 128; offsets: [B] int32.
+extern "C" int bt_kv_append_i8(void* k, void* v, void* ks, void* vs, const void* nk,
+                               const void* nv, const void* offsets, int L, int B, int H, int S,
+                               int D, int d, void* stream) {
+  if (D != 128 || d > D || d < 1) return static_cast<int>(cudaErrorInvalidValue);
+  kv_append_i8_kernel<<<L * B * H, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int8_t*>(k), static_cast<int8_t*>(v), static_cast<float*>(ks),
+      static_cast<float*>(vs), static_cast<const uint16_t*>(nk),
+      static_cast<const uint16_t*>(nv), static_cast<const int*>(offsets), B, H, S, d);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // k, v: [L, B, H, S, D] bf16 (updated in place); nk, nv: [L, B, H, d] bf16;
 // offsets: [B] int32.  Returns the CUDA error of the launch (0 on success).

@@ -6,11 +6,16 @@ QTensor's ``at(i)`` view, the cache's layer): no per-layer copy of weights
 or cache.  Two forms, as in the JAX package:
 
 - T > 1 (prefill): each layer writes its new rows into the cache
-  (``kv_cache.update_layer``) and attends with the masked plain attention.
+  (``kv_cache.update_layer``, quantized for an int8 cache) and attends: over
+  an int8 cache, where ``prefill_supported`` takes the shape, with the
+  chunked-prefill kernel (``ops.prefill_attention``), which reads the
+  cache, this chunk included, as int8 (the reference's fused-prefill gate,
+  ``booster_tpu/models/llama.py:666-670``); otherwise with the masked plain
+  attention over the (dequantized) cache.
 - T = 1 (decode) over the stacked cache: attention (``ops.decode_attention``,
   the CUDA kernel) reads the cache as it was before this token and folds the
-  new row in as a self term; the rows of all layers land in one launch after
-  the loop (``ops.kv_append``).
+  new row in as a self term (live where ``n_valid > 0``); the rows of all
+  layers land in one launch after the loop (``ops.kv_append``).
 
 The cache is updated in place and returned.  Other architectures and the
 llama family's options (MoE, MLA, biases, sliding-window patterns) are not
@@ -27,8 +32,9 @@ from booster_tpu_torch.models.config import ModelConfig
 from booster_tpu_torch.ops.attention import attention, build_mask
 from booster_tpu_torch.ops.decode_attention import decode_attention_stacked
 from booster_tpu_torch.ops.kv_append import kv_append
-from booster_tpu_torch.ops.kv_cache import KVCache, update_layer
+from booster_tpu_torch.ops.kv_cache import KVCache, dequant_kv, update_layer
 from booster_tpu_torch.ops.linear import qlinear
+from booster_tpu_torch.ops.prefill_attention import prefill_attention, prefill_supported
 from booster_tpu_torch.ops.qmm import qmm_gateup, silu
 from booster_tpu_torch.ops.rope import apply_rope_tables, rope_tables
 from booster_tpu_torch.quant.qtensor import QTensor
@@ -57,7 +63,7 @@ def _layer_view(layers: dict[str, Any], i: int) -> dict[str, Any]:
 
 
 def _layer(x, lp, i, cache, positions, cos, sin, mask, offsets, kv_valid, cfg,
-           decode: bool, self_ok=None):
+           decode: bool, self_ok=None, fused_prefill: bool = False):
     """One decoder layer; returns (x, (k, v)) with the layer's new roped rows."""
     B, T, C = x.shape
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -75,16 +81,25 @@ def _layer(x, lp, i, cache, positions, cos, sin, mask, offsets, kv_valid, cfg,
 
     scale = cfg.attn_scale if cfg.attn_scale > 0 else 1.0 / (D ** 0.5)
     window = cfg.sliding_window if cfg.sliding_window > 0 else None
+    ks = None if cache.k_scale is None else cache.k_scale[i]
+    vs = None if cache.v_scale is None else cache.v_scale[i]
     if decode:
         attn_out = decode_attention_stacked(
             q, cache.k, cache.v, i, kv_valid, scale=scale,
             logit_softcap=cfg.attn_logit_softcap, window=window,
-            self_kv=(k.reshape(B, Hkv, D), v.reshape(B, Hkv, D), self_ok))
+            self_kv=(k.reshape(B, Hkv, D), v.reshape(B, Hkv, D), self_ok),
+            k_scale=cache.k_scale, v_scale=cache.v_scale)
     else:
-        update_layer(cache.k[i], cache.v[i], k, v, offsets)
-        attn_out = attention(q, cache.k[i][..., :D], cache.v[i][..., :D], positions,
-                             kv_valid, scale=scale, logit_softcap=cfg.attn_logit_softcap,
-                             mask=mask)
+        update_layer(cache.k[i], cache.v[i], k, v, offsets, ks, vs)
+        if fused_prefill:
+            attn_out = prefill_attention(q, cache.k[i], cache.v[i], ks, vs, kv_valid,
+                                         scale=scale, logit_softcap=cfg.attn_logit_softcap,
+                                         window=window, pos0=offsets)
+        else:
+            attn_out = attention(
+                q, dequant_kv(cache.k[i][..., :D], ks, x.dtype),
+                dequant_kv(cache.v[i][..., :D], vs, x.dtype), positions, kv_valid,
+                scale=scale, logit_softcap=cfg.attn_logit_softcap, mask=mask)
     x = x + qlinear(attn_out.reshape(B, T, -1), lp["wo"])
 
     h = rms_norm(x, lp["ffn_norm"], cfg.rms_eps, cfg.norm_eps_add_one)
@@ -133,14 +148,17 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: KVCache
                                None, offsets, offsets, cfg, decode=True, self_ok=self_ok)
             new_k.append(k.reshape(B, cfg.n_kv_heads, -1))
             new_v.append(v.reshape(B, cfg.n_kv_heads, -1))
-        kv_append(cache.k, cache.v, torch.stack(new_k), torch.stack(new_v), offsets)
+        kv_append(cache.k, cache.v, torch.stack(new_k), torch.stack(new_v), offsets,
+                  cache.k_scale, cache.v_scale)
     else:
         kv_valid = offsets + adv
-        mask = build_mask(positions, kv_valid, S,
-                          cfg.sliding_window if cfg.sliding_window > 0 else None)
+        fused = cache.quantized and prefill_supported(T, S, cache.k.shape[-1], cfg.n_heads,
+                                                      cfg.n_kv_heads)
+        mask = None if fused else build_mask(
+            positions, kv_valid, S, cfg.sliding_window if cfg.sliding_window > 0 else None)
         for i in range(cfg.n_layers):
             x, _ = _layer(x, _layer_view(layers, i), i, cache, positions, cos, sin,
-                          mask, offsets, kv_valid, cfg, decode=False)
+                          mask, offsets, kv_valid, cfg, decode=False, fused_prefill=fused)
     return _finish(params, cfg, x, emb, cache, gather_idx, last_only, adv)
 
 

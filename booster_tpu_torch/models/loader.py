@@ -2,7 +2,9 @@
 layers stacked on a leading axis).
 
 Port of the llama path of ``booster_tpu/models/loader.py``: every Q4_0
-weight is repacked losslessly (quant.qtensor), the q/k rows of
+weight is repacked losslessly (quant.qtensor) or, with ``weights="bf16"``,
+dequantized exactly to dense bf16 (``"auto"`` picks as the JAX loader
+does), the q/k rows of
 interleaved-rope models are de-interleaved so rope runs in the neox form
 (exact), q/k/v and gate/up rows are fused into one matmul each, layers are
 stacked, and the stacks are transposed to the K-major i4t layout with bf16
@@ -28,6 +30,7 @@ from booster_tpu_torch.quant.qtensor import (
     QTensor,
     compact_scales,
     prepare_kernel_scales,
+    repack_weights,
     to_torch,
     transpose_qtensor,
 )
@@ -49,6 +52,24 @@ _NORM_KEYS = {"attn_norm", "ffn_norm"}
 _PORTED_ARCHS = {"llama"}
 
 
+# weights="auto" takes bf16 only when the whole file fits in this many bytes
+# as bf16: the JAX loader's default (booster_tpu/models/loader.py:296)
+WEIGHTS_BF16_MAX_BYTES = 6 << 30
+
+
+def _stack(arrs, axis=None):
+    """np.stack (axis None) or np.concatenate of numpy payloads, the torch
+    counterparts for dense bf16 payloads (numpy has no bf16)."""
+    if torch.is_tensor(arrs[0]):
+        return torch.stack(arrs) if axis is None else torch.cat(arrs, dim=axis)
+    arrs = [np.asarray(a) for a in arrs]
+    return np.stack(arrs) if axis is None else np.concatenate(arrs, axis=axis)
+
+
+def _take_rows(a, perm: np.ndarray):
+    return a[torch.from_numpy(perm)] if torch.is_tensor(a) else np.asarray(a)[perm]
+
+
 def _stack_qtensors(qts: list[QTensor]) -> QTensor:
     """Stack per-layer QTensors along a new leading axis."""
     q0 = qts[0]
@@ -57,9 +78,9 @@ def _stack_qtensors(qts: list[QTensor]) -> QTensor:
             raise ValueError("cannot stack heterogeneous layer tensors")
     return QTensor(
         kind=q0.kind,
-        qw=np.stack([np.asarray(q.qw) for q in qts]),
-        scales=None if q0.scales is None else np.stack([np.asarray(q.scales) for q in qts]),
-        mins=None if q0.mins is None else np.stack([np.asarray(q.mins) for q in qts]),
+        qw=_stack([q.qw for q in qts]),
+        scales=None if q0.scales is None else _stack([q.scales for q in qts]),
+        mins=None if q0.mins is None else _stack([q.mins for q in qts]),
         group=q0.group,
         shape=q0.shape,
         source_type=q0.source_type,
@@ -80,7 +101,7 @@ def _concat_rows(qts: list[QTensor]) -> Optional[QTensor]:
     def cat(name):
         if getattr(q0, name) is None:
             return None
-        return np.concatenate([np.asarray(getattr(q, name)) for q in qts], axis=0)
+        return _stack([getattr(q, name) for q in qts], axis=0)
 
     return QTensor(kind=q0.kind, qw=cat("qw"), scales=cat("scales"), mins=cat("mins"),
                    group=q0.group, shape=(sum(q.shape[0] for q in qts), q0.shape[1]),
@@ -102,9 +123,9 @@ def deinterleave_perm(n_heads: int, head_dim: int, d_rot: int) -> np.ndarray:
 def _permute_rows(t: QTensor, perm: np.ndarray) -> QTensor:
     return dataclasses.replace(
         t,
-        qw=np.asarray(t.qw)[perm],
-        scales=None if t.scales is None else np.asarray(t.scales)[perm],
-        mins=None if t.mins is None else np.asarray(t.mins)[perm],
+        qw=_take_rows(t.qw, perm),
+        scales=None if t.scales is None else _take_rows(t.scales, perm),
+        mins=None if t.mins is None else _take_rows(t.mins, perm),
     )
 
 
@@ -126,15 +147,34 @@ class LoadedModel:
     device: torch.device
 
 
-def load_model(path: str, device="cuda") -> LoadedModel:
+def resolve_weights(reader: GGUFReader, weights: str, batch_hint: int) -> str:
+    """The weight format `load_model` uses: "auto" keeps the file's
+    quantization for small decode batches (0 < batch_hint < 8, where the
+    4-bit matvec kernels win) and takes bf16 otherwise, when the file fits
+    in WEIGHTS_BF16_MAX_BYTES as bf16 (``booster_tpu/models/loader.py:292-305``)."""
+    if weights != "auto":
+        return weights
+    if 0 < batch_hint < 8:
+        return "native"
+    n_elems = sum(int(np.prod(info.shape)) for info in reader.tensors.values())
+    return "bf16" if 2 * n_elems <= WEIGHTS_BF16_MAX_BYTES else "native"
+
+
+def load_model(path: str, device="cuda", weights: str = "native",
+               batch_hint: int = 0) -> LoadedModel:
     """Read a GGUF file and build the params on `device` (CUDA by default;
-    raises when CUDA is absent and the CPU was not asked for)."""
+    raises when CUDA is absent and the CPU was not asked for).  `weights` is
+    "native", "bf16" or "auto" (see resolve_weights; `batch_hint` is the
+    expected decode batch, 0 = unknown)."""
     dev = resolve_device(device)
+    if weights not in ("native", "bf16", "auto"):
+        raise NotImplementedError(f"weights={weights!r}: not ported yet")
     reader = GGUFReader(path)
     try:
         cfg = ModelConfig.from_gguf_metadata(reader.metadata)
         if cfg.arch not in _PORTED_ARCHS:
             raise NotImplementedError(f"architecture {cfg.arch!r}: not ported yet")
+        weights = resolve_weights(reader, weights, batch_hint)
         tokenizer = None
         if "tokenizer.ggml.tokens" in reader.metadata:
             tokenizer = Tokenizer.from_gguf_metadata(reader.metadata)
@@ -150,7 +190,8 @@ def load_model(path: str, device="cuda") -> LoadedModel:
             info = reader.tensors.get(name)
             if info is None:
                 return None
-            return repack_gguf_tensor(reader.tensor_bytes(info), info.ggml_type, info.shape)
+            qt = repack_gguf_tensor(reader.tensor_bytes(info), info.ggml_type, info.shape)
+            return repack_weights(qt, weights)
 
         params: dict[str, Any] = {}
         emb = load_dense("token_embd.weight")

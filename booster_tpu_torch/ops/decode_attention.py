@@ -1,20 +1,24 @@
-"""T = 1 decode attention over one layer of the stacked bf16 KV cache.
+"""T = 1 decode attention over one layer of the stacked KV cache (bf16, or
+int8 with per-row scales).
 
 Counterpart of ``decode_attention_stacked`` in
-``booster_tpu/ops/pallas_attention.py`` (bf16 cache) and of the masking of
-its ``decode_prep``: per slot the valid cache columns are
+``booster_tpu/ops/pallas_attention.py`` and of the masking of its
+``decode_prep``: per slot the valid cache columns are
 ``[lens - window + self_ok, lens)``, and with the deferred append the new
 token's k/v, not yet in the cache, are folded in as a self term.
-``decode_attn`` runs the kernel of ``csrc/decode_attn.cu`` on CUDA tensors
+``decode_attn`` runs a kernel of ``csrc/decode_attn.cu`` on CUDA tensors
 and ``decode_attn_plain`` on CPU tensors.
 
 The plain version mirrors the Pallas kernel with one S tile (the tile the
-reference picks up to S = 1024): f32 scores of the bf16 q and k, optional
+reference picks up to S = 1024): f32 scores of the bf16 q and the k rows
+(int8 cast exactly, then the score times the row's k scale), optional
 softcap, masked softmax whose sum ``l`` takes the unrounded p while PV takes
-bf16(p), then the self term merged in f32 and ``acc / max(l, 1e-30)``.  The
-kernel walks the valid columns in chunks with an online softmax, so its
-result differs from the plain one by f32 summation order and by bf16(p)
-rounded against another running max.
+bf16(p), or bf16(p · v scale) for int8, then the self term merged in f32 and
+``acc / max(l, 1e-30)``.  For int8 the self term's k/v are first put through
+the storage round trip (``self_row``: quantized and dequantized in f32, the
+row the append will write).  The kernel walks the valid columns in chunks
+with an online softmax, so its result differs from the plain one by f32
+summation order and by bf16(p) rounded against another running max.
 """
 
 from __future__ import annotations
@@ -26,26 +30,40 @@ import torch
 import torch.nn.functional as F
 
 from booster_tpu_torch.ops import kernels
+from booster_tpu_torch.ops.kv_cache import _quantize_kv
 
 NEG = -1e30
 
 _SIGNATURES = {
-    "bt_decode_attn": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+    "bt_decode_attn": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
     + [ctypes.c_float, ctypes.c_void_p],
 }
 
 
+def self_row(x: torch.Tensor, quantized: bool) -> torch.Tensor:
+    """The self term's k or v [..., D] in f32 as the cache will hold it:
+    bf16, or quantized and dequantized (q · scale in f32) for int8."""
+    if not quantized:
+        return x.to(torch.bfloat16).float()
+    q, scale = _quantize_kv(x.float())
+    return q.float() * scale
+
+
 def decode_attn_plain(qb, k_cache, v_cache, layer: int, lens, win: int,
                       softcap: float = 0.0, self_k=None, self_v=None,
-                      self_ok=None) -> torch.Tensor:
-    """qb [B, Hkv, G, D] bf16 (pre-scaled), cache [L, B, Hkv, S, D] bf16,
-    lens [B] i32, win (>= S + 1 disables the window), self_k/self_v
-    [B, Hkv, D] bf16 and self_ok [B] i32 or None → [B, Hkv, G, D] f32."""
+                      self_ok=None, k_scale=None, v_scale=None) -> torch.Tensor:
+    """qb [B, Hkv, G, D] bf16 (pre-scaled), cache [L, B, Hkv, S, D] bf16 or
+    int8 with scales [L, B, Hkv, S, 1] f32, lens [B] i32, win (>= S + 1
+    disables the window), self_k/self_v [B, Hkv, D] bf16 and self_ok [B] i32
+    or None → [B, Hkv, G, D] f32."""
     S = k_cache.shape[3]
+    quant = k_scale is not None
     k = k_cache[layer].float()
     v = v_cache[layer].float()
     qf = qb.float()
     s = torch.einsum("bhgd,bhsd->bhgs", qf, k)
+    if quant:
+        s = s * k_scale[layer][..., 0][:, :, None, :]
     if softcap > 0.0:
         s = softcap * torch.tanh(s / softcap)
     has_self = self_k is not None
@@ -57,10 +75,12 @@ def decode_attn_plain(qb, k_cache, v_cache, layer: int, lens, win: int,
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
+    if quant:
+        p = p * v_scale[layer][..., 0][:, :, None, :]
     acc = torch.einsum("bhgs,bhsd->bhgd", p.to(torch.bfloat16).float(), v)
     if has_self:
-        skf = self_k.float()
-        svf = self_v.float()
+        skf = self_row(self_k, quant)
+        svf = self_row(self_v, quant)
         s_self = torch.einsum("bhgd,bhd->bhg", qf, skf)[..., None]
         if softcap > 0.0:
             s_self = softcap * torch.tanh(s_self / softcap)
@@ -76,22 +96,30 @@ def decode_attn_plain(qb, k_cache, v_cache, layer: int, lens, win: int,
 
 def decode_attn(qb, k_cache, v_cache, layer: int, lens, win: int,
                 softcap: float = 0.0, self_k=None, self_v=None,
-                self_ok=None) -> torch.Tensor:
+                self_ok=None, k_scale=None, v_scale=None) -> torch.Tensor:
     """Kernel-level entry with decode_attn_plain's arguments: the plain
     version for CPU tensors, the CUDA kernel for CUDA tensors."""
     if qb.device.type == "cpu":
         return decode_attn_plain(qb, k_cache, v_cache, layer, lens, win, softcap,
-                                 self_k, self_v, self_ok)
+                                 self_k, self_v, self_ok, k_scale, v_scale)
     B, Hkv, G, D = qb.shape
     L, Bc, Hc, S, Dc = k_cache.shape
     bf = torch.bfloat16
+    quant = k_scale is not None
     if (Bc, Hc, Dc) != (B, Hkv, D) or v_cache.shape != k_cache.shape:
         raise ValueError("decode_attn kernel: q [B, Hkv, G, D] does not match the "
                          "cache [L, B, Hkv, S, D]")
-    if qb.dtype != bf or k_cache.dtype != bf or v_cache.dtype != bf:
-        raise ValueError("decode_attn kernel: q and the cache must be bf16")
+    if qb.dtype != bf or k_cache.dtype != v_cache.dtype or k_cache.dtype != (
+            torch.int8 if quant else bf):
+        raise ValueError("decode_attn kernel: q must be bf16 and the cache bf16, or "
+                         "int8 with scales")
     if not (qb.is_contiguous() and k_cache.is_contiguous() and v_cache.is_contiguous()):
         raise ValueError("decode_attn kernel: operands must be contiguous")
+    if quant and (v_scale is None or k_scale.shape != (L, B, Hkv, S, 1)
+                  or v_scale.shape != k_scale.shape or k_scale.dtype != torch.float32
+                  or v_scale.dtype != torch.float32
+                  or not (k_scale.is_contiguous() and v_scale.is_contiguous())):
+        raise ValueError("decode_attn kernel: scales must be contiguous f32 [L, B, Hkv, S, 1]")
     if D != 128:
         raise NotImplementedError(f"decode_attn kernel: cache head dim {D}: not ported yet "
                                   "(the kernel takes the 128-lane storage width)")
@@ -109,23 +137,27 @@ def decode_attn(qb, k_cache, v_cache, layer: int, lens, win: int,
     lib = kernels.library("decode_attn", _SIGNATURES)
     rc = lib.bt_decode_attn(
         qb.data_ptr(), k_cache[layer].data_ptr(), v_cache[layer].data_ptr(),
+        k_scale[layer].data_ptr() if quant else None,
+        v_scale[layer].data_ptr() if quant else None,
         self_k.data_ptr() if has_self else None,
         self_v.data_ptr() if has_self else None,
         lens.data_ptr(), self_ok.data_ptr() if has_self else None, out.data_ptr(),
         B, Hkv, G, S, D, int(win), float(softcap),
         torch.cuda.current_stream(qb.device).cuda_stream)
-    kernels.check(rc, "decode_attn")
-    kernels.count("decode_attn")
+    name = "decode_attn_i8" if quant else "decode_attn"
+    kernels.check(rc, name)
+    kernels.count(name)
     return out
 
 
 def decode_attention_stacked(q, k_cache, v_cache, layer: int, kv_valid_len,
                              scale: float, logit_softcap: float = 0.0,
                              window: Optional[int] = None,
-                             self_kv=None) -> torch.Tensor:
+                             self_kv=None, k_scale=None, v_scale=None) -> torch.Tensor:
     """q [B, 1, H, Dq] (roped) over layer `layer` of the stacked cache
-    [L, B, Hkv, S, D] → [B, 1, H, Dq] in q.dtype.  `self_kv` = (k [B, Hkv, d],
-    v [B, Hkv, d], ok [B]) is the new token's row (deferred append)."""
+    [L, B, Hkv, S, D] (bf16, or int8 with scales [L, B, Hkv, S, 1]) →
+    [B, 1, H, Dq] in q.dtype.  `self_kv` = (k [B, Hkv, d], v [B, Hkv, d],
+    ok [B]) is the new token's row (deferred append)."""
     B, T, H, Dq = q.shape
     if T != 1:
         raise ValueError("decode attention takes one query token")
@@ -147,7 +179,7 @@ def decode_attention_stacked(q, k_cache, v_cache, layer: int, kv_valid_len,
 
         sk, sv = pad(sk), pad(sv)
     out = decode_attn(qb, k_cache, v_cache, layer, kv_valid_len, win,
-                      logit_softcap, sk, sv, ok)
+                      logit_softcap, sk, sv, ok, k_scale, v_scale)
     out = out.reshape(B, 1, H, D)
     if Dq < D:
         out = out[..., :Dq]

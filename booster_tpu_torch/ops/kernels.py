@@ -32,13 +32,15 @@ SOURCES = {
     "qmm_i4t": "qmm_i4t.cu",
     "decode_attn": "decode_attn.cu",
     "kv_append": "kv_append.cu",
+    "prefill_attn": "prefill_attn.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
 
 # kernel name → launches made by its wrapper (reset by callers that count);
-# _gd is the M = 1 group-dot form, _dq the M > 1 dequantize form
+# _gd is the M = 1 group-dot form, _dq the M > 1 dequantize form, _i8 the
+# int8-cache form
 launch_counts = {
     "qmm_i4t_gd": 0,
     "qmm_i4t_dq": 0,
@@ -46,6 +48,9 @@ launch_counts = {
     "qmm_i4t_gateup_dq": 0,
     "decode_attn": 0,
     "kv_append": 0,
+    "decode_attn_i8": 0,
+    "kv_append_i8": 0,
+    "prefill_attn_i8": 0,
 }
 # (kernel name, (K, N)) → launches, for the matmul kernels
 shape_counts: dict = {}

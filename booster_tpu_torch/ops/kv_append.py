@@ -1,12 +1,15 @@
 """Deferred decode append: all layers' new KV rows in one launch.
 
-Counterpart of ``kv_append_all_layers`` in ``booster_tpu/ops/pallas_kv.py``
-(bf16 cache): after the layer loop of a T = 1 step, the new rows
-[L, B, H, d] land at row ``offsets[b]`` (clamped to S - 1) of every layer of
-the stacked cache [L, B, H, S, D], zero-padded to the storage width D.
-``kv_append`` runs the kernel of ``csrc/kv_append.cu`` on CUDA tensors and
-``kv_append_plain`` on CPU tensors.  Both update the cache in place (the
-JAX version returns new arrays) and write only row ``offsets[b]``.
+Counterpart of ``kv_append_all_layers`` in ``booster_tpu/ops/pallas_kv.py``:
+after the layer loop of a T = 1 step, the new rows [L, B, H, d] land at row
+``offsets[b]`` (clamped to S - 1) of every layer of the stacked cache
+[L, B, H, S, D], zero-padded to the storage width D.  For an int8 cache
+(scales given) each padded row is quantized first (``kv_cache._quantize_kv``:
+scale = amax/127 in f32, payload round-half-even(x / max(scale, 1e-12))) and
+its scale lands beside it.  ``kv_append`` runs a kernel of
+``csrc/kv_append.cu`` on CUDA tensors and ``kv_append_plain`` on CPU
+tensors; the two are bit-exact.  Both update the cache in place (the JAX
+version returns new arrays) and write only row ``offsets[b]``.
 """
 
 from __future__ import annotations
@@ -17,43 +20,67 @@ import torch
 import torch.nn.functional as F
 
 from booster_tpu_torch.ops import kernels
+from booster_tpu_torch.ops.kv_cache import _quantize_kv
 
 _SIGNATURES = {
     "bt_kv_append": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "bt_kv_append_i8": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 }
 
 
-def kv_append_plain(k_all, v_all, new_k, new_v, offsets) -> None:
+def kv_append_plain(k_all, v_all, new_k, new_v, offsets, k_scale_all=None,
+                    v_scale_all=None) -> None:
     """k_all/v_all [L, B, H, S, D] (in place), new_k/new_v [L, B, H, d],
-    offsets [B]."""
+    offsets [B], scales [L, B, H, S, 1] f32 for an int8 cache."""
     L, B, H, S, D = k_all.shape
     off = offsets.to(torch.int64).clamp(0, S - 1)
     b = torch.arange(B, device=k_all.device)
-    for cache, new in ((k_all, new_k), (v_all, new_v)):
-        row = F.pad(new, (0, D - new.shape[-1])).to(cache.dtype)  # [L, B, H, D]
-        cache[:, b, :, off, :] = row.permute(1, 0, 2, 3)
+    for cache, scales, new in ((k_all, k_scale_all, new_k), (v_all, v_scale_all, new_v)):
+        row = F.pad(new, (0, D - new.shape[-1]))  # [L, B, H, D]
+        if scales is not None:
+            row, s = _quantize_kv(row)
+            scales[:, b, :, off, :] = s.permute(1, 0, 2, 3)
+        cache[:, b, :, off, :] = row.to(cache.dtype).permute(1, 0, 2, 3)
 
 
-def kv_append(k_all, v_all, new_k, new_v, offsets) -> None:
+def kv_append(k_all, v_all, new_k, new_v, offsets, k_scale_all=None,
+              v_scale_all=None) -> None:
     """Kernel-level entry: the plain version for CPU tensors, the CUDA
     kernel for CUDA tensors."""
     if k_all.device.type == "cpu":
-        return kv_append_plain(k_all, v_all, new_k, new_v, offsets)
+        return kv_append_plain(k_all, v_all, new_k, new_v, offsets, k_scale_all, v_scale_all)
     L, B, H, S, D = k_all.shape
     d = new_k.shape[-1]
-    bf = torch.bfloat16
-    if k_all.dtype != bf or v_all.dtype != bf or v_all.shape != k_all.shape:
-        raise ValueError("kv_append kernel: the cache must be bf16 k/v of one shape")
+    quant = k_scale_all is not None
+    dt = torch.int8 if quant else torch.bfloat16
+    if k_all.dtype != dt or v_all.dtype != dt or v_all.shape != k_all.shape:
+        raise ValueError("kv_append kernel: the cache must be bf16 k/v of one shape, "
+                         "or int8 k/v with scales")
     if not (k_all.is_contiguous() and v_all.is_contiguous()):
         raise ValueError("kv_append kernel: the cache must be contiguous")
     if new_k.shape != (L, B, H, d) or new_v.shape != new_k.shape or d > D:
         raise ValueError("kv_append kernel: new rows must be [L, B, H, d <= D]")
-    new_k = new_k.to(bf).contiguous()
-    new_v = new_v.to(bf).contiguous()
+    new_k = new_k.to(torch.bfloat16).contiguous()
+    new_v = new_v.to(torch.bfloat16).contiguous()
     offsets = offsets.to(torch.int32).contiguous()
+    stream = torch.cuda.current_stream(k_all.device).cuda_stream
     lib = kernels.library("kv_append", _SIGNATURES)
+    if quant:
+        if (v_scale_all is None or k_scale_all.shape != (L, B, H, S, 1)
+                or v_scale_all.shape != k_scale_all.shape
+                or k_scale_all.dtype != torch.float32 or v_scale_all.dtype != torch.float32
+                or not (k_scale_all.is_contiguous() and v_scale_all.is_contiguous())):
+            raise ValueError("kv_append kernel: scales must be contiguous f32 [L, B, H, S, 1]")
+        if D != 128:
+            raise NotImplementedError(f"kv_append int8 kernel: storage head dim {D}: "
+                                      "not ported yet (the 128-lane width is)")
+        rc = lib.bt_kv_append_i8(k_all.data_ptr(), v_all.data_ptr(), k_scale_all.data_ptr(),
+                                 v_scale_all.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
+                                 offsets.data_ptr(), L, B, H, S, D, d, stream)
+        kernels.check(rc, "kv_append_i8")
+        kernels.count("kv_append_i8")
+        return
     rc = lib.bt_kv_append(k_all.data_ptr(), v_all.data_ptr(), new_k.data_ptr(),
-                          new_v.data_ptr(), offsets.data_ptr(), L, B, H, S, D, d,
-                          torch.cuda.current_stream(k_all.device).cuda_stream)
+                          new_v.data_ptr(), offsets.data_ptr(), L, B, H, S, D, d, stream)
     kernels.check(rc, "kv_append")
     kernels.count("kv_append")

@@ -13,7 +13,7 @@ with payload ``qw``:
                 (transpose_qtensor), with scale planes [R, in/(2G), out]:
                 rows 0-1 the scales of the two halves, rows 2-3 their mins
                 when the format is affine
-    kind="dense" bf16/f32 [out, in]   (no scales)
+    kind="dense" bf16 [out, in]   (no scales; ``repack_weights(qt, "bf16")``)
 
 The K-major i4t form is what ops/qmm.py's kernel (csrc/qmm_i4t.cu) reads:
 consecutive output columns are consecutive bytes, so a warp's loads of one
@@ -155,6 +155,23 @@ def repack_gguf_tensor(raw, ggml_type: GGMLType, shape: tuple[int, ...]) -> QTen
         return QTensor("dense", w, None, None, 1, (out_f, in_f), ggml_type)
     raw = np.frombuffer(raw, dtype=np.uint8) if isinstance(raw, (bytes, bytearray)) else raw
     return fn(raw.view(np.uint8).ravel(), out_f, in_f)
+
+
+def repack_weights(qt: QTensor, mode: str) -> QTensor:
+    """Load-time weight format (``booster_tpu/quant/qtensor.py::repack_weights``):
+    "native" keeps the file's quantization, "bf16" dequantizes exactly (f32
+    values from the stored scales, rounded once) to a ``dense`` QTensor
+    holding a CPU bf16 tensor [out, in].  Other modes are not ported yet."""
+    if mode == "native" or qt.kind == "dense":
+        return qt
+    if mode != "bf16":
+        raise NotImplementedError(f"weights={mode!r}: not ported yet")
+
+    def t(a):
+        return None if a is None else torch.from_numpy(np.ascontiguousarray(a))
+
+    w = dequantize(replace(qt, qw=t(qt.qw), scales=t(qt.scales), mins=t(qt.mins)))
+    return QTensor("dense", w, None, None, 1, qt.shape, qt.source_type)
 
 
 def prepare_kernel_scales(qt: QTensor) -> QTensor:

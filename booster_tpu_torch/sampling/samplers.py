@@ -22,33 +22,97 @@ from booster_tpu_torch.sampling.params import SamplingParams
 NEG_INF = float("-inf")
 
 
+_MASK32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def _mulhilo(a: int, b: torch.Tensor):
+    """(hi, lo) 32-bit halves of the 64-bit product a·b, for a constant a
+    and an int64 tensor b of 32-bit values, without overflowing int64."""
+    a_hi, a_lo = a >> 16, a & 0xFFFF
+    b_hi, b_lo = b >> 16, b & 0xFFFF
+    mid = a_hi * b_lo + a_lo * b_hi  # < 2^33
+    t = a_lo * b_lo + ((mid & 0xFFFF) << 16)  # < 2^33
+    return (a_hi * b_hi + (mid >> 16) + (t >> 32)) & _MASK32, t & _MASK32
+
+
+def philox4x32(counter, key, rounds: int = 10):
+    """Philox4x32 (Salmon et al., SC'11) over int64 tensors holding 32-bit
+    values: counter (c0, c1, c2, c3), key (k0, k1) → 4 words."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key
+    for _ in range(rounds):
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + _PHILOX_W[0]) & _MASK32
+        k1 = (k1 + _PHILOX_W[1]) & _MASK32
+    return c0, c1, c2, c3
+
+
+def philox_uniform(seed: torch.Tensor, step: torch.Tensor) -> torch.Tensor:
+    """f32 uniforms in [0, 1) (24 random bits) from Philox4x32-10 keyed by
+    `seed` at counter (step, 0, 0, 0); int64 tensors of one shape."""
+    seed = seed.to(torch.int64)
+    step = step.to(torch.int64)
+    zero = torch.zeros_like(step)
+    c0, _, _, _ = philox4x32((step & _MASK32, (step >> 32) & _MASK32, zero, zero),
+                             (seed & _MASK32, (seed >> 32) & _MASK32))
+    return (c0 >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def draw_categorical(logits: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """[B] indices drawn from softmax(logits [B, N]) (-inf = excluded) by
+    the inverse CDF at the uniforms u [B]; never an excluded index."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    idx = torch.searchsorted(cum, (u[:, None] * cum[:, -1:]).contiguous(), right=True)[:, 0]
+    n = logits.shape[-1]
+    last = torch.where(probs > 0, torch.arange(n, device=logits.device), 0).amax(-1)
+    return torch.minimum(idx, last)
+
+
 @dataclass
 class SamplerState:
     """Per-slot sampler state: the ring of the last N accepted tokens
     (prompt tokens seeded in), the count of accepted tokens, how many came
-    from the prompt, and one generator per slot."""
+    from the prompt, and each slot's seed and draw count (its generator)."""
 
     prev_tokens: torch.Tensor  # [B, N] int32 (-1 = empty)
     prev_pos: torch.Tensor  # [B] int32
     prompt_len: torch.Tensor  # [B] int32
-    generators: list
+    seed: torch.Tensor  # [B] int64
+    step: torch.Tensor  # [B] int64: draws taken by the slot
+
+
+def make_sampler_state(batch: int, window: int, seed: int = 0, device="cpu") -> SamplerState:
+    """Empty rings; slot s draws from seed `seed + s` until reset."""
+    z = torch.zeros(batch, dtype=torch.int32, device=device)
+    return SamplerState(torch.full((batch, window), -1, dtype=torch.int32, device=device),
+                        z, z.clone(),
+                        int(seed) + torch.arange(batch, dtype=torch.int64, device=device),
+                        torch.zeros(batch, dtype=torch.int64, device=device))
+
+
+def seed_prompt_row(state: SamplerState, row: int, ids) -> SamplerState:
+    """Seed one slot's ring with its prompt tokens (in place; reference
+    parity: every prompt token is accepted, so penalties see the prompt)."""
+    N = state.prev_tokens.shape[1]
+    n = len(ids)
+    ring = torch.full((N,), -1, dtype=torch.int32)
+    for p in range(max(0, n - N), n):
+        ring[p % N] = ids[p]
+    state.prev_tokens[row] = ring.to(state.prev_tokens.device)
+    state.prev_pos[row] = n
+    state.prompt_len[row] = n
+    return state
 
 
 def make_seeded_state(batch: int, window: int, seed: int, ids, device) -> SamplerState:
     """State for `batch` slots with slot 0's ring seeded with the prompt
     `ids` (reference parity: every prompt token is accepted)."""
-    ring = torch.full((batch, window), -1, dtype=torch.int32)
-    n = len(ids)
-    for p in range(max(0, n - window), n):
-        ring[0, p % window] = ids[p]
-    pos = torch.zeros(batch, dtype=torch.int32)
-    pos[0] = n
-    gens = []
-    for s in range(batch):
-        g = torch.Generator(device=device)
-        g.manual_seed(int(seed) + s)
-        gens.append(g)
-    return SamplerState(ring.to(device), pos.to(device), pos.clone().to(device), gens)
+    return seed_prompt_row(make_sampler_state(batch, window, seed, device), 0, ids)
 
 
 def accept_token(state: SamplerState, tokens: torch.Tensor) -> SamplerState:
@@ -60,19 +124,24 @@ def accept_token(state: SamplerState, tokens: torch.Tensor) -> SamplerState:
     return state
 
 
-def history_window_mask(prev_tokens, prev_pos, last_n: int) -> torch.Tensor:
+def history_window_mask(prev_tokens, prev_pos, last_n) -> torch.Tensor:
     """[B, N] bool: ring entries within the last `last_n` accepted tokens
-    (<0 → whole ring)."""
+    (an int, or a [B] tensor per slot; < 0 → whole ring)."""
     B, N = prev_tokens.shape
     idx = torch.arange(N, device=prev_tokens.device)[None, :]
     recency = torch.remainder(prev_pos[:, None] - 1 - idx, N)
-    ln = N if last_n < 0 else last_n
+    if torch.is_tensor(last_n):
+        ln = torch.where(last_n < 0, N, last_n)[:, None]
+    else:
+        ln = N if last_n < 0 else last_n
     return (prev_tokens >= 0) & (recency < ln) & (recency < prev_pos[:, None])
 
 
-def apply_penalties(logits, prev_tokens, penalty_repeat: float, penalty_freq: float,
-                    penalty_present: float, prev_pos=None, last_n: int = -1):
-    """llama_sample_repetition_penalties_impl over the last `last_n` tokens."""
+def apply_penalties(logits, prev_tokens, penalty_repeat, penalty_freq, penalty_present,
+                    prev_pos=None, last_n=-1):
+    """llama_sample_repetition_penalties_impl over the last `last_n` tokens.
+    The penalties are floats, or [B, 1] tensors (and `last_n` a [B] tensor)
+    for per-row values."""
     B, V = logits.shape
     valid = (history_window_mask(prev_tokens, prev_pos, last_n) if prev_pos is not None
              else prev_tokens >= 0)
@@ -80,7 +149,7 @@ def apply_penalties(logits, prev_tokens, penalty_repeat: float, penalty_freq: fl
     counts = torch.zeros(B, V, dtype=torch.float32, device=logits.device)
     counts.scatter_add_(1, tok, valid.to(torch.float32))
     seen = counts > 0
-    if penalty_repeat != 1.0:
+    if torch.is_tensor(penalty_repeat) or penalty_repeat != 1.0:
         scaled = torch.where(logits <= 0, logits * penalty_repeat, logits / penalty_repeat)
         logits = torch.where(seen, scaled, logits)
     return logits - counts * penalty_freq - seen.to(torch.float32) * penalty_present
@@ -208,8 +277,7 @@ def sample(logits: torch.Tensor, state: SamplerState, params: SamplingParams,
     if params.temp <= 0.0:
         tokens = torch.argmax(logits, dim=-1).to(torch.int32)
     else:
-        probs = torch.softmax(apply_filters(logits, params), dim=-1)
-        tokens = torch.cat([
-            torch.multinomial(probs[b], 1, generator=state.generators[b])
-            for b in range(probs.shape[0])]).to(torch.int32)
+        u = philox_uniform(state.seed, state.step)
+        tokens = draw_categorical(apply_filters(logits, params), u).to(torch.int32)
+        state.step += 1
     return tokens, accept_token(state, tokens)

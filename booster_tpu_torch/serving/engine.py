@@ -1,13 +1,28 @@
-"""Single-stream generation engine over a dense KV cache.
+"""Generation engine over a dense KV cache (bf16, or int8 with
+``kv_quantized=True``): single-stream ``generate`` and the slot API of
+continuous batching.
 
-Port of ``Engine.generate`` of ``booster_tpu/serving/engine.py``: the prompt
-is prefilled in a power-of-two bucket (``n_valid`` marks the real tokens,
+Port of ``booster_tpu/serving/engine.py``.  ``generate``: the prompt is
+prefilled in a power-of-two bucket (``n_valid`` marks the real tokens,
 ``gather_idx`` picks the last one for the lm head), then decode runs in
 chunks of ``decode_chunk`` T = 1 steps that keep the sampled tokens on the
 device and read them back once per chunk; the readback of one chunk
 overlaps the next chunk's work.  Context overflow re-prefills the kept
-history (the reference's context shift).  Classifier-free guidance, Janus
-sampling, Self-Extend, paging and the batched slot API are not ported yet.
+history (the reference's context shift).
+
+The slot API (what the scheduler drives): ``init_batch_state`` allocates
+the B-slot cache and per-slot sampler state, ``reset_slot`` claims a slot
+with its own sampling params and seed, ``prefill_slots`` prefills any subset
+of slots in one batched forward per chunk and samples their first tokens,
+and ``decode_slots_start`` enqueues a chunk of batched decode steps over the
+active slots (tokens stay on the device; a slot stops where it emits an
+end-of-generation token) while ``decode_slots_finish`` waits for that
+chunk's tokens only: the start copies them to pinned host memory behind an
+event, so reading one chunk overlaps the next chunk's work on the card.
+
+Not ported yet: classifier-free guidance, Janus sampling and mirostat
+(batched or not), Self-Extend, paging, grammar-masked decode
+(``masked_decode_slots``), in-cache context shift (``shift_slot``).
 """
 
 from __future__ import annotations
@@ -23,7 +38,14 @@ from booster_tpu_torch.models.llama import forward
 from booster_tpu_torch.models.loader import LoadedModel
 from booster_tpu_torch.ops.kv_cache import KVCache
 from booster_tpu_torch.sampling.params import SamplingParams
-from booster_tpu_torch.sampling.samplers import make_seeded_state, sample
+from booster_tpu_torch.sampling.samplers import (
+    make_sampler_state,
+    make_seeded_state,
+    philox_uniform,
+    sample,
+    seed_prompt_row,
+)
+from booster_tpu_torch.sampling.vector import VectorSampling, sample_vectorized
 
 
 @dataclasses.dataclass
@@ -42,11 +64,51 @@ def _bucket(n: int, max_seq: int) -> int:
     return min(max(16, 1 << (max(n, 1) - 1).bit_length()), max_seq)
 
 
+def _prefill_batched(params, cfg, cache: KVCache, tokens, n_valid, state, vp, admit,
+                     features=(), nl_token: int = -1):
+    """Prefill any subset of slots (n_valid = 0 rows are no-ops for the
+    lengths) and sample the first token of the admitted rows."""
+    gather = torch.clamp_min(n_valid - 1, 0)
+    logits, cache = forward(params, cfg, tokens, cache, gather_idx=gather, n_valid=n_valid)
+    tok, state = sample_vectorized(logits[:, 0, :], state, vp, mask=admit,
+                                   features=features, nl_token=nl_token)
+    return tok, cache, state
+
+
+def _decode_chunk_vec(params, cfg, cache: KVCache, last_tok, state, vp, active,
+                      n_steps: int, eog_mask, features=(), nl_token: int = -1):
+    """n_steps batched decode iterations with per-slot sampling params, all
+    enqueued on the device with no host synchronization.  A row stops
+    (its cache stops advancing, its sampler state too) once it emits an
+    end-of-generation token.  Each row's uniforms for the chunk are drawn
+    up front, indexed by the row's own step count.  Returns (tokens [B, n],
+    emitted [B, n] bool, cache, state)."""
+    base = state.step.clone()
+    table = philox_uniform(state.seed[:, None],
+                           base[:, None] + torch.arange(n_steps, device=base.device)[None, :])
+    tok, live = last_tok, active.clone()
+    toks, emitted = [], []
+    for _ in range(n_steps):
+        logits, cache = forward(params, cfg, tok, cache, last_only=True,
+                                n_valid=live.to(torch.int32))
+        u = torch.gather(table, 1, (state.step - base)[:, None].clamp_max(n_steps - 1))[:, 0]
+        nxt, state = sample_vectorized(logits[:, -1, :], state, vp, mask=live,
+                                       features=features, nl_token=nl_token, u=u)
+        nxt = torch.where(live, nxt, tok[:, 0])
+        toks.append(nxt)
+        emitted.append(live)
+        live = live & ~eog_mask[nxt.long()]
+        tok = nxt[:, None]
+    return torch.stack(toks, 1), torch.stack(emitted, 1), cache, state
+
+
 class Engine:
-    """Owns the model and builds a dense KV cache per generation."""
+    """Owns the model; builds a dense KV cache per generation, and the
+    B-slot cache of the batched slot API."""
 
     def __init__(self, model: LoadedModel, max_batch: int = 1, max_seq: int = 2048,
-                 history_window: int = 256, decode_chunk: int = 1):
+                 kv_quantized: bool = False, history_window: int = 256,
+                 decode_chunk: int = 1):
         self.model = model
         self.cfg = model.cfg
         self.params = model.params
@@ -54,6 +116,7 @@ class Engine:
         self.device = model.device
         self.max_batch = max_batch
         self.max_seq = max_seq
+        self.kv_quantized = kv_quantized
         self.history_window = history_window
         self.decode_chunk = max(1, decode_chunk)
         mask = np.zeros(self.cfg.n_vocab, bool)
@@ -61,19 +124,21 @@ class Engine:
             for t in model.tokenizer.vocab.eog_ids:
                 if 0 <= t < self.cfg.n_vocab:
                     mask[t] = True
+        self._eog_np = mask
         self._eog_mask = torch.from_numpy(mask).to(self.device)
 
     @property
     def nl_token(self) -> int:
         """Vocab linefeed id, found by tokenizing (llama_token_nl parity)."""
-        if self.tokenizer is None:
-            return -1
-        ids = self.tokenizer.encode("\n", add_bos=False)
-        return ids[-1] if ids else -1
+        if not hasattr(self, "_nl_token"):
+            ids = self.tokenizer.encode("\n", add_bos=False) if self.tokenizer else []
+            self._nl_token = ids[-1] if ids else -1
+        return self._nl_token
 
     def _new_cache(self) -> KVCache:
         return KVCache.create(self.cfg.n_layers, self.max_batch, self.max_seq,
-                              self.cfg.n_kv_heads, self.cfg.head_dim, self.device)
+                              self.cfg.n_kv_heads, self.cfg.head_dim, self.device,
+                              quantized=self.kv_quantized)
 
     def _prefill(self, cache: KVCache, ids: list[int], gather: bool):
         T = _bucket(len(ids), self.max_seq)
@@ -210,3 +275,163 @@ class Engine:
             prompt_ms_per_token=1000.0 * t_prompt / max(len(prompt_ids), 1),
             gen_ms_per_token=1000.0 * t_gen / max(n_steps, 1),
             finish_reason=finish, ttft_ms=1000.0 * (t1 - t_start))
+
+    # -- slot-based continuous batching API ----------------------------------
+
+    def init_batch_state(self, window: Optional[int] = None) -> None:
+        """Allocate the B-slot cache (if not yet) and fresh per-slot sampler
+        state and params; every slot is free."""
+        B = self.max_batch
+        if getattr(self, "cache", None) is None:
+            self.cache = self._new_cache()
+        self.state = make_sampler_state(B, window or self.history_window, seed=0,
+                                        device=self.device)
+        self.vp = VectorSampling.from_params([SamplingParams()] * B, device=self.device)
+        # the last sampled token per slot stays on the device, so consecutive
+        # chunks chain with no host round trip
+        self._last_dev = torch.zeros(B, 1, dtype=torch.int32, device=self.device)
+        # host-side upper bound of each slot's cache occupancy
+        self.slot_lengths = np.zeros(B, np.int64)
+        # per-slot feature flags → the sampler's `features`
+        self._slot_penalties = np.zeros(B, bool)
+        self._slot_exttail = np.zeros(B, bool)
+        self._slot_fullv = np.zeros(B, bool)
+
+    def _vector_features(self) -> tuple:
+        feats = []
+        if self._slot_exttail.any():
+            feats.append("exttail")  # tail-free/typical/dynatemp run only when used
+        if self._slot_fullv.any():
+            feats.append("fullv")  # some slot samples from the full vocabulary
+        if not self._slot_penalties.any():
+            feats.append("nopenalties")  # the [B, V] penalty pass is skipped
+        return tuple(feats)
+
+    def reset_slot(self, slot: int, sampling: SamplingParams, seed: int) -> None:
+        """Free/claim a slot: zero its cache length and its sampler-state row,
+        seed its generator, set its sampling params.  (The reference's
+        max_predict and Self-Extend arguments serve Janus and Self-Extend,
+        which are not ported yet.)"""
+        if sampling.janus or sampling.mirostat in (1, 2) or sampling.cfg_scale != 1.0:
+            raise NotImplementedError("Janus, mirostat and classifier-free guidance in the "
+                                      "batch: not ported yet")
+        self.cache.lengths[slot] = 0
+        st = self.state
+        st.prev_tokens[slot] = -1
+        st.prev_pos[slot] = 0
+        st.prompt_len[slot] = 0
+        st.seed[slot] = int(seed)
+        st.step[slot] = 0
+        self.vp.set_slot(slot, sampling)
+        self._slot_penalties[slot] = (sampling.penalty_repeat != 1.0 or sampling.penalty_freq != 0.0
+                                      or sampling.penalty_present != 0.0)
+        self._slot_exttail[slot] = (sampling.tfs_z < 1.0 or sampling.typical_p < 1.0
+                                    or sampling.dynatemp_range > 0.0)
+        self._slot_fullv[slot] = (sampling.temp > 0 and sampling.top_k <= 0
+                                  and sampling.top_p >= 1.0 and sampling.min_p <= 0.0
+                                  and sampling.tfs_z >= 1.0 and sampling.typical_p >= 1.0)
+        self.slot_lengths[slot] = 0
+
+    @torch.no_grad()
+    def prefill_slots(self, jobs: dict[int, list[int]], chunk: int = 512) -> dict[int, int]:
+        """Prefill prompts into their slots (chunked, all slots of a chunk in
+        one batched forward); returns the first sampled token per slot.
+        Slots must have been reset_slot()'d first."""
+        B = self.max_batch
+        for s, ids in jobs.items():
+            seed_prompt_row(self.state, s, ids)
+        remaining = {s: list(ids) for s, ids in jobs.items()}
+        first: dict[int, int] = {}
+        to = lambda a: torch.from_numpy(a).to(self.device)  # noqa: E731
+        while remaining:
+            max_take = max(min(len(r), chunk) for r in remaining.values())
+            T = min(max(16, 1 << (max_take - 1).bit_length()), chunk)
+            tokens = np.zeros((B, T), np.int32)
+            n_valid = np.zeros(B, np.int32)
+            admit = np.zeros(B, bool)
+            done_slots = []
+            for s, ids in remaining.items():
+                take = min(len(ids), T)
+                tokens[s, :take] = ids[:take]
+                n_valid[s] = take
+                self.slot_lengths[s] += take
+                remaining[s] = ids[take:]
+                if not remaining[s]:
+                    admit[s] = True
+                    done_slots.append(s)
+            admit_dev = to(admit)
+            tok, self.cache, self.state = _prefill_batched(
+                self.params, self.cfg, self.cache, to(tokens), to(n_valid), self.state,
+                self.vp, admit_dev, features=self._vector_features(), nl_token=self.nl_token)
+            self._last_dev = torch.where(admit_dev[:, None], tok[:, None], self._last_dev)
+            tok_np = tok.cpu().numpy()
+            for s in done_slots:
+                first[s] = int(tok_np[s])
+                del remaining[s]
+        return first
+
+    @torch.no_grad()
+    def decode_slots_start(self, active_slots, n_steps: Optional[int] = None,
+                           last_tokens: Optional[dict[int, int]] = None):
+        """Enqueue one batched decode chunk over `active_slots` (returns at
+        once).  It chains from the device-resident last tokens, or from the
+        host's `last_tokens` where given.  The chunk's tokens are copied to
+        pinned host memory behind a CUDA event, so finishing this chunk
+        waits for it and not for later chunks."""
+        B = self.max_batch
+        n = n_steps or self.decode_chunk
+        active = np.zeros(B, bool)
+        active[list(active_slots)] = True
+        last = self._last_dev
+        if last_tokens:
+            host = np.zeros((B, 1), np.int32)
+            mask = np.zeros((B, 1), bool)
+            for s, t in last_tokens.items():
+                host[s, 0] = t
+                mask[s, 0] = True
+            last = torch.where(torch.from_numpy(mask).to(self.device),
+                               torch.from_numpy(host).to(self.device), last)
+        for s in active_slots:
+            self.slot_lengths[s] += n
+        active_dev = torch.from_numpy(active).to(self.device)
+        toks, emitted, self.cache, self.state = _decode_chunk_vec(
+            self.params, self.cfg, self.cache, last, self.state, self.vp, active_dev, n,
+            self._eog_mask, features=self._vector_features(), nl_token=self.nl_token)
+        self._last_dev = torch.where(active_dev[:, None], toks[:, -1:], self._last_dev)
+        event = None
+        if toks.device.type == "cuda":
+            toks = _to_pinned(toks)
+            emitted = _to_pinned(emitted)
+            event = torch.cuda.Event()
+            event.record()
+        return toks, emitted, list(active_slots), event
+
+    def decode_slots_finish(self, handle):
+        """Wait for a dispatched chunk; returns per-slot emitted tokens and
+        whether each slot's last token ended its generation."""
+        toks, emitted, slots, event = handle
+        if event is not None:
+            event.synchronize()
+        toks = toks.numpy()
+        emitted = emitted.numpy()
+        eog = self._eog_np
+        out: dict[int, list[int]] = {}
+        hit: dict[int, bool] = {}
+        for s in slots:
+            row = [int(t) for t, e in zip(toks[s], emitted[s]) if e]
+            out[s] = row
+            hit[s] = bool(row and eog[row[-1]])
+        return out, hit
+
+    def decode_slots(self, last_tokens: dict[int, int], n_steps: Optional[int] = None
+                     ) -> tuple[dict[int, list[int]], dict[int, bool]]:
+        """Batched decode chunk over the slots of `last_tokens` (dispatch and wait)."""
+        return self.decode_slots_finish(
+            self.decode_slots_start(list(last_tokens), n_steps=n_steps, last_tokens=last_tokens))
+
+
+def _to_pinned(t: torch.Tensor) -> torch.Tensor:
+    """An asynchronous copy of a CUDA tensor into pinned host memory."""
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return host

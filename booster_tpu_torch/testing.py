@@ -4,9 +4,10 @@
 vocab.  It ports ``tools/make_test_model.py`` onto the port's own GGUF
 writer and quantizer: the same arguments and seed give the same file bytes.
 ``decode_attn_case`` makes decode-attention inputs on which a wrong kernel
-shows, ``decode_attn_mutants`` the inputs of three such wrong kernels, and
-``decode_attn_limit`` the kernel's per-element limit against its plain
-version.
+shows (bf16 or int8 cache), ``decode_attn_mutants`` the inputs of such wrong
+kernels, and ``decode_attn_limit`` the kernel's per-element limit against
+its plain version; ``prefill_attn_case``, ``prefill_attn_mutants`` and
+``prefill_attn_limit`` do the same for chunked-prefill attention.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ import torch
 
 from booster_tpu_torch.gguf import GGMLType, GGUFWriter
 from booster_tpu_torch.ops.decode_attention import decode_attn_plain
+from booster_tpu_torch.ops.kv_cache import _quantize_kv
+from booster_tpu_torch.ops.prefill_attention import prefill_attn_plain
 from booster_tpu_torch.quant import quantize
 from booster_tpu_torch.tokenizer.vocab import TokenType
 
@@ -116,10 +119,11 @@ def make_model(
 
 
 def decode_attn_case(L: int, B: int, Hkv: int, G: int, S: int, D: int, Dc: int,
-                     lens: list, device, seed: int = 0) -> tuple:
+                     lens: list, device, seed: int = 0, quantized: bool = False) -> tuple:
     """Positional arguments of ``ops.decode_attention.decode_attn`` over layer
     L - 1 of a random [L, B, Hkv, S, Dc] bf16 cache (head dim D, zero pad
-    lanes), no window, no softcap, every slot's new token live.
+    lanes), no window, no softcap, every slot's new token live.  With
+    `quantized`, the same cache quantized per row to int8, its scales last.
 
     Random keys give each column a weight of about 1/lens, too small for a
     kernel-vs-plain check to see one column.  So the self key is 6·Σ_g q_g
@@ -150,21 +154,28 @@ def decode_attn_case(L: int, B: int, Hkv: int, G: int, S: int, D: int, Dc: int,
                 kc[L - 1, b, :, c] = (4 * qsum[b]).to(bf)
     lens_t = torch.tensor(lens, dtype=torch.int32, device=device)
     ok = torch.ones(B, dtype=torch.int32, device=device)
-    return (q, kc, vc, L - 1, lens_t, S + 1, 0.0, sk, sv, ok)
+    if not quantized:
+        return (q, kc, vc, L - 1, lens_t, S + 1, 0.0, sk, sv, ok)
+    (kq, ks), (vq, vs) = _quantize_kv(kc), _quantize_kv(vc)
+    return (q, kq, vq, L - 1, lens_t, S + 1, 0.0, sk, sv, ok, ks, vs)
 
 
 def decode_attn_mutants(args: tuple) -> dict:
     """``decode_attn`` arguments that make the plain version compute what
-    three wrong kernels would on ``args``: the self term dropped, the last
-    valid column missed, one column past the end read."""
-    q, kc, vc, layer, lens, win, softcap, sk, sv, ok = args
+    wrong kernels would on ``args``: the self term dropped, the last valid
+    column missed, one column past the end read, and for an int8 cache the
+    v scales ignored."""
+    q, kc, vc, layer, lens, win, softcap, sk, sv, ok, *scales = args
     rest = (win, softcap, sk, sv)
-    return {
+    out = {
         "self term dropped": (q, kc, vc, layer, lens, win, softcap, sk, sv,
-                              torch.zeros_like(ok)),
-        "last column missed": (q, kc, vc, layer, lens - 1, *rest, ok),
-        "column past the end read": (q, kc, vc, layer, lens + 1, *rest, ok),
+                              torch.zeros_like(ok), *scales),
+        "last column missed": (q, kc, vc, layer, lens - 1, *rest, ok, *scales),
+        "column past the end read": (q, kc, vc, layer, lens + 1, *rest, ok, *scales),
     }
+    if scales:
+        out["v scales ignored"] = (*args[:11], torch.ones_like(scales[1]))
+    return out
 
 
 def decode_attn_limit(args: tuple) -> torch.Tensor:
@@ -177,8 +188,68 @@ def decode_attn_limit(args: tuple) -> torch.Tensor:
     both).  That sum is the plain version run on |v| with the self value set
     to 0; 1 % covers its own bf16(p), and 1e-5 of the largest output the
     f32 sums taken in another order."""
-    q, kc, vc, layer, lens, win, softcap, sk, sv, ok = args
+    q, kc, vc, layer, lens, win, softcap, sk, sv, ok, *scales = args
     want = decode_attn_plain(*args)
     pv_abs = decode_attn_plain(q, kc, vc.abs(), layer, lens, win, softcap, sk,
-                               None if sv is None else torch.zeros_like(sv), ok)
+                               None if sv is None else torch.zeros_like(sv), ok, *scales)
+    return 2 ** -8 * 1.01 * pv_abs + 1e-5 * want.abs().max()
+
+
+def prefill_attn_case(B: int, Hkv: int, G: int, T: int, S: int, D: int, Dc: int,
+                      pos0: list, n_valid: list, device, seed: int = 0) -> tuple:
+    """Positional arguments of ``ops.prefill_attention.prefill_attn`` for a
+    chunk of T query rows per slot at positions pos0[b] + t, of which the
+    first n_valid[b] are real (lens = pos0 + n_valid), over a random int8
+    [B·Hkv, S, Dc] layer (head dim D, zero pad lanes) that holds the chunk;
+    no window, no softcap.
+
+    The key of the chunk's column pos0 + t is 6·Σ_g q_{g,t}, so each query
+    row's own column (its "self term") weighs about e^6 against the rest,
+    and the first padded row's column (col = lens, past the end) weighs
+    as much for that row: a kernel that drops the diagonal, misses the last
+    valid column or reads one past the end moves the output."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    bf = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(*shape, device=device, generator=gen)
+
+    BH = B * Hkv
+    q = torch.zeros(BH, G, T, Dc, device=device, dtype=bf)
+    q[..., :D] = (randn(BH, G, T, D) * D ** -0.5).to(bf)
+    k = torch.zeros(BH, S, Dc, device=device)
+    v = torch.zeros(BH, S, Dc, device=device)
+    k[..., :D] = randn(BH, S, D)
+    v[..., :D] = randn(BH, S, D)
+    p0 = torch.tensor(pos0, dtype=torch.int32, device=device).repeat_interleave(Hkv)
+    cols = p0[:, None].long() + torch.arange(T, device=device)[None, :]  # [BH, T]
+    rows = torch.arange(BH, device=device)[:, None].expand(BH, T)
+    inside = cols < S
+    k[rows[inside], cols[inside]] = 6 * q.float().sum(1)[inside]
+    (kq, ks), (vq, vs) = _quantize_kv(k.to(bf)), _quantize_kv(v.to(bf))
+    lens = p0 + torch.tensor(n_valid, dtype=torch.int32, device=device).repeat_interleave(Hkv)
+    return (q, kq, vq, ks[..., 0], vs[..., 0], p0, lens, S + T, 0.0)
+
+
+def prefill_attn_mutants(args: tuple) -> dict:
+    """``prefill_attn`` arguments that make the plain version compute what
+    wrong kernels would on ``args``: each row's own column dropped, the last
+    valid column missed, one column past the end read, the v scales
+    ignored."""
+    q, k, v, ks, vs, pos0, lens, win, softcap = args
+    return {
+        "self term dropped": (q, k, v, ks, vs, pos0 - 1, lens, win, softcap),
+        "last column missed": (q, k, v, ks, vs, pos0, lens - 1, win, softcap),
+        "column past the end read": (q, k, v, ks, vs, pos0, lens + 1, win, softcap),
+        "v scales ignored": (q, k, v, ks, torch.ones_like(vs), pos0, lens, win, softcap),
+    }
+
+
+def prefill_attn_limit(args: tuple) -> torch.Tensor:
+    """Per-element limit of |kernel - plain| for ``prefill_attn(*args)``,
+    the bound of decode_attn_limit: 2^-8·Σ_j p_j·|vs_j·v_j| / l (+1 %), plus
+    1e-5 of the largest output."""
+    q, k, v, ks, vs, pos0, lens, win, softcap = args
+    want = prefill_attn_plain(*args)
+    pv_abs = prefill_attn_plain(q, k, v.abs(), ks, vs, pos0, lens, win, softcap)
     return 2 ** -8 * 1.01 * pv_abs + 1e-5 * want.abs().max()

@@ -18,9 +18,12 @@ from booster_tpu_torch.gguf import GGMLType  # noqa: E402
 from booster_tpu_torch.ops import decode_attention as da  # noqa: E402
 from booster_tpu_torch.ops import kernels  # noqa: E402
 from booster_tpu_torch.ops import kv_append as ka  # noqa: E402
+from booster_tpu_torch.ops import prefill_attention as pa  # noqa: E402
 from booster_tpu_torch.ops import qmm as tq  # noqa: E402
+from booster_tpu_torch.ops.kv_cache import _quantize_kv  # noqa: E402
 from booster_tpu_torch.quant.qtensor import QTensor  # noqa: E402
-from booster_tpu_torch.testing import decode_attn_case, decode_attn_limit  # noqa: E402
+from booster_tpu_torch.testing import (decode_attn_case, decode_attn_limit,  # noqa: E402
+                                       prefill_attn_case, prefill_attn_limit)
 
 pytestmark = pytest.mark.cuda
 
@@ -71,6 +74,42 @@ def test_decode_attn_kernel_matches_plain(cuda, lens, ok, win, softcap):
     assert ((got - want).abs() <= decode_attn_limit(args)).all()
 
 
+@pytest.mark.parametrize("lens,ok,win,softcap", [
+    ([500, 30, 1, 0], [1, 1, 1, 1], 513, 0.0), ([0, 70, 200, 511], [1, 0, 1, 1], 64, 30.0)])
+def test_decode_attn_int8_kernel_matches_plain(cuda, lens, ok, win, softcap):
+    args = list(decode_attn_case(2, len(lens), 4, 8, 512, 64, 128, lens, "cuda", seed=6,
+                                 quantized=True))
+    args[5], args[6] = win, softcap
+    args[9] = torch.tensor(ok, dtype=torch.int32, device="cuda")
+    got, want = da.decode_attn(*args), da.decode_attn_plain(*args)
+    live = (args[4] > 0) | (args[9] > 0)  # a slot with neither attends to nothing
+    assert ((got - want).abs() <= decode_attn_limit(args))[live].all()
+
+
+def test_kv_append_int8_kernel_is_exact(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    L, B, H, S, D = 3, 4, 2, 256, 128
+    k, ks = _quantize_kv(torch.randn(L, B, H, S, D, device="cuda", generator=gen))
+    new = (torch.randn(2, L, B, H, 64, device="cuda", generator=gen) * 3).to(torch.bfloat16)
+    new[0, 0, 0, 0] = 0  # a zero row
+    new[0, 0, 0, 1, :4] = torch.tensor([127.0, 2.5, 3.5, -0.5])  # .5 after the division
+    off = torch.tensor([0, 100, 255, 400], dtype=torch.int32, device="cuda")
+    out = [(k.clone(), k.clone(), ks.clone(), ks.clone()) for _ in range(2)]
+    ka.kv_append(out[0][0], out[0][1], new[0], new[1], off, out[0][2], out[0][3])
+    ka.kv_append_plain(out[1][0], out[1][1], new[0], new[1], off, out[1][2], out[1][3])
+    for got, want in zip(*out):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("pos0,n_valid,T,S", [
+    ([0, 0, 0], [16, 9, 1], 16, 512), ([200, 37, 0], [32, 5, 20], 32, 512),
+    ([0, 700], [100, 128], 128, 1024)])
+def test_prefill_attn_kernel_matches_plain(cuda, pos0, n_valid, T, S):
+    args = prefill_attn_case(len(pos0), 4, 8, T, S, 64, 128, pos0, n_valid, "cuda", seed=8)
+    got, want = pa.prefill_attn(*args), pa.prefill_attn_plain(*args)
+    assert ((got - want).abs() <= prefill_attn_limit(args)).all()
+
+
 def test_kv_append_kernel_matches_plain(cuda):
     gen = torch.Generator(device="cuda").manual_seed(3)
     k = torch.randn(3, 2, 2, 256, 128, device="cuda", generator=gen).to(torch.bfloat16)
@@ -113,3 +152,8 @@ def test_wrappers_refuse_shapes_not_ported(cuda):
     k = torch.zeros(1, 1, 1, 128, 64, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         da.decode_attn(q, k, k, 0, torch.ones(1, dtype=torch.int32, device="cuda"), 129)
+    qp = torch.zeros(1, 8, 16, 128, device="cuda", dtype=torch.bfloat16)
+    kp = torch.zeros(1, 128, 128, device="cuda", dtype=torch.bfloat16)
+    one = torch.ones(1, dtype=torch.int32, device="cuda")
+    with pytest.raises(NotImplementedError, match="not ported yet"):  # bf16 cache
+        pa.prefill_attn(qp, kp, kp, None, None, one * 0, one, 200)
