@@ -19,9 +19,9 @@
 // the TPU kernel: s_j = (q · k_j) · ks_j (the scale after the dot), l sums
 // the unrounded p_j, and PV takes bf16(p_j · vs_j) against v_j.  The self
 // term's k/v (bf16 rows not yet in the cache) go through the storage round
-// trip first, in f32 as the append computes it (scale = amax · f32(1/127),
-// rint(x / max(scale, 1e-12)) · scale with IEEE division and
-// round-half-even), the row the append will write; a zero row stays zero.  The int8 form moves half the cache bytes.
+// trip first, in f32 through the append's own helpers (int8_row.cuh), so it
+// is the row the append will write; a zero row stays zero.  The int8 form
+// moves half the cache bytes.
 //
 // What bounds it on the H100: the K and V bytes of the valid columns,
 // 2·2·D bytes per column per kv head, over 3.35 TB/s; the FLOPs (4·G·D per
@@ -41,6 +41,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "int8_row.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -49,7 +51,6 @@ constexpr int kChunk = 64;
 constexpr int kHeadGroups = kThreads / kChunk;  // scores: heads g ≡ t / kChunk (mod 4)
 constexpr int kMaxG = 16;
 constexpr float kNeg = -1e30f;
-constexpr float kRcp127 = 0x1.020408p-7f;  // f32(1/127): the int8 scale is amax · kRcp127
 
 __device__ __forceinline__ float bf16f(uint16_t b) {
   return __uint_as_float(static_cast<uint32_t>(b) << 16);
@@ -148,11 +149,6 @@ __device__ __forceinline__ void load_chunk_i8(const int8_t* src, int c0, int n, 
         o[e] = static_cast<float>(static_cast<int8_t>((w[e / 4] >> (8 * (e % 4))) & 0xffu));
     }
   }
-}
-
-// the storage round trip of one self-term value, scale = amax/127 of its row
-__device__ __forceinline__ float mirror_i8(float x, float scale) {
-  return __fmul_rn(rintf(__fdiv_rn(x, fmaxf(scale, 1e-12f))), scale);
 }
 
 template <int D, bool Q>
@@ -297,12 +293,12 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(AttnParams p) {
         ak = fmaxf(ak, fabsf(skr[e]));
         av = fmaxf(av, fabsf(svr[e]));
       }
-      const float sck = __fmul_rn(warp_max(ak), kRcp127);
-      const float scv = __fmul_rn(warp_max(av), kRcp127);
+      const float sck = int8_row::scale(warp_max(ak));
+      const float scv = int8_row::scale(warp_max(av));
 #pragma unroll
       for (int e = 0; e < DL; ++e) {
-        skr[e] = mirror_i8(skr[e], sck);
-        svr[e] = mirror_i8(svr[e], scv);
+        skr[e] = int8_row::round_trip(skr[e], sck);
+        svr[e] = int8_row::round_trip(svr[e], scv);
       }
     }
   }

@@ -18,9 +18,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "int8_row.cuh"
 
-constexpr float kRcp127 = 0x1.020408p-7f;  // f32(1/127), the reference's compiled scale factor
+namespace {
 
 __global__ void kv_append_kernel(uint16_t* k, uint16_t* v, const uint16_t* nk,
                                  const uint16_t* nv, const int* offsets,
@@ -37,13 +37,10 @@ __global__ void kv_append_kernel(uint16_t* k, uint16_t* v, const uint16_t* nk,
 }
 
 // int8 cache: each new row (zero-padded from d to D = 128 lanes, one thread
-// per lane) is quantized as the reference computes it, in f32: scale =
-// amax · f32(1/127) (the reference's amax / 127.0 as XLA compiles it),
-// q = round-half-even(x / max(scale, 1e-12)).  Explicit rounding
-// (__fmul_rn, IEEE __fdiv_rn, rintf) keeps payload and scale bit-exact with
-// the plain version and with the self term that decode attention mirrors
-// before the append lands; a zero row gives scale 0 and payload 0.  The
-// payload row and its scale go to row min(offsets[b], S - 1).  Bound on the
+// per lane) is quantized in the format of int8_row.cuh, bit-exact with the
+// plain version and with the self term that decode attention mirrors before
+// the append lands.  The payload row and its scale go to row
+// min(offsets[b], S - 1).  Bound on the
 // H100: like the bf16 form, the launch (the rows read and written are ~1 MB
 // at L = 22, B = 64).
 __global__ void __launch_bounds__(128) kv_append_i8_kernel(
@@ -71,9 +68,8 @@ __global__ void __launch_bounds__(128) kv_append_i8_kernel(
 #pragma unroll
   for (int t = 0; t < 2; ++t) {
     const float amax = fmaxf(fmaxf(red[t][0], red[t][1]), fmaxf(red[t][2], red[t][3]));
-    const float scale = __fmul_rn(amax, kRcp127);
-    const float q = rintf(__fdiv_rn(x[t], fmaxf(scale, 1e-12f)));
-    (t == 0 ? k : v)[dst * D + i] = static_cast<int8_t>(q);
+    const float scale = int8_row::scale(amax);
+    (t == 0 ? k : v)[dst * D + i] = static_cast<int8_t>(int8_row::quantize(x[t], scale));
     if (i == 0) (t == 0 ? ks : vs)[dst] = scale;
   }
 }

@@ -57,19 +57,6 @@ _PORTED_ARCHS = {"llama"}
 WEIGHTS_BF16_MAX_BYTES = 6 << 30
 
 
-def _stack(arrs, axis=None):
-    """np.stack (axis None) or np.concatenate of numpy payloads, the torch
-    counterparts for dense bf16 payloads (numpy has no bf16)."""
-    if torch.is_tensor(arrs[0]):
-        return torch.stack(arrs) if axis is None else torch.cat(arrs, dim=axis)
-    arrs = [np.asarray(a) for a in arrs]
-    return np.stack(arrs) if axis is None else np.concatenate(arrs, axis=axis)
-
-
-def _take_rows(a, perm: np.ndarray):
-    return a[torch.from_numpy(perm)] if torch.is_tensor(a) else np.asarray(a)[perm]
-
-
 def _stack_qtensors(qts: list[QTensor]) -> QTensor:
     """Stack per-layer QTensors along a new leading axis."""
     q0 = qts[0]
@@ -78,9 +65,9 @@ def _stack_qtensors(qts: list[QTensor]) -> QTensor:
             raise ValueError("cannot stack heterogeneous layer tensors")
     return QTensor(
         kind=q0.kind,
-        qw=_stack([q.qw for q in qts]),
-        scales=None if q0.scales is None else _stack([q.scales for q in qts]),
-        mins=None if q0.mins is None else _stack([q.mins for q in qts]),
+        qw=np.stack([np.asarray(q.qw) for q in qts]),
+        scales=None if q0.scales is None else np.stack([np.asarray(q.scales) for q in qts]),
+        mins=None if q0.mins is None else np.stack([np.asarray(q.mins) for q in qts]),
         group=q0.group,
         shape=q0.shape,
         source_type=q0.source_type,
@@ -101,7 +88,7 @@ def _concat_rows(qts: list[QTensor]) -> Optional[QTensor]:
     def cat(name):
         if getattr(q0, name) is None:
             return None
-        return _stack([getattr(q, name) for q in qts], axis=0)
+        return np.concatenate([np.asarray(getattr(q, name)) for q in qts], axis=0)
 
     return QTensor(kind=q0.kind, qw=cat("qw"), scales=cat("scales"), mins=cat("mins"),
                    group=q0.group, shape=(sum(q.shape[0] for q in qts), q0.shape[1]),
@@ -123,9 +110,9 @@ def deinterleave_perm(n_heads: int, head_dim: int, d_rot: int) -> np.ndarray:
 def _permute_rows(t: QTensor, perm: np.ndarray) -> QTensor:
     return dataclasses.replace(
         t,
-        qw=_take_rows(t.qw, perm),
-        scales=None if t.scales is None else _take_rows(t.scales, perm),
-        mins=None if t.mins is None else _take_rows(t.mins, perm),
+        qw=np.asarray(t.qw)[perm],
+        scales=None if t.scales is None else np.asarray(t.scales)[perm],
+        mins=None if t.mins is None else np.asarray(t.mins)[perm],
     )
 
 

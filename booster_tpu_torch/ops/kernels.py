@@ -3,8 +3,8 @@
 Each source in ``booster_tpu_torch/csrc/`` is compiled on first use by
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface and
 loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds).  The
-library name carries a hash of its source and flags, so an edited source
-builds anew.  Libraries go to ``build/booster_tpu_torch/`` beside the
+library name carries a hash of its source, the shared headers (``*.cuh``)
+and the flags, so an edited source builds anew.  Libraries go to ``build/booster_tpu_torch/`` beside the
 package.  A build failure raises; nothing falls back.
 
 ``launch_counts`` holds one plain integer per kernel (one per Pallas
@@ -83,8 +83,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # shared by several sources
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 

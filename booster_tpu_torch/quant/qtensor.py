@@ -13,7 +13,8 @@ with payload ``qw``:
                 (transpose_qtensor), with scale planes [R, in/(2G), out]:
                 rows 0-1 the scales of the two halves, rows 2-3 their mins
                 when the format is affine
-    kind="dense" bf16 [out, in]   (no scales; ``repack_weights(qt, "bf16")``)
+    kind="dense" bf16 [out, in]   (no scales; ``repack_weights(qt, "bf16")``;
+                while loading, numpy f32 or the bf16 bits as uint16)
 
 The K-major i4t form is what ops/qmm.py's kernel (csrc/qmm_i4t.cu) reads:
 consecutive output columns are consecutive bytes, so a warp's loads of one
@@ -97,12 +98,17 @@ class QTensor:
 
 def to_torch(qt: QTensor, device) -> QTensor:
     """numpy (or CPU torch) fields → torch tensors on `device`; dense
-    payloads become bf16."""
+    payloads become bf16 (a uint16 payload holds bf16 bit patterns)."""
 
     def conv(a, dense=False):
         if a is None:
             return None
-        t = a if torch.is_tensor(a) else torch.from_numpy(np.ascontiguousarray(a))
+        if torch.is_tensor(a):
+            t = a
+        elif dense and a.dtype == np.uint16:
+            t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.ascontiguousarray(a))
         if dense and t.dtype != torch.bfloat16:
             t = t.to(torch.bfloat16)
         return t.to(device).contiguous()
@@ -160,8 +166,9 @@ def repack_gguf_tensor(raw, ggml_type: GGMLType, shape: tuple[int, ...]) -> QTen
 def repack_weights(qt: QTensor, mode: str) -> QTensor:
     """Load-time weight format (``booster_tpu/quant/qtensor.py::repack_weights``):
     "native" keeps the file's quantization, "bf16" dequantizes exactly (f32
-    values from the stored scales, rounded once) to a ``dense`` QTensor
-    holding a CPU bf16 tensor [out, in].  Other modes are not ported yet."""
+    values from the stored scales, rounded once) to a ``dense`` QTensor whose
+    payload holds the bf16 bit patterns as numpy uint16 [out, in] (numpy has
+    no bf16; ``to_torch`` reads them back).  Other modes are not ported yet."""
     if mode == "native" or qt.kind == "dense":
         return qt
     if mode != "bf16":
@@ -171,7 +178,8 @@ def repack_weights(qt: QTensor, mode: str) -> QTensor:
         return None if a is None else torch.from_numpy(np.ascontiguousarray(a))
 
     w = dequantize(replace(qt, qw=t(qt.qw), scales=t(qt.scales), mins=t(qt.mins)))
-    return QTensor("dense", w, None, None, 1, qt.shape, qt.source_type)
+    bits = w.view(torch.int16).numpy().view(np.uint16)
+    return QTensor("dense", bits, None, None, 1, qt.shape, qt.source_type)
 
 
 def prepare_kernel_scales(qt: QTensor) -> QTensor:

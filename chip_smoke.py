@@ -10,7 +10,8 @@ Phases, each printing one JSON line with its seconds:
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives them.
 2. kernels — at the paths' shapes (TinyLlama-1.1B: batch 1 for the Q4_0
    kernels, batch 64 over a 512-row int8 cache for int8 decode attention,
-   the quantizing append and chunked-prefill attention), each kernel against
+   the quantizing append, and chunked-prefill attention at both prompt
+   buckets, T = 16 and the batch phase's T = 32), each kernel against
    its plain torch version on the same inputs, with the tolerance stated at
    CHECKS; the fused gate-up against qmm + silu·mul (equal); each attention
    check must see the wrong kernels of booster_tpu_torch.testing (a dropped
@@ -475,14 +476,15 @@ def _int8_kernels(entries: list, failures: list) -> None:
         "library_ms": None, "check": CHECKS["append_i8"]})
     del out, k1, v1, ks1, vs1, kc, ksc
 
-    # K6: chunked-prefill attention of a 16-row chunk per slot over one
-    # layer: the first chunk (pos0 = 0) and a chunk late in the cache
+    # K6: chunked-prefill attention of a T-row chunk per slot over one layer,
+    # at both prompt buckets (the batch phase's prompts take T = 32: two
+    # query tiles per (slot, kv head)), each as the first chunk (pos0 = 0)
+    # and as a chunk late in the cache; n_valid of 1 to T rows per slot
     rng = torch.Generator().manual_seed(2)
-    n_valid = [int(x) for x in torch.randint(1, 17, (B,), generator=rng)]
-    for pos in (0, 200):
-        T = 16
+    for T, pos in ((16, 0), (16, 200), (32, 0), (32, 200)):
+        n_valid = [int(x) for x in torch.randint(1, T + 1, (B,), generator=rng)]
         args = prefill_attn_case(B, Hkv, G, T, S, D, Dc, [pos] * B, n_valid, "cuda", seed=pos)
-        err, share, seen = _attn_check(f"prefill_attn_i8 pos0={pos}", pa.prefill_attn,
+        err, share, seen = _attn_check(f"prefill_attn_i8 T={T} pos0={pos}", pa.prefill_attn,
                                        pa.prefill_attn_plain, args, prefill_attn_limit,
                                        prefill_attn_mutants, failures)
         ms = timed(lambda: pa.prefill_attn(*args))
