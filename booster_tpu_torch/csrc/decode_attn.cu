@@ -41,6 +41,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "bf16_ops.cuh"
+
 #include "int8_row.cuh"
 
 namespace {
@@ -51,14 +53,6 @@ constexpr int kChunk = 64;
 constexpr int kHeadGroups = kThreads / kChunk;  // scores: heads g ≡ t / kChunk (mod 4)
 constexpr int kMaxG = 16;
 constexpr float kNeg = -1e30f;
-
-__device__ __forceinline__ float bf16f(uint16_t b) {
-  return __uint_as_float(static_cast<uint32_t>(b) << 16);
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll

@@ -32,6 +32,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "bf16_ops.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -39,14 +41,6 @@ constexpr int kRows = kThreads / 2;  // query rows per block
 constexpr int kChunk = 64;           // columns per chunk
 constexpr int kHalf = kChunk / 2;    // columns per thread
 constexpr float kNeg = -1e30f;
-
-__device__ __forceinline__ float bf16f(uint16_t b) {
-  return __uint_as_float(static_cast<uint32_t>(b) << 16);
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 struct PrefillParams {
   const uint16_t* q;  // [BH, G, T, D] bf16, pre-scaled

@@ -45,22 +45,12 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "bf16_ops.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;     // groups per block (one per warp)
 constexpr int kRowsTile = 8;  // rows of x per block at M > 1
-
-__device__ __forceinline__ float bf16f(uint16_t b) {
-  return __uint_as_float(static_cast<uint32_t>(b) << 16);
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ uint16_t bf16_bits(float v) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
-}
 
 // exact float of a small unsigned integer (< 2^23): an OR and an FADD
 __device__ __forceinline__ float u2f(uint32_t v) {
@@ -82,15 +72,6 @@ struct Params {
   int* tickets;        // [gridDim.z * gridDim.x] zeros, reset by the last block
   int M, K, N, R, zero, ff;
 };
-
-// out = bf16(bf16(g · bf16(sigmoid(g))) · u) with g, u rounded to bf16 first
-__device__ __forceinline__ uint16_t silu_mul(float gs, float us) {
-  const float g = round_bf16(gs);
-  const float u = round_bf16(us);
-  const float sg = round_bf16(1.0f / (1.0f + expf(-g)));
-  const float r = round_bf16(__fmul_rn(g, sg));
-  return bf16_bits(__fmul_rn(r, u));
-}
 
 // One warp's sums of column `col` over group `g` for rows m0.. of x (in
 // shared memory, f32 [MT][2][kWarps·G], the block's groups).  M = 1 takes the

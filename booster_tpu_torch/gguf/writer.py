@@ -8,7 +8,7 @@ by tools/quantize.  Counterpart of the reference's gguf write path
 from __future__ import annotations
 
 import struct
-from typing import Any, BinaryIO
+from typing import Any, BinaryIO, Callable
 
 import numpy as np
 
@@ -80,23 +80,31 @@ class GGUFWriter:
     def add_tensor(
         self,
         name: str,
-        data: bytes | np.ndarray,
+        data: bytes | np.ndarray | Callable[[], bytes],
         shape: tuple[int, ...],
         ggml_type: GGMLType,
     ) -> None:
         """`shape` uses numpy convention (last dim contiguous); raw quantized
-        bytes for quant types, or a float/int array for F32/F16/etc."""
+        bytes for quant types, or a float/int array for F32/F16/etc.  A
+        callable is called for the bytes while the file is written, in the
+        order the tensors were added, so that a large file never holds more
+        than one tensor in memory."""
         if isinstance(data, np.ndarray):
             data = np.ascontiguousarray(data).tobytes()
-        n_elem = int(np.prod(shape)) if shape else 1
+        ne = list(reversed(shape))
+        self._tensors.append((name, ne, ggml_type, data))
+        if not callable(data):
+            self._check(name, data, ne, ggml_type)
+
+    @staticmethod
+    def _check(name: str, data: bytes, ne: list[int], ggml_type: GGMLType) -> None:
+        n_elem = int(np.prod(ne)) if ne else 1
         expect = tensor_nbytes(ggml_type, n_elem)
         if len(data) != expect:
             raise ValueError(
                 f"tensor {name}: got {len(data)} bytes, expected {expect} "
-                f"for shape {shape} type {ggml_type.name}"
+                f"for shape {tuple(reversed(ne))} type {ggml_type.name}"
             )
-        ne = list(reversed(shape))
-        self._tensors.append((name, ne, ggml_type, data))
 
     # -- serialization ------------------------------------------------------
 
@@ -138,21 +146,22 @@ class GGUFWriter:
                 self._write_value(f, vtype, value)
 
             offset = 0
-            offsets = []
-            for name, ne, gt, data in self._tensors:
+            for name, ne, gt, _ in self._tensors:
                 self._write_str(f, name)
                 f.write(struct.pack("<I", len(ne)))
                 for d in ne:
                     f.write(struct.pack("<Q", d))
                 f.write(struct.pack("<I", int(gt)))
                 f.write(struct.pack("<Q", offset))
-                offsets.append(offset)
-                offset += len(data)
+                offset += tensor_nbytes(gt, int(np.prod(ne)) if ne else 1)
                 offset = (offset + self.alignment - 1) // self.alignment * self.alignment
 
             pos = f.tell()
             pad = (pos + self.alignment - 1) // self.alignment * self.alignment - pos
             f.write(b"\x00" * pad)
-            for _, _, _, data in self._tensors:
+            for name, ne, gt, data in self._tensors:
+                if callable(data):
+                    data = data()
+                    self._check(name, data, ne, gt)
                 f.write(data)
                 f.write(b"\x00" * ((-len(data)) % self.alignment))

@@ -34,6 +34,7 @@ from booster_tpu_torch.ops.decode_attention import decode_attention_stacked
 from booster_tpu_torch.ops.kv_append import kv_append
 from booster_tpu_torch.ops.kv_cache import KVCache, dequant_kv, update_layer
 from booster_tpu_torch.ops.linear import qlinear
+from booster_tpu_torch.ops.mlp import qmm_mlp
 from booster_tpu_torch.ops.prefill_attention import prefill_attention, prefill_supported
 from booster_tpu_torch.ops.qmm import qmm_gateup, silu
 from booster_tpu_torch.ops.rope import apply_rope_tables, rope_tables
@@ -104,15 +105,20 @@ def _layer(x, lp, i, cache, positions, cos, sin, mask, offsets, kv_valid, cfg,
 
     h = rms_norm(x, lp["ffn_norm"], cfg.rms_eps, cfg.norm_eps_add_one)
     if "w_gateup" in lp:
-        # silu·mul inside the kernel (ops.qmm.qmm_gateup; None = unfused)
-        mid = qmm_gateup(h, lp["w_gateup"])
-        if mid is None:
-            gu = qlinear(h, lp["w_gateup"])
-            ff = gu.shape[-1] // 2
-            mid = silu(gu[..., :ff]) * gu[..., ff:]
+        # the reference's order (booster_tpu/models/llama.py:552-580): the
+        # whole-MLP kernel (ops.mlp.qmm_mlp), then silu·mul inside the
+        # gate-up kernel (ops.qmm.qmm_gateup), then unfused; None = not taken
+        ffn_out = qmm_mlp(h, lp["w_gateup"], lp["w_down"])
+        if ffn_out is None:
+            mid = qmm_gateup(h, lp["w_gateup"])
+            if mid is None:
+                gu = qlinear(h, lp["w_gateup"])
+                ff = gu.shape[-1] // 2
+                mid = silu(gu[..., :ff]) * gu[..., ff:]
+            ffn_out = qlinear(mid, lp["w_down"])
     else:
-        mid = silu(qlinear(h, lp["w_gate"])) * qlinear(h, lp["w_up"])
-    x = x + qlinear(mid, lp["w_down"])
+        ffn_out = qlinear(silu(qlinear(h, lp["w_gate"])) * qlinear(h, lp["w_up"]), lp["w_down"])
+    x = x + ffn_out
     return x, (k, v)
 
 

@@ -1,14 +1,14 @@
 """Load a GGUF model into the port's params (QTensors and torch tensors,
 layers stacked on a leading axis).
 
-Port of the llama path of ``booster_tpu/models/loader.py``: every Q4_0
-weight is repacked losslessly (quant.qtensor) or, with ``weights="bf16"``,
+Port of the llama path of ``booster_tpu/models/loader.py``: every Q4_0 or
+Q8_0 weight is repacked losslessly (quant.qtensor) or, with ``weights="bf16"``,
 dequantized exactly to dense bf16 (``"auto"`` picks as the JAX loader
 does), the q/k rows of
 interleaved-rope models are de-interleaved so rope runs in the neox form
 (exact), q/k/v and gate/up rows are fused into one matmul each, layers are
-stacked, and the stacks are transposed to the K-major i4t layout with bf16
-scale planes where the kernel takes the shape.  ``params_from_numpy`` turns
+stacked, and the stacks are transposed to the K-major i4t / i8t layout with
+bf16 scale planes where the kernels take the shape.  ``params_from_numpy`` turns
 the JAX package's params (as numpy arrays) into the same structure.
 """
 
@@ -116,11 +116,14 @@ def _permute_rows(t: QTensor, perm: np.ndarray) -> QTensor:
     )
 
 
-def _kernel_layout(qt: QTensor) -> QTensor:
-    """Prepared scales, then K-major i4t with bf16 scale planes where the
-    kernel takes the shape."""
+def _kernel_layout(qt: QTensor, dev: Optional[torch.device] = None) -> QTensor:
+    """Prepared scales, then K-major (i4p → i4t, i8 → i8t) with bf16 scale
+    planes where the kernel takes the shape; with `dev`, the tensor moves
+    there first and is transposed there."""
     qt = prepare_kernel_scales(qt)
     if transposable(qt):
+        if dev is not None:
+            qt = to_torch(qt, dev)
         qt = compact_scales(transpose_qtensor(qt))
     return qt
 
@@ -187,7 +190,7 @@ def load_model(path: str, device="cuda", weights: str = "native",
         params["tok_embd"] = torch.from_numpy(emb).to(torch.bfloat16)
         params["output_norm"] = torch.from_numpy(load_dense("output_norm.weight"))
         out_q = load_q("output.weight")
-        params["output"] = None if out_q is None else _kernel_layout(out_q)
+        params["output"] = None if out_q is None else _kernel_layout(out_q, dev)
         rope_factors = load_dense("rope_freqs.weight")
         inv_freq = rope_inv_freq(cfg, rope_factors)
         pos_scale, mscale = yarn_params(cfg)
@@ -226,7 +229,9 @@ def load_model(path: str, device="cuda", weights: str = "native",
         for key in sorted(layer_dicts[0]):
             vals = [lp[key] for lp in layer_dicts]
             if isinstance(vals[0], QTensor):
-                layers[key] = _kernel_layout(_stack_qtensors(vals))
+                layers[key] = _kernel_layout(_stack_qtensors(vals), dev)
+                for lp in layer_dicts:  # the per-layer parts are stacked now
+                    del lp[key]
             else:
                 layers[key] = np.stack(vals)
         params["layers"] = layers
@@ -267,7 +272,7 @@ def params_from_numpy(params: dict, cfg: ModelConfig, device="cpu") -> dict:
 
     def conv(v):
         if hasattr(v, "kind") and hasattr(v, "qw"):
-            if v.kind not in ("i4p", "i4t", "dense"):
+            if v.kind not in ("i4p", "i4t", "i8", "i8t", "dense"):
                 raise NotImplementedError(f"QTensor kind {v.kind!r}: not ported yet")
             return QTensor(
                 kind=v.kind,

@@ -33,6 +33,8 @@ SOURCES = {
     "decode_attn": "decode_attn.cu",
     "kv_append": "kv_append.cu",
     "prefill_attn": "prefill_attn.cu",
+    "qmm_i8t": "qmm_i8t.cu",
+    "mlp_i8t": "mlp_i8t.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -51,6 +53,10 @@ launch_counts = {
     "decode_attn_i8": 0,
     "kv_append_i8": 0,
     "prefill_attn_i8": 0,
+    "qmm_i8t_gd": 0,
+    "qmm_i8t_dq": 0,
+    "qmm_i8t_gateup_dq": 0,
+    "mlp_i8t": 0,
 }
 # (kernel name, (K, N)) → launches, for the matmul kernels
 shape_counts: dict = {}

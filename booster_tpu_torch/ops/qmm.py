@@ -1,19 +1,23 @@
-"""Quantized matmul for K-major 4-bit weights (i4t), and fused gate+up.
+"""Quantized matmul for K-major weights (i4t, i8t), and fused gate+up.
 
-Counterpart of ``booster_tpu/ops/pallas_qmm.py`` for i4t: ``qmm`` runs the
-kernel of ``csrc/qmm_i4t.cu`` (the port of ``_tqmm_i4_gd_kernel`` at M = 1
-and ``_tqmm_i4_kernel`` at M > 1) and ``qmm_gateup`` its SiLU·mul epilogue
-(``_gateup_i4_gd_kernel`` / ``_gateup_i4_kernel``).  ``qmm_plain`` and
-``qmm_gateup_plain`` are the same functions in plain torch, with the same
-rounding points; a wrapper uses them only for tensors on the CPU.  Shapes
-the kernel does not take go to the dequantize-matmul path, as in the JAX
-package.
+Counterpart of ``booster_tpu/ops/pallas_qmm.py`` for the K-major kinds.
+``qmm`` runs, for i4t, the kernel of ``csrc/qmm_i4t.cu`` (the port of
+``_tqmm_i4_gd_kernel`` at M = 1 and ``_tqmm_i4_kernel`` at M > 1) and, for
+i8t (Q8_0), those of ``csrc/qmm_i8t.cu`` (``_tqmm_i8_gd_kernel`` at M = 1,
+``_tqmm_i8_kernel`` at M > 1).  ``qmm_gateup`` runs their SiLU·mul forms
+(``_gateup_i4_gd_kernel`` / ``_gateup_i4_kernel``, ``_gateup_i8_kernel``).
+``qmm_plain`` and ``qmm_gateup_plain`` are the same functions in plain
+torch, with the same rounding points; a wrapper uses them only for tensors
+on the CPU.  Shapes the kernels do not take go to the dequantize-matmul
+path, as in the JAX package.
 
-Numerics (see the source's header): at M = 1 the group-dot form
+Numerics (see the sources' headers): i4t at M = 1, the group-dot form
 ``y = sum_g f32(bf16 s)·(sum bf16(x)·q - zero·xs) - f32(bf16 m)·xs``; at M > 1
 ``w = bf16(bf16(q - zero)·bf16(s))`` then ``y = bf16(x) @ w`` in f32 less the
-min term.  The plain versions use f32 matmuls (``torch.backends.cuda.
-matmul.allow_tf32`` must stay False, its default, on the card).
+min term.  i8t at M = 1 ``y = sum_g f32(bf16 s)·(sum bf16(x)·q)``; at M > 1
+``w = bf16(f32(q)·f32(bf16 s))``, ``y = bf16(x) @ w`` in f32.  The plain
+versions use f32 matmuls (``torch.backends.cuda.matmul.allow_tf32`` must
+stay False, its default, on the card).
 """
 
 from __future__ import annotations
@@ -31,13 +35,21 @@ _SIGNATURES = {
     "bt_qmm_i4t": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     "bt_qmm_i4t_splits": [ctypes.c_int, ctypes.c_int],
 }
-_ROWS_TILE = 8  # rows of x per block at M > 1 (kRowsTile in the source)
+_I8_SIGNATURES = {
+    "bt_qmm_i8t_gd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+    "bt_qmm_i8t_gd_splits": [ctypes.c_int],
+    "bt_qmm_i8t_dq": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+}
+_ROWS_TILE = 8  # rows of x per block at M > 1 (kRowsTile in qmm_i4t.cu)
+# the tile of csrc/i8t_tile.cuh: rows of x, output columns, rows of K per stage
+_DQ_BM, _DQ_BN, _DQ_BK = 64, 128, 64
+_DQ_TARGET_BLOCKS = 264  # two blocks for each of the H100's 132 SMs
 
-# per device: int32 zeros the kernel's blocks take tickets from (the last
+# per device: int32 zeros the kernels' blocks take tickets from (the last
 # block of a column tile resets its ticket, so the buffer stays zero between
 # launches on one stream)
 _tickets: dict = {}
-# (K, G) → the kernel's K splits (blocks along y), asked of the library once
+# (library, K, G) → the M = 1 kernels' K splits, asked of the library once
 _splits: dict = {}
 
 
@@ -49,14 +61,31 @@ def _ticket_buffer(device: torch.device, n: int) -> torch.Tensor:
     return t
 
 
+def dq_splits(M: int, K: int, N: int) -> int:
+    """K splits of the i8t dequant tile for y [M, N] = x [M, K] @ W: enough
+    blocks for two per SM, at least 4 stages of 64 rows per split.  The
+    matmul, the fused gate-up (N = 2ff) and the whole-MLP kernel all take
+    this count, so they add their splits alike and agree bit for bit."""
+    tiles = -(-M // _DQ_BM) * (N // _DQ_BN)
+    return max(1, min(-(-_DQ_TARGET_BLOCKS // tiles), (K // _DQ_BK) // 4))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """The llama MLP activation in x's dtype, with the sigmoid computed in
-    f32 and rounded to x's dtype before the product (the kernel's epilogue
+    f32 and rounded to x's dtype before the product (the kernels' epilogue
     and the JAX package's ``_act``)."""
     return x * torch.sigmoid(x.float()).to(x.dtype)
 
 
 # -- shape gates (copied from pallas_qmm.py) ---------------------------------
+
+# pallas_qmm.py's tile candidates and per-block budget (its defaults), for
+# the copy of its gate-up tile picker
+_BK_CANDS = (8192, 5632, 4096, 2816, 2048, 1408, 1024, 512, 256, 128)
+_BN_CANDS = (3200, 2560, 2048, 1792, 1536, 1280, 1024, 768, 640, 512, 384, 256, 128)
+_BUDGET = 2 * 1024 * 1024
+_SUB = 256
+_VMEM_LIMIT = 13 * 2 ** 20 + 2 ** 19
 
 
 def _stack_ok(w: QTensor) -> bool:
@@ -65,13 +94,13 @@ def _stack_ok(w: QTensor) -> bool:
 
 
 def _supported_t(w: QTensor, K: int, M: int) -> bool:
-    if w.kind not in ("i4t",) or w.scales is None:
+    if w.kind not in ("i4t", "i8t") or w.scales is None:
         return False
     N = w.shape[0]
     G = w.group
     if K != w.shape[1] or K % (2 * G) != 0:
         return False
-    pk = K // 2
+    pk = K // 2 if w.kind == "i4t" else K
     if pk % 32 != 0 or N % 128 != 0 or (pk // G) % 8 != 0:
         return False
     return True
@@ -80,31 +109,81 @@ def _supported_t(w: QTensor, K: int, M: int) -> bool:
 def transposable(w: QTensor) -> bool:
     """True when the K-major kernel takes this tensor's shape — the loader
     transposes only then."""
-    if w.kind != "i4p" or w.scales is None:
+    if w.kind not in ("i4p", "i8") or w.scales is None:
         return False
-    return _supported_t(replace(w, kind="i4t"), w.shape[1], 1)
+    return _supported_t(replace(w, kind=w.kind[:2] + "t"), w.shape[1], 1)
 
 
-def _gateup_supported(w: QTensor, K: int) -> bool:
-    if w.kind != "i4t" or w.scales is None:
+def _gateup_fits(ff: int, pk: int, m: int, srows: int, group: int, s_item: int,
+                 x_mult: int, deq_bytes: int) -> bool:
+    """Whether ``pallas_qmm._pick_tiles_gateup`` finds a tile (it returns
+    BN = 0, and the reference's qmm_gateup None, when none fits its VMEM
+    model); its arithmetic, copied."""
+    bm = m if m <= 256 else 256
+    s_sub = 8 if s_item == 4 else 16
+    for bk in _BK_CANDS:
+        if bk > pk or pk % bk:
+            continue
+        if bk != pk and (bk % group or (bk // group) % s_sub or bk % 32):
+            continue
+        for bn in _BN_CANDS:
+            if bn > ff or ff % bn or 2 * bn * bk > _BUDGET * 2:
+                continue
+            sub = min(_SUB, bk)
+            depth = min(-(-bk // sub), 2)
+            blocks = 2 * (x_mult * bm * bk + 2 * bn * bk + 2 * bm * bn
+                          + 2 * srows * (bk // group) * s_item * bn)
+            if blocks + 2 * 4 * bm * bn + depth * 2 * deq_bytes * sub * bn <= _VMEM_LIMIT:
+                return True
+    return False
+
+
+def _gateup_supported(w: QTensor, K: int, M: int) -> bool:
+    """The reference's gate of qmm_gateup (pallas_qmm.py:1039-1060)."""
+    if w.kind not in ("i4t", "i8t") or w.scales is None:
         return False
     N2 = w.shape[0]
     if N2 % 2 or K != w.shape[1]:
         return False
     ff = N2 // 2
     G = w.group
-    pk = K // 2
-    s_sub = 8 if w.scales.dtype == torch.float32 else 16
-    return not (K % (2 * G) or pk % 32 or (pk // G) % s_sub or ff % 128)
+    is4 = w.kind == "i4t"
+    pk = K // 2 if is4 else K
+    s3, _ = kernel_scales(w)
+    s_item = s3.element_size()
+    s_sub = 8 if s_item == 4 else 16
+    if K % (2 * G) or pk % 32 or (pk // G) % s_sub or ff % 128:
+        return False
+    return _gateup_fits(ff, pk, M, s3.shape[-3], G, s_item, 4 if is4 else 2, 16 if is4 else 9)
 
 
 # -- plain versions ----------------------------------------------------------
 
 
-def qmm_plain(x: torch.Tensor, w: QTensor) -> torch.Tensor:
-    """x [M, K] @ W^T → [M, N] f32 for an i4t QTensor (layer view allowed),
-    in plain torch with the kernel's rounding points."""
+def _qmm_i8t_plain(x: torch.Tensor, w: QTensor, dq: bool) -> torch.Tensor:
+    M, K = x.shape
+    G = w.group
+    ng = K // G
+    N = w.shape[0]
+    s3, has_mins = kernel_scales(w)
+    if has_mins:
+        raise NotImplementedError("i8t weights with mins: not ported yet (Q8_0 has none)")
+    sf = s3[0].to(torch.bfloat16).float()  # [K/G, N] consumed at bf16
+    xb = x.to(torch.bfloat16).float()
+    if M == 1 and not dq:
+        p = torch.bmm(xb.reshape(ng, 1, G), w.qw.float().reshape(ng, G, N)).reshape(ng, N)
+        return (sf * p).sum(0).reshape(1, N)
+    wd = (w.qw.float() * sf.repeat_interleave(G, dim=0)).to(torch.bfloat16)
+    return xb @ wd.float()
+
+
+def qmm_plain(x: torch.Tensor, w: QTensor, dq: bool = False) -> torch.Tensor:
+    """x [M, K] @ W^T → [M, N] f32 for an i4t or i8t QTensor (layer view
+    allowed), in plain torch with the kernels' rounding points.  `dq` takes
+    the dequantize form at M = 1 too (the whole-MLP kernel's form)."""
     w = w.resolved()
+    if w.kind == "i8t":
+        return _qmm_i8t_plain(x, w, dq)
     M, K = x.shape
     half = K // 2
     G = w.group
@@ -135,10 +214,10 @@ def qmm_plain(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     return y
 
 
-def qmm_gateup_plain(x: torch.Tensor, w: QTensor) -> torch.Tensor:
-    """silu(x @ Wg^T) * (x @ Wu^T) → [M, ff] bf16 from a fused [2ff, K] i4t
+def qmm_gateup_plain(x: torch.Tensor, w: QTensor, dq: bool = False) -> torch.Tensor:
+    """silu(x @ Wg^T) * (x @ Wu^T) → [M, ff] bf16 from a fused [2ff, K]
     QTensor: the unfused sequence, qmm then silu·mul in bf16."""
-    gu = qmm_plain(x, w).to(torch.bfloat16)
+    gu = qmm_plain(x, w, dq).to(torch.bfloat16)
     ff = gu.shape[-1] // 2
     return silu(gu[:, :ff]) * gu[:, ff:]
 
@@ -168,9 +247,9 @@ def _launch(x: torch.Tensor, w: QTensor, gateup: bool) -> torch.Tensor:
     out = torch.empty(M, ncols, device=x.device,
                       dtype=torch.bfloat16 if gateup else torch.float32)
     lib = kernels.library("qmm_i4t", _SIGNATURES)
-    splits = _splits.get((K, w.group))
+    splits = _splits.get(("qmm_i4t", K, w.group))
     if splits is None:
-        splits = _splits[(K, w.group)] = lib.bt_qmm_i4t_splits(K, w.group)
+        splits = _splits[("qmm_i4t", K, w.group)] = lib.bt_qmm_i4t_splits(K, w.group)
     part = (torch.empty(splits * (2 if gateup else 1) * M * ncols, dtype=torch.float32,
                         device=x.device) if splits > 1 else None)
     tiles = -(-ncols // 32) * (1 if M == 1 else -(-M // _ROWS_TILE))
@@ -182,6 +261,74 @@ def _launch(x: torch.Tensor, w: QTensor, gateup: bool) -> torch.Tensor:
     kernels.check(rc, "qmm_i4t")
     kernels.count(("qmm_i4t_gateup" if gateup else "qmm_i4t") + ("_gd" if M == 1 else "_dq"),
                   (K, N))
+    return out
+
+
+def check_i8t(x: torch.Tensor, w: QTensor, what: str) -> torch.Tensor:
+    """Raise unless the i8t kernels take x [M, K] and the 2-D QTensor w
+    (contiguous bf16 x on 16 bytes, int8 payload [K, N], one bf16 scale
+    plane [1, K/32, N], group 32, N a multiple of 128, K of 64); returns the
+    scale plane."""
+    M, K = x.shape
+    N = w.shape[0]
+    s3, has_mins = kernel_scales(w)
+    if x.dtype != torch.bfloat16 or not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"{what} kernel: x must be contiguous bf16 on 16 bytes")
+    if w.qw.dtype != torch.int8 or tuple(w.qw.shape) != (K, N) or not w.qw.is_contiguous():
+        raise ValueError(f"{what} kernel: payload must be contiguous int8 [{K}, {N}]")
+    if w.group != 32:
+        raise NotImplementedError(f"{what} kernel: group {w.group}: not ported yet "
+                                  "(Q8_0's group of 32 is)")
+    if has_mins:
+        raise NotImplementedError(f"{what} kernel: i8t weights with mins: not ported yet")
+    if s3.dtype != torch.bfloat16 or tuple(s3.shape) != (1, K // 32, N) or not s3.is_contiguous():
+        raise ValueError(f"{what} kernel: scales must be contiguous bf16 [1, K/32, N] "
+                         "(compact_scales)")
+    if N % 128 or K % 64:
+        raise NotImplementedError(f"{what} kernel: N = {N}, K = {K}: not ported yet "
+                                  "(N a multiple of 128, K of 64)")
+    if not (x.device == w.qw.device == s3.device):
+        raise ValueError(f"{what} kernel: all operands must be on one device")
+    return s3
+
+
+def _launch_i8t(x: torch.Tensor, w: QTensor, gateup: bool, dq: bool) -> torch.Tensor:
+    w = w.resolved()
+    M, K = x.shape
+    N = w.shape[0]
+    s3 = check_i8t(x, w, "qmm_i8t")
+    dev = x.device
+    lib = kernels.library("qmm_i8t", _I8_SIGNATURES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if M == 1 and not (dq or gateup):
+        splits = _splits.get(("qmm_i8t", K, 32))
+        if splits is None:
+            splits = _splits[("qmm_i8t", K, 32)] = lib.bt_qmm_i8t_gd_splits(K)
+        out = torch.empty(1, N, device=dev, dtype=torch.float32)
+        part = torch.empty(splits * N, dtype=torch.float32, device=dev) if splits > 1 else None
+        rc = lib.bt_qmm_i8t_gd(x.data_ptr(), w.qw.data_ptr(), s3.data_ptr(), out.data_ptr(),
+                               None if part is None else part.data_ptr(),
+                               _ticket_buffer(dev, N // 128).data_ptr(), K, N, stream)
+        kernels.check(rc, "qmm_i8t_gd")
+        kernels.count("qmm_i8t_gd", (K, N))
+        return out
+    ks = dq_splits(M, K, N)
+    if gateup:
+        if N % 256:
+            raise NotImplementedError(f"qmm_i8t gate-up kernel: ff = {N // 2}: not ported yet "
+                                      "(a multiple of 128)")
+        out = torch.empty(M, N // 2, device=dev, dtype=torch.bfloat16)
+    else:
+        out = torch.empty(M, N, device=dev, dtype=torch.float32)
+    part = (torch.empty(ks * M * N, dtype=torch.float32, device=dev)
+            if gateup or ks > 1 else None)
+    tickets = _ticket_buffer(dev, -(-M // _DQ_BM) * (N // _DQ_BN))
+    rc = lib.bt_qmm_i8t_dq(x.data_ptr(), w.qw.data_ptr(), s3.data_ptr(), out.data_ptr(),
+                           None if part is None else part.data_ptr(), tickets.data_ptr(),
+                           M, K, N, ks, int(gateup), stream)
+    name = "qmm_i8t_gateup_dq" if gateup else "qmm_i8t_dq"
+    kernels.check(rc, name)
+    kernels.count(name, (K, N))
     return out
 
 
@@ -200,18 +347,43 @@ def qmm_i4t_gateup(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     return _launch(x, w, gateup=True)
 
 
+def qmm_i8t(x: torch.Tensor, w: QTensor, dq: bool = False) -> torch.Tensor:
+    """Kernel-level entry for i8t: x [M, K] bf16 @ W^T → [M, N] f32, the
+    group-dot kernel at M = 1 and the dequant (tensor-core) kernel at M > 1,
+    or at M = 1 too with `dq` (the whole-MLP kernel's form)."""
+    if x.device.type == "cpu":
+        return qmm_plain(x, w, dq)
+    return _launch_i8t(x, w, gateup=False, dq=dq)
+
+
+def qmm_i8t_gateup(x: torch.Tensor, w: QTensor) -> torch.Tensor:
+    """Kernel-level entry of the i8t fused gate+up (M > 1): → [M, ff] bf16."""
+    if x.shape[0] == 1:
+        raise NotImplementedError("qmm_i8t gate-up at M = 1 (_gateup_i8_gd_kernel): "
+                                  "not ported yet")
+    if x.device.type == "cpu":
+        return qmm_gateup_plain(x, w)
+    return _launch_i8t(x, w, gateup=True, dq=True)
+
+
 # -- public ops --------------------------------------------------------------
+
+
+def _rows(x: torch.Tensor) -> int:
+    M = 1
+    for d in x.shape[:-1]:
+        M *= d
+    return M
 
 
 def qmm(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     """x [..., K] @ W[N, K]^T → [..., N] float32."""
     K = x.shape[-1]
     lead = x.shape[:-1]
-    M = 1
-    for d in lead:
-        M *= d
+    M = _rows(x)
     if w.transposed and _supported_t(w, K, M) and _stack_ok(w):
-        y = qmm_i4t(x.reshape(M, K).to(torch.bfloat16).contiguous(), w)
+        kern = qmm_i4t if w.kind == "i4t" else qmm_i8t
+        y = kern(x.reshape(M, K).to(torch.bfloat16).contiguous(), w)
         return y.reshape(*lead, w.shape[0])
     wd = dequantize(w, torch.bfloat16)
     return (x.to(torch.bfloat16).float() @ wd.float().t()).reshape(*lead, w.shape[0])
@@ -222,11 +394,9 @@ def qmm_gateup(x: torch.Tensor, w: QTensor) -> Optional[torch.Tensor]:
     QTensor, or None when the kind/shape is not taken (the caller then runs
     the unfused qlinear + silu·mul path)."""
     K = x.shape[-1]
-    if not _gateup_supported(w, K) or not _stack_ok(w):
+    M = _rows(x)
+    if not _gateup_supported(w, K, M) or not _stack_ok(w):
         return None
-    lead = x.shape[:-1]
-    M = 1
-    for d in lead:
-        M *= d
-    y = qmm_i4t_gateup(x.reshape(M, K).to(torch.bfloat16).contiguous(), w)
-    return y.reshape(*lead, w.shape[0] // 2)
+    kern = qmm_i4t_gateup if w.kind == "i4t" else qmm_i8t_gateup
+    y = kern(x.reshape(M, K).to(torch.bfloat16).contiguous(), w)
+    return y.reshape(*x.shape[:-1], w.shape[0] // 2)

@@ -1,8 +1,8 @@
 """Bit-exact (de)quantization of the ggml block formats the port loads, in numpy.
 
-A copy of the Q4_0 and float parts of ``booster_tpu/quant/formats.py``
-(decode semantics: llama.cpp/ggml/src/ggml-quants.c dequantize_row_q4_0,
-quantize_row_q4_0_ref).  The other block formats are not ported yet.
+A copy of the Q4_0, Q8_0 and float parts of ``booster_tpu/quant/formats.py``
+(decode semantics: llama.cpp/ggml/src/ggml-quants.c dequantize_row_q4_0/q8_0,
+quantize_row_q4_0_ref/q8_0_ref).  The other block formats are not ported yet.
 """
 
 from __future__ import annotations
@@ -40,7 +40,13 @@ def _dequant_q4_0(b: np.ndarray) -> np.ndarray:
     return q * d
 
 
-_DEQUANT = {GGMLType.Q4_0: _dequant_q4_0}
+def _dequant_q8_0(b: np.ndarray) -> np.ndarray:
+    d = _f16(b[:, 0:2])
+    q = b[:, 2:34].view(np.int8).astype(np.float32)
+    return q * d
+
+
+_DEQUANT = {GGMLType.Q4_0: _dequant_q4_0, GGMLType.Q8_0: _dequant_q8_0}
 
 
 def dequantize(data: np.ndarray | bytes, ggml_type: GGMLType, shape=None) -> np.ndarray:
@@ -79,7 +85,19 @@ def _quant_q4_0(x: np.ndarray) -> np.ndarray:
     return out
 
 
-_QUANT = {GGMLType.Q4_0: _quant_q4_0}
+def _quant_q8_0(x: np.ndarray) -> np.ndarray:
+    x = x.reshape(-1, 32)
+    amax = np.max(np.abs(x), axis=1)
+    d = amax / 127.0
+    inv_d = np.where(d != 0, 1.0 / np.where(d == 0, 1, d), 0.0)
+    q = np.clip(np.round(x * inv_d[:, None]), -128, 127).astype(np.int8)
+    out = np.empty((x.shape[0], 34), dtype=U8)
+    out[:, 0:2] = _f16_bytes(d)
+    out[:, 2:34] = q.view(U8)
+    return out
+
+
+_QUANT = {GGMLType.Q4_0: _quant_q4_0, GGMLType.Q8_0: _quant_q8_0}
 
 
 def quantize(x: np.ndarray, ggml_type: GGMLType) -> bytes:

@@ -1,7 +1,8 @@
 """QTensor: quantized weights in the kernels' layout, over torch tensors.
 
-Port of ``booster_tpu/quant/qtensor.py`` for the Q4_0 llama path.  At load
-time a GGUF Q4_0 tensor is *losslessly* repacked (host-side numpy) into
+Port of ``booster_tpu/quant/qtensor.py`` for the Q4_0 and Q8_0 llama
+paths.  At load time a GGUF Q4_0 or Q8_0 tensor is *losslessly* repacked
+(host-side numpy) into
 
     value[r, c] = (q[r, c] - zero) * scales[r, c // group]  -  mins[r, c // group]
 
@@ -13,12 +14,17 @@ with payload ``qw``:
                 (transpose_qtensor), with scale planes [R, in/(2G), out]:
                 rows 0-1 the scales of the two halves, rows 2-3 their mins
                 when the format is affine
+    kind="i8"   int8 [out, in] (Q8_0: symmetric, group 32, no zero point)
+    kind="i8t"  the same payload stored K-major, [in, out], with scale
+                planes [R, in/G, out]: row 0 the scales, row 1 the mins
+                when affine
     kind="dense" bf16 [out, in]   (no scales; ``repack_weights(qt, "bf16")``;
                 while loading, numpy f32 or the bf16 bits as uint16)
 
-The K-major i4t form is what ops/qmm.py's kernel (csrc/qmm_i4t.cu) reads:
+The K-major forms are what ops/qmm.py's kernels (csrc/qmm_i4t.cu,
+csrc/qmm_i8t.cu) and ops/mlp.py's (csrc/mlp_i8t.cu) read:
 consecutive output columns are consecutive bytes, so a warp's loads of one
-payload row coalesce.  ``compact_scales`` stores the i4t scale planes as
+payload row coalesce.  ``compact_scales`` stores the K-major scale planes as
 bfloat16 — the kernel rounds scales to bf16 anyway, so this is exact through
 the kernel and halves the scale bytes.
 
@@ -46,7 +52,7 @@ class QTensor:
     on a leading layer axis).  Arrays are numpy while loading, torch after
     ``to_torch``."""
 
-    kind: str  # "i4p" | "i4t" | "dense"
+    kind: str  # "i4p" | "i4t" | "i8" | "i8t" | "dense"
     qw: Any
     scales: Optional[Any]
     mins: Optional[Any]
@@ -67,7 +73,7 @@ class QTensor:
 
     @property
     def transposed(self) -> bool:
-        return self.kind == "i4t"
+        return self.kind in ("i4t", "i8t")
 
     @property
     def scale_rows(self) -> int:
@@ -141,7 +147,14 @@ def _repack_q4_0(raw: np.ndarray, out_f: int, in_f: int) -> QTensor:
                    GGMLType.Q4_0, zero=8)
 
 
-_REPACK = {GGMLType.Q4_0: _repack_q4_0}
+def _repack_q8_0(raw: np.ndarray, out_f: int, in_f: int) -> QTensor:
+    b = _blocks(raw, TYPE_TRAITS[GGMLType.Q8_0].type_size)
+    d = _f16(b[:, 0:2]).reshape(out_f, in_f // 32)
+    q = b[:, 2:34].view(np.int8).reshape(out_f, in_f).copy()
+    return QTensor("i8", q, d, None, 32, (out_f, in_f), GGMLType.Q8_0)
+
+
+_REPACK = {GGMLType.Q4_0: _repack_q4_0, GGMLType.Q8_0: _repack_q8_0}
 _DENSE_TYPES = (GGMLType.F32, GGMLType.F16, GGMLType.BF16)
 
 
@@ -184,11 +197,12 @@ def repack_weights(qt: QTensor, mode: str) -> QTensor:
 
 def prepare_kernel_scales(qt: QTensor) -> QTensor:
     """Pre-shape `scales` (and fold `mins`) into the kernels' operand layout:
-    i4p → [..., N, 2(+2), K/(2G)] (the +2 rows hold mins when affine)."""
-    if qt.kind != "i4p" or qt.scales is None or qt.prepared:
+    i4p → [..., N, 2(+2), K/(2G)], i8 → [..., N, 1(+1), K/G] (the extra
+    rows hold mins when affine)."""
+    if qt.kind not in ("i4p", "i8") or qt.scales is None or qt.prepared:
         return qt
     s = np.asarray(qt.scales)
-    rows = 2
+    rows = qt.scale_rows
     sg = s.shape[-1] // rows
     s3 = s.reshape(*s.shape[:-1], rows, sg)
     if qt.mins is not None:
@@ -198,20 +212,26 @@ def prepare_kernel_scales(qt: QTensor) -> QTensor:
 
 
 def transpose_qtensor(qt: QTensor) -> QTensor:
-    """Lane-major → K-major storage (i4p→i4t), host-side, exact:
-    qw [..., N, K/2] → [..., K/2, N]; prepared scales [..., N, R, SG] →
-    [..., R, SG, N]."""
-    if qt.kind in ("dense", "i4t"):
+    """Lane-major → K-major storage (i4p→i4t, i8→i8t), exact: qw [..., N, Kp]
+    → [..., Kp, N]; prepared scales [..., N, R, SG] → [..., R, SG, N].  On
+    numpy arrays on the host, or on torch tensors where they lie (the loader
+    transposes on the card: a host transpose of a 7B model takes a minute)."""
+    if qt.kind in ("dense", "i4t", "i8t"):
         return qt
-    if qt.kind != "i4p":
+    if qt.kind not in ("i4p", "i8"):
         raise ValueError(f"cannot transpose kind {qt.kind!r}")
     if qt.scales is not None and not qt.prepared:
         qt = prepare_kernel_scales(qt)
-    qw = np.ascontiguousarray(np.swapaxes(np.asarray(qt.qw), -1, -2))
     s = qt.scales
-    if s is not None:
-        s = np.ascontiguousarray(np.moveaxis(np.asarray(s), -3, -1))
-    return replace(qt, kind="i4t", qw=qw, scales=s)
+    if torch.is_tensor(qt.qw):
+        qw = qt.qw.transpose(-1, -2).contiguous()
+        if s is not None:
+            s = s.movedim(-3, -1).contiguous()
+    else:
+        qw = np.ascontiguousarray(np.swapaxes(np.asarray(qt.qw), -1, -2))
+        if s is not None:
+            s = np.ascontiguousarray(np.moveaxis(np.asarray(s), -3, -1))
+    return replace(qt, kind=qt.kind[:2] + "t", qw=qw, scales=s)
 
 
 def compact_scales(qt: QTensor) -> QTensor:
@@ -257,11 +277,14 @@ def dequantize(qt: QTensor, dtype=torch.bfloat16) -> torch.Tensor:
     qt = qt.resolved()
     if qt.kind == "dense":
         return qt.qw.to(dtype)
-    if qt.kind not in ("i4p", "i4t"):
+    if qt.kind not in ("i4p", "i4t", "i8", "i8t"):
         raise NotImplementedError(f"kind {qt.kind!r}: not ported yet")
-    p = qt.qw.t() if qt.transposed else qt.qw  # [N, K/2] u8
+    p = qt.qw.t() if qt.transposed else qt.qw  # [N, K/2] u8 or [N, K] i8
     out_f, in_f = qt.shape
-    q = torch.cat([p & 0x0F, p >> 4], dim=-1).to(torch.float32)
+    if qt.kind in ("i4p", "i4t"):
+        q = torch.cat([p & 0x0F, p >> 4], dim=-1).to(torch.float32)
+    else:
+        q = p.to(torch.float32)
     if qt.zero:
         q = q - float(qt.zero)
     sc, mn = _flat_scales(qt)

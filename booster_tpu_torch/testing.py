@@ -1,8 +1,10 @@
 """Inputs for the tests and the chip smoke run: no download needed.
 
 ``make_model`` writes a seeded synthetic llama-shaped GGUF with a working SPM
-vocab.  It ports ``tools/make_test_model.py`` onto the port's own GGUF
-writer and quantizer: the same arguments and seed give the same file bytes.
+vocab (Q4_0 or Q8_0 weights).  It ports ``tools/make_test_model.py`` onto the
+port's own GGUF writer and quantizer: the same arguments and seed give the
+same file bytes.  It writes tensor by tensor, so the 7B shape (7.7 GB as
+Q8_0) needs a few hundred MB of host memory.
 ``decode_attn_case`` makes decode-attention inputs on which a wrong kernel
 shows (bf16 or int8 cache), ``decode_attn_mutants`` the inputs of such wrong
 kernels, and ``decode_attn_limit`` the kernel's per-element limit against
@@ -11,6 +13,9 @@ its plain version; ``prefill_attn_case``, ``prefill_attn_mutants`` and
 """
 
 from __future__ import annotations
+
+import functools
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -92,29 +97,55 @@ def make_model(
     w.add("tokenizer.ggml.unknown_token_id", 0)
     w.add("tokenizer.ggml.add_bos_token", True)
 
-    def add(name, arr, qt=None):
-        qt = qt or (quant if arr.ndim == 2 and arr.shape[-1] % 256 == 0 else GGMLType.F32)
-        if arr.ndim < 2 or "norm" in name:
-            qt = GGMLType.F32
-        w.add_tensor(name, quantize(arr, qt), arr.shape, qt)
-
     s = weight_scale
     head_dim = head_dim or hidden // heads
-    add("token_embd.weight", rng.standard_normal((vocab_size, hidden)).astype(np.float32) * s)
-    add("output_norm.weight", np.ones(hidden, np.float32))
-    add("output.weight", rng.standard_normal((vocab_size, hidden)).astype(np.float32) * s)
+    specs = []  # (name, shape, type, random?) in file order: the order of the draws
+
+    def add(name, shape, rand=True):
+        qt = quant if len(shape) == 2 and shape[-1] % 256 == 0 else GGMLType.F32
+        if len(shape) < 2 or "norm" in name:
+            qt = GGMLType.F32
+        specs.append((name, shape, qt, rand))
+
+    add("token_embd.weight", (vocab_size, hidden))
+    add("output_norm.weight", (hidden,), rand=False)
+    add("output.weight", (vocab_size, hidden))
     for i in range(layers):
         p = f"blk.{i}."
-        add(p + "attn_norm.weight", np.ones(hidden, np.float32))
-        add(p + "attn_q.weight", rng.standard_normal((heads * head_dim, hidden)).astype(np.float32) * s)
-        add(p + "attn_k.weight", rng.standard_normal((kv_heads * head_dim, hidden)).astype(np.float32) * s)
-        add(p + "attn_v.weight", rng.standard_normal((kv_heads * head_dim, hidden)).astype(np.float32) * s)
-        add(p + "attn_output.weight", rng.standard_normal((hidden, heads * head_dim)).astype(np.float32) * s)
-        add(p + "ffn_norm.weight", np.ones(hidden, np.float32))
-        add(p + "ffn_gate.weight", rng.standard_normal((ff, hidden)).astype(np.float32) * s)
-        add(p + "ffn_up.weight", rng.standard_normal((ff, hidden)).astype(np.float32) * s)
-        add(p + "ffn_down.weight", rng.standard_normal((hidden, ff)).astype(np.float32) * s)
-    w.write(out_path)
+        add(p + "attn_norm.weight", (hidden,), rand=False)
+        add(p + "attn_q.weight", (heads * head_dim, hidden))
+        add(p + "attn_k.weight", (kv_heads * head_dim, hidden))
+        add(p + "attn_v.weight", (kv_heads * head_dim, hidden))
+        add(p + "attn_output.weight", (hidden, heads * head_dim))
+        add(p + "ffn_norm.weight", (hidden,), rand=False)
+        add(p + "ffn_gate.weight", (ff, hidden))
+        add(p + "ffn_up.weight", (ff, hidden))
+        add(p + "ffn_down.weight", (hidden, ff))
+
+    # tensor by tensor while the file is written: the draws stay in file
+    # order on this thread, and a few tensors ahead are quantized on others
+    # (numpy releases the GIL), so a 7B-shape file never holds more than a
+    # few tensors in memory
+    pool = ThreadPoolExecutor(max_workers=4)
+    pending: dict = {}
+    drawn = 0
+
+    def tensor_bytes(i: int) -> bytes:
+        nonlocal drawn
+        while drawn < len(specs) and drawn <= i + 3:
+            _, shape, qt, rand = specs[drawn]
+            arr = (rng.standard_normal(shape).astype(np.float32) * s if rand
+                   else np.ones(shape, np.float32))
+            pending[drawn] = pool.submit(quantize, arr, qt)
+            drawn += 1
+        return pending.pop(i).result()
+
+    for i, (name, shape, qt, _) in enumerate(specs):
+        w.add_tensor(name, functools.partial(tensor_bytes, i), shape, qt)
+    try:
+        w.write(out_path)
+    finally:
+        pool.shutdown(cancel_futures=True)
     return out_path
 
 
@@ -163,8 +194,8 @@ def decode_attn_case(L: int, B: int, Hkv: int, G: int, S: int, D: int, Dc: int,
 def decode_attn_mutants(args: tuple) -> dict:
     """``decode_attn`` arguments that make the plain version compute what
     wrong kernels would on ``args``: the self term dropped, the last valid
-    column missed, one column past the end read, and for an int8 cache the
-    v scales ignored."""
+    column missed, one column past the end read, for an int8 cache the v
+    scales ignored, and for a head dim over 64 lanes 64-127 ignored."""
     q, kc, vc, layer, lens, win, softcap, sk, sv, ok, *scales = args
     rest = (win, softcap, sk, sv)
     out = {
@@ -175,7 +206,19 @@ def decode_attn_mutants(args: tuple) -> dict:
     }
     if scales:
         out["v scales ignored"] = (*args[:11], torch.ones_like(scales[1]))
+    if q[..., 64:].abs().amax() > 0:  # a head dim over 64 fills lanes 64-127
+        lo = _lanes_below_64
+        out["lanes 64-127 ignored"] = (lo(q), lo(kc), lo(vc), layer, lens, win, softcap,
+                                       lo(sk), lo(sv), ok, *scales)
     return out
+
+
+def _lanes_below_64(t: torch.Tensor) -> torch.Tensor:
+    """t with lanes 64.. of its last axis zeroed: what a kernel that reads
+    only the first 64 lanes sees (its output lanes 64.. then stay zero)."""
+    t = t.clone()
+    t[..., 64:] = 0
+    return t
 
 
 def decode_attn_limit(args: tuple) -> torch.Tensor:
@@ -235,14 +278,18 @@ def prefill_attn_mutants(args: tuple) -> dict:
     """``prefill_attn`` arguments that make the plain version compute what
     wrong kernels would on ``args``: each row's own column dropped, the last
     valid column missed, one column past the end read, the v scales
-    ignored."""
+    ignored, and for a head dim over 64 lanes 64-127 ignored."""
     q, k, v, ks, vs, pos0, lens, win, softcap = args
-    return {
+    out = {
         "self term dropped": (q, k, v, ks, vs, pos0 - 1, lens, win, softcap),
         "last column missed": (q, k, v, ks, vs, pos0, lens - 1, win, softcap),
         "column past the end read": (q, k, v, ks, vs, pos0, lens + 1, win, softcap),
         "v scales ignored": (q, k, v, ks, torch.ones_like(vs), pos0, lens, win, softcap),
     }
+    if q[..., 64:].abs().amax() > 0:
+        lo = _lanes_below_64
+        out["lanes 64-127 ignored"] = (lo(q), lo(k), lo(v), ks, vs, pos0, lens, win, softcap)
+    return out
 
 
 def prefill_attn_limit(args: tuple) -> torch.Tensor:

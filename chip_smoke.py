@@ -1,31 +1,41 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (booster_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases build,kernels,parity,generate,batch]
+    python3 chip_smoke.py [--phases build,kernels,parity,generate,batch,generate_q8,batch_q8]
 
 Phases, each printing one JSON line with its seconds:
 
 1. build — compile every CUDA kernel of the paths from csrc/ (one nvcc per
    source, all at once); print the card's name and power limit as
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives them.
-2. kernels — at the paths' shapes (TinyLlama-1.1B: batch 1 for the Q4_0
-   kernels, batch 64 over a 512-row int8 cache for int8 decode attention,
-   the quantizing append, and chunked-prefill attention at both prompt
-   buckets, T = 16 and the batch phase's T = 32), each kernel against
-   its plain torch version on the same inputs, with the tolerance stated at
-   CHECKS; the fused gate-up against qmm + silu·mul (equal); each attention
-   check must see the wrong kernels of booster_tpu_torch.testing (a dropped
-   self term, a missed last column, a column read past the end, ignored v
-   scales) at 8x its limit; median times of kernel, plain version and one
-   library call (the yardstick), each call after an L2 scrub (cold, as on
-   the decode path), and the kernel's time warm as well.
-3. parity — 2-layer models at TinyLlama's full width on the CPU (plain
-   versions) and on the card (kernels), both fed the CPU's greedy tokens:
-   (a) batch 1, Q4_0, bf16 cache: prefill, then 16 decode steps; (b) the
-   batched path: bf16 weights, int8 cache, 4 slots of which 2 are live,
-   prefill, then 16 decode steps.  The live slots' logits agree within the
-   stated tolerance at every step, and the greedy tokens wherever the
-   CPU's top-2 margin exceeds it.
+2. kernels — each kernel against its plain torch version on the same inputs,
+   with the tolerance stated at CHECKS, at the paths' shapes:
+   TinyLlama-1.1B (batch 1 for the Q4_0 kernels and bf16-cache attention,
+   batch 64 over a 512-row int8 cache for int8 decode attention, the
+   quantizing append, and chunked-prefill attention at both prompt buckets,
+   T = 16 and the batch phase's T = 32), and the Mistral-7B layout of config
+   3 (32 layers, 8 kv heads of 4 query heads, head dim 128 filling every
+   cache lane: the same attention kernels and appends, prefill at T = 32;
+   the i8t matmul at M = 1 (group-dot) and M = 64 / 2048 (tensor-core
+   dequant), the i8t gate-up at M = 2048 and the whole-MLP kernel at
+   M = 1, 16 and 64 on a 32-layer stack through the layer view).  Fused
+   kernels are held against the unfused kernels bit for bit: the gate-ups
+   against qmm + silu·mul, the MLP against the i8t gate-up (its dequant
+   form) + silu·mul + the dequant matmul.  Each attention check must see the
+   wrong kernels of booster_tpu_torch.testing (a dropped self term, a missed
+   last column, a column read past the end, ignored v scales, and at head
+   dim 128 ignored lanes 64-127) at 8x its limit.  Median times of kernel,
+   plain version and one library call (the yardstick), each call after an
+   L2 scrub (cold, as on the decode path), and the kernel's time warm.
+3. parity — 2-layer models on the CPU (plain versions) and on the card
+   (kernels), both fed the CPU's greedy tokens: (a) TinyLlama width, batch
+   1, Q4_0, bf16 cache: prefill, then 16 decode steps; (b) TinyLlama width,
+   the batched path: bf16 weights, int8 cache, 4 slots of which 2 are live,
+   prefill, then 16 decode steps; (c) the 7B width, Q8_0 (native i8t): the
+   batched path over an int8 cache (4 slots, 2 live, T = 32 prompts) and
+   the single-stream path over a bf16 cache, 8 decode steps each.  The
+   live slots' logits agree within the stated tolerance at every step, and
+   the greedy tokens wherever the CPU's top-2 margin exceeds it.
 4. generate — the full 22-layer TinyLlama-shaped Q4_0 GGUF (random weights
    from a seed, built by booster_tpu_torch.testing.make_model and cached
    under build/), ``load_model(device="cuda")`` and
@@ -46,12 +56,35 @@ Phases, each printing one JSON line with its seconds:
    step, 22 prefill attentions per prefill chunk, no 4-bit matmul.  It
    prints aggregate and per-stream tok/s, prefill ms, and (one more run
    under torch.profiler) the device busy share and the top kernels.
+6. generate_q8 — bench.py's config 3 model: the full 32-layer Mistral-7B
+   shape (hidden 4096, 32 heads over 8 kv heads, ff 14336, vocab 32000)
+   with Q8_0 weights, built as bench.py builds it (7.7 GB, cached under
+   build/; its build and load seconds are printed), loaded once with
+   ``load_model(weights="auto")``, which must keep native i8t weights; the
+   single-stream generate of phase 4 on it (bf16 cache).  Exact launch
+   counts, derived from the reference's gates (pallas_qmm.py: qmm sends i8t
+   to the group-dot kernel at M = 1 and the dequant kernel otherwise,
+   :602; llama.py:552-580 tries qmm_mlp first, whose tile rule
+   _pick_bf_mlp :1281 takes the 7B MLP at M <= 64, M = 1 included, but
+   not at M = 2048, where qmm_gateup takes it): per decode step 2·32 + 1
+   group-dot matmuls (qkv and
+   wo of each layer, the lm head), 32 MLP kernels, 32 bf16 decode
+   attentions and one append; at the 16-row prefill 64 dequant matmuls,
+   32 MLP kernels and one group-dot lm head (the last row).
+7. batch_q8 — the same loaded model through phase 5's bench_batch (config
+   3: 64 streams, int8 KV).  Exact counts: per decode step (M = 64) 65
+   dequant matmuls (qkv, wo, the lm head), 32 MLP kernels, 32 int8 decode
+   attentions, one quantizing append; at the prefill chunk (64 slots x
+   T = 32 = 2048 rows) 97 dequant matmuls (qkv, wo and down of each layer,
+   the lm head over the 64 gathered rows), 32 i8t gate-ups and 32 prefill
+   attentions; no 4-bit kernel.  It prints the same figures as phase 5 and
+   the peak device memory.
 
 Then one ``{"kernels": [...]}`` line (each kernel's launches are those of
-the path that runs it: generate for the Q4_0 kernels, batch for the int8
-ones) and, last, ``{"ok": true, "device": {...}}``.  Without CUDA, or
-outside a checkout of the repository, it exits non-zero and prints no
-result.
+the path that runs it: generate / generate_q8 for the M = 1 kernels and
+bf16-cache attention, batch / batch_q8 for the int8 ones) and, last,
+``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout of
+the repository, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -62,17 +95,27 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core rate, NVIDIA data sheet
 SCRUB_BYTES = 200 << 20  # 4x the H100's 50 MB L2: read between timed calls
-PHASES = ("build", "kernels", "parity", "generate", "batch")
+PHASES = ("build", "kernels", "parity", "generate", "batch", "generate_q8", "batch_q8")
 
-# TinyLlama-1.1B (config 1 of bench.py)
+# TinyLlama-1.1B (config 1 of bench.py), Q4_0
 TINYLLAMA = dict(vocab_size=32000, hidden=2048, heads=32, kv_heads=4, ff=5632,
                  seed=0, weight_scale=0.05)
+# the Mistral-7B shape of bench.py's config 3 (bench.py:63-68), Q8_0
+MISTRAL7B = dict(vocab_size=32000, hidden=4096, heads=32, kv_heads=8, ff=14336,
+                 seed=0, weight_scale=0.05)
+# the attention kernels' layouts on the two models' paths: the bf16-cache
+# generate (batch 1, S1 rows) and the int8-cache batch (B slots, S rows)
+TINY_ATTN = dict(name="TinyLlama", L=22, Hkv=4, G=8, D=64, Dc=128, S1=1024, B=64, S=512,
+                 prefill_T=(16, 32), gen_path="generate", batch_path="batch")
+MISTRAL_ATTN = dict(name="7B", L=32, Hkv=8, G=4, D=128, Dc=128, S1=1024, B=64, S=512,
+                    prefill_T=(32,), gen_path="generate_q8", batch_path="batch_q8")
 PROMPT = "hello world and the end"  # 15 tokens: the 16-row prefill bucket
 
 # tolerances of kernel vs plain version on the card, and why
@@ -96,6 +139,13 @@ CHECKS = {
     "prefill": "|kernel - plain| <= 2^-8 * 1.01 * (sum_j p_j |vs_j v_j|) / l "
                "+ 1e-5 max|plain| per element; each of four wrong kernels exceeds it 8x",
     "append_i8": "exact (payload and scales)",
+    # the i8t gate-up at M = 2048 (29 M outputs): g and u may both round
+    # the other way, each by one bf16 ulp (up to 2^-7 of itself), and the
+    # two later roundings (of g·sg and of the product) move up to 2^-8 each
+    "gateup_i8": "|kernel - plain| <= 2^-5 |plain| + 1e-5 max|plain| per element",
+    # bf16 outputs after a down sum of ff products: a flip of one mid
+    # element (see gateup) moves every output by up to 2^-8 of that product
+    "mlp": "max|kernel - plain| <= 2^-7 * max|plain|",
     # two bf16 roundings of any intermediate may differ and propagate
     "logits": "max|cuda - cpu| <= 2^-5 * max|cpu logit|",
 }
@@ -211,20 +261,15 @@ def _stacked_i4t(L, K, N, gen):
 
 def phase_kernels(entries: list) -> dict:
     import torch
-    import torch.nn.functional as F
 
-    from booster_tpu_torch.ops import decode_attention as da
-    from booster_tpu_torch.ops import kv_append as ka
     from booster_tpu_torch.ops import qmm as tq
     from booster_tpu_torch.quant.qtensor import dequantize
-    from booster_tpu_torch.testing import (decode_attn_case, decode_attn_limit,
-                                           decode_attn_mutants)
 
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    L, C, ff, V = 22, 2048, 5632, 32000
-    Hkv, G, D, Dc, S = 4, 8, 64, 128, 1024
+    C, ff, V = 2048, 5632, 32000
+    Hkv, D = 4, 64
     # two layers of each stacked weight (the calls take layer 1's view, as
     # the path takes layer i's); the lm head is one 2-D matrix
     weights = {
@@ -289,8 +334,34 @@ def phase_kernels(entries: list) -> dict:
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": lib_ms, "check": CHECKS["gateup" if gateup else "qmm"]})
     del weights
+    torch.cuda.empty_cache()
+    for lay in (TINY_ATTN, MISTRAL_ATTN):
+        _bf16_attn_kernels(entries, failures, lay)
+        _int8_kernels(entries, failures, lay)
+    _i8t_kernels(entries, failures)
+    _scrub_buf.clear()
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("kernel checks failed: " + "; ".join(failures))
+    return {"phase": "kernels", "seconds": time.perf_counter() - t0,
+            "checks": {e["name"] + " " + e["shape"]: e["max_abs_err"] for e in entries}}
 
-    # decode attention over layer L - 1 of a [22, 1, 4, 1024, 128] cache with
+
+def _bf16_attn_kernels(entries: list, failures: list, lay: dict) -> None:
+    """Decode attention and the all-layer append over a bf16 cache at one
+    layout (batch 1, the generate paths)."""
+    import torch
+    import torch.nn.functional as F
+
+    from booster_tpu_torch.ops import decode_attention as da
+    from booster_tpu_torch.ops import kv_append as ka
+    from booster_tpu_torch.testing import (decode_attn_case, decode_attn_limit,
+                                           decode_attn_mutants)
+
+    L, Hkv, G, D, Dc, S = (lay[k] for k in ("L", "Hkv", "G", "D", "Dc", "S1"))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    # decode attention over layer L - 1 of an [L, 1, Hkv, 1024, Dc] cache with
     # the deferred-append self term, at the generate phase's mean cache
     # length (15-token prompt + 0..127 tokens: 79) and late in a 1024-token
     # context; inputs on which a dropped self term or a column missed or
@@ -321,8 +392,9 @@ def phase_kernels(entries: list) -> dict:
         # output's are sliced off; the Dc figure is what the padded layout moves
         b_ms, b_by = bound(attn_bytes(D), 4 * Hkv * G * (lens_v + 1) * D)
         entries.append({
-            "name": "decode_attn", "shape": f"B=1 Hkv={Hkv} G={G} S={S} Dc={Dc} lens={lens_v}",
-            "key": ("decode_attn", None), "route": "cuda",
+            "name": "decode_attn",
+            "shape": f"{lay['name']} L={L} B=1 Hkv={Hkv} G={G} S={S} D={D} Dc={Dc} lens={lens_v}",
+            "key": ("decode_attn", None), "path": lay["gen_path"], "route": "cuda",
             "source": "booster_tpu_torch/csrc/decode_attn.cu",
             "replaces": "booster_tpu/ops/pallas_attention.py:177",
             "max_abs_err": err, "max_err_of_limit": share, "min_wrong_kernel_of_limit": seen,
@@ -348,8 +420,8 @@ def phase_kernels(entries: list) -> dict:
     # cache are zero already); the Dc figure writes the padded rows
     b_ms, b_by = bound(2 * L * Hkv * 2 * D * 2, 0)
     entries.append({
-        "name": "kv_append", "shape": f"L={L} B=1 H={Hkv} S={S} Dc={Dc} d={D}",
-        "key": ("kv_append", None), "route": "cuda",
+        "name": "kv_append", "shape": f"{lay['name']} L={L} B=1 H={Hkv} S={S} Dc={Dc} d={D}",
+        "key": ("kv_append", None), "path": lay["gen_path"], "route": "cuda",
         "source": "booster_tpu_torch/csrc/kv_append.cu",
         "replaces": "booster_tpu/ops/pallas_kv.py:246",
         "max_abs_err": err, "ms": ms, "warm_ms": warm_ms, "plain_ms": plain_ms,
@@ -358,13 +430,6 @@ def phase_kernels(entries: list) -> dict:
         "library_ms": None, "check": CHECKS["append"]})
     del args, kc, vc, k1, v1, k2, v2, kcat, vcat
     torch.cuda.empty_cache()
-    _int8_kernels(entries, failures)
-    _scrub_buf.clear()
-    torch.cuda.empty_cache()
-    if failures:
-        raise AssertionError("kernel checks failed: " + "; ".join(failures))
-    return {"phase": "kernels", "seconds": time.perf_counter() - t0,
-            "checks": {e["name"] + " " + e["shape"]: e["max_abs_err"] for e in entries}}
 
 
 def _attn_check(name, kern, plain, args, limit_fn, mutants_fn, failures) -> tuple:
@@ -387,10 +452,11 @@ def _attn_check(name, kern, plain, args, limit_fn, mutants_fn, failures) -> tupl
     return float(d.max()), float((d / limit).max()), seen_min
 
 
-def _int8_kernels(entries: list, failures: list) -> None:
-    """The batched path's kernels at its shapes: B = 64 slots, 4 kv heads of
-    8 query heads, a 512-row int8 cache of 22 layers (head dim 64 stored at
-    128 lanes)."""
+def _int8_kernels(entries: list, failures: list, lay: dict) -> None:
+    """The batched path's attention kernels at one layout: B = 64 slots over
+    a 512-row int8 cache (TinyLlama: 22 layers, 4 kv heads of 8 query heads,
+    head dim 64 stored at 128 lanes; 7B: 32 layers, 8 kv heads of 4, head
+    dim 128)."""
     import torch
     import torch.nn.functional as F
 
@@ -402,7 +468,7 @@ def _int8_kernels(entries: list, failures: list) -> None:
                                            decode_attn_mutants, prefill_attn_case,
                                            prefill_attn_limit, prefill_attn_mutants)
 
-    L, B, Hkv, G, D, Dc, S = 22, 64, 4, 8, 64, 128, 512
+    L, B, Hkv, G, D, Dc, S = (lay[k] for k in ("L", "B", "Hkv", "G", "D", "Dc", "S"))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
 
@@ -434,8 +500,9 @@ def _int8_kernels(entries: list, failures: list) -> None:
                   + 2 * B * Hkv * D * 2 + B * Hkv * G * D * 4)
         b_ms, b_by = bound(nbytes, 4 * B * Hkv * G * (lens_v + 1) * D)
         entries.append({
-            "name": "decode_attn_i8", "shape": f"B={B} Hkv={Hkv} G={G} S={S} Dc={Dc} lens={lens_v}",
-            "key": ("decode_attn_i8", None), "path": "batch", "route": "cuda",
+            "name": "decode_attn_i8",
+            "shape": f"{lay['name']} L={L} B={B} Hkv={Hkv} G={G} S={S} D={D} Dc={Dc} lens={lens_v}",
+            "key": ("decode_attn_i8", None), "path": lay["batch_path"], "route": "cuda",
             "source": "booster_tpu_torch/csrc/decode_attn.cu",
             "replaces": "booster_tpu/ops/pallas_attention.py:177",
             "max_abs_err": err, "max_err_of_limit": share, "min_wrong_kernel_of_limit": seen,
@@ -466,8 +533,8 @@ def _int8_kernels(entries: list, failures: list) -> None:
     # the new rows read, the int8 rows (at the head dim D) and scales written
     b_ms, b_by = bound(2 * L * B * Hkv * D * 2 + 2 * L * B * Hkv * (D + 4), 0)
     entries.append({
-        "name": "kv_append_i8", "shape": f"L={L} B={B} H={Hkv} S={S} Dc={Dc} d={D}",
-        "key": ("kv_append_i8", None), "path": "batch", "route": "cuda",
+        "name": "kv_append_i8", "shape": f"{lay['name']} L={L} B={B} H={Hkv} S={S} Dc={Dc} d={D}",
+        "key": ("kv_append_i8", None), "path": lay["batch_path"], "route": "cuda",
         "source": "booster_tpu_torch/csrc/kv_append.cu",
         "replaces": "booster_tpu/ops/pallas_kv.py:218",
         "max_abs_err": 0.0 if exact else None, "ms": ms, "warm_ms": warm_ms,
@@ -477,11 +544,12 @@ def _int8_kernels(entries: list, failures: list) -> None:
     del out, k1, v1, ks1, vs1, kc, ksc
 
     # K6: chunked-prefill attention of a T-row chunk per slot over one layer,
-    # at both prompt buckets (the batch phase's prompts take T = 32: two
-    # query tiles per (slot, kv head)), each as the first chunk (pos0 = 0)
-    # and as a chunk late in the cache; n_valid of 1 to T rows per slot
+    # at the prompt buckets (the batch phases' prompts take T = 32: two query
+    # tiles per (slot, kv head) at G = 8, one at G = 4), each as the first
+    # chunk (pos0 = 0) and as a chunk late in the cache; n_valid of 1 to T
+    # rows per slot
     rng = torch.Generator().manual_seed(2)
-    for T, pos in ((16, 0), (16, 200), (32, 0), (32, 200)):
+    for T, pos in ((T, pos) for T in lay["prefill_T"] for pos in (0, 200)):
         n_valid = [int(x) for x in torch.randint(1, T + 1, (B,), generator=rng)]
         args = prefill_attn_case(B, Hkv, G, T, S, D, Dc, [pos] * B, n_valid, "cuda", seed=pos)
         err, share, seen = _attn_check(f"prefill_attn_i8 T={T} pos0={pos}", pa.prefill_attn,
@@ -506,8 +574,8 @@ def _int8_kernels(entries: list, failures: list) -> None:
         b_ms, b_by = bound(nbytes, 4 * n_pairs * D)
         entries.append({
             "name": "prefill_attn_i8",
-            "shape": f"B={B} Hkv={Hkv} G={G} T={T} S={S} Dc={Dc} pos0={pos}",
-            "key": ("prefill_attn_i8", None), "path": "batch", "route": "cuda",
+            "shape": f"{lay['name']} B={B} Hkv={Hkv} G={G} T={T} S={S} D={D} Dc={Dc} pos0={pos}",
+            "key": ("prefill_attn_i8", None), "path": lay["batch_path"], "route": "cuda",
             "source": "booster_tpu_torch/csrc/prefill_attn.cu",
             "replaces": "booster_tpu/ops/pallas_attention.py:552",
             "max_abs_err": err, "max_err_of_limit": share, "min_wrong_kernel_of_limit": seen,
@@ -520,18 +588,165 @@ def _int8_kernels(entries: list, failures: list) -> None:
         torch.cuda.empty_cache()
 
 
+def _stacked_i8t(L, K, N, gen):
+    """A random stacked i8t weight [L, K, N] (Q8_0's form: int8 payload, one
+    bf16 scale plane [L, 1, K/32, N]), made on the card."""
+    import torch
+
+    from booster_tpu_torch.gguf import GGMLType
+    from booster_tpu_torch.quant.qtensor import QTensor
+
+    qw = torch.randint(-127, 128, (L, K, N), dtype=torch.int8, device="cuda", generator=gen)
+    s = torch.rand((L, 1, K // 32, N), device="cuda", generator=gen) * 2e-3 + 1e-4
+    return QTensor("i8t", qw, s.to(torch.bfloat16), None, 32, (N, K), GGMLType.Q8_0)
+
+
+def _i8t_kernels(entries: list, failures: list) -> None:
+    """The Q8_0 kernels at config 3's shapes (hidden 4096, ff 14336, 32 heads
+    over 8 kv heads of 128, vocab 32000): K7's group-dot form at M = 1 (qkv,
+    wo, lm head: generate_q8's decode), its dequant form at M = 64 (the same:
+    batch_q8's decode) and at M = 2048 (qkv, wo, down: batch_q8's prefill),
+    K8 at M = 2048 and K9 at M = 1, 16 and 64, on layer 31 of 32-layer
+    stacks.  K8 must equal K7-dq + silu·mul and K9 must equal the gate-up
+    (K7-dq, then silu·mul; K8 itself where M > 1) followed by K7-dq, bit for
+    bit."""
+    import torch
+
+    from booster_tpu_torch.ops import mlp as tm
+    from booster_tpu_torch.ops import qmm as tq
+    from booster_tpu_torch.quant.qtensor import dequantize
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    C, ff, V = MISTRAL7B["hidden"], MISTRAL7B["ff"], MISTRAL7B["vocab_size"]
+    nqkv = C + 2 * MISTRAL7B["kv_heads"] * (C // MISTRAL7B["heads"])
+    gu, down = _stacked_i8t(32, C, 2 * ff, gen), _stacked_i8t(32, ff, C, gen)
+    weights = {"qkv": _stacked_i8t(2, C, nqkv, gen).at(1), "wo": _stacked_i8t(2, C, C, gen).at(1),
+               "lm_head": _stacked_i8t(1, C, V, gen).at(0).resolved(), "down": down.at(31),
+               "gateup": gu.at(31)}
+    src = "booster_tpu_torch/csrc/qmm_i8t.cu"
+    bf = torch.bfloat16
+
+    def x_of(M, K):
+        return torch.randn(M, K, device="cuda", generator=gen).to(bf)
+
+    def sbytes(K, N):  # payload and bf16 scales
+        return K * N + (K // 32) * N * 2
+
+    # K7: the matmul, group-dot at M = 1, dequant (tensor cores) above
+    for M, labels, path in ((1, ("qkv", "wo", "lm_head"), "generate_q8"),
+                            (64, ("qkv", "wo", "lm_head"), "batch_q8"),
+                            (2048, ("qkv", "wo", "down"), "batch_q8")):
+        for label in labels:
+            w = weights[label]
+            N, K = w.shape
+            x = x_of(M, K)
+            got, want = tq.qmm_i8t(x, w), tq.qmm_plain(x, w)
+            d = (got - want).abs()
+            name = "qmm_i8t_gd" if M == 1 else "qmm_i8t_dq"
+            if not (d.max() <= 2e-4 * want.abs().max() and torch.isfinite(got).all()):
+                failures.append(f"{name} {label} M={M}: max err {float(d.max())}")
+            deq = dequantize(w, bf)
+            b_ms, b_by = bound(sbytes(K, N) + M * K * 2 + M * N * 4, 2 * M * K * N)
+            entries.append({
+                "name": name, "shape": f"7B {label} M={M} K={K} N={N}",
+                "key": (name, (K, N)), "path": path, "route": "cuda", "source": src,
+                "replaces": "booster_tpu/ops/pallas_qmm.py:" + ("361" if M == 1 else "432"),
+                "max_abs_err": float(d.max()), "ms": timed(lambda: tq.qmm_i8t(x, w)),
+                "warm_ms": timed(lambda: tq.qmm_i8t(x, w), cold=False),
+                "plain_ms": timed(lambda: tq.qmm_plain(x, w), reps=3, trials=3),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": timed(lambda: torch.matmul(x, deq.t())),
+                "library": "torch.matmul on the dequantized bf16 weight",
+                "check": CHECKS["qmm"]})
+            del x, got, want, d, deq
+    torch.cuda.empty_cache()
+
+    # K8: the fused gate-up at the batch prefill's M = 2048
+    w = weights["gateup"]
+    M, K = 2048, C
+    x = x_of(M, K)
+    got, want = tq.qmm_i8t_gateup(x, w), tq.qmm_gateup_plain(x, w)
+    d = (got.float() - want.float()).abs()
+    scale = want.float().abs() + 1e-5 * 2 ** 5 * want.float().abs().max()
+    if not bool((d <= 2 ** -5 * scale).all()):
+        failures.append(f"qmm_i8t_gateup_dq: max err {float(d.max())}, "
+                        f"{float((d / scale).max() * 2 ** 5)} of its limit, "
+                        f"{int((d > 2 ** -7 * scale).sum())} outputs over 2^-7")
+    gf = tq.qmm_i8t(x, w)  # the unfused sums: within qmm's limit of the plain ones
+    e = float((gf - tq.qmm_plain(x, w)).abs().max())
+    if not e <= 2e-4 * float(gf.abs().max()):
+        failures.append(f"qmm_i8t_dq gateup M={M}: max err {e}")
+    g = gf.to(bf)
+    if not torch.equal(got, tq.silu(g[:, :ff]) * g[:, ff:]):
+        failures.append("qmm_i8t_gateup_dq: fused != qmm_i8t (dq) + silu·mul")
+    b_ms, b_by = bound(sbytes(K, 2 * ff) + M * K * 2 + M * ff * 2, 2 * M * K * 2 * ff)
+    entries.append({
+        "name": "qmm_i8t_gateup_dq", "shape": f"7B gateup M={M} K={K} N={2 * ff}",
+        "key": ("qmm_i8t_gateup_dq", (K, 2 * ff)), "path": "batch_q8", "route": "cuda",
+        "source": src, "replaces": "booster_tpu/ops/pallas_qmm.py:726",
+        "max_abs_err": float(d.max()), "ms": timed(lambda: tq.qmm_i8t_gateup(x, w)),
+        "warm_ms": timed(lambda: tq.qmm_i8t_gateup(x, w), cold=False),
+        "plain_ms": timed(lambda: tq.qmm_gateup_plain(x, w), reps=3, trials=3),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "check": CHECKS["gateup_i8"] + "; equal to qmm_i8t (dq) + silu·mul"})
+    del x, got, want, d, g, gf, scale
+    torch.cuda.empty_cache()
+
+    # K9: the whole MLP at the decode and single-stream prefill shapes
+    wg, wd = weights["gateup"], weights["down"]
+    for M, path in ((1, "generate_q8"), (16, "generate_q8"), (64, "batch_q8")):
+        x = x_of(M, C)
+        got, want = tm.qmm_mlp_i8t(x, wg, wd), tm.qmm_mlp_plain(x, wg, wd)
+        d = (got.float() - want.float()).abs()
+        if not bool(d.max() <= 2 ** -7 * want.float().abs().max()):
+            failures.append(f"mlp_i8t M={M}: max err {float(d.max())}")
+        g = tq.qmm_i8t(x, wg, dq=True).to(bf)
+        mid = tq.silu(g[:, :ff]) * g[:, ff:]
+        if M > 1 and not torch.equal(mid, tq.qmm_i8t_gateup(x, wg)):
+            failures.append(f"qmm_i8t_gateup_dq M={M}: fused != qmm_i8t (dq) + silu·mul")
+        if not torch.equal(got, tq.qmm_i8t(mid, wd, dq=True).to(bf)):
+            failures.append(f"mlp_i8t M={M}: != gate-up + silu·mul + qmm_i8t (dq)")
+        b_ms, b_by = bound(sbytes(C, 2 * ff) + sbytes(ff, C) + M * C * 2 + M * C * 2,
+                           2 * M * C * 2 * ff + 2 * M * ff * C)
+        entries.append({
+            "name": "mlp_i8t", "shape": f"7B mlp M={M} K={C} ff={ff} C={C}",
+            "key": ("mlp_i8t", (C, C)), "path": path, "route": "cuda",
+            "source": "booster_tpu_torch/csrc/mlp_i8t.cu",
+            "replaces": "booster_tpu/ops/pallas_qmm.py:1172",
+            "max_abs_err": float(d.max()), "ms": timed(lambda: tm.qmm_mlp_i8t(x, wg, wd)),
+            "warm_ms": timed(lambda: tm.qmm_mlp_i8t(x, wg, wd), cold=False),
+            "plain_ms": timed(lambda: tm.qmm_mlp_plain(x, wg, wd), reps=3, trials=3),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "check": CHECKS["mlp"] + "; equal to the gate-up + qmm_i8t (dq)"})
+        del x, got, want, d, g, mid
+    del weights, gu, down, wg, wd, w
+    torch.cuda.empty_cache()
+
+
 # -- phase 3 -----------------------------------------------------------------
 
 
-def _gguf(layers: int) -> str:
+def _gguf_path(layers: int, q8: bool = False) -> Path:
+    name = "mistral7b-shape-q8_0" if q8 else "tinyllama-shape-q4_0"
+    return ROOT / "build" / "smoke" / f"{name}-L{layers}-seed0.gguf"
+
+
+def _gguf(layers: int, q8: bool = False) -> str:
+    """The TinyLlama-shaped Q4_0 GGUF, or with `q8` the Mistral-7B-shaped
+    Q8_0 one (bench.py's config 3), of `layers` layers: built once from its
+    seed and cached under build/smoke/."""
+    from booster_tpu_torch.gguf import GGMLType
     from booster_tpu_torch.testing import make_model
 
-    d = ROOT / "build" / "smoke"
-    d.mkdir(parents=True, exist_ok=True)
-    path = d / f"tinyllama-shape-q4_0-L{layers}-seed0.gguf"
+    path = _gguf_path(layers, q8)
+    path.parent.mkdir(parents=True, exist_ok=True)
     if not path.exists():
         tmp = path.with_suffix(".tmp")
-        make_model(str(tmp), layers=layers, **TINYLLAMA)  # Q4_0 weights
+        if q8:
+            make_model(str(tmp), layers=layers, quant=GGMLType.Q8_0, **MISTRAL7B)
+        else:
+            make_model(str(tmp), layers=layers, **TINYLLAMA)  # Q4_0 weights
         tmp.replace(path)
     return str(path)
 
@@ -621,6 +836,30 @@ def phase_parity() -> dict:
     expect = [len(prompts[0]) + 16, 0, len(prompts[2]) + 16, 0]
     if lengths != [expect, expect]:
         raise AssertionError(f"parity batched: cache lengths {lengths} != {expect}")
+    # (c) the 7B width, Q8_0 weights (native i8t): the batched path over an
+    # int8 cache at the T = 32 bucket, then the single-stream path over a
+    # bf16 cache; 8 steps each (the CPU's plain forward takes ~1 s a step)
+    del models, caches
+    path = _gguf(2, q8=True)
+    models = {dev: load_model(path, device=dev, weights="native") for dev in ("cpu", "cuda")}
+    cfg = models["cpu"].cfg
+    kinds = {v.kind for v in models["cuda"].params["layers"].values() if hasattr(v, "kind")}
+    if kinds != {"i8t"} or models["cuda"].params["output"].kind != "i8t":
+        raise AssertionError(f"parity q8_0: weights are {kinds}, not i8t")
+    tok = models["cpu"].tokenizer
+    prompts = [tok.encode("stream 0 benchmark prompt"), [],
+               tok.encode("stream 2 benchmark prompt"), []]
+    T = max(16, 1 << (max(len(p) for p in prompts) - 1).bit_length())
+    caches = {dev: KVCache.create(cfg.n_layers, 4, 512, cfg.n_kv_heads, cfg.head_dim, dev,
+                                  quantized=True) for dev in models}
+    got, want = _teacher_forced(models, caches, prompts, T, [True, False, True, False], steps=8)
+    out["q8_0_7b_width_int8_cache_4_slots_2_live"] = _compare_logits("q8_0 batched", got, want,
+                                                                     tol)
+    ids = tok.encode(PROMPT)
+    caches = {dev: KVCache.create(cfg.n_layers, 1, 256, cfg.n_kv_heads, cfg.head_dim, dev)
+              for dev in models}
+    got, want = _teacher_forced(models, caches, [ids], 16, [True], steps=8)
+    out["q8_0_7b_width_bf16_cache_1_slot"] = _compare_logits("q8_0 single", got, want, tol)
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -637,8 +876,8 @@ def _profile(run, steps: int) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:  # kernels only: a
+        run()  # trace of the host ops too takes minutes to sum at ~1,400 launches a step
     rows = []
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != DeviceType.CUDA:
@@ -655,7 +894,48 @@ def _profile(run, steps: int) -> dict:
             "top_kernels_ms": [[k, round(ms, 3), n] for k, ms, n in rows[:12]]}
 
 
-def phase_generate(layers: int) -> dict:
+_q8: dict = {}  # the 7B Q8_0 model, loaded once for generate_q8 and batch_q8
+
+
+def _start_q8_gguf() -> None:
+    """Write the 32-layer 7B GGUF in a process of its own while the earlier
+    phases run (3-4 minutes of numpy; the seeded draws are sequential)."""
+    if not Path(_gguf_path(32, q8=True)).exists():
+        _q8["writer"] = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                          "--write-q8-gguf"], stdout=subprocess.PIPE, text=True)
+
+
+def _q8_model():
+    """bench.py's config-3 model through load_model(weights="auto") (no batch
+    hint, as bench.py loads it): (model, GGUF build seconds, load seconds)."""
+    from booster_tpu_torch.models import load_model
+
+    if "model" not in _q8:
+        t0 = time.perf_counter()
+        writer = _q8.pop("writer", None)
+        build_s = None
+        if writer is not None:  # it ran beside the earlier phases: its own seconds
+            out, _ = writer.communicate()
+            if writer.returncode != 0:
+                raise RuntimeError(f"writing the 7B GGUF failed ({writer.returncode})")
+            build_s = float(out.split()[-1])
+        path = _gguf(32, q8=True)
+        t1 = time.perf_counter()
+        model = load_model(path, device="cuda", weights="auto")
+        # wait_s: how long this phase waited for the file (the writer's
+        # seconds that the earlier phases did not cover)
+        _q8.update(model=model, build_s=t1 - t0 if build_s is None else build_s,
+                   wait_s=t1 - t0, load_s=time.perf_counter() - t1)
+        kinds = {k: v.kind for k, v in model.params["layers"].items() if hasattr(v, "kind")}
+        kinds["output"] = model.params["output"].kind
+        if set(kinds.values()) != {"i8t"}:
+            raise AssertionError(f"q8: weights=auto gave {kinds}, not native i8t")
+    return _q8["model"], _q8["build_s"], _q8["load_s"]
+
+
+def phase_generate(layers: int, q8: bool = False) -> dict:
+    """The single-stream generate: TinyLlama Q4_0, or with `q8` the 7B Q8_0
+    model (phase generate_q8)."""
     import torch
 
     from booster_tpu_torch.models import load_model
@@ -664,10 +944,15 @@ def phase_generate(layers: int) -> dict:
     from booster_tpu_torch.serving import Engine
 
     t0 = time.perf_counter()
-    path = _gguf(layers)
-    t_build = time.perf_counter() - t0
-    model = load_model(path, device="cuda")
-    t_load = time.perf_counter() - t0 - t_build
+    t_wait = None
+    if q8:
+        model, t_build, t_load = _q8_model()
+        t_wait = _q8["wait_s"]
+    else:
+        path = _gguf(layers)
+        t_build = time.perf_counter() - t0
+        model = load_model(path, device="cuda")
+        t_load = time.perf_counter() - t0 - t_build
     eng = Engine(model, max_batch=1, max_seq=1024, decode_chunk=128)
     ids = model.tokenizer.encode(PROMPT)
     sp = SamplingParams(temp=0.0)
@@ -683,10 +968,15 @@ def phase_generate(layers: int) -> dict:
     shapes = {f"{k[0]}:{k[1][0]}x{k[1][1]}": v for k, v in shape_counts.items()}
     steps = 128  # one chunk of decode_chunk steps runs whatever the host keeps
     L = layers
-    expected = dict.fromkeys(counts, 0) | {
-        "qmm_i4t_gd": (3 * L + 1) * steps + 1, "qmm_i4t_dq": 3 * L,
-        "qmm_i4t_gateup_gd": L * steps, "qmm_i4t_gateup_dq": L,
-        "decode_attn": L * steps, "kv_append": steps}
+    if q8:  # qkv and wo per layer + the lm head, and the whole MLP (docstring)
+        expected = dict.fromkeys(counts, 0) | {
+            "qmm_i8t_gd": (2 * L + 1) * steps + 1, "qmm_i8t_dq": 2 * L,
+            "mlp_i8t": L * steps + L, "decode_attn": L * steps, "kv_append": steps}
+    else:
+        expected = dict.fromkeys(counts, 0) | {
+            "qmm_i4t_gd": (3 * L + 1) * steps + 1, "qmm_i4t_dq": 3 * L,
+            "qmm_i4t_gateup_gd": L * steps, "qmm_i4t_gateup_dq": L,
+            "decode_attn": L * steps, "kv_append": steps}
     if counts != expected:
         raise AssertionError(f"launch counts {counts} != expected {expected}")
     prof = _profile(lambda: eng.generate(ids, sp, max_new_tokens=128), steps=128)
@@ -697,8 +987,9 @@ def phase_generate(layers: int) -> dict:
         raise AssertionError("generate: bad token ids")
     if res.n_generated != 128 and res.finish_reason != "stop":
         raise AssertionError(f"generate: {res.n_generated} tokens, {res.finish_reason}")
-    return {"phase": "generate", "seconds": time.perf_counter() - t0, "layers": layers,
-            "gguf_build_s": t_build, "load_s": t_load,
+    return {"phase": "generate_q8" if q8 else "generate", "seconds": time.perf_counter() - t0,
+            "layers": layers, "weights": "q8_0 (i8t)" if q8 else "q4_0 (i4t)",
+            "gguf_build_s": t_build, "gguf_wait_s": t_wait, "load_s": t_load,
             "n_prompt": res.n_prompt, "n_generated": res.n_generated,
             "finish_reason": res.finish_reason,
             "decode_tok_per_s": 1000.0 / res.gen_ms_per_token,
@@ -706,7 +997,7 @@ def phase_generate(layers: int) -> dict:
             "prompt_ms_per_token": res.prompt_ms_per_token, "ttft_ms": res.ttft_ms,
             "launches": counts, "launches_per_decoded_token": {
                 k: v / steps for k, v in counts.items() if k.endswith("_gd") or k in (
-                    "decode_attn", "kv_append")},
+                    "decode_attn", "kv_append", "mlp_i8t")},
             "launches_by_shape": shapes, "tokens_head": res.token_ids[:16],
             "wall_ms": wall_ms, "profile": prof,
             "_shape_counts": shape_counts}
@@ -760,7 +1051,9 @@ def _bench_batch(eng, tokenizer, n_streams: int, n_tokens: int) -> dict:
             "prompt_tokens": {s: len(p) for s, p in prompts.items()}, "rows": rows}
 
 
-def phase_batch(layers: int) -> dict:
+def phase_batch(layers: int, q8: bool = False) -> dict:
+    """bench.py's bench_batch: config 1's model (TinyLlama, bf16 weights), or
+    with `q8` config 3's (the 7B Q8_0 model, native i8t; phase batch_q8)."""
     import torch
 
     from booster_tpu_torch.models import load_model
@@ -768,14 +1061,18 @@ def phase_batch(layers: int) -> dict:
     from booster_tpu_torch.serving import Engine
 
     t0 = time.perf_counter()
-    path = _gguf(layers)
-    t_load = time.perf_counter()
-    model = load_model(path, device="cuda", weights="auto", batch_hint=64)
-    t_load = time.perf_counter() - t_load
-    kinds = {k: v.kind for k, v in model.params["layers"].items() if hasattr(v, "kind")}
-    kinds["output"] = model.params["output"].kind
-    if set(kinds.values()) != {"dense"}:
-        raise AssertionError(f"batch: weights=auto at batch_hint=64 gave {kinds}, not bf16")
+    torch.cuda.reset_peak_memory_stats()
+    if q8:
+        model, _, t_load = _q8_model()
+    else:
+        path = _gguf(layers)
+        t_load = time.perf_counter()
+        model = load_model(path, device="cuda", weights="auto", batch_hint=64)
+        t_load = time.perf_counter() - t_load
+        kinds = {k: v.kind for k, v in model.params["layers"].items() if hasattr(v, "kind")}
+        kinds["output"] = model.params["output"].kind
+        if set(kinds.values()) != {"dense"}:
+            raise AssertionError(f"batch: weights=auto at batch_hint=64 gave {kinds}, not bf16")
     B, n_tokens = 64, 128
     eng = Engine(model, max_batch=B, max_seq=512, kv_quantized=True, decode_chunk=32)
     _bench_batch(eng, model.tokenizer, B, n_tokens)  # warm-up: first calls of every op
@@ -788,8 +1085,12 @@ def phase_batch(layers: int) -> dict:
     expected = dict.fromkeys(counts, 0) | {"decode_attn_i8": layers * steps,
                                            "kv_append_i8": steps,
                                            "prefill_attn_i8": layers * prefill_chunks}
-    if counts != expected or kernels.shape_counts:
+    if q8:  # M = 64 a step; M = 64·T at the prefill, its lm head on 64 rows
+        expected |= {"qmm_i8t_dq": (2 * layers + 1) * steps + (3 * layers + 1) * prefill_chunks,
+                     "mlp_i8t": layers * steps, "qmm_i8t_gateup_dq": layers * prefill_chunks}
+    if counts != expected or (kernels.shape_counts and not q8):
         raise AssertionError(f"batch: launch counts {counts} != expected {expected}")
+    shape_counts = dict(kernels.shape_counts)
     V = model.cfg.n_vocab
     lengths = eng.cache.lengths.tolist()
     for s, row in res["rows"].items():
@@ -805,21 +1106,30 @@ def phase_batch(layers: int) -> dict:
     prof = _profile(lambda: _bench_batch(eng, model.tokenizer, B, n_tokens), steps=steps)
     if prof["kernel_ms"] is not None:
         prof["device_busy_share"] = prof["kernel_ms"] / res["wall_ms"]
-    return {"phase": "batch", "seconds": time.perf_counter() - t0, "layers": layers,
-            "weights": "bf16", "load_s": t_load, "streams": B, "prefill_T": T,
+    return {"phase": "batch_q8" if q8 else "batch", "seconds": time.perf_counter() - t0,
+            "layers": layers, "weights": "q8_0 (i8t)" if q8 else "bf16", "load_s": t_load,
+            "streams": B, "prefill_T": T,
             "agg_tok_per_s": res["agg_tok_per_s"],
             "per_stream_tok_per_s": res["per_stream_tok_per_s"],
             "prefill_ms": res["prefill_ms"], "decode_s": res["decode_s"],
             "decoded_tokens": res["decoded_tokens"], "decode_steps": steps,
             "wall_ms": res["wall_ms"], "launches": counts, "expected_launches": expected,
             "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
-            "tokens_head_slot0": res["rows"][0][:16], "profile": prof}
+            "tokens_head_slot0": res["rows"][0][:16], "profile": prof,
+            "_shape_counts": shape_counts}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
+    ap.add_argument("--write-q8-gguf", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.write_q8_gguf:  # the background writer of _start_q8_gguf
+        sys.path.insert(0, str(ROOT))
+        t0 = time.perf_counter()
+        _gguf(32, q8=True)
+        print(time.perf_counter() - t0)
+        return 0
     phases = [p for p in args.phases.split(",") if p]
     if set(phases) - set(PHASES):
         ap.error(f"phases are {PHASES}")
@@ -837,40 +1147,79 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' f32 matmuls
     torch.backends.cudnn.allow_tf32 = False
     entries: list = []
-    path_counts: dict = {}
-    shape_counts: dict = {}
     t_all = time.perf_counter()
+    failed: list = []
+
+    def run(name, fn):
+        """One phase; a failure is reported and the later phases still run
+        (the script then exits non-zero without a result)."""
+        try:
+            return fn()
+        except Exception as e:  # noqa: BLE001 — reported, and the run fails
+            traceback.print_exc()
+            emit({"phase": name, "failed": repr(e)[:4000]})
+            failed.append(name)
+            return None
+
+    if {"generate_q8", "batch_q8"} & set(phases):
+        _start_q8_gguf()
+    try:
+        return _run_phases(phases, run, entries, failed, t_all)
+    finally:
+        writer = _q8.pop("writer", None)
+        if writer is not None:  # a phase failed before the 7B model was needed
+            writer.kill()
+            writer.wait()
+        _q8.clear()
+
+
+def _run_phases(phases, run, entries, failed, t_all) -> int:
+    import torch
+
+    path_counts: dict = {}  # path → its measured run's launch counts
+    path_shapes: dict = {}  # path → its matmul launches by (kernel, (K, N))
     if "build" in phases:
-        emit(phase_build())
+        res = run("build", phase_build)
+        if res is None:
+            print("chip_smoke.py: the kernels do not build", file=sys.stderr)
+            return 1
+        emit(res)
     print(smi_line(), flush=True)
-    if "kernels" in phases:
-        emit(phase_kernels(entries))
-    if "parity" in phases:
-        emit(phase_parity())
-    if "generate" in phases:
-        gen = phase_generate(22)
-        shape_counts = gen.pop("_shape_counts")
-        path_counts["generate"] = gen["launches"]
-        emit(gen)
-        torch.cuda.empty_cache()
-    if "batch" in phases:
-        bat = phase_batch(22)
-        path_counts["batch"] = bat["launches"]
-        emit(bat)
+    for name, fn in (("kernels", lambda: phase_kernels(entries)), ("parity", phase_parity)):
+        if name in phases:
+            res = run(name, fn)
+            if res is not None:
+                emit(res)
+    runs = (("generate", phase_generate, False), ("batch", phase_batch, False),
+            ("generate_q8", phase_generate, True), ("batch_q8", phase_batch, True))
+    for name, phase, q8 in runs:
+        if name in phases:
+            res = run(name, lambda: phase(32 if q8 else 22, q8=q8))
+            if res is not None:
+                path_shapes[name] = res.pop("_shape_counts")
+                path_counts[name] = res["launches"]
+                emit(res)
+            torch.cuda.empty_cache()
+    _q8.clear()
     if entries:
         from booster_tpu_torch.ops import kernels
 
         for e in entries:
             name, shape = e.pop("key")
-            counts = path_counts.get(e.pop("path", "generate"))
+            path = e.pop("path", "generate")
+            counts = path_counts.get(path)
             if counts is None:
                 e["launches"] = None
             elif shape is None:
                 e["launches"] = counts[name]
             else:
-                e["launches"] = shape_counts.get((name, shape), 0)
+                e["launches"] = path_shapes[path].get((name, shape), 0)
+            e["launches_on"] = path
         emit({"kernels": entries, "seconds_total": time.perf_counter() - t_all,
               "counted_kernels": sorted(kernels.launch_counts)})
+    if failed:
+        print(f"chip_smoke.py: phases failed: {failed}", file=sys.stderr)
+        return 1
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

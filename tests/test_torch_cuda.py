@@ -18,6 +18,7 @@ from booster_tpu_torch.gguf import GGMLType  # noqa: E402
 from booster_tpu_torch.ops import decode_attention as da  # noqa: E402
 from booster_tpu_torch.ops import kernels  # noqa: E402
 from booster_tpu_torch.ops import kv_append as ka  # noqa: E402
+from booster_tpu_torch.ops import mlp as tm  # noqa: E402
 from booster_tpu_torch.ops import prefill_attention as pa  # noqa: E402
 from booster_tpu_torch.ops import qmm as tq  # noqa: E402
 from booster_tpu_torch.ops.kv_cache import _quantize_kv  # noqa: E402
@@ -33,6 +34,13 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only on the card")
     return torch.device("cuda")
+
+
+def _w8(L, K, N, gen):
+    """A stacked random i8t weight [L, K, N] with bf16 scales (Q8_0's form)."""
+    qw = torch.randint(-128, 128, (L, K, N), dtype=torch.int8, device="cuda", generator=gen)
+    s = torch.rand((L, 1, K // 32, N), device="cuda", generator=gen) * 0.02 + 1e-3
+    return QTensor("i8t", qw, s.to(torch.bfloat16), None, 32, (N, K), GGMLType.Q8_0)
 
 
 def _w(L, K, N, gen, mins=False):
@@ -157,3 +165,59 @@ def test_wrappers_refuse_shapes_not_ported(cuda):
     one = torch.ones(1, dtype=torch.int32, device="cuda")
     with pytest.raises(NotImplementedError, match="not ported yet"):  # bf16 cache
         pa.prefill_attn(qp, kp, kp, None, None, one * 0, one, 200)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 1024, 384), (1, 4096, 256), (5, 1024, 384),
+                                   (64, 512, 256), (70, 2048, 128), (200, 256, 512)])
+def test_qmm_i8t_kernel_matches_plain(cuda, m, k, n):
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    w = _w8(2, k, n, gen)
+    x = torch.randn(m, k, device="cuda", generator=gen).to(torch.bfloat16)
+    for dq in ((False, True) if m == 1 else (False,)):
+        got, want = tq.qmm_i8t(x, w.at(1), dq=dq), tq.qmm_plain(x, w.at(1), dq=dq)
+        assert (got - want).abs().max() <= 2e-4 * want.abs().max()
+
+
+@pytest.mark.parametrize("m", [2, 16, 130])
+def test_gateup_i8t_kernel_equals_dq_then_silu_mul(cuda, m):
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    w = _w8(2, 1024, 512, gen)
+    x = torch.randn(m, 1024, device="cuda", generator=gen).to(torch.bfloat16)
+    got = tq.qmm_i8t_gateup(x, w.at(1))
+    want = tq.qmm_gateup_plain(x, w.at(1))
+    d = (got.float() - want.float()).abs()
+    assert (d <= 2 ** -7 * want.float().abs() + 1e-5 * want.float().abs().max()).all()
+    gu = tq.qmm_i8t(x, w.at(1)).to(torch.bfloat16)
+    assert torch.equal(got, tq.silu(gu[:, :256]) * gu[:, 256:])
+
+
+@pytest.mark.parametrize("m", [1, 16, 64, 100])
+def test_mlp_i8t_kernel_equals_gateup_then_down(cuda, m):
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    wgu, wd = _w8(2, 512, 2048, gen), _w8(2, 1024, 384, gen)
+    x = torch.randn(m, 512, device="cuda", generator=gen).to(torch.bfloat16)
+    got = tm.qmm_mlp_i8t(x, wgu.at(0), wd.at(0))
+    want = tm.qmm_mlp_plain(x, wgu.at(0), wd.at(0))
+    assert (got.float() - want.float()).abs().max() <= 2 ** -7 * want.float().abs().max()
+    gu = tq.qmm_i8t(x, wgu.at(0), dq=True).to(torch.bfloat16)
+    mid = tq.silu(gu[:, :1024]) * gu[:, 1024:]
+    if m > 1:
+        assert torch.equal(mid, tq.qmm_i8t_gateup(x, wgu.at(0)))
+    assert torch.equal(got, tq.qmm_i8t(mid, wd.at(0), dq=True).to(torch.bfloat16))
+    assert torch.equal(got, tm.qmm_mlp_i8t(x, wgu.at(0), wd.at(0)))  # the counters reset
+
+
+def test_i8t_wrappers_refuse_shapes_not_ported(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    w = _w8(1, 1024, 256, gen)
+    x = torch.zeros(1, 1024, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        tq.qmm_i8t_gateup(x, w.at(0))
+    w16 = QTensor("i8t", w.qw[0], torch.zeros(1, 64, 256, device="cuda", dtype=torch.bfloat16),
+                  None, 16, (256, 1024), GGMLType.Q8_0)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        tq.qmm_i8t(x, w16)
+    w96 = QTensor("i8t", w.qw[0, :, :96].contiguous(), w.scales[0, :, :, :96].contiguous(),
+                  None, 32, (96, 1024), GGMLType.Q8_0)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        tq.qmm_i8t(x, w96)

@@ -143,3 +143,24 @@ def test_prefill_attn_check_sees_wrong_kernels():
         for what, margs in prefill_attn_mutants(args).items():
             seen = ((tpa.prefill_attn_plain(*margs) - want).abs() / limit).max()
             assert seen >= 8, (what, float(seen))
+
+
+@pytest.mark.parametrize("kind", ["decode_bf16", "decode_int8", "prefill_int8"])
+def test_checks_see_wrong_kernels_at_head_dim_128(kind):
+    """At the 7B head layout (G = 4, head dim 128 filling every lane of the
+    cache) the kernel-vs-plain checks of chip_smoke.py fail every wrong
+    kernel by 8x their limit, a kernel that ignores lanes 64-127 among them."""
+    if kind == "prefill_int8":
+        args = prefill_attn_case(2, 2, 4, 32, 512, 128, 128, [0, 200], [32, 9], "cpu", seed=4)
+        plain, mutants = tpa.prefill_attn_plain, prefill_attn_mutants(args)
+        limit = prefill_attn_limit(args)
+    else:
+        args = decode_attn_case(2, 2, 2, 4, 512, 128, 128, [30, 500], "cpu", seed=5,
+                                quantized=kind == "decode_int8")
+        plain, mutants = tda.decode_attn_plain, decode_attn_mutants(args)
+        limit = decode_attn_limit(args)
+    assert "lanes 64-127 ignored" in mutants
+    want = plain(*args)
+    for what, margs in mutants.items():
+        seen = ((plain(*margs) - want).abs() / limit).max()
+        assert seen >= 8, (what, float(seen))
