@@ -1,74 +1,181 @@
-"""CLI: ``python -m booster_tpu_torch --model X --prompt ... [--n-predict N]
-[--temp T] [--device cuda|cpu]``.
+"""CLI: ``python -m booster_tpu_torch [--server|--chat|--prompt ...]``.
 
-The one-shot branch of ``booster_tpu/__main__.py``: load the model, generate
-once with the JAX CLI's default sampling chain, print the text and the
-timings.  ``--device`` (default ``cuda``) is the
-one flag the JAX CLI lacks: without CUDA the run fails unless ``--device cpu``
-asks for the plain versions of the kernels.  ``--server`` and ``--chat`` are
-not ported yet.
+Port of ``booster_tpu/__main__.py``: flags and config files
+(``serving.config``), the model load, then a one-shot generation
+(``--prompt``), the HTTP server (``--server``: warmup, then
+``serving.server.serve``; SIGINT/SIGTERM stop taking jobs, drain the running
+ones and exit; ``--debug`` prints a job monitor) or an interactive chat
+(``--chat``).  ``--device`` (default ``cuda``) is the one flag the JAX CLI
+lacks: without CUDA the run fails unless ``--device cpu`` asks for the plain
+versions of the kernels.  Flags of features not ported yet (a draft model,
+``--lookup-decoding``, ``--grammar-file``, Self-Extend, ``--tp``,
+``--profile``, a swap directory) raise NotImplementedError; a job that asks
+for one fails on its own.
 """
 
 from __future__ import annotations
 
-import argparse
+import asyncio
 import logging
 import os
+import signal
 import sys
+import uuid
+
+LOGO = r"""
+ ___                  _               _____ ___  _   _
+| . > ___  ___  ___ _| |_ ___  _ _   |_   _| . \| | | |
+| . \/ . \/ . \<_-<  | | / ._>| '_>    | | |  _/| ' | |
+|___/\___/\___//__/  |_| \___.|_|      |_| |_|  `___'
+"""
 
 
-def _human_size(s: str) -> int:
-    s = str(s).strip().upper()
-    mult = 1024 if s.endswith("K") else 1
-    return int(float(s.rstrip("K")) * mult)
-
-
-def build_arg_parser() -> argparse.ArgumentParser:
-    ap = argparse.ArgumentParser(prog="booster_tpu_torch")
-    ap.add_argument("--model", required=True, help="path to a GGUF model file")
-    ap.add_argument("--prompt", help="one-shot prompt text")
-    ap.add_argument("--server", action="store_true", help="REST API server (not ported yet)")
-    ap.add_argument("--chat", action="store_true", help="interactive chat (not ported yet)")
-    ap.add_argument("--n-predict", "--predict", default="1K", dest="predict",
-                    help="max tokens to predict (e.g. 128 or 1K)")
-    ap.add_argument("--context", default="8K", help="context size (e.g. 8K)")
-    ap.add_argument("--seed", type=int, default=-1)
-    ap.add_argument("--temp", type=float, default=0.1)
-    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    return ap
+def _refuse_unported(args, config) -> None:
+    unported = [(args.model_draft, "--model-draft (speculative decoding)"),
+                (args.lookup_decoding, "--lookup-decoding"),
+                (args.grammar_file, "--grammar-file"),
+                (args.se_group > 1, "--self-extend-group (Self-Extend)"),
+                (args.tp > 1, "--tp (tensor parallelism)"),
+                (args.profile, "--profile"),
+                (config.swap, "swap (session KV save and restore)")]
+    for given, what in unported:
+        if given:
+            raise NotImplementedError(f"{what}: not ported yet")
 
 
 def main(argv=None) -> int:
+    from booster_tpu_torch.serving.config import build_arg_parser, config_from_args, load_config
+
     args = build_arg_parser().parse_args(argv)
-    logging.basicConfig(level=logging.INFO, format="%(levelname)s %(message)s")
+    logging.basicConfig(level=logging.DEBUG if args.debug else logging.INFO,
+                        format="%(levelname)s %(message)s")
     log = logging.getLogger("booster_tpu_torch")
-    if args.server or args.chat:
-        raise NotImplementedError("--server / --chat: not ported yet")
-    if not args.prompt:
-        log.error("--prompt is required (one-shot mode)")
+    if args.log:
+        log.addHandler(logging.FileHandler(args.log))
+
+    config = None
+    for candidate in ([args.config] if args.config else ["config.yaml", "config.json"]):
+        if candidate and os.path.exists(candidate):
+            config = load_config(candidate)
+            log.info(f"config loaded from {candidate}")
+            break
+    if config is None or args.model:
+        config = config_from_args(args)
+    config.host = args.host if args.host != "localhost" or not config.host else config.host
+    if args.port != 8080:
+        config.port = args.port
+    _refuse_unported(args, config)
+
+    if not args.silent:
+        print(LOGO, file=sys.stderr)
+
+    model_spec = next(iter(config.models.values()), None)
+    if model_spec is None or not model_spec.path:
+        log.error("no model specified (use --model or a config file)")
         return 1
-    if not os.path.exists(os.path.expanduser(args.model)):
-        log.error(f"model file not found: {args.model}")
+    if not os.path.exists(os.path.expanduser(model_spec.path)):
+        log.error(f"model file not found: {model_spec.path}")
+        return 1
+    if not (args.prompt or args.server or args.chat):
+        log.error("nothing to do: give --prompt, --server or --chat")
         return 1
 
     from booster_tpu_torch.models import load_model
     from booster_tpu_torch.sampling import SamplingParams
     from booster_tpu_torch.serving import Engine
+    from booster_tpu_torch.serving.config import PodSpec
+    from booster_tpu_torch.serving.scheduler import Scheduler
 
-    model = load_model(os.path.expanduser(args.model), device=args.device)
+    pod = next(iter(config.pods.values()), PodSpec(id="default"))
+    batch_hint = max(pod.count, 1) if args.server else 1
+    model = load_model(os.path.expanduser(model_spec.path), device=args.device,
+                       weights=args.weights, batch_hint=batch_hint)
     cfg = model.cfg
     log.info(f"arch={cfg.arch} layers={cfg.n_layers} embd={cfg.n_embd} "
              f"vocab={cfg.n_vocab} device={model.device}")
-    # the JAX CLI's default sampling chain (booster_tpu/serving/config.py)
-    sampling = SamplingParams(temp=args.temp, top_k=8, top_p=0.4, penalty_repeat=1.1,
-                              penalty_last_n=64, seed=args.seed)
-    engine = Engine(model, max_batch=1, max_seq=_human_size(args.context), decode_chunk=8)
-    ids = model.tokenizer.encode(args.prompt)
-    result = engine.generate(ids, sampling, max_new_tokens=_human_size(args.predict))
-    print(result.text)
-    log.info(f"prompt {result.prompt_ms_per_token:.1f} ms/tok · "
-             f"generate {result.gen_ms_per_token:.1f} ms/tok · "
-             f"{result.n_generated} tokens [{result.finish_reason}]")
+    sampling = config.samplings.get(pod.sampling, SamplingParams())
+    engine = Engine(model, max_batch=max(pod.count, 1), max_seq=model_spec.context,
+                    kv_quantized=args.kv_quant, decode_chunk=args.decode_chunk,
+                    paged=args.paged_kv, page_size=args.page_size)
+
+    if args.prompt and not args.server and not args.chat:
+        ids = model.tokenizer.encode(args.prompt)
+        result = engine.generate(ids, sampling, max_new_tokens=model_spec.predict)
+        print(result.text)
+        log.info(f"prompt {result.prompt_ms_per_token:.1f} ms/tok · "
+                 f"generate {result.gen_ms_per_token:.1f} ms/tok · "
+                 f"{result.n_generated} tokens [{result.finish_reason}]")
+        return 0
+
+    scheduler = Scheduler(engine, prompt_spec=config.prompts.get(pod.prompt),
+                          default_sampling=sampling, default_max_tokens=model_spec.predict,
+                          deadline_s=config.deadline)
+    if args.server:
+        from booster_tpu_torch.serving.server import serve
+
+        log.info("warming up (a prefill and a decode chunk)...")
+        engine.warmup()
+        log.info("warmup done")
+
+        async def monitor():
+            """--debug job monitor: the job table every 2 s."""
+            while True:
+                await asyncio.sleep(2.0)
+                h = scheduler.health()
+                rows = [f"  {j.id[:8]}  {j.status:<10} in:{j.n_prompt_tokens:<5} "
+                        f"out:{j.n_generated:<5} {j.finish_reason or '-'}"
+                        for j in list(scheduler.jobs.values())[-16:]]
+                sys.stderr.write(f"[monitor] slots {h['slots_busy']}/{h['slots_total']} "
+                                 f"queued {h['jobs_queued']} tok/s {h['tokens_per_sec']} "
+                                 f"ttft_p50 {h['ttft_p50_ms']}ms\n" + "\n".join(rows)
+                                 + ("\n" if rows else ""))
+
+        async def run_server():
+            listener = await serve(scheduler, config, model_name=model_spec.name or "default",
+                                   host=config.host, port=config.port)
+            mon = asyncio.get_running_loop().create_task(monitor()) if args.debug else None
+            log.info(f"listening on http://{config.host}:{listener.port}")
+            stop = asyncio.Event()
+            loop = asyncio.get_running_loop()
+            for sig in (signal.SIGINT, signal.SIGTERM):
+                loop.add_signal_handler(sig, stop.set)
+            await stop.wait()
+            log.info("shutting down (draining jobs)...")
+            await scheduler.shutdown(drain=True)
+            await listener.close()
+            if mon is not None:
+                mon.cancel()
+
+        asyncio.run(run_server())
+        return 0
+
+    async def chat():
+        from booster_tpu_torch.utils.console import CYAN, DIM, GREEN, colorize, stream_print
+
+        scheduler.start()
+        session = str(uuid.uuid4())
+        print(colorize("chat mode — empty line or Ctrl-D to exit", DIM))
+        loop = asyncio.get_running_loop()
+        prompt_str = colorize("\n> ", CYAN)
+        while True:
+            try:
+                line = await loop.run_in_executor(None, input, prompt_str)
+            except EOFError:
+                break
+            if not line.strip():
+                break
+            job = scheduler.place_job(prompt=line, session_id=session)
+            printed = 0
+            while not job._done.is_set():
+                await asyncio.sleep(0.1)
+                delta = job.output[printed:]
+                if delta:
+                    printed += len(delta)
+                    stream_print(delta, GREEN)
+            stream_print(job.output[printed:], GREEN)
+        await scheduler.shutdown(drain=False)
+
+    asyncio.run(chat())
     return 0
 
 

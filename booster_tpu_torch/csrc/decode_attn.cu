@@ -1,8 +1,19 @@
-// T = 1 GQA decode attention over one layer of the stacked KV cache.
+// T = 1 GQA decode attention over one layer of the stacked KV cache, dense
+// or paged.
 //
 // Replaces _decode_attn_kernel_merged (booster_tpu/ops/pallas_attention.py),
 // bf16 cache (Q = false) and int8 cache (Q = true, `quantized=True`); it also
 // covers the per-b twin _decode_attn_kernel, which computes the same function.
+// The paged form (Paged = true, bt_paged_decode_attn) replaces
+// _paged_attn_kernel_merged (booster_tpu/ops/pallas_paged_attention.py), and
+// covers its per-(row, head) twin _paged_attn_kernel_stacked and the one-layer
+// _paged_attn_kernel (no self term): the same function, with column j of slot
+// b read from page table[b, j / P] at row j % P of the layer's pool
+// [Np, Hkv, P, D] (scales [Np, Hkv, P]).  Each 64-column chunk looks up the
+// row of each of its columns first (a chunk may cross a page when a window
+// starts it mid-page); the rest of the kernel is the dense one.  Pages that
+// several slots share (a common prompt prefix) are read by each of their
+// blocks, so part of that traffic hits L2.
 //
 // For each (b, kv head h) and each of the G query heads of that kv head:
 //   s_j = q · k_j (f32) over the valid columns j in [lens - win + selfok, lens),
@@ -77,9 +88,23 @@ struct AttnParams {
   const int* lens;      // [B] valid cache columns
   const int* self_ok;   // [B] the new token is live, or null
   float* out;           // [B, Hkv, G, D]
-  int Hkv, G, S, win;
+  int Hkv, G, S, win;   // paged: S = maxp · P
   float softcap;
+  const int* table;     // paged: [B, maxp] physical page of each logical page
+  int P, maxp;          // paged: rows per page, pages per slot
 };
+
+// row of cache column c of slot b, kv head h, in the layer's K/V rows of D
+// values (and its scale planes): dense [B, Hkv, S], paged [Np, Hkv, P]
+template <bool Paged>
+__device__ __forceinline__ size_t kv_row(const AttnParams& p, int b, int h, int c) {
+  if constexpr (Paged) {
+    const int page = __ldg(p.table + static_cast<size_t>(b) * p.maxp + c / p.P);
+    return (static_cast<size_t>(page) * p.Hkv + h) * p.P + c % p.P;
+  } else {
+    return (static_cast<size_t>(b) * p.Hkv + h) * p.S + c;
+  }
+}
 
 template <int D>
 size_t smem_bytes(int G) {
@@ -88,11 +113,12 @@ size_t smem_bytes(int G) {
                           + 2 * static_cast<size_t>(G) + 2 * kChunk);
 }
 
-// one chunk of n rows of K or V ([S, D] bf16 from row c0) → f32 shared
-// memory with row stride `stride`; 16-byte loads, all issued first
+// one chunk of n rows of K or V (bf16 rows rows[0..n) of D values from
+// src) → f32 shared memory with row stride `stride`; 16-byte loads, all
+// issued first
 template <int D>
-__device__ __forceinline__ void load_chunk(const uint16_t* src, int c0, int n, float* dst,
-                                           int stride) {
+__device__ __forceinline__ void load_chunk(const uint16_t* src, const size_t* rows, int n,
+                                           float* dst, int stride) {
   constexpr int kVec = D / 8;                                    // 16-byte vectors per row
   constexpr int kIters = (kChunk * kVec + kThreads - 1) / kThreads;
   uint4 r[kIters];
@@ -100,7 +126,7 @@ __device__ __forceinline__ void load_chunk(const uint16_t* src, int c0, int n, f
   for (int it = 0; it < kIters; ++it) {
     const int i = threadIdx.x + it * kThreads;
     const int j = i / kVec;
-    if (j < n) r[it] = __ldg(reinterpret_cast<const uint4*>(src + static_cast<size_t>(c0 + j) * D) + (i % kVec));
+    if (j < n) r[it] = __ldg(reinterpret_cast<const uint4*>(src + rows[j] * D) + (i % kVec));
   }
 #pragma unroll
   for (int it = 0; it < kIters; ++it) {
@@ -118,10 +144,10 @@ __device__ __forceinline__ void load_chunk(const uint16_t* src, int c0, int n, f
   }
 }
 
-// the same for an int8 [S, D] source: 16 values per 16-byte load
+// the same for int8 rows: 16 values per 16-byte load
 template <int D>
-__device__ __forceinline__ void load_chunk_i8(const int8_t* src, int c0, int n, float* dst,
-                                              int stride) {
+__device__ __forceinline__ void load_chunk_i8(const int8_t* src, const size_t* rows, int n,
+                                              float* dst, int stride) {
   constexpr int kVec = D / 16;
   constexpr int kIters = (kChunk * kVec + kThreads - 1) / kThreads;
   uint4 r[kIters];
@@ -129,7 +155,7 @@ __device__ __forceinline__ void load_chunk_i8(const int8_t* src, int c0, int n, 
   for (int it = 0; it < kIters; ++it) {
     const int i = threadIdx.x + it * kThreads;
     const int j = i / kVec;
-    if (j < n) r[it] = __ldg(reinterpret_cast<const uint4*>(src + static_cast<size_t>(c0 + j) * D) + (i % kVec));
+    if (j < n) r[it] = __ldg(reinterpret_cast<const uint4*>(src + rows[j] * D) + (i % kVec));
   }
 #pragma unroll
   for (int it = 0; it < kIters; ++it) {
@@ -145,10 +171,11 @@ __device__ __forceinline__ void load_chunk_i8(const int8_t* src, int c0, int n, 
   }
 }
 
-template <int D, bool Q>
+template <int D, bool Q, bool Paged>
 __global__ void __launch_bounds__(kThreads) decode_attn_kernel(AttnParams p) {
   constexpr int KP = D + 1;     // K row stride in shared memory
   constexpr int DL = D / 32;    // dims per lane in PV: lane + 32·e
+  __shared__ size_t rows[kChunk];  // the chunk's columns' rows in the layer
   extern __shared__ float sm[];
   const int G = p.G;
   float* qs = sm;                 // [G][D]
@@ -161,9 +188,8 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(AttnParams p) {
   float* vss = kss + kChunk;      // [kChunk] v scales of the chunk (int8)
 
   const int bh = blockIdx.x;  // b * Hkv + h
-  const int b = bh / p.Hkv;
+  const int b = bh / p.Hkv, h = bh % p.Hkv;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const size_t kv_base = static_cast<size_t>(bh) * p.S * D;
   const int lens = p.lens[b];
   const int ok = p.self_ok != nullptr && p.self_ok[b] > 0;
   const int lo = max(lens - p.win + ok, 0);
@@ -186,15 +212,16 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(AttnParams p) {
   const int hg = tid / kChunk;        // the scores' head group
   for (int c0 = lo; c0 < hi; c0 += kChunk) {
     const int n = min(kChunk, hi - c0);
+    if (tid < n) rows[tid] = kv_row<Paged>(p, b, h, c0 + tid);
+    __syncthreads();
     if constexpr (Q) {
-      load_chunk_i8<D>(static_cast<const int8_t*>(p.k) + kv_base, c0, n, ks, KP);
-      load_chunk_i8<D>(static_cast<const int8_t*>(p.v) + kv_base, c0, n, vs, D);
-      const size_t sbase = static_cast<size_t>(bh) * p.S + c0;
-      if (tid < n) kss[tid] = p.ks[sbase + tid];
-      else if (tid >= kChunk && tid - kChunk < n) vss[tid - kChunk] = p.vs[sbase + tid - kChunk];
+      load_chunk_i8<D>(static_cast<const int8_t*>(p.k), rows, n, ks, KP);
+      load_chunk_i8<D>(static_cast<const int8_t*>(p.v), rows, n, vs, D);
+      if (tid < n) kss[tid] = p.ks[rows[tid]];
+      else if (tid >= kChunk && tid - kChunk < n) vss[tid - kChunk] = p.vs[rows[tid - kChunk]];
     } else {
-      load_chunk<D>(static_cast<const uint16_t*>(p.k) + kv_base, c0, n, ks, KP);
-      load_chunk<D>(static_cast<const uint16_t*>(p.v) + kv_base, c0, n, vs, D);
+      load_chunk<D>(static_cast<const uint16_t*>(p.k), rows, n, ks, KP);
+      load_chunk<D>(static_cast<const uint16_t*>(p.v), rows, n, vs, D);
     }
     __syncthreads();
     // scores of column j_s for heads hg, hg + 4, ...
@@ -322,16 +349,16 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(AttnParams p) {
   }
 }
 
-template <int D, bool Q>
+template <int D, bool Q, bool Paged>
 cudaError_t launch(const AttnParams& p, int B, cudaStream_t st) {
   // raise the dynamic shared memory limit once, for the largest G taken
   // (before any stream capture: the first launch of each form does it)
   static const cudaError_t configured = cudaFuncSetAttribute(
-      decode_attn_kernel<D, Q>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      decode_attn_kernel<D, Q, Paged>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem_bytes<D>(kMaxG)));
   if (configured != cudaSuccess) return configured;
   const size_t smem = smem_bytes<D>(p.G);
-  decode_attn_kernel<D, Q><<<B * p.Hkv, kThreads, smem, st>>>(p);
+  decode_attn_kernel<D, Q, Paged><<<B * p.Hkv, kThreads, smem, st>>>(p);
   return cudaGetLastError();
 }
 
@@ -349,10 +376,33 @@ extern "C" int bt_decode_attn(const void* q, const void* k, const void* v, const
                static_cast<const float*>(vs), static_cast<const uint16_t*>(sk),
                static_cast<const uint16_t*>(sv), static_cast<const int*>(lens),
                static_cast<const int*>(self_ok), static_cast<float*>(out),
-               Hkv, G, S, win, softcap};
+               Hkv, G, S, win, softcap, nullptr, 0, 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (G > kMaxG || G < 1 || D != 128 || (ks == nullptr) != (vs == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t e = ks != nullptr ? launch<128, true>(p, B, st) : launch<128, false>(p, B, st);
+  const cudaError_t e = ks != nullptr ? launch<128, true, false>(p, B, st)
+                                      : launch<128, false, false>(p, B, st);
+  return static_cast<int>(e);
+}
+
+// The paged form: k, v are layer l's pool [Np, Hkv, P, D] (bf16, or int8 with
+// scales ks, vs [Np, Hkv, P] f32), table [B, maxp] int32; the rest as
+// bt_decode_attn, with S = maxp · P.
+extern "C" int bt_paged_decode_attn(const void* q, const void* k, const void* v, const void* ks,
+                                    const void* vs, const void* sk, const void* sv,
+                                    const void* table, const void* lens, const void* self_ok,
+                                    void* out, int B, int Hkv, int G, int P, int maxp, int D,
+                                    int win, float softcap, void* stream) {
+  AttnParams p{static_cast<const uint16_t*>(q), k, v, static_cast<const float*>(ks),
+               static_cast<const float*>(vs), static_cast<const uint16_t*>(sk),
+               static_cast<const uint16_t*>(sv), static_cast<const int*>(lens),
+               static_cast<const int*>(self_ok), static_cast<float*>(out),
+               Hkv, G, P * maxp, win, softcap, static_cast<const int*>(table), P, maxp};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (G > kMaxG || G < 1 || D != 128 || P < 1 || maxp < 1 || table == nullptr
+      || (ks == nullptr) != (vs == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = ks != nullptr ? launch<128, true, true>(p, B, st)
+                                      : launch<128, false, true>(p, B, st);
   return static_cast<int>(e);
 }

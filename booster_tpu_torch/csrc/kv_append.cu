@@ -10,6 +10,14 @@
 // which are never read), this writes that one row only.  The cache is
 // updated in place.
 //
+// bt_kv_append_paged and bt_kv_append_paged_i8 replace
+// _append_all_kernel_paged_plain and _append_all_kernel_paged_quant
+// (kv_append_all_layers_paged): the same rows go through slot b's page table
+// into the stacked pool [L, Np, H, P, D], to page table[b, off / P] at row
+// off % P, or to the scratch page 0 at row 0 when off / P is past the table
+// (the TPU kernel's rule; its plain version, the JAX scatter, uses row
+// off % P of page 0, which no slot reads).
+//
 // What bounds it on the H100: nothing of the card's rates — it moves
 // 2·L·B·H·(d + D)·2 bytes (about 70 KB at TinyLlama's shape), so the launch
 // itself is the cost.  Design: one block per (layer, slot, head) row, one
@@ -22,14 +30,33 @@
 
 namespace {
 
+// where the row of (layer l, slot b, head h) lands, in rows of D values of
+// the cache [L, B, H, S] (dense) or of the pool [L, Np, H, P] (paged; the
+// int8 scale planes share the row index)
+struct Dest {
+  const int* offsets;  // [B] write positions (the slots' lengths)
+  int B, H, S;
+  const int* table;    // paged: [B, maxp], else null
+  int Np, P, maxp;
+
+  __device__ __forceinline__ size_t row(int blk) const {  // blk = (l * B + b) * H + h
+    const int h = blk % H, b = (blk / H) % B, l = blk / (H * B);
+    const int off = offsets[b];
+    if (table == nullptr)
+      return static_cast<size_t>(blk) * S + min(max(off, 0), S - 1);
+    const int lp = off / P;
+    const bool in_range = lp < maxp;
+    const int page = in_range ? table[static_cast<size_t>(b) * maxp + lp] : 0;
+    const int o = in_range ? off % P : 0;
+    return ((static_cast<size_t>(l) * Np + page) * H + h) * P + o;
+  }
+};
+
 __global__ void kv_append_kernel(uint16_t* k, uint16_t* v, const uint16_t* nk,
-                                 const uint16_t* nv, const int* offsets,
-                                 int B, int H, int S, int D, int d) {
-  const int row = blockIdx.x;  // (l * B + b) * H + h
-  const int b = (row / H) % B;
-  const int off = min(max(offsets[b], 0), S - 1);
-  const size_t dst = (static_cast<size_t>(row) * S + off) * D;
-  const size_t src = static_cast<size_t>(row) * d;
+                                 const uint16_t* nv, Dest dest, int D, int d) {
+  const int blk = blockIdx.x;
+  const size_t dst = dest.row(blk) * D;
+  const size_t src = static_cast<size_t>(blk) * d;
   for (int i = threadIdx.x; i < D; i += blockDim.x) {
     k[dst + i] = i < d ? nk[src + i] : 0;
     v[dst + i] = i < d ? nv[src + i] : 0;
@@ -39,20 +66,17 @@ __global__ void kv_append_kernel(uint16_t* k, uint16_t* v, const uint16_t* nk,
 // int8 cache: each new row (zero-padded from d to D = 128 lanes, one thread
 // per lane) is quantized in the format of int8_row.cuh, bit-exact with the
 // plain version and with the self term that decode attention mirrors before
-// the append lands.  The payload row and its scale go to row
-// min(offsets[b], S - 1).  Bound on the
-// H100: like the bf16 form, the launch (the rows read and written are ~1 MB
-// at L = 22, B = 64).
+// the append lands.  The payload row and its scale go to the destination row.
+// Bound on the H100: like the bf16 form, the launch (the rows read and
+// written are ~1 MB at L = 22, B = 64).
 __global__ void __launch_bounds__(128) kv_append_i8_kernel(
     int8_t* k, int8_t* v, float* ks, float* vs, const uint16_t* nk, const uint16_t* nv,
-    const int* offsets, int B, int H, int S, int d) {
+    Dest dest, int d) {
   constexpr int D = 128;
   __shared__ float red[2][4];
-  const int row = blockIdx.x;  // (l * B + b) * H + h
-  const int b = (row / H) % B;
-  const int off = min(max(offsets[b], 0), S - 1);
+  const int blk = blockIdx.x;
   const int i = threadIdx.x, lane = i & 31, warp = i >> 5;
-  const size_t src = static_cast<size_t>(row) * d;
+  const size_t src = static_cast<size_t>(blk) * d;
   float x[2];
   x[0] = i < d ? __uint_as_float(static_cast<uint32_t>(nk[src + i]) << 16) : 0.f;
   x[1] = i < d ? __uint_as_float(static_cast<uint32_t>(nv[src + i]) << 16) : 0.f;
@@ -64,7 +88,7 @@ __global__ void __launch_bounds__(128) kv_append_i8_kernel(
     if (lane == 0) red[t][warp] = a;
   }
   __syncthreads();
-  const size_t dst = static_cast<size_t>(row) * S + off;
+  const size_t dst = dest.row(blk);
 #pragma unroll
   for (int t = 0; t < 2; ++t) {
     const float amax = fmaxf(fmaxf(red[t][0], red[t][1]), fmaxf(red[t][2], red[t][3]));
@@ -74,6 +98,25 @@ __global__ void __launch_bounds__(128) kv_append_i8_kernel(
   }
 }
 
+int launch_i8(void* k, void* v, void* ks, void* vs, const void* nk, const void* nv,
+              const Dest& dest, int L, int D, int d, void* stream) {
+  if (D != 128 || d > D || d < 1) return static_cast<int>(cudaErrorInvalidValue);
+  kv_append_i8_kernel<<<L * dest.B * dest.H, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int8_t*>(k), static_cast<int8_t*>(v), static_cast<float*>(ks),
+      static_cast<float*>(vs), static_cast<const uint16_t*>(nk),
+      static_cast<const uint16_t*>(nv), dest, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_bf16(void* k, void* v, const void* nk, const void* nv, const Dest& dest, int L,
+                int D, int d, void* stream) {
+  const int threads = D < 128 ? 32 * ((D + 31) / 32) : 128;
+  kv_append_kernel<<<L * dest.B * dest.H, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint16_t*>(k), static_cast<uint16_t*>(v), static_cast<const uint16_t*>(nk),
+      static_cast<const uint16_t*>(nv), dest, D, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // k, v: [L, B, H, S, 128] int8 and ks, vs: [L, B, H, S] f32 (updated in
@@ -81,12 +124,8 @@ __global__ void __launch_bounds__(128) kv_append_i8_kernel(
 extern "C" int bt_kv_append_i8(void* k, void* v, void* ks, void* vs, const void* nk,
                                const void* nv, const void* offsets, int L, int B, int H, int S,
                                int D, int d, void* stream) {
-  if (D != 128 || d > D || d < 1) return static_cast<int>(cudaErrorInvalidValue);
-  kv_append_i8_kernel<<<L * B * H, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int8_t*>(k), static_cast<int8_t*>(v), static_cast<float*>(ks),
-      static_cast<float*>(vs), static_cast<const uint16_t*>(nk),
-      static_cast<const uint16_t*>(nv), static_cast<const int*>(offsets), B, H, S, d);
-  return static_cast<int>(cudaGetLastError());
+  const Dest dest{static_cast<const int*>(offsets), B, H, S, nullptr, 0, 0, 0};
+  return launch_i8(k, v, ks, vs, nk, nv, dest, L, D, d, stream);
 }
 
 // k, v: [L, B, H, S, D] bf16 (updated in place); nk, nv: [L, B, H, d] bf16;
@@ -94,9 +133,27 @@ extern "C" int bt_kv_append_i8(void* k, void* v, void* ks, void* vs, const void*
 extern "C" int bt_kv_append(void* k, void* v, const void* nk, const void* nv,
                             const void* offsets, int L, int B, int H, int S, int D, int d,
                             void* stream) {
-  const int threads = D < 128 ? 32 * ((D + 31) / 32) : 128;
-  kv_append_kernel<<<L * B * H, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint16_t*>(k), static_cast<uint16_t*>(v), static_cast<const uint16_t*>(nk),
-      static_cast<const uint16_t*>(nv), static_cast<const int*>(offsets), B, H, S, D, d);
-  return static_cast<int>(cudaGetLastError());
+  const Dest dest{static_cast<const int*>(offsets), B, H, S, nullptr, 0, 0, 0};
+  return launch_bf16(k, v, nk, nv, dest, L, D, d, stream);
+}
+
+// The paged forms: k, v the pool [L, Np, H, P, D] (int8 with ks, vs
+// [L, Np, H, P] f32, D = 128; or bf16), table [B, maxp] int32; the rest as above.
+extern "C" int bt_kv_append_paged_i8(void* k, void* v, void* ks, void* vs, const void* nk,
+                                     const void* nv, const void* offsets, const void* table,
+                                     int L, int B, int H, int Np, int P, int maxp, int D, int d,
+                                     void* stream) {
+  if (table == nullptr || P < 1 || maxp < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Dest dest{static_cast<const int*>(offsets), B, H, 0, static_cast<const int*>(table),
+                  Np, P, maxp};
+  return launch_i8(k, v, ks, vs, nk, nv, dest, L, D, d, stream);
+}
+
+extern "C" int bt_kv_append_paged(void* k, void* v, const void* nk, const void* nv,
+                                  const void* offsets, const void* table, int L, int B, int H,
+                                  int Np, int P, int maxp, int D, int d, void* stream) {
+  if (table == nullptr || P < 1 || maxp < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Dest dest{static_cast<const int*>(offsets), B, H, 0, static_cast<const int*>(table),
+                  Np, P, maxp};
+  return launch_bf16(k, v, nk, nv, dest, L, D, d, stream);
 }

@@ -17,6 +17,18 @@ or cache.  Two forms, as in the JAX package:
   new row in as a self term (live where ``n_valid > 0``); the rows of all
   layers land in one launch after the loop (``ops.kv_append``).
 
+A ``PagedKVCache`` (``ops.paged_kv``) takes the reference's paged branch:
+prefill writes each layer's rows through the page table
+(``append_paged_layer``), then attends with the masked plain attention over
+slot-dense views gathered back from the pool (``gather_layer``, dequantized
+for an int8 pool), so the prompt's own rows come back after the storage
+round trip; the fused prefill kernel is off for pools, as in the reference.
+Decode with a page size that is a multiple of 128 (the reference's
+``_use_stacked_decode`` gate) is the stacked paged path: the paged attention
+kernel (``ops.paged_attention``) with the deferred self term, then one
+``kv_append_all_layers_paged`` after the loop.  Other page sizes decode
+through the prefill form, as the reference's XLA path does.
+
 The cache is updated in place and returned.  Other architectures and the
 llama family's options (MoE, MLA, biases, sliding-window patterns) are not
 ported yet.
@@ -31,10 +43,12 @@ import torch
 from booster_tpu_torch.models.config import ModelConfig
 from booster_tpu_torch.ops.attention import attention, build_mask
 from booster_tpu_torch.ops.decode_attention import decode_attention_stacked
-from booster_tpu_torch.ops.kv_append import kv_append
-from booster_tpu_torch.ops.kv_cache import KVCache, dequant_kv, update_layer
+from booster_tpu_torch.ops.kv_append import kv_append, kv_append_all_layers_paged
+from booster_tpu_torch.ops.kv_cache import dequant_kv, update_layer
 from booster_tpu_torch.ops.linear import qlinear
 from booster_tpu_torch.ops.mlp import qmm_mlp
+from booster_tpu_torch.ops.paged_attention import paged_decode_attention_stacked, paged_decode_prep
+from booster_tpu_torch.ops.paged_kv import PagedKVCache, append_paged_layer, gather_layer
 from booster_tpu_torch.ops.prefill_attention import prefill_attention, prefill_supported
 from booster_tpu_torch.ops.qmm import qmm_gateup, silu
 from booster_tpu_torch.ops.rope import apply_rope_tables, rope_tables
@@ -64,7 +78,7 @@ def _layer_view(layers: dict[str, Any], i: int) -> dict[str, Any]:
 
 
 def _layer(x, lp, i, cache, positions, cos, sin, mask, offsets, kv_valid, cfg,
-           decode: bool, self_ok=None, fused_prefill: bool = False):
+           decode: bool, self_ok=None, fused_prefill: bool = False, prep=None):
     """One decoder layer; returns (x, (k, v)) with the layer's new roped rows."""
     B, T, C = x.shape
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -84,12 +98,28 @@ def _layer(x, lp, i, cache, positions, cos, sin, mask, offsets, kv_valid, cfg,
     window = cfg.sliding_window if cfg.sliding_window > 0 else None
     ks = None if cache.k_scale is None else cache.k_scale[i]
     vs = None if cache.v_scale is None else cache.v_scale[i]
-    if decode:
+    paged = isinstance(cache, PagedKVCache)
+    if decode and paged:
+        attn_out = paged_decode_attention_stacked(
+            q, cache.k, cache.v, cache.k_scale, cache.v_scale, cache.table, i, kv_valid,
+            scale=scale, logit_softcap=cfg.attn_logit_softcap, window=window,
+            self_kv=(k.reshape(B, Hkv, D), v.reshape(B, Hkv, D), self_ok), prep=prep)
+    elif decode:
         attn_out = decode_attention_stacked(
             q, cache.k, cache.v, i, kv_valid, scale=scale,
             logit_softcap=cfg.attn_logit_softcap, window=window,
             self_kv=(k.reshape(B, Hkv, D), v.reshape(B, Hkv, D), self_ok),
             k_scale=cache.k_scale, v_scale=cache.v_scale)
+    elif paged:
+        append_paged_layer(cache.k[i], cache.v[i], k, v, offsets, cache.table, ks, vs)
+
+        def view(pool):
+            return None if pool is None else gather_layer(pool, cache.table)
+
+        attn_out = attention(
+            q, dequant_kv(view(cache.k[i])[..., :D], view(ks), x.dtype),
+            dequant_kv(view(cache.v[i])[..., :D], view(vs), x.dtype), positions, kv_valid,
+            scale=scale, logit_softcap=cfg.attn_logit_softcap, mask=mask)
     else:
         update_layer(cache.k[i], cache.v[i], k, v, offsets, ks, vs)
         if fused_prefill:
@@ -122,12 +152,13 @@ def _layer(x, lp, i, cache, positions, cos, sin, mask, offsets, kv_valid, cfg,
     return x, (k, v)
 
 
-def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: KVCache,
+def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache,
             last_only: bool = False, gather_idx: Optional[torch.Tensor] = None,
-            n_valid: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, KVCache]:
-    """Run the decoder: (logits [B, T or 1, V] f32, the cache updated in
-    place).  Token positions are cache.lengths[b] + t; with `n_valid`, rows
-    are right-padded and only the first n_valid[b] tokens advance the cache."""
+            n_valid: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, Any]:
+    """Run the decoder over a KVCache or a PagedKVCache: (logits [B, T or 1,
+    V] f32, the cache updated in place).  Token positions are
+    cache.lengths[b] + t; with `n_valid`, rows are right-padded and only the
+    first n_valid[b] tokens advance the cache."""
     _check_ported(cfg)
     B, T = tokens.shape
     dev = tokens.device
@@ -142,24 +173,32 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: KVCache
     cos, sin = rope_tables(positions, params["rope"]["inv_freq"], params["rope"]["mscale"])
     S = cache.max_len
     layers = params["layers"]
+    paged = isinstance(cache, PagedKVCache)
 
-    if T == 1:
+    if T == 1 and (not paged or cache.page_size % 128 == 0):
         if S % 128:
             raise NotImplementedError("T = 1 decode over a cache length that is not a "
                                       "multiple of 128 (per-layer append): not ported yet")
         self_ok = (adv > 0).to(torch.int32)
+        prep = None
+        if paged:  # the layer-invariant lengths and window, once per step
+            window = cfg.sliding_window if cfg.sliding_window > 0 else None
+            prep = paged_decode_prep(offsets, window, B=B, P=cache.page_size,
+                                     MAXP=cache.table.shape[1])
         new_k, new_v = [], []
         for i in range(cfg.n_layers):
             x, (k, v) = _layer(x, _layer_view(layers, i), i, cache, positions, cos, sin,
-                               None, offsets, offsets, cfg, decode=True, self_ok=self_ok)
+                               None, offsets, offsets, cfg, decode=True, self_ok=self_ok,
+                               prep=prep)
             new_k.append(k.reshape(B, cfg.n_kv_heads, -1))
             new_v.append(v.reshape(B, cfg.n_kv_heads, -1))
-        kv_append(cache.k, cache.v, torch.stack(new_k), torch.stack(new_v), offsets,
-                  cache.k_scale, cache.v_scale)
+        append = kv_append_all_layers_paged if paged else kv_append
+        append(cache.k, cache.v, torch.stack(new_k), torch.stack(new_v), offsets,
+               *((cache.table,) if paged else ()), cache.k_scale, cache.v_scale)
     else:
         kv_valid = offsets + adv
-        fused = cache.quantized and prefill_supported(T, S, cache.k.shape[-1], cfg.n_heads,
-                                                      cfg.n_kv_heads)
+        fused = cache.quantized and not paged and prefill_supported(
+            T, S, cache.k.shape[-1], cfg.n_heads, cfg.n_kv_heads)
         mask = None if fused else build_mask(
             positions, kv_valid, S, cfg.sliding_window if cfg.sliding_window > 0 else None)
         for i in range(cfg.n_layers):

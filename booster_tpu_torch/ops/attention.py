@@ -1,9 +1,13 @@
 """Masked GQA attention over the KV cache, for prefill (T > 1).
 
-Port of ``build_mask`` and ``attention`` of ``booster_tpu/ops/attention.py``
-as plain torch ops mirroring the reference: q pre-scaled in f32 and rounded
-to bf16, f32 scores of bf16 operands, f32 softmax, probabilities rounded to
-bf16 for PV with f32 accumulation.
+Port of ``build_mask``, ``attention`` and ``_attention_chunked`` of
+``booster_tpu/ops/attention.py`` as plain torch ops mirroring the
+reference: q pre-scaled in f32 and rounded to bf16, f32 scores of bf16
+operands, f32 softmax, probabilities rounded to bf16 for PV with f32
+accumulation.  Past ``_CHUNK_THRESHOLD`` score elements (and with S a
+multiple of ``_KV_CHUNK``) the reference switches to an online softmax
+over 512-column chunks, which rounds differently; the port takes that
+branch exactly when the reference does.
 """
 
 from __future__ import annotations
@@ -11,6 +15,10 @@ from __future__ import annotations
 import torch
 
 NEG_INF = -1e30
+
+# materialized-score budget above which the online-softmax chunked path runs
+_CHUNK_THRESHOLD = 32 * 1024 * 1024  # elements in [B, H, T, S]
+_KV_CHUNK = 512
 
 
 def build_mask(q_positions: torch.Tensor, kv_valid_len: torch.Tensor, S: int,
@@ -32,6 +40,9 @@ def attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     (no window or q_pos - j < window)."""
     B, T, H, D = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
+    if B * H * T * S > _CHUNK_THRESHOLD and S % _KV_CHUNK == 0:
+        return _attention_chunked(q, k_cache, v_cache, q_positions, kv_valid_len, scale,
+                                  logit_softcap, sliding_window)
     groups = H // Hkv
     qf = (q.float() * scale).to(torch.bfloat16).float()
     kf = k_cache.to(torch.bfloat16).float()
@@ -46,4 +57,51 @@ def attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                          torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1).to(torch.bfloat16).float()
     out = torch.einsum("bhgts,bhsd->bhgtd", probs, vf)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, -1).to(q.dtype)
+
+
+def _attention_chunked(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                       q_positions: torch.Tensor, kv_valid_len: torch.Tensor, scale: float,
+                       logit_softcap: float = 0.0, sliding_window=None) -> torch.Tensor:
+    """Online-softmax attention over KV chunks of ``_KV_CHUNK`` columns:
+    peak memory O(B·H·T·CHUNK) instead of O(B·H·T·S).  Like the reference
+    it builds its own mask (no precomputed one).
+
+    Chunks from the first one past every row's kv_valid_len on are not
+    visited (one host read of the largest length): for a row with a valid
+    column such a chunk adds exp(-1e30 - m) = 0 to l and acc and rescales
+    by exp(0) = 1, so the result is the reference's bit for bit; only rows
+    with no valid column at all (idle slots, never read) differ."""
+    B, T, H, D = q.shape
+    Hkv, S = k_cache.shape[1], k_cache.shape[2]
+    groups = H // Hkv
+    C = _KV_CHUNK
+    n_chunks = min(S // C, -(-int(kv_valid_len.max()) // C)) if B else 0
+    qf = (q.float() * scale).to(torch.bfloat16).float()
+    qf = qf.reshape(B, T, Hkv, groups, D).permute(0, 2, 3, 1, 4)  # [B, Hkv, G, T, D]
+    qpos = q_positions[:, :, None]  # [B, T, 1]
+    dev = q.device
+    m = torch.full((B, Hkv, groups, T), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, Hkv, groups, T), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, Hkv, groups, T, v_cache.shape[-1]), dtype=torch.float32, device=dev)
+    for c in range(n_chunks):
+        start = c * C
+        kc = k_cache[:, :, start:start + C].to(torch.bfloat16).float()
+        vc = v_cache[:, :, start:start + C].to(torch.bfloat16).float()
+        s = torch.einsum("bhgtd,bhsd->bhgts", qf, kc)
+        if logit_softcap > 0.0:
+            s = logit_softcap * torch.tanh(s / logit_softcap)
+        kv_idx = start + torch.arange(C, device=dev)[None, None, :]
+        mask = (kv_idx <= qpos) & (kv_idx < kv_valid_len[:, None, None])
+        if sliding_window is not None:
+            mask = mask & (kv_idx > qpos - sliding_window)
+        s = torch.where(mask[:, None, None, :, :], s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhgts,bhsd->bhgtd", p.to(torch.bfloat16).float(), vc)
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, -1).to(q.dtype)

@@ -42,7 +42,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # kernel name → launches made by its wrapper (reset by callers that count);
 # _gd is the M = 1 group-dot form, _dq the M > 1 dequantize form, _i8 the
-# int8-cache form
+# int8-cache form, paged_ the paged-pool forms
 launch_counts = {
     "qmm_i4t_gd": 0,
     "qmm_i4t_dq": 0,
@@ -57,24 +57,31 @@ launch_counts = {
     "qmm_i8t_dq": 0,
     "qmm_i8t_gateup_dq": 0,
     "mlp_i8t": 0,
+    "paged_attn": 0,
+    "paged_attn_i8": 0,
+    "kv_append_paged": 0,
+    "kv_append_paged_i8": 0,
 }
 # (kernel name, (K, N)) → launches, for the matmul kernels
 shape_counts: dict = {}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_count_lock = threading.Lock()  # wrappers run on the server's executor threads too
 
 
 def reset_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
-    shape_counts.clear()
+    with _count_lock:
+        for k in launch_counts:
+            launch_counts[k] = 0
+        shape_counts.clear()
 
 
 def count(name: str, shape=None) -> None:
-    launch_counts[name] += 1
-    if shape is not None:
-        shape_counts[(name, shape)] = shape_counts.get((name, shape), 0) + 1
+    with _count_lock:
+        launch_counts[name] += 1
+        if shape is not None:
+            shape_counts[(name, shape)] = shape_counts.get((name, shape), 0) + 1
 
 
 def _nvcc() -> str:
@@ -135,17 +142,17 @@ def build(names=None) -> dict[str, dict]:
 def library(name: str, signatures: dict) -> ctypes.CDLL:
     """The loaded library `name` (built if needed), with `signatures`
     ({function: argtypes}) declared; every function returns a CUDA error
-    code as int."""
+    code as int.  Wrappers of one library may declare different functions."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             build([name])
-            lib = ctypes.CDLL(str(library_path(name)))
-            for fn, argtypes in signatures.items():
-                f = getattr(lib, fn)
+            lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
+        for fn, argtypes in signatures.items():
+            f = getattr(lib, fn)
+            if f.argtypes is None:
                 f.argtypes = argtypes
                 f.restype = ctypes.c_int
-            _libs[name] = lib
         return lib
 
 

@@ -10,6 +10,14 @@ its scale lands beside it.  ``kv_append`` runs a kernel of
 ``csrc/kv_append.cu`` on CUDA tensors and ``kv_append_plain`` on CPU
 tensors; the two are bit-exact.  Both update the cache in place (the JAX
 version returns new arrays) and write only row ``offsets[b]``.
+
+``kv_append_all_layers_paged`` is the same append into a paged pool
+[L, Np, H, P, D] through the slots' page tables (counterpart of the JAX
+function of that name): the paged kernels of ``csrc/kv_append.cu`` on CUDA
+tensors, ``ops.paged_kv.paged_append_all_layers`` (the JAX scatter) on CPU
+tensors.  The two agree bit for bit on every page but the scratch page 0,
+where a row past the table lands at row 0 (kernel) or at row offset % P
+(scatter).
 """
 
 from __future__ import annotations
@@ -21,10 +29,13 @@ import torch.nn.functional as F
 
 from booster_tpu_torch.ops import kernels
 from booster_tpu_torch.ops.kv_cache import _quantize_kv
+from booster_tpu_torch.ops.paged_kv import paged_append_all_layers
 
 _SIGNATURES = {
     "bt_kv_append": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     "bt_kv_append_i8": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "bt_kv_append_paged": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    "bt_kv_append_paged_i8": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
 }
 
 
@@ -84,3 +95,54 @@ def kv_append(k_all, v_all, new_k, new_v, offsets, k_scale_all=None,
                           new_v.data_ptr(), offsets.data_ptr(), L, B, H, S, D, d, stream)
     kernels.check(rc, "kv_append")
     kernels.count("kv_append")
+
+
+def kv_append_all_layers_paged(pool_k, pool_v, new_k, new_v, offsets, table, pool_ks=None,
+                               pool_vs=None) -> None:
+    """Kernel-level entry: pool_k/pool_v [L, Np, H, P, D] (in place), new rows
+    [L, B, H, d], offsets [B], table [B, MAXP], scales [L, Np, H, P, 1] f32
+    for an int8 pool.  The plain version for CPU tensors, the CUDA kernel for
+    CUDA tensors."""
+    if pool_k.device.type == "cpu":
+        return paged_append_all_layers(pool_k, pool_v, new_k, new_v, offsets, table,
+                                       pool_ks, pool_vs)
+    L, Np, H, P, D = pool_k.shape
+    B, maxp = table.shape
+    d = new_k.shape[-1]
+    quant = pool_ks is not None
+    dt = torch.int8 if quant else torch.bfloat16
+    if pool_k.dtype != dt or pool_v.dtype != dt or pool_v.shape != pool_k.shape:
+        raise ValueError("kv_append_all_layers_paged kernel: the pool must be bf16 k/v of "
+                         "one shape, or int8 k/v with scales")
+    if not (pool_k.is_contiguous() and pool_v.is_contiguous()):
+        raise ValueError("kv_append_all_layers_paged kernel: the pool must be contiguous")
+    if new_k.shape != (L, B, H, d) or new_v.shape != new_k.shape or d > D:
+        raise ValueError("kv_append_all_layers_paged kernel: new rows must be [L, B, H, d <= D]")
+    new_k = new_k.to(torch.bfloat16).contiguous()
+    new_v = new_v.to(torch.bfloat16).contiguous()
+    offsets = offsets.to(torch.int32).contiguous()
+    table = table.to(torch.int32).contiguous()
+    stream = torch.cuda.current_stream(pool_k.device).cuda_stream
+    lib = kernels.library("kv_append", _SIGNATURES)
+    if quant:
+        if (pool_vs is None or pool_ks.shape != (L, Np, H, P, 1)
+                or pool_vs.shape != pool_ks.shape
+                or pool_ks.dtype != torch.float32 or pool_vs.dtype != torch.float32
+                or not (pool_ks.is_contiguous() and pool_vs.is_contiguous())):
+            raise ValueError("kv_append_all_layers_paged kernel: scales must be contiguous "
+                             "f32 [L, Np, H, P, 1]")
+        if D != 128:
+            raise NotImplementedError(f"kv_append_all_layers_paged int8 kernel: storage head "
+                                      f"dim {D}: not ported yet (the 128-lane width is)")
+        rc = lib.bt_kv_append_paged_i8(pool_k.data_ptr(), pool_v.data_ptr(), pool_ks.data_ptr(),
+                                       pool_vs.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
+                                       offsets.data_ptr(), table.data_ptr(), L, B, H, Np, P,
+                                       maxp, D, d, stream)
+        kernels.check(rc, "kv_append_paged_i8")
+        kernels.count("kv_append_paged_i8")
+        return
+    rc = lib.bt_kv_append_paged(pool_k.data_ptr(), pool_v.data_ptr(), new_k.data_ptr(),
+                                new_v.data_ptr(), offsets.data_ptr(), table.data_ptr(), L, B, H,
+                                Np, P, maxp, D, d, stream)
+    kernels.check(rc, "kv_append_paged")
+    kernels.count("kv_append_paged")

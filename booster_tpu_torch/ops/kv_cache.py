@@ -12,8 +12,8 @@ constant as a multiply by its f32 reciprocal, so the scale is
 amax · f32(1/127) (which differs from IEEE amax / 127 in the last bit for
 a few % of rows); the division by the scale stays an IEEE division.
 ``update_layer`` is the T > 1 write of a prefill; T = 1 decode writes go
-through ops.kv_append after the layer loop.  The cache tensors are updated
-in place.
+through ops.kv_append after the layer loop.  ``shift_slot_cache`` is the
+in-cache context shift of one slot.  The cache tensors are updated in place.
 """
 
 from __future__ import annotations
@@ -73,6 +73,65 @@ def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     scale = xf.abs().amax(dim=-1, keepdim=True) * (1.0 / 127.0)
     q = torch.round(xf / torch.clamp_min(scale, 1e-12)).to(torch.int8)
     return q, scale
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a·b + c rounded once to f32, as the reference's compiled code computes
+    x0·cos - x1·sin (XLA contracts it into a fused multiply-add); through
+    f64, where the product of two f32 values is exact."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _rot_delta(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, style: str) -> torch.Tensor:
+    """Rotate the first 2·len(cos) dims of [..., D] (f32) by a fixed angle."""
+    d_rot = 2 * cos.shape[-1]
+    xr, x_pass = x[..., :d_rot], x[..., d_rot:]
+    if style == "norm":
+        x0, x1 = xr[..., 0::2], xr[..., 1::2]
+    elif style == "neox":
+        x0, x1 = xr[..., :d_rot // 2], xr[..., d_rot // 2:]
+    else:
+        return x
+    r0, r1 = _fma(x0, cos, -(x1 * sin)), _fma(x0, sin, x1 * cos)
+    if style == "norm":
+        rotated = torch.stack([r0, r1], dim=-1).reshape(xr.shape)
+    else:
+        rotated = torch.cat([r0, r1], dim=-1)
+    return torch.cat([rotated, x_pass], dim=-1) if x_pass.shape[-1] else rotated
+
+
+def shift_slot_cache(cache: KVCache, slot: int, n_keep: int, n_discard: int,
+                     inv_freq: torch.Tensor, style: str) -> KVCache:
+    """In-cache context shift of one slot (in place): the first `n_keep`
+    rows stay, the `n_discard` after them go, the rest move to the front and
+    their K rows are rotated by -n_discard positions, so their rope angles
+    are exact at the new places; V carries no position.  An int8 cache
+    requantizes every K row of the slot (scale amax · f32(1/127), as
+    ``_quantize_kv``).  No re-prefill."""
+    S = cache.max_len
+    dev = cache.k.device
+    i = torch.arange(S, device=dev)
+    src = torch.clamp(torch.where(i < n_keep, i, i + n_discard), 0, S - 1)
+    moved = (i >= n_keep)[:, None]  # [S, 1]: broadcast over the head dim
+    ang = -float(n_discard) * torch.as_tensor(inv_freq, dtype=torch.float32, device=dev)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    k_row = cache.k[:, slot].index_select(2, src)  # [L, H, S, D]
+    v_row = cache.v[:, slot].index_select(2, src)
+    if cache.quantized:
+        ks_row = cache.k_scale[:, slot].index_select(2, src)
+        vs_row = cache.v_scale[:, slot].index_select(2, src)
+        kf = k_row.float() * ks_row
+        kf = torch.where(moved, _rot_delta(kf, cos, sin, style), kf)
+        new_k, new_ks = _quantize_kv(kf)
+        cache.k[:, slot] = new_k
+        cache.k_scale[:, slot] = new_ks
+        cache.v_scale[:, slot] = vs_row
+    else:
+        kf = k_row.float()
+        cache.k[:, slot] = torch.where(moved, _rot_delta(kf, cos, sin, style), kf).to(cache.k.dtype)
+    cache.v[:, slot] = v_row
+    cache.lengths[slot] -= n_discard
+    return cache
 
 
 def dequant_kv(q: torch.Tensor, scale: Optional[torch.Tensor],

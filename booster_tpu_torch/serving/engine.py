@@ -1,6 +1,6 @@
 """Generation engine over a dense KV cache (bf16, or int8 with
-``kv_quantized=True``): single-stream ``generate`` and the slot API of
-continuous batching.
+``kv_quantized=True``) or a paged one (``paged=True``): single-stream
+``generate`` and the slot API of continuous batching.
 
 Port of ``booster_tpu/serving/engine.py``.  ``generate``: the prompt is
 prefilled in a power-of-two bucket (``n_valid`` marks the real tokens,
@@ -19,10 +19,25 @@ active slots (tokens stay on the device; a slot stops where it emits an
 end-of-generation token) while ``decode_slots_finish`` waits for that
 chunk's tokens only: the start copies them to pinned host memory behind an
 event, so reading one chunk overlaps the next chunk's work on the card.
+``shift_slot`` is the in-cache context shift of a slot that runs out of
+cache, and ``warmup`` runs one prefill and one decode chunk before a server
+takes jobs.
+
+Paged mode (``paged=True``, the reference's ``--paged-kv``): the slots' K/V
+live in a page pool (``ops.paged_kv``) of n_pages pages of ``page_size``
+rows, page 0 being a scratch page that unallocated table entries point at.
+Pages are allocated between dispatches, as a slot's length grows
+(``ensure_slot_pages``, ``trim_slot_pages``, ``release_slot_pages``), and
+the full pages of a finished prompt are published (``publish_slot_prefix``)
+so that a later prompt with the same leading tokens maps them into its table
+instead of prefilling them (``adopt_prefix``).  The tables' host copy is a
+numpy array; a changed row goes to the card through pinned memory and an
+asynchronous copy, as do the decode dispatch's per-slot inputs, so no upload
+makes the host wait for the chunk in flight.
 
 Not ported yet: classifier-free guidance, Janus sampling and mirostat
-(batched or not), Self-Extend, paging, grammar-masked decode
-(``masked_decode_slots``), in-cache context shift (``shift_slot``).
+(batched or not), Self-Extend, grammar-masked decode
+(``masked_decode_slots``).
 """
 
 from __future__ import annotations
@@ -36,7 +51,9 @@ import torch
 
 from booster_tpu_torch.models.llama import forward
 from booster_tpu_torch.models.loader import LoadedModel
-from booster_tpu_torch.ops.kv_cache import KVCache
+from booster_tpu_torch.ops.kv_cache import KVCache, shift_slot_cache
+from booster_tpu_torch.ops.paged_kv import (PageAllocator, PagedKVCache, gather_layer,
+                                            scatter_layer)
 from booster_tpu_torch.sampling.params import SamplingParams
 from booster_tpu_torch.sampling.samplers import (
     make_sampler_state,
@@ -104,11 +121,14 @@ def _decode_chunk_vec(params, cfg, cache: KVCache, last_tok, state, vp, active,
 
 class Engine:
     """Owns the model; builds a dense KV cache per generation, and the
-    B-slot cache of the batched slot API."""
+    B-slot cache (dense or paged) of the batched slot API."""
 
     def __init__(self, model: LoadedModel, max_batch: int = 1, max_seq: int = 2048,
                  kv_quantized: bool = False, history_window: int = 256,
-                 decode_chunk: int = 1):
+                 decode_chunk: int = 1, paged: bool = False, page_size: int = 256,
+                 n_pages: int = 0):
+        """n_pages 0 → max_batch · ceil(max_seq / page_size) + one slot's
+        worth of slack + the scratch page."""
         self.model = model
         self.cfg = model.cfg
         self.params = model.params
@@ -126,6 +146,22 @@ class Engine:
                     mask[t] = True
         self._eog_np = mask
         self._eog_mask = torch.from_numpy(mask).to(self.device)
+        self.cache = None
+        # prefix-sharing telemetry of the paged mode (surfaced on /health)
+        self.prefix_lookups = self.prefix_hits = self.prefix_tokens_reused = 0
+        self.paged = paged
+        self.page_size = page_size
+        if paged:
+            maxp = -(-max_seq // page_size)
+            self.n_pages = n_pages or (max_batch * maxp + maxp + 1)
+            self.page_alloc = PageAllocator(self.n_pages, page_size)
+            # physical page 0 is the permanent scratch page: unallocated
+            # table entries point at it, so padding and idle-slot writes
+            # land there harmlessly
+            if self.page_alloc.alloc(1) != [0]:
+                raise RuntimeError("the page allocator did not hand out page 0 first")
+            self._slot_pages: dict[int, list[int]] = {s: [] for s in range(max_batch)}
+            self._table_np = np.zeros((max_batch, maxp), np.int32)
 
     @property
     def nl_token(self) -> int:
@@ -135,10 +171,97 @@ class Engine:
             self._nl_token = ids[-1] if ids else -1
         return self._nl_token
 
-    def _new_cache(self) -> KVCache:
+    def _new_cache(self, dense: bool = False):
+        """The slot API's cache; `dense=True` forces a plain dense cache (the
+        single-sequence generate builds its own outside the page pool)."""
+        if self.paged and not dense:
+            cache = PagedKVCache.create(self.cfg.n_layers, self.max_batch, self.max_seq,
+                                        self.cfg.n_kv_heads, self.cfg.head_dim, self.device,
+                                        quantized=self.kv_quantized, page_size=self.page_size,
+                                        n_pages=self.n_pages)
+            cache.table.copy_(torch.from_numpy(self._table_np))
+            return cache
         return KVCache.create(self.cfg.n_layers, self.max_batch, self.max_seq,
                               self.cfg.n_kv_heads, self.cfg.head_dim, self.device,
                               quantized=self.kv_quantized)
+
+    # -- paged-mode page bookkeeping (host side, between dispatches) ---------
+
+    def _set_table(self, slot: int, start: int, pages) -> None:
+        """table[slot, start:start + len(pages)] = pages, on the host copy and
+        (without a host wait) on the card."""
+        self._table_np[slot, start:start + len(pages)] = pages
+        self.cache.table[slot].copy_(_to_device(self._table_np[slot], self.device))
+
+    def ensure_slot_pages(self, slot: int, upto: int) -> None:
+        """Back the slot's logical positions [0, upto) with pages (a padded
+        dispatch width included: padding rows must land in pages the slot
+        owns, not in the shared scratch page)."""
+        if not self.paged:
+            return
+        need = min(-(-upto // self.page_size), self._table_np.shape[1])
+        have = len(self._slot_pages[slot])
+        if need <= have:
+            return
+        newp = self.page_alloc.alloc(need - have)
+        if newp is None:
+            raise RuntimeError(f"KV page pool exhausted ({self.page_alloc.stats()})")
+        self._set_table(slot, have, newp)
+        self._slot_pages[slot].extend(newp)
+
+    def trim_slot_pages(self, slot: int) -> None:
+        """Give back the pages past the slot's length (a prefill bucket
+        over-covers by up to its padded width)."""
+        if not self.paged:
+            return
+        need = -(-int(self.slot_lengths[slot]) // self.page_size)
+        have = len(self._slot_pages[slot])
+        if have <= need:
+            return
+        self.page_alloc.release(self._slot_pages[slot][need:])
+        self._slot_pages[slot] = self._slot_pages[slot][:need]
+        self._set_table(slot, need, [0] * (have - need))
+
+    def release_slot_pages(self, slot: int) -> None:
+        if not self.paged or not self._slot_pages[slot]:
+            return
+        self.page_alloc.release(self._slot_pages[slot])
+        n = len(self._slot_pages[slot])
+        self._slot_pages[slot] = []
+        self._set_table(slot, 0, [0] * n)
+
+    def adopt_prefix(self, slot: int, ids: list[int]) -> int:
+        """Map resident pages whose token chain matches the prompt's leading
+        pages into this slot (shared, not copied).  Returns how many prompt
+        tokens they cover; at least one token is left to prefill."""
+        if not self.paged:
+            return 0
+        P = self.page_size
+        pages, covered = self.page_alloc.lookup_prefix(ids)
+        while pages and covered > len(ids) - 1:
+            pages.pop()
+            covered -= P
+        self.prefix_lookups += 1
+        if not pages:
+            return 0
+        self.prefix_hits += 1
+        self.prefix_tokens_reused += covered
+        self.page_alloc.retain(pages)
+        if self._slot_pages[slot]:
+            raise RuntimeError(f"adopt_prefix: slot {slot} holds pages (reset it first)")
+        self._slot_pages[slot] = list(pages)
+        self._set_table(slot, 0, pages)
+        self.cache.lengths[slot] = covered
+        self.slot_lengths[slot] = covered
+        return covered
+
+    def publish_slot_prefix(self, slot: int, ids: list[int]) -> None:
+        """Register the slot's full, final pages as prefix candidates."""
+        if not self.paged:
+            return
+        full = min(len(ids) // self.page_size, len(self._slot_pages[slot]))
+        if full > 0:
+            self.page_alloc.publish_prefix(ids, self._slot_pages[slot][:full])
 
     def _prefill(self, cache: KVCache, ids: list[int], gather: bool):
         T = _bucket(len(ids), self.max_seq)
@@ -187,7 +310,7 @@ class Engine:
         nl_token = self.nl_token
 
         t_start = time.perf_counter()
-        cache = self._new_cache()
+        cache = self._new_cache(dense=True)
         state = make_seeded_state(
             self.max_batch, max(self.history_window, sampling.penalty_last_n),
             sampling.seed if sampling.seed >= 0 else int(time.time_ns() % (1 << 31)),
@@ -245,7 +368,7 @@ class Engine:
                 tail = list(prompt_ids[n_keep:]) + generated
                 tail = tail[len(tail) // 2:]
                 keep_ids = (kept + tail)[:-1]
-                cache = self._new_cache()
+                cache = self._new_cache(dense=True)
                 _, cache = self._prefill(cache, keep_ids, gather=False)
                 host_len = len(keep_ids)
                 cur = torch.zeros((self.max_batch, 1), dtype=torch.int32)
@@ -282,7 +405,7 @@ class Engine:
         """Allocate the B-slot cache (if not yet) and fresh per-slot sampler
         state and params; every slot is free."""
         B = self.max_batch
-        if getattr(self, "cache", None) is None:
+        if self.cache is None:
             self.cache = self._new_cache()
         self.state = make_sampler_state(B, window or self.history_window, seed=0,
                                         device=self.device)
@@ -297,6 +420,22 @@ class Engine:
         self._slot_exttail = np.zeros(B, bool)
         self._slot_fullv = np.zeros(B, bool)
 
+    def warmup(self) -> None:
+        """Run the serving hot path once (a prefill and one decode chunk)
+        before taking jobs, so that the first request does not pay for the
+        first calls (kernel builds and loads, allocator growth) against its
+        deadline.  Leaves fresh batch state and a fresh cache."""
+        self.init_batch_state()
+        self.reset_slot(0, SamplingParams(temp=0.0), seed=0)
+        ids = [self.cfg.n_vocab - 1] * 2
+        if self.tokenizer is not None:
+            ids = self.tokenizer.encode("warmup") or ids
+        first = self.prefill_slots({0: ids})
+        self.decode_slots(first)  # the scheduler's chunk
+        self.init_batch_state()
+        self.cache = None  # free the old pool before the new one is made
+        self.cache = self._new_cache()
+
     def _vector_features(self) -> tuple:
         feats = []
         if self._slot_exttail.any():
@@ -307,14 +446,19 @@ class Engine:
             feats.append("nopenalties")  # the [B, V] penalty pass is skipped
         return tuple(feats)
 
-    def reset_slot(self, slot: int, sampling: SamplingParams, seed: int) -> None:
-        """Free/claim a slot: zero its cache length and its sampler-state row,
-        seed its generator, set its sampling params.  (The reference's
-        max_predict and Self-Extend arguments serve Janus and Self-Extend,
-        which are not ported yet.)"""
+    def reset_slot(self, slot: int, sampling: SamplingParams, seed: int,
+                   max_predict: Optional[int] = None, se_group: int = 0,
+                   se_window: int = 0) -> None:
+        """Free/claim a slot: release its pages, zero its cache length and
+        its sampler-state row, seed its generator, set its sampling params.
+        (`max_predict` serves Janus sampling and `se_group`/`se_window`
+        Self-Extend, neither ported yet: a non-zero `se_group` raises.)"""
         if sampling.janus or sampling.mirostat in (1, 2) or sampling.cfg_scale != 1.0:
             raise NotImplementedError("Janus, mirostat and classifier-free guidance in the "
                                       "batch: not ported yet")
+        if se_group:
+            raise NotImplementedError("Self-Extend: not ported yet")
+        self.release_slot_pages(slot)
         self.cache.lengths[slot] = 0
         st = self.state
         st.prev_tokens[slot] = -1
@@ -333,13 +477,16 @@ class Engine:
         self.slot_lengths[slot] = 0
 
     @torch.no_grad()
-    def prefill_slots(self, jobs: dict[int, list[int]], chunk: int = 512) -> dict[int, int]:
+    def prefill_slots(self, jobs: dict[int, list[int]], chunk: int = 512,
+                      full_history: Optional[dict[int, list[int]]] = None) -> dict[int, int]:
         """Prefill prompts into their slots (chunked, all slots of a chunk in
         one batched forward); returns the first sampled token per slot.
-        Slots must have been reset_slot()'d first."""
+        Slots must have been reset_slot()'d first (or have adopted a prefix:
+        then `jobs` holds the unseen suffix and `full_history` the whole
+        prompt, whose tokens seed the penalty history)."""
         B = self.max_batch
         for s, ids in jobs.items():
-            seed_prompt_row(self.state, s, ids)
+            seed_prompt_row(self.state, s, (full_history or {}).get(s, ids))
         remaining = {s: list(ids) for s, ids in jobs.items()}
         first: dict[int, int] = {}
         to = lambda a: torch.from_numpy(a).to(self.device)  # noqa: E731
@@ -354,6 +501,8 @@ class Engine:
                 take = min(len(ids), T)
                 tokens[s, :take] = ids[:take]
                 n_valid[s] = take
+                # the padded width T, not take: padding rows write KV too
+                self.ensure_slot_pages(s, int(self.slot_lengths[s]) + T)
                 self.slot_lengths[s] += take
                 remaining[s] = ids[take:]
                 if not remaining[s]:
@@ -367,6 +516,7 @@ class Engine:
             tok_np = tok.cpu().numpy()
             for s in done_slots:
                 first[s] = int(tok_np[s])
+                self.trim_slot_pages(s)
                 del remaining[s]
         return first
 
@@ -375,9 +525,10 @@ class Engine:
                            last_tokens: Optional[dict[int, int]] = None):
         """Enqueue one batched decode chunk over `active_slots` (returns at
         once).  It chains from the device-resident last tokens, or from the
-        host's `last_tokens` where given.  The chunk's tokens are copied to
-        pinned host memory behind a CUDA event, so finishing this chunk
-        waits for it and not for later chunks."""
+        host's `last_tokens` where given.  Its host inputs (and any page
+        table rows it grows) go up through pinned memory, and the chunk's
+        tokens come back to pinned host memory behind a CUDA event, so
+        neither this call nor finishing this chunk waits for later chunks."""
         B = self.max_batch
         n = n_steps or self.decode_chunk
         active = np.zeros(B, bool)
@@ -389,11 +540,12 @@ class Engine:
             for s, t in last_tokens.items():
                 host[s, 0] = t
                 mask[s, 0] = True
-            last = torch.where(torch.from_numpy(mask).to(self.device),
-                               torch.from_numpy(host).to(self.device), last)
+            last = torch.where(_to_device(mask, self.device), _to_device(host, self.device),
+                               last)
         for s in active_slots:
+            self.ensure_slot_pages(s, int(self.slot_lengths[s]) + n)
             self.slot_lengths[s] += n
-        active_dev = torch.from_numpy(active).to(self.device)
+        active_dev = _to_device(active, self.device)
         toks, emitted, self.cache, self.state = _decode_chunk_vec(
             self.params, self.cfg, self.cache, last, self.state, self.vp, active_dev, n,
             self._eog_mask, features=self._vector_features(), nl_token=self.nl_token)
@@ -428,6 +580,70 @@ class Engine:
         """Batched decode chunk over the slots of `last_tokens` (dispatch and wait)."""
         return self.decode_slots_finish(
             self.decode_slots_start(list(last_tokens), n_steps=n_steps, last_tokens=last_tokens))
+
+    @torch.no_grad()
+    def shift_slot(self, slot: int, n_keep: int = 0, n_discard: Optional[int] = None) -> int:
+        """In-cache context shift of a batched slot: drop `n_discard` tokens
+        after the first `n_keep` (half of the rest by default), in place and
+        with exact rope correction; the slot goes on generating with no
+        re-prefill.  Returns the number of tokens dropped."""
+        length = int(self.slot_lengths[slot])
+        if n_discard is None:
+            n_discard = max(1, (length - n_keep) // 2)
+        inv_freq = self.params["rope"]["inv_freq"]
+        if self.paged:
+            self._shift_slot_paged(slot, n_keep, n_discard, length)
+        else:
+            shift_slot_cache(self.cache, slot, n_keep, n_discard, inv_freq, self.cfg.rope_style)
+        self.slot_lengths[slot] = length - n_discard
+        return n_discard
+
+    def _shift_slot_paged(self, slot: int, n_keep: int, n_discard: int, length: int) -> None:
+        """Context shift of a paged slot: gather its pages into a dense
+        one-slot view, run the dense shift on it, then scatter it into fresh
+        private pages (shared prefix pages must not be rewritten: the shift
+        invalidates their published token chains for this slot)."""
+        cache = self.cache
+        L = self.cfg.n_layers
+        row = cache.table[slot:slot + 1]
+
+        def gather(pool):
+            return None if pool is None else torch.stack(
+                [gather_layer(pool[i], row) for i in range(L)])  # [L, 1, Hkv, S, D*]
+
+        temp = KVCache(k=gather(cache.k), v=gather(cache.v),
+                       lengths=torch.tensor([length], dtype=torch.int32, device=self.device),
+                       k_scale=gather(cache.k_scale), v_scale=gather(cache.v_scale))
+        shift_slot_cache(temp, 0, n_keep, n_discard, self.params["rope"]["inv_freq"],
+                         self.cfg.rope_style)
+        # a fresh private page set (the gather copied the old pages out, so
+        # releasing them first lets the allocator hand them back)
+        new_len = length - n_discard
+        self.page_alloc.release(self._slot_pages[slot])
+        self._slot_pages[slot] = []
+        newp = self.page_alloc.alloc(-(-new_len // self.page_size))
+        if newp is None:
+            raise RuntimeError("KV page pool exhausted during context shift")
+        self._slot_pages[slot] = list(newp)
+        self._set_table(slot, 0, newp + [0] * (self._table_np.shape[1] - len(newp)))
+        row = cache.table[slot:slot + 1]
+        for pool, dense in ((cache.k, temp.k), (cache.v, temp.v), (cache.k_scale, temp.k_scale),
+                            (cache.v_scale, temp.v_scale)):
+            if pool is not None:
+                for i in range(L):
+                    scatter_layer(pool[i], row, dense[i])
+        cache.lengths[slot] = new_len
+
+
+def _to_device(a: np.ndarray, device) -> torch.Tensor:
+    """A copy of a host array on `device`.  For the card it goes through
+    pinned memory and an asynchronous copy, so the host does not wait for
+    the work queued before it (the pinned buffer is not reused until the
+    copy has run)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type != "cuda":
+        return t.clone()
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def _to_pinned(t: torch.Tensor) -> torch.Tensor:

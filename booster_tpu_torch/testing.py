@@ -9,7 +9,9 @@ Q8_0) needs a few hundred MB of host memory.
 shows (bf16 or int8 cache), ``decode_attn_mutants`` the inputs of such wrong
 kernels, and ``decode_attn_limit`` the kernel's per-element limit against
 its plain version; ``prefill_attn_case``, ``prefill_attn_mutants`` and
-``prefill_attn_limit`` do the same for chunked-prefill attention.
+``prefill_attn_limit`` do the same for chunked-prefill attention, and
+``paged_attn_case``, ``paged_attn_mutants`` and ``paged_attn_limit`` for
+paged decode attention.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 from booster_tpu_torch.gguf import GGMLType, GGUFWriter
 from booster_tpu_torch.ops.decode_attention import decode_attn_plain
 from booster_tpu_torch.ops.kv_cache import _quantize_kv
+from booster_tpu_torch.ops.paged_attention import paged_attn_plain
 from booster_tpu_torch.ops.prefill_attention import prefill_attn_plain
 from booster_tpu_torch.quant import quantize
 from booster_tpu_torch.tokenizer.vocab import TokenType
@@ -299,4 +302,105 @@ def prefill_attn_limit(args: tuple) -> torch.Tensor:
     q, k, v, ks, vs, pos0, lens, win, softcap = args
     want = prefill_attn_plain(*args)
     pv_abs = prefill_attn_plain(q, k, v.abs(), ks, vs, pos0, lens, win, softcap)
+    return 2 ** -8 * 1.01 * pv_abs + 1e-5 * want.abs().max()
+
+
+def paged_attn_case(L: int, B: int, Hkv: int, G: int, P: int, maxp: int, D: int, Dc: int,
+                    lens: list, device, seed: int = 0, quantized: bool = False,
+                    shared: int = 0, win: int = 0, softcap: float = 0.0) -> tuple:
+    """Positional arguments of ``ops.paged_attention.paged_attn`` over layer
+    L - 1 of a [L, Np, Hkv, P, Dc] pool (head dim D, zero pad lanes, the
+    other layers zero), every slot's new token live.  Each slot's pages are
+    scattered over the pool in no order (page 0, the scratch page, backs
+    table entries past its length), and slots 1 .. shared - 1 map slot 0's
+    first two pages as their own, as a shared prompt prefix is mapped.
+    With `quantized` the pool is int8 with its scales last.  `win` 0 means
+    no window.
+
+    As in ``decode_attn_case``, the self key is 6·Σ_g q_g and the keys of
+    columns 0, lens - 1 and lens are 4·Σ_g q_g, so a kernel that reads a
+    wrong page, a wrong row of the right page or the wrong page's scales
+    moves the output."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    bf = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(*shape, device=device, generator=gen)
+
+    n_own = [-(-n // P) if b == 0 or b >= shared else max(-(-n // P) - 2, 0)
+             for b, n in enumerate(lens)]
+    Np = 1 + sum(n_own)
+    perm = (1 + rng.permutation(Np - 1)).tolist()
+    table = np.zeros((B, maxp), np.int32)
+    for b in range(B):
+        row = table[0, :2].tolist() if 0 < b < shared else []
+        row += [perm.pop() for _ in range(n_own[b])]
+        table[b, :len(row)] = row
+    layer = L - 1
+    kc = torch.zeros(L, Np, Hkv, P, Dc, device=device, dtype=bf)
+    vc = torch.zeros_like(kc)
+    kc[layer, ..., :D] = randn(Np, Hkv, P, D).to(bf)
+    vc[layer, ..., :D] = randn(Np, Hkv, P, D).to(bf)
+    q = torch.zeros(B, Hkv, G, Dc, device=device, dtype=bf)
+    q[..., :D] = (randn(B, Hkv, G, D) * D ** -0.5).to(bf)
+    qsum = q.float().sum(2)  # [B, Hkv, Dc]
+    sk = (6 * qsum).to(bf)
+    sv = torch.zeros_like(sk)
+    sv[..., :D] = randn(B, Hkv, D).to(bf)
+    for b, n in enumerate(lens):
+        for c in {0, n - 1, n}:
+            if 0 <= c < maxp * P and (c >= 2 * P or not 0 < b < shared):
+                kc[layer, int(table[b, c // P]), :, c % P] = (4 * qsum[b]).to(bf)
+    table_t = torch.from_numpy(table).to(device)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=device)
+    ok = torch.ones(B, dtype=torch.int32, device=device)
+    args = (q, kc, vc, table_t, layer, lens_t, win or maxp * P + 1, softcap, sk, sv, ok)
+    if not quantized:
+        return args
+    kq, vq = torch.zeros(kc.shape, dtype=torch.int8, device=device), \
+        torch.zeros(vc.shape, dtype=torch.int8, device=device)
+    ks, vs = torch.zeros(kc.shape[:-1] + (1,), device=device), \
+        torch.zeros(vc.shape[:-1] + (1,), device=device)
+    kq[layer], ks[layer] = _quantize_kv(kc[layer])
+    vq[layer], vs[layer] = _quantize_kv(vc[layer])
+    return (q, kq, vq, *args[3:], ks, vs)
+
+
+def paged_attn_mutants(args: tuple) -> dict:
+    """``paged_attn`` arguments that make the plain version compute what
+    wrong kernels would on ``args``: the table ignored (slot b's pages taken
+    as the contiguous run from 1 + b·MAXP), every page read one physical
+    page off, the in-page row ignored (each column reads its page's first
+    row), and for an int8 pool each page's scales taken from the next page."""
+    q, kc, vc, table, layer, *rest = args
+    Np, MAXP = kc.shape[1], table.shape[1]
+    B = table.shape[0]
+    contiguous = (1 + torch.arange(B * MAXP, device=table.device).reshape(B, MAXP)) % Np
+
+    def first_row(t):  # the layer's pool with every row of a page equal to its first
+        return t[layer:layer + 1, :, :, :1].expand(1, *t.shape[1:])
+
+    out = {
+        "table ignored": (q, kc, vc, contiguous.to(table.dtype), layer, *rest),
+        "off-by-one page": (q, kc, vc, (table + 1) % Np, layer, *rest),
+        "in-page offset ignored": (q, first_row(kc), first_row(vc), table, 0, *rest[:6],
+                                   *(first_row(t) for t in rest[6:])),
+    }
+    if len(rest) > 6:
+        ks, vs = rest[6:]
+        out["scales from the wrong page"] = (q, kc, vc, table, layer, *rest[:6],
+                                             torch.roll(ks, -1, 1), torch.roll(vs, -1, 1))
+    return out
+
+
+def paged_attn_limit(args: tuple) -> torch.Tensor:
+    """Per-element limit of |kernel - plain| for ``paged_attn(*args)``: the
+    bound of decode_attn_limit over the slots' valid columns,
+    2^-8·Σ_j p_j·|v_j| / l (+1 %, the int8 v scale in the weight), plus 1e-5
+    of the largest output."""
+    q, kc, vc, table, layer, lens, win, softcap, sk, sv, ok, *scales = args
+    want = paged_attn_plain(*args)
+    pv_abs = paged_attn_plain(q, kc, vc.abs(), table, layer, lens, win, softcap, sk,
+                              torch.zeros_like(sv), ok, *scales)
     return 2 ** -8 * 1.01 * pv_abs + 1e-5 * want.abs().max()

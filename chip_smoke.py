@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (booster_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases build,kernels,parity,generate,batch,generate_q8,batch_q8]
+    python3 chip_smoke.py [--phases build,kernels,parity,generate,batch,generate_q8,batch_q8,server]
 
 Phases, each printing one JSON line with its seconds:
 
@@ -18,13 +18,21 @@ Phases, each printing one JSON line with its seconds:
    cache lane: the same attention kernels and appends, prefill at T = 32;
    the i8t matmul at M = 1 (group-dot) and M = 64 / 2048 (tensor-core
    dequant), the i8t gate-up at M = 2048 and the whole-MLP kernel at
-   M = 1, 16 and 64 on a 32-layer stack through the layer view).  Fused
+   M = 1, 16 and 64 on a 32-layer stack through the layer view), and the
+   paged kernels at the server phase's layout (the 7B model's 32 layers,
+   pages of 256 rows, 64 slots of up to 16 pages whose pages lie scattered,
+   slots 0-15 sharing their first two): paged decode attention over a bf16
+   and an int8 pool, with and without the self term, with a window and a
+   softcap, and the paged all-layer append, bit-exact off the scratch
+   page 0 (offsets on a page boundary and past the table included).  Fused
    kernels are held against the unfused kernels bit for bit: the gate-ups
    against qmm + silu·mul, the MLP against the i8t gate-up (its dequant
    form) + silu·mul + the dequant matmul.  Each attention check must see the
    wrong kernels of booster_tpu_torch.testing (a dropped self term, a missed
    last column, a column read past the end, ignored v scales, and at head
-   dim 128 ignored lanes 64-127) at 8x its limit.  Median times of kernel,
+   dim 128 ignored lanes 64-127; for the paged kernel the table ignored, a
+   page off by one, the in-page row ignored and the scales of the wrong
+   page) at 8x its limit.  Median times of kernel,
    plain version and one library call (the yardstick), each call after an
    L2 scrub (cold, as on the decode path), and the kernel's time warm.
 3. parity — 2-layer models on the CPU (plain versions) and on the card
@@ -33,7 +41,10 @@ Phases, each printing one JSON line with its seconds:
    the batched path: bf16 weights, int8 cache, 4 slots of which 2 are live,
    prefill, then 16 decode steps; (c) the 7B width, Q8_0 (native i8t): the
    batched path over an int8 cache (4 slots, 2 live, T = 32 prompts) and
-   the single-stream path over a bf16 cache, 8 decode steps each.  The
+   the single-stream path over a bf16 cache, 8 decode steps each; (d) the
+   same model over the server's paged pool (``Engine(paged=True,
+   page_size=256)``, its allocator giving the pages), an int8 pool and a
+   bf16 one, 4 slots of which 2 live, 8 decode steps.  The
    live slots' logits agree within the stated tolerance at every step, and
    the greedy tokens wherever the CPU's top-2 margin exceeds it.
 4. generate — the full 22-layer TinyLlama-shaped Q4_0 GGUF (random weights
@@ -79,10 +90,32 @@ Phases, each printing one JSON line with its seconds:
    the lm head over the 64 gathered rows), 32 i8t gate-ups and 32 prefill
    attentions; no 4-bit kernel.  It prints the same figures as phase 5 and
    the peak device memory.
+8. server — ``python -m booster_tpu_torch --server --paged-kv --kv-quant
+   --slots 64 --context 4K`` on the same model, through the port's own
+   ``serve`` on a thread (phase_server): warmup, one chat completion whose
+   system message fills two 256-row pages, then 64 requests at once (48
+   chat completions with that system message, 8 streamed as SSE, 4 Ollama
+   chats as NDJSON, 4 /jobs polled by GET, one cancelled while it runs),
+   every response checked.  Exact counts for those 64, derived from the
+   reference's gates: a paged pool with P % 128 == 0 takes the stacked
+   paged decode (llama.py:63-68) with the deferred append always on
+   (:705-707), whose attention is the merged paged kernel
+   (pallas_paged_attention.py:673) once per layer and whose append is
+   kv_append_all_layers_paged once per step (:799-814); a paged prefill
+   writes through the table and attends over gathered views, with no
+   kernel (:439-459, fused prefill off for pools :666-670).  So 32 int8
+   paged attentions and one int8 paged append per decode step (chunks
+   dispatched x 8 steps), and no dense decode attention, dense append or
+   prefill attention.  It prints aggregate and per-stream tok/s, TTFT and
+   latency percentiles, /health, the pages in use at the peak, the peak
+   device memory, whether a decode dispatch made the host wait (torch's
+   sync check, which must find none), and (one more round of the 64 under
+   torch.profiler) the device busy share and the top kernels.
 
 Then one ``{"kernels": [...]}`` line (each kernel's launches are those of
 the path that runs it: generate / generate_q8 for the M = 1 kernels and
-bf16-cache attention, batch / batch_q8 for the int8 ones) and, last,
+bf16-cache attention, batch / batch_q8 for the int8 ones, server for the
+paged ones; the bf16-pool paged forms launch no time there) and, last,
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout of
 the repository, it exits non-zero and prints no result.
 """
@@ -102,7 +135,8 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core rate, NVIDIA data sheet
 SCRUB_BYTES = 200 << 20  # 4x the H100's 50 MB L2: read between timed calls
-PHASES = ("build", "kernels", "parity", "generate", "batch", "generate_q8", "batch_q8")
+PHASES = ("build", "kernels", "parity", "generate", "batch", "generate_q8", "batch_q8",
+          "server")
 
 # TinyLlama-1.1B (config 1 of bench.py), Q4_0
 TINYLLAMA = dict(vocab_size=32000, hidden=2048, heads=32, kv_heads=4, ff=5632,
@@ -139,6 +173,11 @@ CHECKS = {
     "prefill": "|kernel - plain| <= 2^-8 * 1.01 * (sum_j p_j |vs_j v_j|) / l "
                "+ 1e-5 max|plain| per element; each of four wrong kernels exceeds it 8x",
     "append_i8": "exact (payload and scales)",
+    # the paged forms: decode attention's bound over the valid columns read
+    # through the table; must see four wrong kernels (table ignored, a page
+    # off by one, the in-page row ignored, the scales of the wrong page) 8x
+    "paged_attention": "|kernel - plain| <= 2^-8 * 1.01 * (sum_j p_j |vs_j v_j|) / l "
+                       "+ 1e-5 max|plain| per element; each wrong kernel exceeds it 8x",
     # the i8t gate-up at M = 2048 (29 M outputs): g and u may both round
     # the other way, each by one bf16 ulp (up to 2^-7 of itself), and the
     # two later roundings (of g·sg and of the product) move up to 2^-8 each
@@ -338,13 +377,16 @@ def phase_kernels(entries: list) -> dict:
     for lay in (TINY_ATTN, MISTRAL_ATTN):
         _bf16_attn_kernels(entries, failures, lay)
         _int8_kernels(entries, failures, lay)
+    paged_checks: dict = {}
+    _paged_kernels(entries, failures, paged_checks)
     _i8t_kernels(entries, failures)
     _scrub_buf.clear()
     torch.cuda.empty_cache()
     if failures:
         raise AssertionError("kernel checks failed: " + "; ".join(failures))
     return {"phase": "kernels", "seconds": time.perf_counter() - t0,
-            "checks": {e["name"] + " " + e["shape"]: e["max_abs_err"] for e in entries}}
+            "checks": {e["name"] + " " + e["shape"]: e["max_abs_err"] for e in entries},
+            "paged_checks": paged_checks}
 
 
 def _bf16_attn_kernels(entries: list, failures: list, lay: dict) -> None:
@@ -416,6 +458,12 @@ def _bf16_attn_kernels(entries: list, failures: list, lay: dict) -> None:
     ms = timed(lambda: ka.kv_append(k1, v1, nk, nv, off))
     warm_ms = timed(lambda: ka.kv_append(k1, v1, nk, nv, off), cold=False)
     plain_ms = timed(lambda: ka.kv_append_plain(k2, v2, nk, nv, off))
+    # yardstick: the same rows written by torch's indexing assignment
+    idx = (torch.arange(L, device="cuda")[:, None], torch.zeros(1, 1, dtype=torch.long,
+                                                                 device="cuda"),
+           torch.arange(Hkv, device="cuda")[None, :], off.long().expand(1, 1))
+    nk_pad, nv_pad = F.pad(nk[:, 0], (0, Dc - D)), F.pad(nv[:, 0], (0, Dc - D))
+    lib_ms = timed(lambda: (k2.index_put_(idx, nk_pad), v2.index_put_(idx, nv_pad)))
     # the new rows read and written at the head dim D (the pad lanes of the
     # cache are zero already); the Dc figure writes the padded rows
     b_ms, b_by = bound(2 * L * Hkv * 2 * D * 2, 0)
@@ -427,7 +475,8 @@ def _bf16_attn_kernels(entries: list, failures: list, lay: dict) -> None:
         "max_abs_err": err, "ms": ms, "warm_ms": warm_ms, "plain_ms": plain_ms,
         "bound_ms": b_ms, "bound_by": b_by,
         "bound_ms_at_Dc": bound(2 * L * Hkv * (D + Dc) * 2, 0)[0],
-        "library_ms": None, "check": CHECKS["append"]})
+        "library_ms": lib_ms, "library": "index_put_ of the padded rows into k and v",
+        "check": CHECKS["append"]})
     del args, kc, vc, k1, v1, k2, v2, kcat, vcat
     torch.cuda.empty_cache()
 
@@ -585,6 +634,170 @@ def _int8_kernels(entries: list, failures: list, lay: dict) -> None:
                        "pre-dequantized bf16 copy",
             "check": CHECKS["prefill"]})
         del args, q, k, v, ks, vs, kd, vd, mask
+        torch.cuda.empty_cache()
+
+
+def _paged_kernels(entries: list, failures: list, checks: dict) -> None:
+    """Paged decode attention and the paged all-layer append at the server
+    path's layout: the 7B model's 32 layers of 8 kv heads (G = 4, head dim
+    128), pages of 256 rows, 64 slots of up to 16 pages (4096 rows).  The
+    slots' pages lie scattered over the pool, slots 0-15 share their first
+    two pages, and the lengths end mid-page, on a page boundary, at one row
+    and at the full 4096 (``booster_tpu_torch.testing.paged_attn_case``).
+    Attention over a bf16 and an int8 pool, with and without the self term,
+    and with a window and a softcap, each held against its plain version
+    within the limit of ``paged_attn_limit`` and against the wrong kernels of
+    ``paged_attn_mutants`` at 8x it; the append bit for bit against its plain
+    version on every page but the scratch page 0.  The untimed cases'
+    results go to `checks`."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from booster_tpu_torch.ops import kv_append as ka
+    from booster_tpu_torch.ops import paged_attention as pa
+    from booster_tpu_torch.ops.decode_attention import self_row
+    from booster_tpu_torch.ops.paged_kv import gather_layer, paged_append_all_layers
+    from booster_tpu_torch.testing import (paged_attn_case, paged_attn_limit,
+                                           paged_attn_mutants)
+
+    L, Hkv, G, D, P, B, MAXP = 32, 8, 4, 128, 256, 64, 16
+    rng = np.random.default_rng(4)
+    lens = ([600 + 53 * i for i in range(16)]  # the slots that share two pages
+            + [1, 256, 512, 4096, 300, 255, 257, 1000, 2047, 700, 128, 2, 3000, 768, 511, 1025]
+            + [int(x) for x in rng.integers(1, MAXP * P + 1, B - 32)])
+    # and the lengths of the server phase's decode: 56 slots 630-740 long
+    # that share their first two pages (one system message), 8 short ones
+    server_lens = [630 + 2 * i for i in range(56)] + [20 + 20 * i for i in range(8)]
+    src = "booster_tpu_torch/csrc/decode_attn.cu"
+    cases = (("int8 self", lens, 16, True, True, 0, 0.0),
+             ("bf16 self", lens, 16, False, True, 0, 0.0),
+             ("int8 self server lengths", server_lens, 56, True, True, 0, 0.0),
+             ("int8 no-self", lens, 16, True, False, 0, 0.0),
+             ("bf16 no-self", lens, 16, False, False, 0, 0.0),
+             ("int8 window 300 softcap 30", lens, 16, True, True, 300, 30.0))
+    for label, lens, shared, quant, with_self, win, softcap in cases:
+        args = paged_attn_case(L, B, Hkv, G, P, MAXP, D, D, lens, "cuda", seed=5, quantized=quant,
+                               shared=shared, win=win, softcap=softcap)
+        if not with_self:
+            args = (*args[:8], None, None, None, *args[11:])
+        name = "paged_attn_i8" if quant else "paged_attn"
+
+        def limit(a):
+            if a[8] is None:  # no self term: the limit of the case with it dropped
+                return paged_attn_limit((*a[:8], torch.zeros_like(q_self), torch.zeros_like(q_self),
+                                         torch.zeros_like(ok0), *a[11:]))
+            return paged_attn_limit(a)
+
+        q_self = torch.zeros(B, Hkv, D, dtype=torch.bfloat16, device="cuda")
+        ok0 = torch.zeros(B, dtype=torch.int32, device="cuda")
+        err, share, seen = _attn_check(f"{name} {label}", pa.paged_attn, pa.paged_attn_plain,
+                                       args, limit, paged_attn_mutants, failures)
+        if "no-self" in label or "window" in label:  # the path's forms are timed
+            checks[f"{name} {label}"] = {"max_abs_err": err, "max_err_of_limit": share,
+                                         "min_wrong_kernel_of_limit": seen}
+            del args
+            continue
+        ms = timed(lambda: pa.paged_attn(*args))
+        warm_ms = timed(lambda: pa.paged_attn(*args), cold=False)
+        plain_ms = timed(lambda: pa.paged_attn_plain(*args), reps=3, trials=3)
+        q, kc, vc, table, layer, lens_t, _, _, sk, sv, _, *scales = args
+        # yardstick: SDPA over the gathered bf16 (dequantized) K/V of the
+        # layer and the self row, the invalid columns masked
+        hi = max(lens) + 1
+
+        def view(pool):  # the layer's slot-dense view and one more column
+            return F.pad(gather_layer(pool[layer], table).float(), (0, 0, 0, 1))[:, :, :hi]
+
+        kd, vd = view(kc), view(vc)
+        if quant:
+            kd, vd = kd * view(scales[0]), vd * view(scales[1])
+        col = torch.arange(hi, device="cuda")
+        kd[torch.arange(B), :, lens_t.long()] = self_row(sk, quant)
+        vd[torch.arange(B), :, lens_t.long()] = self_row(sv, quant)
+        mask = (col[None] <= lens_t[:, None])[:, None, None, :]
+        kx = kd[..., :D].to(torch.bfloat16).repeat_interleave(G, 1)
+        vx = vd[..., :D].to(torch.bfloat16).repeat_interleave(G, 1)
+        qs = q[..., :D].reshape(B, Hkv * G, 1, D).contiguous()
+        del kd, vd
+        lib_ms = timed(lambda: F.scaled_dot_product_attention(qs, kx, vx, attn_mask=mask,
+                                                              scale=1.0))
+        cols = sum(lens)  # every cache column is valid (no window)
+        per_col = 2 * D * (1 if quant else 2) + (8 if quant else 0)
+        nbytes = (B * Hkv * G * D * 2 + Hkv * cols * per_col + 2 * B * Hkv * D * 2
+                  + B * Hkv * G * D * 4)
+        b_ms, b_by = bound(nbytes, 4 * Hkv * G * (cols + B) * D)
+        entries.append({
+            "name": name, "shape": f"7B L={L} B={B} Hkv={Hkv} G={G} P={P} MAXP={MAXP} D={D} "
+                                   f"{label} cols={cols}",
+            "key": (name, None), "path": "server", "route": "cuda", "source": src,
+            "replaces": "booster_tpu/ops/pallas_paged_attention.py:348",
+            "max_abs_err": err, "max_err_of_limit": share, "min_wrong_kernel_of_limit": seen,
+            "ms": ms, "warm_ms": warm_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "bound_note": "the valid columns counted once per slot; pages "
+                                            "that slots share are read by each (some from L2)",
+            "library_ms": lib_ms,
+            "library": "scaled_dot_product_attention with a boolean mask over the gathered, "
+                       "dequantized bf16 K/V",
+            "check": CHECKS["paged_attention"]})
+        del args, q, kc, vc, table, kx, vx, qs, mask, scales
+        torch.cuda.empty_cache()
+
+    # the paged all-layer append of one step: each slot's target page lies
+    # scattered in the pool, offsets on a page boundary, mid-page, on a
+    # page's last row, and one past the table (to the scratch page 0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    Np = 1 + B
+    target = torch.from_numpy(1 + rng.permutation(B)).to("cuda", torch.int32)
+    off = torch.tensor([P * (b % MAXP) + (0, 137, P - 1, 5)[b % 4] for b in range(B)],
+                       dtype=torch.int32, device="cuda")
+    off[B - 1] = MAXP * P + 5
+    table = torch.zeros(B, MAXP, dtype=torch.int32, device="cuda")
+    table[torch.arange(B), (off.long() // P).clamp_max(MAXP - 1)] = target
+    nk = (torch.randn(L, B, Hkv, D, device="cuda", generator=gen) * 2).to(torch.bfloat16)
+    nv = (torch.randn(L, B, Hkv, D, device="cuda", generator=gen) * 2).to(torch.bfloat16)
+    nk[0, 0, 0] = 0  # a zero row
+    for quant in (False, True):
+        dt = torch.int8 if quant else torch.bfloat16
+        pools = [[torch.zeros(L, Np, Hkv, P, D, dtype=dt, device="cuda") for _ in range(2)]
+                 + ([torch.zeros(L, Np, Hkv, P, 1, device="cuda") for _ in range(2)] if quant
+                    else [None, None]) for _ in range(2)]
+        ka.kv_append_all_layers_paged(pools[0][0], pools[0][1], nk, nv, off, table,
+                                      pools[0][2], pools[0][3])
+        paged_append_all_layers(pools[1][0], pools[1][1], nk, nv, off, table, pools[1][2],
+                                pools[1][3])
+        exact = all(torch.equal(a[:, 1:], b[:, 1:]) for a, b in zip(*pools) if a is not None)
+        wrote = bool(pools[0][0][:, 1:].abs().sum() > 0)
+        name = "kv_append_paged_i8" if quant else "kv_append_paged"
+        if not (exact and wrote):
+            failures.append(f"{name}: differs from the plain version off the scratch page")
+        k1, v1, ks1, vs1 = pools[0]
+        ms = timed(lambda: ka.kv_append_all_layers_paged(k1, v1, nk, nv, off, table, ks1, vs1))
+        warm_ms = timed(lambda: ka.kv_append_all_layers_paged(k1, v1, nk, nv, off, table, ks1,
+                                                              vs1), cold=False)
+        k2, v2, ks2, vs2 = pools[1]
+        plain_ms = timed(lambda: paged_append_all_layers(k2, v2, nk, nv, off, table, ks2, vs2))
+        lib_ms = None
+        if not quant:  # yardstick: torch's indexing assignment of the same rows
+            lp = off.long() // P
+            page = torch.where(lp < MAXP, table.long()[torch.arange(B), lp.clamp_max(MAXP - 1)], 0)
+            o = torch.where(lp < MAXP, off.long() % P, 0)
+            idx = (torch.arange(L, device="cuda")[:, None, None], page[None, :, None],
+                   torch.arange(Hkv, device="cuda")[None, None, :], o[None, :, None])
+            lib_ms = timed(lambda: (k2.index_put_(idx, nk), v2.index_put_(idx, nv)))
+        rows = L * B * Hkv
+        b_ms, b_by = bound(2 * rows * D * 2 + 2 * rows * (D + 4 if quant else 2 * D), 0)
+        entries.append({
+            "name": name, "shape": f"7B L={L} B={B} H={Hkv} P={P} MAXP={MAXP} d={D}",
+            "key": (name, None), "path": "server", "route": "cuda",
+            "source": "booster_tpu_torch/csrc/kv_append.cu",
+            "replaces": "booster_tpu/ops/pallas_kv.py:" + ("415" if quant else "447"),
+            "max_abs_err": 0.0 if exact else None, "ms": ms, "warm_ms": warm_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "library": "index_put_ of the rows into the pool's k and v" if not quant else None,
+            "check": CHECKS["append_i8" if quant else "append"] + " (page 0 excluded)"})
+        del pools, k1, v1, ks1, vs1, k2, v2, ks2, vs2
         torch.cuda.empty_cache()
 
 
@@ -860,6 +1073,29 @@ def phase_parity() -> dict:
               for dev in models}
     got, want = _teacher_forced(models, caches, [ids], 16, [True], steps=8)
     out["q8_0_7b_width_bf16_cache_1_slot"] = _compare_logits("q8_0 single", got, want, tol)
+    # (d) the same model over the server path's paged pool: an Engine with
+    # pages of 256 rows (the paged prefill through gathered views, then the
+    # paged decode kernels), 4 slots of which 2 live, their pages given by
+    # the engine's allocator (slot 2 first); an int8 pool, then a bf16 one
+    from booster_tpu_torch.serving import Engine
+
+    for quant in (True, False):
+        caches = {}
+        for dev, m in models.items():
+            eng = Engine(m, max_batch=4, max_seq=512, kv_quantized=quant, paged=True,
+                         page_size=256)
+            eng.init_batch_state()
+            for s_ in (2, 0):
+                eng.ensure_slot_pages(s_, T + 8)
+            caches[dev] = eng.cache
+        got, want = _teacher_forced(models, caches, prompts, T, [True, False, True, False],
+                                    steps=8)
+        key = f"q8_0_7b_width_paged_{'int8' if quant else 'bf16'}_pool_4_slots_2_live"
+        out[key] = _compare_logits(key, got, want, tol)
+        lengths = [caches[dev].lengths.tolist() for dev in ("cpu", "cuda")]
+        expect = [len(prompts[0]) + 8, 0, len(prompts[2]) + 8, 0]
+        if lengths != [expect, expect]:
+            raise AssertionError(f"parity paged: cache lengths {lengths} != {expect}")
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -1119,6 +1355,294 @@ def phase_batch(layers: int, q8: bool = False) -> dict:
             "_shape_counts": shape_counts}
 
 
+# -- phase 8 -----------------------------------------------------------------
+
+# a system message of a little over 600 tokens of the synthetic vocabulary,
+# so that a prompt that starts with it fills two full 256-row pages
+SYSTEM = ("You are the helpful assistant of the hello world company. Answer in the order "
+          "of the questions and the end of each answer is a short summary. ") * 6
+
+
+def _request(port: int, method: str, path: str, body=None, timeout: float = 600.0) -> dict:
+    """One HTTP request from a fresh connection: status, the parsed body (a
+    JSON object, or the list of SSE/NDJSON records of a stream), the latency
+    and, for a stream, the time to its first piece of content."""
+    import http.client
+
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=None if body is None else json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        out = {"status": resp.status, "ttft_s": None}
+        if resp.getheader("Transfer-Encoding") == "chunked":
+            records = []
+            while True:
+                line = resp.readline()
+                if not line:
+                    break
+                line = line.decode().strip()
+                if not line:
+                    continue
+                rec = line[6:] if line.startswith("data: ") else line
+                rec = rec if rec == "[DONE]" else json.loads(rec)
+                content = (rec["choices"][0]["delta"].get("content") if "choices" in rec
+                           else rec.get("message", {}).get("content")) if rec != "[DONE]" else None
+                if content and out["ttft_s"] is None:
+                    out["ttft_s"] = time.perf_counter() - t0
+                records.append(rec)
+            out["body"] = records
+        else:
+            out["body"] = json.loads(resp.read())
+        out["latency_s"] = time.perf_counter() - t0
+        return out
+    finally:
+        conn.close()
+
+
+def _server_traffic(port: int, tag: str) -> dict:
+    """Step 2 of the server phase: 64 requests at once from client threads
+    (48 OpenAI chat completions that share the system message, 8 streamed
+    ones (SSE) with it, 4 streamed Ollama chats (NDJSON), 4 /jobs polled by
+    GET, one of them cancelled while it runs); every response is checked.
+    Returns the responses and the wall time."""
+    import threading
+    import uuid
+    from concurrent.futures import ThreadPoolExecutor
+
+    sampling = {"temperature": 0.8, "top_k": 40}
+    start = threading.Barrier(64)
+
+    def chat(i, stream):
+        question = f"{tag} question {i}: what is {i} and {i}?"
+        body = {"messages": [{"role": "system", "content": SYSTEM},
+                             {"role": "user", "content": question}],
+                "max_tokens": 128, "seed": i, "stream": stream, **sampling}
+        start.wait()
+        r = _request(port, "POST", "/v1/chat/completions", body)
+        if r["status"] != 200:
+            raise AssertionError(f"chat {i}: status {r['status']}")
+        if stream:
+            recs = r["body"]
+            if recs[-1] != "[DONE]" or recs[-2]["choices"][0]["delta"] != {}:
+                raise AssertionError(f"chat stream {i}: bad end {recs[-2:]}")
+            r["finish_reason"] = recs[-2]["choices"][0]["finish_reason"]
+            r["text"] = "".join(x["choices"][0]["delta"].get("content", "") for x in recs[:-1])
+        else:
+            b = r["body"]
+            if (b["object"] != "chat.completion"
+                    or b["choices"][0]["message"]["role"] != "assistant"):
+                raise AssertionError(f"chat {i}: bad body {b}")
+            r["finish_reason"] = b["choices"][0]["finish_reason"]
+            r["completion_tokens"] = b["usage"]["completion_tokens"]
+            if not 1 <= r["completion_tokens"] <= 128:
+                raise AssertionError(f"chat {i}: {r['completion_tokens']} tokens")
+        r["kind"] = "sse" if stream else "chat"
+        return r
+
+    def ollama(i):
+        body = {"messages": [{"role": "user", "content": f"{tag} ollama {i}: hello world"}],
+                "options": {**sampling, "seed": i, "num_predict": 128}}
+        start.wait()
+        r = _request(port, "POST", "/api/chat", body)
+        recs = r["body"]
+        if r["status"] != 200 or recs[-1]["done"] is not True or any(x["done"] for x in recs[:-1]):
+            raise AssertionError(f"ollama {i}: status {r['status']}, bad stream end")
+        r["finish_reason"] = recs[-1]["done_reason"]
+        r["kind"] = "ndjson"
+        return r
+
+    def job(i, cancel):
+        jid = str(uuid.uuid4())
+        start.wait()
+        t0 = time.perf_counter()
+        r = _request(port, "POST", "/jobs", {"id": jid, "prompt": f"{tag} job {i}: the end",
+                                             "max_tokens": 128, "sampling": {**sampling,
+                                                                             "seed": i}})
+        if r["status"] != 201 or r["body"]["status"] != "queued":
+            raise AssertionError(f"job {i}: {r}")
+        cancelled = False
+        while True:
+            g = _request(port, "GET", f"/jobs/{jid}")
+            b = g["body"]
+            if g["status"] != 200:
+                raise AssertionError(f"job {i}: GET status {g['status']}")
+            if cancel and not cancelled and b["status"] == "processing" \
+                    and b["completion_tokens"] >= 1:
+                d = _request(port, "DELETE", f"/jobs/{jid}")
+                if d["status"] != 200 or d["body"] != {"status": "stopped"}:
+                    raise AssertionError(f"job {i}: DELETE {d}")
+                cancelled = True
+            if b["status"] in ("finished", "stopped"):
+                break
+            time.sleep(0.05)
+        want = ("stopped", "cancelled") if cancel else ("finished", None)
+        if b["status"] != want[0] or (cancel and b["finish_reason"] != want[1]):
+            raise AssertionError(f"job {i}: ended {b['status']} / {b['finish_reason']}")
+        return {"kind": "job", "status": 200, "latency_s": time.perf_counter() - t0,
+                "finish_reason": b["finish_reason"], "completion_tokens": b["completion_tokens"],
+                "cancelled": cancel, "ttft_s": None}
+
+    calls = ([(chat, i, False) for i in range(48)] + [(chat, 48 + i, True) for i in range(8)]
+             + [(ollama, 56 + i) for i in range(4)] + [(job, 60 + i, i == 0) for i in range(4)])
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=64) as pool:
+        futs = [pool.submit(*c) for c in calls]
+        results = [f.result(timeout=900) for f in futs]
+    wall = time.perf_counter() - t0
+    for r in results:
+        ok = ("stopped", "cancelled") if r.get("cancelled") else ("stop", "length")
+        if r["finish_reason"] not in ok:
+            raise AssertionError(f"{r['kind']}: finish_reason {r['finish_reason']}")
+    return {"results": results, "wall_s": wall}
+
+
+def phase_server() -> dict:
+    """The HTTP server of ``python -m booster_tpu_torch --server --paged-kv
+    --kv-quant --slots 64`` on config 3's model, through the port's own
+    ``serve`` (on a thread of its own, ``ServerThread``), with the CLI's
+    default sampling and limits: a paged int8 pool of 256-row pages at a
+    4096-token context, decode chunks of 8 steps.  ``warmup`` first; then
+    one chat completion whose system message fills two pages (its pages are
+    published when it finishes), then 64 requests at once (_server_traffic).
+    The launch counts are reset just before those 64 and read when the
+    scheduler is idle again: each decode step of each dispatched chunk
+    launches 32 paged attentions and one paged append, and nothing launches
+    the dense decode attention, the dense appends or the prefill attention
+    kernel (a paged prefill attends over views gathered from the pool).  The
+    decode dispatches run with torch's synchronization check on: a dispatch
+    that made the host wait for the device would show as a host sync."""
+    import threading
+    import warnings
+
+    import torch
+
+    from booster_tpu_torch.ops import kernels
+    from booster_tpu_torch.serving import Engine
+    from booster_tpu_torch.serving.config import build_arg_parser, config_from_args
+    from booster_tpu_torch.serving.scheduler import Scheduler
+    from booster_tpu_torch.serving.server import ServerThread
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model, _, _ = _q8_model()
+    n_sys = len(model.tokenizer.encode(SYSTEM))
+    if not 2 * 256 < n_sys < 3 * 256:
+        raise AssertionError(f"the system message is {n_sys} tokens, not two pages and some")
+    # the CLI's defaults: `--server --paged-kv --kv-quant --slots 64 --context 4K`
+    cfg = config_from_args(build_arg_parser().parse_args(
+        ["--server", "--paged-kv", "--kv-quant", "--slots", "64", "--context", "4K"]))
+    spec = cfg.models["default"]
+    eng = Engine(model, max_batch=64, max_seq=spec.context, kv_quantized=True, paged=True,
+                 page_size=256, decode_chunk=8)
+    t_w = time.perf_counter()
+    eng.warmup()
+    warmup_s = time.perf_counter() - t_w
+    sched = Scheduler(eng, prompt_spec=cfg.prompts["default"],
+                      default_sampling=cfg.samplings["default"],
+                      default_max_tokens=spec.predict, deadline_s=cfg.deadline)
+
+    # count the decode chunks, check each dispatch for host syncs, and note
+    # whether the previous chunk was still on the device when the next one
+    # had been enqueued (the pipelining of the scheduler)
+    dispatch = eng.decode_slots_start
+    stats = {"chunks": 0, "host_syncs": 0, "prev_chunk_busy": 0}
+    last = {}
+
+    def counted(slots, *a, **kw):
+        prev = last.get("event")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                handle = dispatch(slots, *a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        stats["host_syncs"] += sum("synchroniz" in str(w.message) for w in caught)
+        stats["chunks"] += 1
+        stats["prev_chunk_busy"] += int(prev is not None and not prev.query())
+        last["event"] = handle[-1]
+        return handle
+
+    eng.decode_slots_start = counted
+    srv = ServerThread(sched, cfg, model_name="mistral7b-shape-q8_0")
+    peak_pages = [0]
+    sampling_on = threading.Event()
+
+    def watch_pages():
+        while not sampling_on.wait(0.02):
+            peak_pages[0] = max(peak_pages[0], eng.page_alloc.n_pages - eng.page_alloc.n_free)
+
+    watcher = threading.Thread(target=watch_pages, daemon=True)
+    watcher.start()
+    try:
+        first = _request(srv.port, "POST", "/v1/chat/completions", {
+            "messages": [{"role": "system", "content": SYSTEM},
+                         {"role": "user", "content": "the first question"}],
+            "max_tokens": 128})
+        if first["status"] != 200 or not first["body"]["usage"]["completion_tokens"] <= 128:
+            raise AssertionError(f"the first request: {first}")
+
+        def idle():
+            for _ in range(600):
+                h = _request(srv.port, "GET", "/health")["body"]
+                if h["slots_busy"] == 0 and h["jobs_queued"] == 0:
+                    time.sleep(0.2)
+                    return h
+                time.sleep(0.1)
+            raise AssertionError("the scheduler did not become idle")
+
+        idle()
+        kernels.reset_counts()
+        stats.update(chunks=0, host_syncs=0, prev_chunk_busy=0)
+        run = _server_traffic(srv.port, "a")
+        health = idle()
+        counts = dict(kernels.launch_counts)
+        chunks = stats["chunks"]
+        measured = dict(stats)
+        steps = chunks * eng.decode_chunk
+        delivered = srv.call(lambda: sum(j.n_generated for j in list(sched.jobs.values())[-64:]))
+        expected = {"paged_attn_i8": 32 * steps, "kv_append_paged_i8": steps, "paged_attn": 0,
+                    "kv_append_paged": 0, "decode_attn_i8": 0, "decode_attn": 0,
+                    "kv_append_i8": 0, "kv_append": 0, "prefill_attn_i8": 0}
+        got = {k: counts[k] for k in expected}
+        if got != expected or steps == 0:
+            raise AssertionError(f"server: launch counts {got} != {expected} ({chunks} chunks)")
+        if measured["host_syncs"]:
+            raise AssertionError(f"server: {measured['host_syncs']} host syncs in "
+                                 f"{chunks} decode dispatches")
+        if health["slots_total"] != 64 or health["prefix_hits"] < 48:
+            raise AssertionError(f"server: /health {health}")
+        prof = _profile(lambda: _server_traffic(srv.port, "b"), steps=steps)
+        if prof["kernel_ms"] is not None:
+            prof["device_busy_share"] = prof["kernel_ms"] / (1e3 * run["wall_s"])
+    finally:
+        sampling_on.set()
+        srv.stop()
+        eng.decode_slots_start = dispatch
+    res = run["results"]
+    ttft = sorted(r["ttft_s"] for r in res if r["ttft_s"] is not None)
+    lat = sorted(r["latency_s"] for r in res)
+
+    def pct(xs, q):
+        return 1e3 * xs[min(len(xs) - 1, int(q * len(xs)))]
+
+    return {"phase": "server", "seconds": time.perf_counter() - t0, "warmup_s": warmup_s,
+            "system_message_tokens": n_sys, "requests": len(res), "step2_wall_s": run["wall_s"],
+            "tokens_delivered": delivered, "agg_tok_per_s": delivered / run["wall_s"],
+            "per_stream_tok_per_s": delivered / run["wall_s"] / 64,
+            "ttft_ms_p50_p99_streamed": [pct(ttft, 0.5), pct(ttft, 0.99)],
+            "latency_ms_p50_p99": [pct(lat, 0.5), pct(lat, 0.99)],
+            "health": health, "peak_pages_in_use": peak_pages[0], "n_pages": eng.n_pages,
+            "decode_chunks": chunks, "decode_steps": steps,
+            "dispatches_with_previous_chunk_still_running": measured["prev_chunk_busy"],
+            "host_syncs_in_dispatches": measured["host_syncs"],
+            "launches": counts, "expected_launches": expected,
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "first_request_ms": 1e3 * first["latency_s"], "profile": prof}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -1161,7 +1685,7 @@ def main(argv=None) -> int:
             failed.append(name)
             return None
 
-    if {"generate_q8", "batch_q8"} & set(phases):
+    if {"generate_q8", "batch_q8", "server"} & set(phases):
         _start_q8_gguf()
     try:
         return _run_phases(phases, run, entries, failed, t_all)
@@ -1200,6 +1724,11 @@ def _run_phases(phases, run, entries, failed, t_all) -> int:
                 path_counts[name] = res["launches"]
                 emit(res)
             torch.cuda.empty_cache()
+    if "server" in phases:
+        res = run("server", phase_server)
+        if res is not None:
+            path_counts["server"] = res["launches"]
+            emit(res)
     _q8.clear()
     if entries:
         from booster_tpu_torch.ops import kernels

@@ -19,12 +19,14 @@ from booster_tpu_torch.ops import decode_attention as da  # noqa: E402
 from booster_tpu_torch.ops import kernels  # noqa: E402
 from booster_tpu_torch.ops import kv_append as ka  # noqa: E402
 from booster_tpu_torch.ops import mlp as tm  # noqa: E402
+from booster_tpu_torch.ops import paged_attention as pga  # noqa: E402
 from booster_tpu_torch.ops import prefill_attention as pa  # noqa: E402
 from booster_tpu_torch.ops import qmm as tq  # noqa: E402
 from booster_tpu_torch.ops.kv_cache import _quantize_kv  # noqa: E402
 from booster_tpu_torch.quant.qtensor import QTensor  # noqa: E402
 from booster_tpu_torch.testing import (decode_attn_case, decode_attn_limit,  # noqa: E402
-                                       prefill_attn_case, prefill_attn_limit)
+                                       paged_attn_case, paged_attn_limit, prefill_attn_case,
+                                       prefill_attn_limit)
 
 pytestmark = pytest.mark.cuda
 
@@ -221,3 +223,50 @@ def test_i8t_wrappers_refuse_shapes_not_ported(cuda):
                   None, 32, (96, 1024), GGMLType.Q8_0)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tq.qmm_i8t(x, w96)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("win,softcap,with_self", [(0, 0.0, True), (100, 30.0, True),
+                                                  (0, 0.0, False)])
+def test_paged_attn_kernel_matches_plain(cuda, quantized, win, softcap, with_self):
+    # scattered pages, two shared by slots 0-2, lengths mid-page, on a page
+    # boundary and of one row (testing.paged_attn_case)
+    args = paged_attn_case(2, 8, 2, 4, 128, 4, 128, 128, [300, 257, 512, 1, 128, 400, 60, 9],
+                           "cuda", seed=14, quantized=quantized, shared=3, win=win,
+                           softcap=softcap)
+    if not with_self:
+        args = (*args[:8], None, None, None, *args[11:])
+    got, want = pga.paged_attn(*args), pga.paged_attn_plain(*args)
+    limit = paged_attn_limit(args if with_self else (
+        *args[:8], torch.zeros_like(got[:, :, 0]).to(torch.bfloat16),
+        torch.zeros_like(got[:, :, 0]).to(torch.bfloat16),
+        torch.zeros(8, dtype=torch.int32, device="cuda"), *args[11:]))
+    assert ((got - want).abs() <= limit).all()
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_kv_append_paged_kernel_is_exact(cuda, quantized):
+    """The paged append against its plain version (the scatter) run on the
+    CPU from the same pool: equal on every page but the scratch page 0;
+    offsets on a page boundary, on a page's last row and past the table."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    L, B, H, P, MAXP, D = 3, 4, 2, 128, 4, 128
+    Np = B * MAXP + 1
+    table = (1 + torch.randperm(Np - 1, generator=torch.Generator().manual_seed(0))).reshape(
+        B, MAXP).to("cuda", torch.int32)
+    new = (torch.randn(2, L, B, H, 64, device="cuda", generator=gen) * 3).to(torch.bfloat16)
+    new[0, 0, 0, 0] = 0  # a zero row
+    off = torch.tensor([0, P, 2 * P + 127, MAXP * P + 3], dtype=torch.int32, device="cuda")
+    k = torch.randn(L, Np, H, P, D, device="cuda", generator=gen)
+    if quantized:
+        k, ks = _quantize_kv(k)
+        pool = [k, k.clone(), ks, ks.clone()]
+    else:
+        pool = [k.to(torch.bfloat16), k.to(torch.bfloat16), None, None]
+    plain = [None if t is None else t.cpu() for t in pool]
+    ka.kv_append_all_layers_paged(*pool[:2], new[0], new[1], off, table, *pool[2:])
+    ka.kv_append_all_layers_paged(*plain[:2], new[0].cpu(), new[1].cpu(), off.cpu(),
+                                  table.cpu(), *plain[2:])
+    for got, want in zip(pool, plain):
+        if got is not None:
+            assert torch.equal(got[:, 1:].cpu(), want[:, 1:])

@@ -1,6 +1,8 @@
-"""The port stands alone: importing every module of booster_tpu_torch and
-running a short CPU generate pulls in none of jax, booster_tpu, ml_dtypes or
-regex, and no source of the port (or chip_smoke.py) imports them."""
+"""The port stands alone: importing every module of booster_tpu_torch (the
+HTTP server and the CLI included) and running a short CPU generate pulls in
+none of jax, booster_tpu, ml_dtypes, regex or aiohttp (which the card's
+machine does not have), and no source of the port (or chip_smoke.py)
+imports them."""
 
 import re
 import subprocess
@@ -8,7 +10,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "booster_tpu", "ml_dtypes", "regex")
+FORBIDDEN = ("jax", "booster_tpu", "ml_dtypes", "regex", "aiohttp")
 
 _SCRIPT = r"""
 import importlib, pkgutil, sys, tempfile, os
@@ -16,6 +18,8 @@ sys.path.insert(0, {root!r})
 import booster_tpu_torch
 for m in pkgutil.walk_packages(booster_tpu_torch.__path__, "booster_tpu_torch."):
     importlib.import_module(m.name)
+import booster_tpu_torch.serving.server, booster_tpu_torch.serving.scheduler
+import booster_tpu_torch.__main__
 from booster_tpu_torch.testing import make_model
 from booster_tpu_torch.models import load_model
 from booster_tpu_torch.serving import Engine
