@@ -426,13 +426,15 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def test_cli_server_subprocess(gguf):
-    """``python -m booster_tpu_torch --server --device cpu``: answers, then
-    drains and exits on SIGTERM to its own PID."""
+@pytest.mark.parametrize("flags", [[], ["--paged-kv", "--kv-quant", "--page-size", "16"]])
+def test_cli_server_subprocess(gguf, flags):
+    """``python -m booster_tpu_torch --server --device cpu``, dense and over a
+    paged int8 pool: answers, then drains and exits on SIGTERM to its own
+    PID."""
     port = _free_port()
     proc = subprocess.Popen([sys.executable, "-m", "booster_tpu_torch", "--server", "--device",
                              "cpu", "--host", "127.0.0.1", "--port", str(port), "--model", gguf,
-                             "--context", "256", "--predict", "8", "--silent"],
+                             "--context", "256", "--predict", "8", "--silent", *flags],
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                             cwd=os.getcwd())
     try:
