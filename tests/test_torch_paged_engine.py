@@ -1,7 +1,8 @@
 """The port's paged serving mode (``Engine(paged=True)``) on the CPU: against
 the JAX package's paged engine (Pallas kernels in interpret mode) on the same
 synthetic GGUF, and against the port's own dense engine, as
-tests/test_paged_engine.py holds the reference's.
+tests/test_paged_engine.py holds the reference's; and the port's scheduler
+against the JAX package's, dense and paged.
 
 Tolerances: greedy tokens equal; logits within 2^-5 of the largest, as in
 tests/test_torch_batch.py (the packages round bf16 intermediates at other
@@ -270,3 +271,36 @@ def test_scheduler_paged(model):
         assert jp.status == "finished" and jp.token_ids == jd.token_ids
     assert paged_eng.page_alloc.stats()["hashed"] > 0
     assert paged_eng.prefix_hits >= 1  # the third prompt shares the first's full pages
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_scheduler_matches_jax(gguf, model, pallas, paged):
+    """The same jobs through the JAX package's scheduler and the port's
+    (greedy, a shared prompt prefix, a stop string, a job capped by
+    max_tokens): the same tokens, outputs and finish reasons."""
+    from booster_tpu.serving.config import PromptSpec as JPromptSpec
+    from booster_tpu.serving.scheduler import Scheduler as JScheduler
+
+    jm = j_load(gguf, weights="bf16")
+    base = "the quick brown fox jumps over the lazy dog " * 3
+    specs = [dict(prompt=base + "one"), dict(prompt=base + "two", max_tokens=3),
+             dict(prompt="hello world", stop=("e",))]
+
+    def run(sched_cls, spec_cls, eng, sp):
+        async def go():
+            sched = sched_cls(eng, prompt_spec=spec_cls(id="default"), default_sampling=sp,
+                              default_max_tokens=8)
+            sched.start()
+            jobs = [sched.place_job(**kw) for kw in specs]
+            for j in jobs:
+                await sched.wait_job(j.id, timeout=300)
+            await sched.shutdown(drain=False)
+            return [(j.token_ids, j.output, j.finish_reason, j.n_prompt_tokens) for j in jobs]
+
+        return asyncio.run(go())
+
+    kw = dict(max_batch=2, max_seq=256, paged=paged, page_size=128, decode_chunk=4)
+    want = run(JScheduler, JPromptSpec, JEngine(jm, **kw), JSP(temp=0.0, penalty_repeat=1.0))
+    got = run(Scheduler, PromptSpec, Engine(model, **kw), GREEDY)
+    assert got == want
+    assert len(want[1][0]) == 3 and want[0][2] in ("stop", "length")
