@@ -723,19 +723,25 @@ def _paged_kernels(entries: list, failures: list, checks: dict) -> None:
         lib_ms = timed(lambda: F.scaled_dot_product_attention(qs, kx, vx, attn_mask=mask,
                                                               scale=1.0))
         cols = sum(lens)  # every cache column is valid (no window)
+        # the bytes: each distinct (page, row) that a slot's valid columns
+        # map read once, though slots that share a page each attend over it
+        j = torch.arange(MAXP * P, device="cuda")
+        pool_rows = table.long()[:, j // P] * P + j % P
+        rows = int(torch.unique(pool_rows[j[None] < lens_t[:, None]]).numel())
         per_col = 2 * D * (1 if quant else 2) + (8 if quant else 0)
-        nbytes = (B * Hkv * G * D * 2 + Hkv * cols * per_col + 2 * B * Hkv * D * 2
-                  + B * Hkv * G * D * 4)
-        b_ms, b_by = bound(nbytes, 4 * Hkv * G * (cols + B) * D)
+        other = B * Hkv * G * D * 2 + 2 * B * Hkv * D * 2 + B * Hkv * G * D * 4
+        b_ms, b_by = bound(other + Hkv * rows * per_col, 4 * Hkv * G * (cols + B) * D)
+        per_slot_ms, _ = bound(other + Hkv * cols * per_col, 0)
         entries.append({
             "name": name, "shape": f"7B L={L} B={B} Hkv={Hkv} G={G} P={P} MAXP={MAXP} D={D} "
-                                   f"{label} cols={cols}",
+                                   f"{label} cols={cols} distinct_rows={rows}",
             "key": (name, None), "path": "server", "route": "cuda", "source": src,
             "replaces": "booster_tpu/ops/pallas_paged_attention.py:348",
             "max_abs_err": err, "max_err_of_limit": share, "min_wrong_kernel_of_limit": seen,
             "ms": ms, "warm_ms": warm_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "bound_note": "the valid columns counted once per slot; pages "
-                                            "that slots share are read by each (some from L2)",
+            "bound_by": b_by, "bound_note": "bytes of each distinct pool row read once; "
+                                            "operations per slot",
+            "bound_ms_rows_per_slot": per_slot_ms,
             "library_ms": lib_ms,
             "library": "scaled_dot_product_attention with a boolean mask over the gathered, "
                        "dequantized bf16 K/V",
