@@ -65,13 +65,20 @@ def _attention_chunked(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Te
                        logit_softcap: float = 0.0, sliding_window=None) -> torch.Tensor:
     """Online-softmax attention over KV chunks of ``_KV_CHUNK`` columns:
     peak memory O(B·H·T·CHUNK) instead of O(B·H·T·S).  Like the reference
-    it builds its own mask (no precomputed one) and visits all S / CHUNK
-    chunks."""
+    it builds its own mask (no precomputed one).
+
+    Chunks from the first one past every row's kv_valid_len on are not
+    visited (one host read of the largest length): for a row with a valid
+    column such a chunk adds exp(-1e30 - m) = 0 to l and acc and rescales
+    by exp(0) = 1, so the result is the reference's bit for bit; only rows
+    with no valid column at all (idle slots, never read) differ.  A server
+    admitting prompts of a few hundred rows into 4096-row views visits 2
+    of 8 chunks (PERF.md holds the time this saves)."""
     B, T, H, D = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
     groups = H // Hkv
     C = _KV_CHUNK
-    n_chunks = S // C
+    n_chunks = min(S // C, -(-int(kv_valid_len.max()) // C)) if B else 0
     qf = (q.float() * scale).to(torch.bfloat16).float()
     qf = qf.reshape(B, T, Hkv, groups, D).permute(0, 2, 3, 1, 4)  # [B, Hkv, G, T, D]
     qpos = q_positions[:, :, None]  # [B, T, 1]
