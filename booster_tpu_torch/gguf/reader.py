@@ -263,6 +263,23 @@ class GGUFReader:
         view = self._files[info.file_index].view
         return np.frombuffer(view, dtype=np.uint8, count=info.nbytes, offset=info.offset)
 
+    def read_into(self, info: GGUFTensorInfo | str, out) -> None:
+        """Read a tensor's raw bytes into `out` (a writable buffer of at
+        least ``info.nbytes`` bytes) with file reads, not through the map:
+        the loader stages the large expert stacks in one reused buffer so
+        that their pages never count in the process's resident memory."""
+        if isinstance(info, str):
+            info = self.tensors[info]
+        f = self._files[info.file_index].file
+        dst = memoryview(out).cast("B")[:info.nbytes]
+        f.seek(info.offset)
+        done = 0
+        while done < info.nbytes:
+            n = f.readinto(dst[done:])
+            if not n:
+                raise GGUFError(f"tensor {info.name}: file ends before its data")
+            done += n
+
     def __iter__(self) -> Iterator[GGUFTensorInfo]:
         for name in self.tensor_order:
             yield self.tensors[name]

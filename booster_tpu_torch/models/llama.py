@@ -29,9 +29,14 @@ kernel (``ops.paged_attention``) with the deferred self term, then one
 ``kv_append_all_layers_paged`` after the loop.  Other page sizes decode
 through the prefill form, as the reference's XLA path does.
 
+Routed experts (Mixtral; arch ``llama`` with experts, or ``mixtral``) take
+the reference's MoE FFN (``booster_tpu/models/llama.py:147-214``): the
+grouped dispatch of ``ops.moe`` over the quantized expert stacks, and the
+dense all-experts form for stacks of other kinds.
+
 The cache is updated in place and returned.  Other architectures and the
-llama family's options (MoE, MLA, biases, sliding-window patterns) are not
-ported yet.
+llama family's options (shared experts, expert groups, MLA, biases,
+sliding-window patterns) are not ported yet.
 """
 
 from __future__ import annotations
@@ -47,12 +52,13 @@ from booster_tpu_torch.ops.kv_append import kv_append, kv_append_all_layers_page
 from booster_tpu_torch.ops.kv_cache import dequant_kv, update_layer
 from booster_tpu_torch.ops.linear import qlinear
 from booster_tpu_torch.ops.mlp import qmm_mlp
+from booster_tpu_torch.ops.moe import moe_ffn_grouped, moe_supported
 from booster_tpu_torch.ops.paged_attention import paged_decode_attention_stacked, paged_decode_prep
 from booster_tpu_torch.ops.paged_kv import PagedKVCache, append_paged_layer, gather_layer
 from booster_tpu_torch.ops.prefill_attention import prefill_attention, prefill_supported
 from booster_tpu_torch.ops.qmm import qmm_gateup, silu
 from booster_tpu_torch.ops.rope import apply_rope_tables, rope_tables
-from booster_tpu_torch.quant.qtensor import QTensor
+from booster_tpu_torch.quant.qtensor import QTensor, dequantize
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float, add_one: bool = False) -> torch.Tensor:
@@ -66,11 +72,54 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float, add_one: bool = False
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    if (cfg.arch != "llama" or cfg.act != "silu" or cfg.n_experts or cfg.kv_lora_rank or cfg.norm_type != "rms"
+    moe_ok = not cfg.n_experts or (
+        0 < cfg.n_experts_used <= cfg.n_experts and not cfg.n_shared_experts
+        and cfg.n_expert_groups <= 1 and cfg.moe_scale == 1.0 and not cfg.n_dense_layers)
+    if (cfg.arch not in ("llama", "mixtral") or cfg.act != "silu" or not moe_ok
+            or cfg.kv_lora_rank or cfg.norm_type != "rms"
             or cfg.parallel_residual or cfg.post_norms or cfg.sliding_window_pattern > 1
             or cfg.alibi_max_bias or cfg.heads_per_layer or cfg.q_norm
             or cfg.residual_scale != 1.0 or cfg.clamp_kqv):
         raise NotImplementedError(f"{cfg.arch} with these options: not ported yet")
+
+
+def moe_route(router_logits: torch.Tensor, cfg: ModelConfig):
+    """softmax over all experts (f32) → top-k → renormalized over the
+    selected when ``moe_norm_topk``: (topv [.., k] f32, topi [.., k] int32).
+    Equal probabilities (bf16 logits tie often) rank the lower expert first,
+    as ``jax.lax.top_k`` does: a stable descending sort."""
+    z = router_logits.float()
+    e = torch.exp(z - z.amax(-1, keepdim=True))
+    probs = e / e.sum(-1, keepdim=True)
+    v, i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    k = cfg.n_experts_used
+    topv, topi = v[..., :k], i[..., :k].to(torch.int32)
+    if cfg.moe_norm_topk:
+        topv = topv / topv.sum(-1, keepdim=True)
+    return topv, topi
+
+
+def _moe_ffn(x: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tensor:
+    """The routed experts' FFN: the grouped dispatch (ops.moe) where the
+    stacks' kinds take it, else the reference's dense all-experts form."""
+    if moe_supported(lp):
+        return moe_ffn_grouped(x, lp, cfg)
+    E = cfg.n_experts
+    B, T, C = x.shape
+    topv, topi = moe_route(qlinear(x, lp["router"]), cfg)  # [B, T, k]
+    weights = torch.zeros(B, T, E, dtype=torch.float32, device=x.device).scatter_(
+        -1, topi.long(), topv)
+
+    def expert_w(name):  # the whole stack dequantized: [E, out, in], as f32 of bf16
+        return dequantize(lp[name], torch.bfloat16).reshape(E, -1, lp[name].shape[1]).float()
+
+    xb = x.to(torch.bfloat16).float()
+    g = torch.einsum("btc,efc->btef", xb, expert_w("gate_exps")).to(torch.bfloat16)
+    u = torch.einsum("btc,efc->btef", xb, expert_w("up_exps")).to(torch.bfloat16)
+    h = (silu(g) * u).float()  # [B, T, E, ff]
+    y = torch.einsum("btef,ecf->btec", h, expert_w("down_exps")).to(torch.bfloat16)
+    w = weights.to(torch.bfloat16).float()
+    return torch.einsum("btec,bte->btc", y.float(), w).to(torch.bfloat16).to(x.dtype)
 
 
 def _layer_view(layers: dict[str, Any], i: int) -> dict[str, Any]:
@@ -134,7 +183,9 @@ def _layer(x, lp, i, cache, positions, cos, sin, mask, offsets, kv_valid, cfg,
     x = x + qlinear(attn_out.reshape(B, T, -1), lp["wo"])
 
     h = rms_norm(x, lp["ffn_norm"], cfg.rms_eps, cfg.norm_eps_add_one)
-    if "w_gateup" in lp:
+    if cfg.n_experts > 0 and "gate_exps" in lp:
+        ffn_out = _moe_ffn(h, lp, cfg)
+    elif "w_gateup" in lp:
         # the reference's order (booster_tpu/models/llama.py:552-580): the
         # whole-MLP kernel (ops.mlp.qmm_mlp), then silu·mul inside the
         # gate-up kernel (ops.qmm.qmm_gateup), then unfused; None = not taken

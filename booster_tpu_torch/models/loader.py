@@ -8,8 +8,13 @@ does), the q/k rows of
 interleaved-rope models are de-interleaved so rope runs in the neox form
 (exact), q/k/v and gate/up rows are fused into one matmul each, layers are
 stacked, and the stacks are transposed to the K-major i4t / i8t layout with
-bf16 scale planes where the kernels take the shape.  ``params_from_numpy`` turns
-the JAX package's params (as numpy arrays) into the same structure.
+bf16 scale planes where the kernels take the shape.  The routed experts of a
+MoE model (Mixtral) keep the file's quantization whatever `weights` says,
+lane-major (``[E·Ne, K]``, the grouped kernel's layout) with bf16 scale
+planes; they are repacked on the device, and every stack is filled there one
+layer at a time, so the host holds about one layer beside the result.
+``params_from_numpy`` turns the JAX package's params (as numpy arrays) into
+the same structure.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ import torch
 from booster_tpu_torch.device import resolve_device
 from booster_tpu_torch.gguf import GGMLType, GGUFReader
 from booster_tpu_torch.models.config import ROPE_NEOX, ROPE_NORM, ModelConfig
-from booster_tpu_torch.ops.qmm import transposable
+from booster_tpu_torch.ops.qmm import lane_supported, transposable
 from booster_tpu_torch.ops.rope import rope_inv_freq, yarn_params
 from booster_tpu_torch.quant import dequantize, repack_gguf_tensor
 from booster_tpu_torch.quant.qtensor import (
@@ -47,9 +52,16 @@ _LAYER_MAP = {
     "ffn_gate.weight": "w_gate",
     "ffn_up.weight": "w_up",
     "ffn_down.weight": "w_down",
+    "ffn_gate_inp.weight": "router",
+    "ffn_gate_exps.weight": "gate_exps",
+    "ffn_up_exps.weight": "up_exps",
+    "ffn_down_exps.weight": "down_exps",
 }
 _NORM_KEYS = {"attn_norm", "ffn_norm"}
-_PORTED_ARCHS = {"llama"}
+_EXPERT_KEYS = {"gate_exps", "up_exps", "down_exps"}
+_ATTN_KEYS = {"wq", "wk", "wv", "wo"}
+_FFN_KEYS = {"w_gate", "w_up", "w_down"}
+_PORTED_ARCHS = {"llama", "mixtral"}  # mixtral: the HF converter's name for llama + experts
 
 
 # weights="auto" takes bf16 only when the whole file fits in this many bytes
@@ -116,16 +128,62 @@ def _permute_rows(t: QTensor, perm: np.ndarray) -> QTensor:
     )
 
 
-def _kernel_layout(qt: QTensor, dev: Optional[torch.device] = None) -> QTensor:
+def _kernel_layout(qt: QTensor, dev: Optional[torch.device] = None,
+                   key: Optional[str] = None) -> QTensor:
     """Prepared scales, then K-major (i4p → i4t, i8 → i8t) with bf16 scale
-    planes where the kernel takes the shape; with `dev`, the tensor moves
-    there first and is transposed there."""
+    planes where the kernel takes the shape; an expert stack (`key` one of
+    _EXPERT_KEYS) and a weight that the lane-major kernel takes stay
+    lane-major with bf16 scale planes.  With `dev`, the tensor moves there
+    first and is transposed there."""
     qt = prepare_kernel_scales(qt)
-    if transposable(qt):
+    expert = key in _EXPERT_KEYS
+    if expert or transposable(qt) or lane_supported(qt):
         if dev is not None:
             qt = to_torch(qt, dev)
-        qt = compact_scales(transpose_qtensor(qt))
+        if transposable(qt) and not expert:
+            qt = transpose_qtensor(qt)
+        qt = compact_scales(qt)
     return qt
+
+
+class _Stacks:
+    """Per-key layer stacks [L, ...], filled one layer at a time: the fields
+    of a QTensor in tensors on the device, allocated when layer 0 arrives,
+    other arrays (the norms) stacked in numpy."""
+
+    def __init__(self, n_layers: int, dev: torch.device):
+        self.n, self.dev = n_layers, dev
+        self.q: dict[str, QTensor] = {}
+        self.arrays: dict[str, list] = {}
+
+    def put(self, i: int, key: str, v) -> None:
+        if not isinstance(v, QTensor):
+            self.arrays.setdefault(key, []).append(v)
+            return
+        v = to_torch(prepare_kernel_scales(v), self.dev)
+        if key in _EXPERT_KEYS:  # stored with bf16 planes from the start (half the bytes)
+            v = compact_scales(v)
+        st = self.q.get(key)
+        if st is None:
+
+            def empty(t):
+                return None if t is None else torch.empty((self.n, *t.shape), dtype=t.dtype,
+                                                          device=self.dev)
+
+            st = self.q[key] = dataclasses.replace(v, qw=empty(v.qw), scales=empty(v.scales),
+                                                   mins=empty(v.mins))
+        elif (v.kind, v.group, v.shape, v.zero, v.qw.shape) != (
+                st.kind, st.group, st.shape, st.zero, st.qw.shape[1:]):
+            raise ValueError(f"{key}: cannot stack heterogeneous layer tensors")
+        for f in ("qw", "scales", "mins"):
+            if getattr(v, f) is not None:
+                getattr(st, f)[i].copy_(getattr(v, f))
+
+    def result(self) -> dict[str, Any]:
+        out: dict[str, Any] = {k: np.stack(v) for k, v in self.arrays.items()}
+        for key, st in self.q.items():
+            out[key] = _kernel_layout(st, self.dev, key)
+        return out
 
 
 @dataclasses.dataclass
@@ -183,6 +241,22 @@ def load_model(path: str, device="cuda", weights: str = "native",
             qt = repack_gguf_tensor(reader.tensor_bytes(info), info.ggml_type, info.shape)
             return repack_weights(qt, weights)
 
+        staging: list = []  # one pinned host buffer, reused for every expert stack
+
+        def load_experts(name: str) -> QTensor:
+            """An expert stack [E, out, in] → [E·out, in] in the file's own
+            quantization (reference loader.py:332), repacked on the device;
+            on a GPU its bytes go there through the pinned staging buffer,
+            read from the file (so the map's pages do not stay resident)."""
+            info = reader.tensors[name]
+            raw = reader.tensor_bytes(info)
+            if dev.type == "cuda" and info.ggml_type in (GGMLType.Q4_0, GGMLType.Q8_0):
+                if not staging or staging[0].numel() < info.nbytes:
+                    staging[:] = [torch.empty(info.nbytes, dtype=torch.uint8, pin_memory=True)]
+                raw = staging[0][:info.nbytes]
+                reader.read_into(info, raw.numpy())
+            return repack_gguf_tensor(raw, info.ggml_type, info.shape, device=dev)
+
         params: dict[str, Any] = {}
         emb = load_dense("token_embd.weight")
         if emb is None:
@@ -198,15 +272,17 @@ def load_model(path: str, device="cuda", weights: str = "native",
                           "mscale": float(mscale)}
 
         deint = cfg.rope_style == ROPE_NORM and cfg.rope_dims > 1
-        layer_dicts = []
+        ffn_keys = {"router"} | _EXPERT_KEYS if cfg.n_experts else _FFN_KEYS
+        stacks = _Stacks(cfg.n_layers, dev)
         for i in range(cfg.n_layers):
             lp: dict[str, Any] = {}
             for suffix, key in _LAYER_MAP.items():
                 name = f"blk.{i}.{suffix}"
                 if name not in reader.tensors:
                     continue
-                lp[key] = load_dense(name) if key in _NORM_KEYS else load_q(name)
-            if {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"} - set(lp):
+                lp[key] = (load_dense(name) if key in _NORM_KEYS
+                           else load_experts(name) if key in _EXPERT_KEYS else load_q(name))
+            if (_ATTN_KEYS | ffn_keys) - set(lp) or (cfg.n_experts and _FFN_KEYS & set(lp)):
                 raise NotImplementedError(f"layer {i}: tensor set not ported yet")
             if deint:
                 lp["wq"] = _permute_rows(lp["wq"], deinterleave_perm(
@@ -217,23 +293,17 @@ def load_model(path: str, device="cuda", weights: str = "native",
             if fused is not None:
                 lp["wqkv"] = fused
                 del lp["wq"], lp["wk"], lp["wv"]
-            fused = _concat_rows([lp["w_gate"], lp["w_up"]])
-            if fused is not None:
-                lp["w_gateup"] = fused
-                del lp["w_gate"], lp["w_up"]
-            layer_dicts.append(lp)
+            if not cfg.n_experts:
+                fused = _concat_rows([lp["w_gate"], lp["w_up"]])
+                if fused is not None:
+                    lp["w_gateup"] = fused
+                    del lp["w_gate"], lp["w_up"]
+            for key, v in lp.items():
+                stacks.put(i, key, v)
+            del lp
         if deint:
             cfg = dataclasses.replace(cfg, rope_style=ROPE_NEOX, rope_deinterleaved=True)
-
-        layers: dict[str, Any] = {}
-        for key in sorted(layer_dicts[0]):
-            vals = [lp[key] for lp in layer_dicts]
-            if isinstance(vals[0], QTensor):
-                layers[key] = _kernel_layout(_stack_qtensors(vals), dev)
-                for lp in layer_dicts:  # the per-layer parts are stacked now
-                    del lp[key]
-            else:
-                layers[key] = np.stack(vals)
+        layers = stacks.result()
         params["layers"] = layers
         metadata = dict(reader.metadata)
     finally:
@@ -267,22 +337,28 @@ def _np_to_torch(a) -> torch.Tensor:
 def params_from_numpy(params: dict, cfg: ModelConfig, device="cpu") -> dict:
     """The JAX package's loaded params, given as numpy arrays (QTensor
     fields included), → the port's params on `device`.  QTensors are
-    duck-typed by their fields; the JAX class is not imported."""
+    duck-typed by their fields; the JAX class is not imported.  Expert
+    stacks and the lane-major weights that the lane-major kernel takes get
+    bf16 scale planes, as the port's loader gives them (exact through the
+    kernel, which rounds scales to bf16)."""
     dev = resolve_device(device)
 
-    def conv(v):
+    def conv(v, key=None):
         if hasattr(v, "kind") and hasattr(v, "qw"):
             if v.kind not in ("i4p", "i4t", "i8", "i8t", "dense"):
                 raise NotImplementedError(f"QTensor kind {v.kind!r}: not ported yet")
-            return QTensor(
+            qt = QTensor(
                 kind=v.kind,
                 qw=_np_to_torch(v.qw).to(dev),
                 scales=None if v.scales is None else _np_to_torch(v.scales).to(dev),
                 mins=None if v.mins is None else _np_to_torch(v.mins).to(dev),
                 group=int(v.group), shape=tuple(int(s) for s in v.shape),
                 source_type=GGMLType(int(v.source_type)), zero=int(v.zero))
+            lane = qt.prepared and not qt.transposed
+            return compact_scales(qt) if lane and (
+                key in _EXPERT_KEYS or lane_supported(qt)) else qt
         if isinstance(v, dict):
-            return {k: conv(x) for k, x in v.items()}
+            return {k: conv(x, k) for k, x in v.items()}
         if v is None:
             return None
         a = np.asarray(v)

@@ -35,6 +35,7 @@ SOURCES = {
     "prefill_attn": "prefill_attn.cu",
     "qmm_i8t": "qmm_i8t.cu",
     "mlp_i8t": "mlp_i8t.cu",
+    "qmm_lane": "qmm_lane.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -42,7 +43,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # kernel name → launches made by its wrapper (reset by callers that count);
 # _gd is the M = 1 group-dot form, _dq the M > 1 dequantize form, _i8 the
-# int8-cache form, paged_ the paged-pool forms
+# int8-cache form, paged_ the paged-pool forms, moe_ the grouped (routed
+# expert) form of the lane-major matmul
 launch_counts = {
     "qmm_i4t_gd": 0,
     "qmm_i4t_dq": 0,
@@ -61,6 +63,10 @@ launch_counts = {
     "paged_attn_i8": 0,
     "kv_append_paged": 0,
     "kv_append_paged_i8": 0,
+    "qmm_i4p": 0,
+    "qmm_i8": 0,
+    "moe_qmm_i4p": 0,
+    "moe_qmm_i8": 0,
 }
 # (kernel name, (K, N)) → launches, for the matmul kernels
 shape_counts: dict = {}

@@ -1,6 +1,7 @@
-"""Quantized matmul for K-major weights (i4t, i8t), and fused gate+up.
+"""Quantized matmul for K-major (i4t, i8t) and lane-major (i4p, i8) weights,
+and fused gate+up.
 
-Counterpart of ``booster_tpu/ops/pallas_qmm.py`` for the K-major kinds.
+Counterpart of ``booster_tpu/ops/pallas_qmm.py``.
 ``qmm`` runs, for i4t, the kernel of ``csrc/qmm_i4t.cu`` (the port of
 ``_tqmm_i4_gd_kernel`` at M = 1 and ``_tqmm_i4_kernel`` at M > 1) and, for
 i8t (Q8_0), those of ``csrc/qmm_i8t.cu`` (``_tqmm_i8_gd_kernel`` at M = 1,
@@ -8,14 +9,18 @@ i8t (Q8_0), those of ``csrc/qmm_i8t.cu`` (``_tqmm_i8_gd_kernel`` at M = 1,
 (``_gateup_i4_gd_kernel`` / ``_gateup_i4_kernel``, ``_gateup_i8_kernel``).
 ``qmm_plain`` and ``qmm_gateup_plain`` are the same functions in plain
 torch, with the same rounding points; a wrapper uses them only for tensors
-on the CPU.  Shapes the kernels do not take go to the dequantize-matmul
-path, as in the JAX package.
+on the CPU.  Lane-major weights that the reference's ``_supported`` takes
+run ``csrc/qmm_lane.cu`` (the port of ``_qmm_i4_kernel``/``_qmm_i8_kernel``;
+``qmm_lane``, plain version ``qmm_lane_plain``), whose grouped form
+``ops.moe`` runs over the routed experts.  Shapes the kernels do not take
+go to the dequantize-matmul path, as in the JAX package.
 
 Numerics (see the sources' headers): i4t at M = 1, the group-dot form
 ``y = sum_g f32(bf16 s)·(sum bf16(x)·q - zero·xs) - f32(bf16 m)·xs``; at M > 1
 ``w = bf16(bf16(q - zero)·bf16(s))`` then ``y = bf16(x) @ w`` in f32 less the
 min term.  i8t at M = 1 ``y = sum_g f32(bf16 s)·(sum bf16(x)·q)``; at M > 1
-``w = bf16(f32(q)·f32(bf16 s))``, ``y = bf16(x) @ w`` in f32.  The plain
+``w = bf16(f32(q)·f32(bf16 s))``, ``y = bf16(x) @ w`` in f32.  Lane-major at
+any M ``w = bf16(bf16(q - zero)·bf16(s))``, ``y = bf16(x) @ w`` in f32.  The plain
 versions use f32 matmuls (``torch.backends.cuda.matmul.allow_tf32`` must
 stay False, its default, on the card).
 """
@@ -39,6 +44,9 @@ _I8_SIGNATURES = {
     "bt_qmm_i8t_gd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
     "bt_qmm_i8t_gd_splits": [ctypes.c_int],
     "bt_qmm_i8t_dq": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+}
+_LANE_SIGNATURES = {
+    "bt_qmm_lane": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 }
 _ROWS_TILE = 8  # rows of x per block at M > 1 (kRowsTile in qmm_i4t.cu)
 # the tile of csrc/i8t_tile.cuh: rows of x, output columns, rows of K per stage
@@ -104,6 +112,24 @@ def _supported_t(w: QTensor, K: int, M: int) -> bool:
     if pk % 32 != 0 or N % 128 != 0 or (pk // G) % 8 != 0:
         return False
     return True
+
+
+def _supported(w: QTensor, K: int, M: int) -> bool:
+    """The reference's gate of the lane-major kernels (pallas_qmm.py:1583)."""
+    if w.kind not in ("i4p", "i8"):
+        return False
+    N = w.shape[0]
+    G = w.group
+    if K != w.shape[1] or K % (2 * G) != 0:
+        return False
+    half = K // 2 if w.kind == "i4p" else K
+    return half % 128 == 0 and N % 128 == 0
+
+
+def lane_supported(w: QTensor) -> bool:
+    """True when a lane-major (i4p, i8) weight that stays lane-major goes to
+    the lane-major kernel: the loader stores its scale planes in bf16 then."""
+    return _supported(w, w.shape[1], 1)
 
 
 def transposable(w: QTensor) -> bool:
@@ -212,6 +238,31 @@ def qmm_plain(x: torch.Tensor, w: QTensor, dq: bool = False) -> torch.Tensor:
         xs = xb.reshape(M, 2 * ngh, G).sum(-1)  # [M, 2·ngh] f32 group sums
         y = y - xs @ sf[2:4].reshape(2 * ngh, N)
     return y
+
+
+def lane_dequant(w: QTensor, r0: int = 0, r1: Optional[int] = None) -> torch.Tensor:
+    """Rows [r0, r1) of a lane-major i4p or i8 QTensor (layer view allowed)
+    as the lane-major kernel forms them, f32 [r1 - r0, K]: w =
+    bf16(bf16(q - zero)·bf16(s)), less bf16(m) (rounded again) when affine."""
+    w = w.resolved()
+    s3, has_mins = kernel_scales(w)  # [R, rows(+rows), SG]
+    rows, G, K = w.scale_rows, w.group, w.shape[1]
+    p = w.qw[r0:r1]
+    q = torch.cat([p & 0x0F, p >> 4], dim=-1) if w.kind == "i4p" else p
+    q = (q.to(torch.int16) - w.zero).to(torch.bfloat16).float()
+    s = s3[r0:r1]
+    n = s.shape[0]
+    sc = s[:, :rows].reshape(n, K // G, 1).to(torch.bfloat16).float()
+    v = (q.reshape(n, K // G, G) * sc).to(torch.bfloat16)
+    if has_mins:
+        v = v - s[:, rows:].reshape(n, K // G, 1).to(torch.bfloat16)
+    return v.reshape(n, K).float()
+
+
+def qmm_lane_plain(x: torch.Tensor, w: QTensor) -> torch.Tensor:
+    """x [M, K] @ W^T → [M, N] f32 for a lane-major i4p or i8 QTensor, in
+    plain torch with the lane-major kernel's rounding points."""
+    return x.to(torch.bfloat16).float() @ lane_dequant(w).t()
 
 
 def qmm_gateup_plain(x: torch.Tensor, w: QTensor, dq: bool = False) -> torch.Tensor:
@@ -332,6 +383,68 @@ def _launch_i8t(x: torch.Tensor, w: QTensor, gateup: bool, dq: bool) -> torch.Te
     return out
 
 
+def lane_launch(x: torch.Tensor, w: QTensor, N: int, name: str,
+                tile_expert: Optional[torch.Tensor] = None,
+                rows_used: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch csrc/qmm_lane.cu: y [M, N] f32 = x [M, K] @ W^T over rows
+    [0, N) of a lane-major weight, or, with a tile table, over the rows of
+    each 32-row tile's expert (ops.moe.grouped_qmm).  Raises unless the
+    kernel takes the operands: contiguous bf16 x on 16 bytes; an i4p (u8
+    [R, K/2]) or i8 (int8 [R, K]) payload with bf16 prepared scale planes
+    and no mins; N a multiple of 128; K of 128 and of 2G; G of 16."""
+    w = w.resolved()
+    M, K = x.shape
+    i4 = w.kind == "i4p"
+    s3, has_mins = kernel_scales(w)
+    R = w.qw.shape[0]
+    if x.dtype != torch.bfloat16 or not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"{name} kernel: x must be contiguous bf16 on 16 bytes")
+    want = (torch.uint8, (R, K // 2)) if i4 else (torch.int8, (R, K))
+    if w.kind not in ("i4p", "i8") or w.qw.dtype != want[0] \
+            or tuple(w.qw.shape) != want[1] or not w.qw.is_contiguous():
+        raise ValueError(f"{name} kernel: payload must be contiguous i4p u8 [R, K/2] "
+                         f"or i8 int8 [R, K], K = {K}")
+    if has_mins:
+        raise NotImplementedError(f"{name} kernel: weights with mins: not ported yet "
+                                  "(Q4_0 and Q8_0 have none)")
+    if s3.dtype != torch.bfloat16 or not s3.is_contiguous() or tuple(s3.shape) != (
+            R, w.scale_rows, K // (w.scale_rows * w.group)):
+        raise ValueError(f"{name} kernel: scales must be contiguous bf16 prepared planes "
+                         "(prepare_kernel_scales, compact_scales)")
+    if N % 128 or K % 128 or K % (2 * w.group) or w.group % 16:
+        raise NotImplementedError(f"{name} kernel: N = {N}, K = {K}, G = {w.group}: "
+                                  "not ported yet (N, K multiples of 128, G of 16)")
+    tabs = [t for t in (tile_expert, rows_used) if t is not None]
+    if any(t.dtype != torch.int32 or not t.is_contiguous() for t in tabs):
+        raise ValueError(f"{name} kernel: tile table and row count must be contiguous int32")
+    if tile_expert is not None and (tile_expert.numel() != -(-M // 32) or R % N):
+        raise ValueError(f"{name} kernel: a tile table needs one expert per 32 rows "
+                         "and a payload of whole experts")
+    if tile_expert is None and R < N:
+        raise ValueError(f"{name} kernel: the payload has {R} rows, not {N}")
+    if any(t.device != x.device for t in (w.qw, s3, *tabs)):
+        raise ValueError(f"{name} kernel: all operands must be on one device")
+    out = torch.empty(M, N, device=x.device, dtype=torch.float32)
+    lib = kernels.library("qmm_lane", _LANE_SIGNATURES)
+    rc = lib.bt_qmm_lane(x.data_ptr(), w.qw.data_ptr(), s3.data_ptr(), out.data_ptr(),
+                         None if tile_expert is None else tile_expert.data_ptr(),
+                         None if rows_used is None else rows_used.data_ptr(),
+                         M, K, N, w.group, w.zero, int(i4),
+                         torch.cuda.current_stream(x.device).cuda_stream)
+    kernels.check(rc, name)
+    kernels.count(name, (K, N))
+    return out
+
+
+def qmm_lane(x: torch.Tensor, w: QTensor) -> torch.Tensor:
+    """Kernel-level entry for a lane-major i4p or i8 weight: x [M, K] bf16 @
+    W^T → [M, N] f32 (the plain version for CPU tensors, the kernel for
+    CUDA tensors)."""
+    if x.device.type == "cpu":
+        return qmm_lane_plain(x, w)
+    return lane_launch(x, w, w.shape[0], "qmm_i4p" if w.kind == "i4p" else "qmm_i8")
+
+
 def qmm_i4t(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     """Kernel-level entry: x [M, K] bf16 @ W^T → [M, N] f32 (the plain
     version for CPU tensors, the kernel for CUDA tensors)."""
@@ -383,6 +496,12 @@ def qmm(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     M = _rows(x)
     if w.transposed and _supported_t(w, K, M) and _stack_ok(w):
         kern = qmm_i4t if w.kind == "i4t" else qmm_i8t
+    elif not w.transposed and _supported(w, K, M) and _stack_ok(w):
+        # M needs no padding: the kernel masks the rows of its last tile
+        kern = qmm_lane
+    else:
+        kern = None
+    if kern is not None:
         y = kern(x.reshape(M, K).to(torch.bfloat16).contiguous(), w)
         return y.reshape(*lead, w.shape[0])
     wd = dequantize(w, torch.bfloat16)

@@ -2,19 +2,23 @@
 
 Port of ``booster_tpu/quant/qtensor.py`` for the Q4_0 and Q8_0 llama
 paths.  At load time a GGUF Q4_0 or Q8_0 tensor is *losslessly* repacked
-(host-side numpy) into
+(torch bit operations, on the host or on the card) into
 
     value[r, c] = (q[r, c] - zero) * scales[r, c // group]  -  mins[r, c // group]
 
 with payload ``qw``:
 
     kind="i4p"  uint8 [out, in // 2]  split-half packing: byte b holds element
-                b (low nibble) and element b + in/2 (high nibble)
+                b (low nibble) and element b + in/2 (high nibble); prepared
+                scale planes [out, 2, in/(2G)] (the halves' scales, then
+                their mins when affine), bf16 where a lane-major kernel
+                reads them (the expert stacks of a MoE model)
     kind="i4t"  the same payload stored K-major, [in // 2, out]
                 (transpose_qtensor), with scale planes [R, in/(2G), out]:
                 rows 0-1 the scales of the two halves, rows 2-3 their mins
                 when the format is affine
-    kind="i8"   int8 [out, in] (Q8_0: symmetric, group 32, no zero point)
+    kind="i8"   int8 [out, in] (Q8_0: symmetric, group 32, no zero point);
+                prepared scale planes [out, 1, in/G]
     kind="i8t"  the same payload stored K-major, [in, out], with scale
                 planes [R, in/G, out]: row 0 the scales, row 1 the mins
                 when affine
@@ -35,6 +39,7 @@ package's scalar-prefetch layer index).
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass, field, replace
 from typing import Any, Optional
 
@@ -43,7 +48,6 @@ import torch
 
 from booster_tpu_torch.gguf.constants import GGMLType, TYPE_TRAITS
 from booster_tpu_torch.quant import formats as F
-from booster_tpu_torch.quant.formats import _blocks, _f16
 
 
 @dataclass
@@ -128,29 +132,28 @@ def to_torch(qt: QTensor, device) -> QTensor:
 # --------------------------------------------------------------------------
 
 
-def _pack_nibbles_planar(q: np.ndarray) -> np.ndarray:
+def _pack_nibbles_planar(q: torch.Tensor) -> torch.Tensor:
     """[rows, K] uint8 (values 0..15) → [rows, K//2] split-half packing:
     byte j = elem j (low nibble) | elem j + K/2 (high nibble)."""
     if q.shape[-1] % 2:
         raise ValueError("split-half packing needs an even row length")
     half = q.shape[-1] // 2
-    return (q[..., :half] | (q[..., half:] << 4)).astype(np.uint8)
+    return q[..., :half] | (q[..., half:] << 4)
 
 
-def _repack_q4_0(raw: np.ndarray, out_f: int, in_f: int) -> QTensor:
-    b = _blocks(raw, TYPE_TRAITS[GGMLType.Q4_0].type_size)
-    d = _f16(b[:, 0:2]).reshape(out_f, in_f // 32)
+def _repack_q4_0(b: torch.Tensor, out_f: int, in_f: int) -> QTensor:
+    b = b.reshape(-1, TYPE_TRAITS[GGMLType.Q4_0].type_size)
+    d = b[:, 0:2].contiguous().view(torch.float16).float().reshape(out_f, in_f // 32)
     qs = b[:, 2:18]
-    q = np.concatenate([(qs & 0x0F), (qs >> 4)], axis=1)  # block order 0..31
-    q = q.reshape(out_f, in_f)
+    q = torch.cat([qs & 0x0F, qs >> 4], dim=1).reshape(out_f, in_f)  # block order 0..31
     return QTensor("i4p", _pack_nibbles_planar(q), d, None, 32, (out_f, in_f),
                    GGMLType.Q4_0, zero=8)
 
 
-def _repack_q8_0(raw: np.ndarray, out_f: int, in_f: int) -> QTensor:
-    b = _blocks(raw, TYPE_TRAITS[GGMLType.Q8_0].type_size)
-    d = _f16(b[:, 0:2]).reshape(out_f, in_f // 32)
-    q = b[:, 2:34].view(np.int8).reshape(out_f, in_f).copy()
+def _repack_q8_0(b: torch.Tensor, out_f: int, in_f: int) -> QTensor:
+    b = b.reshape(-1, TYPE_TRAITS[GGMLType.Q8_0].type_size)
+    d = b[:, 0:2].contiguous().view(torch.float16).float().reshape(out_f, in_f // 32)
+    q = b[:, 2:34].contiguous().view(torch.int8).reshape(out_f, in_f)
     return QTensor("i8", q, d, None, 32, (out_f, in_f), GGMLType.Q8_0)
 
 
@@ -158,9 +161,16 @@ _REPACK = {GGMLType.Q4_0: _repack_q4_0, GGMLType.Q8_0: _repack_q8_0}
 _DENSE_TYPES = (GGMLType.F32, GGMLType.F16, GGMLType.BF16)
 
 
-def repack_gguf_tensor(raw, ggml_type: GGMLType, shape: tuple[int, ...]) -> QTensor:
-    """Raw GGUF tensor bytes → QTensor (host numpy arrays).  Tensors with
-    more than 2 dims are flattened to [prod(leading), last]."""
+def repack_gguf_tensor(raw, ggml_type: GGMLType, shape: tuple[int, ...],
+                       device=None) -> QTensor:
+    """Raw GGUF tensor bytes (bytes, a numpy view or a uint8 torch tensor)
+    → QTensor.  Tensors with more than 2 dims are flattened to
+    [prod(leading), last].  Without `device` the fields are
+    host numpy arrays; with it, a Q4_0 or Q8_0 tensor's bytes go to that
+    torch device and are repacked there (the loader repacks the expert
+    stacks of a MoE model on the card: a host repack of 26 GB takes
+    minutes).  One torch implementation serves both, so the two agree bit
+    for bit."""
     if len(shape) == 1:
         out_f, in_f = 1, shape[0]
     else:
@@ -172,8 +182,17 @@ def repack_gguf_tensor(raw, ggml_type: GGMLType, shape: tuple[int, ...]) -> QTen
             raise NotImplementedError(f"{ggml_type.name} weights: not ported yet")
         w = F.dequantize(raw, ggml_type, shape=(out_f, in_f))
         return QTensor("dense", w, None, None, 1, (out_f, in_f), ggml_type)
-    raw = np.frombuffer(raw, dtype=np.uint8) if isinstance(raw, (bytes, bytearray)) else raw
-    return fn(raw.view(np.uint8).ravel(), out_f, in_f)
+    if torch.is_tensor(raw):
+        b = raw.view(torch.uint8).reshape(-1)
+    else:
+        raw = np.frombuffer(raw, dtype=np.uint8) if isinstance(raw, (bytes, bytearray)) else raw
+        with warnings.catch_warnings():  # a read-only mmap view: the repack never writes it
+            warnings.simplefilter("ignore", UserWarning)
+            b = torch.from_numpy(raw.view(np.uint8).ravel())
+    qt = fn(b if device is None else b.to(device), out_f, in_f)
+    if device is not None:
+        return qt
+    return replace(qt, qw=qt.qw.numpy(), scales=qt.scales.numpy())
 
 
 def repack_weights(qt: QTensor, mode: str) -> QTensor:
@@ -198,17 +217,19 @@ def repack_weights(qt: QTensor, mode: str) -> QTensor:
 def prepare_kernel_scales(qt: QTensor) -> QTensor:
     """Pre-shape `scales` (and fold `mins`) into the kernels' operand layout:
     i4p → [..., N, 2(+2), K/(2G)], i8 → [..., N, 1(+1), K/G] (the extra
-    rows hold mins when affine)."""
+    rows hold mins when affine).  On numpy arrays or torch tensors."""
     if qt.kind not in ("i4p", "i8") or qt.scales is None or qt.prepared:
         return qt
-    s = np.asarray(qt.scales)
+    s = qt.scales
     rows = qt.scale_rows
     sg = s.shape[-1] // rows
     s3 = s.reshape(*s.shape[:-1], rows, sg)
     if qt.mins is not None:
-        m3 = np.asarray(qt.mins).reshape(*s.shape[:-1], rows, sg)
-        s3 = np.concatenate([s3, m3], axis=-2)
-    return replace(qt, scales=np.ascontiguousarray(s3), mins=None)
+        m3 = qt.mins.reshape(*s.shape[:-1], rows, sg)
+        s3 = (torch.cat([s3, m3], dim=-2) if torch.is_tensor(s3)
+              else np.concatenate([s3, m3], axis=-2))
+    s3 = s3.contiguous() if torch.is_tensor(s3) else np.ascontiguousarray(s3)
+    return replace(qt, scales=s3, mins=None)
 
 
 def transpose_qtensor(qt: QTensor) -> QTensor:
@@ -235,9 +256,11 @@ def transpose_qtensor(qt: QTensor) -> QTensor:
 
 
 def compact_scales(qt: QTensor) -> QTensor:
-    """K-major scale (+folded-min) planes → bfloat16 storage (a CPU torch
-    tensor; round-to-nearest-even, as the kernel rounds them anyway)."""
-    if not qt.transposed or qt.scales is None:
+    """Prepared scale (+folded-min) planes → bfloat16 storage
+    (round-to-nearest-even, as the kernels round them anyway): the K-major
+    planes, and the lane-major ones of a weight that a lane-major kernel
+    reads (the expert stacks).  numpy planes become a CPU torch tensor."""
+    if qt.scales is None or not (qt.transposed or qt.prepared):
         return qt
     if torch.is_tensor(qt.scales) and qt.scales.dtype == torch.bfloat16:
         return qt
@@ -247,9 +270,16 @@ def compact_scales(qt: QTensor) -> QTensor:
 
 
 def kernel_scales(qt: QTensor):
-    """(s3 [(L,) R, SG, N], has_mins) of a transposed, prepared QTensor."""
+    """(s3, has_mins) in the kernels' operand layout: [(L,) R, SG, N] for a
+    transposed, prepared QTensor; [(L,) N, R, SG] for a lane-major one,
+    built from the flat planes when it was not prepared at load."""
+    rows = qt.scale_rows
     s3 = qt.scales
-    return s3, s3.shape[-3] == 2 * qt.scale_rows
+    if qt.transposed:
+        return s3, s3.shape[-3] == 2 * rows
+    if qt.prepared:
+        return s3, s3.shape[-2] == 2 * rows
+    return prepare_kernel_scales(qt).scales, qt.mins is not None
 
 
 # --------------------------------------------------------------------------

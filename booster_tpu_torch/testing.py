@@ -1,10 +1,12 @@
 """Inputs for the tests and the chip smoke run: no download needed.
 
 ``make_model`` writes a seeded synthetic llama-shaped GGUF with a working SPM
-vocab (Q4_0 or Q8_0 weights).  It ports ``tools/make_test_model.py`` onto the
-port's own GGUF writer and quantizer: the same arguments and seed give the
-same file bytes.  It writes tensor by tensor, so the 7B shape (7.7 GB as
-Q8_0) needs a few hundred MB of host memory.
+vocab (Q4_0 or Q8_0 weights), optionally with routed experts (Mixtral).  It
+ports ``tools/make_test_model.py`` onto the port's own GGUF writer and
+quantizer: the same arguments and seed give the same file bytes.  It writes
+tensor by tensor, so the 7B shape (7.7 GB as Q8_0) needs a few hundred MB of
+host memory; ``draw="blocks"`` draws the quantized blocks directly
+(``random_blocks``), for the 26 GB Mixtral-8x7B shape.
 ``decode_attn_case`` makes decode-attention inputs on which a wrong kernel
 shows (bf16 or int8 cache), ``decode_attn_mutants`` the inputs of such wrong
 kernels, and ``decode_attn_limit`` the kernel's per-element limit against
@@ -17,6 +19,7 @@ paged decode attention.
 from __future__ import annotations
 
 import functools
+import os
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -71,26 +74,49 @@ def make_model(
     seed: int = 0,
     weight_scale: float = 0.05,
     head_dim: int = 0,  # 0 → hidden // heads; else explicit (gemma-style)
+    experts: int = 0,  # routed experts (Mixtral): E expert FFNs of width ff, and a router
+    experts_used: int = 2,
+    arch: str = "llama",  # or "mixtral", the HF converter's name for llama + experts
+    rope_base: float = 10000.0,
+    context: int = 2048,
+    draw: str = "normal",
 ) -> str:
+    """Write the GGUF and return its path.  `draw` "normal" draws every
+    weight from one seeded standard normal stream in file order and
+    quantizes it (the draws of tools/make_test_model.py); "blocks" draws the
+    quantized tensors' blocks directly, each tensor from its own child of
+    the seed (random nibbles or int8 codes, and f16 scales of the size that
+    quantizing weight_scale-sized normals gives): the 46.7 B parameters of
+    a Mixtral-8x7B shape write in a minute or two, on as many threads as
+    the host has cores, and the file does not depend on their number.  With
+    `experts`, each layer holds a router ``ffn_gate_inp`` (F32, as llama.cpp
+    writes it) and the expert stacks ``ffn_{gate,up,down}_exps`` ([E, ff,
+    hidden], [E, hidden, ff]) in place of the dense FFN."""
+    if draw not in ("normal", "blocks"):
+        raise ValueError(f"draw={draw!r}")
     rng = np.random.default_rng(seed)
     tokens, scores, types = build_vocab(vocab_size)
 
     w = GGUFWriter()
-    w.add("general.architecture", "llama")
+    w.add("general.architecture", arch)
     w.add("general.name", "booster-tpu-test")
-    w.add("llama.block_count", layers)
-    w.add("llama.context_length", 2048)
-    w.add("llama.embedding_length", hidden)
-    w.add("llama.feed_forward_length", ff)
-    w.add("llama.attention.head_count", heads)
-    w.add("llama.attention.head_count_kv", kv_heads)
-    w.add("llama.attention.layer_norm_rms_epsilon", 1e-5)
-    w.add("llama.rope.freq_base", 10000.0)
-    w.add("llama.rope.dimension_count", head_dim or hidden // heads)
+    a = arch + "."
+    w.add(a + "block_count", layers)
+    w.add(a + "context_length", context)
+    w.add(a + "embedding_length", hidden)
+    w.add(a + "feed_forward_length", ff)
+    w.add(a + "attention.head_count", heads)
+    w.add(a + "attention.head_count_kv", kv_heads)
+    w.add(a + "attention.layer_norm_rms_epsilon", 1e-5)
+    w.add(a + "rope.freq_base", float(rope_base))
+    w.add(a + "rope.dimension_count", head_dim or hidden // heads)
     if head_dim and head_dim != hidden // heads:
-        w.add("llama.attention.key_length", head_dim)
-        w.add("llama.attention.value_length", head_dim)
-    w.add("llama.vocab_size", vocab_size)
+        w.add(a + "attention.key_length", head_dim)
+        w.add(a + "attention.value_length", head_dim)
+    if experts:
+        w.add(a + "expert_count", experts)
+        w.add(a + "expert_used_count", experts_used)
+    w.add(a + "vocab_size", vocab_size)
     w.add("tokenizer.ggml.model", "llama")
     w.add("tokenizer.ggml.tokens", tokens)
     w.add("tokenizer.ggml.scores", scores)
@@ -105,8 +131,8 @@ def make_model(
     specs = []  # (name, shape, type, random?) in file order: the order of the draws
 
     def add(name, shape, rand=True):
-        qt = quant if len(shape) == 2 and shape[-1] % 256 == 0 else GGMLType.F32
-        if len(shape) < 2 or "norm" in name:
+        qt = quant if len(shape) >= 2 and shape[-1] % 256 == 0 else GGMLType.F32
+        if len(shape) < 2 or "norm" in name or "gate_inp" in name:
             qt = GGMLType.F32
         specs.append((name, shape, qt, rand))
 
@@ -121,25 +147,45 @@ def make_model(
         add(p + "attn_v.weight", (kv_heads * head_dim, hidden))
         add(p + "attn_output.weight", (hidden, heads * head_dim))
         add(p + "ffn_norm.weight", (hidden,), rand=False)
-        add(p + "ffn_gate.weight", (ff, hidden))
-        add(p + "ffn_up.weight", (ff, hidden))
-        add(p + "ffn_down.weight", (hidden, ff))
+        if experts:
+            add(p + "ffn_gate_inp.weight", (experts, hidden))
+            add(p + "ffn_gate_exps.weight", (experts, ff, hidden))
+            add(p + "ffn_up_exps.weight", (experts, ff, hidden))
+            add(p + "ffn_down_exps.weight", (experts, hidden, ff))
+        else:
+            add(p + "ffn_gate.weight", (ff, hidden))
+            add(p + "ffn_up.weight", (ff, hidden))
+            add(p + "ffn_down.weight", (hidden, ff))
 
-    # tensor by tensor while the file is written: the draws stay in file
-    # order on this thread, and a few tensors ahead are quantized on others
-    # (numpy releases the GIL), so a 7B-shape file never holds more than a
-    # few tensors in memory
-    pool = ThreadPoolExecutor(max_workers=4)
+    threads = min(8, os.cpu_count() or 1) if draw == "blocks" else 4
+    pool = ThreadPoolExecutor(max_workers=threads)
     pending: dict = {}
     drawn = 0
+    children = np.random.SeedSequence(seed).spawn(len(specs))
+
+    def blocks(i: int):
+        _, shape, qt, rand = specs[i]
+        r = np.random.default_rng(children[i])
+        if not rand:
+            return quantize(np.ones(shape, np.float32), qt)
+        if qt == GGMLType.F32:
+            return quantize(r.standard_normal(shape, dtype=np.float32) * s, qt)
+        return random_blocks(r, int(np.prod(shape)), qt, s)
 
     def tensor_bytes(i: int) -> bytes:
+        # tensor by tensor while the file is written, a few tensors ahead on
+        # other threads (numpy releases the GIL), so a file never holds
+        # more than a few tensors in memory; "normal" keeps its draws in
+        # file order on this thread
         nonlocal drawn
-        while drawn < len(specs) and drawn <= i + 3:
+        while drawn < len(specs) and drawn <= i + threads - 1:
             _, shape, qt, rand = specs[drawn]
-            arr = (rng.standard_normal(shape).astype(np.float32) * s if rand
-                   else np.ones(shape, np.float32))
-            pending[drawn] = pool.submit(quantize, arr, qt)
+            if draw == "blocks":
+                pending[drawn] = pool.submit(blocks, drawn)
+            else:
+                arr = (rng.standard_normal(shape).astype(np.float32) * s if rand
+                       else np.ones(shape, np.float32))
+                pending[drawn] = pool.submit(quantize, arr, qt)
             drawn += 1
         return pending.pop(i).result()
 
@@ -150,6 +196,30 @@ def make_model(
     finally:
         pool.shutdown(cancel_futures=True)
     return out_path
+
+
+def random_blocks(rng: np.random.Generator, n: int, qt: GGMLType, scale: float) -> memoryview:
+    """`n` weights of type Q4_0 or Q8_0 as random blocks: uniform codes
+    (nibbles 0-15 about the zero point 8, or int8 -127..127) and f16 scales
+    of random sign whose size is that of quantizing normals of standard
+    deviation `scale`: 32 such values have a largest magnitude of about
+    2.2·scale (so d ≈ 2.2·scale/8 for Q4_0, 2.2·scale/127 for Q8_0), drawn
+    here uniformly within ±20 % of it."""
+    nb = n // 32
+    mag = ((rng.random(nb, dtype=np.float32) * 0.4 + 0.8)
+           * (rng.integers(0, 2, nb, dtype=np.int8) * 2 - 1))
+    if qt == GGMLType.Q4_0:
+        out = np.empty((nb, 18), np.uint8)
+        out[:, 2:] = rng.integers(0, 256, (nb, 16), dtype=np.uint8)
+        d = mag * (2.2 * scale / 8)
+    elif qt == GGMLType.Q8_0:
+        out = np.empty((nb, 34), np.uint8)
+        out[:, 2:] = rng.integers(-127, 128, (nb, 32), dtype=np.int8).view(np.uint8)
+        d = mag * (2.2 * scale / 127)
+    else:
+        raise NotImplementedError(f"random blocks of {qt.name}: not ported yet")
+    out[:, :2] = d.astype(np.float16).view(np.uint8).reshape(nb, 2)
+    return out.reshape(-1).data
 
 
 def decode_attn_case(L: int, B: int, Hkv: int, G: int, S: int, D: int, Dc: int,

@@ -32,7 +32,14 @@ Phases, each printing one JSON line with its seconds:
    last column, a column read past the end, ignored v scales, and at head
    dim 128 ignored lanes 64-127; for the paged kernel the table ignored, a
    page off by one, the in-page row ignored and the scales of the wrong
-   page) at 8x its limit.  Median times of kernel,
+   page) at 8x its limit.  The lane-major matmul of csrc/qmm_lane.cu in its
+   grouped form (the routed experts), i4p and i8, at Mixtral-8x7B's expert
+   shapes under seeded routings (one decode token, 64, and the 64 x 32
+   prefill), and in its plain form at M = 1, 64 and 2048 on the 7B's qkv
+   and down shapes: within 2e-4 of the largest output of its plain
+   version, zero on the padding tiles it skips, and each wrong kernel (the
+   tile table ignored, the expert off by one, the nibble halves swapped, a
+   group's scale from its neighbour) past 8x that limit.  Median times of kernel,
    plain version and one library call (the yardstick), each call after an
    L2 scrub (cold, as on the decode path), and the kernel's time warm.
 3. parity — 2-layer models on the CPU (plain versions) and on the card
@@ -44,17 +51,24 @@ Phases, each printing one JSON line with its seconds:
    the single-stream path over a bf16 cache, 8 decode steps each; (d) the
    same model over the server's paged pool (``Engine(paged=True,
    page_size=256)``, its allocator giving the pages), an int8 pool and a
-   bf16 one, 4 slots of which 2 live, 8 decode steps.  The
+   bf16 one, 4 slots of which 2 live, 8 decode steps; (e) the Mixtral-8x7B
+   width (8 experts of ff 14336, 2 used) with Q4_0 and then Q8_0 weights,
+   the single-stream path over a bf16 cache, 8 decode steps (a step where
+   the two devices routed the compared token to other experts at a
+   near-tie of its bf16 router logits is left out; at most one).  The
    live slots' logits agree within the stated tolerance at every step, and
    the greedy tokens wherever the CPU's top-2 margin exceeds it.
 4. generate — the full 22-layer TinyLlama-shaped Q4_0 GGUF (random weights
    from a seed, built by booster_tpu_torch.testing.make_model and cached
-   under build/), ``load_model(device="cuda")`` and
+   under build/; every full-depth GGUF is written by one background
+   process, started at once, in the order the phases need them),
+   ``load_model(device="cuda")`` and
    ``Engine(max_batch=1, max_seq=1024, decode_chunk=128).generate`` of 128
    greedy tokens, with the kernels' launch counts reset just before and read
    just after; every kernel of the path must have launched, at the expected
-   counts, and no other.  One more generate runs under torch.profiler:
-   kernel time and launches per token, and the device busy share.
+   counts, and no other.  A 32-token generate (decode_chunk 32) runs under
+   torch.profiler: kernel time and launches per token, and the device busy
+   share against the same generate's wall time unprofiled.
 5. batch — the same GGUF through ``load_model(weights="auto",
    batch_hint=64)``, which must resolve to bf16 weights, and
    ``Engine(max_batch=64, max_seq=512, kv_quantized=True, decode_chunk=32)``
@@ -65,8 +79,9 @@ Phases, each printing one JSON line with its seconds:
    are reset just before the measured run and read just after, and must be
    exact: 22 int8 decode attentions per step, one quantizing append per
    step, 22 prefill attentions per prefill chunk, no 4-bit matmul.  It
-   prints aggregate and per-stream tok/s, prefill ms, and (one more run
-   under torch.profiler) the device busy share and the top kernels.
+   prints aggregate and per-stream tok/s, prefill ms, and (a run to 32
+   tokens, the prefill and 64 steps, under torch.profiler) the device busy
+   share and the top kernels.
 6. generate_q8 — bench.py's config 3 model: the full 32-layer Mistral-7B
    shape (hidden 4096, 32 heads over 8 kv heads, ff 14336, vocab 32000)
    with Q8_0 weights, built as bench.py builds it (7.7 GB, cached under
@@ -112,10 +127,31 @@ Phases, each printing one JSON line with its seconds:
    sync check, which must find none), and (one more round of the 64 under
    torch.profiler) the device busy share and the top kernels.
 
+9. generate_moe — the Mixtral-8x7B shape of the public
+   mistralai/Mixtral-8x7B-v0.1 config (32 layers, the 7B attention, 8
+   experts of ff 14336 with 2 used, rope base 1e6, vocab 32000) as a Q4_0
+   GGUF of 26 GB whose blocks are drawn from the seed (make_model
+   draw="blocks"; written by the background writer, under build/smoke/),
+   loaded once with ``load_model(weights="auto")`` (native: i4t attention,
+   lane-major i4p expert stacks repacked on the card; the load's peak
+   anonymous RSS printed), then phase 4's generate on it.  Exact counts
+   (the reference's _moe_ffn takes the grouped dispatch, llama.py:540 and
+   :188): per decode step 2·32 + 1 i4t group-dot matmuls, 3·32 grouped
+   expert matmuls, 32 bf16 decode attentions and one append; at the
+   16-row prefill 64 i4t dequant matmuls, 96 grouped ones and the lm head.
+10. batch_moe — the same model through phase 5's bench_batch (load_model
+   (weights="auto", batch_hint=64) resolves to native for a file that is
+   93 GB as bf16: the same loaded model), 64 streams, int8 KV.  Exact
+   counts: per decode step and per prefill chunk 2·32 + 1 i4t dequant
+   matmuls and 96 grouped ones; 32 int8 decode attentions and one append
+   per step, 32 prefill attentions per chunk.  Every decode dispatch runs
+   under torch's synchronization check, which must find no host sync.
+
 Then one ``{"kernels": [...]}`` line (each kernel's launches are those of
 the path that runs it: generate / generate_q8 for the M = 1 kernels and
 bf16-cache attention, batch / batch_q8 for the int8 ones, server for the
-paged ones; the bf16-pool paged forms launch no time there) and, last,
+paged ones, generate_moe / batch_moe for the grouped ones; the bf16-pool
+paged forms and the plain lane-major forms launch no time there) and, last,
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout of
 the repository, it exits non-zero and prints no result.
 """
@@ -123,20 +159,23 @@ the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
 import sys
 import time
 import traceback
+import tracemalloc
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core rate, NVIDIA data sheet
 SCRUB_BYTES = 200 << 20  # 4x the H100's 50 MB L2: read between timed calls
 PHASES = ("build", "kernels", "parity", "generate", "batch", "generate_q8", "batch_q8",
-          "server")
+          "server", "generate_moe", "batch_moe")
 
 # TinyLlama-1.1B (config 1 of bench.py), Q4_0
 TINYLLAMA = dict(vocab_size=32000, hidden=2048, heads=32, kv_heads=4, ff=5632,
@@ -144,6 +183,13 @@ TINYLLAMA = dict(vocab_size=32000, hidden=2048, heads=32, kv_heads=4, ff=5632,
 # the Mistral-7B shape of bench.py's config 3 (bench.py:63-68), Q8_0
 MISTRAL7B = dict(vocab_size=32000, hidden=4096, heads=32, kv_heads=8, ff=14336,
                  seed=0, weight_scale=0.05)
+# the public mistralai/Mixtral-8x7B-v0.1 config.json: the 7B attention (32
+# heads over 8 kv heads of 128), 8 experts of ff 14336 of which 2 are used,
+# rope_theta 1e6, 32K context; its quantized blocks drawn directly from the
+# seed (make_model draw="blocks"), 26 GB as Q4_0
+MIXTRAL = dict(vocab_size=32000, hidden=4096, heads=32, kv_heads=8, ff=14336, experts=8,
+               experts_used=2, rope_base=1e6, context=32768, seed=0, weight_scale=0.05,
+               draw="blocks")
 # the attention kernels' layouts on the two models' paths: the bf16-cache
 # generate (batch 1, S1 rows) and the int8-cache batch (B slots, S rows)
 TINY_ATTN = dict(name="TinyLlama", L=22, Hkv=4, G=8, D=64, Dc=128, S1=1024, B=64, S=512,
@@ -380,6 +426,7 @@ def phase_kernels(entries: list) -> dict:
     paged_checks: dict = {}
     _paged_kernels(entries, failures, paged_checks)
     _i8t_kernels(entries, failures)
+    _moe_kernels(entries, failures)
     _scrub_buf.clear()
     torch.cuda.empty_cache()
     if failures:
@@ -943,29 +990,231 @@ def _i8t_kernels(entries: list, failures: list) -> None:
     torch.cuda.empty_cache()
 
 
+def _lane_weight(kind, R, K, gen):
+    """A random lane-major weight [R, K] made on the card: Q4_0's i4p (u8
+    payload [R, K/2], zero point 8, bf16 scale planes [R, 2, K/64]) or
+    Q8_0's i8 (int8 [R, K], planes [R, 1, K/32])."""
+    import torch
+
+    from booster_tpu_torch.gguf import GGMLType
+    from booster_tpu_torch.quant.qtensor import QTensor
+
+    if kind == "i4p":
+        qw = torch.randint(0, 256, (R, K // 2), dtype=torch.uint8, device="cuda", generator=gen)
+        s = torch.rand((R, 2, K // 64), device="cuda", generator=gen) * 0.02 + 1e-3
+        return QTensor("i4p", qw, s.to(torch.bfloat16), None, 32, (R, K), GGMLType.Q4_0, zero=8)
+    qw = torch.randint(-127, 128, (R, K), dtype=torch.int8, device="cuda", generator=gen)
+    s = torch.rand((R, 1, K // 32), device="cuda", generator=gen) * 2e-3 + 1e-4
+    return QTensor("i8", qw, s.to(torch.bfloat16), None, 32, (R, K), GGMLType.Q8_0)
+
+
+def _lane_mutants(w) -> dict:
+    """Weights that make the plain version compute what wrong kernels would:
+    the nibble halves swapped (i4p) and each group's scale taken from its
+    neighbour."""
+    import dataclasses
+
+    import torch
+
+    out = {"a group's scale from its neighbour": dataclasses.replace(
+        w, scales=torch.roll(w.scales, -1, -1))}
+    if w.kind == "i4p":
+        out["nibble halves swapped"] = dataclasses.replace(w, qw=(w.qw >> 4) | (w.qw << 4))
+    return out
+
+
+def timed_eager(fn, reps: int = 3) -> float:
+    """Device ms per call between CUDA events, without a graph (for plain
+    versions that read back from the card) and without an L2 scrub."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _grouped_yardstick(xp, wd, start, used):
+    """One PyTorch call computing the grouped matmul on the same inputs:
+    torch._grouped_mm over the pre-dequantized bf16 stack [E, Ne, K] with
+    route_pad's group offsets, where the installed torch has it and takes
+    these operands; else the per-expert torch.matmul calls, summed.
+    Returns (ms, what)."""
+    import torch
+
+    x = xp[:used]
+    offs = start[1:].contiguous()
+    refused = []
+    for b in (wd.transpose(1, 2), wd.transpose(1, 2).contiguous()):
+        try:
+            torch._grouped_mm(x, b, offs=offs)
+            torch.cuda.synchronize()
+            return (timed(lambda: torch._grouped_mm(x, b, offs=offs)),
+                    "torch._grouped_mm over the dequantized bf16 stack")
+        except Exception as e:  # noqa: BLE001 — the yardstick only
+            refused.append(repr(e)[:200])
+    bounds = start.tolist()
+    pieces = [(xp[a:b], wd[e]) for e, (a, b) in enumerate(zip(bounds, bounds[1:])) if b > a]
+    return (timed(lambda: [torch.matmul(a, w.t()) for a, w in pieces]),
+            "torch.matmul per expert over the dequantized bf16 stack, summed "
+            f"(torch._grouped_mm refused: {refused})")
+
+
+def _moe_kernels(entries: list, failures: list) -> None:
+    """The grouped expert matmul (csrc/qmm_lane.cu with a tile table), i4p
+    and i8, at Mixtral-8x7B's expert shapes (gate and up [8 x 14336, 4096],
+    down [8 x 4096, 14336]) under routings of seeded logits: one decode
+    token (2 rows), 64 (128 rows) and the 64 x 32 prefill (4096 rows),
+    through route_pad as the path runs it; then the plain lane-major form
+    (no tile table) at M = 1, 64 and 2048 on the 7B's qkv and down shapes.
+    Each is held against its plain version within 2e-4 of the largest
+    output, must be exactly zero on the padding tiles it skips, and every
+    wrong kernel (the tile table ignored, the expert off by one, the nibble
+    halves swapped, a group's scale from its neighbour) must move the
+    output past 8x that limit."""
+    import torch
+
+    from booster_tpu_torch.ops import moe
+    from booster_tpu_torch.ops import qmm as tq
+    from booster_tpu_torch.quant.qtensor import dequantize
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    E, k, C, ff = MIXTRAL["experts"], MIXTRAL["experts_used"], MIXTRAL["hidden"], MIXTRAL["ff"]
+    src = "booster_tpu_torch/csrc/qmm_lane.cu"
+    routings = (("decode B=1", 1, "generate_moe"), ("decode B=64", 64, "batch_moe"),
+                ("prefill 64x32", 64 * 32, "batch_moe"))
+
+    def check(name, got, want, mutants, plain):
+        limit = 2e-4 * float(want.abs().max())
+        err = float((got - want).abs().max())
+        if not (err <= limit and torch.isfinite(got).all()):
+            failures.append(f"{name}: max err {err} over {limit}")
+        seen = {what: float((plain(m) - want).abs().max()) / limit for what, m in mutants.items()}
+        for what, v in seen.items():
+            if v < 8:
+                failures.append(f"{name}: the check cannot see {what} ({v} of the limit)")
+        return err, min(seen.values())
+
+    for kind in ("i4p", "i8"):
+        name = f"moe_qmm_{kind}"
+        for label, Ne, K in (("gate/up", ff, C), ("down", C, ff)):
+            w = _lane_weight(kind, E * Ne, K, gen)
+            wd = dequantize(w, torch.bfloat16).reshape(E, Ne, K)
+            for rlabel, n_tok, path in routings:
+                x = torch.randn(n_tok, K, device="cuda", generator=gen).to(torch.bfloat16)
+                logits = torch.randn(n_tok, E, device="cuda", generator=gen)
+                topi = torch.sort(logits, dim=-1, descending=True, stable=True).indices[:, :k]
+                xp, pos, te, used = moe.route_pad(x, topi.to(torch.int32), E)
+                got = moe.grouped_qmm(xp, w, te, E, used)
+                want = moe.grouped_qmm_plain(xp, w, te, E, used)
+                n_used = int(used[0])
+                if got[n_used:].any():
+                    failures.append(f"{name} {label} {rlabel}: padding tiles not zero")
+
+                def plain(m):
+                    if isinstance(m, torch.Tensor):  # a wrong tile table
+                        return moe.grouped_qmm_plain(xp, w, m, E, used)
+                    return moe.grouped_qmm_plain(xp, m, te, E, used)
+
+                mutants = {"tile table ignored": torch.zeros_like(te),
+                           "expert off by one": (te + 1) % E, **_lane_mutants(w)}
+                err, seen = check(f"{name} {label} {rlabel}", got, want, mutants, plain)
+                counts = torch.zeros(E, dtype=torch.int32, device="cuda").index_add_(
+                    0, topi.reshape(-1), torch.ones(n_tok * k, dtype=torch.int32, device="cuda"))
+                start = torch.cat([torch.zeros(1, dtype=torch.int32, device="cuda"),
+                                   torch.cumsum((counts + 31) // 32 * 32, 0, dtype=torch.int32)])
+                live = int((counts > 0).sum())  # experts with at least one real row
+                w_bytes = Ne * (K // 2 if kind == "i4p" else K) + Ne * (K // 32) * 2
+                b_ms, b_by = bound(live * w_bytes + n_used * K * 2 + n_used * Ne * 4,
+                                   2 * n_tok * k * Ne * K)
+                lib_ms, lib = _grouped_yardstick(xp, wd, start, n_used)
+                entries.append({
+                    "name": name, "shape": f"Mixtral {label} E={E} Ne={Ne} K={K} {rlabel}: "
+                                           f"{n_tok * k} rows of Mp={xp.shape[0]}, "
+                                           f"{n_used} in {live} experts' tiles",
+                    "key": (name, (K, Ne)), "path": path, "route": "cuda", "source": src,
+                    "replaces": "booster_tpu/ops/pallas_moe.py:" + (
+                        "113" if kind == "i4p" else "150"),
+                    "max_abs_err": err, "min_wrong_kernel_of_limit": seen,
+                    "ms": timed(lambda: moe.grouped_qmm(xp, w, te, E, used)),
+                    "warm_ms": timed(lambda: moe.grouped_qmm(xp, w, te, E, used), cold=False),
+                    "plain_ms": timed_eager(lambda: moe.grouped_qmm_plain(xp, w, te, E, used)),
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "bound_note": "payload and scales of each expert a real row routes to, "
+                                  "x and out of the tiles that hold real rows; operations of "
+                                  "the real rows",
+                    "library_ms": lib_ms, "library": lib, "check": CHECKS["qmm"]})
+                del x, xp, pos, te, used, got, want
+            del w, wd
+            torch.cuda.empty_cache()
+
+    # the plain lane-major form on the 7B's shapes (qkv 4096 → 6144, down
+    # 14336 → 4096): no Mixtral weight takes it, every one is transposable
+    nqkv = C + 2 * MIXTRAL["kv_heads"] * (C // MIXTRAL["heads"])
+    for kind in ("i4p", "i8"):
+        name = "qmm_i4p" if kind == "i4p" else "qmm_i8"
+        for label, N, K in (("qkv", nqkv, C), ("down", C, ff)):
+            w = _lane_weight(kind, N, K, gen)
+            deq = dequantize(w, torch.bfloat16)
+            for M in (1, 64, 2048):
+                x = torch.randn(M, K, device="cuda", generator=gen).to(torch.bfloat16)
+                got, want = tq.qmm_lane(x, w), tq.qmm_lane_plain(x, w)
+                err, seen = check(f"{name} {label} M={M}", got, want, _lane_mutants(w),
+                                  lambda m: tq.qmm_lane_plain(x, m))
+                w_bytes = N * (K // 2 if kind == "i4p" else K) + N * (K // 32) * 2
+                b_ms, b_by = bound(w_bytes + M * K * 2 + M * N * 4, 2 * M * N * K)
+                entries.append({
+                    "name": name, "shape": f"7B {label} M={M} K={K} N={N}",
+                    "key": (name, (K, N)), "path": "generate_moe", "route": "cuda",
+                    "source": src, "replaces": "booster_tpu/ops/pallas_qmm.py:" + (
+                        "225" if kind == "i4p" else "265"),
+                    "max_abs_err": err, "min_wrong_kernel_of_limit": seen,
+                    "ms": timed(lambda: tq.qmm_lane(x, w)),
+                    "warm_ms": timed(lambda: tq.qmm_lane(x, w), cold=False),
+                    "plain_ms": timed(lambda: tq.qmm_lane_plain(x, w), reps=3, trials=3),
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": timed(lambda: torch.matmul(x, deq.t())),
+                    "library": "torch.matmul on the dequantized bf16 weight",
+                    "check": CHECKS["qmm"]})
+                del x, got, want
+            del w, deq
+    torch.cuda.empty_cache()
+
+
 # -- phase 3 -----------------------------------------------------------------
 
 
-def _gguf_path(layers: int, q8: bool = False) -> Path:
-    name = "mistral7b-shape-q8_0" if q8 else "tinyllama-shape-q4_0"
-    return ROOT / "build" / "smoke" / f"{name}-L{layers}-seed0.gguf"
+# the smoke run's GGUFs: file stem, make_model arguments, weight type
+GGUFS = {"tiny": ("tinyllama-shape-q4_0", "TINYLLAMA", "Q4_0"),
+         "q8": ("mistral7b-shape-q8_0", "MISTRAL7B", "Q8_0"),
+         "moe": ("mixtral8x7b-shape-q4_0", "MIXTRAL", "Q4_0"),
+         "moe_q8": ("mixtral8x7b-shape-q8_0", "MIXTRAL", "Q8_0")}
 
 
-def _gguf(layers: int, q8: bool = False) -> str:
-    """The TinyLlama-shaped Q4_0 GGUF, or with `q8` the Mistral-7B-shaped
-    Q8_0 one (bench.py's config 3), of `layers` layers: built once from its
-    seed and cached under build/smoke/."""
+def _gguf_path(layers: int, model: str = "tiny") -> Path:
+    return ROOT / "build" / "smoke" / f"{GGUFS[model][0]}-L{layers}-seed0.gguf"
+
+
+def _gguf(layers: int, model: str = "tiny") -> str:
+    """The GGUF of `model` (GGUFS: the TinyLlama-shaped Q4_0, bench.py's
+    config-3 Mistral-7B-shaped Q8_0, the Mixtral-8x7B-shaped Q4_0 or Q8_0)
+    at `layers` layers: built once from its seed and cached under
+    build/smoke/."""
     from booster_tpu_torch.gguf import GGMLType
     from booster_tpu_torch.testing import make_model
 
-    path = _gguf_path(layers, q8)
+    path = _gguf_path(layers, model)
     path.parent.mkdir(parents=True, exist_ok=True)
     if not path.exists():
         tmp = path.with_suffix(".tmp")
-        if q8:
-            make_model(str(tmp), layers=layers, quant=GGMLType.Q8_0, **MISTRAL7B)
-        else:
-            make_model(str(tmp), layers=layers, **TINYLLAMA)  # Q4_0 weights
+        _, shape, quant = GGUFS[model]
+        make_model(str(tmp), layers=layers, quant=GGMLType[quant], **globals()[shape])
         tmp.replace(path)
     return str(path)
 
@@ -1029,7 +1278,7 @@ def phase_parity() -> dict:
     from booster_tpu_torch.ops.kv_cache import KVCache
 
     t0 = time.perf_counter()
-    path = _gguf(2)
+    path = _gguf(2, "tiny")
     tol = 2 ** -5
     out = {"phase": "parity", "layers": 2, "tolerance": CHECKS["logits"]}
     # (a) batch 1, Q4_0 weights, bf16 cache (the generate path)
@@ -1059,7 +1308,7 @@ def phase_parity() -> dict:
     # int8 cache at the T = 32 bucket, then the single-stream path over a
     # bf16 cache; 8 steps each (the CPU's plain forward takes ~1 s a step)
     del models, caches
-    path = _gguf(2, q8=True)
+    path = _gguf(2, "q8")
     models = {dev: load_model(path, device=dev, weights="native") for dev in ("cpu", "cuda")}
     cfg = models["cpu"].cfg
     kinds = {v.kind for v in models["cuda"].params["layers"].values() if hasattr(v, "kind")}
@@ -1102,7 +1351,84 @@ def phase_parity() -> dict:
         expect = [len(prompts[0]) + 8, 0, len(prompts[2]) + 8, 0]
         if lengths != [expect, expect]:
             raise AssertionError(f"parity paged: cache lengths {lengths} != {expect}")
+    del models, caches
+    out.update(_parity_moe(tol))
     out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _parity_moe(tol: float) -> dict:
+    """(e) the Mixtral-8x7B width at 2 layers, Q4_0 and then Q8_0 (so that
+    the grouped kernel's i8 branch runs on a model path): the single-stream
+    path over a bf16 cache, a 16-row prefill and 8 decode steps, the CPU
+    (plain versions) against the card (kernels).  A router's logits are
+    bf16, so the two devices may route a token to other experts where its
+    k-th and (k+1)-th logits tie within their f32 summation difference;
+    such a step's logits (only that step's) are left out of the comparison,
+    each flip must be such a near-tie, and at most one step may have one."""
+    import numpy as np
+    import torch
+
+    from booster_tpu_torch.models import llama, load_model
+    from booster_tpu_torch.ops.kv_cache import KVCache
+
+    out = {}
+    k = MIXTRAL["experts_used"]
+    for model in ("moe", "moe_q8"):
+        path, _ = _wait_gguf(model, 2)
+        models = {dev: load_model(path, device=dev, weights="native") for dev in ("cpu", "cuda")}
+        cfg = models["cpu"].cfg
+        lay = models["cuda"].params["layers"]
+        kinds = {key: lay[key].kind for key in ("wqkv", "wo", "gate_exps", "down_exps")}
+        want_kinds = ({"wqkv": "i4t", "wo": "i4t", "gate_exps": "i4p", "down_exps": "i4p"}
+                      if model == "moe" else
+                      {"wqkv": "i8t", "wo": "i8t", "gate_exps": "i8", "down_exps": "i8"})
+        if kinds != want_kinds or cfg.n_experts != MIXTRAL["experts"]:
+            raise AssertionError(f"parity {model}: weights {kinds}, experts {cfg.n_experts}")
+        routed = {"cpu": [], "cuda": []}
+        route = llama.moe_route
+
+        def spy(logits, cfg_):
+            routed[logits.device.type].append(logits.float().cpu())
+            return route(logits, cfg_)
+
+        ids = models["cpu"].tokenizer.encode(PROMPT)
+        caches = {dev: KVCache.create(cfg.n_layers, 1, 256, cfg.n_kv_heads, cfg.head_dim, dev)
+                  for dev in models}
+        llama.moe_route = spy
+        try:
+            got, want = _teacher_forced(models, caches, [ids], 16, [True], steps=8)
+        finally:
+            llama.moe_route = route
+        L = cfg.n_layers
+        flips, keep = [], []
+        for step in range(got.shape[0]):
+            row = len(ids) - 1 if step == 0 else 0  # the row whose logits are compared
+            flipped = False
+            for layer in range(L):
+                a = routed["cpu"][step * L + layer][row]
+                b = routed["cuda"][step * L + layer][row]
+                ta = torch.sort(a, descending=True, stable=True)
+                tb = torch.sort(b, descending=True, stable=True)
+                if set(ta.indices[:k].tolist()) == set(tb.indices[:k].tolist()):
+                    continue
+                d = float((a - b).abs().max())
+                gaps = [float(t.values[k - 1] - t.values[k]) for t in (ta, tb)]
+                if d > tol * float(a.abs().max()) or max(gaps) > 2 * d:
+                    raise AssertionError(f"parity {model}: step {step} layer {layer} routes "
+                                         f"{a.tolist()} / {b.tolist()} apart")
+                flips.append({"step": step, "layer": layer, "router_diff": d, "gaps": gaps})
+                flipped = True
+            if not flipped:
+                keep.append(step)
+        if len(got) - len(keep) > 1:
+            raise AssertionError(f"parity {model}: routing flips at {flips}")
+        res = _compare_logits(model, got[keep], want[keep], tol)
+        if keep[:2] != [0, 1]:  # its first two compared steps are not prefill and decode 1
+            res["prefill_rel_err"] = res["first_decode_rel_err"] = None
+        res.update(steps_compared=keep, routing_flips_at_near_ties=flips)
+        out[f"{model}_mixtral_width_bf16_cache_1_slot"] = res
+        del models, caches
     return out
 
 
@@ -1136,48 +1462,109 @@ def _profile(run, steps: int) -> dict:
             "top_kernels_ms": [[k, round(ms, 3), n] for k, ms, n in rows[:12]]}
 
 
-_q8: dict = {}  # the 7B Q8_0 model, loaded once for generate_q8 and batch_q8
+_writer: dict = {}  # "proc": the process writing the GGUFs the phases need
+_big: dict = {}  # model → the full-depth model, loaded once for its phases
 
 
-def _start_q8_gguf() -> None:
-    """Write the 32-layer 7B GGUF in a process of its own while the earlier
-    phases run (3-4 minutes of numpy; the seeded draws are sequential)."""
-    if not Path(_gguf_path(32, q8=True)).exists():
-        _q8["writer"] = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
-                                          "--write-q8-gguf"], stdout=subprocess.PIPE, text=True)
+def _start_writer(jobs: list) -> None:
+    """Write the GGUFs of `jobs` ((model, layers) in the order the phases
+    need them) one after another in a process of its own while the earlier
+    phases run: the TinyLlama's seeded normal draws take ~30 s of numpy, the
+    7B's 3 minutes, the Mixtral's 26 GB of blocks under a minute."""
+    todo = [f"{m}:{n}" for m, n in jobs if not _gguf_path(n, m).exists()]
+    if todo:
+        _writer["proc"] = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--write-gguf", ",".join(todo)],
+            stdout=subprocess.DEVNULL)
 
 
-def _q8_model():
-    """bench.py's config-3 model through load_model(weights="auto") (no batch
-    hint, as bench.py loads it): (model, GGUF build seconds, load seconds)."""
+def _write_ggufs(jobs: str) -> None:
+    """The writer process: each GGUF of `jobs` ("model:layers,..."), then
+    the seconds it took beside it (<file>.seconds)."""
+    for job in jobs.split(","):
+        model, layers = job.split(":")
+        t0 = time.perf_counter()
+        path = _gguf(int(layers), model)
+        Path(path + ".seconds").write_text(str(time.perf_counter() - t0))
+
+
+def _wait_gguf(model: str, layers: int) -> tuple[str, Optional[float]]:
+    """The GGUF's path once it is there, and the seconds its writer took
+    (None when this process wrote it)."""
+    path = _gguf_path(layers, model)
+    proc = _writer.get("proc")
+    while proc is not None and not path.exists() and proc.poll() is None:
+        time.sleep(0.2)
+    if proc is not None and not path.exists() and proc.returncode:
+        raise RuntimeError(f"writing the GGUFs failed ({proc.returncode})")
+    seconds = Path(str(path) + ".seconds")
+    return _gguf(layers, model), float(seconds.read_text()) if seconds.exists() else None
+
+
+def _rss_gb() -> tuple[float, str]:
+    """This process's resident memory in GB and the /proc/self/status field
+    it came from: RssAnon (numpy and torch host buffers, the GGUF's mapped
+    pages excluded) where the kernel reports it, else VmRSS."""
+    fields = dict(line.split(":", 1) for line in
+                  Path("/proc/self/status").read_text().splitlines() if ":" in line)
+    key = "RssAnon" if "RssAnon" in fields else "VmRSS"
+    return int(fields[key].split()[0]) / 2**20, key
+
+
+def _big_model(model: str, layers: int = 32):
+    """A full-depth model through load_model(weights="auto") with no batch
+    hint, as bench.py loads it: config 3's 7B Q8_0 model ("q8", native i8t
+    throughout) or the Mixtral-8x7B shape ("moe": i4t attention and lm
+    head, lane-major i4p expert stacks).  Loaded once; beside the load, the
+    peak of its resident memory is sampled (which counts the GGUF's pages
+    where the kernel reports no RssAnon) and tracemalloc's peak of the
+    host memory it holds in numpy arrays and Python objects."""
+    import threading
+
     from booster_tpu_torch.models import load_model
 
-    if "model" not in _q8:
+    if model not in _big:
         t0 = time.perf_counter()
-        writer = _q8.pop("writer", None)
-        build_s = None
-        if writer is not None:  # it ran beside the earlier phases: its own seconds
-            out, _ = writer.communicate()
-            if writer.returncode != 0:
-                raise RuntimeError(f"writing the 7B GGUF failed ({writer.returncode})")
-            build_s = float(out.split()[-1])
-        path = _gguf(32, q8=True)
+        path, build_s = _wait_gguf(model, layers)
         t1 = time.perf_counter()
-        model = load_model(path, device="cuda", weights="auto")
+        rss0, field = _rss_gb()
+        peak, done = [rss0], threading.Event()
+
+        def sample():
+            while not done.wait(0.02):
+                peak[0] = max(peak[0], _rss_gb()[0])
+
+        watcher = threading.Thread(target=sample, daemon=True)
+        watcher.start()
+        tracemalloc.start()
+        try:
+            m = load_model(path, device="cuda", weights="auto")
+        finally:
+            traced_peak = tracemalloc.get_traced_memory()[1] / 2**30
+            tracemalloc.stop()
+            done.set()
+            watcher.join()
         # wait_s: how long this phase waited for the file (the writer's
         # seconds that the earlier phases did not cover)
-        _q8.update(model=model, build_s=t1 - t0 if build_s is None else build_s,
-                   wait_s=t1 - t0, load_s=time.perf_counter() - t1)
-        kinds = {k: v.kind for k, v in model.params["layers"].items() if hasattr(v, "kind")}
-        kinds["output"] = model.params["output"].kind
-        if set(kinds.values()) != {"i8t"}:
-            raise AssertionError(f"q8: weights=auto gave {kinds}, not native i8t")
-    return _q8["model"], _q8["build_s"], _q8["load_s"]
+        _big[model] = dict(model=m, build_s=t1 - t0 if build_s is None else build_s,
+                           wait_s=t1 - t0, load_s=time.perf_counter() - t1,
+                           load_rss_gb={"field": field, "before": rss0, "peak": peak[0],
+                                        "after": _rss_gb()[0],
+                                        "numpy_and_python_peak": traced_peak})
+        kinds = {k: v.kind for k, v in m.params["layers"].items() if hasattr(v, "kind")}
+        kinds["output"] = m.params["output"].kind
+        want = (dict.fromkeys(kinds, "i8t") if model == "q8" else
+                dict.fromkeys(kinds, "i4t") | {"router": "dense", "gate_exps": "i4p",
+                                               "up_exps": "i4p", "down_exps": "i4p"})
+        if kinds != want:
+            raise AssertionError(f"{model}: weights=auto gave {kinds}, not {want}")
+    return _big[model]
 
 
-def phase_generate(layers: int, q8: bool = False) -> dict:
-    """The single-stream generate: TinyLlama Q4_0, or with `q8` the 7B Q8_0
-    model (phase generate_q8)."""
+def phase_generate(layers: int, model_name: str = "tiny") -> dict:
+    """The single-stream generate: TinyLlama Q4_0 ("tiny"), the 7B Q8_0
+    model ("q8", phase generate_q8) or the Mixtral-8x7B shape ("moe", phase
+    generate_moe)."""
     import torch
 
     from booster_tpu_torch.models import load_model
@@ -1186,15 +1573,18 @@ def phase_generate(layers: int, q8: bool = False) -> dict:
     from booster_tpu_torch.serving import Engine
 
     t0 = time.perf_counter()
-    t_wait = None
-    if q8:
-        model, t_build, t_load = _q8_model()
-        t_wait = _q8["wait_s"]
+    t_wait = load_rss = None
+    q8, moe = model_name == "q8", model_name == "moe"
+    torch.cuda.reset_peak_memory_stats()
+    if model_name in ("q8", "moe"):
+        big = _big_model(model_name, layers)
+        model, t_build, t_load = big["model"], big["build_s"], big["load_s"]
+        t_wait, load_rss = big["wait_s"], big["load_rss_gb"]
     else:
-        path = _gguf(layers)
-        t_build = time.perf_counter() - t0
+        path, t_build = _wait_gguf("tiny", layers)
+        t_wait = time.perf_counter() - t0
         model = load_model(path, device="cuda")
-        t_load = time.perf_counter() - t0 - t_build
+        t_load = time.perf_counter() - t0 - t_wait
     eng = Engine(model, max_batch=1, max_seq=1024, decode_chunk=128)
     ids = model.tokenizer.encode(PROMPT)
     sp = SamplingParams(temp=0.0)
@@ -1214,6 +1604,10 @@ def phase_generate(layers: int, q8: bool = False) -> dict:
         expected = dict.fromkeys(counts, 0) | {
             "qmm_i8t_gd": (2 * L + 1) * steps + 1, "qmm_i8t_dq": 2 * L,
             "mlp_i8t": L * steps + L, "decode_attn": L * steps, "kv_append": steps}
+    elif moe:  # qkv and wo per layer + the lm head; gate, up, down of the experts
+        expected = dict.fromkeys(counts, 0) | {
+            "qmm_i4t_gd": (2 * L + 1) * steps + 1, "qmm_i4t_dq": 2 * L,
+            "moe_qmm_i4p": 3 * L * (steps + 1), "decode_attn": L * steps, "kv_append": steps}
     else:
         expected = dict.fromkeys(counts, 0) | {
             "qmm_i4t_gd": (3 * L + 1) * steps + 1, "qmm_i4t_dq": 3 * L,
@@ -1221,17 +1615,32 @@ def phase_generate(layers: int, q8: bool = False) -> dict:
             "decode_attn": L * steps, "kv_append": steps}
     if counts != expected:
         raise AssertionError(f"launch counts {counts} != expected {expected}")
-    prof = _profile(lambda: eng.generate(ids, sp, max_new_tokens=128), steps=128)
+    # the trace covers a 32-token generate: summing one of 128 tokens (130 K
+    # to 440 K kernel events) took up to a minute of the script's time limit
+    short = Engine(model, max_batch=1, max_seq=1024, decode_chunk=32)
+    short.generate(ids, sp, max_new_tokens=32)
+    torch.cuda.synchronize()
+    t_short = time.perf_counter()
+    short.generate(ids, sp, max_new_tokens=32)
+    torch.cuda.synchronize()
+    prof_wall = 1e3 * (time.perf_counter() - t_short)
+    prof = _profile(lambda: short.generate(ids, sp, max_new_tokens=32), steps=32)
+    prof["window"] = "a 32-token generate (decode_chunk 32)"
+    del short
     if prof["kernel_ms"] is not None:
-        prof["device_busy_share"] = prof["kernel_ms"] / wall_ms
+        prof["device_busy_share"] = prof["kernel_ms"] / prof_wall
     V = model.cfg.n_vocab
     if not (len(res.token_ids) >= 1 and all(0 <= t < V for t in res.token_ids)):
         raise AssertionError("generate: bad token ids")
     if res.n_generated != 128 and res.finish_reason != "stop":
         raise AssertionError(f"generate: {res.n_generated} tokens, {res.finish_reason}")
-    return {"phase": "generate_q8" if q8 else "generate", "seconds": time.perf_counter() - t0,
-            "layers": layers, "weights": "q8_0 (i8t)" if q8 else "q4_0 (i4t)",
+    return {"phase": {"tiny": "generate", "q8": "generate_q8", "moe": "generate_moe"}[model_name],
+            "seconds": time.perf_counter() - t0, "layers": layers,
+            "weights": {"tiny": "q4_0 (i4t)", "q8": "q8_0 (i8t)",
+                        "moe": "q4_0 (i4t attention, i4p experts)"}[model_name],
             "gguf_build_s": t_build, "gguf_wait_s": t_wait, "load_s": t_load,
+            "load_rss_gb": load_rss,
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
             "n_prompt": res.n_prompt, "n_generated": res.n_generated,
             "finish_reason": res.finish_reason,
             "decode_tok_per_s": 1000.0 / res.gen_ms_per_token,
@@ -1239,7 +1648,7 @@ def phase_generate(layers: int, q8: bool = False) -> dict:
             "prompt_ms_per_token": res.prompt_ms_per_token, "ttft_ms": res.ttft_ms,
             "launches": counts, "launches_per_decoded_token": {
                 k: v / steps for k, v in counts.items() if k.endswith("_gd") or k in (
-                    "decode_attn", "kv_append", "mlp_i8t")},
+                    "decode_attn", "kv_append", "mlp_i8t", "moe_qmm_i4p")},
             "launches_by_shape": shapes, "tokens_head": res.token_ids[:16],
             "wall_ms": wall_ms, "profile": prof,
             "_shape_counts": shape_counts}
@@ -1293,21 +1702,70 @@ def _bench_batch(eng, tokenizer, n_streams: int, n_tokens: int) -> dict:
             "prompt_tokens": {s: len(p) for s, p in prompts.items()}, "rows": rows}
 
 
-def phase_batch(layers: int, q8: bool = False) -> dict:
+class _SyncCheck:
+    """Wraps eng.decode_slots_start so that each decode dispatch runs with
+    torch's synchronization check on; counts the dispatches, the syncs the
+    check warns of, and the dispatches that found the chunk before them
+    still on the card (the pipelining of chunks).  ``del
+    eng.decode_slots_start`` restores the class's method."""
+
+    def __init__(self, eng):
+        import torch
+
+        self.dispatch = eng.decode_slots_start
+        self.reset()
+
+        def counted(*a, **kw):
+            import warnings
+
+            prev = self.last
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    handle = self.dispatch(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            self.host_syncs += sum("synchroniz" in str(w.message) for w in caught)
+            self.chunks += 1
+            self.prev_chunk_busy += int(prev is not None and not prev.query())
+            self.last = handle[-1]  # the chunk's event
+            return handle
+
+        eng.decode_slots_start = counted
+
+    def reset(self) -> None:
+        self.chunks = self.host_syncs = self.prev_chunk_busy = 0
+        self.last = None
+
+
+def phase_batch(layers: int, model_name: str = "tiny") -> dict:
     """bench.py's bench_batch: config 1's model (TinyLlama, bf16 weights), or
-    with `q8` config 3's (the 7B Q8_0 model, native i8t; phase batch_q8)."""
+    config 3's ("q8": the 7B Q8_0 model, native i8t; phase batch_q8), or the
+    Mixtral-8x7B shape ("moe": native i4t and i4p; phase batch_moe), whose
+    decode dispatches run under torch's synchronization check."""
     import torch
 
+    from booster_tpu_torch.gguf import GGUFReader
     from booster_tpu_torch.models import load_model
+    from booster_tpu_torch.models.loader import resolve_weights
     from booster_tpu_torch.ops import kernels
     from booster_tpu_torch.serving import Engine
 
     t0 = time.perf_counter()
+    q8, moe = model_name == "q8", model_name == "moe"
     torch.cuda.reset_peak_memory_stats()
-    if q8:
-        model, _, t_load = _q8_model()
+    if q8 or moe:
+        big = _big_model(model_name, layers)
+        model, t_load = big["model"], big["load_s"]
+        reader = GGUFReader(_gguf_path(layers, model_name))
+        try:  # bench_batch's load_model(weights="auto", batch_hint=64): the same model
+            if resolve_weights(reader, "auto", 64) != "native":
+                raise AssertionError(f"{model_name}: weights=auto at batch_hint=64 is not native")
+        finally:
+            reader.close()
     else:
-        path = _gguf(layers)
+        path, _ = _wait_gguf("tiny", layers)
         t_load = time.perf_counter()
         model = load_model(path, device="cuda", weights="auto", batch_hint=64)
         t_load = time.perf_counter() - t_load
@@ -1318,9 +1776,15 @@ def phase_batch(layers: int, q8: bool = False) -> dict:
     B, n_tokens = 64, 128
     eng = Engine(model, max_batch=B, max_seq=512, kv_quantized=True, decode_chunk=32)
     _bench_batch(eng, model.tokenizer, B, n_tokens)  # warm-up: first calls of every op
+    syncs = _SyncCheck(eng) if moe else None
     kernels.reset_counts()
     res = _bench_batch(eng, model.tokenizer, B, n_tokens)
     counts = dict(kernels.launch_counts)
+    if syncs is not None:
+        del eng.decode_slots_start  # the class's method again
+        if syncs.host_syncs or not syncs.chunks:
+            raise AssertionError(f"batch: {syncs.host_syncs} host syncs in {syncs.chunks} "
+                                 "decode dispatches")
     steps = res["decode_steps"]
     T = max(16, 1 << (max(res["prompt_tokens"].values()) - 1).bit_length())
     prefill_chunks = 1  # every prompt fits one chunk of the engine's 512
@@ -1330,7 +1794,10 @@ def phase_batch(layers: int, q8: bool = False) -> dict:
     if q8:  # M = 64 a step; M = 64·T at the prefill, its lm head on 64 rows
         expected |= {"qmm_i8t_dq": (2 * layers + 1) * steps + (3 * layers + 1) * prefill_chunks,
                      "mlp_i8t": layers * steps, "qmm_i8t_gateup_dq": layers * prefill_chunks}
-    if counts != expected or (kernels.shape_counts and not q8):
+    if moe:  # qkv, wo (and the lm head) at M = 64 and 64·T; the experts' three
+        expected |= {"qmm_i4t_dq": (2 * layers + 1) * (steps + prefill_chunks),
+                     "moe_qmm_i4p": 3 * layers * (steps + prefill_chunks)}
+    if counts != expected or (kernels.shape_counts and not (q8 or moe)):
         raise AssertionError(f"batch: launch counts {counts} != expected {expected}")
     shape_counts = dict(kernels.shape_counts)
     V = model.cfg.n_vocab
@@ -1345,11 +1812,22 @@ def phase_batch(layers: int, q8: bool = False) -> dict:
         stopped = any(t in model.tokenizer.vocab.eog_ids for t in row)
         if lengths[s] != res["prompt_tokens"][s] + emitted or not (emitted == steps or stopped):
             raise AssertionError(f"batch: slot {s} length {lengths[s]} after {emitted} steps")
-    prof = _profile(lambda: _bench_batch(eng, model.tokenizer, B, n_tokens), steps=steps)
+    # the trace covers the prefill and 64 steps (bench_batch to 32 tokens)
+    short = _bench_batch(eng, model.tokenizer, B, 32)
+    prof = _profile(lambda: _bench_batch(eng, model.tokenizer, B, 32),
+                    steps=short["decode_steps"])
+    prof["window"] = f"bench_batch to 32 tokens ({short['decode_steps']} steps)"
     if prof["kernel_ms"] is not None:
-        prof["device_busy_share"] = prof["kernel_ms"] / res["wall_ms"]
-    return {"phase": "batch_q8" if q8 else "batch", "seconds": time.perf_counter() - t0,
-            "layers": layers, "weights": "q8_0 (i8t)" if q8 else "bf16", "load_s": t_load,
+        prof["device_busy_share"] = prof["kernel_ms"] / short["wall_ms"]
+    return {"phase": {"tiny": "batch", "q8": "batch_q8", "moe": "batch_moe"}[model_name],
+            "seconds": time.perf_counter() - t0, "layers": layers,
+            "weights": {"tiny": "bf16", "q8": "q8_0 (i8t)",
+                        "moe": "q4_0 (i4t attention, i4p experts)"}[model_name],
+            "load_s": t_load,
+            "host_syncs_in_dispatches": None if syncs is None else syncs.host_syncs,
+            "decode_dispatches_checked": None if syncs is None else syncs.chunks,
+            "dispatches_with_previous_chunk_still_running":
+                None if syncs is None else syncs.prev_chunk_busy,
             "streams": B, "prefill_T": T,
             "agg_tok_per_s": res["agg_tok_per_s"],
             "per_stream_tok_per_s": res["per_stream_tok_per_s"],
@@ -1520,7 +1998,6 @@ def phase_server() -> dict:
     decode dispatches run with torch's synchronization check on: a dispatch
     that made the host wait for the device would show as a host sync."""
     import threading
-    import warnings
 
     import torch
 
@@ -1532,7 +2009,7 @@ def phase_server() -> dict:
 
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    model, _, _ = _q8_model()
+    model = _big_model("q8")["model"]
     n_sys = len(model.tokenizer.encode(SYSTEM))
     if not 2 * 256 < n_sys < 3 * 256:
         raise AssertionError(f"the system message is {n_sys} tokens, not two pages and some")
@@ -1549,29 +2026,7 @@ def phase_server() -> dict:
                       default_sampling=cfg.samplings["default"],
                       default_max_tokens=spec.predict, deadline_s=cfg.deadline)
 
-    # count the decode chunks, check each dispatch for host syncs, and note
-    # whether the previous chunk was still on the device when the next one
-    # had been enqueued (the pipelining of the scheduler)
-    dispatch = eng.decode_slots_start
-    stats = {"chunks": 0, "host_syncs": 0, "prev_chunk_busy": 0}
-    last = {}
-
-    def counted(slots, *a, **kw):
-        prev = last.get("event")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                handle = dispatch(slots, *a, **kw)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        stats["host_syncs"] += sum("synchroniz" in str(w.message) for w in caught)
-        stats["chunks"] += 1
-        stats["prev_chunk_busy"] += int(prev is not None and not prev.query())
-        last["event"] = handle[-1]
-        return handle
-
-    eng.decode_slots_start = counted
+    syncs = _SyncCheck(eng)  # the decode chunks, their host syncs, their pipelining
     srv = ServerThread(sched, cfg, model_name="mistral7b-shape-q8_0")
     peak_pages = [0]
     sampling_on = threading.Event()
@@ -1601,12 +2056,12 @@ def phase_server() -> dict:
 
         idle()
         kernels.reset_counts()
-        stats.update(chunks=0, host_syncs=0, prev_chunk_busy=0)
+        syncs.reset()
         run = _server_traffic(srv.port, "a")
         health = idle()
         counts = dict(kernels.launch_counts)
-        chunks = stats["chunks"]
-        measured = dict(stats)
+        chunks = syncs.chunks
+        measured = {"host_syncs": syncs.host_syncs, "prev_chunk_busy": syncs.prev_chunk_busy}
         steps = chunks * eng.decode_chunk
         delivered = srv.call(lambda: sum(j.n_generated for j in list(sched.jobs.values())[-64:]))
         expected = {"paged_attn_i8": 32 * steps, "kv_append_paged_i8": steps, "paged_attn": 0,
@@ -1626,7 +2081,7 @@ def phase_server() -> dict:
     finally:
         sampling_on.set()
         srv.stop()
-        eng.decode_slots_start = dispatch
+        del eng.decode_slots_start
     res = run["results"]
     ttft = sorted(r["ttft_s"] for r in res if r["ttft_s"] is not None)
     lat = sorted(r["latency_s"] for r in res)
@@ -1652,13 +2107,11 @@ def phase_server() -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES))
-    ap.add_argument("--write-q8-gguf", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--write-gguf", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    if args.write_q8_gguf:  # the background writer of _start_q8_gguf
+    if args.write_gguf:  # the background writer of _start_writer
         sys.path.insert(0, str(ROOT))
-        t0 = time.perf_counter()
-        _gguf(32, q8=True)
-        print(time.perf_counter() - t0)
+        _write_ggufs(args.write_gguf)
         return 0
     phases = [p for p in args.phases.split(",") if p]
     if set(phases) - set(PHASES):
@@ -1691,16 +2144,20 @@ def main(argv=None) -> int:
             failed.append(name)
             return None
 
-    if {"generate_q8", "batch_q8", "server"} & set(phases):
-        _start_q8_gguf()
+    jobs = (([("tiny", 22)] if {"generate", "batch"} & set(phases) else [])
+            + ([("moe", 2), ("moe_q8", 2)] if "parity" in phases else [])
+            + ([("q8", 32)] if {"generate_q8", "batch_q8", "server"} & set(phases) else [])
+            + ([("moe", 32)] if {"generate_moe", "batch_moe"} & set(phases) else []))
+    _start_writer(jobs)
     try:
         return _run_phases(phases, run, entries, failed, t_all)
     finally:
-        writer = _q8.pop("writer", None)
-        if writer is not None:  # a phase failed before the 7B model was needed
-            writer.kill()
-            writer.wait()
-        _q8.clear()
+        proc = _writer.pop("proc", None)
+        if proc is not None and proc.poll() is None:  # a phase failed before its model was needed
+            proc.kill()
+        if proc is not None:
+            proc.wait()
+        _big.clear()
 
 
 def _run_phases(phases, run, entries, failed, t_all) -> int:
@@ -1720,22 +2177,27 @@ def _run_phases(phases, run, entries, failed, t_all) -> int:
             res = run(name, fn)
             if res is not None:
                 emit(res)
-    runs = (("generate", phase_generate, False), ("batch", phase_batch, False),
-            ("generate_q8", phase_generate, True), ("batch_q8", phase_batch, True))
-    for name, phase, q8 in runs:
-        if name in phases:
-            res = run(name, lambda: phase(32 if q8 else 22, q8=q8))
-            if res is not None:
-                path_shapes[name] = res.pop("_shape_counts")
-                path_counts[name] = res["launches"]
-                emit(res)
-            torch.cuda.empty_cache()
-    if "server" in phases:
-        res = run("server", phase_server)
+    runs = (("generate", phase_generate, "tiny"), ("batch", phase_batch, "tiny"),
+            ("generate_q8", phase_generate, "q8"), ("batch_q8", phase_batch, "q8"),
+            ("server", None, "q8"),
+            ("generate_moe", phase_generate, "moe"), ("batch_moe", phase_batch, "moe"))
+    for name, phase, model in runs:
+        if model == "moe":
+            _big.pop("q8", None)  # the 7B model's 8 GB make room for the Mixtral's 26
+        if name not in phases:
+            continue
+        if phase is None:
+            res = run(name, phase_server)
+        else:
+            res = run(name, lambda: phase(22 if model == "tiny" else 32, model))
         if res is not None:
-            path_counts["server"] = res["launches"]
+            if "_shape_counts" in res:
+                path_shapes[name] = res.pop("_shape_counts")
+            path_counts[name] = res["launches"]
             emit(res)
-    _q8.clear()
+        gc.collect()  # a phase's engine may sit in a reference cycle (a patched method)
+        torch.cuda.empty_cache()
+    _big.clear()
     if entries:
         from booster_tpu_torch.ops import kernels
 

@@ -270,3 +270,70 @@ def test_kv_append_paged_kernel_is_exact(cuda, quantized):
     for got, want in zip(pool, plain):
         if got is not None:
             assert torch.equal(got[:, 1:].cpu(), want[:, 1:])
+
+
+def _lane(kind, R, K, gen, mins=False):
+    """A random lane-major weight [R, K] (i4p or i8) with bf16 prepared scale
+    planes (Q4_0's and Q8_0's form; with `mins`, affine rows too)."""
+    i4 = kind == "i4p"
+    if i4:
+        qw = torch.randint(0, 256, (R, K // 2), dtype=torch.uint8, device="cuda", generator=gen)
+    else:
+        qw = torch.randint(-127, 128, (R, K), dtype=torch.int8, device="cuda", generator=gen)
+    rows = (2 if i4 else 1) * (2 if mins else 1)
+    s = torch.rand((R, rows, K // (32 * (2 if i4 else 1))), device="cuda", generator=gen)
+    return QTensor(kind, qw, (s * 0.02 + 1e-3).to(torch.bfloat16), None, 32, (R, K),
+                   GGMLType.Q4_0 if i4 else GGMLType.Q8_0, zero=8 if i4 else 0)
+
+
+@pytest.mark.parametrize("kind", ["i4p", "i8"])
+@pytest.mark.parametrize("m,k,n", [(1, 768, 128), (5, 1024, 384), (40, 512, 256)])
+def test_qmm_lane_kernel_matches_plain(cuda, kind, m, k, n):
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    w = _lane(kind, n, k, gen)
+    x = torch.randn(m, k, device="cuda", generator=gen).to(torch.bfloat16)
+    kernels.reset_counts()
+    got, want = tq.qmm_lane(x, w), tq.qmm_lane_plain(x, w)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max() <= 2e-4 * want.abs().max()
+    assert kernels.launch_counts["qmm_i4p" if kind == "i4p" else "qmm_i8"] == 1
+
+
+@pytest.mark.parametrize("kind", ["i4p", "i8"])
+@pytest.mark.parametrize("n_tok", [1, 9, 64])
+def test_grouped_kernel_matches_plain(cuda, kind, n_tok):
+    """The grouped kernel over route_pad's buffer of seeded routings:
+    within qmm's limit of its plain version, and exactly zero on the
+    padding tiles it skips; the tile table ignored or the expert taken off
+    by one would fail by far."""
+    from booster_tpu_torch.ops import moe
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    E, K, Ne = 4, 512, 256
+    w = _lane(kind, E * Ne, K, gen)
+    x = torch.randn(n_tok, K, device="cuda", generator=gen).to(torch.bfloat16)
+    topi = torch.topk(torch.randn(n_tok, E, device="cuda", generator=gen), 2).indices
+    xp, pos, te, used = moe.route_pad(x, topi.to(torch.int32), E)
+    kernels.reset_counts()
+    got = moe.grouped_qmm(xp, w, te, E, used)
+    want = moe.grouped_qmm_plain(xp, w, te, E, used)
+    torch.cuda.synchronize()
+    limit = 2e-4 * want.abs().max()
+    assert (got - want).abs().max() <= limit
+    assert not got[int(used[0]):].any()
+    assert kernels.launch_counts[f"moe_qmm_{kind}"] == 1
+    wrong = moe.grouped_qmm_plain(xp, w, (te + 1) % E, E, used)
+    assert (wrong - want).abs().max() > 100 * limit
+
+
+def test_lane_wrappers_refuse_what_the_kernel_does_not_take(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    x = torch.randn(2, 512, device="cuda", generator=gen).to(torch.bfloat16)
+    with pytest.raises(NotImplementedError):  # affine mins (not Q4_0)
+        tq.qmm_lane(x, _lane("i4p", 128, 512, gen, mins=True))
+    with pytest.raises(ValueError):  # f32 scale planes (not compacted)
+        w = _lane("i8", 128, 512, gen)
+        tq.qmm_lane(x, QTensor("i8", w.qw, w.scales.float(), None, 32, (128, 512),
+                               GGMLType.Q8_0))
+    with pytest.raises(NotImplementedError):  # N not a multiple of 128
+        tq.qmm_lane(x, _lane("i8", 96, 512, gen))
