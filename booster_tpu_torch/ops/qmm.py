@@ -249,13 +249,13 @@ def lane_dequant(w: QTensor, r0: int = 0, r1: Optional[int] = None) -> torch.Ten
     rows, G, K = w.scale_rows, w.group, w.shape[1]
     p = w.qw[r0:r1]
     q = torch.cat([p & 0x0F, p >> 4], dim=-1) if w.kind == "i4p" else p
-    q = (q.to(torch.int16) - w.zero).to(torch.bfloat16).float()
-    s = s3[r0:r1]
+    q = q.to(torch.bfloat16) - w.zero  # small integers: exact in bf16
+    s = s3[r0:r1].to(torch.bfloat16)
     n = s.shape[0]
-    sc = s[:, :rows].reshape(n, K // G, 1).to(torch.bfloat16).float()
-    v = (q.reshape(n, K // G, G) * sc).to(torch.bfloat16)
+    # bf16 · bf16: the exact product, rounded once (torch computes it in f32)
+    v = q.reshape(n, K // G, G) * s[:, :rows].reshape(n, K // G, 1)
     if has_mins:
-        v = v - s[:, rows:].reshape(n, K // G, 1).to(torch.bfloat16)
+        v = v - s[:, rows:].reshape(n, K // G, 1)
     return v.reshape(n, K).float()
 
 
