@@ -31,8 +31,8 @@ through the prefill form, as the reference's XLA path does.
 
 Routed experts (Mixtral; arch ``llama`` with experts, or ``mixtral``) take
 the reference's MoE FFN (``booster_tpu/models/llama.py:147-214``): the
-grouped dispatch of ``ops.moe`` over the quantized expert stacks, and the
-dense all-experts form for stacks of other kinds.
+grouped dispatch of ``ops.moe`` over the expert stacks as the loader keeps
+them (lane-major i4p or i8, or dense); stacks of other kinds raise.
 
 The cache is updated in place and returned.  Other architectures and the
 llama family's options (shared experts, expert groups, MLA, biases,
@@ -58,7 +58,7 @@ from booster_tpu_torch.ops.paged_kv import PagedKVCache, append_paged_layer, gat
 from booster_tpu_torch.ops.prefill_attention import prefill_attention, prefill_supported
 from booster_tpu_torch.ops.qmm import qmm_gateup, silu
 from booster_tpu_torch.ops.rope import apply_rope_tables, rope_tables
-from booster_tpu_torch.quant.qtensor import QTensor, dequantize
+from booster_tpu_torch.quant.qtensor import QTensor
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float, add_one: bool = False) -> torch.Tensor:
@@ -100,26 +100,12 @@ def moe_route(router_logits: torch.Tensor, cfg: ModelConfig):
 
 
 def _moe_ffn(x: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tensor:
-    """The routed experts' FFN: the grouped dispatch (ops.moe) where the
-    stacks' kinds take it, else the reference's dense all-experts form."""
-    if moe_supported(lp):
-        return moe_ffn_grouped(x, lp, cfg)
-    E = cfg.n_experts
-    B, T, C = x.shape
-    topv, topi = moe_route(qlinear(x, lp["router"]), cfg)  # [B, T, k]
-    weights = torch.zeros(B, T, E, dtype=torch.float32, device=x.device).scatter_(
-        -1, topi.long(), topv)
-
-    def expert_w(name):  # the whole stack dequantized: [E, out, in], as f32 of bf16
-        return dequantize(lp[name], torch.bfloat16).reshape(E, -1, lp[name].shape[1]).float()
-
-    xb = x.to(torch.bfloat16).float()
-    g = torch.einsum("btc,efc->btef", xb, expert_w("gate_exps")).to(torch.bfloat16)
-    u = torch.einsum("btc,efc->btef", xb, expert_w("up_exps")).to(torch.bfloat16)
-    h = (silu(g) * u).float()  # [B, T, E, ff]
-    y = torch.einsum("btef,ecf->btec", h, expert_w("down_exps")).to(torch.bfloat16)
-    w = weights.to(torch.bfloat16).float()
-    return torch.einsum("btec,bte->btc", y.float(), w).to(torch.bfloat16).to(x.dtype)
+    """The routed experts' FFN: the grouped dispatch (ops.moe).  The loader
+    keeps expert stacks lane-major (i4p, i8) or dense, which it takes."""
+    if not moe_supported(lp):
+        kinds = [getattr(lp.get(n), "kind", None) for n in ("gate_exps", "up_exps", "down_exps")]
+        raise NotImplementedError(f"expert stacks of kinds {kinds}: not ported yet")
+    return moe_ffn_grouped(x, lp, cfg)
 
 
 def _layer_view(layers: dict[str, Any], i: int) -> dict[str, Any]:

@@ -28,18 +28,18 @@ from booster_tpu_torch.quant.qtensor import QTensor, dequantize
 BM = 32  # rows per tile: the group padding (the reference's BT_MOE_BM default)
 
 
-def route_pad(x: torch.Tensor, top_idx: torch.Tensor, E: int, bm: int = BM):
+def route_pad(x: torch.Tensor, top_idx: torch.Tensor, E: int):
     """Sort the expanded (token, choice) rows by expert and scatter them into
-    a group-padded buffer where each bm-row tile belongs to one expert.
+    a group-padded buffer where each BM-row tile belongs to one expert.
 
-    Returns (xp [Mp, C], pos [N·k] int32 row positions, tile_expert [Mp/bm]
-    int32, rows_used [1] int32): Mp = ⌈(N·k + E·bm)/bm⌉·bm is the static
+    Returns (xp [Mp, C], pos [N·k] int32 row positions, tile_expert [Mp/BM]
+    int32, rows_used [1] int32): Mp = ⌈(N·k + E·BM)/BM⌉·BM is the static
     worst case; rows_used is the padded groups' total (start[E]), past which
     every row is zero; tiles past it name expert E - 1, as in the
     reference."""
     N, k = top_idx.shape
     Nk = N * k
-    Mp = ((Nk + E * bm) + bm - 1) // bm * bm
+    Mp = (Nk + E * BM + BM - 1) // BM * BM
     dev = x.device
     i32 = torch.int32
     flat_e = top_idx.reshape(-1).long()
@@ -47,7 +47,7 @@ def route_pad(x: torch.Tensor, top_idx: torch.Tensor, E: int, bm: int = BM):
     se = flat_e[order]
     counts = torch.zeros(E, dtype=i32, device=dev).index_add_(
         0, flat_e, torch.ones(Nk, dtype=i32, device=dev))
-    padded = (counts + bm - 1) // bm * bm
+    padded = (counts + BM - 1) // BM * BM
     zero = torch.zeros(1, dtype=i32, device=dev)
     start = torch.cat([zero, torch.cumsum(padded, 0, dtype=i32)])
     excl = torch.cat([zero, torch.cumsum(counts, 0, dtype=i32)])[:-1]
@@ -56,14 +56,14 @@ def route_pad(x: torch.Tensor, top_idx: torch.Tensor, E: int, bm: int = BM):
     xp = torch.zeros(Mp, x.shape[1], dtype=x.dtype, device=dev)
     xp[pos_sorted.long()] = x[order // k]
     pos = torch.empty(Nk, dtype=i32, device=dev).scatter_(0, order, pos_sorted)
-    tile0 = torch.arange(Mp // bm, dtype=i32, device=dev) * bm
+    tile0 = torch.arange(Mp // BM, dtype=i32, device=dev) * BM
     tile_expert = torch.searchsorted(start[1:].contiguous(), tile0, right=True,
                                      out_int32=True).clamp_(0, E - 1)
     return xp, pos, tile_expert, start[E:]
 
 
 def grouped_qmm_plain(xp: torch.Tensor, w: QTensor, tile_expert: torch.Tensor, E: int,
-                      rows_used: Optional[torch.Tensor] = None, bm: int = BM) -> torch.Tensor:
+                      rows_used: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The grouped kernel's function in plain torch: per run of tiles of one
     expert, that expert dequantized once (``ops.qmm.lane_dequant``, the
     kernel's rounding) and its rows multiplied in f32; rows past
@@ -72,22 +72,22 @@ def grouped_qmm_plain(xp: torch.Tensor, w: QTensor, tile_expert: torch.Tensor, E
     Ne = w.shape[0] // E
     out = torch.zeros(Mp, Ne, dtype=torch.float32, device=xp.device)
     te = tile_expert.tolist()
-    n_tiles = len(te) if rows_used is None else min(len(te), int(rows_used[0]) // bm)
+    n_tiles = len(te) if rows_used is None else min(len(te), int(rows_used[0]) // BM)
     xb = xp.to(torch.bfloat16).float()
     t = 0
     while t < n_tiles:
         e, t1 = te[t], t + 1
         while t1 < n_tiles and te[t1] == e:
             t1 += 1
-        rows = slice(t * bm, t1 * bm)
+        rows = slice(t * BM, t1 * BM)
         out[rows] = xb[rows] @ lane_dequant(w, e * Ne, (e + 1) * Ne).t()
         t = t1
     return out
 
 
 def grouped_qmm(xp: torch.Tensor, w: QTensor, tile_expert: torch.Tensor, E: int,
-                rows_used: Optional[torch.Tensor] = None, bm: int = BM) -> torch.Tensor:
-    """xp [Mp, K] @ W[e(row)]^T → [Mp, Ne] f32; each bm-row tile uses its
+                rows_used: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """xp [Mp, K] @ W[e(row)]^T → [Mp, Ne] f32; each BM-row tile uses its
     expert's rows of the stacked [E·Ne, K] weight (layer view allowed).
     i4p and i8 stacks take the kernel on the card (the plain version for
     CPU tensors); other kinds the reference's per-tile gather of dequantized
@@ -96,14 +96,12 @@ def grouped_qmm(xp: torch.Tensor, w: QTensor, tile_expert: torch.Tensor, E: int,
     Ne = w.shape[0] // E
     if w.kind in ("i4p", "i8"):
         if xp.device.type == "cpu":
-            return grouped_qmm_plain(xp, w, tile_expert, E, rows_used, bm)
-        if bm != BM:
-            raise NotImplementedError(f"grouped_qmm kernel: tiles of {bm} rows: not ported yet")
+            return grouped_qmm_plain(xp, w, tile_expert, E, rows_used)
         return lane_launch(xp.to(torch.bfloat16).contiguous(), w, Ne, f"moe_qmm_{w.kind}",
                            tile_expert, rows_used)
     wd = dequantize(w, torch.bfloat16).reshape(E, Ne, K)
-    wt = wd[tile_expert.long()].float()  # [Mp/bm, Ne, K]
-    x3 = xp.to(torch.bfloat16).float().reshape(-1, Mp // tile_expert.shape[0], K)
+    wt = wd[tile_expert.long()].float()  # [Mp/BM, Ne, K]
+    x3 = xp.to(torch.bfloat16).float().reshape(-1, BM, K)
     return torch.bmm(x3, wt.transpose(1, 2)).reshape(Mp, Ne)
 
 

@@ -53,7 +53,7 @@ Phases, each printing one JSON line with its seconds:
    page_size=256)``, its allocator giving the pages), an int8 pool and a
    bf16 one, 4 slots of which 2 live, 8 decode steps; (e) the Mixtral-8x7B
    width (8 experts of ff 14336, 2 used) with Q4_0 and then Q8_0 weights,
-   the single-stream path over a bf16 cache, 8 decode steps (a step where
+   the single-stream path over a bf16 cache, 3 decode steps (a step where
    the two devices routed the compared token to other experts at a
    near-tie of its bf16 router logits is left out; at most one).  The
    live slots' logits agree within the stated tolerance at every step, and
@@ -190,6 +190,9 @@ MISTRAL7B = dict(vocab_size=32000, hidden=4096, heads=32, kv_heads=8, ff=14336,
 MIXTRAL = dict(vocab_size=32000, hidden=4096, heads=32, kv_heads=8, ff=14336, experts=8,
                experts_used=2, rope_base=1e6, context=32768, seed=0, weight_scale=0.05,
                draw="blocks")
+# parity (e)'s decode steps after its prefill: on the CPU each step
+# dequantizes every routed expert of its 2 layers, so the steps are few
+MOE_PARITY_STEPS = 3
 # the attention kernels' layouts on the two models' paths: the bf16-cache
 # generate (batch 1, S1 rows) and the int8-cache batch (B slots, S rows)
 TINY_ATTN = dict(name="TinyLlama", L=22, Hkv=4, G=8, D=64, Dc=128, S1=1024, B=64, S=512,
@@ -307,6 +310,19 @@ def timed(fn, reps: int = 20, trials: int = 5, cold: bool = True) -> float:
         times.append(t / reps)
     del graph, base
     return statistics.median(times)
+
+
+class _Laps:
+    """Seconds between the named points of a phase, summed by name (the
+    phase's "part_s"): where a phase's time goes on the host it ran on."""
+
+    def __init__(self):
+        self.t, self.parts = time.perf_counter(), {}
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.parts[name] = self.parts.get(name, 0.0) + now - self.t
+        self.t = now
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -1219,11 +1235,13 @@ def _gguf(layers: int, model: str = "tiny") -> str:
     return str(path)
 
 
-def _teacher_forced(models, caches, prompts, T, live, steps=16) -> list:
+def _teacher_forced(models, caches, prompts, T, live, laps, tag, steps=16) -> list:
     """Prefill `prompts` (one per slot, [] for an idle slot) in one T-row
     batch, then `steps` decode steps with the live slots fed the CPU's
     greedy token, on every device of `models`; returns per device the live
-    slots' logits [steps + 1, n_live, V] on the CPU."""
+    slots' logits [steps + 1, n_live, V] on the CPU.  Each device's seconds
+    go to `laps` as "<tag> cpu" and "<tag> cuda" (the caller laps just
+    before)."""
     import torch
 
     from booster_tpu_torch.models.llama import forward
@@ -1240,6 +1258,7 @@ def _teacher_forced(models, caches, prompts, T, live, steps=16) -> list:
                                   gather_idx=torch.clamp_min(nv - 1, 0).to(dev),
                                   n_valid=nv.to(dev))
         logits[dev] = [lg[rows, -1].float().cpu()]
+        laps(f"{tag} {dev}")
     step_nv = torch.tensor(live, dtype=torch.int32)
     for _ in range(steps):
         tok = torch.zeros(B, 1, dtype=torch.int32)
@@ -1248,6 +1267,7 @@ def _teacher_forced(models, caches, prompts, T, live, steps=16) -> list:
             lg, caches[dev] = forward(m.params, m.cfg, tok.to(dev), caches[dev],
                                       last_only=True, n_valid=step_nv.to(dev))
             logits[dev].append(lg[rows, -1].float().cpu())
+            laps(f"{tag} {dev}")
     return [torch.stack(logits[dev]) for dev in ("cuda", "cpu")]
 
 
@@ -1278,17 +1298,20 @@ def phase_parity() -> dict:
     from booster_tpu_torch.ops.kv_cache import KVCache
 
     t0 = time.perf_counter()
-    path = _gguf(2, "tiny")
+    laps = _Laps()
+    path, _ = _wait_gguf("tiny", 2)
     tol = 2 ** -5
     out = {"phase": "parity", "layers": 2, "tolerance": CHECKS["logits"]}
     # (a) batch 1, Q4_0 weights, bf16 cache (the generate path)
+    laps("a wait")
     models = {dev: load_model(path, device=dev) for dev in ("cpu", "cuda")}
     cfg = models["cpu"].cfg
     ids = models["cpu"].tokenizer.encode(PROMPT)
     T = max(16, 1 << (len(ids) - 1).bit_length())  # the engine's prompt bucket
     caches = {dev: KVCache.create(cfg.n_layers, 1, 256, cfg.n_kv_heads, cfg.head_dim, dev)
               for dev in models}
-    got, want = _teacher_forced(models, caches, [ids], T, [True])
+    laps("a load")
+    got, want = _teacher_forced(models, caches, [ids], T, [True], laps, "a")
     out["q4_0_bf16_cache_1_slot"] = _compare_logits("q4_0", got, want, tol)
     # (b) the batched path: bf16 weights, int8 cache, 4 slots, 2 of them live
     models = {dev: load_model(path, device=dev, weights="bf16") for dev in ("cpu", "cuda")}
@@ -1298,7 +1321,9 @@ def phase_parity() -> dict:
     T = max(16, 1 << (max(len(p) for p in prompts) - 1).bit_length())
     caches = {dev: KVCache.create(cfg.n_layers, 4, 512, cfg.n_kv_heads, cfg.head_dim, dev,
                                   quantized=True) for dev in models}
-    got, want = _teacher_forced(models, caches, prompts, T, [True, False, True, False])
+    laps("b load")
+    got, want = _teacher_forced(models, caches, prompts, T, [True, False, True, False], laps,
+                                "b")
     out["bf16_int8_cache_4_slots_2_live"] = _compare_logits("batched", got, want, tol)
     lengths = [caches[dev].lengths.tolist() for dev in ("cpu", "cuda")]
     expect = [len(prompts[0]) + 16, 0, len(prompts[2]) + 16, 0]
@@ -1306,9 +1331,11 @@ def phase_parity() -> dict:
         raise AssertionError(f"parity batched: cache lengths {lengths} != {expect}")
     # (c) the 7B width, Q8_0 weights (native i8t): the batched path over an
     # int8 cache at the T = 32 bucket, then the single-stream path over a
-    # bf16 cache; 8 steps each (the CPU's plain forward takes ~1 s a step)
+    # bf16 cache; 8 steps each (the CPU's plain forward takes 2-3 s a step)
     del models, caches
-    path = _gguf(2, "q8")
+    laps("b check")
+    path, _ = _wait_gguf("q8", 2)
+    laps("c wait")
     models = {dev: load_model(path, device=dev, weights="native") for dev in ("cpu", "cuda")}
     cfg = models["cpu"].cfg
     kinds = {v.kind for v in models["cuda"].params["layers"].values() if hasattr(v, "kind")}
@@ -1320,13 +1347,16 @@ def phase_parity() -> dict:
     T = max(16, 1 << (max(len(p) for p in prompts) - 1).bit_length())
     caches = {dev: KVCache.create(cfg.n_layers, 4, 512, cfg.n_kv_heads, cfg.head_dim, dev,
                                   quantized=True) for dev in models}
-    got, want = _teacher_forced(models, caches, prompts, T, [True, False, True, False], steps=8)
+    laps("c load")
+    got, want = _teacher_forced(models, caches, prompts, T, [True, False, True, False], laps,
+                                "c", steps=8)
     out["q8_0_7b_width_int8_cache_4_slots_2_live"] = _compare_logits("q8_0 batched", got, want,
                                                                      tol)
     ids = tok.encode(PROMPT)
     caches = {dev: KVCache.create(cfg.n_layers, 1, 256, cfg.n_kv_heads, cfg.head_dim, dev)
               for dev in models}
-    got, want = _teacher_forced(models, caches, [ids], 16, [True], steps=8)
+    laps("c check")
+    got, want = _teacher_forced(models, caches, [ids], 16, [True], laps, "c", steps=8)
     out["q8_0_7b_width_bf16_cache_1_slot"] = _compare_logits("q8_0 single", got, want, tol)
     # (d) the same model over the server path's paged pool: an Engine with
     # pages of 256 rows (the paged prefill through gathered views, then the
@@ -1343,8 +1373,9 @@ def phase_parity() -> dict:
             for s_ in (2, 0):
                 eng.ensure_slot_pages(s_, T + 8)
             caches[dev] = eng.cache
+        laps("d engines")
         got, want = _teacher_forced(models, caches, prompts, T, [True, False, True, False],
-                                    steps=8)
+                                    laps, "d", steps=8)
         key = f"q8_0_7b_width_paged_{'int8' if quant else 'bf16'}_pool_4_slots_2_live"
         out[key] = _compare_logits(key, got, want, tol)
         lengths = [caches[dev].lengths.tolist() for dev in ("cpu", "cuda")]
@@ -1352,20 +1383,23 @@ def phase_parity() -> dict:
         if lengths != [expect, expect]:
             raise AssertionError(f"parity paged: cache lengths {lengths} != {expect}")
     del models, caches
-    out.update(_parity_moe(tol))
+    laps("d check")
+    out.update(_parity_moe(tol, laps))
     out["seconds"] = time.perf_counter() - t0
+    out["part_s"] = laps.parts
     return out
 
 
-def _parity_moe(tol: float) -> dict:
+def _parity_moe(tol: float, laps) -> dict:
     """(e) the Mixtral-8x7B width at 2 layers, Q4_0 and then Q8_0 (so that
     the grouped kernel's i8 branch runs on a model path): the single-stream
-    path over a bf16 cache, a 16-row prefill and 8 decode steps, the CPU
-    (plain versions) against the card (kernels).  A router's logits are
-    bf16, so the two devices may route a token to other experts where its
-    k-th and (k+1)-th logits tie within their f32 summation difference;
-    such a step's logits (only that step's) are left out of the comparison,
-    each flip must be such a near-tie, and at most one step may have one."""
+    path over a bf16 cache, a 16-row prefill and MOE_PARITY_STEPS decode
+    steps, the CPU (plain versions) against the card (kernels).  A router's
+    logits are bf16, so the two devices may route a token to other experts
+    where its k-th and (k+1)-th logits tie within their f32 summation
+    difference; such a step's logits (only that step's) are left out of the
+    comparison, each flip must be such a near-tie, and at most one step may
+    have one."""
     import numpy as np
     import torch
 
@@ -1375,7 +1409,9 @@ def _parity_moe(tol: float) -> dict:
     out = {}
     k = MIXTRAL["experts_used"]
     for model in ("moe", "moe_q8"):
+        tag = f"e {model}"
         path, _ = _wait_gguf(model, 2)
+        laps(f"{tag} wait")
         models = {dev: load_model(path, device=dev, weights="native") for dev in ("cpu", "cuda")}
         cfg = models["cpu"].cfg
         lay = models["cuda"].params["layers"]
@@ -1396,8 +1432,10 @@ def _parity_moe(tol: float) -> dict:
         caches = {dev: KVCache.create(cfg.n_layers, 1, 256, cfg.n_kv_heads, cfg.head_dim, dev)
                   for dev in models}
         llama.moe_route = spy
+        laps(f"{tag} load")
         try:
-            got, want = _teacher_forced(models, caches, [ids], 16, [True], steps=8)
+            got, want = _teacher_forced(models, caches, [ids], 16, [True], laps, tag,
+                                        steps=MOE_PARITY_STEPS)
         finally:
             llama.moe_route = route
         L = cfg.n_layers
@@ -1429,6 +1467,7 @@ def _parity_moe(tol: float) -> dict:
         res.update(steps_compared=keep, routing_flips_at_near_ties=flips)
         out[f"{model}_mixtral_width_bf16_cache_1_slot"] = res
         del models, caches
+        laps(f"{tag} check")
     return out
 
 
@@ -1440,24 +1479,27 @@ def _profile(run, steps: int) -> dict:
     sum over CUDA kernel events; one stream, so they do not overlap), their
     count per decoded token, and the kernels that take the most time.  The
     profiler stretches the host side, so shares are taken against the wall
-    time of the unprofiled run by the caller."""
+    time of the unprofiled run by the caller.  The device events are summed
+    from the trace's own records: key_averages() first builds a Python event
+    tree of every record, up to half a minute a trace on these paths."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:  # kernels only: a
         run()  # trace of the host ops too takes minutes to sum at ~1,400 launches a step
-    rows = []
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) != DeviceType.CUDA:
-            continue
-        us = getattr(e, "device_time_total", None)
-        if us is None:
-            us = getattr(e, "cuda_time_total", 0)
-        rows.append((e.key[:70], us / 1e3, e.count))
+    t1 = time.perf_counter()
+    by_name: dict = {}  # kernel name → [ns, count]
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            acc = by_name.setdefault(e.name(), [0, 0])
+            acc[0] += e.duration_ns()
+            acc[1] += 1
+    rows = sorted(((k[:70], ns / 1e6, n) for k, (ns, n) in by_name.items()), key=lambda r: -r[1])
+    secs = {"trace_s": t1 - t0, "sum_s": time.perf_counter() - t1}
     if not rows:
-        return {"kernel_ms": None, "note": "the trace held no device events"}
-    rows.sort(key=lambda r: -r[1])
-    return {"kernel_ms": sum(r[1] for r in rows),
+        return {"kernel_ms": None, "note": "the trace held no device events", **secs}
+    return {**secs, "kernel_ms": sum(r[1] for r in rows),
             "kernel_launches_per_decoded_token": sum(r[2] for r in rows) / steps,
             "top_kernels_ms": [[k, round(ms, 3), n] for k, ms, n in rows[:12]]}
 
@@ -1573,6 +1615,7 @@ def phase_generate(layers: int, model_name: str = "tiny") -> dict:
     from booster_tpu_torch.serving import Engine
 
     t0 = time.perf_counter()
+    laps = _Laps()
     t_wait = load_rss = None
     q8, moe = model_name == "q8", model_name == "moe"
     torch.cuda.reset_peak_memory_stats()
@@ -1588,8 +1631,10 @@ def phase_generate(layers: int, model_name: str = "tiny") -> dict:
     eng = Engine(model, max_batch=1, max_seq=1024, decode_chunk=128)
     ids = model.tokenizer.encode(PROMPT)
     sp = SamplingParams(temp=0.0)
+    laps("load")
     eng.generate(ids, sp, max_new_tokens=128)  # warm-up: first calls of every op
     torch.cuda.synchronize()
+    laps("warm-up")
     kernels.reset_counts()
     t_run = time.perf_counter()
     res = eng.generate(ids, sp, max_new_tokens=128)
@@ -1617,6 +1662,7 @@ def phase_generate(layers: int, model_name: str = "tiny") -> dict:
         raise AssertionError(f"launch counts {counts} != expected {expected}")
     # the trace covers a 32-token generate: summing one of 128 tokens (130 K
     # to 440 K kernel events) took up to a minute of the script's time limit
+    laps("run")
     short = Engine(model, max_batch=1, max_seq=1024, decode_chunk=32)
     short.generate(ids, sp, max_new_tokens=32)
     torch.cuda.synchronize()
@@ -1624,9 +1670,11 @@ def phase_generate(layers: int, model_name: str = "tiny") -> dict:
     short.generate(ids, sp, max_new_tokens=32)
     torch.cuda.synchronize()
     prof_wall = 1e3 * (time.perf_counter() - t_short)
+    laps("window")
     prof = _profile(lambda: short.generate(ids, sp, max_new_tokens=32), steps=32)
     prof["window"] = "a 32-token generate (decode_chunk 32)"
     del short
+    laps("profile")
     if prof["kernel_ms"] is not None:
         prof["device_busy_share"] = prof["kernel_ms"] / prof_wall
     V = model.cfg.n_vocab
@@ -1650,7 +1698,7 @@ def phase_generate(layers: int, model_name: str = "tiny") -> dict:
                 k: v / steps for k, v in counts.items() if k.endswith("_gd") or k in (
                     "decode_attn", "kv_append", "mlp_i8t", "moe_qmm_i4p")},
             "launches_by_shape": shapes, "tokens_head": res.token_ids[:16],
-            "wall_ms": wall_ms, "profile": prof,
+            "wall_ms": wall_ms, "profile": prof, "part_s": laps.parts,
             "_shape_counts": shape_counts}
 
 
@@ -1753,6 +1801,7 @@ def phase_batch(layers: int, model_name: str = "tiny") -> dict:
     from booster_tpu_torch.serving import Engine
 
     t0 = time.perf_counter()
+    laps = _Laps()
     q8, moe = model_name == "q8", model_name == "moe"
     torch.cuda.reset_peak_memory_stats()
     if q8 or moe:
@@ -1775,7 +1824,9 @@ def phase_batch(layers: int, model_name: str = "tiny") -> dict:
             raise AssertionError(f"batch: weights=auto at batch_hint=64 gave {kinds}, not bf16")
     B, n_tokens = 64, 128
     eng = Engine(model, max_batch=B, max_seq=512, kv_quantized=True, decode_chunk=32)
+    laps("load")
     _bench_batch(eng, model.tokenizer, B, n_tokens)  # warm-up: first calls of every op
+    laps("warm-up")
     syncs = _SyncCheck(eng) if moe else None
     kernels.reset_counts()
     res = _bench_batch(eng, model.tokenizer, B, n_tokens)
@@ -1813,9 +1864,12 @@ def phase_batch(layers: int, model_name: str = "tiny") -> dict:
         if lengths[s] != res["prompt_tokens"][s] + emitted or not (emitted == steps or stopped):
             raise AssertionError(f"batch: slot {s} length {lengths[s]} after {emitted} steps")
     # the trace covers the prefill and 64 steps (bench_batch to 32 tokens)
+    laps("run")
     short = _bench_batch(eng, model.tokenizer, B, 32)
+    laps("window")
     prof = _profile(lambda: _bench_batch(eng, model.tokenizer, B, 32),
                     steps=short["decode_steps"])
+    laps("profile")
     prof["window"] = f"bench_batch to 32 tokens ({short['decode_steps']} steps)"
     if prof["kernel_ms"] is not None:
         prof["device_busy_share"] = prof["kernel_ms"] / short["wall_ms"]
@@ -1835,7 +1889,7 @@ def phase_batch(layers: int, model_name: str = "tiny") -> dict:
             "decoded_tokens": res["decoded_tokens"], "decode_steps": steps,
             "wall_ms": res["wall_ms"], "launches": counts, "expected_launches": expected,
             "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
-            "tokens_head_slot0": res["rows"][0][:16], "profile": prof,
+            "tokens_head_slot0": res["rows"][0][:16], "profile": prof, "part_s": laps.parts,
             "_shape_counts": shape_counts}
 
 
@@ -2008,6 +2062,7 @@ def phase_server() -> dict:
     from booster_tpu_torch.serving.server import ServerThread
 
     t0 = time.perf_counter()
+    laps = _Laps()
     torch.cuda.reset_peak_memory_stats()
     model = _big_model("q8")["model"]
     n_sys = len(model.tokenizer.encode(SYSTEM))
@@ -2019,9 +2074,9 @@ def phase_server() -> dict:
     spec = cfg.models["default"]
     eng = Engine(model, max_batch=64, max_seq=spec.context, kv_quantized=True, paged=True,
                  page_size=256, decode_chunk=8)
-    t_w = time.perf_counter()
+    laps("engine")
     eng.warmup()
-    warmup_s = time.perf_counter() - t_w
+    laps("warm-up")
     sched = Scheduler(eng, prompt_spec=cfg.prompts["default"],
                       default_sampling=cfg.samplings["default"],
                       default_max_tokens=spec.predict, deadline_s=cfg.deadline)
@@ -2055,6 +2110,7 @@ def phase_server() -> dict:
             raise AssertionError("the scheduler did not become idle")
 
         idle()
+        laps("first request")
         kernels.reset_counts()
         syncs.reset()
         run = _server_traffic(srv.port, "a")
@@ -2075,7 +2131,9 @@ def phase_server() -> dict:
                                  f"{chunks} decode dispatches")
         if health["slots_total"] != 64 or health["prefix_hits"] < 48:
             raise AssertionError(f"server: /health {health}")
+        laps("run")
         prof = _profile(lambda: _server_traffic(srv.port, "b"), steps=steps)
+        laps("profile")
         if prof["kernel_ms"] is not None:
             prof["device_busy_share"] = prof["kernel_ms"] / (1e3 * run["wall_s"])
     finally:
@@ -2089,7 +2147,8 @@ def phase_server() -> dict:
     def pct(xs, q):
         return 1e3 * xs[min(len(xs) - 1, int(q * len(xs)))]
 
-    return {"phase": "server", "seconds": time.perf_counter() - t0, "warmup_s": warmup_s,
+    return {"phase": "server", "seconds": time.perf_counter() - t0, "part_s": laps.parts,
+            "warmup_s": laps.parts["warm-up"],
             "system_message_tokens": n_sys, "requests": len(res), "step2_wall_s": run["wall_s"],
             "tokens_delivered": delivered, "agg_tok_per_s": delivered / run["wall_s"],
             "per_stream_tok_per_s": delivered / run["wall_s"] / 64,
@@ -2144,7 +2203,8 @@ def main(argv=None) -> int:
             failed.append(name)
             return None
 
-    jobs = (([("tiny", 22)] if {"generate", "batch"} & set(phases) else [])
+    jobs = (([("tiny", 2), ("q8", 2)] if "parity" in phases else [])
+            + ([("tiny", 22)] if {"generate", "batch"} & set(phases) else [])
             + ([("moe", 2), ("moe_q8", 2)] if "parity" in phases else [])
             + ([("q8", 32)] if {"generate_q8", "batch_q8", "server"} & set(phases) else [])
             + ([("moe", 32)] if {"generate_moe", "batch_moe"} & set(phases) else []))

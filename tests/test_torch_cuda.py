@@ -287,7 +287,8 @@ def _lane(kind, R, K, gen, mins=False):
 
 
 @pytest.mark.parametrize("kind", ["i4p", "i8"])
-@pytest.mark.parametrize("m,k,n", [(1, 768, 128), (5, 1024, 384), (40, 512, 256)])
+@pytest.mark.parametrize("m,k,n", [(1, 768, 128), (5, 1024, 384), (40, 512, 256),
+                                   (600, 512, 256)])
 def test_qmm_lane_kernel_matches_plain(cuda, kind, m, k, n):
     gen = torch.Generator(device="cuda").manual_seed(20)
     w = _lane(kind, n, k, gen)

@@ -226,9 +226,9 @@ def test_moe_ffn_grouped_matches_reference(models, pallas, fmt):
     _close(got.float().numpy(), want, 2 ** -7)
 
 
-def test_dense_all_experts_form_matches_reference(models):
-    """Stacks that the grouped dispatch does not take (here K-major ones)
-    run the dense all-experts form, as the reference runs it off Pallas."""
+def test_expert_stacks_the_loader_does_not_make_raise(models):
+    """The loader keeps expert stacks lane-major (or dense); K-major stacks,
+    which no loader makes, raise instead of taking another FFN path."""
     jm, tm = models["q4_0"]
     jl, _ = _layer0(jm, tm)
     tl = {"router": tm.params["layers"]["router"].at(0)}
@@ -238,12 +238,9 @@ def test_dense_all_experts_form_matches_reference(models):
             "i4p", torch.from_numpy(j.qw), torch.from_numpy(j.scales), None, j.group,
             j.shape, TT.Q4_0, zero=j.zero))
     assert not tmoe.moe_supported(tl)
-    x = (np.random.default_rng(6).standard_normal((1, 5, C)) * 0.5).astype(np.float32)
-    xb = jnp.asarray(x, jnp.bfloat16)
-    want = np.asarray(jllama._moe_ffn(xb, jl, jm.cfg).astype(jnp.float32))
-    got = tllama._moe_ffn(torch.from_numpy(np.asarray(xb.astype(jnp.float32))).to(
-        torch.bfloat16), tl, tm.cfg)
-    _close(got.float().numpy(), want, 2 ** -6)
+    x = torch.zeros(1, 5, C, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        tllama._moe_ffn(x, tl, tm.cfg)
 
 
 # -- the models --------------------------------------------------------------
