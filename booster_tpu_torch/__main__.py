@@ -7,7 +7,8 @@ Port of ``booster_tpu/__main__.py``: flags and config files
 ones and exit; ``--debug`` prints a job monitor) or an interactive chat
 (``--chat``).  ``--device`` (default ``cuda``) is the one flag the JAX CLI
 lacks: without CUDA the run fails unless ``--device cpu`` asks for the plain
-versions of the kernels.  Flags of features not ported yet (a draft model,
+versions of the kernels.  ``--weights i8c`` without ``--allow-lossy`` is
+refused with exit code 2, as in the JAX CLI.  Flags of features not ported yet (a draft model,
 ``--lookup-decoding``, ``--grammar-file``, Self-Extend, ``--tp``,
 ``--profile``, a swap directory) raise NotImplementedError; a job that asks
 for one fails on its own.
@@ -79,6 +80,11 @@ def main(argv=None) -> int:
     if not (args.prompt or args.server or args.chat):
         log.error("nothing to do: give --prompt, --server or --chat")
         return 1
+    if args.weights == "i8c" and not args.allow_lossy:
+        log.error("--weights i8c is LOSSY (each output row of every weight is requantized "
+                  "to int8 with one scale); pass --allow-lossy to acknowledge it, or use "
+                  "the exact forms --weights native|bf16|i8|auto")
+        return 2
 
     from booster_tpu_torch.models import load_model
     from booster_tpu_torch.sampling import SamplingParams

@@ -11,6 +11,9 @@
 // then run warp-level mma.sync m16n8k16 (bf16 in, f32 accumulate) on
 // ldmatrix fragments, 8 per warp per 16 rows of K.
 //
+// qmm_i8c.cu takes the same tile with no group scales (kScaled = false:
+// w = bf16(q), exact) and applies its per-column scale after the sum.
+//
 // Bit-exactness between the three kernels rests on this file: a split's sum
 // is the same chain of mma instructions from zero over the same stages, and
 // the splits are added in split order, s = ((0 + p0) + p1) + ..., by the
@@ -69,6 +72,9 @@ __device__ __forceinline__ void split_range(int K, int KS, int s, int& kb, int& 
   ke = static_cast<int>(static_cast<long long>(s + 1) * nk / KS) * kBK;
 }
 
+// kScaled = false: a payload with no group scales (i8c: one scale per
+// column, applied by the caller's epilogue); op.s is not read and w = bf16(q).
+template <bool kScaled = true>
 __device__ __forceinline__ void load_stage(const Operand& op, int m0, int n0, int k, Stage& st) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -80,15 +86,19 @@ __device__ __forceinline__ void load_stage(const Operand& op, int m0, int n0, in
         : make_uint4(0u, 0u, 0u, 0u);
     const size_t qo = static_cast<size_t>(k + r) * op.ldq + n0 + c * 16;
     st.q[i] = __ldg(reinterpret_cast<const uint4*>(op.q + qo));
-    const uint4* sp = reinterpret_cast<const uint4*>(
-        op.s + static_cast<size_t>((k + r) / kGroup) * op.ldq + n0 + c * 16);
-    st.s[i][0] = __ldg(sp);
-    st.s[i][1] = __ldg(sp + 1);
+    if constexpr (kScaled) {
+      const uint4* sp = reinterpret_cast<const uint4*>(
+          op.s + static_cast<size_t>((k + r) / kGroup) * op.ldq + n0 + c * 16);
+      st.s[i][0] = __ldg(sp);
+      st.s[i][1] = __ldg(sp + 1);
+    }
   }
 }
 
 // x as it is; w = bf16(f32(q) · f32(s)) (the product is exact in f32: an
-// int8 times an 8-bit mantissa), 16 columns per chunk.
+// int8 times an 8-bit mantissa), or w = bf16(q) (exact) when not kScaled, 16
+// columns per chunk.
+template <bool kScaled = true>
 __device__ __forceinline__ void store_stage(const Stage& st, Smem& sm) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -96,15 +106,24 @@ __device__ __forceinline__ void store_stage(const Stage& st, Smem& sm) {
     const int r = idx >> 3, c = idx & 7;
     *reinterpret_cast<uint4*>(&sm.x[r * kXS + c * 8]) = st.x[i];
     const uint32_t qv[4] = {st.q[i].x, st.q[i].y, st.q[i].z, st.q[i].w};
-    const uint32_t sv[8] = {st.s[i][0].x, st.s[i][0].y, st.s[i][0].z, st.s[i][0].w,
-                            st.s[i][1].x, st.s[i][1].y, st.s[i][1].z, st.s[i][1].w};
     uint32_t o[8];
+    if constexpr (kScaled) {
+      const uint32_t sv[8] = {st.s[i][0].x, st.s[i][0].y, st.s[i][0].z, st.s[i][0].w,
+                              st.s[i][1].x, st.s[i][1].y, st.s[i][1].z, st.s[i][1].w};
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {  // columns 2j, 2j + 1 of the chunk
-      const uint32_t word = qv[j >> 1] >> ((j & 1) * 16);
-      const float q0 = static_cast<float>(static_cast<int8_t>(word & 0xffu));
-      const float q1 = static_cast<float>(static_cast<int8_t>((word >> 8) & 0xffu));
-      o[j] = pack_bf16x2(__fmul_rn(q0, bf16f(sv[j] & 0xffffu)), __fmul_rn(q1, bf16f(sv[j] >> 16)));
+      for (int j = 0; j < 8; ++j) {  // columns 2j, 2j + 1 of the chunk
+        const uint32_t word = qv[j >> 1] >> ((j & 1) * 16);
+        const float q0 = static_cast<float>(static_cast<int8_t>(word & 0xffu));
+        const float q1 = static_cast<float>(static_cast<int8_t>((word >> 8) & 0xffu));
+        o[j] = pack_bf16x2(__fmul_rn(q0, bf16f(sv[j] & 0xffffu)), __fmul_rn(q1, bf16f(sv[j] >> 16)));
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const uint32_t word = qv[j >> 1] >> ((j & 1) * 16);
+        o[j] = pack_bf16x2(static_cast<float>(static_cast<int8_t>(word & 0xffu)),
+                           static_cast<float>(static_cast<int8_t>((word >> 8) & 0xffu)));
+      }
     }
     uint4* dst = reinterpret_cast<uint4*>(&sm.w[r * kWS + c * 16]);
     dst[0] = make_uint4(o[0], o[1], o[2], o[3]);
@@ -165,6 +184,7 @@ __device__ __forceinline__ void mma_stage(const Smem& sm, float (&acc)[2][4][4])
 }
 
 // The 64 x 128 tile at (m0, n0) of x @ W over K rows [kb, ke), from zero.
+template <bool kScaled = true>
 __device__ __forceinline__ void dq_tile(const Operand& op, int m0, int n0, int kb, int ke, Smem& sm,
                                         float (&acc)[2][4][4]) {
 #pragma unroll
@@ -174,12 +194,12 @@ __device__ __forceinline__ void dq_tile(const Operand& op, int m0, int n0, int k
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
   Stage st;
-  load_stage(op, m0, n0, kb, st);
+  load_stage<kScaled>(op, m0, n0, kb, st);
   for (int k = kb; k < ke; k += kBK) {
     __syncthreads();  // the last stage's fragments are read
-    store_stage(st, sm);
+    store_stage<kScaled>(st, sm);
     __syncthreads();
-    if (k + kBK < ke) load_stage(op, m0, n0, k + kBK, st);
+    if (k + kBK < ke) load_stage<kScaled>(op, m0, n0, k + kBK, st);
     mma_stage(sm, acc);
   }
 }

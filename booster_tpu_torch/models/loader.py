@@ -4,7 +4,10 @@ layers stacked on a leading axis).
 Port of the llama path of ``booster_tpu/models/loader.py``: every Q4_0 or
 Q8_0 weight is repacked losslessly (quant.qtensor) or, with ``weights="bf16"``,
 dequantized exactly to dense bf16 (``"auto"`` picks as the JAX loader
-does), the q/k rows of
+does), or with ``weights="i8"`` widened exactly to int8; with
+``weights="i8c"`` each layer's fused weights and the output head are
+requantized per output channel at stack time (lossy; on the load's
+device), the routed experts and a dense router excepted; the q/k rows of
 interleaved-rope models are de-interleaved so rope runs in the neox form
 (exact), q/k/v and gate/up rows are fused into one matmul each, layers are
 stacked, and the stacks are transposed to the K-major i4t / i8t layout with
@@ -33,6 +36,7 @@ from booster_tpu_torch.ops.rope import rope_inv_freq, yarn_params
 from booster_tpu_torch.quant import dequantize, repack_gguf_tensor
 from booster_tpu_torch.quant.qtensor import (
     QTensor,
+    channel_quantize,
     compact_scales,
     prepare_kernel_scales,
     repack_weights,
@@ -146,13 +150,22 @@ def _kernel_layout(qt: QTensor, dev: Optional[torch.device] = None,
     return qt
 
 
+def _channel_quantize_on(qt: QTensor, dev: torch.device) -> QTensor:
+    """weights="i8c" for one tensor (``booster_tpu/models/loader.py:366-368,
+    535-539``): an i4p or i8 weight is requantized per output channel on
+    `dev`, from the file's f32 scales; other kinds (dense) are kept."""
+    return channel_quantize(to_torch(qt, dev)) if qt.kind in ("i4p", "i8") else qt
+
+
 class _Stacks:
     """Per-key layer stacks [L, ...], filled one layer at a time: the fields
     of a QTensor in tensors on the device, allocated when layer 0 arrives,
-    other arrays (the norms) stacked in numpy."""
+    other arrays (the norms) stacked in numpy.  With `i8c`, every layer
+    tensor but the routed experts is requantized per channel on the device
+    as it arrives."""
 
-    def __init__(self, n_layers: int, dev: torch.device):
-        self.n, self.dev = n_layers, dev
+    def __init__(self, n_layers: int, dev: torch.device, i8c: bool = False):
+        self.n, self.dev, self.i8c = n_layers, dev, i8c
         self.q: dict[str, QTensor] = {}
         self.arrays: dict[str, list] = {}
 
@@ -160,6 +173,8 @@ class _Stacks:
         if not isinstance(v, QTensor):
             self.arrays.setdefault(key, []).append(v)
             return
+        if self.i8c and key not in _EXPERT_KEYS:
+            v = _channel_quantize_on(v, self.dev)
         v = to_torch(prepare_kernel_scales(v), self.dev)
         if key in _EXPERT_KEYS:  # stored with bf16 planes from the start (half the bytes)
             v = compact_scales(v)
@@ -212,11 +227,12 @@ def load_model(path: str, device="cuda", weights: str = "native",
                batch_hint: int = 0) -> LoadedModel:
     """Read a GGUF file and build the params on `device` (CUDA by default;
     raises when CUDA is absent and the CPU was not asked for).  `weights` is
-    "native", "bf16" or "auto" (see resolve_weights; `batch_hint` is the
-    expected decode batch, 0 = unknown)."""
+    "native", "bf16", "i8" (exact), "i8c" (per-channel int8, lossy) or
+    "auto" (see resolve_weights; `batch_hint` is the expected decode batch,
+    0 = unknown)."""
     dev = resolve_device(device)
-    if weights not in ("native", "bf16", "auto"):
-        raise NotImplementedError(f"weights={weights!r}: not ported yet")
+    if weights not in ("native", "bf16", "i8", "i8c", "auto"):
+        raise ValueError(f"unknown weights mode {weights!r}")
     reader = GGUFReader(path)
     try:
         cfg = ModelConfig.from_gguf_metadata(reader.metadata)
@@ -239,7 +255,9 @@ def load_model(path: str, device="cuda", weights: str = "native",
             if info is None:
                 return None
             qt = repack_gguf_tensor(reader.tensor_bytes(info), info.ggml_type, info.shape)
-            return repack_weights(qt, weights)
+            # i8c waits for the stacks: the q/k de-interleave and the row
+            # fusions come first, as in the reference (loader.py:332-335)
+            return qt if weights == "i8c" else repack_weights(qt, weights)
 
         staging: list = []  # one pinned host buffer, reused for every expert stack
 
@@ -264,6 +282,8 @@ def load_model(path: str, device="cuda", weights: str = "native",
         params["tok_embd"] = torch.from_numpy(emb).to(torch.bfloat16)
         params["output_norm"] = torch.from_numpy(load_dense("output_norm.weight"))
         out_q = load_q("output.weight")
+        if out_q is not None and weights == "i8c":
+            out_q = _channel_quantize_on(out_q, dev)
         params["output"] = None if out_q is None else _kernel_layout(out_q, dev)
         rope_factors = load_dense("rope_freqs.weight")
         inv_freq = rope_inv_freq(cfg, rope_factors)
@@ -273,7 +293,7 @@ def load_model(path: str, device="cuda", weights: str = "native",
 
         deint = cfg.rope_style == ROPE_NORM and cfg.rope_dims > 1
         ffn_keys = {"router"} | _EXPERT_KEYS if cfg.n_experts else _FFN_KEYS
-        stacks = _Stacks(cfg.n_layers, dev)
+        stacks = _Stacks(cfg.n_layers, dev, i8c=weights == "i8c")
         for i in range(cfg.n_layers):
             lp: dict[str, Any] = {}
             for suffix, key in _LAYER_MAP.items():
@@ -345,7 +365,7 @@ def params_from_numpy(params: dict, cfg: ModelConfig, device="cpu") -> dict:
 
     def conv(v, key=None):
         if hasattr(v, "kind") and hasattr(v, "qw"):
-            if v.kind not in ("i4p", "i4t", "i8", "i8t", "dense"):
+            if v.kind not in ("i4p", "i4t", "i8", "i8t", "i8c", "dense"):
                 raise NotImplementedError(f"QTensor kind {v.kind!r}: not ported yet")
             qt = QTensor(
                 kind=v.kind,

@@ -12,15 +12,19 @@ torch, with the same rounding points; a wrapper uses them only for tensors
 on the CPU.  Lane-major weights that the reference's ``_supported`` takes
 run ``csrc/qmm_lane.cu`` (the port of ``_qmm_i4_kernel``/``_qmm_i8_kernel``;
 ``qmm_lane``, plain version ``qmm_lane_plain``), whose grouped form
-``ops.moe`` runs over the routed experts.  Shapes the kernels do not take
-go to the dequantize-matmul path, as in the JAX package.
+``ops.moe`` runs over the routed experts.  Per-channel int8 weights (i8c,
+``weights="i8c"``) that the reference's ``_supported_i8c`` takes run
+``csrc/qmm_i8c.cu`` (the port of ``_i8c_kernel``; ``qmm_i8c``, plain version
+``qmm_i8c_plain``).  Shapes the kernels do not take go to the
+dequantize-matmul path, as in the JAX package.
 
 Numerics (see the sources' headers): i4t at M = 1, the group-dot form
 ``y = sum_g f32(bf16 s)·(sum bf16(x)·q - zero·xs) - f32(bf16 m)·xs``; at M > 1
 ``w = bf16(bf16(q - zero)·bf16(s))`` then ``y = bf16(x) @ w`` in f32 less the
 min term.  i8t at M = 1 ``y = sum_g f32(bf16 s)·(sum bf16(x)·q)``; at M > 1
 ``w = bf16(f32(q)·f32(bf16 s))``, ``y = bf16(x) @ w`` in f32.  Lane-major at
-any M ``w = bf16(bf16(q - zero)·bf16(s))``, ``y = bf16(x) @ w`` in f32.  The plain
+any M ``w = bf16(bf16(q - zero)·bf16(s))``, ``y = bf16(x) @ w`` in f32.  i8c at any
+M ``y = (bf16(x) @ q)`` in f32, then ``· s[n]`` in f32.  The plain
 versions use f32 matmuls (``torch.backends.cuda.matmul.allow_tf32`` must
 stay False, its default, on the card).
 """
@@ -45,6 +49,11 @@ _I8_SIGNATURES = {
     "bt_qmm_i8t_gd_splits": [ctypes.c_int],
     "bt_qmm_i8t_dq": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
 }
+_I8C_SIGNATURES = {
+    "bt_qmm_i8c_mv": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+    "bt_qmm_i8c_mm": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+}
+_I8C_MV_ROWS = 256  # rows of K per block of the M = 1 kernel (kMvRows in qmm_i8c.cu)
 _LANE_SIGNATURES = {
     "bt_qmm_lane": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 }
@@ -112,6 +121,13 @@ def _supported_t(w: QTensor, K: int, M: int) -> bool:
     if pk % 32 != 0 or N % 128 != 0 or (pk // G) % 8 != 0:
         return False
     return True
+
+
+def _supported_i8c(w: QTensor, K: int) -> bool:
+    """The reference's gate of the i8c kernel (pallas_qmm.py:1552-1557)."""
+    if w.kind != "i8c" or w.scales is None:
+        return False
+    return K == w.shape[1] and K % 256 == 0 and w.shape[0] % 128 == 0
 
 
 def _supported(w: QTensor, K: int, M: int) -> bool:
@@ -238,6 +254,14 @@ def qmm_plain(x: torch.Tensor, w: QTensor, dq: bool = False) -> torch.Tensor:
         xs = xb.reshape(M, 2 * ngh, G).sum(-1)  # [M, 2·ngh] f32 group sums
         y = y - xs @ sf[2:4].reshape(2 * ngh, N)
     return y
+
+
+def qmm_i8c_plain(x: torch.Tensor, w: QTensor) -> torch.Tensor:
+    """x [M, K] @ W^T → [M, N] f32 for an i8c QTensor (layer view allowed),
+    in plain torch with the kernel's rounding points: the f32 sum of
+    bf16(x)·q, then times the f32 channel scale."""
+    w = w.resolved()
+    return (x.to(torch.bfloat16).float() @ w.qw.float()) * w.scales.float()
 
 
 def lane_dequant(w: QTensor, r0: int = 0, r1: Optional[int] = None) -> torch.Tensor:
@@ -383,6 +407,46 @@ def _launch_i8t(x: torch.Tensor, w: QTensor, gateup: bool, dq: bool) -> torch.Te
     return out
 
 
+def _launch_i8c(x: torch.Tensor, w: QTensor) -> torch.Tensor:
+    w = w.resolved()
+    M, K = x.shape
+    N = w.shape[0]
+    s = w.scales
+    if x.dtype != torch.bfloat16 or not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("qmm_i8c kernel: x must be contiguous bf16 on 16 bytes")
+    if w.qw.dtype != torch.int8 or tuple(w.qw.shape) != (K, N) or not w.qw.is_contiguous():
+        raise ValueError(f"qmm_i8c kernel: payload must be contiguous int8 [{K}, {N}]")
+    if s.dtype != torch.float32 or tuple(s.shape) != (1, N) or not s.is_contiguous():
+        raise ValueError(f"qmm_i8c kernel: scales must be contiguous f32 [1, {N}]")
+    if K % 256 or N % 128:
+        raise NotImplementedError(f"qmm_i8c kernel: N = {N}, K = {K}: not ported yet "
+                                  "(K a multiple of 256, N of 128)")
+    dev = x.device
+    if not (dev == w.qw.device == s.device):
+        raise ValueError("qmm_i8c kernel: all operands must be on one device")
+    lib = kernels.library("qmm_i8c", _I8C_SIGNATURES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = torch.empty(M, N, device=dev, dtype=torch.float32)
+    if M == 1:
+        splits = K // _I8C_MV_ROWS
+        part = torch.empty(splits * N, dtype=torch.float32, device=dev) if splits > 1 else None
+        rc = lib.bt_qmm_i8c_mv(x.data_ptr(), w.qw.data_ptr(), s.data_ptr(), out.data_ptr(),
+                               None if part is None else part.data_ptr(),
+                               _ticket_buffer(dev, N // 128).data_ptr(), K, N, stream)
+        name = "qmm_i8c_mv"
+    else:
+        ks = dq_splits(M, K, N)
+        part = torch.empty(ks * M * N, dtype=torch.float32, device=dev) if ks > 1 else None
+        tickets = _ticket_buffer(dev, -(-M // _DQ_BM) * (N // _DQ_BN))
+        rc = lib.bt_qmm_i8c_mm(x.data_ptr(), w.qw.data_ptr(), s.data_ptr(), out.data_ptr(),
+                               None if part is None else part.data_ptr(), tickets.data_ptr(),
+                               M, K, N, ks, stream)
+        name = "qmm_i8c_mm"
+    kernels.check(rc, name)
+    kernels.count(name, (K, N))
+    return out
+
+
 def lane_launch(x: torch.Tensor, w: QTensor, N: int, name: str,
                 tile_expert: Optional[torch.Tensor] = None,
                 rows_used: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -479,6 +543,15 @@ def qmm_i8t_gateup(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     return _launch_i8t(x, w, gateup=True, dq=True)
 
 
+def qmm_i8c(x: torch.Tensor, w: QTensor) -> torch.Tensor:
+    """Kernel-level entry for i8c: x [M, K] bf16 @ W^T → [M, N] f32, the
+    split-K matvec at M = 1 and the tensor-core tile above (the plain
+    version for CPU tensors, the kernel for CUDA tensors)."""
+    if x.device.type == "cpu":
+        return qmm_i8c_plain(x, w)
+    return _launch_i8c(x, w)
+
+
 # -- public ops --------------------------------------------------------------
 
 
@@ -494,7 +567,9 @@ def qmm(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     K = x.shape[-1]
     lead = x.shape[:-1]
     M = _rows(x)
-    if w.transposed and _supported_t(w, K, M) and _stack_ok(w):
+    if _supported_i8c(w, K) and _stack_ok(w):
+        kern = qmm_i8c
+    elif w.transposed and _supported_t(w, K, M) and _stack_ok(w):
         kern = qmm_i4t if w.kind == "i4t" else qmm_i8t
     elif not w.transposed and _supported(w, K, M) and _stack_ok(w):
         # M needs no padding: the kernel masks the rows of its last tile

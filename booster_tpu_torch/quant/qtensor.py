@@ -22,11 +22,13 @@ with payload ``qw``:
     kind="i8t"  the same payload stored K-major, [in, out], with scale
                 planes [R, in/G, out]: row 0 the scales, row 1 the mins
                 when affine
+    kind="i8c"  per-channel symmetric int8 (``channel_quantize``, lossy):
+                K-major int8 [in, out], f32 scales [1, out], group = in
     kind="dense" bf16 [out, in]   (no scales; ``repack_weights(qt, "bf16")``;
                 while loading, numpy f32 or the bf16 bits as uint16)
 
 The K-major forms are what ops/qmm.py's kernels (csrc/qmm_i4t.cu,
-csrc/qmm_i8t.cu) and ops/mlp.py's (csrc/mlp_i8t.cu) read:
+csrc/qmm_i8t.cu, csrc/qmm_i8c.cu) and ops/mlp.py's (csrc/mlp_i8t.cu) read:
 consecutive output columns are consecutive bytes, so a warp's loads of one
 payload row coalesce.  ``compact_scales`` stores the K-major scale planes as
 bfloat16 — the kernel rounds scales to bf16 anyway, so this is exact through
@@ -56,7 +58,7 @@ class QTensor:
     on a leading layer axis).  Arrays are numpy while loading, torch after
     ``to_torch``."""
 
-    kind: str  # "i4p" | "i4t" | "i8" | "i8t" | "dense"
+    kind: str  # "i4p" | "i4t" | "i8" | "i8t" | "i8c" | "dense"
     qw: Any
     scales: Optional[Any]
     mins: Optional[Any]
@@ -77,7 +79,7 @@ class QTensor:
 
     @property
     def transposed(self) -> bool:
-        return self.kind in ("i4t", "i8t")
+        return self.kind in ("i4t", "i8t", "i8c")
 
     @property
     def scale_rows(self) -> int:
@@ -197,14 +199,22 @@ def repack_gguf_tensor(raw, ggml_type: GGMLType, shape: tuple[int, ...],
 
 def repack_weights(qt: QTensor, mode: str) -> QTensor:
     """Load-time weight format (``booster_tpu/quant/qtensor.py::repack_weights``):
-    "native" keeps the file's quantization, "bf16" dequantizes exactly (f32
+    "native" keeps the file's quantization; "bf16" dequantizes exactly (f32
     values from the stored scales, rounded once) to a ``dense`` QTensor whose
     payload holds the bf16 bit patterns as numpy uint16 [out, in] (numpy has
-    no bf16; ``to_torch`` reads them back).  Other modes are not ported yet."""
+    no bf16; ``to_torch`` reads them back); "i8" widens i4p nibbles to int8
+    ``q - zero`` with the same scales and mins (exact; other kinds are kept).
+    The loader applies "i8c" (``channel_quantize``) at stack time."""
     if mode == "native" or qt.kind == "dense":
         return qt
+    if mode == "i8":
+        if qt.kind != "i4p":
+            return qt
+        p = np.asarray(qt.qw)
+        q = np.concatenate([p & 0x0F, p >> 4], axis=-1).astype(np.int16) - int(qt.zero)
+        return replace(qt, kind="i8", qw=q.astype(np.int8), zero=0)
     if mode != "bf16":
-        raise NotImplementedError(f"weights={mode!r}: not ported yet")
+        raise ValueError(f"unknown weights mode {mode!r}")
 
     def t(a):
         return None if a is None else torch.from_numpy(np.ascontiguousarray(a))
@@ -212,6 +222,38 @@ def repack_weights(qt: QTensor, mode: str) -> QTensor:
     w = dequantize(replace(qt, qw=t(qt.qw), scales=t(qt.scales), mins=t(qt.mins)))
     bits = w.view(torch.int16).numpy().view(np.uint16)
     return QTensor("dense", bits, None, None, 1, qt.shape, qt.source_type)
+
+
+def channel_quantize(qt: QTensor) -> QTensor:
+    """Per-output-row symmetric int8, K-major (``channel_quantize`` of the
+    JAX package, lossy): w = the f32 values from the file's f32 scales,
+    s = max(max|w[n, :]| / 127, 1e-12), q = rint(w / s); → kind "i8c" with
+    qw int8 [K, N], scales f32 [1, N], group K.  On numpy arrays (computed
+    on the host) or torch tensors (computed where they lie: the loader
+    quantizes on the card).  Both divisions are IEEE f32 divisions by a
+    tensor, as numpy's are, so the result is bit-equal to the JAX
+    package's on either device (CUDA divides by a CPU scalar as a multiply
+    by its reciprocal, which differs in the last bit)."""
+    if qt.kind == "dense":
+        return qt
+    if qt.kind not in ("i4p", "i8") or qt.prepared:
+        raise ValueError(f"channel_quantize takes i4p or i8 with flat scales, not {qt.kind!r}")
+
+    def t(a):
+        return None if a is None else (a if torch.is_tensor(a) else torch.from_numpy(
+            np.ascontiguousarray(a)))
+
+    qt = replace(qt, qw=t(qt.qw), scales=t(qt.scales), mins=t(qt.mins))
+    if qt.scales.dtype != torch.float32 or (qt.mins is not None
+                                            and qt.mins.dtype != torch.float32):
+        raise ValueError("channel_quantize needs the file's f32 scales (before compact_scales)")
+    N, K = qt.shape
+    w = dequantize(qt, torch.float32)  # [N, K]
+    amax = w.abs().amax(dim=1, keepdim=True)
+    s = torch.clamp_min(amax / torch.full_like(amax, 127.0), 1e-12)
+    q = torch.round(w / s).to(torch.int8)  # round half to even, as np.rint
+    return QTensor("i8c", q.t().contiguous(), s.reshape(1, N).contiguous(), None, K, qt.shape,
+                   qt.source_type)
 
 
 def prepare_kernel_scales(qt: QTensor) -> QTensor:
@@ -237,7 +279,7 @@ def transpose_qtensor(qt: QTensor) -> QTensor:
     → [..., Kp, N]; prepared scales [..., N, R, SG] → [..., R, SG, N].  On
     numpy arrays on the host, or on torch tensors where they lie (the loader
     transposes on the card: a host transpose of a 7B model takes a minute)."""
-    if qt.kind in ("dense", "i4t", "i8t"):
+    if qt.kind in ("dense", "i4t", "i8t", "i8c"):
         return qt
     if qt.kind not in ("i4p", "i8"):
         raise ValueError(f"cannot transpose kind {qt.kind!r}")
@@ -307,6 +349,8 @@ def dequantize(qt: QTensor, dtype=torch.bfloat16) -> torch.Tensor:
     qt = qt.resolved()
     if qt.kind == "dense":
         return qt.qw.to(dtype)
+    if qt.kind == "i8c":  # [K, N] · [1, N] → [N, K]
+        return (qt.qw.float() * qt.scales.float()).t().to(dtype)
     if qt.kind not in ("i4p", "i4t", "i8", "i8t"):
         raise NotImplementedError(f"kind {qt.kind!r}: not ported yet")
     p = qt.qw.t() if qt.transposed else qt.qw  # [N, K/2] u8 or [N, K] i8

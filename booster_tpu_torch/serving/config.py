@@ -222,9 +222,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--kv-quant", action="store_true", help="int8 KV cache")
     ap.add_argument("--weights", default="auto",
                     choices=("auto", "native", "bf16", "i8", "i8c"),
-                    help="runtime weight format: native, bf16 or auto (bf16 when the "
-                         "model fits the rule; i8 and i8c are not ported yet)")
-    ap.add_argument("--allow-lossy", action="store_true", dest="allow_lossy")
+                    help="runtime weight format: native; bf16 and i8 (4-bit weights "
+                         "widened to int8) are exact; i8c is per-channel int8 (LOSSY: "
+                         "each output row requantized with one scale; needs "
+                         "--allow-lossy); auto = bf16 when the model fits the rule")
+    ap.add_argument("--allow-lossy", action="store_true", dest="allow_lossy",
+                    help="acknowledge that --weights i8c changes the model's outputs")
     ap.add_argument("--paged-kv", action="store_true",
                     help="paged KV cache (page pool + per-slot tables, cross-slot "
                          "shared-prefix pages)")

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (booster_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases build,kernels,parity,generate,batch,generate_q8,batch_q8,server]
+    python3 chip_smoke.py [--phases build,kernels,parity,generate,batch,generate_i8,generate_q8,
+                           batch_q8,server,generate_i8c,batch_i8c,generate_moe,batch_moe]
 
 Phases, each printing one JSON line with its seconds:
 
@@ -39,7 +40,14 @@ Phases, each printing one JSON line with its seconds:
    and down shapes: within 2e-4 of the largest output of its plain
    version, zero on the padding tiles it skips, and each wrong kernel (the
    tile table ignored, the expert off by one, the nibble halves swapped, a
-   group's scale from its neighbour) past 8x that limit.  Median times of kernel,
+   group's scale from its neighbour) past 8x that limit.  The per-channel
+   int8 matmul of csrc/qmm_i8c.cu (weights="i8c") at the 7B shapes (qkv,
+   wo, gate-up 4096 → 28672, down through the layer view of 2-layer
+   stacks; the 2-D lm head) at M = 1, 64 and 2048: within 2e-4 of the
+   largest output of its plain version, equal to itself on a second launch,
+   and each wrong kernel (the rescale dropped, a neighbour column's scale,
+   the layer off by one, K rows [0, 256) dropped, the payload read N-major)
+   past 8x that limit.  Median times of kernel,
    plain version and one library call (the yardstick), each call after an
    L2 scrub (cold, as on the decode path), and the kernel's time warm.
 3. parity — 2-layer models on the CPU (plain versions) and on the card
@@ -55,7 +63,14 @@ Phases, each printing one JSON line with its seconds:
    width (8 experts of ff 14336, 2 used) with Q4_0 and then Q8_0 weights,
    the single-stream path over a bf16 cache, 3 decode steps (a step where
    the two devices routed the compared token to other experts at a
-   near-tie of its bf16 router logits is left out; at most one).  The
+   near-tie of its bf16 router logits is left out; at most one); (f) the
+   7B-width file with weights="i8c" and the TinyLlama-width file with
+   weights="i8" and "i8c", loaded on both devices: every requantized
+   tensor bit-equal between the CPU's load and the card's (channel_quantize
+   on each), the reciprocal multiply amax · f32(1/127) seen to differ on
+   rows of the Q4_0 file (and counted, with torch's CUDA division by a
+   scalar, per file), then the single-stream path over a bf16 cache, 3
+   decode steps (i8c 7B, i8 TinyLlama).  The
    live slots' logits agree within the stated tolerance at every step, and
    the greedy tokens wherever the CPU's top-2 margin exceeds it.
 4. generate — the full 22-layer TinyLlama-shaped Q4_0 GGUF (random weights
@@ -127,6 +142,24 @@ Phases, each printing one JSON line with its seconds:
    sync check, which must find none), and (one more round of the 64 under
    torch.profiler) the device busy share and the top kernels.
 
+   generate_i8 (between batch and generate_q8) — phase 4 on the same GGUF
+   loaded with ``weights="i8"`` (the nibbles widened to int8: K-major i8t
+   at group 32, the Q8_0 kernels at TinyLlama's widths).  Exact counts, as
+   generate_q8's rule gives them at 22 layers: per decode step 2·22 + 1
+   i8t group-dot matmuls and 22 whole-MLP kernels; at the prefill 44
+   dequant matmuls, 22 MLP kernels and the lm head; no 4-bit kernel and no
+   dequantize-path matmul (ops.qmm's fallback, counted).
+   generate_i8c and batch_i8c (after server) — phases 6 and 7 on the 7B
+   GGUF loaded with ``weights="i8c"`` (every dense weight and the lm head
+   requantized per output channel on the card; the load's seconds and peak
+   card memory printed).  The reference takes the i8c kernel for every
+   weight of this shape and declines the fused gate-up and the whole MLP
+   for kind i8c (pallas_qmm.py:1606, :1039, :1320), so the MLP runs
+   gate-up, silu·mul, down: 4·32 + 1 = 129 i8c matmuls per decode token or
+   step (the M = 1 matvec in generate, the tensor-core form at M = 64),
+   4·32 at generate's prefill plus its M = 1 lm head, 129 at the batch
+   prefill; no i8t, MLP or dequantize-path matmul; batch_i8c's decode
+   dispatches under torch's synchronization check, which must find none.
 9. generate_moe — the Mixtral-8x7B shape of the public
    mistralai/Mixtral-8x7B-v0.1 config (32 layers, the 7B attention, 8
    experts of ff 14336 with 2 used, rope base 1e6, vocab 32000) as a Q4_0
@@ -150,7 +183,8 @@ Phases, each printing one JSON line with its seconds:
 Then one ``{"kernels": [...]}`` line (each kernel's launches are those of
 the path that runs it: generate / generate_q8 for the M = 1 kernels and
 bf16-cache attention, batch / batch_q8 for the int8 ones, server for the
-paged ones, generate_moe / batch_moe for the grouped ones; the bf16-pool
+paged ones, generate_moe / batch_moe for the grouped ones, generate_i8c /
+batch_i8c for the i8c ones; the bf16-pool
 paged forms and the plain lane-major forms launch no time there) and, last,
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout of
 the repository, it exits non-zero and prints no result.
@@ -174,8 +208,8 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core rate, NVIDIA data sheet
 SCRUB_BYTES = 200 << 20  # 4x the H100's 50 MB L2: read between timed calls
-PHASES = ("build", "kernels", "parity", "generate", "batch", "generate_q8", "batch_q8",
-          "server", "generate_moe", "batch_moe")
+PHASES = ("build", "kernels", "parity", "generate", "batch", "generate_i8", "generate_q8",
+          "batch_q8", "server", "generate_i8c", "batch_i8c", "generate_moe", "batch_moe")
 
 # TinyLlama-1.1B (config 1 of bench.py), Q4_0
 TINYLLAMA = dict(vocab_size=32000, hidden=2048, heads=32, kv_heads=4, ff=5632,
@@ -312,6 +346,22 @@ def timed(fn, reps: int = 20, trials: int = 5, cold: bool = True) -> float:
     return statistics.median(times)
 
 
+def host_us(fn, reps: int = 200) -> float:
+    """Host µs per call to enqueue `fn` (its Python, checks, allocations and
+    launch), timed before the card is waited for: what one call costs the
+    host thread that dispatches a decode step."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / reps
+
+
 class _Laps:
     """Seconds between the named points of a phase, summed by name (the
     phase's "part_s"): where a phase's time goes on the host it ran on."""
@@ -442,6 +492,7 @@ def phase_kernels(entries: list) -> dict:
     paged_checks: dict = {}
     _paged_kernels(entries, failures, paged_checks)
     _i8t_kernels(entries, failures)
+    _i8c_kernels(entries, failures)
     _moe_kernels(entries, failures)
     _scrub_buf.clear()
     torch.cuda.empty_cache()
@@ -934,6 +985,7 @@ def _i8t_kernels(entries: list, failures: list) -> None:
                 "name": name, "shape": f"7B {label} M={M} K={K} N={N}",
                 "key": (name, (K, N)), "path": path, "route": "cuda", "source": src,
                 "replaces": "booster_tpu/ops/pallas_qmm.py:" + ("361" if M == 1 else "432"),
+                "host_us": host_us(lambda: tq.qmm_i8t(x, w)),
                 "max_abs_err": float(d.max()), "ms": timed(lambda: tq.qmm_i8t(x, w)),
                 "warm_ms": timed(lambda: tq.qmm_i8t(x, w), cold=False),
                 "plain_ms": timed(lambda: tq.qmm_plain(x, w), reps=3, trials=3),
@@ -996,6 +1048,7 @@ def _i8t_kernels(entries: list, failures: list) -> None:
             "key": ("mlp_i8t", (C, C)), "path": path, "route": "cuda",
             "source": "booster_tpu_torch/csrc/mlp_i8t.cu",
             "replaces": "booster_tpu/ops/pallas_qmm.py:1172",
+            "host_us": host_us(lambda: tm.qmm_mlp_i8t(x, wg, wd)),
             "max_abs_err": float(d.max()), "ms": timed(lambda: tm.qmm_mlp_i8t(x, wg, wd)),
             "warm_ms": timed(lambda: tm.qmm_mlp_i8t(x, wg, wd), cold=False),
             "plain_ms": timed(lambda: tm.qmm_mlp_plain(x, wg, wd), reps=3, trials=3),
@@ -1003,6 +1056,106 @@ def _i8t_kernels(entries: list, failures: list) -> None:
             "check": CHECKS["mlp"] + "; equal to the gate-up + qmm_i8t (dq)"})
         del x, got, want, d, g, mid
     del weights, gu, down, wg, wd, w
+    torch.cuda.empty_cache()
+
+
+def _stacked_i8c(L, K, N, gen):
+    """A random stacked i8c weight [L, K, N] (int8 payload, f32 channel
+    scales [L, 1, N]), made on the card."""
+    import torch
+
+    from booster_tpu_torch.gguf import GGMLType
+    from booster_tpu_torch.quant.qtensor import QTensor
+
+    qw = torch.randint(-127, 128, (L, K, N), dtype=torch.int8, device="cuda", generator=gen)
+    s = torch.rand((L, 1, N), device="cuda", generator=gen) * 2e-3 + 1e-4
+    return QTensor("i8c", qw, s, None, K, (N, K), GGMLType.Q8_0)
+
+
+def _i8c_kernels(entries: list, failures: list) -> None:
+    """The per-channel int8 matmul (csrc/qmm_i8c.cu) at the 7B shapes of
+    weights="i8c" (qkv 4096 → 6144, wo 4096 → 4096, gate-up 4096 → 28672,
+    down 14336 → 4096: layer 1 of 2-layer stacks, through the layer view;
+    the lm head 4096 → 32000, 2-D): the split-K matvec at M = 1
+    (generate_i8c's decode), the tensor-core form at M = 64 (batch_i8c's
+    decode and the lm head of its prefill) and M = 2048 (batch_i8c's
+    prefill).  Each is held against its plain version within 2e-4 of the
+    largest output, and every wrong kernel (the rescale dropped, a
+    neighbour column's scale, the layer off by one, K rows [0, 256) dropped,
+    the payload read N-major) must move the plain output past 8x that
+    limit."""
+    import dataclasses
+
+    import torch
+
+    from booster_tpu_torch.ops import qmm as tq
+    from booster_tpu_torch.quant.qtensor import dequantize
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    C, ff, V = MISTRAL7B["hidden"], MISTRAL7B["ff"], MISTRAL7B["vocab_size"]
+    nqkv = C + 2 * MISTRAL7B["kv_heads"] * (C // MISTRAL7B["heads"])
+    stacks = {"qkv": _stacked_i8c(2, C, nqkv, gen), "wo": _stacked_i8c(2, C, C, gen),
+              "gateup": _stacked_i8c(2, C, 2 * ff, gen), "down": _stacked_i8c(2, ff, C, gen)}
+    weights = {k: v.at(1) for k, v in stacks.items()}
+    weights["lm_head"] = _stacked_i8c(1, C, V, gen).at(0).resolved()
+    src = "booster_tpu_torch/csrc/qmm_i8c.cu"
+
+    def mutants(label, w):
+        w2 = w.resolved()
+        N, K = w2.shape
+        out = {"rescale dropped": dataclasses.replace(w2, scales=torch.ones_like(w2.scales)),
+               "a neighbour column's scale": dataclasses.replace(
+                   w2, scales=torch.roll(w2.scales, 1, -1)),
+               "payload read N-major": dataclasses.replace(
+                   w2, qw=w2.qw.reshape(N, K).t().contiguous())}
+        if label != "lm_head":
+            out["layer off by one"] = stacks[label].at(0)
+        return out
+
+    for M, labels, path in ((1, ("qkv", "wo", "gateup", "down", "lm_head"), "generate_i8c"),
+                            (64, ("qkv", "wo", "gateup", "down", "lm_head"), "batch_i8c"),
+                            (2048, ("qkv", "wo", "gateup", "down"), "batch_i8c")):
+        for label in labels:
+            w = weights[label]
+            N, K = w.shape
+            x = torch.randn(M, K, device="cuda", generator=gen).to(torch.bfloat16)
+            got, want = tq.qmm_i8c(x, w), tq.qmm_i8c_plain(x, w)
+            limit = 2e-4 * float(want.abs().max())
+            err = float((got - want).abs().max())
+            name = "qmm_i8c_mv" if M == 1 else "qmm_i8c_mm"
+            if not (err <= limit and torch.isfinite(got).all()):
+                failures.append(f"{name} {label} M={M}: max err {err} over {limit}")
+            if not torch.equal(got, tq.qmm_i8c(x, w)):
+                failures.append(f"{name} {label} M={M}: a second launch differs")
+            seen = {what: float((tq.qmm_i8c_plain(x, m) - want).abs().max()) / limit
+                    for what, m in mutants(label, w).items()}
+            x0 = x.clone()
+            x0[:, :256] = 0  # the partial sum of one matvec split missing
+            seen["K rows [0, 256) dropped"] = float(
+                (tq.qmm_i8c_plain(x0, w) - want).abs().max()) / limit
+            for what, v in seen.items():
+                if v < 8:
+                    failures.append(f"{name} {label} M={M}: the check cannot see {what} "
+                                    f"({v} of the limit)")
+            deq = dequantize(w, torch.bfloat16)
+            b_ms, b_by = bound(N * K + 2 * M * K + 4 * M * N + 4 * N, 2 * M * N * K)
+            entries.append({
+                "name": name, "shape": f"7B {label} M={M} K={K} N={N}",
+                "key": (name, (K, N)), "path": path, "route": "cuda", "source": src,
+                "replaces": "booster_tpu/ops/pallas_qmm.py:1451",
+                "host_us": host_us(lambda: tq.qmm_i8c(x, w)),
+                "max_abs_err": err, "min_wrong_kernel_of_limit": min(seen.values()),
+                "ms": timed(lambda: tq.qmm_i8c(x, w)),
+                "warm_ms": timed(lambda: tq.qmm_i8c(x, w), cold=False),
+                "plain_ms": timed(lambda: tq.qmm_i8c_plain(x, w), reps=3, trials=3),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": timed(lambda: torch.matmul(x, deq.t())),
+                "library": "torch.matmul on the dequantized bf16 weight",
+                "check": CHECKS["qmm"]})
+            del x, x0, got, want, deq
+        torch.cuda.empty_cache()
+    del stacks, weights
     torch.cuda.empty_cache()
 
 
@@ -1384,9 +1537,95 @@ def phase_parity() -> dict:
             raise AssertionError(f"parity paged: cache lengths {lengths} != {expect}")
     del models, caches
     laps("d check")
+    out.update(_parity_i8(tol, laps, tok.encode(PROMPT)))
     out.update(_parity_moe(tol, laps))
     out["seconds"] = time.perf_counter() - t0
     out["part_s"] = laps.parts
+    return out
+
+
+def _i8c_scale_rows(path: str, device: str = "cuda") -> dict:
+    """For each weight of the GGUF at `path` that weights="i8c" requantizes
+    (every non-expert Q4_0/Q8_0 tensor), the rows of its channel scale
+    max|w| / 127 computed on the card three ways: as channel_quantize does
+    (dividing by a tensor: IEEE), as ``amax · f32(1/127)`` (the reciprocal
+    multiply), and as ``amax / 127.0`` (torch's CUDA division by a Python
+    scalar).  Returns the rows where each of the latter two differs from
+    the first, summed over the file."""
+    import torch
+
+    from booster_tpu_torch.gguf import GGMLType, GGUFReader
+    from booster_tpu_torch.quant.qtensor import dequantize, repack_gguf_tensor
+
+    rows = {"rows": 0, "reciprocal_multiply_differs": 0, "scalar_division_differs": 0}
+    reader = GGUFReader(path)
+    try:
+        for name, info in reader.tensors.items():
+            requantized = name == "output.weight" or (
+                name.startswith("blk.") and "_exps" not in name)
+            if info.ggml_type not in (GGMLType.Q4_0, GGMLType.Q8_0) or not requantized:
+                continue
+            qt = repack_gguf_tensor(reader.tensor_bytes(info), info.ggml_type, info.shape,
+                                    device=device)
+            amax = dequantize(qt, torch.float32).abs().amax(dim=1, keepdim=True)
+            ieee = amax / torch.full_like(amax, 127.0)
+            recip = amax * torch.tensor(1 / 127, dtype=torch.float32, device=device)
+            rows["rows"] += amax.numel()
+            rows["reciprocal_multiply_differs"] += int((recip != ieee).sum())
+            rows["scalar_division_differs"] += int((amax / 127.0 != ieee).sum())
+    finally:
+        reader.close()
+    return rows
+
+
+def _parity_i8(tol: float, laps, ids: list) -> dict:
+    """(f) the 7B-width file with weights="i8c" and the TinyLlama-width file
+    with weights="i8" (and "i8c"), loaded on the CPU and on the card: every
+    i8c tensor (requantized on each device) bit-equal between the two, and
+    the i8c / i8 single-stream path over a bf16 cache, a 16-row prefill and
+    3 decode steps, the CPU (plain versions) against the card (the i8c and
+    i8t kernels).  The reciprocal multiply amax · f32(1/127) must differ
+    from the scales on at least one row of the Q4_0 file (Q8_0 rows hold
+    127·d, whose two quotients agree), so the bit-equality can see it."""
+    import torch
+
+    from booster_tpu_torch.models import load_model
+    from booster_tpu_torch.ops.kv_cache import KVCache
+
+    out = {}
+    for model, weights in (("q8", "i8c"), ("tiny", "i8"), ("tiny", "i8c")):
+        tag = f"f {model} {weights}"
+        path, _ = _wait_gguf(model, 2)
+        models = {dev: load_model(path, device=dev, weights=weights) for dev in ("cpu", "cuda")}
+        laps(f"{tag} load")
+        cfg = models["cpu"].cfg
+        want_kind = "i8c" if weights == "i8c" else "i8t"
+        ps = {dev: m.params for dev, m in models.items()}
+        keys = ["wqkv", "wo", "w_gateup", "w_down"]
+        for key in keys + ["output"]:
+            a, b = ((p_["output"] if key == "output" else p_["layers"][key])
+                    for p_ in (ps["cpu"], ps["cuda"]))
+            if a.kind != want_kind or b.kind != want_kind:
+                raise AssertionError(f"parity {tag}: {key} is {a.kind} / {b.kind}")
+            if not (torch.equal(a.qw, b.qw.cpu()) and torch.equal(a.scales, b.scales.cpu())):
+                raise AssertionError(f"parity {tag}: {key} differs between the devices")
+        res = {"tensors_bit_equal": keys + ["output"]}
+        if weights == "i8c":
+            res["scale_rows"] = _i8c_scale_rows(path)
+            laps(f"{tag} repack check")
+        if (model, weights) != ("tiny", "i8c"):  # its forward is parity (f) q8's at another width
+            caches = {dev: KVCache.create(cfg.n_layers, 1, 256, cfg.n_kv_heads, cfg.head_dim,
+                                          dev) for dev in models}
+            got, want = _teacher_forced(models, caches, [ids], 16, [True], laps, tag, steps=3)
+            res.update(_compare_logits(tag, got, want, tol))
+        out[f"{model}_{weights}_bf16_cache_1_slot"] = res
+        del models, ps
+        laps(f"{tag} check")
+    recip = sum(v["scale_rows"]["reciprocal_multiply_differs"] for k, v in out.items()
+                if "scale_rows" in v)
+    if not recip:
+        raise AssertionError("parity (f): the reciprocal multiply differs on no row; "
+                             "the bit-equality of the scales cannot see it")
     return out
 
 
@@ -1553,19 +1792,24 @@ def _rss_gb() -> tuple[float, str]:
     return int(fields[key].split()[0]) / 2**20, key
 
 
-def _big_model(model: str, layers: int = 32):
-    """A full-depth model through load_model(weights="auto") with no batch
-    hint, as bench.py loads it: config 3's 7B Q8_0 model ("q8", native i8t
-    throughout) or the Mixtral-8x7B shape ("moe": i4t attention and lm
-    head, lane-major i4p expert stacks).  Loaded once; beside the load, the
-    peak of its resident memory is sampled (which counts the GGUF's pages
-    where the kernel reports no RssAnon) and tracemalloc's peak of the
-    host memory it holds in numpy arrays and Python objects."""
+def _big_model(model: str, layers: int = 32, weights: str = "auto"):
+    """A full-depth model through load_model(weights=`weights`) with no batch
+    hint: "auto", as bench.py loads it, gives config 3's 7B Q8_0 model
+    ("q8", native i8t throughout) or the Mixtral-8x7B shape ("moe": i4t
+    attention and lm head, lane-major i4p expert stacks); "i8c" the 7B
+    model requantized per channel on the card.  Loaded once per (model,
+    weights); beside the load, the peak of its resident memory is sampled
+    (which counts the GGUF's pages where the kernel reports no RssAnon),
+    tracemalloc's peak of the host memory it holds in numpy arrays and
+    Python objects, and the card's peak memory."""
     import threading
+
+    import torch
 
     from booster_tpu_torch.models import load_model
 
-    if model not in _big:
+    key = (model, weights)
+    if key not in _big:
         t0 = time.perf_counter()
         path, build_s = _wait_gguf(model, layers)
         t1 = time.perf_counter()
@@ -1579,8 +1823,9 @@ def _big_model(model: str, layers: int = 32):
         watcher = threading.Thread(target=sample, daemon=True)
         watcher.start()
         tracemalloc.start()
+        torch.cuda.reset_peak_memory_stats()
         try:
-            m = load_model(path, device="cuda", weights="auto")
+            m = load_model(path, device="cuda", weights=weights)
         finally:
             traced_peak = tracemalloc.get_traced_memory()[1] / 2**30
             tracemalloc.stop()
@@ -1588,25 +1833,56 @@ def _big_model(model: str, layers: int = 32):
             watcher.join()
         # wait_s: how long this phase waited for the file (the writer's
         # seconds that the earlier phases did not cover)
-        _big[model] = dict(model=m, build_s=t1 - t0 if build_s is None else build_s,
-                           wait_s=t1 - t0, load_s=time.perf_counter() - t1,
-                           load_rss_gb={"field": field, "before": rss0, "peak": peak[0],
-                                        "after": _rss_gb()[0],
-                                        "numpy_and_python_peak": traced_peak})
+        _big[key] = dict(model=m, build_s=t1 - t0 if build_s is None else build_s,
+                         wait_s=t1 - t0, load_s=time.perf_counter() - t1,
+                         load_rss_gb={"field": field, "before": rss0, "peak": peak[0],
+                                      "after": _rss_gb()[0],
+                                      "numpy_and_python_peak": traced_peak},
+                         load_max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 2**30)
         kinds = {k: v.kind for k, v in m.params["layers"].items() if hasattr(v, "kind")}
         kinds["output"] = m.params["output"].kind
-        want = (dict.fromkeys(kinds, "i8t") if model == "q8" else
+        want = (dict.fromkeys(kinds, "i8c") if weights == "i8c" else
+                dict.fromkeys(kinds, "i8t") if model == "q8" else
                 dict.fromkeys(kinds, "i4t") | {"router": "dense", "gate_exps": "i4p",
                                                "up_exps": "i4p", "down_exps": "i4p"})
         if kinds != want:
-            raise AssertionError(f"{model}: weights=auto gave {kinds}, not {want}")
-    return _big[model]
+            raise AssertionError(f"{model}: weights={weights} gave {kinds}, not {want}")
+    return _big[key]
 
 
-def phase_generate(layers: int, model_name: str = "tiny") -> dict:
-    """The single-stream generate: TinyLlama Q4_0 ("tiny"), the 7B Q8_0
-    model ("q8", phase generate_q8) or the Mixtral-8x7B shape ("moe", phase
-    generate_moe)."""
+class _FallbackCount:
+    """Counts the dequantize-matmul fallbacks of ops.qmm.qmm (its calls of
+    dequantize) while it is entered."""
+
+    def __enter__(self):
+        from booster_tpu_torch.ops import qmm as tq
+
+        self.mod, self.orig, self.calls = tq, tq.dequantize, 0
+
+        def counted(*a, **kw):
+            self.calls += 1
+            return self.orig(*a, **kw)
+
+        tq.dequantize = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.dequantize = self.orig
+
+
+# the engine phases: phase → (model, load_model's weights; None: the phase's own rule)
+GENERATE = {"generate": ("tiny", None), "generate_q8": ("q8", None),
+            "generate_moe": ("moe", None), "generate_i8": ("tiny", "i8"),
+            "generate_i8c": ("q8", "i8c")}
+BATCH = {"batch": ("tiny", None), "batch_q8": ("q8", None), "batch_moe": ("moe", None),
+         "batch_i8c": ("q8", "i8c")}
+
+
+def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str] = None) -> dict:
+    """The single-stream generate: TinyLlama Q4_0 ("tiny"; with weights
+    "i8", phase generate_i8), the 7B Q8_0 model ("q8", phase generate_q8;
+    with weights "i8c", phase generate_i8c) or the Mixtral-8x7B shape
+    ("moe", phase generate_moe)."""
     import torch
 
     from booster_tpu_torch.models import load_model
@@ -1617,16 +1893,19 @@ def phase_generate(layers: int, model_name: str = "tiny") -> dict:
     t0 = time.perf_counter()
     laps = _Laps()
     t_wait = load_rss = None
-    q8, moe = model_name == "q8", model_name == "moe"
+    name = {v: k for k, v in GENERATE.items()}[(model_name, weights)]
+    q8, moe = model_name == "q8" and weights is None, model_name == "moe"
+    load_gpu_gb = None
     torch.cuda.reset_peak_memory_stats()
     if model_name in ("q8", "moe"):
-        big = _big_model(model_name, layers)
+        big = _big_model(model_name, layers, weights or "auto")
         model, t_build, t_load = big["model"], big["build_s"], big["load_s"]
         t_wait, load_rss = big["wait_s"], big["load_rss_gb"]
+        load_gpu_gb = big["load_max_memory_allocated_gb"]
     else:
         path, t_build = _wait_gguf("tiny", layers)
         t_wait = time.perf_counter() - t0
-        model = load_model(path, device="cuda")
+        model = load_model(path, device="cuda", weights=weights or "native")
         t_load = time.perf_counter() - t0 - t_wait
     eng = Engine(model, max_batch=1, max_seq=1024, decode_chunk=128)
     ids = model.tokenizer.encode(PROMPT)
@@ -1637,15 +1916,16 @@ def phase_generate(layers: int, model_name: str = "tiny") -> dict:
     laps("warm-up")
     kernels.reset_counts()
     t_run = time.perf_counter()
-    res = eng.generate(ids, sp, max_new_tokens=128)
-    torch.cuda.synchronize()
+    with _FallbackCount() as fallbacks:
+        res = eng.generate(ids, sp, max_new_tokens=128)
+        torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t_run)
     counts = dict(kernels.launch_counts)
     shape_counts = dict(kernels.shape_counts)
     shapes = {f"{k[0]}:{k[1][0]}x{k[1][1]}": v for k, v in shape_counts.items()}
     steps = 128  # one chunk of decode_chunk steps runs whatever the host keeps
     L = layers
-    if q8:  # qkv and wo per layer + the lm head, and the whole MLP (docstring)
+    if q8 or weights == "i8":  # qkv and wo per layer + the lm head, and the whole MLP
         expected = dict.fromkeys(counts, 0) | {
             "qmm_i8t_gd": (2 * L + 1) * steps + 1, "qmm_i8t_dq": 2 * L,
             "mlp_i8t": L * steps + L, "decode_attn": L * steps, "kv_append": steps}
@@ -1653,6 +1933,10 @@ def phase_generate(layers: int, model_name: str = "tiny") -> dict:
         expected = dict.fromkeys(counts, 0) | {
             "qmm_i4t_gd": (2 * L + 1) * steps + 1, "qmm_i4t_dq": 2 * L,
             "moe_qmm_i4p": 3 * L * (steps + 1), "decode_attn": L * steps, "kv_append": steps}
+    elif weights == "i8c":  # qkv, wo, gate-up, down per layer + the lm head, unfused
+        expected = dict.fromkeys(counts, 0) | {
+            "qmm_i8c_mv": (4 * L + 1) * steps + 1, "qmm_i8c_mm": 4 * L,
+            "decode_attn": L * steps, "kv_append": steps}
     else:
         expected = dict.fromkeys(counts, 0) | {
             "qmm_i4t_gd": (3 * L + 1) * steps + 1, "qmm_i4t_dq": 3 * L,
@@ -1660,6 +1944,8 @@ def phase_generate(layers: int, model_name: str = "tiny") -> dict:
             "decode_attn": L * steps, "kv_append": steps}
     if counts != expected:
         raise AssertionError(f"launch counts {counts} != expected {expected}")
+    if weights and fallbacks.calls:
+        raise AssertionError(f"{name}: {fallbacks.calls} matmuls took the dequantize path")
     # the trace covers a 32-token generate: summing one of 128 tokens (130 K
     # to 440 K kernel events) took up to a minute of the script's time limit
     laps("run")
@@ -1682,12 +1968,14 @@ def phase_generate(layers: int, model_name: str = "tiny") -> dict:
         raise AssertionError("generate: bad token ids")
     if res.n_generated != 128 and res.finish_reason != "stop":
         raise AssertionError(f"generate: {res.n_generated} tokens, {res.finish_reason}")
-    return {"phase": {"tiny": "generate", "q8": "generate_q8", "moe": "generate_moe"}[model_name],
-            "seconds": time.perf_counter() - t0, "layers": layers,
-            "weights": {"tiny": "q4_0 (i4t)", "q8": "q8_0 (i8t)",
-                        "moe": "q4_0 (i4t attention, i4p experts)"}[model_name],
+    return {"phase": name, "seconds": time.perf_counter() - t0, "layers": layers,
+            "weights": {"generate": "q4_0 (i4t)", "generate_q8": "q8_0 (i8t)",
+                        "generate_moe": "q4_0 (i4t attention, i4p experts)",
+                        "generate_i8": "q4_0 widened to int8 (i8t)",
+                        "generate_i8c": "q8_0 requantized per channel (i8c)"}[name],
             "gguf_build_s": t_build, "gguf_wait_s": t_wait, "load_s": t_load,
-            "load_rss_gb": load_rss,
+            "load_rss_gb": load_rss, "load_max_memory_allocated_gb": load_gpu_gb,
+            "dequantize_fallbacks": fallbacks.calls,
             "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
             "n_prompt": res.n_prompt, "n_generated": res.n_generated,
             "finish_reason": res.finish_reason,
@@ -1696,7 +1984,7 @@ def phase_generate(layers: int, model_name: str = "tiny") -> dict:
             "prompt_ms_per_token": res.prompt_ms_per_token, "ttft_ms": res.ttft_ms,
             "launches": counts, "launches_per_decoded_token": {
                 k: v / steps for k, v in counts.items() if k.endswith("_gd") or k in (
-                    "decode_attn", "kv_append", "mlp_i8t", "moe_qmm_i4p")},
+                    "decode_attn", "kv_append", "mlp_i8t", "moe_qmm_i4p", "qmm_i8c_mv")},
             "launches_by_shape": shapes, "tokens_head": res.token_ids[:16],
             "wall_ms": wall_ms, "profile": prof, "part_s": laps.parts,
             "_shape_counts": shape_counts}
@@ -1787,11 +2075,13 @@ class _SyncCheck:
         self.last = None
 
 
-def phase_batch(layers: int, model_name: str = "tiny") -> dict:
+def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = None) -> dict:
     """bench.py's bench_batch: config 1's model (TinyLlama, bf16 weights), or
-    config 3's ("q8": the 7B Q8_0 model, native i8t; phase batch_q8), or the
-    Mixtral-8x7B shape ("moe": native i4t and i4p; phase batch_moe), whose
-    decode dispatches run under torch's synchronization check."""
+    config 3's ("q8": the 7B Q8_0 model, native i8t; phase batch_q8; with
+    weights "i8c", requantized per channel: phase batch_i8c), or the
+    Mixtral-8x7B shape ("moe": native i4t and i4p; phase batch_moe).  The
+    decode dispatches of batch_moe and batch_i8c run under torch's
+    synchronization check."""
     import torch
 
     from booster_tpu_torch.gguf import GGUFReader
@@ -1802,14 +2092,15 @@ def phase_batch(layers: int, model_name: str = "tiny") -> dict:
 
     t0 = time.perf_counter()
     laps = _Laps()
-    q8, moe = model_name == "q8", model_name == "moe"
+    name = {v: k for k, v in BATCH.items()}[(model_name, weights)]
+    q8, moe, i8c = model_name == "q8" and weights is None, model_name == "moe", weights == "i8c"
     torch.cuda.reset_peak_memory_stats()
-    if q8 or moe:
-        big = _big_model(model_name, layers)
+    if q8 or moe or i8c:
+        big = _big_model(model_name, layers, weights or "auto")
         model, t_load = big["model"], big["load_s"]
         reader = GGUFReader(_gguf_path(layers, model_name))
         try:  # bench_batch's load_model(weights="auto", batch_hint=64): the same model
-            if resolve_weights(reader, "auto", 64) != "native":
+            if not i8c and resolve_weights(reader, "auto", 64) != "native":
                 raise AssertionError(f"{model_name}: weights=auto at batch_hint=64 is not native")
         finally:
             reader.close()
@@ -1827,9 +2118,10 @@ def phase_batch(layers: int, model_name: str = "tiny") -> dict:
     laps("load")
     _bench_batch(eng, model.tokenizer, B, n_tokens)  # warm-up: first calls of every op
     laps("warm-up")
-    syncs = _SyncCheck(eng) if moe else None
+    syncs = _SyncCheck(eng) if moe or i8c else None
     kernels.reset_counts()
-    res = _bench_batch(eng, model.tokenizer, B, n_tokens)
+    with _FallbackCount() as fallbacks:
+        res = _bench_batch(eng, model.tokenizer, B, n_tokens)
     counts = dict(kernels.launch_counts)
     if syncs is not None:
         del eng.decode_slots_start  # the class's method again
@@ -1848,8 +2140,12 @@ def phase_batch(layers: int, model_name: str = "tiny") -> dict:
     if moe:  # qkv, wo (and the lm head) at M = 64 and 64·T; the experts' three
         expected |= {"qmm_i4t_dq": (2 * layers + 1) * (steps + prefill_chunks),
                      "moe_qmm_i4p": 3 * layers * (steps + prefill_chunks)}
-    if counts != expected or (kernels.shape_counts and not (q8 or moe)):
+    if i8c:  # qkv, wo, gate-up, down (and the lm head) at M = 64 and 64·T, unfused
+        expected |= {"qmm_i8c_mm": (4 * layers + 1) * (steps + prefill_chunks)}
+    if counts != expected or (kernels.shape_counts and not (q8 or moe or i8c)):
         raise AssertionError(f"batch: launch counts {counts} != expected {expected}")
+    if i8c and fallbacks.calls:
+        raise AssertionError(f"{name}: {fallbacks.calls} matmuls took the dequantize path")
     shape_counts = dict(kernels.shape_counts)
     V = model.cfg.n_vocab
     lengths = eng.cache.lengths.tolist()
@@ -1873,11 +2169,11 @@ def phase_batch(layers: int, model_name: str = "tiny") -> dict:
     prof["window"] = f"bench_batch to 32 tokens ({short['decode_steps']} steps)"
     if prof["kernel_ms"] is not None:
         prof["device_busy_share"] = prof["kernel_ms"] / short["wall_ms"]
-    return {"phase": {"tiny": "batch", "q8": "batch_q8", "moe": "batch_moe"}[model_name],
-            "seconds": time.perf_counter() - t0, "layers": layers,
-            "weights": {"tiny": "bf16", "q8": "q8_0 (i8t)",
-                        "moe": "q4_0 (i4t attention, i4p experts)"}[model_name],
-            "load_s": t_load,
+    return {"phase": name, "seconds": time.perf_counter() - t0, "layers": layers,
+            "weights": {"batch": "bf16", "batch_q8": "q8_0 (i8t)",
+                        "batch_moe": "q4_0 (i4t attention, i4p experts)",
+                        "batch_i8c": "q8_0 requantized per channel (i8c)"}[name],
+            "load_s": t_load, "dequantize_fallbacks": fallbacks.calls,
             "host_syncs_in_dispatches": None if syncs is None else syncs.host_syncs,
             "decode_dispatches_checked": None if syncs is None else syncs.chunks,
             "dispatches_with_previous_chunk_still_running":
@@ -2204,9 +2500,10 @@ def main(argv=None) -> int:
             return None
 
     jobs = (([("tiny", 2), ("q8", 2)] if "parity" in phases else [])
-            + ([("tiny", 22)] if {"generate", "batch"} & set(phases) else [])
+            + ([("tiny", 22)] if {"generate", "batch", "generate_i8"} & set(phases) else [])
             + ([("moe", 2), ("moe_q8", 2)] if "parity" in phases else [])
-            + ([("q8", 32)] if {"generate_q8", "batch_q8", "server"} & set(phases) else [])
+            + ([("q8", 32)] if {"generate_q8", "batch_q8", "server", "generate_i8c",
+                                "batch_i8c"} & set(phases) else [])
             + ([("moe", 32)] if {"generate_moe", "batch_moe"} & set(phases) else []))
     _start_writer(jobs)
     try:
@@ -2237,19 +2534,22 @@ def _run_phases(phases, run, entries, failed, t_all) -> int:
             res = run(name, fn)
             if res is not None:
                 emit(res)
-    runs = (("generate", phase_generate, "tiny"), ("batch", phase_batch, "tiny"),
-            ("generate_q8", phase_generate, "q8"), ("batch_q8", phase_batch, "q8"),
-            ("server", None, "q8"),
-            ("generate_moe", phase_generate, "moe"), ("batch_moe", phase_batch, "moe"))
-    for name, phase, model in runs:
+    runs = ("generate", "batch", "generate_i8", "generate_q8", "batch_q8", "server",
+            "generate_i8c", "batch_i8c", "generate_moe", "batch_moe")
+    for name in runs:
+        phase = (phase_generate if name in GENERATE else phase_batch if name in BATCH
+                 else None)
+        model, weights = GENERATE.get(name) or BATCH.get(name) or ("q8", None)
+        if weights == "i8c":
+            _big.pop(("q8", "auto"), None)  # the native 7B model's 8 GB, done with
         if model == "moe":
-            _big.pop("q8", None)  # the 7B model's 8 GB make room for the Mixtral's 26
+            _big.clear()  # the 7B models make room for the Mixtral's 26 GB
         if name not in phases:
             continue
         if phase is None:
             res = run(name, phase_server)
         else:
-            res = run(name, lambda: phase(22 if model == "tiny" else 32, model))
+            res = run(name, lambda: phase(22 if model == "tiny" else 32, model, weights))
         if res is not None:
             if "_shape_counts" in res:
                 path_shapes[name] = res.pop("_shape_counts")

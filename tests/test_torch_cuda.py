@@ -7,6 +7,7 @@ Each kernel is held against its plain version on the card at a small shape,
 with the tolerances of chip_smoke.py's CHECKS; the wrappers must raise, not
 fall back, when the kernels cannot be built."""
 
+import dataclasses
 import sys
 
 import pytest
@@ -223,6 +224,36 @@ def test_i8t_wrappers_refuse_shapes_not_ported(cuda):
                   None, 32, (96, 1024), GGMLType.Q8_0)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tq.qmm_i8t(x, w96)
+
+
+def _w8c(L, K, N, gen):
+    """A stacked random i8c weight [L, K, N] with f32 channel scales [L, 1, N]."""
+    qw = torch.randint(-127, 128, (L, K, N), dtype=torch.int8, device="cuda", generator=gen)
+    s = torch.rand((L, 1, N), device="cuda", generator=gen) * 0.02 + 1e-3
+    return QTensor("i8c", qw, s, None, K, (N, K), GGMLType.Q8_0)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 256, 128), (1, 4096, 384), (5, 1024, 384),
+                                   (64, 512, 256), (130, 2048, 128), (300, 768, 512)])
+def test_qmm_i8c_kernel_matches_plain(cuda, m, k, n):
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    w = _w8c(2, k, n, gen)
+    x = torch.randn(m, k, device="cuda", generator=gen).to(torch.bfloat16)
+    for view in (w.at(1), w.at(1).resolved()):  # the layer view and a 2-D weight
+        got, want = tq.qmm_i8c(x, view), tq.qmm_i8c_plain(x, view)
+        assert (got - want).abs().max() <= 2e-4 * want.abs().max()
+        assert torch.equal(got, tq.qmm_i8c(x, view))  # the ordered split sums repeat
+
+
+def test_i8c_wrapper_refuses_shapes_not_ported(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    x = torch.zeros(1, 128, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="not ported yet"):  # K % 256
+        tq.qmm_i8c(x, _w8c(1, 128, 128, gen).at(0))
+    x = torch.zeros(1, 256, device="cuda", dtype=torch.bfloat16)
+    w = _w8c(1, 256, 128, gen).at(0).resolved()
+    with pytest.raises(ValueError, match="f32"):  # compacted scales
+        tq.qmm_i8c(x, dataclasses.replace(w, scales=w.scales.to(torch.bfloat16)))
 
 
 @pytest.mark.parametrize("quantized", [False, True])
