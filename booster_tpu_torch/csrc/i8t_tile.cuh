@@ -2,8 +2,8 @@
 // M > 1 matmul and the fused gate-up) and mlp_i8t.cu (the whole MLP).
 //
 // y[M, N] = x[M, K] @ W[K, N], W = bf16(f32(q) · f32(bf16 s)) with q the int8
-// payload [K, ldq] and s the bf16 scale plane [K/32, ldq] (Q8_0: group 32,
-// symmetric).  A block of 256 threads owns a 64 x 128 output tile and one
+// payload [K, ldq] and s the bf16 scale plane [K/G, ldq] (symmetric: Q8_0's
+// group G = 32, Q6_K's G = 16; the group is a template parameter).  A block of 256 threads owns a 64 x 128 output tile and one
 // contiguous range of K (its split).  Each 64-row stage of K goes global →
 // registers (16-byte loads, the next stage in flight while the tensor cores
 // work on this one) → shared memory: x as it is, the payload dequantized to
@@ -35,7 +35,7 @@ constexpr int kBM = 64;        // rows of x per tile
 constexpr int kBN = 128;       // output columns per tile
 constexpr int kBK = 64;        // rows of K per stage
 constexpr int kThreads = 256;  // 8 warps: 2 along M x 4 along N
-constexpr int kGroup = 32;     // Q8_0's group
+constexpr int kGroup = 32;     // Q8_0's group (the default; Q6_K's is 16)
 constexpr int kXS = kBK + 8;   // bf16 per x row in shared memory (pad: no ldmatrix bank conflicts)
 constexpr int kWS = kBN + 8;   // bf16 per weight row in shared memory
 
@@ -50,7 +50,7 @@ struct alignas(16) Smem {  // 16-byte rows: uint4 stores and ldmatrix
 struct Operand {
   const uint16_t* x;  // bf16, row stride ldx
   const int8_t* q;    // [K, ldq] int8
-  const uint16_t* s;  // [K / 32, ldq] bf16
+  const uint16_t* s;  // [K / G, ldq] bf16
   int ldx, ldq, M;
 };
 
@@ -74,7 +74,8 @@ __device__ __forceinline__ void split_range(int K, int KS, int s, int& kb, int& 
 
 // kScaled = false: a payload with no group scales (i8c: one scale per
 // column, applied by the caller's epilogue); op.s is not read and w = bf16(q).
-template <bool kScaled = true>
+// G: the rows of K that share a scale row.
+template <bool kScaled = true, int G = kGroup>
 __device__ __forceinline__ void load_stage(const Operand& op, int m0, int n0, int k, Stage& st) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -88,7 +89,7 @@ __device__ __forceinline__ void load_stage(const Operand& op, int m0, int n0, in
     st.q[i] = __ldg(reinterpret_cast<const uint4*>(op.q + qo));
     if constexpr (kScaled) {
       const uint4* sp = reinterpret_cast<const uint4*>(
-          op.s + static_cast<size_t>((k + r) / kGroup) * op.ldq + n0 + c * 16);
+          op.s + static_cast<size_t>((k + r) / G) * op.ldq + n0 + c * 16);
       st.s[i][0] = __ldg(sp);
       st.s[i][1] = __ldg(sp + 1);
     }
@@ -184,7 +185,7 @@ __device__ __forceinline__ void mma_stage(const Smem& sm, float (&acc)[2][4][4])
 }
 
 // The 64 x 128 tile at (m0, n0) of x @ W over K rows [kb, ke), from zero.
-template <bool kScaled = true>
+template <bool kScaled = true, int G = kGroup>
 __device__ __forceinline__ void dq_tile(const Operand& op, int m0, int n0, int kb, int ke, Smem& sm,
                                         float (&acc)[2][4][4]) {
 #pragma unroll
@@ -194,12 +195,12 @@ __device__ __forceinline__ void dq_tile(const Operand& op, int m0, int n0, int k
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
   Stage st;
-  load_stage<kScaled>(op, m0, n0, kb, st);
+  load_stage<kScaled, G>(op, m0, n0, kb, st);
   for (int k = kb; k < ke; k += kBK) {
     __syncthreads();  // the last stage's fragments are read
     store_stage<kScaled>(st, sm);
     __syncthreads();
-    if (k + kBK < ke) load_stage<kScaled>(op, m0, n0, k + kBK, st);
+    if (k + kBK < ke) load_stage<kScaled, G>(op, m0, n0, k + kBK, st);
     mma_stage(sm, acc);
   }
 }
@@ -249,14 +250,14 @@ __device__ __forceinline__ bool arrive_last(int* ticket, int expect) {
 // tile mt.  Writes y (f32, or bf16 when OUT_BF16) [M, N] at once when KS is
 // 1; else its partial into part [KS, M, N], and the last split's block adds
 // them in split order.  tickets: [M tiles, N / 128] zeros.
-template <bool OUT_BF16>
+template <bool OUT_BF16, int G = kGroup>
 __device__ void dq_item(const Operand& op, int N, int K, int KS, int j, int s, int mt, void* out,
                         float* part, int* tickets, Smem& sm) {
   const int m0 = mt * kBM, n0 = j * kBN, M = op.M;
   int kb, ke;
   split_range(K, KS, s, kb, ke);
   float acc[2][4][4];
-  dq_tile(op, m0, n0, kb, ke, sm, acc);
+  dq_tile<true, G>(op, m0, n0, kb, ke, sm, acc);
   auto put = [&](int row, int col, float v) {
     const size_t o = static_cast<size_t>(row) * N + col;
     if (OUT_BF16) static_cast<uint16_t*>(out)[o] = bf16_bits(v);
@@ -284,13 +285,14 @@ __device__ void dq_item(const Operand& op, int N, int K, int KS, int j, int s, i
 // partial goes to part [KS, M, 2ff].  The last of the 2·KS items of column
 // pair j mod (ff / 128) writes mid [M, ff] = silu(g) · u in bf16 and returns
 // true.  tickets: [M tiles, ff / 128] zeros.
+template <int G = kGroup>
 __device__ bool gateup_item(const Operand& op, int ff, int K, int KS, int j, int s, int mt,
                             float* part, uint16_t* mid, int* tickets, Smem& sm) {
   const int nF = ff / kBN, N = 2 * ff, m0 = mt * kBM, M = op.M;
   int kb, ke;
   split_range(K, KS, s, kb, ke);
   float acc[2][4][4];
-  dq_tile(op, m0, j * kBN, kb, ke, sm, acc);
+  dq_tile<true, G>(op, m0, j * kBN, kb, ke, sm, acc);
   const size_t plane = static_cast<size_t>(M) * N;
   for_tile(m0, j * kBN, acc, [&](int row, int col, float v) {
     if (row < M) part[s * plane + static_cast<size_t>(row) * N + col] = v;

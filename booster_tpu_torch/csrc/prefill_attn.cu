@@ -19,8 +19,10 @@
 // operations of QK^T and PV; at the prefill path's shapes (T = 16-32 new
 // tokens over a short cache) both are tiny, so the launch and the block's
 // serial chunk loop set the time.  Design: one block per (bh, tile of
-// kRows = G·TQ query rows), so the G heads and TQ positions of a tile share
-// every K/V chunk and a block reads only the columns its rows can see.  Two
+// G·TQ query rows), TQ = min(kRows / G, T), so the G heads and TQ positions
+// of a tile share every K/V chunk and a block reads only the columns its
+// rows can see.  Where G·T < kRows (MHA, G = 1, at the prompt buckets T = 16
+// and 32) the tile is the whole chunk and the rows past G·T idle.  Two
 // threads per query row, each scoring 32 of a chunk's 64 columns (columns
 // 2i + h, so the pair reads neighbouring K rows on distinct banks) with q
 // from shared memory (row stride D + 1); the pair merges its max and sum by
@@ -51,7 +53,7 @@ struct PrefillParams {
   const int* pos0;    // [BH] position of query row 0
   const int* lens;    // [BH] valid columns (cache rows incl. this chunk)
   float* out;         // [BH, G, T, D]
-  int G, T, S, win;
+  int G, T, TQ, S, win;  // TQ: query positions per block
   float softcap;
 };
 
@@ -97,10 +99,11 @@ __global__ void __launch_bounds__(kThreads, 1) prefill_attn_kernel(PrefillParams
   float* vss = kss + kChunk;        // [kChunk]
 
   const int bh = blockIdx.y;
-  const int G = p.G, TQ = kRows / G;
+  const int G = p.G, TQ = p.TQ;
   const int t0 = blockIdx.x * TQ;
   const int tid = threadIdx.x, r = tid >> 1, h = tid & 1;
-  const int g = r / TQ, t = t0 + r % TQ;
+  const bool live = r < G * TQ;  // rows past G·TQ compute on zeros and write nothing
+  const int g = live ? r / TQ : 0, t = t0 + r % TQ;
   const int pos0 = p.pos0[bh], lens = p.lens[bh];
   const int qpos = pos0 + t;
   const int lo = max(pos0 + t0 - p.win + 1, 0);
@@ -109,7 +112,7 @@ __global__ void __launch_bounds__(kThreads, 1) prefill_attn_kernel(PrefillParams
   for (int i = tid; i < kRows * D; i += kThreads) {
     const int rr = i / D, d = i % D;
     const size_t src = ((static_cast<size_t>(bh) * G + rr / TQ) * p.T + t0 + rr % TQ) * D + d;
-    qs[rr * QP + d] = bf16f(p.q[src]);
+    qs[rr * QP + d] = rr < G * TQ ? bf16f(p.q[src]) : 0.f;
   }
   float m = kNeg, l = 0.f;
   float acc[DH];
@@ -173,6 +176,7 @@ __global__ void __launch_bounds__(kThreads, 1) prefill_attn_kernel(PrefillParams
     }
   }
 
+  if (!live) return;
   l = fmaxf(l, 1e-30f);
   float* o = p.out + ((static_cast<size_t>(bh) * G + g) * p.T + t) * D + h;
 #pragma unroll
@@ -182,15 +186,15 @@ __global__ void __launch_bounds__(kThreads, 1) prefill_attn_kernel(PrefillParams
 }  // namespace
 
 // D (the cache's storage head dim) must be 128 and G must divide kRows =
-// 128 with T a multiple of 128 / G.  Returns the CUDA error of the launch
-// (0 on success).
+// 128 with T a multiple of TQ = min(128 / G, T).  Returns the CUDA error of
+// the launch (0 on success).
 extern "C" int bt_prefill_attn_i8(const void* q, const void* k, const void* v, const void* ks,
                                   const void* vs, const void* pos0, const void* lens, void* out,
                                   int BH, int G, int T, int S, int D, int win, float softcap,
                                   void* stream) {
   constexpr int kD = 128;
-  if (D != kD || G < 1 || kRows % G != 0 || T % (kRows / G) != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+  const int TQ = G >= 1 && kRows % G == 0 ? (kRows / G < T ? kRows / G : T) : 0;
+  if (D != kD || TQ < 1 || T % TQ != 0) return static_cast<int>(cudaErrorInvalidValue);
   static const cudaError_t configured = cudaFuncSetAttribute(
       prefill_attn_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem_bytes<kD>()));
@@ -198,8 +202,9 @@ extern "C" int bt_prefill_attn_i8(const void* q, const void* k, const void* v, c
   PrefillParams p{static_cast<const uint16_t*>(q), static_cast<const int8_t*>(k),
                   static_cast<const int8_t*>(v), static_cast<const float*>(ks),
                   static_cast<const float*>(vs), static_cast<const int*>(pos0),
-                  static_cast<const int*>(lens), static_cast<float*>(out), G, T, S, win, softcap};
-  const dim3 grid(T / (kRows / G), BH);
+                  static_cast<const int*>(lens), static_cast<float*>(out), G, T, TQ, S, win,
+                  softcap};
+  const dim3 grid(T / TQ, BH);
   prefill_attn_kernel<kD><<<grid, kThreads, smem_bytes<kD>(), static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

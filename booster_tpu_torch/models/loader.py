@@ -1,8 +1,8 @@
 """Load a GGUF model into the port's params (QTensors and torch tensors,
 layers stacked on a leading axis).
 
-Port of the llama path of ``booster_tpu/models/loader.py``: every Q4_0 or
-Q8_0 weight is repacked losslessly (quant.qtensor) or, with ``weights="bf16"``,
+Port of the llama path of ``booster_tpu/models/loader.py``: every Q4_0,
+Q8_0 or Q6_K weight is repacked losslessly (quant.qtensor) or, with ``weights="bf16"``,
 dequantized exactly to dense bf16 (``"auto"`` picks as the JAX loader
 does), or with ``weights="i8"`` widened exactly to int8; with
 ``weights="i8c"`` each layer's fused weights and the output head are
@@ -11,7 +11,10 @@ device), the routed experts and a dense router excepted; the q/k rows of
 interleaved-rope models are de-interleaved so rope runs in the neox form
 (exact), q/k/v and gate/up rows are fused into one matmul each, layers are
 stacked, and the stacks are transposed to the K-major i4t / i8t layout with
-bf16 scale planes where the kernels take the shape.  The routed experts of a
+bf16 scale planes where the kernels take the shape (else they stay
+lane-major, with bf16 planes where the lane-major kernel takes them: the
+Q8_0 ffn_down of a Q6_K file whose ff is not a multiple of 256, as the
+reference keeps it).  The routed experts of a
 MoE model (Mixtral) keep the file's quantization whatever `weights` says,
 lane-major (``[E·Ne, K]``, the grouped kernel's layout) with bf16 scale
 planes; they are repacked on the device, and every stack is filled there one

@@ -59,6 +59,7 @@ launch_counts = {
     "prefill_attn_i8": 0,
     "qmm_i8t_gd": 0,
     "qmm_i8t_dq": 0,
+    "qmm_i8t_gateup_gd": 0,
     "qmm_i8t_gateup_dq": 0,
     "mlp_i8t": 0,
     "paged_attn": 0,

@@ -111,9 +111,11 @@ def _launch(x: torch.Tensor, w_gu: QTensor, w_down: QTensor) -> torch.Tensor:
     M, K = x.shape
     ff = w_gu.shape[0] // 2
     C = w_down.shape[0]
-    sgu = check_i8t(x, w_gu, "mlp_i8t")
+    # Q8_0's group only: a uniform Q6_K file (group 16) of a model whose ff
+    # is a multiple of 256 would take the reference's MLP kernel at group 16
+    sgu = check_i8t(x, w_gu, "mlp_i8t", groups=(32,))
     mid = torch.empty(M, ff, device=x.device, dtype=torch.bfloat16)
-    sd = check_i8t(mid, w_down, "mlp_i8t")
+    sd = check_i8t(mid, w_down, "mlp_i8t", groups=(32,))
     if ff % 128:
         raise NotImplementedError(f"mlp_i8t kernel: ff = {ff}: not ported yet (a multiple of 128)")
     ks1, ks2 = dq_splits(M, K, 2 * ff), dq_splits(M, ff, C)

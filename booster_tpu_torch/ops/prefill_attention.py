@@ -104,9 +104,9 @@ def prefill_attn(qb, k, v, k_scale, v_scale, pos0, lens, win: int,
         raise ValueError("prefill_attn kernel: k/v must be [BH, S, D] with f32 scales [BH, S]")
     if not all(t.is_contiguous() for t in (qb, k, v, k_scale, v_scale)):
         raise ValueError("prefill_attn kernel: operands must be contiguous")
-    if D != 128 or _ROWS % G or T % (_ROWS // G):
+    if D != 128 or _ROWS % G or T % min(_ROWS // G, T):
         raise NotImplementedError(f"prefill_attn kernel: D={D}, G={G}, T={T}: not ported yet "
-                                  f"(it takes D = 128 and T a multiple of {_ROWS} // G)")
+                                  f"(it takes D = 128 and T a multiple of min({_ROWS} // G, T))")
     lib = kernels.library("prefill_attn", _SIGNATURES)
     pos0 = pos0.to(torch.int32).contiguous()
     lens = lens.to(torch.int32).contiguous()

@@ -4,9 +4,10 @@ and fused gate+up.
 Counterpart of ``booster_tpu/ops/pallas_qmm.py``.
 ``qmm`` runs, for i4t, the kernel of ``csrc/qmm_i4t.cu`` (the port of
 ``_tqmm_i4_gd_kernel`` at M = 1 and ``_tqmm_i4_kernel`` at M > 1) and, for
-i8t (Q8_0), those of ``csrc/qmm_i8t.cu`` (``_tqmm_i8_gd_kernel`` at M = 1,
-``_tqmm_i8_kernel`` at M > 1).  ``qmm_gateup`` runs their SiLU·mul forms
-(``_gateup_i4_gd_kernel`` / ``_gateup_i4_kernel``, ``_gateup_i8_kernel``).
+i8t (Q8_0 at group 32, Q6_K at group 16), those of ``csrc/qmm_i8t.cu``
+(``_tqmm_i8_gd_kernel`` at M = 1, ``_tqmm_i8_kernel`` at M > 1).
+``qmm_gateup`` runs their SiLU·mul forms (``_gateup_i4_gd_kernel`` /
+``_gateup_i4_kernel``, ``_gateup_i8_gd_kernel`` / ``_gateup_i8_kernel``).
 ``qmm_plain`` and ``qmm_gateup_plain`` are the same functions in plain
 torch, with the same rounding points; a wrapper uses them only for tensors
 on the CPU.  Lane-major weights that the reference's ``_supported`` takes
@@ -21,7 +22,8 @@ dequantize-matmul path, as in the JAX package.
 Numerics (see the sources' headers): i4t at M = 1, the group-dot form
 ``y = sum_g f32(bf16 s)·(sum bf16(x)·q - zero·xs) - f32(bf16 m)·xs``; at M > 1
 ``w = bf16(bf16(q - zero)·bf16(s))`` then ``y = bf16(x) @ w`` in f32 less the
-min term.  i8t at M = 1 ``y = sum_g f32(bf16 s)·(sum bf16(x)·q)``; at M > 1
+min term.  i8t at M = 1 ``y = sum_g f32(bf16 s)·(sum bf16(x)·q) - f32(bf16
+m)·xs`` (mins, with the group sums xs of bf16(x), only in this form); at M > 1
 ``w = bf16(f32(q)·f32(bf16 s))``, ``y = bf16(x) @ w`` in f32.  Lane-major at
 any M ``w = bf16(bf16(q - zero)·bf16(s))``, ``y = bf16(x) @ w`` in f32.  i8c at any
 M ``y = (bf16(x) @ q)`` in f32, then ``· s[n]`` in f32.  The plain
@@ -45,9 +47,9 @@ _SIGNATURES = {
     "bt_qmm_i4t_splits": [ctypes.c_int, ctypes.c_int],
 }
 _I8_SIGNATURES = {
-    "bt_qmm_i8t_gd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
-    "bt_qmm_i8t_gd_splits": [ctypes.c_int],
-    "bt_qmm_i8t_dq": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    "bt_qmm_i8t_gd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    "bt_qmm_i8t_gd_splits": [ctypes.c_int] * 2,
+    "bt_qmm_i8t_dq": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 }
 _I8C_SIGNATURES = {
     "bt_qmm_i8c_mv": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
@@ -208,13 +210,22 @@ def _qmm_i8t_plain(x: torch.Tensor, w: QTensor, dq: bool) -> torch.Tensor:
     ng = K // G
     N = w.shape[0]
     s3, has_mins = kernel_scales(w)
-    if has_mins:
-        raise NotImplementedError("i8t weights with mins: not ported yet (Q8_0 has none)")
-    sf = s3[0].to(torch.bfloat16).float()  # [K/G, N] consumed at bf16
+    sf = s3.to(torch.bfloat16).float()  # [R, K/G, N] consumed at bf16
     xb = x.to(torch.bfloat16).float()
     if M == 1 and not dq:
-        p = torch.bmm(xb.reshape(ng, 1, G), w.qw.float().reshape(ng, G, N)).reshape(ng, N)
-        return (sf * p).sum(0).reshape(1, N)
+        # the group-dot form (_gd_parts, _tqmm_i8_gd_kernel and
+        # _gateup_i8_gd_kernel): each group's exact dot p, its f32 sum xs
+        # of bf16(x), c = s·p - m·xs, summed over the groups
+        xg = xb.reshape(ng, 1, G)
+        p = torch.bmm(xg, w.qw.float().reshape(ng, G, N)).reshape(ng, N)
+        c = sf[0] * p
+        if has_mins:
+            c = c - sf[1] * xg.sum(-1)
+        return c.sum(0).reshape(1, N)
+    if has_mins:
+        raise NotImplementedError("i8t weights with mins at M > 1: not ported yet "
+                                  "(Q8_0 and Q6_K have none)")
+    sf = sf[0]
     wd = (w.qw.float() * sf.repeat_interleave(G, dim=0)).to(torch.bfloat16)
     return xb @ wd.float()
 
@@ -339,25 +350,28 @@ def _launch(x: torch.Tensor, w: QTensor, gateup: bool) -> torch.Tensor:
     return out
 
 
-def check_i8t(x: torch.Tensor, w: QTensor, what: str) -> torch.Tensor:
+def check_i8t(x: torch.Tensor, w: QTensor, what: str, groups=(16, 32),
+              mins: bool = False) -> torch.Tensor:
     """Raise unless the i8t kernels take x [M, K] and the 2-D QTensor w
-    (contiguous bf16 x on 16 bytes, int8 payload [K, N], one bf16 scale
-    plane [1, K/32, N], group 32, N a multiple of 128, K of 64); returns the
-    scale plane."""
+    (contiguous bf16 x on 16 bytes, int8 payload [K, N], bf16 scale planes
+    [R, K/G, N] with R = 1, or 2 where `mins` is taken, a group in `groups`,
+    N a multiple of 128, K of 64); returns the scale planes."""
     M, K = x.shape
     N = w.shape[0]
+    G = w.group
     s3, has_mins = kernel_scales(w)
     if x.dtype != torch.bfloat16 or not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError(f"{what} kernel: x must be contiguous bf16 on 16 bytes")
     if w.qw.dtype != torch.int8 or tuple(w.qw.shape) != (K, N) or not w.qw.is_contiguous():
         raise ValueError(f"{what} kernel: payload must be contiguous int8 [{K}, {N}]")
-    if w.group != 32:
-        raise NotImplementedError(f"{what} kernel: group {w.group}: not ported yet "
-                                  "(Q8_0's group of 32 is)")
-    if has_mins:
+    if G not in groups:
+        raise NotImplementedError(f"{what} kernel: group {G}: not ported yet "
+                                  f"(groups {groups} are)")
+    if has_mins and not mins:
         raise NotImplementedError(f"{what} kernel: i8t weights with mins: not ported yet")
-    if s3.dtype != torch.bfloat16 or tuple(s3.shape) != (1, K // 32, N) or not s3.is_contiguous():
-        raise ValueError(f"{what} kernel: scales must be contiguous bf16 [1, K/32, N] "
+    R = 2 if has_mins else 1
+    if s3.dtype != torch.bfloat16 or tuple(s3.shape) != (R, K // G, N) or not s3.is_contiguous():
+        raise ValueError(f"{what} kernel: scales must be contiguous bf16 [{R}, K/G, N] "
                          "(compact_scales)")
     if N % 128 or K % 64:
         raise NotImplementedError(f"{what} kernel: N = {N}, K = {K}: not ported yet "
@@ -371,27 +385,32 @@ def _launch_i8t(x: torch.Tensor, w: QTensor, gateup: bool, dq: bool) -> torch.Te
     w = w.resolved()
     M, K = x.shape
     N = w.shape[0]
-    s3 = check_i8t(x, w, "qmm_i8t")
+    gd = M == 1 and not dq
+    s3 = check_i8t(x, w, "qmm_i8t", mins=gd)
+    G = w.group
     dev = x.device
     lib = kernels.library("qmm_i8t", _I8_SIGNATURES)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if M == 1 and not (dq or gateup):
-        splits = _splits.get(("qmm_i8t", K, 32))
+    if gateup and N % 256:
+        raise NotImplementedError(f"qmm_i8t gate-up kernel: ff = {N // 2}: not ported yet "
+                                  "(a multiple of 128)")
+    if gd:
+        splits = _splits.get(("qmm_i8t", K, G))
         if splits is None:
-            splits = _splits[("qmm_i8t", K, 32)] = lib.bt_qmm_i8t_gd_splits(K)
-        out = torch.empty(1, N, device=dev, dtype=torch.float32)
+            splits = _splits[("qmm_i8t", K, G)] = lib.bt_qmm_i8t_gd_splits(K, G)
+        out = torch.empty(1, N // 2 if gateup else N, device=dev,
+                          dtype=torch.bfloat16 if gateup else torch.float32)
         part = torch.empty(splits * N, dtype=torch.float32, device=dev) if splits > 1 else None
         rc = lib.bt_qmm_i8t_gd(x.data_ptr(), w.qw.data_ptr(), s3.data_ptr(), out.data_ptr(),
                                None if part is None else part.data_ptr(),
-                               _ticket_buffer(dev, N // 128).data_ptr(), K, N, stream)
-        kernels.check(rc, "qmm_i8t_gd")
-        kernels.count("qmm_i8t_gd", (K, N))
+                               _ticket_buffer(dev, N // 128).data_ptr(), K, N, G,
+                               int(s3.shape[0] == 2), int(gateup), stream)
+        name = "qmm_i8t_gateup_gd" if gateup else "qmm_i8t_gd"
+        kernels.check(rc, name)
+        kernels.count(name, (K, N))
         return out
     ks = dq_splits(M, K, N)
     if gateup:
-        if N % 256:
-            raise NotImplementedError(f"qmm_i8t gate-up kernel: ff = {N // 2}: not ported yet "
-                                      "(a multiple of 128)")
         out = torch.empty(M, N // 2, device=dev, dtype=torch.bfloat16)
     else:
         out = torch.empty(M, N, device=dev, dtype=torch.float32)
@@ -400,7 +419,7 @@ def _launch_i8t(x: torch.Tensor, w: QTensor, gateup: bool, dq: bool) -> torch.Te
     tickets = _ticket_buffer(dev, -(-M // _DQ_BM) * (N // _DQ_BN))
     rc = lib.bt_qmm_i8t_dq(x.data_ptr(), w.qw.data_ptr(), s3.data_ptr(), out.data_ptr(),
                            None if part is None else part.data_ptr(), tickets.data_ptr(),
-                           M, K, N, ks, int(gateup), stream)
+                           M, K, N, ks, int(gateup), G, stream)
     name = "qmm_i8t_gateup_dq" if gateup else "qmm_i8t_dq"
     kernels.check(rc, name)
     kernels.count(name, (K, N))
@@ -534,13 +553,13 @@ def qmm_i8t(x: torch.Tensor, w: QTensor, dq: bool = False) -> torch.Tensor:
 
 
 def qmm_i8t_gateup(x: torch.Tensor, w: QTensor) -> torch.Tensor:
-    """Kernel-level entry of the i8t fused gate+up (M > 1): → [M, ff] bf16."""
-    if x.shape[0] == 1:
-        raise NotImplementedError("qmm_i8t gate-up at M = 1 (_gateup_i8_gd_kernel): "
-                                  "not ported yet")
+    """Kernel-level entry of the i8t fused gate+up → [M, ff] bf16: at M = 1
+    the group-dot form (``_gateup_i8_gd_kernel``; equal to qmm_i8t's M = 1
+    kernel + silu·mul bit for bit), above the dequant form
+    (``_gateup_i8_kernel``)."""
     if x.device.type == "cpu":
         return qmm_gateup_plain(x, w)
-    return _launch_i8t(x, w, gateup=True, dq=True)
+    return _launch_i8t(x, w, gateup=True, dq=x.shape[0] > 1)
 
 
 def qmm_i8c(x: torch.Tensor, w: QTensor) -> torch.Tensor:

@@ -1,15 +1,18 @@
 """Bit-exact (de)quantization of the ggml block formats the port loads, in numpy.
 
-A copy of the Q4_0, Q8_0 and float parts of ``booster_tpu/quant/formats.py``
-(decode semantics: llama.cpp/ggml/src/ggml-quants.c dequantize_row_q4_0/q8_0,
-quantize_row_q4_0_ref/q8_0_ref).  The other block formats are not ported yet.
+A copy of the Q4_0, Q8_0, Q6_K and float parts of
+``booster_tpu/quant/formats.py`` (decode semantics:
+llama.cpp/ggml/src/ggml-quants.c dequantize_row_q4_0/q8_0/q6_K; the Q4_0 and
+Q8_0 encoders are quantize_row_q4_0_ref/q8_0_ref, the Q6_K encoder the JAX
+package's amax seed without llama.cpp's scale search).  The other block
+formats are not ported yet.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from booster_tpu_torch.gguf.constants import GGMLType, TYPE_TRAITS
+from booster_tpu_torch.gguf.constants import QK_K, GGMLType, TYPE_TRAITS
 
 F16 = np.dtype("<f2")
 F32 = np.dtype("<f4")
@@ -46,7 +49,25 @@ def _dequant_q8_0(b: np.ndarray) -> np.ndarray:
     return q * d
 
 
-_DEQUANT = {GGMLType.Q4_0: _dequant_q4_0, GGMLType.Q8_0: _dequant_q8_0}
+def _dequant_q6_k(b: np.ndarray) -> np.ndarray:
+    ql = b[:, 0:128].reshape(-1, 2, 64)  # two 128-element halves
+    qh = b[:, 128:192].reshape(-1, 2, 32)
+    sc = b[:, 192:208].view(np.int8).reshape(-1, 2, 8).astype(np.float32)
+    d = _f16(b[:, 208:210])  # [n,1]
+    l = np.arange(32)
+    q1 = (ql[:, :, l] & 0x0F) | (((qh[:, :, l] >> 0) & 3) << 4)
+    q2 = (ql[:, :, l + 32] & 0x0F) | (((qh[:, :, l] >> 2) & 3) << 4)
+    q3 = (ql[:, :, l] >> 4) | (((qh[:, :, l] >> 4) & 3) << 4)
+    q4 = (ql[:, :, l + 32] >> 4) | (((qh[:, :, l] >> 6) & 3) << 4)
+    q = np.concatenate([q1, q2, q3, q4], axis=2).astype(np.int16) - 32  # [n,2,128]
+    # scale index: within a half, element e uses sc[e // 16]
+    sidx = (np.arange(128) // 16)[None, None, :]
+    scale = np.take_along_axis(sc, np.broadcast_to(sidx, q.shape), axis=2)
+    return (d[:, :, None] * scale * q.astype(np.float32)).reshape(-1, QK_K)
+
+
+_DEQUANT = {GGMLType.Q4_0: _dequant_q4_0, GGMLType.Q8_0: _dequant_q8_0,
+            GGMLType.Q6_K: _dequant_q6_k}
 
 
 def dequantize(data: np.ndarray | bytes, ggml_type: GGMLType, shape=None) -> np.ndarray:
@@ -97,7 +118,33 @@ def _quant_q8_0(x: np.ndarray) -> np.ndarray:
     return out
 
 
-_QUANT = {GGMLType.Q4_0: _quant_q4_0, GGMLType.Q8_0: _quant_q8_0}
+def _quant_q6_k(x: np.ndarray) -> np.ndarray:
+    x = x.reshape(-1, 16, 16)  # 16 groups of 16
+    amax = np.abs(x).max(axis=-1)
+    # symmetric: q in [-32,31], x ≈ d * sc * q with int8 sc
+    gscale = amax / 31.0  # per-group float scale
+    d = gscale.max(axis=1) / 127.0
+    d_safe = np.where(d == 0, 1, d)
+    sc = np.clip(np.round(gscale / d_safe[:, None]), -128, 127).astype(np.int8)
+    eff = d[:, None] * sc.astype(np.float32)
+    inv = np.where(eff != 0, 1.0 / np.where(eff == 0, 1, eff), 0.0)
+    q = np.clip(np.round(x * inv[..., None]), -32, 31).astype(np.int16) + 32  # [n,16,16] in 0..63
+    n = x.shape[0]
+    q = q.reshape(n, 2, 128).astype(np.uint8)  # two halves
+    q1, q2, q3, q4 = q[:, :, 0:32], q[:, :, 32:64], q[:, :, 64:96], q[:, :, 96:128]
+    ql = np.empty((n, 2, 64), dtype=U8)
+    ql[:, :, 0:32] = (q1 & 0x0F) | ((q3 & 0x0F) << 4)
+    ql[:, :, 32:64] = (q2 & 0x0F) | ((q4 & 0x0F) << 4)
+    qh = ((q1 >> 4) << 0) | ((q2 >> 4) << 2) | ((q3 >> 4) << 4) | ((q4 >> 4) << 6)
+    out = np.empty((n, TYPE_TRAITS[GGMLType.Q6_K].type_size), dtype=U8)
+    out[:, 0:128] = ql.reshape(n, 128)
+    out[:, 128:192] = qh.reshape(n, 64)
+    out[:, 192:208] = sc.view(U8)
+    out[:, 208:210] = _f16_bytes(d)
+    return out
+
+
+_QUANT = {GGMLType.Q4_0: _quant_q4_0, GGMLType.Q8_0: _quant_q8_0, GGMLType.Q6_K: _quant_q6_k}
 
 
 def quantize(x: np.ndarray, ggml_type: GGMLType) -> bytes:

@@ -1,7 +1,7 @@
 """QTensor: quantized weights in the kernels' layout, over torch tensors.
 
-Port of ``booster_tpu/quant/qtensor.py`` for the Q4_0 and Q8_0 llama
-paths.  At load time a GGUF Q4_0 or Q8_0 tensor is *losslessly* repacked
+Port of ``booster_tpu/quant/qtensor.py`` for the Q4_0, Q8_0 and Q6_K llama
+paths.  At load time a GGUF Q4_0, Q8_0 or Q6_K tensor is *losslessly* repacked
 (torch bit operations, on the host or on the card) into
 
     value[r, c] = (q[r, c] - zero) * scales[r, c // group]  -  mins[r, c // group]
@@ -17,8 +17,10 @@ with payload ``qw``:
                 (transpose_qtensor), with scale planes [R, in/(2G), out]:
                 rows 0-1 the scales of the two halves, rows 2-3 their mins
                 when the format is affine
-    kind="i8"   int8 [out, in] (Q8_0: symmetric, group 32, no zero point);
-                prepared scale planes [out, 1, in/G]
+    kind="i8"   int8 [out, in] (Q8_0: symmetric, group 32, no zero point;
+                Q6_K: symmetric, group 16, the codes q - 32 and the f32
+                scales d·sc of the super-block's 16 groups); prepared
+                scale planes [out, 1, in/G]
     kind="i8t"  the same payload stored K-major, [in, out], with scale
                 planes [R, in/G, out]: row 0 the scales, row 1 the mins
                 when affine
@@ -159,7 +161,25 @@ def _repack_q8_0(b: torch.Tensor, out_f: int, in_f: int) -> QTensor:
     return QTensor("i8", q, d, None, 32, (out_f, in_f), GGMLType.Q8_0)
 
 
-_REPACK = {GGMLType.Q4_0: _repack_q4_0, GGMLType.Q8_0: _repack_q8_0}
+def _repack_q6_k(b: torch.Tensor, out_f: int, in_f: int) -> QTensor:
+    """Q6_K → i8 at group 16 (``_repack_q6_k`` of the JAX package): the 6-bit
+    codes less 32, and the f32 scale d·sc of each 16-element group."""
+    b = b.reshape(-1, TYPE_TRAITS[GGMLType.Q6_K].type_size)
+    ql = b[:, 0:128].reshape(-1, 2, 64)
+    qh = b[:, 128:192].reshape(-1, 2, 32)
+    sc = b[:, 192:208].contiguous().view(torch.int8).float()  # [n, 16]
+    d = b[:, 208:210].contiguous().view(torch.float16).float()  # [n, 1]
+    lo, hi = ql[:, :, :32], ql[:, :, 32:]
+    q = torch.cat([(lo & 0x0F) | ((qh & 3) << 4), (hi & 0x0F) | (((qh >> 2) & 3) << 4),
+                   (lo >> 4) | (((qh >> 4) & 3) << 4), (hi >> 4) | (((qh >> 6) & 3) << 4)],
+                  dim=2)  # [n, 2, 128], values 0..63
+    q = (q.to(torch.int16) - 32).to(torch.int8).reshape(out_f, in_f)
+    return QTensor("i8", q, (d * sc).reshape(out_f, in_f // 16), None, 16, (out_f, in_f),
+                   GGMLType.Q6_K)
+
+
+_REPACK = {GGMLType.Q4_0: _repack_q4_0, GGMLType.Q8_0: _repack_q8_0,
+           GGMLType.Q6_K: _repack_q6_k}
 _DENSE_TYPES = (GGMLType.F32, GGMLType.F16, GGMLType.BF16)
 
 
@@ -168,7 +188,7 @@ def repack_gguf_tensor(raw, ggml_type: GGMLType, shape: tuple[int, ...],
     """Raw GGUF tensor bytes (bytes, a numpy view or a uint8 torch tensor)
     → QTensor.  Tensors with more than 2 dims are flattened to
     [prod(leading), last].  Without `device` the fields are
-    host numpy arrays; with it, a Q4_0 or Q8_0 tensor's bytes go to that
+    host numpy arrays; with it, a Q4_0, Q8_0 or Q6_K tensor's bytes go to that
     torch device and are repacked there (the loader repacks the expert
     stacks of a MoE model on the card: a host repack of 26 GB takes
     minutes).  One torch implementation serves both, so the two agree bit

@@ -1,7 +1,8 @@
 """Inputs for the tests and the chip smoke run: no download needed.
 
 ``make_model`` writes a seeded synthetic llama-shaped GGUF with a working SPM
-vocab (Q4_0 or Q8_0 weights), optionally with routed experts (Mixtral).  It
+vocab (Q4_0, Q8_0 or Q6_K weights), optionally with routed experts
+(Mixtral), rope scaling and another type for ``output.weight``.  It
 ports ``tools/make_test_model.py`` onto the port's own GGUF writer and
 quantizer: the same arguments and seed give the same file bytes.  It writes
 tensor by tensor, so the 7B shape (7.7 GB as Q8_0) needs a few hundred MB of
@@ -80,6 +81,9 @@ def make_model(
     rope_base: float = 10000.0,
     context: int = 2048,
     draw: str = "normal",
+    rms_eps: float = 1e-5,
+    rope_scaling: tuple[str, float] | None = None,  # ("linear", 4.0): rope.scaling.type, .factor
+    output_quant: GGMLType | None = None,  # output.weight's type where it differs from `quant`
 ) -> str:
     """Write the GGUF and return its path.  `draw` "normal" draws every
     weight from one seeded standard normal stream in file order and
@@ -91,7 +95,13 @@ def make_model(
     the host has cores, and the file does not depend on their number.  With
     `experts`, each layer holds a router ``ffn_gate_inp`` (F32, as llama.cpp
     writes it) and the expert stacks ``ffn_{gate,up,down}_exps`` ([E, ff,
-    hidden], [E, hidden, ff]) in place of the dense FFN."""
+    hidden], [E, hidden, ff]) in place of the dense FFN.
+
+    A 2-D weight whose rows are not a multiple of 256 long is written as F32
+    (tools/make_test_model.py's rule), except with ``quant=Q6_K``, where it
+    is written as Q8_0, as llama.cpp's quantizer falls back for rows that
+    cannot hold K-quant super-blocks (``llama_tensor_get_type``: every
+    ``ffn_down`` of a model whose ff is not a multiple of 256)."""
     if draw not in ("normal", "blocks"):
         raise ValueError(f"draw={draw!r}")
     rng = np.random.default_rng(seed)
@@ -107,8 +117,11 @@ def make_model(
     w.add(a + "feed_forward_length", ff)
     w.add(a + "attention.head_count", heads)
     w.add(a + "attention.head_count_kv", kv_heads)
-    w.add(a + "attention.layer_norm_rms_epsilon", 1e-5)
+    w.add(a + "attention.layer_norm_rms_epsilon", float(rms_eps))
     w.add(a + "rope.freq_base", float(rope_base))
+    if rope_scaling is not None:
+        w.add(a + "rope.scaling.type", rope_scaling[0])
+        w.add(a + "rope.scaling.factor", float(rope_scaling[1]))
     w.add(a + "rope.dimension_count", head_dim or hidden // heads)
     if head_dim and head_dim != hidden // heads:
         w.add(a + "attention.key_length", head_dim)
@@ -131,7 +144,10 @@ def make_model(
     specs = []  # (name, shape, type, random?) in file order: the order of the draws
 
     def add(name, shape, rand=True):
-        qt = quant if len(shape) >= 2 and shape[-1] % 256 == 0 else GGMLType.F32
+        want = output_quant if name == "output.weight" and output_quant is not None else quant
+        qt = want if len(shape) >= 2 and shape[-1] % 256 == 0 else GGMLType.F32
+        if want == GGMLType.Q6_K and qt == GGMLType.F32 and shape[-1] % 32 == 0:
+            qt = GGMLType.Q8_0
         if len(shape) < 2 or "norm" in name or "gate_inp" in name:
             qt = GGMLType.F32
         specs.append((name, shape, qt, rand))
@@ -199,12 +215,23 @@ def make_model(
 
 
 def random_blocks(rng: np.random.Generator, n: int, qt: GGMLType, scale: float) -> memoryview:
-    """`n` weights of type Q4_0 or Q8_0 as random blocks: uniform codes
+    """`n` weights of type Q4_0, Q8_0 or Q6_K as random blocks: uniform codes
     (nibbles 0-15 about the zero point 8, or int8 -127..127) and f16 scales
     of random sign whose size is that of quantizing normals of standard
     deviation `scale`: 32 such values have a largest magnitude of about
     2.2·scale (so d ≈ 2.2·scale/8 for Q4_0, 2.2·scale/127 for Q8_0), drawn
-    here uniformly within ±20 % of it."""
+    here uniformly within ±20 % of it.  Q6_K: uniform 6-bit codes (0-63
+    about 32), int8 group scales sc uniform in 64..127, and a positive f16
+    super-block scale d of that size (16 values have a largest magnitude of
+    about 1.8·scale, so d·sc ≈ 1.8·scale/31 at sc ≈ 96), ±20 %."""
+    if qt == GGMLType.Q6_K:
+        nb = n // 256
+        out = np.empty((nb, 210), np.uint8)
+        out[:, :192] = rng.integers(0, 256, (nb, 192), dtype=np.uint8)
+        out[:, 192:208] = rng.integers(64, 128, (nb, 16), dtype=np.uint8)
+        d = (rng.random(nb, dtype=np.float32) * 0.4 + 0.8) * (1.8 * scale / 31 / 96)
+        out[:, 208:] = d.astype(np.float16).view(np.uint8).reshape(nb, 2)
+        return out.reshape(-1).data
     nb = n // 32
     mag = ((rng.random(nb, dtype=np.float32) * 0.4 + 0.8)
            * (rng.integers(0, 2, nb, dtype=np.int8) * 2 - 1))

@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (booster_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--phases build,kernels,parity,generate,batch,generate_i8,generate_q8,
-                           batch_q8,server,generate_i8c,batch_i8c,generate_moe,batch_moe]
+                           batch_q8,server,generate_i8c,batch_i8c,generate_q6k,batch_q6k,
+                           generate_moe,batch_moe]
 
 Phases, each printing one JSON line with its seconds:
 
@@ -47,7 +48,20 @@ Phases, each printing one JSON line with its seconds:
    largest output of its plain version, equal to itself on a second launch,
    and each wrong kernel (the rescale dropped, a neighbour column's scale,
    the layer off by one, K rows [0, 256) dropped, the payload read N-major)
-   past 8x that limit.  Median times of kernel,
+   past 8x that limit.  The Q6_K slice's kernels at the DeepSeek-Coder-1.3B
+   shape: the i8t matvec and dequant matmul at group 16 (qkv 2048 → 6144,
+   wo, the lm head 2048 → 32256, and llama.cpp's Q4_0 lm head 2048 → 32000)
+   at M = 1, 64 and 2048; the gate-up at group 16 at M = 64 and 2048; the
+   M = 1 fused gate-up (csrc/qmm_i8t.cu gateup_gd_kernel, the port of
+   _gateup_i8_gd_kernel) at (K 2048, ff 5504, G 16), at the 7B's (4096,
+   14336, G 32) and with a synthetic mins plane, equal to the matvec
+   kernel + silu·mul bit for bit; the lane-major i8 matmul of the Q8_0
+   down (5504 → 2048) at M = 1, 64 and 2048; every wrong kernel (a
+   neighbour group's scale, the group read as the other one, the mins
+   dropped, the up half read for the gate, silu left out) past 8x the
+   limit; and the attention kernels at the 1.3B model's MHA layout (24
+   layers, 16 kv heads, G = 1, head dim 128; prefill at T = 16 and 32).
+   Median times of kernel,
    plain version and one library call (the yardstick), each call after an
    L2 scrub (cold, as on the decode path), and the kernel's time warm.
 3. parity — 2-layer models on the CPU (plain versions) and on the card
@@ -56,10 +70,10 @@ Phases, each printing one JSON line with its seconds:
    the batched path: bf16 weights, int8 cache, 4 slots of which 2 are live,
    prefill, then 16 decode steps; (c) the 7B width, Q8_0 (native i8t): the
    batched path over an int8 cache (4 slots, 2 live, T = 32 prompts) and
-   the single-stream path over a bf16 cache, 8 decode steps each; (d) the
+   the single-stream path over a bf16 cache, 4 decode steps each; (d) the
    same model over the server's paged pool (``Engine(paged=True,
    page_size=256)``, its allocator giving the pages), an int8 pool and a
-   bf16 one, 4 slots of which 2 live, 8 decode steps; (e) the Mixtral-8x7B
+   bf16 one, 4 slots of which 2 live, 4 decode steps; (e) the Mixtral-8x7B
    width (8 experts of ff 14336, 2 used) with Q4_0 and then Q8_0 weights,
    the single-stream path over a bf16 cache, 3 decode steps (a step where
    the two devices routed the compared token to other experts at a
@@ -70,7 +84,11 @@ Phases, each printing one JSON line with its seconds:
    on each), the reciprocal multiply amax · f32(1/127) seen to differ on
    rows of the Q4_0 file (and counted, with torch's CUDA division by a
    scalar, per file), then the single-stream path over a bf16 cache, 3
-   decode steps (i8c 7B, i8 TinyLlama).  The
+   decode steps (i8c 7B, i8 TinyLlama); (g) the DeepSeek-Coder-1.3B width
+   as llama.cpp's Q6_K file (Q8_0 ffn_down), loaded with the reference's
+   kinds on both devices: the single-stream path over a bf16 cache and
+   the batched path over an int8 cache (4 slots, 2 live, T = 32), 6
+   decode steps each.  The
    live slots' logits agree within the stated tolerance at every step, and
    the greedy tokens wherever the CPU's top-2 margin exceeds it.
 4. generate — the full 22-layer TinyLlama-shaped Q4_0 GGUF (random weights
@@ -90,7 +108,7 @@ Phases, each printing one JSON line with its seconds:
    driven as bench.py's bench_batch drives the reference: 64 slots with
    ``SamplingParams(temp=0.8, top_k=40, seed=s)`` and prompts
    ``f"stream {s} benchmark prompt"``, ``prefill_slots``, one warm chunk,
-   then pipelined chunks to 128 tokens.  One warm-up run first; the counts
+   then pipelined chunks to 128 tokens.  One warm-up run to 32 tokens first; the counts
    are reset just before the measured run and read just after, and must be
    exact: 22 int8 decode attentions per step, one quantizing append per
    step, 22 prefill attentions per prefill chunk, no 4-bit matmul.  It
@@ -180,12 +198,34 @@ Phases, each printing one JSON line with its seconds:
    per step, 32 prefill attentions per chunk.  Every decode dispatch runs
    under torch's synchronization check, which must find no host sync.
 
+   generate_q6k and batch_q6k (after batch_i8c) — the DeepSeek-Coder-1.3B
+   shape of the public deepseek-ai/deepseek-coder-1.3b-base config (24
+   layers, hidden 2048, 16 heads over 16 kv heads of 128, ff 5504, vocab
+   32256, rope base 1e5 with linear scaling 4) as llama.cpp's Q6_K file:
+   Q6_K blocks drawn from the seed, every ffn_down Q8_0 (1.2 GB, written by
+   the background writer), loaded once with ``load_model(weights=
+   "native")`` (i8t at group 16, the down lane-major i8 at group 32); phase
+   4's generate and phase 5's bench_batch on it.  Exact counts, from the
+   reference's dispatch (qmm_mlp declines the group-16 gate-up beside a
+   group-32 lane-major down, pallas_qmm.py:1320, :1338; qmm_gateup takes
+   it, at M = 1 in the group-dot form :1083): per decode step of generate
+   2·24 + 1 group-dot matvecs (24 qkv, 24 wo, the lm head, counted by
+   shape), 24 fused M = 1 gate-ups, 24 lane-major downs, 24 bf16 decode
+   attentions and one append, and no whole-MLP kernel; at its 16-row
+   prefill 48 dequant matmuls, 24 dequant gate-ups, 24 downs and the lm
+   head; per batch step and prefill chunk 2·24 + 1 dequant matmuls, 24
+   dequant gate-ups and 24 downs, with 24 int8 decode attentions and one
+   append a step and 24 prefill attentions (G = 1) a chunk; no host sync
+   in a decode dispatch.
+
 Then one ``{"kernels": [...]}`` line (each kernel's launches are those of
 the path that runs it: generate / generate_q8 for the M = 1 kernels and
 bf16-cache attention, batch / batch_q8 for the int8 ones, server for the
 paged ones, generate_moe / batch_moe for the grouped ones, generate_i8c /
-batch_i8c for the i8c ones; the bf16-pool
-paged forms and the plain lane-major forms launch no time there) and, last,
+batch_i8c for the i8c ones, generate_q6k / batch_q6k for the group-16
+forms, the M = 1 fused gate-up and the 1.3B down; the bf16-pool
+paged forms and the plain lane-major forms at the 7B shapes launch no time there)
+and, last,
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout of
 the repository, it exits non-zero and prints no result.
 """
@@ -209,7 +249,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core rate, NVIDIA data sheet
 SCRUB_BYTES = 200 << 20  # 4x the H100's 50 MB L2: read between timed calls
 PHASES = ("build", "kernels", "parity", "generate", "batch", "generate_i8", "generate_q8",
-          "batch_q8", "server", "generate_i8c", "batch_i8c", "generate_moe", "batch_moe")
+          "batch_q8", "server", "generate_i8c", "batch_i8c", "generate_q6k", "batch_q6k",
+          "generate_moe", "batch_moe")
 
 # TinyLlama-1.1B (config 1 of bench.py), Q4_0
 TINYLLAMA = dict(vocab_size=32000, hidden=2048, heads=32, kv_heads=4, ff=5632,
@@ -224,6 +265,15 @@ MISTRAL7B = dict(vocab_size=32000, hidden=4096, heads=32, kv_heads=8, ff=14336,
 MIXTRAL = dict(vocab_size=32000, hidden=4096, heads=32, kv_heads=8, ff=14336, experts=8,
                experts_used=2, rope_base=1e6, context=32768, seed=0, weight_scale=0.05,
                draw="blocks")
+# the public deepseek-ai/deepseek-coder-1.3b-base config.json: 24 layers,
+# hidden 2048, 16 heads over 16 kv heads of 128 (MHA), ff 5504, vocab 32256,
+# rope_theta 1e5 with linear scaling 4, rms_norm_eps 1e-6, 16K context,
+# untied head; as llama.cpp quantizes it to Q6_K (every ffn_down, whose rows
+# of 5504 hold no 256-element super-block, falls back to Q8_0), its blocks
+# drawn from the seed; the SPM test vocab stands in for its BPE one
+DEEPSEEK = dict(vocab_size=32256, hidden=2048, heads=16, kv_heads=16, ff=5504,
+                rope_base=100000.0, rope_scaling=("linear", 4.0), rms_eps=1e-6,
+                context=16384, seed=0, weight_scale=0.05, draw="blocks")
 # parity (e)'s decode steps after its prefill: on the CPU each step
 # dequantizes every routed expert of its 2 layers, so the steps are few
 MOE_PARITY_STEPS = 3
@@ -233,6 +283,8 @@ TINY_ATTN = dict(name="TinyLlama", L=22, Hkv=4, G=8, D=64, Dc=128, S1=1024, B=64
                  prefill_T=(16, 32), gen_path="generate", batch_path="batch")
 MISTRAL_ATTN = dict(name="7B", L=32, Hkv=8, G=4, D=128, Dc=128, S1=1024, B=64, S=512,
                     prefill_T=(32,), gen_path="generate_q8", batch_path="batch_q8")
+DEEPSEEK_ATTN = dict(name="1.3B", L=24, Hkv=16, G=1, D=128, Dc=128, S1=1024, B=64, S=512,
+                     prefill_T=(16, 32), gen_path="generate_q6k", batch_path="batch_q6k")
 PROMPT = "hello world and the end"  # 15 tokens: the 16-row prefill bucket
 
 # tolerances of kernel vs plain version on the card, and why
@@ -486,13 +538,14 @@ def phase_kernels(entries: list) -> dict:
                 "library_ms": lib_ms, "check": CHECKS["gateup" if gateup else "qmm"]})
     del weights
     torch.cuda.empty_cache()
-    for lay in (TINY_ATTN, MISTRAL_ATTN):
+    for lay in (TINY_ATTN, MISTRAL_ATTN, DEEPSEEK_ATTN):
         _bf16_attn_kernels(entries, failures, lay)
         _int8_kernels(entries, failures, lay)
     paged_checks: dict = {}
     _paged_kernels(entries, failures, paged_checks)
     _i8t_kernels(entries, failures)
     _i8c_kernels(entries, failures)
+    _q6k_kernels(entries, failures)
     _moe_kernels(entries, failures)
     _scrub_buf.clear()
     torch.cuda.empty_cache()
@@ -1159,6 +1212,206 @@ def _i8c_kernels(entries: list, failures: list) -> None:
     torch.cuda.empty_cache()
 
 
+def _q6k_kernels(entries: list, failures: list) -> None:
+    """The Q6_K slice's matmuls at the DeepSeek-Coder-1.3B shape (hidden
+    2048, 16 heads over 16 kv heads of 128, ff 5504, vocab 32256): the i8t
+    kernels at group 16 (the matvec at M = 1 on qkv 2048 → 6144, wo and the
+    lm head, and the lm head of llama.cpp's Q4_0 files, 2048 → 32000; the
+    dequant matmul at M = 64 and 2048; the gate-up at M = 64 and 2048), the
+    new M = 1 fused gate-up (_gateup_i8_gd_kernel) at (K 2048, ff 5504, G
+    16), at the 7B's (4096, 14336, G 32) and with a mins plane, and the
+    lane-major i8 matmul of the Q8_0 ffn_down (5504 → 2048, G 32) at M = 1,
+    64 and 2048.  Matmuls within 2e-4 of the largest output of their plain
+    version, gate-ups per element within bf16 rounding of it and equal to
+    the unfused kernels + silu·mul bit for bit; every wrong kernel (a
+    neighbour group's scale, the group read as the other one, the mins
+    dropped, the up half read for the gate, silu left out) past 8x the
+    limit."""
+    import dataclasses
+
+    import torch
+
+    from booster_tpu_torch.gguf import GGMLType
+    from booster_tpu_torch.ops import qmm as tq
+    from booster_tpu_torch.quant.qtensor import QTensor, dequantize
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    C, ff, V = DEEPSEEK["hidden"], DEEPSEEK["ff"], DEEPSEEK["vocab_size"]
+    nqkv = C + 2 * DEEPSEEK["kv_heads"] * (C // DEEPSEEK["heads"])
+    src = "booster_tpu_torch/csrc/qmm_i8t.cu"
+    bf = torch.bfloat16
+
+    def i8t(L, K, N, G, mins=False):
+        """A random stacked i8t weight (Q6_K's codes -32..31), layer L - 1's
+        view; with `mins` a mins plane of the scales' size times the codes'."""
+        qw = torch.randint(-32, 32, (L, K, N), dtype=torch.int8, device="cuda", generator=gen)
+        s = torch.rand((L, 2 if mins else 1, K // G, N), device="cuda", generator=gen) * 2e-3
+        s[:, 0] += 1e-4
+        if mins:
+            s[:, 1] *= 16
+        return QTensor("i8t", qw, s.to(bf), None, G, (N, K), GGMLType.Q6_K).at(L - 1)
+
+    def regrouped(w):  # the group read as the other one
+        w = w.resolved()
+        K, s = w.shape[1], w.scales
+        if w.group == 16:
+            return "group 16 read as 32", dataclasses.replace(
+                w, group=32, scales=s[:, :K // 32].contiguous())
+        return "group 32 read as 16", dataclasses.replace(
+            w, group=16, scales=torch.cat([s, torch.zeros_like(s)], -2))
+
+    def qmm_mutants(w):
+        r = w.resolved()
+        label, wg = regrouped(w)
+        return {"a neighbour group's scale": dataclasses.replace(
+            r, scales=torch.roll(r.scales, 1, -2)), label: wg}
+
+    def sbytes(w):  # payload and bf16 planes
+        r = w.resolved()
+        return r.qw.numel() + 2 * r.scales.numel()
+
+    def qmm_entry(name, label, w, M, path, replaces):
+        N, K = w.shape
+        x = torch.randn(M, K, device="cuda", generator=gen).to(bf)
+        got, want = tq.qmm_i8t(x, w), tq.qmm_plain(x, w)
+        limit = 2e-4 * float(want.abs().max())
+        err = float((got - want).abs().max())
+        if not (err <= limit and torch.isfinite(got).all()):
+            failures.append(f"{name} G16 {label} M={M}: max err {err} over {limit}")
+        seen = {what: float((tq.qmm_plain(x, m) - want).abs().max()) / limit
+                for what, m in qmm_mutants(w).items()}
+        for what, v in seen.items():
+            if v < 8:
+                failures.append(f"{name} G16 {label} M={M}: the check cannot see {what} ({v})")
+        deq = dequantize(w, bf)
+        b_ms, b_by = bound(sbytes(w) + M * K * 2 + M * N * 4, 2 * M * K * N)
+        entries.append({
+            "name": name, "shape": f"{label} M={M} K={K} N={N} G=16",
+            "key": (name, (K, N)), "path": path, "route": "cuda", "source": src,
+            "replaces": replaces, "host_us": host_us(lambda: tq.qmm_i8t(x, w)),
+            "max_abs_err": err, "min_wrong_kernel_of_limit": min(seen.values()),
+            "ms": timed(lambda: tq.qmm_i8t(x, w)),
+            "warm_ms": timed(lambda: tq.qmm_i8t(x, w), cold=False),
+            "plain_ms": timed(lambda: tq.qmm_plain(x, w), reps=3, trials=3),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": timed(lambda: torch.matmul(x, deq.t())),
+            "library": "torch.matmul on the dequantized bf16 weight", "check": CHECKS["qmm"]})
+        del x, got, want, deq
+
+    # the group-16 matmuls of the 1.3B model's paths (and the 2048 → 32000 lm
+    # head of llama.cpp's Q4_0 files, whose output.weight is Q6_K)
+    weights = {"qkv": i8t(2, C, nqkv, 16), "wo": i8t(2, C, C, 16), "lm_head": i8t(1, C, V, 16),
+               "lm_head 32000": i8t(1, C, 32000, 16)}
+    for M, labels, path in ((1, ("qkv", "wo", "lm_head", "lm_head 32000"), "generate_q6k"),
+                            (64, ("qkv", "wo", "lm_head"), "batch_q6k"),
+                            (2048, ("qkv", "wo"), "batch_q6k")):
+        for label in labels:
+            name = "qmm_i8t_gd" if M == 1 else "qmm_i8t_dq"
+            qmm_entry(name, f"1.3B {label}", weights[label], M, path,
+                      "booster_tpu/ops/pallas_qmm.py:" + ("361" if M == 1 else "432"))
+    del weights
+    torch.cuda.empty_cache()
+
+    def gu_plain_mutants(w, x, f):
+        """Outputs of the plain gate-up that wrong kernels would give."""
+        r = w.resolved()
+        s, q = r.scales, r.qw
+        out = {}
+        for what, m in qmm_mutants(w).items():
+            out[what] = tq.qmm_gateup_plain(x, m)
+        if s.shape[0] == 2:
+            out["mins dropped"] = tq.qmm_gateup_plain(x, dataclasses.replace(
+                r, scales=s[:1].contiguous()))
+        out["the up half read for the gate"] = tq.qmm_gateup_plain(x, dataclasses.replace(
+            r, qw=torch.cat([q[:, f:], q[:, f:]], 1), scales=torch.cat([s[..., f:], s[..., f:]], -1)))
+        gu = tq.qmm_plain(x, r).to(bf)
+        out["silu left out"] = gu[:, :f] * gu[:, f:]
+        return out
+
+    # the fused gate-up: M = 1 (the new kernel) and the dequant form above
+    cases = (("1.3B gateup", C, ff, 16, False, 1, "generate_q6k"),
+             ("7B gateup", MISTRAL7B["hidden"], MISTRAL7B["ff"], 32, False, 1, "generate_q6k"),
+             ("1.3B gateup, synthetic mins plane", C, ff, 16, True, 1, "generate_q6k"),
+             ("1.3B gateup", C, ff, 16, False, 64, "batch_q6k"),
+             ("1.3B gateup", C, ff, 16, False, 2048, "batch_q6k"))
+    for label, K, f, G, mins, M, path in cases:
+        w = i8t(2, K, 2 * f, G, mins)
+        x = torch.randn(M, K, device="cuda", generator=gen).to(bf)
+        name = "qmm_i8t_gateup_gd" if M == 1 else "qmm_i8t_gateup_dq"
+        got, want = tq.qmm_i8t_gateup(x, w), tq.qmm_gateup_plain(x, w)
+        tol = 2 ** -7 if M == 1 else 2 ** -5  # CHECKS "gateup" / "gateup_i8"
+        limit = tol * want.float().abs() + 1e-5 * want.float().abs().max()
+        d = (got.float() - want.float()).abs()
+        if not (bool((d <= limit).all()) and torch.isfinite(got.float()).all()):
+            failures.append(f"{name} {label} M={M}: max err {float(d.max())}, "
+                            f"{float((d / limit).max())} of its limit")
+        gu = tq.qmm_i8t(x, w).to(bf)  # the unfused kernel of the same form
+        if not torch.equal(got, tq.silu(gu[:, :f]) * gu[:, f:]):
+            failures.append(f"{name} {label} M={M}: fused != qmm_i8t + silu·mul")
+        e = float((tq.qmm_i8t(x, w) - tq.qmm_plain(x, w)).abs().max())
+        if not e <= 2e-4 * float(gu.float().abs().max()):
+            failures.append(f"qmm_i8t {label} M={M}: the unfused sums' max err {e}")
+        seen = {what: float(((m.float() - want.float()).abs() / limit).max())
+                for what, m in gu_plain_mutants(w, x, f).items()}
+        for what, v in seen.items():
+            if v < 8:
+                failures.append(f"{name} {label} M={M}: the check cannot see {what} ({v})")
+        b_ms, b_by = bound(sbytes(w) + M * K * 2 + M * f * 2, 2 * M * K * 2 * f)
+        entries.append({
+            "name": name, "shape": f"{label} M={M} K={K} N={2 * f} G={G}",
+            # the mins form runs on no path: a key no launch counts under
+            "key": (name, (K, 2 * f) + (("mins",) if mins else ())), "path": path,
+            "route": "cuda", "source": src,
+            "replaces": "booster_tpu/ops/pallas_qmm.py:" + ("873" if M == 1 else "726"),
+            "host_us": host_us(lambda: tq.qmm_i8t_gateup(x, w)),
+            "max_abs_err": float(d.max()), "max_err_of_limit": float((d / limit).max()),
+            "min_wrong_kernel_of_limit": min(seen.values()),
+            "ms": timed(lambda: tq.qmm_i8t_gateup(x, w)),
+            "warm_ms": timed(lambda: tq.qmm_i8t_gateup(x, w), cold=False),
+            "unfused_ms": timed(lambda: tq.qmm_i8t(x, w)),
+            "plain_ms": timed(lambda: tq.qmm_gateup_plain(x, w), reps=3, trials=3),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "library": "null: no one torch call (gate-up + SiLU·mul)",
+            "check": (CHECKS["gateup"] if M == 1 else CHECKS["gateup_i8"])
+            + "; equal to qmm_i8t + silu·mul; wrong kernels at 8x"})
+        del w, x, got, want, gu, d, limit
+        torch.cuda.empty_cache()
+
+    # the lane-major i8 matmul of the Q8_0 ffn_down (its K/G = 172 is not a
+    # multiple of 8, so it stays lane-major in both packages)
+    w = _lane_weight("i8", C, ff, gen)
+    deq = dequantize(w, bf)
+    for M, path in ((1, "generate_q6k"), (64, "batch_q6k"), (2048, "batch_q6k")):
+        x = torch.randn(M, ff, device="cuda", generator=gen).to(bf)
+        got, want = tq.qmm_lane(x, w), tq.qmm_lane_plain(x, w)
+        limit = 2e-4 * float(want.abs().max())
+        err = float((got - want).abs().max())
+        if not (err <= limit and torch.isfinite(got).all()):
+            failures.append(f"qmm_i8 1.3B down M={M}: max err {err} over {limit}")
+        seen = {what: float((tq.qmm_lane_plain(x, m) - want).abs().max()) / limit
+                for what, m in _lane_mutants(w).items()}
+        for what, v in seen.items():
+            if v < 8:
+                failures.append(f"qmm_i8 1.3B down M={M}: the check cannot see {what} ({v})")
+        b_ms, b_by = bound(C * ff + C * (ff // 32) * 2 + M * ff * 2 + M * C * 4, 2 * M * C * ff)
+        entries.append({
+            "name": "qmm_i8", "shape": f"1.3B down M={M} K={ff} N={C} G=32",
+            "key": ("qmm_i8", (ff, C)), "path": path, "route": "cuda",
+            "source": "booster_tpu_torch/csrc/qmm_lane.cu",
+            "replaces": "booster_tpu/ops/pallas_qmm.py:135",
+            "max_abs_err": err, "min_wrong_kernel_of_limit": min(seen.values()),
+            "ms": timed(lambda: tq.qmm_lane(x, w)),
+            "warm_ms": timed(lambda: tq.qmm_lane(x, w), cold=False),
+            "plain_ms": timed(lambda: tq.qmm_lane_plain(x, w), reps=3, trials=3),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": timed(lambda: torch.matmul(x, deq.t())),
+            "library": "torch.matmul on the dequantized bf16 weight", "check": CHECKS["qmm"]})
+        del x, got, want
+    del w, deq
+    torch.cuda.empty_cache()
+
+
 def _lane_weight(kind, R, K, gen):
     """A random lane-major weight [R, K] made on the card: Q4_0's i4p (u8
     payload [R, K/2], zero point 8, bf16 scale planes [R, 2, K/64]) or
@@ -1363,7 +1616,10 @@ def _moe_kernels(entries: list, failures: list) -> None:
 GGUFS = {"tiny": ("tinyllama-shape-q4_0", "TINYLLAMA", "Q4_0"),
          "q8": ("mistral7b-shape-q8_0", "MISTRAL7B", "Q8_0"),
          "moe": ("mixtral8x7b-shape-q4_0", "MIXTRAL", "Q4_0"),
-         "moe_q8": ("mixtral8x7b-shape-q8_0", "MIXTRAL", "Q8_0")}
+         "moe_q8": ("mixtral8x7b-shape-q8_0", "MIXTRAL", "Q8_0"),
+         "q6k": ("deepseek-coder-1.3b-shape-q6_k", "DEEPSEEK", "Q6_K")}
+# each model's depth on its full-size phases
+LAYERS = {"tiny": 22, "q8": 32, "moe": 32, "q6k": 24}
 
 
 def _gguf_path(layers: int, model: str = "tiny") -> Path:
@@ -1484,7 +1740,8 @@ def phase_parity() -> dict:
         raise AssertionError(f"parity batched: cache lengths {lengths} != {expect}")
     # (c) the 7B width, Q8_0 weights (native i8t): the batched path over an
     # int8 cache at the T = 32 bucket, then the single-stream path over a
-    # bf16 cache; 8 steps each (the CPU's plain forward takes 2-3 s a step)
+    # bf16 cache; 4 steps each (the CPU's plain forward takes 2-3 s a step:
+    # cut from 8 to keep the script near half its time limit)
     del models, caches
     laps("b check")
     path, _ = _wait_gguf("q8", 2)
@@ -1502,14 +1759,14 @@ def phase_parity() -> dict:
                                   quantized=True) for dev in models}
     laps("c load")
     got, want = _teacher_forced(models, caches, prompts, T, [True, False, True, False], laps,
-                                "c", steps=8)
+                                "c", steps=4)
     out["q8_0_7b_width_int8_cache_4_slots_2_live"] = _compare_logits("q8_0 batched", got, want,
                                                                      tol)
     ids = tok.encode(PROMPT)
     caches = {dev: KVCache.create(cfg.n_layers, 1, 256, cfg.n_kv_heads, cfg.head_dim, dev)
               for dev in models}
     laps("c check")
-    got, want = _teacher_forced(models, caches, [ids], 16, [True], laps, "c", steps=8)
+    got, want = _teacher_forced(models, caches, [ids], 16, [True], laps, "c", steps=4)
     out["q8_0_7b_width_bf16_cache_1_slot"] = _compare_logits("q8_0 single", got, want, tol)
     # (d) the same model over the server path's paged pool: an Engine with
     # pages of 256 rows (the paged prefill through gathered views, then the
@@ -1528,17 +1785,18 @@ def phase_parity() -> dict:
             caches[dev] = eng.cache
         laps("d engines")
         got, want = _teacher_forced(models, caches, prompts, T, [True, False, True, False],
-                                    laps, "d", steps=8)
+                                    laps, "d", steps=4)
         key = f"q8_0_7b_width_paged_{'int8' if quant else 'bf16'}_pool_4_slots_2_live"
         out[key] = _compare_logits(key, got, want, tol)
         lengths = [caches[dev].lengths.tolist() for dev in ("cpu", "cuda")]
-        expect = [len(prompts[0]) + 8, 0, len(prompts[2]) + 8, 0]
+        expect = [len(prompts[0]) + 4, 0, len(prompts[2]) + 4, 0]
         if lengths != [expect, expect]:
             raise AssertionError(f"parity paged: cache lengths {lengths} != {expect}")
     del models, caches
     laps("d check")
     out.update(_parity_i8(tol, laps, tok.encode(PROMPT)))
     out.update(_parity_moe(tol, laps))
+    out.update(_parity_q6k(tol, laps))
     out["seconds"] = time.perf_counter() - t0
     out["part_s"] = laps.parts
     return out
@@ -1710,6 +1968,56 @@ def _parity_moe(tol: float, laps) -> dict:
     return out
 
 
+def _parity_q6k(tol: float, laps) -> dict:
+    """(g) the DeepSeek-Coder-1.3B width at 2 layers as llama.cpp's Q6_K
+    file (Q8_0 ffn_down): loaded on the CPU and the card with the
+    reference's kinds (wqkv, wo, w_gateup and the head K-major i8t at group
+    16, w_down lane-major i8 at group 32), then the single-stream path over
+    a bf16 cache (a 16-row prefill, 6 decode steps: the M = 1 fused gate-up,
+    the group-16 matvecs, the lane-major down, decode attention at G = 1)
+    and the batched path over an int8 cache (4 slots, 2 live, T = 32: the
+    dequant forms at group 16 and prefill attention at G = 1), the CPU
+    (plain versions) against the card (kernels), fed the CPU's greedy
+    tokens."""
+    from booster_tpu_torch.models import load_model
+    from booster_tpu_torch.ops.kv_cache import KVCache
+
+    path, _ = _wait_gguf("q6k", 2)
+    laps("g wait")
+    models = {dev: load_model(path, device=dev, weights="native") for dev in ("cpu", "cuda")}
+    cfg = models["cpu"].cfg
+    for dev, m in models.items():
+        lay = m.params["layers"]
+        got = {k: (lay[k].kind, lay[k].group) for k in ("wqkv", "wo", "w_gateup", "w_down")}
+        got["output"] = (m.params["output"].kind, m.params["output"].group)
+        want = dict.fromkeys(("wqkv", "wo", "w_gateup", "output"), ("i8t", 16)) | {
+            "w_down": ("i8", 32)}
+        if got != want or (cfg.rope_scaling, cfg.rope_scale) != ("linear", 4.0):
+            raise AssertionError(f"parity q6k on {dev}: weights {got}, rope "
+                                 f"{cfg.rope_scaling} {cfg.rope_scale}")
+    laps("g load")
+    tok = models["cpu"].tokenizer
+    out = {}
+    caches = {dev: KVCache.create(cfg.n_layers, 1, 256, cfg.n_kv_heads, cfg.head_dim, dev)
+              for dev in models}
+    got, want = _teacher_forced(models, caches, [tok.encode(PROMPT)], 16, [True], laps, "g",
+                                steps=6)
+    out["q6_k_1.3b_width_bf16_cache_1_slot"] = _compare_logits("q6_k single", got, want, tol)
+    prompts = [tok.encode("stream 0 benchmark prompt"), [],
+               tok.encode("stream 2 benchmark prompt"), []]
+    T = max(16, 1 << (max(len(p) for p in prompts) - 1).bit_length())
+    caches = {dev: KVCache.create(cfg.n_layers, 4, 512, cfg.n_kv_heads, cfg.head_dim, dev,
+                                  quantized=True) for dev in models}
+    laps("g check")
+    got, want = _teacher_forced(models, caches, prompts, T, [True, False, True, False], laps,
+                                "g", steps=6)
+    out["q6_k_1.3b_width_int8_cache_4_slots_2_live"] = _compare_logits("q6_k batched", got,
+                                                                      want, tol)
+    del models, caches
+    laps("g check")
+    return out
+
+
 # -- phase 4 -----------------------------------------------------------------
 
 
@@ -1839,12 +2147,20 @@ def _big_model(model: str, layers: int = 32, weights: str = "auto"):
                                       "after": _rss_gb()[0],
                                       "numpy_and_python_peak": traced_peak},
                          load_max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 2**30)
-        kinds = {k: v.kind for k, v in m.params["layers"].items() if hasattr(v, "kind")}
-        kinds["output"] = m.params["output"].kind
-        want = (dict.fromkeys(kinds, "i8c") if weights == "i8c" else
-                dict.fromkeys(kinds, "i8t") if model == "q8" else
-                dict.fromkeys(kinds, "i4t") | {"router": "dense", "gate_exps": "i4p",
-                                               "up_exps": "i4p", "down_exps": "i4p"})
+        kinds = {k: (v.kind, v.group) for k, v in m.params["layers"].items()
+                 if hasattr(v, "kind")}
+        kinds["output"] = (m.params["output"].kind, m.params["output"].group)
+        if weights == "i8c":
+            kinds = {k: kind for k, (kind, _) in kinds.items()}
+            want = dict.fromkeys(kinds, "i8c")
+        elif model == "q8":
+            want = dict.fromkeys(kinds, ("i8t", 32))
+        elif model == "q6k":  # the reference's kinds for llama.cpp's Q6_K mix
+            want = dict.fromkeys(kinds, ("i8t", 16)) | {"w_down": ("i8", 32)}
+        else:
+            want = dict.fromkeys(kinds, ("i4t", 32)) | {
+                "router": ("dense", 1), "gate_exps": ("i4p", 32), "up_exps": ("i4p", 32),
+                "down_exps": ("i4p", 32)}
         if kinds != want:
             raise AssertionError(f"{model}: weights={weights} gave {kinds}, not {want}")
     return _big[key]
@@ -1873,15 +2189,16 @@ class _FallbackCount:
 # the engine phases: phase → (model, load_model's weights; None: the phase's own rule)
 GENERATE = {"generate": ("tiny", None), "generate_q8": ("q8", None),
             "generate_moe": ("moe", None), "generate_i8": ("tiny", "i8"),
-            "generate_i8c": ("q8", "i8c")}
+            "generate_i8c": ("q8", "i8c"), "generate_q6k": ("q6k", "native")}
 BATCH = {"batch": ("tiny", None), "batch_q8": ("q8", None), "batch_moe": ("moe", None),
-         "batch_i8c": ("q8", "i8c")}
+         "batch_i8c": ("q8", "i8c"), "batch_q6k": ("q6k", "native")}
 
 
 def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str] = None) -> dict:
     """The single-stream generate: TinyLlama Q4_0 ("tiny"; with weights
     "i8", phase generate_i8), the 7B Q8_0 model ("q8", phase generate_q8;
-    with weights "i8c", phase generate_i8c) or the Mixtral-8x7B shape
+    with weights "i8c", phase generate_i8c), the DeepSeek-Coder-1.3B Q6_K
+    mix ("q6k", native, phase generate_q6k) or the Mixtral-8x7B shape
     ("moe", phase generate_moe)."""
     import torch
 
@@ -1894,10 +2211,10 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
     laps = _Laps()
     t_wait = load_rss = None
     name = {v: k for k, v in GENERATE.items()}[(model_name, weights)]
-    q8, moe = model_name == "q8" and weights is None, model_name == "moe"
+    q8, moe, q6k = model_name == "q8" and weights is None, model_name == "moe", model_name == "q6k"
     load_gpu_gb = None
     torch.cuda.reset_peak_memory_stats()
-    if model_name in ("q8", "moe"):
+    if model_name in ("q8", "moe", "q6k"):
         big = _big_model(model_name, layers, weights or "auto")
         model, t_build, t_load = big["model"], big["build_s"], big["load_s"]
         t_wait, load_rss = big["wait_s"], big["load_rss_gb"]
@@ -1937,6 +2254,14 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
         expected = dict.fromkeys(counts, 0) | {
             "qmm_i8c_mv": (4 * L + 1) * steps + 1, "qmm_i8c_mm": 4 * L,
             "decode_attn": L * steps, "kv_append": steps}
+    elif q6k:  # the reference's dispatch for a G16 gate-up beside a lane-major G32
+        # down (qmm_mlp declines, pallas_qmm.py:1320, :1338; qmm_gateup takes
+        # M = 1 in the group-dot form, :1083): per step the qkv, wo and lm
+        # head matvecs, the fused gate-up and the lane-major down of each layer
+        expected = dict.fromkeys(counts, 0) | {
+            "qmm_i8t_gd": (2 * L + 1) * steps + 1, "qmm_i8t_dq": 2 * L,
+            "qmm_i8t_gateup_gd": L * steps, "qmm_i8t_gateup_dq": L,
+            "qmm_i8": L * (steps + 1), "decode_attn": L * steps, "kv_append": steps}
     else:
         expected = dict.fromkeys(counts, 0) | {
             "qmm_i4t_gd": (3 * L + 1) * steps + 1, "qmm_i4t_dq": 3 * L,
@@ -1944,6 +2269,12 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
             "decode_attn": L * steps, "kv_append": steps}
     if counts != expected:
         raise AssertionError(f"launch counts {counts} != expected {expected}")
+    if q6k:  # per shape: qkv and wo each step, the lm head each step and at the prefill
+        C, V = model.cfg.n_embd, model.cfg.n_vocab
+        gd = {k[1]: v for k, v in shape_counts.items() if k[0] == "qmm_i8t_gd"}
+        want = {(C, 3 * C): L * steps, (C, C): L * steps, (C, V): steps + 1}
+        if gd != want:
+            raise AssertionError(f"{name}: group-dot launches by shape {gd} != {want}")
     if weights and fallbacks.calls:
         raise AssertionError(f"{name}: {fallbacks.calls} matmuls took the dequantize path")
     # the trace covers a 32-token generate: summing one of 128 tokens (130 K
@@ -1972,7 +2303,8 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
             "weights": {"generate": "q4_0 (i4t)", "generate_q8": "q8_0 (i8t)",
                         "generate_moe": "q4_0 (i4t attention, i4p experts)",
                         "generate_i8": "q4_0 widened to int8 (i8t)",
-                        "generate_i8c": "q8_0 requantized per channel (i8c)"}[name],
+                        "generate_i8c": "q8_0 requantized per channel (i8c)",
+                        "generate_q6k": "q6_k (i8t g16) with q8_0 ffn_down (lane-major i8)"}[name],
             "gguf_build_s": t_build, "gguf_wait_s": t_wait, "load_s": t_load,
             "load_rss_gb": load_rss, "load_max_memory_allocated_gb": load_gpu_gb,
             "dequantize_fallbacks": fallbacks.calls,
@@ -1984,7 +2316,8 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
             "prompt_ms_per_token": res.prompt_ms_per_token, "ttft_ms": res.ttft_ms,
             "launches": counts, "launches_per_decoded_token": {
                 k: v / steps for k, v in counts.items() if k.endswith("_gd") or k in (
-                    "decode_attn", "kv_append", "mlp_i8t", "moe_qmm_i4p", "qmm_i8c_mv")},
+                    "decode_attn", "kv_append", "mlp_i8t", "moe_qmm_i4p", "qmm_i8c_mv",
+                    "qmm_i8")},
             "launches_by_shape": shapes, "tokens_head": res.token_ids[:16],
             "wall_ms": wall_ms, "profile": prof, "part_s": laps.parts,
             "_shape_counts": shape_counts}
@@ -2078,10 +2411,12 @@ class _SyncCheck:
 def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = None) -> dict:
     """bench.py's bench_batch: config 1's model (TinyLlama, bf16 weights), or
     config 3's ("q8": the 7B Q8_0 model, native i8t; phase batch_q8; with
-    weights "i8c", requantized per channel: phase batch_i8c), or the
-    Mixtral-8x7B shape ("moe": native i4t and i4p; phase batch_moe).  The
-    decode dispatches of batch_moe and batch_i8c run under torch's
-    synchronization check."""
+    weights "i8c", requantized per channel: phase batch_i8c), the
+    DeepSeek-Coder-1.3B Q6_K mix ("q6k", native: i8t at group 16 and the
+    lane-major Q8_0 down; phase batch_q6k), or the Mixtral-8x7B shape
+    ("moe": native i4t and i4p; phase batch_moe).  The decode dispatches of
+    batch_moe, batch_i8c and batch_q6k run under torch's synchronization
+    check."""
     import torch
 
     from booster_tpu_torch.gguf import GGUFReader
@@ -2094,13 +2429,16 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
     laps = _Laps()
     name = {v: k for k, v in BATCH.items()}[(model_name, weights)]
     q8, moe, i8c = model_name == "q8" and weights is None, model_name == "moe", weights == "i8c"
+    q6k = model_name == "q6k"
     torch.cuda.reset_peak_memory_stats()
-    if q8 or moe or i8c:
+    if q8 or moe or i8c or q6k:
         big = _big_model(model_name, layers, weights or "auto")
         model, t_load = big["model"], big["load_s"]
         reader = GGUFReader(_gguf_path(layers, model_name))
         try:  # bench_batch's load_model(weights="auto", batch_hint=64): the same model
-            if not i8c and resolve_weights(reader, "auto", 64) != "native":
+            # (the 1.3B file fits 6 GiB as bf16, so "auto" would take bf16
+            # there: batch_q6k asks for native weights, to run the Q6_K kernels)
+            if not (i8c or q6k) and resolve_weights(reader, "auto", 64) != "native":
                 raise AssertionError(f"{model_name}: weights=auto at batch_hint=64 is not native")
         finally:
             reader.close()
@@ -2116,9 +2454,11 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
     B, n_tokens = 64, 128
     eng = Engine(model, max_batch=B, max_seq=512, kv_quantized=True, decode_chunk=32)
     laps("load")
-    _bench_batch(eng, model.tokenizer, B, n_tokens)  # warm-up: first calls of every op
+    # warm-up: the first calls of every op (the prefill, the warm chunk and
+    # one pipelined chunk; a run to n_tokens took up to 22 s at Mixtral)
+    _bench_batch(eng, model.tokenizer, B, 32)
     laps("warm-up")
-    syncs = _SyncCheck(eng) if moe or i8c else None
+    syncs = _SyncCheck(eng) if moe or i8c or q6k else None
     kernels.reset_counts()
     with _FallbackCount() as fallbacks:
         res = _bench_batch(eng, model.tokenizer, B, n_tokens)
@@ -2142,9 +2482,13 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
                      "moe_qmm_i4p": 3 * layers * (steps + prefill_chunks)}
     if i8c:  # qkv, wo, gate-up, down (and the lm head) at M = 64 and 64·T, unfused
         expected |= {"qmm_i8c_mm": (4 * layers + 1) * (steps + prefill_chunks)}
-    if counts != expected or (kernels.shape_counts and not (q8 or moe or i8c)):
+    if q6k:  # qkv, wo (and the lm head), the gate-up and the lane-major down at M = 64 and 64·T
+        expected |= {"qmm_i8t_dq": (2 * layers + 1) * (steps + prefill_chunks),
+                     "qmm_i8t_gateup_dq": layers * (steps + prefill_chunks),
+                     "qmm_i8": layers * (steps + prefill_chunks)}
+    if counts != expected or (kernels.shape_counts and not (q8 or moe or i8c or q6k)):
         raise AssertionError(f"batch: launch counts {counts} != expected {expected}")
-    if i8c and fallbacks.calls:
+    if (i8c or q6k) and fallbacks.calls:
         raise AssertionError(f"{name}: {fallbacks.calls} matmuls took the dequantize path")
     shape_counts = dict(kernels.shape_counts)
     V = model.cfg.n_vocab
@@ -2172,7 +2516,8 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
     return {"phase": name, "seconds": time.perf_counter() - t0, "layers": layers,
             "weights": {"batch": "bf16", "batch_q8": "q8_0 (i8t)",
                         "batch_moe": "q4_0 (i4t attention, i4p experts)",
-                        "batch_i8c": "q8_0 requantized per channel (i8c)"}[name],
+                        "batch_i8c": "q8_0 requantized per channel (i8c)",
+                        "batch_q6k": "q6_k (i8t g16) with q8_0 ffn_down (lane-major i8)"}[name],
             "load_s": t_load, "dequantize_fallbacks": fallbacks.calls,
             "host_syncs_in_dispatches": None if syncs is None else syncs.host_syncs,
             "decode_dispatches_checked": None if syncs is None else syncs.chunks,
@@ -2501,9 +2846,10 @@ def main(argv=None) -> int:
 
     jobs = (([("tiny", 2), ("q8", 2)] if "parity" in phases else [])
             + ([("tiny", 22)] if {"generate", "batch", "generate_i8"} & set(phases) else [])
-            + ([("moe", 2), ("moe_q8", 2)] if "parity" in phases else [])
+            + ([("moe", 2), ("moe_q8", 2), ("q6k", 2)] if "parity" in phases else [])
             + ([("q8", 32)] if {"generate_q8", "batch_q8", "server", "generate_i8c",
                                 "batch_i8c"} & set(phases) else [])
+            + ([("q6k", 24)] if {"generate_q6k", "batch_q6k"} & set(phases) else [])
             + ([("moe", 32)] if {"generate_moe", "batch_moe"} & set(phases) else []))
     _start_writer(jobs)
     try:
@@ -2535,13 +2881,16 @@ def _run_phases(phases, run, entries, failed, t_all) -> int:
             if res is not None:
                 emit(res)
     runs = ("generate", "batch", "generate_i8", "generate_q8", "batch_q8", "server",
-            "generate_i8c", "batch_i8c", "generate_moe", "batch_moe")
+            "generate_i8c", "batch_i8c", "generate_q6k", "batch_q6k", "generate_moe",
+            "batch_moe")
     for name in runs:
         phase = (phase_generate if name in GENERATE else phase_batch if name in BATCH
                  else None)
         model, weights = GENERATE.get(name) or BATCH.get(name) or ("q8", None)
         if weights == "i8c":
             _big.pop(("q8", "auto"), None)  # the native 7B model's 8 GB, done with
+        if model == "q6k":
+            _big.pop(("q8", "i8c"), None)
         if model == "moe":
             _big.clear()  # the 7B models make room for the Mixtral's 26 GB
         if name not in phases:
@@ -2549,7 +2898,7 @@ def _run_phases(phases, run, entries, failed, t_all) -> int:
         if phase is None:
             res = run(name, phase_server)
         else:
-            res = run(name, lambda: phase(22 if model == "tiny" else 32, model, weights))
+            res = run(name, lambda: phase(LAYERS[model], model, weights))
         if res is not None:
             if "_shape_counts" in res:
                 path_shapes[name] = res.pop("_shape_counts")

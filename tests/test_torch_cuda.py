@@ -39,11 +39,13 @@ def cuda():
     return torch.device("cuda")
 
 
-def _w8(L, K, N, gen):
-    """A stacked random i8t weight [L, K, N] with bf16 scales (Q8_0's form)."""
+def _w8(L, K, N, gen, group=32, mins=False):
+    """A stacked random i8t weight [L, K, N] with bf16 scales (Q8_0's form;
+    Q6_K's at group 16), and with `mins` a mins plane (Q5_K's form)."""
     qw = torch.randint(-128, 128, (L, K, N), dtype=torch.int8, device="cuda", generator=gen)
-    s = torch.rand((L, 1, K // 32, N), device="cuda", generator=gen) * 0.02 + 1e-3
-    return QTensor("i8t", qw, s.to(torch.bfloat16), None, 32, (N, K), GGMLType.Q8_0)
+    s = torch.rand((L, 2 if mins else 1, K // group, N), device="cuda", generator=gen) * 0.02
+    return QTensor("i8t", qw, (s + 1e-3).to(torch.bfloat16), None, group, (N, K),
+                   GGMLType.Q6_K if group == 16 else GGMLType.Q8_0)
 
 
 def _w(L, K, N, gen, mins=False):
@@ -121,6 +123,23 @@ def test_prefill_attn_kernel_matches_plain(cuda, pos0, n_valid, T, S):
     assert ((got - want).abs() <= prefill_attn_limit(args)).all()
 
 
+@pytest.mark.parametrize("T,pos0,n_valid", [(32, [0, 200], [32, 7]), (16, [5, 0], [16, 1])])
+def test_prefill_attn_kernel_at_one_query_head_per_kv_head(cuda, T, pos0, n_valid):
+    """MHA (G = 1) at the prompt buckets: one tile of T rows per (slot,
+    head), the rest of the block's rows idle."""
+    args = prefill_attn_case(len(pos0), 3, 1, T, 512, 128, 128, pos0, n_valid, "cuda", seed=9)
+    got, want = pa.prefill_attn(*args), pa.prefill_attn_plain(*args)
+    assert ((got - want).abs() <= prefill_attn_limit(args)).all()
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_decode_attn_kernel_at_one_query_head_per_kv_head(cuda, quantized):
+    args = decode_attn_case(2, 3, 4, 1, 512, 128, 128, [300, 1, 511], "cuda", seed=10,
+                            quantized=quantized)
+    got, want = da.decode_attn(*args), da.decode_attn_plain(*args)
+    assert ((got - want).abs() <= decode_attn_limit(args)).all()
+
+
 def test_kv_append_kernel_matches_plain(cuda):
     gen = torch.Generator(device="cuda").manual_seed(3)
     k = torch.randn(3, 2, 2, 256, 128, device="cuda", generator=gen).to(torch.bfloat16)
@@ -194,6 +213,35 @@ def test_gateup_i8t_kernel_equals_dq_then_silu_mul(cuda, m):
     assert torch.equal(got, tq.silu(gu[:, :256]) * gu[:, 256:])
 
 
+@pytest.mark.parametrize("m,k,n", [(1, 2048, 384), (1, 512, 256), (5, 1024, 384),
+                                   (64, 2048, 256)])
+def test_qmm_i8t_group_16_kernel_matches_plain(cuda, m, k, n):
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    w = _w8(2, k, n, gen, group=16)
+    x = torch.randn(m, k, device="cuda", generator=gen).to(torch.bfloat16)
+    got, want = tq.qmm_i8t(x, w.at(1)), tq.qmm_plain(x, w.at(1))
+    assert (got - want).abs().max() <= 2e-4 * want.abs().max()
+
+
+@pytest.mark.parametrize("group,mins,k,ff", [(16, False, 2048, 384), (32, False, 1024, 256),
+                                             (16, True, 512, 128), (32, True, 4096, 640)])
+def test_gateup_gd_kernel_equals_gd_then_silu_mul(cuda, group, mins, k, ff):
+    """The M = 1 fused gate-up (_gateup_i8_gd_kernel's port) equals the M =
+    1 matvec kernel + silu·mul bit for bit, and its plain version within
+    bf16 rounding."""
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    w = _w8(2, k, 2 * ff, gen, group=group, mins=mins)
+    x = torch.randn(1, k, device="cuda", generator=gen).to(torch.bfloat16)
+    kernels.reset_counts()
+    got = tq.qmm_i8t_gateup(x, w.at(1))
+    assert kernels.launch_counts["qmm_i8t_gateup_gd"] == 1
+    gu = tq.qmm_i8t(x, w.at(1)).to(torch.bfloat16)
+    assert torch.equal(got, tq.silu(gu[:, :ff]) * gu[:, ff:])
+    want = tq.qmm_gateup_plain(x, w.at(1))
+    d = (got.float() - want.float()).abs()
+    assert (d <= 2 ** -7 * want.float().abs() + 1e-5 * want.float().abs().max()).all()
+
+
 @pytest.mark.parametrize("m", [1, 16, 64, 100])
 def test_mlp_i8t_kernel_equals_gateup_then_down(cuda, m):
     gen = torch.Generator(device="cuda").manual_seed(12)
@@ -214,12 +262,17 @@ def test_i8t_wrappers_refuse_shapes_not_ported(cuda):
     gen = torch.Generator(device="cuda").manual_seed(13)
     w = _w8(1, 1024, 256, gen)
     x = torch.zeros(1, 1024, device="cuda", dtype=torch.bfloat16)
+    x2 = torch.zeros(2, 1024, device="cuda", dtype=torch.bfloat16)
+    w64 = QTensor("i8t", w.qw[0], torch.zeros(1, 16, 256, device="cuda", dtype=torch.bfloat16),
+                  None, 64, (256, 1024), GGMLType.Q8_0)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        tq.qmm_i8t_gateup(x, w.at(0))
-    w16 = QTensor("i8t", w.qw[0], torch.zeros(1, 64, 256, device="cuda", dtype=torch.bfloat16),
-                  None, 16, (256, 1024), GGMLType.Q8_0)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tq.qmm_i8t(x, w16)
+        tq.qmm_i8t(x, w64)
+    wm = _w8(1, 1024, 256, gen, group=16, mins=True).at(0)
+    with pytest.raises(NotImplementedError, match="not ported yet"):  # mins at M > 1
+        tq.qmm_i8t(x2, wm)
+    w16 = _w8(1, 1024, 256, gen, group=16).at(0)
+    with pytest.raises(NotImplementedError, match="not ported yet"):  # the MLP at group 16
+        tm.qmm_mlp_i8t(x, w16, _w8(1, 128, 1024, gen, group=16).at(0))
     w96 = QTensor("i8t", w.qw[0, :, :96].contiguous(), w.scales[0, :, :, :96].contiguous(),
                   None, 32, (96, 1024), GGMLType.Q8_0)
     with pytest.raises(NotImplementedError, match="not ported yet"):

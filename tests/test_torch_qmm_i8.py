@@ -117,9 +117,18 @@ def test_gateup_matches_pallas_and_unfused():
 
 
 def test_gateup_at_one_row_is_not_ported():
-    _, tw = _q8_pair(2 * FF, K, seed=3)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tq.qmm_gateup(torch.zeros(1, K, dtype=torch.bfloat16), tw.at(0))
+    """The M = 1 gate-up (_gateup_i8_gd_kernel), which raised here before
+    the Q6_K slice ported it: now the group-dot form, equal to the M = 1
+    matvec + silu·mul bit for bit and to the reference within bf16
+    rounding."""
+    jw, tw = _q8_pair(2 * FF, K, seed=3)
+    xj, xt = _x(1, seed=11)
+    got = tq.qmm_gateup(xt, tw.at(0))
+    assert got is not None and got.dtype == torch.bfloat16 and got.shape == (1, FF)
+    gu = tq.qmm(xt, tw.at(0)).to(torch.bfloat16)
+    assert torch.equal(got, tq.silu(gu[:, :FF]) * gu[:, FF:])
+    want = pq.qmm_gateup(xj, _layer(jw, 0), "silu")
+    _close_bf16(got.float().numpy(), np.asarray(want, np.float32))
 
 
 @pytest.fixture(scope="module")
