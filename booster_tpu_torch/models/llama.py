@@ -24,7 +24,7 @@ slot-dense views gathered back from the pool (``gather_layer``, dequantized
 for an int8 pool), so the prompt's own rows come back after the storage
 round trip; the fused prefill kernel is off for pools, as in the reference.
 Decode with a page size that is a multiple of 128 (the reference's
-``_use_stacked_decode`` gate) is the stacked paged path: the paged attention
+``_use_fused_decode`` gate) is the stacked paged path: the paged attention
 kernel (``ops.paged_attention``) with the deferred self term, then one
 ``kv_append_all_layers_paged`` after the loop.  Other page sizes decode
 through the prefill form, as the reference's XLA path does.
@@ -34,6 +34,17 @@ the reference's MoE FFN (``booster_tpu/models/llama.py:147-214``): the
 grouped dispatch of ``ops.moe`` over the expert stacks as the loader keeps
 them (lane-major i4p or i8, or dense); stacks of other kinds raise.
 
+A T = 1 step decodes stacked only where the reference's gate
+``_use_fused_decode`` lets it; otherwise it takes the reference's layer
+loop with a mask: each layer writes its row with
+``kv_cache.update_layer`` (the per-layer append kernel where the cache
+length is a multiple of 128, plain writes elsewhere; through the page table
+for a pool) and attends with the masked plain attention.  ALiBi closes the
+fused gate, so MPT (arch ``mpt``: mean-centred LayerNorm with optional
+biases, a fused qkv projection with optional ``clamp_kqv``, ALiBi in place
+of rope, an ungated tanh-GELU FFN) always decodes so; ALiBi also keeps the
+fused chunked prefill off, as in the reference.
+
 The cache is updated in place and returned.  Other architectures and the
 llama family's options (shared experts, expert groups, MLA, biases,
 sliding-window patterns) are not ported yet.
@@ -41,12 +52,14 @@ sliding-window patterns) are not ported yet.
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import Any, Optional
 
 import torch
 
 from booster_tpu_torch.models.config import ModelConfig
-from booster_tpu_torch.ops.attention import attention, build_mask
+from booster_tpu_torch.ops.attention import alibi_slopes, attention, build_mask
 from booster_tpu_torch.ops.decode_attention import decode_attention_stacked
 from booster_tpu_torch.ops.kv_append import kv_append, kv_append_all_layers_paged
 from booster_tpu_torch.ops.kv_cache import dequant_kv, update_layer
@@ -71,16 +84,71 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float, add_one: bool = False
     return (normed * wf).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, w: Optional[torch.Tensor], b: Optional[torch.Tensor],
+               eps: float) -> torch.Tensor:
+    """Mean-centred LayerNorm in f32, rounded to x's dtype; `w` and `b` optional."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    if w is not None:
+        y = y * w.float()
+    if b is not None:
+        y = y + b.float()
+    return y.to(x.dtype)
+
+
+def _norm(x: torch.Tensor, lp: dict, key: str, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.norm_type == "layer":
+        return layer_norm(x, lp.get(key), lp.get(f"{key}_b"), cfg.rms_eps)
+    return rms_norm(x, lp[key], cfg.rms_eps, cfg.norm_eps_add_one)
+
+
+def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """The FFN's activation: tanh-approximate GELU in f32 as jax.nn.gelu
+    writes it, rounded to x's dtype; or SiLU (ops.qmm.silu)."""
+    if kind == "gelu":
+        xf = x.float()
+        z = math.sqrt(2.0 / math.pi) * (xf + 0.044715 * (xf * xf * xf))
+        cdf = 0.5 * (1.0 + torch.tanh(z))
+        return (xf * cdf).to(x.dtype)
+    return silu(x)
+
+
 def _check_ported(cfg: ModelConfig) -> None:
     moe_ok = not cfg.n_experts or (
         0 < cfg.n_experts_used <= cfg.n_experts and not cfg.n_shared_experts
         and cfg.n_expert_groups <= 1 and cfg.moe_scale == 1.0 and not cfg.n_dense_layers)
-    if (cfg.arch not in ("llama", "mixtral") or cfg.act != "silu" or not moe_ok
-            or cfg.kv_lora_rank or cfg.norm_type != "rms"
+    llama = (cfg.arch in ("llama", "mixtral") and cfg.act == "silu" and cfg.norm_type == "rms"
+             and not cfg.alibi_max_bias and not cfg.clamp_kqv)
+    mpt = (cfg.arch == "mpt" and cfg.act == "gelu" and cfg.norm_type == "layer"
+           and not cfg.n_experts)
+    if (not (llama or mpt) or not moe_ok
+            or cfg.kv_lora_rank or cfg.head_dim_v not in (0, cfg.head_dim)
             or cfg.parallel_residual or cfg.post_norms or cfg.sliding_window_pattern > 1
-            or cfg.alibi_max_bias or cfg.heads_per_layer or cfg.q_norm
-            or cfg.residual_scale != 1.0 or cfg.clamp_kqv):
+            or cfg.heads_per_layer or cfg.q_norm or cfg.n_heads % cfg.n_kv_heads
+            or cfg.residual_scale != 1.0):
         raise NotImplementedError(f"{cfg.arch} with these options: not ported yet")
+
+
+@functools.lru_cache(maxsize=8)
+def _alibi_slopes(n_heads: int, max_bias: float, device: torch.device) -> torch.Tensor:
+    """The slopes on `device`, made once: a copy from the host per step
+    would make a decode dispatch wait for the card."""
+    return alibi_slopes(n_heads, max_bias, device)
+
+
+def _use_fused_decode(cfg: ModelConfig, T: int, S: int, page_size: int = 0) -> bool:
+    """The reference's gate of the decode attention kernel (``booster_tpu/
+    models/llama.py:76-102``): single-token steps, whole query groups, no
+    per-layer head counts, no ALiBi, no MLA, and a tileable cache (pages of
+    a multiple of 128 rows, or a dense length that is one).  Where it is
+    closed, a step takes the masked layer loop."""
+    if T != 1 or cfg.n_heads % cfg.n_kv_heads != 0 or cfg.heads_per_layer:
+        return False
+    if cfg.alibi_max_bias > 0 or (cfg.head_dim_v and cfg.head_dim_v != cfg.head_dim):
+        return False
+    return page_size % 128 == 0 if page_size else S % 128 == 0
 
 
 def moe_route(router_logits: torch.Tensor, cfg: ModelConfig):
@@ -113,17 +181,20 @@ def _layer_view(layers: dict[str, Any], i: int) -> dict[str, Any]:
 
 
 def _layer(x, lp, i, cache, positions, cos, sin, mask, offsets, kv_valid, cfg,
-           decode: bool, self_ok=None, fused_prefill: bool = False, prep=None):
-    """One decoder layer; returns (x, (k, v)) with the layer's new roped rows."""
+           decode: bool, self_ok=None, fused_prefill: bool = False, prep=None, slopes=None):
+    """One decoder layer; returns (x, (k, v)) with the layer's new roped rows.
+    `slopes` [H] f32: the ALiBi slopes of the masked attention."""
     B, T, C = x.shape
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
-    h = rms_norm(x, lp["attn_norm"], cfg.rms_eps, cfg.norm_eps_add_one)
+    h = _norm(x, lp, "attn_norm", cfg)
     if "wqkv" in lp:
         qkv = qlinear(h, lp["wqkv"]).reshape(B, T, H + 2 * Hkv, D)
     else:
         qkv = torch.cat([qlinear(h, lp[k_]) for k_ in ("wq", "wk", "wv")], dim=-1
                         ).reshape(B, T, H + 2 * Hkv, D)
+    if cfg.clamp_kqv > 0:  # mpt: q, k and v clamped alike
+        qkv = torch.clamp(qkv, -cfg.clamp_kqv, cfg.clamp_kqv)
     # q and k heads rotate together (one elementwise pass instead of two)
     qk = apply_rope_tables(qkv[:, :, :H + Hkv], cos, sin, cfg.rope_style)
     q, k = qk[:, :, :H], qk[:, :, H:]
@@ -154,7 +225,7 @@ def _layer(x, lp, i, cache, positions, cos, sin, mask, offsets, kv_valid, cfg,
         attn_out = attention(
             q, dequant_kv(view(cache.k[i])[..., :D], view(ks), x.dtype),
             dequant_kv(view(cache.v[i])[..., :D], view(vs), x.dtype), positions, kv_valid,
-            scale=scale, logit_softcap=cfg.attn_logit_softcap, mask=mask)
+            scale=scale, logit_softcap=cfg.attn_logit_softcap, mask=mask, alibi_slopes=slopes)
     else:
         update_layer(cache.k[i], cache.v[i], k, v, offsets, ks, vs)
         if fused_prefill:
@@ -165,10 +236,11 @@ def _layer(x, lp, i, cache, positions, cos, sin, mask, offsets, kv_valid, cfg,
             attn_out = attention(
                 q, dequant_kv(cache.k[i][..., :D], ks, x.dtype),
                 dequant_kv(cache.v[i][..., :D], vs, x.dtype), positions, kv_valid,
-                scale=scale, logit_softcap=cfg.attn_logit_softcap, mask=mask)
+                scale=scale, logit_softcap=cfg.attn_logit_softcap, mask=mask,
+                alibi_slopes=slopes)
     x = x + qlinear(attn_out.reshape(B, T, -1), lp["wo"])
 
-    h = rms_norm(x, lp["ffn_norm"], cfg.rms_eps, cfg.norm_eps_add_one)
+    h = _norm(x, lp, "ffn_norm", cfg)
     if cfg.n_experts > 0 and "gate_exps" in lp:
         ffn_out = _moe_ffn(h, lp, cfg)
     elif "w_gateup" in lp:
@@ -183,8 +255,11 @@ def _layer(x, lp, i, cache, positions, cos, sin, mask, offsets, kv_valid, cfg,
                 ff = gu.shape[-1] // 2
                 mid = silu(gu[..., :ff]) * gu[..., ff:]
             ffn_out = qlinear(mid, lp["w_down"])
-    else:
-        ffn_out = qlinear(silu(qlinear(h, lp["w_gate"])) * qlinear(h, lp["w_up"]), lp["w_down"])
+    elif "w_gate" in lp:
+        ffn_out = qlinear(_act(qlinear(h, lp["w_gate"]), cfg.act) * qlinear(h, lp["w_up"]),
+                          lp["w_down"])
+    else:  # no gate (mpt): up → act → down
+        ffn_out = qlinear(_act(qlinear(h, lp["w_up"]), cfg.act), lp["w_down"])
     x = x + ffn_out
     return x, (k, v)
 
@@ -211,11 +286,13 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache,
     S = cache.max_len
     layers = params["layers"]
     paged = isinstance(cache, PagedKVCache)
+    page = cache.page_size if paged else 0
 
-    if T == 1 and (not paged or cache.page_size % 128 == 0):
-        if S % 128:
-            raise NotImplementedError("T = 1 decode over a cache length that is not a "
-                                      "multiple of 128 (per-layer append): not ported yet")
+    # the reference's second gate (_use_stacked_decode, booster_tpu/models/
+    # llama.py:48-73) holds wherever this one is open: the port pads every
+    # cache to a storage width of a multiple of 128, a pool's length is whole
+    # pages, and MLA is refused
+    if _use_fused_decode(cfg, T, S, page):
         self_ok = (adv > 0).to(torch.int32)
         prep = None
         if paged:  # the layer-invariant lengths and window, once per step
@@ -232,22 +309,25 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache,
         append = kv_append_all_layers_paged if paged else kv_append
         append(cache.k, cache.v, torch.stack(new_k), torch.stack(new_v), offsets,
                *((cache.table,) if paged else ()), cache.k_scale, cache.v_scale)
-    else:
+    else:  # prefill, and a decode step the gates keep from the stacked form
         kv_valid = offsets + adv
-        fused = cache.quantized and not paged and prefill_supported(
-            T, S, cache.k.shape[-1], cfg.n_heads, cfg.n_kv_heads)
+        fused = (cache.quantized and not paged and not cfg.alibi_max_bias
+                 and prefill_supported(T, S, cache.k.shape[-1], cfg.n_heads, cfg.n_kv_heads))
         mask = None if fused else build_mask(
             positions, kv_valid, S, cfg.sliding_window if cfg.sliding_window > 0 else None)
+        slopes = (_alibi_slopes(cfg.n_heads, cfg.alibi_max_bias, dev)
+                  if cfg.alibi_max_bias > 0 else None)
         for i in range(cfg.n_layers):
             x, _ = _layer(x, _layer_view(layers, i), i, cache, positions, cos, sin,
-                          mask, offsets, kv_valid, cfg, decode=False, fused_prefill=fused)
+                          mask, offsets, kv_valid, cfg, decode=False, fused_prefill=fused,
+                          slopes=slopes)
     return _finish(params, cfg, x, emb, cache, gather_idx, last_only, adv)
 
 
 def _finish(params, cfg, x, emb, cache, gather_idx, last_only, adv):
     """Final norm, lm head, cache length advance."""
     B = x.shape[0]
-    x = rms_norm(x, params["output_norm"], cfg.rms_eps, cfg.norm_eps_add_one)
+    x = _norm(x, params, "output_norm", cfg)
     if gather_idx is not None:
         x = x[torch.arange(B, device=x.device), gather_idx.long()][:, None, :]
     elif last_only:

@@ -19,8 +19,12 @@ MoE model (Mixtral) keep the file's quantization whatever `weights` says,
 lane-major (``[E·Ne, K]``, the grouped kernel's layout) with bf16 scale
 planes; they are repacked on the device, and every stack is filled there one
 layer at a time, so the host holds about one layer beside the result.
-``params_from_numpy`` turns the JAX package's params (as numpy arrays) into
-the same structure.
+An MPT file (arch ``mpt``) holds a fused ``attn_qkv``, split into q, k and v
+rows and fused again as the reference does, an ungated FFN (``ffn_up``,
+``ffn_down``), and LayerNorms whose optional biases (``attn_norm.bias``,
+``ffn_norm.bias``, ``output_norm.bias``) load as dense tensors; other bias
+tensors are not ported yet.  ``params_from_numpy`` turns the JAX package's
+params (as numpy arrays) into the same structure.
 """
 
 from __future__ import annotations
@@ -51,11 +55,13 @@ from booster_tpu_torch.tokenizer import Tokenizer
 # GGUF layer-tensor name → param key (the llama family's tensors)
 _LAYER_MAP = {
     "attn_norm.weight": "attn_norm",
+    "attn_norm.bias": "attn_norm_b",
     "attn_q.weight": "wq",
     "attn_k.weight": "wk",
     "attn_v.weight": "wv",
     "attn_output.weight": "wo",
     "ffn_norm.weight": "ffn_norm",
+    "ffn_norm.bias": "ffn_norm_b",
     "ffn_gate.weight": "w_gate",
     "ffn_up.weight": "w_up",
     "ffn_down.weight": "w_down",
@@ -64,11 +70,13 @@ _LAYER_MAP = {
     "ffn_up_exps.weight": "up_exps",
     "ffn_down_exps.weight": "down_exps",
 }
-_NORM_KEYS = {"attn_norm", "ffn_norm"}
+_NORM_KEYS = {"attn_norm", "ffn_norm", "attn_norm_b", "ffn_norm_b"}
 _EXPERT_KEYS = {"gate_exps", "up_exps", "down_exps"}
 _ATTN_KEYS = {"wq", "wk", "wv", "wo"}
 _FFN_KEYS = {"w_gate", "w_up", "w_down"}
-_PORTED_ARCHS = {"llama", "mixtral"}  # mixtral: the HF converter's name for llama + experts
+_UNGATED_FFN_KEYS = {"w_up", "w_down"}  # mpt
+# mixtral: the HF converter's name for llama + experts
+_PORTED_ARCHS = {"llama", "mixtral", "mpt"}
 
 
 # weights="auto" takes bf16 only when the whole file fits in this many bytes
@@ -124,6 +132,21 @@ def deinterleave_perm(n_heads: int, head_dim: int, d_rot: int) -> np.ndarray:
     within[:half] = 2 * np.arange(half)
     within[half:d_rot] = 2 * np.arange(half) + 1
     return (np.arange(n_heads)[:, None] * head_dim + within[None, :]).reshape(-1)
+
+
+def _split_rows(qt: QTensor, sizes: list[int]) -> list[QTensor]:
+    """Split a QTensor along out-features (a fused qkv → q, k, v)."""
+    if sum(sizes) != qt.shape[0]:
+        raise ValueError(f"split sizes {sizes} != rows {qt.shape[0]}")
+    out, start = [], 0
+    for n in sizes:
+        rows = slice(start, start + n)
+        out.append(dataclasses.replace(
+            qt, qw=np.asarray(qt.qw)[rows],
+            scales=None if qt.scales is None else np.asarray(qt.scales)[rows],
+            mins=None if qt.mins is None else np.asarray(qt.mins)[rows], shape=(n, qt.shape[1])))
+        start += n
+    return out
 
 
 def _permute_rows(t: QTensor, perm: np.ndarray) -> QTensor:
@@ -284,6 +307,9 @@ def load_model(path: str, device="cuda", weights: str = "native",
             raise ValueError("model has no token_embd.weight")
         params["tok_embd"] = torch.from_numpy(emb).to(torch.bfloat16)
         params["output_norm"] = torch.from_numpy(load_dense("output_norm.weight"))
+        out_norm_b = load_dense("output_norm.bias")
+        if out_norm_b is not None:
+            params["output_norm_b"] = torch.from_numpy(out_norm_b)
         out_q = load_q("output.weight")
         if out_q is not None and weights == "i8c":
             out_q = _channel_quantize_on(out_q, dev)
@@ -295,17 +321,27 @@ def load_model(path: str, device="cuda", weights: str = "native",
                           "mscale": float(mscale)}
 
         deint = cfg.rope_style == ROPE_NORM and cfg.rope_dims > 1
-        ffn_keys = {"router"} | _EXPERT_KEYS if cfg.n_experts else _FFN_KEYS
+        ffn_keys = ({"router"} | _EXPERT_KEYS if cfg.n_experts
+                    else _UNGATED_FFN_KEYS if cfg.arch == "mpt" else _FFN_KEYS)
+        other_ffn = (_FFN_KEYS | {"router"} | _EXPERT_KEYS) - ffn_keys
         stacks = _Stacks(cfg.n_layers, dev, i8c=weights == "i8c")
         for i in range(cfg.n_layers):
             lp: dict[str, Any] = {}
+            prefix = f"blk.{i}."
             for suffix, key in _LAYER_MAP.items():
-                name = f"blk.{i}.{suffix}"
+                name = prefix + suffix
                 if name not in reader.tensors:
                     continue
                 lp[key] = (load_dense(name) if key in _NORM_KEYS
                            else load_experts(name) if key in _EXPERT_KEYS else load_q(name))
-            if (_ATTN_KEYS | ffn_keys) - set(lp) or (cfg.n_experts and _FFN_KEYS & set(lp)):
+            if "wq" not in lp and prefix + "attn_qkv.weight" in reader.tensors:
+                # fused projection (mpt): split as the reference does (loader.py:434-447)
+                d_q, d_kv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+                lp["wq"], lp["wk"], lp["wv"] = _split_rows(load_q(prefix + "attn_qkv.weight"),
+                                                           [d_q, d_kv, d_kv])
+            biases = [n for n in reader.tensors if n.startswith(prefix) and n.endswith(".bias")
+                      and n[len(prefix):] not in _LAYER_MAP]
+            if (_ATTN_KEYS | ffn_keys) - set(lp) or other_ffn & set(lp) or biases:
                 raise NotImplementedError(f"layer {i}: tensor set not ported yet")
             if deint:
                 lp["wq"] = _permute_rows(lp["wq"], deinterleave_perm(
@@ -316,7 +352,7 @@ def load_model(path: str, device="cuda", weights: str = "native",
             if fused is not None:
                 lp["wqkv"] = fused
                 del lp["wq"], lp["wk"], lp["wv"]
-            if not cfg.n_experts:
+            if "w_gate" in lp:
                 fused = _concat_rows([lp["w_gate"], lp["w_up"]])
                 if fused is not None:
                     lp["w_gateup"] = fused

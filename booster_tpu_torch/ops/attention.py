@@ -1,16 +1,21 @@
-"""Masked GQA attention over the KV cache, for prefill (T > 1).
+"""Masked GQA attention over the KV cache: prefill (T > 1), and the decode
+steps that the reference's fused decode gate keeps off its kernel (ALiBi, a
+cache length that is not a multiple of 128).
 
-Port of ``build_mask``, ``attention`` and ``_attention_chunked`` of
-``booster_tpu/ops/attention.py`` as plain torch ops mirroring the
-reference: q pre-scaled in f32 and rounded to bf16, f32 scores of bf16
-operands, f32 softmax, probabilities rounded to bf16 for PV with f32
-accumulation.  Past ``_CHUNK_THRESHOLD`` score elements (and with S a
-multiple of ``_KV_CHUNK``) the reference switches to an online softmax
-over 512-column chunks, which rounds differently; the port takes that
-branch exactly when the reference does.
+Port of ``alibi_slopes``, ``build_mask``, ``attention`` and
+``_attention_chunked`` of ``booster_tpu/ops/attention.py`` as plain torch
+ops mirroring the reference: q pre-scaled in f32 and rounded to bf16, f32
+scores of bf16 operands, the ALiBi bias ``-slope_h · |q_pos - j|`` where
+slopes are given (MPT), f32 softmax, probabilities rounded to bf16 for PV
+with f32 accumulation.  Past ``_CHUNK_THRESHOLD`` score elements (and with
+S a multiple of ``_KV_CHUNK``, and no slopes) the reference switches to an
+online softmax over 512-column chunks, which rounds differently; the port
+takes that branch exactly when the reference does.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -19,6 +24,18 @@ NEG_INF = -1e30
 # materialized-score budget above which the online-softmax chunked path runs
 _CHUNK_THRESHOLD = 32 * 1024 * 1024  # elements in [B, H, T, S]
 _KV_CHUNK = 512
+
+
+def alibi_slopes(n_heads: int, max_bias: float, device=None) -> torch.Tensor:
+    """Per-head ALiBi slopes [H] f32 (ggml soft_max_ext's formula: m0^(h+1)
+    for the first n2 = 2^floor(log2 H) heads, m1^(2(h - n2) + 1) beyond),
+    computed in Python floats as the reference does."""
+    n2 = 2 ** math.floor(math.log2(n_heads))
+    m0 = 2.0 ** (-max_bias / n2)
+    m1 = 2.0 ** (-(max_bias / 2.0) / n2)
+    s = [m0 ** (h + 1) for h in range(n2)] + [m1 ** (2 * (h - n2) + 1)
+                                              for h in range(n2, n_heads)]
+    return torch.tensor(s, dtype=torch.float32, device=device)
 
 
 def build_mask(q_positions: torch.Tensor, kv_valid_len: torch.Tensor, S: int,
@@ -34,13 +51,16 @@ def build_mask(q_positions: torch.Tensor, kv_valid_len: torch.Tensor, S: int,
 
 def attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
               q_positions: torch.Tensor, kv_valid_len: torch.Tensor, scale: float,
-              logit_softcap: float = 0.0, sliding_window=None, mask=None) -> torch.Tensor:
+              logit_softcap: float = 0.0, sliding_window=None, mask=None,
+              alibi_slopes=None) -> torch.Tensor:
     """q [B, T, H, D] (roped), cache [B, H_kv, S, D] → [B, T, H, D] in
     q.dtype.  kv index j is attended iff j <= q_pos, j < kv_valid_len and
-    (no window or q_pos - j < window)."""
+    (no window or q_pos - j < window).  `alibi_slopes` [H] f32 adds
+    -slope_h · |q_pos - j| to the scores."""
     B, T, H, D = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
-    if B * H * T * S > _CHUNK_THRESHOLD and S % _KV_CHUNK == 0:
+    if (B * H * T * S > _CHUNK_THRESHOLD and S % _KV_CHUNK == 0
+            and alibi_slopes is None):
         return _attention_chunked(q, k_cache, v_cache, q_positions, kv_valid_len, scale,
                                   logit_softcap, sliding_window)
     groups = H // Hkv
@@ -51,6 +71,11 @@ def attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     scores = torch.einsum("bhgtd,bhsd->bhgts", qg, kf)
     if logit_softcap > 0.0:
         scores = logit_softcap * torch.tanh(scores / logit_softcap)
+    if alibi_slopes is not None:
+        dist = (q_positions[:, None, :, None].float()
+                - torch.arange(S, dtype=torch.float32, device=q.device)).abs()  # [B, 1, T, S]
+        slopes = alibi_slopes.reshape(Hkv, groups)[None, :, :, None, None]
+        scores = scores - slopes * dist[:, :, None, :, :]
     if mask is None:
         mask = build_mask(q_positions, kv_valid_len, S, sliding_window)
     scores = torch.where(mask[:, None, None, :, :], scores,

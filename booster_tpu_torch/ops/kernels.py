@@ -44,9 +44,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # kernel name → launches made by its wrapper (reset by callers that count);
 # _gd is the M = 1 group-dot form, _dq the M > 1 dequantize form, _i8 the
-# int8-cache form, paged_ the paged-pool forms, moe_ the grouped (routed
-# expert) form of the lane-major matmul; the i8c matmul's _mv is its M = 1
-# split-K matvec, _mm its M > 1 tensor-core form
+# int8-cache form, _layer the per-layer T = 1 append, paged_ the paged-pool
+# forms, moe_ the grouped (routed expert) form of the lane-major matmul; the
+# i8c matmul's _mv is its M = 1 split-K matvec, _mm its M > 1 tensor-core form
 launch_counts = {
     "qmm_i4t_gd": 0,
     "qmm_i4t_dq": 0,
@@ -72,6 +72,8 @@ launch_counts = {
     "moe_qmm_i8": 0,
     "qmm_i8c_mv": 0,
     "qmm_i8c_mm": 0,
+    "kv_append_layer": 0,
+    "kv_append_layer_i8": 0,
 }
 # (kernel name, (K, N)) → launches, for the matmul kernels
 shape_counts: dict = {}

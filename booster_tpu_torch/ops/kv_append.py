@@ -11,6 +11,14 @@ its scale lands beside it.  ``kv_append`` runs a kernel of
 tensors; the two are bit-exact.  Both update the cache in place (the JAX
 version returns new arrays) and write only row ``offsets[b]``.
 
+``kv_append_layer`` is one layer's T = 1 append (counterpart of
+``kv_append_decode_stacked`` at one layer and of its L = 1 view
+``kv_append_decode``): the same row function on a layer view of the
+stacked cache, [B, H, S, D], made inside the layer loop where decode takes
+the masked attention (``kv_cache.update_layer`` dispatches to it).  Its
+kernels are in ``csrc/kv_append.cu``, its plain version
+``kv_append_layer_plain``.
+
 ``kv_append_all_layers_paged`` is the same append into a paged pool
 [L, Np, H, P, D] through the slots' page tables (counterpart of the JAX
 function of that name): the paged kernels of ``csrc/kv_append.cu`` on CUDA
@@ -34,6 +42,8 @@ from booster_tpu_torch.ops.paged_kv import paged_append_all_layers
 _SIGNATURES = {
     "bt_kv_append": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     "bt_kv_append_i8": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "bt_kv_append_layer": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    "bt_kv_append_layer_i8": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     "bt_kv_append_paged": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     "bt_kv_append_paged_i8": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
 }
@@ -95,6 +105,60 @@ def kv_append(k_all, v_all, new_k, new_v, offsets, k_scale_all=None,
                           new_v.data_ptr(), offsets.data_ptr(), L, B, H, S, D, d, stream)
     kernels.check(rc, "kv_append")
     kernels.count("kv_append")
+
+
+def kv_append_layer_plain(k_layer, v_layer, new_k, new_v, offsets, k_scale=None,
+                          v_scale=None) -> None:
+    """k_layer/v_layer [B, H, S, D] (in place), new_k/new_v [B, 1, H, d],
+    offsets [B], scales [B, H, S, 1] f32 for an int8 cache."""
+    B, H = k_layer.shape[:2]
+    kv_append_plain(k_layer[None], v_layer[None], new_k.reshape(1, B, H, -1),
+                    new_v.reshape(1, B, H, -1), offsets,
+                    None if k_scale is None else k_scale[None],
+                    None if v_scale is None else v_scale[None])
+
+
+def kv_append_layer(k_layer, v_layer, new_k, new_v, offsets, k_scale=None,
+                    v_scale=None) -> None:
+    """Kernel-level entry for one layer's T = 1 append: the plain version for
+    CPU tensors, the CUDA kernel for CUDA tensors."""
+    if k_layer.device.type == "cpu":
+        return kv_append_layer_plain(k_layer, v_layer, new_k, new_v, offsets, k_scale, v_scale)
+    B, H, S, D = k_layer.shape
+    d = new_k.shape[-1]
+    quant = k_scale is not None
+    dt = torch.int8 if quant else torch.bfloat16
+    if k_layer.dtype != dt or v_layer.dtype != dt or v_layer.shape != k_layer.shape:
+        raise ValueError("kv_append_layer kernel: the cache must be bf16 k/v of one shape, "
+                         "or int8 k/v with scales")
+    if not (k_layer.is_contiguous() and v_layer.is_contiguous()):
+        raise ValueError("kv_append_layer kernel: the layer views must be contiguous")
+    if new_k.shape != (B, 1, H, d) or new_v.shape != new_k.shape or d > D:
+        raise ValueError("kv_append_layer kernel: new rows must be [B, 1, H, d <= D]")
+    new_k = new_k.to(torch.bfloat16).contiguous()
+    new_v = new_v.to(torch.bfloat16).contiguous()
+    offsets = offsets.to(torch.int32).contiguous()
+    stream = torch.cuda.current_stream(k_layer.device).cuda_stream
+    lib = kernels.library("kv_append", _SIGNATURES)
+    if quant:
+        if (v_scale is None or k_scale.shape != (B, H, S, 1) or v_scale.shape != k_scale.shape
+                or k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32
+                or not (k_scale.is_contiguous() and v_scale.is_contiguous())):
+            raise ValueError("kv_append_layer kernel: scales must be contiguous f32 [B, H, S, 1]")
+        if D % 128 or D > 1024:
+            raise NotImplementedError(f"kv_append_layer int8 kernel: storage head dim {D}: "
+                                      "not ported yet (multiples of 128 up to 1024 are)")
+        rc = lib.bt_kv_append_layer_i8(k_layer.data_ptr(), v_layer.data_ptr(),
+                                       k_scale.data_ptr(), v_scale.data_ptr(), new_k.data_ptr(),
+                                       new_v.data_ptr(), offsets.data_ptr(), B, H, S, D, d,
+                                       stream)
+        kernels.check(rc, "kv_append_layer_i8")
+        kernels.count("kv_append_layer_i8")
+        return
+    rc = lib.bt_kv_append_layer(k_layer.data_ptr(), v_layer.data_ptr(), new_k.data_ptr(),
+                                new_v.data_ptr(), offsets.data_ptr(), B, H, S, D, d, stream)
+    kernels.check(rc, "kv_append_layer")
+    kernels.count("kv_append_layer")
 
 
 def kv_append_all_layers_paged(pool_k, pool_v, new_k, new_v, offsets, table, pool_ks=None,

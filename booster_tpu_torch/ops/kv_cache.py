@@ -11,8 +11,10 @@ The reference writes ``amax / 127.0``, and XLA compiles a division by a
 constant as a multiply by its f32 reciprocal, so the scale is
 amax · f32(1/127) (which differs from IEEE amax / 127 in the last bit for
 a few % of rows); the division by the scale stays an IEEE division.
-``update_layer`` is the T > 1 write of a prefill; T = 1 decode writes go
-through ops.kv_append after the layer loop.  ``shift_slot_cache`` is the
+``update_layer`` is the write of one layer inside the layer loop: a prefill's
+T rows, or the T = 1 row of a decode that takes the masked attention (the
+stacked decode writes every layer's row through ops.kv_append after the
+loop).  ``shift_slot_cache`` is the
 in-cache context shift of one slot.  The cache tensors are updated in place.
 """
 
@@ -148,9 +150,18 @@ def update_layer(layer_k: torch.Tensor, layer_v: torch.Tensor, new_k: torch.Tens
     """Write new tokens [B, T, H, d] at per-slot offsets of one layer's
     [B, H, S, Dc] cache (in place), zero-padded to the storage width and,
     with scales [B, H, S, 1], quantized per row.  Like the JAX
-    dynamic_update_slice, a write that would run past S starts at S - T."""
+    dynamic_update_slice, a write that would run past S starts at S - T.
+    A T = 1 write into a lane-aligned cache of a tileable length goes to the
+    per-layer append (``ops.kv_append.kv_append_layer``: its kernel on CUDA
+    tensors), where the reference takes ``kv_append_decode``
+    (``booster_tpu/ops/kv_cache.py:135-143``); the two compute one function."""
     B, T = new_k.shape[:2]
     S, Dc = layer_k.shape[2], layer_k.shape[3]
+    if T == 1 and S % 128 == 0 and Dc == layer_v.shape[3] and Dc % 128 == 0:
+        from booster_tpu_torch.ops.kv_append import kv_append_layer  # imports this module
+
+        return kv_append_layer(layer_k, layer_v, new_k, new_v, offsets, layer_k_scale,
+                               layer_v_scale)
     start = offsets.to(torch.int64).clamp(0, S - T)
     idx = start[:, None] + torch.arange(T, device=layer_k.device)[None, :]  # [B, T]
     b = torch.arange(B, device=layer_k.device)[:, None]

@@ -2,7 +2,10 @@
 
 ``make_model`` writes a seeded synthetic llama-shaped GGUF with a working SPM
 vocab (Q4_0, Q8_0 or Q6_K weights), optionally with routed experts
-(Mixtral), rope scaling and another type for ``output.weight``.  It
+(Mixtral), rope scaling and another type for ``output.weight``; or, with
+``arch="mpt"``, an MPT file as llama.cpp writes one (fused ``attn_qkv``,
+ungated FFN, LayerNorms, ALiBi) with a byte-level BPE vocabulary
+(``build_bpe_vocab``, pre-tokenizer ``mpt``).  It
 ports ``tools/make_test_model.py`` onto the port's own GGUF writer and
 quantizer: the same arguments and seed give the same file bytes.  It writes
 tensor by tensor, so the 7B shape (7.7 GB as Q8_0) needs a few hundred MB of
@@ -14,7 +17,9 @@ kernels, and ``decode_attn_limit`` the kernel's per-element limit against
 its plain version; ``prefill_attn_case``, ``prefill_attn_mutants`` and
 ``prefill_attn_limit`` do the same for chunked-prefill attention, and
 ``paged_attn_case``, ``paged_attn_mutants`` and ``paged_attn_limit`` for
-paged decode attention.
+paged decode attention; ``kv_append_layer_case`` and
+``kv_append_layer_mutants`` make the per-layer append's inputs and what
+wrong appends would leave in the cache.
 """
 
 from __future__ import annotations
@@ -28,11 +33,13 @@ import torch
 
 from booster_tpu_torch.gguf import GGMLType, GGUFWriter
 from booster_tpu_torch.ops.decode_attention import decode_attn_plain
+from booster_tpu_torch.ops.kv_append import kv_append_layer_plain
 from booster_tpu_torch.ops.kv_cache import _quantize_kv
 from booster_tpu_torch.ops.paged_attention import paged_attn_plain
 from booster_tpu_torch.ops.prefill_attention import prefill_attn_plain
 from booster_tpu_torch.quant import quantize
-from booster_tpu_torch.tokenizer.vocab import TokenType
+from booster_tpu_torch.tokenizer.bpe import gpt2_split
+from booster_tpu_torch.tokenizer.vocab import BYTE_ENCODER, TokenType
 
 
 def build_vocab(n: int):
@@ -63,6 +70,71 @@ def build_vocab(n: int):
     return tokens[:n], np.array(scores[:n], np.float32), np.array(types[:n], np.int32)
 
 
+# the text whose most frequent byte pairs become a BPE vocabulary's first merges
+BPE_CORPUS = (
+    "hello world and the end. The quick brown fox jumps over the lazy dog. "
+    "stream 0 benchmark prompt; stream 1 benchmark prompt. You are the helpful assistant "
+    "of the hello world company. Answer in the order of the questions, and the end of each "
+    "answer is a short summary. It's the one that they've said they'll read. "
+    "def main(args):\n    return [x * 2 for x in args]\n"
+)
+
+
+def build_bpe_vocab(n: int, seed: int = 0):
+    """A byte-level BPE vocabulary of `n` tokens (GPT-NeoX-20B's layout:
+    ``<|endoftext|>`` at id 0, a control token that is both BOS and EOS):
+    the 256 byte tokens of the GPT-2 byte→unicode map, then the merges of a
+    BPE trained on BPE_CORPUS (most frequent pair first, ties to the
+    smaller pair), then merges of two tokens of at most 6 characters drawn
+    from `seed` until the vocabulary holds `n`.  Returns (tokens, token types, merges)."""
+    tokens = ["<|endoftext|>"] + [BYTE_ENCODER[b] for b in range(256)]
+    types = [int(TokenType.CONTROL)] + [int(TokenType.NORMAL)] * 256
+    merges: list[str] = []
+    have = set(tokens)
+
+    def add(a: str, b: str) -> bool:
+        if a + b in have or len(tokens) >= n:
+            return False
+        have.add(a + b)
+        tokens.append(a + b)
+        types.append(int(TokenType.NORMAL))
+        merges.append(f"{a} {b}")
+        return True
+
+    words: dict[tuple, int] = {}
+    for frag in gpt2_split(BPE_CORPUS):
+        w = tuple(BYTE_ENCODER[b] for b in frag.encode("utf-8"))
+        words[w] = words.get(w, 0) + 1
+    while len(tokens) < n:
+        pairs: dict[tuple, int] = {}
+        for w, c in words.items():
+            for pair in zip(w, w[1:]):
+                pairs[pair] = pairs.get(pair, 0) + c
+        if not pairs:
+            break
+        a, b = min(pairs, key=lambda p: (-pairs[p], p))
+        add(a, b)
+        merged = {}
+        for w, c in words.items():
+            out, i = [], 0
+            while i < len(w):
+                if i + 1 < len(w) and (w[i], w[i + 1]) == (a, b):
+                    out.append(a + b)
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            merged[tuple(out)] = merged.get(tuple(out), 0) + c
+        words = merged
+    rng = np.random.default_rng(seed)
+    short = [t for t in tokens[1:] if len(t) <= 6]  # the parts of the drawn merges
+    while len(tokens) < n:
+        for i, j in rng.integers(0, len(short), (4096, 2)).tolist():
+            if add(short[i], short[j]) and len(tokens[-1]) <= 6:
+                short.append(tokens[-1])
+    return tokens, np.array(types, np.int32), merges
+
+
 def make_model(
     out_path: str,
     vocab_size: int = 512,
@@ -84,6 +156,10 @@ def make_model(
     rms_eps: float = 1e-5,
     rope_scaling: tuple[str, float] | None = None,  # ("linear", 4.0): rope.scaling.type, .factor
     output_quant: GGMLType | None = None,  # output.weight's type where it differs from `quant`
+    output: bool = True,  # False: no output.weight (the head tied to token_embd)
+    norm_bias: bool = False,  # mpt: LayerNorm biases (attn_norm, ffn_norm, output_norm)
+    alibi_max_bias: float = 8.0,  # mpt: attention.max_alibi_bias
+    clamp_kqv: float = 0.0,  # mpt: attention.clamp_kqv, written when > 0
 ) -> str:
     """Write the GGUF and return its path.  `draw` "normal" draws every
     weight from one seeded standard normal stream in file order and
@@ -101,11 +177,22 @@ def make_model(
     (tools/make_test_model.py's rule), except with ``quant=Q6_K``, where it
     is written as Q8_0, as llama.cpp's quantizer falls back for rows that
     cannot hold K-quant super-blocks (``llama_tensor_get_type``: every
-    ``ffn_down`` of a model whose ff is not a multiple of 256)."""
+    ``ffn_down`` of a model whose ff is not a multiple of 256).
+
+    ``arch="mpt"`` writes llama.cpp's MPT keys and tensors: ``mpt.*``
+    metadata with ``attention.layer_norm_epsilon`` (`rms_eps`),
+    ``attention.max_alibi_bias`` and, when > 0, ``attention.clamp_kqv``,
+    no rope keys; per layer ``attn_norm``, ``attn_qkv`` ([3·hidden, hidden],
+    MHA: `kv_heads` must equal `heads`), ``attn_output``, ``ffn_norm``,
+    ``ffn_up`` and ``ffn_down``; with `norm_bias`, random ``.bias`` tensors
+    beside the three norms; a BPE vocabulary (``build_bpe_vocab``) with
+    ``tokenizer.ggml.pre = "mpt"``, no BOS added."""
     if draw not in ("normal", "blocks"):
         raise ValueError(f"draw={draw!r}")
+    mpt = arch == "mpt"
+    if mpt and (experts or kv_heads != heads):
+        raise ValueError("mpt: multi-head attention, no experts")
     rng = np.random.default_rng(seed)
-    tokens, scores, types = build_vocab(vocab_size)
 
     w = GGUFWriter()
     w.add("general.architecture", arch)
@@ -116,13 +203,19 @@ def make_model(
     w.add(a + "embedding_length", hidden)
     w.add(a + "feed_forward_length", ff)
     w.add(a + "attention.head_count", heads)
-    w.add(a + "attention.head_count_kv", kv_heads)
-    w.add(a + "attention.layer_norm_rms_epsilon", float(rms_eps))
-    w.add(a + "rope.freq_base", float(rope_base))
-    if rope_scaling is not None:
-        w.add(a + "rope.scaling.type", rope_scaling[0])
-        w.add(a + "rope.scaling.factor", float(rope_scaling[1]))
-    w.add(a + "rope.dimension_count", head_dim or hidden // heads)
+    if mpt:
+        w.add(a + "attention.layer_norm_epsilon", float(rms_eps))
+        w.add(a + "attention.max_alibi_bias", float(alibi_max_bias))
+        if clamp_kqv > 0:
+            w.add(a + "attention.clamp_kqv", float(clamp_kqv))
+    else:
+        w.add(a + "attention.head_count_kv", kv_heads)
+        w.add(a + "attention.layer_norm_rms_epsilon", float(rms_eps))
+        w.add(a + "rope.freq_base", float(rope_base))
+        if rope_scaling is not None:
+            w.add(a + "rope.scaling.type", rope_scaling[0])
+            w.add(a + "rope.scaling.factor", float(rope_scaling[1]))
+        w.add(a + "rope.dimension_count", head_dim or hidden // heads)
     if head_dim and head_dim != hidden // heads:
         w.add(a + "attention.key_length", head_dim)
         w.add(a + "attention.value_length", head_dim)
@@ -130,14 +223,26 @@ def make_model(
         w.add(a + "expert_count", experts)
         w.add(a + "expert_used_count", experts_used)
     w.add(a + "vocab_size", vocab_size)
-    w.add("tokenizer.ggml.model", "llama")
-    w.add("tokenizer.ggml.tokens", tokens)
-    w.add("tokenizer.ggml.scores", scores)
-    w.add("tokenizer.ggml.token_type", types)
-    w.add("tokenizer.ggml.bos_token_id", 1)
-    w.add("tokenizer.ggml.eos_token_id", 2)
-    w.add("tokenizer.ggml.unknown_token_id", 0)
-    w.add("tokenizer.ggml.add_bos_token", True)
+    if mpt:
+        tokens, types, merges = build_bpe_vocab(vocab_size, seed)
+        w.add("tokenizer.ggml.model", "gpt2")
+        w.add("tokenizer.ggml.pre", "mpt")
+        w.add("tokenizer.ggml.tokens", tokens)
+        w.add("tokenizer.ggml.token_type", types)
+        w.add("tokenizer.ggml.merges", merges)
+        w.add("tokenizer.ggml.bos_token_id", 0)
+        w.add("tokenizer.ggml.eos_token_id", 0)
+        w.add("tokenizer.ggml.add_bos_token", False)
+    else:
+        tokens, scores, types = build_vocab(vocab_size)
+        w.add("tokenizer.ggml.model", "llama")
+        w.add("tokenizer.ggml.tokens", tokens)
+        w.add("tokenizer.ggml.scores", scores)
+        w.add("tokenizer.ggml.token_type", types)
+        w.add("tokenizer.ggml.bos_token_id", 1)
+        w.add("tokenizer.ggml.eos_token_id", 2)
+        w.add("tokenizer.ggml.unknown_token_id", 0)
+        w.add("tokenizer.ggml.add_bos_token", True)
 
     s = weight_scale
     head_dim = head_dim or hidden // heads
@@ -152,17 +257,30 @@ def make_model(
             qt = GGMLType.F32
         specs.append((name, shape, qt, rand))
 
+    def norm(name):
+        add(name + ".weight", (hidden,), rand=False)
+        if norm_bias:
+            add(name + ".bias", (hidden,))
+
     add("token_embd.weight", (vocab_size, hidden))
-    add("output_norm.weight", (hidden,), rand=False)
-    add("output.weight", (vocab_size, hidden))
+    norm("output_norm")
+    if output:
+        add("output.weight", (vocab_size, hidden))
     for i in range(layers):
         p = f"blk.{i}."
-        add(p + "attn_norm.weight", (hidden,), rand=False)
+        norm(p + "attn_norm")
+        if mpt:
+            add(p + "attn_qkv.weight", (3 * heads * head_dim, hidden))
+            add(p + "attn_output.weight", (hidden, heads * head_dim))
+            norm(p + "ffn_norm")
+            add(p + "ffn_up.weight", (ff, hidden))
+            add(p + "ffn_down.weight", (hidden, ff))
+            continue
         add(p + "attn_q.weight", (heads * head_dim, hidden))
         add(p + "attn_k.weight", (kv_heads * head_dim, hidden))
         add(p + "attn_v.weight", (kv_heads * head_dim, hidden))
         add(p + "attn_output.weight", (hidden, heads * head_dim))
-        add(p + "ffn_norm.weight", (hidden,), rand=False)
+        norm(p + "ffn_norm")
         if experts:
             add(p + "ffn_gate_inp.weight", (experts, hidden))
             add(p + "ffn_gate_exps.weight", (experts, ff, hidden))
@@ -501,3 +619,92 @@ def paged_attn_limit(args: tuple) -> torch.Tensor:
     pv_abs = paged_attn_plain(q, kc, vc.abs(), table, layer, lens, win, softcap, sk,
                               torch.zeros_like(sv), ok, *scales)
     return 2 ** -8 * 1.01 * pv_abs + 1e-5 * want.abs().max()
+
+
+def kv_append_layer_case(L: int, B: int, H: int, S: int, D: int, d: int, offsets: list,
+                         device, seed: int = 0, quantized: bool = False) -> tuple:
+    """Inputs of the per-layer append into layer L - 2 of a random stacked
+    cache [L, B, H, S, D] (L >= 2, so a layer off by one lands on a layer
+    that is checked): (k_all, v_all, layer, new_k, new_v, offsets, ks_all,
+    vs_all), the scales None for a bf16 cache.  New rows [B, 1, H, d] of
+    scale 2 (the first slot's first k head all zero: scale 0, payload 0);
+    the caller's offsets may run past S - 1, where the append clamps."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, device=device, generator=gen) * scale).to(torch.bfloat16)
+
+    k_all, v_all = randn(L, B, H, S, D), randn(L, B, H, S, D)
+    ks = vs = None
+    if quantized:
+        (k_all, ks), (v_all, vs) = _quantize_kv(k_all), _quantize_kv(v_all)
+    new_k, new_v = randn(B, 1, H, d, scale=2.0), randn(B, 1, H, d, scale=2.0)
+    new_k[0, 0, 0] = 0
+    off = torch.tensor(offsets, dtype=torch.int32, device=device)
+    return (k_all, v_all, L - 2, new_k, new_v, off, ks, vs)
+
+
+def _apply_layer_append(args, layer=None, offsets=None, clamp=True, quantize=None,
+                        keep_scales=False) -> list:
+    """The cache after an append of `args` done by the plain version, or by a
+    wrong one: into another `layer`, at other `offsets`, with no clamp (a
+    row past S - 1 lands in the next head's rows, or nowhere past the
+    cache's end), with `quantize` in place of the row format, or with the
+    scales left as they were."""
+    k_all, v_all, lay, new_k, new_v, off, ks, vs = args
+    out = [None if t is None else t.clone() for t in (k_all, v_all, ks, vs)]
+    lay = lay if layer is None else layer
+    off = off if offsets is None else offsets
+    if clamp and quantize is None and not keep_scales:
+        kv_append_layer_plain(out[0][lay], out[1][lay], new_k, new_v, off,
+                              None if ks is None else out[2][lay],
+                              None if vs is None else out[3][lay])
+        return out
+    B, H, S, D = k_all.shape[1:]
+    rows = (torch.arange(B * H, device=off.device).reshape(B, H) * S
+            + (off.clamp(0, S - 1) if clamp else off).long()[:, None]).reshape(-1)
+    live = rows < B * H * S
+    for c, sc, new in ((0, 2, new_k), (1, 3, new_v)):
+        row = torch.nn.functional.pad(new.reshape(B * H, -1).float(), (0, D - new.shape[-1]))
+        scale = None
+        if ks is not None:
+            row, scale = (quantize or _quantize_kv)(row)
+        out[c][lay].view(B * H * S, D)[rows[live]] = row[live].to(out[c].dtype)
+        if scale is not None and not keep_scales:
+            out[sc][lay].view(B * H * S, 1)[rows[live]] = scale[live]
+    return out
+
+
+def kv_append_layer_mutants(args: tuple) -> dict:
+    """What wrong per-layer appends would leave in the cache of
+    ``kv_append_layer_case``: the layer off by one, the offset not clamped
+    (a row past S - 1 written into the next head's rows), the row written at
+    offset - 1, and for an int8 cache the scales not written and the scale
+    taken as amax instead of amax / 127."""
+    k_all, v_all, lay, new_k, new_v, off, ks, vs = args
+
+    def amax_scale(x):
+        s = x.abs().amax(-1, keepdim=True)
+        return torch.round(x / torch.clamp_min(s, 1e-12)).to(torch.int8), s
+
+    out = {
+        "layer off by one": _apply_layer_append(args, layer=lay + 1),
+        "offset not clamped": _apply_layer_append(args, clamp=False),
+        "row at offset - 1": _apply_layer_append(args, offsets=(off - 1).clamp_min(0)),
+    }
+    if ks is not None:
+        out["scales not written"] = _apply_layer_append(args, keep_scales=True)
+        out["scale = amax"] = _apply_layer_append(args, quantize=amax_scale)
+    return out
+
+
+def kv_append_layer_check(args: tuple, got: list) -> tuple[bool, dict]:
+    """(the cache `got` after the kernel equals the plain version's bit for
+    bit, {wrong append: whether the kernel's cache differs from its})."""
+    want = _apply_layer_append(args)
+
+    def same(a, b):
+        return all(x is None or torch.equal(x, y) for x, y in zip(a, b))
+
+    return same(got, want), {name: not same(got, m)
+                             for name, m in kv_append_layer_mutants(args).items()}

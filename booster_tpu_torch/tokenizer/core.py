@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import Iterable, Optional
 
+from booster_tpu_torch.tokenizer.bpe import BPETokenizer
 from booster_tpu_torch.tokenizer.spm import SPMTokenizer
 from booster_tpu_torch.tokenizer.vocab import SPM_SPACE, TokenType, Vocab
 
@@ -22,13 +23,15 @@ class Tokenizer:
         self.vocab = vocab
         if vocab.model == "llama":
             self._inner = SPMTokenizer(vocab)
-        elif vocab.model in ("gpt2", "bert", "t5"):
+        elif vocab.model == "gpt2":
+            self._inner = BPETokenizer(vocab)
+        elif vocab.model in ("bert", "t5"):
             raise NotImplementedError(
                 f"tokenizer model {vocab.model!r}: not ported yet")
         else:
             raise NotImplementedError(
                 f"tokenizer model {vocab.model!r} not supported yet "
-                "(have: llama)"
+                "(have: llama, gpt2)"
             )
         self._specials = vocab.special_tokens()
 

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--phases build,kernels,parity,generate,batch,generate_i8,generate_q8,
                            batch_q8,server,generate_i8c,batch_i8c,generate_q6k,batch_q6k,
-                           generate_moe,batch_moe]
+                           generate_mpt,batch_mpt,generate_moe,batch_moe]
 
 Phases, each printing one JSON line with its seconds:
 
@@ -61,6 +61,13 @@ Phases, each printing one JSON line with its seconds:
    dropped, the up half read for the gate, silu left out) past 8x the
    limit; and the attention kernels at the 1.3B model's MHA layout (24
    layers, 16 kv heads, G = 1, head dim 128; prefill at T = 16 and 32).
+   The per-layer T = 1 append (csrc/kv_append.cu bt_kv_append_layer and
+   _i8, the port of _append_kernel_plain and _append_kernel_quant) at
+   MPT-7B's generate shape (B 1, 32 heads, S 1024, head dim 128, bf16) and
+   batch shape (B 64, S 512, int8), each also with rows of d = 64 < D:
+   bit-exact with its plain version, and each wrong append (the layer off
+   by one, the offset not clamped, the row at offset - 1; for int8 the
+   scales not written and scale = amax) seen to leave another cache.
    Median times of kernel,
    plain version and one library call (the yardstick), each call after an
    L2 scrub (cold, as on the decode path), and the kernel's time warm.
@@ -70,12 +77,12 @@ Phases, each printing one JSON line with its seconds:
    the batched path: bf16 weights, int8 cache, 4 slots of which 2 are live,
    prefill, then 16 decode steps; (c) the 7B width, Q8_0 (native i8t): the
    batched path over an int8 cache (4 slots, 2 live, T = 32 prompts) and
-   the single-stream path over a bf16 cache, 4 decode steps each; (d) the
+   the single-stream path over a bf16 cache, 2 decode steps each; (d) the
    same model over the server's paged pool (``Engine(paged=True,
    page_size=256)``, its allocator giving the pages), an int8 pool and a
-   bf16 one, 4 slots of which 2 live, 4 decode steps; (e) the Mixtral-8x7B
+   bf16 one, 4 slots of which 2 live, 2 decode steps; (e) the Mixtral-8x7B
    width (8 experts of ff 14336, 2 used) with Q4_0 and then Q8_0 weights,
-   the single-stream path over a bf16 cache, 3 decode steps (a step where
+   the single-stream path over a bf16 cache, 2 decode steps (a step where
    the two devices routed the compared token to other experts at a
    near-tie of its bf16 router logits is left out; at most one); (f) the
    7B-width file with weights="i8c" and the TinyLlama-width file with
@@ -88,7 +95,12 @@ Phases, each printing one JSON line with its seconds:
    as llama.cpp's Q6_K file (Q8_0 ffn_down), loaded with the reference's
    kinds on both devices: the single-stream path over a bf16 cache and
    the batched path over an int8 cache (4 slots, 2 live, T = 32), 6
-   decode steps each.  The
+   decode steps each; (h) MPT-7B's width (Q4_0 with a Q6_K head, ALiBi,
+   LayerNorm, GELU) at 2 layers: the single-stream path over a bf16 cache
+   of 256 rows and the batched path over an int8 cache (4 slots, 2 live),
+   whose steps launch the per-layer append once a layer (counted) and no
+   stacked decode kernel, and a bf16 cache of 200 rows (the plain row
+   writes), 2 decode steps each.  The
    live slots' logits agree within the stated tolerance at every step, and
    the greedy tokens wherever the CPU's top-2 margin exceeds it.
 4. generate — the full 22-layer TinyLlama-shaped Q4_0 GGUF (random weights
@@ -218,12 +230,32 @@ Phases, each printing one JSON line with its seconds:
    append a step and 24 prefill attentions (G = 1) a chunk; no host sync
    in a decode dispatch.
 
+   generate_mpt and batch_mpt (after batch_q6k) — MPT-7B as the public
+   mosaicml/mpt-7b config gives it (32 layers, d_model 4096, 32 heads of
+   128, ff 16384, vocab 50432, ALiBi with max bias 8, no biases) as
+   llama.cpp's Q4_0 file (Q4_0 blocks drawn from the seed, a Q6_K
+   output.weight; 3.9 GB, written by the background writer) with a seeded
+   byte-level BPE vocabulary, loaded once with ``load_model(weights=
+   "native")``; phase 4's generate and phase 5's bench_batch on it.  ALiBi
+   closes the reference's fused decode gate (llama.py:96) and its fused
+   prefill (:666-670), so every step takes the masked layer loop, whose
+   update_layer writes each layer's row through the per-layer append
+   (kv_cache.py:137-143) and whose attention is plain.  Exact counts: per
+   generate step 4·32 i4t group-dot matvecs (qkv, wo, up, down; counted by
+   shape), the Q6_K head's group-16 matvec and 32 per-layer bf16 appends;
+   at its prefill 4·32 dequant matmuls and the head; per batch step and
+   prefill chunk 4·32 i4t dequant matmuls and the head's, 32 per-layer
+   int8 appends a step; no decode attention, prefill attention or
+   all-layer append; no host sync in a decode dispatch.  batch_mpt's
+   warm-up runs chunks of 4 steps (a chunk of any length runs the same ops).
+
 Then one ``{"kernels": [...]}`` line (each kernel's launches are those of
 the path that runs it: generate / generate_q8 for the M = 1 kernels and
 bf16-cache attention, batch / batch_q8 for the int8 ones, server for the
 paged ones, generate_moe / batch_moe for the grouped ones, generate_i8c /
 batch_i8c for the i8c ones, generate_q6k / batch_q6k for the group-16
-forms, the M = 1 fused gate-up and the 1.3B down; the bf16-pool
+forms, the M = 1 fused gate-up and the 1.3B down, generate_mpt /
+batch_mpt for the per-layer appends; the bf16-pool
 paged forms and the plain lane-major forms at the 7B shapes launch no time there)
 and, last,
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout of
@@ -250,7 +282,7 @@ BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core rate, NVIDIA data sheet
 SCRUB_BYTES = 200 << 20  # 4x the H100's 50 MB L2: read between timed calls
 PHASES = ("build", "kernels", "parity", "generate", "batch", "generate_i8", "generate_q8",
           "batch_q8", "server", "generate_i8c", "batch_i8c", "generate_q6k", "batch_q6k",
-          "generate_moe", "batch_moe")
+          "generate_mpt", "batch_mpt", "generate_moe", "batch_moe")
 
 # TinyLlama-1.1B (config 1 of bench.py), Q4_0
 TINYLLAMA = dict(vocab_size=32000, hidden=2048, heads=32, kv_heads=4, ff=5632,
@@ -274,9 +306,24 @@ MIXTRAL = dict(vocab_size=32000, hidden=4096, heads=32, kv_heads=8, ff=14336, ex
 DEEPSEEK = dict(vocab_size=32256, hidden=2048, heads=16, kv_heads=16, ff=5504,
                 rope_base=100000.0, rope_scaling=("linear", 4.0), rms_eps=1e-6,
                 context=16384, seed=0, weight_scale=0.05, draw="blocks")
+# the public mosaicml/mpt-7b config.json: d_model 4096, 32 layers, 32 heads
+# (MHA, head dim 128), expansion_ratio 4 (ff 16384), vocab 50432, max_seq_len
+# 2048, ALiBi with alibi_bias_max 8, no clip_qkv, no_bias, LayerNorm eps 1e-5;
+# as llama.cpp's Q4_0 mix writes it (Q4_0 blocks, a Q6_K output.weight),
+# blocks drawn from the seed; a seeded byte-level BPE vocabulary of 50432
+# tokens (pre-tokenizer mpt) stands in for GPT-NeoX-20B's
+MPT7B = dict(vocab_size=50432, hidden=4096, heads=32, kv_heads=32, ff=16384, arch="mpt",
+             context=2048, rms_eps=1e-5, alibi_max_bias=8.0, output_quant="Q6_K", seed=0,
+             weight_scale=0.05, draw="blocks")
 # parity (e)'s decode steps after its prefill: on the CPU each step
 # dequantizes every routed expert of its 2 layers, so the steps are few
-MOE_PARITY_STEPS = 3
+# (cut from 8 to 3, then to 2 when MPT-7B's phases came)
+MOE_PARITY_STEPS = 2
+# parity (c)-(d)'s decode steps (the 7B width on the CPU takes 2-3 s a step:
+# cut from 8 to 4, then to 2 when MPT-7B's phases came, to hold the
+# script near half its time limit).  2 is the floor for (c)-(e): a step that
+# reads the prefill's rows and one that reads a decoded row
+PARITY_7B_STEPS = 2
 # the attention kernels' layouts on the two models' paths: the bf16-cache
 # generate (batch 1, S1 rows) and the int8-cache batch (B slots, S rows)
 TINY_ATTN = dict(name="TinyLlama", L=22, Hkv=4, G=8, D=64, Dc=128, S1=1024, B=64, S=512,
@@ -543,6 +590,8 @@ def phase_kernels(entries: list) -> dict:
         _int8_kernels(entries, failures, lay)
     paged_checks: dict = {}
     _paged_kernels(entries, failures, paged_checks)
+    append_checks: dict = {}
+    _layer_append_kernels(entries, failures, append_checks)
     _i8t_kernels(entries, failures)
     _i8c_kernels(entries, failures)
     _q6k_kernels(entries, failures)
@@ -553,7 +602,7 @@ def phase_kernels(entries: list) -> dict:
         raise AssertionError("kernel checks failed: " + "; ".join(failures))
     return {"phase": "kernels", "seconds": time.perf_counter() - t0,
             "checks": {e["name"] + " " + e["shape"]: e["max_abs_err"] for e in entries},
-            "paged_checks": paged_checks}
+            "paged_checks": paged_checks, "layer_append_checks": append_checks}
 
 
 def _bf16_attn_kernels(entries: list, failures: list, lay: dict) -> None:
@@ -801,6 +850,83 @@ def _int8_kernels(entries: list, failures: list, lay: dict) -> None:
                        "pre-dequantized bf16 copy",
             "check": CHECKS["prefill"]})
         del args, q, k, v, ks, vs, kd, vd, mask
+        torch.cuda.empty_cache()
+
+
+def _layer_append_kernels(entries: list, failures: list, checks: dict) -> None:
+    """The per-layer T = 1 append (csrc/kv_append.cu bt_kv_append_layer, _i8)
+    at MPT-7B's two paths: generate's bf16 cache (B 1, 32 heads, S 1024,
+    head dim 128) and the batch's int8 cache (B 64, S 512), each also with
+    rows of d = 64 < D = 128.  Layer L - 2 of a 2-layer stack (so a layer
+    off by one lands on a checked layer), at several offset vectors (0,
+    mid-window, S - 1 and past it, where the append clamps): bit-exact with
+    the plain version on every row, and each wrong append of
+    booster_tpu_torch.testing.kv_append_layer_mutants (the layer off by
+    one, the offset not clamped, the row at offset - 1; for int8 the scales
+    not written and scale = amax) leaves another cache.  Timed cold at d =
+    128 with the launch's byte bound; the bf16 form beside index_put_ of
+    the padded rows."""
+    import torch
+
+    from booster_tpu_torch.ops import kv_append as ka
+    from booster_tpu_torch.testing import kv_append_layer_case, kv_append_layer_check
+
+    L, H, D = 2, 32, 128
+    for quant, B, S, path in ((False, 1, 1024, "generate_mpt"), (True, 64, 512, "batch_mpt")):
+        name = "kv_append_layer_i8" if quant else "kv_append_layer"
+        gen = torch.Generator().manual_seed(B)
+        offsets = ([[0], [13], [S - 1], [S + 5]] if B == 1 else
+                   [[0, 13, S - 1, S + 5] + torch.randint(0, S, (B - 4,), generator=gen).tolist()])
+        seen_all: dict = {}
+        exact_all = True
+        for d in (D, 64):
+            for k, offs in enumerate(offsets):
+                args = kv_append_layer_case(L, B, H, S, D, d, offs, "cuda", seed=k + d,
+                                            quantized=quant)
+                k_all, v_all, lay, nk, nv, off, ks, vs = args
+                got = [None if t is None else t.clone() for t in (k_all, v_all, ks, vs)]
+                views = [None if t is None else t[lay] for t in got]
+                ka.kv_append_layer(views[0], views[1], nk, nv, off, views[2], views[3])
+                exact, seen = kv_append_layer_check(args, got)
+                exact_all &= exact
+                if not exact:
+                    failures.append(f"{name} d={d} offsets={offs[:4]}: differs from the plain "
+                                    "version")
+                for m, ok in seen.items():  # seen by the check as a whole
+                    seen_all[m] = seen_all.get(m, False) or ok
+                del got, views
+        missed = [m for m, ok in seen_all.items() if not ok]
+        if missed:
+            failures.append(f"{name}: the check does not see the wrong appends {missed}")
+        checks[name] = {"wrong_appends_seen": seen_all}
+        # timed at d = D on the layer view of the cache, one step's rows
+        k_all, v_all, lay, nk, nv, off, ks, vs = kv_append_layer_case(
+            L, B, H, S, D, D, offsets[-1], "cuda", quantized=quant)
+        kl, vl = k_all[lay], v_all[lay]
+        ksl, vsl = (None, None) if ks is None else (ks[lay], vs[lay])
+        ms = timed(lambda: ka.kv_append_layer(kl, vl, nk, nv, off, ksl, vsl))
+        warm_ms = timed(lambda: ka.kv_append_layer(kl, vl, nk, nv, off, ksl, vsl), cold=False)
+        plain_ms = timed(lambda: ka.kv_append_layer_plain(kl, vl, nk, nv, off, ksl, vsl))
+        lib_ms = None
+        if not quant:  # yardstick: torch's indexing assignment of the padded rows
+            idx = (torch.arange(B, device="cuda")[:, None], torch.arange(H, device="cuda")[None],
+                   off.long().clamp(0, S - 1)[:, None])
+            nk1, nv1 = nk[:, 0], nv[:, 0]  # [B, H, D]: d = D, no pad
+            lib_ms = timed(lambda: (kl.index_put_(idx, nk1), vl.index_put_(idx, nv1)))
+        rows = B * H  # the new rows read (bf16, d = D) and written (int8 + an f32 scale)
+        b_ms, b_by = bound(2 * rows * D * 2 + 2 * rows * (D + 4 if quant else 2 * D), 0)
+        entries.append({
+            "name": name, "shape": f"MPT-7B B={B} H={H} S={S} D={D} d={D}",
+            "key": (name, None), "path": path, "route": "cuda",
+            "source": "booster_tpu_torch/csrc/kv_append.cu",
+            "replaces": "booster_tpu/ops/pallas_kv.py:" + ("74" if quant else "104"),
+            "max_abs_err": 0.0 if exact_all else None,
+            "ms": ms, "warm_ms": warm_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms,
+            "library": None if quant else "index_put_ of the rows into the layer's k and v",
+            "check": CHECKS["append_i8" if quant else "append"]
+            + "; each wrong append of kv_append_layer_mutants differs"})
+        del k_all, v_all, ks, vs, kl, vl, ksl, vsl
         torch.cuda.empty_cache()
 
 
@@ -1617,9 +1743,10 @@ GGUFS = {"tiny": ("tinyllama-shape-q4_0", "TINYLLAMA", "Q4_0"),
          "q8": ("mistral7b-shape-q8_0", "MISTRAL7B", "Q8_0"),
          "moe": ("mixtral8x7b-shape-q4_0", "MIXTRAL", "Q4_0"),
          "moe_q8": ("mixtral8x7b-shape-q8_0", "MIXTRAL", "Q8_0"),
-         "q6k": ("deepseek-coder-1.3b-shape-q6_k", "DEEPSEEK", "Q6_K")}
+         "q6k": ("deepseek-coder-1.3b-shape-q6_k", "DEEPSEEK", "Q6_K"),
+         "mpt": ("mpt-7b-shape-q4_0", "MPT7B", "Q4_0")}
 # each model's depth on its full-size phases
-LAYERS = {"tiny": 22, "q8": 32, "moe": 32, "q6k": 24}
+LAYERS = {"tiny": 22, "q8": 32, "moe": 32, "q6k": 24, "mpt": 32}
 
 
 def _gguf_path(layers: int, model: str = "tiny") -> Path:
@@ -1639,7 +1766,10 @@ def _gguf(layers: int, model: str = "tiny") -> str:
     if not path.exists():
         tmp = path.with_suffix(".tmp")
         _, shape, quant = GGUFS[model]
-        make_model(str(tmp), layers=layers, quant=GGMLType[quant], **globals()[shape])
+        kw = dict(globals()[shape])
+        if "output_quant" in kw:
+            kw["output_quant"] = GGMLType[kw["output_quant"]]
+        make_model(str(tmp), layers=layers, quant=GGMLType[quant], **kw)
         tmp.replace(path)
     return str(path)
 
@@ -1740,8 +1870,7 @@ def phase_parity() -> dict:
         raise AssertionError(f"parity batched: cache lengths {lengths} != {expect}")
     # (c) the 7B width, Q8_0 weights (native i8t): the batched path over an
     # int8 cache at the T = 32 bucket, then the single-stream path over a
-    # bf16 cache; 4 steps each (the CPU's plain forward takes 2-3 s a step:
-    # cut from 8 to keep the script near half its time limit)
+    # bf16 cache; PARITY_7B_STEPS each
     del models, caches
     laps("b check")
     path, _ = _wait_gguf("q8", 2)
@@ -1759,14 +1888,15 @@ def phase_parity() -> dict:
                                   quantized=True) for dev in models}
     laps("c load")
     got, want = _teacher_forced(models, caches, prompts, T, [True, False, True, False], laps,
-                                "c", steps=4)
+                                "c", steps=PARITY_7B_STEPS)
     out["q8_0_7b_width_int8_cache_4_slots_2_live"] = _compare_logits("q8_0 batched", got, want,
                                                                      tol)
     ids = tok.encode(PROMPT)
     caches = {dev: KVCache.create(cfg.n_layers, 1, 256, cfg.n_kv_heads, cfg.head_dim, dev)
               for dev in models}
     laps("c check")
-    got, want = _teacher_forced(models, caches, [ids], 16, [True], laps, "c", steps=4)
+    got, want = _teacher_forced(models, caches, [ids], 16, [True], laps, "c",
+                                steps=PARITY_7B_STEPS)
     out["q8_0_7b_width_bf16_cache_1_slot"] = _compare_logits("q8_0 single", got, want, tol)
     # (d) the same model over the server path's paged pool: an Engine with
     # pages of 256 rows (the paged prefill through gathered views, then the
@@ -1785,11 +1915,11 @@ def phase_parity() -> dict:
             caches[dev] = eng.cache
         laps("d engines")
         got, want = _teacher_forced(models, caches, prompts, T, [True, False, True, False],
-                                    laps, "d", steps=4)
+                                    laps, "d", steps=PARITY_7B_STEPS)
         key = f"q8_0_7b_width_paged_{'int8' if quant else 'bf16'}_pool_4_slots_2_live"
         out[key] = _compare_logits(key, got, want, tol)
         lengths = [caches[dev].lengths.tolist() for dev in ("cpu", "cuda")]
-        expect = [len(prompts[0]) + 4, 0, len(prompts[2]) + 4, 0]
+        expect = [len(prompts[0]) + PARITY_7B_STEPS, 0, len(prompts[2]) + PARITY_7B_STEPS, 0]
         if lengths != [expect, expect]:
             raise AssertionError(f"parity paged: cache lengths {lengths} != {expect}")
     del models, caches
@@ -1797,6 +1927,7 @@ def phase_parity() -> dict:
     out.update(_parity_i8(tol, laps, tok.encode(PROMPT)))
     out.update(_parity_moe(tol, laps))
     out.update(_parity_q6k(tol, laps))
+    out.update(_parity_mpt(tol, laps))
     out["seconds"] = time.perf_counter() - t0
     out["part_s"] = laps.parts
     return out
@@ -2018,13 +2149,71 @@ def _parity_q6k(tol: float, laps) -> dict:
     return out
 
 
+def _parity_mpt(tol: float, laps) -> dict:
+    """(h) MPT-7B's width at 2 layers (Q4_0, a Q6_K head, ALiBi, LayerNorm,
+    GELU), loaded natively on the CPU and the card: the single-stream path
+    over a bf16 cache of 256 rows and the batched path over an int8 cache
+    (4 slots, 2 live, 512 rows), where each decode step writes each layer's
+    row with the per-layer append (counted on the card: 2 a step, and no
+    stacked decode attention or all-layer append), and a bf16 cache of 200
+    rows (no multiple of 128: the plain row writes); 2 decode steps each,
+    the CPU (plain versions) against the card (kernels), fed the CPU's
+    greedy tokens."""
+    from booster_tpu_torch.models import load_model
+    from booster_tpu_torch.ops import kernels
+    from booster_tpu_torch.ops.kv_cache import KVCache
+
+    path, _ = _wait_gguf("mpt", 2)
+    laps("h wait")
+    models = {dev: load_model(path, device=dev, weights="native") for dev in ("cpu", "cuda")}
+    cfg = models["cpu"].cfg
+    for dev, m in models.items():
+        lay = m.params["layers"]
+        got = {k: (lay[k].kind, lay[k].group) for k in ("wqkv", "wo", "w_up", "w_down")}
+        got["output"] = (m.params["output"].kind, m.params["output"].group)
+        want = dict.fromkeys(("wqkv", "wo", "w_up", "w_down"), ("i4t", 32)) | {
+            "output": ("i8t", 16)}
+        if got != want or (cfg.arch, cfg.alibi_max_bias, cfg.norm_type) != ("mpt", 8.0, "layer"):
+            raise AssertionError(f"parity mpt on {dev}: weights {got}, config {cfg.arch} "
+                                 f"{cfg.alibi_max_bias} {cfg.norm_type}")
+    laps("h load")
+    tok = models["cpu"].tokenizer
+    prompts = [tok.encode("stream 0 benchmark prompt"), [],
+               tok.encode("stream 2 benchmark prompt"), []]
+    cases = (("mpt_7b_width_bf16_cache_1_slot", [tok.encode(PROMPT)], [True], 256, False),
+             ("mpt_7b_width_int8_cache_4_slots_2_live", prompts, [True, False, True, False],
+              512, True),
+             ("mpt_7b_width_bf16_cache_of_200_rows", [tok.encode(PROMPT)], [True], 200, False))
+    steps = 2
+    out = {}
+    for key, ps, live, S, quant in cases:
+        T = max(16, 1 << (max(len(p) for p in ps) - 1).bit_length())
+        caches = {dev: KVCache.create(cfg.n_layers, len(ps), S, cfg.n_kv_heads, cfg.head_dim, dev,
+                                      quantized=quant) for dev in models}
+        kernels.reset_counts()
+        got, want = _teacher_forced(models, caches, ps, T, live, laps, "h", steps=steps)
+        out[key] = _compare_logits(key, got, want, tol)
+        counts = {k: v for k, v in kernels.launch_counts.items()
+                  if v and k.startswith(("kv_append", "decode_attn", "prefill_attn"))}
+        expect = ({} if S % 128 else
+                  {"kv_append_layer_i8" if quant else "kv_append_layer": cfg.n_layers * steps})
+        if counts != expect:
+            raise AssertionError(f"parity {key}: cache kernels {counts} != {expect}")
+        out[key]["cache_kernel_launches"] = counts
+    del models, caches
+    laps("h check")
+    return out
+
+
 # -- phase 4 -----------------------------------------------------------------
 
 
-def _profile(run, steps: int) -> dict:
+def _profile(run, steps: int, watch=()) -> dict:
     """One more run of a path under torch.profiler: the kernels' device time (the
     sum over CUDA kernel events; one stream, so they do not overlap), their
-    count per decoded token, and the kernels that take the most time.  The
+    count per decoded token, the kernels that take the most time, and for
+    each name in `watch` the time, count and share of the kernel time of the
+    kernels whose names hold it.  The
     profiler stretches the host side, so shares are taken against the wall
     time of the unprofiled run by the caller.  The device events are summed
     from the trace's own records: key_averages() first builds a Python event
@@ -2046,9 +2235,18 @@ def _profile(run, steps: int) -> dict:
     secs = {"trace_s": t1 - t0, "sum_s": time.perf_counter() - t1}
     if not rows:
         return {"kernel_ms": None, "note": "the trace held no device events", **secs}
-    return {**secs, "kernel_ms": sum(r[1] for r in rows),
+    kernel_ms = sum(r[1] for r in rows)
+    watched = {}
+    for w in watch:
+        ms = sum(ns for k, (ns, _) in by_name.items() if w in k) / 1e6
+        watched[w] = {"ms": ms, "launches": sum(n for k, (_, n) in by_name.items() if w in k),
+                      "share_of_kernel_ms": ms / kernel_ms}
+        if not watched[w]["launches"]:  # the path's counts saw it: the name is wrong
+            raise AssertionError(f"profile: no kernel named like {w!r} in the trace")
+    return {**secs, "kernel_ms": kernel_ms,
             "kernel_launches_per_decoded_token": sum(r[2] for r in rows) / steps,
-            "top_kernels_ms": [[k, round(ms, 3), n] for k, ms, n in rows[:12]]}
+            "top_kernels_ms": [[k, round(ms, 3), n] for k, ms, n in rows[:12]],
+            **({"watched": watched} if watch else {})}
 
 
 _writer: dict = {}  # "proc": the process writing the GGUFs the phases need
@@ -2157,6 +2355,8 @@ def _big_model(model: str, layers: int = 32, weights: str = "auto"):
             want = dict.fromkeys(kinds, ("i8t", 32))
         elif model == "q6k":  # the reference's kinds for llama.cpp's Q6_K mix
             want = dict.fromkeys(kinds, ("i8t", 16)) | {"w_down": ("i8", 32)}
+        elif model == "mpt":  # llama.cpp's Q4_0 mix: Q4_0 layers, a Q6_K head
+            want = dict.fromkeys(kinds, ("i4t", 32)) | {"output": ("i8t", 16)}
         else:
             want = dict.fromkeys(kinds, ("i4t", 32)) | {
                 "router": ("dense", 1), "gate_exps": ("i4p", 32), "up_exps": ("i4p", 32),
@@ -2189,17 +2389,19 @@ class _FallbackCount:
 # the engine phases: phase → (model, load_model's weights; None: the phase's own rule)
 GENERATE = {"generate": ("tiny", None), "generate_q8": ("q8", None),
             "generate_moe": ("moe", None), "generate_i8": ("tiny", "i8"),
-            "generate_i8c": ("q8", "i8c"), "generate_q6k": ("q6k", "native")}
+            "generate_i8c": ("q8", "i8c"), "generate_q6k": ("q6k", "native"),
+            "generate_mpt": ("mpt", "native")}
 BATCH = {"batch": ("tiny", None), "batch_q8": ("q8", None), "batch_moe": ("moe", None),
-         "batch_i8c": ("q8", "i8c"), "batch_q6k": ("q6k", "native")}
+         "batch_i8c": ("q8", "i8c"), "batch_q6k": ("q6k", "native"),
+         "batch_mpt": ("mpt", "native")}
 
 
 def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str] = None) -> dict:
     """The single-stream generate: TinyLlama Q4_0 ("tiny"; with weights
     "i8", phase generate_i8), the 7B Q8_0 model ("q8", phase generate_q8;
     with weights "i8c", phase generate_i8c), the DeepSeek-Coder-1.3B Q6_K
-    mix ("q6k", native, phase generate_q6k) or the Mixtral-8x7B shape
-    ("moe", phase generate_moe)."""
+    mix ("q6k", native, phase generate_q6k), MPT-7B ("mpt", native, phase
+    generate_mpt) or the Mixtral-8x7B shape ("moe", phase generate_moe)."""
     import torch
 
     from booster_tpu_torch.models import load_model
@@ -2212,9 +2414,10 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
     t_wait = load_rss = None
     name = {v: k for k, v in GENERATE.items()}[(model_name, weights)]
     q8, moe, q6k = model_name == "q8" and weights is None, model_name == "moe", model_name == "q6k"
+    mpt = model_name == "mpt"
     load_gpu_gb = None
     torch.cuda.reset_peak_memory_stats()
-    if model_name in ("q8", "moe", "q6k"):
+    if model_name in ("q8", "moe", "q6k", "mpt"):
         big = _big_model(model_name, layers, weights or "auto")
         model, t_build, t_load = big["model"], big["build_s"], big["load_s"]
         t_wait, load_rss = big["wait_s"], big["load_rss_gb"]
@@ -2262,6 +2465,13 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
             "qmm_i8t_gd": (2 * L + 1) * steps + 1, "qmm_i8t_dq": 2 * L,
             "qmm_i8t_gateup_gd": L * steps, "qmm_i8t_gateup_dq": L,
             "qmm_i8": L * (steps + 1), "decode_attn": L * steps, "kv_append": steps}
+    elif mpt:  # ALiBi closes the fused decode gate (llama.py:96): each step runs the
+        # masked layer loop, whose update_layer takes the per-layer append
+        # (kv_cache.py:137-143) and whose attention is plain; qkv, wo, up and
+        # down per layer (no gate), the Q6_K head in the group-16 matvec
+        expected = dict.fromkeys(counts, 0) | {
+            "qmm_i4t_gd": 4 * L * steps, "qmm_i4t_dq": 4 * L, "qmm_i8t_gd": steps + 1,
+            "kv_append_layer": L * steps}
     else:
         expected = dict.fromkeys(counts, 0) | {
             "qmm_i4t_gd": (3 * L + 1) * steps + 1, "qmm_i4t_dq": 3 * L,
@@ -2269,6 +2479,14 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
             "decode_attn": L * steps, "kv_append": steps}
     if counts != expected:
         raise AssertionError(f"launch counts {counts} != expected {expected}")
+    if mpt:  # per shape: qkv, wo, up and down each step; the head each step and at the prefill
+        C, V, FF = model.cfg.n_embd, model.cfg.n_vocab, model.cfg.n_ff
+        by = {k: v for k, v in shape_counts.items() if k[0] in ("qmm_i4t_gd", "qmm_i8t_gd")}
+        want = {("qmm_i4t_gd", (C, 3 * C)): L * steps, ("qmm_i4t_gd", (C, C)): L * steps,
+                ("qmm_i4t_gd", (C, FF)): L * steps, ("qmm_i4t_gd", (FF, C)): L * steps,
+                ("qmm_i8t_gd", (C, V)): steps + 1}
+        if by != want:
+            raise AssertionError(f"{name}: group-dot launches by shape {by} != {want}")
     if q6k:  # per shape: qkv and wo each step, the lm head each step and at the prefill
         C, V = model.cfg.n_embd, model.cfg.n_vocab
         gd = {k[1]: v for k, v in shape_counts.items() if k[0] == "qmm_i8t_gd"}
@@ -2288,7 +2506,8 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
     torch.cuda.synchronize()
     prof_wall = 1e3 * (time.perf_counter() - t_short)
     laps("window")
-    prof = _profile(lambda: short.generate(ids, sp, max_new_tokens=32), steps=32)
+    prof = _profile(lambda: short.generate(ids, sp, max_new_tokens=32), steps=32,
+                    watch=("::kv_append_kernel",) if mpt else ())
     prof["window"] = "a 32-token generate (decode_chunk 32)"
     del short
     laps("profile")
@@ -2304,7 +2523,8 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
                         "generate_moe": "q4_0 (i4t attention, i4p experts)",
                         "generate_i8": "q4_0 widened to int8 (i8t)",
                         "generate_i8c": "q8_0 requantized per channel (i8c)",
-                        "generate_q6k": "q6_k (i8t g16) with q8_0 ffn_down (lane-major i8)"}[name],
+                        "generate_q6k": "q6_k (i8t g16) with q8_0 ffn_down (lane-major i8)",
+                        "generate_mpt": "q4_0 (i4t) with a q6_k head (i8t g16)"}[name],
             "gguf_build_s": t_build, "gguf_wait_s": t_wait, "load_s": t_load,
             "load_rss_gb": load_rss, "load_max_memory_allocated_gb": load_gpu_gb,
             "dequantize_fallbacks": fallbacks.calls,
@@ -2317,7 +2537,7 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
             "launches": counts, "launches_per_decoded_token": {
                 k: v / steps for k, v in counts.items() if k.endswith("_gd") or k in (
                     "decode_attn", "kv_append", "mlp_i8t", "moe_qmm_i4p", "qmm_i8c_mv",
-                    "qmm_i8")},
+                    "qmm_i8", "kv_append_layer")},
             "launches_by_shape": shapes, "tokens_head": res.token_ids[:16],
             "wall_ms": wall_ms, "profile": prof, "part_s": laps.parts,
             "_shape_counts": shape_counts}
@@ -2326,10 +2546,11 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
 # -- phase 5 -----------------------------------------------------------------
 
 
-def _bench_batch(eng, tokenizer, n_streams: int, n_tokens: int) -> dict:
+def _bench_batch(eng, tokenizer, n_streams: int, n_tokens: int, chunk: int = 32) -> dict:
     """bench.py's bench_batch on the port: claim every slot, prefill the
-    prompts in one batch, one warm chunk, then pipelined chunks of 32 to
-    n_tokens (each chunk enqueued before the previous one is read)."""
+    prompts in one batch, one warm chunk, then pipelined chunks to n_tokens
+    (each chunk enqueued before the previous one is read), all of `chunk`
+    steps."""
     import torch
 
     from booster_tpu_torch.sampling import SamplingParams
@@ -2344,21 +2565,21 @@ def _bench_batch(eng, tokenizer, n_streams: int, n_tokens: int) -> dict:
     first = eng.prefill_slots(prompts)  # ends in the first tokens' readback
     prefill_ms = 1e3 * (time.perf_counter() - t0)
     last = dict(first)
-    toks, _ = eng.decode_slots(last, n_steps=32)  # the warm chunk
+    toks, _ = eng.decode_slots(last, n_steps=chunk)  # the warm chunk
     rows = {s: [first[s]] + toks[s] for s in prompts}
     slots = list(prompts)
     t0 = time.perf_counter()
     done_tokens = 0
-    steps = 32
-    handle = eng.decode_slots_start(slots, n_steps=32)
+    steps = chunk
+    handle = eng.decode_slots_start(slots, n_steps=chunk)
     while steps < n_tokens:
-        nxt = eng.decode_slots_start(slots, n_steps=32)  # pipelined
+        nxt = eng.decode_slots_start(slots, n_steps=chunk)  # pipelined
         toks, _ = eng.decode_slots_finish(handle)
         done_tokens += sum(len(r) for r in toks.values())
         for s, r in toks.items():
             rows[s] += r
         handle = nxt
-        steps += 32
+        steps += chunk
     toks, _ = eng.decode_slots_finish(handle)
     done_tokens += sum(len(r) for r in toks.values())
     for s, r in toks.items():
@@ -2367,7 +2588,7 @@ def _bench_batch(eng, tokenizer, n_streams: int, n_tokens: int) -> dict:
     torch.cuda.synchronize()
     return {"agg_tok_per_s": done_tokens / dt, "per_stream_tok_per_s": done_tokens / dt / n_streams,
             "prefill_ms": prefill_ms, "decode_s": dt, "decoded_tokens": done_tokens,
-            "wall_ms": 1e3 * (time.perf_counter() - t_start), "decode_steps": steps + 32,
+            "wall_ms": 1e3 * (time.perf_counter() - t_start), "decode_steps": steps + chunk,
             "prompt_tokens": {s: len(p) for s, p in prompts.items()}, "rows": rows}
 
 
@@ -2413,10 +2634,10 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
     config 3's ("q8": the 7B Q8_0 model, native i8t; phase batch_q8; with
     weights "i8c", requantized per channel: phase batch_i8c), the
     DeepSeek-Coder-1.3B Q6_K mix ("q6k", native: i8t at group 16 and the
-    lane-major Q8_0 down; phase batch_q6k), or the Mixtral-8x7B shape
-    ("moe": native i4t and i4p; phase batch_moe).  The decode dispatches of
-    batch_moe, batch_i8c and batch_q6k run under torch's synchronization
-    check."""
+    lane-major Q8_0 down; phase batch_q6k), MPT-7B ("mpt", native; phase
+    batch_mpt), or the Mixtral-8x7B shape ("moe": native i4t and i4p; phase
+    batch_moe).  The decode dispatches of batch_moe, batch_i8c, batch_q6k
+    and batch_mpt run under torch's synchronization check."""
     import torch
 
     from booster_tpu_torch.gguf import GGUFReader
@@ -2429,9 +2650,9 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
     laps = _Laps()
     name = {v: k for k, v in BATCH.items()}[(model_name, weights)]
     q8, moe, i8c = model_name == "q8" and weights is None, model_name == "moe", weights == "i8c"
-    q6k = model_name == "q6k"
+    q6k, mpt = model_name == "q6k", model_name == "mpt"
     torch.cuda.reset_peak_memory_stats()
-    if q8 or moe or i8c or q6k:
+    if q8 or moe or i8c or q6k or mpt:
         big = _big_model(model_name, layers, weights or "auto")
         model, t_load = big["model"], big["load_s"]
         reader = GGUFReader(_gguf_path(layers, model_name))
@@ -2455,10 +2676,12 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
     eng = Engine(model, max_batch=B, max_seq=512, kv_quantized=True, decode_chunk=32)
     laps("load")
     # warm-up: the first calls of every op (the prefill, the warm chunk and
-    # one pipelined chunk; a run to n_tokens took up to 22 s at Mixtral)
-    _bench_batch(eng, model.tokenizer, B, 32)
+    # one pipelined chunk; a run to n_tokens took up to 22 s at Mixtral).
+    # MPT's chunks are of 4 steps here: a step is ~250 ms at MPT-7B, and a
+    # chunk of any length runs the same ops
+    _bench_batch(eng, model.tokenizer, B, *((4, 4) if mpt else (32,)))
     laps("warm-up")
-    syncs = _SyncCheck(eng) if moe or i8c or q6k else None
+    syncs = _SyncCheck(eng) if moe or i8c or q6k or mpt else None
     kernels.reset_counts()
     with _FallbackCount() as fallbacks:
         res = _bench_batch(eng, model.tokenizer, B, n_tokens)
@@ -2471,9 +2694,9 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
     steps = res["decode_steps"]
     T = max(16, 1 << (max(res["prompt_tokens"].values()) - 1).bit_length())
     prefill_chunks = 1  # every prompt fits one chunk of the engine's 512
-    expected = dict.fromkeys(counts, 0) | {"decode_attn_i8": layers * steps,
-                                           "kv_append_i8": steps,
-                                           "prefill_attn_i8": layers * prefill_chunks}
+    expected = dict.fromkeys(counts, 0) | ({} if mpt else {
+        "decode_attn_i8": layers * steps, "kv_append_i8": steps,
+        "prefill_attn_i8": layers * prefill_chunks})
     if q8:  # M = 64 a step; M = 64·T at the prefill, its lm head on 64 rows
         expected |= {"qmm_i8t_dq": (2 * layers + 1) * steps + (3 * layers + 1) * prefill_chunks,
                      "mlp_i8t": layers * steps, "qmm_i8t_gateup_dq": layers * prefill_chunks}
@@ -2482,13 +2705,19 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
                      "moe_qmm_i4p": 3 * layers * (steps + prefill_chunks)}
     if i8c:  # qkv, wo, gate-up, down (and the lm head) at M = 64 and 64·T, unfused
         expected |= {"qmm_i8c_mm": (4 * layers + 1) * (steps + prefill_chunks)}
+    if mpt:  # no fused prefill (ALiBi, llama.py:666-670) nor decode kernel (:96): the
+        # per-layer int8 append in each layer of each step; qkv, wo, up, down
+        # (and the Q6_K head) at M = 64 and 64·T
+        expected |= {"kv_append_layer_i8": layers * steps,
+                     "qmm_i4t_dq": 4 * layers * (steps + prefill_chunks),
+                     "qmm_i8t_dq": steps + prefill_chunks}
     if q6k:  # qkv, wo (and the lm head), the gate-up and the lane-major down at M = 64 and 64·T
         expected |= {"qmm_i8t_dq": (2 * layers + 1) * (steps + prefill_chunks),
                      "qmm_i8t_gateup_dq": layers * (steps + prefill_chunks),
                      "qmm_i8": layers * (steps + prefill_chunks)}
-    if counts != expected or (kernels.shape_counts and not (q8 or moe or i8c or q6k)):
+    if counts != expected or (kernels.shape_counts and not (q8 or moe or i8c or q6k or mpt)):
         raise AssertionError(f"batch: launch counts {counts} != expected {expected}")
-    if (i8c or q6k) and fallbacks.calls:
+    if (i8c or q6k or mpt) and fallbacks.calls:
         raise AssertionError(f"{name}: {fallbacks.calls} matmuls took the dequantize path")
     shape_counts = dict(kernels.shape_counts)
     V = model.cfg.n_vocab
@@ -2508,7 +2737,7 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
     short = _bench_batch(eng, model.tokenizer, B, 32)
     laps("window")
     prof = _profile(lambda: _bench_batch(eng, model.tokenizer, B, 32),
-                    steps=short["decode_steps"])
+                    steps=short["decode_steps"], watch=("::kv_append_i8_kernel",) if mpt else ())
     laps("profile")
     prof["window"] = f"bench_batch to 32 tokens ({short['decode_steps']} steps)"
     if prof["kernel_ms"] is not None:
@@ -2517,7 +2746,8 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
             "weights": {"batch": "bf16", "batch_q8": "q8_0 (i8t)",
                         "batch_moe": "q4_0 (i4t attention, i4p experts)",
                         "batch_i8c": "q8_0 requantized per channel (i8c)",
-                        "batch_q6k": "q6_k (i8t g16) with q8_0 ffn_down (lane-major i8)"}[name],
+                        "batch_q6k": "q6_k (i8t g16) with q8_0 ffn_down (lane-major i8)",
+                        "batch_mpt": "q4_0 (i4t) with a q6_k head (i8t g16)"}[name],
             "load_s": t_load, "dequantize_fallbacks": fallbacks.calls,
             "host_syncs_in_dispatches": None if syncs is None else syncs.host_syncs,
             "decode_dispatches_checked": None if syncs is None else syncs.chunks,
@@ -2846,10 +3076,12 @@ def main(argv=None) -> int:
 
     jobs = (([("tiny", 2), ("q8", 2)] if "parity" in phases else [])
             + ([("tiny", 22)] if {"generate", "batch", "generate_i8"} & set(phases) else [])
-            + ([("moe", 2), ("moe_q8", 2), ("q6k", 2)] if "parity" in phases else [])
+            + ([("moe", 2), ("moe_q8", 2), ("q6k", 2), ("mpt", 2)] if "parity" in phases
+               else [])
             + ([("q8", 32)] if {"generate_q8", "batch_q8", "server", "generate_i8c",
                                 "batch_i8c"} & set(phases) else [])
             + ([("q6k", 24)] if {"generate_q6k", "batch_q6k"} & set(phases) else [])
+            + ([("mpt", 32)] if {"generate_mpt", "batch_mpt"} & set(phases) else [])
             + ([("moe", 32)] if {"generate_moe", "batch_moe"} & set(phases) else []))
     _start_writer(jobs)
     try:
@@ -2881,8 +3113,8 @@ def _run_phases(phases, run, entries, failed, t_all) -> int:
             if res is not None:
                 emit(res)
     runs = ("generate", "batch", "generate_i8", "generate_q8", "batch_q8", "server",
-            "generate_i8c", "batch_i8c", "generate_q6k", "batch_q6k", "generate_moe",
-            "batch_moe")
+            "generate_i8c", "batch_i8c", "generate_q6k", "batch_q6k", "generate_mpt",
+            "batch_mpt", "generate_moe", "batch_moe")
     for name in runs:
         phase = (phase_generate if name in GENERATE else phase_batch if name in BATCH
                  else None)
@@ -2891,6 +3123,8 @@ def _run_phases(phases, run, entries, failed, t_all) -> int:
             _big.pop(("q8", "auto"), None)  # the native 7B model's 8 GB, done with
         if model == "q6k":
             _big.pop(("q8", "i8c"), None)
+        if model == "mpt":
+            _big.pop(("q6k", "native"), None)
         if model == "moe":
             _big.clear()  # the 7B models make room for the Mixtral's 26 GB
         if name not in phases:

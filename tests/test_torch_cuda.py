@@ -26,6 +26,7 @@ from booster_tpu_torch.ops import qmm as tq  # noqa: E402
 from booster_tpu_torch.ops.kv_cache import _quantize_kv  # noqa: E402
 from booster_tpu_torch.quant.qtensor import QTensor  # noqa: E402
 from booster_tpu_torch.testing import (decode_attn_case, decode_attn_limit,  # noqa: E402
+                                       kv_append_layer_case, kv_append_layer_check,
                                        paged_attn_case, paged_attn_limit, prefill_attn_case,
                                        prefill_attn_limit)
 
@@ -152,6 +153,23 @@ def test_kv_append_kernel_matches_plain(cuda):
     assert torch.equal(k1, k2) and torch.equal(v1, v2)
 
 
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("d,D", [(64, 128), (128, 128), (256, 256)])
+def test_kv_append_layer_kernel_is_exact(cuda, quantized, d, D):
+    """The per-layer append equals its plain version bit for bit (payloads,
+    scales, every other layer), at offsets 0, mid-window, S - 1 and past it,
+    and differs from each wrong append of testing.kv_append_layer_mutants."""
+    args = kv_append_layer_case(3, 4, 2, 256, D, d, [0, 13, 255, 300], "cuda", seed=d,
+                                quantized=quantized)
+    k_all, v_all, layer, new_k, new_v, off, ks, vs = args
+    got = [None if t is None else t.clone() for t in (k_all, v_all, ks, vs)]
+    ka.kv_append_layer(got[0][layer], got[1][layer], new_k, new_v, off,
+                       None if ks is None else got[2][layer],
+                       None if vs is None else got[3][layer])
+    exact, seen = kv_append_layer_check(args, got)
+    assert exact and all(seen.values()), seen
+
+
 def test_wrappers_raise_when_kernels_cannot_build(cuda, monkeypatch, tmp_path):
     monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "empty")
     monkeypatch.setattr(kernels, "_libs", {})
@@ -182,6 +200,12 @@ def test_wrappers_refuse_shapes_not_ported(cuda):
     k = torch.zeros(1, 1, 1, 128, 64, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         da.decode_attn(q, k, k, 0, torch.ones(1, dtype=torch.int32, device="cuda"), 129)
+    k8 = torch.zeros(1, 1, 128, 64, device="cuda", dtype=torch.int8)
+    s8 = torch.zeros(1, 1, 128, 1, device="cuda")
+    row = torch.zeros(1, 1, 1, 64, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="not ported yet"):  # int8 at D % 128 != 0
+        ka.kv_append_layer(k8, k8.clone(), row, row,
+                           torch.zeros(1, dtype=torch.int32, device="cuda"), s8, s8.clone())
     qp = torch.zeros(1, 8, 16, 128, device="cuda", dtype=torch.bfloat16)
     kp = torch.zeros(1, 128, 128, device="cuda", dtype=torch.bfloat16)
     one = torch.ones(1, dtype=torch.int32, device="cuda")
