@@ -1,0 +1,675 @@
+// The i8 stream probes' kernels: where the bandwidth of an int8 weight
+// stream goes between its raw read and a fused dequantize-matmul
+// (booster_tpu_torch/tools: kernel_micro, cast_probe, mmq_probe, qmm_gap,
+// qmm_probe; ops/probes.py wraps them).
+//
+// Replaces the 21 Pallas functions of the JAX package's probe tools, which
+// compute three functions of the data:
+//
+// A. colsum_kernel<MODE, SIGNED>: column sums of a u8 or i8 [R, C] array
+//    into f32 [1, C].  tools/kernel_micro.py:71 _read_kernel (u8, i32 per
+//    1024-row block), tools/cast_probe.py:82 k_sum_i32, :96 k_sum_f32 and
+//    :109 k_sum_bf16 (each 1024-row block's sum rounded to bf16, the block
+//    sums added in f32).  Every mode is exact on int8 inputs up to 2^24 /
+//    255 rows (the sums are integers below 2^24, bf16-rounded block sums
+//    integers too), so the kernel equals its plain version bit for bit.
+//
+// B. i8mm_kernel<XI8, NMAJ, SCALE, SF32, OUT_I32>: y [M, N] = x [M, K] @ W
+//    for an int8 weight stored K-major [K, N] or N-major [N, K].
+//    bf16 x: w = bf16(q), or bf16(f32(q) · f32(bf16 s)) under a scale
+//    (rounded once, as bf16 · bf16 rounds in the reference), then
+//    mma.sync m16n8k16 with an f32 accumulator; int8 x: mma.sync m16n8k32
+//    s8 · s8 → s32 (exact), kept in i32 or converted to f32 at the end.
+//    Scales: none; a full bf16 [K, N] plane (qmm_gap v2); bf16 group
+//    scales [K/32, N], row k taking s[k / 32] (v3); v5's K-reordered rows
+//    (row r of K block b takes scale row b·bk/32 + r % (bk/32)); f32 group
+//    scales [N, K/32] over an N-major weight, rounded to bf16 first
+//    (qmm_probe v_current).  Replaces cast_probe.py:125 k_dot, :144
+//    k_dot_sub, :168 k_dot_i8, :190 k_dot_mixed; mmq_probe.py:37 (int_mm's
+//    kern, (a) i8 → i32 and (b) bf16 → f32); qmm_gap.py:86 v0, :94 v1,
+//    :107 v2, :120 v3, :157 v5; qmm_probe.py:82 v_current, :93 v_cast_only,
+//    :104 v_dot_only.  The TPU's whole-K / sub-tiled / mixed-dot variants
+//    (k_dot and k_dot_sub, k_dot_mixed; v0 and v1; v_current's three sub
+//    widths) are one function and one kernel here: Hopper has no
+//    bf16 x int8 MMA, so every bf16 form converts the int8 tile to bf16 on
+//    its way to shared memory.
+//
+// C. i8mm_group_kernel<XI8, NMAJ, G, SF32>: per-group partial products, each
+//    group of G rows of K summed from zero on the tensor cores (s32 for
+//    int8 x, f32 for bf16 x), multiplied by its group's scale (the scale
+//    row of its first 32 rows: row 4g for G = 128) and added in f32.
+//    Replaces qmm_gap.py:137 v4 (int8 x, bf16 [K/32, N]), :172 v6 (bf16 x),
+//    :189 v7 (bf16 x, G 128); qmm_probe.py:116 v_group_dots (int8 x,
+//    N-major, f32 [N, K/32] scales).  int8 group sums are at most
+//    32·127² = 516,128: exact in f32 before the rescale.
+//
+// Saturation: int_mm (a) at K = 14336 sums up to 14336·127² ≈ 2.3e8 in
+// i32, below 2^31, so the s32 accumulators and split sums never wrap.
+//
+// What bounds them on the H100.  The bytes at every tool shape: the weight
+// stream (11.5 MB for the u8 read, 46.1 MB for cast_probe's [11264, 4096],
+// 16.8 MB for qmm_gap's [4096, 4096] and 33.6 MB more for its v2 plane,
+// 23.1 MB for qmm_probe's [11264, 2048], 25.2 / 117.4 / 58.7 MB for
+// mmq_probe's 7B-shape qkv / gate-up / down) over 3.35 TB/s: 3.4-35 us.
+// At M = 64 the operations are at most 2·64·28672·4096 = 15 GFLOP, under
+// 16 us at 989 TFLOP/s bf16 and half that at the int8 rate.  So the design
+// is about keeping enough bytes in flight on 132 SMs:
+// - A: 1024 columns per block, 16 bytes a thread (64 threads a row, 4 rows
+//   at a time), batches of 32 rows with all 8 of a thread's loads issued
+//   before the first is summed, as many batches a block as still give 264
+//   blocks: 352 blocks of 32 rows at [11264, 1024], 352 of 128 rows at
+//   [11264, 4096].  Per-block partials are reduced in shared memory, then
+//   added with integer (or exact f32) atomics into per-1024-row-block
+//   sums; the last block of a column chunk (an atomic ticket) adds the
+//   block sums in block order (bf16-rounded in the bf16 mode) and resets
+//   them to zero for the next launch.
+// - B and C: one tiling for every rung of a tool (the point of the
+//   ladder: only the stage under test differs).  A block of 256 threads
+//   owns a 64 x 128 output tile and one contiguous range of K, its split;
+//   split boundaries fall on multiples of 128 rows of K (a group of 128
+//   never straddles two), and the split count is a function of (M, K, N)
+//   alone (ops/probes.py splits) that gives about two blocks per SM: at
+//   N = 4096, M = 64 the 32 column tiles run 9 splits each.  Each 64-row
+//   stage of K goes global → registers (16-byte loads; the next stage in
+//   flight while the tensor cores work) → shared memory, where the 8
+//   warps (2 along M x 4 along N) take ldmatrix fragments.  int8 mma.sync
+//   wants B with K contiguous for each n: an N-major weight has that and
+//   is stored as it is; a K-major one is byte-transposed in 4 x 4 blocks
+//   with __byte_perm while it is staged.  The bf16 forms store the
+//   dequantized tile [k][n] (K-major, ldmatrix .trans) or [n][k] (N-major).
+//   The splits' partials are added in split order by the block that
+//   arrives last at its tile's ticket, so a result repeats bit for bit.
+// Making them fast (wgmma, TMA, a deeper pipeline) is later work: they are
+// right and comparable rung against rung.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "i8t_tile.cuh"
+
+namespace {
+
+// ------------------------------------------------------------ A. colsum
+
+constexpr int kCsThreads = 256;
+constexpr int kCsCols = 1024;                     // columns (bytes of a row) per block
+constexpr int kCsLanes = kCsCols / 16;            // threads along a row, 16 bytes each
+constexpr int kCsRowsIn = kCsThreads / kCsLanes;  // rows per pass: 4
+constexpr int kCsRows = 32;                       // rows per batch of loads
+constexpr int kCsPasses = kCsRows / kCsRowsIn;    // 16-byte loads per thread per batch: 8
+constexpr int kCsBlocks = 264;                    // blocks wanted: two for each of 132 SMs
+
+enum { kSumI32 = 0, kSumF32 = 1, kSumBF16 = 2 };
+
+struct CsParams {
+  const uint8_t* q;  // [R, C] bytes (int8 when signed)
+  float* out;        // [1, C]
+  uint32_t* acc;     // [R / block_rows, C] zeros (int32, or f32 bits), reset by the last blocks
+  int* tickets;      // [C / 1024] zeros, reset by the last blocks
+  int R, C, block_rows;
+  int rows;          // rows per block: a multiple of 32 that divides block_rows
+};
+
+template <bool SIGNED>
+__device__ __forceinline__ int byte_at(uint32_t w, int b) {
+  const uint32_t v = (w >> (8 * b)) & 0xffu;
+  return SIGNED ? static_cast<int>(static_cast<int8_t>(v)) : static_cast<int>(v);
+}
+
+// Block (x, y): columns x·1024 + [0, 1024) over rows y·rows + [0, rows),
+// in batches of 32 rows whose 8 loads a thread issues before it sums them.
+template <int MODE, bool SIGNED>
+__global__ void __launch_bounds__(kCsThreads) colsum_kernel(CsParams p) {
+  using Acc = typename std::conditional<MODE == kSumI32, int, float>::type;
+  __shared__ Acc red[kCsRowsIn][kCsCols];
+  const int lc = threadIdx.x % kCsLanes, lr = threadIdx.x / kCsLanes;
+  const int c0 = blockIdx.x * kCsCols;
+  const int r0 = blockIdx.y * p.rows;
+  Acc a[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) a[j] = 0;
+  for (int rb = r0; rb < r0 + p.rows; rb += kCsRows) {
+    uint4 v[kCsPasses];
+#pragma unroll
+    for (int i = 0; i < kCsPasses; ++i)
+      v[i] = __ldg(reinterpret_cast<const uint4*>(
+          p.q + static_cast<size_t>(rb + lr + i * kCsRowsIn) * p.C + c0 + lc * 16));
+#pragma unroll
+    for (int i = 0; i < kCsPasses; ++i) {
+      const uint32_t w[4] = {v[i].x, v[i].y, v[i].z, v[i].w};
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int b = byte_at<SIGNED>(w[j >> 2], j & 3);
+        if constexpr (MODE == kSumI32) {
+          a[j] += b;
+        } else if constexpr (MODE == kSumF32) {
+          a[j] = __fadd_rn(a[j], static_cast<float>(b));
+        } else {  // the cast to bf16 (exact for a byte), summed in f32
+          a[j] = __fadd_rn(a[j], bf16f(bf16_bits(static_cast<float>(b))));
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 16; ++j) red[lr][lc * 16 + j] = a[j];
+  __syncthreads();
+  Acc* blk = reinterpret_cast<Acc*>(p.acc) + static_cast<size_t>(r0 / p.block_rows) * p.C + c0;
+  for (int c = threadIdx.x; c < kCsCols; c += kCsThreads) {
+    Acc s = red[0][c];
+#pragma unroll
+    for (int r = 1; r < kCsRowsIn; ++r) s += red[r][c];
+    atomicAdd(blk + c, s);  // integers below 2^24: exact in either type, in any order
+  }
+  if (!i8t::arrive_last(p.tickets + blockIdx.x, gridDim.y)) return;
+  const int nb = p.R / p.block_rows;
+  for (int c = threadIdx.x; c < kCsCols; c += kCsThreads) {
+    float t = 0.f;
+#pragma unroll 4
+    for (int b = 0; b < nb; ++b) {  // loads with no store between them: in flight together
+      const uint32_t bits = __ldcg(p.acc + static_cast<size_t>(b) * p.C + c0 + c);
+      float s = MODE == kSumI32 ? static_cast<float>(static_cast<int>(bits))
+                                : __uint_as_float(bits);
+      if (MODE == kSumBF16) s = round_bf16(s);
+      t = __fadd_rn(t, s);
+    }
+    p.out[c0 + c] = t;
+  }
+  for (int c = threadIdx.x; c < kCsCols; c += kCsThreads)  // zeros for the next launch
+    for (int b = 0; b < nb; ++b) p.acc[static_cast<size_t>(b) * p.C + c0 + c] = 0u;
+}
+
+// ------------------------------------------------------ B, C. int8 weights
+
+constexpr int kBM = 64;         // rows of x per tile
+constexpr int kBN = 128;        // output columns per tile
+constexpr int kBK = 64;         // rows of K per stage
+constexpr int kThreads = 256;   // 8 warps: 2 along M x 4 along N
+constexpr int kUnit = 128;      // split boundaries fall on multiples of this many rows of K
+constexpr int kSRows = 32;      // rows of K per scale row
+constexpr int kX16 = kBK + 8;   // bf16 per x row in shared memory (pads: no ldmatrix conflicts)
+constexpr int kWk16 = kBN + 8;  // bf16 per weight row, K-major tile [k][n]
+constexpr int kWn16 = kBK + 8;  // bf16 per weight row, N-major tile [n][k]
+constexpr int kS8 = kBK + 16;   // bytes per int8 row, [m][k] and [n][k]
+constexpr int kSmemBytes = kBM * kX16 * 2 + kBN * kWn16 * 2;  // the largest form
+
+enum { kNone = 0, kPlane = 1, kGroup = 2, kReorder = 3 };
+
+struct MmParams {
+  const void* x;     // [M, K] bf16 or int8
+  const int8_t* q;   // [K, N] (K-major) or [N, K] (N-major)
+  const void* s;     // scales (see SCALE), or null
+  void* out;         // [M, N] f32 or i32
+  void* part;        // [KS, M, N] partials (f32 or i32) when KS > 1
+  int* tickets;      // [ceil(M / 64), N / 128] zeros, reset by the last blocks
+  int M, K, N, KS;
+  int bk;            // kReorder: the rows of K per reorder block
+};
+
+__device__ __forceinline__ uint16_t* x16(uint8_t* sm) { return reinterpret_cast<uint16_t*>(sm); }
+__device__ __forceinline__ uint16_t* w16(uint8_t* sm) {
+  return reinterpret_cast<uint16_t*>(sm + kBM * kX16 * 2);
+}
+__device__ __forceinline__ uint8_t* x8(uint8_t* sm) { return sm; }
+__device__ __forceinline__ uint8_t* w8(uint8_t* sm) { return sm + kBM * kS8; }
+
+// A 64-row stage of K on its way from device memory to shared memory.
+struct Stage {
+  uint4 x[2];
+  uint4 q[2];
+  uint4 s[2][2];
+};
+
+__device__ __forceinline__ uint4 ld16(const void* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+// Two int8 (the low 16 bits of h) → a bf16 pair: bf16(q), or bf16(q · s)
+// with the product exact in f32 and rounded once.
+template <bool SCALED>
+__device__ __forceinline__ uint32_t dq2(uint32_t h, float s0, float s1) {
+  const float q0 = static_cast<float>(static_cast<int8_t>(h & 0xffu));
+  const float q1 = static_cast<float>(static_cast<int8_t>((h >> 8) & 0xffu));
+  if constexpr (SCALED) return i8t::pack_bf16x2(__fmul_rn(q0, s0), __fmul_rn(q1, s1));
+  else return i8t::pack_bf16x2(q0, q1);
+}
+
+// Four rows of 4 bytes (w[i] = row i, columns 0-3) → four columns of 4
+// bytes, stored at dst + c·stride (column c: rows 0-3 in byte order).
+__device__ __forceinline__ void transpose4x4(const uint32_t (&w)[4], uint8_t* dst, int stride) {
+  const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140);  // r0b0 r1b0 r0b1 r1b1
+  const uint32_t t1 = __byte_perm(w[2], w[3], 0x5140);  // r2b0 r3b0 r2b1 r3b1
+  const uint32_t t2 = __byte_perm(w[0], w[1], 0x7362);  // r0b2 r1b2 r0b3 r1b3
+  const uint32_t t3 = __byte_perm(w[2], w[3], 0x7362);
+  *reinterpret_cast<uint32_t*>(dst) = __byte_perm(t0, t1, 0x5410);
+  *reinterpret_cast<uint32_t*>(dst + stride) = __byte_perm(t0, t1, 0x7632);
+  *reinterpret_cast<uint32_t*>(dst + 2 * stride) = __byte_perm(t2, t3, 0x5410);
+  *reinterpret_cast<uint32_t*>(dst + 3 * stride) = __byte_perm(t2, t3, 0x7632);
+}
+
+// The scale row of K row kr under a K-major scale mode.
+template <int SC>
+__device__ __forceinline__ int scale_row(int kr, int bk) {
+  if constexpr (SC == kPlane) return kr;
+  else if constexpr (SC == kGroup) return kr / kSRows;
+  else return (kr / bk) * (bk / kSRows) + (kr % bk) % (bk / kSRows);
+}
+
+template <bool XI8, bool NMAJ, int SC, bool SF32>
+__device__ __forceinline__ void load_stage(const MmParams& p, int m0, int n0, int k, Stage& st) {
+  const int t = threadIdx.x;
+  const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+  if constexpr (XI8) {  // 64 rows x 4 chunks of 16 int8
+    const int r = t >> 2, c = t & 3, row = m0 + r;
+    st.x[0] = row < p.M
+        ? ld16(static_cast<const int8_t*>(p.x) + static_cast<size_t>(row) * p.K + k + c * 16)
+        : z;
+  } else {  // 64 rows x 8 chunks of 8 bf16
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int idx = t + i * kThreads, r = idx >> 3, c = idx & 7, row = m0 + r;
+      st.x[i] = row < p.M
+          ? ld16(static_cast<const uint16_t*>(p.x) + static_cast<size_t>(row) * p.K + k + c * 8)
+          : z;
+    }
+  }
+  if constexpr (NMAJ) {  // 128 weight rows x 4 chunks of 16 int8 along K
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int idx = t + i * kThreads, n = idx >> 2, c = idx & 3;
+      st.q[i] = ld16(p.q + static_cast<size_t>(n0 + n) * p.K + k + c * 16);
+      if constexpr (SC == kGroup) {  // one scale for the chunk's 16 rows of K
+        const size_t so = static_cast<size_t>(n0 + n) * (p.K / kSRows) + (k + c * 16) / kSRows;
+        st.s[i][0].x = SF32 ? __float_as_uint(__ldg(static_cast<const float*>(p.s) + so))
+                            : static_cast<uint32_t>(__ldg(static_cast<const uint16_t*>(p.s) + so))
+                                  << 16;
+      }
+    }
+  } else if constexpr (XI8) {  // K-major for s8: 16 quads of rows x 16 octets of columns
+    const int no = t & 15, kq = t >> 4;
+    const int8_t* src = p.q + static_cast<size_t>(k + kq * 4) * p.N + n0 + no * 8;
+    uint2 r[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      r[i] = __ldg(reinterpret_cast<const uint2*>(src + static_cast<size_t>(i) * p.N));
+    st.q[0] = make_uint4(r[0].x, r[0].y, r[1].x, r[1].y);
+    st.q[1] = make_uint4(r[2].x, r[2].y, r[3].x, r[3].y);
+  } else {  // K-major for bf16: 64 rows x 8 chunks of 16 columns
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int idx = t + i * kThreads, r = idx >> 3, c = idx & 7;
+      st.q[i] = ld16(p.q + static_cast<size_t>(k + r) * p.N + n0 + c * 16);
+      if constexpr (SC != kNone) {
+        const uint16_t* sp = static_cast<const uint16_t*>(p.s)
+            + static_cast<size_t>(scale_row<SC>(k + r, p.bk)) * p.N + n0 + c * 16;
+        st.s[i][0] = ld16(sp);
+        st.s[i][1] = ld16(sp + 8);
+      }
+    }
+  }
+}
+
+template <bool XI8, bool NMAJ, int SC, bool SF32>
+__device__ __forceinline__ void store_stage(const Stage& st, uint8_t* sm) {
+  const int t = threadIdx.x;
+  if constexpr (XI8) {
+    const int r = t >> 2, c = t & 3;
+    *reinterpret_cast<uint4*>(x8(sm) + r * kS8 + c * 16) = st.x[0];
+  } else {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int idx = t + i * kThreads, r = idx >> 3, c = idx & 7;
+      *reinterpret_cast<uint4*>(x16(sm) + r * kX16 + c * 8) = st.x[i];
+    }
+  }
+  if constexpr (NMAJ) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int idx = t + i * kThreads, n = idx >> 2, c = idx & 3;
+      if constexpr (XI8) {
+        *reinterpret_cast<uint4*>(w8(sm) + n * kS8 + c * 16) = st.q[i];
+      } else {
+        const float sc = SC == kGroup ? round_bf16(__uint_as_float(st.s[i][0].x)) : 1.f;
+        const uint32_t qv[4] = {st.q[i].x, st.q[i].y, st.q[i].z, st.q[i].w};
+        uint32_t o[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) o[j] = dq2<SC == kGroup>(qv[j >> 1] >> ((j & 1) * 16), sc, sc);
+        uint4* dst = reinterpret_cast<uint4*>(w16(sm) + n * kWn16 + c * 16);
+        dst[0] = make_uint4(o[0], o[1], o[2], o[3]);
+        dst[1] = make_uint4(o[4], o[5], o[6], o[7]);
+      }
+    }
+  } else if constexpr (XI8) {
+    const int no = t & 15, kq = t >> 4;
+    const uint32_t lo[4] = {st.q[0].x, st.q[0].z, st.q[1].x, st.q[1].z};  // columns 0-3
+    const uint32_t hi[4] = {st.q[0].y, st.q[0].w, st.q[1].y, st.q[1].w};  // columns 4-7
+    uint8_t* dst = w8(sm) + (no * 8) * kS8 + kq * 4;
+    transpose4x4(lo, dst, kS8);
+    transpose4x4(hi, dst + 4 * kS8, kS8);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int idx = t + i * kThreads, r = idx >> 3, c = idx & 7;
+      const uint32_t qv[4] = {st.q[i].x, st.q[i].y, st.q[i].z, st.q[i].w};
+      uint32_t o[8];
+      if constexpr (SC != kNone) {
+        const uint32_t sv[8] = {st.s[i][0].x, st.s[i][0].y, st.s[i][0].z, st.s[i][0].w,
+                                st.s[i][1].x, st.s[i][1].y, st.s[i][1].z, st.s[i][1].w};
+#pragma unroll
+        for (int j = 0; j < 8; ++j)  // columns 2j, 2j + 1 of the chunk
+          o[j] = dq2<true>(qv[j >> 1] >> ((j & 1) * 16), bf16f(sv[j] & 0xffffu),
+                           bf16f(sv[j] >> 16));
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) o[j] = dq2<false>(qv[j >> 1] >> ((j & 1) * 16), 0.f, 0.f);
+      }
+      uint4* dst = reinterpret_cast<uint4*>(w16(sm) + r * kWk16 + c * 16);
+      dst[0] = make_uint4(o[0], o[1], o[2], o[3]);
+      dst[1] = make_uint4(o[4], o[5], o[6], o[7]);
+    }
+  }
+}
+
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// acc += one step of K of the staged tile: 32 rows (int8) or 16 (bf16).
+// Warp (wm, wn) owns rows wm·32 + [0, 32), columns wn·32 + [0, 32):
+// acc[mi][ni] is the m16n8 fragment at rows wm·32 + mi·16, columns
+// wn·32 + ni·8.
+template <bool XI8, bool NMAJ, typename A>
+__device__ __forceinline__ void mma_step(uint8_t* sm, int kk, A (&acc)[2][4][4]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp & 1, wn = warp >> 1;
+  const int mat = lane >> 3, r = lane & 7;  // the 8x8 matrix and row this lane addresses
+  uint32_t a[2][4];
+  uint32_t b[4][2];
+  if constexpr (XI8) {
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+      i8t::ldmatrix_x4(a[mi], x8(sm) + (wm * 32 + mi * 16 + (mat & 1) * 8 + r) * kS8 + kk * 32
+                                  + (mat >> 1) * 16,
+                       false);
+#pragma unroll
+    for (int nj = 0; nj < 2; ++nj) {
+      uint32_t t4[4];
+      i8t::ldmatrix_x4(t4, w8(sm) + (wn * 32 + nj * 16 + (mat >> 1) * 8 + r) * kS8 + kk * 32
+                               + (mat & 1) * 16,
+                       false);
+      b[2 * nj][0] = t4[0];
+      b[2 * nj][1] = t4[1];
+      b[2 * nj + 1][0] = t4[2];
+      b[2 * nj + 1][1] = t4[3];
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
+  } else {
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+      i8t::ldmatrix_x4(a[mi], x16(sm) + (wm * 32 + mi * 16 + (mat & 1) * 8 + r) * kX16 + kk * 16
+                                  + (mat >> 1) * 8,
+                       false);
+#pragma unroll
+    for (int nj = 0; nj < 2; ++nj) {
+      uint32_t t4[4];
+      if constexpr (NMAJ)
+        i8t::ldmatrix_x4(t4, w16(sm) + (wn * 32 + nj * 16 + (mat >> 1) * 8 + r) * kWn16 + kk * 16
+                                 + (mat & 1) * 8,
+                         false);
+      else
+        i8t::ldmatrix_x4(t4, w16(sm) + (kk * 16 + (mat & 1) * 8 + r) * kWk16 + wn * 32 + nj * 16
+                                 + (mat >> 1) * 8,
+                         true);
+      b[2 * nj][0] = t4[0];
+      b[2 * nj][1] = t4[1];
+      b[2 * nj + 1][0] = t4[2];
+      b[2 * nj + 1][1] = t4[3];
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) i8t::mma_bf16(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
+  }
+}
+
+// K rows [kb, ke) of split s of KS (whole units of 128 rows).
+__device__ __forceinline__ void split_rows(int K, int KS, int s, int& kb, int& ke) {
+  const int nu = K / kUnit;
+  kb = static_cast<int>(static_cast<long long>(s) * nu / KS) * kUnit;
+  ke = static_cast<int>(static_cast<long long>(s + 1) * nu / KS) * kUnit;
+}
+
+template <typename A>
+__device__ __forceinline__ void zero(A (&acc)[2][4][4]) {
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
+}
+
+// Writes the tile through put(row, col, v): at once when KS is 1; else the
+// partial goes to part [KS, M, N] and the block that arrives last at the
+// tile's ticket adds the partials in split order (exact for i32).
+template <typename A, typename Put>
+__device__ __forceinline__ void finish(const MmParams& p, int m0, int n0, int split,
+                                       const A (&acc)[2][4][4], Put put) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp & 1, wn = warp >> 1, gid = lane >> 2, tig = lane & 3;
+  const size_t plane = static_cast<size_t>(p.M) * p.N;
+  A* part = static_cast<A*>(p.part);
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = m0 + wm * 32 + mi * 16 + gid + (e >> 1) * 8;
+        const int col = n0 + wn * 32 + ni * 8 + tig * 2 + (e & 1);
+        if (row >= p.M) continue;
+        if (p.KS == 1) put(row, col, acc[mi][ni][e]);
+        else part[split * plane + static_cast<size_t>(row) * p.N + col] = acc[mi][ni][e];
+      }
+  if (p.KS == 1) return;
+  if (!i8t::arrive_last(p.tickets + blockIdx.z * gridDim.x + blockIdx.x, p.KS)) return;
+  for (int e = threadIdx.x; e < kBM * kBN; e += kThreads) {
+    const int row = m0 + e / kBN, col = n0 + e % kBN;
+    if (row >= p.M) continue;
+    const A* pr = part + static_cast<size_t>(row) * p.N + col;
+    A s = 0;
+    for (int k = 0; k < p.KS; ++k) {
+      const A v = __ldcg(pr + k * plane);
+      if constexpr (std::is_same<A, float>::value) s = __fadd_rn(s, v);
+      else s += v;
+    }
+    put(row, col, s);
+  }
+}
+
+// B. Block (j, split, mt): the 64 x 128 tile of rows mt·64, columns j·128
+// over one split of K.
+template <bool XI8, bool NMAJ, int SC, bool SF32, bool OUT_I32>
+__global__ void __launch_bounds__(kThreads) i8mm_kernel(MmParams p) {
+  __shared__ __align__(16) uint8_t sm[kSmemBytes];
+  using A = typename std::conditional<XI8, int, float>::type;
+  const int n0 = blockIdx.x * kBN, split = blockIdx.y, m0 = blockIdx.z * kBM;
+  int kb, ke;
+  split_rows(p.K, p.KS, split, kb, ke);
+  A acc[2][4][4];
+  zero(acc);
+  Stage st;
+  if (kb < ke) load_stage<XI8, NMAJ, SC, SF32>(p, m0, n0, kb, st);
+  for (int k = kb; k < ke; k += kBK) {
+    __syncthreads();  // the last stage's fragments are read
+    store_stage<XI8, NMAJ, SC, SF32>(st, sm);
+    __syncthreads();
+    if (k + kBK < ke) load_stage<XI8, NMAJ, SC, SF32>(p, m0, n0, k + kBK, st);
+#pragma unroll
+    for (int kk = 0; kk < (XI8 ? kBK / 32 : kBK / 16); ++kk) mma_step<XI8, NMAJ>(sm, kk, acc);
+  }
+  finish(p, m0, n0, split, acc, [&](int row, int col, A v) {
+    const size_t o = static_cast<size_t>(row) * p.N + col;
+    if constexpr (OUT_I32) static_cast<int*>(p.out)[o] = static_cast<int>(v);
+    else if constexpr (XI8) static_cast<float*>(p.out)[o] = __int2float_rn(static_cast<int>(v));
+    else static_cast<float*>(p.out)[o] = static_cast<float>(v);
+  });
+}
+
+// The scales of this thread's 8 columns for the group whose first row of K
+// is k0: sc[ni][c] for column n0 + wn·32 + ni·8 + tig·2 + c.
+template <bool NMAJ, bool SF32>
+__device__ __forceinline__ void group_scales(const MmParams& p, int n0, int k0, float (&sc)[4][2]) {
+  const int lane = threadIdx.x & 31, wn = (threadIdx.x >> 5) >> 1, tig = lane & 3;
+  const int g = k0 / kSRows;
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int col = n0 + wn * 32 + ni * 8 + tig * 2 + c;
+      const size_t o = NMAJ ? static_cast<size_t>(col) * (p.K / kSRows) + g
+                            : static_cast<size_t>(g) * p.N + col;
+      sc[ni][c] = SF32 ? __ldg(static_cast<const float*>(p.s) + o)
+                       : bf16f(__ldg(static_cast<const uint16_t*>(p.s) + o));
+    }
+}
+
+// C. As B, but each group of G rows of K is summed from zero and added to
+// the f32 accumulator times its scale.
+template <bool XI8, bool NMAJ, int G, bool SF32>
+__global__ void __launch_bounds__(kThreads) i8mm_group_kernel(MmParams p) {
+  __shared__ __align__(16) uint8_t sm[kSmemBytes];
+  using A = typename std::conditional<XI8, int, float>::type;
+  constexpr int kStep = XI8 ? 32 : 16;
+  static_assert(G % kStep == 0 && kUnit % G == 0, "a group is whole steps inside a split unit");
+  const int n0 = blockIdx.x * kBN, split = blockIdx.y, m0 = blockIdx.z * kBM;
+  int kb, ke;
+  split_rows(p.K, p.KS, split, kb, ke);
+  float acc[2][4][4];
+  A g[2][4][4];
+  float sc[4][2];
+  zero(acc);
+  zero(g);
+  Stage st;
+  if (kb < ke) {
+    load_stage<XI8, NMAJ, kNone, SF32>(p, m0, n0, kb, st);
+    group_scales<NMAJ, SF32>(p, n0, kb, sc);
+  }
+  for (int k = kb; k < ke; k += kBK) {
+    __syncthreads();
+    store_stage<XI8, NMAJ, kNone, SF32>(st, sm);
+    __syncthreads();
+    if (k + kBK < ke) load_stage<XI8, NMAJ, kNone, SF32>(p, m0, n0, k + kBK, st);
+#pragma unroll
+    for (int kk = 0; kk < kBK / kStep; ++kk) {
+      mma_step<XI8, NMAJ>(sm, kk, g);
+      const int kd = k + (kk + 1) * kStep;
+      if (kd % G == 0) {  // the group ends: acc += f32(g) · s, in f32
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float gv = XI8 ? __int2float_rn(static_cast<int>(g[mi][ni][e]))
+                                   : static_cast<float>(g[mi][ni][e]);
+              acc[mi][ni][e] = __fadd_rn(acc[mi][ni][e], __fmul_rn(gv, sc[ni][e & 1]));
+              g[mi][ni][e] = 0;
+            }
+        if (kd < ke) group_scales<NMAJ, SF32>(p, n0, kd, sc);
+      }
+    }
+  }
+  finish(p, m0, n0, split, acc, [&](int row, int col, float v) {
+    static_cast<float*>(p.out)[static_cast<size_t>(row) * p.N + col] = v;
+  });
+}
+
+template <typename Kernel>
+int launch(Kernel kernel, const MmParams& p, void* stream) {
+  const dim3 grid(p.N / kBN, p.KS, (p.M + kBM - 1) / kBM);
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// out [1, C] f32 = column sums of q [R, C] (u8, or int8 when is_signed) by
+// mode (0: i32 per block of block_rows, 1: f32, 2: each block's sum rounded
+// to bf16), R a multiple of block_rows and block_rows of 32, C of 1024.
+// acc: (R / block_rows)·C 4-byte zeros; tickets: C / 1024 zeros (both left
+// zero).  Each block takes the most rows (32 doubled while it divides
+// block_rows) that still give 264 blocks.  Returns the CUDA error of the
+// launch (0 on success).
+extern "C" int bt_probe_colsum(const void* q, void* out, void* acc, void* tickets, int R, int C,
+                               int block_rows, int mode, int is_signed, void* stream) {
+  int rows = kCsRows;
+  while (block_rows % (2 * rows) == 0 && (C / kCsCols) * (R / (2 * rows)) >= kCsBlocks) rows *= 2;
+  const CsParams p{static_cast<const uint8_t*>(q), static_cast<float*>(out),
+                   static_cast<uint32_t*>(acc), static_cast<int*>(tickets), R, C, block_rows,
+                   rows};
+  const dim3 grid(C / kCsCols, R / rows);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (mode * 2 + (is_signed ? 1 : 0)) {
+    case 0: colsum_kernel<kSumI32, false><<<grid, kCsThreads, 0, s>>>(p); break;
+    case 1: colsum_kernel<kSumI32, true><<<grid, kCsThreads, 0, s>>>(p); break;
+    case 2: colsum_kernel<kSumF32, false><<<grid, kCsThreads, 0, s>>>(p); break;
+    case 3: colsum_kernel<kSumF32, true><<<grid, kCsThreads, 0, s>>>(p); break;
+    case 4: colsum_kernel<kSumBF16, false><<<grid, kCsThreads, 0, s>>>(p); break;
+    case 5: colsum_kernel<kSumBF16, true><<<grid, kCsThreads, 0, s>>>(p); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// y [M, N] = x [M, K] @ W split KS ways over K (ops/probes.py i8mm).
+// form = x_i8 | n_major << 1 | scale << 2 | s_f32 << 4 | out_i32 << 5, one
+// of the forms instantiated below.  K a multiple of 128 (and of bk for the
+// reordered scales), N of 128.  part: KS·M·N 4-byte (null when KS = 1);
+// tickets: ceil(M/64)·N/128 zeros.
+extern "C" int bt_probe_i8mm(const void* x, const void* q, const void* s, void* out, void* part,
+                             void* tickets, int M, int K, int N, int KS, int bk, int form,
+                             void* stream) {
+  const MmParams p{x, static_cast<const int8_t*>(q), s, out, part, static_cast<int*>(tickets),
+                   M, K, N, KS, bk};
+  switch (form) {
+    case 0 | 2: return launch(i8mm_kernel<false, true, kNone, false, false>, p, stream);
+    case 1 | 2: return launch(i8mm_kernel<true, true, kNone, false, false>, p, stream);
+    case 1 | 2 | 32: return launch(i8mm_kernel<true, true, kNone, false, true>, p, stream);
+    case 1 | 32: return launch(i8mm_kernel<true, false, kNone, false, true>, p, stream);
+    case 0: return launch(i8mm_kernel<false, false, kNone, false, false>, p, stream);
+    case kPlane << 2: return launch(i8mm_kernel<false, false, kPlane, false, false>, p, stream);
+    case kGroup << 2: return launch(i8mm_kernel<false, false, kGroup, false, false>, p, stream);
+    case kReorder << 2: return launch(i8mm_kernel<false, false, kReorder, false, false>, p, stream);
+    case 2 | (kGroup << 2) | 16:
+      return launch(i8mm_kernel<false, true, kGroup, true, false>, p, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// y [M, N] f32 = sum over groups of G rows of K of (x @ W over the group) ·
+// the group's scale (ops/probes.py i8mm_group).  form = x_i8 | n_major << 1
+// | s_f32 << 4 | (G == 128) << 6.  Shapes as bt_probe_i8mm.
+extern "C" int bt_probe_i8mm_group(const void* x, const void* q, const void* s, void* out,
+                                   void* part, void* tickets, int M, int K, int N, int KS,
+                                   int form, void* stream) {
+  const MmParams p{x, static_cast<const int8_t*>(q), s, out, part, static_cast<int*>(tickets),
+                   M, K, N, KS, 0};
+  switch (form) {
+    case 1: return launch(i8mm_group_kernel<true, false, 32, false>, p, stream);
+    case 1 | 2 | 16: return launch(i8mm_group_kernel<true, true, 32, true>, p, stream);
+    case 0: return launch(i8mm_group_kernel<false, false, 32, false>, p, stream);
+    case 64: return launch(i8mm_group_kernel<false, false, 128, false>, p, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

@@ -37,6 +37,7 @@ SOURCES = {
     "mlp_i8t": "mlp_i8t.cu",
     "qmm_lane": "qmm_lane.cu",
     "qmm_i8c": "qmm_i8c.cu",
+    "probe_i8": "probe_i8.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -46,7 +47,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # _gd is the M = 1 group-dot form, _dq the M > 1 dequantize form, _i8 the
 # int8-cache form, _layer the per-layer T = 1 append, paged_ the paged-pool
 # forms, moe_ the grouped (routed expert) form of the lane-major matmul; the
-# i8c matmul's _mv is its M = 1 split-K matvec, _mm its M > 1 tensor-core form
+# i8c matmul's _mv is its M = 1 split-K matvec, _mm its M > 1 tensor-core form;
+# probe_ the i8 stream probes' kernels (ops/probes.py), on no serving path
 launch_counts = {
     "qmm_i4t_gd": 0,
     "qmm_i4t_dq": 0,
@@ -74,8 +76,12 @@ launch_counts = {
     "qmm_i8c_mm": 0,
     "kv_append_layer": 0,
     "kv_append_layer_i8": 0,
+    "probe_colsum": 0,
+    "probe_i8mm": 0,
+    "probe_i8mm_group": 0,
 }
-# (kernel name, (K, N)) → launches, for the matmul kernels
+# (kernel name, (K, N)) → launches, for the matmul kernels; the probes key
+# theirs (kernel name, (form, rows, columns))
 shape_counts: dict = {}
 
 _libs: dict[str, ctypes.CDLL] = {}

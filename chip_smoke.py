@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (booster_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases build,kernels,parity,generate,batch,generate_i8,generate_q8,
-                           batch_q8,server,generate_i8c,batch_i8c,generate_q6k,batch_q6k,
-                           generate_mpt,batch_mpt,generate_moe,batch_moe]
+    python3 chip_smoke.py [--phases build,kernels,probes,parity,generate,batch,generate_i8,
+                           generate_q8,batch_q8,server,generate_i8c,batch_i8c,generate_q6k,
+                           batch_q6k,generate_mpt,batch_mpt,generate_moe,batch_moe]
 
 Phases, each printing one JSON line with its seconds:
 
@@ -70,7 +70,26 @@ Phases, each printing one JSON line with its seconds:
    scales not written and scale = amax) seen to leave another cache.
    Median times of kernel,
    plain version and one library call (the yardstick), each call after an
-   L2 scrub (cold, as on the decode path), and the kernel's time warm.
+   L2 scrub (cold, as on the decode path), and the kernel's time warm
+   (booster_tpu_torch.tools.timing: the one timer of this script and the
+   probe tools).
+2b. probes — the i8 stream probes: each of the 21 Pallas functions of the
+   JAX package's tools/kernel_micro.py, cast_probe.py, mmq_probe.py,
+   qmm_gap.py and qmm_probe.py through its kernel in csrc/probe_i8.cu
+   (column sums; the int8-weight dot, K-major or N-major, bf16 or int8 x,
+   with no scale, a scale plane, group scales or v5's reordered ones; its
+   per-group rescale form) against its plain version at the tools' full
+   shapes: exact for the column sums and the integer dots, within
+   CHECKS["qmm"] for the others, and each wrong kernel (a neighbour
+   column's sum, the weight read in the other layout, a neighbour group's
+   scale, v5 read as v3, v7's groups taken as 32, the rescale dropped) 8x
+   past that limit; timed cold and warm with the plain version and, where
+   one torch call computes the same function, the library call
+   (torch.sum, torch._int_mm).  Then each port tool's main on the card
+   (booster_tpu_torch.tools: kernel_micro, cast_probe, mmq_probe, qmm_gap
+   with v0-v7, qmm_probe, and qmm_clean at the 1B shapes), one JSON line
+   each; a tool must launch its own kernels and no other, as many times
+   as its rungs say.
 3. parity — 2-layer models on the CPU (plain versions) and on the card
    (kernels), both fed the CPU's greedy tokens: (a) TinyLlama width, batch
    1, Q4_0, bf16 cache: prefill, then 16 decode steps; (b) TinyLlama width,
@@ -267,7 +286,6 @@ from __future__ import annotations
 import argparse
 import gc
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -277,12 +295,16 @@ from pathlib import Path
 from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core rate, NVIDIA data sheet
-SCRUB_BYTES = 200 << 20  # 4x the H100's 50 MB L2: read between timed calls
-PHASES = ("build", "kernels", "parity", "generate", "batch", "generate_i8", "generate_q8",
-          "batch_q8", "server", "generate_i8c", "batch_i8c", "generate_q6k", "batch_q6k",
-          "generate_mpt", "batch_mpt", "generate_moe", "batch_moe")
+if not (ROOT / "booster_tpu_torch" / "csrc").is_dir():
+    sys.exit("chip_smoke.py: booster_tpu_torch/ not found beside this script "
+             "(run it from a checkout of the repository)")
+sys.path.insert(0, str(ROOT))
+# device ms per call (CUDA graphs of 20 calls, each after an L2 scrub) and
+# the card's bounds: one timer for the kernels phase and the probe tools
+from booster_tpu_torch.tools.timing import bound, release as release_scrub, timed  # noqa: E402
+PHASES = ("build", "kernels", "probes", "parity", "generate", "batch", "generate_i8",
+          "generate_q8", "batch_q8", "server", "generate_i8c", "batch_i8c", "generate_q6k",
+          "batch_q6k", "generate_mpt", "batch_mpt", "generate_moe", "batch_moe")
 
 # TinyLlama-1.1B (config 1 of bench.py), Q4_0
 TINYLLAMA = dict(vocab_size=32000, hidden=2048, heads=32, kv_heads=4, ff=5632,
@@ -383,68 +405,6 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _scrub():
-    """Reads a buffer of four times the H100's 50 MB L2 cache, so that the
-    next call finds none of its operands there, as on the decode path, where
-    about 25 MB of weights stream between two calls of one shape."""
-    import torch
-
-    buf = _scrub_buf.get("buf")
-    if buf is None:
-        buf = _scrub_buf["buf"] = torch.ones(SCRUB_BYTES // 4, device="cuda")
-    return buf.sum()
-
-
-_scrub_buf: dict = {}
-
-
-def _graph(body, reps: int):
-    """`reps` calls of `body` captured in one CUDA graph (called once first,
-    so libraries load and workspaces exist before the capture)."""
-    import torch
-
-    body()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            body()
-    graph.replay()
-    torch.cuda.synchronize()
-    return graph
-
-
-def _replay_ms(graph) -> float:
-    import torch
-
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end)
-
-
-def timed(fn, reps: int = 20, trials: int = 5, cold: bool = True) -> float:
-    """Device ms per call, from CUDA graphs of `reps` calls replayed `trials`
-    times between CUDA events, the median taken.  The graph keeps host
-    dispatch out of the measurement (a wrapper's Python costs more than some
-    of its kernels).  Cold (the default): each call follows an L2 scrub, and
-    a graph of the scrubs alone, replayed in turn, is subtracted."""
-    body = (lambda: (_scrub(), fn())) if cold else fn
-    graph = _graph(body, reps)
-    base = _graph(_scrub, reps) if cold else None
-    times = []
-    for _ in range(trials):
-        t = _replay_ms(graph)
-        if base is not None:
-            t -= _replay_ms(base)
-        times.append(t / reps)
-    del graph, base
-    return statistics.median(times)
-
-
 def host_us(fn, reps: int = 200) -> float:
     """Host µs per call to enqueue `fn` (its Python, checks, allocations and
     launch), timed before the card is waited for: what one call costs the
@@ -472,11 +432,6 @@ class _Laps:
         now = time.perf_counter()
         self.parts[name] = self.parts.get(name, 0.0) + now - self.t
         self.t = now
-
-
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
-    return (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations")
 
 
 # -- phase 1 -----------------------------------------------------------------
@@ -596,7 +551,7 @@ def phase_kernels(entries: list) -> dict:
     _i8c_kernels(entries, failures)
     _q6k_kernels(entries, failures)
     _moe_kernels(entries, failures)
-    _scrub_buf.clear()
+    release_scrub()
     torch.cuda.empty_cache()
     if failures:
         raise AssertionError("kernel checks failed: " + "; ".join(failures))
@@ -1733,6 +1688,328 @@ def _moe_kernels(entries: list, failures: list) -> None:
                 del x, got, want
             del w, deq
     torch.cuda.empty_cache()
+
+
+# -- phase 2b: probes ---------------------------------------------------------
+
+# the JAX tools' Pallas functions: file:line of each kernel body
+PROBE_REPLACES = {
+    "_read_kernel": "tools/kernel_micro.py:71", "k_sum_i32": "tools/cast_probe.py:82",
+    "k_sum_f32": "tools/cast_probe.py:96", "k_sum_bf16": "tools/cast_probe.py:109",
+    "k_dot": "tools/cast_probe.py:125", "k_dot_sub": "tools/cast_probe.py:144",
+    "k_dot_i8": "tools/cast_probe.py:168", "k_dot_mixed": "tools/cast_probe.py:190",
+    "int_mm.kern": "tools/mmq_probe.py:37", "v0_kern": "tools/qmm_gap.py:86",
+    "v1_kern": "tools/qmm_gap.py:94", "v2_kern": "tools/qmm_gap.py:107",
+    "v3_kern": "tools/qmm_gap.py:120", "v4_kern": "tools/qmm_gap.py:137",
+    "v5_kern": "tools/qmm_gap.py:157", "v6_kern": "tools/qmm_gap.py:172",
+    "v7_kern": "tools/qmm_gap.py:189", "v_current": "tools/qmm_probe.py:82",
+    "v_cast_only": "tools/qmm_probe.py:93", "v_dot_only": "tools/qmm_probe.py:104",
+    "v_group_dots": "tools/qmm_probe.py:116",
+}
+# the tools the phase runs on the card, with their arguments
+PROBE_TOOLS = (("kernel_micro", []), ("cast_probe", []), ("mmq_probe", []),
+               ("qmm_gap", ["--variants", "v0,v1,v2,v3,v4,v5,v6,v7"]), ("qmm_probe", []),
+               ("qmm_clean", ["--shapes", "1b", "--dense"]))
+
+
+def _probe_inputs(gen):
+    """Random draws on the card: ints(*shape) int8 in [-127, 127) (or u8),
+    normal(*shape) bf16, scales(*shape) in [0.5, 1.5)."""
+    import torch
+
+    def ints(*shape, lo=-127, hi=127, dtype=torch.int8):
+        return torch.randint(lo, hi, shape, dtype=dtype, device="cuda", generator=gen)
+
+    def normal(*shape):
+        return torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
+
+    def scales(*shape):
+        return (torch.rand(shape, device="cuda", generator=gen) + 0.5).to(torch.bfloat16)
+
+    return ints, normal, scales
+
+
+_NO_LIB = "no one torch call takes an int8 weight against a bf16 x"
+_NO_LIB_GROUP = "no one torch call (per-group i32 dots, each rescaled)"
+M_PROBE = 64  # rows of x in every probe tool
+
+
+def _colsum_cases(gen) -> list:
+    """A: kernel_micro's u8 read, cast_probe's three sums over i8."""
+    import torch
+
+    from booster_tpu_torch.ops import probes as pr
+    from booster_tpu_torch.tools.timing import F32_OPS_PER_S
+
+    ints, _, _ = _probe_inputs(gen)
+    cases = []
+    for fn, q, mode in (("_read_kernel", ints(11264, 1024, lo=0, hi=255, dtype=torch.uint8),
+                         "i32"),
+                        ("k_sum_i32", ints(11264, 4096), "i32"),
+                        ("k_sum_f32", ints(11264, 4096), "f32"),
+                        ("k_sum_bf16", ints(11264, 4096), "bf16")):
+        R, C = q.shape
+        cases.append(((fn,), f"{mode} {str(q.dtype)[6:]} [{R},{C}]",
+                      lambda q=q, mode=mode: pr.colsum(q, mode),
+                      lambda q=q, mode=mode: pr.colsum_plain(q, mode), True,
+                      {"neighbour column": lambda q=q, mode=mode: torch.roll(
+                          pr.colsum_plain(q, mode), 1, 1)},
+                      lambda q=q: torch.sum(q, 0, dtype=torch.int32), R * C + 4 * C, R * C,
+                      F32_OPS_PER_S, ("probe_colsum",
+                                      (f"{mode}.{'u8' if q.dtype == torch.uint8 else 'i8'}",
+                                       R, C))))
+    return cases
+
+
+def _cast_cases(gen) -> list:
+    """B over cast_probe's N-major [11264, 4096]: the bf16 dots, the s8 one."""
+    import torch
+
+    from booster_tpu_torch.ops import probes as pr
+    from booster_tpu_torch.tools.timing import BF16_OPS_PER_S, INT8_OPS_PER_S
+
+    ints, normal, _ = _probe_inputs(gen)
+    N, K, M = 11264, 4096, M_PROBE
+    q = ints(N, K)
+    cases = []
+    for fns, x, lib in ((("k_dot", "k_dot_sub", "k_dot_mixed"), normal(M, K), _NO_LIB),
+                        (("k_dot_i8",), ints(M, K),
+                         "no one torch call (the i32 product, then f32)")):
+        i8 = x.dtype == torch.int8
+        cases.append((fns, f"{'int8' if i8 else 'bf16'} x [{M},{K}] @ q [{N},{K}]^T",
+                      lambda x=x: pr.i8mm(x, q, n_major=True),
+                      lambda x=x: pr.i8mm_plain(x, q, n_major=True), i8,
+                      {"weight read K-major": lambda x=x: pr.i8mm_plain(x, q.view(K, N))},
+                      lib, N * K + M * K * (1 if i8 else 2) + 4 * M * N, 2 * M * N * K,
+                      INT8_OPS_PER_S if i8 else BF16_OPS_PER_S,
+                      ("probe_i8mm", (f"{'i8' if i8 else 'bf16'}.n.none", K, N))))
+    return cases
+
+
+def _mmq_cases(gen) -> list:
+    """B over mmq_probe's K-major 7B shapes: (a) int8 x -> i32, (b) bf16 x."""
+    import torch
+
+    from booster_tpu_torch.ops import probes as pr
+    from booster_tpu_torch.tools.timing import BF16_OPS_PER_S, INT8_OPS_PER_S
+
+    ints, normal, _ = _probe_inputs(gen)
+    M = M_PROBE
+    cases = []
+    for N, K, label in (6144, 4096, "qkv"), (28672, 4096, "gateup"), (4096, 14336, "down"):
+        w = ints(K, N)
+        xq, xb = ints(M, K), normal(M, K)
+        cases.append((("int_mm.kern",), f"(a) int8 x -> i32, {label} [{K},{N}]",
+                      lambda xq=xq, w=w: pr.i8mm(xq, w, out_i32=True),
+                      lambda xq=xq, w=w: pr.i8mm_plain(xq, w, out_i32=True), True,
+                      {"weight read N-major": lambda xq=xq, w=w, N=N, K=K: pr.i8mm_plain(
+                          xq, w.view(N, K), n_major=True, out_i32=True)},
+                      lambda xq=xq, w=w: torch._int_mm(xq, w), N * K + M * K + 4 * M * N,
+                      2 * M * N * K, INT8_OPS_PER_S, ("probe_i8mm", ("i8.k.none.i32", K, N))))
+        cases.append((("int_mm.kern",), f"(b) bf16 x -> f32, {label} [{K},{N}]",
+                      lambda xb=xb, w=w: pr.i8mm(xb, w), lambda xb=xb, w=w: pr.i8mm_plain(xb, w),
+                      False, {"weight read N-major": lambda xb=xb, w=w, N=N, K=K: pr.i8mm_plain(
+                          xb, w.view(N, K), n_major=True)},
+                      _NO_LIB, N * K + 2 * M * K + 4 * M * N, 2 * M * N * K, BF16_OPS_PER_S,
+                      ("probe_i8mm", ("bf16.k.none", K, N))))
+    return cases
+
+
+def _gap_cases(gen) -> list:
+    """qmm_gap's ladder at its defaults (M 64, K = N = 4096, bk 2048)."""
+    import torch
+
+    from booster_tpu_torch.ops import probes as pr
+    from booster_tpu_torch.tools.timing import BF16_OPS_PER_S, INT8_OPS_PER_S
+
+    ints, normal, scales = _probe_inputs(gen)
+    M, N, K, BK = M_PROBE, 4096, 4096, 2048
+    w = ints(K, N)
+    x, xq = normal(M, K), ints(M, K)
+    s_small, s_big = scales(K // 32, N), scales(K, N)
+    ng = torch.roll(s_small, 1, 0)  # each group takes its neighbour's scale
+    small = s_small.numel() * 2
+    base = K * N + 2 * M * K + 4 * M * N
+    ops = 2 * M * N * K
+    mm, mmp, gm, gmp = pr.i8mm, pr.i8mm_plain, pr.i8mm_group, pr.i8mm_group_plain
+    return [
+        (("v0_kern", "v1_kern"), f"bf16 x @ w [{K},{N}]", lambda: mm(x, w), lambda: mmp(x, w),
+         False, {"weight read N-major": lambda: mmp(x, w.t())}, _NO_LIB, base, ops,
+         BF16_OPS_PER_S, ("probe_i8mm", ("bf16.k.none", K, N))),
+        (("v2_kern",), f"bf16 x @ bf16(q * S), S bf16 [{K},{N}]",
+         lambda: mm(x, w, s=s_big, scale="plane"), lambda: mmp(x, w, s=s_big, scale="plane"),
+         False, {"neighbour row's scale": lambda: mmp(x, w, s=torch.roll(s_big, 1, 0),
+                                                      scale="plane")},
+         _NO_LIB, base + s_big.numel() * 2, ops, BF16_OPS_PER_S,
+         ("probe_i8mm", ("bf16.k.plane", K, N))),
+        (("v3_kern",), f"bf16 x @ bf16(q * s[k // 32]), s bf16 [{K // 32},{N}]",
+         lambda: mm(x, w, s=s_small, scale="group"), lambda: mmp(x, w, s=s_small, scale="group"),
+         False, {"neighbour group's scale": lambda: mmp(x, w, s=ng, scale="group")}, _NO_LIB,
+         base + small, ops, BF16_OPS_PER_S, ("probe_i8mm", ("bf16.k.group", K, N))),
+        (("v4_kern",), "int8 x, groups of 32: i32 dots * s, f32 sum", lambda: gm(xq, w, s_small),
+         lambda: gmp(xq, w, s_small), False,
+         {"rescale dropped": lambda: gmp(xq, w, torch.ones_like(s_small)),
+          "neighbour group's scale": lambda: gmp(xq, w, ng)}, _NO_LIB_GROUP,
+         base - M * K + small, ops, INT8_OPS_PER_S, ("probe_i8mm_group", ("i8.k.g32", K, N))),
+        (("v5_kern",), f"bf16 x @ bf16(q * s[reordered rows]), bk {BK}",
+         lambda: mm(x, w, s=s_small, scale="reorder", bk=BK),
+         lambda: mmp(x, w, s=s_small, scale="reorder", bk=BK), False,
+         {"read as v3": lambda: mmp(x, w, s=s_small, scale="group")}, _NO_LIB, base + small,
+         ops, BF16_OPS_PER_S, ("probe_i8mm", ("bf16.k.reorder", K, N))),
+        (("v6_kern",), "bf16 x, groups of 32: f32 dots * s, f32 sum", lambda: gm(x, w, s_small),
+         lambda: gmp(x, w, s_small), False,
+         {"rescale dropped": lambda: gmp(x, w, torch.ones_like(s_small)),
+          "neighbour group's scale": lambda: gmp(x, w, ng)}, _NO_LIB, base + small, ops,
+         BF16_OPS_PER_S, ("probe_i8mm_group", ("bf16.k.g32", K, N))),
+        (("v7_kern",), "bf16 x, groups of 128 (scale row 4g)",
+         lambda: gm(x, w, s_small, group=128), lambda: gmp(x, w, s_small, group=128), False,
+         {"groups taken as 32": lambda: gmp(x, w, s_small, group=32)}, _NO_LIB, base + small,
+         ops, BF16_OPS_PER_S, ("probe_i8mm_group", ("bf16.k.g128", K, N))),
+    ]
+
+
+def _qmm_probe_cases(gen) -> list:
+    """qmm_probe's gate-up shape: N-major [11264, 2048], f32 scales [11264, 64]."""
+    import torch
+
+    from booster_tpu_torch.ops import probes as pr
+    from booster_tpu_torch.tools.timing import BF16_OPS_PER_S, INT8_OPS_PER_S
+
+    ints, normal, _ = _probe_inputs(gen)
+    M, N, K = M_PROBE, 11264, 2048
+    q = ints(N, K)
+    s = torch.rand(N, K // 32, device="cuda", generator=gen) * 0.01
+    sn = torch.roll(s, 1, 1)
+    xb, xq = normal(M, K), ints(M, K)
+    base = N * K + 4 * M * N
+    ops = 2 * M * N * K
+    mm, mmp, gm, gmp = pr.i8mm, pr.i8mm_plain, pr.i8mm_group, pr.i8mm_group_plain
+    return [
+        (("v_current",), "bf16 x @ (bf16(q) * bf16(s expanded))^T",
+         lambda: mm(xb, q, n_major=True, s=s, scale="group"),
+         lambda: mmp(xb, q, n_major=True, s=s, scale="group"), False,
+         {"neighbour group's scale": lambda: mmp(xb, q, n_major=True, s=sn, scale="group")},
+         _NO_LIB, base + 2 * M * K + s.numel() * 4, ops, BF16_OPS_PER_S,
+         ("probe_i8mm", ("bf16.n.group", K, N))),
+        (("v_cast_only",), "bf16 x @ bf16(q)^T", lambda: mm(xb, q, n_major=True),
+         lambda: mmp(xb, q, n_major=True), False,
+         {"weight read K-major": lambda: mmp(xb, q.view(K, N))}, _NO_LIB, base + 2 * M * K,
+         ops, BF16_OPS_PER_S, ("probe_i8mm", ("bf16.n.none", K, N))),
+        (("v_dot_only",), "int8 x @ q^T -> i32", lambda: mm(xq, q, n_major=True, out_i32=True),
+         lambda: mmp(xq, q, n_major=True, out_i32=True), True,
+         {"weight read K-major": lambda: mmp(xq, q.view(K, N), out_i32=True)},
+         lambda: torch._int_mm(xq, q.t()), base + M * K, ops, INT8_OPS_PER_S,
+         ("probe_i8mm", ("i8.n.none.i32", K, N))),
+        (("v_group_dots",), "int8 x, groups of 32: i32 dots * s (f32)",
+         lambda: gm(xq, q, s, n_major=True), lambda: gmp(xq, q, s, n_major=True), False,
+         {"rescale dropped": lambda: gmp(xq, q, torch.ones_like(s), n_major=True),
+          "neighbour group's scale": lambda: gmp(xq, q, sn, n_major=True)}, _NO_LIB_GROUP,
+         base + M * K + s.numel() * 4, ops, INT8_OPS_PER_S,
+         ("probe_i8mm_group", ("i8.n.g32", K, N))),
+    ]
+
+
+def _probe_check(case, entries: list, keys: list, failures: list) -> None:
+    """One case of _probe_cases' lists: the kernel against its plain version
+    and its wrong kernels, then its times; one entry per Pallas function
+    that the call computes."""
+    import torch
+
+    fns, label, call, plain, exact, wrong, lib, nbytes, ops, rate, key = case
+    keys.append((fns[0], key))
+    got = call()
+    want = plain()
+    torch.cuda.synchronize()
+    err = float((got.double() - want.double()).abs().max())
+    limit = 2e-4 * float(want.double().abs().max())
+    ok = (torch.equal(got, want) if exact else err <= limit) and bool(
+        torch.isfinite(got.double()).all())
+    if not ok:
+        failures.append(f"{fns[0]} {label}: max err {err} (limit {0 if exact else limit})")
+    seen = {}
+    for what, mutant in wrong.items():
+        d = float((got.double() - mutant().double()).abs().max())
+        seen[what] = d / limit
+        if d < 8 * limit:
+            failures.append(f"{fns[0]} {label}: the wrong kernel '{what}' is only "
+                            f"{d / limit:.2f}x the limit")
+    del got, want
+    b_ms, b_by = bound(nbytes, ops, rate)
+    t = {"ms": timed(call), "warm_ms": timed(call, cold=False),
+         "plain_ms": timed(plain, reps=3, trials=3),
+         "library_ms": timed(lib) if callable(lib) else None}
+    for fn in fns:
+        entries.append({
+            "name": key[0], "function": fn, "shape": label, "key": key, "path": "probes",
+            "route": "cuda", "source": "booster_tpu_torch/csrc/probe_i8.cu",
+            "replaces": PROBE_REPLACES[fn], "max_abs_err": err, **t,
+            "bound_ms": b_ms, "bound_by": b_by, "library_reason": None if callable(lib) else lib,
+            "check": "exact" if exact else CHECKS["qmm"], "wrong_x_limit": seen})
+
+
+def phase_probes(entries: list) -> dict:
+    """The i8 stream probes: each of the 21 Pallas functions of the JAX
+    package's kernel_micro, cast_probe, mmq_probe, qmm_gap and qmm_probe
+    tools through its kernel (csrc/probe_i8.cu) against its plain version
+    at the tools' full shapes, exact (column sums, integer dots) or within
+    CHECKS["qmm"], and each wrong kernel 8x past that limit (for the exact
+    forms, past 8x the qmm limit); then each port tool's main on the card
+    (booster_tpu_torch.tools), which must launch its own kernels and no
+    other, as many times as its rungs say."""
+    import importlib
+
+    import torch
+
+    from booster_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    laps = _Laps()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    failures = []
+    keys = []
+    # each case: (functions, label, kernel call, plain call, exact, wrong
+    # kernels {name: plain call}, library call or the reason there is none,
+    # bytes, operations, their rate, the kernel's count key); the inputs of
+    # one tool at a time live on the card
+    for cases in (_colsum_cases, _cast_cases, _mmq_cases, _gap_cases, _qmm_probe_cases):
+        for case in cases(gen):
+            _probe_check(case, entries, keys, failures)
+        torch.cuda.empty_cache()
+    laps("checks")
+    counts_all: dict = {}
+    shapes_all: dict = {}
+    for tool, extra in PROBE_TOOLS:
+        mod = importlib.import_module(f"booster_tpu_torch.tools.{tool}")
+        kernels.reset_counts()
+        res = mod.main(["--device", "cuda", *extra])
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in kernels.launch_counts.items() if v}
+        expected: dict = {}
+        for r in res["rungs"]:
+            if r["kernel"] is not None:
+                expected[r["kernel"]] = expected.get(r["kernel"], 0) + r["launches"]
+        if counts != expected:
+            failures.append(f"{tool}: launched {counts}, expected {expected}")
+        for k, v in counts.items():
+            counts_all[k] = counts_all.get(k, 0) + v
+        for k, v in kernels.shape_counts.items():
+            shapes_all[k] = shapes_all.get(k, 0) + v
+        emit({"tool": tool, "card": res["card"], "launches": counts,
+              "rungs": [{k: r[k] for k in ("name", "ms", "warm_ms", "gb_s", "share_of_bound",
+                                           "bound_ms", "bound_by", "max_abs_err", "limit")}
+                        for r in res["rungs"]]})
+        laps(tool)
+    failures += [f"{fn}: its kernel {key} was not launched by the tools"
+                 for fn, key in keys if not shapes_all.get(key)]
+    release_scrub()
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("probe checks failed: " + "; ".join(failures))
+    return {"phase": "probes", "seconds": time.perf_counter() - t0,
+            "part_s": laps.parts, "launches": counts_all, "_shape_counts": shapes_all,
+            "checks": {e["function"] + " " + e["shape"]: e["max_abs_err"] for e in entries
+                       if e.get("path") == "probes"}}
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -3040,17 +3317,11 @@ def main(argv=None) -> int:
     ap.add_argument("--write-gguf", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.write_gguf:  # the background writer of _start_writer
-        sys.path.insert(0, str(ROOT))
         _write_ggufs(args.write_gguf)
         return 0
     phases = [p for p in args.phases.split(",") if p]
     if set(phases) - set(PHASES):
         ap.error(f"phases are {PHASES}")
-    if not (ROOT / "booster_tpu_torch" / "csrc").is_dir():
-        print("chip_smoke.py: booster_tpu_torch/ not found beside this script "
-              "(run it from a checkout of the repository)", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT))
     import torch
 
     if not torch.cuda.is_available():
@@ -3107,10 +3378,14 @@ def _run_phases(phases, run, entries, failed, t_all) -> int:
             return 1
         emit(res)
     print(smi_line(), flush=True)
-    for name, fn in (("kernels", lambda: phase_kernels(entries)), ("parity", phase_parity)):
+    for name, fn in (("kernels", lambda: phase_kernels(entries)),
+                     ("probes", lambda: phase_probes(entries)), ("parity", phase_parity)):
         if name in phases:
             res = run(name, fn)
             if res is not None:
+                if "_shape_counts" in res:  # the probe tools' run: the probes' launches
+                    path_shapes[name] = res.pop("_shape_counts")
+                    path_counts[name] = res["launches"]
                 emit(res)
     runs = ("generate", "batch", "generate_i8", "generate_q8", "batch_q8", "server",
             "generate_i8c", "batch_i8c", "generate_q6k", "batch_q6k", "generate_mpt",

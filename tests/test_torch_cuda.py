@@ -22,6 +22,7 @@ from booster_tpu_torch.ops import kv_append as ka  # noqa: E402
 from booster_tpu_torch.ops import mlp as tm  # noqa: E402
 from booster_tpu_torch.ops import paged_attention as pga  # noqa: E402
 from booster_tpu_torch.ops import prefill_attention as pa  # noqa: E402
+from booster_tpu_torch.ops import probes  # noqa: E402
 from booster_tpu_torch.ops import qmm as tq  # noqa: E402
 from booster_tpu_torch.ops.kv_cache import _quantize_kv  # noqa: E402
 from booster_tpu_torch.quant.qtensor import QTensor  # noqa: E402
@@ -446,3 +447,99 @@ def test_lane_wrappers_refuse_what_the_kernel_does_not_take(cuda):
                                GGMLType.Q8_0))
     with pytest.raises(NotImplementedError):  # N not a multiple of 128
         tq.qmm_lane(x, _lane("i8", 96, 512, gen))
+
+
+# -- the i8 stream probes' kernels (csrc/probe_i8.cu) -------------------------
+
+# (int8 x, N-major weight, scale, scale dtype, i32 out): every form the
+# probe tools run
+PROBE_MM_FORMS = [
+    (False, True, "none", None, False), (True, True, "none", None, False),
+    (True, True, "none", None, True), (True, False, "none", None, True),
+    (False, False, "none", None, False), (False, False, "plane", torch.bfloat16, False),
+    (False, False, "group", torch.bfloat16, False),
+    (False, False, "reorder", torch.bfloat16, False),
+    (False, True, "group", torch.float32, False)]
+# (int8 x, N-major weight, scale dtype, group)
+PROBE_GROUP_FORMS = [(True, False, torch.bfloat16, 32), (True, True, torch.float32, 32),
+                     (False, False, torch.bfloat16, 32), (False, False, torch.bfloat16, 128)]
+
+
+def _probe_operands(gen, M, K, N, x_i8, n_major):
+    x = (torch.randint(-127, 127, (M, K), dtype=torch.int8, device="cuda", generator=gen)
+         if x_i8 else torch.randn(M, K, device="cuda", generator=gen).to(torch.bfloat16))
+    q = torch.randint(-127, 127, (N, K) if n_major else (K, N), dtype=torch.int8, device="cuda",
+                      generator=gen)
+    return x, q
+
+
+def _probe_scales(gen, scale, dtype, K, N, n_major):
+    shape = {"plane": (K, N), "group": (N, K // 32) if n_major else (K // 32, N),
+             "reorder": (K // 32, N)}[scale]
+    return (torch.rand(shape, device="cuda", generator=gen) + 0.5).to(dtype)
+
+
+@pytest.mark.parametrize("mode", ["i32", "f32", "bf16"])
+@pytest.mark.parametrize("dtype,rows,cols", [(torch.uint8, 2048, 1024), (torch.int8, 3072, 2048)])
+def test_probe_colsum_kernel_is_exact(cuda, mode, dtype, rows, cols):
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    lo, hi = (0, 256) if dtype == torch.uint8 else (-127, 127)
+    q = torch.randint(lo, hi, (rows, cols), dtype=dtype, device="cuda", generator=gen)
+    kernels.reset_counts()
+    for _ in range(2):  # the second launch finds the scratch the first left zero
+        got = probes.colsum(q, mode)
+        torch.cuda.synchronize()
+        assert torch.equal(got, probes.colsum_plain(q, mode))
+    assert kernels.launch_counts["probe_colsum"] == 2
+
+
+@pytest.mark.parametrize("form", PROBE_MM_FORMS)
+@pytest.mark.parametrize("m,k,n", [(16, 1024, 256), (100, 512, 384), (64, 256, 128)])
+def test_probe_i8mm_kernel_matches_plain(cuda, form, m, k, n):
+    x_i8, n_major, scale, sdt, out_i32 = form
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    x, q = _probe_operands(gen, m, k, n, x_i8, n_major)
+    s = None if scale == "none" else _probe_scales(gen, scale, sdt, k, n, n_major)
+    kw = dict(n_major=n_major, s=s, scale=scale, bk=256, out_i32=out_i32)
+    got = probes.i8mm(x, q, **kw)
+    want = probes.i8mm_plain(x, q, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if x_i8:
+        assert torch.equal(got, want)
+    else:
+        assert (got - want).abs().max() <= 2e-4 * want.abs().max()
+    assert torch.equal(probes.i8mm(x, q, **kw), got)  # the split sums repeat bit for bit
+
+
+@pytest.mark.parametrize("form", PROBE_GROUP_FORMS)
+@pytest.mark.parametrize("m,k,n", [(16, 1024, 256), (100, 512, 384)])
+def test_probe_i8mm_group_kernel_matches_plain(cuda, form, m, k, n):
+    x_i8, n_major, sdt, group = form
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    x, q = _probe_operands(gen, m, k, n, x_i8, n_major)
+    s = _probe_scales(gen, "group", sdt, k, n, n_major)
+    got = probes.i8mm_group(x, q, s, n_major=n_major, group=group)
+    want = probes.i8mm_group_plain(x, q, s, n_major=n_major, group=group)
+    torch.cuda.synchronize()
+    limit = 2e-4 * want.abs().max()
+    assert (got - want).abs().max() <= limit
+    dropped = probes.i8mm_group_plain(x, q, torch.ones_like(s), n_major=n_major, group=group)
+    assert (got - dropped).abs().max() > 8 * limit  # the rescale is seen
+
+
+def test_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    x, q = _probe_operands(gen, 16, 512, 256, False, False)
+    with pytest.raises(NotImplementedError):  # i32 out of a bf16 x
+        probes.i8mm(x, q, out_i32=True)
+    with pytest.raises(NotImplementedError):  # f32 scales over a K-major weight
+        probes.i8mm(x, q, s=_probe_scales(gen, "group", torch.float32, 512, 256, False),
+                    scale="group")
+    with pytest.raises(NotImplementedError):  # N not a multiple of 128
+        probes.i8mm(x, q[:, :192].contiguous())
+    with pytest.raises(NotImplementedError):  # a group of 64
+        probes.i8mm_group(x, q, _probe_scales(gen, "group", torch.bfloat16, 512, 256, False),
+                          group=64)
+    with pytest.raises(NotImplementedError):  # C not a multiple of 1024
+        probes.colsum(q, "i32")

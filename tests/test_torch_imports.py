@@ -1,8 +1,8 @@
 """The port stands alone: importing every module of booster_tpu_torch (the
-HTTP server and the CLI included) and running a short CPU generate pulls in
-none of jax, booster_tpu, ml_dtypes, regex or aiohttp (which the card's
-machine does not have), and no source of the port (or chip_smoke.py)
-imports them."""
+HTTP server, the CLI and the probe tools included) and running a short CPU
+generate pulls in none of jax, booster_tpu, ml_dtypes, regex or aiohttp
+(which the card's machine does not have), nor the JAX package's tools/,
+and no source of the port (or chip_smoke.py) imports them."""
 
 import re
 import subprocess
@@ -10,7 +10,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "booster_tpu", "ml_dtypes", "regex", "aiohttp")
+FORBIDDEN = ("jax", "booster_tpu", "ml_dtypes", "regex", "aiohttp", "tools")
 
 _SCRIPT = r"""
 import importlib, pkgutil, sys, tempfile, os
