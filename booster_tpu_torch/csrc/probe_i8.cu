@@ -1,10 +1,12 @@
 // The i8 stream probes' kernels: where the bandwidth of an int8 weight
 // stream goes between its raw read and a fused dequantize-matmul
 // (booster_tpu_torch/tools: kernel_micro, cast_probe, mmq_probe, qmm_gap,
-// qmm_probe; ops/probes.py wraps them).
+// qmm_probe, and the int8 rungs of expander_probe and tqmm_probe;
+// ops/probes.py wraps them).
 //
-// Replaces the 21 Pallas functions of the JAX package's probe tools, which
-// compute three functions of the data:
+// Replaces the 21 Pallas functions of the JAX package's i8 probe tools and
+// the int8 ones of tools/expander_probe.py and tools/tqmm_probe.py, which
+// compute four functions of the data:
 //
 // A. colsum_kernel<MODE, SIGNED>: column sums of a u8 or i8 [R, C] array
 //    into f32 [1, C].  tools/kernel_micro.py:71 _read_kernel (u8, i32 per
@@ -22,15 +24,22 @@
 //    s8 · s8 → s32 (exact), kept in i32 or converted to f32 at the end.
 //    Scales: none; a full bf16 [K, N] plane (qmm_gap v2); bf16 group
 //    scales [K/32, N], row k taking s[k / 32] (v3); v5's K-reordered rows
-//    (row r of K block b takes scale row b·bk/32 + r % (bk/32)); f32 group
-//    scales [N, K/32] over an N-major weight, rounded to bf16 first
-//    (qmm_probe v_current).  Replaces cast_probe.py:125 k_dot, :144
-//    k_dot_sub, :168 k_dot_i8, :190 k_dot_mixed; mmq_probe.py:37 (int_mm's
-//    kern, (a) i8 → i32 and (b) bf16 → f32); qmm_gap.py:86 v0, :94 v1,
-//    :107 v2, :120 v3, :157 v5; qmm_probe.py:82 v_current, :93 v_cast_only,
-//    :104 v_dot_only.  The TPU's whole-K / sub-tiled / mixed-dot variants
-//    (k_dot and k_dot_sub, k_dot_mixed; v0 and v1; v_current's three sub
-//    widths) are one function and one kernel here: Hopper has no
+//    (row r of K block b takes scale row b·bk/32 + r % (bk/32)); periodic
+//    ("tile") scales, row k taking scale row k % (K/32); f32 group or
+//    periodic scales, [N, K/32] over an N-major weight or [K/32, N] over a
+//    K-major one, rounded to bf16 first.  Replaces cast_probe.py:125 k_dot,
+//    :144 k_dot_sub, :168 k_dot_i8, :190 k_dot_mixed; mmq_probe.py:37
+//    (int_mm's kern, (a) i8 → i32 and (b) bf16 → f32); qmm_gap.py:86 v0,
+//    :94 v1, :107 v2, :120 v3, :157 v5; qmm_probe.py:82 v_current, :93
+//    v_cast_only, :104 v_dot_only; expander_probe.py:152 make_qmm's kernel
+//    (dot_f32, dot_bf16, reshape, jrepeat and take: N-major f32 group
+//    scales; ptile: periodic; noscale); tqmm_probe.py:79 make_tqmm_i8's
+//    kernel (sub_reshape and sub_repeat: K-major f32 group scales;
+//    sub_ptile: periodic; noscale).  The TPU's whole-K / sub-tiled /
+//    mixed-dot variants (k_dot and k_dot_sub, k_dot_mixed; v0 and v1;
+//    v_current's three sub widths; expander_probe's five ways of expanding
+//    one scale row, the TPU lowerings that tool compares) are one function
+//    and one kernel here: Hopper has no
 //    bf16 x int8 MMA, so every bf16 form converts the int8 tile to bf16 on
 //    its way to shared memory.
 //
@@ -40,8 +49,19 @@
 //    row of its first 32 rows: row 4g for G = 128) and added in f32.
 //    Replaces qmm_gap.py:137 v4 (int8 x, bf16 [K/32, N]), :172 v6 (bf16 x),
 //    :189 v7 (bf16 x, G 128); qmm_probe.py:116 v_group_dots (int8 x,
-//    N-major, f32 [N, K/32] scales).  int8 group sums are at most
-//    32·127² = 516,128: exact in f32 before the rescale.
+//    N-major, f32 [N, K/32] scales); expander_probe.py:154 make_qmm's gloop
+//    (bf16 x, N-major, f32 scales pre-transposed to [K/32, N]).  The scales
+//    are read through their two strides, so one form takes either layout.
+//    int8 group sums are at most 32·127² = 516,128: exact in f32 before the
+//    rescale.
+//
+// D. blocksum_kernel: expander_probe.py:200-205 make_qmm's castonly, whose
+//    every output of N tile t (bn rows of the N-major weight) is
+//    sum over K pieces j (sub columns) of f32(S_tj) · f32(1e-9), added in
+//    piece order, S_tj the tile's sum over the piece.  S_tj is summed in
+//    i32 (exact: bn·sub·127 < 2^31) with __dp4a, so the result depends on
+//    no summation order; the reference's f32 sum equals it wherever the
+//    sums stay below 2^24 (the tests' sizes) and rounds otherwise.
 //
 // Saturation: int_mm (a) at K = 14336 sums up to 14336·127² ≈ 2.3e8 in
 // i32, below 2^31, so the s32 accumulators and split sums never wrap.
@@ -195,7 +215,16 @@ constexpr int kWn16 = kBK + 8;  // bf16 per weight row, N-major tile [n][k]
 constexpr int kS8 = kBK + 16;   // bytes per int8 row, [m][k] and [n][k]
 constexpr int kSmemBytes = kBM * kX16 * 2 + kBN * kWn16 * 2;  // the largest form
 
-enum { kNone = 0, kPlane = 1, kGroup = 2, kReorder = 3 };
+enum { kNone = 0, kPlane = 1, kGroup = 2, kReorder = 3, kTile = 4 };
+
+// The forms of bt_probe_i8mm (ops/probes.py _mm_form) and
+// bt_probe_i8mm_group (_group_form).
+constexpr int mm_form(bool xi8, bool nmaj, int sc, bool sf32, bool oi32) {
+  return int(xi8) | int(nmaj) << 1 | int(sf32) << 2 | int(oi32) << 3 | sc << 4;
+}
+constexpr int group_form(bool xi8, bool nmaj, bool sf32, int g) {
+  return int(xi8) | int(nmaj) << 1 | int(sf32) << 2 | int(g == 128) << 3;
+}
 
 struct MmParams {
   const void* x;     // [M, K] bf16 or int8
@@ -206,6 +235,7 @@ struct MmParams {
   int* tickets;      // [ceil(M / 64), N / 128] zeros, reset by the last blocks
   int M, K, N, KS;
   int bk;            // kReorder: the rows of K per reorder block
+  int sn, sg;        // C: the scales' strides (elements) along N and along the groups
 };
 
 __device__ __forceinline__ uint16_t* x16(uint8_t* sm) { return reinterpret_cast<uint16_t*>(sm); }
@@ -224,6 +254,17 @@ struct Stage {
 
 __device__ __forceinline__ uint4 ld16(const void* p) {
   return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+// 16 f32 scales at p (64 bytes, aligned) → 16 bf16 (rounded to nearest
+// even), two per word in column order.
+__device__ __forceinline__ void ld_scales16(const float* p, uint4 (&s)[2]) {
+  const float4* v = reinterpret_cast<const float4*>(p);
+  const float4 a = __ldg(v), b = __ldg(v + 1), c = __ldg(v + 2), d = __ldg(v + 3);
+  s[0] = make_uint4(i8t::pack_bf16x2(a.x, a.y), i8t::pack_bf16x2(a.z, a.w),
+                    i8t::pack_bf16x2(b.x, b.y), i8t::pack_bf16x2(b.z, b.w));
+  s[1] = make_uint4(i8t::pack_bf16x2(c.x, c.y), i8t::pack_bf16x2(c.z, c.w),
+                    i8t::pack_bf16x2(d.x, d.y), i8t::pack_bf16x2(d.z, d.w));
 }
 
 // Two int8 (the low 16 bits of h) → a bf16 pair: bf16(q), or bf16(q · s)
@@ -251,10 +292,11 @@ __device__ __forceinline__ void transpose4x4(const uint32_t (&w)[4], uint8_t* ds
 
 // The scale row of K row kr under a K-major scale mode.
 template <int SC>
-__device__ __forceinline__ int scale_row(int kr, int bk) {
+__device__ __forceinline__ int scale_row(int kr, const MmParams& p) {
   if constexpr (SC == kPlane) return kr;
   else if constexpr (SC == kGroup) return kr / kSRows;
-  else return (kr / bk) * (bk / kSRows) + (kr % bk) % (bk / kSRows);
+  else if constexpr (SC == kTile) return kr % (p.K / kSRows);
+  else return (kr / p.bk) * (p.bk / kSRows) + (kr % p.bk) % (p.bk / kSRows);
 }
 
 template <bool XI8, bool NMAJ, int SC, bool SF32>
@@ -285,6 +327,11 @@ __device__ __forceinline__ void load_stage(const MmParams& p, int m0, int n0, in
         st.s[i][0].x = SF32 ? __float_as_uint(__ldg(static_cast<const float*>(p.s) + so))
                             : static_cast<uint32_t>(__ldg(static_cast<const uint16_t*>(p.s) + so))
                                   << 16;
+      } else if constexpr (SC == kTile) {  // f32: 16 consecutive scales of row n, mod K/32
+        const int sgn = p.K / kSRows;
+        ld_scales16(static_cast<const float*>(p.s) + static_cast<size_t>(n0 + n) * sgn
+                        + (k + c * 16) % sgn,
+                    st.s[i]);
       }
     }
   } else if constexpr (XI8) {  // K-major for s8: 16 quads of rows x 16 octets of columns
@@ -302,10 +349,14 @@ __device__ __forceinline__ void load_stage(const MmParams& p, int m0, int n0, in
       const int idx = t + i * kThreads, r = idx >> 3, c = idx & 7;
       st.q[i] = ld16(p.q + static_cast<size_t>(k + r) * p.N + n0 + c * 16);
       if constexpr (SC != kNone) {
-        const uint16_t* sp = static_cast<const uint16_t*>(p.s)
-            + static_cast<size_t>(scale_row<SC>(k + r, p.bk)) * p.N + n0 + c * 16;
-        st.s[i][0] = ld16(sp);
-        st.s[i][1] = ld16(sp + 8);
+        const size_t so = static_cast<size_t>(scale_row<SC>(k + r, p)) * p.N + n0 + c * 16;
+        if constexpr (SF32) {
+          ld_scales16(static_cast<const float*>(p.s) + so, st.s[i]);
+        } else {
+          const uint16_t* sp = static_cast<const uint16_t*>(p.s) + so;
+          st.s[i][0] = ld16(sp);
+          st.s[i][1] = ld16(sp + 8);
+        }
       }
     }
   }
@@ -334,8 +385,18 @@ __device__ __forceinline__ void store_stage(const Stage& st, uint8_t* sm) {
         const float sc = SC == kGroup ? round_bf16(__uint_as_float(st.s[i][0].x)) : 1.f;
         const uint32_t qv[4] = {st.q[i].x, st.q[i].y, st.q[i].z, st.q[i].w};
         uint32_t o[8];
+        if constexpr (SC == kTile) {  // rows 2j, 2j + 1 of the chunk's 16 rows of K
+          const uint32_t sv[8] = {st.s[i][0].x, st.s[i][0].y, st.s[i][0].z, st.s[i][0].w,
+                                  st.s[i][1].x, st.s[i][1].y, st.s[i][1].z, st.s[i][1].w};
 #pragma unroll
-        for (int j = 0; j < 8; ++j) o[j] = dq2<SC == kGroup>(qv[j >> 1] >> ((j & 1) * 16), sc, sc);
+          for (int j = 0; j < 8; ++j)
+            o[j] = dq2<true>(qv[j >> 1] >> ((j & 1) * 16), bf16f(sv[j] & 0xffffu),
+                             bf16f(sv[j] >> 16));
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            o[j] = dq2<SC == kGroup>(qv[j >> 1] >> ((j & 1) * 16), sc, sc);
+        }
         uint4* dst = reinterpret_cast<uint4*>(w16(sm) + n * kWn16 + c * 16);
         dst[0] = make_uint4(o[0], o[1], o[2], o[3]);
         dst[1] = make_uint4(o[4], o[5], o[6], o[7]);
@@ -527,8 +588,9 @@ __global__ void __launch_bounds__(kThreads) i8mm_kernel(MmParams p) {
 }
 
 // The scales of this thread's 8 columns for the group whose first row of K
-// is k0: sc[ni][c] for column n0 + wn·32 + ni·8 + tig·2 + c.
-template <bool NMAJ, bool SF32>
+// is k0: sc[ni][c] for column n0 + wn·32 + ni·8 + tig·2 + c, read through the
+// scales' strides (either layout).
+template <bool SF32>
 __device__ __forceinline__ void group_scales(const MmParams& p, int n0, int k0, float (&sc)[4][2]) {
   const int lane = threadIdx.x & 31, wn = (threadIdx.x >> 5) >> 1, tig = lane & 3;
   const int g = k0 / kSRows;
@@ -537,8 +599,7 @@ __device__ __forceinline__ void group_scales(const MmParams& p, int n0, int k0, 
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
       const int col = n0 + wn * 32 + ni * 8 + tig * 2 + c;
-      const size_t o = NMAJ ? static_cast<size_t>(col) * (p.K / kSRows) + g
-                            : static_cast<size_t>(g) * p.N + col;
+      const size_t o = static_cast<size_t>(col) * p.sn + static_cast<size_t>(g) * p.sg;
       sc[ni][c] = SF32 ? __ldg(static_cast<const float*>(p.s) + o)
                        : bf16f(__ldg(static_cast<const uint16_t*>(p.s) + o));
     }
@@ -563,7 +624,7 @@ __global__ void __launch_bounds__(kThreads) i8mm_group_kernel(MmParams p) {
   Stage st;
   if (kb < ke) {
     load_stage<XI8, NMAJ, kNone, SF32>(p, m0, n0, kb, st);
-    group_scales<NMAJ, SF32>(p, n0, kb, sc);
+    group_scales<SF32>(p, n0, kb, sc);
   }
   for (int k = kb; k < ke; k += kBK) {
     __syncthreads();
@@ -586,13 +647,73 @@ __global__ void __launch_bounds__(kThreads) i8mm_group_kernel(MmParams p) {
               acc[mi][ni][e] = __fadd_rn(acc[mi][ni][e], __fmul_rn(gv, sc[ni][e & 1]));
               g[mi][ni][e] = 0;
             }
-        if (kd < ke) group_scales<NMAJ, SF32>(p, n0, kd, sc);
+        if (kd < ke) group_scales<SF32>(p, n0, kd, sc);
       }
     }
   }
   finish(p, m0, n0, split, acc, [&](int row, int col, float v) {
     static_cast<float*>(p.out)[static_cast<size_t>(row) * p.N + col] = v;
   });
+}
+
+// ---------------------------------------------------------- D. blocksum
+
+constexpr int kBsThreads = 256;
+
+struct BsParams {
+  const int8_t* q;  // [N, K], N-major
+  float* out;       // [M, N]
+  int* part;        // [N / bn, K / sub] i32 zeros, reset by the last blocks
+  int* tickets;     // [N / bn] zeros, reset by the last blocks
+  int M, N, K, bn, sub;
+  int rows;         // weight rows per block (divides bn)
+};
+
+// Block (j, t·(bn / rows) + c): rows t·bn + c·rows + [0, rows) of piece j
+// (columns j·sub + [0, sub)) summed in i32, added to S_tj with an integer
+// atomic (exact, in any order); the block that arrives last at tile t's
+// ticket adds f32(S_tj)·f32(1e-9) over j in order and writes the tile's
+// M x bn outputs.
+__global__ void __launch_bounds__(kBsThreads) blocksum_kernel(BsParams p) {
+  __shared__ int red[kBsThreads / 32];
+  __shared__ float val;
+  const int j = blockIdx.x, nj = gridDim.x;
+  const int chunks = p.bn / p.rows;
+  const int t = blockIdx.y / chunks, c = blockIdx.y % chunks;
+  const int r0 = t * p.bn + c * p.rows, k0 = j * p.sub;
+  const int per_row = p.sub / 16;  // 16-byte loads per row
+  int acc = 0;
+  for (int i = threadIdx.x; i < p.rows * per_row; i += kBsThreads) {
+    const int r = i / per_row, cc = i - r * per_row;
+    const uint4 v = ld16(p.q + static_cast<size_t>(r0 + r) * p.K + k0 + cc * 16);
+    acc = __dp4a(static_cast<int>(v.x), 0x01010101, acc);  // four signed bytes, each times 1
+    acc = __dp4a(static_cast<int>(v.y), 0x01010101, acc);
+    acc = __dp4a(static_cast<int>(v.z), 0x01010101, acc);
+    acc = __dp4a(static_cast<int>(v.w), 0x01010101, acc);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = acc;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int sum = 0;
+#pragma unroll
+    for (int w = 0; w < kBsThreads / 32; ++w) sum += red[w];
+    atomicAdd(p.part + t * nj + j, sum);
+  }
+  if (!i8t::arrive_last(p.tickets + t, nj * chunks)) return;
+  if (threadIdx.x == 0) {
+    float a = 0.f;
+    for (int jj = 0; jj < nj; ++jj) {
+      int* sp = p.part + t * nj + jj;
+      a = __fadd_rn(a, __fmul_rn(__int2float_rn(__ldcg(sp)), 1e-9f));
+      *sp = 0;  // zeros for the next launch
+    }
+    val = a;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < p.M * p.bn; i += kBsThreads)
+    p.out[static_cast<size_t>(i / p.bn) * p.N + t * p.bn + i % p.bn] = val;
 }
 
 template <typename Kernel>
@@ -633,43 +754,79 @@ extern "C" int bt_probe_colsum(const void* q, void* out, void* acc, void* ticket
 }
 
 // y [M, N] = x [M, K] @ W split KS ways over K (ops/probes.py i8mm).
-// form = x_i8 | n_major << 1 | scale << 2 | s_f32 << 4 | out_i32 << 5, one
-// of the forms instantiated below.  K a multiple of 128 (and of bk for the
-// reordered scales), N of 128.  part: KS·M·N 4-byte (null when KS = 1);
-// tickets: ceil(M/64)·N/128 zeros.
+// form: mm_form(x_i8, n_major, scale, s_f32, out_i32), one of the forms
+// instantiated below.  K a multiple of 128 (and of bk for the reordered
+// scales, of 512 for the periodic ones), N of 128.  part: KS·M·N 4-byte
+// (null when KS = 1); tickets: ceil(M/64)·N/128 zeros.
 extern "C" int bt_probe_i8mm(const void* x, const void* q, const void* s, void* out, void* part,
                              void* tickets, int M, int K, int N, int KS, int bk, int form,
                              void* stream) {
   const MmParams p{x, static_cast<const int8_t*>(q), s, out, part, static_cast<int*>(tickets),
-                   M, K, N, KS, bk};
+                   M, K, N, KS, bk, 0, 0};
   switch (form) {
-    case 0 | 2: return launch(i8mm_kernel<false, true, kNone, false, false>, p, stream);
-    case 1 | 2: return launch(i8mm_kernel<true, true, kNone, false, false>, p, stream);
-    case 1 | 2 | 32: return launch(i8mm_kernel<true, true, kNone, false, true>, p, stream);
-    case 1 | 32: return launch(i8mm_kernel<true, false, kNone, false, true>, p, stream);
-    case 0: return launch(i8mm_kernel<false, false, kNone, false, false>, p, stream);
-    case kPlane << 2: return launch(i8mm_kernel<false, false, kPlane, false, false>, p, stream);
-    case kGroup << 2: return launch(i8mm_kernel<false, false, kGroup, false, false>, p, stream);
-    case kReorder << 2: return launch(i8mm_kernel<false, false, kReorder, false, false>, p, stream);
-    case 2 | (kGroup << 2) | 16:
+    case mm_form(false, true, kNone, false, false):
+      return launch(i8mm_kernel<false, true, kNone, false, false>, p, stream);
+    case mm_form(true, true, kNone, false, false):
+      return launch(i8mm_kernel<true, true, kNone, false, false>, p, stream);
+    case mm_form(true, true, kNone, false, true):
+      return launch(i8mm_kernel<true, true, kNone, false, true>, p, stream);
+    case mm_form(true, false, kNone, false, true):
+      return launch(i8mm_kernel<true, false, kNone, false, true>, p, stream);
+    case mm_form(false, false, kNone, false, false):
+      return launch(i8mm_kernel<false, false, kNone, false, false>, p, stream);
+    case mm_form(false, false, kPlane, false, false):
+      return launch(i8mm_kernel<false, false, kPlane, false, false>, p, stream);
+    case mm_form(false, false, kGroup, false, false):
+      return launch(i8mm_kernel<false, false, kGroup, false, false>, p, stream);
+    case mm_form(false, false, kReorder, false, false):
+      return launch(i8mm_kernel<false, false, kReorder, false, false>, p, stream);
+    case mm_form(false, true, kGroup, true, false):
       return launch(i8mm_kernel<false, true, kGroup, true, false>, p, stream);
+    case mm_form(false, true, kTile, true, false):
+      return launch(i8mm_kernel<false, true, kTile, true, false>, p, stream);
+    case mm_form(false, false, kGroup, true, false):
+      return launch(i8mm_kernel<false, false, kGroup, true, false>, p, stream);
+    case mm_form(false, false, kTile, true, false):
+      return launch(i8mm_kernel<false, false, kTile, true, false>, p, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // y [M, N] f32 = sum over groups of G rows of K of (x @ W over the group) ·
-// the group's scale (ops/probes.py i8mm_group).  form = x_i8 | n_major << 1
-// | s_f32 << 4 | (G == 128) << 6.  Shapes as bt_probe_i8mm.
+// the group's scale (ops/probes.py i8mm_group).  form: group_form(x_i8,
+// n_major, s_f32, G); scale (g, n) at s + n·sn + g·sg (elements).  Shapes as
+// bt_probe_i8mm.
 extern "C" int bt_probe_i8mm_group(const void* x, const void* q, const void* s, void* out,
                                    void* part, void* tickets, int M, int K, int N, int KS,
-                                   int form, void* stream) {
+                                   int sn, int sg, int form, void* stream) {
   const MmParams p{x, static_cast<const int8_t*>(q), s, out, part, static_cast<int*>(tickets),
-                   M, K, N, KS, 0};
+                   M, K, N, KS, 0, sn, sg};
   switch (form) {
-    case 1: return launch(i8mm_group_kernel<true, false, 32, false>, p, stream);
-    case 1 | 2 | 16: return launch(i8mm_group_kernel<true, true, 32, true>, p, stream);
-    case 0: return launch(i8mm_group_kernel<false, false, 32, false>, p, stream);
-    case 64: return launch(i8mm_group_kernel<false, false, 128, false>, p, stream);
+    case group_form(true, false, false, 32):
+      return launch(i8mm_group_kernel<true, false, 32, false>, p, stream);
+    case group_form(true, true, true, 32):
+      return launch(i8mm_group_kernel<true, true, 32, true>, p, stream);
+    case group_form(false, false, false, 32):
+      return launch(i8mm_group_kernel<false, false, 32, false>, p, stream);
+    case group_form(false, false, false, 128):
+      return launch(i8mm_group_kernel<false, false, 128, false>, p, stream);
+    case group_form(false, true, true, 32):
+      return launch(i8mm_group_kernel<false, true, 32, true>, p, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// out [M, N] f32: expander_probe's castonly over the N-major int8 q [N, K]
+// (ops/probes.py blocksum): N a multiple of bn, K of sub, sub of 16.  part:
+// (N / bn)·(K / sub) int32 zeros, tickets: N / bn zeros (both left zero).
+// Each block takes the most rows (bn halved while even) that still give 264
+// blocks.
+extern "C" int bt_probe_blocksum(const void* q, void* out, void* part, void* tickets, int M,
+                                 int N, int K, int bn, int sub, void* stream) {
+  int rows = bn;
+  while (rows % 2 == 0 && (K / sub) * (N / rows) < kCsBlocks) rows /= 2;
+  const BsParams p{static_cast<const int8_t*>(q), static_cast<float*>(out),
+                   static_cast<int*>(part), static_cast<int*>(tickets), M, N, K, bn, sub, rows};
+  blocksum_kernel<<<dim3(K / sub, N / rows), kBsThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -38,6 +38,7 @@ SOURCES = {
     "qmm_lane": "qmm_lane.cu",
     "qmm_i8c": "qmm_i8c.cu",
     "probe_i8": "probe_i8.cu",
+    "probe_i4": "probe_i4.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -48,7 +49,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # int8-cache form, _layer the per-layer T = 1 append, paged_ the paged-pool
 # forms, moe_ the grouped (routed expert) form of the lane-major matmul; the
 # i8c matmul's _mv is its M = 1 split-K matvec, _mm its M > 1 tensor-core form;
-# probe_ the i8 stream probes' kernels (ops/probes.py), on no serving path
+# probe_ the probe tools' kernels (ops/probes.py, ops/probes_i4.py), on no
+# serving path, and probe_qmm_i4t_ the serving path's i4t kernel launched by
+# a probe tool
 launch_counts = {
     "qmm_i4t_gd": 0,
     "qmm_i4t_dq": 0,
@@ -79,6 +82,13 @@ launch_counts = {
     "probe_colsum": 0,
     "probe_i8mm": 0,
     "probe_i8mm_group": 0,
+    "probe_blocksum": 0,
+    "probe_expand": 0,
+    "probe_nibble": 0,
+    "probe_i4mm": 0,
+    "probe_gd": 0,
+    "probe_qmm_i4t_gd": 0,
+    "probe_qmm_i4t_dq": 0,
 }
 # (kernel name, (K, N)) → launches, for the matmul kernels; the probes key
 # theirs (kernel name, (form, rows, columns))
@@ -101,6 +111,19 @@ def count(name: str, shape=None) -> None:
         launch_counts[name] += 1
         if shape is not None:
             shape_counts[(name, shape)] = shape_counts.get((name, shape), 0) + 1
+
+
+def recount(name: str, as_name: str, shape=None) -> None:
+    """Move the launch just counted under `name` to `as_name`: a probe tool's
+    launch of a serving kernel is counted as the probe's."""
+    with _count_lock:
+        launch_counts[name] -= 1
+        launch_counts[as_name] += 1
+        if shape is not None:
+            left = shape_counts.pop((name, shape)) - 1
+            if left:
+                shape_counts[(name, shape)] = left
+            shape_counts[(as_name, shape)] = shape_counts.get((as_name, shape), 0) + 1
 
 
 def _nvcc() -> str:

@@ -89,7 +89,21 @@ Phases, each printing one JSON line with its seconds:
    (booster_tpu_torch.tools: kernel_micro, cast_probe, mmq_probe, qmm_gap
    with v0-v7, qmm_probe, and qmm_clean at the 1B shapes), one JSON line
    each; a tool must launch its own kernels and no other, as many times
-   as its rungs say.
+   as its rungs say.  The same for the scale-expansion and i4 probes'
+   Pallas functions (tools/expander_probe.py, tqmm_probe.py,
+   nibble_probe.py, groupdot_probe.py) at their tools' full shapes:
+   csrc/probe_i4.cu's expansion (repeat, tile, repeat of bf16; exact),
+   dequantized nibble tiles (exact), split-half i4 tensor-core matmul (the
+   current, i8mask and affine roundings, and the current one under three
+   more unpack sequences) and M = 1 group-dot with f32 scales (i4, i4 with
+   mins, i8), and probe_i8.cu's new forms (periodic and f32 scales in
+   both layouts, the group form through transposed scales, castonly's
+   block sum, exact), each wrong kernel (a neighbour group's scale, repeat
+   read as tile, the high nibble taken as the low, the zero or the mins
+   dropped, the last K split left out, tiles of 512 rows) 8x past the
+   limit; qmm_i4t.cu's own kernel on the i4 payloads (bf16 planes),
+   counted under keys of its own; then expander_probe, tqmm_probe,
+   nibble_probe and groupdot_probe's main on the card.
 3. parity — 2-layer models on the CPU (plain versions) and on the card
    (kernels), both fed the CPU's greedy tokens: (a) TinyLlama width, batch
    1, Q4_0, bf16 cache: prefill, then 16 decode steps; (b) TinyLlama width,
@@ -1705,11 +1719,48 @@ PROBE_REPLACES = {
     "v7_kern": "tools/qmm_gap.py:189", "v_current": "tools/qmm_probe.py:82",
     "v_cast_only": "tools/qmm_probe.py:93", "v_dot_only": "tools/qmm_probe.py:104",
     "v_group_dots": "tools/qmm_probe.py:116",
+    "part1.reshape": "tools/expander_probe.py:84", "part1.jrepeat": "tools/expander_probe.py:91",
+    "part1.take": "tools/expander_probe.py:97", "part1.ptile": "tools/expander_probe.py:103",
+    "part1.dot16": "tools/expander_probe.py:110",
+    "make_qmm.dot_f32": "tools/expander_probe.py:167",
+    "make_qmm.dot_bf16": "tools/expander_probe.py:174",
+    "make_qmm.reshape": "tools/expander_probe.py:182",
+    "make_qmm.jrepeat": "tools/expander_probe.py:187",
+    "make_qmm.take": "tools/expander_probe.py:190", "make_qmm.ptile": "tools/expander_probe.py:193",
+    "make_qmm.noscale": "tools/expander_probe.py:196",
+    "make_qmm.castonly": "tools/expander_probe.py:200",
+    "make_qmm.gloop": "tools/expander_probe.py:154",
+    "tqmm_i8.sub_reshape": "tools/tqmm_probe.py:84", "tqmm_i8.sub_repeat": "tools/tqmm_probe.py:88",
+    "tqmm_i8.sub_ptile": "tools/tqmm_probe.py:91", "tqmm_i8.noscale": "tools/tqmm_probe.py:93",
+    "tqmm_i4": "tools/tqmm_probe.py:127",
+    "make_step.current": "tools/nibble_probe.py:106",
+    "make_step.i8mask_sub": "tools/nibble_probe.py:113",
+    "make_step.i8mask_affine": "tools/nibble_probe.py:121",
+    "check.current": "tools/nibble_probe.py:187", "check.i8mask_sub": "tools/nibble_probe.py:187",
+    "check.i8mask_affine": "tools/nibble_probe.py:187",
+    "_gd_i4_kernel": "tools/groupdot_probe.py:53", "_gd_i4m_kernel": "tools/groupdot_probe.py:87",
+    "_gd_i8_kernel": "tools/groupdot_probe.py:120",
+    "_gd_i8_kernel.raw": "tools/groupdot_probe.py:120",
+    # rungs that are no Pallas function: the unpacks nibble_probe's main never
+    # runs (unpack_i8_shift's sequence and two of the port's), and the serving
+    # path's own i4t kernel on a probe's payload
+    "unpack.xor88": "tools/nibble_probe.py:142 (no pallas_call from main)",
+    "unpack.magic_f32": "tools/nibble_probe.py:106 (the current function)",
+    "unpack.magic_bf16": "tools/nibble_probe.py:106 (the current function)",
+    "qmm_i4t.dq": "booster_tpu/ops/pallas_qmm.py:469",
+    "qmm_i4t.gd": "booster_tpu/ops/pallas_qmm.py:393",
 }
+# each probe kernel's source
+PROBE_SOURCES = {"probe_colsum": "probe_i8.cu", "probe_i8mm": "probe_i8.cu",
+                 "probe_i8mm_group": "probe_i8.cu", "probe_blocksum": "probe_i8.cu",
+                 "probe_expand": "probe_i4.cu", "probe_nibble": "probe_i4.cu",
+                 "probe_i4mm": "probe_i4.cu", "probe_gd": "probe_i4.cu",
+                 "probe_qmm_i4t_dq": "qmm_i4t.cu", "probe_qmm_i4t_gd": "qmm_i4t.cu"}
 # the tools the phase runs on the card, with their arguments
 PROBE_TOOLS = (("kernel_micro", []), ("cast_probe", []), ("mmq_probe", []),
                ("qmm_gap", ["--variants", "v0,v1,v2,v3,v4,v5,v6,v7"]), ("qmm_probe", []),
-               ("qmm_clean", ["--shapes", "1b", "--dense"]))
+               ("qmm_clean", ["--shapes", "1b", "--dense"]), ("expander_probe", []),
+               ("tqmm_probe", []), ("nibble_probe", []), ("groupdot_probe", []))
 
 
 def _probe_inputs(gen):
@@ -1731,6 +1782,7 @@ def _probe_inputs(gen):
 
 _NO_LIB = "no one torch call takes an int8 weight against a bf16 x"
 _NO_LIB_GROUP = "no one torch call (per-group i32 dots, each rescaled)"
+_NO_LIB_I4 = "no one torch call takes a 4-bit weight"
 M_PROBE = 64  # rows of x in every probe tool
 
 
@@ -1890,7 +1942,7 @@ def _qmm_probe_cases(gen) -> list:
          lambda: mmp(xb, q, n_major=True, s=s, scale="group"), False,
          {"neighbour group's scale": lambda: mmp(xb, q, n_major=True, s=sn, scale="group")},
          _NO_LIB, base + 2 * M * K + s.numel() * 4, ops, BF16_OPS_PER_S,
-         ("probe_i8mm", ("bf16.n.group", K, N))),
+         ("probe_i8mm", ("bf16.n.group.f32", K, N))),
         (("v_cast_only",), "bf16 x @ bf16(q)^T", lambda: mm(xb, q, n_major=True),
          lambda: mmp(xb, q, n_major=True), False,
          {"weight read K-major": lambda: mmp(xb, q.view(K, N))}, _NO_LIB, base + 2 * M * K,
@@ -1907,6 +1959,276 @@ def _qmm_probe_cases(gen) -> list:
          base + M * K + s.numel() * 4, ops, INT8_OPS_PER_S,
          ("probe_i8mm_group", ("i8.n.g32", K, N))),
     ]
+
+
+def _expander_cases(gen) -> list:
+    """expander_probe: part 1's expansion (s [8, 128] f32 -> [8, 256], g 32)
+    and part 2's N-major i8 matvec [4096, 4096] at BM 8, f32 scales."""
+    import torch
+
+    from booster_tpu_torch.ops import probes as pr
+    from booster_tpu_torch.ops import probes_i4 as p4
+    from booster_tpu_torch.tools.timing import BF16_OPS_PER_S, F32_OPS_PER_S
+
+    ints, normal, _ = _probe_inputs(gen)
+    BN, SG, g, SUB = 8, 128, 32, 256
+    s1 = torch.randn(BN, SG, device="cuda", generator=gen)
+    eb, eb_tile = (p4.expand_bytes(BN, SG, g, SUB, tile) for tile in (False, True))
+    ex, exp = p4.expand, p4.expand_plain
+    cases = [
+        (("part1.reshape", "part1.jrepeat", "part1.take"), "repeat [8,128] -> [8,256]",
+         lambda: ex(s1, g, SUB), lambda: exp(s1, g, SUB), True,
+         {"repeat read as tile": lambda: exp(s1, g, SUB, tile=True)},
+         lambda: torch.repeat_interleave(s1[:, :SUB // g], g, dim=1), eb, 0, F32_OPS_PER_S,
+         ("probe_expand", ("repeat", BN, SUB))),
+        (("part1.ptile",), "tile [8,128] -> [8,256]", lambda: ex(s1, g, SUB, tile=True),
+         lambda: exp(s1, g, SUB, tile=True), True,
+         {"tile read as repeat": lambda: exp(s1, g, SUB)}, lambda: s1.repeat(1, SUB // SG),
+         eb_tile, 0, F32_OPS_PER_S, ("probe_expand", ("tile", BN, SUB))),
+        (("part1.dot16",), "repeat of bf16(s)", lambda: ex(s1, g, SUB, bf16=True),
+         lambda: exp(s1, g, SUB, bf16=True), True,
+         {"repeat read as tile": lambda: exp(s1, g, SUB, tile=True, bf16=True)},
+         "no one torch call (the rounding to bf16, then the repeat)", eb, 0, F32_OPS_PER_S,
+         ("probe_expand", ("repeat.bf16", BN, SUB))),
+    ]
+    M, N, K = 8, 4096, 4096
+    q = ints(N, K)
+    x = normal(M, K)
+    s = torch.rand(N, K // 32, device="cuda", generator=gen) * 0.02
+    s_t = s.t().contiguous()  # gloop's [K/32, N]
+    ng = torch.roll(s, 1, 1)
+    base = N * K + 2 * M * K + 4 * M * N
+    sb = s.numel() * 4
+    ops = 2 * M * N * K
+    mm, mmp = pr.i8mm, pr.i8mm_plain
+    cases += [
+        (("make_qmm.dot_f32", "make_qmm.dot_bf16", "make_qmm.reshape", "make_qmm.jrepeat",
+          "make_qmm.take"), f"M {M}: x @ (bf16(q) * bf16(s[n, k // 32]))^T, q [{N},{K}]",
+         lambda: mm(x, q, n_major=True, s=s, scale="group"),
+         lambda: mmp(x, q, n_major=True, s=s, scale="group"), False,
+         {"neighbour group's scale": lambda: mmp(x, q, n_major=True, s=ng, scale="group")},
+         _NO_LIB, base + sb, ops, BF16_OPS_PER_S, ("probe_i8mm", ("bf16.n.group.f32", K, N))),
+        (("make_qmm.ptile",), f"M {M}: the same with s[n, k % {K // 32}]",
+         lambda: mm(x, q, n_major=True, s=s, scale="tile"),
+         lambda: mmp(x, q, n_major=True, s=s, scale="tile"), False,
+         {"tile read as repeat": lambda: mmp(x, q, n_major=True, s=s, scale="group")}, _NO_LIB,
+         base + sb, ops, BF16_OPS_PER_S, ("probe_i8mm", ("bf16.n.tile.f32", K, N))),
+        (("make_qmm.noscale",), f"M {M}: x @ bf16(q)^T", lambda: mm(x, q, n_major=True),
+         lambda: mmp(x, q, n_major=True), False,
+         {"weight read K-major": lambda: mmp(x, q.view(K, N))}, _NO_LIB, base, ops,
+         BF16_OPS_PER_S, ("probe_i8mm", ("bf16.n.none", K, N))),
+        (("make_qmm.castonly",), "block sums, BN 1024, SUB 1024",
+         lambda: pr.blocksum(q, M, 1024, 1024),
+         lambda: pr.blocksum_plain(q, M, 1024, 1024), True,
+         {"tiles of 512 rows": lambda: pr.blocksum_plain(q, M, 512, 1024)},
+         "no one torch call (block sums, then their scaled sum per tile)", N * K + 4 * M * N,
+         N * K, F32_OPS_PER_S, ("probe_blocksum", ("bn1024.sub1024", K, N))),
+        (("make_qmm.gloop",), f"M {M}: groups of 32, f32 dots * s, s [{K // 32},{N}]",
+         lambda: pr.i8mm_group(x, q, s_t.t(), n_major=True),
+         lambda: pr.i8mm_group_plain(x, q, s_t.t(), n_major=True), False,
+         {"rescale dropped": lambda: pr.i8mm_group_plain(x, q, torch.ones_like(s), n_major=True),
+          "scales read [N, K/32]": lambda: pr.i8mm_group_plain(x, q, s_t.view(N, K // 32),
+                                                               n_major=True)},
+         _NO_LIB_GROUP, base + sb, ops, BF16_OPS_PER_S,
+         ("probe_i8mm_group", ("bf16.n.g32.sT", K, N))),
+    ]
+    return cases
+
+
+def _i4_payload(gen, rows, cols):
+    import torch
+
+    return torch.randint(0, 256, (rows, cols), dtype=torch.uint8, device="cuda", generator=gen)
+
+
+def _swap_nibbles(q):
+    return (q >> 4) | (q << 4)  # u8: the high nibble taken as the low
+
+
+def _tqmm_cases(gen) -> list:
+    """tqmm_probe at [4096, 4096], G 32, M 64: K-major int8 with f32 scales,
+    the split-half i4 on the tensor cores and qmm_i4t.cu's CUDA-core kernel."""
+    import torch
+
+    from booster_tpu_torch.ops import probes as pr
+    from booster_tpu_torch.ops import probes_i4 as p4
+    from booster_tpu_torch.tools.timing import BF16_OPS_PER_S
+
+    ints, normal, _ = _probe_inputs(gen)
+    M, N, K = M_PROBE, 4096, 4096
+    half = K // 2
+    q, x = ints(K, N), normal(M, K)
+    s = torch.rand(K // 32, N, device="cuda", generator=gen) * 0.02
+    ng = torch.roll(s, 1, 0)
+    base = N * K + 2 * M * K + 4 * M * N
+    ops = 2 * M * N * K
+    mm, mmp = pr.i8mm, pr.i8mm_plain
+    p = _i4_payload(gen, half, N)
+    s4 = torch.rand(2, half // 32, N, device="cuda", generator=gen) * 0.02 + 0.001
+    x3 = normal(M, 2, half)
+    w4 = p4.i4t_weight(p, s4)  # qmm_i4t.cu's bf16 planes, outside the timed call
+    b4 = N * half + 2 * M * K + 4 * M * N
+    return [
+        (("tqmm_i8.sub_reshape", "tqmm_i8.sub_repeat"),
+         f"M {M}: x @ (bf16(q) * bf16(s[k // 32, n])), q [{K},{N}]",
+         lambda: mm(x, q, s=s, scale="group"), lambda: mmp(x, q, s=s, scale="group"), False,
+         {"neighbour group's scale": lambda: mmp(x, q, s=ng, scale="group")}, _NO_LIB,
+         base + s.numel() * 4, ops, BF16_OPS_PER_S, ("probe_i8mm", ("bf16.k.group.f32", K, N))),
+        (("tqmm_i8.sub_ptile",), f"M {M}: the same with s[k % {K // 32}, n]",
+         lambda: mm(x, q, s=s, scale="tile"), lambda: mmp(x, q, s=s, scale="tile"), False,
+         {"tile read as repeat": lambda: mmp(x, q, s=s, scale="group")}, _NO_LIB,
+         base + s.numel() * 4, ops, BF16_OPS_PER_S, ("probe_i8mm", ("bf16.k.tile.f32", K, N))),
+        (("tqmm_i8.noscale",), f"M {M}: x @ bf16(q), K-major", lambda: mm(x, q),
+         lambda: mmp(x, q), False, {"weight read N-major": lambda: mmp(x, q.view(N, K).t())},
+         _NO_LIB, base, ops, BF16_OPS_PER_S, ("probe_i8mm", ("bf16.k.none", K, N))),
+        (("tqmm_i4",), f"M {M}: split-half i4, payload [{half},{N}], f32 scales",
+         lambda: p4.i4mm(x3, p, s4), lambda: p4.i4mm_plain(x3, p, s4), False,
+         {"high nibble taken as the low": lambda: p4.i4mm_plain(x3, _swap_nibbles(p), s4),
+          "neighbour group's scale": lambda: p4.i4mm_plain(x3, p, torch.roll(s4, 1, 1))},
+         _NO_LIB_I4, b4 + s4.numel() * 4, ops, BF16_OPS_PER_S,
+         ("probe_i4mm", ("current.i32", K, N))),
+        (("qmm_i4t.dq",), f"M {M}: qmm_i4t.cu (CUDA cores) on the tqmm_i4 payload, bf16 planes",
+         lambda: p4.qmm_i4t(x3, w4), lambda: p4.qmm_i4t_plain(x3, w4), False,
+         {"high nibble taken as the low": lambda: p4.qmm_i4t_plain(
+             x3, p4.i4t_weight(_swap_nibbles(p), s4))},
+         _NO_LIB_I4, b4 + s4.numel() * 2, ops, BF16_OPS_PER_S, ("probe_qmm_i4t_dq", (K, N))),
+    ]
+
+
+def _nibble_cases(gen) -> list:
+    """nibble_probe at N 11264, K 2048, M 64: the three unpacks of its main
+    and the port's three more of the current function, qmm_i4t.cu's kernel,
+    and the check's dequantized tiles."""
+    import torch
+
+    from booster_tpu_torch.ops import probes_i4 as p4
+    from booster_tpu_torch.tools.timing import BF16_OPS_PER_S, F32_OPS_PER_S
+
+    _, normal, _ = _probe_inputs(gen)
+    M, N, K = M_PROBE, 11264, 2048
+    half = K // 2
+    q = _i4_payload(gen, half, N)
+    s0 = torch.randn(half // 32, N, device="cuda", generator=gen)
+    s1 = torch.randn(half // 32, N, device="cuda", generator=gen)
+    rows = {"current": torch.stack([s0, s1]), "i8mask": torch.stack([s0, s1 / 16]),
+            "affine": torch.stack([s0, s1 / 16, 8 * s0])}
+    x3 = normal(M, 2, half)
+    base = N * half + 2 * M * K + 4 * M * N
+    ops = 2 * M * N * K
+    i4, i4p = p4.i4mm, p4.i4mm_plain
+    cur = rows["current"]
+    swapped = _swap_nibbles(q)
+    cases = [
+        (("make_step.current",), f"M {M}: (nib - 8) * s, rows [s0, s1]",
+         lambda: i4(x3, q, cur), lambda: i4p(x3, q, cur), False,
+         {"high nibble taken as the low": lambda: i4p(x3, swapped, cur),
+          "neighbour group's scale": lambda: i4p(x3, q, torch.roll(cur, 1, 1))}, _NO_LIB_I4,
+         base + cur.numel() * 4, ops, BF16_OPS_PER_S, ("probe_i4mm", ("current.i32", K, N))),
+        (("make_step.i8mask_sub",), f"M {M}: byte ^ 0x80, rows [s0, s1/16]",
+         lambda: i4(x3, q, rows["i8mask"], "i8mask"),
+         lambda: i4p(x3, q, rows["i8mask"], "i8mask"), False,
+         {"rows [s0, s1] (16x the high half)": lambda: i4p(x3, q, cur, "i8mask")}, _NO_LIB_I4,
+         base + cur.numel() * 4, ops, BF16_OPS_PER_S, ("probe_i4mm", ("i8mask.i32", K, N))),
+        (("make_step.i8mask_affine",), f"M {M}: lo unsigned, rows [s0, s1/16, 8 s0]",
+         lambda: i4(x3, q, rows["affine"], "affine"),
+         lambda: i4p(x3, q, rows["affine"], "affine"), False,
+         {"the zero dropped": lambda: i4p(x3, q, torch.cat([rows["affine"][:2], 0 * s0[None]]),
+                                          "affine")},
+         _NO_LIB_I4, base + rows["affine"].numel() * 4, ops, BF16_OPS_PER_S,
+         ("probe_i4mm", ("affine.i32", K, N))),
+    ]
+    for unpack in ("xor88", "magic_f32", "magic_bf16"):
+        cases.append(((f"unpack.{unpack}",), f"M {M}: the current function, unpack {unpack}",
+                      lambda unpack=unpack: i4(x3, q, cur, "current", unpack),
+                      lambda: i4p(x3, q, cur), False,
+                      {"high nibble taken as the low": lambda: i4p(x3, swapped, cur)},
+                      _NO_LIB_I4, base + cur.numel() * 4, ops, BF16_OPS_PER_S,
+                      ("probe_i4mm", (f"current.{unpack}", K, N))))
+    w4 = p4.i4t_weight(q, cur)  # qmm_i4t.cu's bf16 planes, outside the timed call
+    cases.append((("qmm_i4t.dq",), f"M {M}: qmm_i4t.cu (CUDA cores), bf16 planes",
+                  lambda: p4.qmm_i4t(x3, w4), lambda: p4.qmm_i4t_plain(x3, w4), False,
+                  {"high nibble taken as the low": lambda: p4.qmm_i4t_plain(
+                      x3, p4.i4t_weight(swapped, cur))},
+                  _NO_LIB_I4, base + cur.numel() * 2, ops, BF16_OPS_PER_S,
+                  ("probe_qmm_i4t_dq", (K, N))))
+    qs = q[:256, :128].contiguous()
+    for name, mode in (("i8mask_sub", "i8mask"), ("i8mask_affine", "affine"),
+                       ("current", "current")):
+        sc = rows[mode][:, :8, :128].contiguous()
+        cases.append(((f"check.{name}",), f"dequantized tiles u8 [256,128], {mode}",
+                      lambda sc=sc, mode=mode: torch.stack(p4.nibble_tiles(qs, sc, mode)),
+                      lambda sc=sc, mode=mode: torch.stack(p4.nibble_tiles_plain(qs, sc, mode)),
+                      True, {"high nibble taken as the low":
+                             lambda sc=sc, mode=mode: torch.stack(
+                                 p4.nibble_tiles_plain(_swap_nibbles(qs), sc, mode))},
+                      "no one torch call (the nibble unpack and its roundings)",
+                      qs.numel() + sc.numel() * 4 + 2 * qs.numel() * 4, 2 * qs.numel(),
+                      F32_OPS_PER_S, ("probe_nibble", (mode, 256, 128))))
+    return cases
+
+
+def _groupdot_cases(gen) -> list:
+    """groupdot_probe at its 1b shapes, gate-up [11264 <- 2048] and down
+    [2048 <- 5632]: the i4, i4-with-mins and i8 group-dots with f32 scales,
+    and qmm_i4t.cu's M = 1 kernel on the i4 payloads with bf16 planes."""
+    import torch
+
+    from booster_tpu_torch.ops import probes_i4 as p4
+    from booster_tpu_torch.tools.timing import F32_OPS_PER_S
+
+    ints, normal, _ = _probe_inputs(gen)
+    gd, gdp = p4.groupdot, p4.groupdot_plain
+    cases = []
+    for N, K, label in ((11264, 2048, "gate-up"), (2048, 5632, "down")):
+        half = K // 2
+        p = _i4_payload(gen, half, N)
+        s4 = torch.rand(4, half // 32, N, device="cuda", generator=gen) * 0.02 + 0.01
+        s2 = s4[:2].contiguous()
+        x3 = normal(1, 2, half)
+        cut = p.clone()
+        cut[-256:] = 0x88  # the last K split (256 payload rows) contributes nothing
+        for fns, fmt, s, wrong in (
+                (("_gd_i4_kernel",), "i4", s2,
+                 {"the zero dropped": lambda p=p, x3=x3, s2=s2: gdp(
+                     x3, p, torch.cat([s2, 0 * s2]), "i4m"),
+                  "the last K split left out": lambda cut=cut, x3=x3, s2=s2: gdp(
+                      x3, cut, s2, "i4")}),
+                (("_gd_i4m_kernel",), "i4m", s4,
+                 {"the mins dropped": lambda p=p, x3=x3, s4=s4: gdp(
+                     x3, p, torch.cat([s4[:2], 0 * s4[2:]]), "i4m")})):
+            qb = p.numel() + s.numel() * 4
+            cases.append((fns, f"M 1, {fmt}, {label} [{N}x{K}], f32 scales",
+                          lambda p=p, x3=x3, s=s, fmt=fmt: gd(x3, p, s, fmt),
+                          lambda p=p, x3=x3, s=s, fmt=fmt: gdp(x3, p, s, fmt), False, wrong,
+                          _NO_LIB_I4, qb + 2 * K + 4 * N, 2 * N * K, F32_OPS_PER_S,
+                          ("probe_gd", (fmt, K, N))))
+            zero = 8 if fmt == "i4" else 0
+            w4 = p4.i4t_weight(p, s, zero)  # bf16 planes, outside the timed call
+            cases.append((("qmm_i4t.gd",),
+                          f"M 1, qmm_i4t.cu on the {fmt} payload, bf16 planes, {label}",
+                          lambda x3=x3, w4=w4: p4.qmm_i4t(x3, w4),
+                          lambda x3=x3, w4=w4: p4.qmm_i4t_plain(x3, w4),
+                          False, {"high nibble taken as the low":
+                                  lambda p=p, x3=x3, s=s, zero=zero: p4.qmm_i4t_plain(
+                                      x3, p4.i4t_weight(_swap_nibbles(p), s, zero))},
+                          _NO_LIB_I4, p.numel() + s.numel() * 2 + 2 * K + 4 * N, 2 * N * K,
+                          F32_OPS_PER_S, ("probe_qmm_i4t_gd", (K, N))))
+        q8 = ints(K, N)
+        s8 = torch.rand(1, K // 32, N, device="cuda", generator=gen) * 0.02 + 0.01
+        x = normal(1, K)
+        cut8 = q8.clone()
+        cut8[-256:] = 0
+        cases.append((("_gd_i8_kernel", "_gd_i8_kernel.raw"), f"M 1, i8, {label} [{N}x{K}]",
+                      lambda q8=q8, x=x, s8=s8: gd(x, q8, s8, "i8"),
+                      lambda q8=q8, x=x, s8=s8: gdp(x, q8, s8, "i8"), False,
+                      {"neighbour group's scale": lambda q8=q8, x=x, s8=s8: gdp(
+                          x, q8, torch.roll(s8, 1, 1), "i8"),
+                       "the last K split left out": lambda cut8=cut8, x=x, s8=s8: gdp(
+                           x, cut8, s8, "i8")},
+                      "no one torch call (per-group dots, each rescaled)",
+                      q8.numel() + s8.numel() * 4 + 2 * K + 4 * N, 2 * N * K, F32_OPS_PER_S,
+                      ("probe_gd", ("i8", K, N))))
+    return cases
 
 
 def _probe_check(case, entries: list, keys: list, failures: list) -> None:
@@ -1941,21 +2263,24 @@ def _probe_check(case, entries: list, keys: list, failures: list) -> None:
     for fn in fns:
         entries.append({
             "name": key[0], "function": fn, "shape": label, "key": key, "path": "probes",
-            "route": "cuda", "source": "booster_tpu_torch/csrc/probe_i8.cu",
+            "route": "cuda", "source": f"booster_tpu_torch/csrc/{PROBE_SOURCES[key[0]]}",
             "replaces": PROBE_REPLACES[fn], "max_abs_err": err, **t,
             "bound_ms": b_ms, "bound_by": b_by, "library_reason": None if callable(lib) else lib,
             "check": "exact" if exact else CHECKS["qmm"], "wrong_x_limit": seen})
 
 
 def phase_probes(entries: list) -> dict:
-    """The i8 stream probes: each of the 21 Pallas functions of the JAX
-    package's kernel_micro, cast_probe, mmq_probe, qmm_gap and qmm_probe
-    tools through its kernel (csrc/probe_i8.cu) against its plain version
-    at the tools' full shapes, exact (column sums, integer dots) or within
-    CHECKS["qmm"], and each wrong kernel 8x past that limit (for the exact
-    forms, past 8x the qmm limit); then each port tool's main on the card
+    """The probe tools: each Pallas function of the JAX package's
+    kernel_micro, cast_probe, mmq_probe, qmm_gap, qmm_probe, expander_probe,
+    tqmm_probe, nibble_probe and groupdot_probe tools through its kernel
+    (csrc/probe_i8.cu, csrc/probe_i4.cu) against its plain version at the
+    tools' full shapes, exact (column sums, integer dots, the expansion,
+    the block sums, the nibble tiles) or within CHECKS["qmm"], and each
+    wrong kernel 8x past that limit (for the exact forms, past 8x the qmm
+    limit); then each port tool's main on the card
     (booster_tpu_torch.tools), which must launch its own kernels and no
-    other, as many times as its rungs say."""
+    other, as many times as its rungs say.  One tool's inputs at a time
+    live on the card."""
     import importlib
 
     import torch
@@ -1972,7 +2297,8 @@ def phase_probes(entries: list) -> dict:
     # kernels {name: plain call}, library call or the reason there is none,
     # bytes, operations, their rate, the kernel's count key); the inputs of
     # one tool at a time live on the card
-    for cases in (_colsum_cases, _cast_cases, _mmq_cases, _gap_cases, _qmm_probe_cases):
+    for cases in (_colsum_cases, _cast_cases, _mmq_cases, _gap_cases, _qmm_probe_cases,
+                  _expander_cases, _tqmm_cases, _nibble_cases, _groupdot_cases):
         for case in cases(gen):
             _probe_check(case, entries, keys, failures)
         torch.cuda.empty_cache()

@@ -22,7 +22,7 @@ from booster_tpu_torch.ops import kv_append as ka  # noqa: E402
 from booster_tpu_torch.ops import mlp as tm  # noqa: E402
 from booster_tpu_torch.ops import paged_attention as pga  # noqa: E402
 from booster_tpu_torch.ops import prefill_attention as pa  # noqa: E402
-from booster_tpu_torch.ops import probes  # noqa: E402
+from booster_tpu_torch.ops import probes, probes_i4  # noqa: E402
 from booster_tpu_torch.ops import qmm as tq  # noqa: E402
 from booster_tpu_torch.ops.kv_cache import _quantize_kv  # noqa: E402
 from booster_tpu_torch.quant.qtensor import QTensor  # noqa: E402
@@ -533,9 +533,9 @@ def test_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x, q = _probe_operands(gen, 16, 512, 256, False, False)
     with pytest.raises(NotImplementedError):  # i32 out of a bf16 x
         probes.i8mm(x, q, out_i32=True)
-    with pytest.raises(NotImplementedError):  # f32 scales over a K-major weight
-        probes.i8mm(x, q, s=_probe_scales(gen, "group", torch.float32, 512, 256, False),
-                    scale="group")
+    with pytest.raises(NotImplementedError):  # f32 reordered scales
+        probes.i8mm(x, q, s=_probe_scales(gen, "reorder", torch.float32, 512, 256, False),
+                    scale="reorder", bk=256)
     with pytest.raises(NotImplementedError):  # N not a multiple of 128
         probes.i8mm(x, q[:, :192].contiguous())
     with pytest.raises(NotImplementedError):  # a group of 64
@@ -543,3 +543,166 @@ def test_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                           group=64)
     with pytest.raises(NotImplementedError):  # C not a multiple of 1024
         probes.colsum(q, "i32")
+
+
+# -- the scale-expansion and i4 probes' kernels (csrc/probe_i8.cu's new forms,
+# csrc/probe_i4.cu) ------------------------------------------------------------
+
+# (N-major weight, scale): the f32 forms expander_probe and tqmm_probe run
+PROBE_F32_FORMS = [(True, "tile"), (False, "group"), (False, "tile")]
+
+
+@pytest.mark.parametrize("n_major,scale", PROBE_F32_FORMS)
+@pytest.mark.parametrize("m,k,n", [(8, 1024, 256), (64, 512, 384), (100, 2048, 128)])
+def test_probe_i8mm_f32_scales_match_plain(cuda, n_major, scale, m, k, n):
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    x, q = _probe_operands(gen, m, k, n, False, n_major)
+    s = _probe_scales(gen, "group", torch.float32, k, n, n_major) * 0.01
+    got = probes.i8mm(x, q, n_major=n_major, s=s, scale=scale)
+    want = probes.i8mm_plain(x, q, n_major=n_major, s=s, scale=scale)
+    torch.cuda.synchronize()
+    limit = 2e-4 * want.abs().max()
+    assert (got - want).abs().max() <= limit
+    other = "group" if scale == "tile" else "tile"  # the other scale rule is seen
+    wrong = probes.i8mm_plain(x, q, n_major=n_major, s=s, scale=other)
+    assert (got - wrong).abs().max() > 8 * limit
+
+
+@pytest.mark.parametrize("transposed", [True, False])
+def test_probe_group_form_reads_scales_through_their_strides(cuda, transposed):
+    """expander_probe's gloop: scales [K/32, N] over an N-major weight, as
+    the transposed view of a contiguous plane."""
+    gen = torch.Generator(device="cuda").manual_seed(35)
+    x, q = _probe_operands(gen, 8, 1024, 384, False, True)
+    s = _probe_scales(gen, "group", torch.float32, 1024, 384, False)  # [K/32, N]
+    s = s.t() if transposed else s.t().contiguous()
+    kernels.reset_counts()
+    got = probes.i8mm_group(x, q, s, n_major=True)
+    want = probes.i8mm_group_plain(x, q, s, n_major=True)
+    torch.cuda.synchronize()
+    limit = 2e-4 * want.abs().max()
+    assert (got - want).abs().max() <= limit
+    assert (got - probes.i8mm_group_plain(x, q, s.t().contiguous().reshape(s.shape),
+                                          n_major=True)).abs().max() > 8 * limit
+    key = ("probe_i8mm_group", ("bf16.n.g32" + (".sT" if transposed else ""), 1024, 384))
+    assert kernels.shape_counts == {key: 1}
+
+
+@pytest.mark.parametrize("bn,sub", [(1024, 1024), (512, 256), (128, 512)])
+def test_probe_blocksum_kernel_is_exact(cuda, bn, sub):
+    gen = torch.Generator(device="cuda").manual_seed(36)
+    q = torch.randint(-127, 127, (2048, 2048), dtype=torch.int8, device="cuda", generator=gen)
+    for _ in range(2):  # the second launch finds the scratch the first left zero
+        got = probes.blocksum(q, 8, bn, sub)
+        torch.cuda.synchronize()
+        assert torch.equal(got, probes.blocksum_plain(q, 8, bn, sub))
+
+
+@pytest.mark.parametrize("tile,bf16", [(False, False), (True, False), (False, True)])
+@pytest.mark.parametrize("r,c,w,g", [(8, 128, 256, 32), (64, 96, 3072, 32), (3, 16, 40, 4)])
+def test_probe_expand_kernel_is_exact(cuda, tile, bf16, r, c, w, g):
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    s = torch.randn(r, c, device="cuda", generator=gen)
+    got = probes_i4.expand(s, g, w, tile, bf16)
+    torch.cuda.synchronize()
+    assert torch.equal(got, probes_i4.expand_plain(s, g, w, tile, bf16))
+
+
+def _i4_operands(gen, m, k, n, mode):
+    half = k // 2
+    q = torch.randint(0, 256, (half, n), dtype=torch.uint8, device="cuda", generator=gen)
+    s = torch.randn(probes_i4.SCALE_ROWS[mode], half // 32, n, device="cuda", generator=gen)
+    x3 = torch.randn(m, 2, half, device="cuda", generator=gen).to(torch.bfloat16)
+    return x3, q, s
+
+
+@pytest.mark.parametrize("mode", probes_i4.MODES)
+@pytest.mark.parametrize("rows,cols", [(256, 128), (1024, 384)])
+def test_probe_nibble_kernel_is_exact(cuda, mode, rows, cols):
+    gen = torch.Generator(device="cuda").manual_seed(38)
+    _, q, s = _i4_operands(gen, 1, 2 * rows, cols, mode)
+    got = probes_i4.nibble_tiles(q, s, mode)
+    torch.cuda.synchronize()
+    for a, b in zip(got, probes_i4.nibble_tiles_plain(q, s, mode)):
+        assert torch.equal(a, b)
+
+
+# (mode, unpack): every i4mm form the probe tools run
+PROBE_I4_FORMS = [("current", u) for u in probes_i4.UNPACKS] + [("i8mask", "i32"),
+                                                                 ("affine", "i32")]
+
+
+@pytest.mark.parametrize("mode,unpack", PROBE_I4_FORMS)
+@pytest.mark.parametrize("m,k,n", [(8, 512, 256), (64, 2048, 384), (100, 1024, 128)])
+def test_probe_i4mm_kernel_matches_plain(cuda, mode, unpack, m, k, n):
+    gen = torch.Generator(device="cuda").manual_seed(39)
+    x3, q, s = _i4_operands(gen, m, k, n, mode)
+    got = probes_i4.i4mm(x3, q, s, mode, unpack)
+    want = probes_i4.i4mm_plain(x3, q, s, mode)
+    torch.cuda.synchronize()
+    limit = 2e-4 * want.abs().max()
+    assert (got - want).abs().max() <= limit
+    assert (got - probes_i4.i4mm_plain(x3, q, s.flip(0), mode)).abs().max() > 8 * limit
+    # every unpack of one mode is the same numbers in the same order
+    assert torch.equal(probes_i4.i4mm(x3, q, s, mode), got)
+
+
+@pytest.mark.parametrize("fmt", probes_i4.FORMATS)
+@pytest.mark.parametrize("n,k", [(1024, 512), (256, 4096), (384, 1536)])
+def test_probe_groupdot_kernel_matches_plain(cuda, fmt, n, k):
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    rows = k if fmt == "i8" else k // 2
+    q = (torch.randint(-127, 128, (rows, n), dtype=torch.int8, device="cuda", generator=gen)
+         if fmt == "i8" else
+         torch.randint(0, 256, (rows, n), dtype=torch.uint8, device="cuda", generator=gen))
+    s = torch.rand({"i4": 2, "i4m": 4, "i8": 1}[fmt], rows // 32, n, device="cuda",
+                   generator=gen) * 0.02 + 0.01
+    x = torch.randn(1, k, device="cuda", generator=gen).to(torch.bfloat16)
+    if fmt != "i8":
+        x = x.reshape(1, 2, k // 2)
+    got = probes_i4.groupdot(x, q, s, fmt)
+    want = probes_i4.groupdot_plain(x, q, s, fmt)
+    torch.cuda.synchronize()
+    limit = 2e-4 * want.abs().max()
+    assert (got - want).abs().max() <= limit
+    assert torch.equal(probes_i4.groupdot(x, q, s, fmt), got)  # the split sums repeat
+
+
+@pytest.mark.parametrize("m", [1, 8])
+def test_probe_qmm_i4t_counts_under_its_own_key(cuda, m):
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    x3, q, s = _i4_operands(gen, m, 1024, 256, "current")
+    s = s.abs() * 0.02 + 0.01
+    w = probes_i4.i4t_weight(q, s)
+    kernels.reset_counts()
+    got = probes_i4.qmm_i4t(x3, w)
+    want = probes_i4.qmm_i4t_plain(x3, w)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max() <= 2e-4 * want.abs().max()
+    key = "probe_qmm_i4t_gd" if m == 1 else "probe_qmm_i4t_dq"
+    assert {k: v for k, v in kernels.launch_counts.items() if v} == {key: 1}
+    assert [k for k, _ in kernels.shape_counts] == [key]
+
+
+def test_probe_i4_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    x3, q, s = _i4_operands(gen, 8, 512, 256, "current")
+    with pytest.raises(NotImplementedError):  # an unpack of a mode other than current
+        probes_i4.i4mm(x3, q, s[:2], "i8mask", "xor88")
+    with pytest.raises(NotImplementedError):  # N not a multiple of 128
+        probes_i4.i4mm(x3, q[:, :192].contiguous(), s[:, :, :192].contiguous())
+    with pytest.raises(ValueError):  # affine takes three scale rows
+        probes_i4.i4mm(x3, q, s, "affine")
+    with pytest.raises(NotImplementedError):  # N not a multiple of 128
+        probes_i4.groupdot(x3[:1].contiguous(), q[:, :192].contiguous(),
+                           s[:, :, :192].contiguous(), "i4")
+    with pytest.raises(ValueError):  # the repeat reads past the scales
+        probes_i4.expand(s[0], 32, 32 * s.shape[2] + 1)
+    qi = torch.zeros(1024, 1024, dtype=torch.int8, device="cuda")
+    with pytest.raises(NotImplementedError):  # K not a multiple of sub
+        probes.blocksum(qi, 8, 1024, 384)
+    x, qk = _probe_operands(gen, 8, 384, 256, False, False)
+    with pytest.raises(NotImplementedError):  # tile scales need K a multiple of 512
+        probes.i8mm(x, qk, s=_probe_scales(gen, "group", torch.float32, 384, 256, False),
+                    scale="tile")
+
