@@ -9,11 +9,11 @@
 // covers its per-(row, head) twin _paged_attn_kernel_stacked and the one-layer
 // _paged_attn_kernel (no self term): the same function, with column j of slot
 // b read from page table[b, j / P] at row j % P of the layer's pool
-// [Np, Hkv, P, D] (scales [Np, Hkv, P]).  Each 64-column chunk looks up the
-// row of each of its columns first (a chunk may cross a page when a window
-// starts it mid-page); the rest of the kernel is the dense one.  Pages that
-// several slots share (a common prompt prefix) are read by each of their
-// blocks, so part of that traffic hits L2.
+// [Np, Hkv, P, D] (scales [Np, Hkv, P]).  Each column's row is looked up as
+// its copy is issued (a stage may cross a page when a window starts it
+// mid-page); the rest of the kernel is the dense one.  Pages that several
+// slots share (a common prompt prefix) are read by each of their blocks, so
+// part of that traffic hits L2.
 //
 // For each (b, kv head h) and each of the G query heads of that kv head:
 //   s_j = q · k_j (f32) over the valid columns j in [lens - win + selfok, lens),
@@ -26,44 +26,66 @@
 // and the wrapper passes the base of layer l.  Out is f32 [B, Hkv, G, D].
 //
 // int8 cache (with f32 scales ks, vs [B, Hkv, S] of the layer): k_j and v_j
-// are cast to f32 exactly and the scales stay out of the [S, D] tiles, as in
-// the TPU kernel: s_j = (q · k_j) · ks_j (the scale after the dot), l sums
-// the unrounded p_j, and PV takes bf16(p_j · vs_j) against v_j.  The self
-// term's k/v (bf16 rows not yet in the cache) go through the storage round
-// trip first, in f32 through the append's own helpers (int8_row.cuh), so it
-// is the row the append will write; a zero row stays zero.  The int8 form
+// are cast exactly and the scales stay out of the [S, D] tiles, as in the TPU
+// kernel: s_j = (q · k_j) · ks_j (the scale after the dot), l sums the
+// unrounded p_j, and PV takes bf16(p_j · vs_j) against v_j.  The self term's
+// k/v (bf16 rows not yet in the cache) go through the storage round trip
+// first, in f32 through the append's own helpers (int8_row.cuh), so it is
+// the row the append will write; a zero row stays zero.  The int8 form
 // moves half the cache bytes.
 //
 // What bounds it on the H100: the K and V bytes of the valid columns,
-// 2·2·D bytes per column per kv head, over 3.35 TB/s; the FLOPs (4·G·D per
-// column) are far below the card's rate.  Design: one block per (b, kv
-// head), so the G query heads of a kv head share every K/V chunk.  A chunk
-// of 64 columns is loaded with 16-byte loads, all issued before any is used,
-// into shared memory as f32: K with row stride D + 1 (a thread per column
-// walks its row, lanes on distinct banks), V with stride D (a warp per head
-// reads consecutive dims).  Scores: a thread per (column, G/4 heads); the
-// running max and sum, then PV: a warp per head, lane l owning dims
-// l, l + 32, ...; q is read from shared memory as broadcasts.  Only the
-// valid column range is read.  At B = 1 this runs Hkv blocks, a few SMs of 132:
-// splitting S across blocks (with a second merge pass) is later work, as is
-// using the tensor cores.
+// 2·2·D bytes per column per kv head (int8: 2·(D + 4)), over 3.35 TB/s; the
+// FLOPs (4·G·D per column) are far below the tensor cores' rate.  At B = 1
+// the bytes are a few MB, so the time is latency: how many SMs read at once
+// and how many round trips each makes.  Design:
+// - Split over the cache (flash-decoding): the grid is (B·Hkv, nsplit), and
+//   block s takes slice s of the slot's live range [lo, hi), which it works
+//   out from lens on the card (the host never reads lens).  Slices are
+//   ceil((hi - lo) / nsplit) columns rounded up to a 128-column stage, so a
+//   short range takes fewer slices; blocks past the last live slice exit.
+//   The wrapper picks nsplit from (B, Hkv, S) and the cache type alone: the
+//   blocks the card holds at once (two an SM over an int8 cache, one over
+//   bf16, whose ring takes 143 KB of shared memory; 1 at B = 64, where the
+//   batch and paged forms keep one block per (slot, kv head)).
+// - Each live slice's block writes its (m, l, acc) to f32 scratch; the block
+//   that arrives last (an atomic ticket per (slot, kv head), reset by that
+//   block) merges them in slice order in f32, adds the self term once and
+//   writes out.  A range of one slice is finished by its block directly.
+//   One launch per call: no second merge kernel.
+// - In a block, attn_mma.cuh's stage: 128-column stages through a 2-stage
+//   cp.async ring, the tiles kept bf16 or int8 in shared memory; the G query
+//   heads are the rows of one m16 tile (rows past G are zero) and the 8
+//   warps split each stage's columns, 16 each, whatever G, each with its own
+//   (l, acc) against the stage's shared running max, added across warps at
+//   the end (the G live rows only).  q and the self term's k and v rows are
+//   copied in with the first stage, before lens is read.  Each slice's
+//   bf16(p) is rounded against its own running max, as decode_attn_limit
+//   allows (a weight moves by at most 2^-8 of itself).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "attn_mma.cuh"
 #include "bf16_ops.cuh"
-
 #include "int8_row.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 64;
-constexpr int kHeadGroups = kThreads / kChunk;  // scores: heads g ≡ t / kChunk (mod 4)
+using attn::kCols;
+using attn::kD;
+using attn::kNeg;
+using attn::kThreads;
+using attn::kWarps;
 constexpr int kMaxG = 16;
-constexpr float kNeg = -1e30f;
+// shared memory: the ring, then (reusing it) the merge area; past both the
+// q rows and the self term's k and v rows
+template <bool Q>
+constexpr int kQOff = 2 * attn::Tile<Q>::bytes > attn::Merge::bytes ? 2 * attn::Tile<Q>::bytes
+                                                                      : attn::Merge::bytes;
+template <bool Q>
+constexpr int kSmem = kQOff<Q> + 16 * attn::kQRow + 2 * kD * 2;
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -92,6 +114,9 @@ struct AttnParams {
   float softcap;
   const int* table;     // paged: [B, maxp] physical page of each logical page
   int P, maxp;          // paged: rows per page, pages per slot
+  int nsplit;           // slices of the live range
+  float* part;          // nsplit > 1: [B·Hkv, nsplit, G, D + 2] f32 scratch
+  int* tickets;         // nsplit > 1: [B·Hkv] zeros, reset by the last blocks
 };
 
 // row of cache column c of slot b, kv head h, in the layer's K/V rows of D
@@ -106,206 +131,41 @@ __device__ __forceinline__ size_t kv_row(const AttnParams& p, int b, int h, int 
   }
 }
 
-template <int D>
-size_t smem_bytes(int G) {
-  return sizeof(float) * (static_cast<size_t>(G) * D + static_cast<size_t>(kChunk) * (D + 1)
-                          + static_cast<size_t>(kChunk) * D + static_cast<size_t>(G) * kChunk
-                          + 2 * static_cast<size_t>(G) + 2 * kChunk);
-}
-
-// one chunk of n rows of K or V (bf16 rows rows[0..n) of D values from
-// src) → f32 shared memory with row stride `stride`; 16-byte loads, all
-// issued first
-template <int D>
-__device__ __forceinline__ void load_chunk(const uint16_t* src, const size_t* rows, int n,
-                                           float* dst, int stride) {
-  constexpr int kVec = D / 8;                                    // 16-byte vectors per row
-  constexpr int kIters = (kChunk * kVec + kThreads - 1) / kThreads;
-  uint4 r[kIters];
-#pragma unroll
-  for (int it = 0; it < kIters; ++it) {
-    const int i = threadIdx.x + it * kThreads;
-    const int j = i / kVec;
-    if (j < n) r[it] = __ldg(reinterpret_cast<const uint4*>(src + rows[j] * D) + (i % kVec));
-  }
-#pragma unroll
-  for (int it = 0; it < kIters; ++it) {
-    const int i = threadIdx.x + it * kThreads;
-    const int j = i / kVec, d = (i % kVec) * 8;
-    if (j < n) {
-      const uint32_t w[4] = {r[it].x, r[it].y, r[it].z, r[it].w};
-      float* o = dst + j * stride + d;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        o[2 * e] = __uint_as_float(w[e] << 16);
-        o[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
-      }
-    }
-  }
-}
-
-// the same for int8 rows: 16 values per 16-byte load
-template <int D>
-__device__ __forceinline__ void load_chunk_i8(const int8_t* src, const size_t* rows, int n,
-                                              float* dst, int stride) {
-  constexpr int kVec = D / 16;
-  constexpr int kIters = (kChunk * kVec + kThreads - 1) / kThreads;
-  uint4 r[kIters];
-#pragma unroll
-  for (int it = 0; it < kIters; ++it) {
-    const int i = threadIdx.x + it * kThreads;
-    const int j = i / kVec;
-    if (j < n) r[it] = __ldg(reinterpret_cast<const uint4*>(src + rows[j] * D) + (i % kVec));
-  }
-#pragma unroll
-  for (int it = 0; it < kIters; ++it) {
-    const int i = threadIdx.x + it * kThreads;
-    const int j = i / kVec, d = (i % kVec) * 16;
-    if (j < n) {
-      const uint32_t w[4] = {r[it].x, r[it].y, r[it].z, r[it].w};
-      float* o = dst + j * stride + d;
-#pragma unroll
-      for (int e = 0; e < 16; ++e)
-        o[e] = static_cast<float>(static_cast<int8_t>((w[e / 4] >> (8 * (e % 4))) & 0xffu));
-    }
-  }
-}
-
-template <int D, bool Q, bool Paged>
-__global__ void __launch_bounds__(kThreads) decode_attn_kernel(AttnParams p) {
-  constexpr int KP = D + 1;     // K row stride in shared memory
-  constexpr int DL = D / 32;    // dims per lane in PV: lane + 32·e
-  __shared__ size_t rows[kChunk];  // the chunk's columns' rows in the layer
-  extern __shared__ float sm[];
-  const int G = p.G;
-  float* qs = sm;                 // [G][D]
-  float* ks = qs + G * D;         // [kChunk][D + 1]
-  float* vs = ks + kChunk * KP;   // [kChunk][D]
-  float* ps = vs + kChunk * D;    // [G][kChunk]: scores, then bf16(p)
-  float* mrow = ps + G * kChunk;  // [G] running max
-  float* lrow = mrow + G;         // [G] running sum of p
-  float* kss = lrow + G;          // [kChunk] k scales of the chunk (int8)
-  float* vss = kss + kChunk;      // [kChunk] v scales of the chunk (int8)
-
-  const int bh = blockIdx.x;  // b * Hkv + h
-  const int b = bh / p.Hkv, h = bh % p.Hkv;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int lens = p.lens[b];
-  const int ok = p.self_ok != nullptr && p.self_ok[b] > 0;
-  const int lo = max(lens - p.win + ok, 0);
-  const int hi = min(lens, p.S);
-
-  for (int i = tid; i < G * D; i += kThreads) qs[i] = bf16f(p.q[static_cast<size_t>(bh) * G * D + i]);
-  for (int g = tid; g < G; g += kThreads) {
-    mrow[g] = kNeg;
-    lrow[g] = 0.f;
-  }
-  // PV accumulators: warp w owns heads w, w + 8, ...; lane owns dims lane + 32·e
-  float acc[kMaxG / kWarps][DL];
-#pragma unroll
-  for (int a = 0; a < kMaxG / kWarps; ++a)
-#pragma unroll
-    for (int e = 0; e < DL; ++e) acc[a][e] = 0.f;
+// true in every thread of the block that arrives last of `expect`, whose
+// earlier blocks' writes it then sees; that block resets the ticket
+__device__ __forceinline__ bool arrive_last(int* ticket, int expect) {
+  __shared__ int last;
+  __threadfence();
   __syncthreads();
-
-  const int j_s = tid % kChunk;       // the scores' column
-  const int hg = tid / kChunk;        // the scores' head group
-  for (int c0 = lo; c0 < hi; c0 += kChunk) {
-    const int n = min(kChunk, hi - c0);
-    if (tid < n) rows[tid] = kv_row<Paged>(p, b, h, c0 + tid);
-    __syncthreads();
-    if constexpr (Q) {
-      load_chunk_i8<D>(static_cast<const int8_t*>(p.k), rows, n, ks, KP);
-      load_chunk_i8<D>(static_cast<const int8_t*>(p.v), rows, n, vs, D);
-      if (tid < n) kss[tid] = p.ks[rows[tid]];
-      else if (tid >= kChunk && tid - kChunk < n) vss[tid - kChunk] = p.vs[rows[tid - kChunk]];
-    } else {
-      load_chunk<D>(static_cast<const uint16_t*>(p.k), rows, n, ks, KP);
-      load_chunk<D>(static_cast<const uint16_t*>(p.v), rows, n, vs, D);
-    }
-    __syncthreads();
-    // scores of column j_s for heads hg, hg + 4, ...
-    {
-      float s[kMaxG / kHeadGroups];
-#pragma unroll
-      for (int a = 0; a < kMaxG / kHeadGroups; ++a) s[a] = 0.f;
-      if (j_s < n) {
-        const float* kj = ks + j_s * KP;
-#pragma unroll 8
-        for (int d = 0; d < D; ++d) {
-          const float kv = kj[d];
-#pragma unroll
-          for (int a = 0; a < kMaxG / kHeadGroups; ++a) {
-            const int g = hg + a * kHeadGroups;
-            if (g < G) s[a] = __fmaf_rn(qs[g * D + d], kv, s[a]);
-          }
-        }
-      }
-#pragma unroll
-      for (int a = 0; a < kMaxG / kHeadGroups; ++a) {
-        const int g = hg + a * kHeadGroups;
-        if (g < G) {
-          float v = kNeg;
-          if (j_s < n) {
-            v = s[a];
-            if constexpr (Q) v = __fmul_rn(v, kss[j_s]);
-            if (p.softcap > 0.f) v = p.softcap * tanhf(v / p.softcap);
-          }
-          ps[g * kChunk + j_s] = v;
-        }
-      }
-    }
-    __syncthreads();
-    // running max and sum, then PV, a warp per head (a compile-time slot a
-    // per head keeps the accumulators in registers)
-#pragma unroll
-    for (int a = 0; a < kMaxG / kWarps; ++a) {
-      const int g = warp + a * kWarps;
-      if (g >= G) break;
-      float mx = kNeg;
-      for (int j = lane; j < n; j += 32) mx = fmaxf(mx, ps[g * kChunk + j]);
-      const float m_prev = mrow[g];
-      const float m_new = fmaxf(m_prev, warp_max(mx));
-      float sum = 0.f;
-      for (int j = lane; j < kChunk; j += 32) {
-        float e = 0.f, w = 0.f;
-        if (j < n) {
-          e = expf(ps[g * kChunk + j] - m_new);
-          sum += e;
-          w = Q ? __fmul_rn(e, vss[j]) : e;
-        }
-        ps[g * kChunk + j] = round_bf16(w);
-      }
-      sum = warp_sum(sum);
-      const float alpha = expf(m_prev - m_new);  // m_prev, m_new are warp-uniform
-      __syncwarp();
-      if (lane == 0) {
-        lrow[g] = lrow[g] * alpha + sum;
-        mrow[g] = m_new;
-      }
-      // acc = acc·alpha + sum_j bf16(p_j)·v_j
-#pragma unroll
-      for (int e = 0; e < DL; ++e) acc[a][e] *= alpha;
-      const float* pg = ps + g * kChunk;
-      for (int j = 0; j < n; ++j) {
-        const float pj = pg[j];
-        const float* vj = vs + j * D + lane;
-#pragma unroll
-        for (int e = 0; e < DL; ++e) acc[a][e] = __fmaf_rn(pj, vj[32 * e], acc[a][e]);
-      }
-    }
-    __syncthreads();
+  if (threadIdx.x == 0) {
+    const bool l = atomicAdd(ticket, 1) == expect - 1;
+    if (l) *ticket = 0;
+    last = l;
   }
+  __syncthreads();
+  const bool l = last;
+  if (l) __threadfence();
+  return l;
+}
 
-  const bool self_term = ok && p.sk != nullptr;
-  // the self term's k and v rows, lane owns dims lane + 32·e (every warp
-  // holds both rows; for int8 their storage round trip)
+// The self term and the output, from the merged (M, L, acc) of the G heads
+// in the merge area's rows 0 .. G - 1: a warp per head, lane owning dims
+// lane + 32·e (every warp holds the self k and v rows; for int8 their
+// storage round trip).
+template <bool Q>
+__device__ void finish(const AttnParams& p, uint8_t* sm, int bh, bool self_term) {
+  constexpr int DL = kD / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float* rowM = reinterpret_cast<const float*>(sm + attn::Merge::rowM);
+  const float* rowL = reinterpret_cast<const float*>(sm + attn::Merge::rowL);
+  const uint8_t* qs = sm + kQOff<Q>;
+  const uint16_t* self_kv = reinterpret_cast<const uint16_t*>(qs + 16 * attn::kQRow);
   float skr[DL], svr[DL];
   if (self_term) {
 #pragma unroll
     for (int e = 0; e < DL; ++e) {
-      skr[e] = bf16f(p.sk[static_cast<size_t>(bh) * D + lane + 32 * e]);
-      svr[e] = bf16f(p.sv[static_cast<size_t>(bh) * D + lane + 32 * e]);
+      skr[e] = bf16f(self_kv[lane + 32 * e]);
+      svr[e] = bf16f(self_kv[kD + lane + 32 * e]);
     }
     if constexpr (Q) {
       float ak = 0.f, av = 0.f;
@@ -323,65 +183,189 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(AttnParams p) {
       }
     }
   }
+  for (int g = warp; g < p.G; g += kWarps) {
+    const float* a = attn::merged_row(sm, g, kWarps);
+    float acc[DL];
 #pragma unroll
-  for (int a = 0; a < kMaxG / kWarps; ++a) {
-    const int g = warp + a * kWarps;
-    if (g >= G) break;
-    float l = lrow[g];
+    for (int e = 0; e < DL; ++e) acc[e] = a[lane + 32 * e];
+    float l = rowL[g];
     if (self_term) {
+      const uint16_t* qg = reinterpret_cast<const uint16_t*>(qs + g * attn::kQRow);
       float s = 0.f;
 #pragma unroll
-      for (int e = 0; e < DL; ++e) s = __fmaf_rn(qs[g * D + lane + 32 * e], skr[e], s);
+      for (int e = 0; e < DL; ++e) s = __fmaf_rn(bf16f(qg[lane + 32 * e]), skr[e], s);
       s = warp_sum(s);
       if (p.softcap > 0.f) s = p.softcap * tanhf(s / p.softcap);
-      const float m_prev = mrow[g];
+      const float m_prev = rowM[g];
       const float m2 = fmaxf(m_prev, s);
       const float alpha = expf(m_prev - m2);
       const float ps_self = expf(s - m2);
 #pragma unroll
-      for (int e = 0; e < DL; ++e) acc[a][e] = acc[a][e] * alpha + ps_self * svr[e];
+      for (int e = 0; e < DL; ++e) acc[e] = acc[e] * alpha + ps_self * svr[e];
       l = l * alpha + ps_self;
     }
     l = fmaxf(l, 1e-30f);
 #pragma unroll
     for (int e = 0; e < DL; ++e)
-      p.out[(static_cast<size_t>(bh) * G + g) * D + lane + 32 * e] = acc[a][e] / l;
+      p.out[(static_cast<size_t>(bh) * p.G + g) * kD + lane + 32 * e] = acc[e] / l;
   }
 }
 
-template <int D, bool Q, bool Paged>
+template <bool Q, bool Paged>
+__global__ void __launch_bounds__(kThreads, Q ? 2 : 1) decode_attn_kernel(AttnParams p) {
+  using T = attn::Tile<Q>;
+  extern __shared__ __align__(16) uint8_t sm[];
+  const int bh = blockIdx.x, split = blockIdx.y;  // bh = b * Hkv + h
+  const int b = bh / p.Hkv, h = bh % p.Hkv, G = p.G;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  // q (rows past G zero) and the self term's k and v rows come in with the
+  // first stage, into shared memory past the ring and the merge area; issued
+  // first, as they do not wait for lens
+  uint8_t* qs = sm + kQOff<Q>;
+  uint16_t* self_kv = reinterpret_cast<uint16_t*>(qs + 16 * attn::kQRow);  // [2][kD]
+  const uint16_t* qb = p.q + static_cast<size_t>(bh) * G * kD;
+  attn::load_q(qs, 16, p.q, [&](int r) { return r < G ? qb + r * kD : nullptr; });
+  if (p.sk != nullptr && tid < 2 * (kD / 8)) {
+    const int e = tid % (kD / 8);
+    const uint16_t* src = (tid < kD / 8 ? p.sk : p.sv) + static_cast<size_t>(bh) * kD + e * 8;
+    attn::cp_async16(self_kv + (tid / (kD / 8)) * kD + e * 8, src, true);
+  }
+  const int lens = p.lens[b];
+  const int ok = p.self_ok != nullptr && p.self_ok[b] > 0;
+  const bool self_term = ok && p.sk != nullptr;
+  const int lo = max(lens - p.win + ok, 0);
+  const int hi = min(lens, p.S);
+  // this block's slice: whole stages; a slot whose range fits one slice is
+  // served by block 0 alone
+  const int n = max(hi - lo, 0);
+  const int per = (n + p.nsplit - 1) / p.nsplit;
+  const int span = (per + kCols - 1) / kCols * kCols;
+  const int live = span > 0 ? (n + span - 1) / span : 0;
+  if (split > 0 && split >= live) {  // no slice: let the q copies land first
+    attn::cp_commit();
+    attn::cp_wait<0>();
+    return;
+  }
+  const int s_lo = lo + split * span, s_hi = min(s_lo + span, hi);
+
+  float acc[16][4];
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+
+  auto rowof = [&](int c) { return kv_row<Paged>(p, b, h, c); };
+  const int chunks = (s_hi - s_lo + kCols - 1) / kCols;  // 0 for an empty range
+  // copy group c holds stage c; groups 0 and 1 are issued up front
+  for (int c = 0; c < 2; ++c) {
+    if (c < chunks)
+      attn::load_stage<Q>(sm + c * T::bytes, p.k, p.v, p.ks, p.vs, s_lo + c * kCols, s_hi, rowof);
+    attn::cp_commit();
+  }
+  __shared__ float xm[kWarps * 16];  // the warps' row maxima of a stage
+  for (int c = 0; c < chunks; ++c) {
+    attn::cp_wait<1>();  // groups 0 .. c have landed (c + 1 may still fly)
+    __syncthreads();
+    uint8_t* st = sm + (c & 1) * T::bytes;
+    const int c0 = s_lo + c * kCols, ncols = s_hi - c0;
+    float s[1][2][4], mx[2];
+    attn::stage_scores<Q, 1>(st, warp, 1, ncols, qs, p.softcap,
+                             [&](int, int j) { return j < ncols; }, s, mx);
+    attn::stage_max<kWarps>(xm, mx);
+    attn::stage_pv<Q, 1>(st, warp, 1, ncols, s, mx, acc, m, l);
+    __syncthreads();  // every warp is done with this stage (and with xm)
+    if (c + 2 < chunks)
+      attn::load_stage<Q>(st, p.k, p.v, p.ks, p.vs, c0 + 2 * kCols, s_hi, rowof);
+    attn::cp_commit();
+  }
+  attn::cp_wait<0>();
+  __syncthreads();  // the ring becomes the merge area
+  attn::state_out(sm, acc, m, l, G);
+  __syncthreads();
+  attn::merge_warps(sm, G, kWarps);
+  float* rowM = reinterpret_cast<float*>(sm + attn::Merge::rowM);
+  float* rowL = reinterpret_cast<float*>(sm + attn::Merge::rowL);
+  if (live <= 1) {
+    finish<Q>(p, sm, bh, self_term);
+    return;
+  }
+  // a slice of several: the partial to scratch, the last block merges
+  const size_t stride = static_cast<size_t>(G) * (kD + 2);
+  float* mine = p.part + (static_cast<size_t>(bh) * p.nsplit + split) * stride;
+  for (int e = tid; e < G * kD; e += kThreads) mine[e] = attn::merged_row(sm, e / kD, kWarps)[e % kD];
+  if (tid < G) {
+    mine[G * kD + 2 * tid] = rowM[tid];
+    mine[G * kD + 2 * tid + 1] = rowL[tid];
+  }
+  if (!arrive_last(p.tickets + bh, live)) return;
+  const float* base = p.part + static_cast<size_t>(bh) * p.nsplit * stride;
+  float* fac = reinterpret_cast<float*>(sm + attn::Merge::fac);  // [live][16]
+  if (tid < G) {
+    float M = kNeg;
+    for (int s = 0; s < live; ++s) M = fmaxf(M, __ldcg(base + s * stride + G * kD + 2 * tid));
+    float L = 0.f;
+    for (int s = 0; s < live; ++s) {
+      const float f = expf(__ldcg(base + s * stride + G * kD + 2 * tid) - M);
+      L += f * __ldcg(base + s * stride + G * kD + 2 * tid + 1);
+      fac[s * 16 + tid] = f;
+    }
+    rowM[tid] = M;
+    rowL[tid] = L;
+  }
+  __syncthreads();
+  for (int e = tid; e < G * kD; e += kThreads) {
+    const int g = e / kD;
+    float a = 0.f;
+    for (int s = 0; s < live; ++s) a += fac[s * 16 + g] * __ldcg(base + s * stride + e);
+    attn::merged_row(sm, g, kWarps)[e % kD] = a;
+  }
+  __syncthreads();
+  finish<Q>(p, sm, bh, self_term);
+}
+
+template <bool Q, bool Paged>
 cudaError_t launch(const AttnParams& p, int B, cudaStream_t st) {
-  // raise the dynamic shared memory limit once, for the largest G taken
-  // (before any stream capture: the first launch of each form does it)
+  // raise the dynamic shared memory limit once (before any stream capture:
+  // the first launch of each form does it)
+  constexpr int smem = kSmem<Q>;
   static const cudaError_t configured = cudaFuncSetAttribute(
-      decode_attn_kernel<D, Q, Paged>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem_bytes<D>(kMaxG)));
+      decode_attn_kernel<Q, Paged>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (configured != cudaSuccess) return configured;
-  const size_t smem = smem_bytes<D>(p.G);
-  decode_attn_kernel<D, Q, Paged><<<B * p.Hkv, kThreads, smem, st>>>(p);
+  decode_attn_kernel<Q, Paged><<<dim3(B * p.Hkv, p.nsplit), kThreads, smem, st>>>(p);
   return cudaGetLastError();
+}
+
+bool bad_split(int nsplit, const void* part, const void* tickets) {
+  return nsplit < 1 || nsplit > attn::kMaxSplits
+      || (nsplit > 1 && (part == nullptr || tickets == nullptr));
 }
 
 }  // namespace
 
 // D (the cache's storage head dim) must be 128, the only width ported yet
 // (head dims up to 128 are stored lane-padded to it), and G <= 16.  ks and
-// vs non-null select the int8 form (k, v int8), null the bf16 form.
+// vs non-null select the int8 form (k, v int8), null the bf16 form.  nsplit
+// slices of the live range (1 .. 128); above 1, part is f32 scratch of
+// B·Hkv·nsplit·G·(D + 2) and tickets B·Hkv int32 zeros (left zero).
 // Returns the CUDA error of the launch (0 on success).
 extern "C" int bt_decode_attn(const void* q, const void* k, const void* v, const void* ks,
                               const void* vs, const void* sk, const void* sv, const void* lens,
-                              const void* self_ok, void* out, int B, int Hkv, int G, int S,
-                              int D, int win, float softcap, void* stream) {
+                              const void* self_ok, void* out, void* part, void* tickets, int B,
+                              int Hkv, int G, int S, int D, int win, float softcap, int nsplit,
+                              void* stream) {
   AttnParams p{static_cast<const uint16_t*>(q), k, v, static_cast<const float*>(ks),
                static_cast<const float*>(vs), static_cast<const uint16_t*>(sk),
                static_cast<const uint16_t*>(sv), static_cast<const int*>(lens),
                static_cast<const int*>(self_ok), static_cast<float*>(out),
-               Hkv, G, S, win, softcap, nullptr, 0, 0};
+               Hkv, G, S, win, softcap, nullptr, 0, 0, nsplit, static_cast<float*>(part),
+               static_cast<int*>(tickets)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (G > kMaxG || G < 1 || D != 128 || (ks == nullptr) != (vs == nullptr))
+  if (G > kMaxG || G < 1 || D != kD || (ks == nullptr) != (vs == nullptr)
+      || bad_split(nsplit, part, tickets))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t e = ks != nullptr ? launch<128, true, false>(p, B, st)
-                                      : launch<128, false, false>(p, B, st);
+  const cudaError_t e = ks != nullptr ? launch<true, false>(p, B, st)
+                                      : launch<false, false>(p, B, st);
   return static_cast<int>(e);
 }
 
@@ -391,18 +375,20 @@ extern "C" int bt_decode_attn(const void* q, const void* k, const void* v, const
 extern "C" int bt_paged_decode_attn(const void* q, const void* k, const void* v, const void* ks,
                                     const void* vs, const void* sk, const void* sv,
                                     const void* table, const void* lens, const void* self_ok,
-                                    void* out, int B, int Hkv, int G, int P, int maxp, int D,
-                                    int win, float softcap, void* stream) {
+                                    void* out, void* part, void* tickets, int B, int Hkv, int G,
+                                    int P, int maxp, int D, int win, float softcap, int nsplit,
+                                    void* stream) {
   AttnParams p{static_cast<const uint16_t*>(q), k, v, static_cast<const float*>(ks),
                static_cast<const float*>(vs), static_cast<const uint16_t*>(sk),
                static_cast<const uint16_t*>(sv), static_cast<const int*>(lens),
                static_cast<const int*>(self_ok), static_cast<float*>(out),
-               Hkv, G, P * maxp, win, softcap, static_cast<const int*>(table), P, maxp};
+               Hkv, G, P * maxp, win, softcap, static_cast<const int*>(table), P, maxp,
+               nsplit, static_cast<float*>(part), static_cast<int*>(tickets)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (G > kMaxG || G < 1 || D != 128 || P < 1 || maxp < 1 || table == nullptr
-      || (ks == nullptr) != (vs == nullptr))
+  if (G > kMaxG || G < 1 || D != kD || P < 1 || maxp < 1 || table == nullptr
+      || (ks == nullptr) != (vs == nullptr) || bad_split(nsplit, part, tickets))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t e = ks != nullptr ? launch<128, true, true>(p, B, st)
-                                      : launch<128, false, true>(p, B, st);
+  const cudaError_t e = ks != nullptr ? launch<true, true>(p, B, st)
+                                      : launch<false, true>(p, B, st);
   return static_cast<int>(e);
 }

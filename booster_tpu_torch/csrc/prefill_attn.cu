@@ -15,34 +15,47 @@
 // is already in the cache, quantized).  Out is f32 [BH, G, T, D].
 //
 // What bounds it on the H100: the K and V bytes of the live columns (D + 4
-// bytes per column per kv head, each) and the G·T·(live columns)·D·4
-// operations of QK^T and PV; at the prefill path's shapes (T = 16-32 new
-// tokens over a short cache) both are tiny, so the launch and the block's
-// serial chunk loop set the time.  Design: one block per (bh, tile of
-// G·TQ query rows), TQ = min(kRows / G, T), so the G heads and TQ positions
-// of a tile share every K/V chunk and a block reads only the columns its
-// rows can see.  Where G·T < kRows (MHA, G = 1, at the prompt buckets T = 16
-// and 32) the tile is the whole chunk and the rows past G·T idle.  Two
-// threads per query row, each scoring 32 of a chunk's 64 columns (columns
-// 2i + h, so the pair reads neighbouring K rows on distinct banks) with q
-// from shared memory (row stride D + 1); the pair merges its max and sum by
-// one shuffle and writes the row's PV weights to shared memory, and in PV
-// each thread owns every other dim of the row's accumulator.  CUDA cores
-// only: tensor cores (wgmma) and split-S are later work.
+// bytes per column per kv head, each) over 3.35 TB/s; the G·T·(live
+// columns)·D·4 operations of QK^T and PV are small beside the tensor cores'
+// rate (at G = 1, T = 32, 64 slots of 16 kv heads, pos0 200: 84 MB against
+// 2 GFLOP).  Design: one block per (bh, tile of G·TQ query rows),
+// TQ = min(128 / G, T), so the G heads and TQ positions of a tile share every
+// K/V stage and a block reads only the columns its rows can see; the last
+// tile of a chunk may be partial (T need not be a multiple of TQ).  The
+// products run on the tensor cores (attn_mma.cuh): mma.sync m16n8k16, bf16
+// in, f32 accumulate, each warp owning 16 query rows, the (g, t) pairs
+// flattened.  wgmma would need 64-row tiles, and at G = 1 a (slot, head) has
+// only 16 or 32 query rows, so mma.sync is the tile here.  K and V stay int8
+// in device memory and come in 128-column stages through a 2-stage cp.async
+// ring with their scales; the fragments are cast to bf16 as they are built.
+// No idle rows at G = 1: the tile's m16 tiles (1 at T 16, 2 at T 32, 8 at
+// G·T >= 128) take the 8 warps between them, and the warps that share a
+// tile split each stage's 16-column sub-blocks (8 warps on 8 sub-blocks at
+// T 16, 4 on 2 each at T 32), each with its own (l, acc) against the
+// stage's shared running max; at the end they add them in shared memory
+// (f32, in warp order), or, where a warp holds a tile alone (G·T >= 128),
+// it writes its rows from registers.  A stage's bf16(p · vs) are rounded
+// against the max of the columns up to that stage, as the chunked kernel
+// before this one did (prefill_attn_limit).  The block's q rows (36 KB at
+// 128 rows) come in with the first stage, before pos0 and lens are read;
+// with the ring (74 KB) two blocks fit an SM.  Measured limits (PERF.md
+// §6, PR 11): at G·T >= 128 each warp casts the whole stage's K and V to
+// bf16 for its own rows, eight times over a block.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "attn_mma.cuh"
 #include "bf16_ops.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = kThreads / 2;  // query rows per block
-constexpr int kChunk = 64;           // columns per chunk
-constexpr int kHalf = kChunk / 2;    // columns per thread
-constexpr float kNeg = -1e30f;
+using attn::kCols;
+using attn::kD;
+using attn::kNeg;
+using attn::kSubs;
+using attn::kThreads;
 
 struct PrefillParams {
   const uint16_t* q;  // [BH, G, T, D] bf16, pre-scaled
@@ -55,156 +68,156 @@ struct PrefillParams {
   float* out;         // [BH, G, T, D]
   int G, T, TQ, S, win;  // TQ: query positions per block
   float softcap;
+  int tiles;          // m16 tiles of a block's rows
 };
 
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (static_cast<size_t>(kRows) * (D + 1) + kChunk * (D + 1)
-                          + kChunk * D + kRows * (kChunk + 1) + 2 * kChunk);
-}
+// shared memory: the ring, then (reusing it) the merge area; past both the
+// block's q rows
+constexpr int kQOff = 2 * attn::Tile<true>::bytes > attn::Merge::fac ? 2 * attn::Tile<true>::bytes
+                                                                     : attn::Merge::fac;
+constexpr int kSmem = kQOff + attn::kMaxRows * attn::kQRow;
 
-// rows [c0, c0 + n) of an int8 [S, D] source → f32 shared memory with row
-// stride `stride`; rows n..kChunk-1 are zero (PV reads them with weight 0)
-template <int D>
-__device__ __forceinline__ void load_chunk_i8(const int8_t* src, int c0, int n, float* dst,
-                                              int stride) {
-  constexpr int kVec = D / 16;
-  for (int i = threadIdx.x; i < kChunk * kVec; i += kThreads) {
-    const int j = i / kVec, d = (i % kVec) * 16;
-    float* o = dst + j * stride + d;
-    if (j < n) {
-      const uint4 r = __ldg(reinterpret_cast<const uint4*>(src + static_cast<size_t>(c0 + j) * D) + (i % kVec));
-      const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-      for (int e = 0; e < 16; ++e)
-        o[e] = static_cast<float>(static_cast<int8_t>((w[e / 4] >> (8 * (e % 4))) & 0xffu));
-    } else {
-#pragma unroll
-      for (int e = 0; e < 16; ++e) o[e] = 0.f;
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1) prefill_attn_kernel(PrefillParams p) {
-  constexpr int QP = D + 1;  // q and K row stride in shared memory
-  constexpr int DH = D / 2;  // dims per thread in PV: 2e + h
-  constexpr int PS = kChunk + 1;  // weight row stride: a warp's 16 rows on distinct banks
-  extern __shared__ float sm[];
-  float* qs = sm;                   // [kRows][D + 1]
-  float* kc = qs + kRows * QP;      // [kChunk][D + 1]
-  float* vc = kc + kChunk * QP;     // [kChunk][D]
-  float* ps = vc + kChunk * D;      // [kRows][kChunk + 1]: PV weights bf16(p·vs)
-  float* kss = ps + kRows * PS;     // [kChunk]
-  float* vss = kss + kChunk;        // [kChunk]
-
+// CS: the warps that share an m16 tile's rows (8 / the tiles rounded up to a
+// power of 2); each takes kSubs / CS sub-blocks of a stage
+template <int CS>
+__global__ void __launch_bounds__(kThreads, 2) prefill_attn_kernel(PrefillParams p) {
+  constexpr int NSB = kSubs / CS;
+  using T = attn::Tile<true>;
+  extern __shared__ __align__(16) uint8_t sm[];
   const int bh = blockIdx.y;
   const int G = p.G, TQ = p.TQ;
   const int t0 = blockIdx.x * TQ;
-  const int tid = threadIdx.x, r = tid >> 1, h = tid & 1;
-  const bool live = r < G * TQ;  // rows past G·TQ compute on zeros and write nothing
-  const int g = live ? r / TQ : 0, t = t0 + r % TQ;
+  const int tn = min(TQ, p.T - t0);  // positions of this tile
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, gid = lane >> 2;
+  const int tile = warp / CS, part = warp % CS;
+  const bool busy = tile < p.tiles;
+  // the block's q rows (rows past the tile zero) come in with the first
+  // stage, into shared memory past the ring; issued first, as they do not
+  // wait for pos0 and lens
+  uint8_t* qs = sm + kQOff;
+  attn::load_q(qs, p.tiles * 16, p.q, [&](int r) {
+    return r < G * TQ && r % TQ < tn
+        ? p.q + ((static_cast<size_t>(bh) * G + r / TQ) * p.T + t0 + r % TQ) * kD : nullptr;
+  });
   const int pos0 = p.pos0[bh], lens = p.lens[bh];
-  const int qpos = pos0 + t;
   const int lo = max(pos0 + t0 - p.win + 1, 0);
-  const int hi = min(pos0 + t0 + TQ, lens);
+  const int hi = min(pos0 + t0 + tn, lens);
 
-  for (int i = tid; i < kRows * D; i += kThreads) {
-    const int rr = i / D, d = i % D;
-    const size_t src = ((static_cast<size_t>(bh) * G + rr / TQ) * p.T + t0 + rr % TQ) * D + d;
-    qs[rr * QP + d] = rr < G * TQ ? bf16f(p.q[src]) : 0.f;
-  }
-  float m = kNeg, l = 0.f;
-  float acc[DH];
+  // this warp's rows 16·tile + gid (h = 0) and + 8 (h = 1): head r / TQ,
+  // position t0 + r % TQ
+  int qpos[2];
+  bool row_ok[2];
 #pragma unroll
-  for (int e = 0; e < DH; ++e) acc[e] = 0.f;
-  const size_t kv_base = static_cast<size_t>(bh) * p.S;
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = 16 * tile + gid + 8 * hh;
+    row_ok[hh] = busy && r < G * TQ && r % TQ < tn;
+    qpos[hh] = pos0 + t0 + r % TQ;
+  }
+  float acc[16][4];
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
 
-  for (int c0 = lo; c0 < hi; c0 += kChunk) {
-    const int n = min(kChunk, hi - c0);
-    __syncthreads();  // the previous chunk's reads are done (and q is stored)
-    load_chunk_i8<D>(p.k + kv_base * D, c0, n, kc, QP);
-    load_chunk_i8<D>(p.v + kv_base * D, c0, n, vc, D);
-    if (tid < n) kss[tid] = p.ks[kv_base + c0 + tid];
-    else if (tid >= kChunk && tid - kChunk < n) vss[tid - kChunk] = p.vs[kv_base + c0 + tid - kChunk];
+  const size_t base = static_cast<size_t>(bh) * p.S;
+  auto rowof = [&](int c) { return base + c; };
+  const int chunks = max(hi - lo, 0) > 0 ? (hi - lo + kCols - 1) / kCols : 0;
+  for (int c = 0; c < 2; ++c) {  // copy group c holds stage c
+    if (c < chunks)
+      attn::load_stage<true>(sm + c * T::bytes, p.k, p.v, p.ks, p.vs, lo + c * kCols, hi, rowof);
+    attn::cp_commit();
+  }
+  __shared__ float xm[attn::kWarps * 16];  // the warps' row maxima of a stage
+  for (int c = 0; c < chunks; ++c) {
+    attn::cp_wait<1>();  // groups 0 .. c have landed
     __syncthreads();
-
-    float s[kHalf];
-#pragma unroll
-    for (int i = 0; i < kHalf; ++i) s[i] = 0.f;
-    const float* qr = qs + r * QP;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float qv = qr[d];
-#pragma unroll
-      for (int i = 0; i < kHalf; ++i) s[i] = __fmaf_rn(qv, kc[(2 * i + h) * QP + d], s[i]);
-    }
-    float mx = kNeg;
-#pragma unroll
-    for (int i = 0; i < kHalf; ++i) {
-      const int j = 2 * i + h, col = c0 + j;
-      const bool valid = j < n && col <= qpos && col < lens && col >= qpos - p.win + 1;
-      float v = __fmul_rn(s[i], valid ? kss[j] : 0.f);
-      if (p.softcap > 0.f) v = p.softcap * tanhf(v / p.softcap);
-      s[i] = valid ? v : kNeg;
-      mx = fmaxf(mx, s[i]);
-    }
-    const float m_new = fmaxf(m, fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1)));
-    float sum = 0.f;
-#pragma unroll
-    for (int i = 0; i < kHalf; ++i) {
-      const int j = 2 * i + h;
-      const float e = s[i] > 0.5f * kNeg ? expf(s[i] - m_new) : 0.f;
-      sum += e;
-      s[i] = round_bf16(__fmul_rn(e, vss[j < n ? j : 0]));  // now the PV weight
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    const float alpha = expf(m - m_new);
-    l = l * alpha + sum;
-    m = m_new;
-    float* pr = ps + r * PS;  // the row's weights, both threads' halves
-#pragma unroll
-    for (int i = 0; i < kHalf; ++i) pr[2 * i + h] = s[i];
-    __syncwarp();
-#pragma unroll
-    for (int e = 0; e < DH; ++e) acc[e] *= alpha;
-    for (int j = 0; j < n; ++j) {
-      const float w = pr[j];
-      const float* vj = vc + j * D + h;
-#pragma unroll
-      for (int e = 0; e < DH; ++e) acc[e] = __fmaf_rn(w, vj[2 * e], acc[e]);
-    }
+    uint8_t* st = sm + (c & 1) * T::bytes;
+    const int c0 = lo + c * kCols, ncols = hi - c0;
+    float s[NSB][2][4], mx[2] = {kNeg, kNeg};
+    if (busy)
+      attn::stage_scores<true, NSB>(st, part, CS, ncols, qs + 16 * tile * attn::kQRow, p.softcap,
+                                    [&](int hh, int j) {
+        const int col = c0 + j;
+        return row_ok[hh] && col < hi && col <= qpos[hh] && col >= qpos[hh] - p.win + 1;
+      }, s, mx);
+    attn::stage_max<CS>(xm, mx);
+    if (busy) attn::stage_pv<true, NSB>(st, part, CS, ncols, s, mx, acc, m, l);
+    __syncthreads();  // every warp is done with this stage (and with xm)
+    if (c + 2 < chunks)
+      attn::load_stage<true>(st, p.k, p.v, p.ks, p.vs, c0 + 2 * kCols, hi, rowof);
+    attn::cp_commit();
   }
-
-  if (!live) return;
-  l = fmaxf(l, 1e-30f);
-  float* o = p.out + ((static_cast<size_t>(bh) * G + g) * p.T + t) * D + h;
+  attn::cp_wait<0>();
+  if constexpr (CS == 1) {  // one warp a tile: its rows are done, out from registers
+    const int tig = lane & 3;
 #pragma unroll
-  for (int e = 0; e < DH; ++e) o[2 * e] = acc[e] / l;
+    for (int hh = 0; hh < 2; ++hh) {
+      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+      if (!row_ok[hh]) continue;
+      const int r = 16 * tile + gid + 8 * hh;
+      const float l_r = fmaxf(l[hh], 1e-30f);
+      float* o = p.out + ((static_cast<size_t>(bh) * G + r / TQ) * p.T + t0 + r % TQ) * kD;
+#pragma unroll
+      for (int q = 0; q < kD / 32; ++q) {
+        *reinterpret_cast<float4*>(o + 32 * q + 8 * tig) =
+            make_float4(acc[4 * q][2 * hh] / l_r, acc[4 * q + 1][2 * hh] / l_r,
+                        acc[4 * q + 2][2 * hh] / l_r, acc[4 * q + 3][2 * hh] / l_r);
+        *reinterpret_cast<float4*>(o + 32 * q + 8 * tig + 4) =
+            make_float4(acc[4 * q][2 * hh + 1] / l_r, acc[4 * q + 1][2 * hh + 1] / l_r,
+                        acc[4 * q + 2][2 * hh + 1] / l_r, acc[4 * q + 3][2 * hh + 1] / l_r);
+      }
+    }
+    return;
+  }
+  __syncthreads();  // the ring becomes the merge area
+  attn::state_out(sm, acc, m, l, 16);
+  __syncthreads();
+  attn::merge_warps(sm, p.tiles * 16, CS);
+  const float* rowL = reinterpret_cast<const float*>(sm + attn::Merge::rowL);
+  for (int e = tid; e < p.tiles * 16 * (kD / 4); e += kThreads) {
+    const int r = e / (kD / 4), d = (e % (kD / 4)) * 4;
+    if (r >= G * TQ || r % TQ >= tn) continue;
+    const float l_r = fmaxf(rowL[r], 1e-30f);
+    const float4 a = *reinterpret_cast<const float4*>(attn::merged_row(sm, r, CS) + d);
+    float* o = p.out + ((static_cast<size_t>(bh) * G + r / TQ) * p.T + t0 + r % TQ) * kD + d;
+    *reinterpret_cast<float4*>(o) = make_float4(a.x / l_r, a.y / l_r, a.z / l_r, a.w / l_r);
+  }
+}
+
+template <int CS>
+cudaError_t launch(const PrefillParams& p, dim3 grid, cudaStream_t st) {
+  constexpr int smem = kSmem;
+  static const cudaError_t configured = cudaFuncSetAttribute(
+      prefill_attn_kernel<CS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (configured != cudaSuccess) return configured;
+  prefill_attn_kernel<CS><<<grid, kThreads, smem, st>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// D (the cache's storage head dim) must be 128 and G must divide kRows =
-// 128 with T a multiple of TQ = min(128 / G, T).  Returns the CUDA error of
-// the launch (0 on success).
+// D (the cache's storage head dim) must be 128 and G must divide 128; the
+// tiles hold TQ = min(128 / G, T) positions (the last one fewer when TQ does
+// not divide T).  Returns the CUDA error of the launch (0 on success).
 extern "C" int bt_prefill_attn_i8(const void* q, const void* k, const void* v, const void* ks,
                                   const void* vs, const void* pos0, const void* lens, void* out,
                                   int BH, int G, int T, int S, int D, int win, float softcap,
                                   void* stream) {
-  constexpr int kD = 128;
-  const int TQ = G >= 1 && kRows % G == 0 ? (kRows / G < T ? kRows / G : T) : 0;
-  if (D != kD || TQ < 1 || T % TQ != 0) return static_cast<int>(cudaErrorInvalidValue);
-  static const cudaError_t configured = cudaFuncSetAttribute(
-      prefill_attn_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem_bytes<kD>()));
-  if (configured != cudaSuccess) return static_cast<int>(configured);
+  if (D != kD || G < 1 || attn::kMaxRows % G != 0 || T < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int TQ = attn::kMaxRows / G < T ? attn::kMaxRows / G : T;
+  const int tiles = (G * TQ + 15) / 16;
   PrefillParams p{static_cast<const uint16_t*>(q), static_cast<const int8_t*>(k),
                   static_cast<const int8_t*>(v), static_cast<const float*>(ks),
                   static_cast<const float*>(vs), static_cast<const int*>(pos0),
                   static_cast<const int*>(lens), static_cast<float*>(out), G, T, TQ, S, win,
-                  softcap};
-  const dim3 grid(T / TQ, BH);
-  prefill_attn_kernel<kD><<<grid, kThreads, smem_bytes<kD>(), static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+                  softcap, tiles};
+  const dim3 grid((T + TQ - 1) / TQ, BH);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t e = tiles == 1 ? launch<8>(p, grid, st)
+                        : tiles == 2 ? launch<4>(p, grid, st)
+                        : tiles <= 4 ? launch<2>(p, grid, st) : launch<1>(p, grid, st);
+  return static_cast<int>(e);
 }

@@ -31,13 +31,39 @@ import torch.nn.functional as F
 
 from booster_tpu_torch.ops import kernels
 from booster_tpu_torch.ops.kv_cache import _quantize_kv
+from booster_tpu_torch.ops.qmm import _ticket_buffer
 
 NEG = -1e30
 
 _SIGNATURES = {
-    "bt_decode_attn": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
-    + [ctypes.c_float, ctypes.c_void_p],
+    "bt_decode_attn": [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
 }
+_SMS = 132  # the H100's SMs: the split aims at the blocks that can be resident at once
+_COLS = 128  # cache columns per stage of the kernel (kCols in csrc/attn_mma.cuh)
+_MAX_SPLITS = 128  # kMaxSplits in csrc/attn_mma.cuh
+
+
+def decode_splits(B: int, Hkv: int, S: int, quantized: bool) -> int:
+    """Slices of each (slot, kv head)'s live range that the kernel's blocks
+    share: as many blocks over B·Hkv as the card holds at once (two an SM
+    over an int8 cache, one over bf16, whose stages take 143 KB of shared
+    memory; 1 at B = 64), at most one per 128-column stage of the capacity
+    S and at most 128.  From the shapes alone: the host never reads lens."""
+    per_sm = 2 if quantized else 1
+    return max(1, min(per_sm * _SMS // (B * Hkv), S // _COLS, _MAX_SPLITS))
+
+
+def split_scratch(device: torch.device, B: int, Hkv: int, G: int, D: int, S: int,
+                  quantized: bool):
+    """(nsplit, partials, tickets) for one call of the kernel: f32 scratch
+    for each slice's (acc, m, l) and the per-device ticket buffer that the
+    matmuls share (ops/qmm.py), both None at nsplit = 1."""
+    nsplit = decode_splits(B, Hkv, S, quantized)
+    if nsplit == 1:
+        return 1, None, None
+    part = torch.empty(B * Hkv * nsplit * G * (D + 2), dtype=torch.float32, device=device)
+    return nsplit, part, _ticket_buffer(device, B * Hkv)
 
 
 def self_row(x: torch.Tensor, quantized: bool) -> torch.Tensor:
@@ -134,6 +160,7 @@ def decode_attn(qb, k_cache, v_cache, layer: int, lens, win: int,
         self_v = self_v.contiguous()
         self_ok = self_ok.to(torch.int32).contiguous()
     out = torch.empty(B, Hkv, G, D, dtype=torch.float32, device=qb.device)
+    nsplit, part, tickets = split_scratch(qb.device, B, Hkv, G, D, S, quant)
     lib = kernels.library("decode_attn", _SIGNATURES)
     rc = lib.bt_decode_attn(
         qb.data_ptr(), k_cache[layer].data_ptr(), v_cache[layer].data_ptr(),
@@ -142,7 +169,8 @@ def decode_attn(qb, k_cache, v_cache, layer: int, lens, win: int,
         self_k.data_ptr() if has_self else None,
         self_v.data_ptr() if has_self else None,
         lens.data_ptr(), self_ok.data_ptr() if has_self else None, out.data_ptr(),
-        B, Hkv, G, S, D, int(win), float(softcap),
+        None if part is None else part.data_ptr(), None if tickets is None else tickets.data_ptr(),
+        B, Hkv, G, S, D, int(win), float(softcap), nsplit,
         torch.cuda.current_stream(qb.device).cuda_stream)
     name = "decode_attn_i8" if quant else "decode_attn"
     kernels.check(rc, name)

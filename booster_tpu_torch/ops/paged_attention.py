@@ -28,12 +28,12 @@ import torch
 import torch.nn.functional as F
 
 from booster_tpu_torch.ops import kernels
-from booster_tpu_torch.ops.decode_attention import decode_attn_plain
+from booster_tpu_torch.ops.decode_attention import decode_attn_plain, split_scratch
 from booster_tpu_torch.ops.paged_kv import gather_layer
 
 _SIGNATURES = {
-    "bt_paged_decode_attn": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
-    + [ctypes.c_float, ctypes.c_void_p],
+    "bt_paged_decode_attn": [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
 }
 
 
@@ -103,6 +103,7 @@ def paged_attn(qb, pool_k, pool_v, table, layer: int, lens, win: int, softcap: f
         self_v = self_v.contiguous()
         self_ok = self_ok.to(torch.int32).contiguous()
     out = torch.empty(B, Hkv, G, D, dtype=torch.float32, device=qb.device)
+    nsplit, part, tickets = split_scratch(qb.device, B, Hkv, G, D, MAXP * P, quant)
     lib = kernels.library("decode_attn", _SIGNATURES)
     rc = lib.bt_paged_decode_attn(
         qb.data_ptr(), pool_k[layer].data_ptr(), pool_v[layer].data_ptr(),
@@ -110,8 +111,9 @@ def paged_attn(qb, pool_k, pool_v, table, layer: int, lens, win: int, softcap: f
         v_scale[layer].data_ptr() if quant else None,
         self_k.data_ptr() if has_self else None, self_v.data_ptr() if has_self else None,
         table.data_ptr(), lens.data_ptr(), self_ok.data_ptr() if has_self else None,
-        out.data_ptr(), B, Hkv, G, P, MAXP, D, int(win), float(softcap),
-        torch.cuda.current_stream(qb.device).cuda_stream)
+        out.data_ptr(), None if part is None else part.data_ptr(),
+        None if tickets is None else tickets.data_ptr(), B, Hkv, G, P, MAXP, D, int(win),
+        float(softcap), nsplit, torch.cuda.current_stream(qb.device).cuda_stream)
     name = "paged_attn_i8" if quant else "paged_attn"
     kernels.check(rc, name)
     kernels.count(name)

@@ -36,7 +36,7 @@ _SIGNATURES = {
     "bt_prefill_attn_i8": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
     + [ctypes.c_float, ctypes.c_void_p],
 }
-_ROWS = 128  # query rows (G heads × T positions) per block: kRows in the source
+_ROWS = 128  # query rows (G heads × T positions) per block: kMaxRows in csrc/attn_mma.cuh
 
 
 def prefill_supported(T: int, S: int, D: int, H: int, Hkv: int) -> bool:
@@ -104,9 +104,9 @@ def prefill_attn(qb, k, v, k_scale, v_scale, pos0, lens, win: int,
         raise ValueError("prefill_attn kernel: k/v must be [BH, S, D] with f32 scales [BH, S]")
     if not all(t.is_contiguous() for t in (qb, k, v, k_scale, v_scale)):
         raise ValueError("prefill_attn kernel: operands must be contiguous")
-    if D != 128 or _ROWS % G or T % min(_ROWS // G, T):
-        raise NotImplementedError(f"prefill_attn kernel: D={D}, G={G}, T={T}: not ported yet "
-                                  f"(it takes D = 128 and T a multiple of min({_ROWS} // G, T))")
+    if D != 128 or _ROWS % G:
+        raise NotImplementedError(f"prefill_attn kernel: D={D}, G={G}: not ported yet "
+                                  f"(it takes D = 128 and G dividing {_ROWS})")
     lib = kernels.library("prefill_attn", _SIGNATURES)
     pos0 = pos0.to(torch.int32).contiguous()
     lens = lens.to(torch.int32).contiguous()

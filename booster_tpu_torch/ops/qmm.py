@@ -65,8 +65,8 @@ _DQ_BM, _DQ_BN, _DQ_BK = 64, 128, 64
 _DQ_TARGET_BLOCKS = 264  # two blocks for each of the H100's 132 SMs
 
 # per device: int32 zeros the kernels' blocks take tickets from (the last
-# block of a column tile resets its ticket, so the buffer stays zero between
-# launches on one stream)
+# block of a column tile, or of a split decode attention's (slot, kv head),
+# resets its ticket, so the buffer stays zero between launches on one stream)
 _tickets: dict = {}
 # (library, K, G) → the M = 1 kernels' K splits, asked of the library once
 _splits: dict = {}
@@ -75,6 +75,9 @@ _splits: dict = {}
 def _ticket_buffer(device: torch.device, n: int) -> torch.Tensor:
     t = _tickets.get(device)
     if t is None or t.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the kernels' ticket buffer is allocated by a first call, which "
+                               "must not be captured in a CUDA graph")
         t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
         _tickets[device] = t
     return t

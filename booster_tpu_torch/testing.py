@@ -17,7 +17,9 @@ kernels, and ``decode_attn_limit`` the kernel's per-element limit against
 its plain version; ``prefill_attn_case``, ``prefill_attn_mutants`` and
 ``prefill_attn_limit`` do the same for chunked-prefill attention, and
 ``paged_attn_case``, ``paged_attn_mutants`` and ``paged_attn_limit`` for
-paged decode attention; ``kv_append_layer_case`` and
+paged decode attention; ``decode_attn_split`` and ``prefill_attn_split``
+compute in plain torch what the attention kernels compute (their slices,
+stages and warps), for the CPU tests; ``kv_append_layer_case`` and
 ``kv_append_layer_mutants`` make the per-layer append's inputs and what
 wrong appends would leave in the cache.
 """
@@ -32,7 +34,7 @@ import numpy as np
 import torch
 
 from booster_tpu_torch.gguf import GGMLType, GGUFWriter
-from booster_tpu_torch.ops.decode_attention import decode_attn_plain
+from booster_tpu_torch.ops.decode_attention import decode_attn_plain, self_row
 from booster_tpu_torch.ops.kv_append import kv_append_layer_plain
 from booster_tpu_torch.ops.kv_cache import _quantize_kv
 from booster_tpu_torch.ops.paged_attention import paged_attn_plain
@@ -518,6 +520,153 @@ def prefill_attn_limit(args: tuple) -> torch.Tensor:
     want = prefill_attn_plain(*args)
     pv_abs = prefill_attn_plain(q, k, v.abs(), ks, vs, pos0, lens, win, softcap)
     return 2 ** -8 * 1.01 * pv_abs + 1e-5 * want.abs().max()
+
+
+_NEG = -1e30
+_COLS, _SUB, _WARPS = 128, 16, 8  # csrc/attn_mma.cuh: columns a stage, a sub-block; warps
+
+
+def _stage_states(s, v, vs, valid, stages) -> tuple:
+    """The online softmax of csrc/attn_mma.cuh's warps, in plain torch:
+    scores s [..., R, N] (f32, scaled and softcapped), values v [..., N, D]
+    (f32), v scales vs [..., N] or None, valid [..., R, N] bool; `stages`
+    holds, per 128-column stage, each warp's columns (an index tensor, its
+    16-column sub-blocks).  The running max moves once a stage, to the max
+    of every warp's columns of the stage; each warp keeps its own (l, acc)
+    and rounds its PV weights bf16(p) or bf16(p · vs) against that max; the
+    warps' sums are added in order at the end → (M [..., R], L [..., R],
+    acc [..., R, D])."""
+    m = torch.full(s.shape[:-1], _NEG, device=s.device)
+    n_warps = max((len(w) for w in stages), default=1)
+    ls = [torch.zeros_like(m) for _ in range(n_warps)]
+    accs = [torch.zeros(*s.shape[:-1], v.shape[-1], device=s.device) for _ in range(n_warps)]
+    for warps in stages:
+        cols = torch.cat(list(warps))
+        ss = torch.where(valid[..., cols], s[..., cols], torch.full_like(s[..., cols], _NEG))
+        m_new = torch.maximum(m, ss.amax(-1))
+        alpha = torch.exp(m - m_new)
+        for w, idx in enumerate(warps):
+            ls[w] = ls[w] * alpha
+            accs[w] = accs[w] * alpha[..., None]
+            ok = valid[..., idx]
+            p = torch.where(ok, torch.exp(s[..., idx] - m_new[..., None]),
+                            torch.zeros_like(s[..., idx]))
+            ls[w] = ls[w] + p.sum(-1)
+            wt = p if vs is None else p * vs[..., None, idx]
+            accs[w] = accs[w] + wt.to(torch.bfloat16).float() @ v[..., idx, :]
+        m = m_new
+    return m, sum(ls), sum(accs)
+
+
+def _merge(states) -> tuple:
+    """(m, l, acc) states merged in order in f32, as the kernels merge warps
+    and decode slices."""
+    M = states[0][0]
+    for m, _, _ in states[1:]:
+        M = torch.maximum(M, m)
+    L = torch.zeros_like(M)
+    A = torch.zeros_like(states[0][2])
+    for m, l, acc in states:
+        f = torch.exp(m - M)
+        L = L + f * l
+        A = A + f[..., None] * acc
+    return M, L, A
+
+
+def decode_attn_split(args: tuple, nsplit: int) -> torch.Tensor:
+    """What csrc/decode_attn.cu computes for ``decode_attn(*args)`` split
+    `nsplit` ways, in plain torch (CPU; tests only).  Per slot the live range
+    [lo, hi) is cut into slices of ceil((hi - lo) / nsplit) columns rounded
+    up to a 128-column stage; in a slice warp w takes columns 16w .. 16w + 15
+    of each stage (``_stage_states``); the live slices merge in order in f32
+    and the self term is added once, in f32, as in the plain version.  A
+    slot with no live column and no self term gives 0."""
+    q, kc, vc, layer, lens, win, softcap, sk, sv, ok, *scales = args
+    quant = bool(scales)
+    S, D = kc.shape[3], kc.shape[4]
+    k, v = kc[layer].float(), vc[layer].float()
+    qf = q.float()
+    s_all = torch.einsum("bhgd,bhsd->bhgs", qf, k)
+    if quant:
+        s_all = s_all * scales[0][layer][..., 0][:, :, None, :]
+    if softcap > 0.0:
+        s_all = softcap * torch.tanh(s_all / softcap)
+    out = torch.zeros(qf.shape, device=q.device)
+    for b in range(q.shape[0]):
+        has_self = sk is not None and int(ok[b]) > 0
+        n_b = int(lens[b])
+        lo, hi = max(n_b - win + int(has_self), 0), min(n_b, S)
+        n = max(hi - lo, 0)
+        per = -(-n // nsplit)
+        span = -(-per // _COLS) * _COLS
+        live = -(-n // span) if span else 0
+        states = []
+        for sl in range(live):
+            s_lo = lo + sl * span
+            s_hi = min(s_lo + span, hi)
+            stages = [[torch.arange(min(c0 + _SUB * w, s_hi), min(c0 + _SUB * (w + 1), s_hi),
+                                    device=q.device) for w in range(_WARPS)]
+                      for c0 in range(s_lo, s_hi, _COLS)]
+            valid = torch.ones(s_all.shape[1:], dtype=torch.bool, device=q.device)
+            states.append(_stage_states(s_all[b], v[b], scales[1][layer][b, ..., 0] if quant
+                                        else None, valid, stages))
+        if states:
+            M, L, A = _merge(states)
+        else:
+            M = torch.full(qf.shape[1:3], _NEG, device=q.device)
+            L, A = torch.zeros_like(M), torch.zeros(qf.shape[1:], device=q.device)
+        if has_self:
+            skf, svf = self_row(sk[b], quant), self_row(sv[b], quant)
+            s_self = torch.einsum("hgd,hd->hg", qf[b], skf)
+            if softcap > 0.0:
+                s_self = softcap * torch.tanh(s_self / softcap)
+            m2 = torch.maximum(M, s_self)
+            alpha, p_self = torch.exp(M - m2), torch.exp(s_self - m2)
+            A = A * alpha[..., None] + p_self[..., None] * svf[:, None, :]
+            L = L * alpha + p_self
+        out[b] = A / torch.clamp_min(L, 1e-30)[..., None]
+    return out
+
+
+def prefill_attn_split(args: tuple) -> torch.Tensor:
+    """What csrc/prefill_attn.cu computes for ``prefill_attn(*args)``, in
+    plain torch (CPU; tests only).  A block holds TQ = min(128 / G, T)
+    positions of the G heads (rows r: head r // TQ, position t0 + r % TQ)
+    and walks the columns its rows can see in 128-column stages; its m16
+    tiles share the 8 warps, so cs = 8 / (the tiles rounded up to a power of
+    2) warps share a tile's rows, warp c taking the 16-column sub-blocks c,
+    c + cs, ... of each stage (``_stage_states``), added in warp order."""
+    q, k, v, ks, vs, pos0, lens, win, softcap = args
+    BH, G, T, D = q.shape
+    S = k.shape[1]
+    TQ = min(128 // G, T)
+    tiles = -(-(G * TQ) // 16)
+    cs = _WARPS // (1 << (tiles - 1).bit_length())
+    out = torch.zeros(q.shape, device=q.device)
+    dev = q.device
+    for bh in range(BH):
+        p0, n_valid = int(pos0[bh]), int(lens[bh])
+        s_all = torch.einsum("gtd,sd->gts", q[bh].float(), k[bh].float()) * ks[bh][None, None]
+        if softcap > 0.0:
+            s_all = softcap * torch.tanh(s_all / softcap)
+        for t0 in range(0, T, TQ):
+            tn = min(TQ, T - t0)
+            lo, hi = max(p0 + t0 - win + 1, 0), min(p0 + t0 + tn, n_valid)
+            r = torch.arange(G * TQ, device=dev)
+            g, t = r // TQ, t0 + r % TQ
+            live = r % TQ < tn
+            s = s_all[g, t.clamp_max(T - 1)]  # [R, S]
+            col = torch.arange(S, device=dev)[None]
+            qpos = (p0 + t)[:, None]
+            valid = live[:, None] & (col < hi) & (col <= qpos) & (col >= qpos - win + 1)
+            stages = [[torch.cat([torch.arange(min(c0 + _SUB * sb, hi),
+                                               min(c0 + _SUB * (sb + 1), hi), device=dev)
+                                  for sb in range(c, _COLS // _SUB, cs)]) for c in range(cs)]
+                      for c0 in range(lo, hi, _COLS)]
+            M, L, A = _stage_states(s, v[bh].float(), vs[bh], valid, stages)
+            o = A / torch.clamp_min(L, 1e-30)[:, None]
+            out[bh, g[live], t[live]] = o[live]
+    return out
 
 
 def paged_attn_case(L: int, B: int, Hkv: int, G: int, P: int, maxp: int, D: int, Dc: int,

@@ -591,13 +591,23 @@ def _bf16_attn_kernels(entries: list, failures: list, lay: dict) -> None:
     # decode attention over layer L - 1 of an [L, 1, Hkv, 1024, Dc] cache with
     # the deferred-append self term, at the generate phase's mean cache
     # length (15-token prompt + 0..127 tokens: 79) and late in a 1024-token
-    # context; inputs on which a dropped self term or a column missed or
-    # read past the end shows (booster_tpu_torch.testing)
-    for lens_v in (79, 1000):
+    # context; at the 7B width also over an 8192-row cache at length 8192
+    # (config 2's context; 2 layers: the kernel reads one); inputs on which
+    # a dropped self term or a column missed or read past the end shows
+    # (booster_tpu_torch.testing).  At B = 1 the kernel splits each range
+    # over da.decode_splits(1, Hkv, S, False) blocks, merged by the last one
+    cases = [(L, S, 79), (L, S, 1000)] + ([(2, 8192, 8192)] if lay is MISTRAL_ATTN else [])
+    for L, S, lens_v in cases:
         args = decode_attn_case(L, 1, Hkv, G, S, D, Dc, [lens_v], "cuda", seed=lens_v)
+
+        def mutants(a):  # at lens = S no column lies past the end to be read
+            return {k: m for k, m in decode_attn_mutants(a).items()
+                    if not (k == "column past the end read" and lens_v == S)}
         err, share, seen = _attn_check(f"decode_attn lens={lens_v}", da.decode_attn,
                                        da.decode_attn_plain, args, decode_attn_limit,
-                                       decode_attn_mutants, failures)
+                                       mutants, failures)
+        reset = _split_replay_check(lambda: da.decode_attn(*args), failures,
+                                    f"decode_attn lens={lens_v}")
         ms = timed(lambda: da.decode_attn(*args))
         warm_ms = timed(lambda: da.decode_attn(*args), cold=False)
         plain_ms = timed(lambda: da.decode_attn_plain(*args), reps=5, trials=3)
@@ -625,9 +635,15 @@ def _bf16_attn_kernels(entries: list, failures: list, lay: dict) -> None:
             "source": "booster_tpu_torch/csrc/decode_attn.cu",
             "replaces": "booster_tpu/ops/pallas_attention.py:177",
             "max_abs_err": err, "max_err_of_limit": share, "min_wrong_kernel_of_limit": seen,
+            "nsplit": da.decode_splits(1, Hkv, S, False), "split_replays_equal": reset,
             "ms": ms, "warm_ms": warm_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "bound_ms_at_Dc": bound(attn_bytes(Dc), 0)[0],
             "library_ms": lib_ms, "check": CHECKS["attention"]})
+        del args, kcat, vcat
+        torch.cuda.empty_cache()
+    L, S = lay["L"], lay["S1"]
+    args = decode_attn_case(L, 1, Hkv, G, S, D, Dc, [1000], "cuda", seed=1000)
+    kc, vc = args[1], args[2]
 
     # all-layer append of one token into the same cache
     nk = torch.randn(L, 1, Hkv, D, device="cuda", generator=gen).to(torch.bfloat16)
@@ -662,8 +678,36 @@ def _bf16_attn_kernels(entries: list, failures: list, lay: dict) -> None:
         "bound_ms_at_Dc": bound(2 * L * Hkv * (D + Dc) * 2, 0)[0],
         "library_ms": lib_ms, "library": "index_put_ of the padded rows into k and v",
         "check": CHECKS["append"]})
-    del args, kc, vc, k1, v1, k2, v2, kcat, vcat
+    del args, kc, vc, k1, v1, k2, v2
     torch.cuda.empty_cache()
+
+
+def _split_replay_check(fn, failures: list, name: str) -> bool:
+    """A decode attention call's tickets reset: the output of a CUDA graph
+    of the call, replayed three times, equals the eager call's bit for bit
+    (the slices merge in slice order, whatever block is last), and the
+    ticket buffer is zero after.  True when it holds (or the call does not
+    split)."""
+    import torch
+
+    from booster_tpu_torch.ops import qmm as tq
+
+    first = fn()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = fn()
+    same = True
+    for _ in range(3):
+        g.replay()
+        torch.cuda.synchronize()
+        same = same and torch.equal(out, first)
+    tickets = tq._tickets.get(first.device)
+    zero = tickets is None or int(tickets.abs().sum()) == 0
+    del g, out
+    if not (same and zero):
+        failures.append(f"{name}: split tickets not reset across graph replays "
+                        f"(outputs equal {same}, tickets zero {zero})")
+    return same and zero
 
 
 def _attn_check(name, kern, plain, args, limit_fn, mutants_fn, failures) -> tuple:

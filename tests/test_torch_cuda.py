@@ -128,10 +128,57 @@ def test_prefill_attn_kernel_matches_plain(cuda, pos0, n_valid, T, S):
 @pytest.mark.parametrize("T,pos0,n_valid", [(32, [0, 200], [32, 7]), (16, [5, 0], [16, 1])])
 def test_prefill_attn_kernel_at_one_query_head_per_kv_head(cuda, T, pos0, n_valid):
     """MHA (G = 1) at the prompt buckets: one tile of T rows per (slot,
-    head), the rest of the block's rows idle."""
+    head), its one or two m16 tiles shared by the 8 warps."""
     args = prefill_attn_case(len(pos0), 3, 1, T, 512, 128, 128, pos0, n_valid, "cuda", seed=9)
     got, want = pa.prefill_attn(*args), pa.prefill_attn_plain(*args)
     assert ((got - want).abs() <= prefill_attn_limit(args)).all()
+
+
+@pytest.mark.parametrize("G,T", [(1, 16), (1, 32), (4, 32), (8, 32), (8, 20)])
+def test_prefill_attn_kernel_with_window_and_softcap(cuda, G, T):
+    """A window shorter than the cache and a softcap, at G = 1, 4 and 8 (and
+    a last tile shorter than TQ: T 20 at G 8)."""
+    args = list(prefill_attn_case(3, 2, G, T, 512, 128, 128, [0, 200, 400], [T, 7, T], "cuda",
+                                  seed=15 + G))
+    args[7], args[8] = 64, 30.0
+    got, want = pa.prefill_attn(*args), pa.prefill_attn_plain(*args)
+    assert ((got - want).abs() <= prefill_attn_limit(tuple(args))).all()
+
+
+@pytest.mark.parametrize("win,softcap", [(1025, 0.0), (300, 30.0)])
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("G", [1, 8])
+@pytest.mark.parametrize("lens", [1000, 79, 1, 0, 255, 256, 257])
+def test_decode_attn_kernel_split_over_the_cache(cuda, lens, G, quantized, win, softcap):
+    """B = 1: the live range split over decode_splits(1, 4, 1024, *) = 8
+    blocks of whole 128-column stages (lens 255, 256, 257 sit at a slice
+    boundary), merged by the last block with the self term."""
+    assert da.decode_splits(1, 4, 1024, quantized) == 8
+    args = list(decode_attn_case(2, 1, 4, G, 1024, 128, 128, [lens], "cuda", seed=16 + lens,
+                                 quantized=quantized))
+    args[5], args[6] = win, softcap
+    got, want = da.decode_attn(*args), da.decode_attn_plain(*args)
+    assert ((got - want).abs() <= decode_attn_limit(tuple(args))).all()
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+def test_decode_attn_split_tickets_reset_across_graph_replays(cuda, quantized):
+    """The last block of a split call resets its ticket: the same call twice,
+    then a CUDA graph of it replayed, gives the same output every time and
+    leaves the tickets zero."""
+    args = decode_attn_case(2, 1, 8, 4, 2048, 128, 128, [2000], "cuda", seed=17,
+                            quantized=quantized)
+    first = da.decode_attn(*args)
+    assert torch.equal(da.decode_attn(*args), first)
+    assert ((first - da.decode_attn_plain(*args)).abs() <= decode_attn_limit(args)).all()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = da.decode_attn(*args)
+    for _ in range(3):
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, first)
+    assert int(tq._tickets[first.device].abs().sum()) == 0
 
 
 @pytest.mark.parametrize("quantized", [False, True])
