@@ -39,6 +39,7 @@
 #include <stdint.h>
 
 #include "bf16_ops.cuh"
+#include "cp_async.cuh"
 #include "i8t_tile.cuh"  // mma_bf16, pack_bf16x2
 
 namespace attn {
@@ -80,24 +81,10 @@ struct Merge {
   static constexpr int bytes = fac + kMaxSplits * 16 * 4;
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool live) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(__cvta_generic_to_global(src)), "r"(live ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool live) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(s), "l"(__cvta_generic_to_global(src)), "r"(live ? 4 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
+using cpasync::cp_async16;
+using cpasync::cp_async4;
+using cpasync::cp_commit;
+using cpasync::cp_wait;
 
 // four int8 (one word, byte 0 first) as exact f32: (x + 128) placed in the
 // mantissa of 2^23, then 2^23 + 128 taken off

@@ -1,10 +1,10 @@
 // 4-bit K-major quantized matmul (i4t), with an optional SiLU·mul epilogue.
 //
 // Replaces the Pallas kernels of booster_tpu/ops/pallas_qmm.py:
-//   _tqmm_i4_gd_kernel   (M = 1, group-dot form)           -> qmm_kernel<G, 1, false>
-//   _tqmm_i4_kernel      (M > 1, dequantize then dot)      -> qmm_kernel<G, kRowsTile, false>
-//   _gateup_i4_gd_kernel (M = 1, fused gate+up, silu·mul)  -> qmm_kernel<G, 1, true>
-//   _gateup_i4_kernel    (M > 1, fused gate+up, silu·mul)  -> qmm_kernel<G, kRowsTile, true>
+//   _tqmm_i4_gd_kernel   (M = 1, group-dot form)           -> gd_kernel<G, false>
+//   _tqmm_i4_kernel      (M > 1, dequantize then dot)      -> mm_kernel<BM, false>
+//   _gateup_i4_gd_kernel (M = 1, fused gate+up, silu·mul)  -> gd_kernel<G, true>
+//   _gateup_i4_kernel    (M > 1, fused gate+up, silu·mul)  -> mm_kernel<BM, true>
 //
 // y[m, n] = sum_k x[m, k] * W[n, k],  W = (q - zero) * s - mins, group G along k.
 // Payload qw [K/2, N] u8: byte row r holds element r (low nibble) and element
@@ -21,36 +21,58 @@
 //           out = bf16(bf16(g·bf16(sigmoid_f32(g)))·u) — torch's own op
 //           sequence for x·sigmoid(x) then ·u, so the fused kernel equals
 //           qmm + act + mul bit for bit.  Both forms run the same per-column
-//           code with the same K split and the same reduction order (the
-//           split depends on K only).
+//           code with the same K split and the same reduction order.
 //
-// What bounds it on the H100: at decode (M = 1) the payload and scale bytes
-// (half a byte of payload and 1/16 byte of bf16 scale per weight at G = 32)
-// over 3.35 TB/s — a matvec does four FLOPs per payload byte.  The matrices
-// of a 1.1B model are 2-30 MB, so the whole matrix should be in flight at
-// once.  Design: one thread per output column, so the 32 lanes of a warp read
-// 32 consecutive bytes of a payload row (one full sector); one warp per group
-// of G payload rows issues all G loads before using any; a block is 8 warps
-// (8 consecutive groups) over 32 columns, and K is split across blocks
-// (gridDim.y), so N = 2048, K = 2048 runs 256 blocks.  The 8 warps reduce
-// through shared memory, the blocks of a column tile write f32 partials, and
-// the last block to finish (an atomic ticket) sums them in split order and
-// applies the epilogue: one launch, a fixed summation order.  x for the
-// block's rows is staged in shared memory as f32 and read as broadcasts.
-// Nibbles become floats with the 0x4B000000 trick (an OR and an FADD, full
-// rate).  At M > 1 each block takes kRowsTile rows of x and re-uses each
-// dequantized weight for all of them; tensor cores (wgmma) are later work.
+// M = 1 (gd_kernel).  What bounds it: the payload and scale bytes (half a
+// byte of payload and 1/16 byte of bf16 scale per weight at G = 32) over
+// 3.35 TB/s — a matvec does four FLOPs per payload byte.  One thread per
+// output column, so the 32 lanes of a warp read 32 consecutive bytes of a
+// payload row (one full sector); one warp per group of G payload rows issues
+// all G loads before using any; a block is 8 warps (8 consecutive groups)
+// over 32 columns, and K is split across blocks (gridDim.y), so N = 2048,
+// K = 2048 runs 256 blocks.  The 8 warps reduce through shared memory, the
+// blocks of a column tile write f32 partials, and the last block to finish
+// (an atomic ticket) sums them in split order and applies the epilogue: one
+// launch, a fixed summation order (the split depends on K only).  Nibbles
+// become floats with the 0x4B000000 trick (an OR and an FADD, full rate).
+//
+// M > 1 (mm_kernel).  What bounds it: at a decode step (M = 64) still the
+// bytes (MPT-7B's up, 4096 → 16384: 33.5 MB of payload and 4.2 MB of
+// scales, 0.011 ms); at a 1024-row prefill the bf16 operations (0.139 ms).
+// Design (qmm_ring.cuh): a block of 8 warps owns a BM x 128 output tile and
+// one split of K; ops/qmm.py i4t_plan picks BM (32, 64 or 128) and the
+// split from (M, K, N), about two blocks an SM.  A stage is one group: 32
+// payload rows (32 rows of K of each half, so one scale row per half), its
+// R scale rows and the block's 64 columns of x (32 of each half).  A ring
+// of S stages (6 at BM <= 64, 3 at 128) keeps S - 2 in flight through
+// cp.async while one is used (the copy into the slot the last stage left
+// is issued after this stage's work, so its issue does not hold up the
+// stage's unpack and products); the stage in use is unpacked from shared
+// memory (qring::dq_nibbles) into the bf16 [64 k][128 n] tile, and the
+// warps run 4 k16 steps of mma.sync on ldmatrix fragments (.trans for this
+// [k][n] tile).  With mins (R = 4) each
+// stage then subtracts xs_lo·m_lo + xs_hi·m_hi, the f32 group sums of the
+// stage's bf16 x (shared memory).  Splits cover whole groups; each writes
+// f32 partials and the last block (ticket, reset by it) adds them in split
+// order.  The gate-up tile holds gate columns n0 + [0, 64) and up columns
+// ff + n0 + [0, 64), each warp both halves of its 16-column pairs, so g
+// and u of a column meet in one thread's registers.  A column's sum is the
+// same chain of mma steps as in the matmul on the fused weight (mma.sync
+// computes each element from its row, its column and its accumulator), so
+// the two agree bit for bit when they take one plan.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "bf16_ops.cuh"
+#include "qmm_ring.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;     // groups per block (one per warp)
-constexpr int kRowsTile = 8;  // rows of x per block at M > 1
+// ------------------------------------------------------------------ M = 1
+
+constexpr int kWarps = 8;  // groups per block (one per warp)
 
 // exact float of a small unsigned integer (< 2^23): an OR and an FADD
 __device__ __forceinline__ float u2f(uint32_t v) {
@@ -63,28 +85,26 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-struct Params {
-  const uint16_t* x;   // [M, K] bf16
+struct GdParams {
+  const uint16_t* x;   // [1, K] bf16
   const uint8_t* qw;   // [K/2, N]
   const uint16_t* s;   // [R, K/(2G), N] bf16
-  void* out;           // [M, N] f32, or [M, N/2] bf16 for gate-up
-  float* part;         // [KS, NC, M, ncols] f32 partials (KS > 1), else null
-  int* tickets;        // [gridDim.z * gridDim.x] zeros, reset by the last block
-  int M, K, N, R, zero, ff;
+  void* out;           // [1, N] f32, or [1, N/2] bf16 for gate-up
+  float* part;         // [KS, NC, ncols] f32 partials (KS > 1), else null
+  int* tickets;        // [gridDim.x] zeros, reset by the last block
+  int K, N, R, zero, ff;
 };
 
-// One warp's sums of column `col` over group `g` for rows m0.. of x (in
-// shared memory, f32 [MT][2][kWarps·G], the block's groups).  M = 1 takes the
-// group-dot form, M > 1 dequantizes.
-template <int G, int MT>
-__device__ __forceinline__ void group_sums(const Params& p, const float* xsm, int col, int g,
-                                           int gl, float* acc) {
+// One warp's group-dot of column `col` over group `g` (x in shared memory,
+// f32 [2][kWarps·G], the block's groups).
+template <int G>
+__device__ __forceinline__ float group_dot(const GdParams& p, const float* xsm, int col, int g,
+                                           int gl) {
   const int half = p.K >> 1;
   const size_t plane = static_cast<size_t>(half / G) * p.N;
   const size_t so = static_cast<size_t>(g) * p.N + col;
   const uint8_t* w = p.qw + static_cast<size_t>(g) * G * p.N + col;
   const int lane = threadIdx.x & 31;
-  constexpr int XS = 2 * kWarps * G;  // floats per row of x in shared memory
   uint32_t b[G];
 #pragma unroll
   for (int c = 0; c < G; ++c) b[c] = __ldg(w + static_cast<size_t>(c) * p.N);
@@ -93,60 +113,37 @@ __device__ __forceinline__ void group_sums(const Params& p, const float* xsm, in
   const bool mins = p.R == 4;
   const float mn0 = mins ? bf16f(__ldg(p.s + 2 * plane + so)) : 0.f;
   const float mn1 = mins ? bf16f(__ldg(p.s + 3 * plane + so)) : 0.f;
-  if (MT == 1) {
-    const float* x0 = xsm + gl * G;
-    const float* x1 = xsm + kWarps * G + gl * G;
-    // group sums of x: lane c adds x[c] (G <= 32), one butterfly per half
-    const float xs0 = warp_sum(lane < G ? x0[lane] : 0.f);
-    const float xs1 = warp_sum(lane < G ? x1[lane] : 0.f);
-    float p0 = 0.f, p1 = 0.f;
+  const float* x0 = xsm + gl * G;
+  const float* x1 = xsm + kWarps * G + gl * G;
+  // group sums of x: lane c adds x[c] (G <= 32), one butterfly per half
+  const float xs0 = warp_sum(lane < G ? x0[lane] : 0.f);
+  const float xs1 = warp_sum(lane < G ? x1[lane] : 0.f);
+  float p0 = 0.f, p1 = 0.f;
 #pragma unroll
-    for (int c = 0; c < G; ++c) {
-      p0 = __fmaf_rn(x0[c], u2f(b[c] & 15u), p0);
-      p1 = __fmaf_rn(x1[c], u2f(b[c] >> 4), p1);
-    }
-    if (p.zero) {
-      const float zf = static_cast<float>(p.zero);
-      p0 = __fsub_rn(p0, __fmul_rn(zf, xs0));
-      p1 = __fsub_rn(p1, __fmul_rn(zf, xs1));
-    }
-    float c0 = __fmul_rn(s0, p0);
-    float c1 = __fmul_rn(s1, p1);
-    if (mins) {
-      c0 = __fsub_rn(c0, __fmul_rn(mn0, xs0));
-      c1 = __fsub_rn(c1, __fmul_rn(mn1, xs1));
-    }
-    acc[0] = __fadd_rn(c0, c1);
-  } else {
-#pragma unroll
-    for (int m = 0; m < MT; ++m) acc[m] = 0.f;
-#pragma unroll
-    for (int c = 0; c < G; ++c) {
-      const float wl = round_bf16(__fmul_rn(static_cast<float>(static_cast<int>(b[c] & 15u) - p.zero), s0));
-      const float wh = round_bf16(__fmul_rn(static_cast<float>(static_cast<int>(b[c] >> 4) - p.zero), s1));
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        acc[m] = __fmaf_rn(xsm[m * XS + gl * G + c], wl, acc[m]);
-        acc[m] = __fmaf_rn(xsm[m * XS + kWarps * G + gl * G + c], wh, acc[m]);
-      }
-    }
-    if (mins) {
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        const float xs0 = warp_sum(lane < G ? xsm[m * XS + gl * G + lane] : 0.f);
-        const float xs1 = warp_sum(lane < G ? xsm[m * XS + kWarps * G + gl * G + lane] : 0.f);
-        acc[m] = __fsub_rn(acc[m], __fadd_rn(__fmul_rn(xs0, mn0), __fmul_rn(xs1, mn1)));
-      }
-    }
+  for (int c = 0; c < G; ++c) {
+    p0 = __fmaf_rn(x0[c], u2f(b[c] & 15u), p0);
+    p1 = __fmaf_rn(x1[c], u2f(b[c] >> 4), p1);
   }
+  if (p.zero) {
+    const float zf = static_cast<float>(p.zero);
+    p0 = __fsub_rn(p0, __fmul_rn(zf, xs0));
+    p1 = __fsub_rn(p1, __fmul_rn(zf, xs1));
+  }
+  float c0 = __fmul_rn(s0, p0);
+  float c1 = __fmul_rn(s1, p1);
+  if (mins) {
+    c0 = __fsub_rn(c0, __fmul_rn(mn0, xs0));
+    c1 = __fsub_rn(c1, __fmul_rn(mn1, xs1));
+  }
+  return __fadd_rn(c0, c1);
 }
 
-template <int G, int MT, bool GATEUP>
-__global__ void __launch_bounds__(kWarps * 32) qmm_kernel(Params p) {
+template <int G, bool GATEUP>
+__global__ void __launch_bounds__(kWarps * 32) gd_kernel(GdParams p) {
   constexpr int NC = GATEUP ? 2 : 1;
   constexpr int XS = 2 * kWarps * G;
-  __shared__ float xsm[MT * XS];
-  __shared__ float red[kWarps][NC][MT][32];
+  __shared__ float xsm[XS];
+  __shared__ float red[kWarps][NC][32];
   __shared__ int last;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -156,16 +153,13 @@ __global__ void __launch_bounds__(kWarps * 32) qmm_kernel(Params p) {
   const int KS = gridDim.y;
   const int ncols = GATEUP ? p.ff : p.N;
   const int col = blockIdx.x * 32 + lane;
-  const int m0 = blockIdx.z * MT;
   const int g0 = ks * kWarps;  // the block's first group
 
-  // stage x rows [m0, m0 + MT) of the block's groups, both halves, as f32
-  for (int i = threadIdx.x; i < MT * XS; i += blockDim.x) {
-    const int m = i / XS, r = i - m * XS;
-    const int h = r / (kWarps * G), k = r - h * (kWarps * G);
-    const int row = min(m0 + m, p.M - 1);
+  // stage x over the block's groups, both halves, as f32
+  for (int i = threadIdx.x; i < XS; i += blockDim.x) {
+    const int h = i / (kWarps * G), k = i - h * (kWarps * G);
     const int kk = g0 * G + k;
-    xsm[i] = kk < half ? bf16f(__ldg(p.x + static_cast<size_t>(row) * p.K + h * half + kk)) : 0.f;
+    xsm[i] = kk < half ? bf16f(__ldg(p.x + h * half + kk)) : 0.f;
   }
   __syncthreads();
 
@@ -174,32 +168,21 @@ __global__ void __launch_bounds__(kWarps * 32) qmm_kernel(Params p) {
   const int g = g0 + warp;
   const int lcol = min(col, ncols - 1);
 #pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    float acc[MT];
-    if (g < ngh) {
-      group_sums<G, MT>(p, xsm, lcol + c * p.ff, g, warp, acc);
-    } else {
-#pragma unroll
-      for (int m = 0; m < MT; ++m) acc[m] = 0.f;
-    }
-#pragma unroll
-    for (int m = 0; m < MT; ++m) red[warp][c][m][lane] = acc[m];
-  }
+  for (int c = 0; c < NC; ++c)
+    red[warp][c][lane] = g < ngh ? group_dot<G>(p, xsm, lcol + c * p.ff, g, warp) : 0.f;
   __syncthreads();
 
-  // block sums in warp order: thread i takes (m, lane) = (i / 32, i % 32)
+  // block sums in warp order: thread i < 32 takes lane i
   const int i = threadIdx.x;
-  const int m = i >> 5, ln = i & 31;
-  const int cc = blockIdx.x * 32 + ln;
-  const int row = m0 + m;
-  const bool live = i < MT * 32 && cc < ncols && row < p.M;
+  const int cc = blockIdx.x * 32 + i;
+  const bool live = i < 32 && cc < ncols;
   float t[NC];
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
     float s = 0.f;
-    if (i < MT * 32) {
+    if (i < 32) {
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) s = __fadd_rn(s, red[w][c][m][ln]);
+      for (int w = 0; w < kWarps; ++w) s = __fadd_rn(s, red[w][c][i]);
     }
     t[c] = s;
   }
@@ -209,11 +192,11 @@ __global__ void __launch_bounds__(kWarps * 32) qmm_kernel(Params p) {
     if (live) {
 #pragma unroll
       for (int c = 0; c < NC; ++c)
-        p.part[((static_cast<size_t>(ks) * NC + c) * p.M + row) * ncols + cc] = t[c];
+        p.part[(static_cast<size_t>(ks) * NC + c) * ncols + cc] = t[c];
     }
     __threadfence();
     __syncthreads();
-    int* ticket = p.tickets + blockIdx.z * gridDim.x + blockIdx.x;
+    int* ticket = p.tickets + blockIdx.x;
     if (threadIdx.x == 0) last = atomicAdd(ticket, 1) == KS - 1;
     __syncthreads();
     if (!last) return;
@@ -223,7 +206,7 @@ __global__ void __launch_bounds__(kWarps * 32) qmm_kernel(Params p) {
       for (int c = 0; c < NC; ++c) {
         float s = 0.f;
         for (int k = 0; k < KS; ++k)
-          s = __fadd_rn(s, __ldcg(p.part + ((static_cast<size_t>(k) * NC + c) * p.M + row) * ncols + cc));
+          s = __fadd_rn(s, __ldcg(p.part + (static_cast<size_t>(k) * NC + c) * ncols + cc));
         t[c] = s;
       }
     }
@@ -231,52 +214,346 @@ __global__ void __launch_bounds__(kWarps * 32) qmm_kernel(Params p) {
   }
   if (!live) return;
   if (GATEUP) {
-    static_cast<uint16_t*>(p.out)[static_cast<size_t>(row) * p.ff + cc] = silu_mul(t[0], t[NC - 1]);
+    static_cast<uint16_t*>(p.out)[cc] = silu_mul(t[0], t[NC - 1]);
   } else {
-    static_cast<float*>(p.out)[static_cast<size_t>(row) * p.N + cc] = t[0];
+    static_cast<float*>(p.out)[cc] = t[0];
   }
 }
 
 template <int G>
-cudaError_t launch(const Params& p, int gateup, cudaStream_t st) {
+cudaError_t launch_gd(const GdParams& p, int gateup, cudaStream_t st) {
   const int ncols = gateup ? p.N / 2 : p.N;
   const int ngh = (p.K / 2) / G;
-  const int KS = (ngh + kWarps - 1) / kWarps;
-  const dim3 block(kWarps * 32);
-  if (p.M == 1) {
-    const dim3 grid((ncols + 31) / 32, KS, 1);
-    if (gateup) qmm_kernel<G, 1, true><<<grid, block, 0, st>>>(p);
-    else qmm_kernel<G, 1, false><<<grid, block, 0, st>>>(p);
-  } else {
-    const dim3 grid((ncols + 31) / 32, KS, (p.M + kRowsTile - 1) / kRowsTile);
-    if (gateup) qmm_kernel<G, kRowsTile, true><<<grid, block, 0, st>>>(p);
-    else qmm_kernel<G, kRowsTile, false><<<grid, block, 0, st>>>(p);
-  }
+  const dim3 grid((ncols + 31) / 32, (ngh + kWarps - 1) / kWarps);
+  if (gateup) gd_kernel<G, true><<<grid, kWarps * 32, 0, st>>>(p);
+  else gd_kernel<G, false><<<grid, kWarps * 32, 0, st>>>(p);
   return cudaGetLastError();
+}
+
+// ------------------------------------------------------------------ M > 1
+
+constexpr int kG = 32;             // the group (Q4_0's)
+constexpr int kBN = qring::kBN;    // 128 columns of a tile
+constexpr int kXS = 2 * kG + 8;    // bf16 per x row of a stage: 32 low-half k, 32 high, pad
+constexpr int kWS = kBN + 8;       // bf16 per row of the dequantized [64 k][128 n] tile
+
+template <int BM>
+constexpr int kRing = BM == 128 ? 3 : 6;  // stages of the ring
+
+template <int BM>
+struct MmSmem {
+  struct alignas(16) Stage {
+    uint8_t q[kG * kBN];   // the group's 32 payload rows
+    uint16_t s[4][kBN];    // its scale rows (R of the 4)
+    uint16_t x[BM * kXS];  // the block's x at the group's k: 32 of each half
+  };
+  Stage st[kRing<BM>];
+  alignas(16) uint16_t w[2 * kG * kWS];  // rows 0-31 the low half's k, 32-63 the high half's
+  float xs[2][BM];                        // f32 group sums of bf16 x per half (mins)
+};
+
+struct MmParams {
+  const uint16_t* x;   // [M, K] bf16
+  const uint8_t* qw;   // [K/2, N]
+  const uint16_t* s;   // [R, K/64, N] bf16
+  void* out;           // [M, N] f32, or [M, N/2] bf16 for gate-up
+  float* part;         // [KS, M, N] f32 partials (KS > 1), else null
+  int* tickets;        // [gridDim.z · gridDim.x] zeros, reset by the last block
+  int M, K, N, R, zero, KS;
+};
+
+// The payload column of tile column c (a gate-up tile: gate columns n0 +
+// [0, 64), then up columns ff + n0 + [0, 64)) and whether it exists (N, or
+// ff, is a multiple of 16: whole 16-column chunks).
+template <bool GATEUP>
+__device__ __forceinline__ int gcol(const MmParams& p, int n0, int c) {
+  if constexpr (GATEUP) return c < 64 ? n0 + c : (p.N >> 1) + n0 + c - 64;
+  return n0 + c;
+}
+
+template <bool GATEUP>
+__device__ __forceinline__ bool gcol_live(const MmParams& p, int n0, int c) {
+  if constexpr (GATEUP) return n0 + (c & 63) < (p.N >> 1);
+  return n0 + c < p.N;
+}
+
+// the tile column of the first of a warp's 16-column pair j (n8 tiles 2j,
+// 2j + 1); in a gate-up tile the first half of the pairs are gate columns
+// and the second half the up columns of the same offsets
+template <bool GATEUP, int NI>
+__device__ __forceinline__ int pair_col(int wn, int j) {
+  if constexpr (GATEUP) {
+    constexpr int P = NI / 4;  // pairs per half
+    return j < P ? wn * (NI * 4) + j * 16 : 64 + wn * (NI * 4) + (j - P) * 16;
+  }
+  return wn * (NI * 8) + j * 16;
+}
+
+// What a thread copies of each stage, at group 0 (group g adds g·32 payload
+// rows, g scale rows and g·32 columns of x of each half).
+template <int BM, bool GATEUP>
+struct MmLoad {
+  static constexpr int NX = BM * 8 / qring::kThreads;  // 16-byte x chunks a thread
+  const uint8_t* q;          // its payload chunk (null: past the last column)
+  const uint16_t* s;         // its scale chunk (null: none, or past the last column)
+  const uint16_t* x[NX];     // its x chunks (null: rows past M)
+
+  __device__ __forceinline__ MmLoad(const MmParams& p, int m0, int n0) {
+    const int t = threadIdx.x, half = p.K >> 1, ngh = half / kG;
+    {  // payload: 32 rows x 8 chunks of 16 bytes
+      const int r = t >> 3, c = (t & 7) * 16;
+      q = gcol_live<GATEUP>(p, n0, c)
+              ? p.qw + static_cast<size_t>(r) * p.N + gcol<GATEUP>(p, n0, c) : nullptr;
+    }
+    {  // scale rows: R x 16 chunks of 8 bf16
+      const int h = t >> 4, c = (t & 15) * 8;
+      s = t < p.R * 16 && gcol_live<GATEUP>(p, n0, c)
+              ? p.s + static_cast<size_t>(h) * ngh * p.N + gcol<GATEUP>(p, n0, c) : nullptr;
+    }
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {  // x: BM rows x 8 chunks of 8 bf16, 4 of each half
+      const int idx = t + i * qring::kThreads, row = m0 + (idx >> 3), c = idx & 7;
+      x[i] = row < p.M ? p.x + static_cast<size_t>(row) * p.K + (c < 4 ? 0 : half) + (c & 3) * 8
+                       : nullptr;
+    }
+  }
+};
+
+template <int BM, bool GATEUP>
+__device__ __forceinline__ void mm_load(const MmParams& p, const MmLoad<BM, GATEUP>& L,
+                                        typename MmSmem<BM>::Stage& st, int g) {
+  const int t = threadIdx.x;
+  qring::cp_async16(&st.q[t * 16], L.q != nullptr ? L.q + static_cast<size_t>(g) * kG * p.N
+                                                  : p.qw, L.q != nullptr);
+  if (t < p.R * 16)
+    qring::cp_async16(&st.s[t >> 4][(t & 15) * 8],
+                      L.s != nullptr ? L.s + static_cast<size_t>(g) * p.N : p.s, L.s != nullptr);
+#pragma unroll
+  for (int i = 0; i < MmLoad<BM, GATEUP>::NX; ++i) {
+    const int idx = t + i * qring::kThreads;
+    qring::cp_async16(&st.x[(idx >> 3) * kXS + (idx & 7) * 8],
+                      L.x[i] != nullptr ? L.x[i] + g * kG : p.x, L.x[i] != nullptr);
+  }
+}
+
+// the stage's payload unpacked into the [64 k][128 n] bf16 tile: thread t
+// takes 16 bytes of payload row t / 8 (16 columns, both nibbles)
+template <int BM>
+__device__ __forceinline__ void mm_dequant(const typename MmSmem<BM>::Stage& st, MmSmem<BM>& sm,
+                                           uint32_t bias) {
+  const int t = threadIdx.x, r = t >> 3, c = (t & 7) * 16;
+  const uint4 q = *reinterpret_cast<const uint4*>(&st.q[r * kBN + c]);
+  const uint4 la = *reinterpret_cast<const uint4*>(&st.s[0][c]);
+  const uint4 lb = *reinterpret_cast<const uint4*>(&st.s[0][c + 8]);
+  const uint4 ha = *reinterpret_cast<const uint4*>(&st.s[1][c]);
+  const uint4 hb = *reinterpret_cast<const uint4*>(&st.s[1][c + 8]);
+  const uint32_t qv[4] = {q.x, q.y, q.z, q.w};
+  const uint32_t sl[8] = {la.x, la.y, la.z, la.w, lb.x, lb.y, lb.z, lb.w};
+  const uint32_t sh[8] = {ha.x, ha.y, ha.z, ha.w, hb.x, hb.y, hb.z, hb.w};
+  uint32_t lo[8], hi[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)  // bytes 2j, 2j + 1: columns c + 2j, c + 2j + 1
+    qring::dq_nibbles(qv[j >> 1] >> ((j & 1) * 16), bias, sl[j], sh[j], lo[j], hi[j]);
+  uint4* dl = reinterpret_cast<uint4*>(&sm.w[r * kWS + c]);
+  uint4* dh = reinterpret_cast<uint4*>(&sm.w[(kG + r) * kWS + c]);
+  dl[0] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+  dl[1] = make_uint4(lo[4], lo[5], lo[6], lo[7]);
+  dh[0] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+  dh[1] = make_uint4(hi[4], hi[5], hi[6], hi[7]);
+}
+
+template <int BM, bool GATEUP>
+__global__ void __launch_bounds__(qring::kThreads, 2) mm_kernel(MmParams p) {
+  using W = qring::Warps<BM>;
+  constexpr int S = kRing<BM>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  MmSmem<BM>& sm = *reinterpret_cast<MmSmem<BM>*>(smem_raw);
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int wm = warp % W::WM, wn = warp / W::WM;
+  const int n0 = blockIdx.x * (GATEUP ? 64 : kBN), split = blockIdx.y, mt = blockIdx.z;
+  const int m0 = mt * BM;
+  const int ngh = (p.K >> 1) / kG;
+  const int g0 = static_cast<int>(static_cast<long long>(split) * ngh / p.KS);
+  const int n = static_cast<int>(static_cast<long long>(split + 1) * ngh / p.KS) - g0;
+  const uint32_t bias = qring::nibble_bias(p.zero);
+  const int r0 = wm * W::MI * 16;         // the warp's first row in the tile
+  const bool warp_live = m0 + r0 < p.M;   // whether the warp has a real row
+  const int mat = lane >> 3, lr = lane & 7;
+  const int gid = lane >> 2, tig = lane & 3;
+  float acc[W::MI][W::NI][4];
+  qring::zero_acc(acc);
+  const MmLoad<BM, GATEUP> L(p, m0, n0);
+
+#pragma unroll
+  for (int i = 0; i < S - 1; ++i) {
+    if (i < n) mm_load<BM, GATEUP>(p, L, sm.st[i], g0 + i);
+    qring::cp_commit();
+  }
+  for (int i = 0; i < n; ++i) {
+    qring::cp_wait<S - 2>();
+    __syncthreads();  // stage i is in; the last stage's tile and slot are free
+    const typename MmSmem<BM>::Stage& st = sm.st[i % S];
+    mm_dequant<BM>(st, sm, bias);
+    if (p.R == 4 && t < 2 * BM) {  // the group sums of x, per half
+      const int h = t / BM, m = t - h * BM;
+      const uint16_t* xr = &st.x[m * kXS + h * kG];
+      float s = 0.f;
+#pragma unroll
+      for (int j = 0; j < kG; ++j) s = __fadd_rn(s, bf16f(xr[j]));
+      sm.xs[h][m] = s;
+    }
+    __syncthreads();  // the tile is dequantized
+    if (warp_live) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {  // k16 steps: rows 0-31 low half, 32-63 high
+        uint32_t a[W::MI][4];
+        qring::a_frags<W::MI>(a, st.x, kXS, r0, kk * 16);
+#pragma unroll
+        for (int j = 0; j < W::NI / 2; ++j) {
+          uint32_t b[4];
+          i8t::ldmatrix_x4(b, &sm.w[(kk * 16 + (mat & 1) * 8 + lr) * kWS
+                                    + pair_col<GATEUP, W::NI>(wn, j) + (mat >> 1) * 8], true);
+          qring::mma_pair(acc, a, b, j);
+        }
+      }
+      if (p.R == 4) {  // less xs_lo·m_lo + xs_hi·m_hi
+#pragma unroll
+        for (int mi = 0; mi < W::MI; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < W::NI; ++ni)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = r0 + mi * 16 + gid + (e >> 1) * 8;
+              const int c = pair_col<GATEUP, W::NI>(wn, ni >> 1) + (ni & 1) * 8 + tig * 2 + (e & 1);
+              acc[mi][ni][e] = __fsub_rn(acc[mi][ni][e],
+                                         __fadd_rn(__fmul_rn(sm.xs[0][r], bf16f(st.s[2][c])),
+                                                   __fmul_rn(sm.xs[1][r], bf16f(st.s[3][c]))));
+            }
+      }
+    }
+    // the copy into the slot group i - 1 left, after this stage's work
+    if (i + S - 1 < n) mm_load<BM, GATEUP>(p, L, sm.st[(i + S - 1) % S], g0 + i + S - 1);
+    qring::cp_commit();
+  }
+
+  const int ncols = GATEUP ? p.N >> 1 : p.N;  // columns of out
+  if (p.KS == 1) {
+#pragma unroll
+    for (int mi = 0; mi < W::MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < (GATEUP ? W::NI / 2 : W::NI); ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = m0 + r0 + mi * 16 + gid + (e >> 1) * 8;
+          const int c = pair_col<GATEUP, W::NI>(wn, ni >> 1) + (ni & 1) * 8 + tig * 2 + (e & 1);
+          if (row >= p.M || n0 + c >= ncols) continue;
+          const size_t o = static_cast<size_t>(row) * ncols + n0 + c;
+          if constexpr (GATEUP)
+            static_cast<uint16_t*>(p.out)[o] = silu_mul(acc[mi][ni][e], acc[mi][ni + W::NI / 2][e]);
+          else
+            static_cast<float*>(p.out)[o] = acc[mi][ni][e];
+        }
+    return;
+  }
+  const size_t plane = static_cast<size_t>(p.M) * p.N;
+#pragma unroll
+  for (int mi = 0; mi < W::MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < W::NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = m0 + r0 + mi * 16 + gid + (e >> 1) * 8;
+        const int c = pair_col<GATEUP, W::NI>(wn, ni >> 1) + (ni & 1) * 8 + tig * 2 + (e & 1);
+        if (row < p.M && gcol_live<GATEUP>(p, n0, c))
+          p.part[split * plane + static_cast<size_t>(row) * p.N + gcol<GATEUP>(p, n0, c)] =
+              acc[mi][ni][e];
+      }
+  if (!i8t::arrive_last(p.tickets + mt * gridDim.x + blockIdx.x, p.KS)) return;
+  const int rows = min(BM, p.M - m0), cols = min(GATEUP ? 64 : kBN, ncols - n0);
+  const float* pt = p.part + static_cast<size_t>(m0) * p.N + n0;
+  if constexpr (GATEUP) {
+    // the gate sums to shared memory (the ring is free), then the up sums
+    // meet them there; ff is a multiple of 16: a 4-column group lies in it
+    float* gs = reinterpret_cast<float*>(smem_raw);  // [BM][64]
+    qring::reduce_splits<BM, 64>(pt, plane, p.KS, p.N, rows, cols, [&](int r, int c, float4 v) {
+      *reinterpret_cast<float4*>(&gs[r * 64 + c]) = v;
+    });
+    __syncthreads();
+    qring::reduce_splits<BM, 64>(pt + ncols, plane, p.KS, p.N, rows, cols,
+                                 [&](int r, int c, float4 v) {
+      const float4 g = *reinterpret_cast<const float4*>(&gs[r * 64 + c]);
+      uint16_t* o = static_cast<uint16_t*>(p.out) + static_cast<size_t>(m0 + r) * ncols + n0 + c;
+      o[0] = silu_mul(g.x, v.x);
+      o[1] = silu_mul(g.y, v.y);
+      o[2] = silu_mul(g.z, v.z);
+      o[3] = silu_mul(g.w, v.w);
+    });
+  } else {
+    qring::reduce_splits<BM, kBN>(pt, plane, p.KS, p.N, rows, cols, [&](int r, int c, float4 v) {
+      *reinterpret_cast<float4*>(static_cast<float*>(p.out) + static_cast<size_t>(m0 + r) * ncols
+                                 + n0 + c) = v;
+    });
+  }
+}
+
+template <int BM, bool GATEUP>
+cudaError_t launch_mm(const MmParams& p, cudaStream_t st) {
+  constexpr int bytes = sizeof(MmSmem<BM>);
+  static bool ready = false;
+  const cudaError_t e = qring::allow_smem(mm_kernel<BM, GATEUP>, bytes, ready);
+  if (e != cudaSuccess) return e;
+  const int tn = GATEUP ? 64 : kBN;
+  const int ncols = GATEUP ? p.N / 2 : p.N;
+  const dim3 grid((ncols + tn - 1) / tn, p.KS, (p.M + BM - 1) / BM);
+  mm_kernel<BM, GATEUP><<<grid, qring::kThreads, bytes, st>>>(p);
+  return cudaGetLastError();
+}
+
+template <int BM>
+cudaError_t launch_mm_bm(const MmParams& p, int gateup, cudaStream_t st) {
+  return gateup ? launch_mm<BM, true>(p, st) : launch_mm<BM, false>(p, st);
 }
 
 }  // namespace
 
-// The number of K splits (blocks along y) of a launch: the f32 partial buffer
-// holds KS·(gateup ? 2 : 1)·M·ncols floats, the ticket buffer
-// ceil(ncols/32)·ceil(M/tile) ints (tile = 1 at M = 1, else 8).
+// The number of K splits (blocks along y) of the M = 1 kernel: the f32
+// partial buffer holds KS·(gateup ? 2 : 1)·ncols floats, the ticket buffer
+// ceil(ncols/32) ints.
 extern "C" int bt_qmm_i4t_splits(int K, int G) {
   return ((K / 2) / G + kWarps - 1) / kWarps;
 }
 
-// y = x @ W^T for an i4t weight.  gateup = 0: out f32 [M, N].  gateup = 1:
-// W holds gate columns [0, N/2) and up columns [N/2, N); out bf16 [M, N/2].
-// G must be 32 (Q4_0's group, the only one ported yet).  Returns the CUDA
-// error of the launch (0 on success).
+// y = x @ W^T for an i4t weight at M = 1 (the group-dot kernel).  gateup =
+// 0: out f32 [1, N].  gateup = 1: W holds gate columns [0, N/2) and up
+// columns [N/2, N); out bf16 [1, N/2].  G must be 32 (Q4_0's group, the only
+// one ported yet).  Returns the CUDA error of the launch (0 on success).
 extern "C" int bt_qmm_i4t(const void* x, const void* qw, const void* s, void* out,
-                          void* part, void* tickets, int M, int K, int N, int R, int zero,
-                          int G, int gateup, void* stream) {
-  Params p{static_cast<const uint16_t*>(x), static_cast<const uint8_t*>(qw),
-           static_cast<const uint16_t*>(s), out, static_cast<float*>(part),
-           static_cast<int*>(tickets), M, K, N, R, zero, gateup ? N / 2 : 0};
+                          void* part, void* tickets, int K, int N, int R, int zero, int G,
+                          int gateup, void* stream) {
+  GdParams p{static_cast<const uint16_t*>(x), static_cast<const uint8_t*>(qw),
+             static_cast<const uint16_t*>(s), out, static_cast<float*>(part),
+             static_cast<int*>(tickets), K, N, R, zero, gateup ? N / 2 : 0};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (G != 32) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_gd<32>(p, gateup, st));
+}
+
+// y = x @ W^T for an i4t weight at M > 1 (the tensor-core tile), G = 32:
+// rows of x per block bm (32, 64 or 128) and ks splits of K on whole groups
+// (ops/qmm.py i4t_plan).  part: [ks, M, N] f32 when ks > 1; tickets:
+// ceil(M/bm)·ceil(ncols/(gateup ? 64 : 128)) zeros.  N (gate-up: N/2) a
+// multiple of 16, K of 64; x, qw and s on 16 bytes.
+extern "C" int bt_qmm_i4t_mm(const void* x, const void* qw, const void* s, void* out,
+                             void* part, void* tickets, int M, int K, int N, int R, int zero,
+                             int gateup, int bm, int ks, void* stream) {
+  MmParams p{static_cast<const uint16_t*>(x), static_cast<const uint8_t*>(qw),
+             static_cast<const uint16_t*>(s), out, static_cast<float*>(part),
+             static_cast<int*>(tickets), M, K, N, R, zero, ks};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if (G == 32) e = launch<32>(p, gateup, st);
+  if (bm == 32) e = launch_mm_bm<32>(p, gateup, st);
+  else if (bm == 64) e = launch_mm_bm<64>(p, gateup, st);
+  else if (bm == 128) e = launch_mm_bm<128>(p, gateup, st);
   else e = cudaErrorInvalidValue;
   return static_cast<int>(e);
 }

@@ -2,8 +2,8 @@
 // form of the routed experts (MoE).
 //
 // Replaces the Pallas kernels of booster_tpu/ops/pallas_qmm.py:
-//   _qmm_i4_kernel (:96, via _qmm_i4 :225)  -> qmm_lane_kernel<true>, no tile table
-//   _qmm_i8_kernel (:135, via _qmm_i8 :265) -> qmm_lane_kernel<false>, no tile table
+//   _qmm_i4_kernel (:96, via _qmm_i4 :225)  -> lane_kernel<true, BM>, no tile table
+//   _qmm_i8_kernel (:135, via _qmm_i8 :265) -> lane_kernel<false, BM>, no tile table
 // and the same bodies as booster_tpu/ops/pallas_moe.py::grouped_qmm (:72)
 // calls them (pallas_calls :113, :150) -> the same kernels with a tile table.
 //
@@ -25,49 +25,73 @@
 // names it, and the tile's rows multiply rows [e·N, e·N + N) of the stacked
 // [E·N, K] payload.  rows_used points at the count of the padded groups'
 // rows (route_pad's start[E], on the device): tiles at or past it hold only
-// zero rows, and their blocks write zeros without reading a weight (the
-// reference reads expert E - 1 for each of them: at decode 7 of 9 tiles).
-// The plain form has no tile table and reads rows [0, N).
+// zero rows, and their rows are written as zeros without reading a weight
+// (the reference reads expert E - 1 for each of them: at decode 7 of 9
+// tiles).  The plain form has no tile table and reads rows [0, N).
 //
-// What bounds it on the H100.  Decode (2 or 128 real rows of 8 experts): the
-// bytes of the routed experts' payload and scales (0.5625 byte per weight
-// for i4p) over 3.35 TB/s, about 20 µs per expert matrix of Mixtral-8x7B.
-// Prefill (4352 padded rows): the bf16 operations.  Design: a block of 256
-// threads owns a 32 x 128 output tile (one expert tile of rows, 128 output
-// columns of that expert) and walks K in stages of 128 columns (i4p: 64
-// payload bytes, whose low and high nibbles are columns j and K/2 + j).  A
-// stage goes global -> registers (16-byte loads, the next stage in flight
-// while the tensor cores work on this one) -> shared memory: x as it is, the
-// payload dequantized to bf16.  The 8 warps (2 along M x 4 along N) run
-// mma.sync m16n8k16 (bf16 in, f32 accumulate) on ldmatrix fragments; the
-// weight tile is stored [n][k], which is the .col operand as it is.  Blocks
-// run with the column tile fastest: the blocks in flight together are one
-// or a few row tiles' column tiles, which share x.  route_pad puts an
-// expert's row tiles side by side, so they run one after another, each
-// reading the whole expert again: from L2 if it is still there (33 MB of
-// Q4_0 gate/up against the H100's 50 MB; the hit rate is not measured).
-// Grouping 16 row tiles with the row tile fastest, so that the blocks in
-// flight share weight slabs, was measured on the H100 no faster at the
-// 4096-row prefill and 47 % slower at the down matmul of one decode token,
-// whose real tiles then no longer lead the grid onto idle SMs.
-// wgmma, TMA and a ring of stages are later work.
+// What bounds it on the H100.  Decode (one row, or 2 and 128 real rows of 8
+// experts): the bytes of the payload and scales (0.5625 byte per weight for
+// i4p, 1.0625 for i8) over 3.35 TB/s: 3.6 µs for the 1.3B down (i8, 2048 x
+// 5504), about 20 µs per expert matrix of Mixtral-8x7B.  Prefill (2048 rows;
+// 4352 padded rows): the bf16 operations.  Design (qmm_ring.cuh): a block of
+// 8 warps owns a BM x 128 output tile and one split of K, and walks it in
+// stages of 64 or 128 columns of K (i4p: 32 or 64 payload bytes a row, whose
+// low and high nibbles are columns j and K/2 + j).  cp.async keeps the next
+// stages of raw payload, scale words and x in flight in a ring of 3 or 4
+// (the copy into the slot the last stage left issued after a stage's work);
+// the stage in use is dequantized from shared memory into a bf16 [128 n][SK
+// k] tile (i4p: qring::dq_nibbles; i8: qring::dq_bytes), which is the .col
+// operand of mma.sync as it is.  The scale words of a stage are copied as
+// the 4-byte words that hold its groups' scales (any G that is a multiple
+// of 16).  ops/qmm.py lane_plan picks BM (32, 64 or 128) and the split from
+// (M, K, N) (and, grouped, the experts E): where the output tiles cannot
+// fill the card (the 1.3B down at M = 1: 16 tiles), K splits on whole
+// stages, each split writes f32 partials and the last block (ticket, reset
+// by it) adds them in split order, all its loads of a split issued at once
+// (qring::reduce_splits); at large M a block's 64 or 128 rows reuse each
+// dequantized weight.  A grouped block takes BM / 32 consecutive expert
+// tiles: it runs its K range once per run of tiles of one expert (table and
+// rows_used read on the card).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "i8t_tile.cuh"
+#include "qmm_ring.cuh"
 
 namespace {
 
-constexpr int kBM = 32;         // rows of x per tile (route_pad's group padding)
-constexpr int kBN = 128;        // output columns per tile
-constexpr int kSK = 128;        // columns of K per stage
-constexpr int kThreads = 256;   // 8 warps: 2 along M x 4 along N
-constexpr int kS = kSK + 8;     // bf16 per shared row (pad: no ldmatrix bank conflicts)
+constexpr int kBN = qring::kBN;  // payload rows (output columns) per tile
 
-struct alignas(16) Smem {
-  uint16_t x[kBM * kS];
-  uint16_t w[kBN * kS];
+// Columns of K a stage and stages in the ring, two blocks an SM (shared
+// memory: a stage holds its payload, x and scale words; the dequantized
+// tile is as wide as a stage).  i4p at 32 rows: 128 columns (64 payload
+// bytes of a row, whole cache lines in two stages) and 3 stages; otherwise
+// 64 columns and 4 stages, 3 at 128 rows.
+template <bool I4, int BM>
+constexpr int kSK = BM == 32 && I4 ? 128 : 64;
+template <bool I4, int BM>
+constexpr int kRing = BM == 32 && I4 ? 3 : BM == 128 ? 3 : 4;
+template <bool I4, int BM>
+constexpr int kXS = kSK<I4, BM> + 8;  // bf16 per shared row of x and of the tile (pad)
+template <bool I4, int BM>
+constexpr int kCPR = kSK<I4, BM> / 8;  // 16-byte chunks of x a row in a stage
+// payload bytes of a row in a stage (i4p: of each half)
+template <bool I4, int BM>
+constexpr int kStageBytes = I4 ? kSK<I4, BM> / 2 : kSK<I4, BM>;
+// scale words of a payload row and half in a stage: G >= 16, one more for
+// a window that starts in the middle of a word
+template <bool I4, int BM>
+constexpr int kSW = kStageBytes<I4, BM> / 32 + 1;
+
+template <bool I4, int BM>
+struct Smem {
+  struct alignas(16) Stage {
+    uint8_t q[kBN * kStageBytes<I4, BM>];      // payload rows' bytes of the stage
+    uint16_t x[BM * kXS<I4, BM>];              // the block's x at the stage's k
+    uint32_t s[kBN][I4 ? 2 : 1][kSW<I4, BM>];  // the words holding the stage's scales
+  };
+  Stage st[kRing<I4, BM>];
+  alignas(16) uint16_t w[kBN * kXS<I4, BM>];  // the dequantized [128 n][SK k] tile
 };
 
 struct Params {
@@ -75,184 +99,275 @@ struct Params {
   const uint8_t* q;          // payload, rows of K/2 bytes (i4p) or K bytes (i8)
   const uint16_t* s;         // [R, rows, K / (rows·G)] bf16
   float* out;                // [M, N] f32
-  const int* tile_expert;    // [M / 32] or null (the plain form)
+  float* part;               // [KS, M, N] f32 partials (KS > 1), else null
+  int* tickets;              // [gridDim.z · gridDim.x] zeros, reset by the last block
+  const int* tile_expert;    // [ceil(M / 32)] or null (the plain form)
   const int* rows_used;      // one int on the device, or null
-  int M, K, N, G, zero;
+  int M, K, N, G, zero, KS;
+  int gshift;                // log2 G where G is a power of 2, else -1
 };
 
-// Stage registers: x (2 chunks of 8 bf16) and the payload (i4p: 2 chunks of
-// 16 bytes and their 2 x 2 scales; i8: 4 chunks of 16 bytes and 4 scales).
-struct Stage {
-  uint4 x[2];
-  uint4 q[4];
-  uint16_t s[4];
+// j / G: a shift where G is a power of 2
+__device__ __forceinline__ int gdiv(const Params& p, int j) {
+  return p.gshift >= 0 ? j >> p.gshift : j / p.G;
+}
+
+// What a thread copies and dequantizes in a pass over payload rows wrow0 ..
+// + 127, at stage 0 (stage stg adds stg·QB bytes of payload and columns of
+// x, and gdiv(stg·QB) scale elements).  A scale element e lies in the 4-byte
+// word (e + eoff) / 2 from sw (s's address rounded down to 4 bytes); the
+// bases below count elements from sw, so a word is base / 2.
+template <bool I4, int BM>
+struct Lane {
+  static constexpr int QB = kStageBytes<I4, BM>;
+  static constexpr int NQ = QB / 16 / 2;              // 16-byte payload chunks a thread
+  static constexpr int NX = BM * kCPR<I4, BM> / qring::kThreads;  // 16-byte x chunks a thread
+  const uint32_t* sw;
+  const uint8_t* q[NQ];
+  const uint16_t* x[NX];     // null: a row outside the run (zeros)
+  size_t sload;              // the scale element of the (row, half) whose words it copies
+  size_t sdq[I4 ? 2 : 1];    // the scale elements of the row it dequantizes, per half
+
+  __device__ __forceinline__ Lane(const Params& p, size_t wrow0, int m0, int ra, int rb) {
+    const int t = threadIdx.x;
+    const uintptr_t sa = reinterpret_cast<uintptr_t>(p.s);
+    sw = reinterpret_cast<const uint32_t*>(sa & ~static_cast<uintptr_t>(3));
+    const size_t eoff = (sa >> 1) & 1;
+    const size_t ld = I4 ? p.K / 2 : p.K;  // payload bytes of a row
+    const size_t per_row = p.K / p.G;      // scale elements of a payload row
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) {
+      const int idx = t + i * qring::kThreads;
+      q[i] = p.q + (wrow0 + idx / (QB / 16)) * ld + idx % (QB / 16) * 16;
+    }
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      const int idx = t + i * qring::kThreads, row = m0 + idx / kCPR<I4, BM>;
+      const int c = idx % kCPR<I4, BM> * 8;
+      const int k = I4 ? (c < QB ? c : p.K / 2 + c - QB) : c;
+      x[i] = row >= ra && row < rb ? p.x + static_cast<size_t>(row) * p.K + k : nullptr;
+    }
+    const int r = I4 ? t >> 1 : t, h = I4 ? t & 1 : 0;
+    sload = (wrow0 + r) * per_row + h * (per_row / 2) + eoff;
+#pragma unroll
+    for (int hh = 0; hh < (I4 ? 2 : 1); ++hh)
+      sdq[hh] = (wrow0 + (t >> 1)) * per_row + hh * (per_row / 2) + eoff;
+  }
 };
 
-// the actual column of logical column lc of stage st (i4p: the low half
-// then the high half of 64 payload bytes; i8: 128 consecutive columns)
-template <bool I4>
-__device__ __forceinline__ int stage_col(const Params& p, int st, int lc) {
-  if constexpr (I4) {
-    const int b = st * (kSK / 2);  // the stage's first payload byte
-    return lc < kSK / 2 ? b + lc : p.K / 2 + b + lc - kSK / 2;
+// Stage stg (payload, scale words, x of the run's rows, zeros for the
+// others) into a ring slot.
+template <bool I4, int BM>
+__device__ __forceinline__ void lane_load(const Params& p, const Lane<I4, BM>& L,
+                                          typename Smem<I4, BM>::Stage& st, int stg) {
+  constexpr int QB = Lane<I4, BM>::QB;
+  const int t = threadIdx.x, qb = stg * QB;
+#pragma unroll
+  for (int i = 0; i < Lane<I4, BM>::NQ; ++i) {  // 128 rows x QB/16 chunks of 16 bytes
+    const int idx = t + i * qring::kThreads;
+    qring::cp_async16(&st.q[idx * 16], L.q[i] + qb, true);
   }
-  return st * kSK + lc;
-}
-
-template <bool I4>
-__device__ __forceinline__ void load_stage(const Params& p, int m0, size_t wrow0, int st,
-                                           Stage& r) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {  // x: 32 rows x 16 chunks of 8 bf16
-    const int idx = threadIdx.x + i * kThreads;
-    const int row = m0 + (idx >> 4), c = idx & 15;
-    r.x[i] = row < p.M ? __ldg(reinterpret_cast<const uint4*>(
-                             p.x + static_cast<size_t>(row) * p.K + stage_col<I4>(p, st, c * 8)))
-                       : make_uint4(0u, 0u, 0u, 0u);
+  if (t < kBN * (I4 ? 2 : 1)) {  // the scale words of (row, half)
+    const size_t w0 = (L.sload + gdiv(p, qb)) >> 1, w1 = (L.sload + gdiv(p, qb + QB - 1)) >> 1;
+    uint32_t* d = st.s[I4 ? t >> 1 : t][I4 ? t & 1 : 0];
+    for (size_t wi = w0; wi <= w1; ++wi) qring::cp_async4(d + (wi - w0), L.sw + wi, true);
   }
-  if constexpr (I4) {
-    const int sgh = p.K / (2 * p.G);  // groups per half
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {  // 128 rows x 4 chunks of 16 payload bytes
-      const int idx = threadIdx.x + i * kThreads;
-      const size_t row = wrow0 + (idx >> 2);
-      const int b = st * (kSK / 2) + (idx & 3) * 16;  // byte column
-      r.q[i] = __ldg(reinterpret_cast<const uint4*>(p.q + row * (p.K / 2) + b));
-      const uint16_t* sr = p.s + row * 2 * sgh + b / p.G;
-      r.s[2 * i] = __ldg(sr);
-      r.s[2 * i + 1] = __ldg(sr + sgh);
-    }
-  } else {
-    const int sg = p.K / p.G;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {  // 128 rows x 8 chunks of 16 bytes
-      const int idx = threadIdx.x + i * kThreads;
-      const size_t row = wrow0 + (idx >> 3);
-      const int k = st * kSK + (idx & 7) * 16;
-      r.q[i] = __ldg(reinterpret_cast<const uint4*>(p.q + row * p.K + k));
-      r.s[i] = __ldg(p.s + row * sg + k / p.G);
-    }
+  for (int i = 0; i < Lane<I4, BM>::NX; ++i) {  // x: BM rows x 8 chunks of 8 bf16
+    const int idx = t + i * qring::kThreads;
+    qring::cp_async16(&st.x[idx / kCPR<I4, BM> * kXS<I4, BM> + idx % kCPR<I4, BM> * 8],
+                      L.x[i] != nullptr ? L.x[i] + qb : p.x, L.x[i] != nullptr);
   }
 }
 
-// 16 values (q_j - zero) · s, rounded to bf16, stored at dst (2 x 16 bytes);
-// v(j) gives q_j as an int.
-template <typename V>
-__device__ __forceinline__ void store16(uint16_t* dst, uint16_t sbits, V v) {
-  const float s = bf16f(sbits);
-  uint32_t o[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-    o[j] = i8t::pack_bf16x2(__fmul_rn(static_cast<float>(v(2 * j)), s),
-                            __fmul_rn(static_cast<float>(v(2 * j + 1)), s));
-  reinterpret_cast<uint4*>(dst)[0] = make_uint4(o[0], o[1], o[2], o[3]);
-  reinterpret_cast<uint4*>(dst)[1] = make_uint4(o[4], o[5], o[6], o[7]);
+// the scale (bf16 bits) in ring slot row r, half h, of byte or column k of
+// stage stg; e: the row's scale element base (Lane::sdq)
+template <bool I4, int BM>
+__device__ __forceinline__ uint32_t stage_scale(const Params& p,
+                                                const typename Smem<I4, BM>::Stage& st,
+                                                size_t e, int r, int h, int stg, int k) {
+  const int j0 = gdiv(p, stg * kStageBytes<I4, BM>);
+  const int idx = gdiv(p, stg * kStageBytes<I4, BM> + k) - j0 + static_cast<int>((e + j0) & 1);
+  return reinterpret_cast<const uint16_t*>(st.s[r][h])[idx];
 }
 
-template <bool I4>
-__device__ __forceinline__ void store_stage(const Params& p, const Stage& r, Smem& sm) {
+// The stage's payload dequantized into the [128 n][SK k] bf16 tile: thread
+// t takes half of payload row t / 2 (i4p: both nibbles of its bytes; i8:
+// its bytes), 16 columns of K a scale.
+template <bool I4, int BM>
+__device__ __forceinline__ void lane_dequant(const Params& p, const Lane<I4, BM>& L,
+                                             const typename Smem<I4, BM>::Stage& st, uint16_t* w,
+                                             int stg, uint32_t bias) {
+  constexpr int QB = kStageBytes<I4, BM>;
+  constexpr int XS = kXS<I4, BM>;
+  const int t = threadIdx.x, r = t >> 1, c = t & 1;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int idx = threadIdx.x + i * kThreads;
-    *reinterpret_cast<uint4*>(&sm.x[(idx >> 4) * kS + (idx & 15) * 8]) = r.x[i];
-  }
-  if constexpr (I4) {
+  for (int cc = 0; cc < QB / 32; ++cc) {
+    const int b = c * (QB / 2) + cc * 16;  // the chunk's first byte (of the stage's half)
+    const uint4 q = *reinterpret_cast<const uint4*>(&st.q[r * QB + b]);
+    const uint32_t qv[4] = {q.x, q.y, q.z, q.w};
+    const uint32_t sl = stage_scale<I4, BM>(p, st, L.sdq[0], r, 0, stg, b) * 0x10001u;
+    uint32_t lo[8], hi[8];
+    if constexpr (I4) {
+      const uint32_t sh = stage_scale<I4, BM>(p, st, L.sdq[1], r, 1, stg, b) * 0x10001u;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int idx = threadIdx.x + i * kThreads;
-      const uint32_t b[4] = {r.q[i].x, r.q[i].y, r.q[i].z, r.q[i].w};
-      uint16_t* row = &sm.w[(idx >> 2) * kS];
-      const int c = (idx & 3) * 16;
-      const int z = p.zero;
-      store16(row + c, r.s[2 * i], [&](int j) {
-        return static_cast<int>((b[j >> 2] >> (8 * (j & 3))) & 0xfu) - z;
-      });
-      store16(row + kSK / 2 + c, r.s[2 * i + 1], [&](int j) {
-        return static_cast<int>((b[j >> 2] >> (8 * (j & 3) + 4)) & 0xfu) - z;
-      });
+      for (int i = 0; i < 8; ++i)
+        qring::dq_nibbles(qv[i >> 1] >> ((i & 1) * 16), bias, sl, sh, lo[i], hi[i]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) lo[i] = qring::dq_bytes(qv[i >> 1] >> ((i & 1) * 16), sl);
     }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int idx = threadIdx.x + i * kThreads;
-      const uint32_t b[4] = {r.q[i].x, r.q[i].y, r.q[i].z, r.q[i].w};
-      store16(&sm.w[(idx >> 3) * kS + (idx & 7) * 16], r.s[i], [&](int j) {
-        return static_cast<int>(static_cast<int8_t>((b[j >> 2] >> (8 * (j & 3))) & 0xffu));
-      });
+    uint4* dl = reinterpret_cast<uint4*>(&w[r * XS + b]);
+    dl[0] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    dl[1] = make_uint4(lo[4], lo[5], lo[6], lo[7]);
+    if constexpr (I4) {  // the high nibbles: columns K/2 + j, the tile's second half
+      uint4* dh = reinterpret_cast<uint4*>(&w[r * XS + QB + b]);
+      dh[0] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      dh[1] = make_uint4(hi[4], hi[5], hi[6], hi[7]);
     }
   }
 }
 
-// acc += this stage's x tile @ w tile^T, 8 steps of 16 columns of K in order.
-// Warp (wm, wn) owns rows wm·16 + [0, 16) and columns wn·32 + [0, 32):
-// acc[ni] is the m16n8 fragment of columns wn·32 + ni·8.
-__device__ __forceinline__ void mma_stage(const Smem& sm, float (&acc)[4][4]) {
+// acc = x rows [ra, rb) of the block @ payload rows wrow0 .. + 127 over
+// stages [s0, s1), from zero, k16 steps in order.
+template <bool I4, int BM>
+__device__ __forceinline__ void lane_pass(
+    const Params& p, Smem<I4, BM>& sm, size_t wrow0, int m0, int ra, int rb, int s0, int s1,
+    float (&acc)[qring::Warps<BM>::MI][qring::Warps<BM>::NI][4]) {
+  using W = qring::Warps<BM>;
+  constexpr int S = kRing<I4, BM>;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp & 1, wn = warp >> 1;
-  const int mat = lane >> 3, r = lane & 7;  // the 8x8 matrix and row this lane addresses
+  const int wm = warp % W::WM, wn = warp / W::WM;
+  const int mat = lane >> 3, lr = lane & 7;
+  const int r0 = wm * W::MI * 16;
+  const bool rows = m0 + r0 < rb && m0 + r0 + W::MI * 16 > ra;  // the warp has a row of the run
+  const uint32_t bias = qring::nibble_bias(p.zero);
+  const int n = s1 - s0;
+  const Lane<I4, BM> L(p, wrow0, m0, ra, rb);
+  qring::zero_acc(acc);
 #pragma unroll
-  for (int kk = 0; kk < kSK / 16; ++kk) {
-    uint32_t a[4];
-    i8t::ldmatrix_x4(a, &sm.x[(wm * 16 + (mat & 1) * 8 + r) * kS + kk * 16 + (mat >> 1) * 8],
-                     false);
-#pragma unroll
-    for (int nj = 0; nj < 2; ++nj) {
-      // matrices: (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7), (n 8-15, k 8-15)
-      uint32_t b[4];
-      i8t::ldmatrix_x4(b, &sm.w[(wn * 32 + nj * 16 + (mat >> 1) * 8 + r) * kS + kk * 16 +
-                                (mat & 1) * 8],
-                       false);
-      i8t::mma_bf16(acc[2 * nj], a, b[0], b[1]);
-      i8t::mma_bf16(acc[2 * nj + 1], a, b[2], b[3]);
-    }
+  for (int i = 0; i < S - 1; ++i) {
+    if (i < n) lane_load<I4, BM>(p, L, sm.st[i], s0 + i);
+    qring::cp_commit();
   }
+  for (int i = 0; i < n; ++i) {
+    qring::cp_wait<S - 2>();
+    __syncthreads();  // stage i is in; the last stage's tile and slot are free
+    const typename Smem<I4, BM>::Stage& st = sm.st[i % S];
+    lane_dequant<I4, BM>(p, L, st, sm.w, s0 + i, bias);
+    __syncthreads();  // the tile is dequantized
+    if (rows) {
+#pragma unroll
+      for (int kk = 0; kk < kSK<I4, BM> / 16; ++kk) {
+        uint32_t a[W::MI][4];
+        qring::a_frags<W::MI>(a, st.x, kXS<I4, BM>, r0, kk * 16);
+#pragma unroll
+        for (int j = 0; j < W::NI / 2; ++j) {
+          // matrices: (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7), (n 8-15, k 8-15)
+          uint32_t b[4];
+          i8t::ldmatrix_x4(b, &sm.w[(wn * W::NI * 8 + j * 16 + (mat >> 1) * 8 + lr) * kXS<I4, BM>
+                                    + kk * 16 + (mat & 1) * 8], false);
+          qring::mma_pair(acc, a, b, j);
+        }
+      }
+    }
+    // the copy into the slot stage i - 1 left, after this stage's work
+    if (i + S - 1 < n)
+      lane_load<I4, BM>(p, L, sm.st[(i + S - 1) % S], s0 + i + S - 1);
+    qring::cp_commit();
+  }
+  __syncthreads();  // every warp is done with the ring before it is filled again
 }
 
-template <bool I4>
-__global__ void __launch_bounds__(kThreads) qmm_lane_kernel(Params p) {
-  __shared__ Smem sm;
-  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
-  if (p.rows_used != nullptr && m0 >= *p.rows_used) {  // a tile of padding rows only
-    for (int e = threadIdx.x; e < kBM * kBN / 4; e += kThreads) {
+template <bool I4, int BM>
+__global__ void __launch_bounds__(qring::kThreads, 2) lane_kernel(Params p) {
+  using W = qring::Warps<BM>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem<I4, BM>& sm = *reinterpret_cast<Smem<I4, BM>*>(smem_raw);
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int wm = warp % W::WM, wn = warp / W::WM;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int n0 = blockIdx.x * kBN, split = blockIdx.y, mb = blockIdx.z, m0 = mb * BM;
+  const int mend = min(m0 + BM, p.M);
+  const int used = p.rows_used != nullptr ? min(*p.rows_used, p.M) : p.M;
+  const int lend = max(m0, min(mend, used));  // rows [m0, lend) are live, [lend, mend) zero
+  const size_t plane = static_cast<size_t>(p.M) * p.N;
+  if (lend == m0) {  // only padding rows: zeros, no weight read, no ticket
+    if (split == 0)
+      for (int e = t; e < BM * kBN / 4; e += qring::kThreads) {
+        const int row = m0 + e / (kBN / 4);
+        if (row < mend)
+          reinterpret_cast<float4*>(p.out + static_cast<size_t>(row) * p.N + n0)[e % (kBN / 4)] =
+              make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    return;
+  }
+  const int nst = p.K / kSK<I4, BM>;
+  const int s0 = static_cast<int>(static_cast<long long>(split) * nst / p.KS);
+  const int s1 = static_cast<int>(static_cast<long long>(split + 1) * nst / p.KS);
+  const int r0 = wm * W::MI * 16;
+  float acc[W::MI][W::NI][4];
+  for (int ra = m0; ra < lend;) {
+    // a run of 32-row tiles of one expert (the whole live range without a table)
+    int rb = lend, e = 0;
+    if (p.tile_expert != nullptr) {
+      e = p.tile_expert[ra / 32];
+      rb = min(ra + 32, lend);
+      while (rb < lend && p.tile_expert[rb / 32] == e) rb = min(rb + 32, lend);
+    }
+    lane_pass<I4, BM>(p, sm, static_cast<size_t>(e) * p.N + n0, m0, ra, rb, s0, s1, acc);
+#pragma unroll
+    for (int mi = 0; mi < W::MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < W::NI; ++ni)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // rows gid and gid + 8 of the fragment
+          const int row = m0 + r0 + mi * 16 + gid + h * 8;
+          if (row < ra || row >= rb) continue;
+          const size_t o = static_cast<size_t>(row) * p.N + n0 + wn * W::NI * 8 + ni * 8 + tig * 2;
+          const float2 v = make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+          if (p.KS == 1) *reinterpret_cast<float2*>(p.out + o) = v;
+          else *reinterpret_cast<float2*>(p.part + split * plane + o) = v;
+        }
+    ra = rb;
+  }
+  if (p.KS == 1) {
+    for (int e = t; e < BM * kBN / 4; e += qring::kThreads) {  // rows past rows_used
       const int row = m0 + e / (kBN / 4);
-      if (row < p.M)
+      if (row >= lend && row < mend)
         reinterpret_cast<float4*>(p.out + static_cast<size_t>(row) * p.N + n0)[e % (kBN / 4)] =
             make_float4(0.f, 0.f, 0.f, 0.f);
     }
     return;
   }
-  const size_t expert = p.tile_expert != nullptr ? p.tile_expert[blockIdx.y] : 0;
-  const size_t wrow0 = expert * p.N + n0;
-  float acc[4][4];
-#pragma unroll
-  for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[ni][e] = 0.f;
-
-  const int stages = I4 ? (p.K / 2) / (kSK / 2) : p.K / kSK;
-  Stage r;
-  load_stage<I4>(p, m0, wrow0, 0, r);
-  for (int st = 0; st < stages; ++st) {
-    __syncthreads();  // the last stage's fragments are read
-    store_stage<I4>(p, r, sm);
-    __syncthreads();
-    if (st + 1 < stages) load_stage<I4>(p, m0, wrow0, st + 1, r);
-    mma_stage(sm, acc);
+  if (!i8t::arrive_last(p.tickets + mb * gridDim.x + blockIdx.x, p.KS)) return;
+  const size_t o0 = static_cast<size_t>(m0) * p.N + n0;
+  qring::reduce_splits<BM, kBN>(p.part + o0, plane, p.KS, p.N, lend - m0, kBN,
+                                [&](int r, int c, float4 v) {
+    *reinterpret_cast<float4*>(p.out + o0 + static_cast<size_t>(r) * p.N + c) = v;
+  });
+  for (int e = t; e < BM * kBN / 4; e += qring::kThreads) {  // rows past rows_used
+    const int row = m0 + e / (kBN / 4);
+    if (row >= lend && row < mend)
+      reinterpret_cast<float4*>(p.out + static_cast<size_t>(row) * p.N + n0)[e % (kBN / 4)] =
+          make_float4(0.f, 0.f, 0.f, 0.f);
   }
+}
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp & 1, wn = warp >> 1;
-  const int gid = lane >> 2, tig = lane & 3;
-#pragma unroll
-  for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {  // rows gid and gid + 8 of the fragment
-      const int row = m0 + wm * 16 + gid + h * 8;
-      if (row < p.M)
-        *reinterpret_cast<float2*>(p.out + static_cast<size_t>(row) * p.N + n0 + wn * 32 +
-                                   ni * 8 + tig * 2) = make_float2(acc[ni][2 * h],
-                                                                   acc[ni][2 * h + 1]);
-    }
+template <bool I4, int BM>
+cudaError_t launch(const Params& p, cudaStream_t st) {
+  constexpr int bytes = sizeof(Smem<I4, BM>);
+  static bool ready = false;
+  const cudaError_t e = qring::allow_smem(lane_kernel<I4, BM>, bytes, ready);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(p.N / kBN, p.KS, (p.M + BM - 1) / BM);
+  lane_kernel<I4, BM><<<grid, qring::kThreads, bytes, st>>>(p);
+  return cudaGetLastError();
+}
+
+template <int BM>
+cudaError_t launch_bm(const Params& p, int i4, cudaStream_t st) {
+  return i4 ? launch<true, BM>(p, st) : launch<false, BM>(p, st);
 }
 
 }  // namespace
@@ -260,20 +375,26 @@ __global__ void __launch_bounds__(kThreads) qmm_lane_kernel(Params p) {
 // y [M, N] f32 = x [M, K] bf16 @ W^T for a lane-major weight: i4 = 1 for i4p
 // (zero point `zero`), 0 for i8.  tile_expert (int32 [ceil(M/32)]) selects,
 // per 32-row tile, the rows [e·N, e·N + N) of the stacked payload; null
-// takes rows [0, N).  rows_used (one int32 on the device, or null): tiles at
-// or past it are written as zeros.  N a multiple of 128; K a multiple of 256
-// (i4p) or 128 (i8); G a multiple of 16 dividing K (K/2 for i4p).  Returns
-// the CUDA error of the launch (0 on success).
-extern "C" int bt_qmm_lane(const void* x, const void* q, const void* s, void* out,
-                           const void* tile_expert, const void* rows_used, int M, int K, int N,
-                           int G, int zero, int i4, void* stream) {
+// takes rows [0, N).  rows_used (one int32 on the device, a multiple of 32,
+// or null): rows at or past it are written as zeros.  bm rows of x per block
+// (32, 64 or 128) and ks splits of K on whole 64-column stages (ops/qmm.py
+// lane_plan); part [ks, M, N] f32 when ks > 1; tickets ceil(M/bm)·N/128
+// zeros.  N a multiple of 128; K of 64 (i4p: of 128); G a multiple of 16
+// dividing K (K/2 for i4p); x and the payload on 16 bytes.  Returns the
+// CUDA error of the launch (0 on success).
+extern "C" int bt_qmm_lane(const void* x, const void* q, const void* s, void* out, void* part,
+                           void* tickets, const void* tile_expert, const void* rows_used, int M,
+                           int K, int N, int G, int zero, int i4, int bm, int ks, void* stream) {
   Params p{static_cast<const uint16_t*>(x), static_cast<const uint8_t*>(q),
-           static_cast<const uint16_t*>(s), static_cast<float*>(out),
-           static_cast<const int*>(tile_expert), static_cast<const int*>(rows_used),
-           M, K, N, G, zero};
-  const dim3 grid(N / kBN, (M + kBM - 1) / kBM);
+           static_cast<const uint16_t*>(s), static_cast<float*>(out), static_cast<float*>(part),
+           static_cast<int*>(tickets), static_cast<const int*>(tile_expert),
+           static_cast<const int*>(rows_used), M, K, N, G, zero, ks,
+           (G & (G - 1)) == 0 ? __builtin_ctz(static_cast<unsigned>(G)) : -1};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (i4) qmm_lane_kernel<true><<<grid, kThreads, 0, st>>>(p);
-  else qmm_lane_kernel<false><<<grid, kThreads, 0, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t e;
+  if (bm == 32) e = launch_bm<32>(p, i4, st);
+  else if (bm == 64) e = launch_bm<64>(p, i4, st);
+  else if (bm == 128) e = launch_bm<128>(p, i4, st);
+  else e = cudaErrorInvalidValue;
+  return static_cast<int>(e);
 }

@@ -34,7 +34,7 @@ function below is a kernel of ``csrc/probe_i4.cu``:
 probe's payload with its scale rows rounded to bf16 planes (``i4t_weight``,
 built once, outside the timed call), counted under keys of its own
 (``probe_qmm_i4t_gd`` and ``_dq``): at M > 1 it computes ``i4mm``'s
-"current" function on CUDA cores, at M = 1 the group-dot with bf16 scales.
+"current" function on its tensor-core tile, at M = 1 the group-dot with bf16 scales.
 
 Each wrapper runs its plain version for CPU tensors and launches the
 kernel for CUDA tensors (or raises).  The plain versions of the matmuls

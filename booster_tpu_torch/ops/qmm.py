@@ -8,6 +8,10 @@ i8t (Q8_0 at group 32, Q6_K at group 16), those of ``csrc/qmm_i8t.cu``
 (``_tqmm_i8_gd_kernel`` at M = 1, ``_tqmm_i8_kernel`` at M > 1).
 ``qmm_gateup`` runs their SiLU·mul forms (``_gateup_i4_gd_kernel`` /
 ``_gateup_i4_kernel``, ``_gateup_i8_gd_kernel`` / ``_gateup_i8_kernel``).
+The i4t M > 1 tile and the lane-major kernel take their rows per block and
+K splits from ``i4t_plan`` / ``lane_plan``, functions of the shapes only, so
+a CUDA graph replays the same sum order and the fused gate-up splits as the
+matmul on its weight does.
 ``qmm_plain`` and ``qmm_gateup_plain`` are the same functions in plain
 torch, with the same rounding points; a wrapper uses them only for tensors
 on the CPU.  Lane-major weights that the reference's ``_supported`` takes
@@ -43,8 +47,9 @@ from booster_tpu_torch.ops import kernels
 from booster_tpu_torch.quant.qtensor import QTensor, dequantize, kernel_scales
 
 _SIGNATURES = {
-    "bt_qmm_i4t": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    "bt_qmm_i4t": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     "bt_qmm_i4t_splits": [ctypes.c_int, ctypes.c_int],
+    "bt_qmm_i4t_mm": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
 }
 _I8_SIGNATURES = {
     "bt_qmm_i8t_gd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
@@ -57,9 +62,9 @@ _I8C_SIGNATURES = {
 }
 _I8C_MV_ROWS = 256  # rows of K per block of the M = 1 kernel (kMvRows in qmm_i8c.cu)
 _LANE_SIGNATURES = {
-    "bt_qmm_lane": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "bt_qmm_lane": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
 }
-_ROWS_TILE = 8  # rows of x per block at M > 1 (kRowsTile in qmm_i4t.cu)
+_TILE_N = 128  # output columns of a block of the i4t M > 1 and lane-major tiles
 # the tile of csrc/i8t_tile.cuh: rows of x, output columns, rows of K per stage
 _DQ_BM, _DQ_BN, _DQ_BK = 64, 128, 64
 _DQ_TARGET_BLOCKS = 264  # two blocks for each of the H100's 132 SMs
@@ -90,6 +95,60 @@ def dq_splits(M: int, K: int, N: int) -> int:
     this count, so they add their splits alike and agree bit for bit."""
     tiles = -(-M // _DQ_BM) * (N // _DQ_BN)
     return max(1, min(-(-_DQ_TARGET_BLOCKS // tiles), (K // _DQ_BK) // 4))
+
+
+def _tile_splits(tiles: int, K: int) -> int:
+    """K splits for `tiles` output tiles: the nearest count to two blocks
+    for each SM, each split at least 512 columns of K (its ring's stages
+    must outlast the load of its first)."""
+    return max(1, min(int(_DQ_TARGET_BLOCKS / tiles + 0.5), K // 512))
+
+
+def _rows_tile(rows: int) -> int:
+    """Rows of x per block (32, 64 or 128) for `rows` rows of one weight."""
+    return 32 if rows <= 32 else 64 if rows < 512 else 128
+
+
+def i4t_plan(M: int, K: int, N: int) -> tuple[int, int]:
+    """(BM, KS) of csrc/qmm_i4t.cu's M > 1 tile for y [M, N] = x [M, K] @ W:
+    rows of x per block and K splits on whole groups (64 columns of K a
+    stage).  N is the payload's width, 2ff for a fused gate-up, whose blocks
+    hold 64 gate and 64 up columns: the gate-up and the matmul on one fused
+    weight take one plan, so they add alike and agree bit for bit."""
+    bm = _rows_tile(M)
+    return bm, _tile_splits(-(-M // bm) * -(-N // _TILE_N), K)
+
+
+def i4t_launch_plan(M: int, K: int, N: int, gateup: bool) -> tuple[int, int, int]:
+    """(BM, KS, tickets) of a launch of the M > 1 tile on a weight of N
+    payload columns: ``i4t_plan(M, K, N)`` for the matmul and the fused
+    gate-up alike, and one ticket a block of a K range (128 columns, or 64
+    gate and 64 up columns, by BM rows)."""
+    bm, ks = i4t_plan(M, K, N)
+    tn = _TILE_N // 2 if gateup else _TILE_N
+    return bm, ks, -(-M // bm) * -(-(N // 2 if gateup else N) // tn)
+
+
+def lane_stage(bm: int, kind: str) -> int:
+    """Columns of K a stage of csrc/qmm_lane.cu for a `kind` weight at `bm`
+    rows a block (its kSK)."""
+    return 128 if bm == 32 and kind == "i4p" else 64
+
+
+def lane_plan(M: int, K: int, N: int, E: int = 0) -> tuple[int, int]:
+    """(BM, KS) of csrc/qmm_lane.cu for y [M, N] = x [M, K] @ W^T: rows of x
+    per block and K splits on whole stages (``lane_stage``).  The grouped
+    form (E experts, M = route_pad's padded rows) plans from the shapes
+    alone, as its sum order must: route_pad reserves a tile of padding per
+    expert, so at most M - 32E rows are real, spread over E experts; each
+    expert they reach adds a partly filled tile."""
+    if not E:
+        bm = _rows_tile(M)
+        return bm, _tile_splits(-(-M // bm) * (N // _TILE_N), K)
+    rows = max(1, M - 32 * E)
+    bm = _rows_tile(rows // E)
+    live = rows + 32 * min(E, -(-rows // 32))  # rows of the tiles that hold real rows
+    return bm, _tile_splits(-(-live // bm) * (N // _TILE_N), K)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -333,20 +392,32 @@ def _launch(x: torch.Tensor, w: QTensor, gateup: bool) -> torch.Tensor:
     if not (x.device == w.qw.device == s3.device):
         raise ValueError("qmm_i4t kernel: all operands must be on one device")
     ncols = N // 2 if gateup else N
+    if M > 1 and ncols % 16:
+        raise NotImplementedError(f"qmm_i4t kernel at M > 1: {ncols} output columns: not "
+                                  "ported yet (a multiple of 16)")
+    if M > 1 and (x.data_ptr() % 16 or w.qw.data_ptr() % 16 or s3.data_ptr() % 16):
+        raise ValueError("qmm_i4t kernel at M > 1: x, payload and scales must lie on 16 bytes")
     out = torch.empty(M, ncols, device=x.device,
                       dtype=torch.bfloat16 if gateup else torch.float32)
     lib = kernels.library("qmm_i4t", _SIGNATURES)
-    splits = _splits.get(("qmm_i4t", K, w.group))
-    if splits is None:
-        splits = _splits[("qmm_i4t", K, w.group)] = lib.bt_qmm_i4t_splits(K, w.group)
-    part = (torch.empty(splits * (2 if gateup else 1) * M * ncols, dtype=torch.float32,
-                        device=x.device) if splits > 1 else None)
-    tiles = -(-ncols // 32) * (1 if M == 1 else -(-M // _ROWS_TILE))
-    tickets = _ticket_buffer(x.device, tiles)
-    rc = lib.bt_qmm_i4t(x.data_ptr(), w.qw.data_ptr(), s3.data_ptr(), out.data_ptr(),
-                        None if part is None else part.data_ptr(), tickets.data_ptr(),
-                        M, K, N, s3.shape[0], w.zero, w.group, int(gateup),
-                        torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if M == 1:
+        splits = _splits.get(("qmm_i4t", K, w.group))
+        if splits is None:
+            splits = _splits[("qmm_i4t", K, w.group)] = lib.bt_qmm_i4t_splits(K, w.group)
+        part = (torch.empty(splits * (2 if gateup else 1) * ncols, dtype=torch.float32,
+                            device=x.device) if splits > 1 else None)
+        tickets = _ticket_buffer(x.device, -(-ncols // 32))
+        rc = lib.bt_qmm_i4t(x.data_ptr(), w.qw.data_ptr(), s3.data_ptr(), out.data_ptr(),
+                            None if part is None else part.data_ptr(), tickets.data_ptr(),
+                            K, N, s3.shape[0], w.zero, w.group, int(gateup), stream)
+    else:
+        bm, ks, n_tickets = i4t_launch_plan(M, K, N, gateup)
+        part = torch.empty(ks * M * N, dtype=torch.float32, device=x.device) if ks > 1 else None
+        tickets = _ticket_buffer(x.device, n_tickets)
+        rc = lib.bt_qmm_i4t_mm(x.data_ptr(), w.qw.data_ptr(), s3.data_ptr(), out.data_ptr(),
+                               None if part is None else part.data_ptr(), tickets.data_ptr(),
+                               M, K, N, s3.shape[0], w.zero, int(gateup), bm, ks, stream)
     kernels.check(rc, "qmm_i4t")
     kernels.count(("qmm_i4t_gateup" if gateup else "qmm_i4t") + ("_gd" if M == 1 else "_dq"),
                   (K, N))
@@ -477,7 +548,9 @@ def lane_launch(x: torch.Tensor, w: QTensor, N: int, name: str,
     each 32-row tile's expert (ops.moe.grouped_qmm).  Raises unless the
     kernel takes the operands: contiguous bf16 x on 16 bytes; an i4p (u8
     [R, K/2]) or i8 (int8 [R, K]) payload with bf16 prepared scale planes
-    and no mins; N a multiple of 128; K of 128 and of 2G; G of 16."""
+    and no mins; N a multiple of 128; K of 128 and of 2G; G of 16.  Rows
+    per block and K splits: ``lane_plan`` (with the experts E = rows / N of
+    the stacked payload for a tile table)."""
     w = w.resolved()
     M, K = x.shape
     i4 = w.kind == "i4p"
@@ -510,12 +583,18 @@ def lane_launch(x: torch.Tensor, w: QTensor, N: int, name: str,
         raise ValueError(f"{name} kernel: the payload has {R} rows, not {N}")
     if any(t.device != x.device for t in (w.qw, s3, *tabs)):
         raise ValueError(f"{name} kernel: all operands must be on one device")
+    if w.qw.data_ptr() % 16:
+        raise ValueError(f"{name} kernel: the payload must lie on 16 bytes")
+    bm, ks = lane_plan(M, K, N, 0 if tile_expert is None else R // N)
     out = torch.empty(M, N, device=x.device, dtype=torch.float32)
+    part = torch.empty(ks * M * N, dtype=torch.float32, device=x.device) if ks > 1 else None
+    tickets = _ticket_buffer(x.device, -(-M // bm) * (N // _TILE_N))
     lib = kernels.library("qmm_lane", _LANE_SIGNATURES)
     rc = lib.bt_qmm_lane(x.data_ptr(), w.qw.data_ptr(), s3.data_ptr(), out.data_ptr(),
+                         None if part is None else part.data_ptr(), tickets.data_ptr(),
                          None if tile_expert is None else tile_expert.data_ptr(),
                          None if rows_used is None else rows_used.data_ptr(),
-                         M, K, N, w.group, w.zero, int(i4),
+                         M, K, N, w.group, w.zero, int(i4), bm, ks,
                          torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(rc, name)
     kernels.count(name, (K, N))

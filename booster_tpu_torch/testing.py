@@ -21,14 +21,20 @@ paged decode attention; ``decode_attn_split`` and ``prefill_attn_split``
 compute in plain torch what the attention kernels compute (their slices,
 stages and warps), for the CPU tests; ``kv_append_layer_case`` and
 ``kv_append_layer_mutants`` make the per-layer append's inputs and what
-wrong appends would leave in the cache.
+wrong appends would leave in the cache.  ``qmm_i4t_split`` and
+``qmm_lane_split`` compute in plain torch what the i4t M > 1 and the
+lane-major matmul kernels compute (their K splits and k16 steps), and
+``qmm_i4t_mutants`` / ``qmm_lane_mutants`` the inputs on which the plain
+versions compute what wrong matmul kernels would.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import os
 from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 
 import numpy as np
 import torch
@@ -39,7 +45,9 @@ from booster_tpu_torch.ops.kv_append import kv_append_layer_plain
 from booster_tpu_torch.ops.kv_cache import _quantize_kv
 from booster_tpu_torch.ops.paged_attention import paged_attn_plain
 from booster_tpu_torch.ops.prefill_attention import prefill_attn_plain
+from booster_tpu_torch.ops.qmm import lane_dequant
 from booster_tpu_torch.quant import quantize
+from booster_tpu_torch.quant.qtensor import QTensor, kernel_scales
 from booster_tpu_torch.tokenizer.bpe import gpt2_split
 from booster_tpu_torch.tokenizer.vocab import BYTE_ENCODER, TokenType
 
@@ -857,3 +865,120 @@ def kv_append_layer_check(args: tuple, got: list) -> tuple[bool, dict]:
 
     return same(got, want), {name: not same(got, m)
                              for name, m in kv_append_layer_mutants(args).items()}
+
+
+# -- the quantized matmul tiles ------------------------------------------------
+
+_K16 = 16  # columns of K of an mma.sync step
+
+
+def qmm_i4t_split(x: torch.Tensor, w: QTensor, ks: int,
+                  drop: Optional[int] = None) -> torch.Tensor:
+    """What csrc/qmm_i4t.cu's M > 1 tile computes for ``qmm_i4t(x, w)`` split
+    `ks` ways over K, in plain torch (CPU; tests only).  Split s takes groups
+    [s·ngh/ks, (s+1)·ngh/ks) of each half (ngh = K/2G); per group, the k16
+    steps of its low-half rows, then of its high-half rows, each added to
+    the f32 sum as one 16-term dot of bf16(x) with w = bf16(bf16(q -
+    zero)·bf16(s)); with mins the group then subtracts xs_lo·m_lo +
+    xs_hi·m_hi (f32 sums of the group's bf16 x).  The splits' sums are added
+    in split order from zero; `drop` leaves that split out (a wrong
+    kernel's sum)."""
+    w = w.resolved()
+    M, K = x.shape
+    N, G = w.shape[0], w.group
+    half = K // 2
+    ngh = half // G
+    s3, has_mins = kernel_scales(w)
+    sf = s3.to(torch.bfloat16).float()
+    planes = torch.stack([w.qw & 0x0F, w.qw >> 4]).to(torch.int16) - w.zero
+    wd = (planes.to(torch.bfloat16).float() * sf[:2].repeat_interleave(G, dim=1))
+    wd = wd.to(torch.bfloat16).float()  # [2, half, N]
+    xb = x.to(torch.bfloat16).float().reshape(M, 2, half)
+    y = torch.zeros(M, N, device=x.device)
+    for s in range(ks):
+        acc = torch.zeros(M, N, device=x.device)
+        for g in range(s * ngh // ks, (s + 1) * ngh // ks):
+            for h in (0, 1):
+                for k0 in range(g * G, (g + 1) * G, _K16):
+                    acc = acc + xb[:, h, k0:k0 + _K16] @ wd[h, k0:k0 + _K16]
+            if has_mins:
+                xs = xb[:, :, g * G:(g + 1) * G].sum(-1)  # [M, 2]
+                acc = acc - (xs[:, :1] * sf[2, g] + xs[:, 1:] * sf[3, g])
+        if s != drop:
+            y = y + acc
+    return y
+
+
+def _lane_stage_cols(kind: str, K: int, sk: int, st: int) -> torch.Tensor:
+    """The columns of K that stage st (of sk columns) of the lane-major
+    kernel holds, in its order (i4p: bytes b .. b + sk/2 - 1 of the low
+    half, then of the high half)."""
+    if kind == "i4p":
+        b = st * sk // 2
+        return torch.cat([torch.arange(b, b + sk // 2),
+                          torch.arange(K // 2 + b, K // 2 + b + sk // 2)])
+    return torch.arange(st * sk, (st + 1) * sk)
+
+
+def qmm_lane_split(x: torch.Tensor, w: QTensor, ks: int, sk: int,
+                   drop: Optional[int] = None) -> torch.Tensor:
+    """What csrc/qmm_lane.cu computes for ``qmm_lane(x, w)`` split `ks` ways
+    over K in stages of `sk` columns (``ops.qmm.lane_stage``), in plain torch
+    (CPU; tests only): split s takes stages [s·nst/ks, (s+1)·nst/ks) (nst =
+    K/sk; ``_lane_stage_cols``), each in sk/16 k16 steps of 16-term dots of
+    bf16(x) with ``lane_dequant``'s w, added to the f32 sum in order; the
+    splits' sums in split order from zero, `drop` left out."""
+    M, K = x.shape
+    wd = lane_dequant(w)  # [N, K]
+    xb = x.to(torch.bfloat16).float()
+    nst = K // sk
+    y = torch.zeros(M, wd.shape[0], device=x.device)
+    for s in range(ks):
+        acc = torch.zeros_like(y)
+        for st in range(s * nst // ks, (s + 1) * nst // ks):
+            for c in _lane_stage_cols(w.kind, K, sk, st).split(_K16):
+                acc = acc + xb[:, c] @ wd[:, c].t()
+        if s != drop:
+            y = y + acc
+    return y
+
+
+def qmm_i4t_mutants(x: torch.Tensor, w: QTensor, groups: tuple[int, int]) -> dict:
+    """(x, w) pairs on which ``qmm_plain`` computes what a wrong i4t kernel
+    would: the nibbles swapped, each group's scale rows from the next group,
+    the zero point ignored (where it is not 0), the mins dropped (R = 4), and
+    one K split left out: groups [g0, g1) of each half, with x zero there."""
+    w = w.resolved()
+    K = x.shape[1]
+    G = w.group
+    s3, has_mins = kernel_scales(w)
+    out = {"nibbles swapped": (x, dataclasses.replace(w, qw=(w.qw >> 4) | (w.qw << 4))),
+           "scale rows shifted by one group": (x, dataclasses.replace(
+               w, scales=torch.roll(w.scales, -1, -2)))}
+    if w.zero:
+        out["zero ignored"] = (x, dataclasses.replace(w, zero=0))
+    if has_mins:
+        out["mins dropped"] = (x, dataclasses.replace(w, scales=s3[:2]))
+    g0, g1 = groups
+    xd = x.clone()
+    for h in (0, 1):
+        xd[:, h * K // 2 + g0 * G:h * K // 2 + g1 * G] = 0
+    out["one K split's partial dropped"] = (xd, w)
+    return out
+
+
+def qmm_lane_mutants(x: torch.Tensor, w: QTensor, stages: tuple[int, int], sk: int) -> dict:
+    """(x, w) pairs on which ``qmm_lane_plain`` computes what a wrong
+    lane-major kernel would: the nibble halves swapped (i4p), each group's
+    scale from its neighbour, and one K split left out: stages [s0, s1) of
+    sk columns (``_lane_stage_cols``), with x zero there."""
+    w = w.resolved()
+    out = {"a group's scale from its neighbour": (x, dataclasses.replace(
+        w, scales=torch.roll(w.scales, -1, -1)))}
+    if w.kind == "i4p":
+        out["nibble halves swapped"] = (x, dataclasses.replace(w, qw=(w.qw >> 4) | (w.qw << 4)))
+    xd = x.clone()
+    for st in range(*stages):
+        xd[:, _lane_stage_cols(w.kind, x.shape[1], sk, st).to(x.device)] = 0
+    out["one K split's partial dropped"] = (xd, w)
+    return out

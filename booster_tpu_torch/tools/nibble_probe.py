@@ -18,7 +18,7 @@ csrc/probe_i4.cu):
                             unpack_i8_shift, which its main never runs), the
                             0x4B000000 float trick of qmm_i4t.cu, and 0x4300 bf16
                             pairs scaled by a bf16x2 fused multiply
-  qmm_i4t.cu (CUDA cores)   current's function through the serving path's own M > 1
+  qmm_i4t.cu (tensor cores) current's function through the serving path's own M > 1
                             kernel, the scales rounded to bf16 planes
 
 The matmul rungs are ``i4mm`` on the tensor cores, one tiling; only the
@@ -90,7 +90,7 @@ def main(argv=None) -> dict:
                      lambda s=s, mode=mode, unpack=unpack: probes_i4.i4mm(x3, qw, s, mode, unpack),
                      lambda s=s, mode=mode: probes_i4.i4mm_plain(x3, qw, s, mode), payload,
                      base + s.numel() * 4, ops, BF16_OPS_PER_S, kernel="probe_i4mm")
-        lad.rung(f"M={bm:3d} qmm_i4t.cu (CUDA cores, bf16 planes)",
+        lad.rung(f"M={bm:3d} qmm_i4t.cu (tensor-core tile, bf16 planes)",
                  lambda: probes_i4.qmm_i4t(x3, w), lambda: probes_i4.qmm_i4t_plain(x3, w),
                  payload, base + w.scales.numel() * 2, ops, BF16_OPS_PER_S,
                  kernel="probe_qmm_i4t_dq")

@@ -12,7 +12,7 @@ group scales [K/32, N] (scales vary along K, the rows), at [K 4096 -> N
                                       [K/2, N] (byte row r: k = r low, r + K/2 high),
                                       y = sum_h x3[:, h] @ bf16(bf16(nib_h - 8) * bf16(s_h))
                                       (ops.probes_i4.i4mm on the tensor cores)
-  qmm_i4t.cu (CUDA cores)             the same function through the serving path's own
+  qmm_i4t.cu (tensor-core tile)       the same function through the serving path's own
                                       M > 1 kernel, the scales rounded to bf16 planes
                                       (not a rung of the JAX tool: the comparison the
                                       i4t M > 1 redesign needs)
@@ -76,7 +76,7 @@ def main(argv=None) -> dict:
                  lambda: probes_i4.i4mm_plain(x3, packed, s4), N * half,
                  nbytes + s4.numel() * 4, ops, BF16_OPS_PER_S, kernel="probe_i4mm")
         w = probes_i4.i4t_weight(packed, s4)  # bf16 planes, outside the timed rung
-        lad.rung(f"qmm_i4t.cu (CUDA cores, bf16 planes) BM={BM}",
+        lad.rung(f"qmm_i4t.cu (tensor-core tile, bf16 planes) BM={BM}",
                  lambda: probes_i4.qmm_i4t(x3, w), lambda: probes_i4.qmm_i4t_plain(x3, w),
                  N * half,
                  nbytes + s4.numel() * 2, ops, BF16_OPS_PER_S, kernel="probe_qmm_i4t_dq")

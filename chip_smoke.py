@@ -11,7 +11,16 @@ Phases, each printing one JSON line with its seconds:
    source, all at once); print the card's name and power limit as
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives them.
 2. kernels — each kernel against its plain torch version on the same inputs,
-   with the tolerance stated at CHECKS, at the paths' shapes:
+   with the tolerance stated at CHECKS, at the paths' shapes.  The i4t
+   matmul of csrc/qmm_i4t.cu at TinyLlama's widths (M = 1 group-dot, M = 16
+   tensor-core tile; with synthetic mins planes too), its fused gate-up at
+   M = 1, 16, 64 and 64·BATCH_MPT_T (bit-equal to the matmul + silu·mul, and
+   each output within the gate-up limit or an output of one-ulp roundings of
+   g and u), MPT-7B's qkv, wo, up and down at batch_mpt's M = 64 and
+   64·BATCH_MPT_T, and Mixtral's lm head at M = 64, each wrong kernel of
+   booster_tpu_torch.testing.qmm_i4t_mutants (nibbles swapped, a scale row
+   from the next group, the zero ignored, the mins dropped, one K split's
+   partial dropped) 8x past the limit.
    TinyLlama-1.1B (batch 1 for the Q4_0 kernels and bf16-cache attention,
    batch 64 over a 512-row int8 cache for int8 decode attention, the
    quantizing append, and chunked-prefill attention at both prompt buckets,
@@ -41,7 +50,8 @@ Phases, each printing one JSON line with its seconds:
    and down shapes: within 2e-4 of the largest output of its plain
    version, zero on the padding tiles it skips, and each wrong kernel (the
    tile table ignored, the expert off by one, the nibble halves swapped, a
-   group's scale from its neighbour) past 8x that limit.  The per-channel
+   group's scale from its neighbour, one K split's partial dropped) past 8x
+   that limit.  The per-channel
    int8 matmul of csrc/qmm_i8c.cu (weights="i8c") at the 7B shapes (qkv,
    wo, gate-up 4096 → 28672, down through the layer view of 2-layer
    stacks; the 2-D lm head) at M = 1, 64 and 2048: within 2e-4 of the
@@ -351,6 +361,9 @@ DEEPSEEK = dict(vocab_size=32256, hidden=2048, heads=16, kv_heads=16, ff=5504,
 MPT7B = dict(vocab_size=50432, hidden=4096, heads=32, kv_heads=32, ff=16384, arch="mpt",
              context=2048, rms_eps=1e-5, alibi_max_bias=8.0, output_quant="Q6_K", seed=0,
              weight_scale=0.05, draw="blocks")
+# batch_mpt's prompt bucket: its prefill runs the i4t matmuls at M = 64·T
+# (the kernels phase times them there; phase_batch checks the bucket)
+BATCH_MPT_T = 16
 # parity (e)'s decode steps after its prefill: on the CPU each step
 # dequantizes every routed expert of its 2 layers, so the steps are few
 # (cut from 8 to 3, then to 2 when MPT-7B's phases came)
@@ -467,15 +480,132 @@ def phase_build() -> dict:
 # -- phase 2 -----------------------------------------------------------------
 
 
-def _stacked_i4t(L, K, N, gen):
+def _stacked_i4t(L, K, N, gen, mins=False):
+    """A random i4t weight [L, K/2, N] made on the card: Q4_0's form (zero
+    point 8, two bf16 scale planes), or with `mins` four planes and zero 0."""
     import torch
 
     from booster_tpu_torch.gguf import GGMLType
     from booster_tpu_torch.quant.qtensor import QTensor
 
     qw = torch.randint(0, 256, (L, K // 2, N), dtype=torch.uint8, device="cuda", generator=gen)
-    s = (torch.rand((L, 2, K // 64, N), device="cuda", generator=gen) * 0.02 + 1e-3)
-    return QTensor("i4t", qw, s.to(torch.bfloat16), None, 32, (N, K), GGMLType.Q4_0, zero=8)
+    s = (torch.rand((L, 4 if mins else 2, K // 64, N), device="cuda", generator=gen) * 0.02
+         + 1e-3)
+    return QTensor("i4t", qw, s.to(torch.bfloat16), None, 32, (N, K), GGMLType.Q4_0,
+                   zero=0 if mins else 8)
+
+
+def _i4t_split_groups(M, K, N):
+    """Groups [g0, g1) of each half that the last K split of qmm_i4t.cu's
+    launch at (M, K, N) covers: 8 groups a split at M = 1, ops.qmm.i4t_plan's
+    splits above (8 groups a split in a tree without it)."""
+    from booster_tpu_torch.ops import qmm as tq
+
+    ngh = K // 64
+    plan = getattr(tq, "i4t_plan", None)
+    if M == 1 or plan is None:
+        return 8 * ((ngh - 1) // 8), ngh
+    ks = plan(M, K, N)[1]
+    return (ks - 1) * ngh // ks, ngh
+
+
+def _i4t_row(entries, failures, label, w, M, gen, path, gateup=False, trials=5):
+    """One i4t kernel row: qmm_i4t (or the fused gate-up) on x [M, K] against
+    its plain version (2e-4 of the largest output; the gate-up per element,
+    and bit-equal to the unfused kernel + silu·mul), each wrong kernel of
+    testing.qmm_i4t_mutants 8x past the limit, timed cold and warm with the
+    plain version and the bf16 library call."""
+    import torch
+
+    from booster_tpu_torch.ops import qmm as tq
+    from booster_tpu_torch.quant.qtensor import dequantize
+    from booster_tpu_torch.testing import qmm_i4t_mutants
+
+    N, K = w.shape
+    R = w.resolved().scales.shape[0]
+    x = torch.randn(M, K, device="cuda", generator=gen).to(torch.bfloat16)
+    form = "gd" if M == 1 else "dq"
+    flips = None  # gate-up outputs that one-ulp roundings of g and u explain
+    if gateup:
+        ff = N // 2
+        kern, plain = tq.qmm_i4t_gateup, tq.qmm_gateup_plain
+        got, want = kern(x, w), plain(x, w)
+        limit = 2 ** -7 * want.float().abs() + 1e-5 * want.float().abs().max()
+        gu = tq.qmm_i4t(x, w)
+        gp = tq.qmm_plain(x, w)
+        if float((gu - gp).abs().max()) > 2e-4 * float(gp.abs().max()):
+            failures.append(f"{label} M={M}: the gate-up's f32 sums past qmm's limit")
+        gu = gu.to(torch.bfloat16)
+        if not torch.equal(got, tq.silu(gu[:, :ff]) * gu[:, ff:]):
+            failures.append(f"{label} M={M}: fused gate-up != qmm + silu·mul")
+        flips = _gateup_flips(got, gp[:, :ff].to(torch.bfloat16), gp[:, ff:].to(torch.bfloat16))
+        name, out_bytes = f"qmm_i4t_gateup_{form}", M * ff * 2
+    else:
+        kern, plain = tq.qmm_i4t, tq.qmm_plain
+        got, want = kern(x, w), plain(x, w)
+        limit = 2e-4 * want.abs().max()
+        name, out_bytes = f"qmm_i4t_{form}", M * N * 4
+
+    def share(y, flips=None):  # the largest error as a share of the limit
+        s = (y.float() - want.float()).abs() / limit
+        return float((s if flips is None else s.masked_fill(flips, 0.0)).max())
+
+    err = float((got.float() - want.float()).abs().max())
+    if not (share(got, flips) <= 1 and torch.isfinite(got.float()).all()):
+        failures.append(f"{name} {label} M={M}: max err {err} past the limit")
+    seen = {what: share(plain(xm, wm))
+            for what, (xm, wm) in qmm_i4t_mutants(x, w, _i4t_split_groups(M, K, N)).items()}
+    for what, v in seen.items():
+        if v < 8:
+            failures.append(f"{name} {label} M={M}: the check cannot see {what} ({v})")
+    lib_ms = None
+    if not gateup:
+        deq = dequantize(w, torch.bfloat16)
+        lib_ms = timed(lambda: torch.matmul(x, deq.t()), trials=trials)
+        del deq
+    nbytes = K // 2 * N + R * (K // 64) * N * 2 + M * K * 2 + out_bytes
+    b_ms, b_by = bound(nbytes, 2 * M * K * N)
+    entries.append({
+        "name": name, "shape": f"{label} M={M} K={K} N={N}" + (" R=4" if R == 4 else ""),
+        # the mins form runs on no path: a key no launch counts under
+        "key": (name, (K, N) + (("mins",) if R == 4 else ())), "path": path,
+        "route": "cuda", "source": "booster_tpu_torch/csrc/qmm_i4t.cu",
+        "replaces": {"qmm_i4t_gd": "booster_tpu/ops/pallas_qmm.py:393",
+                     "qmm_i4t_dq": "booster_tpu/ops/pallas_qmm.py:469",
+                     "qmm_i4t_gateup_gd": "booster_tpu/ops/pallas_qmm.py:932",
+                     "qmm_i4t_gateup_dq": "booster_tpu/ops/pallas_qmm.py:798"}[name],
+        "max_abs_err": err, "max_err_of_limit": share(got, flips),
+        "share_before_flips": None if flips is None else share(got),
+        "outputs_of_flips": None if flips is None else int((flips & (got != want)).sum()),
+        "min_wrong_kernel_of_limit": min(seen.values()),
+        "ms": timed(lambda: kern(x, w), trials=trials),
+        "warm_ms": timed(lambda: kern(x, w), trials=trials, cold=False),
+        "plain_ms": timed(lambda: plain(x, w), reps=3, trials=3),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        "library": ("null: no one torch call (gate-up + SiLU·mul)" if gateup
+                    else "torch.matmul on the dequantized bf16 weight"),
+        "check": (CHECKS["gateup"] + ", or an output of one-ulp roundings of g and u; "
+                  "equal to qmm_i4t + silu·mul, whose f32 sums hold qmm's check" if gateup
+                  else CHECKS["qmm"]) + "; wrong kernels at 8x"})
+
+
+def _gateup_flips(got, g, u):
+    """Where the bf16 gate-up output `got` equals silu(g')·u' for g', u'
+    each equal to the plain version's bf16 g, u or one bf16 ulp away: where
+    its f32 sums, in another order than the plain version's, rounded g or u
+    the other way (the tensor-core gate-up; CHECKS["gateup_i8"])."""
+    import torch
+
+    from booster_tpu_torch.ops import qmm as tq
+
+    def nudge(t, d):  # d ulps along the bit pattern (toward or away from zero)
+        return (t.view(torch.int16) + d).view(torch.bfloat16)
+
+    hit = torch.zeros(got.shape, dtype=torch.bool, device=got.device)
+    for dg in (-1, 0, 1):
+        for du in (-1, 0, 1):
+            hit |= tq.silu(nudge(g, dg)) * nudge(u, du) == got
+    return hit
 
 
 def phase_kernels(entries: list) -> dict:
@@ -490,69 +620,44 @@ def phase_kernels(entries: list) -> dict:
     C, ff, V = 2048, 5632, 32000
     Hkv, D = 4, 64
     # two layers of each stacked weight (the calls take layer 1's view, as
-    # the path takes layer i's); the lm head is one 2-D matrix
+    # the path takes layer i's); the lm head is one 2-D matrix; "qkv mins"
+    # has synthetic mins planes (R = 4, zero 0: Q4_K's form, on no path yet)
     weights = {
         "qkv": _stacked_i4t(2, C, C + 2 * Hkv * D, gen),
         "wo": _stacked_i4t(2, C, C, gen),
         "down": _stacked_i4t(2, ff, C, gen),
         "gateup": _stacked_i4t(2, C, 2 * ff, gen),
         "lm_head": _stacked_i4t(1, C, V, gen),
+        "qkv mins": _stacked_i4t(2, C, C + 2 * Hkv * D, gen, mins=True),
     }
     failures = []
 
-    for form, M in (("gd", 1), ("dq", 16)):
-        for label in ("qkv", "wo", "down", "lm_head", "gateup"):
-            if form == "dq" and label == "lm_head":
+    for M in (1, 16):
+        for label, w in weights.items():
+            if M > 1 and label == "lm_head":
                 continue  # the lm head sees one gathered row at prefill too
-            w = weights[label]
-            w1 = w.at(w.qw.shape[0] - 1)
-            N, K = w.shape
-            x = torch.randn(M, K, device="cuda", generator=gen).to(torch.bfloat16)
-            gateup = label == "gateup"
-            if gateup:
-                got = tq.qmm_i4t_gateup(x, w1)
-                want = tq.qmm_gateup_plain(x, w1)
-                d = (got.float() - want.float()).abs()
-                ok = bool((d <= 2 ** -7 * want.float().abs()
-                           + 1e-5 * want.float().abs().max()).all())
-                gu = tq.qmm_i4t(x, w1).to(torch.bfloat16)
-                if not torch.equal(got, tq.silu(gu[:, :ff]) * gu[:, ff:]):
-                    failures.append(f"gateup {form}: fused != qmm + silu·mul")
-                name = f"qmm_i4t_gateup_{form}"
-                kern, plain = tq.qmm_i4t_gateup, tq.qmm_gateup_plain
-                out_bytes = M * ff * 2
-            else:
-                got = tq.qmm_i4t(x, w1)
-                want = tq.qmm_plain(x, w1)
-                d = (got - want).abs()
-                ok = bool(d.max() <= 2e-4 * want.abs().max())
-                name = f"qmm_i4t_{form}"
-                kern, plain = tq.qmm_i4t, tq.qmm_plain
-                out_bytes = M * N * 4
-            if not (ok and torch.isfinite(got.float()).all()):
-                failures.append(f"{name} {label}: max err {float(d.max())}")
-            ms = timed(lambda: kern(x, w1))
-            warm_ms = timed(lambda: kern(x, w1), cold=False)
-            plain_ms = timed(lambda: plain(x, w1), reps=3, trials=3)
-            lib_ms = None
-            if not gateup:
-                deq = dequantize(w1, torch.bfloat16)
-                lib_ms = timed(lambda: torch.matmul(x, deq.t()))
-                del deq
-            nbytes = K // 2 * N + 2 * (K // 64) * N * 2 + M * K * 2 + out_bytes
-            b_ms, b_by = bound(nbytes, 2 * M * K * N)
-            entries.append({
-                "name": name, "shape": f"{label} M={M} K={K} N={N}",
-                "key": (name, (K, N)), "route": "cuda",
-                "source": "booster_tpu_torch/csrc/qmm_i4t.cu",
-                "replaces": {"qmm_i4t_gd": "booster_tpu/ops/pallas_qmm.py:393",
-                             "qmm_i4t_dq": "booster_tpu/ops/pallas_qmm.py:469",
-                             "qmm_i4t_gateup_gd": "booster_tpu/ops/pallas_qmm.py:932",
-                             "qmm_i4t_gateup_dq": "booster_tpu/ops/pallas_qmm.py:798"}[name],
-                "max_abs_err": float(d.max()), "ms": ms, "warm_ms": warm_ms,
-                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": lib_ms, "check": CHECKS["gateup" if gateup else "qmm"]})
+            _i4t_row(entries, failures, f"TinyLlama {label}", w.at(w.qw.shape[0] - 1), M, gen,
+                     "generate", gateup=label == "gateup")
+    # the fused gate-up against the unfused kernel at a batch step and a
+    # batch prefill's rows (no path runs an i4t gate-up there yet)
+    for M in (64, 64 * BATCH_MPT_T):
+        _i4t_row(entries, failures, "TinyLlama gateup", weights["gateup"].at(1), M, gen,
+                 "batch_mpt", gateup=True, trials=3)
     del weights
+    torch.cuda.empty_cache()
+    # MPT-7B's widths at a batch_mpt decode step (M = 64) and its prefill
+    # (64 prompts of T rows), and Mixtral-8x7B's lm head at a batch_moe step
+    for label, K, N in (("qkv", 4096, 12288), ("wo", 4096, 4096), ("up", 4096, 16384),
+                        ("down", 16384, 4096)):
+        w = _stacked_i4t(2, K, N, gen)
+        for M in (64, 64 * BATCH_MPT_T):
+            _i4t_row(entries, failures, f"MPT-7B {label}", w.at(1), M, gen, "batch_mpt",
+                     trials=3)
+        del w
+        torch.cuda.empty_cache()
+    w = _stacked_i4t(1, MIXTRAL["hidden"], V, gen)
+    _i4t_row(entries, failures, "Mixtral lm_head", w.at(0), 64, gen, "batch_moe", trials=3)
+    del w
     torch.cuda.empty_cache()
     for lay in (TINY_ATTN, MISTRAL_ATTN, DEEPSEEK_ATTN):
         _bf16_attn_kernels(entries, failures, lay)
@@ -1373,6 +1478,7 @@ def _q6k_kernels(entries: list, failures: list) -> None:
     from booster_tpu_torch.gguf import GGMLType
     from booster_tpu_torch.ops import qmm as tq
     from booster_tpu_torch.quant.qtensor import QTensor, dequantize
+    from booster_tpu_torch.testing import qmm_lane_mutants
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(9)
@@ -1528,8 +1634,9 @@ def _q6k_kernels(entries: list, failures: list) -> None:
         err = float((got - want).abs().max())
         if not (err <= limit and torch.isfinite(got).all()):
             failures.append(f"qmm_i8 1.3B down M={M}: max err {err} over {limit}")
-        seen = {what: float((tq.qmm_lane_plain(x, m) - want).abs().max()) / limit
-                for what, m in _lane_mutants(w).items()}
+        seen = {what: float((tq.qmm_lane_plain(xm, wm) - want).abs().max()) / limit
+                for what, (xm, wm) in qmm_lane_mutants(
+                    x, w, *_lane_split_stages(M, ff, C, "i8")).items()}
         for what, v in seen.items():
             if v < 8:
                 failures.append(f"qmm_i8 1.3B down M={M}: the check cannot see {what} ({v})")
@@ -1569,19 +1676,19 @@ def _lane_weight(kind, R, K, gen):
     return QTensor("i8", qw, s.to(torch.bfloat16), None, 32, (R, K), GGMLType.Q8_0)
 
 
-def _lane_mutants(w) -> dict:
-    """Weights that make the plain version compute what wrong kernels would:
-    the nibble halves swapped (i4p) and each group's scale taken from its
-    neighbour."""
-    import dataclasses
+def _lane_split_stages(M, K, N, kind, E=0):
+    """(stages [s0, s1), columns a stage) that the last K split of
+    qmm_lane.cu's launch covers (ops.qmm.lane_plan; all of K in one stage
+    in a tree without it, whose kernel did not split K)."""
+    from booster_tpu_torch.ops import qmm as tq
 
-    import torch
-
-    out = {"a group's scale from its neighbour": dataclasses.replace(
-        w, scales=torch.roll(w.scales, -1, -1))}
-    if w.kind == "i4p":
-        out["nibble halves swapped"] = dataclasses.replace(w, qw=(w.qw >> 4) | (w.qw << 4))
-    return out
+    plan = getattr(tq, "lane_plan", None)
+    if plan is None:
+        return (0, 1), K
+    bm, ks = plan(M, K, N, E)
+    sk = tq.lane_stage(bm, kind)
+    nst = K // sk
+    return ((ks - 1) * nst // ks, nst), sk
 
 
 def timed_eager(fn, reps: int = 3) -> float:
@@ -1643,6 +1750,7 @@ def _moe_kernels(entries: list, failures: list) -> None:
     from booster_tpu_torch.ops import moe
     from booster_tpu_torch.ops import qmm as tq
     from booster_tpu_torch.quant.qtensor import dequantize
+    from booster_tpu_torch.testing import qmm_lane_mutants
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(8)
@@ -1678,13 +1786,15 @@ def _moe_kernels(entries: list, failures: list) -> None:
                 if got[n_used:].any():
                     failures.append(f"{name} {label} {rlabel}: padding tiles not zero")
 
-                def plain(m):
-                    if isinstance(m, torch.Tensor):  # a wrong tile table
-                        return moe.grouped_qmm_plain(xp, w, m, E, used)
-                    return moe.grouped_qmm_plain(xp, m, te, E, used)
+                def plain(m):  # (x, weight, tile table)
+                    return moe.grouped_qmm_plain(*m, E, used)
 
-                mutants = {"tile table ignored": torch.zeros_like(te),
-                           "expert off by one": (te + 1) % E, **_lane_mutants(w)}
+                stages, sk = _lane_split_stages(xp.shape[0], K, Ne, kind, E)
+                mutants = {"tile table ignored": (xp, w, torch.zeros_like(te)),
+                           "expert off by one": (xp, w, (te + 1) % E),
+                           **{what: (xm, wm, te)
+                              for what, (xm, wm) in qmm_lane_mutants(xp, w, stages,
+                                                                     sk).items()}}
                 err, seen = check(f"{name} {label} {rlabel}", got, want, mutants, plain)
                 counts = torch.zeros(E, dtype=torch.int32, device="cuda").index_add_(
                     0, topi.reshape(-1), torch.ones(n_tok * k, dtype=torch.int32, device="cuda"))
@@ -1726,8 +1836,9 @@ def _moe_kernels(entries: list, failures: list) -> None:
             for M in (1, 64, 2048):
                 x = torch.randn(M, K, device="cuda", generator=gen).to(torch.bfloat16)
                 got, want = tq.qmm_lane(x, w), tq.qmm_lane_plain(x, w)
-                err, seen = check(f"{name} {label} M={M}", got, want, _lane_mutants(w),
-                                  lambda m: tq.qmm_lane_plain(x, m))
+                mutants = qmm_lane_mutants(x, w, *_lane_split_stages(M, K, N, kind))
+                err, seen = check(f"{name} {label} M={M}", got, want, mutants,
+                                  lambda m: tq.qmm_lane_plain(*m))
                 w_bytes = N * (K // 2 if kind == "i4p" else K) + N * (K // 32) * 2
                 b_ms, b_by = bound(w_bytes + M * K * 2 + M * N * 4, 2 * M * N * K)
                 entries.append({
@@ -2091,7 +2202,7 @@ def _swap_nibbles(q):
 
 def _tqmm_cases(gen) -> list:
     """tqmm_probe at [4096, 4096], G 32, M 64: K-major int8 with f32 scales,
-    the split-half i4 on the tensor cores and qmm_i4t.cu's CUDA-core kernel."""
+    the split-half i4 on the tensor cores and qmm_i4t.cu's M > 1 tile."""
     import torch
 
     from booster_tpu_torch.ops import probes as pr
@@ -2131,7 +2242,8 @@ def _tqmm_cases(gen) -> list:
           "neighbour group's scale": lambda: p4.i4mm_plain(x3, p, torch.roll(s4, 1, 1))},
          _NO_LIB_I4, b4 + s4.numel() * 4, ops, BF16_OPS_PER_S,
          ("probe_i4mm", ("current.i32", K, N))),
-        (("qmm_i4t.dq",), f"M {M}: qmm_i4t.cu (CUDA cores) on the tqmm_i4 payload, bf16 planes",
+        (("qmm_i4t.dq",),
+         f"M {M}: qmm_i4t.cu (tensor-core tile) on the tqmm_i4 payload, bf16 planes",
          lambda: p4.qmm_i4t(x3, w4), lambda: p4.qmm_i4t_plain(x3, w4), False,
          {"high nibble taken as the low": lambda: p4.qmm_i4t_plain(
              x3, p4.i4t_weight(_swap_nibbles(p), s4))},
@@ -2189,7 +2301,7 @@ def _nibble_cases(gen) -> list:
                       _NO_LIB_I4, base + cur.numel() * 4, ops, BF16_OPS_PER_S,
                       ("probe_i4mm", (f"current.{unpack}", K, N))))
     w4 = p4.i4t_weight(q, cur)  # qmm_i4t.cu's bf16 planes, outside the timed call
-    cases.append((("qmm_i4t.dq",), f"M {M}: qmm_i4t.cu (CUDA cores), bf16 planes",
+    cases.append((("qmm_i4t.dq",), f"M {M}: qmm_i4t.cu (tensor-core tile), bf16 planes",
                   lambda: p4.qmm_i4t(x3, w4), lambda: p4.qmm_i4t_plain(x3, w4), False,
                   {"high nibble taken as the low": lambda: p4.qmm_i4t_plain(
                       x3, p4.i4t_weight(swapped, cur))},
@@ -3340,6 +3452,9 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
                                  "decode dispatches")
     steps = res["decode_steps"]
     T = max(16, 1 << (max(res["prompt_tokens"].values()) - 1).bit_length())
+    if mpt and T != BATCH_MPT_T:
+        raise AssertionError(f"batch_mpt: prompt bucket {T}, the kernels phase times "
+                             f"{BATCH_MPT_T}")
     prefill_chunks = 1  # every prompt fits one chunk of the engine's 512
     expected = dict.fromkeys(counts, 0) | ({} if mpt else {
         "decode_attn_i8": layers * steps, "kv_append_i8": steps,

@@ -76,6 +76,76 @@ def test_gateup_kernel_fused_equals_unfused(cuda, m):
     assert torch.equal(got, tq.silu(gu[:, :256]) * gu[:, 256:])
 
 
+@pytest.mark.parametrize("mins", [False, True], ids=["R2", "R4"])
+@pytest.mark.parametrize("m", [2, 17, 33, 100, 600])
+def test_qmm_i4t_tile_at_ragged_m(cuda, m, mins):
+    """The M > 1 tensor-core tile at each row tile (32, 64, 128 rows: M 2-33,
+    100, 600) with a ragged last m16 tile, two or four scale planes, and the
+    mins and split checks of testing.qmm_i4t_mutants past 8x the limit."""
+    from booster_tpu_torch.testing import qmm_i4t_mutants
+
+    gen = torch.Generator(device="cuda").manual_seed(30 + m)
+    w = _w(2, 1024, 384, gen, mins).at(1)
+    x = torch.randn(m, 1024, device="cuda", generator=gen).to(torch.bfloat16)
+    got, want = tq.qmm_i4t(x, w), tq.qmm_plain(x, w)
+    limit = 2e-4 * want.abs().max()
+    assert (got - want).abs().max() <= limit
+    _, ks = tq.i4t_plan(m, 1024, 384)
+    ngh = 1024 // 64
+    for what, (xm, wm) in qmm_i4t_mutants(x, w, ((ks - 1) * ngh // ks, ngh)).items():
+        assert (tq.qmm_plain(xm, wm) - want).abs().max() > 8 * limit, what
+
+
+@pytest.mark.parametrize("m", [64, 1024])
+@pytest.mark.parametrize("k,n", [(4096, 12288), (16384, 4096)])
+def test_qmm_i4t_tile_at_mpt_widths(cuda, m, k, n):
+    """MPT-7B's qkv and down at a batch step (64 rows) and its prefill (1024)."""
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    w = _w(1, k, n, gen).at(0)
+    x = torch.randn(m, k, device="cuda", generator=gen).to(torch.bfloat16)
+    got, want = tq.qmm_i4t(x, w), tq.qmm_plain(x, w)
+    assert (got - want).abs().max() <= 2e-4 * want.abs().max()
+
+
+@pytest.mark.parametrize("m", [16, 64, 1024])
+def test_gateup_tile_fused_equals_unfused(cuda, m):
+    """The fused gate-up tile (64 gate and 64 up columns a block) equals the
+    matmul on the fused weight + silu·mul bit for bit, split alike
+    (i4t_launch_plan), at TinyLlama's width."""
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    w = _w(1, 2048, 2 * 5632, gen).at(0)
+    x = torch.randn(m, 2048, device="cuda", generator=gen).to(torch.bfloat16)
+    got = tq.qmm_i4t_gateup(x, w)
+    gu = tq.qmm_i4t(x, w).to(torch.bfloat16)
+    assert torch.equal(got, tq.silu(gu[:, :5632]) * gu[:, 5632:])
+
+
+def _replays_equal(fn):
+    """fn twice, then a CUDA graph of it replayed: the same output every time,
+    and the shared ticket buffer zero after."""
+    first = fn()
+    assert torch.equal(fn(), first)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = fn()
+    for _ in range(3):
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, first)
+    assert int(tq._tickets[first.device].abs().sum()) == 0
+    return first
+
+
+@pytest.mark.parametrize("gateup", [False, True])
+def test_qmm_i4t_split_tickets_reset_across_graph_replays(cuda, gateup):
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    w = _w(1, 4096, 1024, gen).at(0)
+    x = torch.randn(16, 4096, device="cuda", generator=gen).to(torch.bfloat16)
+    assert tq.i4t_plan(16, 4096, 1024)[1] > 1
+    kern = tq.qmm_i4t_gateup if gateup else tq.qmm_i4t
+    _replays_equal(lambda: kern(x, w))
+
+
 @pytest.mark.parametrize("lens,ok,win,softcap", [
     ([1000, 79, 1], [1, 1, 1], 1025, 0.0), ([0, 70, 200], [1, 0, 1], 64, 30.0)])
 def test_decode_attn_kernel_matches_plain(cuda, lens, ok, win, softcap):
@@ -168,17 +238,8 @@ def test_decode_attn_split_tickets_reset_across_graph_replays(cuda, quantized):
     leaves the tickets zero."""
     args = decode_attn_case(2, 1, 8, 4, 2048, 128, 128, [2000], "cuda", seed=17,
                             quantized=quantized)
-    first = da.decode_attn(*args)
-    assert torch.equal(da.decode_attn(*args), first)
+    first = _replays_equal(lambda: da.decode_attn(*args))
     assert ((first - da.decode_attn_plain(*args)).abs() <= decode_attn_limit(args)).all()
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        out = da.decode_attn(*args)
-    for _ in range(3):
-        g.replay()
-        torch.cuda.synchronize()
-        assert torch.equal(out, first)
-    assert int(tq._tickets[first.device].abs().sum()) == 0
 
 
 @pytest.mark.parametrize("quantized", [False, True])
@@ -481,6 +542,53 @@ def test_grouped_kernel_matches_plain(cuda, kind, n_tok):
     assert kernels.launch_counts[f"moe_qmm_{kind}"] == 1
     wrong = moe.grouped_qmm_plain(xp, w, (te + 1) % E, E, used)
     assert (wrong - want).abs().max() > 100 * limit
+
+
+@pytest.mark.parametrize("m", [1, 64])
+def test_qmm_lane_k_split_at_the_down(cuda, m):
+    """The 1.3B down (i8, K 5504, N 2048) at M = 1 and 64: K split over
+    lane_plan's splits (16 column tiles), within the limit of the plain
+    version, and one launch; its tickets reset across graph replays."""
+    from booster_tpu_torch.testing import qmm_lane_mutants
+
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    w = _lane("i8", 2048, 5504, gen)
+    x = torch.randn(m, 5504, device="cuda", generator=gen).to(torch.bfloat16)
+    bm, ks = tq.lane_plan(m, 5504, 2048)
+    assert 16 * ks >= 132
+    kernels.reset_counts()
+    got = _replays_equal(lambda: tq.qmm_lane(x, w))
+    assert kernels.launch_counts["qmm_i8"] == 3  # two calls and the captured one
+    want = tq.qmm_lane_plain(x, w)
+    limit = 2e-4 * want.abs().max()
+    assert (got - want).abs().max() <= limit
+    sk = tq.lane_stage(bm, "i8")
+    nst = 5504 // sk
+    for what, (xm, wm) in qmm_lane_mutants(x, w, ((ks - 1) * nst // ks, nst), sk).items():
+        assert (tq.qmm_lane_plain(xm, wm) - want).abs().max() > 8 * limit, what
+
+
+@pytest.mark.parametrize("kind", ["i4p", "i8"])
+@pytest.mark.parametrize("n_tok,k_used", [(1, 2), (1024, 2)])
+def test_grouped_kernel_blocks_of_several_tiles(cuda, kind, n_tok, k_used):
+    """The grouped form at one decode token (its K split over the padding
+    estimate) and at 2048 routed rows of 4 experts (128-row blocks of four
+    expert tiles that may hold two experts' runs), zero past rows_used, and
+    the same bits across graph replays."""
+    from booster_tpu_torch.ops import moe
+
+    gen = torch.Generator(device="cuda").manual_seed(35)
+    E, K, Ne = 4, 1024, 256
+    w = _lane(kind, E * Ne, K, gen)
+    x = torch.randn(n_tok, K, device="cuda", generator=gen).to(torch.bfloat16)
+    topi = torch.topk(torch.randn(n_tok, E, device="cuda", generator=gen), k_used).indices
+    xp, pos, te, used = moe.route_pad(x, topi.to(torch.int32), E)
+    bm, ks = tq.lane_plan(xp.shape[0], K, Ne, E)
+    assert bm == (32 if n_tok == 1 else 128) and ks > 1
+    got = _replays_equal(lambda: moe.grouped_qmm(xp, w, te, E, used))
+    want = moe.grouped_qmm_plain(xp, w, te, E, used)
+    assert (got - want).abs().max() <= 2e-4 * want.abs().max()
+    assert not got[int(used[0]):].any()
 
 
 def test_lane_wrappers_refuse_what_the_kernel_does_not_take(cuda):
