@@ -1,0 +1,631 @@
+// The int8 K-major dequantize-then-multiply tile of qmm_i8t.cu (the M > 1
+// matmul and the fused gate-up; the dq form at M = 1), qmm_i8c.cu (M > 1)
+// and mlp_i8t.cu (both products of the whole MLP).
+//
+// y[M, N] = x[M, K] @ W[K, N] from an int8 payload q [K, ldq] (K-major: a
+// row of K holds every output column).  i8t: W = bf16(f32(q) · f32(bf16 s))
+// with the bf16 scale plane s [K/G, ldq], G = 32 (Q8_0) or 16 (Q6_K); i8c
+// (G = 0 here): W = bf16(q), exact, and the caller scales the finished f32
+// sum per column.
+//
+// A block of two warpgroups owns a BM x 128 output tile (BM 16-256: wgmma's
+// N; ops/qmm.py i8k_plan) and one split of K, walked in stages of 64 rows
+// of K.  A ring of kRing raw stages in shared memory is filled with
+// cp.async (cp_async.cuh): the stage's 64 x 128 payload bytes, its 64/G
+// scale rows (once per group, not once per row) and the block's BM rows of
+// x, each 128-byte row in the swizzle that wgmma and ldmatrix read without
+// bank conflicts (16-byte chunk c of row r at chunk c ^ (r & 7)).
+//
+// The product is computed transposed, y^T = W^T x^T, so that the
+// dequantized weight never goes back to shared memory: it is wgmma's A
+// operand, in registers.  Warp w owns tile columns 16w + [0, 16): row j of
+// its m16 slice is column 16w + 2j, row j + 8 column 16w + 2j + 1, the
+// order in which ldmatrix.trans hands them out.  Per 8 rows of K it gives a
+// thread the bytes of those two columns at two rows of K, already the
+// byte-spread form that qring::dq_spread turns into a bf16 pair of the A
+// fragment (bf16x2 instructions, one rounding of the exact product) with
+// each column's group scale.  x is wgmma's B operand, read from the stage
+// through a shared-memory descriptor; wgmma.mma_async m64nBMk16 (bf16 in,
+// f32 accumulate) runs the stage's 4 k16 steps.  While they run, the
+// warpgroup dequantizes the next stage into a second set of A registers; it
+// waits for them (wgmma.wait_group 0) before it issues the next stage's:
+// ptxas serializes every wgmma (warning C7513) if a stage's is issued while
+// the last stage's, during which its A registers were written, is still in
+// flight.  One barrier a stage; the slot
+// of the stage before the last is refilled after it, so kRing - 2 stages
+// are in flight ahead of the one being dequantized.  cp.async writes reach
+// wgmma's async proxy through fence.proxy.async before the barrier.
+//
+// The tile's sums go to shared memory (f32, over the ring).  At one split
+// the block writes its output (f32, bf16, or the gate-up's silu(g)·u)
+// straight from there.  At KS splits (KS <= 8, a power of two: the plan's)
+// the standalone kernels launch a tile's splits as one thread-block
+// cluster, and block s adds rows [s·BM/KS, (s+1)·BM/KS) of the KS tiles
+// through distributed shared memory, in split order: no f32 partials in
+// device memory, no ticket.  The whole MLP's queue cannot form clusters: its
+// items write f32 partials [KS, M, N], and the block that arrives last at
+// the tile's ticket adds them in split order (qring::reduce_splits) and
+// resets it.  Both add ((0 + p0) + p1) + ... and round alike.
+//
+// A gate-up tile holds gate columns col0 + [0, 64) (warpgroup 0) and up
+// columns col1 + [0, 64) (warpgroup 1), col1 = ff + col0; a matmul tile 128
+// consecutive columns (col1 = col0 + 64).  Every column goes through the
+// same wgmma m64nBM instruction, the same k16 steps from zero over the same
+// split's stages and the same split order in either, so the gate-up equals
+// the matmul on its fused weight + silu·mul, and the whole MLP its unfused
+// kernels, bit for bit, as long as all of them take (BM, KS) from one plan
+// (ops/qmm.py i8k_plan).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "bf16_ops.cuh"
+#include "cp_async.cuh"
+#include "i8t_tile.cuh"  // arrive_last, ldmatrix_x4
+#include "qmm_ring.cuh"  // dq_spread, reduce_splits, allow_smem
+
+namespace i8k {
+
+constexpr int kBN = 128;       // output columns of a tile: one warpgroup each 64
+constexpr int kBK = 64;        // rows of K a stage: 128 bytes of bf16 x a row, one swizzle row
+constexpr int kThreads = 256;  // two warpgroups
+constexpr int kMaxSplits = 8;  // a tile's splits form one cluster (its portable size)
+
+template <int BM>
+struct Cfg {
+  static_assert(BM == 16 || BM == 32 || BM == 64 || BM == 128 || BM == 256,
+                "a tile has 16, 32, 64, 128 or 256 rows");
+  static constexpr int kRing = BM >= 128 ? 4 : 5;                   // stages of the ring
+  static constexpr int kMinBlocks = BM == 256 ? 1 : BM >= 64 ? 2 : 3;  // blocks an SM
+  static constexpr int kXB = BM * 128;            // x bytes of a stage
+  static constexpr int kQB = kBK * kBN;           // payload bytes of a stage
+  static constexpr int kSB = 1024;                // scale rows of a stage (64/G x 256 bytes)
+  static constexpr int kSlot = kXB + kQB + kSB;   // a multiple of 1024
+  static constexpr int kLdt = kBN + 4;            // floats a row of the output tile
+  static constexpr int kSmem = kRing * kSlot + 1024;  // + slack to align on 1 KB
+  static_assert(BM * kLdt * 4 <= kRing * kSlot, "the output tile fits over the ring");
+};
+
+// One product's operands.  x rows may be written by an earlier phase of the
+// same launch (the MLP's mid): cp.async.cg reads them through L2.
+struct Op {
+  const uint16_t* x;  // bf16 [M, ldx]
+  const int8_t* q;    // [K, ldq]
+  const uint16_t* s;  // [K / G, ldq] bf16 (i8t), unused for i8c
+  int ldx, ldq, M;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The dynamic shared memory from its first 1 KB boundary (the swizzle's
+// period, which wgmma's descriptors assume).
+__device__ __forceinline__ uint8_t* align_1k(uint8_t* raw) {
+  return raw + ((1024u - (smem_addr(raw) & 1023u)) & 1023u);
+}
+
+// K rows [kb, ke) of split s of KS over K, on whole stages.
+__device__ __forceinline__ void split_range(int K, int KS, int s, int& kb, int& ke) {
+  const int nk = K / kBK;
+  kb = static_cast<int>(static_cast<long long>(s) * nk / KS) * kBK;
+  ke = static_cast<int>(static_cast<long long>(s + 1) * nk / KS) * kBK;
+}
+
+// -- the ring ----------------------------------------------------------------
+
+// Stage k .. k + 63 into a slot, by all threads: the payload rows (16-byte
+// chunk c: tile columns 16c .. 16c + 15, from col0 for c < 4, else col1;
+// swizzled), for i8t the 64/G scale rows, and x rows m0 .. m0 + BM - 1
+// (zeros past M; swizzled).
+template <int BM, int G>
+__device__ __forceinline__ void load_stage(const Op& op, int m0, int col0, int col1, int k,
+                                           uint8_t* slot) {
+  using C = Cfg<BM>;
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int i = 0; i < kBK * 8 / kThreads; ++i) {  // 64 rows x 8 chunks
+    const int u = t + i * kThreads, r = u >> 3, c = u & 7;
+    const int col = (c < 4 ? col0 : col1 - 64) + c * 16;
+    cpasync::cp_async16(slot + C::kXB + r * 128 + ((c ^ (r & 7)) << 4),
+                        op.q + static_cast<size_t>(k + r) * op.ldq + col, true);
+  }
+  if constexpr (G > 0) {
+    if (t < (kBK / G) * 16) {  // 64/G rows x 16 chunks of 8 bf16
+      const int rr = t >> 4, cs = t & 15;
+      const int col = (cs < 8 ? col0 : col1 - 64) + cs * 8;
+      cpasync::cp_async16(slot + C::kXB + C::kQB + rr * 256 + cs * 16,
+                          op.s + static_cast<size_t>(k / G + rr) * op.ldq + col, true);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < (BM * 8 + kThreads - 1) / kThreads; ++i) {  // BM rows x 8 chunks
+    const int u = t + i * kThreads, r = u >> 3, c = u & 7;
+    if (BM * 8 % kThreads == 0 || u < BM * 8) {
+      const int row = m0 + r;
+      const bool live = row < op.M;
+      cpasync::cp_async16(slot + r * 128 + ((c ^ (r & 7)) << 4),
+                          live ? op.x + static_cast<size_t>(row) * op.ldx + k + c * 8 : op.x,
+                          live);
+    }
+  }
+}
+
+// -- wgmma ---------------------------------------------------------------------
+
+// A shared-memory matrix descriptor: K-major, 128-byte swizzle, 8-row groups
+// 1024 bytes apart (SBO), the leading offset unused by this layout.
+__device__ __forceinline__ uint64_t desc(const void* p) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3ffffu) >> 4) | (1ull << 16)
+         | (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// Registers that an issued wgmma reads or writes: the compiler may not move
+// their definitions into the wgmma's pipeline stage (ptxas would serialize
+// it) nor their uses before its wait.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(a[i / 4][i % 4])::"memory");
+}
+
+// d (64 x N) += A (64 x 16, bf16 in registers: the m16n8k16 A fragment of
+// each warp's 16 rows) · B (16 x N, K-major at descriptor b)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// -- the tile ------------------------------------------------------------------
+
+// acc = the transposed BM x 128 tile at rows m0 of x @ W over K rows [kb,
+// ke), from zero: thread t (warp w = t / 32, lane l) holds, for i < BM / 2,
+// tile column 16·w + 2·(l / 4) + (i / 2) % 2 and row 8·(i / 4) + 2·(l % 4) +
+// i % 2 (wgmma's accumulator layout, its rows being tile columns).  sm: the
+// ring.
+template <int BM, int G>
+__device__ __forceinline__ void tile_sum(const Op& op, int m0, int col0, int col1, int kb, int ke,
+                                         uint8_t* sm, float (&acc)[BM / 2]) {
+  using C = Cfg<BM>;
+  constexpr int S = C::kRing;
+  constexpr int NG = G > 0 ? kBK / G : 1;  // groups of a stage
+  const int n = (ke - kb) / kBK;
+  const int warp = threadIdx.x >> 5, l = threadIdx.x & 31;  // warp: 16 tile columns
+#pragma unroll
+  for (int i = 0; i < BM / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < S - 2; ++i) {
+    if (i < n) load_stage<BM, G>(op, m0, col0, col1, kb + i * kBK, sm + i * C::kSlot);
+    cpasync::cp_commit();
+  }
+  // Stage i's A fragments into a (while stage i - 1's wgmma runs), after its
+  // data is in and the slot of stage i - 2 is refilled.
+  auto prepare = [&](int i, uint32_t (&a)[4][4]) {
+    cpasync::cp_wait<S - 3>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // x for wgmma
+    __syncthreads();  // stage i is in; every wgmma of stage i - 2 is done
+    if (i + S - 2 < n)  // into the slot of stage i - 2
+      load_stage<BM, G>(op, m0, col0, col1, kb + (i + S - 2) * kBK,
+                        sm + ((i + S - 2) % S) * C::kSlot);
+    cpasync::cp_commit();
+    const uint8_t* slot = sm + (i % S) * C::kSlot;
+    // the scales of this thread's columns 2·(l / 4), + 1 of its 16, per group
+    uint32_t sl[NG], sh[NG];
+#pragma unroll
+    for (int gi = 0; gi < NG; ++gi) {
+      uint32_t v = 0u;
+      if constexpr (G > 0)
+        v = *reinterpret_cast<const uint32_t*>(slot + C::kXB + C::kQB + gi * 256 + 32 * warp
+                                               + 4 * (l >> 2));
+      sl[gi] = __byte_perm(v, 0u, 0x1010);
+      sh[gi] = __byte_perm(v, 0u, 0x3232);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // k16 steps 2h, 2h + 1: 4 matrices of 8 rows of K
+      const int k = 32 * h + l;    // this lane's row: 32h + 8·(l / 8) + l % 8
+      uint32_t r[4];
+      i8t::ldmatrix_x4(r, slot + C::kXB + k * 128 + ((warp ^ (k & 7)) << 4), true);
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int kk = 2 * h + q, gi = G > 0 ? kk * 16 / (G > 0 ? G : 1) : 0;
+        // bytes 0, 2: column 2j at rows 2t, 2t + 1 (j = l / 4, t = l % 4); 1, 3: column 2j + 1
+        a[kk][0] = qring::dq_spread<(G > 0)>(r[2 * q], sl[gi]);
+        a[kk][1] = qring::dq_spread<(G > 0)>(r[2 * q] >> 8, sh[gi]);
+        a[kk][2] = qring::dq_spread<(G > 0)>(r[2 * q + 1], sl[gi]);
+        a[kk][3] = qring::dq_spread<(G > 0)>(r[2 * q + 1] >> 8, sh[gi]);
+      }
+    }
+  };
+  // Stage i's wgmma on a; the next stage is prepared into b while it runs
+  // (b's definitions lie in this wgmma's pipeline stage but feed only the
+  // next one, issued after the wait: ptxas keeps both asynchronous).
+  auto step = [&](int i, uint32_t (&a)[4][4], uint32_t (&b)[4][4]) {
+    const uint8_t* slot = sm + (i % S) * C::kSlot;
+    uint64_t db[kBK / 16];  // x at the 4 k16 steps: +32 bytes each
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      db[kk] = desc(slot) + 2 * kk;
+      asm volatile("" : "+l"(db[kk])::"memory");
+    }
+    fence_regs(a);
+    fence_regs(acc);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) wgmma_rs<BM>(acc, a[kk], db[kk]);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    if (i + 1 < n) prepare(i + 1, b);
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_regs(acc);
+    fence_regs(a);
+  };
+  uint32_t a0[4][4], a1[4][4];
+  if (n > 0) prepare(0, a0);
+  for (int i = 0; i < n; i += 2) {
+    step(i, a0, a1);
+    if (i + 1 < n) step(i + 1, a1, a0);
+  }
+  cpasync::cp_wait<0>();
+  __syncthreads();  // the ring is free for the output tile
+}
+
+// The tile's sums → the f32 tile [BM][kLdt] at t (over the ring).
+template <int BM>
+__device__ __forceinline__ void store_tile(const float (&acc)[BM / 2], float* t) {
+  const int l = threadIdx.x & 31;
+  const int c0 = 16 * (threadIdx.x >> 5) + 2 * (l >> 2), r0 = 2 * (l & 3);
+#pragma unroll
+  for (int i = 0; i < BM / 2; ++i)
+    t[(r0 + 8 * (i >> 2) + (i & 1)) * Cfg<BM>::kLdt + c0 + ((i >> 1) & 1)] = acc[i];
+  __syncthreads();
+}
+
+// -- the cluster of a tile's splits --------------------------------------------
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float4 ld_cluster4(uint32_t a) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(a) : "memory");
+  return v;
+}
+
+// The f32 tiles t [BM][kLdt] of the KS blocks of a cluster (rank = split):
+// sum(r, c) is ((0 + t_0) + t_1) + ... at row r, columns c .. c + 3, the KS
+// loads issued together.
+template <int BM>
+struct ClusterTiles {
+  uint32_t base[kMaxSplits];
+  int KS;
+
+  __device__ __forceinline__ ClusterTiles(const float* t, int ks) : KS(ks) {
+#pragma unroll
+    for (int k = 0; k < kMaxSplits; ++k) {
+      base[k] = 0u;
+      if (k < KS)
+        asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+                     : "=r"(base[k]) : "r"(smem_addr(t)), "r"(k));
+    }
+  }
+
+  __device__ __forceinline__ float4 sum(int r, int c) const {
+    const uint32_t off = (r * Cfg<BM>::kLdt + c) * 4;
+    float4 v[kMaxSplits];
+#pragma unroll
+    for (int k = 0; k < kMaxSplits; ++k)
+      if (k < KS) v[k] = ld_cluster4(base[k] + off);
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int k = 0; k < kMaxSplits; ++k)
+      if (k < KS)
+        a = make_float4(__fadd_rn(a.x, v[k].x), __fadd_rn(a.y, v[k].y), __fadd_rn(a.z, v[k].z),
+                        __fadd_rn(a.w, v[k].w));
+    return a;
+  }
+};
+
+// -- the items -----------------------------------------------------------------
+
+enum Out { kF32, kBf16, kScaled };  // f32 y; bf16 y (the MLP's down); f32 y · s[n] (i8c)
+
+// Four outputs of a matmul at out[o .. o + 3].
+template <Out OUT>
+__device__ __forceinline__ void put4(void* out, size_t o, float4 v, const float* cs, int col) {
+  if constexpr (OUT == kBf16) {
+    uint2 b;
+    b.x = static_cast<uint32_t>(bf16_bits(v.x)) | (static_cast<uint32_t>(bf16_bits(v.y)) << 16);
+    b.y = static_cast<uint32_t>(bf16_bits(v.z)) | (static_cast<uint32_t>(bf16_bits(v.w)) << 16);
+    *reinterpret_cast<uint2*>(static_cast<uint16_t*>(out) + o) = b;
+  } else {
+    if constexpr (OUT == kScaled)
+      v = make_float4(__fmul_rn(v.x, __ldg(cs + col)), __fmul_rn(v.y, __ldg(cs + col + 1)),
+                      __fmul_rn(v.z, __ldg(cs + col + 2)), __fmul_rn(v.w, __ldg(cs + col + 3)));
+    *reinterpret_cast<float4*>(static_cast<float*>(out) + o) = v;
+  }
+}
+
+// One item of y [M, N] = x @ W split KS ways over K: column tile j, split
+// s, M tile mt.  At one split the block writes y.  Else, with CLUSTER (the
+// tile's splits are one cluster) block s writes its rows' split sums; else
+// its partial goes into part [KS, M, N], and the last block of the tile's
+// splits (ticket mt·N/128 + j) adds them in split order and writes y.  cs:
+// i8c's column scales.
+template <int BM, int G, Out OUT, bool CLUSTER>
+__device__ void dq_item(const Op& op, int N, int K, int KS, int j, int s, int mt, void* out,
+                        float* part, int* tickets, const float* cs, uint8_t* sm) {
+  using C = Cfg<BM>;
+  const int m0 = mt * BM, n0 = j * kBN, rows = min(BM, op.M - m0);
+  int kb, ke;
+  split_range(K, KS, s, kb, ke);
+  float acc[BM / 2];
+  tile_sum<BM, G>(op, m0, n0, n0 + 64, kb, ke, sm, acc);
+  float* t = reinterpret_cast<float*>(sm);
+  store_tile<BM>(acc, t);
+  auto put = [&](int r, int c, float4 v) {
+    put4<OUT>(out, static_cast<size_t>(m0 + r) * N + n0 + c, v, cs, n0 + c);
+  };
+  if (KS == 1) {
+    for (int e = threadIdx.x; e < rows * (kBN / 4); e += kThreads) {
+      const int r = e / (kBN / 4), c = e % (kBN / 4) * 4;
+      const float4 v = *reinterpret_cast<const float4*>(&t[r * C::kLdt + c]);
+      put(r, c, make_float4(__fadd_rn(0.f, v.x), __fadd_rn(0.f, v.y), __fadd_rn(0.f, v.z),
+                            __fadd_rn(0.f, v.w)));
+    }
+    return;
+  }
+  if constexpr (CLUSTER) {
+    cluster_sync();  // every split's tile is in its block
+    const ClusterTiles<BM> tiles(t, KS);
+    const int r0 = s * rows / KS, n = ((s + 1) * rows / KS - r0) * (kBN / 4);
+    for (int e = threadIdx.x; e < n; e += kThreads) {
+      const int r = r0 + e / (kBN / 4), c = e % (kBN / 4) * 4;
+      put(r, c, tiles.sum(r, c));
+    }
+    cluster_sync();  // the other blocks have read this one's tile
+    return;
+  }
+  const size_t plane = static_cast<size_t>(op.M) * N;
+  for (int e = threadIdx.x; e < rows * (kBN / 4); e += kThreads) {
+    const int r = e / (kBN / 4), c = e % (kBN / 4) * 4;
+    *reinterpret_cast<float4*>(part + s * plane + static_cast<size_t>(m0 + r) * N + n0 + c) =
+        *reinterpret_cast<const float4*>(&t[r * C::kLdt + c]);
+  }
+  if (!i8t::arrive_last(tickets + mt * (N / kBN) + j, KS)) return;
+  qring::reduce_splits<BM, kBN, kThreads, 16>(part + static_cast<size_t>(m0) * N + n0, plane,
+                                              KS, N, rows, kBN, put);
+}
+
+// One item of the fused gate-up over the [K, 2ff] payload: column pair j
+// (gate columns j·64 + [0, 64), up columns ff + j·64 + [0, 64)), split s, M
+// tile mt.  Writes mid [M, ff] = silu(g)·u (bf16): at once when KS is 1;
+// with CLUSTER block s its rows; else the pair's partials go into part [KS,
+// M, 2ff], and the last block of the pair's splits (ticket mt·ff/64 + j)
+// adds them in split order.  Returns true in a block that wrote the tile of
+// mid (the last one without CLUSTER).
+template <int BM, int G, bool CLUSTER>
+__device__ bool gateup_item(const Op& op, int ff, int K, int KS, int j, int s, int mt,
+                            float* part, uint16_t* mid, int* tickets, uint8_t* sm) {
+  using C = Cfg<BM>;
+  const int N = 2 * ff, m0 = mt * BM, c0 = j * 64, rows = min(BM, op.M - m0);
+  int kb, ke;
+  split_range(K, KS, s, kb, ke);
+  float acc[BM / 2];
+  tile_sum<BM, G>(op, m0, c0, ff + c0, kb, ke, sm, acc);
+  float* t = reinterpret_cast<float*>(sm);
+  store_tile<BM>(acc, t);
+  auto put = [&](int r, int c, float4 g, float4 u) {  // mid columns c0 + c .. c0 + c + 3
+    uint2 b;
+    b.x = static_cast<uint32_t>(silu_mul(g.x, u.x))
+          | (static_cast<uint32_t>(silu_mul(g.y, u.y)) << 16);
+    b.y = static_cast<uint32_t>(silu_mul(g.z, u.z))
+          | (static_cast<uint32_t>(silu_mul(g.w, u.w)) << 16);
+    *reinterpret_cast<uint2*>(mid + static_cast<size_t>(m0 + r) * ff + c0 + c) = b;
+  };
+  if (KS == 1) {
+    for (int e = threadIdx.x; e < rows * 16; e += kThreads) {
+      const int r = e >> 4, c = (e & 15) * 4;
+      put(r, c, *reinterpret_cast<const float4*>(&t[r * C::kLdt + c]),
+          *reinterpret_cast<const float4*>(&t[r * C::kLdt + 64 + c]));
+    }
+    return true;
+  }
+  if constexpr (CLUSTER) {
+    cluster_sync();  // every split's tile is in its block
+    const ClusterTiles<BM> tiles(t, KS);
+    const int r0 = s * rows / KS, n = ((s + 1) * rows / KS - r0) * 16;
+    for (int e = threadIdx.x; e < n; e += kThreads) {
+      const int r = r0 + (e >> 4), c = (e & 15) * 4;
+      put(r, c, tiles.sum(r, c), tiles.sum(r, 64 + c));
+    }
+    cluster_sync();  // the other blocks have read this one's tile
+    return true;
+  }
+  const size_t plane = static_cast<size_t>(op.M) * N;
+  for (int e = threadIdx.x; e < rows * (kBN / 4); e += kThreads) {
+    const int r = e / (kBN / 4), c = e % (kBN / 4) * 4;
+    const int col = c < 64 ? c0 + c : ff + c0 + c - 64;
+    *reinterpret_cast<float4*>(part + s * plane + static_cast<size_t>(m0 + r) * N + col) =
+        *reinterpret_cast<const float4*>(&t[r * C::kLdt + c]);
+  }
+  if (!i8t::arrive_last(tickets + mt * (ff / 64) + j, KS)) return false;
+  // the gate sums into the tile's first 64 columns, then the up sums meet them
+  const float* pt = part + static_cast<size_t>(m0) * N + c0;
+  qring::reduce_splits<BM, 64, kThreads, 16>(pt, plane, KS, N, rows, 64,
+                                             [&](int r, int c, float4 v) {
+    *reinterpret_cast<float4*>(&t[r * C::kLdt + c]) = v;
+  });
+  __syncthreads();
+  qring::reduce_splits<BM, 64, kThreads, 16>(pt + ff, plane, KS, N, rows, 64,
+                                             [&](int r, int c, float4 v) {
+    put(r, c, *reinterpret_cast<const float4*>(&t[r * C::kLdt + c]), v);
+  });
+  return true;
+}
+
+// Launches a kernel of the tile over grid (column tiles, KS splits, M
+// tiles), a tile's KS splits as one cluster.
+template <typename P>
+cudaError_t launch_split(void (*kernel)(P), dim3 grid, int smem, cudaStream_t st, const P& p) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = grid.y;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, p);
+}
+
+// Calls f.template run<BM>() for a tile of bm rows (the plan's).
+template <typename F>
+cudaError_t dispatch(int bm, const F& f) {
+  switch (bm) {
+    case 16: return f.template run<16>();
+    case 32: return f.template run<32>();
+    case 64: return f.template run<64>();
+    case 128: return f.template run<128>();
+    case 256: return f.template run<256>();
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace i8k

@@ -4,7 +4,7 @@
 // 2-D pallas_call and its stacked one, whose layer index the wrapper turns
 // into a pointer offset into [L, K, N]):
 //   M = 1  -> mv_kernel (split-K matvec)
-//   M > 1  -> mm_kernel (the tensor-core tile of i8t_tile.cuh, no group scales)
+//   M > 1  -> mm_kernel (the wgmma tile of i8k_tile.cuh, no group scales)
 //
 // y[m, n] = (sum_k bf16(x[m, k]) · q[k, n]) · s[n]
 // Payload q [K, N] int8 (K-major: consecutive output columns are
@@ -13,7 +13,7 @@
 // (a bf16 times an int8 fits f32's mantissa), and the scale multiplies the
 // finished sum once, as the reference's rank-1 rescale after its dot does.
 // The H100 has no bf16 x int8 MMA: the M > 1 form converts each int8 to
-// bf16 in registers (exact for |q| <= 127) and runs mma.sync on bf16.
+// bf16 in registers (exact for |q| <= 128) and runs wgmma on bf16.
 //
 // What bounds it on the H100.  M = 1: the payload, 1 byte a weight, over
 // 3.35 TB/s (qkv 4096 -> 6144: 25 MB, 7.5 us; the 7B decode token: 7.11 GB).
@@ -26,12 +26,14 @@
 // write f32 partials and the last to arrive (an atomic ticket) adds them
 // in split order and applies the scale, so a result repeats bit for bit.
 // M = 64: still the payload bytes; M = 2048: the operations (2·M·N·K at the
-// bf16 tensor-core rate).  wgmma and TMA are later work.
+// bf16 tensor-core rate).  Both run the tile of i8k_tile.cuh (the dq tile
+// of qmm_i8t.cu with no group scales; the column scale multiplies each
+// finished sum in the epilogue).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "i8t_tile.cuh"
+#include "i8k_tile.cuh"
 
 namespace {
 
@@ -95,45 +97,37 @@ __global__ void __launch_bounds__(kWarps * 32) mv_kernel(MvParams p) {
 }
 
 struct MmParams {
-  i8t::Operand op;  // x [M, K] bf16 with q [K, N]; op.s unused
+  i8k::Op op;       // x [M, K] bf16 with q [K, N]; op.s unused
   const float* s;   // [1, N] f32
   float* out;       // [M, N] f32
-  float* part;      // [KS, M, N] f32 partials when KS > 1, else null
-  int* tickets;     // [ceil(M/64), N/128] zeros, reset by the last blocks
   int K, N, KS;
 };
 
-// Block (j, split, mt): the 64 x 128 tile of rows mt·64, columns j·128 over
-// one K split; with KS > 1 the last split's block adds the partials in split
-// order.  Then y = sum · s[n].
-__global__ void __launch_bounds__(i8t::kThreads) mm_kernel(MmParams p) {
-  __shared__ i8t::Smem sm;
-  const int j = blockIdx.x, split = blockIdx.y, mt = blockIdx.z;
-  const int m0 = mt * i8t::kBM, n0 = j * i8t::kBN, M = p.op.M, N = p.N;
-  int kb, ke;
-  i8t::split_range(p.K, p.KS, split, kb, ke);
-  float acc[2][4][4];
-  i8t::dq_tile<false>(p.op, m0, n0, kb, ke, sm, acc);
-  if (p.KS == 1) {
-    i8t::for_tile(m0, n0, acc, [&](int row, int col, float v) {
-      if (row < M)
-        p.out[static_cast<size_t>(row) * N + col] = __fmul_rn(__fadd_rn(0.f, v), __ldg(p.s + col));
-    });
-    return;
-  }
-  const size_t plane = static_cast<size_t>(M) * N;
-  i8t::for_tile(m0, n0, acc, [&](int row, int col, float v) {
-    if (row < M) p.part[split * plane + static_cast<size_t>(row) * N + col] = v;
-  });
-  if (!i8t::arrive_last(p.tickets + mt * (N / i8t::kBN) + j, p.KS)) return;
-  for (int e = threadIdx.x; e < i8t::kBM * i8t::kBN; e += i8t::kThreads) {
-    const int row = m0 + e / i8t::kBN, col = n0 + e % i8t::kBN;
-    if (row < M) {
-      const size_t o = static_cast<size_t>(row) * N + col;
-      p.out[o] = __fmul_rn(i8t::sum_splits(p.part + o, plane, p.KS), __ldg(p.s + col));
-    }
-  }
+// Block (j, split, mt): the BM x 128 tile of rows mt·BM, columns j·128 over
+// one K split, the tile's splits one cluster; y = sum · s[n].
+template <int BM>
+__global__ void __launch_bounds__(i8k::kThreads, i8k::Cfg<BM>::kMinBlocks)
+    mm_kernel(MmParams p) {
+  extern __shared__ uint8_t smem_raw[];
+  i8k::dq_item<BM, 0, i8k::kScaled, true>(p.op, p.N, p.K, p.KS, blockIdx.x, blockIdx.y,
+                                          blockIdx.z, p.out, nullptr, nullptr, p.s,
+                                          i8k::align_1k(smem_raw));
 }
+
+struct LaunchMm {
+  const MmParams& p;
+  cudaStream_t st;
+
+  template <int BM>
+  cudaError_t run() const {
+    constexpr int bytes = i8k::Cfg<BM>::kSmem;
+    static bool ready = false;
+    const cudaError_t e = qring::allow_smem(mm_kernel<BM>, bytes, ready);
+    if (e != cudaSuccess) return e;
+    return i8k::launch_split(mm_kernel<BM>, dim3(p.N / i8k::kBN, p.KS, (p.op.M + BM - 1) / BM),
+                             bytes, st, p);
+  }
+};
 
 }  // namespace
 
@@ -150,15 +144,13 @@ extern "C" int bt_qmm_i8c_mv(const void* x, const void* q, const void* s, void* 
   return static_cast<int>(cudaGetLastError());
 }
 
-// y [M, N] f32 = x [M, K] @ q · s split KS ways over K (K a multiple of 64,
-// N of 128).  part: KS·M·N floats (null when KS = 1); tickets:
-// ceil(M/64)·N/128 zeros.
-extern "C" int bt_qmm_i8c_mm(const void* x, const void* q, const void* s, void* out, void* part,
-                             void* tickets, int M, int K, int N, int KS, void* stream) {
+// y [M, N] f32 = x [M, K] @ q · s on the tile of i8k_tile.cuh: bm rows of x
+// a block, KS splits of K (ops/qmm.py i8k_plan: a power of two up to 8, one
+// cluster a tile); K a multiple of 64, N of 128.  Returns the CUDA error of
+// the launch.
+extern "C" int bt_qmm_i8c_mm(const void* x, const void* q, const void* s, void* out, int M, int K,
+                             int N, int KS, int bm, void* stream) {
   MmParams p{{static_cast<const uint16_t*>(x), static_cast<const int8_t*>(q), nullptr, K, N, M},
-             static_cast<const float*>(s), static_cast<float*>(out), static_cast<float*>(part),
-             static_cast<int*>(tickets), K, N, KS};
-  const dim3 grid(N / i8t::kBN, KS, (M + i8t::kBM - 1) / i8t::kBM);
-  mm_kernel<<<grid, i8t::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+             static_cast<const float*>(s), static_cast<float*>(out), K, N, KS};
+  return static_cast<int>(i8k::dispatch(bm, LaunchMm{p, static_cast<cudaStream_t>(stream)}));
 }

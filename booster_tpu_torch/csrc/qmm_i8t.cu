@@ -3,8 +3,8 @@
 //
 // Replaces the Pallas kernels of booster_tpu/ops/pallas_qmm.py:
 //   _tqmm_i8_gd_kernel   (M = 1, group-dot form)       -> gd_kernel
-//   _tqmm_i8_kernel      (M > 1, dequantize then dot)  -> dq_kernel (i8t_tile.cuh)
-//   _gateup_i8_kernel    (M > 1, fused gate+up)        -> gateup_kernel (i8t_tile.cuh)
+//   _tqmm_i8_kernel      (M > 1, dequantize then dot)  -> dq_kernel<BM, G, false> (i8k_tile.cuh)
+//   _gateup_i8_kernel    (M > 1, fused gate+up)        -> dq_kernel<BM, G, true> (i8k_tile.cuh)
 //   _gateup_i8_gd_kernel (M = 1, fused gate+up; its 2-D pallas_call :1100
 //                         and the stacked one :1143, a layer view here)
 //                                                      -> gateup_gd_kernel
@@ -21,7 +21,7 @@
 //           products), c = f32(bf16 s)·p (- f32(bf16 m)·xs, xs the f32 sum of
 //           the group's bf16(x)), y = sum over groups of c.
 //   M > 1:  w = bf16(f32(q)·f32(bf16 s)); y = bf16(x) @ w with f32
-//           accumulation (tensor cores; see i8t_tile.cuh).
+//           accumulation (wgmma; see i8k_tile.cuh).
 //   gate-up: g, u = bf16 of the sums of columns n and ff + n of the fused
 //           [K, 2ff] payload (the gd sums at M = 1, the dq sums above);
 //           out = bf16(bf16(g·bf16(sigmoid_f32(g)))·u), so it equals the
@@ -43,13 +43,14 @@
 // of the [K, 2ff] payload, one launch and no f32 round trip of g and u.
 // M = 64 (the batch decode): still the weight bytes (2.25 ms a step at 7B
 // against 0.93 TFLOP, 0.94 ms at the bf16 tensor-core rate); M = 2048 (the
-// batch prefill): the operations.  Both take the tensor-core tile of
-// i8t_tile.cuh; wgmma and TMA are later work.
+// batch prefill): the operations.  Both run the wgmma tile of i8k_tile.cuh
+// (dq_kernel: the plan's rows a block, a tile's K splits one cluster that
+// adds them in shared memory); PERF.md §6 has its times against its bounds.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "i8t_tile.cuh"
+#include "i8k_tile.cuh"
 
 namespace {
 
@@ -171,26 +172,48 @@ __global__ void __launch_bounds__(kWarps * 32) gateup_gd_kernel(GdParams p) {
 }
 
 struct DqParams {
-  i8t::Operand op;
-  void* out;     // f32 [M, N], or bf16 [M, N/2] for the gate-up
-  float* part;   // [KS, M, N] f32 partials (the gate-up always; the matmul when KS > 1)
-  int* tickets;  // zeros, reset by the last blocks
+  i8k::Op op;
+  void* out;  // f32 [M, N], or bf16 [M, N/2] for the gate-up
   int K, N, KS;
 };
 
-template <int G>
-__global__ void __launch_bounds__(i8t::kThreads) dq_kernel(DqParams p) {
-  __shared__ i8t::Smem sm;
-  i8t::dq_item<false, G>(p.op, p.N, p.K, p.KS, blockIdx.x, blockIdx.y, blockIdx.z, p.out,
-                         p.part, p.tickets, sm);
+// Block (j, split, mt): column tile j (the gate-up: gate columns j·64 + [0,
+// 64) with the matching up columns) over one K split, rows mt·BM.
+template <int BM, int G, bool GATEUP>
+__global__ void __launch_bounds__(i8k::kThreads, i8k::Cfg<BM>::kMinBlocks)
+    dq_kernel(DqParams p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = i8k::align_1k(smem_raw);
+  if constexpr (GATEUP)
+    i8k::gateup_item<BM, G, true>(p.op, p.N / 2, p.K, p.KS, blockIdx.x, blockIdx.y, blockIdx.z,
+                                  nullptr, static_cast<uint16_t*>(p.out), nullptr, sm);
+  else
+    i8k::dq_item<BM, G, i8k::kF32, true>(p.op, p.N, p.K, p.KS, blockIdx.x, blockIdx.y,
+                                         blockIdx.z, p.out, nullptr, nullptr, nullptr, sm);
 }
 
-template <int G>
-__global__ void __launch_bounds__(i8t::kThreads) gateup_kernel(DqParams p) {
-  __shared__ i8t::Smem sm;
-  i8t::gateup_item<G>(p.op, p.N / 2, p.K, p.KS, blockIdx.x, blockIdx.y, blockIdx.z, p.part,
-                      static_cast<uint16_t*>(p.out), p.tickets, sm);
-}
+struct LaunchDq {
+  const DqParams& p;
+  int G, gateup;
+  cudaStream_t st;
+
+  template <int BM, int G_, bool GATEUP>
+  cudaError_t go() const {
+    constexpr int bytes = i8k::Cfg<BM>::kSmem;
+    static bool ready = false;
+    const cudaError_t e = qring::allow_smem(dq_kernel<BM, G_, GATEUP>, bytes, ready);
+    if (e != cudaSuccess) return e;
+    return i8k::launch_split(dq_kernel<BM, G_, GATEUP>,
+                             dim3(p.N / i8k::kBN, p.KS, (p.op.M + BM - 1) / BM), bytes, st, p);
+  }
+
+  template <int BM>
+  cudaError_t run() const {
+    if (G == 32) return gateup ? go<BM, 32, true>() : go<BM, 32, false>();
+    if (G == 16) return gateup ? go<BM, 16, true>() : go<BM, 16, false>();
+    return cudaErrorInvalidValue;
+  }
+};
 
 template <int G, bool kMins>
 void launch_gd(const GdParams& p, bool gateup, int KS, cudaStream_t st) {
@@ -229,23 +252,17 @@ extern "C" int bt_qmm_i8t_gd(const void* x, const void* q, const void* s, void* 
   return static_cast<int>(cudaGetLastError());
 }
 
-// y = x [M, K] @ W [K, N] split KS ways over K.  gateup = 0: out f32 [M, N].
-// gateup = 1: W holds gate columns [0, N/2) and up columns [N/2, N); out
-// bf16 [M, N/2] = silu(gate) · up.  part: KS·M·N floats (null when KS = 1
-// and gateup = 0); tickets: ceil(M/64)·N/128 zeros.  K a multiple of 64, N
-// of 128 (256 for the gate-up), G 16 or 32.
-extern "C" int bt_qmm_i8t_dq(const void* x, const void* q, const void* s, void* out, void* part,
-                             void* tickets, int M, int K, int N, int KS, int gateup, int G,
-                             void* stream) {
+// y = x [M, K] @ W [K, N] on the tile of i8k_tile.cuh: bm rows of x a
+// block, ks splits of K (ops/qmm.py i8k_plan: a power of two up to 8, one
+// cluster a tile).  gateup = 0: out f32 [M, N].  gateup = 1: W holds gate
+// columns [0, N/2) and up columns [N/2, N); out bf16 [M, N/2] = silu(gate)
+// · up.  K a multiple of 64, N of 128 (256 for the gate-up), G 16 or 32; x,
+// payload and scales on 16 bytes.  Returns the CUDA error of the launch.
+extern "C" int bt_qmm_i8t_dq(const void* x, const void* q, const void* s, void* out, int M, int K,
+                             int N, int KS, int gateup, int G, int bm, void* stream) {
   DqParams p{{static_cast<const uint16_t*>(x), static_cast<const int8_t*>(q),
               static_cast<const uint16_t*>(s), K, N, M},
-             out, static_cast<float*>(part), static_cast<int*>(tickets), K, N, KS};
-  const dim3 grid(N / i8t::kBN, KS, (M + i8t::kBM - 1) / i8t::kBM);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (G == 32 && gateup) gateup_kernel<32><<<grid, i8t::kThreads, 0, st>>>(p);
-  else if (G == 32) dq_kernel<32><<<grid, i8t::kThreads, 0, st>>>(p);
-  else if (G == 16 && gateup) gateup_kernel<16><<<grid, i8t::kThreads, 0, st>>>(p);
-  else if (G == 16) dq_kernel<16><<<grid, i8t::kThreads, 0, st>>>(p);
-  else return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+             out, K, N, KS};
+  return static_cast<int>(
+      i8k::dispatch(bm, LaunchDq{p, G, gateup, static_cast<cudaStream_t>(stream)}));
 }

@@ -67,13 +67,14 @@ __device__ __forceinline__ void dq_nibbles(uint32_t h, uint32_t bias, uint32_t s
   hi = *reinterpret_cast<const uint32_t*>(&wh);
 }
 
-// Two int8 payload bytes (bits 0-15 of h) → the bf16 pair bf16(q·s) (scale
-// pair sp), with no conversion instructions: each byte is 16·hi + lo, its
-// low nibble lo (0x4300 | lo is the bf16 128 + lo) and its signed high
-// nibble hi ((hi ^ 8) - 8); both are exact in bf16, 16·hi + lo is exact in
-// a bf16 FMA (|q| <= 128), and the product is rounded once.
-__device__ __forceinline__ uint32_t dq_bytes(uint32_t h, uint32_t sp) {
-  const uint32_t t = __byte_perm(h, 0u, 0x4140);  // byte 0 in bits 0-7, byte 1 in 16-23
+// Two int8 payload bytes, spread to bits 0-7 and 16-23 of t (bits 8-15 and
+// 24-31 are not read) → the bf16 pair of the exact integers, or bf16(q·s)
+// (scale pair sp) when kScaled, with no conversion instructions: each byte
+// is 16·hi + lo, its low nibble lo (0x4300 | lo is the bf16 128 + lo) and
+// its signed high nibble hi ((hi ^ 8) - 8); both are exact in bf16, 16·hi +
+// lo is exact in a bf16 FMA (|q| <= 128), and the product is rounded once.
+template <bool kScaled = true>
+__device__ __forceinline__ uint32_t dq_spread(uint32_t t, uint32_t sp) {
   const uint32_t l = (t & 0x000f000fu) | 0x43004300u;
   const uint32_t u = (((t >> 4) & 0x000f000fu) ^ 0x00080008u) | 0x43004300u;
   const __nv_bfloat162 c128 = __halves2bfloat162(__ushort_as_bfloat16(0x4300),
@@ -84,9 +85,15 @@ __device__ __forceinline__ uint32_t dq_bytes(uint32_t h, uint32_t sp) {
                                                 __ushort_as_bfloat16(0x4180));
   const __nv_bfloat162 lo = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&l), c128);
   const __nv_bfloat162 hi = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&u), c136);
-  const __nv_bfloat162 w = __hmul2(__hfma2(hi, c16, lo),
-                                   *reinterpret_cast<const __nv_bfloat162*>(&sp));
+  __nv_bfloat162 w = __hfma2(hi, c16, lo);
+  if constexpr (kScaled) w = __hmul2(w, *reinterpret_cast<const __nv_bfloat162*>(&sp));
   return *reinterpret_cast<const uint32_t*>(&w);
+}
+
+// Two int8 payload bytes (bits 0-15 of h) → the bf16 pair bf16(q·s) (scale
+// pair sp).
+__device__ __forceinline__ uint32_t dq_bytes(uint32_t h, uint32_t sp) {
+  return dq_spread(__byte_perm(h, 0u, 0x4140), sp);  // byte 0 in bits 0-7, byte 1 in 16-23
 }
 
 // The A fragments of a warp's MI m16 tiles at columns k0 .. k0 + 15 of a
@@ -124,43 +131,53 @@ __device__ __forceinline__ void zero_acc(float (&acc)[MI][NI][4]) {
 }
 
 // The last block's split sums of a tile of `rows` (<= ROWS) x `cols` (<=
-// COLS, a multiple of 4) floats:
+// COLS, a multiple of 4) floats, over a block of THREADS threads:
 // (r, c) = ((0 + p0) + p1) + ... over KS partials `plane` floats apart (the
 // order of i8t::sum_splits), rows `ld` floats apart from part.  A thread
-// takes four columns at a time and issues a split's loads for up to 8 of
-// them before adding, so the latency of L2 is paid once a split, not once
-// an element; put(r, c, float4) takes the sums of columns c .. c + 3.
-template <int ROWS, int COLS, typename F>
+// takes four columns at a time and issues the loads of up to INFLIGHT
+// float4 (CH columns of R splits) before adding them in split order, so
+// the latency of L2 is paid once for R splits, not once an element;
+// put(r, c, float4) takes the sums of columns c .. c + 3.
+template <int ROWS, int COLS, int THREADS = kThreads, int INFLIGHT = 8, typename F>
 __device__ __forceinline__ void reduce_splits(const float* part, size_t plane, int KS, int ld,
                                               int rows, int cols, F put) {
-  constexpr int V = ROWS * COLS / 4 / kThreads;  // float4 of a thread
-  constexpr int CH = V < 8 ? V : 8;
+  constexpr int V = ROWS * COLS / 4 / THREADS;  // float4 of a thread
+  constexpr int CH = V < INFLIGHT ? V : INFLIGHT;
+  constexpr int R = INFLIGHT / CH;  // splits a round
   static_assert(V >= 1 && V % CH == 0, "whole float4 chunks a thread");
 #pragma unroll
   for (int c0 = 0; c0 < V; c0 += CH) {
     float4 acc[CH];
 #pragma unroll
     for (int j = 0; j < CH; ++j) acc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int k = 0; k < KS; ++k) {
-      float4 v[CH];
+    for (int k0 = 0; k0 < KS; k0 += R) {
+      float4 v[R][CH];
 #pragma unroll
-      for (int j = 0; j < CH; ++j) {
-        const int e = threadIdx.x + (c0 + j) * kThreads, r = e / (COLS / 4);
-        v[j] = r < rows && e % (COLS / 4) * 4 < cols ? __ldcg(reinterpret_cast<const float4*>(
-                              part + k * plane + static_cast<size_t>(r) * ld) + e % (COLS / 4))
+      for (int q = 0; q < R; ++q)
+#pragma unroll
+        for (int j = 0; j < CH; ++j) {
+          const int e = threadIdx.x + (c0 + j) * THREADS, r = e / (COLS / 4);
+          v[q][j] = k0 + q < KS && r < rows && e % (COLS / 4) * 4 < cols
+                        ? __ldcg(reinterpret_cast<const float4*>(
+                              part + (k0 + q) * plane + static_cast<size_t>(r) * ld)
+                              + e % (COLS / 4))
                         : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
+        }
 #pragma unroll
-      for (int j = 0; j < CH; ++j) {
-        acc[j].x = __fadd_rn(acc[j].x, v[j].x);
-        acc[j].y = __fadd_rn(acc[j].y, v[j].y);
-        acc[j].z = __fadd_rn(acc[j].z, v[j].z);
-        acc[j].w = __fadd_rn(acc[j].w, v[j].w);
+      for (int q = 0; q < R; ++q) {
+        if (k0 + q >= KS) break;
+#pragma unroll
+        for (int j = 0; j < CH; ++j) {
+          acc[j].x = __fadd_rn(acc[j].x, v[q][j].x);
+          acc[j].y = __fadd_rn(acc[j].y, v[q][j].y);
+          acc[j].z = __fadd_rn(acc[j].z, v[q][j].z);
+          acc[j].w = __fadd_rn(acc[j].w, v[q][j].w);
+        }
       }
     }
 #pragma unroll
     for (int j = 0; j < CH; ++j) {
-      const int e = threadIdx.x + (c0 + j) * kThreads, r = e / (COLS / 4);
+      const int e = threadIdx.x + (c0 + j) * THREADS, r = e / (COLS / 4);
       if (r < rows && e % (COLS / 4) * 4 < cols) put(r, e % (COLS / 4) * 4, acc[j]);
     }
   }

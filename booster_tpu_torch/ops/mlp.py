@@ -30,15 +30,15 @@ from booster_tpu_torch.ops.qmm import (
     _stack_ok,
     _ticket_buffer,
     check_i8t,
-    dq_splits,
+    i8k_plan,
     qmm_gateup_plain,
     qmm_plain,
 )
 from booster_tpu_torch.quant.qtensor import QTensor, kernel_scales
 
 _SIGNATURES = {
-    "bt_mlp_i8t": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
-    "bt_mlp_i8t_ws_ints": [ctypes.c_int] * 3,
+    "bt_mlp_i8t": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    "bt_mlp_i8t_ws_ints": [ctypes.c_int] * 4,
 }
 
 
@@ -118,18 +118,19 @@ def _launch(x: torch.Tensor, w_gu: QTensor, w_down: QTensor) -> torch.Tensor:
     sd = check_i8t(mid, w_down, "mlp_i8t", groups=(32,))
     if ff % 128:
         raise NotImplementedError(f"mlp_i8t kernel: ff = {ff}: not ported yet (a multiple of 128)")
-    ks1, ks2 = dq_splits(M, K, 2 * ff), dq_splits(M, ff, C)
+    # the unfused kernels' plans: one tile (a function of M), each product's splits
+    (bm, ks1), (_, ks2) = i8k_plan(M, K, 2 * ff), i8k_plan(M, ff, C)
     dev = x.device
     f32 = torch.float32
-    part1 = torch.empty(ks1 * M * 2 * ff, dtype=f32, device=dev)
+    part1 = torch.empty(ks1 * M * 2 * ff, dtype=f32, device=dev) if ks1 > 1 else None
     part2 = torch.empty(ks2 * M * C, dtype=f32, device=dev) if ks2 > 1 else None
     out = torch.empty(M, C, device=dev, dtype=torch.bfloat16)
     lib = kernels.library("mlp_i8t", _SIGNATURES)
-    ws = _ticket_buffer(dev, lib.bt_mlp_i8t_ws_ints(M, ff, C))
+    ws = _ticket_buffer(dev, lib.bt_mlp_i8t_ws_ints(M, ff, C, bm))
     rc = lib.bt_mlp_i8t(x.data_ptr(), w_gu.qw.data_ptr(), sgu.data_ptr(), w_down.qw.data_ptr(),
-                        sd.data_ptr(), part1.data_ptr(), mid.data_ptr(),
-                        None if part2 is None else part2.data_ptr(), out.data_ptr(),
-                        ws.data_ptr(), M, K, ff, C, ks1, ks2,
+                        sd.data_ptr(), None if part1 is None else part1.data_ptr(),
+                        mid.data_ptr(), None if part2 is None else part2.data_ptr(),
+                        out.data_ptr(), ws.data_ptr(), M, K, ff, C, ks1, ks2, bm,
                         torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(rc, "mlp_i8t")
     kernels.count("mlp_i8t", (K, C))

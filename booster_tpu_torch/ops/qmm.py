@@ -8,10 +8,11 @@ i8t (Q8_0 at group 32, Q6_K at group 16), those of ``csrc/qmm_i8t.cu``
 (``_tqmm_i8_gd_kernel`` at M = 1, ``_tqmm_i8_kernel`` at M > 1).
 ``qmm_gateup`` runs their SiLU·mul forms (``_gateup_i4_gd_kernel`` /
 ``_gateup_i4_kernel``, ``_gateup_i8_gd_kernel`` / ``_gateup_i8_kernel``).
-The i4t M > 1 tile and the lane-major kernel take their rows per block and
-K splits from ``i4t_plan`` / ``lane_plan``, functions of the shapes only, so
-a CUDA graph replays the same sum order and the fused gate-up splits as the
-matmul on its weight does.
+The M > 1 tiles take their rows per block and K splits from ``i4t_plan``
+(i4t), ``lane_plan`` (lane-major) and ``i8k_plan`` (i8t and i8c, whose tile
+is ``csrc/i8k_tile.cuh``), functions of the shapes only, so a CUDA graph
+replays the same sum order and the fused gate-up splits as the matmul on
+its weight does.
 ``qmm_plain`` and ``qmm_gateup_plain`` are the same functions in plain
 torch, with the same rounding points; a wrapper uses them only for tensors
 on the CPU.  Lane-major weights that the reference's ``_supported`` takes
@@ -54,20 +55,21 @@ _SIGNATURES = {
 _I8_SIGNATURES = {
     "bt_qmm_i8t_gd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     "bt_qmm_i8t_gd_splits": [ctypes.c_int] * 2,
-    "bt_qmm_i8t_dq": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "bt_qmm_i8t_dq": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
 }
 _I8C_SIGNATURES = {
     "bt_qmm_i8c_mv": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
-    "bt_qmm_i8c_mm": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    "bt_qmm_i8c_mm": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
 }
 _I8C_MV_ROWS = 256  # rows of K per block of the M = 1 kernel (kMvRows in qmm_i8c.cu)
 _LANE_SIGNATURES = {
     "bt_qmm_lane": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
 }
-_TILE_N = 128  # output columns of a block of the i4t M > 1 and lane-major tiles
-# the tile of csrc/i8t_tile.cuh: rows of x, output columns, rows of K per stage
-_DQ_BM, _DQ_BN, _DQ_BK = 64, 128, 64
-_DQ_TARGET_BLOCKS = 264  # two blocks for each of the H100's 132 SMs
+_TILE_N = 128  # output columns of a block of the M > 1 tiles (i4t, lane-major, i8k)
+_I8K_BK = 64  # rows of K a stage of csrc/i8k_tile.cuh
+_SMS = 132  # the H100's SMs
+_TARGET_BLOCKS = 2 * _SMS
+_MAX_SPLITS = 8  # a tile's K splits run as one thread-block cluster (portable size)
 
 # per device: int32 zeros the kernels' blocks take tickets from (the last
 # block of a column tile, or of a split decode attention's (slot, kv head),
@@ -88,20 +90,35 @@ def _ticket_buffer(device: torch.device, n: int) -> torch.Tensor:
     return t
 
 
-def dq_splits(M: int, K: int, N: int) -> int:
-    """K splits of the i8t dequant tile for y [M, N] = x [M, K] @ W: enough
-    blocks for two per SM, at least 4 stages of 64 rows per split.  The
-    matmul, the fused gate-up (N = 2ff) and the whole-MLP kernel all take
-    this count, so they add their splits alike and agree bit for bit."""
-    tiles = -(-M // _DQ_BM) * (N // _DQ_BN)
-    return max(1, min(-(-_DQ_TARGET_BLOCKS // tiles), (K // _DQ_BK) // 4))
+def i8k_plan(M: int, K: int, N: int) -> tuple[int, int]:
+    """(BM, KS) of csrc/i8k_tile.cuh for y [M, N] = x [M, K] @ W (i8t or
+    i8c, K-major; N = 2ff for a fused gate-up): rows of x a block (wgmma's
+    N: the least of 16, 32, 64, 128 and 256 that holds M, 256 above) and K
+    splits on whole stages of 64 rows: as many as keep the blocks within
+    two an SM, each split at least 512 columns of K; where their f32 sums
+    (4·KS·M bytes a column) would pass half the payload's K bytes, only as
+    many as one block an SM needs; then the power of two at or below, at
+    most 8 (a tile's splits run as one thread-block cluster).  The matmul,
+    the fused gate-up and both products of the whole MLP take this function
+    of the shapes alone, so they add their splits alike and agree bit for
+    bit."""
+    bm = next((b for b in (16, 32, 64, 128) if M <= b), 256)
+    tiles = -(-M // bm) * (N // _TILE_N)
+    ks = _pow2_floor(max(1, min(_TARGET_BLOCKS // tiles, K // 512, _MAX_SPLITS)))
+    if 8 * ks * M > K:  # no more splits than one block an SM needs
+        ks = min(ks, 1 << (-(-_SMS // tiles) - 1).bit_length())
+    return bm, ks
+
+
+def _pow2_floor(n: int) -> int:
+    return 1 << (n.bit_length() - 1)
 
 
 def _tile_splits(tiles: int, K: int) -> int:
     """K splits for `tiles` output tiles: the nearest count to two blocks
     for each SM, each split at least 512 columns of K (its ring's stages
     must outlast the load of its first)."""
-    return max(1, min(int(_DQ_TARGET_BLOCKS / tiles + 0.5), K // 512))
+    return max(1, min(int(_TARGET_BLOCKS / tiles + 0.5), K // 512))
 
 
 def _rows_tile(rows: int) -> int:
@@ -483,17 +500,13 @@ def _launch_i8t(x: torch.Tensor, w: QTensor, gateup: bool, dq: bool) -> torch.Te
         kernels.check(rc, name)
         kernels.count(name, (K, N))
         return out
-    ks = dq_splits(M, K, N)
+    bm, ks = i8k_plan(M, K, N)
     if gateup:
         out = torch.empty(M, N // 2, device=dev, dtype=torch.bfloat16)
     else:
         out = torch.empty(M, N, device=dev, dtype=torch.float32)
-    part = (torch.empty(ks * M * N, dtype=torch.float32, device=dev)
-            if gateup or ks > 1 else None)
-    tickets = _ticket_buffer(dev, -(-M // _DQ_BM) * (N // _DQ_BN))
     rc = lib.bt_qmm_i8t_dq(x.data_ptr(), w.qw.data_ptr(), s3.data_ptr(), out.data_ptr(),
-                           None if part is None else part.data_ptr(), tickets.data_ptr(),
-                           M, K, N, ks, int(gateup), G, stream)
+                           M, K, N, ks, int(gateup), G, bm, stream)
     name = "qmm_i8t_gateup_dq" if gateup else "qmm_i8t_dq"
     kernels.check(rc, name)
     kernels.count(name, (K, N))
@@ -528,12 +541,9 @@ def _launch_i8c(x: torch.Tensor, w: QTensor) -> torch.Tensor:
                                _ticket_buffer(dev, N // 128).data_ptr(), K, N, stream)
         name = "qmm_i8c_mv"
     else:
-        ks = dq_splits(M, K, N)
-        part = torch.empty(ks * M * N, dtype=torch.float32, device=dev) if ks > 1 else None
-        tickets = _ticket_buffer(dev, -(-M // _DQ_BM) * (N // _DQ_BN))
+        bm, ks = i8k_plan(M, K, N)
         rc = lib.bt_qmm_i8c_mm(x.data_ptr(), w.qw.data_ptr(), s.data_ptr(), out.data_ptr(),
-                               None if part is None else part.data_ptr(), tickets.data_ptr(),
-                               M, K, N, ks, stream)
+                               M, K, N, ks, bm, stream)
         name = "qmm_i8c_mm"
     kernels.check(rc, name)
     kernels.count(name, (K, N))

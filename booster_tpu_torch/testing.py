@@ -982,3 +982,64 @@ def qmm_lane_mutants(x: torch.Tensor, w: QTensor, stages: tuple[int, int], sk: i
         xd[:, _lane_stage_cols(w.kind, x.shape[1], sk, st).to(x.device)] = 0
     out["one K split's partial dropped"] = (xd, w)
     return out
+
+
+_I8K_STAGE = 64  # rows of K a stage of csrc/i8k_tile.cuh
+
+
+def qmm_i8k_split(x: torch.Tensor, w: QTensor, ks: int,
+                  drop: Optional[int] = None) -> torch.Tensor:
+    """What csrc/i8k_tile.cuh computes for ``qmm_i8t(x, w, dq=True)`` (i8t)
+    or ``qmm_i8c(x, w)`` (i8c) split `ks` ways over K, in plain torch (CPU;
+    tests only).  Split s takes stages [s·nst/ks, (s+1)·nst/ks) of 64 rows
+    (nst = K/64), each in 4 k16 steps, each added to the f32 sum as one
+    16-term dot of bf16(x) with w (i8t: bf16(f32(q)·f32(bf16 s)); i8c:
+    bf16(q)); the splits' sums are added in split order from zero, `drop`
+    left out (a wrong kernel's sum); i8c then scales each column."""
+    w = w.resolved()
+    M, K = x.shape
+    if w.kind == "i8c":
+        wd = w.qw.float()
+    else:
+        s3, _ = kernel_scales(w)
+        sf = s3[0].to(torch.bfloat16).float().repeat_interleave(w.group, dim=0)
+        wd = (w.qw.float() * sf).to(torch.bfloat16).float()
+    xb = x.to(torch.bfloat16).float()
+    nst = K // _I8K_STAGE
+    y = torch.zeros(M, wd.shape[1], device=x.device)
+    for s in range(ks):
+        acc = torch.zeros_like(y)
+        for k0 in range(s * nst // ks * _I8K_STAGE, (s + 1) * nst // ks * _I8K_STAGE, _K16):
+            acc = acc + xb[:, k0:k0 + _K16] @ wd[k0:k0 + _K16]
+        if s != drop:
+            y = y + acc
+    return y * w.scales.float() if w.kind == "i8c" else y
+
+
+def qmm_i8k_mutants(x: torch.Tensor, w: QTensor, stages: tuple[int, int]) -> dict:
+    """(x, w) pairs on which the plain version (``qmm_plain`` for i8t,
+    ``qmm_i8c_plain`` for i8c) computes what a wrong kernel of
+    csrc/i8k_tile.cuh would: a neighbour column's scale; for i8t each
+    group's scale row from the next group and the group read as the other
+    one (16 as 32, 32 as 16); for i8c the rescale dropped; and one K split
+    left out: stages [s0, s1) of 64 rows, with x zero there."""
+    w = w.resolved()
+    K = x.shape[1]
+    out = {"a neighbour column's scale": (x, dataclasses.replace(
+        w, scales=torch.roll(w.scales, 1, -1)))}
+    if w.kind == "i8c":
+        out["rescale dropped"] = (x, dataclasses.replace(w, scales=torch.ones_like(w.scales)))
+    else:
+        s = w.scales
+        out["scale rows from the next group"] = (x, dataclasses.replace(
+            w, scales=torch.roll(s, -1, -2)))
+        if w.group == 16:
+            out["group 16 scales read as 32"] = (x, dataclasses.replace(
+                w, group=32, scales=s[..., :K // 32, :].contiguous()))
+        else:
+            out["group 32 scales read as 16"] = (x, dataclasses.replace(
+                w, group=16, scales=torch.cat([s, torch.zeros_like(s)], -2)))
+    xd = x.clone()
+    xd[:, stages[0] * _I8K_STAGE:stages[1] * _I8K_STAGE] = 0
+    out["one K split's partial dropped"] = (xd, w)
+    return out

@@ -1240,11 +1240,14 @@ def _i8t_kernels(entries: list, failures: list) -> None:
     stacks.  K8 must equal K7-dq + silu·mul and K9 must equal the gate-up
     (K7-dq, then silu·mul; K8 itself where M > 1) followed by K7-dq, bit for
     bit."""
+    import dataclasses
+
     import torch
 
     from booster_tpu_torch.ops import mlp as tm
     from booster_tpu_torch.ops import qmm as tq
     from booster_tpu_torch.quant.qtensor import dequantize
+    from booster_tpu_torch.testing import qmm_i8k_mutants
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
@@ -1263,33 +1266,51 @@ def _i8t_kernels(entries: list, failures: list) -> None:
     def sbytes(K, N):  # payload and bf16 scales
         return K * N + (K // 32) * N * 2
 
-    # K7: the matmul, group-dot at M = 1, dequant (tensor cores) above
+    def last_split(M, K, N):  # stages of 64 rows that the launch's last K split covers
+        nst = K // 64
+        if M == 1:  # the group-dot kernel: splits of 8 groups of 32 rows
+            return nst - 4, nst
+        plan = getattr(tq, "i8k_plan", None)  # a tree before the wgmma tile: dq_splits
+        ks = plan(M, K, N)[1] if plan else tq.dq_splits(M, K, N)
+        return (ks - 1) * nst // ks, nst
+
+    # K7: the matmul, group-dot at M = 1, dequant (tensor cores) above; the
+    # M = 16 rows (generate_q8's prefill) timed with fewer repeats
     for M, labels, path in ((1, ("qkv", "wo", "lm_head"), "generate_q8"),
+                            (16, ("qkv", "wo"), "generate_q8"),
                             (64, ("qkv", "wo", "lm_head"), "batch_q8"),
                             (2048, ("qkv", "wo", "down"), "batch_q8")):
+        trials = 3 if M == 16 else 5
         for label in labels:
             w = weights[label]
             N, K = w.shape
             x = x_of(M, K)
             got, want = tq.qmm_i8t(x, w), tq.qmm_plain(x, w)
             d = (got - want).abs()
+            limit = 2e-4 * float(want.abs().max())
             name = "qmm_i8t_gd" if M == 1 else "qmm_i8t_dq"
-            if not (d.max() <= 2e-4 * want.abs().max() and torch.isfinite(got).all()):
+            if not (d.max() <= limit and torch.isfinite(got).all()):
                 failures.append(f"{name} {label} M={M}: max err {float(d.max())}")
+            seen = {what: float((tq.qmm_plain(xm, wm) - want).abs().max()) / limit
+                    for what, (xm, wm) in qmm_i8k_mutants(x, w, last_split(M, K, N)).items()}
+            for what, v in seen.items():
+                if v < 8:
+                    failures.append(f"{name} {label} M={M}: the check cannot see {what} ({v})")
             deq = dequantize(w, bf)
             b_ms, b_by = bound(sbytes(K, N) + M * K * 2 + M * N * 4, 2 * M * K * N)
             entries.append({
                 "name": name, "shape": f"7B {label} M={M} K={K} N={N}",
                 "key": (name, (K, N)), "path": path, "route": "cuda", "source": src,
                 "replaces": "booster_tpu/ops/pallas_qmm.py:" + ("361" if M == 1 else "432"),
-                "host_us": host_us(lambda: tq.qmm_i8t(x, w)),
-                "max_abs_err": float(d.max()), "ms": timed(lambda: tq.qmm_i8t(x, w)),
-                "warm_ms": timed(lambda: tq.qmm_i8t(x, w), cold=False),
+                "host_us": host_us(lambda: tq.qmm_i8t(x, w), reps=50 if M == 16 else 200),
+                "max_abs_err": float(d.max()), "min_wrong_kernel_of_limit": min(seen.values()),
+                "ms": timed(lambda: tq.qmm_i8t(x, w), trials=trials),
+                "warm_ms": timed(lambda: tq.qmm_i8t(x, w), trials=trials, cold=False),
                 "plain_ms": timed(lambda: tq.qmm_plain(x, w), reps=3, trials=3),
                 "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": timed(lambda: torch.matmul(x, deq.t())),
+                "library_ms": timed(lambda: torch.matmul(x, deq.t()), trials=trials),
                 "library": "torch.matmul on the dequantized bf16 weight",
-                "check": CHECKS["qmm"]})
+                "check": CHECKS["qmm"] + "; wrong kernels at 8x"})
             del x, got, want, d, deq
     torch.cuda.empty_cache()
 
@@ -1311,16 +1332,29 @@ def _i8t_kernels(entries: list, failures: list) -> None:
     g = gf.to(bf)
     if not torch.equal(got, tq.silu(g[:, :ff]) * g[:, ff:]):
         failures.append("qmm_i8t_gateup_dq: fused != qmm_i8t (dq) + silu·mul")
+    wr = w.resolved()
+    wrong = {what: tq.qmm_gateup_plain(xm, wm)
+             for what, (xm, wm) in qmm_i8k_mutants(x, wr, last_split(M, K, 2 * ff)).items()}
+    wrong["the up half read for the gate"] = tq.qmm_gateup_plain(x, dataclasses.replace(
+        wr, qw=torch.cat([wr.qw[:, ff:], wr.qw[:, ff:]], 1),
+        scales=torch.cat([wr.scales[..., ff:], wr.scales[..., ff:]], -1)))
+    seen = {what: float(((m.float() - want.float()).abs() / scale).max() * 2 ** 5)
+            for what, m in wrong.items()}
+    del wrong
+    for what, v in seen.items():
+        if v < 8:
+            failures.append(f"qmm_i8t_gateup_dq M={M}: the check cannot see {what} ({v})")
     b_ms, b_by = bound(sbytes(K, 2 * ff) + M * K * 2 + M * ff * 2, 2 * M * K * 2 * ff)
     entries.append({
         "name": "qmm_i8t_gateup_dq", "shape": f"7B gateup M={M} K={K} N={2 * ff}",
         "key": ("qmm_i8t_gateup_dq", (K, 2 * ff)), "path": "batch_q8", "route": "cuda",
         "source": src, "replaces": "booster_tpu/ops/pallas_qmm.py:726",
-        "max_abs_err": float(d.max()), "ms": timed(lambda: tq.qmm_i8t_gateup(x, w)),
+        "max_abs_err": float(d.max()), "min_wrong_kernel_of_limit": min(seen.values()),
+        "ms": timed(lambda: tq.qmm_i8t_gateup(x, w)),
         "warm_ms": timed(lambda: tq.qmm_i8t_gateup(x, w), cold=False),
         "plain_ms": timed(lambda: tq.qmm_gateup_plain(x, w), reps=3, trials=3),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "check": CHECKS["gateup_i8"] + "; equal to qmm_i8t (dq) + silu·mul"})
+        "check": CHECKS["gateup_i8"] + "; equal to qmm_i8t (dq) + silu·mul; wrong kernels at 8x"})
     del x, got, want, d, g, gf, scale
     torch.cuda.empty_cache()
 
@@ -1411,8 +1445,10 @@ def _i8c_kernels(entries: list, failures: list) -> None:
         return out
 
     for M, labels, path in ((1, ("qkv", "wo", "gateup", "down", "lm_head"), "generate_i8c"),
+                            (16, ("qkv", "wo"), "generate_i8c"),
                             (64, ("qkv", "wo", "gateup", "down", "lm_head"), "batch_i8c"),
                             (2048, ("qkv", "wo", "gateup", "down"), "batch_i8c")):
+        trials = 3 if M == 16 else 5
         for label in labels:
             w = weights[label]
             N, K = w.shape
@@ -1441,13 +1477,13 @@ def _i8c_kernels(entries: list, failures: list) -> None:
                 "name": name, "shape": f"7B {label} M={M} K={K} N={N}",
                 "key": (name, (K, N)), "path": path, "route": "cuda", "source": src,
                 "replaces": "booster_tpu/ops/pallas_qmm.py:1451",
-                "host_us": host_us(lambda: tq.qmm_i8c(x, w)),
+                "host_us": host_us(lambda: tq.qmm_i8c(x, w), reps=50 if M == 16 else 200),
                 "max_abs_err": err, "min_wrong_kernel_of_limit": min(seen.values()),
-                "ms": timed(lambda: tq.qmm_i8c(x, w)),
-                "warm_ms": timed(lambda: tq.qmm_i8c(x, w), cold=False),
+                "ms": timed(lambda: tq.qmm_i8c(x, w), trials=trials),
+                "warm_ms": timed(lambda: tq.qmm_i8c(x, w), trials=trials, cold=False),
                 "plain_ms": timed(lambda: tq.qmm_i8c_plain(x, w), reps=3, trials=3),
                 "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": timed(lambda: torch.matmul(x, deq.t())),
+                "library_ms": timed(lambda: torch.matmul(x, deq.t()), trials=trials),
                 "library": "torch.matmul on the dequantized bf16 weight",
                 "check": CHECKS["qmm"]})
             del x, x0, got, want, deq

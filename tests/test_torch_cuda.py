@@ -412,6 +412,60 @@ def test_i8t_wrappers_refuse_shapes_not_ported(cuda):
         tq.qmm_i8t(x, w96)
 
 
+@pytest.mark.parametrize("kind", ["i8t G32", "i8t G16", "i8c"])
+@pytest.mark.parametrize("m,n", [(17, 384), (100, 640), (130, 384), (16, 128), (64, 384)])
+def test_i8k_tile_at_ragged_m_and_n(cuda, kind, m, n):
+    """The int8 K-major tile (csrc/i8k_tile.cuh) at ragged M (rows past M
+    zero and never written; BM 32, 128, 256) and N not a multiple of 256,
+    with its K splits (one cluster a tile), against the plain version; the
+    ordered split sums repeat."""
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    k = 2048
+    if kind == "i8c":
+        w, kern, plain = _w8c(2, k, n, gen).at(1), tq.qmm_i8c, tq.qmm_i8c_plain
+    else:
+        w = _w8(2, k, n, gen, group=16 if kind.endswith("G16") else 32).at(1)
+        kern, plain = tq.qmm_i8t, tq.qmm_plain
+    x = torch.randn(m, k, device="cuda", generator=gen).to(torch.bfloat16)
+    assert tq.i8k_plan(m, k, n)[1] > 1  # the split is exercised
+    got, want = kern(x, w), plain(x, w)
+    assert (got - want).abs().max() <= 2e-4 * want.abs().max()
+    assert torch.equal(got, kern(x, w))
+
+
+@pytest.mark.parametrize("m", [64, 2048])
+def test_i8k_gateup_equals_dq_then_silu_mul(cuda, m):
+    """The fused gate-up on the tile (64 gate and 64 up columns a block) is
+    the matmul on its fused weight + silu·mul, bit for bit, at a batch step
+    and a batch prefill."""
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    w = _w8(1, 2048, 2 * 640, gen).at(0)
+    x = torch.randn(m, 2048, device="cuda", generator=gen).to(torch.bfloat16)
+    got = tq.qmm_i8t_gateup(x, w)
+    gu = tq.qmm_i8t(x, w).to(torch.bfloat16)
+    assert torch.equal(got, tq.silu(gu[:, :640]) * gu[:, 640:])
+
+
+@pytest.mark.parametrize("what", ["i8t", "gateup", "i8c", "mlp"])
+def test_i8k_splits_repeat_across_graph_replays(cuda, what):
+    """The tile's split sums (a cluster's, or the whole MLP's through its
+    tickets and counters, which its last blocks reset) give the same bits
+    in eager calls and CUDA-graph replays, and leave the shared ticket
+    buffer zero."""
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    x = torch.randn(16, 1024, device="cuda", generator=gen).to(torch.bfloat16)
+    tq._ticket_buffer(x.device, 1)
+    if what == "mlp":
+        wgu, wd = _w8(1, 1024, 2 * 1024, gen).at(0), _w8(1, 1024, 1024, gen).at(0)
+        assert tq.i8k_plan(16, 1024, 1024)[1] > 1
+        _replays_equal(lambda: tm.qmm_mlp_i8t(x, wgu, wd))
+        return
+    w = _w8c(1, 1024, 1024, gen).at(0) if what == "i8c" else _w8(1, 1024, 1024, gen).at(0)
+    assert tq.i8k_plan(16, 1024, 1024)[1] > 1
+    kern = {"i8t": tq.qmm_i8t, "gateup": tq.qmm_i8t_gateup, "i8c": tq.qmm_i8c}[what]
+    _replays_equal(lambda: kern(x, w))
+
+
 def _w8c(L, K, N, gen):
     """A stacked random i8c weight [L, K, N] with f32 channel scales [L, 1, N]."""
     qw = torch.randint(-127, 128, (L, K, N), dtype=torch.int8, device="cuda", generator=gen)

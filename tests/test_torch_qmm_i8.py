@@ -204,10 +204,11 @@ def test_mlp_refuses_4_bit_weights():
 
 
 def test_dq_splits():
-    # the 7B shapes: one split at the batch prefill, enough blocks at decode
-    assert tq.dq_splits(2048, 4096, 6144) == 1
-    assert tq.dq_splits(64, 4096, 6144) == 6
-    assert tq.dq_splits(64, 14336, 4096) == 9
+    # the 7B shapes (ops.qmm.i8k_plan): one split of 256-row tiles at the
+    # batch prefill, enough blocks of 64 rows at decode
+    assert tq.i8k_plan(2048, 4096, 6144) == (256, 1)
+    assert tq.i8k_plan(64, 4096, 6144) == (64, 4)
+    assert tq.i8k_plan(64, 14336, 4096) == (64, 8)
     for m, k, n in ((1, 4096, 28672), (64, 4096, 32000), (16, 512, 1024), (8, 64, 128)):
-        ks = tq.dq_splits(m, k, n)
-        assert 1 <= ks <= max(1, k // 64 // 4)
+        bm, ks = tq.i8k_plan(m, k, n)
+        assert bm == (16 if m <= 16 else 64) and 1 <= ks <= max(1, k // 512)
