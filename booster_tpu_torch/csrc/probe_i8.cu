@@ -6,7 +6,8 @@
 //
 // Replaces the 21 Pallas functions of the JAX package's i8 probe tools and
 // the int8 ones of tools/expander_probe.py and tools/tqmm_probe.py, which
-// compute four functions of the data:
+// compute four functions of the data (B's int8 x int8 N-major form has a
+// kernel of its own, E):
 //
 // A. colsum_kernel<MODE, SIGNED>: column sums of a u8 or i8 [R, C] array
 //    into f32 [1, C].  tools/kernel_micro.py:71 _read_kernel (u8, i32 per
@@ -20,18 +21,19 @@
 //    for an int8 weight stored K-major [K, N] or N-major [N, K].
 //    bf16 x: w = bf16(q), or bf16(f32(q) · f32(bf16 s)) under a scale
 //    (rounded once, as bf16 · bf16 rounds in the reference), then
-//    mma.sync m16n8k16 with an f32 accumulator; int8 x: mma.sync m16n8k32
-//    s8 · s8 → s32 (exact), kept in i32 or converted to f32 at the end.
+//    mma.sync m16n8k16 with an f32 accumulator; int8 x (the K-major form,
+//    mmq_probe's int_mm (a)): mma.sync m16n8k32 s8 · s8 → s32 (exact), kept
+//    in i32.  int8 x against an N-major weight is E.
 //    Scales: none; a full bf16 [K, N] plane (qmm_gap v2); bf16 group
 //    scales [K/32, N], row k taking s[k / 32] (v3); v5's K-reordered rows
 //    (row r of K block b takes scale row b·bk/32 + r % (bk/32)); periodic
 //    ("tile") scales, row k taking scale row k % (K/32); f32 group or
 //    periodic scales, [N, K/32] over an N-major weight or [K/32, N] over a
 //    K-major one, rounded to bf16 first.  Replaces cast_probe.py:125 k_dot,
-//    :144 k_dot_sub, :168 k_dot_i8, :190 k_dot_mixed; mmq_probe.py:37
-//    (int_mm's kern, (a) i8 → i32 and (b) bf16 → f32); qmm_gap.py:86 v0,
-//    :94 v1, :107 v2, :120 v3, :157 v5; qmm_probe.py:82 v_current, :93
-//    v_cast_only, :104 v_dot_only; expander_probe.py:152 make_qmm's kernel
+//    :144 k_dot_sub, :190 k_dot_mixed; mmq_probe.py:37 (int_mm's kern, (a)
+//    i8 → i32 and (b) bf16 → f32); qmm_gap.py:86 v0, :94 v1, :107 v2, :120
+//    v3, :157 v5; qmm_probe.py:82 v_current, :93 v_cast_only;
+//    expander_probe.py:152 make_qmm's kernel
 //    (dot_f32, dot_bf16, reshape, jrepeat and take: N-major f32 group
 //    scales; ptile: periodic; noscale); tqmm_probe.py:79 make_tqmm_i8's
 //    kernel (sub_reshape and sub_repeat: K-major f32 group scales;
@@ -62,6 +64,15 @@
 //    i32 (exact: bn·sub·127 < 2^31) with __dp4a, so the result depends on
 //    no summation order; the reference's f32 sum equals it wherever the
 //    sums stay below 2^24 (the tests' sizes) and rounds otherwise.
+//
+// E. s8mm_kernel<BM, OUT_I32>: y [M, N] = x [M, K] @ q^T for int8 x and an
+//    N-major int8 weight q [N, K], exact in i32, kept in i32 or converted to
+//    f32 once at the end.  Replaces qmm_probe.py:104 v_dot_only (i32 out)
+//    and cast_probe.py:168 k_dot_i8 (f32 out).  Both operands are K-major,
+//    the only layout 8-bit wgmma reads, so wgmma.mma_async m64nBMk32
+//    .s32.s8.s8 takes the weight as A and x as B (y^T = q x^T: BM, the rows
+//    of x, is wgmma's N, 8 to 64) straight from shared memory through
+//    descriptors: no registers staged, no byte moved by a thread.
 //
 // Saturation: int_mm (a) at K = 14336 sums up to 14336·127² ≈ 2.3e8 in
 // i32, below 2^31, so the s32 accumulators and split sums never wrap.
@@ -101,6 +112,17 @@
 //   arrives last at its tile's ticket, so a result repeats bit for bit.
 // Making them fast (wgmma, TMA, a deeper pipeline) is later work: they are
 // right and comparable rung against rung.
+// - E: one block a tile of 128 weight rows and BM rows of x, over all of K
+//   (88 blocks at the tools' 11264 columns, 176 at a ragged M of 100), two
+//   blocks an SM.  A ring of 4 stages (128 x 128 weight bytes and BM x 128
+//   of x a stage, cp.async, 128-byte swizzle; 3 in flight) feeds the tensor
+//   cores; one barrier a stage; no partial sum leaves the block.  Measured
+//   on the H100 (tools' shapes): splitting K over more blocks, as stream-K
+//   over 132 blocks with partial tiles met in device memory, or as
+//   thread-block clusters of 2-4 that meet in distributed shared memory,
+//   was slower than whole tiles at every split, and so was one block an SM
+//   with twice the bytes of K a stage; the stream of whole tiles runs at
+//   about the library call's rate (ops/probes.py s8_rows, PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -108,6 +130,7 @@
 
 #include <type_traits>
 
+#include "i8k_tile.cuh"  // align_1k, desc, cp_async, allow_smem
 #include "i8t_tile.cuh"
 
 namespace {
@@ -716,6 +739,185 @@ __global__ void __launch_bounds__(kBsThreads) blocksum_kernel(BsParams p) {
     p.out[static_cast<size_t>(i / p.bn) * p.N + t * p.bn + i % p.bn] = val;
 }
 
+// ------------------------------------------------ E. s8mm on wgmma
+
+constexpr int kS8Rows = 128;          // weight rows (output columns) of a tile: 64 a warpgroup
+constexpr int kS8RingBytes = 98304;   // the ring: 96 KB, two blocks an SM
+
+// A stage: 128 bytes of K (one 128-byte swizzle row) of the BM rows of x,
+// then of the tile's 128 weight rows.
+template <int BM>
+struct S8Cfg {
+  static_assert(BM == 8 || BM == 16 || BM == 32 || BM == 64, "a tile has 8, 16, 32 or 64 rows");
+  static constexpr int kXB = BM * 128;                   // x bytes of a stage (1 KB or more)
+  static constexpr int kSlot = kXB + kS8Rows * 128;      // a multiple of 1024
+  static constexpr int kRing = kS8RingBytes / kSlot < 8 ? kS8RingBytes / kSlot : 8;
+  static constexpr int kSmem = kRing * kSlot + 1024;     // + slack to align on 1 KB
+  static_assert(kRing >= 3, "the ring holds three stages or more");
+};
+
+struct S8Params {
+  const int8_t* x;  // [M, K]
+  const int8_t* q;  // [N, K], N-major
+  void* out;        // [M, N] i32 or f32
+  int M, K, N;
+};
+
+// d (64 x N, s32) += A (64 x 32 int8, K-major at descriptor a) · B (N x 32
+// int8, K-major at descriptor b)^T
+template <int N>
+__device__ __forceinline__ void wgmma_s8(int (&d)[N / 2], uint64_t a, uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_s8<8>(int (&d)[4], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 "
+      "{%0, %1, %2, %3}, "
+      "%4, %5, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<16>(int (&d)[8], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<32>(int (&d)[16], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<64>(int (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <int R>
+__device__ __forceinline__ void fence_acc(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// E. Block (j, mt): output columns j·128 + [0, 128) (weight rows) of x rows
+// mt·BM + [0, BM), over all of K in stages of 128 bytes through the ring;
+// warpgroup g runs wgmma m64nBMk32 on weight rows 64g + [0, 64) (A)
+// against the x rows (B), both through descriptors, and writes its i32
+// sums (or their f32) straight from the accumulators.
+template <int BM, bool OUT_I32>
+__global__ void __launch_bounds__(kThreads, 2) s8mm_kernel(S8Params p) {
+  using C = S8Cfg<BM>;
+  constexpr int S = C::kRing;
+  extern __shared__ uint8_t s8_smem[];
+  uint8_t* sm = i8k::align_1k(s8_smem);
+  const int t = threadIdx.x, wg = t >> 7, w = (t >> 5) & 3, l = t & 31;
+  const int n = p.K / 128, m0 = blockIdx.y * BM, n0 = blockIdx.x * kS8Rows;
+  auto load = [&](int st, uint8_t* slot) {
+    const int k = st * 128;
+#pragma unroll
+    for (int i = 0; i < kS8Rows * 8 / kThreads; ++i) {  // 128 rows x 8 chunks of 16 bytes
+      const int v = t + i * kThreads, r = v >> 3, c = v & 7;
+      cpasync::cp_async16(slot + C::kXB + r * 128 + ((c ^ (r & 7)) << 4),
+                          p.q + static_cast<size_t>(n0 + r) * p.K + k + c * 16, true);
+    }
+#pragma unroll
+    for (int i = 0; i < (BM * 8 + kThreads - 1) / kThreads; ++i) {  // BM rows, zeros past M
+      const int v = t + i * kThreads, r = v >> 3, c = v & 7;
+      if (BM * 8 % kThreads == 0 || v < BM * 8) {
+        const int row = m0 + r;
+        const bool live = row < p.M;
+        cpasync::cp_async16(slot + r * 128 + ((c ^ (r & 7)) << 4),
+                            live ? p.x + static_cast<size_t>(row) * p.K + k + c * 16 : p.x, live);
+      }
+    }
+  };
+  int acc[BM / 2];
+#pragma unroll
+  for (int j = 0; j < BM / 2; ++j) acc[j] = 0;
+#pragma unroll
+  for (int i = 0; i < S - 1; ++i) {
+    if (i < n) load(i, sm + i * C::kSlot);
+    cpasync::cp_commit();
+  }
+  for (int i = 0; i < n; ++i) {
+    cpasync::cp_wait<S - 2>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // for wgmma
+    __syncthreads();  // stage i is in; every wgmma of stage i - 1 is done
+    if (i + S - 1 < n) load(i + S - 1, sm + ((i + S - 1) % S) * C::kSlot);
+    cpasync::cp_commit();
+    const uint8_t* slot = sm + (i % S) * C::kSlot;
+    const uint64_t da = i8k::desc(slot + C::kXB + wg * 64 * 128), db = i8k::desc(slot);
+    fence_acc(acc);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_s8<BM>(acc, da + 2 * kk, db + 2 * kk);  // 32 bytes each
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(acc);
+  }
+  cpasync::cp_wait<0>();
+  // acc[i]: output column n0 + 64·wg + 16·w + l/4 + 8·((i/2) % 2), row m0 +
+  // 8·(i/4) + 2·(l % 4) + i % 2 (wgmma's accumulator layout)
+  const int c0 = n0 + 64 * wg + 16 * w + (l >> 2), r0 = m0 + 2 * (l & 3);
+#pragma unroll
+  for (int i = 0; i < BM / 2; ++i) {
+    const int row = r0 + 8 * (i >> 2) + (i & 1);
+    if (row >= p.M) continue;
+    const size_t o = static_cast<size_t>(row) * p.N + c0 + 8 * ((i >> 1) & 1);
+    if constexpr (OUT_I32) static_cast<int*>(p.out)[o] = acc[i];
+    else static_cast<float*>(p.out)[o] = __int2float_rn(acc[i]);
+  }
+}
+
+template <int BM, bool OUT_I32>
+cudaError_t launch_s8(const S8Params& p, cudaStream_t st) {
+  static bool ready = false;
+  const cudaError_t e = qring::allow_smem(s8mm_kernel<BM, OUT_I32>, S8Cfg<BM>::kSmem, ready);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(p.N / kS8Rows, (p.M + BM - 1) / BM);
+  s8mm_kernel<BM, OUT_I32><<<grid, kThreads, S8Cfg<BM>::kSmem, st>>>(p);
+  return cudaGetLastError();
+}
+
 template <typename Kernel>
 int launch(Kernel kernel, const MmParams& p, void* stream) {
   const dim3 grid(p.N / kBN, p.KS, (p.M + kBM - 1) / kBM);
@@ -766,10 +968,6 @@ extern "C" int bt_probe_i8mm(const void* x, const void* q, const void* s, void* 
   switch (form) {
     case mm_form(false, true, kNone, false, false):
       return launch(i8mm_kernel<false, true, kNone, false, false>, p, stream);
-    case mm_form(true, true, kNone, false, false):
-      return launch(i8mm_kernel<true, true, kNone, false, false>, p, stream);
-    case mm_form(true, true, kNone, false, true):
-      return launch(i8mm_kernel<true, true, kNone, false, true>, p, stream);
     case mm_form(true, false, kNone, false, true):
       return launch(i8mm_kernel<true, false, kNone, false, true>, p, stream);
     case mm_form(false, false, kNone, false, false):
@@ -789,6 +987,40 @@ extern "C" int bt_probe_i8mm(const void* x, const void* q, const void* s, void* 
     case mm_form(false, false, kTile, true, false):
       return launch(i8mm_kernel<false, false, kTile, true, false>, p, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// y [M, N] = x [M, K] @ q^T for int8 x and an N-major int8 q [N, K], exact,
+// in i32 (out_i32) or converted to f32 (ops/probes.py i8mm, its s8 forms):
+// tiles of bm rows (8, 16, 32 or 64: ops/probes.py s8_rows), one block a
+// tile.  K and N multiples of 128.  Returns the CUDA error of the launch (0
+// on success).
+extern "C" int bt_probe_s8mm(const void* x, const void* q, void* out, int M, int K, int N,
+                             int bm, int out_i32, void* stream) {
+  const S8Params p{static_cast<const int8_t*>(x), static_cast<const int8_t*>(q), out, M, K, N};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (bm * 2 + (out_i32 ? 1 : 0)) {
+    case 16: return static_cast<int>(launch_s8<8, false>(p, s));
+    case 17: return static_cast<int>(launch_s8<8, true>(p, s));
+    case 32: return static_cast<int>(launch_s8<16, false>(p, s));
+    case 33: return static_cast<int>(launch_s8<16, true>(p, s));
+    case 64: return static_cast<int>(launch_s8<32, false>(p, s));
+    case 65: return static_cast<int>(launch_s8<32, true>(p, s));
+    case 128: return static_cast<int>(launch_s8<64, false>(p, s));
+    case 129: return static_cast<int>(launch_s8<64, true>(p, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Dynamic shared memory bytes a block of the s8 kernel takes at tiles of bm
+// rows (its ring and 1 KB of alignment slack); -1 for another bm.
+extern "C" int bt_probe_s8_smem(int bm) {
+  switch (bm) {
+    case 8: return S8Cfg<8>::kSmem;
+    case 16: return S8Cfg<16>::kSmem;
+    case 32: return S8Cfg<32>::kSmem;
+    case 64: return S8Cfg<64>::kSmem;
+    default: return -1;
   }
 }
 

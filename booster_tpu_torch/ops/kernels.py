@@ -81,6 +81,7 @@ launch_counts = {
     "kv_append_layer_i8": 0,
     "probe_colsum": 0,
     "probe_i8mm": 0,
+    "probe_s8mm": 0,
     "probe_i8mm_group": 0,
     "probe_blocksum": 0,
     "probe_expand": 0,

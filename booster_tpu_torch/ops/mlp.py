@@ -6,7 +6,9 @@ QTensor and the [C, ff] down QTensor, returned as bf16 [.., C].
 ``qmm_mlp_i8t`` runs the kernel of ``csrc/mlp_i8t.cu`` on CUDA tensors and
 ``qmm_mlp_plain`` on CPU tensors: the unfused sequence (the dequantize
 forms of the gate-up and of the down matmul, at M = 1 too) rounded to
-bf16, which the kernel equals bit for bit.
+bf16, which the kernel equals bit for bit.  The kernel's blocks take the
+items of ``mlp_plan`` (the unfused kernels' tiles and splits) by their ids
+in order, the order ``mlp_schedule`` spells out for the tests.
 
 Which M takes the kernel is the reference's rule: ``mlp_fits`` is a copy of
 ``_pick_bf_mlp``'s arithmetic (``pallas_qmm.py:1281``), the reference's
@@ -37,9 +39,75 @@ from booster_tpu_torch.ops.qmm import (
 from booster_tpu_torch.quant.qtensor import QTensor, kernel_scales
 
 _SIGNATURES = {
-    "bt_mlp_i8t": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    "bt_mlp_i8t": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_void_p],
     "bt_mlp_i8t_ws_ints": [ctypes.c_int] * 4,
 }
+_MAX_SPLITS = 8  # ready counts an M tile (i8k::kMaxSplits)
+
+
+def mlp_plan(M: int, K: int, ff: int, C: int) -> dict:
+    """The whole MLP's items at M rows: the tile rows ``bm`` and the splits
+    ``ks1`` (gate-up, over K) and ``ks2`` (down, over ff) of the unfused
+    kernels (``i8k_plan``), the M tiles, the gate/up column pairs of 64
+    (``nF``), the down's column tiles of 128 (``nC``), and the item counts:
+    ``nA`` gate-up items (pair, split, M tile), ``nD`` down items (split,
+    column tile, M tile)."""
+    (bm, ks1), (_, ks2) = i8k_plan(M, K, 2 * ff), i8k_plan(M, ff, C)
+    mtiles, nF, nC = -(-M // bm), ff // 64, C // 128
+    return {"M": M, "K": K, "ff": ff, "C": C, "bm": bm, "ks1": ks1, "ks2": ks2,
+            "mtiles": mtiles, "nF": nF, "nC": nC, "nA": mtiles * nF * ks1,
+            "nD": mtiles * nC * ks2}
+
+
+def mlp_ws_ints(M: int, ff: int, C: int, bm: int) -> int:
+    """Ints of csrc/mlp_i8t.cu's zeroed workspace (bt_mlp_i8t_ws_ints):
+    counter, exits, then per M tile 8 ready counts (one a down split), a
+    ticket per gate/up pair and a ticket per down column tile."""
+    return 2 + -(-M // bm) * (_MAX_SPLITS + ff // 64 + C // 128)
+
+
+def gateup_id(plan: dict, fj: int, s: int, mt: int) -> int:
+    """Item id of pair fj's split s at M tile mt (csrc/mlp_i8t.cu's decoding)."""
+    return (fj * plan["ks1"] + s) * plan["mtiles"] + mt
+
+
+def down_id(plan: dict, s: int, j: int, mt: int) -> int:
+    """Item id of the down's split s of column tile j at M tile mt."""
+    return plan["nA"] + (s * plan["nC"] + j) * plan["mtiles"] + mt
+
+
+def split_of_pair(plan: dict, fj: int) -> int:
+    """The down split whose stages [s·nF/ks2, (s+1)·nF/ks2) of 64 mid
+    columns hold pair fj (csrc/mlp_i8t.cu's ready count)."""
+    return ((fj + 1) * plan["ks2"] - 1) // plan["nF"]
+
+
+def pairs_of_split(plan: dict, s: int) -> range:
+    nF, ks2 = plan["nF"], plan["ks2"]
+    return range(s * nF // ks2, (s + 1) * nF // ks2)
+
+
+def item_bytes(plan: dict, item: int) -> int:
+    """Payload and scale bytes that an item streams (x and mid come from L2)."""
+    if item < plan["nA"]:
+        rows = plan["K"] // plan["ks1"]
+    else:
+        rows = plan["ff"] // plan["ks2"]
+    return rows * 128 + rows // 32 * 256
+
+
+def mlp_schedule(plan: dict) -> list:
+    """The order in which the kernel's blocks take the items, whatever their
+    count: every gate-up item (pair-major, then split, then M tile), then
+    the down items split by split, so that each down item comes after every
+    gate-up item of the pairs it reads.  The ids are numbered in that order
+    (``gateup_id``, ``down_id``), so the list is the ids in order, which is
+    how the kernel hands them out; it is the model the tests hold the
+    kernel's decoding to."""
+    mt, nF, ks1, nC, ks2 = plan["mtiles"], plan["nF"], plan["ks1"], plan["nC"], plan["ks2"]
+    gu = [gateup_id(plan, fj, s, m) for fj in range(nF) for s in range(ks1) for m in range(mt)]
+    dn = [down_id(plan, s, j, m) for s in range(ks2) for j in range(nC) for m in range(mt)]
+    return gu + dn
 
 
 def mlp_fits(ff: int, kk: int, c: int, m: int, rows: int, d_rows: int, group: int,
@@ -106,7 +174,14 @@ def qmm_mlp_plain(x: torch.Tensor, w_gu: QTensor, w_down: QTensor) -> torch.Tens
     return qmm_plain(mid, w_down, dq=True).to(torch.bfloat16)
 
 
-def _launch(x: torch.Tensor, w_gu: QTensor, w_down: QTensor) -> torch.Tensor:
+def _run(x: torch.Tensor, w_gu: QTensor, w_down: QTensor, first: int = 0,
+         n: Optional[int] = None, workers: int = 0,
+         mid: Optional[torch.Tensor] = None) -> tuple:
+    """One launch of the kernel → (out, mid).  By default the whole MLP, its
+    item ids [0, nA + nD) on the library's grid (two blocks an SM); the
+    range [`first`, `first` + `n`), `workers` blocks and a `mid` computed
+    before run parts of it (the schedule's ablations, ``tools/mlp_sched.py``:
+    the gate-up items [0, nA), the down items [nA, nA + nD) without waits)."""
     w_gu, w_down = w_gu.resolved(), w_down.resolved()
     M, K = x.shape
     ff = w_gu.shape[0] // 2
@@ -114,12 +189,16 @@ def _launch(x: torch.Tensor, w_gu: QTensor, w_down: QTensor) -> torch.Tensor:
     # Q8_0's group only: a uniform Q6_K file (group 16) of a model whose ff
     # is a multiple of 256 would take the reference's MLP kernel at group 16
     sgu = check_i8t(x, w_gu, "mlp_i8t", groups=(32,))
-    mid = torch.empty(M, ff, device=x.device, dtype=torch.bfloat16)
+    if mid is None:
+        mid = torch.empty(M, ff, device=x.device, dtype=torch.bfloat16)
     sd = check_i8t(mid, w_down, "mlp_i8t", groups=(32,))
     if ff % 128:
         raise NotImplementedError(f"mlp_i8t kernel: ff = {ff}: not ported yet (a multiple of 128)")
     # the unfused kernels' plans: one tile (a function of M), each product's splits
-    (bm, ks1), (_, ks2) = i8k_plan(M, K, 2 * ff), i8k_plan(M, ff, C)
+    plan = mlp_plan(M, K, ff, C)
+    bm, ks1, ks2 = plan["bm"], plan["ks1"], plan["ks2"]
+    if n is None:
+        n = plan["nA"] + plan["nD"] - first
     dev = x.device
     f32 = torch.float32
     part1 = torch.empty(ks1 * M * 2 * ff, dtype=f32, device=dev) if ks1 > 1 else None
@@ -131,10 +210,14 @@ def _launch(x: torch.Tensor, w_gu: QTensor, w_down: QTensor) -> torch.Tensor:
                         sd.data_ptr(), None if part1 is None else part1.data_ptr(),
                         mid.data_ptr(), None if part2 is None else part2.data_ptr(),
                         out.data_ptr(), ws.data_ptr(), M, K, ff, C, ks1, ks2, bm,
-                        torch.cuda.current_stream(dev).cuda_stream)
+                        first, n, workers, torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(rc, "mlp_i8t")
     kernels.count("mlp_i8t", (K, C))
-    return out
+    return out, mid
+
+
+def _launch(x: torch.Tensor, w_gu: QTensor, w_down: QTensor) -> torch.Tensor:
+    return _run(x, w_gu, w_down)[0]
 
 
 def qmm_mlp_i8t(x: torch.Tensor, w_gu: QTensor, w_down: QTensor) -> torch.Tensor:

@@ -22,7 +22,9 @@ of ``csrc/probe_i8.cu``:
   ``"reorder"``: row r of K block b of ``bk`` rows takes scale row
   b·bk/32 + r % (bk/32); ``"tile"``: row k takes s[k % (K/32)]).  Group and
   tile scales may be f32, rounded to bf16 first.  int8 x: the exact integer
-  product, in i32 (``out_i32``) or converted to f32.
+  product, in i32 (``out_i32``) or converted to f32; against an N-major
+  weight it runs kernel E, ``s8mm_kernel`` (``wgmma``, one block a whole
+  tile of ``s8_rows`` rows), counted as ``probe_s8mm``.
 - ``i8mm_group`` (kernel C): per-group partial products over ``group`` (32
   or 128) rows of K, each (i32 for int8 x, f32 for bf16 x) times its group's
   scale (the row of its first 32 rows of a [K/32, N] plane, or [N, K/32]
@@ -55,6 +57,8 @@ _SIGNATURES = {
     "bt_probe_i8mm": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     "bt_probe_i8mm_group": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     "bt_probe_blocksum": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    "bt_probe_s8mm": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    "bt_probe_s8_smem": [ctypes.c_int],
 }
 BLOCK_ROWS = 1024  # rows per block of the column sums (the tools' BN)
 SUM_MODES = ("i32", "f32", "bf16")
@@ -63,6 +67,7 @@ SCALE_ROWS = 32  # rows of K per scale row (Q8_0's group)
 _CS_COLS, _CS_ROWS = 1024, 32  # a colsum block's columns and batch of rows (csrc/probe_i8.cu)
 _BM, _BN, _UNIT = 64, 128, 128  # the i8mm tile and its split unit of K rows
 _TARGET_BLOCKS = 264  # two blocks for each of the H100's 132 SMs
+_S8_ROWS = 128  # weight rows of the s8 kernel's tile (csrc/probe_i8.cu E)
 
 
 def _mm_form(x_i8: bool, n_major: bool, scale: str, s_f32: bool, out_i32: bool) -> int:
@@ -77,10 +82,10 @@ def _group_form(x_i8: bool, n_major: bool, s_f32: bool, group: int) -> int:
 
 
 # the forms the kernels are built for: (x_i8, n_major, scale, s_f32, out_i32)
-# and (x_i8, n_major, s_f32, group)
+# and (x_i8, n_major, s_f32, group); int8 x against an N-major weight is the
+# s8 kernel's (_s8mm)
 _MM_FORMS = {_mm_form(*f) for f in (
-    (False, True, "none", False, False), (True, True, "none", False, False),
-    (True, True, "none", False, True), (True, False, "none", False, True),
+    (False, True, "none", False, False), (True, False, "none", False, True),
     (False, False, "none", False, False), (False, False, "plane", False, False),
     (False, False, "group", False, False), (False, False, "reorder", False, False),
     (False, True, "group", True, False), (False, True, "tile", True, False),
@@ -116,6 +121,15 @@ def splits(M: int, K: int, N: int) -> int:
     of the shape alone, so every form at one shape runs one grid."""
     tiles = -(-M // _BM) * (N // _BN)
     return max(1, min(-(-_TARGET_BLOCKS // tiles), (K // _UNIT) // 2))
+
+
+def s8_rows(M: int) -> int:
+    """Rows of x a tile of the s8 kernel (int8 x against an N-major weight):
+    the least of 8, 16, 32 and 64 that holds M, 64 above.  The kernel runs
+    one block a tile over all of K (on the H100 every split of K measured
+    slower than whole tiles); its ring and shared memory follow from these
+    rows in csrc/probe_i8.cu (S8Cfg, ``bt_probe_s8_smem``)."""
+    return next((b for b in (8, 16, 32) if M <= b), 64)
 
 
 # -- plain versions ----------------------------------------------------------
@@ -282,6 +296,8 @@ def i8mm(x: torch.Tensor, q: torch.Tensor, n_major: bool = False,
     M, K = x.shape
     N = _check_q(q, K, n_major, "i8mm")
     x_i8 = x.dtype == torch.int8
+    if x_i8 and n_major and scale == "none":
+        return _s8mm(x, q, M, K, N, out_i32)
     if scale not in SCALES:
         raise ValueError(f"scale {scale!r}: one of {SCALES}")
     s_f32 = s is not None and s.dtype == torch.float32
@@ -313,6 +329,23 @@ def i8mm(x: torch.Tensor, q: torch.Tensor, n_major: bool = False,
     kernels.check(rc, "probe_i8mm")
     kernels.count("probe_i8mm", (f"{'i8' if x_i8 else 'bf16'}.{'n' if n_major else 'k'}.{scale}"
                                  f"{'.f32' if s_f32 else ''}{'.i32' if out_i32 else ''}", K, N))
+    return out
+
+
+def _s8mm(x: torch.Tensor, q: torch.Tensor, M: int, K: int, N: int,
+          out_i32: bool) -> torch.Tensor:
+    """int8 x @ the N-major int8 q^T on csrc/probe_i8.cu's s8mm_kernel."""
+    if N % _S8_ROWS or K % 128:
+        raise NotImplementedError(f"i8mm kernel: N = {N}, K = {K}: not ported yet "
+                                  "(multiples of 128)")
+    if q.device != x.device:
+        raise ValueError("i8mm kernel: all operands must be on one device")
+    out = torch.empty(M, N, dtype=torch.int32 if out_i32 else torch.float32, device=x.device)
+    lib = kernels.library("probe_i8", _SIGNATURES)
+    rc = lib.bt_probe_s8mm(x.data_ptr(), q.data_ptr(), out.data_ptr(), M, K, N, s8_rows(M),
+                           int(out_i32), stream(x))
+    kernels.check(rc, "probe_s8mm")
+    kernels.count("probe_s8mm", (f"i8.n.none{'.i32' if out_i32 else ''}", K, N))
     return out
 
 

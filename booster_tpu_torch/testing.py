@@ -1043,3 +1043,64 @@ def qmm_i8k_mutants(x: torch.Tensor, w: QTensor, stages: tuple[int, int]) -> dic
     xd[:, stages[0] * _I8K_STAGE:stages[1] * _I8K_STAGE] = 0
     out["one K split's partial dropped"] = (xd, w)
     return out
+
+
+def s8mm_stages(x: torch.Tensor, q: torch.Tensor, out_i32: bool = True,
+                drop: Optional[int] = None) -> torch.Tensor:
+    """What csrc/probe_i8.cu's s8mm_kernel computes for ``probes.i8mm(x, q,
+    n_major=True, out_i32=out_i32)``, in plain torch: each block's tile
+    summed over the stages of 128 bytes of K in order, exactly (float64
+    holds every partial sum); `drop`: a stage left out, a wrong kernel that
+    loses one stage of its ring."""
+    K = x.shape[1]
+    xd, qd = x.double(), q.double()
+    y = torch.zeros(x.shape[0], q.shape[0], dtype=torch.float64, device=x.device)
+    for st in range(K // 128):
+        if st != drop:
+            y += xd[:, st * 128:(st + 1) * 128] @ qd[:, st * 128:(st + 1) * 128].t()
+    y = y.to(torch.int32)
+    return y if out_i32 else y.float()
+
+
+def mlp_queue_sim(plan: dict, items: list, workers: int, sms: int = 132) -> dict:
+    """The whole MLP's queue (``ops.mlp.mlp_schedule``) as `workers` blocks
+    would take it, in plain Python (tests only): a free block takes the next
+    item; an item streams for as long as its bytes (``ops.mlp.item_bytes``:
+    one unit of time a byte, every block alike); a down item starts once the
+    gate-up items of its split's pairs have ended.  Block w sits on SM w %
+    `sms`.  Returns each SM's bytes and the time the last item ends."""
+    import heapq
+
+    from booster_tpu_torch.ops.mlp import item_bytes, pairs_of_split, split_of_pair
+
+    nA, ks1, mt = plan["nA"], plan["ks1"], plan["mtiles"]
+    # a split's readiness: the end of its pairs' last gate-up item, per M tile
+    left = {}
+    for s in range(plan["ks2"]):
+        for m in range(mt):
+            left[(s, m)] = len(pairs_of_split(plan, s)) * ks1
+    ready = {}
+    free = [(0.0, w) for w in range(workers)]
+    heapq.heapify(free)
+    sm_bytes = [0] * sms
+    end = 0.0
+    for it in items:
+        t, w = heapq.heappop(free)
+        if it < nA:
+            m = it % mt
+            fj = it // mt // ks1
+            stop = t + item_bytes(plan, it)
+            key = (split_of_pair(plan, fj), m)
+            left[key] -= 1
+            ready[key] = max(ready.get(key, 0.0), stop)
+        else:
+            d = it - nA
+            m = d % mt
+            s = d // mt // plan["nC"]
+            if left[(s, m)]:
+                raise ValueError(f"down item {it} comes before the gate-up items it reads")
+            stop = max(t, ready[(s, m)]) + item_bytes(plan, it)
+        sm_bytes[w % sms] += item_bytes(plan, it)
+        end = max(end, stop)
+        heapq.heappush(free, (stop, w))
+    return {"sm_bytes": sm_bytes, "end": end}

@@ -63,7 +63,7 @@ def main(argv=None) -> dict:
     lad.rung("dot_i8", lambda: probes.i8mm(xi, qw, n_major=True),
              lambda: probes.i8mm_plain(xi, qw, n_major=True), qbytes,
              qbytes + bm * k + 4 * bm * n, 2 * bm * k * n, INT8_OPS_PER_S, exact=True,
-             kernel="probe_i8mm")
+             kernel="probe_s8mm")
     return lad.result()
 
 

@@ -65,7 +65,7 @@ def main(argv=None) -> dict:
         ("cast-only (no scales)", xb, lambda x: probes.i8mm(x, qw, n_major=True),
          lambda x: probes.i8mm_plain(x, qw, n_major=True), 0, "probe_i8mm"),
         ("int8 MXU dot (no dequant)", xq, lambda x: probes.i8mm(x, qw, n_major=True, out_i32=True),
-         lambda x: probes.i8mm_plain(x, qw, n_major=True, out_i32=True), 0, "probe_i8mm"),
+         lambda x: probes.i8mm_plain(x, qw, n_major=True, out_i32=True), 0, "probe_s8mm"),
         ("int8 group dots + acc scales", xq, lambda x: probes.i8mm_group(x, qw, s, n_major=True),
          lambda x: probes.i8mm_group_plain(x, qw, s, n_major=True), sbytes, "probe_i8mm_group"),
     ]

@@ -38,7 +38,8 @@ Phases, each printing one JSON line with its seconds:
    page 0 (offsets on a page boundary and past the table included).  Fused
    kernels are held against the unfused kernels bit for bit: the gate-ups
    against qmm + silu·mul, the MLP against the i8t gate-up (its dequant
-   form) + silu·mul + the dequant matmul.  Each attention check must see the
+   form) + silu·mul + the dequant matmul, timed beside it (unfused_ms), its
+   workspace zero after the launch.  Each attention check must see the
    wrong kernels of booster_tpu_torch.testing (a dropped self term, a missed
    last column, a column read past the end, ignored v scales, and at head
    dim 128 ignored lanes 64-127; for the paged kernel the table ignored, a
@@ -88,8 +89,10 @@ Phases, each printing one JSON line with its seconds:
    qmm_gap.py and qmm_probe.py through its kernel in csrc/probe_i8.cu
    (column sums; the int8-weight dot, K-major or N-major, bf16 or int8 x,
    with no scale, a scale plane, group scales or v5's reordered ones; its
-   per-group rescale form) against its plain version at the tools' full
-   shapes: exact for the column sums and the integer dots, within
+   per-group rescale form; the int8 x int8 N-major dot on wgmma, also at
+   M = 8 and 100, where a lost stage of K must be seen) against its plain
+   version at the tools' full shapes: exact for the column sums and the
+   integer dots, within
    CHECKS["qmm"] for the others, and each wrong kernel (a neighbour
    column's sum, the weight read in the other layout, a neighbour group's
    scale, v5 read as v3, v7's groups taken as 32, the rescale dropped) 8x
@@ -1248,6 +1251,7 @@ def _i8t_kernels(entries: list, failures: list) -> None:
     from booster_tpu_torch.ops import qmm as tq
     from booster_tpu_torch.quant.qtensor import dequantize
     from booster_tpu_torch.testing import qmm_i8k_mutants
+    from booster_tpu_torch.tools.mlp_sched import unfused as mlp_unfused
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
@@ -1372,6 +1376,9 @@ def _i8t_kernels(entries: list, failures: list) -> None:
             failures.append(f"qmm_i8t_gateup_dq M={M}: fused != qmm_i8t (dq) + silu·mul")
         if not torch.equal(got, tq.qmm_i8t(mid, wd, dq=True).to(bf)):
             failures.append(f"mlp_i8t M={M}: != gate-up + silu·mul + qmm_i8t (dq)")
+        torch.cuda.synchronize()
+        if int(tq._tickets[x.device].abs().sum()):
+            failures.append(f"mlp_i8t M={M}: its workspace is not zero after the launch")
         b_ms, b_by = bound(sbytes(C, 2 * ff) + sbytes(ff, C) + M * C * 2 + M * C * 2,
                            2 * M * C * 2 * ff + 2 * M * ff * C)
         entries.append({
@@ -1383,8 +1390,9 @@ def _i8t_kernels(entries: list, failures: list) -> None:
             "max_abs_err": float(d.max()), "ms": timed(lambda: tm.qmm_mlp_i8t(x, wg, wd)),
             "warm_ms": timed(lambda: tm.qmm_mlp_i8t(x, wg, wd), cold=False),
             "plain_ms": timed(lambda: tm.qmm_mlp_plain(x, wg, wd), reps=3, trials=3),
+            "unfused_ms": timed(lambda: mlp_unfused(x, wg, wd)),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "check": CHECKS["mlp"] + "; equal to the gate-up + qmm_i8t (dq)"})
+            "check": CHECKS["mlp"] + "; equal to the gate-up + qmm_i8t (dq); workspace zero"})
         del x, got, want, d, g, mid
     del weights, gu, down, wg, wd, w
     torch.cuda.empty_cache()
@@ -1943,6 +1951,7 @@ PROBE_REPLACES = {
 }
 # each probe kernel's source
 PROBE_SOURCES = {"probe_colsum": "probe_i8.cu", "probe_i8mm": "probe_i8.cu",
+                 "probe_s8mm": "probe_i8.cu",
                  "probe_i8mm_group": "probe_i8.cu", "probe_blocksum": "probe_i8.cu",
                  "probe_expand": "probe_i4.cu", "probe_nibble": "probe_i4.cu",
                  "probe_i4mm": "probe_i4.cu", "probe_gd": "probe_i4.cu",
@@ -2025,7 +2034,42 @@ def _cast_cases(gen) -> list:
                       {"weight read K-major": lambda x=x: pr.i8mm_plain(x, q.view(K, N))},
                       lib, N * K + M * K * (1 if i8 else 2) + 4 * M * N, 2 * M * N * K,
                       INT8_OPS_PER_S if i8 else BF16_OPS_PER_S,
-                      ("probe_i8mm", (f"{'i8' if i8 else 'bf16'}.n.none", K, N))))
+                      ("probe_s8mm" if i8 else "probe_i8mm",
+                       (f"{'i8' if i8 else 'bf16'}.n.none", K, N))))
+    return cases
+
+
+def _s8_cases(gen) -> list:
+    """E (the s8 kernel) at the probes' small M = 8 and a ragged M = 100, at
+    v_dot_only's [11264, 2048] (i32) and k_dot_i8's [11264, 4096] (f32):
+    exact, and a kernel that lost a stage of K (its last, testing.s8mm_stages)
+    or read the weight K-major must land past 8x the qmm limit."""
+    import torch
+
+    from booster_tpu_torch.ops import probes as pr
+    from booster_tpu_torch.testing import s8mm_stages
+    from booster_tpu_torch.tools.timing import INT8_OPS_PER_S
+
+    ints, _, _ = _probe_inputs(gen)
+    N = 11264
+    cases = []
+    for fn, K, i32 in (("v_dot_only", 2048, True), ("k_dot_i8", 4096, False)):
+        q = ints(N, K)
+        for M in (8, 100):
+            x = ints(M, K)
+            cases.append(((fn,), f"int8 x [{M},{K}] @ q [{N},{K}]^T -> {'i32' if i32 else 'f32'}",
+                          lambda x=x, q=q, i32=i32: pr.i8mm(x, q, n_major=True, out_i32=i32),
+                          lambda x=x, q=q, i32=i32: pr.i8mm_plain(x, q, n_major=True,
+                                                                  out_i32=i32), True,
+                          {"weight read K-major": lambda x=x, q=q, i32=i32, K=K: pr.i8mm_plain(
+                              x, q.view(K, N), out_i32=i32),
+                           "a stage of K dropped": lambda x=x, q=q, i32=i32, K=K: s8mm_stages(
+                               x, q, i32, drop=K // 128 - 1)},
+                          (lambda x=x, q=q: torch._int_mm(x, q.t())) if i32 and M > 16 else
+                          "torch._int_mm takes more than 16 rows" if i32 else
+                          "no one torch call (the i32 product, then f32)",
+                          N * K + M * K + 4 * M * N, 2 * M * N * K, INT8_OPS_PER_S,
+                          ("probe_s8mm", (f"i8.n.none{'.i32' if i32 else ''}", K, N))))
     return cases
 
 
@@ -2142,7 +2186,7 @@ def _qmm_probe_cases(gen) -> list:
          lambda: mmp(xq, q, n_major=True, out_i32=True), True,
          {"weight read K-major": lambda: mmp(xq, q.view(K, N), out_i32=True)},
          lambda: torch._int_mm(xq, q.t()), base + M * K, ops, INT8_OPS_PER_S,
-         ("probe_i8mm", ("i8.n.none.i32", K, N))),
+         ("probe_s8mm", ("i8.n.none.i32", K, N))),
         (("v_group_dots",), "int8 x, groups of 32: i32 dots * s (f32)",
          lambda: gm(xq, q, s, n_major=True), lambda: gmp(xq, q, s, n_major=True), False,
          {"rescale dropped": lambda: gmp(xq, q, torch.ones_like(s), n_major=True),
@@ -2489,7 +2533,7 @@ def phase_probes(entries: list) -> dict:
     # kernels {name: plain call}, library call or the reason there is none,
     # bytes, operations, their rate, the kernel's count key); the inputs of
     # one tool at a time live on the card
-    for cases in (_colsum_cases, _cast_cases, _mmq_cases, _gap_cases, _qmm_probe_cases,
+    for cases in (_colsum_cases, _cast_cases, _s8_cases, _mmq_cases, _gap_cases, _qmm_probe_cases,
                   _expander_cases, _tqmm_cases, _nibble_cases, _groupdot_cases):
         for case in cases(gen):
             _probe_check(case, entries, keys, failures)

@@ -915,3 +915,72 @@ def test_probe_i4_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         probes.i8mm(x, qk, s=_probe_scales(gen, "group", torch.float32, 384, 256, False),
                     scale="tile")
 
+
+
+# -- the s8 probe kernel and the whole MLP's queue (mlp_i8t.cu) ------------------
+
+@pytest.mark.parametrize("m,k,n", [(8, 2048, 17024), (100, 2048, 1152), (33, 512, 384),
+                                   (3, 384, 256), (64, 2048, 11264)])
+@pytest.mark.parametrize("out_i32", [True, False])
+def test_probe_s8mm_kernel_is_exact(cuda, m, k, n, out_i32):
+    """The s8 kernel (int8 x against an N-major weight) equals the plain
+    version bit for bit at the tiles of 8 to 64 rows, ragged M and 133
+    column tiles; a second launch repeats the bits; it counts as
+    probe_s8mm and no other."""
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    x, q = _probe_operands(gen, m, k, n, True, True)
+    kernels.reset_counts()
+    got = probes.i8mm(x, q, n_major=True, out_i32=out_i32)
+    want = probes.i8mm_plain(x, q, n_major=True, out_i32=out_i32)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    assert torch.equal(probes.i8mm(x, q, n_major=True, out_i32=out_i32), got)
+    assert {k: v for k, v in kernels.launch_counts.items() if v} == {"probe_s8mm": 2}
+
+
+def test_probe_s8_shared_memory_fits_two_blocks_an_sm(cuda):
+    """The s8 kernel's shared memory, as the library reports it for the tile
+    rows of every tool shape (s8_rows of M = 8, 64, 100 and the 16 and 32 of
+    the tests' shapes), fits one block (227 KB) and two blocks an SM with
+    their 1 KB of reserved shared memory each (228 KB); other rows are
+    refused."""
+    lib = kernels.library("probe_i8", probes._SIGNATURES)
+    props = torch.cuda.get_device_properties(0)
+    per_block = getattr(props, "shared_memory_per_block_optin", 232448)
+    per_sm = getattr(props, "shared_memory_per_multiprocessor", 233472)
+    for m in (8, 16, 32, 64, 100):
+        smem = lib.bt_probe_s8_smem(probes.s8_rows(m))
+        assert 0 < smem <= min(per_block, 232448)
+        assert 2 * (smem + 1024) <= min(per_sm, 233472)
+    assert lib.bt_probe_s8_smem(128) == -1
+
+
+def test_mlp_workspace_size_matches_its_mirror(cuda):
+    lib = kernels.library("mlp_i8t", tm._SIGNATURES)
+    for M, ff, C, bm in ((1, 14336, 4096, 16), (64, 14336, 4096, 64), (100, 5632, 2048, 128)):
+        assert lib.bt_mlp_i8t_ws_ints(M, ff, C, bm) == tm.mlp_ws_ints(M, ff, C, bm)
+
+
+@pytest.mark.parametrize("m", [1, 16, 64, 100])
+def test_mlp_i8t_equal_on_any_block_count_and_in_parts(cuda, m):
+    """The whole MLP gives the same bits on 1, 7, 132 and 396 blocks (three
+    an SM) as on the library's two an SM; its gate-up items alone (ids [0,
+    nA)) write the mid that the down items alone (ids [nA, nA + nD), no
+    waits) turn into the same out; the workspace is zero after each
+    launch."""
+    gen = torch.Generator(device="cuda").manual_seed(44)
+    wgu, wd = _w8(1, 512, 2048, gen).at(0), _w8(1, 1024, 384, gen).at(0)
+    x = torch.randn(m, 512, device="cuda", generator=gen).to(torch.bfloat16)
+    want = tm.qmm_mlp_i8t(x, wgu, wd)
+    plan = tm.mlp_plan(m, 512, 1024, 384)
+    for workers in (1, 7, 132, 396):
+        out, _ = tm._run(x, wgu, wd, workers=workers)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+        assert int(tq._tickets[x.device].abs().sum()) == 0
+    nA, nD = plan["nA"], plan["nD"]
+    _, mid = tm._run(x, wgu, wd, 0, nA)
+    out, _ = tm._run(x, wgu, wd, nA, nD, mid=mid)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    assert int(tq._tickets[x.device].abs().sum()) == 0
