@@ -3,8 +3,8 @@
 //     pack_bf16x2: the tensor-core rings (qmm_ring.cuh, attn_mma.cuh) and
 //     probe_i8.cu;
 //   - arrive_last and sum_splits: the last block of a K split's tickets
-//     (qmm_i8t.cu's and qmm_i8c.cu's M = 1 kernels, qmm_ring.cuh,
-//     i8k_tile.cuh, the probes);
+//     (qmm_i4t.cu's M = 1 kernel, qmm_lane.cu, decode_attn.cu,
+//     qmm_ring.cuh, i8k_tile.cuh, the probes);
 //   - Smem, mma_stage and for_tile: a 64 x 128 tile of 8 warps (2 along M x 4
 //     along N, each 32 x 32) over 64-row stages of K in shared memory (x
 //     [64 m][64 k] and w [64 k][128 n], padded rows), which probe_i4.cu's

@@ -48,7 +48,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # _gd is the M = 1 group-dot form, _dq the M > 1 dequantize form, _i8 the
 # int8-cache form, _layer the per-layer T = 1 append, paged_ the paged-pool
 # forms, moe_ the grouped (routed expert) form of the lane-major matmul; the
-# i8c matmul's _mv is its M = 1 split-K matvec, _mm its M > 1 tensor-core form;
+# i8c matmul's _mv is its M = 1 streaming matvec, _mm its M > 1 tensor-core form;
 # probe_ the probe tools' kernels (ops/probes.py, ops/probes_i4.py), on no
 # serving path, and probe_qmm_i4t_ the serving path's i4t kernel launched by
 # a probe tool

@@ -10,9 +10,10 @@ i8t (Q8_0 at group 32, Q6_K at group 16), those of ``csrc/qmm_i8t.cu``
 ``_gateup_i4_kernel``, ``_gateup_i8_gd_kernel`` / ``_gateup_i8_kernel``).
 The M > 1 tiles take their rows per block and K splits from ``i4t_plan``
 (i4t), ``lane_plan`` (lane-major) and ``i8k_plan`` (i8t and i8c, whose tile
-is ``csrc/i8k_tile.cuh``), functions of the shapes only, so a CUDA graph
-replays the same sum order and the fused gate-up splits as the matmul on
-its weight does.
+is ``csrc/i8k_tile.cuh``), and the i8t and i8c matvecs at M = 1 (the
+streaming block of ``csrc/i8mv.cuh``) their K splits from ``mv_plan``:
+functions of the shapes only, so a CUDA graph replays the same sum order
+and the fused gate-up splits as the matmul on its weight does.
 ``qmm_plain`` and ``qmm_gateup_plain`` are the same functions in plain
 torch, with the same rounding points; a wrapper uses them only for tensors
 on the CPU.  Lane-major weights that the reference's ``_supported`` takes
@@ -53,15 +54,15 @@ _SIGNATURES = {
     "bt_qmm_i4t_mm": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
 }
 _I8_SIGNATURES = {
-    "bt_qmm_i8t_gd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
-    "bt_qmm_i8t_gd_splits": [ctypes.c_int] * 2,
+    "bt_qmm_i8t_gd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     "bt_qmm_i8t_dq": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
 }
 _I8C_SIGNATURES = {
-    "bt_qmm_i8c_mv": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+    "bt_qmm_i8c_mv": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     "bt_qmm_i8c_mm": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
 }
-_I8C_MV_ROWS = 256  # rows of K per block of the M = 1 kernel (kMvRows in qmm_i8c.cu)
+_MV_I8C_ROWS = 32  # rows of K of an i8c chunk of csrc/i8mv.cuh (kI8cRows; i8t: the group)
+_MV_WARPS = 8  # warps of a block of csrc/i8mv.cuh (kWarps)
 _LANE_SIGNATURES = {
     "bt_qmm_lane": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
 }
@@ -75,7 +76,7 @@ _MAX_SPLITS = 8  # a tile's K splits run as one thread-block cluster (portable s
 # block of a column tile, or of a split decode attention's (slot, kv head),
 # resets its ticket, so the buffer stays zero between launches on one stream)
 _tickets: dict = {}
-# (library, K, G) → the M = 1 kernels' K splits, asked of the library once
+# (library, K, G) → qmm_i4t.cu M = 1 kernel's K splits, asked of the library once
 _splits: dict = {}
 
 
@@ -108,6 +109,27 @@ def i8k_plan(M: int, K: int, N: int) -> tuple[int, int]:
     if 8 * ks * M > K:  # no more splits than one block an SM needs
         ks = min(ks, 1 << (-(-_SMS // tiles) - 1).bit_length())
     return bm, ks
+
+
+def mv_plan(K: int, N: int, G: int) -> int:
+    """K splits of csrc/i8mv.cuh, the M = 1 matvec of i8t (group G, the
+    group-dot form) and i8c (G = 0), for y [1, N] = x [1, K] @ W: a block of
+    8 warps takes a 128-column tile over one split of K, each warp chunks of
+    R rows (G, or 32 for i8c), and a tile's splits run as one thread-block
+    cluster (at most 8).  As many splits as give the tiles about 1.5 blocks
+    an SM (measured best on the path shapes, PERF.md §6), each split
+    at least a chunk a warp.  The matvec and the fused gate-up on one [K,
+    2ff] weight take this function of the shapes alone, so they add alike
+    and agree bit for bit."""
+    tiles = N // _TILE_N
+    chunks = K // mv_chunk_rows(G)
+    return max(1, min(_MAX_SPLITS, int(1.5 * _SMS / tiles + 0.5), chunks // _MV_WARPS))
+
+
+def mv_chunk_rows(G: int) -> int:
+    """Rows of K of a warp's chunk in csrc/i8mv.cuh: the group G (i8t), or
+    32 (i8c, G = 0)."""
+    return G or _MV_I8C_ROWS
 
 
 def _pow2_floor(n: int) -> int:
@@ -486,16 +508,13 @@ def _launch_i8t(x: torch.Tensor, w: QTensor, gateup: bool, dq: bool) -> torch.Te
         raise NotImplementedError(f"qmm_i8t gate-up kernel: ff = {N // 2}: not ported yet "
                                   "(a multiple of 128)")
     if gd:
-        splits = _splits.get(("qmm_i8t", K, G))
-        if splits is None:
-            splits = _splits[("qmm_i8t", K, G)] = lib.bt_qmm_i8t_gd_splits(K, G)
+        if w.qw.data_ptr() % 16 or s3.data_ptr() % 16:
+            raise ValueError("qmm_i8t kernel at M = 1: payload and scales must lie on 16 bytes")
         out = torch.empty(1, N // 2 if gateup else N, device=dev,
                           dtype=torch.bfloat16 if gateup else torch.float32)
-        part = torch.empty(splits * N, dtype=torch.float32, device=dev) if splits > 1 else None
         rc = lib.bt_qmm_i8t_gd(x.data_ptr(), w.qw.data_ptr(), s3.data_ptr(), out.data_ptr(),
-                               None if part is None else part.data_ptr(),
-                               _ticket_buffer(dev, N // 128).data_ptr(), K, N, G,
-                               int(s3.shape[0] == 2), int(gateup), stream)
+                               K, N, G, int(s3.shape[0] == 2), int(gateup), mv_plan(K, N, G),
+                               stream)
         name = "qmm_i8t_gateup_gd" if gateup else "qmm_i8t_gd"
         kernels.check(rc, name)
         kernels.count(name, (K, N))
@@ -534,11 +553,10 @@ def _launch_i8c(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     stream = torch.cuda.current_stream(dev).cuda_stream
     out = torch.empty(M, N, device=dev, dtype=torch.float32)
     if M == 1:
-        splits = K // _I8C_MV_ROWS
-        part = torch.empty(splits * N, dtype=torch.float32, device=dev) if splits > 1 else None
+        if w.qw.data_ptr() % 16:
+            raise ValueError("qmm_i8c kernel at M = 1: the payload must lie on 16 bytes")
         rc = lib.bt_qmm_i8c_mv(x.data_ptr(), w.qw.data_ptr(), s.data_ptr(), out.data_ptr(),
-                               None if part is None else part.data_ptr(),
-                               _ticket_buffer(dev, N // 128).data_ptr(), K, N, stream)
+                               K, N, mv_plan(K, N, 0), stream)
         name = "qmm_i8c_mv"
     else:
         bm, ks = i8k_plan(M, K, N)
@@ -656,7 +674,7 @@ def qmm_i8t_gateup(x: torch.Tensor, w: QTensor) -> torch.Tensor:
 
 def qmm_i8c(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     """Kernel-level entry for i8c: x [M, K] bf16 @ W^T → [M, N] f32, the
-    split-K matvec at M = 1 and the tensor-core tile above (the plain
+    streaming matvec at M = 1 and the tensor-core tile above (the plain
     version for CPU tensors, the kernel for CUDA tensors)."""
     if x.device.type == "cpu":
         return qmm_i8c_plain(x, w)

@@ -25,7 +25,8 @@ wrong appends would leave in the cache.  ``qmm_i4t_split`` and
 ``qmm_lane_split`` compute in plain torch what the i4t M > 1 and the
 lane-major matmul kernels compute (their K splits and k16 steps), and
 ``qmm_i4t_mutants`` / ``qmm_lane_mutants`` the inputs on which the plain
-versions compute what wrong matmul kernels would.
+versions compute what wrong matmul kernels would; ``qmm_mv_split`` and
+``qmm_mv_mutants`` do the same for the M = 1 int8 matvec of csrc/i8mv.cuh.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ from booster_tpu_torch.ops.kv_append import kv_append_layer_plain
 from booster_tpu_torch.ops.kv_cache import _quantize_kv
 from booster_tpu_torch.ops.paged_attention import paged_attn_plain
 from booster_tpu_torch.ops.prefill_attention import prefill_attn_plain
-from booster_tpu_torch.ops.qmm import lane_dequant
+from booster_tpu_torch.ops.qmm import _MV_WARPS, lane_dequant, mv_chunk_rows, mv_plan
 from booster_tpu_torch.quant import quantize
 from booster_tpu_torch.quant.qtensor import QTensor, kernel_scales
 from booster_tpu_torch.tokenizer.bpe import gpt2_split
@@ -1042,6 +1043,104 @@ def qmm_i8k_mutants(x: torch.Tensor, w: QTensor, stages: tuple[int, int]) -> dic
     xd = x.clone()
     xd[:, stages[0] * _I8K_STAGE:stages[1] * _I8K_STAGE] = 0
     out["one K split's partial dropped"] = (xd, w)
+    return out
+
+
+def mv_chunks(K: int, N: int, G: int) -> list[list[list[int]]]:
+    """The first rows of the chunks each warp of ``ops.qmm.mv_plan(K, N,
+    G)``'s launch of csrc/i8mv.cuh takes, per split and warp, in the order it
+    adds them: split s's chunks [s·nc/KS, (s+1)·nc/KS) of nc = K/R (spread
+    evenly), dealt to the 8 warps in turn (i8mv.cuh split_chunks)."""
+    ks, r = mv_plan(K, N, G), mv_chunk_rows(G)
+    nc = K // r
+    return [[[c * r for c in range(s * nc // ks + w, (s + 1) * nc // ks, _MV_WARPS)]
+             for w in range(_MV_WARPS)] for s in range(ks)]
+
+
+def qmm_mv_split(x: torch.Tensor, w: QTensor, drop: Optional[int] = None) -> torch.Tensor:
+    """What csrc/i8mv.cuh computes for ``qmm_i8t(x, w)`` (i8t at M = 1, the
+    group-dot form) or ``qmm_i8c(x, w)`` (i8c at M = 1), in plain torch (CPU;
+    tests only).  Each warp of each K split (``mv_chunks``) sums its
+    chunks in turn (i8c: one f32 dot of bf16(x) with q over their rows; i8t:
+    each group's p, the f32 dot, times f32(bf16 s), less f32(bf16 m)·xs with
+    mins, added in chunk order); a split adds its 8 warps in order and the
+    KS splits add in split order from zero, split `drop` left out (a wrong
+    kernel's sum); i8c then scales each column."""
+    w = w.resolved()
+    K = x.shape[1]
+    N = w.shape[0]
+    i8c = w.kind == "i8c"
+    G = 0 if i8c else w.group
+    r = mv_chunk_rows(G)
+    xb = x.to(torch.bfloat16).float()[0]
+    q = w.qw.float()
+    if not i8c:
+        s3, has_mins = kernel_scales(w)
+        sf = s3.to(torch.bfloat16).float()
+    y = torch.zeros(N, device=x.device)
+    for s, warps in enumerate(mv_chunks(K, N, G)):
+        ys = torch.zeros_like(y)
+        for starts in warps:
+            acc = torch.zeros_like(y)
+            if i8c and starts:
+                rows = torch.cat([torch.arange(k, k + r) for k in starts])
+                acc = xb[rows] @ q[rows]
+            for k in ([] if i8c else starts):
+                p = xb[k:k + r] @ q[k:k + r]
+                c = sf[0, k // r] * p
+                if has_mins:
+                    c = c - sf[1, k // r] * xb[k:k + r].sum()
+                acc = acc + c
+            ys = ys + acc
+        if s != drop:
+            y = y + ys
+    y = y.reshape(1, N)
+    return y * w.scales.float() if i8c else y
+
+
+def qmm_mv_mutants(x: torch.Tensor, w: QTensor) -> dict:
+    """(x, w) pairs on which the plain version (``qmm_plain`` for i8t,
+    ``qmm_i8c_plain`` for i8c) computes what a wrong kernel of
+    csrc/i8mv.cuh would at M = 1: a neighbour column's scale; for i8t each
+    group's scale row from the next group, the group read as the other one
+    (16 as 32, 32 as 16) and, with mins, the mins dropped; for i8c the
+    rescale dropped; the last K split's partial left out (x zero over its
+    rows; where the plan has one split, the last warp's chunks); and one
+    chunk left out (the first of the last split's last warp)."""
+    w = w.resolved()
+    K = x.shape[1]
+    N = w.shape[0]
+    out = {"a neighbour column's scale": (x, dataclasses.replace(
+        w, scales=torch.roll(w.scales, 1, -1)))}
+    if w.kind == "i8c":
+        G = 0
+        out["rescale dropped"] = (x, dataclasses.replace(w, scales=torch.ones_like(w.scales)))
+    else:
+        G, s = w.group, w.scales
+        out["scale rows from the next group"] = (x, dataclasses.replace(
+            w, scales=torch.roll(s, -1, -2)))
+        if G == 16:
+            out["group 16 scales read as 32"] = (x, dataclasses.replace(
+                w, group=32, scales=s[..., :K // 32, :].contiguous()))
+        else:
+            out["group 32 scales read as 16"] = (x, dataclasses.replace(
+                w, group=16, scales=torch.cat([s, torch.zeros_like(s)], -2)))
+        if kernel_scales(w)[1]:
+            out["mins dropped"] = (x, dataclasses.replace(w, scales=s[:1].contiguous()))
+    r = mv_chunk_rows(G)
+    last = mv_chunks(K, N, G)[-1]
+    warp = [c for c in last if c][-1]  # the last warp that holds chunks
+    xd = x.clone()
+    if len(mv_chunks(K, N, G)) > 1:
+        xd[:, min(min(c) for c in last if c):] = 0
+        out["one K split's partial dropped"] = (xd, w)
+    else:
+        for k in warp:
+            xd[:, k:k + r] = 0
+        out["one warp's chunks dropped"] = (xd, w)
+    xc = x.clone()
+    xc[:, warp[0]:warp[0] + r] = 0
+    out["one chunk dropped"] = (xc, w)
     return out
 
 

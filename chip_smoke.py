@@ -27,7 +27,8 @@ Phases, each printing one JSON line with its seconds:
    T = 16 and the batch phase's T = 32), and the Mistral-7B layout of config
    3 (32 layers, 8 kv heads of 4 query heads, head dim 128 filling every
    cache lane: the same attention kernels and appends, prefill at T = 32;
-   the i8t matmul at M = 1 (group-dot) and M = 64 / 2048 (tensor-core
+   the i8t matmul at M = 1 (group-dot; also at TinyLlama's i8 widths,
+   generate_i8's qkv, wo and lm head) and M = 64 / 2048 (tensor-core
    dequant), the i8t gate-up at M = 2048 and the whole-MLP kernel at
    M = 1, 16 and 64 on a 32-layer stack through the layer view), and the
    paged kernels at the server phase's layout (the 7B model's 32 layers,
@@ -1237,10 +1238,12 @@ def _stacked_i8t(L, K, N, gen):
 def _i8t_kernels(entries: list, failures: list) -> None:
     """The Q8_0 kernels at config 3's shapes (hidden 4096, ff 14336, 32 heads
     over 8 kv heads of 128, vocab 32000): K7's group-dot form at M = 1 (qkv,
-    wo, lm head: generate_q8's decode), its dequant form at M = 64 (the same:
-    batch_q8's decode) and at M = 2048 (qkv, wo, down: batch_q8's prefill),
-    K8 at M = 2048 and K9 at M = 1, 16 and 64, on layer 31 of 32-layer
-    stacks.  K8 must equal K7-dq + silu·mul and K9 must equal the gate-up
+    wo, lm head: generate_q8's decode; and TinyLlama's qkv 2048 → 2560, wo
+    and lm head 2048 → 32000: generate_i8's), its dequant form at M = 64
+    (the same: batch_q8's decode) and at M = 2048 (qkv, wo, down: batch_q8's
+    prefill), K8 at M = 2048 and K9 at M = 1, 16 and 64, on layer 31 of
+    32-layer stacks.  The M = 1 rows must repeat bit for bit on a second
+    launch.  K8 must equal K7-dq + silu·mul and K9 must equal the gate-up
     (K7-dq, then silu·mul; K8 itself where M > 1) followed by K7-dq, bit for
     bit."""
     import dataclasses
@@ -1250,7 +1253,7 @@ def _i8t_kernels(entries: list, failures: list) -> None:
     from booster_tpu_torch.ops import mlp as tm
     from booster_tpu_torch.ops import qmm as tq
     from booster_tpu_torch.quant.qtensor import dequantize
-    from booster_tpu_torch.testing import qmm_i8k_mutants
+    from booster_tpu_torch.testing import qmm_i8k_mutants, qmm_mv_mutants
     from booster_tpu_torch.tools.mlp_sched import unfused as mlp_unfused
 
     gen = torch.Generator(device="cuda")
@@ -1272,21 +1275,28 @@ def _i8t_kernels(entries: list, failures: list) -> None:
 
     def last_split(M, K, N):  # stages of 64 rows that the launch's last K split covers
         nst = K // 64
-        if M == 1:  # the group-dot kernel: splits of 8 groups of 32 rows
-            return nst - 4, nst
-        plan = getattr(tq, "i8k_plan", None)  # a tree before the wgmma tile: dq_splits
-        ks = plan(M, K, N)[1] if plan else tq.dq_splits(M, K, N)
+        ks = tq.i8k_plan(M, K, N)[1]
         return (ks - 1) * nst // ks, nst
 
+    def mutants(x, w):  # the M = 1 matvec's splits and chunks, or the M > 1 tile's
+        if x.shape[0] == 1:
+            return qmm_mv_mutants(x, w)
+        return qmm_i8k_mutants(x, w, last_split(x.shape[0], w.shape[1], w.shape[0]))
+
+    # generate_i8's matvecs: TinyLlama's qkv, wo and lm head widened to Q8_0
+    tiny = {"TinyLlama qkv": _stacked_i8t(2, 2048, 2560, gen).at(1),
+            "TinyLlama wo": _stacked_i8t(2, 2048, 2048, gen).at(1),
+            "TinyLlama lm_head": _stacked_i8t(1, 2048, 32000, gen).at(0).resolved()}
     # K7: the matmul, group-dot at M = 1, dequant (tensor cores) above; the
     # M = 16 rows (generate_q8's prefill) timed with fewer repeats
     for M, labels, path in ((1, ("qkv", "wo", "lm_head"), "generate_q8"),
+                            (1, tuple(tiny), "generate_i8"),
                             (16, ("qkv", "wo"), "generate_q8"),
                             (64, ("qkv", "wo", "lm_head"), "batch_q8"),
                             (2048, ("qkv", "wo", "down"), "batch_q8")):
         trials = 3 if M == 16 else 5
         for label in labels:
-            w = weights[label]
+            w = tiny[label] if label in tiny else weights[label]
             N, K = w.shape
             x = x_of(M, K)
             got, want = tq.qmm_i8t(x, w), tq.qmm_plain(x, w)
@@ -1295,15 +1305,18 @@ def _i8t_kernels(entries: list, failures: list) -> None:
             name = "qmm_i8t_gd" if M == 1 else "qmm_i8t_dq"
             if not (d.max() <= limit and torch.isfinite(got).all()):
                 failures.append(f"{name} {label} M={M}: max err {float(d.max())}")
+            if M == 1 and not torch.equal(got, tq.qmm_i8t(x, w)):
+                failures.append(f"{name} {label} M={M}: a second launch differs")
             seen = {what: float((tq.qmm_plain(xm, wm) - want).abs().max()) / limit
-                    for what, (xm, wm) in qmm_i8k_mutants(x, w, last_split(M, K, N)).items()}
+                    for what, (xm, wm) in mutants(x, w).items()}
             for what, v in seen.items():
                 if v < 8:
                     failures.append(f"{name} {label} M={M}: the check cannot see {what} ({v})")
             deq = dequantize(w, bf)
             b_ms, b_by = bound(sbytes(K, N) + M * K * 2 + M * N * 4, 2 * M * K * N)
             entries.append({
-                "name": name, "shape": f"7B {label} M={M} K={K} N={N}",
+                "name": name, "shape": (label if label in tiny else f"7B {label}")
+                + f" M={M} K={K} N={N}",
                 "key": (name, (K, N)), "path": path, "route": "cuda", "source": src,
                 "replaces": "booster_tpu/ops/pallas_qmm.py:" + ("361" if M == 1 else "432"),
                 "host_us": host_us(lambda: tq.qmm_i8t(x, w), reps=50 if M == 16 else 200),
@@ -1316,6 +1329,7 @@ def _i8t_kernels(entries: list, failures: list) -> None:
                 "library": "torch.matmul on the dequantized bf16 weight",
                 "check": CHECKS["qmm"] + "; wrong kernels at 8x"})
             del x, got, want, d, deq
+    del tiny
     torch.cuda.empty_cache()
 
     # K8: the fused gate-up at the batch prefill's M = 2048
@@ -1415,20 +1429,22 @@ def _i8c_kernels(entries: list, failures: list) -> None:
     """The per-channel int8 matmul (csrc/qmm_i8c.cu) at the 7B shapes of
     weights="i8c" (qkv 4096 → 6144, wo 4096 → 4096, gate-up 4096 → 28672,
     down 14336 → 4096: layer 1 of 2-layer stacks, through the layer view;
-    the lm head 4096 → 32000, 2-D): the split-K matvec at M = 1
+    the lm head 4096 → 32000, 2-D): the streaming matvec at M = 1
     (generate_i8c's decode), the tensor-core form at M = 64 (batch_i8c's
     decode and the lm head of its prefill) and M = 2048 (batch_i8c's
     prefill).  Each is held against its plain version within 2e-4 of the
     largest output, and every wrong kernel (the rescale dropped, a
-    neighbour column's scale, the layer off by one, K rows [0, 256) dropped,
-    the payload read N-major) must move the plain output past 8x that
-    limit."""
+    neighbour column's scale, the layer off by one, the payload read
+    N-major; at M = 1 the matvec's last split (or last warp's chunks) and
+    one chunk dropped, above K rows [0, 256)) must move the plain output past 8x that
+    limit; a second launch must repeat the first bit for bit."""
     import dataclasses
 
     import torch
 
     from booster_tpu_torch.ops import qmm as tq
     from booster_tpu_torch.quant.qtensor import dequantize
+    from booster_tpu_torch.testing import qmm_mv_mutants
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(6)
@@ -1471,10 +1487,14 @@ def _i8c_kernels(entries: list, failures: list) -> None:
                 failures.append(f"{name} {label} M={M}: a second launch differs")
             seen = {what: float((tq.qmm_i8c_plain(x, m) - want).abs().max()) / limit
                     for what, m in mutants(label, w).items()}
-            x0 = x.clone()
-            x0[:, :256] = 0  # the partial sum of one matvec split missing
-            seen["K rows [0, 256) dropped"] = float(
-                (tq.qmm_i8c_plain(x0, w) - want).abs().max()) / limit
+            if M == 1:  # a split's or a chunk's sum missing (csrc/i8mv.cuh)
+                for what, (xm, wm) in qmm_mv_mutants(x, w).items():
+                    seen[what] = float((tq.qmm_i8c_plain(xm, wm) - want).abs().max()) / limit
+            else:
+                x0 = x.clone()
+                x0[:, :256] = 0  # the partial sum of the first rows missing
+                seen["K rows [0, 256) dropped"] = float(
+                    (tq.qmm_i8c_plain(x0, w) - want).abs().max()) / limit
             for what, v in seen.items():
                 if v < 8:
                     failures.append(f"{name} {label} M={M}: the check cannot see {what} "
@@ -1494,7 +1514,7 @@ def _i8c_kernels(entries: list, failures: list) -> None:
                 "library_ms": timed(lambda: torch.matmul(x, deq.t()), trials=trials),
                 "library": "torch.matmul on the dequantized bf16 weight",
                 "check": CHECKS["qmm"]})
-            del x, x0, got, want, deq
+            del x, got, want, deq
         torch.cuda.empty_cache()
     del stacks, weights
     torch.cuda.empty_cache()
@@ -1522,7 +1542,7 @@ def _q6k_kernels(entries: list, failures: list) -> None:
     from booster_tpu_torch.gguf import GGMLType
     from booster_tpu_torch.ops import qmm as tq
     from booster_tpu_torch.quant.qtensor import QTensor, dequantize
-    from booster_tpu_torch.testing import qmm_lane_mutants
+    from booster_tpu_torch.testing import qmm_lane_mutants, qmm_mv_mutants
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(9)
@@ -1568,8 +1588,13 @@ def _q6k_kernels(entries: list, failures: list) -> None:
         err = float((got - want).abs().max())
         if not (err <= limit and torch.isfinite(got).all()):
             failures.append(f"{name} G16 {label} M={M}: max err {err} over {limit}")
+        if M == 1 and not torch.equal(got, tq.qmm_i8t(x, w)):
+            failures.append(f"{name} G16 {label} M={M}: a second launch differs")
         seen = {what: float((tq.qmm_plain(x, m) - want).abs().max()) / limit
                 for what, m in qmm_mutants(w).items()}
+        if M == 1:  # the matvec's last split and one chunk dropped (csrc/i8mv.cuh)
+            seen |= {what: float((tq.qmm_plain(xm, wm) - want).abs().max()) / limit
+                     for what, (xm, wm) in qmm_mv_mutants(x, w).items()}
         for what, v in seen.items():
             if v < 8:
                 failures.append(f"{name} G16 {label} M={M}: the check cannot see {what} ({v})")

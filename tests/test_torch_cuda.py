@@ -375,6 +375,56 @@ def test_gateup_gd_kernel_equals_gd_then_silu_mul(cuda, group, mins, k, ff):
     assert (d <= 2 ** -7 * want.float().abs() + 1e-5 * want.float().abs().max()).all()
 
 
+_RAGGED_KN = [(1088, 384), (2112, 640), (64, 128), (5632, 2048), (768, 1152), (14336, 256)]
+
+
+@pytest.mark.parametrize("kind,k,n", [(kind, k, n) for kind in ("i8t G32", "i8t G16",
+                                                               "i8t G16 mins", "i8c")
+                                      for k, n in _RAGGED_KN if kind != "i8c" or k % 256 == 0])
+def test_matvec_at_ragged_n_and_k(cuda, kind, k, n):
+    """The M = 1 matvec (csrc/i8mv.cuh) at N not a multiple of 256 and K
+    not a power of two (splits of uneven whole chunks, some warps idle), through
+    its K splits, against the plain version; a second launch repeats it."""
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    if kind == "i8c":  # K a multiple of 256
+        w, kern, plain = _w8c(2, k, n, gen).at(1), tq.qmm_i8c, tq.qmm_i8c_plain
+    else:
+        w = _w8(2, k, n, gen, group=16 if "G16" in kind else 32, mins="mins" in kind).at(1)
+        kern, plain = tq.qmm_i8t, tq.qmm_plain
+    x = torch.randn(1, k, device="cuda", generator=gen).to(torch.bfloat16)
+    got, want = kern(x, w), plain(x, w)
+    assert (got - want).abs().max() <= 2e-4 * want.abs().max()
+    assert torch.equal(got, kern(x, w))
+
+
+@pytest.mark.parametrize("what", ["i8t", "i8t G16", "gateup", "i8c"])
+def test_matvec_repeats_across_graph_replays(cuda, what):
+    """The M = 1 matvec's cluster split sums give the same bits in eager
+    calls and CUDA-graph replays, and leave the shared ticket buffer zero
+    (they take none)."""
+    gen = torch.Generator(device="cuda").manual_seed(44)
+    x = torch.randn(1, 2048, device="cuda", generator=gen).to(torch.bfloat16)
+    tq._ticket_buffer(x.device, 1)
+    w = (_w8c(1, 2048, 2048, gen).at(0) if what == "i8c"
+         else _w8(1, 2048, 2048, gen, group=16 if what.endswith("G16") else 32).at(0))
+    assert tq.mv_plan(2048, 2048, 0 if what == "i8c" else w.group) > 1
+    kern = {"gateup": tq.qmm_i8t_gateup, "i8c": tq.qmm_i8c}.get(what, tq.qmm_i8t)
+    _replays_equal(lambda: kern(x, w))
+
+
+@pytest.mark.parametrize("group,mins,k,ff", [(16, False, 2048, 5504), (32, False, 4096, 1408),
+                                             (16, True, 1088, 640), (32, False, 64, 128)])
+def test_gateup_gd_kernel_equals_gd_at_ragged_shapes(cuda, group, mins, k, ff):
+    """The M = 1 fused gate-up stays the matvec on its fused weight +
+    silu·mul bit for bit where the plan splits K and leaves warps idle."""
+    gen = torch.Generator(device="cuda").manual_seed(45)
+    w = _w8(1, k, 2 * ff, gen, group=group, mins=mins).at(0)
+    x = torch.randn(1, k, device="cuda", generator=gen).to(torch.bfloat16)
+    got = tq.qmm_i8t_gateup(x, w)
+    gu = tq.qmm_i8t(x, w).to(torch.bfloat16)
+    assert torch.equal(got, tq.silu(gu[:, :ff]) * gu[:, ff:])
+
+
 @pytest.mark.parametrize("m", [1, 16, 64, 100])
 def test_mlp_i8t_kernel_equals_gateup_then_down(cuda, m):
     gen = torch.Generator(device="cuda").manual_seed(12)
