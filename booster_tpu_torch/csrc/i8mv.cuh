@@ -45,7 +45,8 @@
 //     runs the code of a gd block, so the gate-up equals gd_kernel on its
 //     fused weight + silu·mul bit for bit.
 // ops/qmm.py mv_plan gives KS from (K, N, G) alone: the gd matvec and the
-// gate-up on one fused weight take one plan.
+// gate-up on one fused weight take one plan.  i4mv.cuh (the 4-bit matvec)
+// shares the block's end (Sums, finish) and its cluster launch (launch).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -195,6 +196,65 @@ __device__ __forceinline__ void split_chunks(int nc, int KS, int s, int& c0, int
   c1 = static_cast<int>(static_cast<long long>(s + 1) * nc / KS);
 }
 
+// The shared memory of a block's sums: each warp's 4-column sums (per half
+// of a gate-up block), the block's tile sums, and the tile sums of every
+// split of the cluster (in the block that writes the column).
+template <int H>
+struct Sums {
+  float red[H][kWarps][kBN];
+  float tile[H][kBN];
+  float slots[H][kMaxSplits][kBN];
+};
+
+// The end of a block (j, s) of a launch over (tiles, KS splits): the lane's
+// sums v of 4 columns col .. col + 3 of the tile, of warp w of half `half`,
+// added over the block's warps in order, then (KS > 1) over the cluster's splits in split order, in the
+// block that writes those columns (block s: columns c with c·KS/128 = s),
+// which stores out[j·128 + c] (f32 y; y · cs[n]; bf16 silu(g)·u).  A block
+// touches another's shared memory only after the wait on the relaxed
+// cluster barrier that every block arrived on as it started.
+template <int H, Out OUT>
+__device__ __forceinline__ void finish(Sums<H>& sm, const float (&v)[4], int col, int half, int w,
+                                       int j, int s, int KS, void* out, const float* cs) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) sm.red[half][w][col + i] = v[i];
+  __syncthreads();
+  for (int e = threadIdx.x; e < H * kBN; e += blockDim.x) {  // the block's sum in warp order
+    const int h = e / kBN, cc = e % kBN;
+    float t = 0.f;
+#pragma unroll
+    for (int i = 0; i < kWarps; ++i) t = __fadd_rn(t, sm.red[h][i][cc]);
+    sm.tile[h][cc] = t;
+  }
+  __syncthreads();
+  if (KS > 1) {  // each split's sums into slot s of the block that writes the column
+    cluster_wait();  // every block of the cluster has started
+    for (int e = threadIdx.x; e < H * kBN; e += blockDim.x) {
+      const int h = e / kBN, cc = e % kBN;
+      st_rank(smem_addr(&sm.slots[h][s][cc]), cc * KS / kBN, sm.tile[h][cc]);
+    }
+    cluster_sync();
+  }
+  for (int cc = threadIdx.x; cc < kBN; cc += blockDim.x) {
+    if (cc * KS / kBN != s) continue;  // another block of the cluster writes it
+    float g = sm.tile[0][cc], u = sm.tile[H - 1][cc];
+    if (KS > 1) {  // the splits in order, from zero
+      g = u = 0.f;
+      for (int r = 0; r < KS; ++r) {
+        g = __fadd_rn(g, sm.slots[0][r][cc]);
+        if constexpr (H == 2) u = __fadd_rn(u, sm.slots[1][r][cc]);
+      }
+    }
+    const int n = j * kBN + cc;
+    if constexpr (OUT == kGateUp)
+      static_cast<uint16_t*>(out)[n] = silu_mul(g, u);
+    else if constexpr (OUT == kScaled)
+      static_cast<float*>(out)[n] = __fmul_rn(g, __ldg(cs + n));
+    else
+      static_cast<float*>(out)[n] = g;
+  }
+}
+
 // Block (j, s) of a launch over (N / 128 tiles (gate-up: ff / 128 pairs),
 // KS splits): H halves of 8 warps, half h on tile j + h·ff/128, warp w on
 // chunks c0 + w, c0 + w + 8, ... of split s.
@@ -202,9 +262,7 @@ template <int G, bool MINS, Out OUT>
 __global__ void __launch_bounds__(32 * kWarps * (OUT == kGateUp ? 2 : 1)) mv_kernel(Op op) {
   constexpr int H = OUT == kGateUp ? 2 : 1;
   constexpr int R = G > 0 ? G : kI8cRows;
-  __shared__ float red[H][kWarps][kBN];
-  __shared__ float tile[H][kBN];
-  __shared__ float slots[H][kMaxSplits][kBN];
+  __shared__ Sums<H> sm;
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   const int half = wid / kWarps, w = wid % kWarps;
   const int j = blockIdx.x, s = blockIdx.y, KS = op.KS;
@@ -229,63 +287,38 @@ __global__ void __launch_bounds__(32 * kWarps * (OUT == kGateUp ? 2 : 1)) mv_ker
       }
     }
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) red[half][w][lane * 4 + i] = G > 0 ? acc[i] : p[i];
-  __syncthreads();
-  for (int e = threadIdx.x; e < H * kBN; e += blockDim.x) {  // the block's sum in warp order
-    const int h = e / kBN, cc = e % kBN;
-    float v = 0.f;
-#pragma unroll
-    for (int i = 0; i < kWarps; ++i) v = __fadd_rn(v, red[h][i][cc]);
-    tile[h][cc] = v;
-  }
-  __syncthreads();
-  if (KS > 1) {  // each split's sums into slot s of the block that writes the column
-    cluster_wait();  // every block of the cluster has started
-    for (int e = threadIdx.x; e < H * kBN; e += blockDim.x) {
-      const int h = e / kBN, cc = e % kBN;
-      st_rank(smem_addr(&slots[h][s][cc]), cc * KS / kBN, tile[h][cc]);
-    }
-    cluster_sync();
-  }
-  for (int cc = threadIdx.x; cc < kBN; cc += blockDim.x) {
-    if (cc * KS / kBN != s) continue;  // another block of the cluster writes it
-    float g = tile[0][cc], u = tile[H - 1][cc];
-    if (KS > 1) {  // the splits in order, from zero
-      g = u = 0.f;
-      for (int r = 0; r < KS; ++r) {
-        g = __fadd_rn(g, slots[0][r][cc]);
-        if constexpr (H == 2) u = __fadd_rn(u, slots[1][r][cc]);
-      }
-    }
-    const int n = j * kBN + cc;
-    if constexpr (OUT == kGateUp)
-      static_cast<uint16_t*>(op.out)[n] = silu_mul(g, u);
-    else if constexpr (OUT == kScaled)
-      static_cast<float*>(op.out)[n] = __fmul_rn(g, __ldg(op.cs + n));
-    else
-      static_cast<float*>(op.out)[n] = g;
-  }
+  if constexpr (G > 0) finish<H, OUT>(sm, acc, lane * 4, half, w, j, s, KS, op.out, op.cs);
+  else finish<H, OUT>(sm, p, lane * 4, half, w, j, s, KS, op.out, op.cs);
+}
+
+// Launches `kern` over (N / H / 128 tiles, KS splits) with H·8 warps a
+// block and `smem` bytes of dynamic shared memory, a tile's KS splits (1-8)
+// as one cluster.
+template <int H, class OpT>
+cudaError_t launch(void (*kern)(OpT), const OpT& op, int N, int KS, cudaStream_t st,
+                   int smem = 0) {
+  if (KS < 1 || KS > kMaxSplits || N % (H * kBN) != 0 || N < H * kBN)
+    return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(N / H / kBN, KS, 1);
+  cfg.blockDim = dim3(32 * kWarps * H);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = KS;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = KS > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kern, op);
 }
 
 // Launches mv_kernel over (tiles, KS): ops/qmm.py mv_plan's KS (1-8), a
 // tile's splits as one cluster.
 template <int G, bool MINS, Out OUT>
 cudaError_t run(const Op& op, cudaStream_t st) {
-  if (op.KS < 1 || op.KS > kMaxSplits) return cudaErrorInvalidValue;
-  constexpr int H = OUT == kGateUp ? 2 : 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(op.N / H / kBN, op.KS, 1);
-  cfg.blockDim = dim3(32 * kWarps * H);
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = op.KS;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = op.KS > 1 ? 1 : 0;
-  return cudaLaunchKernelEx(&cfg, mv_kernel<G, MINS, OUT>, op);
+  return launch<OUT == kGateUp ? 2 : 1>(mv_kernel<G, MINS, OUT>, op, op.N, op.KS, st);
 }
 
 }  // namespace i8mv

@@ -1,10 +1,9 @@
 // The mma.sync warp tile and the split helpers that several kernels share:
 //   - ldmatrix_x4, mma_bf16 (m16n8k16, bf16 in, f32 accumulate) and
-//     pack_bf16x2: the tensor-core rings (qmm_ring.cuh, attn_mma.cuh) and
-//     probe_i8.cu;
+//     pack_bf16x2: the tensor-core rings (qmm_ring.cuh, attn_mma.cuh),
+//     i4mv.cuh and probe_i8.cu;
 //   - arrive_last and sum_splits: the last block of a K split's tickets
-//     (qmm_i4t.cu's M = 1 kernel, qmm_lane.cu, decode_attn.cu,
-//     qmm_ring.cuh, i8k_tile.cuh, the probes);
+//     (qmm_lane.cu, decode_attn.cu, qmm_ring.cuh, i8k_tile.cuh, the probes);
 //   - Smem, mma_stage and for_tile: a 64 x 128 tile of 8 warps (2 along M x 4
 //     along N, each 32 x 32) over 64-row stages of K in shared memory (x
 //     [64 m][64 k] and w [64 k][128 n], padded rows), which probe_i4.cu's

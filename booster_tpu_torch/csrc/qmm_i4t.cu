@@ -1,9 +1,9 @@
 // 4-bit K-major quantized matmul (i4t), with an optional SiLU·mul epilogue.
 //
 // Replaces the Pallas kernels of booster_tpu/ops/pallas_qmm.py:
-//   _tqmm_i4_gd_kernel   (M = 1, group-dot form)           -> gd_kernel<G, false>
+//   _tqmm_i4_gd_kernel   (M = 1, group-dot form)           -> i4mv::mv_kernel<G, mins, kF32>
 //   _tqmm_i4_kernel      (M > 1, dequantize then dot)      -> mm_kernel<BM, false>
-//   _gateup_i4_gd_kernel (M = 1, fused gate+up, silu·mul)  -> gd_kernel<G, true>
+//   _gateup_i4_gd_kernel (M = 1, fused gate+up, silu·mul)  -> i4mv::mv_kernel<G, mins, kGateUp>
 //   _gateup_i4_kernel    (M > 1, fused gate+up, silu·mul)  -> mm_kernel<BM, true>
 //
 // y[m, n] = sum_k x[m, k] * W[n, k],  W = (q - zero) * s - mins, group G along k.
@@ -12,9 +12,10 @@
 // rows 0/1 scale the two halves, rows 2/3 (R = 4) hold their affine mins.
 //
 // Numerics (the plain versions in ops/qmm.py repeat them):
-//   M = 1:  per half h and group g, p = sum bf16(x)·q (raw nibble, f32),
-//           xs = sum f32(bf16 x), p -= zero·xs, c = f32(bf16 s)·p - f32(bf16 m)·xs,
-//           y = sum of c over groups and halves.
+//   M = 1:  per half h and group g, p = sum bf16(x)·q (raw nibble, f32, in
+//           row order), xs = sum f32(bf16 x), p -= zero·xs, c = f32(bf16 s)·p
+//           - f32(bf16 m)·xs, each group adding c_lo + c_hi; y = sum of the
+//           groups' c in i4mv.cuh's fixed order.
 //   M > 1:  w = bf16(bf16(q - zero)·bf16(s)); y = sum bf16(x)·w in f32, minus
 //           the min term sum_g xs_g·f32(bf16 m_g) with f32 group sums xs.
 //   gate-up: g, u = bf16 of the f32 sums of columns n and ff + n;
@@ -23,18 +24,17 @@
 //           qmm + act + mul bit for bit.  Both forms run the same per-column
 //           code with the same K split and the same reduction order.
 //
-// M = 1 (gd_kernel).  What bounds it: the payload and scale bytes (half a
+// M = 1 (i4mv.cuh).  What bounds it: the payload and scale bytes (half a
 // byte of payload and 1/16 byte of bf16 scale per weight at G = 32) over
-// 3.35 TB/s — a matvec does four FLOPs per payload byte.  One thread per
-// output column, so the 32 lanes of a warp read 32 consecutive bytes of a
-// payload row (one full sector); one warp per group of G payload rows issues
-// all G loads before using any; a block is 8 warps (8 consecutive groups)
-// over 32 columns, and K is split across blocks (gridDim.y), so N = 2048,
-// K = 2048 runs 256 blocks.  The 8 warps reduce through shared memory, the
-// blocks of a column tile write f32 partials, and the last block to finish
-// (an atomic ticket) sums them in split order and applies the epilogue: one
-// launch, a fixed summation order (the split depends on K only).  Nibbles
-// become floats with the 0x4B000000 trick (an OR and an FADD, full rate).
+// 3.35 TB/s.  i8mv.cuh's streaming block on the nibble layout: a lane
+// streams 4 columns of a warp's groups (G payload rows, group g of both
+// halves, with the group's scales) through a register ring of two, x in
+// registers (a lane a row of both halves, shuffled to the warp), 8 warps a
+// 128-column tile over one K split, a tile's KS splits one cluster that
+// adds them in split order through distributed shared memory (ops/qmm.py
+// i4t_mv_plan gives KS).  The fused gate-up is the same block twice over
+// (gate tile j and up tile ff/128 + j, the plan of the fused [K, 2ff]
+// weight), its cluster writing silu(g)·u.  No partials, no tickets.
 //
 // M > 1 (mm_kernel).  What bounds it: at a decode step (M = 64) still the
 // bytes (MPT-7B's up, 4096 → 16384: 33.5 MB of payload and 4.2 MB of
@@ -66,169 +66,10 @@
 #include <stdint.h>
 
 #include "bf16_ops.cuh"
+#include "i4mv.cuh"
 #include "qmm_ring.cuh"
 
 namespace {
-
-// ------------------------------------------------------------------ M = 1
-
-constexpr int kWarps = 8;  // groups per block (one per warp)
-
-// exact float of a small unsigned integer (< 2^23): an OR and an FADD
-__device__ __forceinline__ float u2f(uint32_t v) {
-  return __fsub_rn(__uint_as_float(0x4B000000u | v), 8388608.0f);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-struct GdParams {
-  const uint16_t* x;   // [1, K] bf16
-  const uint8_t* qw;   // [K/2, N]
-  const uint16_t* s;   // [R, K/(2G), N] bf16
-  void* out;           // [1, N] f32, or [1, N/2] bf16 for gate-up
-  float* part;         // [KS, NC, ncols] f32 partials (KS > 1), else null
-  int* tickets;        // [gridDim.x] zeros, reset by the last block
-  int K, N, R, zero, ff;
-};
-
-// One warp's group-dot of column `col` over group `g` (x in shared memory,
-// f32 [2][kWarps·G], the block's groups).
-template <int G>
-__device__ __forceinline__ float group_dot(const GdParams& p, const float* xsm, int col, int g,
-                                           int gl) {
-  const int half = p.K >> 1;
-  const size_t plane = static_cast<size_t>(half / G) * p.N;
-  const size_t so = static_cast<size_t>(g) * p.N + col;
-  const uint8_t* w = p.qw + static_cast<size_t>(g) * G * p.N + col;
-  const int lane = threadIdx.x & 31;
-  uint32_t b[G];
-#pragma unroll
-  for (int c = 0; c < G; ++c) b[c] = __ldg(w + static_cast<size_t>(c) * p.N);
-  const float s0 = bf16f(__ldg(p.s + so));
-  const float s1 = bf16f(__ldg(p.s + plane + so));
-  const bool mins = p.R == 4;
-  const float mn0 = mins ? bf16f(__ldg(p.s + 2 * plane + so)) : 0.f;
-  const float mn1 = mins ? bf16f(__ldg(p.s + 3 * plane + so)) : 0.f;
-  const float* x0 = xsm + gl * G;
-  const float* x1 = xsm + kWarps * G + gl * G;
-  // group sums of x: lane c adds x[c] (G <= 32), one butterfly per half
-  const float xs0 = warp_sum(lane < G ? x0[lane] : 0.f);
-  const float xs1 = warp_sum(lane < G ? x1[lane] : 0.f);
-  float p0 = 0.f, p1 = 0.f;
-#pragma unroll
-  for (int c = 0; c < G; ++c) {
-    p0 = __fmaf_rn(x0[c], u2f(b[c] & 15u), p0);
-    p1 = __fmaf_rn(x1[c], u2f(b[c] >> 4), p1);
-  }
-  if (p.zero) {
-    const float zf = static_cast<float>(p.zero);
-    p0 = __fsub_rn(p0, __fmul_rn(zf, xs0));
-    p1 = __fsub_rn(p1, __fmul_rn(zf, xs1));
-  }
-  float c0 = __fmul_rn(s0, p0);
-  float c1 = __fmul_rn(s1, p1);
-  if (mins) {
-    c0 = __fsub_rn(c0, __fmul_rn(mn0, xs0));
-    c1 = __fsub_rn(c1, __fmul_rn(mn1, xs1));
-  }
-  return __fadd_rn(c0, c1);
-}
-
-template <int G, bool GATEUP>
-__global__ void __launch_bounds__(kWarps * 32) gd_kernel(GdParams p) {
-  constexpr int NC = GATEUP ? 2 : 1;
-  constexpr int XS = 2 * kWarps * G;
-  __shared__ float xsm[XS];
-  __shared__ float red[kWarps][NC][32];
-  __shared__ int last;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int half = p.K >> 1;
-  const int ngh = half / G;
-  const int ks = blockIdx.y;
-  const int KS = gridDim.y;
-  const int ncols = GATEUP ? p.ff : p.N;
-  const int col = blockIdx.x * 32 + lane;
-  const int g0 = ks * kWarps;  // the block's first group
-
-  // stage x over the block's groups, both halves, as f32
-  for (int i = threadIdx.x; i < XS; i += blockDim.x) {
-    const int h = i / (kWarps * G), k = i - h * (kWarps * G);
-    const int kk = g0 * G + k;
-    xsm[i] = kk < half ? bf16f(__ldg(p.x + h * half + kk)) : 0.f;
-  }
-  __syncthreads();
-
-  // whole warps take the branch (the shuffles inside need every lane); lanes
-  // past the last column read the last column and are not stored
-  const int g = g0 + warp;
-  const int lcol = min(col, ncols - 1);
-#pragma unroll
-  for (int c = 0; c < NC; ++c)
-    red[warp][c][lane] = g < ngh ? group_dot<G>(p, xsm, lcol + c * p.ff, g, warp) : 0.f;
-  __syncthreads();
-
-  // block sums in warp order: thread i < 32 takes lane i
-  const int i = threadIdx.x;
-  const int cc = blockIdx.x * 32 + i;
-  const bool live = i < 32 && cc < ncols;
-  float t[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    float s = 0.f;
-    if (i < 32) {
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) s = __fadd_rn(s, red[w][c][i]);
-    }
-    t[c] = s;
-  }
-  if (KS > 1) {
-    // cross-block: write the partial, take a ticket; the last block of this
-    // column tile sums every split's partial in split order
-    if (live) {
-#pragma unroll
-      for (int c = 0; c < NC; ++c)
-        p.part[(static_cast<size_t>(ks) * NC + c) * ncols + cc] = t[c];
-    }
-    __threadfence();
-    __syncthreads();
-    int* ticket = p.tickets + blockIdx.x;
-    if (threadIdx.x == 0) last = atomicAdd(ticket, 1) == KS - 1;
-    __syncthreads();
-    if (!last) return;
-    __threadfence();
-    if (live) {
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        float s = 0.f;
-        for (int k = 0; k < KS; ++k)
-          s = __fadd_rn(s, __ldcg(p.part + (static_cast<size_t>(k) * NC + c) * ncols + cc));
-        t[c] = s;
-      }
-    }
-    if (threadIdx.x == 0) *ticket = 0;  // zeros again for the next launch
-  }
-  if (!live) return;
-  if (GATEUP) {
-    static_cast<uint16_t*>(p.out)[cc] = silu_mul(t[0], t[NC - 1]);
-  } else {
-    static_cast<float*>(p.out)[cc] = t[0];
-  }
-}
-
-template <int G>
-cudaError_t launch_gd(const GdParams& p, int gateup, cudaStream_t st) {
-  const int ncols = gateup ? p.N / 2 : p.N;
-  const int ngh = (p.K / 2) / G;
-  const dim3 grid((ncols + 31) / 32, (ngh + kWarps - 1) / kWarps);
-  if (gateup) gd_kernel<G, true><<<grid, kWarps * 32, 0, st>>>(p);
-  else gd_kernel<G, false><<<grid, kWarps * 32, 0, st>>>(p);
-  return cudaGetLastError();
-}
 
 // ------------------------------------------------------------------ M > 1
 
@@ -516,26 +357,28 @@ cudaError_t launch_mm_bm(const MmParams& p, int gateup, cudaStream_t st) {
 
 }  // namespace
 
-// The number of K splits (blocks along y) of the M = 1 kernel: the f32
-// partial buffer holds KS·(gateup ? 2 : 1)·ncols floats, the ticket buffer
-// ceil(ncols/32) ints.
-extern "C" int bt_qmm_i4t_splits(int K, int G) {
-  return ((K / 2) / G + kWarps - 1) / kWarps;
-}
-
-// y = x @ W^T for an i4t weight at M = 1 (the group-dot kernel).  gateup =
-// 0: out f32 [1, N].  gateup = 1: W holds gate columns [0, N/2) and up
-// columns [N/2, N); out bf16 [1, N/2].  G must be 32 (Q4_0's group, the only
-// one ported yet).  Returns the CUDA error of the launch (0 on success).
-extern "C" int bt_qmm_i4t(const void* x, const void* qw, const void* s, void* out,
-                          void* part, void* tickets, int K, int N, int R, int zero, int G,
-                          int gateup, void* stream) {
-  GdParams p{static_cast<const uint16_t*>(x), static_cast<const uint8_t*>(qw),
-             static_cast<const uint16_t*>(s), out, static_cast<float*>(part),
-             static_cast<int*>(tickets), K, N, R, zero, gateup ? N / 2 : 0};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (G != 32) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_gd<32>(p, gateup, st));
+// y = x @ W^T for an i4t weight at M = 1 (i4mv.cuh's streaming matvec).
+// gateup = 0: out f32 [1, N].  gateup = 1: W holds gate columns [0, N/2)
+// and up columns [N/2, N); out bf16 [1, N/2] = silu(gate) · up.  R = 2 or 4
+// scale planes (4: with mins); G must be 32 (Q4_0's group, the only one
+// ported yet); N a multiple of 128 (256 for the gate-up), K of 2G; ks splits
+// of K on whole groups (ops/qmm.py i4t_mv_plan of the [K, N] weight, 1-8;
+// one cluster a tile); payload on 4 bytes and scales on 8.  Returns the
+// CUDA error of the launch (0 on success).
+extern "C" int bt_qmm_i4t(const void* x, const void* qw, const void* s, void* out, int K, int N,
+                          int R, int zero, int G, int gateup, int ks, void* stream) {
+  const i4mv::Op op{static_cast<const uint16_t*>(x), static_cast<const uint8_t*>(qw),
+                    static_cast<const uint16_t*>(s), out, K, N, ks, zero};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (G != 32 || (R != 2 && R != 4) || K % (2 * G) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e;
+  if (R == 4)
+    e = gateup ? i4mv::run<32, true, i8mv::kGateUp>(op, st) : i4mv::run<32, true, i8mv::kF32>(op, st);
+  else
+    e = gateup ? i4mv::run<32, false, i8mv::kGateUp>(op, st)
+               : i4mv::run<32, false, i8mv::kF32>(op, st);
+  return static_cast<int>(e);
 }
 
 // y = x @ W^T for an i4t weight at M > 1 (the tensor-core tile), G = 32:

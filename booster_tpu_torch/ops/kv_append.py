@@ -19,6 +19,9 @@ the masked attention (``kv_cache.update_layer`` dispatches to it).  Its
 kernels are in ``csrc/kv_append.cu``, its plain version
 ``kv_append_layer_plain``.
 
+The kernels run one warp a row, 8 rows a block (the header of
+``csrc/kv_append.cu`` gives the design).
+
 ``kv_append_all_layers_paged`` is the same append into a paged pool
 [L, Np, H, P, D] through the slots' page tables (counterpart of the JAX
 function of that name): the paged kernels of ``csrc/kv_append.cu`` on CUDA
@@ -70,6 +73,10 @@ def kv_append(k_all, v_all, new_k, new_v, offsets, k_scale_all=None,
     kernel for CUDA tensors."""
     if k_all.device.type == "cpu":
         return kv_append_plain(k_all, v_all, new_k, new_v, offsets, k_scale_all, v_scale_all)
+    return _launch_all(k_all, v_all, new_k, new_v, offsets, k_scale_all, v_scale_all)
+
+
+def _launch_all(k_all, v_all, new_k, new_v, offsets, k_scale_all, v_scale_all) -> None:
     L, B, H, S, D = k_all.shape
     d = new_k.shape[-1]
     quant = k_scale_all is not None
@@ -124,6 +131,10 @@ def kv_append_layer(k_layer, v_layer, new_k, new_v, offsets, k_scale=None,
     CPU tensors, the CUDA kernel for CUDA tensors."""
     if k_layer.device.type == "cpu":
         return kv_append_layer_plain(k_layer, v_layer, new_k, new_v, offsets, k_scale, v_scale)
+    return _launch_layer(k_layer, v_layer, new_k, new_v, offsets, k_scale, v_scale)
+
+
+def _launch_layer(k_layer, v_layer, new_k, new_v, offsets, k_scale, v_scale) -> None:
     B, H, S, D = k_layer.shape
     d = new_k.shape[-1]
     quant = k_scale is not None
@@ -170,6 +181,10 @@ def kv_append_all_layers_paged(pool_k, pool_v, new_k, new_v, offsets, table, poo
     if pool_k.device.type == "cpu":
         return paged_append_all_layers(pool_k, pool_v, new_k, new_v, offsets, table,
                                        pool_ks, pool_vs)
+    return _launch_paged(pool_k, pool_v, new_k, new_v, offsets, table, pool_ks, pool_vs)
+
+
+def _launch_paged(pool_k, pool_v, new_k, new_v, offsets, table, pool_ks, pool_vs) -> None:
     L, Np, H, P, D = pool_k.shape
     B, maxp = table.shape
     d = new_k.shape[-1]

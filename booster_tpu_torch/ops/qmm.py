@@ -10,9 +10,10 @@ i8t (Q8_0 at group 32, Q6_K at group 16), those of ``csrc/qmm_i8t.cu``
 ``_gateup_i4_kernel``, ``_gateup_i8_gd_kernel`` / ``_gateup_i8_kernel``).
 The M > 1 tiles take their rows per block and K splits from ``i4t_plan``
 (i4t), ``lane_plan`` (lane-major) and ``i8k_plan`` (i8t and i8c, whose tile
-is ``csrc/i8k_tile.cuh``), and the i8t and i8c matvecs at M = 1 (the
-streaming block of ``csrc/i8mv.cuh``) their K splits from ``mv_plan``:
-functions of the shapes only, so a CUDA graph replays the same sum order
+is ``csrc/i8k_tile.cuh``), the i8t and i8c matvecs at M = 1 (the
+streaming block of ``csrc/i8mv.cuh``) their K splits from ``mv_plan``, and
+the i4t matvec at M = 1 (the same block on the nibble layout,
+``csrc/i4mv.cuh``) from ``i4t_mv_plan``: functions of the shapes only, so a CUDA graph replays the same sum order
 and the fused gate-up splits as the matmul on its weight does.
 ``qmm_plain`` and ``qmm_gateup_plain`` are the same functions in plain
 torch, with the same rounding points; a wrapper uses them only for tensors
@@ -49,8 +50,7 @@ from booster_tpu_torch.ops import kernels
 from booster_tpu_torch.quant.qtensor import QTensor, dequantize, kernel_scales
 
 _SIGNATURES = {
-    "bt_qmm_i4t": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
-    "bt_qmm_i4t_splits": [ctypes.c_int, ctypes.c_int],
+    "bt_qmm_i4t": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     "bt_qmm_i4t_mm": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
 }
 _I8_SIGNATURES = {
@@ -76,8 +76,6 @@ _MAX_SPLITS = 8  # a tile's K splits run as one thread-block cluster (portable s
 # block of a column tile, or of a split decode attention's (slot, kv head),
 # resets its ticket, so the buffer stays zero between launches on one stream)
 _tickets: dict = {}
-# (library, K, G) → qmm_i4t.cu M = 1 kernel's K splits, asked of the library once
-_splits: dict = {}
 
 
 def _ticket_buffer(device: torch.device, n: int) -> torch.Tensor:
@@ -121,8 +119,27 @@ def mv_plan(K: int, N: int, G: int) -> int:
     at least a chunk a warp.  The matvec and the fused gate-up on one [K,
     2ff] weight take this function of the shapes alone, so they add alike
     and agree bit for bit."""
+    return _mv_splits(K // mv_chunk_rows(G), N)
+
+
+def i4t_mv_plan(K: int, N: int, G: int) -> int:
+    """K splits of csrc/i4mv.cuh, the M = 1 matvec of i4t (group G), for y
+    [1, N] = x [1, K] @ W: one split where the 128-column tiles alone give
+    0.7 of the SMs a block (MPT-7B's qkv and up, the lm heads: fastest
+    there, tools/mv_splits.py), else ``mv_plan``'s rule over the K/(2G)
+    groups of each half, a warp's chunk being one group (its G payload rows
+    hold group g of both halves).  The matvec and the fused gate-up on one
+    [K, 2ff] weight take this function of the shapes alone, so they add
+    alike and agree bit for bit."""
+    if N // _TILE_N >= 0.7 * _SMS:
+        return 1
+    return _mv_splits(K // (2 * G), N)
+
+
+def _mv_splits(chunks: int, N: int) -> int:
+    """Splits of a K of `chunks` chunks over N / 128 tiles: about 1.5 blocks
+    an SM, at most 8 (one cluster), each split at least a chunk a warp."""
     tiles = N // _TILE_N
-    chunks = K // mv_chunk_rows(G)
     return max(1, min(_MAX_SPLITS, int(1.5 * _SMS / tiles + 0.5), chunks // _MV_WARPS))
 
 
@@ -434,6 +451,12 @@ def _launch(x: torch.Tensor, w: QTensor, gateup: bool) -> torch.Tensor:
     if M > 1 and ncols % 16:
         raise NotImplementedError(f"qmm_i4t kernel at M > 1: {ncols} output columns: not "
                                   "ported yet (a multiple of 16)")
+    if M == 1 and ncols % _TILE_N:
+        raise NotImplementedError(f"qmm_i4t kernel at M = 1: {ncols} output columns: not "
+                                  "ported yet (a multiple of 128)")
+    if M == 1 and (x.data_ptr() % 4 or w.qw.data_ptr() % 16 or s3.data_ptr() % 16):
+        raise ValueError("qmm_i4t kernel at M = 1: payload and scales must lie on 16 bytes, "
+                         "x on 4")
     if M > 1 and (x.data_ptr() % 16 or w.qw.data_ptr() % 16 or s3.data_ptr() % 16):
         raise ValueError("qmm_i4t kernel at M > 1: x, payload and scales must lie on 16 bytes")
     out = torch.empty(M, ncols, device=x.device,
@@ -441,15 +464,9 @@ def _launch(x: torch.Tensor, w: QTensor, gateup: bool) -> torch.Tensor:
     lib = kernels.library("qmm_i4t", _SIGNATURES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if M == 1:
-        splits = _splits.get(("qmm_i4t", K, w.group))
-        if splits is None:
-            splits = _splits[("qmm_i4t", K, w.group)] = lib.bt_qmm_i4t_splits(K, w.group)
-        part = (torch.empty(splits * (2 if gateup else 1) * ncols, dtype=torch.float32,
-                            device=x.device) if splits > 1 else None)
-        tickets = _ticket_buffer(x.device, -(-ncols // 32))
         rc = lib.bt_qmm_i4t(x.data_ptr(), w.qw.data_ptr(), s3.data_ptr(), out.data_ptr(),
-                            None if part is None else part.data_ptr(), tickets.data_ptr(),
-                            K, N, s3.shape[0], w.zero, w.group, int(gateup), stream)
+                            K, N, s3.shape[0], w.zero, w.group, int(gateup),
+                            i4t_mv_plan(K, N, w.group), stream)
     else:
         bm, ks, n_tickets = i4t_launch_plan(M, K, N, gateup)
         part = torch.empty(ks * M * N, dtype=torch.float32, device=x.device) if ks > 1 else None

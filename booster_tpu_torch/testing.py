@@ -26,7 +26,9 @@ wrong appends would leave in the cache.  ``qmm_i4t_split`` and
 lane-major matmul kernels compute (their K splits and k16 steps), and
 ``qmm_i4t_mutants`` / ``qmm_lane_mutants`` the inputs on which the plain
 versions compute what wrong matmul kernels would; ``qmm_mv_split`` and
-``qmm_mv_mutants`` do the same for the M = 1 int8 matvec of csrc/i8mv.cuh.
+``qmm_mv_mutants`` do the same for the M = 1 int8 matvec of csrc/i8mv.cuh,
+and ``qmm_i4t_mv_split`` (with ``i4t_mv_groups``) for the M = 1 i4t matvec
+of csrc/i4mv.cuh.
 """
 
 from __future__ import annotations
@@ -944,11 +946,88 @@ def qmm_lane_split(x: torch.Tensor, w: QTensor, ks: int, sk: int,
     return y
 
 
+def i4t_mv_groups(ngh: int, ks: int) -> list[list[list[int]]]:
+    """The groups each warp of a launch of csrc/i4mv.cuh over `ks` K splits
+    takes, per split and warp, in the order it adds them: split s's groups
+    [s·ngh/ks, (s+1)·ngh/ks) of the ngh = K/(2G) groups of each half (spread
+    evenly), dealt to the 8 warps in turn (i8mv.cuh split_chunks)."""
+    return [[list(range(s * ngh // ks + w, (s + 1) * ngh // ks, _MV_WARPS))
+             for w in range(_MV_WARPS)] for s in range(ks)]
+
+
+def i4t_mv_last(ngh: int, ks: int) -> tuple[int, int]:
+    """Groups [g0, g1) of each half that a wrong M = 1 i4t kernel leaves out
+    in ``qmm_i4t_mutants``: the last K split of a launch over `ks` splits, or,
+    where there is one split, the last group (the last chunk of a warp)."""
+    return ((ks - 1) * ngh // ks if ks > 1 else ngh - 1), ngh
+
+
+def _quad_sum(x: torch.Tensor) -> torch.Tensor:
+    """The f32 sum over the last dimension (a group of G = 16 or 32 rows) in
+    csrc/i4mv.cuh's order: lane t of a quad adds rows 16s + 2t, 2t + 1,
+    2t + 8, 2t + 9 of each k16 step s in turn, then the quad's butterfly
+    adds (v0 + v1) + (v2 + v3)."""
+    v = []
+    for t in range(4):
+        acc = torch.zeros(x.shape[:-1], device=x.device)
+        for s0 in range(0, x.shape[-1], _K16):
+            for r in (2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9):
+                acc = acc + x[..., s0 + r]
+        v.append(acc)
+    return ((v[0] + v[1]) + (v[2] + v[3]))[..., None]
+
+
+def qmm_i4t_mv_split(x: torch.Tensor, w: QTensor, ks: int,
+                     drop: Optional[int] = None) -> torch.Tensor:
+    """What csrc/i4mv.cuh computes for ``qmm_i4t(x, w)`` at M = 1 over `ks` K
+    splits (``ops.qmm.i4t_mv_plan``), in plain torch (CPU; tests only).  Per
+    half h and group g: p = the sum of bf16(x)·q over the group's raw
+    nibbles, its k16 steps each one f32 dot (the tensor cores' mma; here
+    torch's) added in order from zero; xs = the f32 sum of the group's
+    bf16(x) in the order of ``_quad_sum``; p -= zero·xs where zero != 0,
+    c_h = f32(bf16 s_h)·p (less f32(bf16 m_h)·xs with mins); the group adds
+    c_lo + c_hi.  Each warp of each split (``i4t_mv_groups``) adds its
+    groups in turn from zero, a split its 8 warps in order, and the splits
+    add in split order from zero, split `drop` left out (a wrong kernel's
+    sum)."""
+    w = w.resolved()
+    K = x.shape[1]
+    N, G = w.shape[0], w.group
+    ngh = K // 2 // G
+    s3, has_mins = kernel_scales(w)
+    sf = s3.to(torch.bfloat16).float()  # [R, ngh, N]
+    xb = x.to(torch.bfloat16).float()[0].reshape(2 * ngh, 1, G)
+    q = torch.stack([w.qw & 0x0F, w.qw >> 4]).float().reshape(2 * ngh, G, N)
+    p = torch.zeros(2 * ngh, 1, N, device=x.device)
+    for s0 in range(0, G, _K16):
+        p = p + torch.bmm(xb[..., s0:s0 + _K16], q[:, s0:s0 + _K16])
+    p = p.reshape(2, ngh, N)
+    xs = _quad_sum(xb.reshape(2, ngh, G))  # [2, ngh, 1]
+    if w.zero:
+        p = p - float(w.zero) * xs
+    c = sf[:2] * p
+    if has_mins:
+        c = c - sf[2:4] * xs
+    cg = c[0] + c[1]  # [ngh, N]
+    y = torch.zeros(N, device=x.device)
+    for s, warps in enumerate(i4t_mv_groups(ngh, ks)):
+        ys = torch.zeros_like(y)
+        for groups in warps:
+            acc = torch.zeros_like(y)
+            for g in groups:
+                acc = acc + cg[g]
+            ys = ys + acc
+        if s != drop:
+            y = y + ys
+    return y.reshape(1, N)
+
+
 def qmm_i4t_mutants(x: torch.Tensor, w: QTensor, groups: tuple[int, int]) -> dict:
     """(x, w) pairs on which ``qmm_plain`` computes what a wrong i4t kernel
     would: the nibbles swapped, each group's scale rows from the next group,
     the zero point ignored (where it is not 0), the mins dropped (R = 4), and
-    one K split left out: groups [g0, g1) of each half, with x zero there."""
+    one K split left out: groups [g0, g1) of each half, with x zero there
+    (at M = 1, ``i4t_mv_last``)."""
     w = w.resolved()
     K = x.shape[1]
     G = w.group

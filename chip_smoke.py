@@ -12,15 +12,18 @@ Phases, each printing one JSON line with its seconds:
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives them.
 2. kernels — each kernel against its plain torch version on the same inputs,
    with the tolerance stated at CHECKS, at the paths' shapes.  The i4t
-   matmul of csrc/qmm_i4t.cu at TinyLlama's widths (M = 1 group-dot, M = 16
-   tensor-core tile; with synthetic mins planes too), its fused gate-up at
-   M = 1, 16, 64 and 64·BATCH_MPT_T (bit-equal to the matmul + silu·mul, and
-   each output within the gate-up limit or an output of one-ulp roundings of
-   g and u), MPT-7B's qkv, wo, up and down at batch_mpt's M = 64 and
-   64·BATCH_MPT_T, and Mixtral's lm head at M = 64, each wrong kernel of
-   booster_tpu_torch.testing.qmm_i4t_mutants (nibbles swapped, a scale row
-   from the next group, the zero ignored, the mins dropped, one K split's
-   partial dropped) 8x past the limit.
+   matmul of csrc/qmm_i4t.cu at TinyLlama's widths (M = 1 streaming matvec
+   of csrc/i4mv.cuh, M = 16 tensor-core tile; with synthetic mins planes
+   too), its fused gate-up at M = 1, 16, 64 and 64·BATCH_MPT_T (bit-equal to
+   the matmul + silu·mul, and each output within the gate-up limit or an
+   output of one-ulp roundings of g and u), MPT-7B's qkv, wo, up and down at
+   generate_mpt's M = 1 and batch_mpt's M = 64 and 64·BATCH_MPT_T,
+   Mixtral's qkv and wo at generate_moe's M = 1 and its lm head at M = 64,
+   the M = 1 rows equal to themselves on a second launch, each wrong kernel
+   of booster_tpu_torch.testing.qmm_i4t_mutants (nibbles swapped, a scale
+   row from the next group, the zero ignored, the mins dropped, one K
+   split's partial dropped: at M = 1 the plan's last split, or its last
+   group where it has one) 8x past the limit.
    TinyLlama-1.1B (batch 1 for the Q4_0 kernels and bf16-cache attention,
    batch 64 over a 512-row int8 cache for int8 decode attention, the
    quantizing append, and chunked-prefill attention at both prompt buckets,
@@ -79,7 +82,9 @@ Phases, each printing one JSON line with its seconds:
    batch shape (B 64, S 512, int8), each also with rows of d = 64 < D:
    bit-exact with its plain version, and each wrong append (the layer off
    by one, the offset not clamped, the row at offset - 1; for int8 the
-   scales not written and scale = amax) seen to leave another cache.
+   scales not written and scale = amax) seen to leave another cache.  The
+   appends' launch floor (csrc/kv_append.cu at one bf16 row) is timed and
+   printed beside every append row (launch_floor_ms).
    Median times of kernel,
    plain version and one library call (the yardstick), each call after an
    L2 scrub (cold, as on the decode path), and the kernel's time warm
@@ -500,25 +505,27 @@ def _stacked_i4t(L, K, N, gen, mins=False):
 
 
 def _i4t_split_groups(M, K, N):
-    """Groups [g0, g1) of each half that the last K split of qmm_i4t.cu's
-    launch at (M, K, N) covers: 8 groups a split at M = 1, ops.qmm.i4t_plan's
-    splits above (8 groups a split in a tree without it)."""
+    """Groups [g0, g1) of each half that a wrong qmm_i4t.cu launch at (M, K,
+    N) leaves out in testing.qmm_i4t_mutants: the last K split of
+    ops.qmm.i4t_mv_plan's launch at M = 1 (testing.i4t_mv_last: the last
+    group where it has one split), of i4t_plan's above."""
     from booster_tpu_torch.ops import qmm as tq
+    from booster_tpu_torch.testing import i4t_mv_last
 
     ngh = K // 64
-    plan = getattr(tq, "i4t_plan", None)
-    if M == 1 or plan is None:
-        return 8 * ((ngh - 1) // 8), ngh
-    ks = plan(M, K, N)[1]
+    if M == 1:
+        return i4t_mv_last(ngh, tq.i4t_mv_plan(K, N, 32))
+    ks = tq.i4t_plan(M, K, N)[1]
     return (ks - 1) * ngh // ks, ngh
 
 
 def _i4t_row(entries, failures, label, w, M, gen, path, gateup=False, trials=5):
     """One i4t kernel row: qmm_i4t (or the fused gate-up) on x [M, K] against
     its plain version (2e-4 of the largest output; the gate-up per element,
-    and bit-equal to the unfused kernel + silu·mul), each wrong kernel of
-    testing.qmm_i4t_mutants 8x past the limit, timed cold and warm with the
-    plain version and the bf16 library call."""
+    and bit-equal to the unfused kernel + silu·mul), equal to itself on a
+    second launch at M = 1, each wrong kernel of testing.qmm_i4t_mutants 8x
+    past the limit, timed cold and warm with the plain version and the bf16
+    library call."""
     import torch
 
     from booster_tpu_torch.ops import qmm as tq
@@ -557,6 +564,8 @@ def _i4t_row(entries, failures, label, w, M, gen, path, gateup=False, trials=5):
     err = float((got.float() - want.float()).abs().max())
     if not (share(got, flips) <= 1 and torch.isfinite(got.float()).all()):
         failures.append(f"{name} {label} M={M}: max err {err} past the limit")
+    if M == 1 and not torch.equal(got, kern(x, w)):
+        failures.append(f"{name} {label} M={M}: a second launch differs")
     seen = {what: share(plain(xm, wm))
             for what, (xm, wm) in qmm_i4t_mutants(x, w, _i4t_split_groups(M, K, N)).items()}
     for what, v in seen.items():
@@ -649,20 +658,25 @@ def phase_kernels(entries: list) -> dict:
                  "batch_mpt", gateup=True, trials=3)
     del weights
     torch.cuda.empty_cache()
-    # MPT-7B's widths at a batch_mpt decode step (M = 64) and its prefill
-    # (64 prompts of T rows), and Mixtral-8x7B's lm head at a batch_moe step
+    # MPT-7B's widths at a generate_mpt step (M = 1), a batch_mpt decode step
+    # (M = 64) and its prefill (64 prompts of T rows); Mixtral-8x7B's qkv and
+    # wo at a generate_moe step and its lm head at a batch_moe step
     for label, K, N in (("qkv", 4096, 12288), ("wo", 4096, 4096), ("up", 4096, 16384),
                         ("down", 16384, 4096)):
         w = _stacked_i4t(2, K, N, gen)
-        for M in (64, 64 * BATCH_MPT_T):
-            _i4t_row(entries, failures, f"MPT-7B {label}", w.at(1), M, gen, "batch_mpt",
-                     trials=3)
+        for M in (1, 64, 64 * BATCH_MPT_T):
+            _i4t_row(entries, failures, f"MPT-7B {label}", w.at(1), M, gen,
+                     "generate_mpt" if M == 1 else "batch_mpt", trials=3)
         del w
         torch.cuda.empty_cache()
-    w = _stacked_i4t(1, MIXTRAL["hidden"], V, gen)
-    _i4t_row(entries, failures, "Mixtral lm_head", w.at(0), 64, gen, "batch_moe", trials=3)
-    del w
-    torch.cuda.empty_cache()
+    C7 = MIXTRAL["hidden"]
+    for label, N, M, path in (("qkv", C7 + 2 * MIXTRAL["kv_heads"] * (C7 // MIXTRAL["heads"]), 1,
+                               "generate_moe"), ("wo", C7, 1, "generate_moe"),
+                              ("lm_head", V, 64, "batch_moe")):
+        w = _stacked_i4t(1, C7, N, gen)
+        _i4t_row(entries, failures, f"Mixtral {label}", w.at(0), M, gen, path, trials=3)
+        del w
+        torch.cuda.empty_cache()
     for lay in (TINY_ATTN, MISTRAL_ATTN, DEEPSEEK_ATTN):
         _bf16_attn_kernels(entries, failures, lay)
         _int8_kernels(entries, failures, lay)
@@ -674,13 +688,36 @@ def phase_kernels(entries: list) -> dict:
     _i8c_kernels(entries, failures)
     _q6k_kernels(entries, failures)
     _moe_kernels(entries, failures)
+    floor = _append_floor()
+    for e in entries:  # beside every append row: a row near it sits at the launch floor
+        if e["name"].startswith("kv_append"):
+            e.update(floor)
     release_scrub()
     torch.cuda.empty_cache()
     if failures:
         raise AssertionError("kernel checks failed: " + "; ".join(failures))
     return {"phase": "kernels", "seconds": time.perf_counter() - t0,
             "checks": {e["name"] + " " + e["shape"]: e["max_abs_err"] for e in entries},
-            "paged_checks": paged_checks, "layer_append_checks": append_checks}
+            "paged_checks": paged_checks, "layer_append_checks": append_checks,
+            "append": floor}
+
+
+def _append_floor() -> dict:
+    """The appends' launch floor: csrc/kv_append.cu at its smallest launch,
+    one bf16 row of 128 lanes (the per-layer append at B = H = 1), timed as
+    the append rows are (tools/timing.py: cold, and warm)."""
+    import torch
+
+    from booster_tpu_torch.ops import kv_append as ka
+
+    k = torch.zeros(1, 1, 8, 128, device="cuda", dtype=torch.bfloat16)
+    v = torch.zeros_like(k)
+    row = torch.ones(1, 1, 1, 128, device="cuda", dtype=torch.bfloat16)
+    off = torch.full((1,), 3, dtype=torch.int32, device="cuda")
+    return {"launch_floor_ms": timed(lambda: ka.kv_append_layer(k, v, row, row, off)),
+            "launch_floor_warm_ms": timed(lambda: ka.kv_append_layer(k, v, row, row, off),
+                                          cold=False),
+            "launch_floor": "kv_append_layer at one bf16 row (B 1, H 1, D 128)"}
 
 
 def _bf16_attn_kernels(entries: list, failures: list, lay: dict) -> None:
@@ -3370,8 +3407,12 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
     torch.cuda.synchronize()
     prof_wall = 1e3 * (time.perf_counter() - t_short)
     laps("window")
+    # the i4t M = 1 kernels (matvec and gate-up) on the paths with 4-bit
+    # K-major weights
+    watch = (("i4mv::mv_kernel",) if weights is None and model_name in ("tiny", "moe") or mpt
+             else ())
     prof = _profile(lambda: short.generate(ids, sp, max_new_tokens=32), steps=32,
-                    watch=("::kv_append_kernel",) if mpt else ())
+                    watch=watch + (("::kv_append_kernel",) if mpt else ()))
     prof["window"] = "a 32-token generate (decode_chunk 32)"
     del short
     laps("profile")
@@ -3870,7 +3911,8 @@ def phase_server() -> dict:
         if health["slots_total"] != 64 or health["prefix_hits"] < 48:
             raise AssertionError(f"server: /health {health}")
         laps("run")
-        prof = _profile(lambda: _server_traffic(srv.port, "b"), steps=steps)
+        prof = _profile(lambda: _server_traffic(srv.port, "b"), steps=steps,
+                        watch=("::kv_append_i8_kernel",))
         laps("profile")
         if prof["kernel_ms"] is not None:
             prof["device_busy_share"] = prof["kernel_ms"] / (1e3 * run["wall_s"])

@@ -146,6 +146,149 @@ def test_qmm_i4t_split_tickets_reset_across_graph_replays(cuda, gateup):
     _replays_equal(lambda: kern(x, w))
 
 
+@pytest.mark.parametrize("mins", [False, True], ids=["R2", "R4"])
+@pytest.mark.parametrize("k,n", [(2048, 2560), (5632, 2048), (1088, 384), (64, 128),
+                                 (16384, 256)])
+def test_i4t_matvec_equals_its_mirror(cuda, k, n, mins):
+    """The M = 1 matvec (csrc/i4mv.cuh) at path and ragged shapes (fewer
+    groups than warps, group counts no power of two, 8 splits): within 2e-4
+    of the largest output of the plain version, within a tenth of that of
+    the CPU mirror of its sum order (testing.qmm_i4t_mv_split; the tensor
+    cores' k16 sums by torch's), equal to itself on a second launch; the
+    check sees the last split (or group) left out."""
+    from booster_tpu_torch.testing import i4t_mv_last, qmm_i4t_mutants, qmm_i4t_mv_split
+
+    gen = torch.Generator(device="cuda").manual_seed(46)
+    w = _w(2, k, n, gen, mins).at(1)
+    x = torch.randn(1, k, device="cuda", generator=gen).to(torch.bfloat16)
+    got, want = tq.qmm_i4t(x, w), tq.qmm_plain(x, w)
+    limit = 2e-4 * want.abs().max()
+    assert (got - want).abs().max() <= limit
+    assert torch.equal(got, tq.qmm_i4t(x, w))
+    ks = tq.i4t_mv_plan(k, n, 32)
+    wc = dataclasses.replace(w.resolved(), qw=w.resolved().qw.cpu(),
+                             scales=w.resolved().scales.cpu(), layer=None)
+    assert (got.cpu() - qmm_i4t_mv_split(x.cpu(), wc, ks)).abs().max() <= limit.cpu() / 10
+    xm, wm = qmm_i4t_mutants(x, w, i4t_mv_last(k // 64, ks))["one K split's partial dropped"]
+    assert (tq.qmm_plain(xm, wm) - want).abs().max() > 8 * limit
+
+
+@pytest.mark.parametrize("gateup", [False, True])
+def test_i4t_matvec_repeats_across_graph_replays(cuda, gateup):
+    """The M = 1 i4t matvec's and gate-up's cluster split sums give the same
+    bits in eager calls and CUDA-graph replays, and leave the shared ticket
+    buffer zero (they take none)."""
+    gen = torch.Generator(device="cuda").manual_seed(47)
+    x = torch.randn(1, 2048, device="cuda", generator=gen).to(torch.bfloat16)
+    tq._ticket_buffer(x.device, 1)
+    w = _w(1, 2048, 2 * 2048, gen).at(0)
+    assert tq.i4t_mv_plan(2048, 2 * 2048, 32) > 1
+    kern = tq.qmm_i4t_gateup if gateup else tq.qmm_i4t
+    _replays_equal(lambda: kern(x, w))
+
+
+@pytest.mark.parametrize("mins", [False, True], ids=["R2", "R4"])
+def test_i4t_gateup_at_tinyllama_width_equals_matvec_then_silu_mul(cuda, mins):
+    """The M = 1 fused gate-up at TinyLlama's [2048, 2 x 5632] (and with a
+    mins plane) equals the matvec on its fused weight + silu·mul bit for bit."""
+    gen = torch.Generator(device="cuda").manual_seed(48)
+    w = _w(1, 2048, 2 * 5632, gen, mins).at(0)
+    x = torch.randn(1, 2048, device="cuda", generator=gen).to(torch.bfloat16)
+    got = tq.qmm_i4t_gateup(x, w)
+    gu = tq.qmm_i4t(x, w).to(torch.bfloat16)
+    assert torch.equal(got, tq.silu(gu[:, :5632]) * gu[:, 5632:])
+
+
+def test_i4t_cluster_launch_refuses_a_bad_split_count(cuda):
+    """The library refuses 0 and 9 splits (a cluster holds at most 8) with an
+    error code and launches nothing; the next launch runs as before."""
+    gen = torch.Generator(device="cuda").manual_seed(49)
+    w = _w(1, 1024, 256, gen).at(0).resolved()
+    x = torch.randn(1, 1024, device="cuda", generator=gen).to(torch.bfloat16)
+    want = tq.qmm_i4t(x, w)
+    out = torch.full_like(want, 7.0)
+    lib = kernels.library("qmm_i4t", tq._SIGNATURES)
+    stream = torch.cuda.current_stream().cuda_stream
+    for ks in (0, 9):
+        rc = lib.bt_qmm_i4t(x.data_ptr(), w.qw.data_ptr(), w.scales.data_ptr(), out.data_ptr(),
+                            1024, 256, 2, 8, 32, 0, ks, stream)
+        assert rc != 0
+    torch.cuda.synchronize()
+    assert bool((out == 7.0).all())
+    assert torch.equal(tq.qmm_i4t(x, w), want)
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("d,D", [(128, 384), (384, 384), (640, 640), (1000, 1024),
+                                 (1024, 1024), (99, 128)])
+def test_kv_append_layer_kernel_at_wide_rows(cuda, quantized, d, D):
+    """The per-layer append at storage widths 384-1024 (the int8 warp in
+    D/128 passes) and at d = 99 (loads of one element), exact against the
+    plain version, each wrong append seen."""
+    args = kv_append_layer_case(3, 3, 5, 64, D, d, [0, 13, 70], "cuda", seed=d + D,
+                                quantized=quantized)
+    k_all, v_all, layer, new_k, new_v, off, ks, vs = args
+    got = [None if t is None else t.clone() for t in (k_all, v_all, ks, vs)]
+    ka.kv_append_layer(got[0][layer], got[1][layer], new_k, new_v, off,
+                       None if ks is None else got[2][layer],
+                       None if vs is None else got[3][layer])
+    exact, seen = kv_append_layer_check(args, got)
+    assert exact and all(seen.values()), seen
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("d", [128, 62])
+def test_kv_append_all_layers_exact_at_any_row_width(cuda, quantized, d):
+    """The all-layer append at d = 128 (whole 8- and 16-byte moves) and 62
+    (element by element) over 9 rows a layer (a block of 8 rows and one
+    more), equal to the plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(50)
+    L, B, H, S, D = 2, 3, 3, 64, 128
+    base = torch.randn(L, B, H, S, D, device="cuda", generator=gen)
+    if quantized:
+        k, ks = _quantize_kv(base)
+        cache = [k, k.clone(), ks, ks.clone()]
+    else:
+        cache = [base.to(torch.bfloat16), base.to(torch.bfloat16), None, None]
+    out = [cache, [None if t is None else t.clone() for t in cache]]
+    new = (torch.randn(2, L, B, H, d, device="cuda", generator=gen) * 3).to(torch.bfloat16)
+    off = torch.tensor([0, 63, 90], dtype=torch.int32, device="cuda")
+    ka.kv_append(out[0][0], out[0][1], new[0], new[1], off, out[0][2], out[0][3])
+    ka.kv_append_plain(out[1][0], out[1][1], new[0], new[1], off, out[1][2], out[1][3])
+    for got, want in zip(*out):
+        assert got is None or torch.equal(got, want)
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+def test_kv_append_paged_scratch_rule(cuda, quantized):
+    """A row whose offset lies past the slot's page table lands on the
+    scratch page 0 at row 0 (the TPU kernel's rule), its scale beside it;
+    the slot's own pages stay as they were."""
+    gen = torch.Generator(device="cuda").manual_seed(51)
+    L, B, H, P, MAXP, D, d = 2, 2, 3, 128, 2, 128, 64
+    Np = B * MAXP + 1
+    table = torch.arange(1, Np, dtype=torch.int32, device="cuda").reshape(B, MAXP)
+    new = (torch.randn(2, L, B, H, d, device="cuda", generator=gen) * 3).to(torch.bfloat16)
+    off = torch.tensor([MAXP * P + 5, 3], dtype=torch.int32, device="cuda")  # slot 0 past it
+    base = torch.randn(L, Np, H, P, D, device="cuda", generator=gen)
+    if quantized:
+        k, ks = _quantize_kv(base)
+        pool = [k, k.clone(), ks, ks.clone()]
+    else:
+        pool = [base.to(torch.bfloat16), base.to(torch.bfloat16), None, None]
+    before = [None if t is None else t.clone() for t in pool]
+    ka.kv_append_all_layers_paged(*pool[:2], new[0], new[1], off, table, *pool[2:])
+    for c in (0, 1):
+        row = torch.nn.functional.pad(new[c][:, 0].float(), (0, D - d))  # [L, H, D]
+        if quantized:
+            q, s = _quantize_kv(row)
+            assert torch.equal(pool[c][:, 0, :, 0], q)
+            assert torch.equal(pool[2 + c][:, 0, :, 0], s)
+        else:
+            assert torch.equal(pool[c][:, 0, :, 0], row.to(torch.bfloat16))
+        assert torch.equal(pool[c][:, 1:3], before[c][:, 1:3])  # slot 0's pages
+
+
 @pytest.mark.parametrize("lens,ok,win,softcap", [
     ([1000, 79, 1], [1, 1, 1], 1025, 0.0), ([0, 70, 200], [1, 0, 1], 64, 30.0)])
 def test_decode_attn_kernel_matches_plain(cuda, lens, ok, win, softcap):
