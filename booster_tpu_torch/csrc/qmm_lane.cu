@@ -2,8 +2,8 @@
 // form of the routed experts (MoE).
 //
 // Replaces the Pallas kernels of booster_tpu/ops/pallas_qmm.py:
-//   _qmm_i4_kernel (:96, via _qmm_i4 :225)  -> lane_kernel<true, BM>, no tile table
-//   _qmm_i8_kernel (:135, via _qmm_i8 :265) -> lane_kernel<false, BM>, no tile table
+//   _qmm_i4_kernel (:96, via _qmm_i4 :225)  -> lane_kernel<true, BM, MN>, no tile table
+//   _qmm_i8_kernel (:135, via _qmm_i8 :265) -> lane_kernel<false, BM, false>, no tile table
 // and the same bodies as booster_tpu/ops/pallas_moe.py::grouped_qmm (:72)
 // calls them (pallas_calls :113, :150) -> the same kernels with a tile table.
 //
@@ -12,13 +12,15 @@
 //   i4p: qw [R, K/2] u8, byte j of row n holds element j (low nibble) and
 //        element j + K/2 (high nibble); scales [R, 2, K/(2G)] bf16, row 0
 //        for the low half, row 1 for the high half (prepare_kernel_scales,
-//        compact_scales).
+//        compact_scales); with affine mins (MN, Q4_K) [R, 4, K/(2G)], rows
+//        2 and 3 the two halves' mins.
 //   i8:  qw [R, K] int8; scales [R, 1, K/G] bf16.
 // w = bf16(f32(bf16(q - zero)) · f32(bf16 s)) (the product of two bf16 is
-// exact in f32, so this is the reference's bf16 multiply); y = bf16(x) @ w
-// with f32 accumulation: the reference's function up to the order of the f32
-// sums.  Affine mins are not taken (Q4_0 and Q8_0 have none): the wrapper
-// raises.
+// exact in f32, so this is the reference's bf16 multiply), and with mins
+// w = bf16(w - bf16 m) (the reference's bf16 subtraction of the expanded
+// mins, has_mins :121-123); y = bf16(x) @ w with f32 accumulation: the reference's
+// function up to the order of the f32 sums.  i8 mins (Q5_K, Q5_1) are not
+// taken: the wrapper raises.
 //
 // Grouped form (the routed experts): x is route_pad's group-padded buffer
 // [Mp, K], whose 32-row tiles each belong to one expert; tile_expert[t]
@@ -43,7 +45,9 @@
 // k] tile (i4p: qring::dq_nibbles; i8: qring::dq_bytes), which is the .col
 // operand of mma.sync as it is.  The scale words of a stage are copied as
 // the 4-byte words that hold its groups' scales (any G that is a multiple
-// of 16).  ops/qmm.py lane_plan picks BM (32, 64 or 128) and the split from
+// of 16); with mins, the words of the stage's mins beside them, on the same
+// ring, and each dequantized pair less its group's min.  ops/qmm.py
+// lane_plan picks BM (32, 64 or 128) and the split from
 // (M, K, N) (and, grouped, the experts E): where the output tiles cannot
 // fill the card (the 1.3B down at M = 1: 16 tiles), K splits on whole
 // stages, each split writes f32 partials and the last block (ticket, reset
@@ -83,12 +87,13 @@ constexpr int kStageBytes = I4 ? kSK<I4, BM> / 2 : kSK<I4, BM>;
 template <bool I4, int BM>
 constexpr int kSW = kStageBytes<I4, BM> / 32 + 1;
 
-template <bool I4, int BM>
+template <bool I4, int BM, bool MN>
 struct Smem {
   struct alignas(16) Stage {
     uint8_t q[kBN * kStageBytes<I4, BM>];      // payload rows' bytes of the stage
     uint16_t x[BM * kXS<I4, BM>];              // the block's x at the stage's k
     uint32_t s[kBN][I4 ? 2 : 1][kSW<I4, BM>];  // the words holding the stage's scales
+    uint32_t m[MN ? kBN : 1][I4 ? 2 : 1][kSW<I4, BM>];  // and its mins (MN)
   };
   Stage st[kRing<I4, BM>];
   alignas(16) uint16_t w[kBN * kXS<I4, BM>];  // the dequantized [128 n][SK k] tile
@@ -103,7 +108,7 @@ struct Params {
   int* tickets;              // [gridDim.z · gridDim.x] zeros, reset by the last block
   const int* tile_expert;    // [ceil(M / 32)] or null (the plain form)
   const int* rows_used;      // one int on the device, or null
-  int M, K, N, G, zero, KS;
+  int M, K, N, G, zero, KS;  // (with mins: zero 0)
   int gshift;                // log2 G where G is a power of 2, else -1
 };
 
@@ -116,8 +121,11 @@ __device__ __forceinline__ int gdiv(const Params& p, int j) {
 // + 127, at stage 0 (stage stg adds stg·QB bytes of payload and columns of
 // x, and gdiv(stg·QB) scale elements).  A scale element e lies in the 4-byte
 // word (e + eoff) / 2 from sw (s's address rounded down to 4 bytes); the
-// bases below count elements from sw, so a word is base / 2.
-template <bool I4, int BM>
+// bases below count elements from sw, so a word is base / 2.  A payload row
+// has K/G scale elements, and with mins K/G more after them (its mins: a
+// min's element is its scale's plus K/G, computed where it is read, which
+// keeps the mins form within the 128 registers of two blocks an SM).
+template <bool I4, int BM, bool MN>
 struct Lane {
   static constexpr int QB = kStageBytes<I4, BM>;
   static constexpr int NQ = QB / 16 / 2;              // 16-byte payload chunks a thread
@@ -135,6 +143,7 @@ struct Lane {
     const size_t eoff = (sa >> 1) & 1;
     const size_t ld = I4 ? p.K / 2 : p.K;  // payload bytes of a row
     const size_t per_row = p.K / p.G;      // scale elements of a payload row
+    const size_t rs = MN ? 2 * per_row : per_row;  // and its planes' stride
 #pragma unroll
     for (int i = 0; i < NQ; ++i) {
       const int idx = t + i * qring::kThreads;
@@ -148,22 +157,22 @@ struct Lane {
       x[i] = row >= ra && row < rb ? p.x + static_cast<size_t>(row) * p.K + k : nullptr;
     }
     const int r = I4 ? t >> 1 : t, h = I4 ? t & 1 : 0;
-    sload = (wrow0 + r) * per_row + h * (per_row / 2) + eoff;
+    sload = (wrow0 + r) * rs + h * (per_row / 2) + eoff;
 #pragma unroll
     for (int hh = 0; hh < (I4 ? 2 : 1); ++hh)
-      sdq[hh] = (wrow0 + (t >> 1)) * per_row + hh * (per_row / 2) + eoff;
+      sdq[hh] = (wrow0 + (t >> 1)) * rs + hh * (per_row / 2) + eoff;
   }
 };
 
-// Stage stg (payload, scale words, x of the run's rows, zeros for the
-// others) into a ring slot.
-template <bool I4, int BM>
-__device__ __forceinline__ void lane_load(const Params& p, const Lane<I4, BM>& L,
-                                          typename Smem<I4, BM>::Stage& st, int stg) {
-  constexpr int QB = Lane<I4, BM>::QB;
+// Stage stg (payload, scale words, mins words, x of the run's rows, zeros
+// for the others) into a ring slot.
+template <bool I4, int BM, bool MN>
+__device__ __forceinline__ void lane_load(const Params& p, const Lane<I4, BM, MN>& L,
+                                          typename Smem<I4, BM, MN>::Stage& st, int stg) {
+  constexpr int QB = Lane<I4, BM, MN>::QB;
   const int t = threadIdx.x, qb = stg * QB;
 #pragma unroll
-  for (int i = 0; i < Lane<I4, BM>::NQ; ++i) {  // 128 rows x QB/16 chunks of 16 bytes
+  for (int i = 0; i < Lane<I4, BM, MN>::NQ; ++i) {  // 128 rows x QB/16 chunks of 16 bytes
     const int idx = t + i * qring::kThreads;
     qring::cp_async16(&st.q[idx * 16], L.q[i] + qb, true);
   }
@@ -171,33 +180,50 @@ __device__ __forceinline__ void lane_load(const Params& p, const Lane<I4, BM>& L
     const size_t w0 = (L.sload + gdiv(p, qb)) >> 1, w1 = (L.sload + gdiv(p, qb + QB - 1)) >> 1;
     uint32_t* d = st.s[I4 ? t >> 1 : t][I4 ? t & 1 : 0];
     for (size_t wi = w0; wi <= w1; ++wi) qring::cp_async4(d + (wi - w0), L.sw + wi, true);
+    if constexpr (MN) {
+      const size_t mload = L.sload + gdiv(p, p.K);  // K/G: the row's mins follow its scales
+      const size_t m0 = (mload + gdiv(p, qb)) >> 1, m1 = (mload + gdiv(p, qb + QB - 1)) >> 1;
+      uint32_t* dm = st.m[I4 ? t >> 1 : 0][I4 ? t & 1 : 0];
+      for (size_t wi = m0; wi <= m1; ++wi) qring::cp_async4(dm + (wi - m0), L.sw + wi, true);
+    }
   }
 #pragma unroll
-  for (int i = 0; i < Lane<I4, BM>::NX; ++i) {  // x: BM rows x 8 chunks of 8 bf16
+  for (int i = 0; i < Lane<I4, BM, MN>::NX; ++i) {  // x: BM rows x 8 chunks of 8 bf16
     const int idx = t + i * qring::kThreads;
     qring::cp_async16(&st.x[idx / kCPR<I4, BM> * kXS<I4, BM> + idx % kCPR<I4, BM> * 8],
                       L.x[i] != nullptr ? L.x[i] + qb : p.x, L.x[i] != nullptr);
   }
 }
 
-// the scale (bf16 bits) in ring slot row r, half h, of byte or column k of
-// stage stg; e: the row's scale element base (Lane::sdq)
+// the scale (bf16 bits) of byte or column k of stage stg among the words
+// `words` of a ring slot's (row, half) (Stage::s, or Stage::m for a min);
+// e: the row's element base of those words (Lane::sdq, plus K/G for a min)
 template <bool I4, int BM>
-__device__ __forceinline__ uint32_t stage_scale(const Params& p,
-                                                const typename Smem<I4, BM>::Stage& st,
-                                                size_t e, int r, int h, int stg, int k) {
+__device__ __forceinline__ uint32_t stage_scale(const Params& p, const uint32_t* words,
+                                                size_t e, int stg, int k) {
   const int j0 = gdiv(p, stg * kStageBytes<I4, BM>);
   const int idx = gdiv(p, stg * kStageBytes<I4, BM> + k) - j0 + static_cast<int>((e + j0) & 1);
-  return reinterpret_cast<const uint16_t*>(st.s[r][h])[idx];
+  return reinterpret_cast<const uint16_t*>(words)[idx];
+}
+
+// bf16 pair w less the min pair m: the difference of two bf16 values
+// rounded to bf16 once (a bf16x2 subtraction).  The plain version rounds it
+// to f32 first, which is the same number: f32 holds the difference exactly
+// unless the exponents are 16 or more apart, and then it lies within
+// 2^-15 of the larger, far from a bf16 rounding tie.
+__device__ __forceinline__ uint32_t sub_min(uint32_t w, uint32_t m) {
+  const __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&w),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&m));
+  return *reinterpret_cast<const uint32_t*>(&r);
 }
 
 // The stage's payload dequantized into the [128 n][SK k] bf16 tile: thread
 // t takes half of payload row t / 2 (i4p: both nibbles of its bytes; i8:
-// its bytes), 16 columns of K a scale.
-template <bool I4, int BM>
-__device__ __forceinline__ void lane_dequant(const Params& p, const Lane<I4, BM>& L,
-                                             const typename Smem<I4, BM>::Stage& st, uint16_t* w,
-                                             int stg, uint32_t bias) {
+// its bytes), 16 columns of K a scale (and a min, MN).
+template <bool I4, int BM, bool MN>
+__device__ __forceinline__ void lane_dequant(const Params& p, const Lane<I4, BM, MN>& L,
+                                             const typename Smem<I4, BM, MN>::Stage& st,
+                                             uint16_t* w, int stg, uint32_t bias) {
   constexpr int QB = kStageBytes<I4, BM>;
   constexpr int XS = kXS<I4, BM>;
   const int t = threadIdx.x, r = t >> 1, c = t & 1;
@@ -206,13 +232,23 @@ __device__ __forceinline__ void lane_dequant(const Params& p, const Lane<I4, BM>
     const int b = c * (QB / 2) + cc * 16;  // the chunk's first byte (of the stage's half)
     const uint4 q = *reinterpret_cast<const uint4*>(&st.q[r * QB + b]);
     const uint32_t qv[4] = {q.x, q.y, q.z, q.w};
-    const uint32_t sl = stage_scale<I4, BM>(p, st, L.sdq[0], r, 0, stg, b) * 0x10001u;
+    const uint32_t sl = stage_scale<I4, BM>(p, st.s[r][0], L.sdq[0], stg, b) * 0x10001u;
     uint32_t lo[8], hi[8];
     if constexpr (I4) {
-      const uint32_t sh = stage_scale<I4, BM>(p, st, L.sdq[1], r, 1, stg, b) * 0x10001u;
+      const uint32_t sh = stage_scale<I4, BM>(p, st.s[r][1], L.sdq[1], stg, b) * 0x10001u;
 #pragma unroll
       for (int i = 0; i < 8; ++i)
         qring::dq_nibbles(qv[i >> 1] >> ((i & 1) * 16), bias, sl, sh, lo[i], hi[i]);
+      if constexpr (MN) {
+        const size_t kg = gdiv(p, p.K);  // K/G: the row's mins follow its scales
+        const uint32_t ml = stage_scale<I4, BM>(p, st.m[r][0], L.sdq[0] + kg, stg, b) * 0x10001u;
+        const uint32_t mh = stage_scale<I4, BM>(p, st.m[r][1], L.sdq[1] + kg, stg, b) * 0x10001u;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          lo[i] = sub_min(lo[i], ml);
+          hi[i] = sub_min(hi[i], mh);
+        }
+      }
     } else {
 #pragma unroll
       for (int i = 0; i < 8; ++i) lo[i] = qring::dq_bytes(qv[i >> 1] >> ((i & 1) * 16), sl);
@@ -230,9 +266,9 @@ __device__ __forceinline__ void lane_dequant(const Params& p, const Lane<I4, BM>
 
 // acc = x rows [ra, rb) of the block @ payload rows wrow0 .. + 127 over
 // stages [s0, s1), from zero, k16 steps in order.
-template <bool I4, int BM>
+template <bool I4, int BM, bool MN>
 __device__ __forceinline__ void lane_pass(
-    const Params& p, Smem<I4, BM>& sm, size_t wrow0, int m0, int ra, int rb, int s0, int s1,
+    const Params& p, Smem<I4, BM, MN>& sm, size_t wrow0, int m0, int ra, int rb, int s0, int s1,
     float (&acc)[qring::Warps<BM>::MI][qring::Warps<BM>::NI][4]) {
   using W = qring::Warps<BM>;
   constexpr int S = kRing<I4, BM>;
@@ -243,18 +279,18 @@ __device__ __forceinline__ void lane_pass(
   const bool rows = m0 + r0 < rb && m0 + r0 + W::MI * 16 > ra;  // the warp has a row of the run
   const uint32_t bias = qring::nibble_bias(p.zero);
   const int n = s1 - s0;
-  const Lane<I4, BM> L(p, wrow0, m0, ra, rb);
+  const Lane<I4, BM, MN> L(p, wrow0, m0, ra, rb);
   qring::zero_acc(acc);
 #pragma unroll
   for (int i = 0; i < S - 1; ++i) {
-    if (i < n) lane_load<I4, BM>(p, L, sm.st[i], s0 + i);
+    if (i < n) lane_load<I4, BM, MN>(p, L, sm.st[i], s0 + i);
     qring::cp_commit();
   }
   for (int i = 0; i < n; ++i) {
     qring::cp_wait<S - 2>();
     __syncthreads();  // stage i is in; the last stage's tile and slot are free
-    const typename Smem<I4, BM>::Stage& st = sm.st[i % S];
-    lane_dequant<I4, BM>(p, L, st, sm.w, s0 + i, bias);
+    const typename Smem<I4, BM, MN>::Stage& st = sm.st[i % S];
+    lane_dequant<I4, BM, MN>(p, L, st, sm.w, s0 + i, bias);
     __syncthreads();  // the tile is dequantized
     if (rows) {
 #pragma unroll
@@ -273,17 +309,17 @@ __device__ __forceinline__ void lane_pass(
     }
     // the copy into the slot stage i - 1 left, after this stage's work
     if (i + S - 1 < n)
-      lane_load<I4, BM>(p, L, sm.st[(i + S - 1) % S], s0 + i + S - 1);
+      lane_load<I4, BM, MN>(p, L, sm.st[(i + S - 1) % S], s0 + i + S - 1);
     qring::cp_commit();
   }
   __syncthreads();  // every warp is done with the ring before it is filled again
 }
 
-template <bool I4, int BM>
+template <bool I4, int BM, bool MN>
 __global__ void __launch_bounds__(qring::kThreads, 2) lane_kernel(Params p) {
   using W = qring::Warps<BM>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem<I4, BM>& sm = *reinterpret_cast<Smem<I4, BM>*>(smem_raw);
+  Smem<I4, BM, MN>& sm = *reinterpret_cast<Smem<I4, BM, MN>*>(smem_raw);
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int wm = warp % W::WM, wn = warp / W::WM;
   const int gid = lane >> 2, tig = lane & 3;
@@ -315,7 +351,7 @@ __global__ void __launch_bounds__(qring::kThreads, 2) lane_kernel(Params p) {
       rb = min(ra + 32, lend);
       while (rb < lend && p.tile_expert[rb / 32] == e) rb = min(rb + 32, lend);
     }
-    lane_pass<I4, BM>(p, sm, static_cast<size_t>(e) * p.N + n0, m0, ra, rb, s0, s1, acc);
+    lane_pass<I4, BM, MN>(p, sm, static_cast<size_t>(e) * p.N + n0, m0, ra, rb, s0, s1, acc);
 #pragma unroll
     for (int mi = 0; mi < W::MI; ++mi)
 #pragma unroll
@@ -354,26 +390,28 @@ __global__ void __launch_bounds__(qring::kThreads, 2) lane_kernel(Params p) {
   }
 }
 
-template <bool I4, int BM>
+template <bool I4, int BM, bool MN>
 cudaError_t launch(const Params& p, cudaStream_t st) {
-  constexpr int bytes = sizeof(Smem<I4, BM>);
+  constexpr int bytes = sizeof(Smem<I4, BM, MN>);
   static bool ready = false;
-  const cudaError_t e = qring::allow_smem(lane_kernel<I4, BM>, bytes, ready);
+  const cudaError_t e = qring::allow_smem(lane_kernel<I4, BM, MN>, bytes, ready);
   if (e != cudaSuccess) return e;
   const dim3 grid(p.N / kBN, p.KS, (p.M + BM - 1) / BM);
-  lane_kernel<I4, BM><<<grid, qring::kThreads, bytes, st>>>(p);
+  lane_kernel<I4, BM, MN><<<grid, qring::kThreads, bytes, st>>>(p);
   return cudaGetLastError();
 }
 
 template <int BM>
-cudaError_t launch_bm(const Params& p, int i4, cudaStream_t st) {
-  return i4 ? launch<true, BM>(p, st) : launch<false, BM>(p, st);
+cudaError_t launch_bm(const Params& p, int i4, int mins, cudaStream_t st) {
+  if (mins) return i4 ? launch<true, BM, true>(p, st) : cudaErrorInvalidValue;
+  return i4 ? launch<true, BM, false>(p, st) : launch<false, BM, false>(p, st);
 }
 
 }  // namespace
 
 // y [M, N] f32 = x [M, K] bf16 @ W^T for a lane-major weight: i4 = 1 for i4p
-// (zero point `zero`), 0 for i8.  tile_expert (int32 [ceil(M/32)]) selects,
+// (zero point `zero`), 0 for i8; mins = 1 (i4p only) when the scale planes
+// hold the halves' mins after their scales ([R, 4, K/(2G)]).  tile_expert (int32 [ceil(M/32)]) selects,
 // per 32-row tile, the rows [e·N, e·N + N) of the stacked payload; null
 // takes rows [0, N).  rows_used (one int32 on the device, a multiple of 32,
 // or null): rows at or past it are written as zeros.  bm rows of x per block
@@ -384,7 +422,8 @@ cudaError_t launch_bm(const Params& p, int i4, cudaStream_t st) {
 // CUDA error of the launch (0 on success).
 extern "C" int bt_qmm_lane(const void* x, const void* q, const void* s, void* out, void* part,
                            void* tickets, const void* tile_expert, const void* rows_used, int M,
-                           int K, int N, int G, int zero, int i4, int bm, int ks, void* stream) {
+                           int K, int N, int G, int zero, int i4, int mins, int bm, int ks,
+                           void* stream) {
   Params p{static_cast<const uint16_t*>(x), static_cast<const uint8_t*>(q),
            static_cast<const uint16_t*>(s), static_cast<float*>(out), static_cast<float*>(part),
            static_cast<int*>(tickets), static_cast<const int*>(tile_expert),
@@ -392,9 +431,9 @@ extern "C" int bt_qmm_lane(const void* x, const void* q, const void* s, void* ou
            (G & (G - 1)) == 0 ? __builtin_ctz(static_cast<unsigned>(G)) : -1};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if (bm == 32) e = launch_bm<32>(p, i4, st);
-  else if (bm == 64) e = launch_bm<64>(p, i4, st);
-  else if (bm == 128) e = launch_bm<128>(p, i4, st);
+  if (bm == 32) e = launch_bm<32>(p, i4, mins, st);
+  else if (bm == 64) e = launch_bm<64>(p, i4, mins, st);
+  else if (bm == 128) e = launch_bm<128>(p, i4, mins, st);
   else e = cudaErrorInvalidValue;
   return static_cast<int>(e);
 }

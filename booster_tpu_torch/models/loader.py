@@ -2,7 +2,8 @@
 layers stacked on a leading axis).
 
 Port of the llama path of ``booster_tpu/models/loader.py``: every Q4_0,
-Q8_0 or Q6_K weight is repacked losslessly (quant.qtensor) or, with ``weights="bf16"``,
+Q8_0, Q4_K or Q6_K weight is repacked losslessly (quant.qtensor; Q4_K to
+i4 with four scale planes, the halves' scales and mins) or, with ``weights="bf16"``,
 dequantized exactly to dense bf16 (``"auto"`` picks as the JAX loader
 does), or with ``weights="i8"`` widened exactly to int8; with
 ``weights="i8c"`` each layer's fused weights and the output head are
@@ -294,7 +295,8 @@ def load_model(path: str, device="cuda", weights: str = "native",
             read from the file (so the map's pages do not stay resident)."""
             info = reader.tensors[name]
             raw = reader.tensor_bytes(info)
-            if dev.type == "cuda" and info.ggml_type in (GGMLType.Q4_0, GGMLType.Q8_0):
+            if dev.type == "cuda" and info.ggml_type in (GGMLType.Q4_0, GGMLType.Q8_0,
+                                                         GGMLType.Q4_K):
                 if not staging or staging[0].numel() < info.nbytes:
                     staging[:] = [torch.empty(info.nbytes, dtype=torch.uint8, pin_memory=True)]
                 raw = staging[0][:info.nbytes]

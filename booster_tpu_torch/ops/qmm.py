@@ -32,7 +32,8 @@ Numerics (see the sources' headers): i4t at M = 1, the group-dot form
 min term.  i8t at M = 1 ``y = sum_g f32(bf16 s)·(sum bf16(x)·q) - f32(bf16
 m)·xs`` (mins, with the group sums xs of bf16(x), only in this form); at M > 1
 ``w = bf16(f32(q)·f32(bf16 s))``, ``y = bf16(x) @ w`` in f32.  Lane-major at
-any M ``w = bf16(bf16(q - zero)·bf16(s))``, ``y = bf16(x) @ w`` in f32.  i8c at any
+any M ``w = bf16(bf16(q - zero)·bf16(s))`` (less bf16(m), rounded again, with
+mins), ``y = bf16(x) @ w`` in f32.  i8c at any
 M ``y = (bf16(x) @ q)`` in f32, then ``· s[n]`` in f32.  The plain
 versions use f32 matmuls (``torch.backends.cuda.matmul.allow_tf32`` must
 stay False, its default, on the card).
@@ -64,7 +65,7 @@ _I8C_SIGNATURES = {
 _MV_I8C_ROWS = 32  # rows of K of an i8c chunk of csrc/i8mv.cuh (kI8cRows; i8t: the group)
 _MV_WARPS = 8  # warps of a block of csrc/i8mv.cuh (kWarps)
 _LANE_SIGNATURES = {
-    "bt_qmm_lane": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    "bt_qmm_lane": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
 }
 _TILE_N = 128  # output columns of a block of the M > 1 tiles (i4t, lane-major, i8k)
 _I8K_BK = 64  # rows of K a stage of csrc/i8k_tile.cuh
@@ -592,10 +593,11 @@ def lane_launch(x: torch.Tensor, w: QTensor, N: int, name: str,
     [0, N) of a lane-major weight, or, with a tile table, over the rows of
     each 32-row tile's expert (ops.moe.grouped_qmm).  Raises unless the
     kernel takes the operands: contiguous bf16 x on 16 bytes; an i4p (u8
-    [R, K/2]) or i8 (int8 [R, K]) payload with bf16 prepared scale planes
-    and no mins; N a multiple of 128; K of 128 and of 2G; G of 16.  Rows
-    per block and K splits: ``lane_plan`` (with the experts E = rows / N of
-    the stacked payload for a tile table)."""
+    [R, K/2]) payload with bf16 prepared planes (the halves' scales, then
+    their mins when affine: Q4_K) or an i8 (int8 [R, K]) one with bf16
+    prepared scale planes and no mins; N a multiple of 128; K of 128 and of
+    2G; G of 16.  Rows per block and K splits: ``lane_plan`` (with the
+    experts E = rows / N of the stacked payload for a tile table)."""
     w = w.resolved()
     M, K = x.shape
     i4 = w.kind == "i4p"
@@ -608,11 +610,11 @@ def lane_launch(x: torch.Tensor, w: QTensor, N: int, name: str,
             or tuple(w.qw.shape) != want[1] or not w.qw.is_contiguous():
         raise ValueError(f"{name} kernel: payload must be contiguous i4p u8 [R, K/2] "
                          f"or i8 int8 [R, K], K = {K}")
-    if has_mins:
-        raise NotImplementedError(f"{name} kernel: weights with mins: not ported yet "
-                                  "(Q4_0 and Q8_0 have none)")
+    if has_mins and not i4:
+        raise NotImplementedError(f"{name} kernel: i8 weights with mins (Q5_K, Q5_1): "
+                                  "not ported yet")
     if s3.dtype != torch.bfloat16 or not s3.is_contiguous() or tuple(s3.shape) != (
-            R, w.scale_rows, K // (w.scale_rows * w.group)):
+            R, w.scale_rows * (2 if has_mins else 1), K // (w.scale_rows * w.group)):
         raise ValueError(f"{name} kernel: scales must be contiguous bf16 prepared planes "
                          "(prepare_kernel_scales, compact_scales)")
     if N % 128 or K % 128 or K % (2 * w.group) or w.group % 16:
@@ -639,7 +641,7 @@ def lane_launch(x: torch.Tensor, w: QTensor, N: int, name: str,
                          None if part is None else part.data_ptr(), tickets.data_ptr(),
                          None if tile_expert is None else tile_expert.data_ptr(),
                          None if rows_used is None else rows_used.data_ptr(),
-                         M, K, N, w.group, w.zero, int(i4), bm, ks,
+                         M, K, N, w.group, w.zero, int(i4), int(has_mins), bm, ks,
                          torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(rc, name)
     kernels.count(name, (K, N))

@@ -1,18 +1,18 @@
 """Bit-exact (de)quantization of the ggml block formats the port loads, in numpy.
 
-A copy of the Q4_0, Q8_0, Q6_K and float parts of
+A copy of the Q4_0, Q8_0, Q4_K, Q6_K and float parts of
 ``booster_tpu/quant/formats.py`` (decode semantics:
-llama.cpp/ggml/src/ggml-quants.c dequantize_row_q4_0/q8_0/q6_K; the Q4_0 and
-Q8_0 encoders are quantize_row_q4_0_ref/q8_0_ref, the Q6_K encoder the JAX
-package's amax seed without llama.cpp's scale search).  The other block
-formats are not ported yet.
+llama.cpp/ggml/src/ggml-quants.c dequantize_row_q4_0/q8_0/q4_K/q6_K; the
+Q4_0 and Q8_0 encoders are quantize_row_q4_0_ref/q8_0_ref, the Q4_K and Q6_K
+encoders the JAX package's per-group affine and amax seeds without
+llama.cpp's scale search).  The other block formats are not ported yet.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from booster_tpu_torch.gguf.constants import QK_K, GGMLType, TYPE_TRAITS
+from booster_tpu_torch.gguf.constants import K_SCALE_SIZE, QK_K, GGMLType, TYPE_TRAITS
 
 F16 = np.dtype("<f2")
 F32 = np.dtype("<f4")
@@ -49,6 +49,32 @@ def _dequant_q8_0(b: np.ndarray) -> np.ndarray:
     return q * d
 
 
+def _kscales_6bit(scales: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Unpack the 12-byte packed 6-bit scales and mins of Q4_K: (sc, m),
+    each [n, 8] uint8, one per 32-element group (get_scale_min_k4)."""
+    s = scales.astype(np.uint8)
+    sc = np.empty(s.shape[:-1] + (8,), dtype=np.uint8)
+    mn = np.empty_like(sc)
+    sc[..., :4] = s[..., 0:4] & 63
+    mn[..., :4] = s[..., 4:8] & 63
+    sc[..., 4:] = (s[..., 8:12] & 0x0F) | ((s[..., 0:4] >> 6) << 4)
+    mn[..., 4:] = (s[..., 8:12] >> 4) | ((s[..., 4:8] >> 6) << 4)
+    return sc, mn
+
+
+def _dequant_q4_k(b: np.ndarray) -> np.ndarray:
+    d = _f16(b[:, 0:2])  # [n,1]
+    dmin = _f16(b[:, 2:4])
+    sc, mn = _kscales_6bit(b[:, 4:16])  # [n,8]
+    qs = b[:, 16:144].reshape(-1, 4, 32)  # 4 chunks of 64 elems (32 bytes)
+    lo = (qs & 0x0F).astype(np.float32)  # group 2j
+    hi = (qs >> 4).astype(np.float32)  # group 2j+1
+    q = np.stack([lo, hi], axis=2).reshape(-1, 8, 32)  # [n, group, 32]
+    dl = (d * sc.astype(np.float32))[:, :, None]
+    ml = (dmin * mn.astype(np.float32))[:, :, None]
+    return (q * dl - ml).reshape(-1, QK_K)
+
+
 def _dequant_q6_k(b: np.ndarray) -> np.ndarray:
     ql = b[:, 0:128].reshape(-1, 2, 64)  # two 128-element halves
     qh = b[:, 128:192].reshape(-1, 2, 32)
@@ -67,7 +93,7 @@ def _dequant_q6_k(b: np.ndarray) -> np.ndarray:
 
 
 _DEQUANT = {GGMLType.Q4_0: _dequant_q4_0, GGMLType.Q8_0: _dequant_q8_0,
-            GGMLType.Q6_K: _dequant_q6_k}
+            GGMLType.Q4_K: _dequant_q4_k, GGMLType.Q6_K: _dequant_q6_k}
 
 
 def dequantize(data: np.ndarray | bytes, ggml_type: GGMLType, shape=None) -> np.ndarray:
@@ -118,6 +144,45 @@ def _quant_q8_0(x: np.ndarray) -> np.ndarray:
     return out
 
 
+def _pack_kscales_6bit(sc: np.ndarray, mn: np.ndarray) -> np.ndarray:
+    """Inverse of _kscales_6bit: [n,8]+[n,8] 6-bit values → [n,12] bytes."""
+    out = np.zeros((sc.shape[0], K_SCALE_SIZE), dtype=U8)
+    out[:, 0:4] = (sc[:, :4] & 63) | ((sc[:, 4:] >> 4) << 6)
+    out[:, 4:8] = (mn[:, :4] & 63) | ((mn[:, 4:] >> 4) << 6)
+    out[:, 8:12] = (sc[:, 4:] & 0x0F) | ((mn[:, 4:] & 0x0F) << 4)
+    return out
+
+
+def _affine_group_quant(x: np.ndarray, nbits: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-group affine quantization: q in [0, 2^nbits-1], x ≈ q*scale - min."""
+    qmax = (1 << nbits) - 1
+    mn = np.minimum(x.min(axis=-1), 0.0)
+    mx = np.maximum(x.max(axis=-1), 0.0)
+    scale = (mx - mn) / qmax
+    inv = np.where(scale > 0, 1.0 / np.where(scale == 0, 1, scale), 0.0)
+    q = np.clip(np.round((x - mn[..., None]) * inv[..., None]), 0, qmax).astype(np.uint8)
+    return q, scale, -mn
+
+
+def _quant_q4_k(x: np.ndarray) -> np.ndarray:
+    x = x.reshape(-1, 8, 32)  # 8 groups of 32
+    q, scale, minv = _affine_group_quant(x, 4)
+    smax = scale.max(axis=1)
+    mmax = minv.max(axis=1)
+    d = smax / 63.0
+    dmin = mmax / 63.0
+    sc = np.clip(np.round(scale / np.where(d == 0, 1, d)[:, None]), 0, 63).astype(U8)
+    mn = np.clip(np.round(minv / np.where(dmin == 0, 1, dmin)[:, None]), 0, 63).astype(U8)
+    n = x.shape[0]
+    out = np.empty((n, TYPE_TRAITS[GGMLType.Q4_K].type_size), dtype=U8)
+    out[:, 0:2] = _f16_bytes(d)
+    out[:, 2:4] = _f16_bytes(dmin)
+    out[:, 4:16] = _pack_kscales_6bit(sc, mn)
+    qq = q.reshape(n, 4, 2, 32)  # chunk j: groups 2j (lo nibble), 2j+1 (hi)
+    out[:, 16:144] = (qq[:, :, 0, :] | (qq[:, :, 1, :] << 4)).reshape(n, 128)
+    return out
+
+
 def _quant_q6_k(x: np.ndarray) -> np.ndarray:
     x = x.reshape(-1, 16, 16)  # 16 groups of 16
     amax = np.abs(x).max(axis=-1)
@@ -144,7 +209,8 @@ def _quant_q6_k(x: np.ndarray) -> np.ndarray:
     return out
 
 
-_QUANT = {GGMLType.Q4_0: _quant_q4_0, GGMLType.Q8_0: _quant_q8_0, GGMLType.Q6_K: _quant_q6_k}
+_QUANT = {GGMLType.Q4_0: _quant_q4_0, GGMLType.Q8_0: _quant_q8_0, GGMLType.Q4_K: _quant_q4_k,
+          GGMLType.Q6_K: _quant_q6_k}
 
 
 def quantize(x: np.ndarray, ggml_type: GGMLType) -> bytes:

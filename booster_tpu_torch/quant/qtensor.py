@@ -1,7 +1,8 @@
 """QTensor: quantized weights in the kernels' layout, over torch tensors.
 
-Port of ``booster_tpu/quant/qtensor.py`` for the Q4_0, Q8_0 and Q6_K llama
-paths.  At load time a GGUF Q4_0, Q8_0 or Q6_K tensor is *losslessly* repacked
+Port of ``booster_tpu/quant/qtensor.py`` for the Q4_0, Q8_0, Q4_K and Q6_K
+llama paths.  At load time a GGUF Q4_0, Q8_0, Q4_K or Q6_K tensor is
+*losslessly* repacked
 (torch bit operations, on the host or on the card) into
 
     value[r, c] = (q[r, c] - zero) * scales[r, c // group]  -  mins[r, c // group]
@@ -178,8 +179,25 @@ def _repack_q6_k(b: torch.Tensor, out_f: int, in_f: int) -> QTensor:
                    GGMLType.Q6_K)
 
 
+def _repack_q4_k(b: torch.Tensor, out_f: int, in_f: int) -> QTensor:
+    """Q4_K → i4p at group 32, zero 0 (``_repack_q4_k`` of the JAX package):
+    the split-half nibbles of each row in element order, the f32 scales
+    d·sc and mins dmin·mn of its 32-element groups (w = q·scale - min)."""
+    b = b.reshape(-1, TYPE_TRAITS[GGMLType.Q4_K].type_size)
+    d = b[:, 0:2].contiguous().view(torch.float16).float()  # [n, 1]
+    dmin = b[:, 2:4].contiguous().view(torch.float16).float()
+    s = b[:, 4:16]  # get_scale_min_k4's packing of 8 six-bit scales and mins
+    sc = torch.cat([s[:, 0:4] & 63, (s[:, 8:12] & 0x0F) | ((s[:, 0:4] >> 6) << 4)], dim=1)
+    mn = torch.cat([s[:, 4:8] & 63, (s[:, 8:12] >> 4) | ((s[:, 4:8] >> 6) << 4)], dim=1)
+    qs = b[:, 16:144].reshape(-1, 4, 32)  # chunk j: groups 2j (low nibbles), 2j + 1 (high)
+    q = torch.stack([qs & 0x0F, qs >> 4], dim=2).reshape(out_f, in_f)
+    return QTensor("i4p", _pack_nibbles_planar(q), (d * sc.float()).reshape(out_f, in_f // 32),
+                   (dmin * mn.float()).reshape(out_f, in_f // 32), 32, (out_f, in_f),
+                   GGMLType.Q4_K)
+
+
 _REPACK = {GGMLType.Q4_0: _repack_q4_0, GGMLType.Q8_0: _repack_q8_0,
-           GGMLType.Q6_K: _repack_q6_k}
+           GGMLType.Q4_K: _repack_q4_k, GGMLType.Q6_K: _repack_q6_k}
 _DENSE_TYPES = (GGMLType.F32, GGMLType.F16, GGMLType.BF16)
 
 
@@ -188,7 +206,7 @@ def repack_gguf_tensor(raw, ggml_type: GGMLType, shape: tuple[int, ...],
     """Raw GGUF tensor bytes (bytes, a numpy view or a uint8 torch tensor)
     → QTensor.  Tensors with more than 2 dims are flattened to
     [prod(leading), last].  Without `device` the fields are
-    host numpy arrays; with it, a Q4_0, Q8_0 or Q6_K tensor's bytes go to that
+    host numpy arrays; with it, a quantized tensor's bytes go to that
     torch device and are repacked there (the loader repacks the expert
     stacks of a MoE model on the card: a host repack of 26 GB takes
     minutes).  One torch implementation serves both, so the two agree bit
@@ -214,7 +232,8 @@ def repack_gguf_tensor(raw, ggml_type: GGMLType, shape: tuple[int, ...],
     qt = fn(b if device is None else b.to(device), out_f, in_f)
     if device is not None:
         return qt
-    return replace(qt, qw=qt.qw.numpy(), scales=qt.scales.numpy())
+    return replace(qt, qw=qt.qw.numpy(), scales=qt.scales.numpy(),
+                   mins=None if qt.mins is None else qt.mins.numpy())
 
 
 def repack_weights(qt: QTensor, mode: str) -> QTensor:

@@ -35,9 +35,10 @@ numpy array; a changed row goes to the card through pinned memory and an
 asynchronous copy, as do the decode dispatch's per-slot inputs, so no upload
 makes the host wait for the chunk in flight.
 
-Not ported yet: classifier-free guidance, Janus sampling and mirostat
-(batched or not), Self-Extend, grammar-masked decode
-(``masked_decode_slots``).
+Janus sampling runs in ``generate`` (its tables built once per engine from
+the tokenizer, a request's janus_scale applied on the host).  Not ported
+yet: classifier-free guidance, mirostat (batched or not), Janus in the
+batch, Self-Extend, grammar-masked decode (``masked_decode_slots``).
 """
 
 from __future__ import annotations
@@ -54,6 +55,7 @@ from booster_tpu_torch.models.loader import LoadedModel
 from booster_tpu_torch.ops.kv_cache import KVCache, shift_slot_cache
 from booster_tpu_torch.ops.paged_kv import (PageAllocator, PagedKVCache, gather_layer,
                                             scatter_layer)
+from booster_tpu_torch.sampling.janus import JanusTables, janus_sample
 from booster_tpu_torch.sampling.params import SamplingParams
 from booster_tpu_torch.sampling.samplers import (
     make_sampler_state,
@@ -147,6 +149,7 @@ class Engine:
         self._eog_np = mask
         self._eog_mask = torch.from_numpy(mask).to(self.device)
         self.cache = None
+        self._janus_tables: Optional[JanusTables] = None
         # prefix-sharing telemetry of the paged mode (surfaced on /health)
         self.prefix_lookups = self.prefix_hits = self.prefix_tokens_reused = 0
         self.paged = paged
@@ -170,6 +173,14 @@ class Engine:
             ids = self.tokenizer.encode("\n", add_bos=False) if self.tokenizer else []
             self._nl_token = ids[-1] if ids else -1
         return self._nl_token
+
+    def janus_tables(self) -> JanusTables:
+        """The vocabulary's Janus tables, built on first use."""
+        if self._janus_tables is None:
+            if self.tokenizer is None:
+                raise ValueError("janus sampling requires a tokenizer")
+            self._janus_tables = JanusTables.build(self.tokenizer)
+        return self._janus_tables
 
     def _new_cache(self, dense: bool = False):
         """The slot API's cache; `dense=True` forces a plain dense cache (the
@@ -277,14 +288,25 @@ class Engine:
                                 last_only=not gather, n_valid=to(nv))
         return logits[:, -1, :], cache
 
+    def _sample(self, logits: torch.Tensor, state, sampling: SamplingParams, nl_token: int,
+                janus: Optional[dict], max_predict: int):
+        """One token per row: Janus where `janus` holds its tables
+        (``JanusTables.on``; `max_predict` is the request's token limit,
+        toward which it boosts EOS), else the sampler chain."""
+        if janus is not None:
+            return janus_sample(logits, state, max_predict, sampling, **janus)
+        return sample(logits, state, sampling, nl_token)
+
     def _decode_chunk(self, cache: KVCache, tok: torch.Tensor, state, sampling,
-                      n_steps: int, nl_token: int):
+                      n_steps: int, nl_token: int, janus: Optional[dict] = None,
+                      max_predict: int = 0):
         """`n_steps` T = 1 steps with the tokens kept on the device:
         (tokens [B, n_steps], done [B, n_steps], cache, state)."""
         toks = []
         for _ in range(n_steps):
             logits, cache = forward(self.params, self.cfg, tok, cache, last_only=True)
-            nxt, state = sample(logits[:, -1, :], state, sampling, nl_token)
+            nxt, state = self._sample(logits[:, -1, :], state, sampling, nl_token, janus,
+                                      max_predict)
             toks.append(nxt)
             tok = nxt[:, None]
         toks = torch.stack(toks, dim=1)
@@ -301,8 +323,6 @@ class Engine:
         sampling = sampling.normalized()
         if sampling.cfg_scale != 1.0:
             raise NotImplementedError("classifier-free guidance: not ported yet")
-        if sampling.janus:
-            raise NotImplementedError("Janus sampling: not ported yet")
         if self_extend_group > 1:
             raise NotImplementedError("Self-Extend: not ported yet")
         if len(prompt_ids) > self.max_seq - 4:
@@ -312,12 +332,15 @@ class Engine:
         t_start = time.perf_counter()
         cache = self._new_cache(dense=True)
         state = make_seeded_state(
-            self.max_batch, max(self.history_window, sampling.penalty_last_n),
+            self.max_batch,
+            max(self.history_window, sampling.penalty_last_n, sampling.janus_depth),
             sampling.seed if sampling.seed >= 0 else int(time.time_ns() % (1 << 31)),
             prompt_ids, self.device)
+        janus = (self.janus_tables().on(self.device, sampling.janus_scale)
+                 if sampling.janus else None)
         t0 = time.perf_counter()
         lg, cache = self._prefill(cache, list(prompt_ids), gather=True)
-        tok, state = sample(lg, state, sampling, nl_token)
+        tok, state = self._sample(lg, state, sampling, nl_token, janus, max_new_tokens)
         generated = [int(tok[0])]  # the host readback ends the prefill
         t_prompt = time.perf_counter() - t0
 
@@ -379,7 +402,7 @@ class Engine:
                     inflight = None
                 break
             toks, done, cache, state = self._decode_chunk(
-                cache, device_tok, state, sampling, chunk, nl_token)
+                cache, device_tok, state, sampling, chunk, nl_token, janus, max_new_tokens)
             device_tok = toks[:, -1:]
             host_len += chunk
             n_steps += chunk
@@ -452,7 +475,8 @@ class Engine:
         """Free/claim a slot: release its pages, zero its cache length and
         its sampler-state row, seed its generator, set its sampling params.
         (`max_predict` serves Janus sampling and `se_group`/`se_window`
-        Self-Extend, neither ported yet: a non-zero `se_group` raises.)"""
+        Self-Extend, neither ported to the batch yet: Janus params and a
+        non-zero `se_group` raise.)"""
         if sampling.janus or sampling.mirostat in (1, 2) or sampling.cfg_scale != 1.0:
             raise NotImplementedError("Janus, mirostat and classifier-free guidance in the "
                                       "batch: not ported yet")

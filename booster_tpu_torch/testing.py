@@ -50,7 +50,10 @@ from booster_tpu_torch.ops.paged_attention import paged_attn_plain
 from booster_tpu_torch.ops.prefill_attention import prefill_attn_plain
 from booster_tpu_torch.ops.qmm import _MV_WARPS, lane_dequant, mv_chunk_rows, mv_plan
 from booster_tpu_torch.quant import quantize
-from booster_tpu_torch.quant.qtensor import QTensor, kernel_scales
+from booster_tpu_torch.quant.formats import _pack_kscales_6bit
+from booster_tpu_torch.quant.qtensor import (QTensor, compact_scales, kernel_scales,
+                                             prepare_kernel_scales, repack_gguf_tensor,
+                                             transpose_qtensor)
 from booster_tpu_torch.tokenizer.bpe import gpt2_split
 from booster_tpu_torch.tokenizer.vocab import BYTE_ENCODER, TokenType
 
@@ -346,7 +349,7 @@ def make_model(
 
 
 def random_blocks(rng: np.random.Generator, n: int, qt: GGMLType, scale: float) -> memoryview:
-    """`n` weights of type Q4_0, Q8_0 or Q6_K as random blocks: uniform codes
+    """`n` weights of type Q4_0, Q8_0, Q4_K or Q6_K as random blocks: uniform codes
     (nibbles 0-15 about the zero point 8, or int8 -127..127) and f16 scales
     of random sign whose size is that of quantizing normals of standard
     deviation `scale`: 32 such values have a largest magnitude of about
@@ -354,7 +357,25 @@ def random_blocks(rng: np.random.Generator, n: int, qt: GGMLType, scale: float) 
     here uniformly within ±20 % of it.  Q6_K: uniform 6-bit codes (0-63
     about 32), int8 group scales sc uniform in 64..127, and a positive f16
     super-block scale d of that size (16 values have a largest magnitude of
-    about 1.8·scale, so d·sc ≈ 1.8·scale/31 at sc ≈ 96), ±20 %."""
+    about 1.8·scale, so d·sc ≈ 1.8·scale/31 at sc ≈ 96), ±20 %.  Q4_K:
+    uniform nibbles, 6-bit group scales sc and mins mn uniform in 40..63,
+    and positive f16 d and dmin of the size that the affine quantizer gives
+    normals of standard deviation `scale` (32 such values span about
+    ±2.05·scale, so d·sc ≈ 4.1·scale/15 and dmin·mn ≈ 2.05·scale at sc, mn
+    ≈ 52), ±20 %: the min term is about as large as the mean scaled term,
+    so a weight is the difference of two terms of one size, as in a real
+    Q4_K file."""
+    if qt == GGMLType.Q4_K:
+        nb = n // 256
+        out = np.empty((nb, 144), np.uint8)
+        ds = [(rng.random(nb, dtype=np.float32) * 0.4 + 0.8) * (m * scale / 52)
+              for m in (4.1 / 15, 2.05)]
+        for i, v in enumerate(ds):
+            out[:, 2 * i:2 * i + 2] = v.astype(np.float16).view(np.uint8).reshape(nb, 2)
+        sc, mn = (rng.integers(40, 64, (nb, 8), dtype=np.uint8) for _ in range(2))
+        out[:, 4:16] = _pack_kscales_6bit(sc, mn)
+        out[:, 16:] = rng.integers(0, 256, (nb, 128), dtype=np.uint8)
+        return out.reshape(-1).data
     if qt == GGMLType.Q6_K:
         nb = n // 256
         out = np.empty((nb, 210), np.uint8)
@@ -378,6 +399,19 @@ def random_blocks(rng: np.random.Generator, n: int, qt: GGMLType, scale: float) 
         raise NotImplementedError(f"random blocks of {qt.name}: not ported yet")
     out[:, :2] = d.astype(np.float16).view(np.uint8).reshape(nb, 2)
     return out.reshape(-1).data
+
+
+def q4k_weight(N: int, K: int, seed: int, device, kmajor: bool = True,
+               scale: float = 0.05) -> QTensor:
+    """A real Q4_K weight [N, K] (``random_blocks``: the min term as large as
+    the scaled term) repacked by the port on `device`, its planes prepared
+    and bf16: K-major i4t with four planes [4, K/64, N] as the loader lays
+    out a dense weight (``kmajor``), else lane-major i4p with planes [N, 4,
+    K/64] as it keeps an expert stack."""
+    raw = torch.frombuffer(bytearray(random_blocks(np.random.default_rng(seed), N * K,
+                                                   GGMLType.Q4_K, scale)), dtype=torch.uint8)
+    qt = prepare_kernel_scales(repack_gguf_tensor(raw, GGMLType.Q4_K, (N, K), device=device))
+    return compact_scales(transpose_qtensor(qt) if kmajor else qt)
 
 
 def decode_attn_case(L: int, B: int, Hkv: int, G: int, S: int, D: int, Dc: int,
@@ -1047,14 +1081,34 @@ def qmm_i4t_mutants(x: torch.Tensor, w: QTensor, groups: tuple[int, int]) -> dic
     return out
 
 
+def qmm_mins_mutants(x: torch.Tensor, w: QTensor) -> dict:
+    """(x, w) pairs on which the plain versions compute what a kernel that
+    mishandles an affine weight's mins would (Q4_K: prepared planes, the
+    mins after the scales): the mins dropped, and the mins added where they
+    are subtracted.  Empty for a weight without mins."""
+    w = w.resolved()
+    s3, has_mins = kernel_scales(w)
+    if not has_mins:
+        return {}
+    dim = -3 if w.transposed else -2  # the plane axis: [R, SG, N] or [N, R, SG]
+    rows = s3.shape[dim] // 2
+    flip = s3.clone()
+    flip.narrow(dim, rows, rows).neg_()
+    return {"mins dropped": (x, dataclasses.replace(w, scales=s3.narrow(dim, 0, rows)
+                                                    .contiguous())),
+            "mins with the wrong sign": (x, dataclasses.replace(w, scales=flip))}
+
+
 def qmm_lane_mutants(x: torch.Tensor, w: QTensor, stages: tuple[int, int], sk: int) -> dict:
     """(x, w) pairs on which ``qmm_lane_plain`` computes what a wrong
     lane-major kernel would: the nibble halves swapped (i4p), each group's
-    scale from its neighbour, and one K split left out: stages [s0, s1) of
-    sk columns (``_lane_stage_cols``), with x zero there."""
+    scale from its neighbour, the mins dropped and taken with the wrong sign
+    (``qmm_mins_mutants``, where the weight has them), and one K split left
+    out: stages [s0, s1) of sk columns (``_lane_stage_cols``), with x zero
+    there."""
     w = w.resolved()
     out = {"a group's scale from its neighbour": (x, dataclasses.replace(
-        w, scales=torch.roll(w.scales, -1, -1)))}
+        w, scales=torch.roll(w.scales, -1, -1))), **qmm_mins_mutants(x, w)}
     if w.kind == "i4p":
         out["nibble halves swapped"] = (x, dataclasses.replace(w, qw=(w.qw >> 4) | (w.qw << 4)))
     xd = x.clone()

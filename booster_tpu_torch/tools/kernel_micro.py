@@ -115,7 +115,8 @@ def main(argv=None) -> dict:
              kernel="kv_append_layer_i8")
     del kc, vc, ks, vs
 
-    for tag, gt in FORMATS.items():
+    for tag in ("q4_0", "q8_0"):  # the JAX tool's formats (tools/kernel_micro.py:140)
+        gt = FORMATS[tag]
         for N, K, label in args.qmm_shapes:
             w = rng.normal(size=(N, K)).astype(np.float32) * 0.05
             qt = weight(w, gt, "lane", dev)

@@ -1,16 +1,17 @@
 """Clean per-matmul throughput of the port's qlinear at the 8B / 1B shapes.
 
-Counterpart of ``tools/qmm_clean.py`` on the H100: Q4_0 and Q8_0 weights
-(``quant.formats.quantize`` of seeded normals, ``repack_gguf_tensor``) in
-both layouts, "lane" (lane-major i4p / i8: csrc/qmm_lane.cu) and "kmaj"
+Counterpart of ``tools/qmm_clean.py`` on the H100: Q4_K, Q4_0 and Q8_0
+weights (``quant.formats.quantize`` of seeded normals,
+``repack_gguf_tensor``) in both layouts, "lane" (lane-major i4p / i8:
+csrc/qmm_lane.cu; Q4_K with its mins planes) and "kmaj"
 (``transpose_qtensor``'s K-major i4t / i8t: csrc/qmm_i4t.cu, qmm_i8t.cu),
 through ``ops.qmm.qmm`` at M = ``--bm`` rows, each held against its plain
 version and timed cold and warm (``tools.timing``, the counterpart of the
 JAX tool's ``timeit``).  ``--dense`` adds the bf16 ``torch.matmul``
-yardstick at the same shapes.  Q4_K is not ported yet.
+yardstick at the same shapes.
 
     python -m booster_tpu_torch.tools.qmm_clean [--device cuda|cpu] [--bm 1] [--shapes 8b|1b]
-        [--fmts q4_0,q8_0] [--label qkv] [--dense]
+        [--fmts q4_K,q4_0,q8_0] [--label qkv] [--dense]
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from booster_tpu_torch.tools.timing import BF16_OPS_PER_S, Ladder, emit
 SHAPES = {"8b": ((6144, 4096, "qkv"), (4096, 4096, "wo"), (28672, 4096, "gateup"),
                  (4096, 14336, "down")),
           "1b": ((2560, 2048, "qkv"), (11264, 2048, "gateup"), (2048, 5632, "down"))}
-FORMATS = {"q4_0": GGMLType.Q4_0, "q8_0": GGMLType.Q8_0}
+FORMATS = {"q4_K": GGMLType.Q4_K, "q4_0": GGMLType.Q4_0, "q8_0": GGMLType.Q8_0}
 
 
 def weight(w: np.ndarray, gt: GGMLType, layout: str, device) -> QTensor:
@@ -63,14 +64,13 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     ap.add_argument("--bm", type=int, default=1)
     ap.add_argument("--shapes", default="8b", help="8b, 1b, or N:K:label,...")
-    ap.add_argument("--fmts", default="q4_0,q8_0", help="comma list of formats to measure")
+    ap.add_argument("--fmts", default="q4_K,q4_0,q8_0",
+                    help="comma list of formats to measure")
     ap.add_argument("--label", default="", help="only measure shapes whose label contains this")
     ap.add_argument("--dense", action="store_true", help="include the bf16 reference")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     fmts = args.fmts.split(",")
-    if "q4_K" in fmts:
-        raise NotImplementedError("qmm_clean: q4_K weights: not ported yet")
     if set(fmts) - set(FORMATS):
         ap.error(f"formats are {sorted(FORMATS)}")
     shapes = SHAPES.get(args.shapes) or tuple(

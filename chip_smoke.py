@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--phases build,kernels,probes,parity,generate,batch,generate_i8,
                            generate_q8,batch_q8,server,generate_i8c,batch_i8c,generate_q6k,
-                           batch_q6k,generate_mpt,batch_mpt,generate_moe,batch_moe]
+                           batch_q6k,generate_mpt,batch_mpt,generate_q4k,generate_moe,
+                           batch_moe]
 
 Phases, each printing one JSON line with its seconds:
 
@@ -84,7 +85,17 @@ Phases, each printing one JSON line with its seconds:
    by one, the offset not clamped, the row at offset - 1; for int8 the
    scales not written and scale = amax) seen to leave another cache.  The
    appends' launch floor (csrc/kv_append.cu at one bf16 row) is timed and
-   printed beside every append row (launch_floor_ms).
+   printed beside every append row (launch_floor_ms).  Config 2's rows on
+   real Q4_K weights (random blocks repacked by the port: four planes, the
+   halves' scales then their mins, the min term as large as the scaled
+   term): qmm_i4t.cu's qkv, wo, down and fused gate-up at the Llama-3-8B
+   shapes at M = 1 and at M = 128 (bench's prompt's prefill), its lm head at
+   M = 1 and its qkv at the 8192-row prefill of the long prompt, each with
+   the mins dropped and the mins taken with the wrong sign among its wrong
+   kernels; and csrc/qmm_lane.cu's i4p form with mins on Q4_K expert stacks
+   of Mixtral-8x7B's width, grouped at 2 and 128 real rows and dense over
+   one expert at M = 1, with the same mins mutants beside the table, expert,
+   nibble, scale and K-split ones.
    Median times of kernel,
    plain version and one library call (the yardstick), each call after an
    L2 scrub (cold, as on the decode path), and the kernel's time warm
@@ -152,7 +163,11 @@ Phases, each printing one JSON line with its seconds:
    of 256 rows and the batched path over an int8 cache (4 slots, 2 live),
    whose steps launch the per-layer append once a layer (counted) and no
    stacked decode kernel, and a bf16 cache of 200 rows (the plain row
-   writes), 2 decode steps each.  The
+   writes), 2 decode steps each; (i) the Llama-3-8B width (config 2) in
+   Q4_K, every weight i4t with four planes, the single-stream path over a
+   bf16 cache, 2 decode steps; (j) the Mixtral-8x7B width in Q4_K (the
+   expert stacks lane-major i4p with mins), as (e) runs it, its card
+   launches counted as the path "parity (j)".  The
    live slots' logits agree within the stated tolerance at every step, and
    the greedy tokens wherever the CPU's top-2 margin exceeds it.
 4. generate — the full 22-layer TinyLlama-shaped Q4_0 GGUF (random weights
@@ -243,23 +258,25 @@ Phases, each printing one JSON line with its seconds:
    prefill; no i8t, MLP or dequantize-path matmul; batch_i8c's decode
    dispatches under torch's synchronization check, which must find none.
 9. generate_moe — the Mixtral-8x7B shape of the public
-   mistralai/Mixtral-8x7B-v0.1 config (32 layers, the 7B attention, 8
-   experts of ff 14336 with 2 used, rope base 1e6, vocab 32000) as a Q4_0
-   GGUF of 26 GB whose blocks are drawn from the seed (make_model
+   mistralai/Mixtral-8x7B-v0.1 config (the 7B attention, 8 experts of ff
+   14336 with 2 used, rope base 1e6, vocab 32000) cut from 32 layers to
+   24 (L below: the machine with the card takes 45 GiB of writes to its
+   disk a call, and every phase's GGUFs with a 32-layer Mixtral came to 49
+   GiB) as a Q4_0 GGUF of 20 GB whose blocks are drawn from the seed (make_model
    draw="blocks"; written by the background writer, under build/smoke/),
    loaded once with ``load_model(weights="auto")`` (native: i4t attention,
    lane-major i4p expert stacks repacked on the card; the load's peak
    anonymous RSS printed), then phase 4's generate on it.  Exact counts
    (the reference's _moe_ffn takes the grouped dispatch, llama.py:540 and
-   :188): per decode step 2·32 + 1 i4t group-dot matmuls, 3·32 grouped
-   expert matmuls, 32 bf16 decode attentions and one append; at the
-   16-row prefill 64 i4t dequant matmuls, 96 grouped ones and the lm head.
+   :188): per decode step 2·L + 1 i4t group-dot matmuls, 3·L grouped
+   expert matmuls, L bf16 decode attentions and one append; at the
+   16-row prefill 2·L i4t dequant matmuls, 3·L grouped ones and the lm head.
 10. batch_moe — the same model through phase 5's bench_batch (load_model
    (weights="auto", batch_hint=64) resolves to native for a file that is
-   93 GB as bf16: the same loaded model), 64 streams, int8 KV.  Exact
-   counts: per decode step and per prefill chunk 2·32 + 1 i4t dequant
-   matmuls and 96 grouped ones; 32 int8 decode attentions and one append
-   per step, 32 prefill attentions per chunk.  Every decode dispatch runs
+   70 GB as bf16: the same loaded model), 64 streams, int8 KV.  Exact
+   counts: per decode step and per prefill chunk 2·L + 1 i4t dequant
+   matmuls and 3·L grouped ones; L int8 decode attentions and one append
+   per step, L prefill attentions per chunk.  Every decode dispatch runs
    under torch's synchronization check, which must find no host sync.
 
    generate_q6k and batch_q6k (after batch_i8c) — the DeepSeek-Coder-1.3B
@@ -301,13 +318,33 @@ Phases, each printing one JSON line with its seconds:
    all-layer append; no host sync in a decode dispatch.  batch_mpt's
    warm-up runs chunks of 4 steps (a chunk of any length runs the same ops).
 
+   generate_q4k (after batch_mpt) — bench.py's config 2: the 32-layer
+   Llama-3-8B shape (hidden 4096, 32 heads over 8 kv heads, ff 14336,
+   vocab 32000) with every weight Q4_K (blocks drawn from the seed, 4.6 GB,
+   written by the background writer), loaded once with
+   ``load_model(weights="auto")`` (native: i4t with four planes), then
+   ``Engine(max_batch=1, max_seq=8192, decode_chunk=64)`` and, after bench's
+   warm-up, a generate of 128 tokens of bench's prompt with
+   ``SamplingParams(temp=0.8, janus=1, seed=0)``.  Exact counts, from the
+   reference's dispatch as phase 4's: per decode step 3·32 + 1 i4t
+   group-dot matvecs (qkv, wo, down, the lm head; counted by shape) and 32
+   fused M = 1 gate-ups, 32 bf16 decode attentions and one append; at the
+   128-row prefill 3·32 dequant matmuls, 32 dequant gate-ups and the lm
+   head; no dequantize-path matmul.  A 32-token window under torch.profiler
+   gives the busy share.  Then the long run: a prompt of Q4K_LONG ids (the
+   8192-row bucket; decode attention over ~7,000 rows) with 32 new tokens
+   (one 64-step chunk), its counts exact by the same rule; its TTFT and
+   tok/s printed.
+
 Then one ``{"kernels": [...]}`` line (each kernel's launches are those of
 the path that runs it: generate / generate_q8 for the M = 1 kernels and
 bf16-cache attention, batch / batch_q8 for the int8 ones, server for the
 paged ones, generate_moe / batch_moe for the grouped ones, generate_i8c /
 batch_i8c for the i8c ones, generate_q6k / batch_q6k for the group-16
 forms, the M = 1 fused gate-up and the 1.3B down, generate_mpt /
-batch_mpt for the per-layer appends; the bf16-pool
+batch_mpt for the per-layer appends, generate_q4k for config 2's Q4_K rows
+(its long run, generate_q4k_8k, for the 8192-row qkv), parity (j) for the
+lane-major mins form's grouped rows; the bf16-pool
 paged forms and the plain lane-major forms at the 7B shapes launch no time there)
 and, last,
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout of
@@ -337,7 +374,7 @@ sys.path.insert(0, str(ROOT))
 from booster_tpu_torch.tools.timing import bound, release as release_scrub, timed  # noqa: E402
 PHASES = ("build", "kernels", "probes", "parity", "generate", "batch", "generate_i8",
           "generate_q8", "batch_q8", "server", "generate_i8c", "batch_i8c", "generate_q6k",
-          "batch_q6k", "generate_mpt", "batch_mpt", "generate_moe", "batch_moe")
+          "batch_q6k", "generate_mpt", "batch_mpt", "generate_q4k", "generate_moe", "batch_moe")
 
 # TinyLlama-1.1B (config 1 of bench.py), Q4_0
 TINYLLAMA = dict(vocab_size=32000, hidden=2048, heads=32, kv_heads=4, ff=5632,
@@ -348,7 +385,8 @@ MISTRAL7B = dict(vocab_size=32000, hidden=4096, heads=32, kv_heads=8, ff=14336,
 # the public mistralai/Mixtral-8x7B-v0.1 config.json: the 7B attention (32
 # heads over 8 kv heads of 128), 8 experts of ff 14336 of which 2 are used,
 # rope_theta 1e6, 32K context; its quantized blocks drawn directly from the
-# seed (make_model draw="blocks"), 26 GB as Q4_0
+# seed (make_model draw="blocks"), 26 GB as Q4_0 at 32 layers (the full-size
+# phases run 24: LAYERS)
 MIXTRAL = dict(vocab_size=32000, hidden=4096, heads=32, kv_heads=8, ff=14336, experts=8,
                experts_used=2, rope_base=1e6, context=32768, seed=0, weight_scale=0.05,
                draw="blocks")
@@ -370,6 +408,19 @@ DEEPSEEK = dict(vocab_size=32256, hidden=2048, heads=16, kv_heads=16, ff=5504,
 MPT7B = dict(vocab_size=50432, hidden=4096, heads=32, kv_heads=32, ff=16384, arch="mpt",
              context=2048, rms_eps=1e-5, alibi_max_bias=8.0, output_quant="Q6_K", seed=0,
              weight_scale=0.05, draw="blocks")
+# the Llama-3-8B shape of bench.py's config 2 (bench.py:57-62): 4096 wide,
+# 32 heads over 8 kv heads of 128, ff 14336, vocab 32000, every 2-D weight
+# Q4_K (tools/make_test_model.py's rule: rows of a multiple of 256 take the
+# chosen type), its blocks drawn from the seed (4.6 GB)
+LLAMA3_8B = dict(vocab_size=32000, hidden=4096, heads=32, kv_heads=8, ff=14336, seed=0,
+                 weight_scale=0.05, draw="blocks")
+# config 2's run (bench.py:72-100): its prompt, engine and sampling
+Q4K_PROMPT = "benchmark " * 12
+Q4K_MAX_SEQ, Q4K_CHUNK = 8192, 64
+# the prompt's bucket, the prefill's rows: its 110 ids on the seeded SPM vocab
+# take the 128-row bucket (phase_generate_q4k checks it)
+Q4K_PREFILL_M = 128
+Q4K_LONG = 7000  # the long prompt's token ids: the 8192-row bucket, cache lens ~7,000
 # batch_mpt's prompt bucket: its prefill runs the i4t matmuls at M = 64·T
 # (the kernels phase times them there; phase_batch checks the bucket)
 BATCH_MPT_T = 16
@@ -519,18 +570,21 @@ def _i4t_split_groups(M, K, N):
     return (ks - 1) * ngh // ks, ngh
 
 
-def _i4t_row(entries, failures, label, w, M, gen, path, gateup=False, trials=5):
+def _i4t_row(entries, failures, label, w, M, gen, path, gateup=False, trials=5,
+             mins_on_path=False):
     """One i4t kernel row: qmm_i4t (or the fused gate-up) on x [M, K] against
     its plain version (2e-4 of the largest output; the gate-up per element,
     and bit-equal to the unfused kernel + silu·mul), equal to itself on a
-    second launch at M = 1, each wrong kernel of testing.qmm_i4t_mutants 8x
-    past the limit, timed cold and warm with the plain version and the bf16
-    library call."""
+    second launch at M = 1, each wrong kernel of testing.qmm_i4t_mutants
+    (and, with mins, of qmm_mins_mutants) 8x past the limit, timed cold and
+    warm with the plain version and the bf16 library call.  A row with mins
+    counts its launches on `path` where `mins_on_path` (Q4_K's path), else
+    under a key no path counts."""
     import torch
 
     from booster_tpu_torch.ops import qmm as tq
     from booster_tpu_torch.quant.qtensor import dequantize
-    from booster_tpu_torch.testing import qmm_i4t_mutants
+    from booster_tpu_torch.testing import qmm_i4t_mutants, qmm_mins_mutants
 
     N, K = w.shape
     R = w.resolved().scales.shape[0]
@@ -566,8 +620,8 @@ def _i4t_row(entries, failures, label, w, M, gen, path, gateup=False, trials=5):
         failures.append(f"{name} {label} M={M}: max err {err} past the limit")
     if M == 1 and not torch.equal(got, kern(x, w)):
         failures.append(f"{name} {label} M={M}: a second launch differs")
-    seen = {what: share(plain(xm, wm))
-            for what, (xm, wm) in qmm_i4t_mutants(x, w, _i4t_split_groups(M, K, N)).items()}
+    mutants = {**qmm_i4t_mutants(x, w, _i4t_split_groups(M, K, N)), **qmm_mins_mutants(x, w)}
+    seen = {what: share(plain(xm, wm)) for what, (xm, wm) in mutants.items()}
     for what, v in seen.items():
         if v < 8:
             failures.append(f"{name} {label} M={M}: the check cannot see {what} ({v})")
@@ -580,8 +634,9 @@ def _i4t_row(entries, failures, label, w, M, gen, path, gateup=False, trials=5):
     b_ms, b_by = bound(nbytes, 2 * M * K * N)
     entries.append({
         "name": name, "shape": f"{label} M={M} K={K} N={N}" + (" R=4" if R == 4 else ""),
-        # the mins form runs on no path: a key no launch counts under
-        "key": (name, (K, N) + (("mins",) if R == 4 else ())), "path": path,
+        # a synthetic mins form runs on no path: a key no launch counts under
+        "key": (name, (K, N) + (("mins",) if R == 4 and not mins_on_path else ())),
+        "path": path,
         "route": "cuda", "source": "booster_tpu_torch/csrc/qmm_i4t.cu",
         "replaces": {"qmm_i4t_gd": "booster_tpu/ops/pallas_qmm.py:393",
                      "qmm_i4t_dq": "booster_tpu/ops/pallas_qmm.py:469",
@@ -688,6 +743,8 @@ def phase_kernels(entries: list) -> dict:
     _i8c_kernels(entries, failures)
     _q6k_kernels(entries, failures)
     _moe_kernels(entries, failures)
+    _q4k_kernels(entries, failures)
+    _q4k_lane_kernels(entries, failures)
     floor = _append_floor()
     for e in entries:  # beside every append row: a row near it sits at the launch floor
         if e["name"].startswith("kv_append"):
@@ -1839,6 +1896,24 @@ def _grouped_yardstick(xp, wd, start, used):
             f"(torch._grouped_mm refused: {refused})")
 
 
+def _lane_check(failures: list, name, got, want, mutants: dict, plain) -> tuple[float, float]:
+    """A lane-major row's check: within 2e-4 of the largest output of its
+    plain version, and each wrong kernel (`mutants`: what → the arguments
+    of `plain`) 8x past that; (max error, the least wrong kernel's share of
+    the limit)."""
+    import torch
+
+    limit = 2e-4 * float(want.abs().max())
+    err = float((got - want).abs().max())
+    if not (err <= limit and torch.isfinite(got).all()):
+        failures.append(f"{name}: max err {err} over {limit}")
+    seen = {what: float((plain(m) - want).abs().max()) / limit for what, m in mutants.items()}
+    for what, v in seen.items():
+        if v < 8:
+            failures.append(f"{name}: the check cannot see {what} ({v} of the limit)")
+    return err, min(seen.values())
+
+
 def _moe_kernels(entries: list, failures: list) -> None:
     """The grouped expert matmul (csrc/qmm_lane.cu with a tile table), i4p
     and i8, at Mixtral-8x7B's expert shapes (gate and up [8 x 14336, 4096],
@@ -1866,15 +1941,7 @@ def _moe_kernels(entries: list, failures: list) -> None:
                 ("prefill 64x32", 64 * 32, "batch_moe"))
 
     def check(name, got, want, mutants, plain):
-        limit = 2e-4 * float(want.abs().max())
-        err = float((got - want).abs().max())
-        if not (err <= limit and torch.isfinite(got).all()):
-            failures.append(f"{name}: max err {err} over {limit}")
-        seen = {what: float((plain(m) - want).abs().max()) / limit for what, m in mutants.items()}
-        for what, v in seen.items():
-            if v < 8:
-                failures.append(f"{name}: the check cannot see {what} ({v} of the limit)")
-        return err, min(seen.values())
+        return _lane_check(failures, name, got, want, mutants, plain)
 
     for kind in ("i4p", "i8"):
         name = f"moe_qmm_{kind}"
@@ -1963,6 +2030,145 @@ def _moe_kernels(entries: list, failures: list) -> None:
                 del x, got, want
             del w, deq
     torch.cuda.empty_cache()
+
+
+def _q4k_kernels(entries: list, failures: list) -> None:
+    """Config 2's i4t rows (qmm_i4t.cu with four planes, zero 0) on real Q4_K
+    weights (testing.q4k_weight: random blocks repacked by the port on the
+    card, the min term as large as the scaled term) at the Llama-3-8B
+    shapes: qkv, wo, down and the fused gate-up at a decode step (M = 1)
+    and at the prefill of bench.py's prompt (M = 128), the lm head at M = 1,
+    and the qkv at the long prompt's 8192-row prefill; each through
+    _i4t_row (the mins dropped and taken with the wrong sign among its wrong
+    kernels), counted on generate_q4k's runs."""
+    import dataclasses
+
+    import torch
+
+    from booster_tpu_torch.testing import q4k_weight
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    C, ff, V = LLAMA3_8B["hidden"], LLAMA3_8B["ff"], LLAMA3_8B["vocab_size"]
+    nqkv = C + 2 * LLAMA3_8B["kv_heads"] * (C // LLAMA3_8B["heads"])
+    rows = (("qkv", C, nqkv, (1, Q4K_PREFILL_M, Q4K_MAX_SEQ)), ("wo", C, C, (1, Q4K_PREFILL_M)),
+            ("down", ff, C, (1, Q4K_PREFILL_M)), ("gateup", C, 2 * ff, (1, Q4K_PREFILL_M)),
+            ("lm_head", C, V, (1,)))
+    for i, (label, K, N, ms) in enumerate(rows):
+        w = q4k_weight(N, K, seed=100 + i, device="cuda")
+        w = dataclasses.replace(w, qw=w.qw[None], scales=w.scales[None]).at(0)  # a layer view
+        for M in ms:
+            _i4t_row(entries, failures, f"Llama-3-8B Q4_K {label}", w, M, gen,
+                     "generate_q4k_8k" if M == Q4K_MAX_SEQ else "generate_q4k",
+                     gateup=label == "gateup", trials=3, mins_on_path=True)
+        del w
+        torch.cuda.empty_cache()
+
+
+def _q4k_lane_kernels(entries: list, failures: list) -> None:
+    """The lane-major i4p form with mins (csrc/qmm_lane.cu, the port of
+    _qmm_i4_kernel with has_mins) on real Q4_K expert stacks at
+    Mixtral-8x7B's width (gate/up [8 x 14336, 4096], down [8 x 4096,
+    14336]): grouped under seeded routings of one decode token (2 real
+    rows) and of 64 (128), and dense (no tile table) over one expert's rows
+    at M = 1.  Within 2e-4 of the largest output of the plain version, zero
+    on the skipped padding tiles, and each wrong kernel (the tile table
+    ignored, the expert off by one, the nibble halves swapped, a group's
+    scale from its neighbour, the mins dropped, the mins with the wrong
+    sign, the last K split's partial dropped) 8x past that limit.  The
+    grouped rows count their launches on parity (j), the 2-layer Q4_K
+    Mixtral; no path runs the dense form."""
+    import dataclasses
+
+    import torch
+
+    from booster_tpu_torch.ops import moe
+    from booster_tpu_torch.ops import qmm as tq
+    from booster_tpu_torch.quant.qtensor import dequantize
+    from booster_tpu_torch.testing import q4k_weight, qmm_lane_mutants
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(18)
+    E, k, C, ff = MIXTRAL["experts"], MIXTRAL["experts_used"], MIXTRAL["hidden"], MIXTRAL["ff"]
+    src = "booster_tpu_torch/csrc/qmm_lane.cu"
+
+    def check(name, got, want, mutants, plain):
+        if not {"mins dropped", "mins with the wrong sign"} <= set(mutants):
+            failures.append(f"{name}: the mins mutants did not run")
+        return _lane_check(failures, name, got, want, mutants, plain)
+
+    for i, (label, Ne, K) in enumerate((("gate/up", ff, C), ("down", C, ff))):
+        w = q4k_weight(E * Ne, K, seed=200 + i, device="cuda", kmajor=False)
+        wb = (w.qw.numel() + 2 * w.scales.numel()) // E  # payload and planes of an expert
+        wd = dequantize(w, torch.bfloat16).reshape(E, Ne, K)
+        for rlabel, n_tok in (("decode B=1", 1), ("decode B=64", 64)):
+            x = torch.randn(n_tok, K, device="cuda", generator=gen).to(torch.bfloat16)
+            logits = torch.randn(n_tok, E, device="cuda", generator=gen)
+            topi = torch.sort(logits, dim=-1, descending=True, stable=True).indices[:, :k]
+            xp, pos, te, used = moe.route_pad(x, topi.to(torch.int32), E)
+            got = moe.grouped_qmm(xp, w, te, E, used)
+            want = moe.grouped_qmm_plain(xp, w, te, E, used)
+            n_used = int(used[0])
+            if got[n_used:].any():
+                failures.append(f"moe_qmm_i4p Q4_K {label} {rlabel}: padding tiles not zero")
+
+            def plain(m):  # (x, weight, tile table)
+                return moe.grouped_qmm_plain(*m, E, used)
+
+            stages, sk = _lane_split_stages(xp.shape[0], K, Ne, "i4p", E)
+            mutants = {"tile table ignored": (xp, w, torch.zeros_like(te)),
+                       "expert off by one": (xp, w, (te + 1) % E),
+                       **{what: (xm, wm, te)
+                          for what, (xm, wm) in qmm_lane_mutants(xp, w, stages, sk).items()}}
+            err, seen = check(f"moe_qmm_i4p Q4_K {label} {rlabel}", got, want, mutants, plain)
+            counts = torch.bincount(topi.reshape(-1), minlength=E)
+            start = torch.cat([torch.zeros(1, dtype=torch.int32, device="cuda"),
+                               torch.cumsum((counts + 31) // 32 * 32, 0, dtype=torch.int32)])
+            live = int((counts > 0).sum())
+            b_ms, b_by = bound(live * wb + n_used * K * 2 + n_used * Ne * 4,
+                               2 * n_tok * k * Ne * K)
+            lib_ms, lib = _grouped_yardstick(xp, wd, start, n_used)
+            entries.append({
+                "name": "moe_qmm_i4p",
+                "shape": f"Mixtral Q4_K {label} E={E} Ne={Ne} K={K} R=4 {rlabel}: "
+                         f"{n_tok * k} rows of Mp={xp.shape[0]}, {n_used} in {live} experts' "
+                         "tiles",
+                "key": ("moe_qmm_i4p", (K, Ne)), "path": "parity (j)", "route": "cuda",
+                "source": src, "replaces": "booster_tpu/ops/pallas_qmm.py:96 (has_mins, via "
+                                           "booster_tpu/ops/pallas_moe.py:113)",
+                "max_abs_err": err, "min_wrong_kernel_of_limit": seen,
+                "ms": timed(lambda: moe.grouped_qmm(xp, w, te, E, used)),
+                "warm_ms": timed(lambda: moe.grouped_qmm(xp, w, te, E, used), cold=False),
+                "plain_ms": timed_eager(lambda: moe.grouped_qmm_plain(xp, w, te, E, used)),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "bound_note": "payload and four planes of each expert a real row routes to, "
+                              "x and out of the tiles that hold real rows; operations of the "
+                              "real rows",
+                "library_ms": lib_ms, "library": lib, "check": CHECKS["qmm"]})
+            del x, xp, pos, te, used, got, want
+        # the dense form over expert 0's rows at a decode step
+        w0 = dataclasses.replace(w, qw=w.qw[:Ne], scales=w.scales[:Ne], shape=(Ne, K))
+        deq = wd[0]
+        x = torch.randn(1, K, device="cuda", generator=gen).to(torch.bfloat16)
+        got, want = tq.qmm_lane(x, w0), tq.qmm_lane_plain(x, w0)
+        err, seen = check(f"qmm_i4p Q4_K {label} M=1", got, want,
+                          qmm_lane_mutants(x, w0, *_lane_split_stages(1, K, Ne, "i4p")),
+                          lambda m: tq.qmm_lane_plain(*m))
+        b_ms, b_by = bound(wb + K * 2 + Ne * 4, 2 * Ne * K)
+        entries.append({
+            "name": "qmm_i4p", "shape": f"Mixtral Q4_K {label} (one expert) M=1 K={K} N={Ne} R=4",
+            "key": ("qmm_i4p", (K, Ne, "mins")), "path": "parity (j)", "route": "cuda",
+            "source": src, "replaces": "booster_tpu/ops/pallas_qmm.py:96 (has_mins, via "
+                                       "_qmm_i4 :225)",
+            "max_abs_err": err, "min_wrong_kernel_of_limit": seen,
+            "ms": timed(lambda: tq.qmm_lane(x, w0)),
+            "warm_ms": timed(lambda: tq.qmm_lane(x, w0), cold=False),
+            "plain_ms": timed(lambda: tq.qmm_lane_plain(x, w0), reps=3, trials=3),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": timed(lambda: torch.matmul(x, deq.t())),
+            "library": "torch.matmul on the dequantized bf16 weight", "check": CHECKS["qmm"]})
+        del w, w0, wd, deq, x, got, want
+        torch.cuda.empty_cache()
 
 
 # -- phase 2b: probes ---------------------------------------------------------
@@ -2645,9 +2851,13 @@ GGUFS = {"tiny": ("tinyllama-shape-q4_0", "TINYLLAMA", "Q4_0"),
          "moe": ("mixtral8x7b-shape-q4_0", "MIXTRAL", "Q4_0"),
          "moe_q8": ("mixtral8x7b-shape-q8_0", "MIXTRAL", "Q8_0"),
          "q6k": ("deepseek-coder-1.3b-shape-q6_k", "DEEPSEEK", "Q6_K"),
-         "mpt": ("mpt-7b-shape-q4_0", "MPT7B", "Q4_0")}
+         "mpt": ("mpt-7b-shape-q4_0", "MPT7B", "Q4_0"),
+         "q4k": ("llama3-8b-shape-q4_k", "LLAMA3_8B", "Q4_K"),
+         "moe_q4k": ("mixtral8x7b-shape-q4_k", "MIXTRAL", "Q4_K")}
 # each model's depth on its full-size phases
-LAYERS = {"tiny": 22, "q8": 32, "moe": 32, "q6k": 24, "mpt": 32}
+# (Mixtral cut to 24 of its 32: the card's machine takes 45 GiB of disk writes
+# a call, and with config 2's files a 32-layer Mixtral came to 49 GiB)
+LAYERS = {"tiny": 22, "q8": 32, "moe": 24, "q6k": 24, "mpt": 32, "q4k": 32}
 
 
 def _gguf_path(layers: int, model: str = "tiny") -> Path:
@@ -2829,6 +3039,8 @@ def phase_parity() -> dict:
     out.update(_parity_moe(tol, laps))
     out.update(_parity_q6k(tol, laps))
     out.update(_parity_mpt(tol, laps))
+    out.update(_parity_q4k(tol, laps))
+    out.update(_parity_moe(tol, laps, ("moe_q4k",), "j"))
     out["seconds"] = time.perf_counter() - t0
     out["part_s"] = laps.parts
     return out
@@ -2919,26 +3131,29 @@ def _parity_i8(tol: float, laps, ids: list) -> dict:
     return out
 
 
-def _parity_moe(tol: float, laps) -> dict:
+def _parity_moe(tol: float, laps, files=("moe", "moe_q8"), case: str = "e") -> dict:
     """(e) the Mixtral-8x7B width at 2 layers, Q4_0 and then Q8_0 (so that
-    the grouped kernel's i8 branch runs on a model path): the single-stream
-    path over a bf16 cache, a 16-row prefill and MOE_PARITY_STEPS decode
-    steps, the CPU (plain versions) against the card (kernels).  A router's
-    logits are bf16, so the two devices may route a token to other experts
-    where its k-th and (k+1)-th logits tie within their f32 summation
-    difference; such a step's logits (only that step's) are left out of the
-    comparison, each flip must be such a near-tie, and at most one step may
-    have one."""
+    the grouped kernel's i8 branch runs on a model path), and (j) the same
+    width in Q4_K (the expert stacks lane-major i4p with their mins planes:
+    the lane-major kernel's mins form; its card launches are counted as the
+    path "parity (j)"): the single-stream path over a bf16 cache, a 16-row
+    prefill and MOE_PARITY_STEPS decode steps, the CPU (plain versions)
+    against the card (kernels).  A router's logits are bf16, so the two
+    devices may route a token to other experts where its k-th and (k+1)-th
+    logits tie within their f32 summation difference; such a step's logits
+    (only that step's) are left out of the comparison, each flip must be
+    such a near-tie, and at most one step may have one."""
     import numpy as np
     import torch
 
     from booster_tpu_torch.models import llama, load_model
+    from booster_tpu_torch.ops import kernels
     from booster_tpu_torch.ops.kv_cache import KVCache
 
     out = {}
     k = MIXTRAL["experts_used"]
-    for model in ("moe", "moe_q8"):
-        tag = f"e {model}"
+    for model in files:
+        tag = f"{case} {model}"
         path, _ = _wait_gguf(model, 2)
         laps(f"{tag} wait")
         models = {dev: load_model(path, device=dev, weights="native") for dev in ("cpu", "cuda")}
@@ -2946,10 +3161,13 @@ def _parity_moe(tol: float, laps) -> dict:
         lay = models["cuda"].params["layers"]
         kinds = {key: lay[key].kind for key in ("wqkv", "wo", "gate_exps", "down_exps")}
         want_kinds = ({"wqkv": "i4t", "wo": "i4t", "gate_exps": "i4p", "down_exps": "i4p"}
-                      if model == "moe" else
+                      if model in ("moe", "moe_q4k") else
                       {"wqkv": "i8t", "wo": "i8t", "gate_exps": "i8", "down_exps": "i8"})
         if kinds != want_kinds or cfg.n_experts != MIXTRAL["experts"]:
             raise AssertionError(f"parity {model}: weights {kinds}, experts {cfg.n_experts}")
+        if model == "moe_q4k" and {lay[key].scales.shape[-2] for key in (
+                "gate_exps", "up_exps", "down_exps")} != {4}:
+            raise AssertionError(f"parity {model}: the expert stacks lack their mins planes")
         routed = {"cpu": [], "cuda": []}
         route = llama.moe_route
 
@@ -2962,11 +3180,18 @@ def _parity_moe(tol: float, laps) -> dict:
                   for dev in models}
         llama.moe_route = spy
         laps(f"{tag} load")
+        kernels.reset_counts()
         try:
             got, want = _teacher_forced(models, caches, [ids], 16, [True], laps, tag,
                                         steps=MOE_PARITY_STEPS)
         finally:
             llama.moe_route = route
+        card_launches = {k: v for k, v in kernels.launch_counts.items() if v}
+        if case == "j":  # the card's launches (the CPU runs the plain versions)
+            out.setdefault("_paths", {})["parity (j)"] = (dict(kernels.launch_counts),
+                                                          dict(kernels.shape_counts))
+            if not card_launches.get("moe_qmm_i4p"):
+                raise AssertionError("parity moe_q4k: the grouped kernel did not launch")
         L = cfg.n_layers
         flips, keep = [], []
         for step in range(got.shape[0]):
@@ -2993,11 +3218,41 @@ def _parity_moe(tol: float, laps) -> dict:
         res = _compare_logits(model, got[keep], want[keep], tol)
         if keep[:2] != [0, 1]:  # its first two compared steps are not prefill and decode 1
             res["prefill_rel_err"] = res["first_decode_rel_err"] = None
-        res.update(steps_compared=keep, routing_flips_at_near_ties=flips)
+        res.update(steps_compared=keep, routing_flips_at_near_ties=flips,
+                   card_launches=card_launches)
         out[f"{model}_mixtral_width_bf16_cache_1_slot"] = res
         del models, caches
         laps(f"{tag} check")
     return out
+
+
+def _parity_q4k(tol: float, laps) -> dict:
+    """(i) the Llama-3-8B width (config 2) at 2 layers in Q4_K, loaded
+    native on both devices (every weight K-major i4t with four planes): the
+    single-stream path over a bf16 cache, a 16-row prefill and
+    PARITY_7B_STEPS decode steps, the CPU's plain versions against the
+    card's kernels."""
+    from booster_tpu_torch.models import load_model
+    from booster_tpu_torch.ops.kv_cache import KVCache
+
+    path, _ = _wait_gguf("q4k", 2)
+    laps("i wait")
+    models = {dev: load_model(path, device=dev, weights="native") for dev in ("cpu", "cuda")}
+    cfg = models["cpu"].cfg
+    lay = models["cuda"].params["layers"]
+    planes = {k: (v.kind, v.scales.shape[-3]) for k, v in lay.items() if hasattr(v, "kind")}
+    if set(planes.values()) != {("i4t", 4)} or models["cuda"].params["output"].kind != "i4t":
+        raise AssertionError(f"parity q4_k: weights {planes}, not i4t with four planes")
+    ids = models["cpu"].tokenizer.encode(PROMPT)
+    caches = {dev: KVCache.create(cfg.n_layers, 1, 256, cfg.n_kv_heads, cfg.head_dim, dev)
+              for dev in models}
+    laps("i load")
+    got, want = _teacher_forced(models, caches, [ids], 16, [True], laps, "i",
+                                steps=PARITY_7B_STEPS)
+    res = _compare_logits("q4_k", got, want, tol)
+    del models, caches
+    laps("i check")
+    return {"q4_k_llama3_8b_width_bf16_cache_1_slot": res}
 
 
 def _parity_q6k(tol: float, laps) -> dict:
@@ -3158,7 +3413,7 @@ def _start_writer(jobs: list) -> None:
     """Write the GGUFs of `jobs` ((model, layers) in the order the phases
     need them) one after another in a process of its own while the earlier
     phases run: the TinyLlama's seeded normal draws take ~30 s of numpy, the
-    7B's 3 minutes, the Mixtral's 26 GB of blocks under a minute."""
+    7B's 3 minutes, the Mixtral's 20 GB of blocks under a minute."""
     todo = [f"{m}:{n}" for m, n in jobs if not _gguf_path(n, m).exists()]
     if todo:
         _writer["proc"] = subprocess.Popen(
@@ -3258,6 +3513,12 @@ def _big_model(model: str, layers: int = 32, weights: str = "auto"):
             want = dict.fromkeys(kinds, ("i8t", 16)) | {"w_down": ("i8", 32)}
         elif model == "mpt":  # llama.cpp's Q4_0 mix: Q4_0 layers, a Q6_K head
             want = dict.fromkeys(kinds, ("i4t", 32)) | {"output": ("i8t", 16)}
+        elif model == "q4k":  # every weight K-major i4t with Q4_K's four planes
+            want = dict.fromkeys(kinds, ("i4t", 32))
+            planes = {k: v.scales.shape[-3] for k, v in m.params["layers"].items()
+                      if hasattr(v, "kind")} | {"output": m.params["output"].scales.shape[-3]}
+            if set(planes.values()) != {4}:
+                raise AssertionError(f"{model}: scale planes {planes}, not four (scales, mins)")
         else:
             want = dict.fromkeys(kinds, ("i4t", 32)) | {
                 "router": ("dense", 1), "gate_exps": ("i4p", 32), "up_exps": ("i4p", 32),
@@ -3446,6 +3707,142 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
             "launches_by_shape": shapes, "tokens_head": res.token_ids[:16],
             "wall_ms": wall_ms, "profile": prof, "part_s": laps.parts,
             "_shape_counts": shape_counts}
+
+
+def phase_generate_q4k(layers: int) -> dict:
+    """bench.py's config 2 on the port: the 32-layer Llama-3-8B-shaped Q4_K
+    GGUF through ``load_model(weights="auto")`` (native: i4t with four
+    planes), ``Engine(max_batch=1, max_seq=8192, decode_chunk=64)`` and a
+    generate of 128 tokens of bench's prompt with ``SamplingParams(temp=0.8,
+    janus=1, seed=0)`` after bench's warm-up; exact launch counts per kernel
+    and per shape, no dequantize-path matmul; a 32-token window under
+    torch.profiler (busy share); then the long run: a prompt of Q4K_LONG
+    token ids (the 8192-row bucket; decode attention over ~7,000 cached
+    rows) with 32 new tokens, after one warm-up of its prefill, its counts
+    exact too."""
+    import torch
+
+    from booster_tpu_torch.ops import kernels
+    from booster_tpu_torch.sampling import SamplingParams
+    from booster_tpu_torch.serving import Engine
+    from booster_tpu_torch.serving.engine import _bucket
+
+    t0 = time.perf_counter()
+    laps = _Laps()
+    torch.cuda.reset_peak_memory_stats()
+    big = _big_model("q4k", layers, "auto")
+    model = big["model"]
+    cfg = model.cfg
+    L, C, FF, V = layers, cfg.n_embd, cfg.n_ff, cfg.n_vocab
+    nqkv = (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim
+    eng = Engine(model, max_batch=1, max_seq=Q4K_MAX_SEQ, decode_chunk=Q4K_CHUNK)
+    ids = eng.tokenizer.encode(Q4K_PROMPT)
+    if _bucket(len(ids), Q4K_MAX_SEQ) != Q4K_PREFILL_M:
+        raise AssertionError(f"bench's prompt: {len(ids)} ids do not take the "
+                             f"{Q4K_PREFILL_M}-row bucket the kernels phase times")
+    sp = SamplingParams(temp=0.8, janus=1, seed=0)
+    laps("load")
+    eng.generate(ids, sp, max_new_tokens=eng.decode_chunk + 1)  # bench.py's warm-up
+    torch.cuda.synchronize()
+    laps("warm-up")
+
+    def expect(steps: int) -> tuple[dict, dict]:
+        """Launch counts of a generate whose decode runs `steps` steps (the
+        reference's dispatch, as phase_generate's Q4_0 rule: per step qkv,
+        wo, down and the lm head in the group-dot matvec and the fused M = 1
+        gate-up; at the prefill, of any bucket, the dequant tile for qkv, wo,
+        down and the gate-up, the lm head on the last row), and the matmuls'
+        counts by (kernel, (K, N))."""
+        counts = {"qmm_i4t_gd": (3 * L + 1) * steps + 1, "qmm_i4t_dq": 3 * L,
+                  "qmm_i4t_gateup_gd": L * steps, "qmm_i4t_gateup_dq": L,
+                  "decode_attn": L * steps, "kv_append": steps}
+        shapes = {("qmm_i4t_gd", (C, nqkv)): L * steps, ("qmm_i4t_gd", (C, C)): L * steps,
+                  ("qmm_i4t_gd", (FF, C)): L * steps, ("qmm_i4t_gd", (C, V)): steps + 1,
+                  ("qmm_i4t_gateup_gd", (C, 2 * FF)): L * steps,
+                  ("qmm_i4t_dq", (C, nqkv)): L, ("qmm_i4t_dq", (C, C)): L,
+                  ("qmm_i4t_dq", (FF, C)): L, ("qmm_i4t_gateup_dq", (C, 2 * FF)): L}
+        return counts, {k: v for k, v in shapes.items() if v}
+
+    def measured(run, tag: str, steps: int):
+        kernels.reset_counts()
+        t_run = time.perf_counter()
+        with _FallbackCount() as fallbacks:
+            res = run()
+            torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t_run)
+        counts, shapes = dict(kernels.launch_counts), dict(kernels.shape_counts)
+        want, want_shapes = expect(steps)
+        if counts != dict.fromkeys(counts, 0) | want:
+            raise AssertionError(f"{tag}: launch counts {counts} != expected {want}")
+        if {k: v for k, v in shapes.items() if v} != want_shapes:
+            raise AssertionError(f"{tag}: launches by shape {shapes} != {want_shapes}")
+        if fallbacks.calls:
+            raise AssertionError(f"{tag}: {fallbacks.calls} matmuls took the dequantize path")
+        if not (res.token_ids and all(0 <= t < V for t in res.token_ids)):
+            raise AssertionError(f"{tag}: bad token ids")
+        return res, wall, counts, shapes
+
+    # one chunk of 64 steps is dispatched ahead of the host: 128 tokens run
+    # 128 steps, the long run's 32 tokens one chunk of 64
+    steps = 128
+    res, wall_ms, counts, shape_counts = measured(
+        lambda: eng.generate(ids, sp, max_new_tokens=steps), "generate_q4k", steps)
+    if res.n_generated != steps and res.finish_reason != "stop":
+        raise AssertionError(f"generate_q4k: {res.n_generated} tokens, {res.finish_reason}")
+    laps("run")
+    short = Engine(model, max_batch=1, max_seq=Q4K_MAX_SEQ, decode_chunk=32)
+    short.generate(ids, sp, max_new_tokens=32)
+    torch.cuda.synchronize()
+    t_short = time.perf_counter()
+    short.generate(ids, sp, max_new_tokens=32)
+    torch.cuda.synchronize()
+    prof_wall = 1e3 * (time.perf_counter() - t_short)
+    laps("window")
+    prof = _profile(lambda: short.generate(ids, sp, max_new_tokens=32), steps=32,
+                    watch=("i4mv::mv_kernel",))
+    prof["window"] = "a 32-token generate (decode_chunk 32)"
+    if prof["kernel_ms"] is not None:
+        prof["device_busy_share"] = prof["kernel_ms"] / prof_wall
+    del short
+    laps("profile")
+    # the long prompt: bench's ids repeated to Q4K_LONG, the 8192-row bucket
+    long_ids = (ids * (Q4K_LONG // len(ids) + 1))[:Q4K_LONG]
+    if _bucket(len(long_ids), Q4K_MAX_SEQ) != Q4K_MAX_SEQ:
+        raise AssertionError("the long prompt does not take the 8192-row bucket")
+    eng.generate(long_ids, sp, max_new_tokens=1)  # its prefill's first calls (no decode)
+    torch.cuda.synchronize()
+    laps("long warm-up")
+    lres, lwall, lcounts, lshapes = measured(
+        lambda: eng.generate(long_ids, sp, max_new_tokens=32), "generate_q4k 8K", Q4K_CHUNK)
+    laps("long run")
+    return {"phase": "generate_q4k", "seconds": time.perf_counter() - t0, "layers": layers,
+            "weights": "q4_k (i4t, four planes: scales, mins)",
+            "engine": f"max_batch 1, max_seq {Q4K_MAX_SEQ}, decode_chunk {Q4K_CHUNK}",
+            "sampling": "temp 0.8, janus 1, seed 0",
+            "gguf_build_s": big["build_s"], "gguf_wait_s": big["wait_s"],
+            "load_s": big["load_s"], "load_rss_gb": big["load_rss_gb"],
+            "load_max_memory_allocated_gb": big["load_max_memory_allocated_gb"],
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "n_prompt": res.n_prompt, "n_generated": res.n_generated,
+            "finish_reason": res.finish_reason,
+            "decode_tok_per_s": 1000.0 / res.gen_ms_per_token,
+            "decode_ms_per_token": res.gen_ms_per_token,
+            "prompt_ms_per_token": res.prompt_ms_per_token, "ttft_ms": res.ttft_ms,
+            "launches": counts, "launches_per_decoded_token": {
+                k: v / steps for k, v in counts.items() if k.endswith("_gd") or k in (
+                    "decode_attn", "kv_append")},
+            "launches_by_shape": {f"{k[0]}:{k[1][0]}x{k[1][1]}": v
+                                  for k, v in shape_counts.items()},
+            "tokens_head": res.token_ids[:16], "wall_ms": wall_ms, "profile": prof,
+            "long": {"n_prompt": lres.n_prompt, "prefill_rows": Q4K_MAX_SEQ,
+                     "n_generated": lres.n_generated, "finish_reason": lres.finish_reason,
+                     "decode_steps": Q4K_CHUNK, "ttft_ms": lres.ttft_ms,
+                     "prompt_ms_per_token": lres.prompt_ms_per_token,
+                     "decode_tok_per_s": 1000.0 / lres.gen_ms_per_token,
+                     "decode_ms_per_token": lres.gen_ms_per_token, "wall_ms": lwall,
+                     "launches": lcounts, "tokens_head": lres.token_ids[:16]},
+            "part_s": laps.parts, "_shape_counts": shape_counts,
+            "_paths": {"generate_q4k_8k": (lcounts, lshapes)}}
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -3979,13 +4376,15 @@ def main(argv=None) -> int:
 
     jobs = (([("tiny", 2), ("q8", 2)] if "parity" in phases else [])
             + ([("tiny", 22)] if {"generate", "batch", "generate_i8"} & set(phases) else [])
-            + ([("moe", 2), ("moe_q8", 2), ("q6k", 2), ("mpt", 2)] if "parity" in phases
-               else [])
+            + ([("moe", 2), ("moe_q8", 2), ("q6k", 2), ("mpt", 2), ("q4k", 2), ("moe_q4k", 2)]
+               if "parity" in phases else [])
             + ([("q8", 32)] if {"generate_q8", "batch_q8", "server", "generate_i8c",
                                 "batch_i8c"} & set(phases) else [])
             + ([("q6k", 24)] if {"generate_q6k", "batch_q6k"} & set(phases) else [])
             + ([("mpt", 32)] if {"generate_mpt", "batch_mpt"} & set(phases) else [])
-            + ([("moe", 32)] if {"generate_moe", "batch_moe"} & set(phases) else []))
+            + ([("q4k", 32)] if "generate_q4k" in phases else [])
+            + ([("moe", LAYERS["moe"])] if {"generate_moe", "batch_moe"} & set(phases)
+               else []))
     _start_writer(jobs)
     try:
         return _run_phases(phases, run, entries, failed, t_all)
@@ -4018,22 +4417,28 @@ def _run_phases(phases, run, entries, failed, t_all) -> int:
                 if "_shape_counts" in res:  # the probe tools' run: the probes' launches
                     path_shapes[name] = res.pop("_shape_counts")
                     path_counts[name] = res["launches"]
+                for path, (c, sh) in res.pop("_paths", {}).items():  # parity's counted cases
+                    path_counts[path], path_shapes[path] = c, sh
                 emit(res)
     runs = ("generate", "batch", "generate_i8", "generate_q8", "batch_q8", "server",
             "generate_i8c", "batch_i8c", "generate_q6k", "batch_q6k", "generate_mpt",
-            "batch_mpt", "generate_moe", "batch_moe")
+            "batch_mpt", "generate_q4k", "generate_moe", "batch_moe")
     for name in runs:
         phase = (phase_generate if name in GENERATE else phase_batch if name in BATCH
-                 else None)
-        model, weights = GENERATE.get(name) or BATCH.get(name) or ("q8", None)
+                 else (lambda layers, *_: phase_generate_q4k(layers))
+                 if name == "generate_q4k" else None)
+        model, weights = (GENERATE.get(name) or BATCH.get(name)
+                          or (("q4k", "auto") if name == "generate_q4k" else ("q8", None)))
         if weights == "i8c":
             _big.pop(("q8", "auto"), None)  # the native 7B model's 8 GB, done with
         if model == "q6k":
             _big.pop(("q8", "i8c"), None)
         if model == "mpt":
             _big.pop(("q6k", "native"), None)
+        if model == "q4k":
+            _big.pop(("mpt", "native"), None)
         if model == "moe":
-            _big.clear()  # the 7B models make room for the Mixtral's 26 GB
+            _big.clear()  # the 7B models make room for the Mixtral's 20 GB
         if name not in phases:
             continue
         if phase is None:
@@ -4044,6 +4449,8 @@ def _run_phases(phases, run, entries, failed, t_all) -> int:
             if "_shape_counts" in res:
                 path_shapes[name] = res.pop("_shape_counts")
             path_counts[name] = res["launches"]
+            for path, (c, sh) in res.pop("_paths", {}).items():  # a phase's second run
+                path_counts[path], path_shapes[path] = c, sh
             emit(res)
         gc.collect()  # a phase's engine may sit in a reference cycle (a patched method)
         torch.cuda.empty_cache()

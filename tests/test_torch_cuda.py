@@ -841,8 +841,8 @@ def test_grouped_kernel_blocks_of_several_tiles(cuda, kind, n_tok, k_used):
 def test_lane_wrappers_refuse_what_the_kernel_does_not_take(cuda):
     gen = torch.Generator(device="cuda").manual_seed(22)
     x = torch.randn(2, 512, device="cuda", generator=gen).to(torch.bfloat16)
-    with pytest.raises(NotImplementedError):  # affine mins (not Q4_0)
-        tq.qmm_lane(x, _lane("i4p", 128, 512, gen, mins=True))
+    with pytest.raises(NotImplementedError, match="Q5_K"):  # i8 with mins (Q4_K's i4p runs)
+        tq.qmm_lane(x, _lane("i8", 128, 512, gen, mins=True))
     with pytest.raises(ValueError):  # f32 scale planes (not compacted)
         w = _lane("i8", 128, 512, gen)
         tq.qmm_lane(x, QTensor("i8", w.qw, w.scales.float(), None, 32, (128, 512),
@@ -1177,3 +1177,119 @@ def test_mlp_i8t_equal_on_any_block_count_and_in_parts(cuda, m):
     torch.cuda.synchronize()
     assert torch.equal(out, want)
     assert int(tq._tickets[x.device].abs().sum()) == 0
+
+
+# -- Q4_K: real four-plane weights (scales, then mins, zero 0) ------------------
+
+
+@pytest.mark.parametrize("m", [1, 9, 600])
+@pytest.mark.parametrize("k,n,gateup", [(4096, 6144, False), (4096, 2 * 14336, True)])
+def test_q4k_i4t_kernels_on_real_planes(cuda, m, k, n, gateup):
+    """qmm_i4t.cu on real Q4_K planes (testing.q4k_weight: the min term as
+    large as the scaled term): the matmul at the 8B qkv shape and the fused
+    gate-up at ff 14336, at M = 1 (csrc/i4mv.cuh), 9 and 600 (the tile):
+    within the limit of the plain version (the gate-up: equal to the matmul
+    kernel + silu·mul), and the mins dropped or taken with the wrong sign
+    8x past it."""
+    from booster_tpu_torch.testing import q4k_weight, qmm_mins_mutants
+
+    w = q4k_weight(n, k, seed=m + n, device="cuda")
+    assert tuple(w.scales.shape) == (4, k // 64, n) and w.zero == 0
+    x = torch.randn(m, k, device="cuda", generator=torch.Generator(device="cuda").manual_seed(m))
+    x = x.to(torch.bfloat16)
+    got, want = tq.qmm_i4t(x, w), tq.qmm_plain(x, w)
+    limit = 2e-4 * want.abs().max()
+    assert (got - want).abs().max() <= limit
+    for what, (xm, wm) in qmm_mins_mutants(x, w).items():
+        assert (tq.qmm_plain(xm, wm) - want).abs().max() > 8 * limit, what
+    if gateup:
+        g = tq.qmm_i4t_gateup(x, w)
+        gu = got.to(torch.bfloat16)
+        assert torch.equal(g, tq.silu(gu[:, :n // 2]) * gu[:, n // 2:])
+
+
+@pytest.mark.parametrize("m", [1, 5, 40, 600])
+def test_q4k_lane_kernel_with_mins(cuda, m):
+    """qmm_lane.cu's i4p form with mins (the expand-and-subtract rounding) at
+    each row tile and a ragged last tile, on real Q4_K planes: within the
+    limit of the plain version, each wrong kernel of
+    testing.qmm_lane_mutants (the mins dropped and with the wrong sign among
+    them) 8x past it, the same bits across graph replays."""
+    from booster_tpu_torch.testing import q4k_weight, qmm_lane_mutants
+
+    k, n = 1024, 384
+    w = q4k_weight(n, k, seed=m, device="cuda", kmajor=False)
+    assert tuple(w.scales.shape) == (n, 4, k // 64)
+    gen = torch.Generator(device="cuda").manual_seed(40 + m)
+    x = torch.randn(m, k, device="cuda", generator=gen).to(torch.bfloat16)
+    kernels.reset_counts()
+    got = _replays_equal(lambda: tq.qmm_lane(x, w))
+    assert kernels.launch_counts["qmm_i4p"] == 3
+    want = tq.qmm_lane_plain(x, w)
+    limit = 2e-4 * want.abs().max()
+    assert (got - want).abs().max() <= limit
+    bm, ks = tq.lane_plan(m, k, n)
+    sk = tq.lane_stage(bm, "i4p")
+    nst = k // sk
+    seen = qmm_lane_mutants(x, w, ((ks - 1) * nst // ks, nst), sk)
+    assert {"mins dropped", "mins with the wrong sign"} <= set(seen)
+    for what, (xm, wm) in seen.items():
+        assert (tq.qmm_lane_plain(xm, wm) - want).abs().max() > 8 * limit, what
+
+
+@pytest.mark.parametrize("n_tok", [1, 3, 1024])
+def test_q4k_grouped_kernel_with_mins(cuda, n_tok):
+    """The grouped form over a Q4_K expert stack (4 experts): within the
+    limit of its plain version, zero past rows_used, and a dropped-mins
+    stack seen 8x past the limit."""
+    from booster_tpu_torch.ops import moe
+    from booster_tpu_torch.testing import q4k_weight, qmm_mins_mutants
+
+    E, K, Ne = 4, 1024, 256
+    w = q4k_weight(E * Ne, K, seed=n_tok, device="cuda", kmajor=False)
+    gen = torch.Generator(device="cuda").manual_seed(50 + n_tok)
+    x = torch.randn(n_tok, K, device="cuda", generator=gen).to(torch.bfloat16)
+    topi = torch.topk(torch.randn(n_tok, E, device="cuda", generator=gen), 2).indices
+    xp, pos, te, used = moe.route_pad(x, topi.to(torch.int32), E)
+    got = _replays_equal(lambda: moe.grouped_qmm(xp, w, te, E, used))
+    want = moe.grouped_qmm_plain(xp, w, te, E, used)
+    limit = 2e-4 * want.abs().max()
+    assert (got - want).abs().max() <= limit
+    assert not got[int(used[0]):].any()
+    for what, (_, wm) in qmm_mins_mutants(xp, w).items():
+        assert (moe.grouped_qmm_plain(xp, wm, te, E, used) - want).abs().max() > 8 * limit, what
+
+
+def test_janus_shortlist_on_cuda_equals_cpu(cuda):
+    """janus_shortlist on CUDA tensors against the same call on the CPU:
+    the same shortlist, the shaped logits within 1e-5 relative: CUDA's powf
+    (up to 4 ulps), log1pf and its FMA-contracted 1 - (1 - s)·0.2 differ
+    from the CPU's in the last bits, and pow(factor, count) carries the
+    factor's error count times."""
+    import numpy as np
+
+    from booster_tpu_torch.sampling import SamplingParams
+    from booster_tpu_torch.sampling.janus import janus_shortlist
+
+    rng = np.random.default_rng(0)
+    B, V, N = 4, 32000, 256
+    logits = (8.0 + 0.2 * rng.standard_normal((B, V))).astype(np.float32)
+    logits[1] -= 30.0
+    ring = rng.integers(0, 64, (B, N)).astype(np.int32)
+    prev_pos = np.int32([40, 300, 90, 260])
+    prompt_len = np.int32([40, 20, 10, 100])
+    types_ = rng.choice(np.int32([0, 2, 3, 4, 20, 30, 40]), V)
+    pedantic = rng.random(V) < 0.1
+    scales = (1.0 - 0.03 * rng.choice(np.float32([0.1, 0.3, 1.0]), V)).astype(np.float32)
+    args = [logits, ring, prev_pos, prompt_len]
+    tabs = [scales, types_, pedantic]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        t = [torch.from_numpy(a).to(dev) for a in args]
+        tb = [torch.from_numpy(a).to(dev) for a in tabs]
+        out[dev] = janus_shortlist(*t, 128, *tb, 2, SamplingParams(janus=1)).cpu()
+    a, b = out["cpu"], out["cuda"]
+    assert torch.equal(torch.isfinite(a), torch.isfinite(b))
+    keep = torch.isfinite(a)
+    rel = ((a[keep] - b[keep]).abs() / a[keep].abs()).max()
+    assert rel <= 1e-5, rel
