@@ -4,9 +4,13 @@
 //
 // y[M, N] = x[M, K] @ W[K, N] from an int8 payload q [K, ldq] (K-major: a
 // row of K holds every output column).  i8t: W = bf16(f32(q) · f32(bf16 s))
-// with the bf16 scale plane s [K/G, ldq], G = 32 (Q8_0) or 16 (Q6_K); i8c
-// (G = 0 here): W = bf16(q), exact, and the caller scales the finished f32
-// sum per column.
+// with the bf16 scale plane s [K/G, ldq], G = 32 (Q8_0, Q5_K, Q5_1) or 16
+// (Q6_K); i8c (G = 0 here): W = bf16(q), exact, and the caller scales the
+// finished f32 sum per column.  With mins (MINS: Q5_K and Q5_1, G = 32, a
+// bf16 plane m [K/G, ldq]) y less the min term sum_g xs[m, g] · f32(bf16
+// m[g, n]), xs the f32 sums of each group's bf16 x (the reference's
+// _MIN_DOT form, pallas_qmm.py:47-74, :451-453: the sums never rounded to
+// bf16).
 //
 // A block of two warpgroups owns a BM x 128 output tile (BM 16-256: wgmma's
 // N; ops/qmm.py i8k_plan) and one split of K, walked in stages of 64 rows
@@ -35,6 +39,19 @@
 // of the stage before the last is refilled after it, so kRing - 2 stages
 // are in flight ahead of the one being dequantized.  cp.async writes reach
 // wgmma's async proxy through fence.proxy.async before the barrier.
+//
+// Mins.  The stage's two mins rows ride the ring after its two scale rows
+// (the slot's 1 KB of scale rows holds all four).  While a stage's A
+// fragments are made, its x rows (in the slot, swizzled) give the group
+// sums: four threads a (row, group), each 8 bf16 of one 16-byte chunk in
+// order, then (p0 + p1) + (p2 + p3) by shuffles, into a small f32 buffer
+// past the ring (two stages' worth, by parity).  After the stage's wgmma
+// has completed (wait_group 0) and before the next one is issued, each
+// thread subtracts xs_0·m_0 + xs_1·m_1 from its accumulators on the CUDA
+// cores: one f32 product a group and output, and no f32 scratch in device
+// memory.  The gate-up's and the whole MLP's products run the same code per
+// column (the down items on mid's group sums), so the bit-for-bit
+// invariants below hold with mins too.
 //
 // The tile's sums go to shared memory (f32, over the ring).  At one split
 // the block writes its output (f32, bf16, or the gate-up's silu(g)·u)
@@ -85,6 +102,7 @@ struct Cfg {
   static constexpr int kSlot = kXB + kQB + kSB;   // a multiple of 1024
   static constexpr int kLdt = kBN + 4;            // floats a row of the output tile
   static constexpr int kSmem = kRing * kSlot + 1024;  // + slack to align on 1 KB
+  static constexpr int kSmemMins = kSmem + 2 * 2 * BM * 4;  // + two stages' group sums
   static_assert(BM * kLdt * 4 <= kRing * kSlot, "the output tile fits over the ring");
 };
 
@@ -95,6 +113,7 @@ struct Op {
   const int8_t* q;    // [K, ldq]
   const uint16_t* s;  // [K / G, ldq] bf16 (i8t), unused for i8c
   int ldx, ldq, M;
+  const uint16_t* m = nullptr;  // [K / G, ldq] bf16 mins (MINS), else unused
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -118,9 +137,9 @@ __device__ __forceinline__ void split_range(int K, int KS, int s, int& kb, int& 
 
 // Stage k .. k + 63 into a slot, by all threads: the payload rows (16-byte
 // chunk c: tile columns 16c .. 16c + 15, from col0 for c < 4, else col1;
-// swizzled), for i8t the 64/G scale rows, and x rows m0 .. m0 + BM - 1
-// (zeros past M; swizzled).
-template <int BM, int G>
+// swizzled), for i8t the 64/G scale rows (then, with MINS, the 64/G mins
+// rows), and x rows m0 .. m0 + BM - 1 (zeros past M; swizzled).
+template <int BM, int G, bool MINS = false>
 __device__ __forceinline__ void load_stage(const Op& op, int m0, int col0, int col1, int k,
                                            uint8_t* slot) {
   using C = Cfg<BM>;
@@ -133,11 +152,13 @@ __device__ __forceinline__ void load_stage(const Op& op, int m0, int col0, int c
                         op.q + static_cast<size_t>(k + r) * op.ldq + col, true);
   }
   if constexpr (G > 0) {
-    if (t < (kBK / G) * 16) {  // 64/G rows x 16 chunks of 8 bf16
+    constexpr int NG = kBK / G;
+    if (t < (MINS ? 2 : 1) * NG * 16) {  // 64/G rows (and 64/G mins rows) x 16 chunks of 8 bf16
       const int rr = t >> 4, cs = t & 15;
       const int col = (cs < 8 ? col0 : col1 - 64) + cs * 8;
-      cpasync::cp_async16(slot + C::kXB + C::kQB + rr * 256 + cs * 16,
-                          op.s + static_cast<size_t>(k / G + rr) * op.ldq + col, true);
+      const uint16_t* src = !MINS || rr < NG ? op.s + static_cast<size_t>(k / G + rr) * op.ldq
+                                             : op.m + static_cast<size_t>(k / G + rr - NG) * op.ldq;
+      cpasync::cp_async16(slot + C::kXB + C::kQB + rr * 256 + cs * 16, src + col, true);
     }
   }
 #pragma unroll
@@ -309,24 +330,51 @@ __device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], const uint32_t (&
 
 // -- the tile ------------------------------------------------------------------
 
+// The f32 group sums of the stage's bf16 x rows (in the slot, swizzled) →
+// xs [2][BM] (group, row), by all threads: four a (row, group), each the
+// sum of one 16-byte chunk's 8 values in order, then (p0 + p1) + (p2 + p3)
+// across the four lanes (the loop is warp-uniform: 8·BM is 128 or a
+// multiple of 256).
+template <int BM>
+__device__ __forceinline__ void group_sums(const uint8_t* slot, float* xs) {
+  for (int u = threadIdx.x; u < 8 * BM; u += kThreads) {
+    const int r = u >> 3, c = u & 7;  // row r, chunk c: group c / 4
+    const uint4 v = *reinterpret_cast<const uint4*>(slot + r * 128 + ((c ^ (r & 7)) << 4));
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+    float p = bf16f(w[0] & 0xffffu);
+    p = __fadd_rn(p, bf16f(w[0] >> 16));
+#pragma unroll
+    for (int e = 1; e < 4; ++e) {
+      p = __fadd_rn(p, bf16f(w[e] & 0xffffu));
+      p = __fadd_rn(p, bf16f(w[e] >> 16));
+    }
+    p = __fadd_rn(p, __shfl_xor_sync(0xffffffffu, p, 1));
+    p = __fadd_rn(p, __shfl_xor_sync(0xffffffffu, p, 2));
+    if ((c & 3) == 0) xs[(c >> 2) * BM + r] = p;
+  }
+}
+
 // acc = the transposed BM x 128 tile at rows m0 of x @ W over K rows [kb,
 // ke), from zero: thread t (warp w = t / 32, lane l) holds, for i < BM / 2,
 // tile column 16·w + 2·(l / 4) + (i / 2) % 2 and row 8·(i / 4) + 2·(l % 4) +
 // i % 2 (wgmma's accumulator layout, its rows being tile columns).  sm: the
-// ring.
-template <int BM, int G>
+// ring (and, with MINS, the group sums' buffer past it).  With MINS (G =
+// 32) each stage's min term is subtracted once its wgmma has completed.
+template <int BM, int G, bool MINS = false>
 __device__ __forceinline__ void tile_sum(const Op& op, int m0, int col0, int col1, int kb, int ke,
                                          uint8_t* sm, float (&acc)[BM / 2]) {
   using C = Cfg<BM>;
   constexpr int S = C::kRing;
   constexpr int NG = G > 0 ? kBK / G : 1;  // groups of a stage
+  static_assert(!MINS || G == 32, "mins at group 32 (Q5_K, Q5_1)");
+  float* xsb = reinterpret_cast<float*>(sm + S * C::kSlot);  // [2 stages][2 groups][BM]
   const int n = (ke - kb) / kBK;
   const int warp = threadIdx.x >> 5, l = threadIdx.x & 31;  // warp: 16 tile columns
 #pragma unroll
   for (int i = 0; i < BM / 2; ++i) acc[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < S - 2; ++i) {
-    if (i < n) load_stage<BM, G>(op, m0, col0, col1, kb + i * kBK, sm + i * C::kSlot);
+    if (i < n) load_stage<BM, G, MINS>(op, m0, col0, col1, kb + i * kBK, sm + i * C::kSlot);
     cpasync::cp_commit();
   }
   // Stage i's A fragments into a (while stage i - 1's wgmma runs), after its
@@ -336,10 +384,11 @@ __device__ __forceinline__ void tile_sum(const Op& op, int m0, int col0, int col
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // x for wgmma
     __syncthreads();  // stage i is in; every wgmma of stage i - 2 is done
     if (i + S - 2 < n)  // into the slot of stage i - 2
-      load_stage<BM, G>(op, m0, col0, col1, kb + (i + S - 2) * kBK,
-                        sm + ((i + S - 2) % S) * C::kSlot);
+      load_stage<BM, G, MINS>(op, m0, col0, col1, kb + (i + S - 2) * kBK,
+                              sm + ((i + S - 2) % S) * C::kSlot);
     cpasync::cp_commit();
     const uint8_t* slot = sm + (i % S) * C::kSlot;
+    if constexpr (MINS) group_sums<BM>(slot, xsb + (i & 1) * 2 * BM);
     // the scales of this thread's columns 2·(l / 4), + 1 of its 16, per group
     uint32_t sl[NG], sh[NG];
 #pragma unroll
@@ -388,6 +437,23 @@ __device__ __forceinline__ void tile_sum(const Op& op, int m0, int col0, int col
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
     fence_regs(acc);
     fence_regs(a);
+    if constexpr (MINS) {
+      // the group sums written in prepare(i) are visible after the barrier
+      // of prepare(i + 1), which the last stage lacks
+      if (i + 1 >= n) __syncthreads();
+      const uint8_t* mr = slot + C::kXB + C::kQB + 2 * 256 + 32 * warp + 4 * (l >> 2);
+      const uint32_t w0 = *reinterpret_cast<const uint32_t*>(mr);        // group 0's mins
+      const uint32_t w1 = *reinterpret_cast<const uint32_t*>(mr + 256);  // group 1's
+      const float m0c[2] = {bf16f(w0 & 0xffffu), bf16f(w0 >> 16)};    // columns 2j, 2j + 1
+      const float m1c[2] = {bf16f(w1 & 0xffffu), bf16f(w1 >> 16)};
+      const float* xs = xsb + (i & 1) * 2 * BM;
+#pragma unroll
+      for (int e = 0; e < BM / 2; ++e) {
+        const int r = 8 * (e >> 2) + 2 * (l & 3) + (e & 1), c = (e >> 1) & 1;
+        acc[e] = __fsub_rn(acc[e], __fadd_rn(__fmul_rn(xs[r], m0c[c]),
+                                             __fmul_rn(xs[BM + r], m1c[c])));
+      }
+    }
   };
   uint32_t a0[4][4], a1[4][4];
   if (n > 0) prepare(0, a0);
@@ -484,7 +550,7 @@ __device__ __forceinline__ void put4(void* out, size_t o, float4 v, const float*
 // its partial goes into part [KS, M, N], and the last block of the tile's
 // splits (ticket mt·N/128 + j) adds them in split order and writes y.  cs:
 // i8c's column scales.
-template <int BM, int G, Out OUT, bool CLUSTER>
+template <int BM, int G, Out OUT, bool CLUSTER, bool MINS = false>
 __device__ void dq_item(const Op& op, int N, int K, int KS, int j, int s, int mt, void* out,
                         float* part, int* tickets, const float* cs, uint8_t* sm) {
   using C = Cfg<BM>;
@@ -492,7 +558,7 @@ __device__ void dq_item(const Op& op, int N, int K, int KS, int j, int s, int mt
   int kb, ke;
   split_range(K, KS, s, kb, ke);
   float acc[BM / 2];
-  tile_sum<BM, G>(op, m0, n0, n0 + 64, kb, ke, sm, acc);
+  tile_sum<BM, G, MINS>(op, m0, n0, n0 + 64, kb, ke, sm, acc);
   float* t = reinterpret_cast<float*>(sm);
   store_tile<BM>(acc, t);
   auto put = [&](int r, int c, float4 v) {
@@ -536,7 +602,7 @@ __device__ void dq_item(const Op& op, int N, int K, int KS, int j, int s, int mt
 // M, 2ff], and the last block of the pair's splits (ticket mt·ff/64 + j)
 // adds them in split order.  Returns true in a block that wrote the tile of
 // mid (the last one without CLUSTER).
-template <int BM, int G, bool CLUSTER>
+template <int BM, int G, bool CLUSTER, bool MINS = false>
 __device__ bool gateup_item(const Op& op, int ff, int K, int KS, int j, int s, int mt,
                             float* part, uint16_t* mid, int* tickets, uint8_t* sm) {
   using C = Cfg<BM>;
@@ -544,7 +610,7 @@ __device__ bool gateup_item(const Op& op, int ff, int K, int KS, int j, int s, i
   int kb, ke;
   split_range(K, KS, s, kb, ke);
   float acc[BM / 2];
-  tile_sum<BM, G>(op, m0, c0, ff + c0, kb, ke, sm, acc);
+  tile_sum<BM, G, MINS>(op, m0, c0, ff + c0, kb, ke, sm, acc);
   float* t = reinterpret_cast<float*>(sm);
   store_tile<BM>(acc, t);
   auto put = [&](int r, int c, float4 g, float4 u) {  // mid columns c0 + c .. c0 + c + 3

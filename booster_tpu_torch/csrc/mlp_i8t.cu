@@ -1,7 +1,11 @@
-// The whole gated MLP over K-major int8 weights (i8t, Q8_0) in one launch:
+// The whole gated MLP over K-major int8 weights (i8t at group 32: Q8_0, or
+// Q5_K with mins planes on both weights) in one launch:
 //   out [M, C] bf16 = (silu(x @ Wg) · (x @ Wu)) @ Wd
 //
-// Replaces _mlp_i8_kernel of booster_tpu/ops/pallas_qmm.py (qmm_mlp).
+// Replaces _mlp_i8_kernel of booster_tpu/ops/pallas_qmm.py (qmm_mlp; its
+// has_mins and d_has_mins forms as MINS, both together: each product less
+// its min term on the f32 group sums of its bf16 input, x or mid, as
+// i8k_tile.cuh computes it).
 //
 // The TPU kernel walked the ff tiles in order on one core and carried the
 // down product's sum in VMEM scratch.  Here the work is a queue of items
@@ -79,7 +83,7 @@ __device__ __forceinline__ int ld_acquire(const int* p) {
   return v;
 }
 
-template <int BM>
+template <int BM, bool MINS>
 __global__ void __launch_bounds__(i8k::kThreads, kMlpBlocks<BM>)
     mlp_kernel(MlpParams p) {
   extern __shared__ uint8_t smem_raw[];
@@ -109,8 +113,8 @@ __global__ void __launch_bounds__(i8k::kThreads, kMlpBlocks<BM>)
       it /= mtiles;
       const int s = it % p.KS1;
       const int fj = it / p.KS1;
-      if (i8k::gateup_item<BM, 32, false>(p.gu, p.ff, p.K, p.KS1, fj, s, mt, p.part1, p.mid,
-                                          pair_tickets, sm)) {
+      if (i8k::gateup_item<BM, 32, false, MINS>(p.gu, p.ff, p.K, p.KS1, fj, s, mt, p.part1,
+                                                p.mid, pair_tickets, sm)) {
         __threadfence();
         __syncthreads();
         // the down split whose stages [s·nF/KS2, (s+1)·nF/KS2) hold stage fj
@@ -138,8 +142,8 @@ __global__ void __launch_bounds__(i8k::kThreads, kMlpBlocks<BM>)
         __threadfence();
       }
       __syncthreads();
-      i8k::dq_item<BM, 32, i8k::kBf16, false>(p.down, p.C, p.ff, p.KS2, j, s, mt, p.out,
-                                              p.part2, down_tickets, nullptr, sm);
+      i8k::dq_item<BM, 32, i8k::kBf16, false, MINS>(p.down, p.C, p.ff, p.KS2, j, s, mt, p.out,
+                                                    p.part2, down_tickets, nullptr, sm);
     }
   }
   // the queue is empty: the last block to leave zeroes the counts for the
@@ -159,14 +163,20 @@ __global__ void __launch_bounds__(i8k::kThreads, kMlpBlocks<BM>)
 struct LaunchMlp {
   const MlpParams& p;
   int grid;  // blocks; 0: kMlpBlocks an SM
+  int mins;
   cudaStream_t st;
 
   template <int BM>
   cudaError_t run() const {
-    constexpr int bytes = i8k::Cfg<BM>::kSmem;
+    return mins ? go<BM, true>() : go<BM, false>();
+  }
+
+  template <int BM, bool MINS>
+  cudaError_t go() const {
+    constexpr int bytes = MINS ? i8k::Cfg<BM>::kSmemMins : i8k::Cfg<BM>::kSmem;
     static bool ready = false;
     static int sms = 0;  // the device's SMs (asked once)
-    cudaError_t e = qring::allow_smem(mlp_kernel<BM>, bytes, ready);
+    cudaError_t e = qring::allow_smem(mlp_kernel<BM, MINS>, bytes, ready);
     if (e != cudaSuccess) return e;
     if (sms == 0) {
       int dev = 0;
@@ -176,7 +186,7 @@ struct LaunchMlp {
     }
     int blocks = grid > 0 ? grid : kMlpBlocks<BM> * sms;
     if (blocks > p.n_items) blocks = p.n_items;
-    mlp_kernel<BM><<<blocks, i8k::kThreads, bytes, st>>>(p);
+    mlp_kernel<BM, MINS><<<blocks, i8k::kThreads, bytes, st>>>(p);
     return cudaGetLastError();
   }
 };
@@ -200,19 +210,22 @@ extern "C" int bt_mlp_i8t_ws_ints(int M, int ff, int C, int bm) {
 // runs the item ids [first, first + n_items) (ops/mlp.py mlp_plan: first 0
 // and n_items nA + nD for the whole MLP; a part of it for the schedule's
 // ablations, the down items alone on a mid computed before) on `grid`
-// blocks, or two an SM when grid is 0.  Returns the CUDA error (0 on
+// blocks, or two an SM when grid is 0.  mins = 1: both weights hold a
+// second (mins) plane after their scales.  Returns the CUDA error (0 on
 // success).
 extern "C" int bt_mlp_i8t(const void* x, const void* qgu, const void* sgu, const void* qd,
                           const void* sd, void* part1, void* mid, void* part2, void* out, void* ws,
                           int M, int K, int ff, int C, int KS1, int KS2, int bm, int first,
-                          int n_items, int grid, void* stream) {
-  MlpParams p{{static_cast<const uint16_t*>(x), static_cast<const int8_t*>(qgu),
-               static_cast<const uint16_t*>(sgu), K, 2 * ff, M},
-              {static_cast<const uint16_t*>(mid), static_cast<const int8_t*>(qd),
-               static_cast<const uint16_t*>(sd), ff, C, M},
+                          int n_items, int grid, int mins, void* stream) {
+  const uint16_t* sg = static_cast<const uint16_t*>(sgu);
+  const uint16_t* sdn = static_cast<const uint16_t*>(sd);
+  MlpParams p{{static_cast<const uint16_t*>(x), static_cast<const int8_t*>(qgu), sg, K, 2 * ff, M,
+               mins ? sg + static_cast<size_t>(K / 32) * 2 * ff : nullptr},
+              {static_cast<const uint16_t*>(mid), static_cast<const int8_t*>(qd), sdn, ff, C, M,
+               mins ? sdn + static_cast<size_t>(ff / 32) * C : nullptr},
               static_cast<float*>(part1), static_cast<uint16_t*>(mid),
               static_cast<float*>(part2), static_cast<uint16_t*>(out), static_cast<int*>(ws),
               K, ff, C, KS1, KS2, first, n_items};
   return static_cast<int>(
-      i8k::dispatch(bm, LaunchMlp{p, grid, static_cast<cudaStream_t>(stream)}));
+      i8k::dispatch(bm, LaunchMlp{p, grid, mins, static_cast<cudaStream_t>(stream)}));
 }

@@ -3,7 +3,7 @@
 //
 // Replaces the Pallas kernels of booster_tpu/ops/pallas_qmm.py:
 //   _qmm_i4_kernel (:96, via _qmm_i4 :225)  -> lane_kernel<true, BM, MN>, no tile table
-//   _qmm_i8_kernel (:135, via _qmm_i8 :265) -> lane_kernel<false, BM, false>, no tile table
+//   _qmm_i8_kernel (:135, via _qmm_i8 :265) -> lane_kernel<false, BM, MN>, no tile table
 // and the same bodies as booster_tpu/ops/pallas_moe.py::grouped_qmm (:72)
 // calls them (pallas_calls :113, :150) -> the same kernels with a tile table.
 //
@@ -14,13 +14,13 @@
 //        for the low half, row 1 for the high half (prepare_kernel_scales,
 //        compact_scales); with affine mins (MN, Q4_K) [R, 4, K/(2G)], rows
 //        2 and 3 the two halves' mins.
-//   i8:  qw [R, K] int8; scales [R, 1, K/G] bf16.
+//   i8:  qw [R, K] int8; scales [R, 1, K/G] bf16; with affine mins (MN,
+//        Q5_K and Q5_1) [R, 2, K/G], row 1 the mins (Q5_1's are -m).
 // w = bf16(f32(bf16(q - zero)) · f32(bf16 s)) (the product of two bf16 is
 // exact in f32, so this is the reference's bf16 multiply), and with mins
 // w = bf16(w - bf16 m) (the reference's bf16 subtraction of the expanded
-// mins, has_mins :121-123); y = bf16(x) @ w with f32 accumulation: the reference's
-// function up to the order of the f32 sums.  i8 mins (Q5_K, Q5_1) are not
-// taken: the wrapper raises.
+// mins, has_mins :121-123 and :153-154); y = bf16(x) @ w with f32
+// accumulation: the reference's function up to the order of the f32 sums.
 //
 // Grouped form (the routed experts): x is route_pad's group-padded buffer
 // [Mp, K], whose 32-row tiles each belong to one expert; tile_expert[t]
@@ -183,7 +183,7 @@ __device__ __forceinline__ void lane_load(const Params& p, const Lane<I4, BM, MN
     if constexpr (MN) {
       const size_t mload = L.sload + gdiv(p, p.K);  // K/G: the row's mins follow its scales
       const size_t m0 = (mload + gdiv(p, qb)) >> 1, m1 = (mload + gdiv(p, qb + QB - 1)) >> 1;
-      uint32_t* dm = st.m[I4 ? t >> 1 : 0][I4 ? t & 1 : 0];
+      uint32_t* dm = st.m[I4 ? t >> 1 : t][I4 ? t & 1 : 0];
       for (size_t wi = m0; wi <= m1; ++wi) qring::cp_async4(dm + (wi - m0), L.sw + wi, true);
     }
   }
@@ -210,11 +210,14 @@ __device__ __forceinline__ uint32_t stage_scale(const Params& p, const uint32_t*
 // rounded to bf16 once (a bf16x2 subtraction).  The plain version rounds it
 // to f32 first, which is the same number: f32 holds the difference exactly
 // unless the exponents are 16 or more apart, and then it lies within
-// 2^-15 of the larger, far from a bf16 rounding tie.
+// 2^-15 of the larger, far from a bf16 rounding tie.  The explicit .rn keeps
+// ptxas from contracting it with the product that formed w (i8's
+// dq_bytes, a bf16x2 multiply) into one fma, which would skip w's rounding
+// (__hsub2 carries no rounding modifier).
 __device__ __forceinline__ uint32_t sub_min(uint32_t w, uint32_t m) {
-  const __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&w),
-                                   *reinterpret_cast<const __nv_bfloat162*>(&m));
-  return *reinterpret_cast<const uint32_t*>(&r);
+  uint32_t r;
+  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(r) : "r"(w), "r"(m));
+  return r;
 }
 
 // The stage's payload dequantized into the [128 n][SK k] bf16 tile: thread
@@ -252,6 +255,12 @@ __device__ __forceinline__ void lane_dequant(const Params& p, const Lane<I4, BM,
     } else {
 #pragma unroll
       for (int i = 0; i < 8; ++i) lo[i] = qring::dq_bytes(qv[i >> 1] >> ((i & 1) * 16), sl);
+      if constexpr (MN) {  // Q5_K's mins dmin·mn, or Q5_1's -m (w = q·d + m)
+        const uint32_t ml =
+            stage_scale<I4, BM>(p, st.m[r][0], L.sdq[0] + gdiv(p, p.K), stg, b) * 0x10001u;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) lo[i] = sub_min(lo[i], ml);
+      }
     }
     uint4* dl = reinterpret_cast<uint4*>(&w[r * XS + b]);
     dl[0] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
@@ -403,19 +412,20 @@ cudaError_t launch(const Params& p, cudaStream_t st) {
 
 template <int BM>
 cudaError_t launch_bm(const Params& p, int i4, int mins, cudaStream_t st) {
-  if (mins) return i4 ? launch<true, BM, true>(p, st) : cudaErrorInvalidValue;
+  if (mins) return i4 ? launch<true, BM, true>(p, st) : launch<false, BM, true>(p, st);
   return i4 ? launch<true, BM, false>(p, st) : launch<false, BM, false>(p, st);
 }
 
 }  // namespace
 
 // y [M, N] f32 = x [M, K] bf16 @ W^T for a lane-major weight: i4 = 1 for i4p
-// (zero point `zero`), 0 for i8; mins = 1 (i4p only) when the scale planes
-// hold the halves' mins after their scales ([R, 4, K/(2G)]).  tile_expert (int32 [ceil(M/32)]) selects,
-// per 32-row tile, the rows [e·N, e·N + N) of the stacked payload; null
-// takes rows [0, N).  rows_used (one int32 on the device, a multiple of 32,
-// or null): rows at or past it are written as zeros.  bm rows of x per block
-// (32, 64 or 128) and ks splits of K on whole 64-column stages (ops/qmm.py
+// (zero point `zero`), 0 for i8; mins = 1 when the scale planes hold the
+// mins after the scales (i4p: the halves' [R, 4, K/(2G)]; i8: [R, 2,
+// K/G]).  tile_expert (int32 [ceil(M/32)]) selects, per 32-row tile, the
+// rows [e·N, e·N + N) of the stacked payload; null takes rows [0, N).
+// rows_used (one int32 on the device, a multiple of 32, or null): rows at
+// or past it are written as zeros.  bm rows of x per block (32, 64 or 128)
+// and ks splits of K on whole 64-column stages (ops/qmm.py
 // lane_plan); part [ks, M, N] f32 when ks > 1; tickets ceil(M/bm)·N/128
 // zeros.  N a multiple of 128; K of 64 (i4p: of 128); G a multiple of 16
 // dividing K (K/2 for i4p); x and the payload on 16 bytes.  Returns the

@@ -2,8 +2,9 @@
 layers stacked on a leading axis).
 
 Port of the llama path of ``booster_tpu/models/loader.py``: every Q4_0,
-Q8_0, Q4_K or Q6_K weight is repacked losslessly (quant.qtensor; Q4_K to
-i4 with four scale planes, the halves' scales and mins) or, with ``weights="bf16"``,
+Q5_1, Q8_0, Q4_K, Q5_K or Q6_K weight is repacked losslessly (quant.qtensor;
+Q4_K to i4 with four scale planes, the halves' scales and mins; Q5_K and
+Q5_1 to int8 codes with two, the scales and mins) or, with ``weights="bf16"``,
 dequantized exactly to dense bf16 (``"auto"`` picks as the JAX loader
 does), or with ``weights="i8"`` widened exactly to int8; with
 ``weights="i8c"`` each layer's fused weights and the output head are
@@ -296,7 +297,8 @@ def load_model(path: str, device="cuda", weights: str = "native",
             info = reader.tensors[name]
             raw = reader.tensor_bytes(info)
             if dev.type == "cuda" and info.ggml_type in (GGMLType.Q4_0, GGMLType.Q8_0,
-                                                         GGMLType.Q4_K):
+                                                         GGMLType.Q4_K, GGMLType.Q5_K,
+                                                         GGMLType.Q5_1):
                 if not staging or staging[0].numel() < info.nbytes:
                     staging[:] = [torch.empty(info.nbytes, dtype=torch.uint8, pin_memory=True)]
                 raw = staging[0][:info.nbytes]

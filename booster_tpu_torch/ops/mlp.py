@@ -2,7 +2,10 @@
 
 Counterpart of ``qmm_mlp`` in ``booster_tpu/ops/pallas_qmm.py``:
 ``(silu(x @ Wg^T) * (x @ Wu^T)) @ Wd^T`` from the fused [2ff, K] gate-up
-QTensor and the [C, ff] down QTensor, returned as bf16 [.., C].
+QTensor and the [C, ff] down QTensor, returned as bf16 [.., C]; with mins
+planes on both weights (Q5_K: ``has_mins`` and ``d_has_mins``) each
+product subtracts its min term, the f32 group sums of its bf16 input
+times f32(bf16 m).
 ``qmm_mlp_i8t`` runs the kernel of ``csrc/mlp_i8t.cu`` on CUDA tensors and
 ``qmm_mlp_plain`` on CPU tensors: the unfused sequence (the dequantize
 forms of the gate-up and of the down matmul, at M = 1 too) rounded to
@@ -39,7 +42,7 @@ from booster_tpu_torch.ops.qmm import (
 from booster_tpu_torch.quant.qtensor import QTensor, kernel_scales
 
 _SIGNATURES = {
-    "bt_mlp_i8t": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_void_p],
+    "bt_mlp_i8t": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 + [ctypes.c_void_p],
     "bt_mlp_i8t_ws_ints": [ctypes.c_int] * 4,
 }
 _MAX_SPLITS = 8  # ready counts an M tile (i8k::kMaxSplits)
@@ -186,14 +189,19 @@ def _run(x: torch.Tensor, w_gu: QTensor, w_down: QTensor, first: int = 0,
     M, K = x.shape
     ff = w_gu.shape[0] // 2
     C = w_down.shape[0]
-    # Q8_0's group only: a uniform Q6_K file (group 16) of a model whose ff
-    # is a multiple of 256 would take the reference's MLP kernel at group 16
+    # group 32 only (Q8_0, Q5_K, Q5_1): a uniform Q6_K file (group 16) of a
+    # model whose ff is a multiple of 256 would take the reference's MLP
+    # kernel at group 16
     sgu = check_i8t(x, w_gu, "mlp_i8t", groups=(32,))
     if mid is None:
         mid = torch.empty(M, ff, device=x.device, dtype=torch.bfloat16)
     sd = check_i8t(mid, w_down, "mlp_i8t", groups=(32,))
     if ff % 128:
         raise NotImplementedError(f"mlp_i8t kernel: ff = {ff}: not ported yet (a multiple of 128)")
+    mins = sgu.shape[0] == 2
+    if (sd.shape[0] == 2) != mins:
+        raise NotImplementedError("mlp_i8t kernel: mins on one of its weights only: not ported "
+                                  "yet (Q5_K_S gives both, Q8_0 neither)")
     # the unfused kernels' plans: one tile (a function of M), each product's splits
     plan = mlp_plan(M, K, ff, C)
     bm, ks1, ks2 = plan["bm"], plan["ks1"], plan["ks2"]
@@ -210,7 +218,7 @@ def _run(x: torch.Tensor, w_gu: QTensor, w_down: QTensor, first: int = 0,
                         sd.data_ptr(), None if part1 is None else part1.data_ptr(),
                         mid.data_ptr(), None if part2 is None else part2.data_ptr(),
                         out.data_ptr(), ws.data_ptr(), M, K, ff, C, ks1, ks2, bm,
-                        first, n, workers, torch.cuda.current_stream(dev).cuda_stream)
+                        first, n, workers, int(mins), torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(rc, "mlp_i8t")
     kernels.count("mlp_i8t", (K, C))
     return out, mid

@@ -4,7 +4,8 @@ and fused gate+up.
 Counterpart of ``booster_tpu/ops/pallas_qmm.py``.
 ``qmm`` runs, for i4t, the kernel of ``csrc/qmm_i4t.cu`` (the port of
 ``_tqmm_i4_gd_kernel`` at M = 1 and ``_tqmm_i4_kernel`` at M > 1) and, for
-i8t (Q8_0 at group 32, Q6_K at group 16), those of ``csrc/qmm_i8t.cu``
+i8t (Q8_0 at group 32, Q6_K at group 16, Q5_K and Q5_1 at group 32 with a
+mins plane), those of ``csrc/qmm_i8t.cu``
 (``_tqmm_i8_gd_kernel`` at M = 1, ``_tqmm_i8_kernel`` at M > 1).
 ``qmm_gateup`` runs their SiLU·mul forms (``_gateup_i4_gd_kernel`` /
 ``_gateup_i4_kernel``, ``_gateup_i8_gd_kernel`` / ``_gateup_i8_kernel``).
@@ -30,8 +31,9 @@ Numerics (see the sources' headers): i4t at M = 1, the group-dot form
 ``y = sum_g f32(bf16 s)·(sum bf16(x)·q - zero·xs) - f32(bf16 m)·xs``; at M > 1
 ``w = bf16(bf16(q - zero)·bf16(s))`` then ``y = bf16(x) @ w`` in f32 less the
 min term.  i8t at M = 1 ``y = sum_g f32(bf16 s)·(sum bf16(x)·q) - f32(bf16
-m)·xs`` (mins, with the group sums xs of bf16(x), only in this form); at M > 1
-``w = bf16(f32(q)·f32(bf16 s))``, ``y = bf16(x) @ w`` in f32.  Lane-major at
+m)·xs`` (mins, with the f32 group sums xs of bf16(x)); at M > 1
+``w = bf16(f32(q)·f32(bf16 s))``, ``y = bf16(x) @ w`` in f32, less the min
+term ``xs @ f32(bf16 m)`` with mins (Q5_K, Q5_1; group 32).  Lane-major at
 any M ``w = bf16(bf16(q - zero)·bf16(s))`` (less bf16(m), rounded again, with
 mins), ``y = bf16(x) @ w`` in f32.  i8c at any
 M ``y = (bf16(x) @ q)`` in f32, then ``· s[n]`` in f32.  The plain
@@ -56,7 +58,7 @@ _SIGNATURES = {
 }
 _I8_SIGNATURES = {
     "bt_qmm_i8t_gd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
-    "bt_qmm_i8t_dq": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    "bt_qmm_i8t_dq": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
 }
 _I8C_SIGNATURES = {
     "bt_qmm_i8c_mv": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
@@ -341,12 +343,11 @@ def _qmm_i8t_plain(x: torch.Tensor, w: QTensor, dq: bool) -> torch.Tensor:
         if has_mins:
             c = c - sf[1] * xg.sum(-1)
         return c.sum(0).reshape(1, N)
-    if has_mins:
-        raise NotImplementedError("i8t weights with mins at M > 1: not ported yet "
-                                  "(Q8_0 and Q6_K have none)")
-    sf = sf[0]
-    wd = (w.qw.float() * sf.repeat_interleave(G, dim=0)).to(torch.bfloat16)
-    return xb @ wd.float()
+    wd = (w.qw.float() * sf[0].repeat_interleave(G, dim=0)).to(torch.bfloat16)
+    y = xb @ wd.float()
+    if has_mins:  # the reference's _MIN_DOT form: f32 group sums of bf16(x), never rounded
+        y = y - xb.reshape(M, ng, G).sum(-1) @ sf[1]
+    return y
 
 
 def qmm_plain(x: torch.Tensor, w: QTensor, dq: bool = False) -> torch.Tensor:
@@ -482,11 +483,12 @@ def _launch(x: torch.Tensor, w: QTensor, gateup: bool) -> torch.Tensor:
 
 
 def check_i8t(x: torch.Tensor, w: QTensor, what: str, groups=(16, 32),
-              mins: bool = False) -> torch.Tensor:
+              mins=(32,)) -> torch.Tensor:
     """Raise unless the i8t kernels take x [M, K] and the 2-D QTensor w
     (contiguous bf16 x on 16 bytes, int8 payload [K, N], bf16 scale planes
-    [R, K/G, N] with R = 1, or 2 where `mins` is taken, a group in `groups`,
-    N a multiple of 128, K of 64); returns the scale planes."""
+    [R, K/G, N] with R = 1, or 2 at a group in `mins` (a mins plane), a
+    group in `groups`, N a multiple of 128, K of 64); returns the scale
+    planes."""
     M, K = x.shape
     N = w.shape[0]
     G = w.group
@@ -498,8 +500,9 @@ def check_i8t(x: torch.Tensor, w: QTensor, what: str, groups=(16, 32),
     if G not in groups:
         raise NotImplementedError(f"{what} kernel: group {G}: not ported yet "
                                   f"(groups {groups} are)")
-    if has_mins and not mins:
-        raise NotImplementedError(f"{what} kernel: i8t weights with mins: not ported yet")
+    if has_mins and G not in mins:
+        raise NotImplementedError(f"{what} kernel: i8t weights with mins at group {G}: not "
+                                  "ported yet (no format gives them)")
     R = 2 if has_mins else 1
     if s3.dtype != torch.bfloat16 or tuple(s3.shape) != (R, K // G, N) or not s3.is_contiguous():
         raise ValueError(f"{what} kernel: scales must be contiguous bf16 [{R}, K/G, N] "
@@ -517,7 +520,7 @@ def _launch_i8t(x: torch.Tensor, w: QTensor, gateup: bool, dq: bool) -> torch.Te
     M, K = x.shape
     N = w.shape[0]
     gd = M == 1 and not dq
-    s3 = check_i8t(x, w, "qmm_i8t", mins=gd)
+    s3 = check_i8t(x, w, "qmm_i8t", mins=(16, 32) if gd else (32,))
     G = w.group
     dev = x.device
     lib = kernels.library("qmm_i8t", _I8_SIGNATURES)
@@ -543,7 +546,7 @@ def _launch_i8t(x: torch.Tensor, w: QTensor, gateup: bool, dq: bool) -> torch.Te
     else:
         out = torch.empty(M, N, device=dev, dtype=torch.float32)
     rc = lib.bt_qmm_i8t_dq(x.data_ptr(), w.qw.data_ptr(), s3.data_ptr(), out.data_ptr(),
-                           M, K, N, ks, int(gateup), G, bm, stream)
+                           M, K, N, ks, int(gateup), G, bm, int(s3.shape[0] == 2), stream)
     name = "qmm_i8t_gateup_dq" if gateup else "qmm_i8t_dq"
     kernels.check(rc, name)
     kernels.count(name, (K, N))
@@ -595,9 +598,10 @@ def lane_launch(x: torch.Tensor, w: QTensor, N: int, name: str,
     kernel takes the operands: contiguous bf16 x on 16 bytes; an i4p (u8
     [R, K/2]) payload with bf16 prepared planes (the halves' scales, then
     their mins when affine: Q4_K) or an i8 (int8 [R, K]) one with bf16
-    prepared scale planes and no mins; N a multiple of 128; K of 128 and of
-    2G; G of 16.  Rows per block and K splits: ``lane_plan`` (with the
-    experts E = rows / N of the stacked payload for a tile table)."""
+    prepared planes (the scales, then the mins when affine: Q5_K, Q5_1); N
+    a multiple of 128; K of 128 and of 2G; G of 16.  Rows per block and K
+    splits: ``lane_plan`` (with the experts E = rows / N of the stacked
+    payload for a tile table)."""
     w = w.resolved()
     M, K = x.shape
     i4 = w.kind == "i4p"
@@ -610,9 +614,6 @@ def lane_launch(x: torch.Tensor, w: QTensor, N: int, name: str,
             or tuple(w.qw.shape) != want[1] or not w.qw.is_contiguous():
         raise ValueError(f"{name} kernel: payload must be contiguous i4p u8 [R, K/2] "
                          f"or i8 int8 [R, K], K = {K}")
-    if has_mins and not i4:
-        raise NotImplementedError(f"{name} kernel: i8 weights with mins (Q5_K, Q5_1): "
-                                  "not ported yet")
     if s3.dtype != torch.bfloat16 or not s3.is_contiguous() or tuple(s3.shape) != (
             R, w.scale_rows * (2 if has_mins else 1), K // (w.scale_rows * w.group)):
         raise ValueError(f"{name} kernel: scales must be contiguous bf16 prepared planes "

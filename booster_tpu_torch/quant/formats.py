@@ -1,11 +1,12 @@
 """Bit-exact (de)quantization of the ggml block formats the port loads, in numpy.
 
-A copy of the Q4_0, Q8_0, Q4_K, Q6_K and float parts of
+A copy of the Q4_0, Q5_1, Q8_0, Q4_K, Q5_K, Q6_K and float parts of
 ``booster_tpu/quant/formats.py`` (decode semantics:
-llama.cpp/ggml/src/ggml-quants.c dequantize_row_q4_0/q8_0/q4_K/q6_K; the
-Q4_0 and Q8_0 encoders are quantize_row_q4_0_ref/q8_0_ref, the Q4_K and Q6_K
-encoders the JAX package's per-group affine and amax seeds without
-llama.cpp's scale search).  The other block formats are not ported yet.
+llama.cpp/ggml/src/ggml-quants.c dequantize_row_q4_0/q5_1/q8_0/q4_K/q5_K/
+q6_K; the Q4_0 and Q8_0 encoders are quantize_row_q4_0_ref/q8_0_ref, the
+Q5_1 encoder the JAX package's min/max affine one, the Q4_K, Q5_K and Q6_K
+encoders its per-group affine and amax seeds without llama.cpp's scale
+search).  The other block formats are not ported yet.
 """
 
 from __future__ import annotations
@@ -43,6 +44,24 @@ def _dequant_q4_0(b: np.ndarray) -> np.ndarray:
     return q * d
 
 
+def _q5_high_bits(qh_bytes: np.ndarray) -> np.ndarray:
+    """[n, 4] uint8 → [n, 32] the per-element 5th bit (0/1)."""
+    qh = np.ascontiguousarray(qh_bytes).view("<u4").astype(np.uint32)  # [n, 1]
+    shifts = np.arange(32, dtype=np.uint32)
+    return ((qh >> shifts) & 1).astype(np.uint8)
+
+
+def _dequant_q5_1(b: np.ndarray) -> np.ndarray:
+    d = _f16(b[:, 0:2])
+    m = _f16(b[:, 2:4])
+    h = _q5_high_bits(b[:, 4:8])
+    qs = b[:, 8:24]
+    lo = (qs & 0x0F) | (h[:, :16] << 4)
+    hi = (qs >> 4) | (h[:, 16:] << 4)
+    q = np.concatenate([lo, hi], axis=1).astype(np.float32)
+    return q * d + m
+
+
 def _dequant_q8_0(b: np.ndarray) -> np.ndarray:
     d = _f16(b[:, 0:2])
     q = b[:, 2:34].view(np.int8).astype(np.float32)
@@ -75,6 +94,24 @@ def _dequant_q4_k(b: np.ndarray) -> np.ndarray:
     return (q * dl - ml).reshape(-1, QK_K)
 
 
+def _dequant_q5_k(b: np.ndarray) -> np.ndarray:
+    d = _f16(b[:, 0:2])
+    dmin = _f16(b[:, 2:4])
+    sc, mn = _kscales_6bit(b[:, 4:16])
+    qh = b[:, 16:48]  # [n, 32]: bit 2j the fifth bit of group 2j's element, 2j + 1 of 2j + 1's
+    qs = b[:, 48:176].reshape(-1, 4, 32)
+    j = np.arange(4)
+    u1 = (1 << (2 * j)).astype(np.uint8)[None, :, None]
+    u2 = (1 << (2 * j + 1)).astype(np.uint8)[None, :, None]
+    qh4 = qh[:, None, :]  # the same 32 bytes for all 4 chunks
+    lo = (qs & 0x0F) + np.where((qh4 & u1) != 0, 16, 0).astype(np.uint8)
+    hi = (qs >> 4) + np.where((qh4 & u2) != 0, 16, 0).astype(np.uint8)
+    q = np.stack([lo, hi], axis=2).reshape(-1, 8, 32).astype(np.float32)
+    dl = (d * sc.astype(np.float32))[:, :, None]
+    ml = (dmin * mn.astype(np.float32))[:, :, None]
+    return (q * dl - ml).reshape(-1, QK_K)
+
+
 def _dequant_q6_k(b: np.ndarray) -> np.ndarray:
     ql = b[:, 0:128].reshape(-1, 2, 64)  # two 128-element halves
     qh = b[:, 128:192].reshape(-1, 2, 32)
@@ -92,8 +129,9 @@ def _dequant_q6_k(b: np.ndarray) -> np.ndarray:
     return (d[:, :, None] * scale * q.astype(np.float32)).reshape(-1, QK_K)
 
 
-_DEQUANT = {GGMLType.Q4_0: _dequant_q4_0, GGMLType.Q8_0: _dequant_q8_0,
-            GGMLType.Q4_K: _dequant_q4_k, GGMLType.Q6_K: _dequant_q6_k}
+_DEQUANT = {GGMLType.Q4_0: _dequant_q4_0, GGMLType.Q5_1: _dequant_q5_1,
+            GGMLType.Q8_0: _dequant_q8_0, GGMLType.Q4_K: _dequant_q4_k,
+            GGMLType.Q5_K: _dequant_q5_k, GGMLType.Q6_K: _dequant_q6_k}
 
 
 def dequantize(data: np.ndarray | bytes, ggml_type: GGMLType, shape=None) -> np.ndarray:
@@ -144,6 +182,29 @@ def _quant_q8_0(x: np.ndarray) -> np.ndarray:
     return out
 
 
+def _pack_q5_high(q: np.ndarray) -> np.ndarray:
+    """[n, 32] 5-bit values → [n, 4] qh bytes (bit j = high bit of element j)."""
+    bits = (q >> 4) & 1
+    shifts = np.arange(32, dtype=np.uint32)
+    qh = (bits.astype(np.uint32) << shifts).sum(axis=1, dtype=np.uint64).astype(np.uint32)
+    return qh[:, None].astype("<u4").view(U8).reshape(-1, 4)
+
+
+def _quant_q5_1(x: np.ndarray) -> np.ndarray:
+    x = x.reshape(-1, 32)
+    mn = x.min(axis=1)
+    mx = x.max(axis=1)
+    d = (mx - mn) / 31.0
+    inv_d = np.where(d != 0, 1.0 / np.where(d == 0, 1, d), 0.0)
+    q = np.clip(np.round((x - mn[:, None]) * inv_d[:, None]), 0, 31).astype(np.uint8)
+    out = np.empty((x.shape[0], 24), dtype=U8)
+    out[:, 0:2] = _f16_bytes(d)
+    out[:, 2:4] = _f16_bytes(mn)
+    out[:, 4:8] = _pack_q5_high(q)
+    out[:, 8:24] = (q[:, :16] & 0x0F) | ((q[:, 16:] & 0x0F) << 4)
+    return out
+
+
 def _pack_kscales_6bit(sc: np.ndarray, mn: np.ndarray) -> np.ndarray:
     """Inverse of _kscales_6bit: [n,8]+[n,8] 6-bit values → [n,12] bytes."""
     out = np.zeros((sc.shape[0], K_SCALE_SIZE), dtype=U8)
@@ -183,6 +244,28 @@ def _quant_q4_k(x: np.ndarray) -> np.ndarray:
     return out
 
 
+def _quant_q5_k(x: np.ndarray) -> np.ndarray:
+    x = x.reshape(-1, 8, 32)
+    q, scale, minv = _affine_group_quant(x, 5)
+    d = scale.max(axis=1) / 63.0
+    dmin = minv.max(axis=1) / 63.0
+    sc = np.clip(np.round(scale / np.where(d == 0, 1, d)[:, None]), 0, 63).astype(U8)
+    mn = np.clip(np.round(minv / np.where(dmin == 0, 1, dmin)[:, None]), 0, 63).astype(U8)
+    n = x.shape[0]
+    out = np.empty((n, TYPE_TRAITS[GGMLType.Q5_K].type_size), dtype=U8)
+    out[:, 0:2] = _f16_bytes(d)
+    out[:, 2:4] = _f16_bytes(dmin)
+    out[:, 4:16] = _pack_kscales_6bit(sc, mn)
+    qq = q.reshape(n, 4, 2, 32)
+    qh = np.zeros((n, 32), dtype=U8)
+    for j in range(4):
+        qh |= ((qq[:, j, 0, :] >> 4) & 1) << (2 * j)
+        qh |= ((qq[:, j, 1, :] >> 4) & 1) << (2 * j + 1)
+    out[:, 16:48] = qh
+    out[:, 48:176] = ((qq[:, :, 0, :] & 0x0F) | ((qq[:, :, 1, :] & 0x0F) << 4)).reshape(n, 128)
+    return out
+
+
 def _quant_q6_k(x: np.ndarray) -> np.ndarray:
     x = x.reshape(-1, 16, 16)  # 16 groups of 16
     amax = np.abs(x).max(axis=-1)
@@ -209,8 +292,8 @@ def _quant_q6_k(x: np.ndarray) -> np.ndarray:
     return out
 
 
-_QUANT = {GGMLType.Q4_0: _quant_q4_0, GGMLType.Q8_0: _quant_q8_0, GGMLType.Q4_K: _quant_q4_k,
-          GGMLType.Q6_K: _quant_q6_k}
+_QUANT = {GGMLType.Q4_0: _quant_q4_0, GGMLType.Q5_1: _quant_q5_1, GGMLType.Q8_0: _quant_q8_0,
+          GGMLType.Q4_K: _quant_q4_k, GGMLType.Q5_K: _quant_q5_k, GGMLType.Q6_K: _quant_q6_k}
 
 
 def quantize(x: np.ndarray, ggml_type: GGMLType) -> bytes:

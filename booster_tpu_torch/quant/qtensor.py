@@ -1,8 +1,8 @@
 """QTensor: quantized weights in the kernels' layout, over torch tensors.
 
-Port of ``booster_tpu/quant/qtensor.py`` for the Q4_0, Q8_0, Q4_K and Q6_K
-llama paths.  At load time a GGUF Q4_0, Q8_0, Q4_K or Q6_K tensor is
-*losslessly* repacked
+Port of ``booster_tpu/quant/qtensor.py`` for the Q4_0, Q5_1, Q8_0, Q4_K,
+Q5_K and Q6_K llama paths.  At load time a GGUF tensor of one of those
+types is *losslessly* repacked
 (torch bit operations, on the host or on the card) into
 
     value[r, c] = (q[r, c] - zero) * scales[r, c // group]  -  mins[r, c // group]
@@ -20,8 +20,10 @@ with payload ``qw``:
                 when the format is affine
     kind="i8"   int8 [out, in] (Q8_0: symmetric, group 32, no zero point;
                 Q6_K: symmetric, group 16, the codes q - 32 and the f32
-                scales d·sc of the super-block's 16 groups); prepared
-                scale planes [out, 1, in/G]
+                scales d·sc of the super-block's 16 groups; Q5_K and Q5_1:
+                the codes 0..31 at group 32 with f32 scales and mins,
+                Q5_K's d·sc and dmin·mn, Q5_1's d and -m); prepared
+                scale planes [out, 1(+1), in/G], the mins after the scales
     kind="i8t"  the same payload stored K-major, [in, out], with scale
                 planes [R, in/G, out]: row 0 the scales, row 1 the mins
                 when affine
@@ -179,6 +181,14 @@ def _repack_q6_k(b: torch.Tensor, out_f: int, in_f: int) -> QTensor:
                    GGMLType.Q6_K)
 
 
+def _scale_min_k4(s: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """get_scale_min_k4's packing of Q4_K's and Q5_K's 8 six-bit scales and
+    mins: [n, 12] bytes → (sc, mn), each [n, 8]."""
+    sc = torch.cat([s[:, 0:4] & 63, (s[:, 8:12] & 0x0F) | ((s[:, 0:4] >> 6) << 4)], dim=1)
+    mn = torch.cat([s[:, 4:8] & 63, (s[:, 8:12] >> 4) | ((s[:, 4:8] >> 6) << 4)], dim=1)
+    return sc, mn
+
+
 def _repack_q4_k(b: torch.Tensor, out_f: int, in_f: int) -> QTensor:
     """Q4_K → i4p at group 32, zero 0 (``_repack_q4_k`` of the JAX package):
     the split-half nibbles of each row in element order, the f32 scales
@@ -186,9 +196,7 @@ def _repack_q4_k(b: torch.Tensor, out_f: int, in_f: int) -> QTensor:
     b = b.reshape(-1, TYPE_TRAITS[GGMLType.Q4_K].type_size)
     d = b[:, 0:2].contiguous().view(torch.float16).float()  # [n, 1]
     dmin = b[:, 2:4].contiguous().view(torch.float16).float()
-    s = b[:, 4:16]  # get_scale_min_k4's packing of 8 six-bit scales and mins
-    sc = torch.cat([s[:, 0:4] & 63, (s[:, 8:12] & 0x0F) | ((s[:, 0:4] >> 6) << 4)], dim=1)
-    mn = torch.cat([s[:, 4:8] & 63, (s[:, 8:12] >> 4) | ((s[:, 4:8] >> 6) << 4)], dim=1)
+    sc, mn = _scale_min_k4(b[:, 4:16])
     qs = b[:, 16:144].reshape(-1, 4, 32)  # chunk j: groups 2j (low nibbles), 2j + 1 (high)
     q = torch.stack([qs & 0x0F, qs >> 4], dim=2).reshape(out_f, in_f)
     return QTensor("i4p", _pack_nibbles_planar(q), (d * sc.float()).reshape(out_f, in_f // 32),
@@ -196,8 +204,44 @@ def _repack_q4_k(b: torch.Tensor, out_f: int, in_f: int) -> QTensor:
                    GGMLType.Q4_K)
 
 
-_REPACK = {GGMLType.Q4_0: _repack_q4_0, GGMLType.Q8_0: _repack_q8_0,
-           GGMLType.Q4_K: _repack_q4_k, GGMLType.Q6_K: _repack_q6_k}
+def _repack_q5_k(b: torch.Tensor, out_f: int, in_f: int) -> QTensor:
+    """Q5_K → i8 at group 32 (``_repack_q5_k`` of the JAX package): the
+    5-bit codes 0..31 of each row in element order, the f32 scales d·sc and
+    mins dmin·mn of its 32-element groups (w = q·scale - min)."""
+    b = b.reshape(-1, TYPE_TRAITS[GGMLType.Q5_K].type_size)
+    d = b[:, 0:2].contiguous().view(torch.float16).float()  # [n, 1]
+    dmin = b[:, 2:4].contiguous().view(torch.float16).float()
+    sc, mn = _scale_min_k4(b[:, 4:16])
+    qh = b[:, None, 16:48]  # bit 2j: the fifth bit of chunk j's low nibbles, 2j + 1 its high
+    qs = b[:, 48:176].reshape(-1, 4, 32)  # chunk j: groups 2j (low nibbles), 2j + 1 (high)
+    j = torch.arange(4, device=b.device, dtype=torch.uint8)[None, :, None]
+    lo = (qs & 0x0F) | (((qh >> (2 * j)) & 1) << 4)
+    hi = (qs >> 4) | (((qh >> (2 * j + 1)) & 1) << 4)
+    q = torch.stack([lo, hi], dim=2).reshape(out_f, in_f).to(torch.int8)
+    return QTensor("i8", q, (d * sc.float()).reshape(out_f, in_f // 32),
+                   (dmin * mn.float()).reshape(out_f, in_f // 32), 32, (out_f, in_f),
+                   GGMLType.Q5_K)
+
+
+def _repack_q5_1(b: torch.Tensor, out_f: int, in_f: int) -> QTensor:
+    """Q5_1 → i8 at group 32 (``_repack_q5_1`` of the JAX package): the
+    5-bit codes 0..31, the f32 scales d and, as mins, -m (w = q·d + m)."""
+    b = b.reshape(-1, TYPE_TRAITS[GGMLType.Q5_1].type_size)
+    d = b[:, 0:2].contiguous().view(torch.float16).float()
+    m = b[:, 2:4].contiguous().view(torch.float16).float()
+    qh = b[:, 4:8].contiguous().view(torch.int32)  # [n, 1]: bit e the fifth bit of element e
+    bits = (qh >> torch.arange(32, device=b.device, dtype=torch.int32)) & 1
+    qs = b[:, 8:24]
+    lo = (qs & 0x0F) | (bits[:, :16].to(torch.uint8) << 4)
+    hi = (qs >> 4) | (bits[:, 16:].to(torch.uint8) << 4)
+    q = torch.cat([lo, hi], dim=1).reshape(out_f, in_f).to(torch.int8)
+    return QTensor("i8", q, d.reshape(out_f, in_f // 32), (-m).reshape(out_f, in_f // 32), 32,
+                   (out_f, in_f), GGMLType.Q5_1)
+
+
+_REPACK = {GGMLType.Q4_0: _repack_q4_0, GGMLType.Q5_1: _repack_q5_1,
+           GGMLType.Q8_0: _repack_q8_0, GGMLType.Q4_K: _repack_q4_k,
+           GGMLType.Q5_K: _repack_q5_k, GGMLType.Q6_K: _repack_q6_k}
 _DENSE_TYPES = (GGMLType.F32, GGMLType.F16, GGMLType.BF16)
 
 

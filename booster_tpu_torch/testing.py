@@ -1,7 +1,8 @@
 """Inputs for the tests and the chip smoke run: no download needed.
 
 ``make_model`` writes a seeded synthetic llama-shaped GGUF with a working SPM
-vocab (Q4_0, Q8_0 or Q6_K weights), optionally with routed experts
+vocab (Q4_0, Q8_0, Q4_K, Q5_K or Q6_K weights, with llama.cpp's fallbacks
+for rows that hold no super-block), optionally with routed experts
 (Mixtral), rope scaling and another type for ``output.weight``; or, with
 ``arch="mpt"``, an MPT file as llama.cpp writes one (fused ``attn_qkv``,
 ungated FFN, LayerNorms, ALiBi) with a byte-level BPE vocabulary
@@ -191,9 +192,11 @@ def make_model(
 
     A 2-D weight whose rows are not a multiple of 256 long is written as F32
     (tools/make_test_model.py's rule), except with ``quant=Q6_K``, where it
-    is written as Q8_0, as llama.cpp's quantizer falls back for rows that
-    cannot hold K-quant super-blocks (``llama_tensor_get_type``: every
-    ``ffn_down`` of a model whose ff is not a multiple of 256).
+    is written as Q8_0, and with ``quant=Q5_K``, where it is written as
+    Q5_1, as llama.cpp's quantizer falls back for rows that cannot hold
+    K-quant super-blocks (``llama_tensor_get_type``: every ``ffn_down`` of a
+    model whose ff is not a multiple of 256).  ``quant=Q5_K`` with
+    ``output_quant=Q6_K`` is llama.cpp's Q5_K_S mix.
 
     ``arch="mpt"`` writes llama.cpp's MPT keys and tensors: ``mpt.*``
     metadata with ``attention.layer_norm_epsilon`` (`rms_eps`),
@@ -267,8 +270,11 @@ def make_model(
     def add(name, shape, rand=True):
         want = output_quant if name == "output.weight" and output_quant is not None else quant
         qt = want if len(shape) >= 2 and shape[-1] % 256 == 0 else GGMLType.F32
-        if want == GGMLType.Q6_K and qt == GGMLType.F32 and shape[-1] % 32 == 0:
-            qt = GGMLType.Q8_0
+        # llama.cpp's fallback for rows that hold no 256-element super-block
+        # (llama_tensor_get_type): Q6_K → Q8_0, Q5_K → Q5_1
+        fallback = {GGMLType.Q6_K: GGMLType.Q8_0, GGMLType.Q5_K: GGMLType.Q5_1}.get(want)
+        if fallback is not None and qt == GGMLType.F32 and shape[-1] % 32 == 0:
+            qt = fallback
         if len(shape) < 2 or "norm" in name or "gate_inp" in name:
             qt = GGMLType.F32
         specs.append((name, shape, qt, rand))
@@ -349,7 +355,7 @@ def make_model(
 
 
 def random_blocks(rng: np.random.Generator, n: int, qt: GGMLType, scale: float) -> memoryview:
-    """`n` weights of type Q4_0, Q8_0, Q4_K or Q6_K as random blocks: uniform codes
+    """`n` weights of type Q4_0, Q5_1, Q8_0, Q4_K, Q5_K or Q6_K as random blocks: uniform codes
     (nibbles 0-15 about the zero point 8, or int8 -127..127) and f16 scales
     of random sign whose size is that of quantizing normals of standard
     deviation `scale`: 32 such values have a largest magnitude of about
@@ -364,7 +370,10 @@ def random_blocks(rng: np.random.Generator, n: int, qt: GGMLType, scale: float) 
     ±2.05·scale, so d·sc ≈ 4.1·scale/15 and dmin·mn ≈ 2.05·scale at sc, mn
     ≈ 52), ±20 %: the min term is about as large as the mean scaled term,
     so a weight is the difference of two terms of one size, as in a real
-    Q4_K file."""
+    Q4_K file.  Q5_K: the same with uniform 5-bit codes (0-31) and d ≈
+    4.1·scale/31 at sc ≈ 52.  Q5_1: uniform 5-bit codes, a positive f16 d
+    of 4.1·scale/31 and an f16 m within ±20 % of -16·d (±20 % each), so
+    that the weights centre on zero and the min term is -16·d·xs."""
     if qt == GGMLType.Q4_K:
         nb = n // 256
         out = np.empty((nb, 144), np.uint8)
@@ -375,6 +384,26 @@ def random_blocks(rng: np.random.Generator, n: int, qt: GGMLType, scale: float) 
         sc, mn = (rng.integers(40, 64, (nb, 8), dtype=np.uint8) for _ in range(2))
         out[:, 4:16] = _pack_kscales_6bit(sc, mn)
         out[:, 16:] = rng.integers(0, 256, (nb, 128), dtype=np.uint8)
+        return out.reshape(-1).data
+    if qt == GGMLType.Q5_K:
+        nb = n // 256
+        out = np.empty((nb, 176), np.uint8)
+        ds = [(rng.random(nb, dtype=np.float32) * 0.4 + 0.8) * (m * scale / 52)
+              for m in (4.1 / 31, 2.05)]
+        for i, v in enumerate(ds):
+            out[:, 2 * i:2 * i + 2] = v.astype(np.float16).view(np.uint8).reshape(nb, 2)
+        sc, mn = (rng.integers(40, 64, (nb, 8), dtype=np.uint8) for _ in range(2))
+        out[:, 4:16] = _pack_kscales_6bit(sc, mn)
+        out[:, 16:] = rng.integers(0, 256, (nb, 160), dtype=np.uint8)  # fifth bits, nibbles
+        return out.reshape(-1).data
+    if qt == GGMLType.Q5_1:
+        nb = n // 32
+        out = np.empty((nb, 24), np.uint8)
+        d = (rng.random(nb, dtype=np.float32) * 0.4 + 0.8) * (4.1 * scale / 31)
+        m = -16 * d * (rng.random(nb, dtype=np.float32) * 0.4 + 0.8)
+        out[:, 0:2] = d.astype(np.float16).view(np.uint8).reshape(nb, 2)
+        out[:, 2:4] = m.astype(np.float16).view(np.uint8).reshape(nb, 2)
+        out[:, 4:] = rng.integers(0, 256, (nb, 20), dtype=np.uint8)  # fifth bits, nibbles
         return out.reshape(-1).data
     if qt == GGMLType.Q6_K:
         nb = n // 256
@@ -401,6 +430,17 @@ def random_blocks(rng: np.random.Generator, n: int, qt: GGMLType, scale: float) 
     return out.reshape(-1).data
 
 
+def _real_weight(qt: GGMLType, N: int, K: int, seed: int, device, kmajor: bool,
+                 scale: float) -> QTensor:
+    """``random_blocks`` of type `qt` for an [N, K] weight, repacked by the
+    port on `device`, its planes prepared and bf16, K-major (``kmajor``) or
+    lane-major."""
+    raw = torch.frombuffer(bytearray(random_blocks(np.random.default_rng(seed), N * K, qt,
+                                                   scale)), dtype=torch.uint8)
+    w = prepare_kernel_scales(repack_gguf_tensor(raw, qt, (N, K), device=device))
+    return compact_scales(transpose_qtensor(w) if kmajor else w)
+
+
 def q4k_weight(N: int, K: int, seed: int, device, kmajor: bool = True,
                scale: float = 0.05) -> QTensor:
     """A real Q4_K weight [N, K] (``random_blocks``: the min term as large as
@@ -408,10 +448,27 @@ def q4k_weight(N: int, K: int, seed: int, device, kmajor: bool = True,
     and bf16: K-major i4t with four planes [4, K/64, N] as the loader lays
     out a dense weight (``kmajor``), else lane-major i4p with planes [N, 4,
     K/64] as it keeps an expert stack."""
-    raw = torch.frombuffer(bytearray(random_blocks(np.random.default_rng(seed), N * K,
-                                                   GGMLType.Q4_K, scale)), dtype=torch.uint8)
-    qt = prepare_kernel_scales(repack_gguf_tensor(raw, GGMLType.Q4_K, (N, K), device=device))
-    return compact_scales(transpose_qtensor(qt) if kmajor else qt)
+    return _real_weight(GGMLType.Q4_K, N, K, seed, device, kmajor, scale)
+
+
+def q5k_weight(N: int, K: int, seed: int, device, kmajor: bool = True,
+               scale: float = 0.05) -> QTensor:
+    """A real Q5_K weight [N, K] (``random_blocks``: the min term as large as
+    the scaled term) repacked by the port on `device`, its planes prepared
+    and bf16: K-major i8t with two planes [2, K/32, N] (the scales, then the
+    mins) as the loader lays out a dense weight (``kmajor``), else
+    lane-major i8 with planes [N, 2, K/32] as it keeps a weight that the
+    K-major kernels do not take, or an expert stack."""
+    return _real_weight(GGMLType.Q5_K, N, K, seed, device, kmajor, scale)
+
+
+def q5_1_weight(N: int, K: int, seed: int, device, kmajor: bool = False,
+                scale: float = 0.05) -> QTensor:
+    """A real Q5_1 weight [N, K] (``random_blocks``: m near -16·d) as
+    ``q5k_weight`` lays it out; lane-major by default, as llama.cpp's Q5_1
+    ffn_down of the 1.3B shape stays (its K/32 = 172 groups are not a
+    multiple of 8)."""
+    return _real_weight(GGMLType.Q5_1, N, K, seed, device, kmajor, scale)
 
 
 def decode_attn_case(L: int, B: int, Hkv: int, G: int, S: int, D: int, Dc: int,
@@ -1083,9 +1140,10 @@ def qmm_i4t_mutants(x: torch.Tensor, w: QTensor, groups: tuple[int, int]) -> dic
 
 def qmm_mins_mutants(x: torch.Tensor, w: QTensor) -> dict:
     """(x, w) pairs on which the plain versions compute what a kernel that
-    mishandles an affine weight's mins would (Q4_K: prepared planes, the
-    mins after the scales): the mins dropped, and the mins added where they
-    are subtracted.  Empty for a weight without mins."""
+    mishandles an affine weight's mins would (Q4_K, Q5_K, Q5_1: prepared
+    planes, the mins after the scales; i4 or i8, K-major or lane-major):
+    the mins dropped, and the mins added where they are subtracted.  Empty
+    for a weight without mins."""
     w = w.resolved()
     s3, has_mins = kernel_scales(w)
     if not has_mins:
@@ -1128,23 +1186,39 @@ def qmm_i8k_split(x: torch.Tensor, w: QTensor, ks: int,
     tests only).  Split s takes stages [s·nst/ks, (s+1)·nst/ks) of 64 rows
     (nst = K/64), each in 4 k16 steps, each added to the f32 sum as one
     16-term dot of bf16(x) with w (i8t: bf16(f32(q)·f32(bf16 s)); i8c:
-    bf16(q)); the splits' sums are added in split order from zero, `drop`
-    left out (a wrong kernel's sum); i8c then scales each column."""
+    bf16(q)); with mins (G = 32) each stage then subtracts xs_0·m_0 +
+    xs_1·m_1, its two groups' f32 sums of bf16(x) (each four sums of 8
+    values in order, added as (p0 + p1) + (p2 + p3)) times f32(bf16 m); the
+    splits' sums are added in split order from zero, `drop` left out (a
+    wrong kernel's sum); i8c then scales each column."""
     w = w.resolved()
     M, K = x.shape
+    has_mins = False
     if w.kind == "i8c":
         wd = w.qw.float()
     else:
-        s3, _ = kernel_scales(w)
+        s3, has_mins = kernel_scales(w)
         sf = s3[0].to(torch.bfloat16).float().repeat_interleave(w.group, dim=0)
         wd = (w.qw.float() * sf).to(torch.bfloat16).float()
+        mf = s3[1].to(torch.bfloat16).float() if has_mins else None  # [K/32, N]
     xb = x.to(torch.bfloat16).float()
+    if has_mins:
+        c8 = xb.reshape(M, K // 8, 8)
+        p = c8[..., 0]
+        for i in range(1, 8):
+            p = p + c8[..., i]
+        p = p.reshape(M, K // 32, 4)
+        xs = (p[..., 0] + p[..., 1]) + (p[..., 2] + p[..., 3])  # [M, K/32]
     nst = K // _I8K_STAGE
     y = torch.zeros(M, wd.shape[1], device=x.device)
     for s in range(ks):
         acc = torch.zeros_like(y)
-        for k0 in range(s * nst // ks * _I8K_STAGE, (s + 1) * nst // ks * _I8K_STAGE, _K16):
-            acc = acc + xb[:, k0:k0 + _K16] @ wd[k0:k0 + _K16]
+        for st in range(s * nst // ks, (s + 1) * nst // ks):
+            for k0 in range(st * _I8K_STAGE, (st + 1) * _I8K_STAGE, _K16):
+                acc = acc + xb[:, k0:k0 + _K16] @ wd[k0:k0 + _K16]
+            if has_mins:
+                g = 2 * st
+                acc = acc - (xs[:, g:g + 1] * mf[g] + xs[:, g + 1:g + 2] * mf[g + 1])
         if s != drop:
             y = y + acc
     return y * w.scales.float() if w.kind == "i8c" else y

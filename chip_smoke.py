@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--phases build,kernels,probes,parity,generate,batch,generate_i8,
                            generate_q8,batch_q8,server,generate_i8c,batch_i8c,generate_q6k,
-                           batch_q6k,generate_mpt,batch_mpt,generate_q4k,generate_moe,
-                           batch_moe]
+                           batch_q6k,generate_q5k,batch_q5k,generate_mpt,batch_mpt,
+                           generate_q4k,generate_moe,batch_moe]
 
 Phases, each printing one JSON line with its seconds:
 
@@ -95,7 +95,19 @@ Phases, each printing one JSON line with its seconds:
    kernels; and csrc/qmm_lane.cu's i4p form with mins on Q4_K expert stacks
    of Mixtral-8x7B's width, grouped at 2 and 128 real rows and dense over
    one expert at M = 1, with the same mins mutants beside the table, expert,
-   nibble, scale and K-split ones.
+   nibble, scale and K-split ones.  llama.cpp's Q5_K_S mix on real planes
+   (random Q5_K and Q5_1 blocks repacked by the port; two planes, the
+   scales then the mins): the int8 K-major forms with mins at the
+   DeepSeek-Coder-1.3B shape (qkv, wo and the fused gate-up: the M = 1
+   matvec, the wgmma tile of csrc/i8k_tile.cuh at M = 16, 64 and 2048),
+   the lane-major Q5_1 down (5504 → 2048) at M = 1, 16, 64 and 2048, the
+   whole MLP with mins on both weights at the Llama-3-8B width at M = 1,
+   16 and 64, and the grouped i8 form with mins on Q5_K expert stacks of
+   Mixtral's width at 2 and 128 real rows; each held against its plain
+   version with the mins dropped and taken with the wrong sign among its
+   wrong kernels, the gate-up and the MLP equal to their unfused kernels
+   bit for bit, and each timed beside the same kernel with the weight's
+   mins plane dropped (no_mins_ms).
    Median times of kernel,
    plain version and one library call (the yardstick), each call after an
    L2 scrub (cold, as on the decode path), and the kernel's time warm
@@ -167,7 +179,14 @@ Phases, each printing one JSON line with its seconds:
    Q4_K, every weight i4t with four planes, the single-stream path over a
    bf16 cache, 2 decode steps; (j) the Mixtral-8x7B width in Q4_K (the
    expert stacks lane-major i4p with mins), as (e) runs it, its card
-   launches counted as the path "parity (j)".  The
+   launches counted as the path "parity (j)"; (k) the Llama-3-8B width in
+   llama.cpp's Q5_K_S mix (Q5_K with mins planes, a Q6_K head), the
+   single-stream path over a bf16 cache, 2 decode steps: the whole-MLP
+   kernel with mins on both weights at its 16-row prefill and at each step
+   (its rows counted; the card's launches are the path "parity (k)"); (l)
+   the DeepSeek-Coder-1.3B width in the same mix (the ffn_down Q5_1,
+   lane-major), the single-stream path and the batched path over an int8
+   cache (4 slots, 2 live, T = 32), 6 decode steps each.  The
    live slots' logits agree within the stated tolerance at every step, and
    the greedy tokens wherever the CPU's top-2 margin exceeds it.
 4. generate — the full 22-layer TinyLlama-shaped Q4_0 GGUF (random weights
@@ -299,7 +318,24 @@ Phases, each printing one JSON line with its seconds:
    append a step and 24 prefill attentions (G = 1) a chunk; no host sync
    in a decode dispatch.
 
-   generate_mpt and batch_mpt (after batch_q6k) — MPT-7B as the public
+   generate_q5k and batch_q5k (after batch_q6k) — the same 24-layer
+   DeepSeek-Coder-1.3B shape as llama.cpp's Q5_K_S file (Q5_K blocks drawn
+   from the seed, the token embedding Q5_K, output.weight Q6_K, every
+   ffn_down Q5_1: its rows of 5504 hold no super-block; 0.95 GB, written by
+   the background writer), loaded once with ``load_model(weights=
+   "native")`` (wqkv, wo and w_gateup K-major i8t at group 32 with a mins
+   plane, w_down lane-major i8 with one, the head i8t at group 16); phase
+   4's generate and phase 5's bench_batch on it.  Exact counts by kernel
+   and shape, from the reference's dispatch as for Q6_K (qmm_mlp declines a
+   lane-major down; qmm_gateup takes the gate-up): per generate step 2·24 +
+   1 mins-form matvecs (qkv, wo; the head without mins), 24 M = 1 gate-ups
+   and 24 lane-major Q5_1 downs; at its 16-row prefill the wgmma tile's
+   mins form for qkv, wo and the gate-up, and the downs; per batch step and
+   prefill chunk the same forms at M = 64 and 2048; no dequantize-path
+   matmul, no host sync in a decode dispatch; the profile windows watch the
+   mins forms' kernels by name.
+
+   generate_mpt and batch_mpt (after batch_q5k) — MPT-7B as the public
    mosaicml/mpt-7b config gives it (32 layers, d_model 4096, 32 heads of
    128, ff 16384, vocab 50432, ALiBi with max bias 8, no biases) as
    llama.cpp's Q4_0 file (Q4_0 blocks drawn from the seed, a Q6_K
@@ -341,7 +377,9 @@ the path that runs it: generate / generate_q8 for the M = 1 kernels and
 bf16-cache attention, batch / batch_q8 for the int8 ones, server for the
 paged ones, generate_moe / batch_moe for the grouped ones, generate_i8c /
 batch_i8c for the i8c ones, generate_q6k / batch_q6k for the group-16
-forms, the M = 1 fused gate-up and the 1.3B down, generate_mpt /
+forms, the M = 1 fused gate-up and the 1.3B down, generate_q5k /
+batch_q5k for the int8 forms with mins at the 1.3B shapes, parity (k) for
+the whole MLP with mins, generate_mpt /
 batch_mpt for the per-layer appends, generate_q4k for config 2's Q4_K rows
 (its long run, generate_q4k_8k, for the 8192-row qkv), parity (j) for the
 lane-major mins form's grouped rows; the bf16-pool
@@ -374,7 +412,8 @@ sys.path.insert(0, str(ROOT))
 from booster_tpu_torch.tools.timing import bound, release as release_scrub, timed  # noqa: E402
 PHASES = ("build", "kernels", "probes", "parity", "generate", "batch", "generate_i8",
           "generate_q8", "batch_q8", "server", "generate_i8c", "batch_i8c", "generate_q6k",
-          "batch_q6k", "generate_mpt", "batch_mpt", "generate_q4k", "generate_moe", "batch_moe")
+          "batch_q6k", "generate_q5k", "batch_q5k", "generate_mpt", "batch_mpt", "generate_q4k",
+          "generate_moe", "batch_moe")
 
 # TinyLlama-1.1B (config 1 of bench.py), Q4_0
 TINYLLAMA = dict(vocab_size=32000, hidden=2048, heads=32, kv_heads=4, ff=5632,
@@ -414,6 +453,16 @@ MPT7B = dict(vocab_size=50432, hidden=4096, heads=32, kv_heads=32, ff=16384, arc
 # chosen type), its blocks drawn from the seed (4.6 GB)
 LLAMA3_8B = dict(vocab_size=32000, hidden=4096, heads=32, kv_heads=8, ff=14336, seed=0,
                  weight_scale=0.05, draw="blocks")
+# llama.cpp's Q5_K_S mix (llama_tensor_get_type): every 2-D weight Q5_K, the
+# token embedding too, output.weight Q6_K, and Q5_1 where a weight's rows
+# hold no 256-element super-block (make_model's fallback): on the
+# DeepSeek-Coder-1.3B shape every ffn_down (rows of 5504) is Q5_1, and
+# lane-major ((5504/32) % 8 = 4), the rest K-major int8 with mins planes;
+# on the Llama-3-8B width (ff 14336) every weight but the head is Q5_K and
+# K-major, so the whole MLP takes its mins form (parity (k), 2 layers: ~5 GB
+# at 32 would pass the chip machine's writes)
+DEEPSEEK_Q5KS = dict(DEEPSEEK, output_quant="Q6_K")
+LLAMA3_8B_Q5KS = dict(LLAMA3_8B, output_quant="Q6_K")
 # config 2's run (bench.py:72-100): its prompt, engine and sampling
 Q4K_PROMPT = "benchmark " * 12
 Q4K_MAX_SEQ, Q4K_CHUNK = 8192, 64
@@ -745,6 +794,7 @@ def phase_kernels(entries: list) -> dict:
     _moe_kernels(entries, failures)
     _q4k_kernels(entries, failures)
     _q4k_lane_kernels(entries, failures)
+    _q5k_kernels(entries, failures)
     floor = _append_floor()
     for e in entries:  # beside every append row: a row near it sits at the launch floor
         if e["name"].startswith("kv_append"):
@@ -2171,6 +2221,301 @@ def _q4k_lane_kernels(entries: list, failures: list) -> None:
         torch.cuda.empty_cache()
 
 
+def _q5k_kernels(entries: list, failures: list) -> None:
+    """llama.cpp's Q5_K_S mix on real planes (testing.q5k_weight and
+    q5_1_weight: random blocks repacked by the port on the card; Q5_K's min
+    term as large as its scaled term, Q5_1's mins -m near 16·d): at the
+    DeepSeek-Coder-1.3B shape the K-major int8 forms with mins (qkv 2048 →
+    6144 and wo: the M = 1 matvec, the wgmma tile at 16, 64 and 2048; the
+    fused gate-up [2048, 2·5504] likewise) and the lane-major down (Q5_1,
+    5504 → 2048) at M = 1, 16, 64 and 2048; the whole MLP with mins on both
+    weights at the Llama-3-8B width (ff 14336) at M = 1, 16 and 64; the
+    grouped i8 form with mins on Q5_K expert stacks of Mixtral's width at 2
+    and 128 real rows.  Each within CHECKS of its plain version, every wrong
+    kernel (the form's own mutants, the mins dropped, the mins with the
+    wrong sign) 8x past the limit; the gate-up and the MLP equal to their
+    unfused kernels bit for bit; each row timed beside the same kernel on
+    the same weight with its mins plane dropped (the form without mins:
+    no_mins_ms).  The 1.3B rows count their launches on generate_q5k (M = 1,
+    16) and batch_q5k (64, 2048), the MLP rows on parity (k) (whose steps
+    run M = 1 and 16), the grouped rows under a key no path counts (no
+    Q5_K MoE file runs)."""
+    import dataclasses
+
+    import torch
+
+    from booster_tpu_torch.ops import mlp as tm
+    from booster_tpu_torch.ops import moe
+    from booster_tpu_torch.ops import qmm as tq
+    from booster_tpu_torch.quant.qtensor import dequantize
+    from booster_tpu_torch.testing import (q5_1_weight, q5k_weight, qmm_i8k_mutants,
+                                           qmm_lane_mutants, qmm_mins_mutants, qmm_mv_mutants)
+    from booster_tpu_torch.tools.mlp_sched import unfused as mlp_unfused
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(19)
+    bf = torch.bfloat16
+    C, ff = DEEPSEEK["hidden"], DEEPSEEK["ff"]
+    nqkv = C + 2 * DEEPSEEK["kv_heads"] * (C // DEEPSEEK["heads"])
+    src = "booster_tpu_torch/csrc/qmm_i8t.cu"
+
+    def no_mins(w):  # the same weight without its mins plane: the form without mins
+        r = w.resolved()
+        dim = -3 if r.transposed else -2
+        return dataclasses.replace(r, scales=r.scales.narrow(dim, 0, 1).contiguous())
+
+    def wbytes(w):  # payload and bf16 planes
+        r = w.resolved()
+        return r.qw.numel() + 2 * r.scales.numel()
+
+    def x_of(M, K):
+        return torch.randn(M, K, device="cuda", generator=gen).to(bf)
+
+    def path_of(M):
+        return "generate_q5k" if M <= 16 else "batch_q5k"
+
+    def seen_of(name, want, limit, mutants, plain):
+        seen = {what: float((plain(*m).float() - want.float()).abs().max()) / limit
+                for what, m in mutants.items()}
+        if not {"mins dropped", "mins with the wrong sign"} <= set(seen):
+            failures.append(f"{name}: the mins mutants did not run")
+        for what, v in seen.items():
+            if v < 8:
+                failures.append(f"{name}: the check cannot see {what} ({v})")
+        return min(seen.values())
+
+    # the K-major matmuls: the group-dot matvec at M = 1, the wgmma tile above
+    for i, (label, N) in enumerate((("qkv", nqkv), ("wo", C))):
+        w = q5k_weight(N, C, seed=300 + i, device="cuda")
+        wn = no_mins(w)
+        deq = dequantize(w, bf)
+        for M in (1, 16, 64, 2048):
+            x = x_of(M, C)
+            name = "qmm_i8t_gd" if M == 1 else "qmm_i8t_dq"
+            tag = f"{name} Q5_K 1.3B {label} M={M}"
+            got, want = tq.qmm_i8t(x, w), tq.qmm_plain(x, w)
+            limit = 2e-4 * float(want.abs().max())
+            err = float((got - want).abs().max())
+            if not (err <= limit and torch.isfinite(got).all()):
+                failures.append(f"{tag}: max err {err} over {limit}")
+            if M == 1 and not torch.equal(got, tq.qmm_i8t(x, w)):
+                failures.append(f"{tag}: a second launch differs")
+            nst = C // 64
+            ks = tq.i8k_plan(M, C, N)[1]
+            form = (qmm_mv_mutants(x, w) if M == 1
+                    else qmm_i8k_mutants(x, w, ((ks - 1) * nst // ks, nst)))
+            seen = seen_of(tag, want, limit, {**form, **qmm_mins_mutants(x, w)}, tq.qmm_plain)
+            b_ms, b_by = bound(wbytes(w) + M * C * 2 + M * N * 4, 2 * M * C * N)
+            entries.append({
+                "name": name, "shape": f"Q5_K 1.3B {label} M={M} K={C} N={N} G=32 mins",
+                "key": (name, (C, N)), "path": path_of(M), "route": "cuda", "source": src,
+                "replaces": "booster_tpu/ops/pallas_qmm.py:" + ("361" if M == 1 else "432")
+                            + " (has_mins)",
+                "max_abs_err": err, "min_wrong_kernel_of_limit": seen,
+                "ms": timed(lambda: tq.qmm_i8t(x, w), trials=3),
+                "warm_ms": timed(lambda: tq.qmm_i8t(x, w), trials=3, cold=False),
+                "no_mins_ms": timed(lambda: tq.qmm_i8t(x, wn), trials=3),
+                "plain_ms": timed(lambda: tq.qmm_plain(x, w), reps=3, trials=3),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": timed(lambda: torch.matmul(x, deq.t()), trials=3),
+                "library": "torch.matmul on the dequantized bf16 weight",
+                "check": CHECKS["qmm"] + "; wrong kernels (the mins dropped, with the wrong "
+                                         "sign) at 8x"})
+            del x, got, want
+        del w, wn, deq
+    torch.cuda.empty_cache()
+
+    # the fused gate-up: the group-dot form at M = 1, the tile's above
+    w = q5k_weight(2 * ff, C, seed=310, device="cuda")
+    wn = no_mins(w)
+    for M in (1, 16, 64, 2048):
+        x = x_of(M, C)
+        name = "qmm_i8t_gateup_gd" if M == 1 else "qmm_i8t_gateup_dq"
+        tag = f"{name} Q5_K 1.3B gateup M={M}"
+        got, want = tq.qmm_i8t_gateup(x, w), tq.qmm_gateup_plain(x, w)
+        tol = 2 ** -7 if M == 1 else 2 ** -5  # CHECKS "gateup" / "gateup_i8"
+        limit = tol * want.float().abs() + 1e-5 * want.float().abs().max()
+        d = (got.float() - want.float()).abs()
+        if not (bool((d <= limit).all()) and torch.isfinite(got.float()).all()):
+            failures.append(f"{tag}: max err {float(d.max())}, {float((d / limit).max())} of "
+                            "its limit")
+        gu = tq.qmm_i8t(x, w, dq=M > 1)
+        e = float((gu - tq.qmm_plain(x, w, dq=M > 1)).abs().max())
+        if not e <= 2e-4 * float(gu.abs().max()):
+            failures.append(f"{tag}: the unfused sums' max err {e}")
+        gu = gu.to(bf)
+        if not torch.equal(got, tq.silu(gu[:, :ff]) * gu[:, ff:]):
+            failures.append(f"{tag}: fused != qmm_i8t + silu·mul")
+        seen = {what: float(((tq.qmm_gateup_plain(xm, wm, dq=M > 1).float() - want.float()).abs()
+                             / limit).max()) for what, (xm, wm) in qmm_mins_mutants(x, w).items()}
+        for what, v in seen.items():
+            if v < 8:
+                failures.append(f"{tag}: the check cannot see {what} ({v})")
+        b_ms, b_by = bound(wbytes(w) + M * C * 2 + M * ff * 2, 2 * M * C * 2 * ff)
+        entries.append({
+            "name": name, "shape": f"Q5_K 1.3B gateup M={M} K={C} N={2 * ff} G=32 mins",
+            "key": (name, (C, 2 * ff)), "path": path_of(M), "route": "cuda", "source": src,
+            "replaces": "booster_tpu/ops/pallas_qmm.py:" + ("873" if M == 1 else "726")
+                        + " (has_mins)",
+            "max_abs_err": float(d.max()), "max_err_of_limit": float((d / limit).max()),
+            "min_wrong_kernel_of_limit": min(seen.values()),
+            "ms": timed(lambda: tq.qmm_i8t_gateup(x, w), trials=3),
+            "warm_ms": timed(lambda: tq.qmm_i8t_gateup(x, w), trials=3, cold=False),
+            "no_mins_ms": timed(lambda: tq.qmm_i8t_gateup(x, wn), trials=3),
+            "unfused_ms": timed(lambda: tq.qmm_i8t(x, w, dq=M > 1), trials=3),
+            "plain_ms": timed(lambda: tq.qmm_gateup_plain(x, w), reps=3, trials=3),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "library": "null: no one torch call (gate-up + SiLU·mul)",
+            "check": (CHECKS["gateup"] if M == 1 else CHECKS["gateup_i8"])
+            + "; equal to qmm_i8t + silu·mul; the mins mutants at 8x"})
+        del x, got, want, gu, d, limit
+    del w, wn
+    torch.cuda.empty_cache()
+
+    # the lane-major down: Q5_1 (mins -m), 5504 → 2048
+    w = q5_1_weight(C, ff, seed=320, device="cuda")
+    wn = no_mins(w)
+    deq = dequantize(w, bf)
+    for M in (1, 16, 64, 2048):
+        x = x_of(M, ff)
+        tag = f"qmm_i8 Q5_1 1.3B down M={M}"
+        got, want = tq.qmm_lane(x, w), tq.qmm_lane_plain(x, w)
+        err, seen = _lane_check(failures, tag, got, want, qmm_lane_mutants(
+            x, w, *_lane_split_stages(M, ff, C, "i8")), lambda m: tq.qmm_lane_plain(*m))
+        if not {"mins dropped", "mins with the wrong sign"} <= set(qmm_mins_mutants(x, w)):
+            failures.append(f"{tag}: the mins mutants did not run")
+        b_ms, b_by = bound(wbytes(w) + M * ff * 2 + M * C * 4, 2 * M * C * ff)
+        entries.append({
+            "name": "qmm_i8", "shape": f"Q5_1 1.3B down M={M} K={ff} N={C} G=32 mins",
+            "key": ("qmm_i8", (ff, C)), "path": path_of(M), "route": "cuda",
+            "source": "booster_tpu_torch/csrc/qmm_lane.cu",
+            "replaces": "booster_tpu/ops/pallas_qmm.py:135 (has_mins, via _qmm_i8 :265)",
+            "max_abs_err": err, "min_wrong_kernel_of_limit": seen,
+            "ms": timed(lambda: tq.qmm_lane(x, w), trials=3),
+            "warm_ms": timed(lambda: tq.qmm_lane(x, w), trials=3, cold=False),
+            "no_mins_ms": timed(lambda: tq.qmm_lane(x, wn), trials=3),
+            "plain_ms": timed(lambda: tq.qmm_lane_plain(x, w), reps=3, trials=3),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": timed(lambda: torch.matmul(x, deq.t()), trials=3),
+            "library": "torch.matmul on the dequantized bf16 weight",
+            "check": CHECKS["qmm"] + "; wrong kernels (the mins dropped, with the wrong sign "
+                                     "among them) at 8x"})
+        del x, got, want
+    del w, wn, deq
+    torch.cuda.empty_cache()
+
+    # the whole MLP with mins on both weights at the Llama-3-8B width
+    C8, ff8 = LLAMA3_8B["hidden"], LLAMA3_8B["ff"]
+    wg = q5k_weight(2 * ff8, C8, seed=330, device="cuda")
+    wd = q5k_weight(C8, ff8, seed=331, device="cuda")
+    wgn, wdn = no_mins(wg), no_mins(wd)
+    for M in (1, 16, 64):
+        x = x_of(M, C8)
+        tag = f"mlp_i8t Q5_K 8B M={M}"
+        if not tm.mlp_supported(wg, wd, C8, M):
+            failures.append(f"{tag}: the reference's gate declines it")
+        got, want = tm.qmm_mlp_i8t(x, wg, wd), tm.qmm_mlp_plain(x, wg, wd)
+        d = (got.float() - want.float()).abs()
+        limit = 2 ** -7 * float(want.float().abs().max())
+        if not bool(d.max() <= limit):
+            failures.append(f"{tag}: max err {float(d.max())}")
+        g = tq.qmm_i8t(x, wg, dq=True).to(bf)
+        mid = tq.silu(g[:, :ff8]) * g[:, ff8:]
+        if M > 1 and not torch.equal(mid, tq.qmm_i8t_gateup(x, wg)):
+            failures.append(f"{tag}: the gate-up != qmm_i8t (dq) + silu·mul")
+        if not torch.equal(got, tq.qmm_i8t(mid, wd, dq=True).to(bf)):
+            failures.append(f"{tag}: != gate-up + silu·mul + qmm_i8t (dq)")
+        torch.cuda.synchronize()
+        if int(tq._tickets[x.device].abs().sum()):
+            failures.append(f"{tag}: its workspace is not zero after the launch")
+        mutants = {f"gate-up: {k}": (xm, wm, wd) for k, (xm, wm) in qmm_mins_mutants(x, wg).items()}
+        mutants |= {f"down: {k}": (x, wg, wm) for k, (_, wm) in qmm_mins_mutants(mid, wd).items()}
+        seen = {what: float((tm.qmm_mlp_plain(*m).float() - want.float()).abs().max()) / limit
+                for what, m in mutants.items()}
+        for what, v in seen.items():
+            if v < 8:
+                failures.append(f"{tag}: the check cannot see {what} ({v})")
+        b_ms, b_by = bound(wbytes(wg) + wbytes(wd) + M * C8 * 2 + M * C8 * 2,
+                           2 * M * C8 * 2 * ff8 + 2 * M * ff8 * C8)
+        entries.append({
+            "name": "mlp_i8t", "shape": f"Q5_K 8B mlp M={M} K={C8} ff={ff8} C={C8} mins",
+            # parity (k) runs M = 1 and 16; no path runs the 8B mins MLP at 64
+            "key": ("mlp_i8t", (C8, C8) + (() if M <= 16 else ("M=64",))),
+            "path": "parity (k)",
+            "route": "cuda", "source": "booster_tpu_torch/csrc/mlp_i8t.cu",
+            "replaces": "booster_tpu/ops/pallas_qmm.py:1172 (has_mins, d_has_mins)",
+            "max_abs_err": float(d.max()), "min_wrong_kernel_of_limit": min(seen.values()),
+            "ms": timed(lambda: tm.qmm_mlp_i8t(x, wg, wd), trials=3),
+            "warm_ms": timed(lambda: tm.qmm_mlp_i8t(x, wg, wd), trials=3, cold=False),
+            "no_mins_ms": timed(lambda: tm.qmm_mlp_i8t(x, wgn, wdn), trials=3),
+            "unfused_ms": timed(lambda: mlp_unfused(x, wg, wd), trials=3),
+            "plain_ms": timed(lambda: tm.qmm_mlp_plain(x, wg, wd), reps=3, trials=3),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "library": "null: no one torch call (gate-up, SiLU·mul, down)",
+            "check": CHECKS["mlp"] + "; equal to the gate-up + qmm_i8t (dq); workspace zero; "
+                                     "the mins mutants of either weight at 8x"})
+        del x, got, want, d, g, mid
+    del wg, wd, wgn, wdn
+    torch.cuda.empty_cache()
+
+    # the grouped i8 form with mins on Q5_K expert stacks of Mixtral's width
+    E, k, CM, ffm = MIXTRAL["experts"], MIXTRAL["experts_used"], MIXTRAL["hidden"], MIXTRAL["ff"]
+    for i, (label, Ne, K) in enumerate((("gate/up", ffm, CM), ("down", CM, ffm))):
+        w = q5k_weight(E * Ne, K, seed=340 + i, device="cuda", kmajor=False)
+        wn = no_mins(w)
+        wb = wbytes(w) // E
+        wdq = dequantize(w, bf).reshape(E, Ne, K)
+        for rlabel, n_tok in (("decode B=1", 1), ("decode B=64", 64)):
+            x = x_of(n_tok, K)
+            logits = torch.randn(n_tok, E, device="cuda", generator=gen)
+            topi = torch.sort(logits, dim=-1, descending=True, stable=True).indices[:, :k]
+            xp, pos, te, used = moe.route_pad(x, topi.to(torch.int32), E)
+            tag = f"moe_qmm_i8 Q5_K {label} {rlabel}"
+            got = moe.grouped_qmm(xp, w, te, E, used)
+            want = moe.grouped_qmm_plain(xp, w, te, E, used)
+            n_used = int(used[0])
+            if got[n_used:].any():
+                failures.append(f"{tag}: padding tiles not zero")
+            stages, sk = _lane_split_stages(xp.shape[0], K, Ne, "i8", E)
+            mutants = {"tile table ignored": (xp, w, torch.zeros_like(te)),
+                       "expert off by one": (xp, w, (te + 1) % E),
+                       **{what: (xm, wm, te)
+                          for what, (xm, wm) in qmm_lane_mutants(xp, w, stages, sk).items()}}
+            if not {"mins dropped", "mins with the wrong sign"} <= set(mutants):
+                failures.append(f"{tag}: the mins mutants did not run")
+            err, seen = _lane_check(failures, tag, got, want, mutants,
+                                    lambda m: moe.grouped_qmm_plain(*m, E, used))
+            counts = torch.bincount(topi.reshape(-1), minlength=E)
+            start = torch.cat([torch.zeros(1, dtype=torch.int32, device="cuda"),
+                               torch.cumsum((counts + 31) // 32 * 32, 0, dtype=torch.int32)])
+            live = int((counts > 0).sum())
+            b_ms, b_by = bound(live * wb + n_used * K * 2 + n_used * Ne * 4,
+                               2 * n_tok * k * Ne * K)
+            lib_ms, lib = _grouped_yardstick(xp, wdq, start, n_used)
+            entries.append({
+                "name": "moe_qmm_i8",
+                "shape": f"Mixtral Q5_K {label} E={E} Ne={Ne} K={K} mins {rlabel}: "
+                         f"{n_tok * k} rows of Mp={xp.shape[0]}, {n_used} in {live} experts' "
+                         "tiles",
+                # no Q5_K MoE file runs on a path: a key no launch counts under
+                "key": ("moe_qmm_i8", (K, Ne, "mins")), "path": "batch_moe", "route": "cuda",
+                "source": "booster_tpu_torch/csrc/qmm_lane.cu",
+                "replaces": "booster_tpu/ops/pallas_moe.py:72 (the i8 branch :150, has_mins)",
+                "max_abs_err": err, "min_wrong_kernel_of_limit": seen,
+                "ms": timed(lambda: moe.grouped_qmm(xp, w, te, E, used)),
+                "warm_ms": timed(lambda: moe.grouped_qmm(xp, w, te, E, used), cold=False),
+                "no_mins_ms": timed(lambda: moe.grouped_qmm(xp, wn, te, E, used)),
+                "plain_ms": timed_eager(lambda: moe.grouped_qmm_plain(xp, w, te, E, used)),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "bound_note": "payload and two planes of each expert a real row routes to, "
+                              "x and out of the tiles that hold real rows; operations of the "
+                              "real rows",
+                "library_ms": lib_ms, "library": lib, "check": CHECKS["qmm"]})
+            del x, xp, pos, te, used, got, want
+        del w, wn, wdq
+        torch.cuda.empty_cache()
+
+
 # -- phase 2b: probes ---------------------------------------------------------
 
 # the JAX tools' Pallas functions: file:line of each kernel body
@@ -2853,11 +3198,13 @@ GGUFS = {"tiny": ("tinyllama-shape-q4_0", "TINYLLAMA", "Q4_0"),
          "q6k": ("deepseek-coder-1.3b-shape-q6_k", "DEEPSEEK", "Q6_K"),
          "mpt": ("mpt-7b-shape-q4_0", "MPT7B", "Q4_0"),
          "q4k": ("llama3-8b-shape-q4_k", "LLAMA3_8B", "Q4_K"),
-         "moe_q4k": ("mixtral8x7b-shape-q4_k", "MIXTRAL", "Q4_K")}
+         "moe_q4k": ("mixtral8x7b-shape-q4_k", "MIXTRAL", "Q4_K"),
+         "q5k": ("deepseek-coder-1.3b-shape-q5_k_s", "DEEPSEEK_Q5KS", "Q5_K"),
+         "q5k_8b": ("llama3-8b-shape-q5_k_s", "LLAMA3_8B_Q5KS", "Q5_K")}
 # each model's depth on its full-size phases
 # (Mixtral cut to 24 of its 32: the card's machine takes 45 GiB of disk writes
 # a call, and with config 2's files a 32-layer Mixtral came to 49 GiB)
-LAYERS = {"tiny": 22, "q8": 32, "moe": 24, "q6k": 24, "mpt": 32, "q4k": 32}
+LAYERS = {"tiny": 22, "q8": 32, "moe": 24, "q6k": 24, "mpt": 32, "q4k": 32, "q5k": 24}
 
 
 def _gguf_path(layers: int, model: str = "tiny") -> Path:
@@ -3041,6 +3388,7 @@ def phase_parity() -> dict:
     out.update(_parity_mpt(tol, laps))
     out.update(_parity_q4k(tol, laps))
     out.update(_parity_moe(tol, laps, ("moe_q4k",), "j"))
+    out.update(_parity_q5k(tol, laps, out))
     out["seconds"] = time.perf_counter() - t0
     out["part_s"] = laps.parts
     return out
@@ -3253,6 +3601,85 @@ def _parity_q4k(tol: float, laps) -> dict:
     del models, caches
     laps("i check")
     return {"q4_k_llama3_8b_width_bf16_cache_1_slot": res}
+
+
+def _parity_q5k(tol: float, laps, out: dict) -> dict:
+    """(k) the Llama-3-8B width at 2 layers in llama.cpp's Q5_K_S mix (every
+    weight K-major i8t with a mins plane, the head Q6_K at group 16): the
+    single-stream path over a bf16 cache, a 16-row prefill and
+    PARITY_7B_STEPS decode steps, whose MLP is the whole-MLP kernel with
+    mins on both weights (counted: its rows at M = 16 and 1 on the card;
+    the card's launches are the path "parity (k)"); (l) the
+    DeepSeek-Coder-1.3B width at 2 layers in the same mix (its ffn_down
+    Q5_1, lane-major), the single-stream path and the batched path over an
+    int8 cache (4 slots, 2 live, T = 32), 6 decode steps each.  The CPU
+    (plain versions) against the card (kernels), fed the CPU's greedy
+    tokens."""
+    from booster_tpu_torch.models import load_model
+    from booster_tpu_torch.ops import kernels
+    from booster_tpu_torch.ops import mlp as tm
+    from booster_tpu_torch.ops.kv_cache import KVCache
+
+    res = {}
+    for case, model in (("k", "q5k_8b"), ("l", "q5k")):
+        path, _ = _wait_gguf(model, 2)
+        laps(f"{case} wait")
+        models = {dev: load_model(path, device=dev, weights="native") for dev in ("cpu", "cuda")}
+        cfg = models["cpu"].cfg
+        for dev, m in models.items():
+            lay = m.params["layers"]
+            got = {k: (lay[k].kind, lay[k].group, lay[k].scales.shape[
+                -3 if lay[k].kind == "i8t" else -2]) for k in ("wqkv", "wo", "w_gateup", "w_down")}
+            got["output"] = (m.params["output"].kind, m.params["output"].group,
+                             m.params["output"].scales.shape[-3])
+            want = dict.fromkeys(("wqkv", "wo", "w_gateup"), ("i8t", 32, 2)) | {
+                "w_down": ("i8t" if case == "k" else "i8", 32, 2), "output": ("i8t", 16, 1)}
+            if got != want:
+                raise AssertionError(f"parity q5_k_s ({case}) on {dev}: weights {got}")
+        tok = models["cpu"].tokenizer
+        caches = {dev: KVCache.create(cfg.n_layers, 1, 256, cfg.n_kv_heads, cfg.head_dim, dev)
+                  for dev in models}
+        laps(f"{case} load")
+        mlp_rows = []
+        orig = tm.qmm_mlp_i8t
+
+        def spy(x, w_gu, w_down):
+            if x.is_cuda:
+                mlp_rows.append(x.shape[0])
+            return orig(x, w_gu, w_down)
+
+        tm.qmm_mlp_i8t = spy
+        kernels.reset_counts()
+        try:
+            got, want = _teacher_forced(models, caches, [tok.encode(PROMPT)], 16, [True], laps,
+                                        case, steps=PARITY_7B_STEPS if case == "k" else 6)
+        finally:
+            tm.qmm_mlp_i8t = orig
+        label = "llama3_8b" if case == "k" else "1.3b"
+        key = f"q5_k_s_{label}_width_bf16_cache_1_slot"
+        res[key] = _compare_logits(f"q5_k_s ({case}) single", got, want, tol)
+        res[key]["card_launches"] = {k: v for k, v in kernels.launch_counts.items() if v}
+        L = cfg.n_layers
+        if case == "k":
+            out.setdefault("_paths", {})["parity (k)"] = (dict(kernels.launch_counts),
+                                                          dict(kernels.shape_counts))
+            if mlp_rows != [16] * L + [1] * L * PARITY_7B_STEPS:
+                raise AssertionError(f"parity q5_k_s (k): the MLP kernel ran at rows {mlp_rows}")
+            res[key]["mlp_kernel_rows"] = mlp_rows
+        else:
+            prompts = [tok.encode("stream 0 benchmark prompt"), [],
+                       tok.encode("stream 2 benchmark prompt"), []]
+            T = max(16, 1 << (max(len(p) for p in prompts) - 1).bit_length())
+            caches = {dev: KVCache.create(cfg.n_layers, 4, 512, cfg.n_kv_heads, cfg.head_dim,
+                                          dev, quantized=True) for dev in models}
+            laps(f"{case} check")
+            got, want = _teacher_forced(models, caches, prompts, T, [True, False, True, False],
+                                        laps, case, steps=6)
+            res[f"q5_k_s_{label}_width_int8_cache_4_slots_2_live"] = _compare_logits(
+                f"q5_k_s ({case}) batched", got, want, tol)
+        del models, caches
+        laps(f"{case} check")
+    return res
 
 
 def _parity_q6k(tol: float, laps) -> dict:
@@ -3511,6 +3938,13 @@ def _big_model(model: str, layers: int = 32, weights: str = "auto"):
             want = dict.fromkeys(kinds, ("i8t", 32))
         elif model == "q6k":  # the reference's kinds for llama.cpp's Q6_K mix
             want = dict.fromkeys(kinds, ("i8t", 16)) | {"w_down": ("i8", 32)}
+        elif model == "q5k":  # llama.cpp's Q5_K_S mix: Q5_K, a Q6_K head, a Q5_1 down
+            want = dict.fromkeys(kinds, ("i8t", 32)) | {"w_down": ("i8", 32),
+                                                         "output": ("i8t", 16)}
+            planes = {k: v.scales.shape[-3 if v.kind == "i8t" else -2]
+                      for k, v in m.params["layers"].items() if hasattr(v, "kind")}
+            if set(planes.values()) != {2} or m.params["output"].scales.shape[-3] != 1:
+                raise AssertionError(f"{model}: scale planes {planes}, not two (scales, mins)")
         elif model == "mpt":  # llama.cpp's Q4_0 mix: Q4_0 layers, a Q6_K head
             want = dict.fromkeys(kinds, ("i4t", 32)) | {"output": ("i8t", 16)}
         elif model == "q4k":  # every weight K-major i4t with Q4_K's four planes
@@ -3552,18 +3986,19 @@ class _FallbackCount:
 GENERATE = {"generate": ("tiny", None), "generate_q8": ("q8", None),
             "generate_moe": ("moe", None), "generate_i8": ("tiny", "i8"),
             "generate_i8c": ("q8", "i8c"), "generate_q6k": ("q6k", "native"),
-            "generate_mpt": ("mpt", "native")}
+            "generate_q5k": ("q5k", "native"), "generate_mpt": ("mpt", "native")}
 BATCH = {"batch": ("tiny", None), "batch_q8": ("q8", None), "batch_moe": ("moe", None),
          "batch_i8c": ("q8", "i8c"), "batch_q6k": ("q6k", "native"),
-         "batch_mpt": ("mpt", "native")}
+         "batch_q5k": ("q5k", "native"), "batch_mpt": ("mpt", "native")}
 
 
 def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str] = None) -> dict:
     """The single-stream generate: TinyLlama Q4_0 ("tiny"; with weights
     "i8", phase generate_i8), the 7B Q8_0 model ("q8", phase generate_q8;
     with weights "i8c", phase generate_i8c), the DeepSeek-Coder-1.3B Q6_K
-    mix ("q6k", native, phase generate_q6k), MPT-7B ("mpt", native, phase
-    generate_mpt) or the Mixtral-8x7B shape ("moe", phase generate_moe)."""
+    mix ("q6k", native, phase generate_q6k) or its Q5_K_S mix ("q5k", native,
+    phase generate_q5k), MPT-7B ("mpt", native, phase generate_mpt) or the
+    Mixtral-8x7B shape ("moe", phase generate_moe)."""
     import torch
 
     from booster_tpu_torch.models import load_model
@@ -3576,10 +4011,10 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
     t_wait = load_rss = None
     name = {v: k for k, v in GENERATE.items()}[(model_name, weights)]
     q8, moe, q6k = model_name == "q8" and weights is None, model_name == "moe", model_name == "q6k"
-    mpt = model_name == "mpt"
+    mpt, q5k = model_name == "mpt", model_name == "q5k"
     load_gpu_gb = None
     torch.cuda.reset_peak_memory_stats()
-    if model_name in ("q8", "moe", "q6k", "mpt"):
+    if model_name in ("q8", "moe", "q6k", "mpt", "q5k"):
         big = _big_model(model_name, layers, weights or "auto")
         model, t_build, t_load = big["model"], big["build_s"], big["load_s"]
         t_wait, load_rss = big["wait_s"], big["load_rss_gb"]
@@ -3619,10 +4054,11 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
         expected = dict.fromkeys(counts, 0) | {
             "qmm_i8c_mv": (4 * L + 1) * steps + 1, "qmm_i8c_mm": 4 * L,
             "decode_attn": L * steps, "kv_append": steps}
-    elif q6k:  # the reference's dispatch for a G16 gate-up beside a lane-major G32
-        # down (qmm_mlp declines, pallas_qmm.py:1320, :1338; qmm_gateup takes
-        # M = 1 in the group-dot form, :1083): per step the qkv, wo and lm
-        # head matvecs, the fused gate-up and the lane-major down of each layer
+    elif q6k or q5k:  # the reference's dispatch for a K-major gate-up beside a
+        # lane-major down (qmm_mlp declines, pallas_qmm.py:1320, :1338;
+        # qmm_gateup takes M = 1 in the group-dot form, :1083): per step the
+        # qkv, wo and lm head matvecs, the fused gate-up and the lane-major
+        # down of each layer (Q5_K_S: the mins forms, the head's G16 without)
         expected = dict.fromkeys(counts, 0) | {
             "qmm_i8t_gd": (2 * L + 1) * steps + 1, "qmm_i8t_dq": 2 * L,
             "qmm_i8t_gateup_gd": L * steps, "qmm_i8t_gateup_dq": L,
@@ -3655,6 +4091,15 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
         want = {(C, 3 * C): L * steps, (C, C): L * steps, (C, V): steps + 1}
         if gd != want:
             raise AssertionError(f"{name}: group-dot launches by shape {gd} != {want}")
+    if q5k:  # every matmul launch by shape: the mins forms at M = 1 (each step) and
+        # at the 16-row prefill, the Q6_K head's matvec (each step and the prefill)
+        C, V, FF = model.cfg.n_embd, model.cfg.n_vocab, model.cfg.n_ff
+        want = {("qmm_i8t_gd", (C, 3 * C)): L * steps, ("qmm_i8t_gd", (C, C)): L * steps,
+                ("qmm_i8t_gd", (C, V)): steps + 1, ("qmm_i8t_dq", (C, 3 * C)): L,
+                ("qmm_i8t_dq", (C, C)): L, ("qmm_i8t_gateup_gd", (C, 2 * FF)): L * steps,
+                ("qmm_i8t_gateup_dq", (C, 2 * FF)): L, ("qmm_i8", (FF, C)): L * (steps + 1)}
+        if shape_counts != want:
+            raise AssertionError(f"{name}: launches by shape {shape_counts} != {want}")
     if weights and fallbacks.calls:
         raise AssertionError(f"{name}: {fallbacks.calls} matmuls took the dequantize path")
     # the trace covers a 32-token generate: summing one of 128 tokens (130 K
@@ -3672,6 +4117,9 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
     # K-major weights
     watch = (("i4mv::mv_kernel",) if weights is None and model_name in ("tiny", "moe") or mpt
              else ())
+    if q5k:  # the mins forms: the matvec and gate-up, the lane-major down, the prefill's tile
+        watch = ("i8mv::mv_kernel<32, true", "lane_kernel<false, 32, true>",
+                 "dq_kernel<16, 32, false, true>", "dq_kernel<16, 32, true, true>")
     prof = _profile(lambda: short.generate(ids, sp, max_new_tokens=32), steps=32,
                     watch=watch + (("::kv_append_kernel",) if mpt else ()))
     prof["window"] = "a 32-token generate (decode_chunk 32)"
@@ -3690,6 +4138,8 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
                         "generate_i8": "q4_0 widened to int8 (i8t)",
                         "generate_i8c": "q8_0 requantized per channel (i8c)",
                         "generate_q6k": "q6_k (i8t g16) with q8_0 ffn_down (lane-major i8)",
+                        "generate_q5k": "q5_k_s: q5_k (i8t g32 with mins), q5_1 ffn_down "
+                                        "(lane-major i8 with mins), a q6_k head (i8t g16)",
                         "generate_mpt": "q4_0 (i4t) with a q6_k head (i8t g16)"}[name],
             "gguf_build_s": t_build, "gguf_wait_s": t_wait, "load_s": t_load,
             "load_rss_gb": load_rss, "load_max_memory_allocated_gb": load_gpu_gb,
@@ -3936,10 +4386,11 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
     config 3's ("q8": the 7B Q8_0 model, native i8t; phase batch_q8; with
     weights "i8c", requantized per channel: phase batch_i8c), the
     DeepSeek-Coder-1.3B Q6_K mix ("q6k", native: i8t at group 16 and the
-    lane-major Q8_0 down; phase batch_q6k), MPT-7B ("mpt", native; phase
+    lane-major Q8_0 down; phase batch_q6k) or its Q5_K_S mix ("q5k", native:
+    the int8 forms with mins; phase batch_q5k), MPT-7B ("mpt", native; phase
     batch_mpt), or the Mixtral-8x7B shape ("moe": native i4t and i4p; phase
-    batch_moe).  The decode dispatches of batch_moe, batch_i8c, batch_q6k
-    and batch_mpt run under torch's synchronization check."""
+    batch_moe).  The decode dispatches of batch_moe, batch_i8c, batch_q6k,
+    batch_q5k and batch_mpt run under torch's synchronization check."""
     import torch
 
     from booster_tpu_torch.gguf import GGUFReader
@@ -3952,16 +4403,16 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
     laps = _Laps()
     name = {v: k for k, v in BATCH.items()}[(model_name, weights)]
     q8, moe, i8c = model_name == "q8" and weights is None, model_name == "moe", weights == "i8c"
-    q6k, mpt = model_name == "q6k", model_name == "mpt"
+    q6k, mpt, q5k = model_name == "q6k", model_name == "mpt", model_name == "q5k"
     torch.cuda.reset_peak_memory_stats()
-    if q8 or moe or i8c or q6k or mpt:
+    if q8 or moe or i8c or q6k or mpt or q5k:
         big = _big_model(model_name, layers, weights or "auto")
         model, t_load = big["model"], big["load_s"]
         reader = GGUFReader(_gguf_path(layers, model_name))
         try:  # bench_batch's load_model(weights="auto", batch_hint=64): the same model
             # (the 1.3B file fits 6 GiB as bf16, so "auto" would take bf16
             # there: batch_q6k asks for native weights, to run the Q6_K kernels)
-            if not (i8c or q6k) and resolve_weights(reader, "auto", 64) != "native":
+            if not (i8c or q6k or q5k) and resolve_weights(reader, "auto", 64) != "native":
                 raise AssertionError(f"{model_name}: weights=auto at batch_hint=64 is not native")
         finally:
             reader.close()
@@ -3983,7 +4434,7 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
     # chunk of any length runs the same ops
     _bench_batch(eng, model.tokenizer, B, *((4, 4) if mpt else (32,)))
     laps("warm-up")
-    syncs = _SyncCheck(eng) if moe or i8c or q6k or mpt else None
+    syncs = _SyncCheck(eng) if moe or i8c or q6k or mpt or q5k else None
     kernels.reset_counts()
     with _FallbackCount() as fallbacks:
         res = _bench_batch(eng, model.tokenizer, B, n_tokens)
@@ -4016,13 +4467,22 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
         expected |= {"kv_append_layer_i8": layers * steps,
                      "qmm_i4t_dq": 4 * layers * (steps + prefill_chunks),
                      "qmm_i8t_dq": steps + prefill_chunks}
-    if q6k:  # qkv, wo (and the lm head), the gate-up and the lane-major down at M = 64 and 64·T
+    if q6k or q5k:  # qkv, wo (and the lm head), the gate-up and the lane-major down at
+        # M = 64 and 64·T (Q5_K_S: the mins forms, the head's G16 without)
         expected |= {"qmm_i8t_dq": (2 * layers + 1) * (steps + prefill_chunks),
                      "qmm_i8t_gateup_dq": layers * (steps + prefill_chunks),
                      "qmm_i8": layers * (steps + prefill_chunks)}
-    if counts != expected or (kernels.shape_counts and not (q8 or moe or i8c or q6k or mpt)):
+    if counts != expected or (kernels.shape_counts and not (q8 or moe or i8c or q6k or mpt
+                                                             or q5k)):
         raise AssertionError(f"batch: launch counts {counts} != expected {expected}")
-    if (i8c or q6k or mpt) and fallbacks.calls:
+    if q5k:  # every matmul launch by shape, at the decode steps and the prefill chunk
+        C, V, FF, n = model.cfg.n_embd, model.cfg.n_vocab, model.cfg.n_ff, steps + prefill_chunks
+        want = {("qmm_i8t_dq", (C, 3 * C)): layers * n, ("qmm_i8t_dq", (C, C)): layers * n,
+                ("qmm_i8t_dq", (C, V)): n, ("qmm_i8t_gateup_dq", (C, 2 * FF)): layers * n,
+                ("qmm_i8", (FF, C)): layers * n}
+        if kernels.shape_counts != want:
+            raise AssertionError(f"{name}: launches by shape {kernels.shape_counts} != {want}")
+    if (i8c or q6k or mpt or q5k) and fallbacks.calls:
         raise AssertionError(f"{name}: {fallbacks.calls} matmuls took the dequantize path")
     shape_counts = dict(kernels.shape_counts)
     V = model.cfg.n_vocab
@@ -4041,8 +4501,12 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
     laps("run")
     short = _bench_batch(eng, model.tokenizer, B, 32)
     laps("window")
+    watch = ("::kv_append_i8_kernel",) if mpt else ()
+    if q5k:  # the mins forms at the decode steps' M = 64 (and the 2048-row prefill's tile)
+        watch = ("dq_kernel<64, 32, false, true>", "dq_kernel<64, 32, true, true>",
+                 "lane_kernel<false, 64, true>", "dq_kernel<256, 32, true, true>")
     prof = _profile(lambda: _bench_batch(eng, model.tokenizer, B, 32),
-                    steps=short["decode_steps"], watch=("::kv_append_i8_kernel",) if mpt else ())
+                    steps=short["decode_steps"], watch=watch)
     laps("profile")
     prof["window"] = f"bench_batch to 32 tokens ({short['decode_steps']} steps)"
     if prof["kernel_ms"] is not None:
@@ -4052,6 +4516,8 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
                         "batch_moe": "q4_0 (i4t attention, i4p experts)",
                         "batch_i8c": "q8_0 requantized per channel (i8c)",
                         "batch_q6k": "q6_k (i8t g16) with q8_0 ffn_down (lane-major i8)",
+                        "batch_q5k": "q5_k_s: q5_k (i8t g32 with mins), q5_1 ffn_down "
+                                     "(lane-major i8 with mins), a q6_k head (i8t g16)",
                         "batch_mpt": "q4_0 (i4t) with a q6_k head (i8t g16)"}[name],
             "load_s": t_load, "dequantize_fallbacks": fallbacks.calls,
             "host_syncs_in_dispatches": None if syncs is None else syncs.host_syncs,
@@ -4376,11 +4842,12 @@ def main(argv=None) -> int:
 
     jobs = (([("tiny", 2), ("q8", 2)] if "parity" in phases else [])
             + ([("tiny", 22)] if {"generate", "batch", "generate_i8"} & set(phases) else [])
-            + ([("moe", 2), ("moe_q8", 2), ("q6k", 2), ("mpt", 2), ("q4k", 2), ("moe_q4k", 2)]
-               if "parity" in phases else [])
+            + ([("moe", 2), ("moe_q8", 2), ("q6k", 2), ("mpt", 2), ("q4k", 2), ("moe_q4k", 2),
+                ("q5k_8b", 2), ("q5k", 2)] if "parity" in phases else [])
             + ([("q8", 32)] if {"generate_q8", "batch_q8", "server", "generate_i8c",
                                 "batch_i8c"} & set(phases) else [])
             + ([("q6k", 24)] if {"generate_q6k", "batch_q6k"} & set(phases) else [])
+            + ([("q5k", 24)] if {"generate_q5k", "batch_q5k"} & set(phases) else [])
             + ([("mpt", 32)] if {"generate_mpt", "batch_mpt"} & set(phases) else [])
             + ([("q4k", 32)] if "generate_q4k" in phases else [])
             + ([("moe", LAYERS["moe"])] if {"generate_moe", "batch_moe"} & set(phases)
@@ -4421,8 +4888,9 @@ def _run_phases(phases, run, entries, failed, t_all) -> int:
                     path_counts[path], path_shapes[path] = c, sh
                 emit(res)
     runs = ("generate", "batch", "generate_i8", "generate_q8", "batch_q8", "server",
-            "generate_i8c", "batch_i8c", "generate_q6k", "batch_q6k", "generate_mpt",
-            "batch_mpt", "generate_q4k", "generate_moe", "batch_moe")
+            "generate_i8c", "batch_i8c", "generate_q6k", "batch_q6k", "generate_q5k",
+            "batch_q5k", "generate_mpt", "batch_mpt", "generate_q4k", "generate_moe",
+            "batch_moe")
     for name in runs:
         phase = (phase_generate if name in GENERATE else phase_batch if name in BATCH
                  else (lambda layers, *_: phase_generate_q4k(layers))
@@ -4433,8 +4901,10 @@ def _run_phases(phases, run, entries, failed, t_all) -> int:
             _big.pop(("q8", "auto"), None)  # the native 7B model's 8 GB, done with
         if model == "q6k":
             _big.pop(("q8", "i8c"), None)
-        if model == "mpt":
+        if model == "q5k":
             _big.pop(("q6k", "native"), None)
+        if model == "mpt":
+            _big.pop(("q5k", "native"), None)
         if model == "q4k":
             _big.pop(("mpt", "native"), None)
         if model == "moe":

@@ -841,8 +841,10 @@ def test_grouped_kernel_blocks_of_several_tiles(cuda, kind, n_tok, k_used):
 def test_lane_wrappers_refuse_what_the_kernel_does_not_take(cuda):
     gen = torch.Generator(device="cuda").manual_seed(22)
     x = torch.randn(2, 512, device="cuda", generator=gen).to(torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="Q5_K"):  # i8 with mins (Q4_K's i4p runs)
-        tq.qmm_lane(x, _lane("i8", 128, 512, gen, mins=True))
+    w8 = _lane("i8", 128, 512, gen, mins=True)  # Q5_K's form runs; a group of 8 does not
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        tq.qmm_lane(x, dataclasses.replace(w8, group=8, scales=torch.zeros(
+            128, 2, 64, device="cuda", dtype=torch.bfloat16)))
     with pytest.raises(ValueError):  # f32 scale planes (not compacted)
         w = _lane("i8", 128, 512, gen)
         tq.qmm_lane(x, QTensor("i8", w.qw, w.scales.float(), None, 32, (128, 512),
@@ -1258,6 +1260,136 @@ def test_q4k_grouped_kernel_with_mins(cuda, n_tok):
     assert not got[int(used[0]):].any()
     for what, (_, wm) in qmm_mins_mutants(xp, w).items():
         assert (moe.grouped_qmm_plain(xp, wm, te, E, used) - want).abs().max() > 8 * limit, what
+
+
+# -- Q5_K and Q5_1 (llama.cpp's Q5_K_S mix): int8 codes with a mins plane ------
+
+
+@pytest.mark.parametrize("m", [2, 16, 17, 64, 100, 2048])
+def test_q5k_i8t_tile_with_mins(cuda, m):
+    """csrc/i8k_tile.cuh's mins form (qmm_i8t.cu's dq_kernel) on real Q5_K
+    planes (testing.q5k_weight) at the 1.3B qkv shape (2048 → 6144) and
+    the fused gate-up at its ff (2048 → 2·5504), at the path's M (16, 64,
+    2048) and ragged M: within 2e-4 of the largest output of the plain
+    version, the mins dropped and taken with the wrong sign 8x past that,
+    the gate-up equal to the matmul kernel + silu·mul bit for bit."""
+    from booster_tpu_torch.testing import q5k_weight, qmm_mins_mutants
+
+    gen = torch.Generator(device="cuda").manual_seed(60 + m)
+    for n, gateup in ((6144, False), (2 * 5504, True)):
+        w = q5k_weight(n, 2048, seed=m + n, device="cuda")
+        assert tuple(w.scales.shape) == (2, 2048 // 32, n)
+        x = torch.randn(m, 2048, device="cuda", generator=gen).to(torch.bfloat16)
+        got, want = tq.qmm_i8t(x, w), tq.qmm_plain(x, w)
+        limit = 2e-4 * want.abs().max()
+        assert (got - want).abs().max() <= limit
+        for what, (xm, wm) in qmm_mins_mutants(x, w).items():
+            assert (tq.qmm_plain(xm, wm) - want).abs().max() > 8 * limit, what
+        if gateup:
+            gu = got.to(torch.bfloat16)
+            assert torch.equal(tq.qmm_i8t_gateup(x, w), tq.silu(gu[:, :5504]) * gu[:, 5504:])
+
+
+@pytest.mark.parametrize("m", [1, 16, 64, 100])
+def test_q5k_mlp_with_mins_equals_unfused(cuda, m):
+    """csrc/mlp_i8t.cu with mins planes on both weights (real Q5_K at
+    Llama-3-8B's width, ff 14336): equal bit for bit to the gate-up (its
+    dequant form) + silu·mul + the dequant matmul, within the MLP's limit of
+    its plain version, its workspace zero after the launch; the down's mins
+    dropped seen 8x past that limit."""
+    from booster_tpu_torch.testing import q5k_weight
+
+    gu = q5k_weight(2 * 14336, 4096, seed=70, device="cuda")
+    dn = q5k_weight(4096, 14336, seed=71, device="cuda")
+    assert tm.mlp_supported(gu, dn, 4096, m) == (m <= 64)
+    gen = torch.Generator(device="cuda").manual_seed(72 + m)
+    x = torch.randn(m, 4096, device="cuda", generator=gen).to(torch.bfloat16)
+    got = tm.qmm_mlp_i8t(x, gu, dn)
+    g = tq.qmm_i8t(x, gu, dq=True).to(torch.bfloat16)
+    mid = tq.silu(g[:, :14336]) * g[:, 14336:]
+    if m > 1:
+        assert torch.equal(mid, tq.qmm_i8t_gateup(x, gu))
+    assert torch.equal(got, tq.qmm_i8t(mid, dn, dq=True).to(torch.bfloat16))
+    torch.cuda.synchronize()
+    assert not int(tq._tickets[x.device].abs().sum())
+    want = tm.qmm_mlp_plain(x, gu, dn)
+    assert (got.float() - want.float()).abs().max() <= 2 ** -7 * want.float().abs().max()
+    no_mins = dataclasses.replace(dn, scales=dn.scales[:1].contiguous())
+    wrong = tm.qmm_mlp_plain(x, gu, no_mins).float()
+    assert (wrong - want.float()).abs().max() > 8 * 2 ** -7 * want.float().abs().max()
+
+
+@pytest.mark.parametrize("m", [1, 5, 16, 40, 600, 2048])
+def test_q5_1_lane_kernel_with_mins(cuda, m):
+    """qmm_lane.cu's i8 form with mins on real Q5_1 planes (negative m, so
+    mins of -m) at the 1.3B down (5504 → 2048, lane-major: (5504/32) % 8 =
+    4): within the limit of the plain version (each value bf16(q·s) less its
+    bf16 min, rounded again), each wrong kernel of testing.qmm_lane_mutants
+    (the mins dropped and with the wrong sign among them) 8x past it, the
+    same bits across graph replays."""
+    from booster_tpu_torch.testing import q5_1_weight, qmm_lane_mutants
+
+    k, n = 5504, 2048
+    w = q5_1_weight(n, k, seed=m, device="cuda")
+    assert w.kind == "i8" and tuple(w.scales.shape) == (n, 2, k // 32)
+    assert not tq.transposable(w) and tq.lane_supported(w)
+    gen = torch.Generator(device="cuda").manual_seed(80 + m)
+    x = torch.randn(m, k, device="cuda", generator=gen).to(torch.bfloat16)
+    kernels.reset_counts()
+    got = _replays_equal(lambda: tq.qmm_lane(x, w))
+    assert kernels.launch_counts["qmm_i8"] == 3
+    want = tq.qmm_lane_plain(x, w)
+    limit = 2e-4 * want.abs().max()
+    assert (got - want).abs().max() <= limit
+    bm, ks = tq.lane_plan(m, k, n)
+    sk = tq.lane_stage(bm, "i8")
+    nst = k // sk
+    seen = qmm_lane_mutants(x, w, ((ks - 1) * nst // ks, nst), sk)
+    assert {"mins dropped", "mins with the wrong sign"} <= set(seen)
+    for what, (xm, wm) in seen.items():
+        assert (tq.qmm_lane_plain(xm, wm) - want).abs().max() > 8 * limit, what
+
+
+@pytest.mark.parametrize("n_tok", [1, 3, 1024])
+def test_q5k_grouped_kernel_with_mins(cuda, n_tok):
+    """The grouped form (pallas_moe.py's i8 branch with has_mins) over a
+    Q5_K expert stack (4 experts): within the limit of its plain version,
+    zero past rows_used, the mins mutants 8x past the limit."""
+    from booster_tpu_torch.ops import moe
+    from booster_tpu_torch.testing import q5k_weight, qmm_mins_mutants
+
+    E, K, Ne = 4, 1024, 256
+    w = q5k_weight(E * Ne, K, seed=n_tok, device="cuda", kmajor=False)
+    gen = torch.Generator(device="cuda").manual_seed(90 + n_tok)
+    x = torch.randn(n_tok, K, device="cuda", generator=gen).to(torch.bfloat16)
+    topi = torch.topk(torch.randn(n_tok, E, device="cuda", generator=gen), 2).indices
+    xp, pos, te, used = moe.route_pad(x, topi.to(torch.int32), E)
+    got = _replays_equal(lambda: moe.grouped_qmm(xp, w, te, E, used))
+    want = moe.grouped_qmm_plain(xp, w, te, E, used)
+    limit = 2e-4 * want.abs().max()
+    assert (got - want).abs().max() <= limit
+    assert not got[int(used[0]):].any()
+    for what, (_, wm) in qmm_mins_mutants(xp, w).items():
+        assert (moe.grouped_qmm_plain(xp, wm, te, E, used) - want).abs().max() > 8 * limit, what
+
+
+@pytest.mark.parametrize("qt", ["Q5_K", "Q5_1"])
+def test_q5_repack_on_card_equals_host(cuda, qt):
+    """The Q5_K and Q5_1 repacks on the card (the loader's path for expert
+    stacks) bit-equal to the same torch repack on the host."""
+    import numpy as np
+
+    from booster_tpu_torch.quant.qtensor import repack_gguf_tensor
+    from booster_tpu_torch.testing import random_blocks
+
+    n, k = 512, 2048
+    raw = np.frombuffer(random_blocks(np.random.default_rng(5), n * k, GGMLType[qt], 0.05),
+                        np.uint8)
+    host = repack_gguf_tensor(raw, GGMLType[qt], (n, k))
+    card = repack_gguf_tensor(torch.from_numpy(raw.copy()), GGMLType[qt], (n, k), device="cuda")
+    assert card.qw.is_cuda and (card.kind, card.group) == (host.kind, host.group) == ("i8", 32)
+    for f in ("qw", "scales", "mins"):
+        assert np.array_equal(getattr(card, f).cpu().numpy(), getattr(host, f)), f
 
 
 def test_janus_shortlist_on_cuda_equals_cpu(cuda):

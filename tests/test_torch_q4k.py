@@ -311,8 +311,9 @@ def test_grouped_qmm_with_mins_matches_pallas(n, k, interpret):
 
 def test_lane_launch_takes_i4p_mins_and_refuses_i8_mins(monkeypatch):
     """On CUDA tensors (a stand-in library here) the lane-major wrapper hands
-    an i4p weight with mins to csrc/qmm_lane.cu with mins = 1, and still
-    raises for an i8 weight with mins (Q5_K's form)."""
+    an i4p weight with mins to csrc/qmm_lane.cu with mins = 1, and an i8
+    weight with mins (Q5_K's form, ported since) with (i4, mins) = (0, 1);
+    a group the kernel does not take (8) still raises."""
     import types
 
     from booster_tpu_torch.ops import kernels
@@ -338,8 +339,13 @@ def test_lane_launch_takes_i4p_mins_and_refuses_i8_mins(monkeypatch):
     w8 = tqt.QTensor("i8", torch.zeros(256, 768, dtype=torch.int8),
                      torch.cat([s.reshape(256, 1, -1)] * 2, 1).to(torch.bfloat16), None, 32,
                      (256, 768), TT.Q5_K)
-    with pytest.raises(NotImplementedError, match="Q5_K"):
-        tq.lane_launch(x, w8, 256, "qmm_i8")
+    tq.lane_launch(x, w8, 256, "qmm_i8")
+    name, args = calls[1]
+    assert name == "bt_qmm_lane" and args[8:15] == (3, 768, 256, 32, 0, 0, 1)
+    w8g = dataclasses.replace(w8, group=8, scales=torch.zeros(256, 2, 96, dtype=torch.bfloat16))
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        tq.lane_launch(x, w8g, 256, "qmm_i8")
+    assert len(calls) == 2
 
 
 # -- the model ----------------------------------------------------------------
