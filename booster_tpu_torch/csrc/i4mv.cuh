@@ -40,7 +40,12 @@
 //     shared memory with cp.async (no registers held in flight), kStages - 1
 //     groups ahead, 16-byte chunks swizzled so that its reads hit 32
 //     distinct banks; the scales come two groups ahead and x one group ahead
-//     in registers.  No block barrier before the stream.
+//     in registers.  No block barrier before the stream.  At G = 16 (Q2_K,
+//     Q3_K) a group is one k16 step a half and a stage holds 2 KB, half
+//     its bytes at G = 32: the same swizzle gives a warp's reads of a
+//     16-row stage 32 distinct banks (it depends on the row within a k16
+//     step only), and two stages in flight hold half the bytes; a deeper
+//     ring for the small groups is speed work still to do (PERF.md §6).
 //   - A tile's KS splits (at most 8) form one thread-block cluster and add
 //     in split order in the writing block's shared memory (i8mv::finish): no
 //     partials in device memory, no ticket, no workspace, and every launch

@@ -2,9 +2,11 @@
 //
 // Replaces the Pallas kernels of booster_tpu/ops/pallas_qmm.py:
 //   _tqmm_i4_gd_kernel   (M = 1, group-dot form)           -> i4mv::mv_kernel<G, mins, kF32>
-//   _tqmm_i4_kernel      (M > 1, dequantize then dot)      -> mm_kernel<BM, false>
+//   _tqmm_i4_kernel      (M > 1, dequantize then dot)      -> mm_kernel<BM, false, G>
 //   _gateup_i4_gd_kernel (M = 1, fused gate+up, silu·mul)  -> i4mv::mv_kernel<G, mins, kGateUp>
-//   _gateup_i4_kernel    (M > 1, fused gate+up, silu·mul)  -> mm_kernel<BM, true>
+//   _gateup_i4_kernel    (M > 1, fused gate+up, silu·mul)  -> mm_kernel<BM, true, G>
+// at G = 32 (Q4_0: zero 8; Q4_K: mins) and G = 16 (Q2_K: mins; Q3_K: zero
+// 4 and scales of either sign).
 //
 // y[m, n] = sum_k x[m, k] * W[n, k],  W = (q - zero) * s - mins, group G along k.
 // Payload qw [K/2, N] u8: byte row r holds element r (low nibble) and element
@@ -25,10 +27,11 @@
 //           code with the same K split and the same reduction order.
 //
 // M = 1 (i4mv.cuh).  What bounds it: the payload and scale bytes (half a
-// byte of payload and 1/16 byte of bf16 scale per weight at G = 32) over
-// 3.35 TB/s.  i8mv.cuh's streaming block on the nibble layout: a lane
-// streams 4 columns of a warp's groups (G payload rows, group g of both
-// halves, with the group's scales) through a register ring of two, x in
+// byte of payload and 1/16 byte of bf16 scale per weight at G = 32, 1/8 at
+// G = 16; twice that with mins) over 3.35 TB/s.  i8mv.cuh's streaming
+// block on the nibble layout: a lane streams 4 columns of a warp's groups
+// (G payload rows, group g of both halves, with the group's scales)
+// through a register ring of two, x in
 // registers (a lane a row of both halves, shuffled to the warp), 8 warps a
 // 128-column tile over one K split, a tile's KS splits one cluster that
 // adds them in split order through distributed shared memory (ops/qmm.py
@@ -41,9 +44,10 @@
 // scales, 0.011 ms); at a 1024-row prefill the bf16 operations (0.139 ms).
 // Design (qmm_ring.cuh): a block of 8 warps owns a BM x 128 output tile and
 // one split of K; ops/qmm.py i4t_plan picks BM (32, 64 or 128) and the
-// split from (M, K, N), about two blocks an SM.  A stage is one group: 32
-// payload rows (32 rows of K of each half, so one scale row per half), its
-// R scale rows and the block's 64 columns of x (32 of each half).  A ring
+// split from (M, K, N), about two blocks an SM.  A stage is 32 payload rows
+// (32 rows of K of each half: one group at G = 32, two at G = 16), their
+// R·32/G scale rows (plane-major; payload row r takes row r / G of its
+// plane) and the block's 64 columns of x (32 of each half).  A ring
 // of S stages (6 at BM <= 64, 3 at 128) keeps S - 2 in flight through
 // cp.async while one is used (the copy into the slot the last stage left
 // is issued after this stage's work, so its issue does not hold up the
@@ -51,8 +55,10 @@
 // memory (qring::dq_nibbles) into the bf16 [64 k][128 n] tile, and the
 // warps run 4 k16 steps of mma.sync on ldmatrix fragments (.trans for this
 // [k][n] tile).  With mins (R = 4) each
-// stage then subtracts xs_lo·m_lo + xs_hi·m_hi, the f32 group sums of the
-// stage's bf16 x (shared memory).  Splits cover whole groups; each writes
+// stage then subtracts xs_lo·m_lo + xs_hi·m_hi for each of its groups in
+// turn, xs the f32 sums of the group's G bf16 x in row order (shared
+// memory).  The zero point is in the unpack (qring::nibble_bias: bf16(q -
+// zero) exactly for any zero below 16).  Splits cover whole stages; each writes
 // f32 partials and the last block (ticket, reset by it) adds them in split
 // order.  The gate-up tile holds gate columns n0 + [0, 64) and up columns
 // ff + n0 + [0, 64), each warp both halves of its 16-column pairs, so g
@@ -73,30 +79,33 @@ namespace {
 
 // ------------------------------------------------------------------ M > 1
 
-constexpr int kG = 32;             // the group (Q4_0's)
+constexpr int kSR = 32;            // payload rows of a stage (32 k of each half)
 constexpr int kBN = qring::kBN;    // 128 columns of a tile
-constexpr int kXS = 2 * kG + 8;    // bf16 per x row of a stage: 32 low-half k, 32 high, pad
+constexpr int kXS = 2 * kSR + 8;   // bf16 per x row of a stage: 32 low-half k, 32 high, pad
 constexpr int kWS = kBN + 8;       // bf16 per row of the dequantized [64 k][128 n] tile
 
 template <int BM>
 constexpr int kRing = BM == 128 ? 3 : 6;  // stages of the ring
 
-template <int BM>
+// A stage holds 32 rows of k of each half: one group at G = 32, two at G =
+// 16, so SPG = 32 / G scale rows of each plane.
+template <int BM, int G>
 struct MmSmem {
+  static constexpr int SPG = kSR / G;
   struct alignas(16) Stage {
-    uint8_t q[kG * kBN];   // the group's 32 payload rows
-    uint16_t s[4][kBN];    // its scale rows (R of the 4)
-    uint16_t x[BM * kXS];  // the block's x at the group's k: 32 of each half
+    uint8_t q[kSR * kBN];       // the stage's 32 payload rows
+    uint16_t s[4 * SPG][kBN];   // its scale rows, plane-major: row plane·SPG + j (R planes of 4)
+    uint16_t x[BM * kXS];       // the block's x at the stage's k: 32 of each half
   };
   Stage st[kRing<BM>];
-  alignas(16) uint16_t w[2 * kG * kWS];  // rows 0-31 the low half's k, 32-63 the high half's
-  float xs[2][BM];                        // f32 group sums of bf16 x per half (mins)
+  alignas(16) uint16_t w[2 * kSR * kWS];  // rows 0-31 the low half's k, 32-63 the high half's
+  float xs[2 * SPG][BM];                   // f32 group sums of bf16 x, row h·SPG + j (mins)
 };
 
 struct MmParams {
   const uint16_t* x;   // [M, K] bf16
   const uint8_t* qw;   // [K/2, N]
-  const uint16_t* s;   // [R, K/64, N] bf16
+  const uint16_t* s;   // [R, K/(2G), N] bf16
   void* out;           // [M, N] f32, or [M, N/2] bf16 for gate-up
   float* part;         // [KS, M, N] f32 partials (KS > 1), else null
   int* tickets;        // [gridDim.z · gridDim.x] zeros, reset by the last block
@@ -130,26 +139,28 @@ __device__ __forceinline__ int pair_col(int wn, int j) {
   return wn * (NI * 8) + j * 16;
 }
 
-// What a thread copies of each stage, at group 0 (group g adds g·32 payload
-// rows, g scale rows and g·32 columns of x of each half).
-template <int BM, bool GATEUP>
+// What a thread copies of each stage, at stage 0 (stage g adds g·32 payload
+// rows, g·SPG scale rows of each plane and g·32 columns of x of each half).
+template <int BM, bool GATEUP, int G>
 struct MmLoad {
   static constexpr int NX = BM * 8 / qring::kThreads;  // 16-byte x chunks a thread
+  static constexpr int SPG = kSR / G;
   const uint8_t* q;          // its payload chunk (null: past the last column)
   const uint16_t* s;         // its scale chunk (null: none, or past the last column)
   const uint16_t* x[NX];     // its x chunks (null: rows past M)
 
   __device__ __forceinline__ MmLoad(const MmParams& p, int m0, int n0) {
-    const int t = threadIdx.x, half = p.K >> 1, ngh = half / kG;
+    const int t = threadIdx.x, half = p.K >> 1, ngh = half / G;
     {  // payload: 32 rows x 8 chunks of 16 bytes
       const int r = t >> 3, c = (t & 7) * 16;
       q = gcol_live<GATEUP>(p, n0, c)
               ? p.qw + static_cast<size_t>(r) * p.N + gcol<GATEUP>(p, n0, c) : nullptr;
     }
-    {  // scale rows: R x 16 chunks of 8 bf16
+    {  // scale rows: R·SPG x 16 chunks of 8 bf16; stage row h is row j of plane h / SPG
       const int h = t >> 4, c = (t & 15) * 8;
-      s = t < p.R * 16 && gcol_live<GATEUP>(p, n0, c)
-              ? p.s + static_cast<size_t>(h) * ngh * p.N + gcol<GATEUP>(p, n0, c) : nullptr;
+      s = t < p.R * SPG * 16 && gcol_live<GATEUP>(p, n0, c)
+              ? p.s + static_cast<size_t>(h / SPG * ngh + h % SPG) * p.N + gcol<GATEUP>(p, n0, c)
+              : nullptr;
     }
 #pragma unroll
     for (int i = 0; i < NX; ++i) {  // x: BM rows x 8 chunks of 8 bf16, 4 of each half
@@ -160,62 +171,69 @@ struct MmLoad {
   }
 };
 
-template <int BM, bool GATEUP>
-__device__ __forceinline__ void mm_load(const MmParams& p, const MmLoad<BM, GATEUP>& L,
-                                        typename MmSmem<BM>::Stage& st, int g) {
+template <int BM, bool GATEUP, int G>
+__device__ __forceinline__ void mm_load(const MmParams& p, const MmLoad<BM, GATEUP, G>& L,
+                                        typename MmSmem<BM, G>::Stage& st, int g) {
+  constexpr int SPG = kSR / G;
   const int t = threadIdx.x;
-  qring::cp_async16(&st.q[t * 16], L.q != nullptr ? L.q + static_cast<size_t>(g) * kG * p.N
+  qring::cp_async16(&st.q[t * 16], L.q != nullptr ? L.q + static_cast<size_t>(g) * kSR * p.N
                                                   : p.qw, L.q != nullptr);
-  if (t < p.R * 16)
+  if (t < p.R * SPG * 16)
     qring::cp_async16(&st.s[t >> 4][(t & 15) * 8],
-                      L.s != nullptr ? L.s + static_cast<size_t>(g) * p.N : p.s, L.s != nullptr);
+                      L.s != nullptr ? L.s + static_cast<size_t>(g) * SPG * p.N : p.s,
+                      L.s != nullptr);
 #pragma unroll
-  for (int i = 0; i < MmLoad<BM, GATEUP>::NX; ++i) {
+  for (int i = 0; i < MmLoad<BM, GATEUP, G>::NX; ++i) {
     const int idx = t + i * qring::kThreads;
     qring::cp_async16(&st.x[(idx >> 3) * kXS + (idx & 7) * 8],
-                      L.x[i] != nullptr ? L.x[i] + g * kG : p.x, L.x[i] != nullptr);
+                      L.x[i] != nullptr ? L.x[i] + g * kSR : p.x, L.x[i] != nullptr);
   }
 }
 
 // the stage's payload unpacked into the [64 k][128 n] bf16 tile: thread t
-// takes 16 bytes of payload row t / 8 (16 columns, both nibbles)
-template <int BM>
-__device__ __forceinline__ void mm_dequant(const typename MmSmem<BM>::Stage& st, MmSmem<BM>& sm,
-                                           uint32_t bias) {
-  const int t = threadIdx.x, r = t >> 3, c = (t & 7) * 16;
+// takes 16 bytes of payload row r = t / 8 (16 columns, both nibbles), scaled
+// by its group's rows: row r / G of each half's plane
+template <int BM, int G>
+__device__ __forceinline__ void mm_dequant(const typename MmSmem<BM, G>::Stage& st,
+                                           MmSmem<BM, G>& sm, uint32_t bias) {
+  constexpr int SPG = kSR / G;
+  const int t = threadIdx.x, r = t >> 3, c = (t & 7) * 16, j = r / G;
   const uint4 q = *reinterpret_cast<const uint4*>(&st.q[r * kBN + c]);
-  const uint4 la = *reinterpret_cast<const uint4*>(&st.s[0][c]);
-  const uint4 lb = *reinterpret_cast<const uint4*>(&st.s[0][c + 8]);
-  const uint4 ha = *reinterpret_cast<const uint4*>(&st.s[1][c]);
-  const uint4 hb = *reinterpret_cast<const uint4*>(&st.s[1][c + 8]);
+  const uint4 la = *reinterpret_cast<const uint4*>(&st.s[j][c]);
+  const uint4 lb = *reinterpret_cast<const uint4*>(&st.s[j][c + 8]);
+  const uint4 ha = *reinterpret_cast<const uint4*>(&st.s[SPG + j][c]);
+  const uint4 hb = *reinterpret_cast<const uint4*>(&st.s[SPG + j][c + 8]);
   const uint32_t qv[4] = {q.x, q.y, q.z, q.w};
   const uint32_t sl[8] = {la.x, la.y, la.z, la.w, lb.x, lb.y, lb.z, lb.w};
   const uint32_t sh[8] = {ha.x, ha.y, ha.z, ha.w, hb.x, hb.y, hb.z, hb.w};
   uint32_t lo[8], hi[8];
 #pragma unroll
-  for (int j = 0; j < 8; ++j)  // bytes 2j, 2j + 1: columns c + 2j, c + 2j + 1
-    qring::dq_nibbles(qv[j >> 1] >> ((j & 1) * 16), bias, sl[j], sh[j], lo[j], hi[j]);
+  for (int k = 0; k < 8; ++k)  // bytes 2k, 2k + 1: columns c + 2k, c + 2k + 1
+    qring::dq_nibbles(qv[k >> 1] >> ((k & 1) * 16), bias, sl[k], sh[k], lo[k], hi[k]);
   uint4* dl = reinterpret_cast<uint4*>(&sm.w[r * kWS + c]);
-  uint4* dh = reinterpret_cast<uint4*>(&sm.w[(kG + r) * kWS + c]);
+  uint4* dh = reinterpret_cast<uint4*>(&sm.w[(kSR + r) * kWS + c]);
   dl[0] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
   dl[1] = make_uint4(lo[4], lo[5], lo[6], lo[7]);
   dh[0] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
   dh[1] = make_uint4(hi[4], hi[5], hi[6], hi[7]);
 }
 
-template <int BM, bool GATEUP>
+template <int BM, bool GATEUP, int G>
 __global__ void __launch_bounds__(qring::kThreads, 2) mm_kernel(MmParams p) {
+  static_assert(G == 16 || G == 32, "a stage holds one group (G = 32) or two (G = 16)");
   using W = qring::Warps<BM>;
+  using Smem = MmSmem<BM, G>;
   constexpr int S = kRing<BM>;
+  constexpr int SPG = Smem::SPG;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  MmSmem<BM>& sm = *reinterpret_cast<MmSmem<BM>*>(smem_raw);
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int wm = warp % W::WM, wn = warp / W::WM;
   const int n0 = blockIdx.x * (GATEUP ? 64 : kBN), split = blockIdx.y, mt = blockIdx.z;
   const int m0 = mt * BM;
-  const int ngh = (p.K >> 1) / kG;
-  const int g0 = static_cast<int>(static_cast<long long>(split) * ngh / p.KS);
-  const int n = static_cast<int>(static_cast<long long>(split + 1) * ngh / p.KS) - g0;
+  const int nst = (p.K >> 1) / kSR;  // stages of K
+  const int g0 = static_cast<int>(static_cast<long long>(split) * nst / p.KS);
+  const int n = static_cast<int>(static_cast<long long>(split + 1) * nst / p.KS) - g0;
   const uint32_t bias = qring::nibble_bias(p.zero);
   const int r0 = wm * W::MI * 16;         // the warp's first row in the tile
   const bool warp_live = m0 + r0 < p.M;   // whether the warp has a real row
@@ -223,25 +241,27 @@ __global__ void __launch_bounds__(qring::kThreads, 2) mm_kernel(MmParams p) {
   const int gid = lane >> 2, tig = lane & 3;
   float acc[W::MI][W::NI][4];
   qring::zero_acc(acc);
-  const MmLoad<BM, GATEUP> L(p, m0, n0);
+  const MmLoad<BM, GATEUP, G> L(p, m0, n0);
 
 #pragma unroll
   for (int i = 0; i < S - 1; ++i) {
-    if (i < n) mm_load<BM, GATEUP>(p, L, sm.st[i], g0 + i);
+    if (i < n) mm_load<BM, GATEUP, G>(p, L, sm.st[i], g0 + i);
     qring::cp_commit();
   }
   for (int i = 0; i < n; ++i) {
     qring::cp_wait<S - 2>();
     __syncthreads();  // stage i is in; the last stage's tile and slot are free
-    const typename MmSmem<BM>::Stage& st = sm.st[i % S];
-    mm_dequant<BM>(st, sm, bias);
-    if (p.R == 4 && t < 2 * BM) {  // the group sums of x, per half
-      const int h = t / BM, m = t - h * BM;
-      const uint16_t* xr = &st.x[m * kXS + h * kG];
-      float s = 0.f;
+    const typename Smem::Stage& st = sm.st[i % S];
+    mm_dequant<BM, G>(st, sm, bias);
+    if (p.R == 4) {  // the group sums of x: group j of half h, in row order
+      for (int e = t; e < 2 * SPG * BM; e += qring::kThreads) {
+        const int hj = e / BM, m = e - hj * BM;
+        const uint16_t* xr = &st.x[m * kXS + (hj / SPG) * kSR + (hj % SPG) * G];
+        float s = 0.f;
 #pragma unroll
-      for (int j = 0; j < kG; ++j) s = __fadd_rn(s, bf16f(xr[j]));
-      sm.xs[h][m] = s;
+        for (int k = 0; k < G; ++k) s = __fadd_rn(s, bf16f(xr[k]));
+        sm.xs[hj][m] = s;
+      }
     }
     __syncthreads();  // the tile is dequantized
     if (warp_live) {
@@ -257,7 +277,7 @@ __global__ void __launch_bounds__(qring::kThreads, 2) mm_kernel(MmParams p) {
           qring::mma_pair(acc, a, b, j);
         }
       }
-      if (p.R == 4) {  // less xs_lo·m_lo + xs_hi·m_hi
+      if (p.R == 4) {  // less xs_lo·m_lo + xs_hi·m_hi of each group of the stage, in turn
 #pragma unroll
         for (int mi = 0; mi < W::MI; ++mi)
 #pragma unroll
@@ -266,14 +286,17 @@ __global__ void __launch_bounds__(qring::kThreads, 2) mm_kernel(MmParams p) {
             for (int e = 0; e < 4; ++e) {
               const int r = r0 + mi * 16 + gid + (e >> 1) * 8;
               const int c = pair_col<GATEUP, W::NI>(wn, ni >> 1) + (ni & 1) * 8 + tig * 2 + (e & 1);
-              acc[mi][ni][e] = __fsub_rn(acc[mi][ni][e],
-                                         __fadd_rn(__fmul_rn(sm.xs[0][r], bf16f(st.s[2][c])),
-                                                   __fmul_rn(sm.xs[1][r], bf16f(st.s[3][c]))));
+#pragma unroll
+              for (int j = 0; j < SPG; ++j)
+                acc[mi][ni][e] = __fsub_rn(
+                    acc[mi][ni][e],
+                    __fadd_rn(__fmul_rn(sm.xs[j][r], bf16f(st.s[2 * SPG + j][c])),
+                              __fmul_rn(sm.xs[SPG + j][r], bf16f(st.s[3 * SPG + j][c]))));
             }
       }
     }
-    // the copy into the slot group i - 1 left, after this stage's work
-    if (i + S - 1 < n) mm_load<BM, GATEUP>(p, L, sm.st[(i + S - 1) % S], g0 + i + S - 1);
+    // the copy into the slot stage i - 1 left, after this stage's work
+    if (i + S - 1 < n) mm_load<BM, GATEUP, G>(p, L, sm.st[(i + S - 1) % S], g0 + i + S - 1);
     qring::cp_commit();
   }
 
@@ -337,22 +360,30 @@ __global__ void __launch_bounds__(qring::kThreads, 2) mm_kernel(MmParams p) {
   }
 }
 
-template <int BM, bool GATEUP>
+template <int BM, bool GATEUP, int G>
 cudaError_t launch_mm(const MmParams& p, cudaStream_t st) {
-  constexpr int bytes = sizeof(MmSmem<BM>);
+  constexpr int bytes = sizeof(MmSmem<BM, G>);
   static bool ready = false;
-  const cudaError_t e = qring::allow_smem(mm_kernel<BM, GATEUP>, bytes, ready);
+  const cudaError_t e = qring::allow_smem(mm_kernel<BM, GATEUP, G>, bytes, ready);
   if (e != cudaSuccess) return e;
   const int tn = GATEUP ? 64 : kBN;
   const int ncols = GATEUP ? p.N / 2 : p.N;
   const dim3 grid((ncols + tn - 1) / tn, p.KS, (p.M + BM - 1) / BM);
-  mm_kernel<BM, GATEUP><<<grid, qring::kThreads, bytes, st>>>(p);
+  mm_kernel<BM, GATEUP, G><<<grid, qring::kThreads, bytes, st>>>(p);
   return cudaGetLastError();
 }
 
-template <int BM>
+template <int BM, int G>
 cudaError_t launch_mm_bm(const MmParams& p, int gateup, cudaStream_t st) {
-  return gateup ? launch_mm<BM, true>(p, st) : launch_mm<BM, false>(p, st);
+  return gateup ? launch_mm<BM, true, G>(p, st) : launch_mm<BM, false, G>(p, st);
+}
+
+template <int G>
+cudaError_t launch_mm_g(const MmParams& p, int gateup, int bm, cudaStream_t st) {
+  if (bm == 32) return launch_mm_bm<32, G>(p, gateup, st);
+  if (bm == 64) return launch_mm_bm<64, G>(p, gateup, st);
+  if (bm == 128) return launch_mm_bm<128, G>(p, gateup, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -360,43 +391,51 @@ cudaError_t launch_mm_bm(const MmParams& p, int gateup, cudaStream_t st) {
 // y = x @ W^T for an i4t weight at M = 1 (i4mv.cuh's streaming matvec).
 // gateup = 0: out f32 [1, N].  gateup = 1: W holds gate columns [0, N/2)
 // and up columns [N/2, N); out bf16 [1, N/2] = silu(gate) · up.  R = 2 or 4
-// scale planes (4: with mins); G must be 32 (Q4_0's group, the only one
-// ported yet); N a multiple of 128 (256 for the gate-up), K of 2G; ks splits
-// of K on whole groups (ops/qmm.py i4t_mv_plan of the [K, N] weight, 1-8;
-// one cluster a tile); payload on 4 bytes and scales on 8.  Returns the
-// CUDA error of the launch (0 on success).
+// scale planes (4: with mins); G 32 (Q4_0, Q4_K) or 16 (Q2_K, Q3_K); N a
+// multiple of 128 (256 for the gate-up), K of 2G; ks splits of K on whole
+// groups (ops/qmm.py i4t_mv_plan of the [K, N] weight, 1-8; one cluster a
+// tile); payload on 4 bytes and scales on 8.  Returns the CUDA error of the
+// launch (0 on success).
 extern "C" int bt_qmm_i4t(const void* x, const void* qw, const void* s, void* out, int K, int N,
                           int R, int zero, int G, int gateup, int ks, void* stream) {
   const i4mv::Op op{static_cast<const uint16_t*>(x), static_cast<const uint8_t*>(qw),
                     static_cast<const uint16_t*>(s), out, K, N, ks, zero};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (G != 32 || (R != 2 && R != 4) || K % (2 * G) != 0)
+  if ((G != 16 && G != 32) || (R != 2 && R != 4) || K % (2 * G) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
-  if (R == 4)
+  if (G == 16) {
+    if (R == 4)
+      e = gateup ? i4mv::run<16, true, i8mv::kGateUp>(op, st)
+                 : i4mv::run<16, true, i8mv::kF32>(op, st);
+    else
+      e = gateup ? i4mv::run<16, false, i8mv::kGateUp>(op, st)
+                 : i4mv::run<16, false, i8mv::kF32>(op, st);
+  } else if (R == 4) {
     e = gateup ? i4mv::run<32, true, i8mv::kGateUp>(op, st) : i4mv::run<32, true, i8mv::kF32>(op, st);
-  else
+  } else {
     e = gateup ? i4mv::run<32, false, i8mv::kGateUp>(op, st)
                : i4mv::run<32, false, i8mv::kF32>(op, st);
+  }
   return static_cast<int>(e);
 }
 
-// y = x @ W^T for an i4t weight at M > 1 (the tensor-core tile), G = 32:
-// rows of x per block bm (32, 64 or 128) and ks splits of K on whole groups
-// (ops/qmm.py i4t_plan).  part: [ks, M, N] f32 when ks > 1; tickets:
-// ceil(M/bm)·ceil(ncols/(gateup ? 64 : 128)) zeros.  N (gate-up: N/2) a
-// multiple of 16, K of 64; x, qw and s on 16 bytes.
+// y = x @ W^T for an i4t weight at M > 1 (the tensor-core tile), G 32 or
+// 16: rows of x per block bm (32, 64 or 128) and ks splits of K on whole
+// stages of 32 payload rows (ops/qmm.py i4t_plan).  part: [ks, M, N] f32
+// when ks > 1; tickets: ceil(M/bm)·ceil(ncols/(gateup ? 64 : 128)) zeros.
+// N (gate-up: N/2) a multiple of 16, K of 64; x, qw and s on 16 bytes.
 extern "C" int bt_qmm_i4t_mm(const void* x, const void* qw, const void* s, void* out,
                              void* part, void* tickets, int M, int K, int N, int R, int zero,
-                             int gateup, int bm, int ks, void* stream) {
+                             int G, int gateup, int bm, int ks, void* stream) {
   MmParams p{static_cast<const uint16_t*>(x), static_cast<const uint8_t*>(qw),
              static_cast<const uint16_t*>(s), out, static_cast<float*>(part),
              static_cast<int*>(tickets), M, K, N, R, zero, ks};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if ((R != 2 && R != 4) || K % (2 * kSR) != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
-  if (bm == 32) e = launch_mm_bm<32>(p, gateup, st);
-  else if (bm == 64) e = launch_mm_bm<64>(p, gateup, st);
-  else if (bm == 128) e = launch_mm_bm<128>(p, gateup, st);
+  if (G == 32) e = launch_mm_g<32>(p, gateup, bm, st);
+  else if (G == 16) e = launch_mm_g<16>(p, gateup, bm, st);
   else e = cudaErrorInvalidValue;
   return static_cast<int>(e);
 }

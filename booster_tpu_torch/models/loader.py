@@ -2,8 +2,10 @@
 layers stacked on a leading axis).
 
 Port of the llama path of ``booster_tpu/models/loader.py``: every Q4_0,
-Q5_1, Q8_0, Q4_K, Q5_K or Q6_K weight is repacked losslessly (quant.qtensor;
-Q4_K to i4 with four scale planes, the halves' scales and mins; Q5_K and
+Q5_1, Q8_0, Q2_K, Q3_K, Q4_K, Q5_K or Q6_K weight is repacked losslessly
+(quant.qtensor; Q4_K to i4 with four scale planes, the halves' scales and
+mins; Q2_K to i4 at group 16 with four, Q3_K at group 16 with two and a
+zero of 4; Q5_K and
 Q5_1 to int8 codes with two, the scales and mins) or, with ``weights="bf16"``,
 dequantized exactly to dense bf16 (``"auto"`` picks as the JAX loader
 does), or with ``weights="i8"`` widened exactly to int8; with

@@ -45,7 +45,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
 
 # kernel name → launches made by its wrapper (reset by callers that count);
-# _gd is the M = 1 group-dot form, _dq the M > 1 dequantize form, _i8 the
+# _gd is the M = 1 group-dot form, _dq the M > 1 dequantize form (i4t at
+# group 16: _g16m with mins, _g16 without; ops.qmm.i4t_count_name), _i8 the
 # int8-cache form, _layer the per-layer T = 1 append, paged_ the paged-pool
 # forms, moe_ the grouped (routed expert) form of the lane-major matmul; the
 # i8c matmul's _mv is its M = 1 streaming matvec, _mm its M > 1 tensor-core form;
@@ -57,6 +58,14 @@ launch_counts = {
     "qmm_i4t_dq": 0,
     "qmm_i4t_gateup_gd": 0,
     "qmm_i4t_gateup_dq": 0,
+    "qmm_i4t_g16m_gd": 0,
+    "qmm_i4t_g16m_dq": 0,
+    "qmm_i4t_gateup_g16m_gd": 0,
+    "qmm_i4t_gateup_g16m_dq": 0,
+    "qmm_i4t_g16_gd": 0,
+    "qmm_i4t_g16_dq": 0,
+    "qmm_i4t_gateup_g16_gd": 0,
+    "qmm_i4t_gateup_g16_dq": 0,
     "decode_attn": 0,
     "kv_append": 0,
     "decode_attn_i8": 0,

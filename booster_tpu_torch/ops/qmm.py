@@ -2,7 +2,8 @@
 and fused gate+up.
 
 Counterpart of ``booster_tpu/ops/pallas_qmm.py``.
-``qmm`` runs, for i4t, the kernel of ``csrc/qmm_i4t.cu`` (the port of
+``qmm`` runs, for i4t (Q4_0 and Q4_K at group 32, Q2_K and Q3_K at group
+16), the kernel of ``csrc/qmm_i4t.cu`` (the port of
 ``_tqmm_i4_gd_kernel`` at M = 1 and ``_tqmm_i4_kernel`` at M > 1) and, for
 i8t (Q8_0 at group 32, Q6_K at group 16, Q5_K and Q5_1 at group 32 with a
 mins plane), those of ``csrc/qmm_i8t.cu``
@@ -54,7 +55,7 @@ from booster_tpu_torch.quant.qtensor import QTensor, dequantize, kernel_scales
 
 _SIGNATURES = {
     "bt_qmm_i4t": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
-    "bt_qmm_i4t_mm": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    "bt_qmm_i4t_mm": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
 }
 _I8_SIGNATURES = {
     "bt_qmm_i8t_gd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
@@ -170,8 +171,9 @@ def _rows_tile(rows: int) -> int:
 
 def i4t_plan(M: int, K: int, N: int) -> tuple[int, int]:
     """(BM, KS) of csrc/qmm_i4t.cu's M > 1 tile for y [M, N] = x [M, K] @ W:
-    rows of x per block and K splits on whole groups (64 columns of K a
-    stage).  N is the payload's width, 2ff for a fused gate-up, whose blocks
+    rows of x per block and K splits on whole stages (64 columns of K a
+    stage, 32 of each half: one group at G = 32, two at G = 16, so the
+    plan needs no G).  N is the payload's width, 2ff for a fused gate-up, whose blocks
     hold 64 gate and 64 up columns: the gate-up and the matmul on one fused
     weight take one plan, so they add alike and agree bit for bit."""
     bm = _rows_tile(M)
@@ -444,9 +446,9 @@ def _launch(x: torch.Tensor, w: QTensor, gateup: bool) -> torch.Tensor:
             or s3.shape[0] not in (2, 4) or not s3.is_contiguous():
         raise ValueError("qmm_i4t kernel: scale planes must be contiguous bf16 "
                          "[2|4, K/(2G), N] (compact_scales)")
-    if w.group != 32:
+    if w.group not in (16, 32):
         raise NotImplementedError(f"qmm_i4t kernel: group {w.group}: not ported yet "
-                                  "(Q4_0's group of 32 is)")
+                                  "(groups 16 and 32 are)")
     if not (x.device == w.qw.device == s3.device):
         raise ValueError("qmm_i4t kernel: all operands must be on one device")
     ncols = N // 2 if gateup else N
@@ -475,11 +477,20 @@ def _launch(x: torch.Tensor, w: QTensor, gateup: bool) -> torch.Tensor:
         tickets = _ticket_buffer(x.device, n_tickets)
         rc = lib.bt_qmm_i4t_mm(x.data_ptr(), w.qw.data_ptr(), s3.data_ptr(), out.data_ptr(),
                                None if part is None else part.data_ptr(), tickets.data_ptr(),
-                               M, K, N, s3.shape[0], w.zero, int(gateup), bm, ks, stream)
+                               M, K, N, s3.shape[0], w.zero, w.group, int(gateup), bm, ks,
+                               stream)
     kernels.check(rc, "qmm_i4t")
-    kernels.count(("qmm_i4t_gateup" if gateup else "qmm_i4t") + ("_gd" if M == 1 else "_dq"),
-                  (K, N))
+    kernels.count(i4t_count_name(gateup, M, w.group, s3.shape[0] == 4), (K, N))
     return out
+
+
+def i4t_count_name(gateup: bool, M: int, G: int, mins: bool) -> str:
+    """The launch count of an i4t kernel form: qmm_i4t[_gateup] then, at
+    group 16, _g16m (with mins: Q2_K) or _g16 (without: Q3_K), then _gd (M =
+    1) or _dq (M > 1).  The group-32 forms (Q4_0, Q4_K) keep one name each,
+    their paths apart."""
+    g16 = ("_g16m" if mins else "_g16") if G == 16 else ""
+    return ("qmm_i4t_gateup" if gateup else "qmm_i4t") + g16 + ("_gd" if M == 1 else "_dq")
 
 
 def check_i8t(x: torch.Tensor, w: QTensor, what: str, groups=(16, 32),

@@ -1,12 +1,12 @@
 """Bit-exact (de)quantization of the ggml block formats the port loads, in numpy.
 
-A copy of the Q4_0, Q5_1, Q8_0, Q4_K, Q5_K, Q6_K and float parts of
-``booster_tpu/quant/formats.py`` (decode semantics:
-llama.cpp/ggml/src/ggml-quants.c dequantize_row_q4_0/q5_1/q8_0/q4_K/q5_K/
-q6_K; the Q4_0 and Q8_0 encoders are quantize_row_q4_0_ref/q8_0_ref, the
-Q5_1 encoder the JAX package's min/max affine one, the Q4_K, Q5_K and Q6_K
-encoders its per-group affine and amax seeds without llama.cpp's scale
-search).  The other block formats are not ported yet.
+A copy of the Q4_0, Q5_1, Q8_0, Q2_K, Q3_K, Q4_K, Q5_K, Q6_K and float
+parts of ``booster_tpu/quant/formats.py`` (decode semantics:
+llama.cpp/ggml/src/ggml-quants.c dequantize_row_q4_0/q5_1/q8_0/q2_K/q3_K/
+q4_K/q5_K/q6_K; the Q4_0 and Q8_0 encoders are quantize_row_q4_0_ref/
+q8_0_ref, the Q5_1 encoder the JAX package's min/max affine one, the Q2_K,
+Q3_K, Q4_K, Q5_K and Q6_K encoders its per-group affine and amax seeds
+without llama.cpp's scale search).  The other block formats are not ported yet.
 """
 
 from __future__ import annotations
@@ -129,8 +129,54 @@ def _dequant_q6_k(b: np.ndarray) -> np.ndarray:
     return (d[:, :, None] * scale * q.astype(np.float32)).reshape(-1, QK_K)
 
 
+def _dequant_q2_k(b: np.ndarray) -> np.ndarray:
+    scales = b[:, 0:16]  # [n, 16]: low nibble the scale, high the min, one per 16 elements
+    qs = b[:, 16:80].reshape(-1, 2, 32)  # two halves of 128
+    d = _f16(b[:, 80:82])
+    dmin = _f16(b[:, 82:84])
+    shift = (2 * np.arange(4))[None, None, :, None]
+    q = ((qs[:, :, None, :] >> shift) & 3).astype(np.float32)  # [n, 2, 4, 32]
+    dl = (d * (scales & 0x0F).astype(np.float32)).reshape(-1, 16)
+    ml = (dmin * (scales >> 4).astype(np.float32)).reshape(-1, 16)
+    q = q.reshape(-1, 16, 16)  # [n, 16 groups of 16, 16]
+    return (q * dl[:, :, None] - ml[:, :, None]).reshape(-1, QK_K)
+
+
+def _q3k_scales(packed: np.ndarray) -> np.ndarray:
+    """The 12 packed bytes of Q3_K → its 16 signed 6-bit scales, f32 [n, 16]
+    (ggml-quants.c dequantize_row_q3_K's kmask unpack, on three
+    little-endian u32 words)."""
+    a = np.ascontiguousarray(packed).view("<u4").astype(np.uint32)  # [n, 3]
+    tmp = a[:, 2]
+    out = np.empty((packed.shape[0], 4), dtype=np.uint32)
+    out[:, 0] = (a[:, 0] & 0x0F0F0F0F) | (((tmp >> 0) & 0x03030303) << 4)
+    out[:, 1] = (a[:, 1] & 0x0F0F0F0F) | (((tmp >> 2) & 0x03030303) << 4)
+    out[:, 2] = ((a[:, 0] >> 4) & 0x0F0F0F0F) | (((tmp >> 4) & 0x03030303) << 4)
+    out[:, 3] = ((a[:, 1] >> 4) & 0x0F0F0F0F) | (((tmp >> 6) & 0x03030303) << 4)
+    return out.view(np.int8).reshape(-1, 16).astype(np.float32) - 32
+
+
+def _q3k_codes(hmask: np.ndarray, qs: np.ndarray) -> np.ndarray:
+    """Q3_K's 3-bit codes q2 + 4·hbit in 0..7, uint8 [n, 2, 4, 32] (half,
+    shift, element): the value is scale·(code - 4)."""
+    shift = (2 * np.arange(4))[None, None, :, None]
+    q2 = ((qs[:, :, None, :] >> shift) & 3).astype(np.uint8)
+    bit = (4 * np.arange(2))[None, :, None, None] + np.arange(4)[None, None, :, None]
+    hb = ((hmask[:, None, None, :] >> bit) & 1).astype(np.uint8)
+    return q2 + (hb << 2)
+
+
+def _dequant_q3_k(b: np.ndarray) -> np.ndarray:
+    scales = _q3k_scales(b[:, 96:108])
+    d = _f16(b[:, 108:110])
+    code = _q3k_codes(b[:, 0:32], b[:, 32:96].reshape(-1, 2, 32))
+    q = (code.astype(np.int16) - 4).astype(np.float32).reshape(-1, 16, 16)
+    return (q * (d[:, :] * scales)[:, :, None]).reshape(-1, QK_K)
+
+
 _DEQUANT = {GGMLType.Q4_0: _dequant_q4_0, GGMLType.Q5_1: _dequant_q5_1,
-            GGMLType.Q8_0: _dequant_q8_0, GGMLType.Q4_K: _dequant_q4_k,
+            GGMLType.Q8_0: _dequant_q8_0, GGMLType.Q2_K: _dequant_q2_k,
+            GGMLType.Q3_K: _dequant_q3_k, GGMLType.Q4_K: _dequant_q4_k,
             GGMLType.Q5_K: _dequant_q5_k, GGMLType.Q6_K: _dequant_q6_k}
 
 
@@ -292,8 +338,65 @@ def _quant_q6_k(x: np.ndarray) -> np.ndarray:
     return out
 
 
+def _quant_q2_k(x: np.ndarray) -> np.ndarray:
+    x = x.reshape(-1, 16, 16)
+    q, scale, minv = _affine_group_quant(x, 2)
+    d = scale.max(axis=1) / 15.0
+    dmin = minv.max(axis=1) / 15.0
+    sc = np.clip(np.round(scale / np.where(d == 0, 1, d)[:, None]), 0, 15).astype(U8)
+    mn = np.clip(np.round(minv / np.where(dmin == 0, 1, dmin)[:, None]), 0, 15).astype(U8)
+    n = x.shape[0]
+    out = np.empty((n, TYPE_TRAITS[GGMLType.Q2_K].type_size), dtype=U8)
+    out[:, 0:16] = sc | (mn << 4)
+    qv = q.reshape(n, 2, 4, 32)  # [n, half, shift, 32]
+    packed = np.zeros((n, 2, 32), dtype=U8)
+    for j in range(4):
+        packed |= qv[:, :, j, :] << (2 * j)
+    out[:, 16:80] = packed.reshape(n, 64)
+    out[:, 80:82] = _f16_bytes(d)
+    out[:, 82:84] = _f16_bytes(dmin)
+    return out
+
+
+def _quant_q3_k(x: np.ndarray) -> np.ndarray:
+    x = x.reshape(-1, 16, 16)
+    amax = np.abs(x).max(axis=-1)
+    gscale = amax / 4.0  # q in [-4, 3]
+    d = gscale.max(axis=1) / 31.0
+    d_safe = np.where(d == 0, 1, d)
+    sc6 = np.clip(np.round(gscale / d_safe[:, None]) + 32, 0, 63).astype(np.int16)  # biased 6-bit
+    eff = d[:, None] * (sc6.astype(np.float32) - 32)
+    inv = np.where(eff != 0, 1.0 / np.where(eff == 0, 1, eff), 0.0)
+    q = np.clip(np.round(x * inv[..., None]), -4, 3).astype(np.int16) + 4  # 0..7
+    n = x.shape[0]
+    q = q.reshape(n, 2, 4, 32).astype(np.uint8)  # [n, half, shift, 32]
+    low = q & 3
+    hb = (q >> 2) & 1
+    qs = np.zeros((n, 2, 32), dtype=U8)
+    hmask = np.zeros((n, 32), dtype=U8)
+    for h in range(2):
+        for j in range(4):
+            qs[:, h, :] |= low[:, h, j, :] << (2 * j)
+            hmask |= hb[:, h, j, :] << (4 * h + j)
+    # the 16 6-bit scales in 12 bytes (the inverse of _q3k_scales)
+    s = sc6.astype(np.uint8)
+    out12 = np.zeros((n, 12), dtype=U8)
+    lo4 = s & 0x0F
+    hi2 = (s >> 4) & 3
+    out12[:, 0:8] = lo4[:, 0:8] | (lo4[:, 8:16] << 4)
+    for g in range(4):  # byte 8 + i holds the 2-bit highs of scales i, i + 4, i + 8, i + 12
+        out12[:, 8:12] |= hi2[:, 4 * g:4 * g + 4] << (2 * g)
+    out = np.empty((n, TYPE_TRAITS[GGMLType.Q3_K].type_size), dtype=U8)
+    out[:, 0:32] = hmask
+    out[:, 32:96] = qs.reshape(n, 64)
+    out[:, 96:108] = out12
+    out[:, 108:110] = _f16_bytes(d)
+    return out
+
+
 _QUANT = {GGMLType.Q4_0: _quant_q4_0, GGMLType.Q5_1: _quant_q5_1, GGMLType.Q8_0: _quant_q8_0,
-          GGMLType.Q4_K: _quant_q4_k, GGMLType.Q5_K: _quant_q5_k, GGMLType.Q6_K: _quant_q6_k}
+          GGMLType.Q2_K: _quant_q2_k, GGMLType.Q3_K: _quant_q3_k, GGMLType.Q4_K: _quant_q4_k,
+          GGMLType.Q5_K: _quant_q5_k, GGMLType.Q6_K: _quant_q6_k}
 
 
 def quantize(x: np.ndarray, ggml_type: GGMLType) -> bytes:

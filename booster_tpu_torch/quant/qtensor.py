@@ -1,7 +1,7 @@
 """QTensor: quantized weights in the kernels' layout, over torch tensors.
 
-Port of ``booster_tpu/quant/qtensor.py`` for the Q4_0, Q5_1, Q8_0, Q4_K,
-Q5_K and Q6_K llama paths.  At load time a GGUF tensor of one of those
+Port of ``booster_tpu/quant/qtensor.py`` for the Q4_0, Q5_1, Q8_0, Q2_K,
+Q3_K, Q4_K, Q5_K and Q6_K llama paths.  At load time a GGUF tensor of one of those
 types is *losslessly* repacked
 (torch bit operations, on the host or on the card) into
 
@@ -10,7 +10,10 @@ types is *losslessly* repacked
 with payload ``qw``:
 
     kind="i4p"  uint8 [out, in // 2]  split-half packing: byte b holds element
-                b (low nibble) and element b + in/2 (high nibble); prepared
+                b (low nibble) and element b + in/2 (high nibble) (Q4_0:
+                group 32, zero 8; Q4_K: group 32 with mins; Q2_K: the
+                2-bit codes at group 16 with mins; Q3_K: the 3-bit codes
+                at group 16, zero 4, signed scales); prepared
                 scale planes [out, 2, in/(2G)] (the halves' scales, then
                 their mins when affine), bf16 where a lane-major kernel
                 reads them (the expert stacks of a MoE model)
@@ -239,8 +242,51 @@ def _repack_q5_1(b: torch.Tensor, out_f: int, in_f: int) -> QTensor:
                    (out_f, in_f), GGMLType.Q5_1)
 
 
+def _repack_q2_k(b: torch.Tensor, out_f: int, in_f: int) -> QTensor:
+    """Q2_K → i4p at group 16, zero 0 (``_repack_q2_k`` of the JAX package):
+    the 2-bit codes 0..3 of each row in element order, the f32 scales
+    d·(sc & 15) and mins dmin·(sc >> 4) of its 16-element groups (w =
+    q·scale - min)."""
+    b = b.reshape(-1, TYPE_TRAITS[GGMLType.Q2_K].type_size)
+    sc = b[:, 0:16]  # one byte a 16-element group: the scale low, the min high
+    qs = b[:, 16:80].reshape(-1, 2, 32)  # half h: shift 2j holds elements 128h + 32j + l
+    d = b[:, 80:82].contiguous().view(torch.float16).float()  # [n, 1]
+    dmin = b[:, 82:84].contiguous().view(torch.float16).float()
+    q = torch.stack([(qs >> (2 * j)) & 3 for j in range(4)], dim=2).reshape(out_f, in_f)
+    return QTensor("i4p", _pack_nibbles_planar(q),
+                   (d * (sc & 0x0F).float()).reshape(out_f, in_f // 16),
+                   (dmin * (sc >> 4).float()).reshape(out_f, in_f // 16), 16, (out_f, in_f),
+                   GGMLType.Q2_K)
+
+
+def _repack_q3_k(b: torch.Tensor, out_f: int, in_f: int) -> QTensor:
+    """Q3_K → i4p at group 16, zero 4 (``_repack_q3_k`` of the JAX package):
+    the 3-bit codes q2 + 4·hbit in 0..7 of each row in element order and
+    the f32 scales d·(sc6 - 32) of its 16-element groups, which may be
+    negative (w = (q - 4)·scale).  The 12 packed scale bytes are unpacked
+    byte by byte: the reference's kmask unpack on three little-endian u32
+    words moves no bits across bytes, so scale j takes the low 4 bits
+    from nibble j of bytes 0-7 (low nibbles first) and the high 2 from
+    bits 2(j // 4) of byte 8 + j % 4."""
+    b = b.reshape(-1, TYPE_TRAITS[GGMLType.Q3_K].type_size)
+    hmask = b[:, None, 0:32]  # bit 4h + j: the third bit of shift j of half h
+    qs = b[:, 32:96].reshape(-1, 2, 32)
+    p = b[:, 96:108]
+    d = b[:, 108:110].contiguous().view(torch.float16).float()  # [n, 1]
+    low = torch.cat([p[:, 0:8] & 0x0F, p[:, 0:8] >> 4], dim=1)  # [n, 16]
+    high = torch.cat([(p[:, 8:12] >> (2 * g)) & 3 for g in range(4)], dim=1)
+    sc6 = (low | (high << 4)).float() - 32
+    code = [((qs >> (2 * j)) & 3) | (((hmask >> (4 * torch.arange(2, device=b.device,
+                                                                   dtype=torch.uint8)[:, None]
+                                                   + j)) & 1) << 2) for j in range(4)]
+    q = torch.stack(code, dim=2).reshape(out_f, in_f)
+    return QTensor("i4p", _pack_nibbles_planar(q), (d * sc6).reshape(out_f, in_f // 16), None,
+                   16, (out_f, in_f), GGMLType.Q3_K, zero=4)
+
+
 _REPACK = {GGMLType.Q4_0: _repack_q4_0, GGMLType.Q5_1: _repack_q5_1,
-           GGMLType.Q8_0: _repack_q8_0, GGMLType.Q4_K: _repack_q4_k,
+           GGMLType.Q8_0: _repack_q8_0, GGMLType.Q2_K: _repack_q2_k,
+           GGMLType.Q3_K: _repack_q3_k, GGMLType.Q4_K: _repack_q4_k,
            GGMLType.Q5_K: _repack_q5_k, GGMLType.Q6_K: _repack_q6_k}
 _DENSE_TYPES = (GGMLType.F32, GGMLType.F16, GGMLType.BF16)
 

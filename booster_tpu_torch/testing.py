@@ -1,9 +1,10 @@
 """Inputs for the tests and the chip smoke run: no download needed.
 
 ``make_model`` writes a seeded synthetic llama-shaped GGUF with a working SPM
-vocab (Q4_0, Q8_0, Q4_K, Q5_K or Q6_K weights, with llama.cpp's fallbacks
+vocab (Q4_0, Q8_0, Q2_K, Q4_K, Q5_K or Q6_K weights, with llama.cpp's fallbacks
 for rows that hold no super-block), optionally with routed experts
-(Mixtral), rope scaling and another type for ``output.weight``; or, with
+(Mixtral), rope scaling, another type for ``output.weight`` and per-name
+types for the layers' tensors (``q2k_mix``: llama.cpp's Q2_K mix); or, with
 ``arch="mpt"``, an MPT file as llama.cpp writes one (fused ``attn_qkv``,
 ungated FFN, LayerNorms, ALiBi) with a byte-level BPE vocabulary
 (``build_bpe_vocab``, pre-tokenizer ``mpt``).  It
@@ -24,7 +25,9 @@ stages and warps), for the CPU tests; ``kv_append_layer_case`` and
 ``kv_append_layer_mutants`` make the per-layer append's inputs and what
 wrong appends would leave in the cache.  ``qmm_i4t_split`` and
 ``qmm_lane_split`` compute in plain torch what the i4t M > 1 and the
-lane-major matmul kernels compute (their K splits and k16 steps), and
+lane-major matmul kernels compute (their K splits and k16 steps; the i4t
+mirrors at groups 16 and 32, with the wrong kernels of
+``I4T_MIRROR_MUTANTS`` for the group-16 terms), and
 ``qmm_i4t_mutants`` / ``qmm_lane_mutants`` the inputs on which the plain
 versions compute what wrong matmul kernels would; ``qmm_mv_split`` and
 ``qmm_mv_mutants`` do the same for the M = 1 int8 matvec of csrc/i8mv.cuh,
@@ -173,6 +176,7 @@ def make_model(
     rms_eps: float = 1e-5,
     rope_scaling: tuple[str, float] | None = None,  # ("linear", 4.0): rope.scaling.type, .factor
     output_quant: GGMLType | None = None,  # output.weight's type where it differs from `quant`
+    tensor_quant: dict | None = None,  # a layer tensor's type by its name after "blk.N."
     output: bool = True,  # False: no output.weight (the head tied to token_embd)
     norm_bias: bool = False,  # mpt: LayerNorm biases (attn_norm, ffn_norm, output_norm)
     alibi_max_bias: float = 8.0,  # mpt: attention.max_alibi_bias
@@ -196,7 +200,11 @@ def make_model(
     Q5_1, as llama.cpp's quantizer falls back for rows that cannot hold
     K-quant super-blocks (``llama_tensor_get_type``: every ``ffn_down`` of a
     model whose ff is not a multiple of 256).  ``quant=Q5_K`` with
-    ``output_quant=Q6_K`` is llama.cpp's Q5_K_S mix.
+    ``output_quant=Q6_K`` is llama.cpp's Q5_K_S mix.  `tensor_quant` gives
+    a layer tensor its own type by the name after ``blk.N.`` (for example
+    ``{"attn_v.weight": GGMLType.Q4_K}``), in every layer alike;
+    ``quant=Q2_K``, ``output_quant=Q6_K`` and ``tensor_quant=q2k_mix(heads,
+    kv_heads)`` is llama.cpp's Q2_K mix.
 
     ``arch="mpt"`` writes llama.cpp's MPT keys and tensors: ``mpt.*``
     metadata with ``attention.layer_norm_epsilon`` (`rms_eps`),
@@ -269,6 +277,8 @@ def make_model(
 
     def add(name, shape, rand=True):
         want = output_quant if name == "output.weight" and output_quant is not None else quant
+        if tensor_quant and name.startswith("blk."):
+            want = tensor_quant.get(name.split(".", 2)[2], want)
         qt = want if len(shape) >= 2 and shape[-1] % 256 == 0 else GGMLType.F32
         # llama.cpp's fallback for rows that hold no 256-element super-block
         # (llama_tensor_get_type): Q6_K → Q8_0, Q5_K → Q5_1
@@ -354,10 +364,22 @@ def make_model(
     return out_path
 
 
+def q2k_mix(heads: int, kv_heads: int) -> dict:
+    """The layer tensors whose type llama.cpp's Q2_K mix
+    (``LLAMA_FTYPE_MOSTLY_Q2_K``) sets apart from Q2_K, as
+    ``llama_tensor_get_type`` in llama.cpp's src/llama.cpp writes them for a
+    dense llama: ``attn_v`` Q4_K where n_head / n_head_kv >= 4, else Q3_K;
+    ``attn_output`` and ``ffn_down`` Q3_K.  ``token_embd``, ``attn_q``,
+    ``attn_k``, ``ffn_gate`` and ``ffn_up`` stay Q2_K, and ``output`` is
+    Q6_K (``output_quant``).  For ``make_model``'s `tensor_quant`."""
+    return {"attn_v.weight": GGMLType.Q4_K if heads // kv_heads >= 4 else GGMLType.Q3_K,
+            "attn_output.weight": GGMLType.Q3_K, "ffn_down.weight": GGMLType.Q3_K}
+
+
 def random_blocks(rng: np.random.Generator, n: int, qt: GGMLType, scale: float) -> memoryview:
-    """`n` weights of type Q4_0, Q5_1, Q8_0, Q4_K, Q5_K or Q6_K as random blocks: uniform codes
-    (nibbles 0-15 about the zero point 8, or int8 -127..127) and f16 scales
-    of random sign whose size is that of quantizing normals of standard
+    """`n` weights of type Q4_0, Q5_1, Q8_0, Q2_K, Q3_K, Q4_K, Q5_K or Q6_K as
+    random blocks: uniform codes (nibbles 0-15 about the zero point 8, or
+    int8 -127..127) and f16 scales of random sign whose size is that of quantizing normals of standard
     deviation `scale`: 32 such values have a largest magnitude of about
     2.2·scale (so d ≈ 2.2·scale/8 for Q4_0, 2.2·scale/127 for Q8_0), drawn
     here uniformly within ±20 % of it.  Q6_K: uniform 6-bit codes (0-63
@@ -373,7 +395,42 @@ def random_blocks(rng: np.random.Generator, n: int, qt: GGMLType, scale: float) 
     Q4_K file.  Q5_K: the same with uniform 5-bit codes (0-31) and d ≈
     4.1·scale/31 at sc ≈ 52.  Q5_1: uniform 5-bit codes, a positive f16 d
     of 4.1·scale/31 and an f16 m within ±20 % of -16·d (±20 % each), so
-    that the weights centre on zero and the min term is -16·d·xs."""
+    that the weights centre on zero and the min term is -16·d·xs.  Q2_K:
+    uniform 2-bit codes, 4-bit group scales sc and mins mn uniform in 8..15,
+    and positive f16 d and dmin of the size that the affine quantizer gives
+    (16 normals span about ±1.77·scale, so d·sc ≈ 3.54·scale/3 and dmin·mn ≈
+    1.77·scale at sc, mn ≈ 11.5), ±20 %: the min term about as large as the
+    mean scaled term, as for Q4_K.  Q3_K: uniform 3-bit codes (0-7 about the
+    zero point 4), signed 6-bit group scales sc6 - 32 of magnitude 16..31
+    and random sign (a real file's are positive; the sign is the form's),
+    and a positive f16 d of the size of the symmetric quantizer's (16
+    normals have a largest magnitude of about 1.77·scale, so |d·(sc6 - 32)|
+    ≈ 1.77·scale/4 at 23.5), ±20 %."""
+    if qt == GGMLType.Q2_K:
+        nb = n // 256
+        out = np.empty((nb, 84), np.uint8)
+        sc, mn = (rng.integers(8, 16, (nb, 16), dtype=np.uint8) for _ in range(2))
+        out[:, 0:16] = sc | (mn << 4)
+        out[:, 16:80] = rng.integers(0, 256, (nb, 64), dtype=np.uint8)
+        ds = [(rng.random(nb, dtype=np.float32) * 0.4 + 0.8) * (m * scale / 11.5)
+              for m in (3.54 / 3, 1.77)]
+        for i, v in enumerate(ds):
+            out[:, 80 + 2 * i:82 + 2 * i] = v.astype(np.float16).view(np.uint8).reshape(nb, 2)
+        return out.reshape(-1).data
+    if qt == GGMLType.Q3_K:
+        nb = n // 256
+        out = np.empty((nb, 110), np.uint8)
+        out[:, 0:96] = rng.integers(0, 256, (nb, 96), dtype=np.uint8)  # high bits, 2-bit codes
+        mag = rng.integers(16, 32, (nb, 16), dtype=np.int16)
+        sc6 = (32 + mag * (rng.integers(0, 2, (nb, 16), dtype=np.int16) * 2 - 1)).clip(0, 63)
+        lo4, hi2 = (sc6 & 0x0F).astype(np.uint8), ((sc6 >> 4) & 3).astype(np.uint8)
+        out[:, 96:104] = lo4[:, 0:8] | (lo4[:, 8:16] << 4)
+        out[:, 104:108] = 0
+        for g in range(4):  # byte 8 + i: the high bits of scales i, i + 4, i + 8, i + 12
+            out[:, 104:108] |= hi2[:, 4 * g:4 * g + 4] << (2 * g)
+        d = (rng.random(nb, dtype=np.float32) * 0.4 + 0.8) * (1.77 * scale / 4 / 23.5)
+        out[:, 108:110] = d.astype(np.float16).view(np.uint8).reshape(nb, 2)
+        return out.reshape(-1).data
     if qt == GGMLType.Q4_K:
         nb = n // 256
         out = np.empty((nb, 144), np.uint8)
@@ -460,6 +517,23 @@ def q5k_weight(N: int, K: int, seed: int, device, kmajor: bool = True,
     lane-major i8 with planes [N, 2, K/32] as it keeps a weight that the
     K-major kernels do not take, or an expert stack."""
     return _real_weight(GGMLType.Q5_K, N, K, seed, device, kmajor, scale)
+
+
+def q2k_weight(N: int, K: int, seed: int, device, kmajor: bool = True,
+               scale: float = 0.05) -> QTensor:
+    """A real Q2_K weight [N, K] (``random_blocks``: the min term as large as
+    the scaled term) repacked by the port on `device`, its planes prepared
+    and bf16: K-major i4t at group 16 with four planes [4, K/32, N] (the
+    halves' scales, then their mins) as the loader lays out a dense weight
+    (``kmajor``), else lane-major i4p with planes [N, 4, K/32]."""
+    return _real_weight(GGMLType.Q2_K, N, K, seed, device, kmajor, scale)
+
+
+def q3k_weight(N: int, K: int, seed: int, device, kmajor: bool = True,
+               scale: float = 0.05) -> QTensor:
+    """A real Q3_K weight [N, K] (``random_blocks``: signed scales) as
+    ``q2k_weight`` lays it out: group 16, zero 4, two planes [2, K/32, N]."""
+    return _real_weight(GGMLType.Q3_K, N, K, seed, device, kmajor, scale)
 
 
 def q5_1_weight(N: int, K: int, seed: int, device, kmajor: bool = False,
@@ -966,38 +1040,69 @@ def kv_append_layer_check(args: tuple, got: list) -> tuple[bool, dict]:
 _K16 = 16  # columns of K of an mma.sync step
 
 
-def qmm_i4t_split(x: torch.Tensor, w: QTensor, ks: int,
-                  drop: Optional[int] = None) -> torch.Tensor:
+_I4T_STAGE = 32  # payload rows of a stage of csrc/qmm_i4t.cu's M > 1 tile (32 k of each half)
+# the wrong i4t kernels the mirrors compute (mutant=): a stage's or a pair's
+# first group's scale rows for both its groups, the group sums taken over 32
+# k where a group holds 16, the zero term dropped
+I4T_MIRROR_MUTANTS = ("scale row of the wrong half-group", "group sums over 32 k",
+                      "zero term dropped")
+
+
+def _i4t_mutant_rows(ngh: int, G: int, mutant: Optional[str]) -> torch.Tensor:
+    """The scale row each of the ngh groups of a half takes: its own, or
+    with the mutant "scale row of the wrong half-group" the first group of
+    its 32 rows of k (row g - g % (32/G): the same at G = 32)."""
+    g = torch.arange(ngh)
+    return g - g % (_I4T_STAGE // G) if mutant == I4T_MIRROR_MUTANTS[0] else g
+
+
+def _i4t_group_sums(xb: torch.Tensor, G: int, mutant: Optional[str], order=None) -> torch.Tensor:
+    """The f32 sums of x [..., half] over each group of G columns, [...,
+    half/G] (``order``: a function of the [..., n, G] groups giving [..., n,
+    1]; torch's sum by default); with the mutant "group sums over 32 k" each
+    group takes the sum of its 32 rows of k instead (the same at G = 32)."""
+    span = _I4T_STAGE if mutant == I4T_MIRROR_MUTANTS[1] else G
+    g = xb.reshape(*xb.shape[:-1], -1, span)
+    xs = (order(g) if order is not None else g.sum(-1, keepdim=True))[..., 0]
+    return xs.repeat_interleave(span // G, dim=-1)
+
+
+def qmm_i4t_split(x: torch.Tensor, w: QTensor, ks: int, drop: Optional[int] = None,
+                  mutant: Optional[str] = None) -> torch.Tensor:
     """What csrc/qmm_i4t.cu's M > 1 tile computes for ``qmm_i4t(x, w)`` split
-    `ks` ways over K, in plain torch (CPU; tests only).  Split s takes groups
-    [s·ngh/ks, (s+1)·ngh/ks) of each half (ngh = K/2G); per group, the k16
-    steps of its low-half rows, then of its high-half rows, each added to
-    the f32 sum as one 16-term dot of bf16(x) with w = bf16(bf16(q -
-    zero)·bf16(s)); with mins the group then subtracts xs_lo·m_lo +
-    xs_hi·m_hi (f32 sums of the group's bf16 x).  The splits' sums are added
-    in split order from zero; `drop` leaves that split out (a wrong
-    kernel's sum)."""
+    `ks` ways over K, in plain torch (CPU; tests only).  A stage holds 32
+    payload rows (32 k of each half: one group at G = 32, two at G = 16);
+    split s takes stages [s·nst/ks, (s+1)·nst/ks) (nst = K/64); per stage,
+    the two k16 steps of its low-half rows, then of its high-half rows, each
+    added to the f32 sum as one 16-term dot of bf16(x) with w = bf16(bf16(q
+    - zero)·bf16(s)), s the row of the row's group; with mins the stage then
+    subtracts xs_lo·m_lo + xs_hi·m_hi of each of its groups in turn (f32
+    sums of the group's bf16 x).  The splits' sums are added in split order
+    from zero; `drop` leaves that split out, and `mutant` (one of
+    ``I4T_MIRROR_MUTANTS``) computes that wrong kernel's sum."""
     w = w.resolved()
     M, K = x.shape
     N, G = w.shape[0], w.group
     half = K // 2
-    ngh = half // G
+    ngh, spg, nst = half // G, _I4T_STAGE // G, half // _I4T_STAGE
     s3, has_mins = kernel_scales(w)
-    sf = s3.to(torch.bfloat16).float()
-    planes = torch.stack([w.qw & 0x0F, w.qw >> 4]).to(torch.int16) - w.zero
+    sf = s3.to(torch.bfloat16).float()[:, _i4t_mutant_rows(ngh, G, mutant)]
+    zero = 0 if mutant == I4T_MIRROR_MUTANTS[2] else w.zero
+    planes = torch.stack([w.qw & 0x0F, w.qw >> 4]).to(torch.int16) - zero
     wd = (planes.to(torch.bfloat16).float() * sf[:2].repeat_interleave(G, dim=1))
     wd = wd.to(torch.bfloat16).float()  # [2, half, N]
     xb = x.to(torch.bfloat16).float().reshape(M, 2, half)
+    xs = _i4t_group_sums(xb, G, mutant)  # [M, 2, ngh]
     y = torch.zeros(M, N, device=x.device)
     for s in range(ks):
         acc = torch.zeros(M, N, device=x.device)
-        for g in range(s * ngh // ks, (s + 1) * ngh // ks):
+        for st in range(s * nst // ks, (s + 1) * nst // ks):
             for h in (0, 1):
-                for k0 in range(g * G, (g + 1) * G, _K16):
+                for k0 in range(st * _I4T_STAGE, (st + 1) * _I4T_STAGE, _K16):
                     acc = acc + xb[:, h, k0:k0 + _K16] @ wd[h, k0:k0 + _K16]
             if has_mins:
-                xs = xb[:, :, g * G:(g + 1) * G].sum(-1)  # [M, 2]
-                acc = acc - (xs[:, :1] * sf[2, g] + xs[:, 1:] * sf[3, g])
+                for g in range(st * spg, (st + 1) * spg):
+                    acc = acc - (xs[:, :1, g] * sf[2, g] + xs[:, 1:, g] * sf[3, g])
         if s != drop:
             y = y + acc
     return y
@@ -1068,8 +1173,8 @@ def _quad_sum(x: torch.Tensor) -> torch.Tensor:
     return ((v[0] + v[1]) + (v[2] + v[3]))[..., None]
 
 
-def qmm_i4t_mv_split(x: torch.Tensor, w: QTensor, ks: int,
-                     drop: Optional[int] = None) -> torch.Tensor:
+def qmm_i4t_mv_split(x: torch.Tensor, w: QTensor, ks: int, drop: Optional[int] = None,
+                     mutant: Optional[str] = None) -> torch.Tensor:
     """What csrc/i4mv.cuh computes for ``qmm_i4t(x, w)`` at M = 1 over `ks` K
     splits (``ops.qmm.i4t_mv_plan``), in plain torch (CPU; tests only).  Per
     half h and group g: p = the sum of bf16(x)·q over the group's raw
@@ -1080,21 +1185,22 @@ def qmm_i4t_mv_split(x: torch.Tensor, w: QTensor, ks: int,
     c_lo + c_hi.  Each warp of each split (``i4t_mv_groups``) adds its
     groups in turn from zero, a split its 8 warps in order, and the splits
     add in split order from zero, split `drop` left out (a wrong kernel's
-    sum)."""
+    sum); `mutant` (one of ``I4T_MIRROR_MUTANTS``) computes that wrong
+    kernel's sum."""
     w = w.resolved()
     K = x.shape[1]
     N, G = w.shape[0], w.group
     ngh = K // 2 // G
     s3, has_mins = kernel_scales(w)
-    sf = s3.to(torch.bfloat16).float()  # [R, ngh, N]
+    sf = s3.to(torch.bfloat16).float()[:, _i4t_mutant_rows(ngh, G, mutant)]  # [R, ngh, N]
     xb = x.to(torch.bfloat16).float()[0].reshape(2 * ngh, 1, G)
     q = torch.stack([w.qw & 0x0F, w.qw >> 4]).float().reshape(2 * ngh, G, N)
     p = torch.zeros(2 * ngh, 1, N, device=x.device)
     for s0 in range(0, G, _K16):
         p = p + torch.bmm(xb[..., s0:s0 + _K16], q[:, s0:s0 + _K16])
     p = p.reshape(2, ngh, N)
-    xs = _quad_sum(xb.reshape(2, ngh, G))  # [2, ngh, 1]
-    if w.zero:
+    xs = _i4t_group_sums(xb.reshape(2, K // 2), G, mutant, _quad_sum)[..., None]  # [2, ngh, 1]
+    if w.zero and mutant != I4T_MIRROR_MUTANTS[2]:
         p = p - float(w.zero) * xs
     c = sf[:2] * p
     if has_mins:

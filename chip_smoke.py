@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--phases build,kernels,probes,parity,generate,batch,generate_i8,
                            generate_q8,batch_q8,server,generate_i8c,batch_i8c,generate_q6k,
                            batch_q6k,generate_q5k,batch_q5k,generate_mpt,batch_mpt,
-                           generate_q4k,generate_moe,batch_moe]
+                           generate_q4k,generate_q2k,batch_q2k,generate_moe,batch_moe]
 
 Phases, each printing one JSON line with its seconds:
 
@@ -107,7 +107,18 @@ Phases, each printing one JSON line with its seconds:
    version with the mins dropped and taken with the wrong sign among its
    wrong kernels, the gate-up and the MLP equal to their unfused kernels
    bit for bit, and each timed beside the same kernel with the weight's
-   mins plane dropped (no_mins_ms).
+   mins plane dropped (no_mins_ms).  llama.cpp's Q2_K mix on real planes
+   (random Q2_K and Q3_K blocks repacked by the port): qmm_i4t.cu at group
+   16 (i4mv.cuh's matvec and gate-up at M = 1, the tile above) at the
+   Llama-3-8B shapes, Q2_K's four planes (mins) on q 4096 → 4096, k 4096
+   → 1024 and the fused gate-up 4096 → 2·14336, Q3_K's two (zero 4, scales
+   of either sign) on wo 4096 → 4096 and down 14336 → 4096, at M = 1, 16,
+   64 and 2048 (batch_q2k's prefill: the tile at 128 rows a block) and at
+   128 (on no path, beside the Q4_K rows), and the gate-up's zero-4 form
+   on random Q3_K weights (on no path) at M = 1, 64 and 2048; the same
+   checks and wrong kernels as the Q4_K
+   rows, counted under each group-16 form's own name
+   (ops.qmm.i4t_count_name).
    Median times of kernel,
    plain version and one library call (the yardstick), each call after an
    L2 scrub (cold, as on the decode path), and the kernel's time warm
@@ -186,7 +197,13 @@ Phases, each printing one JSON line with its seconds:
    (its rows counted; the card's launches are the path "parity (k)"); (l)
    the DeepSeek-Coder-1.3B width in the same mix (the ffn_down Q5_1,
    lane-major), the single-stream path and the batched path over an int8
-   cache (4 slots, 2 live, T = 32), 6 decode steps each.  The
+   cache (4 slots, 2 live, T = 32), 6 decode steps each; (m) the
+   Llama-3-8B width in llama.cpp's Q2_K mix (q, k and the gate-up i4t at
+   group 16 with mins, wo and down at group 16 with zero 4, v Q4_K, the
+   head Q6_K; q, k and v three matmuls), loaded with those kinds on both
+   devices, the single-stream path over a bf16 cache, 2 decode steps, whose
+   card launches (the path "parity (m)") must hold every group-16 form of
+   the path at M = 1 and in the tile.  The
    live slots' logits agree within the stated tolerance at every step, and
    the greedy tokens wherever the CPU's top-2 margin exceeds it.
 4. generate — the full 22-layer TinyLlama-shaped Q4_0 GGUF (random weights
@@ -279,9 +296,10 @@ Phases, each printing one JSON line with its seconds:
 9. generate_moe — the Mixtral-8x7B shape of the public
    mistralai/Mixtral-8x7B-v0.1 config (the 7B attention, 8 experts of ff
    14336 with 2 used, rope base 1e6, vocab 32000) cut from 32 layers to
-   24 (L below: the machine with the card takes 45 GiB of writes to its
-   disk a call, and every phase's GGUFs with a 32-layer Mixtral came to 49
-   GiB) as a Q4_0 GGUF of 20 GB whose blocks are drawn from the seed (make_model
+   20 (L below: the machine with the card takes 45 GiB of writes to its
+   disk a call; every phase's GGUFs with a 32-layer Mixtral came to 49
+   GiB, and the Q2_K mix's files took the room of 4 more of its layers) as
+   a Q4_0 GGUF of 16.5 GB whose blocks are drawn from the seed (make_model
    draw="blocks"; written by the background writer, under build/smoke/),
    loaded once with ``load_model(weights="auto")`` (native: i4t attention,
    lane-major i4p expert stacks repacked on the card; the load's peak
@@ -372,6 +390,23 @@ Phases, each printing one JSON line with its seconds:
    (one 64-step chunk), its counts exact by the same rule; its TTFT and
    tok/s printed.
 
+   generate_q2k and batch_q2k (after generate_q4k) — the same 32-layer
+   Llama-3-8B shape as llama.cpp's Q2_K mix (LLAMA3_8B_Q2K: Q2_K blocks,
+   Q3_K attn_output and ffn_down, a Q4_K attn_v, a Q6_K head; 2.7 GB,
+   written by the background writer), loaded once with ``load_model(
+   weights="native")`` (every layer weight K-major i4t: q, k and w_gateup
+   at group 16 with four planes, wo and w_down at group 16 with zero 4, wv
+   at group 32 with four; the head i8t at group 16); phase 4's generate
+   (128 greedy tokens) and phase 5's bench_batch on it.  Exact counts by
+   kernel form and shape, from the reference's dispatch (q, k and v unfused
+   as its _concat_rows leaves them; qmm_gateup takes the gate-up at every
+   M): per generate step 2·32 group-16 matvecs with mins (q, k), 32 Q4_K
+   matvecs (v), 2·32 with zero 4 (wo, down), 32 M = 1 gate-ups with mins
+   and the head's matvec; at its 16-row prefill the tile's same forms and
+   the head; per batch step and prefill chunk the same forms of the tile
+   at M = 64 and 2048; no dequantize-path matmul, no host sync in a decode
+   dispatch; the profile windows watch the group-16 kernels by name.
+
 Then one ``{"kernels": [...]}`` line (each kernel's launches are those of
 the path that runs it: generate / generate_q8 for the M = 1 kernels and
 bf16-cache attention, batch / batch_q8 for the int8 ones, server for the
@@ -379,11 +414,14 @@ paged ones, generate_moe / batch_moe for the grouped ones, generate_i8c /
 batch_i8c for the i8c ones, generate_q6k / batch_q6k for the group-16
 forms, the M = 1 fused gate-up and the 1.3B down, generate_q5k /
 batch_q5k for the int8 forms with mins at the 1.3B shapes, parity (k) for
-the whole MLP with mins, generate_mpt /
+the whole MLP with mins, generate_q2k / batch_q2k for the i4t forms at
+group 16, generate_mpt /
 batch_mpt for the per-layer appends, generate_q4k for config 2's Q4_K rows
 (its long run, generate_q4k_8k, for the 8192-row qkv), parity (j) for the
 lane-major mins form's grouped rows; the bf16-pool
-paged forms and the plain lane-major forms at the 7B shapes launch no time there)
+paged forms, the plain lane-major forms at the 7B shapes and the i4t
+gate-up's zero-4 form launch no time there; the line also holds the sizes
+of the GGUFs the run wrote, against the card machine's 45 GiB of writes)
 and, last,
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout of
 the repository, it exits non-zero and prints no result.
@@ -413,7 +451,7 @@ from booster_tpu_torch.tools.timing import bound, release as release_scrub, time
 PHASES = ("build", "kernels", "probes", "parity", "generate", "batch", "generate_i8",
           "generate_q8", "batch_q8", "server", "generate_i8c", "batch_i8c", "generate_q6k",
           "batch_q6k", "generate_q5k", "batch_q5k", "generate_mpt", "batch_mpt", "generate_q4k",
-          "generate_moe", "batch_moe")
+          "generate_q2k", "batch_q2k", "generate_moe", "batch_moe")
 
 # TinyLlama-1.1B (config 1 of bench.py), Q4_0
 TINYLLAMA = dict(vocab_size=32000, hidden=2048, heads=32, kv_heads=4, ff=5632,
@@ -425,7 +463,7 @@ MISTRAL7B = dict(vocab_size=32000, hidden=4096, heads=32, kv_heads=8, ff=14336,
 # heads over 8 kv heads of 128), 8 experts of ff 14336 of which 2 are used,
 # rope_theta 1e6, 32K context; its quantized blocks drawn directly from the
 # seed (make_model draw="blocks"), 26 GB as Q4_0 at 32 layers (the full-size
-# phases run 24: LAYERS)
+# phases run 20: LAYERS)
 MIXTRAL = dict(vocab_size=32000, hidden=4096, heads=32, kv_heads=8, ff=14336, experts=8,
                experts_used=2, rope_base=1e6, context=32768, seed=0, weight_scale=0.05,
                draw="blocks")
@@ -463,6 +501,17 @@ LLAMA3_8B = dict(vocab_size=32000, hidden=4096, heads=32, kv_heads=8, ff=14336, 
 # at 32 would pass the chip machine's writes)
 DEEPSEEK_Q5KS = dict(DEEPSEEK, output_quant="Q6_K")
 LLAMA3_8B_Q5KS = dict(LLAMA3_8B, output_quant="Q6_K")
+# llama.cpp's Q2_K mix (after llama_tensor_get_type in llama.cpp's
+# src/llama.cpp; testing.q2k_mix(32, 8) gives the same types, which
+# tests/test_torch_q2k.py holds): on the Llama-3-8B shape (n_head / n_head_kv =
+# 4) token_embd, attn_q, attn_k, ffn_gate and ffn_up Q2_K, attn_v Q4_K,
+# attn_output and ffn_down Q3_K, output.weight Q6_K; every layer weight
+# K-major i4t (Q2_K at group 16 with mins, Q3_K at group 16 with zero 4,
+# Q4_K at group 32 with mins), q, k and v three matmuls (their kinds
+# differ: the loader does not fuse them); 2.7 GB of blocks at 32 layers
+LLAMA3_8B_Q2K = dict(LLAMA3_8B, output_quant="Q6_K",
+                     tensor_quant={"attn_v.weight": "Q4_K", "attn_output.weight": "Q3_K",
+                                   "ffn_down.weight": "Q3_K"})
 # config 2's run (bench.py:72-100): its prompt, engine and sampling
 Q4K_PROMPT = "benchmark " * 12
 Q4K_MAX_SEQ, Q4K_CHUNK = 8192, 64
@@ -473,6 +522,9 @@ Q4K_LONG = 7000  # the long prompt's token ids: the 8192-row bucket, cache lens 
 # batch_mpt's prompt bucket: its prefill runs the i4t matmuls at M = 64·T
 # (the kernels phase times them there; phase_batch checks the bucket)
 BATCH_MPT_T = 16
+# batch_q2k's prompt bucket: its prefill runs the group-16 tile at M = 64·T,
+# 128 rows a block (the kernels phase times it there; phase_batch checks it)
+BATCH_Q2K_T = 32
 # parity (e)'s decode steps after its prefill: on the CPU each step
 # dequantizes every routed expert of its 2 layers, so the steps are few
 # (cut from 8 to 3, then to 2 when MPT-7B's phases came)
@@ -604,23 +656,24 @@ def _stacked_i4t(L, K, N, gen, mins=False):
                    zero=0 if mins else 8)
 
 
-def _i4t_split_groups(M, K, N):
+def _i4t_split_groups(M, K, N, G=32):
     """Groups [g0, g1) of each half that a wrong qmm_i4t.cu launch at (M, K,
-    N) leaves out in testing.qmm_i4t_mutants: the last K split of
-    ops.qmm.i4t_mv_plan's launch at M = 1 (testing.i4t_mv_last: the last
-    group where it has one split), of i4t_plan's above."""
+    N) and group G leaves out in testing.qmm_i4t_mutants: the last K split
+    of ops.qmm.i4t_mv_plan's launch at M = 1 (testing.i4t_mv_last: the last
+    group where it has one split), of i4t_plan's above (whole stages of 32
+    rows of k of each half: 32/G groups a stage)."""
     from booster_tpu_torch.ops import qmm as tq
     from booster_tpu_torch.testing import i4t_mv_last
 
-    ngh = K // 64
+    ngh = K // (2 * G)
     if M == 1:
-        return i4t_mv_last(ngh, tq.i4t_mv_plan(K, N, 32))
-    ks = tq.i4t_plan(M, K, N)[1]
-    return (ks - 1) * ngh // ks, ngh
+        return i4t_mv_last(ngh, tq.i4t_mv_plan(K, N, G))
+    ks, nst = tq.i4t_plan(M, K, N)[1], K // 64
+    return (ks - 1) * nst // ks * (32 // G), ngh
 
 
 def _i4t_row(entries, failures, label, w, M, gen, path, gateup=False, trials=5,
-             mins_on_path=False):
+             mins_on_path=False, on_path=True):
     """One i4t kernel row: qmm_i4t (or the fused gate-up) on x [M, K] against
     its plain version (2e-4 of the largest output; the gate-up per element,
     and bit-equal to the unfused kernel + silu·mul), equal to itself on a
@@ -628,7 +681,8 @@ def _i4t_row(entries, failures, label, w, M, gen, path, gateup=False, trials=5,
     (and, with mins, of qmm_mins_mutants) 8x past the limit, timed cold and
     warm with the plain version and the bf16 library call.  A row with mins
     counts its launches on `path` where `mins_on_path` (Q4_K's path), else
-    under a key no path counts."""
+    under a key no path counts; a row at a shape no path runs (`on_path`
+    false) likewise."""
     import torch
 
     from booster_tpu_torch.ops import qmm as tq
@@ -636,9 +690,8 @@ def _i4t_row(entries, failures, label, w, M, gen, path, gateup=False, trials=5,
     from booster_tpu_torch.testing import qmm_i4t_mutants, qmm_mins_mutants
 
     N, K = w.shape
-    R = w.resolved().scales.shape[0]
+    R, G = w.resolved().scales.shape[0], w.group
     x = torch.randn(M, K, device="cuda", generator=gen).to(torch.bfloat16)
-    form = "gd" if M == 1 else "dq"
     flips = None  # gate-up outputs that one-ulp roundings of g and u explain
     if gateup:
         ff = N // 2
@@ -653,12 +706,12 @@ def _i4t_row(entries, failures, label, w, M, gen, path, gateup=False, trials=5,
         if not torch.equal(got, tq.silu(gu[:, :ff]) * gu[:, ff:]):
             failures.append(f"{label} M={M}: fused gate-up != qmm + silu·mul")
         flips = _gateup_flips(got, gp[:, :ff].to(torch.bfloat16), gp[:, ff:].to(torch.bfloat16))
-        name, out_bytes = f"qmm_i4t_gateup_{form}", M * ff * 2
+        name, out_bytes = tq.i4t_count_name(True, M, G, R == 4), M * ff * 2
     else:
         kern, plain = tq.qmm_i4t, tq.qmm_plain
         got, want = kern(x, w), plain(x, w)
         limit = 2e-4 * want.abs().max()
-        name, out_bytes = f"qmm_i4t_{form}", M * N * 4
+        name, out_bytes = tq.i4t_count_name(False, M, G, R == 4), M * N * 4
 
     def share(y, flips=None):  # the largest error as a share of the limit
         s = (y.float() - want.float()).abs() / limit
@@ -669,7 +722,8 @@ def _i4t_row(entries, failures, label, w, M, gen, path, gateup=False, trials=5,
         failures.append(f"{name} {label} M={M}: max err {err} past the limit")
     if M == 1 and not torch.equal(got, kern(x, w)):
         failures.append(f"{name} {label} M={M}: a second launch differs")
-    mutants = {**qmm_i4t_mutants(x, w, _i4t_split_groups(M, K, N)), **qmm_mins_mutants(x, w)}
+    mutants = {**qmm_i4t_mutants(x, w, _i4t_split_groups(M, K, N, G)),
+               **qmm_mins_mutants(x, w)}
     seen = {what: share(plain(xm, wm)) for what, (xm, wm) in mutants.items()}
     for what, v in seen.items():
         if v < 8:
@@ -679,18 +733,20 @@ def _i4t_row(entries, failures, label, w, M, gen, path, gateup=False, trials=5,
         deq = dequantize(w, torch.bfloat16)
         lib_ms = timed(lambda: torch.matmul(x, deq.t()), trials=trials)
         del deq
-    nbytes = K // 2 * N + R * (K // 64) * N * 2 + M * K * 2 + out_bytes
+    nbytes = K // 2 * N + R * (K // (2 * G)) * N * 2 + M * K * 2 + out_bytes
     b_ms, b_by = bound(nbytes, 2 * M * K * N)
     entries.append({
-        "name": name, "shape": f"{label} M={M} K={K} N={N}" + (" R=4" if R == 4 else ""),
-        # a synthetic mins form runs on no path: a key no launch counts under
-        "key": (name, (K, N) + (("mins",) if R == 4 and not mins_on_path else ())),
+        "name": name, "shape": f"{label} M={M} K={K} N={N}" + (" R=4" if R == 4 else "")
+        + (f" G={G} zero={w.zero}" if G != 32 else ""),
+        # a synthetic mins form, or a row count, that no path runs: a key no
+        # launch counts under
+        "key": (name, (K, N) + (("mins",) if R == 4 and not mins_on_path else ())
+                + (() if on_path else ("no path",))),
         "path": path,
         "route": "cuda", "source": "booster_tpu_torch/csrc/qmm_i4t.cu",
-        "replaces": {"qmm_i4t_gd": "booster_tpu/ops/pallas_qmm.py:393",
-                     "qmm_i4t_dq": "booster_tpu/ops/pallas_qmm.py:469",
-                     "qmm_i4t_gateup_gd": "booster_tpu/ops/pallas_qmm.py:932",
-                     "qmm_i4t_gateup_dq": "booster_tpu/ops/pallas_qmm.py:798"}[name],
+        "replaces": "booster_tpu/ops/pallas_qmm.py:" + {
+            (False, True): "393", (False, False): "469", (True, True): "932",
+            (True, False): "798"}[gateup, M == 1],
         "max_abs_err": err, "max_err_of_limit": share(got, flips),
         "share_before_flips": None if flips is None else share(got),
         "outputs_of_flips": None if flips is None else int((flips & (got != want)).sum()),
@@ -795,6 +851,7 @@ def phase_kernels(entries: list) -> dict:
     _q4k_kernels(entries, failures)
     _q4k_lane_kernels(entries, failures)
     _q5k_kernels(entries, failures)
+    _q2k_kernels(entries, failures)
     floor = _append_floor()
     for e in entries:  # beside every append row: a row near it sits at the launch floor
         if e["name"].startswith("kv_append"):
@@ -2115,6 +2172,56 @@ def _q4k_kernels(entries: list, failures: list) -> None:
         torch.cuda.empty_cache()
 
 
+def _q2k_kernels(entries: list, failures: list) -> None:
+    """The Q2_K mix's i4t rows at group 16 (qmm_i4t.cu: i4mv.cuh's matvec
+    and gate-up at M = 1, the tile above) on real planes (testing.q2k_weight
+    and q3k_weight: random blocks repacked by the port on the card) at the
+    Llama-3-8B shapes: Q2_K (four planes, mins) q 4096 → 4096, k 4096 →
+    1024 and the fused gate-up 4096 → 2·14336; Q3_K (two planes, zero 4,
+    scales of either sign) wo 4096 → 4096 and down 14336 → 4096; each at a
+    decode step (M = 1), generate_q2k's 16-row prefill, batch_q2k's 64-row
+    step and its 64·BATCH_Q2K_T-row prefill (the tile at 128 rows a block),
+    and at the 128-row prefill bucket of config 2, which no Q2_K path runs
+    (beside its Q4_K rows at group 32, counted under a key no launch
+    takes); and the gate-up's zero-4 form on random Q3_K weights (a Q3_K
+    gate/up: the form the kernels take that no path reaches) at M = 1, 64
+    and 64·BATCH_Q2K_T.  Each through _i4t_row (the mins dropped or with
+    the wrong sign, the zero ignored, a group's scale row from the next
+    group, the nibbles swapped, the last split's groups left out, among its
+    wrong kernels), counted on generate_q2k's and batch_q2k's runs."""
+    import dataclasses
+
+    import torch
+
+    from booster_tpu_torch.testing import q2k_weight, q3k_weight
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(19)
+    C, ff = LLAMA3_8B["hidden"], LLAMA3_8B["ff"]
+    nkv = LLAMA3_8B["kv_heads"] * (C // LLAMA3_8B["heads"])
+    rows = (("Q2_K q", q2k_weight, C, C), ("Q2_K k", q2k_weight, C, nkv),
+            ("Q3_K wo", q3k_weight, C, C), ("Q2_K gateup", q2k_weight, C, 2 * ff),
+            ("Q3_K down", q3k_weight, ff, C))
+    for i, (label, make, K, N) in enumerate(rows):
+        w = make(N, K, seed=200 + i, device="cuda")
+        w = dataclasses.replace(w, qw=w.qw[None], scales=w.scales[None]).at(0)  # a layer view
+        for M in (1, 16, 64, Q4K_PREFILL_M, 64 * BATCH_Q2K_T):
+            on_path = M != Q4K_PREFILL_M
+            _i4t_row(entries, failures,
+                     f"Llama-3-8B {label}" + ("" if on_path else " (no path)"), w, M, gen,
+                     "generate_q2k" if M < 64 else "batch_q2k",
+                     gateup=label.endswith("gateup"), trials=3, mins_on_path=True,
+                     on_path=on_path)
+        del w
+        torch.cuda.empty_cache()
+    w = q3k_weight(2 * ff, C, seed=210, device="cuda")
+    for M in (1, 64, 64 * BATCH_Q2K_T):  # a Q3_K gate-up: the zero-4 form, on no path
+        _i4t_row(entries, failures, "Llama-3-8B Q3_K gateup (no path)", w, M, gen,
+                 "generate_q2k" if M == 1 else "batch_q2k", gateup=True, trials=3)
+    del w
+    torch.cuda.empty_cache()
+
+
 def _q4k_lane_kernels(entries: list, failures: list) -> None:
     """The lane-major i4p form with mins (csrc/qmm_lane.cu, the port of
     _qmm_i4_kernel with has_mins) on real Q4_K expert stacks at
@@ -3200,11 +3307,14 @@ GGUFS = {"tiny": ("tinyllama-shape-q4_0", "TINYLLAMA", "Q4_0"),
          "q4k": ("llama3-8b-shape-q4_k", "LLAMA3_8B", "Q4_K"),
          "moe_q4k": ("mixtral8x7b-shape-q4_k", "MIXTRAL", "Q4_K"),
          "q5k": ("deepseek-coder-1.3b-shape-q5_k_s", "DEEPSEEK_Q5KS", "Q5_K"),
-         "q5k_8b": ("llama3-8b-shape-q5_k_s", "LLAMA3_8B_Q5KS", "Q5_K")}
+         "q5k_8b": ("llama3-8b-shape-q5_k_s", "LLAMA3_8B_Q5KS", "Q5_K"),
+         "q2k": ("llama3-8b-shape-q2_k", "LLAMA3_8B_Q2K", "Q2_K")}
 # each model's depth on its full-size phases
-# (Mixtral cut to 24 of its 32: the card's machine takes 45 GiB of disk writes
-# a call, and with config 2's files a 32-layer Mixtral came to 49 GiB)
-LAYERS = {"tiny": 22, "q8": 32, "moe": 24, "q6k": 24, "mpt": 32, "q4k": 32, "q5k": 24}
+# (Mixtral cut to 20 of its 32: the card's machine takes 45 GiB of disk writes
+# a call; with config 2's files a 32-layer Mixtral came to 49 GiB, and at 24
+# layers the Q2_K mix's 2.8 GB did not fit beside the rest)
+LAYERS = {"tiny": 22, "q8": 32, "moe": 20, "q6k": 24, "mpt": 32, "q4k": 32, "q5k": 24,
+          "q2k": 32}
 
 
 def _gguf_path(layers: int, model: str = "tiny") -> Path:
@@ -3227,9 +3337,20 @@ def _gguf(layers: int, model: str = "tiny") -> str:
         kw = dict(globals()[shape])
         if "output_quant" in kw:
             kw["output_quant"] = GGMLType[kw["output_quant"]]
+        if "tensor_quant" in kw:
+            kw["tensor_quant"] = {k: GGMLType[v] for k, v in kw["tensor_quant"].items()}
         make_model(str(tmp), layers=layers, quant=GGMLType[quant], **kw)
         tmp.replace(path)
     return str(path)
+
+
+def _gguf_sizes() -> dict:
+    """The GGUFs under build/smoke/ (those this run wrote, on the card's
+    machine) by name in GB, and their sum in GiB: the card machine takes
+    45 GiB of writes a call."""
+    files = sorted((ROOT / "build" / "smoke").glob("*.gguf"))
+    sizes = {f.name: f.stat().st_size / 1e9 for f in files}
+    return {"files_gb": sizes, "total_gib": sum(f.stat().st_size for f in files) / 2**30}
 
 
 def _teacher_forced(models, caches, prompts, T, live, laps, tag, steps=16) -> list:
@@ -3389,6 +3510,7 @@ def phase_parity() -> dict:
     out.update(_parity_q4k(tol, laps))
     out.update(_parity_moe(tol, laps, ("moe_q4k",), "j"))
     out.update(_parity_q5k(tol, laps, out))
+    out.update(_parity_q2k(tol, laps, out))
     out["seconds"] = time.perf_counter() - t0
     out["part_s"] = laps.parts
     return out
@@ -3682,6 +3804,51 @@ def _parity_q5k(tol: float, laps, out: dict) -> dict:
     return res
 
 
+def _parity_q2k(tol: float, laps, out: dict) -> dict:
+    """(m) the Llama-3-8B width at 2 layers in llama.cpp's Q2_K mix (q, k
+    and the gate-up i4t at group 16 with mins, wo and down at group 16 with
+    zero 4, v Q4_K's group 32, the head Q6_K; q, k and v three matmuls),
+    loaded native on both devices with those kinds: the single-stream path
+    over a bf16 cache, a 16-row prefill and PARITY_7B_STEPS decode steps,
+    the CPU's plain versions against the card's kernels (its launches are
+    the path "parity (m)", and must hold both group-16 forms at M = 1 and
+    in the tile)."""
+    from booster_tpu_torch.models import load_model
+    from booster_tpu_torch.ops import kernels
+    from booster_tpu_torch.ops.kv_cache import KVCache
+
+    path, _ = _wait_gguf("q2k", 2)
+    laps("m wait")
+    models = {dev: load_model(path, device=dev, weights="native") for dev in ("cpu", "cuda")}
+    cfg = models["cpu"].cfg
+    want = {"wq": (16, 4, 0), "wk": (16, 4, 0), "wv": (32, 4, 0), "wo": (16, 2, 4),
+            "w_gateup": (16, 4, 0), "w_down": (16, 2, 4)}
+    for dev, m in models.items():
+        lay = m.params["layers"]
+        got = {k: (lay[k].group, lay[k].scales.shape[-3], lay[k].zero) for k in want
+               if k in lay and lay[k].kind == "i4t"}
+        if got != want or "wqkv" in lay or m.params["output"].kind != "i8t":
+            raise AssertionError(f"parity q2_k (m) on {dev}: weights {got}")
+    caches = {dev: KVCache.create(cfg.n_layers, 1, 256, cfg.n_kv_heads, cfg.head_dim, dev)
+              for dev in models}
+    laps("m load")
+    kernels.reset_counts()
+    got, want_l = _teacher_forced(models, caches, [models["cpu"].tokenizer.encode(PROMPT)], 16,
+                                  [True], laps, "m", steps=PARITY_7B_STEPS)
+    res = _compare_logits("q2_k (m)", got, want_l, tol)
+    counts = dict(kernels.launch_counts)
+    res["card_launches"] = {k: v for k, v in counts.items() if v}
+    need = ("qmm_i4t_g16m_gd", "qmm_i4t_g16_gd", "qmm_i4t_gateup_g16m_gd", "qmm_i4t_g16m_dq",
+            "qmm_i4t_g16_dq", "qmm_i4t_gateup_g16m_dq")
+    if not all(counts[k] for k in need):
+        raise AssertionError(f"parity q2_k (m): the card's launches {res['card_launches']} "
+                             f"lack a group-16 form of {need}")
+    out.setdefault("_paths", {})["parity (m)"] = (counts, dict(kernels.shape_counts))
+    del models, caches
+    laps("m check")
+    return {"q2_k_llama3_8b_width_bf16_cache_1_slot": res}
+
+
 def _parity_q6k(tol: float, laps) -> dict:
     """(g) the DeepSeek-Coder-1.3B width at 2 layers as llama.cpp's Q6_K
     file (Q8_0 ffn_down): loaded on the CPU and the card with the
@@ -3840,7 +4007,7 @@ def _start_writer(jobs: list) -> None:
     """Write the GGUFs of `jobs` ((model, layers) in the order the phases
     need them) one after another in a process of its own while the earlier
     phases run: the TinyLlama's seeded normal draws take ~30 s of numpy, the
-    7B's 3 minutes, the Mixtral's 20 GB of blocks under a minute."""
+    7B's 3 minutes, the Mixtral's 16.5 GB of blocks under a minute."""
     todo = [f"{m}:{n}" for m, n in jobs if not _gguf_path(n, m).exists()]
     if todo:
         _writer["proc"] = subprocess.Popen(
@@ -3947,6 +4114,16 @@ def _big_model(model: str, layers: int = 32, weights: str = "auto"):
                 raise AssertionError(f"{model}: scale planes {planes}, not two (scales, mins)")
         elif model == "mpt":  # llama.cpp's Q4_0 mix: Q4_0 layers, a Q6_K head
             want = dict.fromkeys(kinds, ("i4t", 32)) | {"output": ("i8t", 16)}
+        elif model == "q2k":  # llama.cpp's Q2_K mix: i4t at group 16 (Q2_K with mins,
+            # Q3_K with zero 4), the Q4_K v at 32, a Q6_K head; q, k, v unfused
+            want = {"wq": ("i4t", 16), "wk": ("i4t", 16), "wv": ("i4t", 32),
+                    "wo": ("i4t", 16), "w_gateup": ("i4t", 16), "w_down": ("i4t", 16),
+                    "output": ("i8t", 16)}
+            lay = m.params["layers"]
+            forms = {k: (lay[k].scales.shape[-3], lay[k].zero) for k in want if k != "output"}
+            if forms != {"wq": (4, 0), "wk": (4, 0), "wv": (4, 0), "wo": (2, 4),
+                         "w_gateup": (4, 0), "w_down": (2, 4)}:
+                raise AssertionError(f"{model}: (planes, zero) {forms}")
         elif model == "q4k":  # every weight K-major i4t with Q4_K's four planes
             want = dict.fromkeys(kinds, ("i4t", 32))
             planes = {k: v.scales.shape[-3] for k, v in m.params["layers"].items()
@@ -3986,10 +4163,12 @@ class _FallbackCount:
 GENERATE = {"generate": ("tiny", None), "generate_q8": ("q8", None),
             "generate_moe": ("moe", None), "generate_i8": ("tiny", "i8"),
             "generate_i8c": ("q8", "i8c"), "generate_q6k": ("q6k", "native"),
-            "generate_q5k": ("q5k", "native"), "generate_mpt": ("mpt", "native")}
+            "generate_q5k": ("q5k", "native"), "generate_mpt": ("mpt", "native"),
+            "generate_q2k": ("q2k", "native")}
 BATCH = {"batch": ("tiny", None), "batch_q8": ("q8", None), "batch_moe": ("moe", None),
          "batch_i8c": ("q8", "i8c"), "batch_q6k": ("q6k", "native"),
-         "batch_q5k": ("q5k", "native"), "batch_mpt": ("mpt", "native")}
+         "batch_q5k": ("q5k", "native"), "batch_mpt": ("mpt", "native"),
+         "batch_q2k": ("q2k", "native")}
 
 
 def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str] = None) -> dict:
@@ -4011,10 +4190,10 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
     t_wait = load_rss = None
     name = {v: k for k, v in GENERATE.items()}[(model_name, weights)]
     q8, moe, q6k = model_name == "q8" and weights is None, model_name == "moe", model_name == "q6k"
-    mpt, q5k = model_name == "mpt", model_name == "q5k"
+    mpt, q5k, q2k = model_name == "mpt", model_name == "q5k", model_name == "q2k"
     load_gpu_gb = None
     torch.cuda.reset_peak_memory_stats()
-    if model_name in ("q8", "moe", "q6k", "mpt", "q5k"):
+    if model_name in ("q8", "moe", "q6k", "mpt", "q5k", "q2k"):
         big = _big_model(model_name, layers, weights or "auto")
         model, t_build, t_load = big["model"], big["build_s"], big["load_s"]
         t_wait, load_rss = big["wait_s"], big["load_rss_gb"]
@@ -4063,6 +4242,16 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
             "qmm_i8t_gd": (2 * L + 1) * steps + 1, "qmm_i8t_dq": 2 * L,
             "qmm_i8t_gateup_gd": L * steps, "qmm_i8t_gateup_dq": L,
             "qmm_i8": L * (steps + 1), "decode_attn": L * steps, "kv_append": steps}
+    elif q2k:  # llama.cpp's Q2_K mix: per step q and k (G16 with mins), v (Q4_K's
+        # G32), wo and down (G16, zero 4) and the fused gate-up (G16 with mins)
+        # on the M = 1 kernels, the Q6_K head in the group-16 i8t matvec; at
+        # the prefill the tile's forms and the head on the last row
+        expected = dict.fromkeys(counts, 0) | {
+            "qmm_i4t_g16m_gd": 2 * L * steps, "qmm_i4t_gd": L * steps,
+            "qmm_i4t_g16_gd": 2 * L * steps, "qmm_i4t_gateup_g16m_gd": L * steps,
+            "qmm_i4t_g16m_dq": 2 * L, "qmm_i4t_dq": L, "qmm_i4t_g16_dq": 2 * L,
+            "qmm_i4t_gateup_g16m_dq": L, "qmm_i8t_gd": steps + 1,
+            "decode_attn": L * steps, "kv_append": steps}
     elif mpt:  # ALiBi closes the fused decode gate (llama.py:96): each step runs the
         # masked layer loop, whose update_layer takes the per-layer append
         # (kv_cache.py:137-143) and whose attention is plain; qkv, wo, up and
@@ -4100,6 +4289,18 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
                 ("qmm_i8t_gateup_dq", (C, 2 * FF)): L, ("qmm_i8", (FF, C)): L * (steps + 1)}
         if shape_counts != want:
             raise AssertionError(f"{name}: launches by shape {shape_counts} != {want}")
+    if q2k:  # every matmul launch by shape: q 4096 → 4096 and wo share a shape, not a form
+        C, V, FF = model.cfg.n_embd, model.cfg.n_vocab, model.cfg.n_ff
+        nkv = model.cfg.n_kv_heads * model.cfg.head_dim
+        want = {}
+        for form, n in (("gd", L * steps), ("dq", L)):
+            want |= {(f"qmm_i4t_g16m_{form}", (C, C)): n, (f"qmm_i4t_g16m_{form}", (C, nkv)): n,
+                     (f"qmm_i4t_{form}", (C, nkv)): n, (f"qmm_i4t_g16_{form}", (C, C)): n,
+                     (f"qmm_i4t_g16_{form}", (FF, C)): n,
+                     (f"qmm_i4t_gateup_g16m_{form}", (C, 2 * FF)): n}
+        want[("qmm_i8t_gd", (C, V))] = steps + 1
+        if shape_counts != want:
+            raise AssertionError(f"{name}: launches by shape {shape_counts} != {want}")
     if weights and fallbacks.calls:
         raise AssertionError(f"{name}: {fallbacks.calls} matmuls took the dequantize path")
     # the trace covers a 32-token generate: summing one of 128 tokens (130 K
@@ -4120,6 +4321,9 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
     if q5k:  # the mins forms: the matvec and gate-up, the lane-major down, the prefill's tile
         watch = ("i8mv::mv_kernel<32, true", "lane_kernel<false, 32, true>",
                  "dq_kernel<16, 32, false, true>", "dq_kernel<16, 32, true, true>")
+    if q2k:  # the group-16 matvecs (with mins, with zero 4), the prefill's tile at G 16
+        watch = ("i4mv::mv_kernel<16, true", "i4mv::mv_kernel<16, false",
+                 "mm_kernel<32, false, 16>", "mm_kernel<32, true, 16>")
     prof = _profile(lambda: short.generate(ids, sp, max_new_tokens=32), steps=32,
                     watch=watch + (("::kv_append_kernel",) if mpt else ()))
     prof["window"] = "a 32-token generate (decode_chunk 32)"
@@ -4140,7 +4344,10 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
                         "generate_q6k": "q6_k (i8t g16) with q8_0 ffn_down (lane-major i8)",
                         "generate_q5k": "q5_k_s: q5_k (i8t g32 with mins), q5_1 ffn_down "
                                         "(lane-major i8 with mins), a q6_k head (i8t g16)",
-                        "generate_mpt": "q4_0 (i4t) with a q6_k head (i8t g16)"}[name],
+                        "generate_mpt": "q4_0 (i4t) with a q6_k head (i8t g16)",
+                        "generate_q2k": "q2_k mix: q2_k (i4t g16 with mins), q3_k wo and "
+                                        "ffn_down (i4t g16, zero 4), a q4_k attn_v (i4t g32 "
+                                        "with mins), a q6_k head (i8t g16)"}[name],
             "gguf_build_s": t_build, "gguf_wait_s": t_wait, "load_s": t_load,
             "load_rss_gb": load_rss, "load_max_memory_allocated_gb": load_gpu_gb,
             "dequantize_fallbacks": fallbacks.calls,
@@ -4404,15 +4611,17 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
     name = {v: k for k, v in BATCH.items()}[(model_name, weights)]
     q8, moe, i8c = model_name == "q8" and weights is None, model_name == "moe", weights == "i8c"
     q6k, mpt, q5k = model_name == "q6k", model_name == "mpt", model_name == "q5k"
+    q2k = model_name == "q2k"
     torch.cuda.reset_peak_memory_stats()
-    if q8 or moe or i8c or q6k or mpt or q5k:
+    if q8 or moe or i8c or q6k or mpt or q5k or q2k:
         big = _big_model(model_name, layers, weights or "auto")
         model, t_load = big["model"], big["load_s"]
         reader = GGUFReader(_gguf_path(layers, model_name))
         try:  # bench_batch's load_model(weights="auto", batch_hint=64): the same model
             # (the 1.3B file fits 6 GiB as bf16, so "auto" would take bf16
             # there: batch_q6k asks for native weights, to run the Q6_K kernels)
-            if not (i8c or q6k or q5k) and resolve_weights(reader, "auto", 64) != "native":
+            # (the 8B Q2_K file is loaded native too: its kernels are the phase's point)
+            if not (i8c or q6k or q5k or q2k) and resolve_weights(reader, "auto", 64) != "native":
                 raise AssertionError(f"{model_name}: weights=auto at batch_hint=64 is not native")
         finally:
             reader.close()
@@ -4434,7 +4643,7 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
     # chunk of any length runs the same ops
     _bench_batch(eng, model.tokenizer, B, *((4, 4) if mpt else (32,)))
     laps("warm-up")
-    syncs = _SyncCheck(eng) if moe or i8c or q6k or mpt or q5k else None
+    syncs = _SyncCheck(eng) if moe or i8c or q6k or mpt or q5k or q2k else None
     kernels.reset_counts()
     with _FallbackCount() as fallbacks:
         res = _bench_batch(eng, model.tokenizer, B, n_tokens)
@@ -4449,6 +4658,9 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
     if mpt and T != BATCH_MPT_T:
         raise AssertionError(f"batch_mpt: prompt bucket {T}, the kernels phase times "
                              f"{BATCH_MPT_T}")
+    if q2k and T != BATCH_Q2K_T:
+        raise AssertionError(f"batch_q2k: prompt bucket {T}, the kernels phase times "
+                             f"{BATCH_Q2K_T}")
     prefill_chunks = 1  # every prompt fits one chunk of the engine's 512
     expected = dict.fromkeys(counts, 0) | ({} if mpt else {
         "decode_attn_i8": layers * steps, "kv_append_i8": steps,
@@ -4472,8 +4684,13 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
         expected |= {"qmm_i8t_dq": (2 * layers + 1) * (steps + prefill_chunks),
                      "qmm_i8t_gateup_dq": layers * (steps + prefill_chunks),
                      "qmm_i8": layers * (steps + prefill_chunks)}
+    if q2k:  # q and k, v, wo and down, the gate-up (and the Q6_K head) at M = 64 and 64·T
+        n = steps + prefill_chunks
+        expected |= {"qmm_i4t_g16m_dq": 2 * layers * n, "qmm_i4t_dq": layers * n,
+                     "qmm_i4t_g16_dq": 2 * layers * n, "qmm_i4t_gateup_g16m_dq": layers * n,
+                     "qmm_i8t_dq": n}
     if counts != expected or (kernels.shape_counts and not (q8 or moe or i8c or q6k or mpt
-                                                             or q5k)):
+                                                             or q5k or q2k)):
         raise AssertionError(f"batch: launch counts {counts} != expected {expected}")
     if q5k:  # every matmul launch by shape, at the decode steps and the prefill chunk
         C, V, FF, n = model.cfg.n_embd, model.cfg.n_vocab, model.cfg.n_ff, steps + prefill_chunks
@@ -4482,7 +4699,16 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
                 ("qmm_i8", (FF, C)): layers * n}
         if kernels.shape_counts != want:
             raise AssertionError(f"{name}: launches by shape {kernels.shape_counts} != {want}")
-    if (i8c or q6k or mpt or q5k) and fallbacks.calls:
+    if q2k:  # every matmul launch by shape, at the decode steps and the prefill chunk
+        C, V, FF, n = model.cfg.n_embd, model.cfg.n_vocab, model.cfg.n_ff, steps + prefill_chunks
+        nkv = model.cfg.n_kv_heads * model.cfg.head_dim
+        want = {("qmm_i4t_g16m_dq", (C, C)): layers * n, ("qmm_i4t_g16m_dq", (C, nkv)): layers * n,
+                ("qmm_i4t_dq", (C, nkv)): layers * n, ("qmm_i4t_g16_dq", (C, C)): layers * n,
+                ("qmm_i4t_g16_dq", (FF, C)): layers * n,
+                ("qmm_i4t_gateup_g16m_dq", (C, 2 * FF)): layers * n, ("qmm_i8t_dq", (C, V)): n}
+        if kernels.shape_counts != want:
+            raise AssertionError(f"{name}: launches by shape {kernels.shape_counts} != {want}")
+    if (i8c or q6k or mpt or q5k or q2k) and fallbacks.calls:
         raise AssertionError(f"{name}: {fallbacks.calls} matmuls took the dequantize path")
     shape_counts = dict(kernels.shape_counts)
     V = model.cfg.n_vocab
@@ -4505,6 +4731,9 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
     if q5k:  # the mins forms at the decode steps' M = 64 (and the 2048-row prefill's tile)
         watch = ("dq_kernel<64, 32, false, true>", "dq_kernel<64, 32, true, true>",
                  "lane_kernel<false, 64, true>", "dq_kernel<256, 32, true, true>")
+    if q2k:  # the tile at G 16 at the decode steps' M = 64 and the 2048-row prefill
+        watch = ("mm_kernel<64, false, 16>", "mm_kernel<64, true, 16>",
+                 "mm_kernel<128, false, 16>")
     prof = _profile(lambda: _bench_batch(eng, model.tokenizer, B, 32),
                     steps=short["decode_steps"], watch=watch)
     laps("profile")
@@ -4518,7 +4747,10 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
                         "batch_q6k": "q6_k (i8t g16) with q8_0 ffn_down (lane-major i8)",
                         "batch_q5k": "q5_k_s: q5_k (i8t g32 with mins), q5_1 ffn_down "
                                      "(lane-major i8 with mins), a q6_k head (i8t g16)",
-                        "batch_mpt": "q4_0 (i4t) with a q6_k head (i8t g16)"}[name],
+                        "batch_mpt": "q4_0 (i4t) with a q6_k head (i8t g16)",
+                        "batch_q2k": "q2_k mix: q2_k (i4t g16 with mins), q3_k wo and "
+                                     "ffn_down (i4t g16, zero 4), a q4_k attn_v (i4t g32 with "
+                                     "mins), a q6_k head (i8t g16)"}[name],
             "load_s": t_load, "dequantize_fallbacks": fallbacks.calls,
             "host_syncs_in_dispatches": None if syncs is None else syncs.host_syncs,
             "decode_dispatches_checked": None if syncs is None else syncs.chunks,
@@ -4843,13 +5075,14 @@ def main(argv=None) -> int:
     jobs = (([("tiny", 2), ("q8", 2)] if "parity" in phases else [])
             + ([("tiny", 22)] if {"generate", "batch", "generate_i8"} & set(phases) else [])
             + ([("moe", 2), ("moe_q8", 2), ("q6k", 2), ("mpt", 2), ("q4k", 2), ("moe_q4k", 2),
-                ("q5k_8b", 2), ("q5k", 2)] if "parity" in phases else [])
+                ("q5k_8b", 2), ("q5k", 2), ("q2k", 2)] if "parity" in phases else [])
             + ([("q8", 32)] if {"generate_q8", "batch_q8", "server", "generate_i8c",
                                 "batch_i8c"} & set(phases) else [])
             + ([("q6k", 24)] if {"generate_q6k", "batch_q6k"} & set(phases) else [])
             + ([("q5k", 24)] if {"generate_q5k", "batch_q5k"} & set(phases) else [])
             + ([("mpt", 32)] if {"generate_mpt", "batch_mpt"} & set(phases) else [])
             + ([("q4k", 32)] if "generate_q4k" in phases else [])
+            + ([("q2k", 32)] if {"generate_q2k", "batch_q2k"} & set(phases) else [])
             + ([("moe", LAYERS["moe"])] if {"generate_moe", "batch_moe"} & set(phases)
                else []))
     _start_writer(jobs)
@@ -4889,8 +5122,8 @@ def _run_phases(phases, run, entries, failed, t_all) -> int:
                 emit(res)
     runs = ("generate", "batch", "generate_i8", "generate_q8", "batch_q8", "server",
             "generate_i8c", "batch_i8c", "generate_q6k", "batch_q6k", "generate_q5k",
-            "batch_q5k", "generate_mpt", "batch_mpt", "generate_q4k", "generate_moe",
-            "batch_moe")
+            "batch_q5k", "generate_mpt", "batch_mpt", "generate_q4k", "generate_q2k",
+            "batch_q2k", "generate_moe", "batch_moe")
     for name in runs:
         phase = (phase_generate if name in GENERATE else phase_batch if name in BATCH
                  else (lambda layers, *_: phase_generate_q4k(layers))
@@ -4907,8 +5140,10 @@ def _run_phases(phases, run, entries, failed, t_all) -> int:
             _big.pop(("q5k", "native"), None)
         if model == "q4k":
             _big.pop(("mpt", "native"), None)
+        if model == "q2k":
+            _big.pop(("q4k", "auto"), None)
         if model == "moe":
-            _big.clear()  # the 7B models make room for the Mixtral's 20 GB
+            _big.clear()  # the 7B models make room for the Mixtral's 16.5 GB
         if name not in phases:
             continue
         if phase is None:
@@ -4940,7 +5175,7 @@ def _run_phases(phases, run, entries, failed, t_all) -> int:
                 e["launches"] = path_shapes[path].get((name, shape), 0)
             e["launches_on"] = path
         emit({"kernels": entries, "seconds_total": time.perf_counter() - t_all,
-              "counted_kernels": sorted(kernels.launch_counts)})
+              "counted_kernels": sorted(kernels.launch_counts), "gguf_written": _gguf_sizes()})
     if failed:
         print(f"chip_smoke.py: phases failed: {failed}", file=sys.stderr)
         return 1

@@ -218,6 +218,69 @@ def test_i4t_cluster_launch_refuses_a_bad_split_count(cuda):
     assert torch.equal(tq.qmm_i4t(x, w), want)
 
 
+def _g16_weight(fmt, N, K, seed):
+    """A real Q2_K (mins) or Q3_K (zero 4, signed scales) weight [N, K],
+    repacked on the card: K-major i4t at group 16."""
+    from booster_tpu_torch.testing import q2k_weight, q3k_weight
+
+    return (q2k_weight if fmt == "q2k" else q3k_weight)(N, K, seed, "cuda")
+
+
+@pytest.mark.parametrize("fmt", ["q2k", "q3k"])
+@pytest.mark.parametrize("m", [1, 16, 64, 128, 512, 2048])
+def test_i4t_group_16_matmul_matches_plain_and_mirror(cuda, fmt, m):
+    """qmm_i4t.cu at group 16 (i4mv.cuh's matvec at M = 1, the tile above)
+    on real Q2_K (mins) and Q3_K (zero 4) planes, the tile at 32, 64 and 128
+    rows a block (M = 512 and 2048: 128): within 2e-4 of the largest
+    output of qmm_plain and within a tenth of that of the CPU mirror of its
+    sum order at the plan's splits; each mirror mutant of a group-16 term
+    (a scale row of the wrong half-group, group sums over 32 k, the zero
+    term dropped where there is a zero) lands 8x past the limit; the launch
+    counts under the form's own name."""
+    from booster_tpu_torch.testing import I4T_MIRROR_MUTANTS, qmm_i4t_mv_split, qmm_i4t_split
+
+    K, N = 2048, 1024
+    w = _g16_weight(fmt, N, K, seed=m)
+    gen = torch.Generator(device="cuda").manual_seed(m)
+    x = torch.randn(m, K, device="cuda", generator=gen).to(torch.bfloat16)
+    kernels.reset_counts()
+    got, want = tq.qmm_i4t(x, w), tq.qmm_plain(x, w)
+    name = tq.i4t_count_name(False, m, 16, fmt == "q2k")
+    assert kernels.launch_counts[name] == 1 and "g16" in name
+    limit = 2e-4 * want.abs().max()
+    assert (got - want).abs().max() <= limit
+    wc = dataclasses.replace(w, qw=w.qw.cpu(), scales=w.scales.cpu())
+    if m == 1:
+        ks = tq.i4t_mv_plan(K, N, 16)
+        mirror = lambda mutant=None: qmm_i4t_mv_split(x.cpu(), wc, ks, mutant=mutant)  # noqa
+    else:
+        ks = tq.i4t_plan(m, K, N)[1]
+        mirror = lambda mutant=None: qmm_i4t_split(x.cpu(), wc, ks, mutant=mutant)  # noqa
+    assert (got.cpu() - mirror()).abs().max() <= limit.cpu() / 10
+    for what in I4T_MIRROR_MUTANTS:
+        if what == "zero term dropped" and not w.zero or what == "group sums over 32 k" and (
+                m > 1 and fmt == "q3k"):  # the tile's zero is in its unpack, not in xs
+            continue
+        assert (mirror(what) - want.cpu()).abs().max() >= 8 * limit.cpu(), what
+
+
+@pytest.mark.parametrize("fmt", ["q2k", "q3k"])
+@pytest.mark.parametrize("m", [1, 16, 64, 128, 512, 2048])
+def test_i4t_group_16_gateup_equals_matmul_then_silu_mul(cuda, fmt, m):
+    """The fused gate-up at group 16 (Q2_K's mins; Q3_K's zero 4, which no
+    path reaches) equals qmm_i4t on its fused weight + silu·mul bit for bit,
+    at M = 1 and in the tile at 32, 64 and 128 rows a block."""
+    K, ff = 2048, 512
+    w = _g16_weight(fmt, 2 * ff, K, seed=10 + m)
+    gen = torch.Generator(device="cuda").manual_seed(10 + m)
+    x = torch.randn(m, K, device="cuda", generator=gen).to(torch.bfloat16)
+    kernels.reset_counts()
+    got = tq.qmm_i4t_gateup(x, w)
+    assert kernels.launch_counts[tq.i4t_count_name(True, m, 16, fmt == "q2k")] == 1
+    gu = tq.qmm_i4t(x, w).to(torch.bfloat16)
+    assert torch.equal(got, tq.silu(gu[:, :ff]) * gu[:, ff:])
+
+
 @pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
 @pytest.mark.parametrize("d,D", [(128, 384), (384, 384), (640, 640), (1000, 1024),
                                  (1024, 1024), (99, 128)])
@@ -443,11 +506,12 @@ def test_wrappers_raise_when_kernels_cannot_build(cuda, monkeypatch, tmp_path):
 def test_wrappers_refuse_shapes_not_ported(cuda):
     gen = torch.Generator(device="cuda").manual_seed(5)
     w = _w(1, 1024, 128, gen)
-    w16 = QTensor("i4t", w.qw[0], torch.zeros(2, 32, 128, device="cuda", dtype=torch.bfloat16),
-                  None, 16, (128, 1024), GGMLType.Q4_0, zero=8)
+    w8 = QTensor("i4t", w.qw[0], torch.zeros(2, 64, 128, device="cuda", dtype=torch.bfloat16),
+                 None, 8, (128, 1024), GGMLType.Q4_0, zero=8)
     x = torch.zeros(1, 1024, device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tq.qmm_i4t(x, w16)
+    for m in (1, 16):  # groups 16 and 32 are ported; group 8 is not, at either form
+        with pytest.raises(NotImplementedError, match="group 8: not ported yet"):
+            tq.qmm_i4t(torch.zeros(m, 1024, device="cuda", dtype=torch.bfloat16), w8)
     q = torch.zeros(1, 1, 8, 64, device="cuda", dtype=torch.bfloat16)
     k = torch.zeros(1, 1, 1, 128, 64, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="not ported yet"):

@@ -187,18 +187,18 @@ def test_every_path_shape_is_taken_with_its_plan(lib, K, N, gateup, R, zero):
 
 
 def test_wrapper_refuses_what_the_matvec_does_not_take(lib):
-    """At M = 1: N (or ff) not a multiple of 128, a group other than 32 and
-    a payload off 16 bytes raise, and nothing is launched."""
+    """At M = 1: N (or ff) not a multiple of 128, a group other than 16 and
+    32 and a payload off 16 bytes raise, and nothing is launched."""
     x = torch.zeros(1, 1024, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="multiple of 128"):
         tq._launch(x, _shell(1024, 192, 2, 8), gateup=False)
     with pytest.raises(NotImplementedError, match="multiple of 128"):
         tq._launch(x, _shell(1024, 384, 2, 8), gateup=True)  # ff 192
     w = _shell(1024, 256, 2, 8)
-    w16 = QTensor("i4t", w.qw, torch.empty(2, 32, 256, dtype=torch.bfloat16), None, 16,
-                  (256, 1024), GGMLType.Q4_0, zero=8)
-    with pytest.raises(NotImplementedError, match="group 16"):
-        tq._launch(x, w16, gateup=False)
+    w8 = QTensor("i4t", w.qw, torch.empty(2, 64, 256, dtype=torch.bfloat16), None, 8,
+                 (256, 1024), GGMLType.Q4_0, zero=8)
+    with pytest.raises(NotImplementedError, match="group 8: not ported yet"):
+        tq._launch(x, w8, gateup=False)
     raw = torch.empty(512 * 256 + 8, dtype=torch.uint8)
     off = QTensor("i4t", raw[8:].view(512, 256), w.scales, None, G, (256, 1024),
                   GGMLType.Q4_0, zero=8)

@@ -2,7 +2,8 @@
 CPU.
 
 csrc/qmm_i4t.cu (M > 1) and csrc/qmm_lane.cu split K over blocks on whole
-stages (i4t: one group of each half; lane-major: 64 or 128 columns,
+stages (i4t: 32 rows of k of each half, one group at G = 32 and two at
+G = 16; lane-major: 64 or 128 columns,
 ``ops.qmm.lane_stage``), each split of at least 512 columns of K a
 chain of k16 mma steps from zero, added by the block that arrives last in
 split order.  The wrappers take the rows per block and the split from
