@@ -23,6 +23,13 @@
 // max of the columns up to its stage; after the last stage those warps add
 // their (l, acc) in shared memory (f32, in warp order).
 //
+// The storage head dim D is a template parameter: 128 (head dims up to 128,
+// lane-padded) or 256 (head dims 129-256: Gemma's 256).  At D = 256 a K or
+// V row is 512 bytes of bf16 (272 with padding at int8), so a bf16 stage
+// holds 64 columns (two such stages and the merge area fit the 227 KB of a
+// block; an int8 stage keeps 128), and the accumulator a warp holds doubles
+// to D/8 n-tiles (128 f32 a thread): the D = 256 forms run one block an SM.
+//
 // Fragment layouts.  The dot over the head dim may take its dims in any
 // order, as long as A (q) and B (K) agree: k-step s gives lane (gid, tig)
 // dims 16s + 4·tig .. + 3, so a lane reads one word (int8) or 8 bytes
@@ -46,21 +53,25 @@ namespace attn {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kD = 128;            // the cache's storage head dim
-constexpr int kCols = 128;         // cache columns per stage
 constexpr int kSub = 16;           // columns per warp step
-constexpr int kSubs = kCols / kSub;
 constexpr float kNeg = -1e30f;
-constexpr int kAccStride = kD + 4;  // f32 per row of the merge buffer
-constexpr int kMaxRows = 128;       // query rows of a block (8 m16 tiles)
+constexpr int kMaxRows = 128;       // query rows of a block (8 m16 tiles) at D = 128
 constexpr int kMaxSplits = 128;     // decode: slices of a (slot, kv head)
+
+template <int D>
+constexpr int kAccStride = D + 4;  // f32 per row of the merge buffer
+template <int D>
+constexpr int kRowsOf = D > 128 ? 64 : kMaxRows;  // prefill: query rows of a block
 
 // One stage in shared memory: kCols K rows, kCols V rows (bytes per row
 // padded), and for an int8 cache the kCols k and v scales.
-template <bool I8>
+template <bool I8, int D>
 struct Tile {
-  static constexpr int kRow = I8 ? 144 : 288;
-  static constexpr int vRow = I8 ? 144 : 272;
+  static_assert(D == 128 || D == 256, "the storage widths ported: 128 and 256 lanes");
+  static constexpr int kCols = !I8 && D > 128 ? 64 : 128;  // cache columns per stage
+  static constexpr int kSubs = kCols / kSub;
+  static constexpr int kRow = I8 ? D + 16 : 2 * D + 32;
+  static constexpr int vRow = I8 ? D + 16 : 2 * D + 16;
   static constexpr int kOff = 0;
   static constexpr int vOff = kCols * kRow;
   static constexpr int ksOff = vOff + kCols * vRow;
@@ -71,9 +82,10 @@ struct Tile {
 // The merge area, which reuses the ring once the stages are done: each
 // warp's 16 rows of acc, m and l; per block row the merged M and L; the
 // decode's factors of its slices (the prefill ends its area at `fac`).
+template <int D>
 struct Merge {
   static constexpr int acc = 0;
-  static constexpr int m = acc + kWarps * 16 * kAccStride * 4;
+  static constexpr int m = acc + kWarps * 16 * kAccStride<D> * 4;
   static constexpr int l = m + kWarps * 16 * 4;
   static constexpr int rowM = l + kWarps * 16 * 4;
   static constexpr int rowL = rowM + kMaxRows * 4;
@@ -104,15 +116,18 @@ __device__ __forceinline__ uint32_t int_bf16x2(float lo, float hi) {
 
 // Issue the copies of one stage: columns c0 .. c0 + kCols - 1 of the range,
 // those below `end` live (the rest zero-filled); rowof(c) is column c's row
-// in the layer's K/V rows of kD values and in its scale planes.
-template <bool I8, typename RowOf>
+// in the layer's K/V rows of D values and in its scale planes.
+template <bool I8, int D, typename RowOf>
 __device__ __forceinline__ void load_stage(uint8_t* st, const void* k, const void* v,
                                            const float* ks, const float* vs, int c0, int end,
                                            RowOf rowof) {
-  using T = Tile<I8>;
-  constexpr int kRowBytes = I8 ? kD : 2 * kD;
+  using T = Tile<I8, D>;
+  constexpr int kCols = T::kCols;
+  constexpr int kRowBytes = I8 ? D : 2 * D;
   constexpr int kVec = kRowBytes / 16;  // 16-byte vectors per row
   constexpr int kIters = kCols * kVec / kThreads;
+  static_assert(kCols * kVec % kThreads == 0 && (!I8 || 2 * kCols == kThreads),
+                "whole copies a thread; an int8 stage's scales one a thread");
   const uint8_t* kb = static_cast<const uint8_t*>(k);
   const uint8_t* vb = static_cast<const uint8_t*>(v);
 #pragma unroll
@@ -137,14 +152,15 @@ __device__ __forceinline__ void load_stage(uint8_t* st, const void* k, const voi
 // fragments' 8-byte reads hit 32 distinct banks).  load_q issues the copy
 // of row r from src(r) for rows [0, rows); a null src(r) is a zero row (its
 // copy reads nothing; `any` is some valid address for it).
-constexpr int kQRow = 288;
+template <int D>
+constexpr int kQRow = 2 * D + 32;
 
-template <typename Src>
+template <int D, typename Src>
 __device__ __forceinline__ void load_q(uint8_t* qs, int rows, const uint16_t* any, Src src) {
-  for (int i = threadIdx.x; i < rows * (kD / 8); i += kThreads) {
-    const int r = i / (kD / 8), e = i % (kD / 8);
+  for (int i = threadIdx.x; i < rows * (D / 8); i += kThreads) {
+    const int r = i / (D / 8), e = i % (D / 8);
     const uint16_t* row = src(r);
-    cp_async16(qs + r * kQRow + e * 16, row != nullptr ? row + e * 8 : any, row != nullptr);
+    cp_async16(qs + r * kQRow<D> + e * 16, row != nullptr ? row + e * 8 : any, row != nullptr);
   }
 }
 
@@ -152,23 +168,25 @@ __device__ __forceinline__ void load_q(uint8_t* qs, int rows, const uint16_t* an
 // against one running max, whatever warp takes it (as the chunked kernels
 // before this one did, and as the plain version does within a stage).  The
 // warp takes NSB sub-blocks of the stage, first, first + step, ...; those
-// whose first column is at or past `ncols` (the columns of the stage below
-// the range's end) are skipped.  Lane (gid, tig) holds rows gid (h = 0) and
+// whose first column is at or past `ncols` (the columns of the range from
+// the stage's first on) or past the stage's kCols are skipped: at 64
+// columns a stage (bf16, 256 lanes) the decode's warps 4-7 take none.  Lane (gid, tig) holds rows gid (h = 0) and
 // gid + 8 (h = 1); valid(h, j) says whether stage column j is live for row
 // h.
 //
 // Phase 1: the scores s = (q · k) (· ks), softcapped and masked (kNeg), and
 // their row maxima over the warp's sub-blocks (quad-reduced).
-template <bool I8, int NSB, typename Valid>
+template <bool I8, int D, int NSB, typename Valid>
 __device__ __forceinline__ void stage_scores(const uint8_t* st, int first, int step, int ncols,
                                              const uint8_t* qs, float softcap, Valid valid,
                                              float (&s)[NSB][2][4], float (&mx)[2]) {
-  using T = Tile<I8>;
+  using T = Tile<I8, D>;
   const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
   const float* kss = reinterpret_cast<const float*>(st + T::ksOff);
+  if (ncols > T::kCols) ncols = T::kCols;  // the stage's columns, not the range's
   // qs: the warp's 16 rows; row gid's and gid + 8's dims of k-step ks
-  const uint8_t* q0 = qs + gid * kQRow + 8 * tig;
-  const uint8_t* q1 = q0 + 8 * kQRow;
+  const uint8_t* q0 = qs + gid * kQRow<D> + 8 * tig;
+  const uint8_t* q1 = q0 + 8 * kQRow<D>;
   mx[0] = mx[1] = kNeg;
 #pragma unroll
   for (int i = 0; i < NSB; ++i) {
@@ -180,7 +198,7 @@ __device__ __forceinline__ void stage_scores(const uint8_t* st, int first, int s
     if (j0 >= ncols) continue;
     float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
-    for (int ks = 0; ks < kD / 16; ++ks) {
+    for (int ks = 0; ks < D / 16; ++ks) {
       const uint2 x0 = *reinterpret_cast<const uint2*>(q0 + 32 * ks);
       const uint2 x1 = *reinterpret_cast<const uint2*>(q1 + 32 * ks);
       const uint32_t a[4] = {x0.x, x1.x, x0.y, x1.y};
@@ -225,13 +243,14 @@ __device__ __forceinline__ void stage_scores(const uint8_t* st, int first, int s
 // Phase 2, given the stage's row maxima mx over every warp that shares the
 // rows: m = max(m, mx), l and acc rescaled, p = exp(s - m) (l sums it), the
 // PV weights bf16(p) or bf16(p · vs) packed into A fragments, acc += P · V.
-template <bool I8, int NSB>
+template <bool I8, int D, int NSB>
 __device__ __forceinline__ void stage_pv(const uint8_t* st, int first, int step, int ncols,
                                          const float (&s)[NSB][2][4], const float (&mx)[2],
-                                         float (&acc)[16][4], float (&m)[2], float (&l)[2]) {
-  using T = Tile<I8>;
+                                         float (&acc)[D / 8][4], float (&m)[2], float (&l)[2]) {
+  using T = Tile<I8, D>;
   const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
   const float* vss = reinterpret_cast<const float*>(st + T::vsOff);
+  if (ncols > T::kCols) ncols = T::kCols;
   float alpha[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -241,7 +260,7 @@ __device__ __forceinline__ void stage_pv(const uint8_t* st, int first, int step,
     l[h] *= alpha[h];
   }
 #pragma unroll
-  for (int n = 0; n < 16; ++n) {
+  for (int n = 0; n < D / 8; ++n) {
     acc[n][0] *= alpha[0];
     acc[n][1] *= alpha[0];
     acc[n][2] *= alpha[1];
@@ -266,7 +285,7 @@ __device__ __forceinline__ void stage_pv(const uint8_t* st, int first, int step,
     // V rows j0 + 2·tig + {0, 1, 8, 9}: the B fragments' column pairs
     const uint8_t* vr = st + T::vOff + (j0 + 2 * tig) * T::vRow;
 #pragma unroll
-    for (int q = 0; q < kD / 32; ++q) {
+    for (int q = 0; q < D / 32; ++q) {
       if constexpr (I8) {
         float f[4][4];
 #pragma unroll
@@ -319,18 +338,20 @@ __device__ __forceinline__ void stage_max(float* xm, float (&mx)[2]) {
 
 // A warp's running state → the merge area (l summed over the quad first),
 // its first `rows` rows (the decode's G heads; the rest are zero q rows).
-__device__ __forceinline__ void state_out(uint8_t* sm, const float (&acc)[16][4],
+template <int D>
+__device__ __forceinline__ void state_out(uint8_t* sm, const float (&acc)[D / 8][4],
                                           const float (&m)[2], float (&l)[2], int rows) {
+  using Mg = Merge<D>;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, gid = lane >> 2, tig = lane & 3;
-  float* A = reinterpret_cast<float*>(sm + Merge::acc) + warp * 16 * kAccStride;
+  float* A = reinterpret_cast<float*>(sm + Mg::acc) + warp * 16 * kAccStride<D>;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
     if (gid + 8 * h >= rows) continue;
-    float* row = A + (gid + 8 * h) * kAccStride;
+    float* row = A + (gid + 8 * h) * kAccStride<D>;
 #pragma unroll
-    for (int q = 0; q < kD / 32; ++q) {
+    for (int q = 0; q < D / 32; ++q) {
       *reinterpret_cast<float4*>(row + 32 * q + 8 * tig) =
           make_float4(acc[4 * q][2 * h], acc[4 * q + 1][2 * h], acc[4 * q + 2][2 * h],
                       acc[4 * q + 3][2 * h]);
@@ -339,8 +360,8 @@ __device__ __forceinline__ void state_out(uint8_t* sm, const float (&acc)[16][4]
                       acc[4 * q + 3][2 * h + 1]);
     }
     if (tig == 0) {
-      reinterpret_cast<float*>(sm + Merge::m)[warp * 16 + gid + 8 * h] = m[h];
-      reinterpret_cast<float*>(sm + Merge::l)[warp * 16 + gid + 8 * h] = l[h];
+      reinterpret_cast<float*>(sm + Mg::m)[warp * 16 + gid + 8 * h] = m[h];
+      reinterpret_cast<float*>(sm + Mg::l)[warp * 16 + gid + 8 * h] = l[h];
     }
   }
 }
@@ -349,10 +370,13 @@ __device__ __forceinline__ void state_out(uint8_t* sm, const float (&acc)[16][4]
 // warps t·cs .. t·cs + cs - 1, merged in that order into warp t·cs's buffer
 // rows; block row r = 16t + i (r < rows) gets its M and L in rowM[r],
 // rowL[r].  Call after state_out and a barrier; ends with a barrier.
+template <int D>
 __device__ __forceinline__ void merge_warps(uint8_t* sm, int rows, int cs) {
-  float* A = reinterpret_cast<float*>(sm + Merge::acc);
-  float* mb = reinterpret_cast<float*>(sm + Merge::m);
-  float* lb = reinterpret_cast<float*>(sm + Merge::l);
+  using Mg = Merge<D>;
+  constexpr int kAS = kAccStride<D>;
+  float* A = reinterpret_cast<float*>(sm + Mg::acc);
+  float* mb = reinterpret_cast<float*>(sm + Mg::m);
+  float* lb = reinterpret_cast<float*>(sm + Mg::l);
   for (int r = threadIdx.x; r < rows; r += kThreads) {
     const int w0 = (r / 16) * cs, i = r % 16;
     float M = kNeg;
@@ -363,31 +387,33 @@ __device__ __forceinline__ void merge_warps(uint8_t* sm, int rows, int cs) {
       L += f * lb[(w0 + c) * 16 + i];
       mb[(w0 + c) * 16 + i] = f;  // now the warp's factor
     }
-    reinterpret_cast<float*>(sm + Merge::rowM)[r] = M;
-    reinterpret_cast<float*>(sm + Merge::rowL)[r] = L;
+    reinterpret_cast<float*>(sm + Mg::rowM)[r] = M;
+    reinterpret_cast<float*>(sm + Mg::rowL)[r] = L;
   }
   __syncthreads();
   if (cs == 1) return;  // one warp a tile: its factor is exp(0) = 1
-  for (int e = threadIdx.x; e < rows * (kD / 4); e += kThreads) {
-    const int r = e / (kD / 4), d = (e % (kD / 4)) * 4;
+  for (int e = threadIdx.x; e < rows * (D / 4); e += kThreads) {
+    const int r = e / (D / 4), d = (e % (D / 4)) * 4;
     const int w0 = (r / 16) * cs, i = r % 16;
     float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int c = 0; c < cs; ++c) {
       const float f = mb[(w0 + c) * 16 + i];
-      const float4 x = *reinterpret_cast<const float4*>(A + ((w0 + c) * 16 + i) * kAccStride + d);
+      const float4 x = *reinterpret_cast<const float4*>(A + ((w0 + c) * 16 + i) * kAS + d);
       a.x += f * x.x;
       a.y += f * x.y;
       a.z += f * x.z;
       a.w += f * x.w;
     }
-    *reinterpret_cast<float4*>(A + (w0 * 16 + i) * kAccStride + d) = a;
+    *reinterpret_cast<float4*>(A + (w0 * 16 + i) * kAS + d) = a;
   }
   __syncthreads();
 }
 
 // the merged acc of block row r (tile t = r / 16 held by warp t·cs)
+template <int D>
 __device__ __forceinline__ float* merged_row(uint8_t* sm, int r, int cs) {
-  return reinterpret_cast<float*>(sm + Merge::acc) + ((r / 16) * cs * 16 + r % 16) * kAccStride;
+  return reinterpret_cast<float*>(sm + Merge<D>::acc)
+         + ((r / 16) * cs * 16 + r % 16) * kAccStride<D>;
 }
 
 }  // namespace attn

@@ -1,7 +1,7 @@
 // bf16 helpers shared by the kernels: exact widening of a bf16 bit pattern,
-// round-to-nearest-even, and the gate-up kernels' SiLU·mul epilogue, which
-// must stay one function so that every fused gate-up equals its unfused
-// sequence bit for bit.
+// round-to-nearest-even, and the gate-up kernels' SiLU·mul and GELU·mul
+// epilogues, which must stay one function each so that every fused gate-up
+// equals its unfused sequence bit for bit.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -26,4 +26,34 @@ __device__ __forceinline__ uint16_t silu_mul(float gs, float us) {
   const float sg = round_bf16(1.0f / (1.0f + expf(-g)));
   const float r = round_bf16(__fmul_rn(g, sg));
   return bf16_bits(__fmul_rn(r, u));
+}
+
+// The tanh-approximate GELU of gated-GELU models (Gemma), as torch computes
+// ops/qmm.py gelu then ·u: g and u rounded to bf16 first, then each op in
+// f32 rounded where torch rounds it (one elementwise kernel an op):
+//   z = c·(g + 0.044715·((g·g)·g)), cdf = 0.5·(1 + tanh z), r = bf16(g·cdf),
+//   out = bf16(r·u).
+// The _rn intrinsics keep the compiler from contracting a product and a sum
+// into one FMA (one rounding where torch has two), and tanhf is the CUDA
+// math library's, as torch's own tanh kernel calls it (no fast-math
+// anywhere in ops/kernels.py NVCC_FLAGS: tanh.approx.f32 would differ).
+__device__ __forceinline__ uint16_t gelu_mul(float gs, float us) {
+  const float g = round_bf16(gs);
+  const float u = round_bf16(us);
+  const float x3 = __fmul_rn(__fmul_rn(g, g), g);
+  const float z = __fmul_rn(0.7978845608028654f, __fadd_rn(g, __fmul_rn(0.044715f, x3)));
+  const float cdf = __fmul_rn(0.5f, __fadd_rn(1.0f, tanhf(z)));
+  const float r = round_bf16(__fmul_rn(g, cdf));
+  return bf16_bits(__fmul_rn(r, u));
+}
+
+// A gate-up's epilogue by its code (ops/qmm.py ACT_IDS): 0 SiLU, 1 GELU.
+constexpr int kActSilu = 0;
+constexpr int kActGelu = 1;
+
+template <int ACT>
+__device__ __forceinline__ uint16_t act_mul(float g, float u) {
+  static_assert(ACT == kActSilu || ACT == kActGelu, "SiLU or GELU");
+  if constexpr (ACT == kActGelu) return gelu_mul(g, u);
+  return silu_mul(g, u);
 }

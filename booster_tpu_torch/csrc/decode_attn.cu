@@ -34,6 +34,14 @@
 // the row the append will write; a zero row stays zero.  The int8 form
 // moves half the cache bytes.
 //
+// The storage width D (head dims up to 128 at 128 lanes, Gemma's 256 at
+// 256) is a template parameter of the dense forms; the paged form takes 128
+// only (the 256-lane pool is not ported yet).  At D = 256 the bf16 stages
+// hold 64 columns (attn_mma.cuh), so slices round to 64 columns there and
+// warps 4-7 take no column of a stage (stage_scores and stage_pv cap a
+// stage's columns at its kCols, whatever is left of the slice), and both
+// forms run one block an SM (their shared memory, 150 KB).
+//
 // What bounds it on the H100: the K and V bytes of the valid columns,
 // 2·2·D bytes per column per kv head (int8: 2·(D + 4)), over 3.35 TB/s; the
 // FLOPs (4·G·D per column) are far below the tensor cores' rate.  At B = 1
@@ -73,19 +81,17 @@
 
 namespace {
 
-using attn::kCols;
-using attn::kD;
 using attn::kNeg;
 using attn::kThreads;
 using attn::kWarps;
 constexpr int kMaxG = 16;
 // shared memory: the ring, then (reusing it) the merge area; past both the
 // q rows and the self term's k and v rows
-template <bool Q>
-constexpr int kQOff = 2 * attn::Tile<Q>::bytes > attn::Merge::bytes ? 2 * attn::Tile<Q>::bytes
-                                                                      : attn::Merge::bytes;
-template <bool Q>
-constexpr int kSmem = kQOff<Q> + 16 * attn::kQRow + 2 * kD * 2;
+template <bool Q, int D>
+constexpr int kQOff = 2 * attn::Tile<Q, D>::bytes > attn::Merge<D>::bytes
+                          ? 2 * attn::Tile<Q, D>::bytes : attn::Merge<D>::bytes;
+template <bool Q, int D>
+constexpr int kSmem = kQOff<Q, D> + 16 * attn::kQRow<D> + 2 * D * 2;
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -152,20 +158,20 @@ __device__ __forceinline__ bool arrive_last(int* ticket, int expect) {
 // in the merge area's rows 0 .. G - 1: a warp per head, lane owning dims
 // lane + 32·e (every warp holds the self k and v rows; for int8 their
 // storage round trip).
-template <bool Q>
+template <bool Q, int D>
 __device__ void finish(const AttnParams& p, uint8_t* sm, int bh, bool self_term) {
-  constexpr int DL = kD / 32;
+  constexpr int DL = D / 32;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const float* rowM = reinterpret_cast<const float*>(sm + attn::Merge::rowM);
-  const float* rowL = reinterpret_cast<const float*>(sm + attn::Merge::rowL);
-  const uint8_t* qs = sm + kQOff<Q>;
-  const uint16_t* self_kv = reinterpret_cast<const uint16_t*>(qs + 16 * attn::kQRow);
+  const float* rowM = reinterpret_cast<const float*>(sm + attn::Merge<D>::rowM);
+  const float* rowL = reinterpret_cast<const float*>(sm + attn::Merge<D>::rowL);
+  const uint8_t* qs = sm + kQOff<Q, D>;
+  const uint16_t* self_kv = reinterpret_cast<const uint16_t*>(qs + 16 * attn::kQRow<D>);
   float skr[DL], svr[DL];
   if (self_term) {
 #pragma unroll
     for (int e = 0; e < DL; ++e) {
       skr[e] = bf16f(self_kv[lane + 32 * e]);
-      svr[e] = bf16f(self_kv[kD + lane + 32 * e]);
+      svr[e] = bf16f(self_kv[D + lane + 32 * e]);
     }
     if constexpr (Q) {
       float ak = 0.f, av = 0.f;
@@ -184,13 +190,13 @@ __device__ void finish(const AttnParams& p, uint8_t* sm, int bh, bool self_term)
     }
   }
   for (int g = warp; g < p.G; g += kWarps) {
-    const float* a = attn::merged_row(sm, g, kWarps);
+    const float* a = attn::merged_row<D>(sm, g, kWarps);
     float acc[DL];
 #pragma unroll
     for (int e = 0; e < DL; ++e) acc[e] = a[lane + 32 * e];
     float l = rowL[g];
     if (self_term) {
-      const uint16_t* qg = reinterpret_cast<const uint16_t*>(qs + g * attn::kQRow);
+      const uint16_t* qg = reinterpret_cast<const uint16_t*>(qs + g * attn::kQRow<D>);
       float s = 0.f;
 #pragma unroll
       for (int e = 0; e < DL; ++e) s = __fmaf_rn(bf16f(qg[lane + 32 * e]), skr[e], s);
@@ -207,13 +213,16 @@ __device__ void finish(const AttnParams& p, uint8_t* sm, int bh, bool self_term)
     l = fmaxf(l, 1e-30f);
 #pragma unroll
     for (int e = 0; e < DL; ++e)
-      p.out[(static_cast<size_t>(bh) * p.G + g) * kD + lane + 32 * e] = acc[e] / l;
+      p.out[(static_cast<size_t>(bh) * p.G + g) * D + lane + 32 * e] = acc[e] / l;
   }
 }
 
-template <bool Q, bool Paged>
-__global__ void __launch_bounds__(kThreads, Q ? 2 : 1) decode_attn_kernel(AttnParams p) {
-  using T = attn::Tile<Q>;
+template <bool Q, bool Paged, int D>
+__global__ void __launch_bounds__(kThreads, Q && D == 128 ? 2 : 1)
+    decode_attn_kernel(AttnParams p) {
+  using T = attn::Tile<Q, D>;
+  using Mg = attn::Merge<D>;
+  constexpr int kCols = T::kCols;
   extern __shared__ __align__(16) uint8_t sm[];
   const int bh = blockIdx.x, split = blockIdx.y;  // bh = b * Hkv + h
   const int b = bh / p.Hkv, h = bh % p.Hkv, G = p.G;
@@ -221,14 +230,14 @@ __global__ void __launch_bounds__(kThreads, Q ? 2 : 1) decode_attn_kernel(AttnPa
   // q (rows past G zero) and the self term's k and v rows come in with the
   // first stage, into shared memory past the ring and the merge area; issued
   // first, as they do not wait for lens
-  uint8_t* qs = sm + kQOff<Q>;
-  uint16_t* self_kv = reinterpret_cast<uint16_t*>(qs + 16 * attn::kQRow);  // [2][kD]
-  const uint16_t* qb = p.q + static_cast<size_t>(bh) * G * kD;
-  attn::load_q(qs, 16, p.q, [&](int r) { return r < G ? qb + r * kD : nullptr; });
-  if (p.sk != nullptr && tid < 2 * (kD / 8)) {
-    const int e = tid % (kD / 8);
-    const uint16_t* src = (tid < kD / 8 ? p.sk : p.sv) + static_cast<size_t>(bh) * kD + e * 8;
-    attn::cp_async16(self_kv + (tid / (kD / 8)) * kD + e * 8, src, true);
+  uint8_t* qs = sm + kQOff<Q, D>;
+  uint16_t* self_kv = reinterpret_cast<uint16_t*>(qs + 16 * attn::kQRow<D>);  // [2][D]
+  const uint16_t* qb = p.q + static_cast<size_t>(bh) * G * D;
+  attn::load_q<D>(qs, 16, p.q, [&](int r) { return r < G ? qb + r * D : nullptr; });
+  if (p.sk != nullptr && tid < 2 * (D / 8)) {
+    const int e = tid % (D / 8);
+    const uint16_t* src = (tid < D / 8 ? p.sk : p.sv) + static_cast<size_t>(bh) * D + e * 8;
+    attn::cp_async16(self_kv + (tid / (D / 8)) * D + e * 8, src, true);
   }
   const int lens = p.lens[b];
   const int ok = p.self_ok != nullptr && p.self_ok[b] > 0;
@@ -248,9 +257,9 @@ __global__ void __launch_bounds__(kThreads, Q ? 2 : 1) decode_attn_kernel(AttnPa
   }
   const int s_lo = lo + split * span, s_hi = min(s_lo + span, hi);
 
-  float acc[16][4];
+  float acc[D / 8][4];
 #pragma unroll
-  for (int i = 0; i < 16; ++i)
+  for (int i = 0; i < D / 8; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
   float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
@@ -260,7 +269,8 @@ __global__ void __launch_bounds__(kThreads, Q ? 2 : 1) decode_attn_kernel(AttnPa
   // copy group c holds stage c; groups 0 and 1 are issued up front
   for (int c = 0; c < 2; ++c) {
     if (c < chunks)
-      attn::load_stage<Q>(sm + c * T::bytes, p.k, p.v, p.ks, p.vs, s_lo + c * kCols, s_hi, rowof);
+      attn::load_stage<Q, D>(sm + c * T::bytes, p.k, p.v, p.ks, p.vs, s_lo + c * kCols, s_hi,
+                             rowof);
     attn::cp_commit();
   }
   __shared__ float xm[kWarps * 16];  // the warps' row maxima of a stage
@@ -270,69 +280,70 @@ __global__ void __launch_bounds__(kThreads, Q ? 2 : 1) decode_attn_kernel(AttnPa
     uint8_t* st = sm + (c & 1) * T::bytes;
     const int c0 = s_lo + c * kCols, ncols = s_hi - c0;
     float s[1][2][4], mx[2];
-    attn::stage_scores<Q, 1>(st, warp, 1, ncols, qs, p.softcap,
-                             [&](int, int j) { return j < ncols; }, s, mx);
+    attn::stage_scores<Q, D, 1>(st, warp, 1, ncols, qs, p.softcap,
+                                [&](int, int j) { return j < ncols; }, s, mx);
     attn::stage_max<kWarps>(xm, mx);
-    attn::stage_pv<Q, 1>(st, warp, 1, ncols, s, mx, acc, m, l);
+    attn::stage_pv<Q, D, 1>(st, warp, 1, ncols, s, mx, acc, m, l);
     __syncthreads();  // every warp is done with this stage (and with xm)
     if (c + 2 < chunks)
-      attn::load_stage<Q>(st, p.k, p.v, p.ks, p.vs, c0 + 2 * kCols, s_hi, rowof);
+      attn::load_stage<Q, D>(st, p.k, p.v, p.ks, p.vs, c0 + 2 * kCols, s_hi, rowof);
     attn::cp_commit();
   }
   attn::cp_wait<0>();
   __syncthreads();  // the ring becomes the merge area
-  attn::state_out(sm, acc, m, l, G);
+  attn::state_out<D>(sm, acc, m, l, G);
   __syncthreads();
-  attn::merge_warps(sm, G, kWarps);
-  float* rowM = reinterpret_cast<float*>(sm + attn::Merge::rowM);
-  float* rowL = reinterpret_cast<float*>(sm + attn::Merge::rowL);
+  attn::merge_warps<D>(sm, G, kWarps);
+  float* rowM = reinterpret_cast<float*>(sm + Mg::rowM);
+  float* rowL = reinterpret_cast<float*>(sm + Mg::rowL);
   if (live <= 1) {
-    finish<Q>(p, sm, bh, self_term);
+    finish<Q, D>(p, sm, bh, self_term);
     return;
   }
   // a slice of several: the partial to scratch, the last block merges
-  const size_t stride = static_cast<size_t>(G) * (kD + 2);
+  const size_t stride = static_cast<size_t>(G) * (D + 2);
   float* mine = p.part + (static_cast<size_t>(bh) * p.nsplit + split) * stride;
-  for (int e = tid; e < G * kD; e += kThreads) mine[e] = attn::merged_row(sm, e / kD, kWarps)[e % kD];
+  for (int e = tid; e < G * D; e += kThreads)
+    mine[e] = attn::merged_row<D>(sm, e / D, kWarps)[e % D];
   if (tid < G) {
-    mine[G * kD + 2 * tid] = rowM[tid];
-    mine[G * kD + 2 * tid + 1] = rowL[tid];
+    mine[G * D + 2 * tid] = rowM[tid];
+    mine[G * D + 2 * tid + 1] = rowL[tid];
   }
   if (!arrive_last(p.tickets + bh, live)) return;
   const float* base = p.part + static_cast<size_t>(bh) * p.nsplit * stride;
-  float* fac = reinterpret_cast<float*>(sm + attn::Merge::fac);  // [live][16]
+  float* fac = reinterpret_cast<float*>(sm + Mg::fac);  // [live][16]
   if (tid < G) {
     float M = kNeg;
-    for (int s = 0; s < live; ++s) M = fmaxf(M, __ldcg(base + s * stride + G * kD + 2 * tid));
+    for (int s = 0; s < live; ++s) M = fmaxf(M, __ldcg(base + s * stride + G * D + 2 * tid));
     float L = 0.f;
     for (int s = 0; s < live; ++s) {
-      const float f = expf(__ldcg(base + s * stride + G * kD + 2 * tid) - M);
-      L += f * __ldcg(base + s * stride + G * kD + 2 * tid + 1);
+      const float f = expf(__ldcg(base + s * stride + G * D + 2 * tid) - M);
+      L += f * __ldcg(base + s * stride + G * D + 2 * tid + 1);
       fac[s * 16 + tid] = f;
     }
     rowM[tid] = M;
     rowL[tid] = L;
   }
   __syncthreads();
-  for (int e = tid; e < G * kD; e += kThreads) {
-    const int g = e / kD;
+  for (int e = tid; e < G * D; e += kThreads) {
+    const int g = e / D;
     float a = 0.f;
     for (int s = 0; s < live; ++s) a += fac[s * 16 + g] * __ldcg(base + s * stride + e);
-    attn::merged_row(sm, g, kWarps)[e % kD] = a;
+    attn::merged_row<D>(sm, g, kWarps)[e % D] = a;
   }
   __syncthreads();
-  finish<Q>(p, sm, bh, self_term);
+  finish<Q, D>(p, sm, bh, self_term);
 }
 
-template <bool Q, bool Paged>
+template <bool Q, bool Paged, int D>
 cudaError_t launch(const AttnParams& p, int B, cudaStream_t st) {
   // raise the dynamic shared memory limit once (before any stream capture:
   // the first launch of each form does it)
-  constexpr int smem = kSmem<Q>;
+  constexpr int smem = kSmem<Q, D>;
   static const cudaError_t configured = cudaFuncSetAttribute(
-      decode_attn_kernel<Q, Paged>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      decode_attn_kernel<Q, Paged, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (configured != cudaSuccess) return configured;
-  decode_attn_kernel<Q, Paged><<<dim3(B * p.Hkv, p.nsplit), kThreads, smem, st>>>(p);
+  decode_attn_kernel<Q, Paged, D><<<dim3(B * p.Hkv, p.nsplit), kThreads, smem, st>>>(p);
   return cudaGetLastError();
 }
 
@@ -343,8 +354,8 @@ bool bad_split(int nsplit, const void* part, const void* tickets) {
 
 }  // namespace
 
-// D (the cache's storage head dim) must be 128, the only width ported yet
-// (head dims up to 128 are stored lane-padded to it), and G <= 16.  ks and
+// D (the cache's storage head dim) must be 128 (head dims up to 128 are
+// stored lane-padded to it) or 256 (head dims 129-256), and G <= 16.  ks and
 // vs non-null select the int8 form (k, v int8), null the bf16 form.  nsplit
 // slices of the live range (1 .. 128); above 1, part is f32 scratch of
 // B·Hkv·nsplit·G·(D + 2) and tickets B·Hkv int32 zeros (left zero).
@@ -361,17 +372,20 @@ extern "C" int bt_decode_attn(const void* q, const void* k, const void* v, const
                Hkv, G, S, win, softcap, nullptr, 0, 0, nsplit, static_cast<float*>(part),
                static_cast<int*>(tickets)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (G > kMaxG || G < 1 || D != kD || (ks == nullptr) != (vs == nullptr)
+  if (G > kMaxG || G < 1 || (D != 128 && D != 256) || (ks == nullptr) != (vs == nullptr)
       || bad_split(nsplit, part, tickets))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t e = ks != nullptr ? launch<true, false>(p, B, st)
-                                      : launch<false, false>(p, B, st);
+  cudaError_t e;
+  if (D == 256)
+    e = ks != nullptr ? launch<true, false, 256>(p, B, st) : launch<false, false, 256>(p, B, st);
+  else
+    e = ks != nullptr ? launch<true, false, 128>(p, B, st) : launch<false, false, 128>(p, B, st);
   return static_cast<int>(e);
 }
 
 // The paged form: k, v are layer l's pool [Np, Hkv, P, D] (bf16, or int8 with
 // scales ks, vs [Np, Hkv, P] f32), table [B, maxp] int32; the rest as
-// bt_decode_attn, with S = maxp · P.
+// bt_decode_attn, with S = maxp · P and D = 128 only.
 extern "C" int bt_paged_decode_attn(const void* q, const void* k, const void* v, const void* ks,
                                     const void* vs, const void* sk, const void* sv,
                                     const void* table, const void* lens, const void* self_ok,
@@ -385,10 +399,10 @@ extern "C" int bt_paged_decode_attn(const void* q, const void* k, const void* v,
                Hkv, G, P * maxp, win, softcap, static_cast<const int*>(table), P, maxp,
                nsplit, static_cast<float*>(part), static_cast<int*>(tickets)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (G > kMaxG || G < 1 || D != kD || P < 1 || maxp < 1 || table == nullptr
+  if (G > kMaxG || G < 1 || D != 128 || P < 1 || maxp < 1 || table == nullptr
       || (ks == nullptr) != (vs == nullptr) || bad_split(nsplit, part, tickets))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t e = ks != nullptr ? launch<true, true>(p, B, st)
-                                      : launch<false, true>(p, B, st);
+  const cudaError_t e = ks != nullptr ? launch<true, true, 128>(p, B, st)
+                                      : launch<false, true, 128>(p, B, st);
   return static_cast<int>(e);
 }

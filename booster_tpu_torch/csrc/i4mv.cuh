@@ -51,7 +51,8 @@
 //     partials in device memory, no ticket, no workspace, and every launch
 //     repeats the last bit for bit.
 //   - The fused gate-up's block is two such halves (gate tile j and up tile
-//     ff/128 + j, the same split); its cluster writes silu(g)·u.  Each half
+//     ff/128 + j, the same split); its cluster writes silu(g)·u (OUT
+//     kGateUp) or gelu(g)·u (kGateUpGelu, Gemma's gated tanh-GELU).  Each half
 //     runs the code of a matvec block, so the gate-up equals the matvec on
 //     its fused weight + silu·mul bit for bit.
 // ops/qmm.py i4t_mv_plan gives KS from (K, N, G) alone (K/(2G) groups): the
@@ -261,10 +262,10 @@ constexpr int kSmemBytes = kWarps * H * kStages * kStageBytes<G>;
 // groups' payload in flight in its own stages of shared memory, the scales
 // of the next two groups and the x of the next one in registers.
 template <int G, bool MINS, i8mv::Out OUT>
-__global__ void __launch_bounds__(32 * kWarps * (OUT == i8mv::kGateUp ? 2 : 1),
-                                  OUT == i8mv::kGateUp ? 1 : 2) mv_kernel(Op op) {
+__global__ void __launch_bounds__(32 * kWarps * (i8mv::gate_up(OUT) ? 2 : 1),
+                                  i8mv::gate_up(OUT) ? 1 : 2) mv_kernel(Op op) {
   static_assert(G % 16 == 0 && G <= 32, "a group is one or two k16 steps");
-  constexpr int H = OUT == i8mv::kGateUp ? 2 : 1;
+  constexpr int H = i8mv::gate_up(OUT) ? 2 : 1;
   constexpr int S = G / 16;
   extern __shared__ __align__(16) uint8_t stages[];
   __shared__ i8mv::Sums<H> sm;
@@ -330,7 +331,7 @@ __global__ void __launch_bounds__(32 * kWarps * (OUT == i8mv::kGateUp ? 2 : 1),
 // tile's splits as one cluster, the stages in dynamic shared memory.
 template <int G, bool MINS, i8mv::Out OUT>
 cudaError_t run(const Op& op, cudaStream_t st) {
-  constexpr int H = OUT == i8mv::kGateUp ? 2 : 1;
+  constexpr int H = i8mv::gate_up(OUT) ? 2 : 1;
   static bool ready = false;
   if (!ready) {
     const cudaError_t e = cudaFuncSetAttribute(

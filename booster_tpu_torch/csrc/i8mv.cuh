@@ -62,7 +62,10 @@ constexpr int kRing = 2;        // chunks of a warp's register ring
 constexpr int kI8cRows = 32;    // rows of K of an i8c chunk
 constexpr int kMaxSplits = 8;   // a tile's splits form one cluster (its portable size)
 
-enum Out { kF32, kScaled, kGateUp };  // f32 y; f32 y · s[n] (i8c); bf16 silu(g)·u
+// f32 y; f32 y · s[n] (i8c); bf16 silu(g)·u; bf16 gelu(g)·u (i4mv.cuh only)
+enum Out { kF32, kScaled, kGateUp, kGateUpGelu };
+
+__host__ __device__ constexpr bool gate_up(Out o) { return o == kGateUp || o == kGateUpGelu; }
 
 struct Op {
   const uint16_t* x;  // [K] bf16, on 16 bytes
@@ -248,6 +251,8 @@ __device__ __forceinline__ void finish(Sums<H>& sm, const float (&v)[4], int col
     const int n = j * kBN + cc;
     if constexpr (OUT == kGateUp)
       static_cast<uint16_t*>(out)[n] = silu_mul(g, u);
+    else if constexpr (OUT == kGateUpGelu)
+      static_cast<uint16_t*>(out)[n] = gelu_mul(g, u);
     else if constexpr (OUT == kScaled)
       static_cast<float*>(out)[n] = __fmul_rn(g, __ldg(cs + n));
     else
@@ -259,15 +264,15 @@ __device__ __forceinline__ void finish(Sums<H>& sm, const float (&v)[4], int col
 // KS splits): H halves of 8 warps, half h on tile j + h·ff/128, warp w on
 // chunks c0 + w, c0 + w + 8, ... of split s.
 template <int G, bool MINS, Out OUT>
-__global__ void __launch_bounds__(32 * kWarps * (OUT == kGateUp ? 2 : 1)) mv_kernel(Op op) {
-  constexpr int H = OUT == kGateUp ? 2 : 1;
+__global__ void __launch_bounds__(32 * kWarps * (gate_up(OUT) ? 2 : 1)) mv_kernel(Op op) {
+  constexpr int H = gate_up(OUT) ? 2 : 1;
   constexpr int R = G > 0 ? G : kI8cRows;
   __shared__ Sums<H> sm;
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   const int half = wid / kWarps, w = wid % kWarps;
   const int j = blockIdx.x, s = blockIdx.y, KS = op.KS;
   if (KS > 1) cluster_arrive_relaxed();  // this block has started
-  const int col = j * kBN + (OUT == kGateUp ? half * (op.N / 2) : 0) + lane * 4;
+  const int col = j * kBN + (gate_up(OUT) ? half * (op.N / 2) : 0) + lane * 4;
   int c0, c1;
   split_chunks(op.K / R, KS, s, c0, c1);
   float p[4] = {0.f, 0.f, 0.f, 0.f}, acc[4] = {0.f, 0.f, 0.f, 0.f};
@@ -318,7 +323,7 @@ cudaError_t launch(void (*kern)(OpT), const OpT& op, int N, int KS, cudaStream_t
 // tile's splits as one cluster.
 template <int G, bool MINS, Out OUT>
 cudaError_t run(const Op& op, cudaStream_t st) {
-  return launch<OUT == kGateUp ? 2 : 1>(mv_kernel<G, MINS, OUT>, op, op.N, op.KS, st);
+  return launch<gate_up(OUT) ? 2 : 1>(mv_kernel<G, MINS, OUT>, op, op.N, op.KS, st);
 }
 
 }  // namespace i8mv

@@ -38,7 +38,11 @@
 // against the max of the columns up to that stage, as the chunked kernel
 // before this one did (prefill_attn_limit).  The block's q rows (36 KB at
 // 128 rows) come in with the first stage, before pos0 and lens are read;
-// with the ring (74 KB) two blocks fit an SM.  Measured limits (PERF.md
+// with the ring (74 KB) two blocks fit an SM.  At the storage width D =
+// 256 (Gemma's head dim, a template parameter) a block holds 64 query rows
+// (TQ = min(64 / G, T)): the accumulator of a warp's rows doubles (128 f32
+// a thread) and a stage's rows are 272 bytes, so the ring (141 KB) and 64
+// q rows take 176 KB, one block an SM.  Measured limits (PERF.md
 // §6, PR 11): at G·T >= 128 each warp casts the whole stage's K and V to
 // bf16 for its own rows, eight times over a block.
 
@@ -51,10 +55,7 @@
 
 namespace {
 
-using attn::kCols;
-using attn::kD;
 using attn::kNeg;
-using attn::kSubs;
 using attn::kThreads;
 
 struct PrefillParams {
@@ -73,16 +74,19 @@ struct PrefillParams {
 
 // shared memory: the ring, then (reusing it) the merge area; past both the
 // block's q rows
-constexpr int kQOff = 2 * attn::Tile<true>::bytes > attn::Merge::fac ? 2 * attn::Tile<true>::bytes
-                                                                     : attn::Merge::fac;
-constexpr int kSmem = kQOff + attn::kMaxRows * attn::kQRow;
+template <int D>
+constexpr int kQOff = 2 * attn::Tile<true, D>::bytes > attn::Merge<D>::fac
+                          ? 2 * attn::Tile<true, D>::bytes : attn::Merge<D>::fac;
+template <int D>
+constexpr int kSmem = kQOff<D> + attn::kRowsOf<D> * attn::kQRow<D>;
 
 // CS: the warps that share an m16 tile's rows (8 / the tiles rounded up to a
 // power of 2); each takes kSubs / CS sub-blocks of a stage
-template <int CS>
-__global__ void __launch_bounds__(kThreads, 2) prefill_attn_kernel(PrefillParams p) {
-  constexpr int NSB = kSubs / CS;
-  using T = attn::Tile<true>;
+template <int CS, int D>
+__global__ void __launch_bounds__(kThreads, D == 128 ? 2 : 1) prefill_attn_kernel(PrefillParams p) {
+  using T = attn::Tile<true, D>;
+  constexpr int kCols = T::kCols;
+  constexpr int NSB = T::kSubs / CS;
   extern __shared__ __align__(16) uint8_t sm[];
   const int bh = blockIdx.y;
   const int G = p.G, TQ = p.TQ;
@@ -94,10 +98,10 @@ __global__ void __launch_bounds__(kThreads, 2) prefill_attn_kernel(PrefillParams
   // the block's q rows (rows past the tile zero) come in with the first
   // stage, into shared memory past the ring; issued first, as they do not
   // wait for pos0 and lens
-  uint8_t* qs = sm + kQOff;
-  attn::load_q(qs, p.tiles * 16, p.q, [&](int r) {
+  uint8_t* qs = sm + kQOff<D>;
+  attn::load_q<D>(qs, p.tiles * 16, p.q, [&](int r) {
     return r < G * TQ && r % TQ < tn
-        ? p.q + ((static_cast<size_t>(bh) * G + r / TQ) * p.T + t0 + r % TQ) * kD : nullptr;
+        ? p.q + ((static_cast<size_t>(bh) * G + r / TQ) * p.T + t0 + r % TQ) * D : nullptr;
   });
   const int pos0 = p.pos0[bh], lens = p.lens[bh];
   const int lo = max(pos0 + t0 - p.win + 1, 0);
@@ -113,9 +117,9 @@ __global__ void __launch_bounds__(kThreads, 2) prefill_attn_kernel(PrefillParams
     row_ok[hh] = busy && r < G * TQ && r % TQ < tn;
     qpos[hh] = pos0 + t0 + r % TQ;
   }
-  float acc[16][4];
+  float acc[D / 8][4];
 #pragma unroll
-  for (int i = 0; i < 16; ++i)
+  for (int i = 0; i < D / 8; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
   float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
@@ -125,7 +129,8 @@ __global__ void __launch_bounds__(kThreads, 2) prefill_attn_kernel(PrefillParams
   const int chunks = max(hi - lo, 0) > 0 ? (hi - lo + kCols - 1) / kCols : 0;
   for (int c = 0; c < 2; ++c) {  // copy group c holds stage c
     if (c < chunks)
-      attn::load_stage<true>(sm + c * T::bytes, p.k, p.v, p.ks, p.vs, lo + c * kCols, hi, rowof);
+      attn::load_stage<true, D>(sm + c * T::bytes, p.k, p.v, p.ks, p.vs, lo + c * kCols, hi,
+                                rowof);
     attn::cp_commit();
   }
   __shared__ float xm[attn::kWarps * 16];  // the warps' row maxima of a stage
@@ -136,16 +141,17 @@ __global__ void __launch_bounds__(kThreads, 2) prefill_attn_kernel(PrefillParams
     const int c0 = lo + c * kCols, ncols = hi - c0;
     float s[NSB][2][4], mx[2] = {kNeg, kNeg};
     if (busy)
-      attn::stage_scores<true, NSB>(st, part, CS, ncols, qs + 16 * tile * attn::kQRow, p.softcap,
+      attn::stage_scores<true, D, NSB>(st, part, CS, ncols, qs + 16 * tile * attn::kQRow<D>,
+                                       p.softcap,
                                     [&](int hh, int j) {
         const int col = c0 + j;
         return row_ok[hh] && col < hi && col <= qpos[hh] && col >= qpos[hh] - p.win + 1;
       }, s, mx);
     attn::stage_max<CS>(xm, mx);
-    if (busy) attn::stage_pv<true, NSB>(st, part, CS, ncols, s, mx, acc, m, l);
+    if (busy) attn::stage_pv<true, D, NSB>(st, part, CS, ncols, s, mx, acc, m, l);
     __syncthreads();  // every warp is done with this stage (and with xm)
     if (c + 2 < chunks)
-      attn::load_stage<true>(st, p.k, p.v, p.ks, p.vs, c0 + 2 * kCols, hi, rowof);
+      attn::load_stage<true, D>(st, p.k, p.v, p.ks, p.vs, c0 + 2 * kCols, hi, rowof);
     attn::cp_commit();
   }
   attn::cp_wait<0>();
@@ -158,9 +164,9 @@ __global__ void __launch_bounds__(kThreads, 2) prefill_attn_kernel(PrefillParams
       if (!row_ok[hh]) continue;
       const int r = 16 * tile + gid + 8 * hh;
       const float l_r = fmaxf(l[hh], 1e-30f);
-      float* o = p.out + ((static_cast<size_t>(bh) * G + r / TQ) * p.T + t0 + r % TQ) * kD;
+      float* o = p.out + ((static_cast<size_t>(bh) * G + r / TQ) * p.T + t0 + r % TQ) * D;
 #pragma unroll
-      for (int q = 0; q < kD / 32; ++q) {
+      for (int q = 0; q < D / 32; ++q) {
         *reinterpret_cast<float4*>(o + 32 * q + 8 * tig) =
             make_float4(acc[4 * q][2 * hh] / l_r, acc[4 * q + 1][2 * hh] / l_r,
                         acc[4 * q + 2][2 * hh] / l_r, acc[4 * q + 3][2 * hh] / l_r);
@@ -172,42 +178,51 @@ __global__ void __launch_bounds__(kThreads, 2) prefill_attn_kernel(PrefillParams
     return;
   }
   __syncthreads();  // the ring becomes the merge area
-  attn::state_out(sm, acc, m, l, 16);
+  attn::state_out<D>(sm, acc, m, l, 16);
   __syncthreads();
-  attn::merge_warps(sm, p.tiles * 16, CS);
-  const float* rowL = reinterpret_cast<const float*>(sm + attn::Merge::rowL);
-  for (int e = tid; e < p.tiles * 16 * (kD / 4); e += kThreads) {
-    const int r = e / (kD / 4), d = (e % (kD / 4)) * 4;
+  attn::merge_warps<D>(sm, p.tiles * 16, CS);
+  const float* rowL = reinterpret_cast<const float*>(sm + attn::Merge<D>::rowL);
+  for (int e = tid; e < p.tiles * 16 * (D / 4); e += kThreads) {
+    const int r = e / (D / 4), d = (e % (D / 4)) * 4;
     if (r >= G * TQ || r % TQ >= tn) continue;
     const float l_r = fmaxf(rowL[r], 1e-30f);
-    const float4 a = *reinterpret_cast<const float4*>(attn::merged_row(sm, r, CS) + d);
-    float* o = p.out + ((static_cast<size_t>(bh) * G + r / TQ) * p.T + t0 + r % TQ) * kD + d;
+    const float4 a = *reinterpret_cast<const float4*>(attn::merged_row<D>(sm, r, CS) + d);
+    float* o = p.out + ((static_cast<size_t>(bh) * G + r / TQ) * p.T + t0 + r % TQ) * D + d;
     *reinterpret_cast<float4*>(o) = make_float4(a.x / l_r, a.y / l_r, a.z / l_r, a.w / l_r);
   }
 }
 
-template <int CS>
+template <int CS, int D>
 cudaError_t launch(const PrefillParams& p, dim3 grid, cudaStream_t st) {
-  constexpr int smem = kSmem;
+  constexpr int smem = kSmem<D>;
   static const cudaError_t configured = cudaFuncSetAttribute(
-      prefill_attn_kernel<CS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      prefill_attn_kernel<CS, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (configured != cudaSuccess) return configured;
-  prefill_attn_kernel<CS><<<grid, kThreads, smem, st>>>(p);
+  prefill_attn_kernel<CS, D><<<grid, kThreads, smem, st>>>(p);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_d(const PrefillParams& p, dim3 grid, cudaStream_t st) {
+  return p.tiles == 1 ? launch<8, D>(p, grid, st)
+         : p.tiles == 2 ? launch<4, D>(p, grid, st)
+         : p.tiles <= 4 ? launch<2, D>(p, grid, st) : launch<1, D>(p, grid, st);
 }
 
 }  // namespace
 
-// D (the cache's storage head dim) must be 128 and G must divide 128; the
-// tiles hold TQ = min(128 / G, T) positions (the last one fewer when TQ does
-// not divide T).  Returns the CUDA error of the launch (0 on success).
+// D (the cache's storage head dim) must be 128 or 256 and G must divide the
+// block's rows R (128 at D = 128, 64 at D = 256); the tiles hold TQ =
+// min(R / G, T) positions (the last one fewer when TQ does not divide T).
+// Returns the CUDA error of the launch (0 on success).
 extern "C" int bt_prefill_attn_i8(const void* q, const void* k, const void* v, const void* ks,
                                   const void* vs, const void* pos0, const void* lens, void* out,
                                   int BH, int G, int T, int S, int D, int win, float softcap,
                                   void* stream) {
-  if (D != kD || G < 1 || attn::kMaxRows % G != 0 || T < 1)
+  const int rows = D == 256 ? attn::kRowsOf<256> : attn::kRowsOf<128>;
+  if ((D != 128 && D != 256) || G < 1 || rows % G != 0 || T < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int TQ = attn::kMaxRows / G < T ? attn::kMaxRows / G : T;
+  const int TQ = rows / G < T ? rows / G : T;
   const int tiles = (G * TQ + 15) / 16;
   PrefillParams p{static_cast<const uint16_t*>(q), static_cast<const int8_t*>(k),
                   static_cast<const int8_t*>(v), static_cast<const float*>(ks),
@@ -216,8 +231,6 @@ extern "C" int bt_prefill_attn_i8(const void* q, const void* k, const void* v, c
                   softcap, tiles};
   const dim3 grid((T + TQ - 1) / TQ, BH);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = tiles == 1 ? launch<8>(p, grid, st)
-                        : tiles == 2 ? launch<4>(p, grid, st)
-                        : tiles <= 4 ? launch<2>(p, grid, st) : launch<1>(p, grid, st);
+  const cudaError_t e = D == 256 ? launch_d<256>(p, grid, st) : launch_d<128>(p, grid, st);
   return static_cast<int>(e);
 }

@@ -3,10 +3,12 @@
 // Replaces the Pallas kernels of booster_tpu/ops/pallas_qmm.py:
 //   _tqmm_i4_gd_kernel   (M = 1, group-dot form)           -> i4mv::mv_kernel<G, mins, kF32>
 //   _tqmm_i4_kernel      (M > 1, dequantize then dot)      -> mm_kernel<BM, false, G>
-//   _gateup_i4_gd_kernel (M = 1, fused gate+up, silu·mul)  -> i4mv::mv_kernel<G, mins, kGateUp>
-//   _gateup_i4_kernel    (M > 1, fused gate+up, silu·mul)  -> mm_kernel<BM, true, G>
+//   _gateup_i4_gd_kernel (M = 1, fused gate+up, act·mul)   -> i4mv::mv_kernel<G, mins, kGateUp[Gelu]>
+//   _gateup_i4_kernel    (M > 1, fused gate+up, act·mul)   -> mm_kernel<BM, true, G, ACT>
 // at G = 32 (Q4_0: zero 8; Q4_K: mins) and G = 16 (Q2_K: mins; Q3_K: zero
-// 4 and scales of either sign).
+// 4 and scales of either sign).  The gate-ups' act is the reference's `act`
+// branch: SiLU at both groups, the tanh-GELU of gated-GELU models (Gemma)
+// at G = 32; ReLU is not ported yet.
 //
 // y[m, n] = sum_k x[m, k] * W[n, k],  W = (q - zero) * s - mins, group G along k.
 // Payload qw [K/2, N] u8: byte row r holds element r (low nibble) and element
@@ -21,9 +23,11 @@
 //   M > 1:  w = bf16(bf16(q - zero)·bf16(s)); y = sum bf16(x)·w in f32, minus
 //           the min term sum_g xs_g·f32(bf16 m_g) with f32 group sums xs.
 //   gate-up: g, u = bf16 of the f32 sums of columns n and ff + n;
-//           out = bf16(bf16(g·bf16(sigmoid_f32(g)))·u) — torch's own op
-//           sequence for x·sigmoid(x) then ·u, so the fused kernel equals
-//           qmm + act + mul bit for bit.  Both forms run the same per-column
+//           out = bf16(bf16(g·bf16(sigmoid_f32(g)))·u) (SiLU), or
+//           bf16(bf16(g·0.5·(1 + tanh z))·u) with z = c·(g + 0.044715·g³)
+//           op by op in f32 (GELU, bf16_ops.cuh gelu_mul) — torch's own op
+//           sequences for act(x) then ·u, so the fused kernel equals qmm +
+//           act + mul bit for bit.  Both forms run the same per-column
 //           code with the same K split and the same reduction order.
 //
 // M = 1 (i4mv.cuh).  What bounds it: the payload and scale bytes (half a
@@ -218,7 +222,7 @@ __device__ __forceinline__ void mm_dequant(const typename MmSmem<BM, G>::Stage& 
   dh[1] = make_uint4(hi[4], hi[5], hi[6], hi[7]);
 }
 
-template <int BM, bool GATEUP, int G>
+template <int BM, bool GATEUP, int G, int ACT>
 __global__ void __launch_bounds__(qring::kThreads, 2) mm_kernel(MmParams p) {
   static_assert(G == 16 || G == 32, "a stage holds one group (G = 32) or two (G = 16)");
   using W = qring::Warps<BM>;
@@ -313,7 +317,8 @@ __global__ void __launch_bounds__(qring::kThreads, 2) mm_kernel(MmParams p) {
           if (row >= p.M || n0 + c >= ncols) continue;
           const size_t o = static_cast<size_t>(row) * ncols + n0 + c;
           if constexpr (GATEUP)
-            static_cast<uint16_t*>(p.out)[o] = silu_mul(acc[mi][ni][e], acc[mi][ni + W::NI / 2][e]);
+            static_cast<uint16_t*>(p.out)[o] =
+                act_mul<ACT>(acc[mi][ni][e], acc[mi][ni + W::NI / 2][e]);
           else
             static_cast<float*>(p.out)[o] = acc[mi][ni][e];
         }
@@ -347,10 +352,10 @@ __global__ void __launch_bounds__(qring::kThreads, 2) mm_kernel(MmParams p) {
                                  [&](int r, int c, float4 v) {
       const float4 g = *reinterpret_cast<const float4*>(&gs[r * 64 + c]);
       uint16_t* o = static_cast<uint16_t*>(p.out) + static_cast<size_t>(m0 + r) * ncols + n0 + c;
-      o[0] = silu_mul(g.x, v.x);
-      o[1] = silu_mul(g.y, v.y);
-      o[2] = silu_mul(g.z, v.z);
-      o[3] = silu_mul(g.w, v.w);
+      o[0] = act_mul<ACT>(g.x, v.x);
+      o[1] = act_mul<ACT>(g.y, v.y);
+      o[2] = act_mul<ACT>(g.z, v.z);
+      o[3] = act_mul<ACT>(g.w, v.w);
     });
   } else {
     qring::reduce_splits<BM, kBN>(pt, plane, p.KS, p.N, rows, cols, [&](int r, int c, float4 v) {
@@ -360,29 +365,36 @@ __global__ void __launch_bounds__(qring::kThreads, 2) mm_kernel(MmParams p) {
   }
 }
 
-template <int BM, bool GATEUP, int G>
+template <int BM, bool GATEUP, int G, int ACT>
 cudaError_t launch_mm(const MmParams& p, cudaStream_t st) {
   constexpr int bytes = sizeof(MmSmem<BM, G>);
   static bool ready = false;
-  const cudaError_t e = qring::allow_smem(mm_kernel<BM, GATEUP, G>, bytes, ready);
+  const cudaError_t e = qring::allow_smem(mm_kernel<BM, GATEUP, G, ACT>, bytes, ready);
   if (e != cudaSuccess) return e;
   const int tn = GATEUP ? 64 : kBN;
   const int ncols = GATEUP ? p.N / 2 : p.N;
   const dim3 grid((ncols + tn - 1) / tn, p.KS, (p.M + BM - 1) / BM);
-  mm_kernel<BM, GATEUP, G><<<grid, qring::kThreads, bytes, st>>>(p);
+  mm_kernel<BM, GATEUP, G, ACT><<<grid, qring::kThreads, bytes, st>>>(p);
   return cudaGetLastError();
 }
 
+// the GELU gate-up is built at G = 32 only (Q4_0, Q4_K: Gemma's files)
 template <int BM, int G>
-cudaError_t launch_mm_bm(const MmParams& p, int gateup, cudaStream_t st) {
-  return gateup ? launch_mm<BM, true, G>(p, st) : launch_mm<BM, false, G>(p, st);
+cudaError_t launch_mm_bm(const MmParams& p, int gateup, int act, cudaStream_t st) {
+  if (!gateup) return act == kActSilu ? launch_mm<BM, false, G, kActSilu>(p, st)
+                                      : cudaErrorInvalidValue;
+  if (act == kActSilu) return launch_mm<BM, true, G, kActSilu>(p, st);
+  if constexpr (G == 32) {
+    if (act == kActGelu) return launch_mm<BM, true, G, kActGelu>(p, st);
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <int G>
-cudaError_t launch_mm_g(const MmParams& p, int gateup, int bm, cudaStream_t st) {
-  if (bm == 32) return launch_mm_bm<32, G>(p, gateup, st);
-  if (bm == 64) return launch_mm_bm<64, G>(p, gateup, st);
-  if (bm == 128) return launch_mm_bm<128, G>(p, gateup, st);
+cudaError_t launch_mm_g(const MmParams& p, int gateup, int act, int bm, cudaStream_t st) {
+  if (bm == 32) return launch_mm_bm<32, G>(p, gateup, act, st);
+  if (bm == 64) return launch_mm_bm<64, G>(p, gateup, act, st);
+  if (bm == 128) return launch_mm_bm<128, G>(p, gateup, act, st);
   return cudaErrorInvalidValue;
 }
 
@@ -390,21 +402,26 @@ cudaError_t launch_mm_g(const MmParams& p, int gateup, int bm, cudaStream_t st) 
 
 // y = x @ W^T for an i4t weight at M = 1 (i4mv.cuh's streaming matvec).
 // gateup = 0: out f32 [1, N].  gateup = 1: W holds gate columns [0, N/2)
-// and up columns [N/2, N); out bf16 [1, N/2] = silu(gate) · up.  R = 2 or 4
+// and up columns [N/2, N); out bf16 [1, N/2] = act(gate) · up, act 0 SiLU
+// or 1 GELU (G = 32 only; bf16_ops.cuh kActSilu, kActGelu).  R = 2 or 4
 // scale planes (4: with mins); G 32 (Q4_0, Q4_K) or 16 (Q2_K, Q3_K); N a
 // multiple of 128 (256 for the gate-up), K of 2G; ks splits of K on whole
 // groups (ops/qmm.py i4t_mv_plan of the [K, N] weight, 1-8; one cluster a
 // tile); payload on 4 bytes and scales on 8.  Returns the CUDA error of the
 // launch (0 on success).
 extern "C" int bt_qmm_i4t(const void* x, const void* qw, const void* s, void* out, int K, int N,
-                          int R, int zero, int G, int gateup, int ks, void* stream) {
+                          int R, int zero, int G, int gateup, int act, int ks, void* stream) {
   const i4mv::Op op{static_cast<const uint16_t*>(x), static_cast<const uint8_t*>(qw),
                     static_cast<const uint16_t*>(s), out, K, N, ks, zero};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((G != 16 && G != 32) || (R != 2 && R != 4) || K % (2 * G) != 0)
+  if ((G != 16 && G != 32) || (R != 2 && R != 4) || K % (2 * G) != 0
+      || (act != kActSilu && (act != kActGelu || !gateup || G != 32)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
-  if (G == 16) {
+  if (act == kActGelu) {
+    e = R == 4 ? i4mv::run<32, true, i8mv::kGateUpGelu>(op, st)
+               : i4mv::run<32, false, i8mv::kGateUpGelu>(op, st);
+  } else if (G == 16) {
     if (R == 4)
       e = gateup ? i4mv::run<16, true, i8mv::kGateUp>(op, st)
                  : i4mv::run<16, true, i8mv::kF32>(op, st);
@@ -421,21 +438,22 @@ extern "C" int bt_qmm_i4t(const void* x, const void* qw, const void* s, void* ou
 }
 
 // y = x @ W^T for an i4t weight at M > 1 (the tensor-core tile), G 32 or
-// 16: rows of x per block bm (32, 64 or 128) and ks splits of K on whole
+// 16 (a gate-up's act as bt_qmm_i4t's: GELU at G = 32 only): rows of x per
+// block bm (32, 64 or 128) and ks splits of K on whole
 // stages of 32 payload rows (ops/qmm.py i4t_plan).  part: [ks, M, N] f32
 // when ks > 1; tickets: ceil(M/bm)·ceil(ncols/(gateup ? 64 : 128)) zeros.
 // N (gate-up: N/2) a multiple of 16, K of 64; x, qw and s on 16 bytes.
 extern "C" int bt_qmm_i4t_mm(const void* x, const void* qw, const void* s, void* out,
                              void* part, void* tickets, int M, int K, int N, int R, int zero,
-                             int G, int gateup, int bm, int ks, void* stream) {
+                             int G, int gateup, int act, int bm, int ks, void* stream) {
   MmParams p{static_cast<const uint16_t*>(x), static_cast<const uint8_t*>(qw),
              static_cast<const uint16_t*>(s), out, static_cast<float*>(part),
              static_cast<int*>(tickets), M, K, N, R, zero, ks};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if ((R != 2 && R != 4) || K % (2 * kSR) != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
-  if (G == 32) e = launch_mm_g<32>(p, gateup, bm, st);
-  else if (G == 16) e = launch_mm_g<16>(p, gateup, bm, st);
+  if (G == 32) e = launch_mm_g<32>(p, gateup, act, bm, st);
+  else if (G == 16) e = launch_mm_g<16>(p, gateup, act, bm, st);
   else e = cudaErrorInvalidValue;
   return static_cast<int>(e);
 }

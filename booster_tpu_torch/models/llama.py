@@ -45,6 +45,13 @@ biases, a fused qkv projection with optional ``clamp_kqv``, ALiBi in place
 of rope, an ungated tanh-GELU FFN) always decodes so; ALiBi also keeps the
 fused chunked prefill off, as in the reference.
 
+Gemma (arch ``gemma``) is the llama forward with the reference's quirks
+(``booster_tpu/models/config.py:187-193``): the embedding scaled by
+sqrt(n_embd), RMSNorm by (1 + w), a gated tanh-GELU FFN (the fused gate-up
+takes its GELU epilogue, ``ops.qmm.qmm_gateup(x, w, "gelu")``), a head dim
+of 256 stored at 256 lanes, and the head tied to the token table
+(``tied_head``).  gemma2's post norms, softcaps and windows are not ported.
+
 The cache is updated in place and returned.  Other architectures and the
 llama family's options (shared experts, expert groups, MLA, biases,
 sliding-window patterns) are not ported yet.
@@ -53,7 +60,6 @@ sliding-window patterns) are not ported yet.
 from __future__ import annotations
 
 import functools
-import math
 from typing import Any, Optional
 
 import torch
@@ -69,7 +75,7 @@ from booster_tpu_torch.ops.moe import moe_ffn_grouped, moe_supported
 from booster_tpu_torch.ops.paged_attention import paged_decode_attention_stacked, paged_decode_prep
 from booster_tpu_torch.ops.paged_kv import PagedKVCache, append_paged_layer, gather_layer
 from booster_tpu_torch.ops.prefill_attention import prefill_attention, prefill_supported
-from booster_tpu_torch.ops.qmm import qmm_gateup, silu
+from booster_tpu_torch.ops.qmm import act_mul, gelu, qmm_gateup, silu
 from booster_tpu_torch.ops.rope import apply_rope_tables, rope_tables
 from booster_tpu_torch.quant.qtensor import QTensor
 
@@ -106,13 +112,8 @@ def _norm(x: torch.Tensor, lp: dict, key: str, cfg: ModelConfig) -> torch.Tensor
 
 def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
     """The FFN's activation: tanh-approximate GELU in f32 as jax.nn.gelu
-    writes it, rounded to x's dtype; or SiLU (ops.qmm.silu)."""
-    if kind == "gelu":
-        xf = x.float()
-        z = math.sqrt(2.0 / math.pi) * (xf + 0.044715 * (xf * xf * xf))
-        cdf = 0.5 * (1.0 + torch.tanh(z))
-        return (xf * cdf).to(x.dtype)
-    return silu(x)
+    writes it, rounded to x's dtype (ops.qmm.gelu); or SiLU (ops.qmm.silu)."""
+    return gelu(x) if kind == "gelu" else silu(x)
 
 
 def _check_ported(cfg: ModelConfig) -> None:
@@ -123,7 +124,13 @@ def _check_ported(cfg: ModelConfig) -> None:
              and not cfg.alibi_max_bias and not cfg.clamp_kqv)
     mpt = (cfg.arch == "mpt" and cfg.act == "gelu" and cfg.norm_type == "layer"
            and not cfg.n_experts)
-    if (not (llama or mpt) or not moe_ok
+    # gemma: gated tanh-GELU, RMSNorm by (1 + w), the embedding scaled by
+    # sqrt(n_embd), the head tied; gemma2's softcaps and windows are not ported
+    gemma = (cfg.arch == "gemma" and cfg.act == "gelu" and cfg.norm_type == "rms"
+             and cfg.norm_eps_add_one and cfg.tie_embeddings and not cfg.n_experts
+             and not cfg.alibi_max_bias and not cfg.clamp_kqv and not cfg.attn_logit_softcap
+             and not cfg.final_logit_softcap and not cfg.sliding_window)
+    if (not (llama or mpt or gemma) or not moe_ok
             or cfg.kv_lora_rank or cfg.head_dim_v not in (0, cfg.head_dim)
             or cfg.parallel_residual or cfg.post_norms or cfg.sliding_window_pattern > 1
             or cfg.heads_per_layer or cfg.q_norm or cfg.n_heads % cfg.n_kv_heads
@@ -245,15 +252,15 @@ def _layer(x, lp, i, cache, positions, cos, sin, mask, offsets, kv_valid, cfg,
         ffn_out = _moe_ffn(h, lp, cfg)
     elif "w_gateup" in lp:
         # the reference's order (booster_tpu/models/llama.py:552-580): the
-        # whole-MLP kernel (ops.mlp.qmm_mlp), then silu·mul inside the
+        # whole-MLP kernel (ops.mlp.qmm_mlp), then act·mul inside the
         # gate-up kernel (ops.qmm.qmm_gateup), then unfused; None = not taken
-        ffn_out = qmm_mlp(h, lp["w_gateup"], lp["w_down"])
+        ffn_out = qmm_mlp(h, lp["w_gateup"], lp["w_down"], cfg.act)
         if ffn_out is None:
-            mid = qmm_gateup(h, lp["w_gateup"])
+            mid = qmm_gateup(h, lp["w_gateup"], cfg.act)
             if mid is None:
                 gu = qlinear(h, lp["w_gateup"])
                 ff = gu.shape[-1] // 2
-                mid = silu(gu[..., :ff]) * gu[..., ff:]
+                mid = act_mul(gu[..., :ff], gu[..., ff:], cfg.act)
             ffn_out = qlinear(mid, lp["w_down"])
     elif "w_gate" in lp:
         ffn_out = qlinear(_act(qlinear(h, lp["w_gate"]), cfg.act) * qlinear(h, lp["w_up"]),
@@ -324,6 +331,24 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache,
     return _finish(params, cfg, x, emb, cache, gather_idx, last_only, adv)
 
 
+def tied_head(x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    """Tied-embedding logits [.., V] f32: bf16 x against the bf16 token
+    table [V, C] with f32 accumulation and f32 output, the reference's
+    ``dot_general(..., preferred_element_type=f32)`` (llama.py:905-913), a
+    plain large product that it leaves to XLA.  On the card one cuBLAS
+    product with an f32 output (``torch.mm(..., out_dtype=torch.float32)``),
+    reading the table as it lies; on the CPU (tests) the f32 product of the
+    widened operands.  No per-call copy of the table on the card."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).to(torch.bfloat16)
+    table = emb.to(torch.bfloat16)
+    if x2.device.type == "cpu":
+        y = x2.float() @ table.float().t()
+    else:
+        y = torch.mm(x2, table.t(), out_dtype=torch.float32)
+    return y.reshape(*lead, table.shape[0])
+
+
 def _finish(params, cfg, x, emb, cache, gather_idx, last_only, adv):
     """Final norm, lm head, cache length advance."""
     B = x.shape[0]
@@ -333,10 +358,7 @@ def _finish(params, cfg, x, emb, cache, gather_idx, last_only, adv):
     elif last_only:
         x = x[:, -1:, :]
     out_w = params.get("output")
-    if out_w is not None:
-        logits = qlinear(x, out_w)
-    else:  # tied embeddings
-        logits = x.to(torch.bfloat16).float() @ emb.to(torch.bfloat16).float().t()
+    logits = qlinear(x, out_w) if out_w is not None else tied_head(x, emb)
     logits = logits.float()
     if cfg.logit_scale != 1.0:
         logits = logits * cfg.logit_scale

@@ -23,6 +23,10 @@ MoE model (Mixtral) keep the file's quantization whatever `weights` says,
 lane-major (``[E·Ne, K]``, the grouped kernel's layout) with bf16 scale
 planes; they are repacked on the device, and every stack is filled there one
 layer at a time, so the host holds about one layer beside the result.
+A Gemma file (arch ``gemma``) holds the llama tensor set without
+``output.weight``: the head is tied to ``token_embd`` (llama.cpp writes it
+Q6_K in its Q4_0 mix), dequantized to a dense bf16 table as the reference
+loads it (``booster_tpu/models/loader.py:340-343``).
 An MPT file (arch ``mpt``) holds a fused ``attn_qkv``, split into q, k and v
 rows and fused again as the reference does, an ungated FFN (``ffn_up``,
 ``ffn_down``), and LayerNorms whose optional biases (``attn_norm.bias``,
@@ -49,6 +53,7 @@ from booster_tpu_torch.quant.qtensor import (
     QTensor,
     channel_quantize,
     compact_scales,
+    dequantize as dequantize_qtensor,
     prepare_kernel_scales,
     repack_weights,
     to_torch,
@@ -79,8 +84,9 @@ _EXPERT_KEYS = {"gate_exps", "up_exps", "down_exps"}
 _ATTN_KEYS = {"wq", "wk", "wv", "wo"}
 _FFN_KEYS = {"w_gate", "w_up", "w_down"}
 _UNGATED_FFN_KEYS = {"w_up", "w_down"}  # mpt
-# mixtral: the HF converter's name for llama + experts
-_PORTED_ARCHS = {"llama", "mixtral", "mpt"}
+# mixtral: the HF converter's name for llama + experts; gemma: the llama
+# tensor set with the head tied to token_embd (no output.weight)
+_PORTED_ARCHS = {"llama", "mixtral", "mpt", "gemma"}
 
 
 # weights="auto" takes bf16 only when the whole file fits in this many bytes
@@ -231,6 +237,26 @@ class _Stacks:
         return out
 
 
+# quantized types whose torch repack then dequantize forms the same f32
+# values as quant.formats.dequantize, bit for bit ((d·sc)·q, or (q - 8)·d)
+_TABLE_REPACKS = (GGMLType.Q4_0, GGMLType.Q8_0, GGMLType.Q6_K)
+
+
+def dense_table(reader: GGUFReader, name: str, dev: torch.device) -> torch.Tensor:
+    """A token table as the dense bf16 [V, C] the reference loads
+    (``dequantize(...).astype(bfloat16)``).  For the card, a quantized table
+    is repacked and dequantized there by torch (the same f32 values, then
+    one rounding to bf16): Gemma-2B's Q6_K table of 524 M weights takes
+    about half a minute of numpy on the host."""
+    info = reader.tensors[name]
+    if dev.type == "cuda" and info.ggml_type in _TABLE_REPACKS:
+        raw = torch.from_numpy(np.frombuffer(reader.tensor_bytes(info), np.uint8).copy())
+        qt = repack_gguf_tensor(raw, info.ggml_type, info.shape, device=dev)
+        return dequantize_qtensor(qt, torch.bfloat16)
+    w = dequantize(reader.tensor_bytes(info), info.ggml_type, shape=info.shape)
+    return torch.from_numpy(w.astype(np.float32)).to(torch.bfloat16)
+
+
 @dataclasses.dataclass
 class LoadedModel:
     cfg: ModelConfig
@@ -260,10 +286,16 @@ def load_model(path: str, device="cuda", weights: str = "native",
     "native", "bf16", "i8" (exact), "i8c" (per-channel int8, lossy) or
     "auto" (see resolve_weights; `batch_hint` is the expected decode batch,
     0 = unknown)."""
+    return load_from_reader(GGUFReader(path), device, weights, batch_hint)
+
+
+def load_from_reader(reader: GGUFReader, device="cuda", weights: str = "native",
+                     batch_hint: int = 0) -> LoadedModel:
+    """load_model on an open GGUFReader (closed when it returns)."""
     dev = resolve_device(device)
     if weights not in ("native", "bf16", "i8", "i8c", "auto"):
+        reader.close()
         raise ValueError(f"unknown weights mode {weights!r}")
-    reader = GGUFReader(path)
     try:
         cfg = ModelConfig.from_gguf_metadata(reader.metadata)
         if cfg.arch not in _PORTED_ARCHS:
@@ -308,10 +340,9 @@ def load_model(path: str, device="cuda", weights: str = "native",
             return repack_gguf_tensor(raw, info.ggml_type, info.shape, device=dev)
 
         params: dict[str, Any] = {}
-        emb = load_dense("token_embd.weight")
-        if emb is None:
+        if "token_embd.weight" not in reader.tensors:
             raise ValueError("model has no token_embd.weight")
-        params["tok_embd"] = torch.from_numpy(emb).to(torch.bfloat16)
+        params["tok_embd"] = dense_table(reader, "token_embd.weight", dev)
         params["output_norm"] = torch.from_numpy(load_dense("output_norm.weight"))
         out_norm_b = load_dense("output_norm.bias")
         if out_norm_b is not None:

@@ -40,18 +40,31 @@ _SIGNATURES = {
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
 }
 _SMS = 132  # the H100's SMs: the split aims at the blocks that can be resident at once
-_COLS = 128  # cache columns per stage of the kernel (kCols in csrc/attn_mma.cuh)
 _MAX_SPLITS = 128  # kMaxSplits in csrc/attn_mma.cuh
+# csrc/attn_mma.cuh's layout at each cache storage width D it takes (Tile's
+# D): the columns of a stage over a bf16 and an int8 cache (Tile::kCols; 64
+# for bf16 at 256 lanes, where two stages of 512-byte rows and the merge area
+# fill a block's shared memory) and the query rows of a prefill block
+# (kRowsOf).  The one copy that the wrappers and the CPU mirrors read.
+ATTN_LAYOUT = {128: {"stage_cols": (128, 128), "block_rows": 128},
+               256: {"stage_cols": (64, 128), "block_rows": 64}}
+WIDTHS = tuple(ATTN_LAYOUT)
 
 
-def decode_splits(B: int, Hkv: int, S: int, quantized: bool) -> int:
+def stage_cols(D: int, quantized: bool) -> int:
+    """Cache columns a stage of csrc/attn_mma.cuh holds (ATTN_LAYOUT)."""
+    return ATTN_LAYOUT[D]["stage_cols"][int(quantized)]
+
+
+def decode_splits(B: int, Hkv: int, S: int, quantized: bool, D: int = 128) -> int:
     """Slices of each (slot, kv head)'s live range that the kernel's blocks
     share: as many blocks over B·Hkv as the card holds at once (two an SM
-    over an int8 cache, one over bf16, whose stages take 143 KB of shared
-    memory; 1 at B = 64), at most one per 128-column stage of the capacity
-    S and at most 128.  From the shapes alone: the host never reads lens."""
-    per_sm = 2 if quantized else 1
-    return max(1, min(per_sm * _SMS // (B * Hkv), S // _COLS, _MAX_SPLITS))
+    over a 128-lane int8 cache, one over bf16, whose stages take 143 KB of
+    shared memory, and one at 256 lanes; 1 at B = 64), at most one per
+    stage (stage_cols) of the capacity S and at most 128.  From the shapes
+    alone: the host never reads lens."""
+    per_sm = 2 if quantized and D == 128 else 1
+    return max(1, min(per_sm * _SMS // (B * Hkv), S // stage_cols(D, quantized), _MAX_SPLITS))
 
 
 def split_scratch(device: torch.device, B: int, Hkv: int, G: int, D: int, S: int,
@@ -59,7 +72,7 @@ def split_scratch(device: torch.device, B: int, Hkv: int, G: int, D: int, S: int
     """(nsplit, partials, tickets) for one call of the kernel: f32 scratch
     for each slice's (acc, m, l) and the per-device ticket buffer that the
     matmuls share (ops/qmm.py), both None at nsplit = 1."""
-    nsplit = decode_splits(B, Hkv, S, quantized)
+    nsplit = decode_splits(B, Hkv, S, quantized, D)
     if nsplit == 1:
         return 1, None, None
     part = torch.empty(B * Hkv * nsplit * G * (D + 2), dtype=torch.float32, device=device)
@@ -146,9 +159,9 @@ def decode_attn(qb, k_cache, v_cache, layer: int, lens, win: int,
                   or v_scale.dtype != torch.float32
                   or not (k_scale.is_contiguous() and v_scale.is_contiguous())):
         raise ValueError("decode_attn kernel: scales must be contiguous f32 [L, B, Hkv, S, 1]")
-    if D != 128:
+    if D not in WIDTHS:
         raise NotImplementedError(f"decode_attn kernel: cache head dim {D}: not ported yet "
-                                  "(the kernel takes the 128-lane storage width)")
+                                  "(the kernel takes the 128- and 256-lane storage widths)")
     if G > 16 or not 0 <= layer < L:
         raise ValueError("decode_attn kernel: needs G <= 16 and a valid layer")
     lens = lens.to(torch.int32).contiguous()
@@ -172,7 +185,7 @@ def decode_attn(qb, k_cache, v_cache, layer: int, lens, win: int,
         None if part is None else part.data_ptr(), None if tickets is None else tickets.data_ptr(),
         B, Hkv, G, S, D, int(win), float(softcap), nsplit,
         torch.cuda.current_stream(qb.device).cuda_stream)
-    name = "decode_attn_i8" if quant else "decode_attn"
+    name = ("decode_attn_i8" if quant else "decode_attn") + ("_d256" if D == 256 else "")
     kernels.check(rc, name)
     kernels.count(name)
     return out

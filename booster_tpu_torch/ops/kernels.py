@@ -46,8 +46,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # kernel name → launches made by its wrapper (reset by callers that count);
 # _gd is the M = 1 group-dot form, _dq the M > 1 dequantize form (i4t at
-# group 16: _g16m with mins, _g16 without; ops.qmm.i4t_count_name), _i8 the
-# int8-cache form, _layer the per-layer T = 1 append, paged_ the paged-pool
+# group 16: _g16m with mins, _g16 without; _gelu a gate-up's GELU epilogue;
+# ops.qmm.i4t_count_name), _i8 the int8-cache form, _d256 the attention and
+# append forms over a 256-lane cache (head dims 129-256: Gemma), _layer the
+# per-layer T = 1 append, paged_ the paged-pool
 # forms, moe_ the grouped (routed expert) form of the lane-major matmul; the
 # i8c matmul's _mv is its M = 1 streaming matvec, _mm its M > 1 tensor-core form;
 # probe_ the probe tools' kernels (ops/probes.py, ops/probes_i4.py), on no
@@ -66,11 +68,18 @@ launch_counts = {
     "qmm_i4t_g16_dq": 0,
     "qmm_i4t_gateup_g16_gd": 0,
     "qmm_i4t_gateup_g16_dq": 0,
+    "qmm_i4t_gateup_gelu_gd": 0,
+    "qmm_i4t_gateup_gelu_dq": 0,
     "decode_attn": 0,
     "kv_append": 0,
     "decode_attn_i8": 0,
     "kv_append_i8": 0,
     "prefill_attn_i8": 0,
+    "decode_attn_d256": 0,
+    "decode_attn_i8_d256": 0,
+    "prefill_attn_i8_d256": 0,
+    "kv_append_d256": 0,
+    "kv_append_i8_d256": 0,
     "qmm_i8t_gd": 0,
     "qmm_i8t_dq": 0,
     "qmm_i8t_gateup_gd": 0,

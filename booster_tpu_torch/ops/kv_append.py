@@ -93,25 +93,26 @@ def _launch_all(k_all, v_all, new_k, new_v, offsets, k_scale_all, v_scale_all) -
     offsets = offsets.to(torch.int32).contiguous()
     stream = torch.cuda.current_stream(k_all.device).cuda_stream
     lib = kernels.library("kv_append", _SIGNATURES)
+    suffix = "_d256" if D == 256 else ""  # the 256-lane forms count under their own names
     if quant:
         if (v_scale_all is None or k_scale_all.shape != (L, B, H, S, 1)
                 or v_scale_all.shape != k_scale_all.shape
                 or k_scale_all.dtype != torch.float32 or v_scale_all.dtype != torch.float32
                 or not (k_scale_all.is_contiguous() and v_scale_all.is_contiguous())):
             raise ValueError("kv_append kernel: scales must be contiguous f32 [L, B, H, S, 1]")
-        if D != 128:
+        if D not in (128, 256):
             raise NotImplementedError(f"kv_append int8 kernel: storage head dim {D}: "
-                                      "not ported yet (the 128-lane width is)")
+                                      "not ported yet (the 128- and 256-lane widths are)")
         rc = lib.bt_kv_append_i8(k_all.data_ptr(), v_all.data_ptr(), k_scale_all.data_ptr(),
                                  v_scale_all.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
                                  offsets.data_ptr(), L, B, H, S, D, d, stream)
-        kernels.check(rc, "kv_append_i8")
-        kernels.count("kv_append_i8")
+        kernels.check(rc, "kv_append_i8" + suffix)
+        kernels.count("kv_append_i8" + suffix)
         return
     rc = lib.bt_kv_append(k_all.data_ptr(), v_all.data_ptr(), new_k.data_ptr(),
                           new_v.data_ptr(), offsets.data_ptr(), L, B, H, S, D, d, stream)
-    kernels.check(rc, "kv_append")
-    kernels.count("kv_append")
+    kernels.check(rc, "kv_append" + suffix)
+    kernels.count("kv_append" + suffix)
 
 
 def kv_append_layer_plain(k_layer, v_layer, new_k, new_v, offsets, k_scale=None,
@@ -197,6 +198,9 @@ def _launch_paged(pool_k, pool_v, new_k, new_v, offsets, table, pool_ks, pool_vs
         raise ValueError("kv_append_all_layers_paged kernel: the pool must be contiguous")
     if new_k.shape != (L, B, H, d) or new_v.shape != new_k.shape or d > D:
         raise ValueError("kv_append_all_layers_paged kernel: new rows must be [L, B, H, d <= D]")
+    if D != 128:
+        raise NotImplementedError(f"kv_append_all_layers_paged kernel: storage head dim {D}: "
+                                  "not ported yet (the 128-lane pool is)")
     new_k = new_k.to(torch.bfloat16).contiguous()
     new_v = new_v.to(torch.bfloat16).contiguous()
     offsets = offsets.to(torch.int32).contiguous()
@@ -210,9 +214,6 @@ def _launch_paged(pool_k, pool_v, new_k, new_v, offsets, table, pool_ks, pool_vs
                 or not (pool_ks.is_contiguous() and pool_vs.is_contiguous())):
             raise ValueError("kv_append_all_layers_paged kernel: scales must be contiguous "
                              "f32 [L, Np, H, P, 1]")
-        if D != 128:
-            raise NotImplementedError(f"kv_append_all_layers_paged int8 kernel: storage head "
-                                      f"dim {D}: not ported yet (the 128-lane width is)")
         rc = lib.bt_kv_append_paged_i8(pool_k.data_ptr(), pool_v.data_ptr(), pool_ks.data_ptr(),
                                        pool_vs.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
                                        offsets.data_ptr(), table.data_ptr(), L, B, H, Np, P,

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from booster_tpu_torch.ops import kernels
+from booster_tpu_torch.ops.decode_attention import ATTN_LAYOUT
 
 NEG = -1e30
 
@@ -36,7 +37,10 @@ _SIGNATURES = {
     "bt_prefill_attn_i8": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
     + [ctypes.c_float, ctypes.c_void_p],
 }
-_ROWS = 128  # query rows (G heads × T positions) per block: kMaxRows in csrc/attn_mma.cuh
+def block_rows(D: int) -> int:
+    """Query rows (G heads × TQ positions) of a block of csrc/prefill_attn.cu
+    (decode_attention.ATTN_LAYOUT): 128 at the 128-lane width, 64 at 256."""
+    return ATTN_LAYOUT[D]["block_rows"]
 
 
 def prefill_supported(T: int, S: int, D: int, H: int, Hkv: int) -> bool:
@@ -104,9 +108,10 @@ def prefill_attn(qb, k, v, k_scale, v_scale, pos0, lens, win: int,
         raise ValueError("prefill_attn kernel: k/v must be [BH, S, D] with f32 scales [BH, S]")
     if not all(t.is_contiguous() for t in (qb, k, v, k_scale, v_scale)):
         raise ValueError("prefill_attn kernel: operands must be contiguous")
-    if D != 128 or _ROWS % G:
+    if D not in ATTN_LAYOUT or block_rows(D) % G:
         raise NotImplementedError(f"prefill_attn kernel: D={D}, G={G}: not ported yet "
-                                  f"(it takes D = 128 and G dividing {_ROWS})")
+                                  "(it takes D = 128 with G dividing 128, D = 256 with G "
+                                  "dividing 64)")
     lib = kernels.library("prefill_attn", _SIGNATURES)
     pos0 = pos0.to(torch.int32).contiguous()
     lens = lens.to(torch.int32).contiguous()
@@ -115,8 +120,9 @@ def prefill_attn(qb, k, v, k_scale, v_scale, pos0, lens, win: int,
                                 v_scale.data_ptr(), pos0.data_ptr(), lens.data_ptr(),
                                 out.data_ptr(), BH, G, T, S, D, int(win), float(softcap),
                                 torch.cuda.current_stream(qb.device).cuda_stream)
-    kernels.check(rc, "prefill_attn_i8")
-    kernels.count("prefill_attn_i8")
+    name = "prefill_attn_i8" + ("_d256" if D == 256 else "")
+    kernels.check(rc, name)
+    kernels.count(name)
     return out
 
 

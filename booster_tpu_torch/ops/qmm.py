@@ -8,8 +8,10 @@ Counterpart of ``booster_tpu/ops/pallas_qmm.py``.
 i8t (Q8_0 at group 32, Q6_K at group 16, Q5_K and Q5_1 at group 32 with a
 mins plane), those of ``csrc/qmm_i8t.cu``
 (``_tqmm_i8_gd_kernel`` at M = 1, ``_tqmm_i8_kernel`` at M > 1).
-``qmm_gateup`` runs their SiLU·mul forms (``_gateup_i4_gd_kernel`` /
-``_gateup_i4_kernel``, ``_gateup_i8_gd_kernel`` / ``_gateup_i8_kernel``).
+``qmm_gateup`` runs their act·mul forms (``_gateup_i4_gd_kernel`` /
+``_gateup_i4_kernel``, ``_gateup_i8_gd_kernel`` / ``_gateup_i8_kernel``):
+SiLU on every kind, the tanh-GELU of gated-GELU models (Gemma) on i4t at
+group 32; GELU on int8 weights and ReLU are not ported yet.
 The M > 1 tiles take their rows per block and K splits from ``i4t_plan``
 (i4t), ``lane_plan`` (lane-major) and ``i8k_plan`` (i8t and i8c, whose tile
 is ``csrc/i8k_tile.cuh``), the i8t and i8c matvecs at M = 1 (the
@@ -45,6 +47,7 @@ stay False, its default, on the card).
 from __future__ import annotations
 
 import ctypes
+import math
 from dataclasses import replace
 from typing import Optional
 
@@ -54,8 +57,8 @@ from booster_tpu_torch.ops import kernels
 from booster_tpu_torch.quant.qtensor import QTensor, dequantize, kernel_scales
 
 _SIGNATURES = {
-    "bt_qmm_i4t": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
-    "bt_qmm_i4t_mm": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+    "bt_qmm_i4t": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    "bt_qmm_i4t_mm": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p],
 }
 _I8_SIGNATURES = {
     "bt_qmm_i8t_gd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
@@ -219,6 +222,27 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x.float()).to(x.dtype)
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Tanh-approximate GELU in f32 as ``jax.nn.gelu`` writes it, rounded to
+    x's dtype: z = c·(x + 0.044715·x·x·x), x·0.5·(1 + tanh z), each op in
+    f32 (csrc/bf16_ops.cuh gelu_mul repeats them one by one)."""
+    xf = x.float()
+    z = math.sqrt(2.0 / math.pi) * (xf + 0.044715 * (xf * xf * xf))
+    cdf = 0.5 * (1.0 + torch.tanh(z))
+    return (xf * cdf).to(x.dtype)
+
+
+ACT_IDS = {"silu": 0, "gelu": 1}  # the gate-up epilogues ported, by their kernel codes
+
+
+def act_mul(g: torch.Tensor, u: torch.Tensor, act: str) -> torch.Tensor:
+    """act(g)·u in g's dtype: the fused gate-ups' epilogue, the unfused
+    sequence of the JAX package's ``_act`` then the product."""
+    if act not in ACT_IDS:
+        raise NotImplementedError(f"gate-up with act {act!r}: not ported yet")
+    return (gelu(g) if act == "gelu" else silu(g)) * u
+
+
 # -- shape gates (copied from pallas_qmm.py) ---------------------------------
 
 # pallas_qmm.py's tile candidates and per-block budget (its defaults), for
@@ -345,8 +369,10 @@ def _qmm_i8t_plain(x: torch.Tensor, w: QTensor, dq: bool) -> torch.Tensor:
         if has_mins:
             c = c - sf[1] * xg.sum(-1)
         return c.sum(0).reshape(1, N)
-    wd = (w.qw.float() * sf[0].repeat_interleave(G, dim=0)).to(torch.bfloat16)
-    y = xb @ wd.float()
+    # bf16(q·s): q is exact in bf16 and torch rounds a bf16 product of the
+    # exact f32 one, so the product is formed in bf16 with s broadcast
+    wd = (w.qw.reshape(ng, G, N).to(torch.bfloat16) * sf[0].to(torch.bfloat16)[:, None, :])
+    y = xb @ wd.reshape(K, N).float()
     if has_mins:  # the reference's _MIN_DOT form: f32 group sums of bf16(x), never rounded
         y = y - xb.reshape(M, ng, G).sum(-1) @ sf[1]
     return y
@@ -379,9 +405,10 @@ def qmm_plain(x: torch.Tensor, w: QTensor, dq: bool = False) -> torch.Tensor:
         if has_mins:
             contrib = contrib - sf[2:4] * xs
         return contrib.sum(dim=(0, 1)).reshape(1, N)
-    sc = sf[:2].repeat_interleave(G, dim=1)  # [2, half, N]
-    planes = torch.stack([q & 0x0F, q >> 4]).to(torch.int16) - w.zero
-    wd = (planes.to(torch.bfloat16).float() * sc).to(torch.bfloat16)
+    # bf16(bf16(q - zero)·bf16(s)) as one bf16 product (the rounding of the
+    # exact f32 product), s broadcast over each group's G rows
+    planes = (torch.stack([q & 0x0F, q >> 4]).to(torch.int16) - w.zero).to(torch.bfloat16)
+    wd = planes.reshape(2, ngh, G, N) * sf[:2].to(torch.bfloat16)[:, :, None, :]
     y = xb @ wd.reshape(K, N).float()
     if has_mins:
         xs = xb.reshape(M, 2 * ngh, G).sum(-1)  # [M, 2·ngh] f32 group sums
@@ -422,18 +449,19 @@ def qmm_lane_plain(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float() @ lane_dequant(w).t()
 
 
-def qmm_gateup_plain(x: torch.Tensor, w: QTensor, dq: bool = False) -> torch.Tensor:
-    """silu(x @ Wg^T) * (x @ Wu^T) → [M, ff] bf16 from a fused [2ff, K]
-    QTensor: the unfused sequence, qmm then silu·mul in bf16."""
+def qmm_gateup_plain(x: torch.Tensor, w: QTensor, dq: bool = False,
+                     act: str = "silu") -> torch.Tensor:
+    """act(x @ Wg^T) * (x @ Wu^T) → [M, ff] bf16 from a fused [2ff, K]
+    QTensor: the unfused sequence, qmm then act·mul in bf16."""
     gu = qmm_plain(x, w, dq).to(torch.bfloat16)
     ff = gu.shape[-1] // 2
-    return silu(gu[:, :ff]) * gu[:, ff:]
+    return act_mul(gu[:, :ff], gu[:, ff:], act)
 
 
 # -- kernel wrappers ---------------------------------------------------------
 
 
-def _launch(x: torch.Tensor, w: QTensor, gateup: bool) -> torch.Tensor:
+def _launch(x: torch.Tensor, w: QTensor, gateup: bool, act: str = "silu") -> torch.Tensor:
     w = w.resolved()
     M, K = x.shape
     N = w.shape[0]
@@ -451,6 +479,9 @@ def _launch(x: torch.Tensor, w: QTensor, gateup: bool) -> torch.Tensor:
                                   "(groups 16 and 32 are)")
     if not (x.device == w.qw.device == s3.device):
         raise ValueError("qmm_i4t kernel: all operands must be on one device")
+    if act not in ACT_IDS or (act == "gelu" and w.group != 32):
+        raise NotImplementedError(f"qmm_i4t gate-up with act {act!r} at group {w.group}: not "
+                                  "ported yet (SiLU at groups 16 and 32, GELU at 32)")
     ncols = N // 2 if gateup else N
     if M > 1 and ncols % 16:
         raise NotImplementedError(f"qmm_i4t kernel at M > 1: {ncols} output columns: not "
@@ -469,7 +500,7 @@ def _launch(x: torch.Tensor, w: QTensor, gateup: bool) -> torch.Tensor:
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if M == 1:
         rc = lib.bt_qmm_i4t(x.data_ptr(), w.qw.data_ptr(), s3.data_ptr(), out.data_ptr(),
-                            K, N, s3.shape[0], w.zero, w.group, int(gateup),
+                            K, N, s3.shape[0], w.zero, w.group, int(gateup), ACT_IDS[act],
                             i4t_mv_plan(K, N, w.group), stream)
     else:
         bm, ks, n_tickets = i4t_launch_plan(M, K, N, gateup)
@@ -477,20 +508,21 @@ def _launch(x: torch.Tensor, w: QTensor, gateup: bool) -> torch.Tensor:
         tickets = _ticket_buffer(x.device, n_tickets)
         rc = lib.bt_qmm_i4t_mm(x.data_ptr(), w.qw.data_ptr(), s3.data_ptr(), out.data_ptr(),
                                None if part is None else part.data_ptr(), tickets.data_ptr(),
-                               M, K, N, s3.shape[0], w.zero, w.group, int(gateup), bm, ks,
-                               stream)
+                               M, K, N, s3.shape[0], w.zero, w.group, int(gateup),
+                               ACT_IDS[act], bm, ks, stream)
     kernels.check(rc, "qmm_i4t")
-    kernels.count(i4t_count_name(gateup, M, w.group, s3.shape[0] == 4), (K, N))
+    kernels.count(i4t_count_name(gateup, M, w.group, s3.shape[0] == 4, act), (K, N))
     return out
 
 
-def i4t_count_name(gateup: bool, M: int, G: int, mins: bool) -> str:
+def i4t_count_name(gateup: bool, M: int, G: int, mins: bool, act: str = "silu") -> str:
     """The launch count of an i4t kernel form: qmm_i4t[_gateup] then, at
-    group 16, _g16m (with mins: Q2_K) or _g16 (without: Q3_K), then _gd (M =
-    1) or _dq (M > 1).  The group-32 forms (Q4_0, Q4_K) keep one name each,
-    their paths apart."""
+    group 16, _g16m (with mins: Q2_K) or _g16 (without: Q3_K), a gate-up's
+    _gelu epilogue, then _gd (M = 1) or _dq (M > 1).  The group-32 forms
+    (Q4_0, Q4_K) keep one name each, their paths apart."""
     g16 = ("_g16m" if mins else "_g16") if G == 16 else ""
-    return ("qmm_i4t_gateup" if gateup else "qmm_i4t") + g16 + ("_gd" if M == 1 else "_dq")
+    epi = "_gelu" if gateup and act == "gelu" else ""
+    return ("qmm_i4t_gateup" if gateup else "qmm_i4t") + g16 + epi + ("_gd" if M == 1 else "_dq")
 
 
 def check_i8t(x: torch.Tensor, w: QTensor, what: str, groups=(16, 32),
@@ -677,11 +709,12 @@ def qmm_i4t(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     return _launch(x, w, gateup=False)
 
 
-def qmm_i4t_gateup(x: torch.Tensor, w: QTensor) -> torch.Tensor:
-    """Kernel-level entry of the fused gate+up: → [M, ff] bf16."""
+def qmm_i4t_gateup(x: torch.Tensor, w: QTensor, act: str = "silu") -> torch.Tensor:
+    """Kernel-level entry of the fused gate+up: → [M, ff] bf16, act(gate)·up
+    with act "silu" or (group 32) "gelu"."""
     if x.device.type == "cpu":
-        return qmm_gateup_plain(x, w)
-    return _launch(x, w, gateup=True)
+        return qmm_gateup_plain(x, w, act=act)
+    return _launch(x, w, gateup=True, act=act)
 
 
 def qmm_i8t(x: torch.Tensor, w: QTensor, dq: bool = False) -> torch.Tensor:
@@ -693,11 +726,14 @@ def qmm_i8t(x: torch.Tensor, w: QTensor, dq: bool = False) -> torch.Tensor:
     return _launch_i8t(x, w, gateup=False, dq=dq)
 
 
-def qmm_i8t_gateup(x: torch.Tensor, w: QTensor) -> torch.Tensor:
+def qmm_i8t_gateup(x: torch.Tensor, w: QTensor, act: str = "silu") -> torch.Tensor:
     """Kernel-level entry of the i8t fused gate+up → [M, ff] bf16: at M = 1
     the group-dot form (``_gateup_i8_gd_kernel``; equal to qmm_i8t's M = 1
     kernel + silu·mul bit for bit), above the dequant form
-    (``_gateup_i8_kernel``)."""
+    (``_gateup_i8_kernel``).  SiLU only: the GELU epilogues of
+    ``csrc/i8mv.cuh`` and ``csrc/i8k_tile.cuh`` are not ported yet."""
+    if act != "silu":
+        raise NotImplementedError(f"qmm_i8t gate-up with act {act!r}: not ported yet")
     if x.device.type == "cpu":
         return qmm_gateup_plain(x, w)
     return _launch_i8t(x, w, gateup=True, dq=x.shape[0] > 1)
@@ -743,14 +779,16 @@ def qmm(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     return (x.to(torch.bfloat16).float() @ wd.float().t()).reshape(*lead, w.shape[0])
 
 
-def qmm_gateup(x: torch.Tensor, w: QTensor) -> Optional[torch.Tensor]:
-    """silu(x @ Wg^T) * (x @ Wu^T) → [..., ff] bf16 from a fused [2ff, K]
-    QTensor, or None when the kind/shape is not taken (the caller then runs
-    the unfused qlinear + silu·mul path)."""
+def qmm_gateup(x: torch.Tensor, w: QTensor, act: str = "silu") -> Optional[torch.Tensor]:
+    """act(x @ Wg^T) * (x @ Wu^T) → [..., ff] bf16 from a fused [2ff, K]
+    QTensor (the reference's ``qmm_gateup(x, w, act)``), or None when the
+    kind/shape is not taken (the caller then runs the unfused qlinear +
+    act·mul path).  An act whose kernel form is not ported raises where the
+    reference would take its kernel."""
     K = x.shape[-1]
     M = _rows(x)
     if not _gateup_supported(w, K, M) or not _stack_ok(w):
         return None
     kern = qmm_i4t_gateup if w.kind == "i4t" else qmm_i8t_gateup
-    y = kern(x.reshape(M, K).to(torch.bfloat16).contiguous(), w)
+    y = kern(x.reshape(M, K).to(torch.bfloat16).contiguous(), w, act)
     return y.reshape(*x.shape[:-1], w.shape[0] // 2)

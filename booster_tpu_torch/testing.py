@@ -37,6 +37,7 @@ of csrc/i4mv.cuh.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import os
@@ -178,6 +179,7 @@ def make_model(
     output_quant: GGMLType | None = None,  # output.weight's type where it differs from `quant`
     tensor_quant: dict | None = None,  # a layer tensor's type by its name after "blk.N."
     output: bool = True,  # False: no output.weight (the head tied to token_embd)
+    embd_quant: GGMLType | None = None,  # token_embd.weight's type where it differs from `quant`
     norm_bias: bool = False,  # mpt: LayerNorm biases (attn_norm, ffn_norm, output_norm)
     alibi_max_bias: float = 8.0,  # mpt: attention.max_alibi_bias
     clamp_kqv: float = 0.0,  # mpt: attention.clamp_kqv, written when > 0
@@ -213,10 +215,18 @@ def make_model(
     MHA: `kv_heads` must equal `heads`), ``attn_output``, ``ffn_norm``,
     ``ffn_up`` and ``ffn_down``; with `norm_bias`, random ``.bias`` tensors
     beside the three norms; a BPE vocabulary (``build_bpe_vocab``) with
-    ``tokenizer.ggml.pre = "mpt"``, no BOS added."""
+    ``tokenizer.ggml.pre = "mpt"``, no BOS added.
+
+    ``arch="gemma"`` writes ``gemma.*`` metadata with
+    ``attention.key_length`` and ``value_length`` (`head_dim`; Gemma's q
+    width heads·head_dim may differ from `hidden`), the llama tensor set
+    and no ``output.weight`` (Gemma ties its head to ``token_embd``, whose
+    type `embd_quant` gives: llama.cpp writes it Q6_K in a Q4_0 mix)."""
     if draw not in ("normal", "blocks"):
         raise ValueError(f"draw={draw!r}")
-    mpt = arch == "mpt"
+    mpt, gemma = arch == "mpt", arch == "gemma"
+    if gemma:
+        output = False
     if mpt and (experts or kv_heads != heads):
         raise ValueError("mpt: multi-head attention, no experts")
     rng = np.random.default_rng(seed)
@@ -243,9 +253,9 @@ def make_model(
             w.add(a + "rope.scaling.type", rope_scaling[0])
             w.add(a + "rope.scaling.factor", float(rope_scaling[1]))
         w.add(a + "rope.dimension_count", head_dim or hidden // heads)
-    if head_dim and head_dim != hidden // heads:
-        w.add(a + "attention.key_length", head_dim)
-        w.add(a + "attention.value_length", head_dim)
+    if head_dim and head_dim != hidden // heads or gemma:
+        w.add(a + "attention.key_length", head_dim or hidden // heads)
+        w.add(a + "attention.value_length", head_dim or hidden // heads)
     if experts:
         w.add(a + "expert_count", experts)
         w.add(a + "expert_used_count", experts_used)
@@ -277,6 +287,8 @@ def make_model(
 
     def add(name, shape, rand=True):
         want = output_quant if name == "output.weight" and output_quant is not None else quant
+        if name == "token_embd.weight" and embd_quant is not None:
+            want = embd_quant
         if tensor_quant and name.startswith("blk."):
             want = tensor_quant.get(name.split(".", 2)[2], want)
         qt = want if len(shape) >= 2 and shape[-1] % 256 == 0 else GGMLType.F32
@@ -362,6 +374,38 @@ def make_model(
     finally:
         pool.shutdown(cancel_futures=True)
     return out_path
+
+
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """torch's intra-op threads set to `n` while the block runs, then back.
+    The test suite runs several workers on the host's cores at once, and
+    torch's default of one thread a core in each of them oversubscribes
+    the cores several times over (a test file's CPU forwards ran 3-4x
+    slower so); the port's test files take two threads a worker."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
+def load_first_layers(path: str, n_layers: int, **kw):
+    """``models.load_model`` on the first `n_layers` layers of the GGUF at
+    `path`, as if the file held only those (its block count and tensor list
+    cut to them): a parity check at 2 layers reads a full-depth file's first
+    layers in place of a file of its own (the card's machine takes a
+    limited amount of disk writes a call).  Tests and chip_smoke.py only."""
+    from booster_tpu_torch.gguf import GGUFReader
+    from booster_tpu_torch.models.loader import load_from_reader
+
+    reader = GGUFReader(path)
+    arch = reader.metadata["general.architecture"]
+    reader.metadata = {**reader.metadata, f"{arch}.block_count": n_layers}
+    reader.tensors = {k: v for k, v in reader.tensors.items()
+                      if not k.startswith("blk.") or int(k.split(".")[1]) < n_layers}
+    return load_from_reader(reader, **kw)
 
 
 def q2k_mix(heads: int, kv_heads: int) -> dict:
@@ -545,6 +589,26 @@ def q5_1_weight(N: int, K: int, seed: int, device, kmajor: bool = False,
     return _real_weight(GGMLType.Q5_1, N, K, seed, device, kmajor, scale)
 
 
+def gateup_flips(got: torch.Tensor, g: torch.Tensor, u: torch.Tensor,
+                 act: str = "silu") -> torch.Tensor:
+    """Where the bf16 gate-up output `got` equals act(g')·u' for g', u' each
+    equal to the plain version's bf16 g, u or one bf16 ulp away: where the
+    kernel's f32 sums, in another order than the plain version's, rounded g
+    or u the other way.  At GELU's steep tail (g below about -3) one ulp of
+    g moves the output by far more than 2^-7 of itself, so a gate-up check
+    takes such outputs as explained."""
+    from booster_tpu_torch.ops.qmm import act_mul
+
+    def nudge(t, d):  # d ulps along the bit pattern (toward or away from zero)
+        return (t.view(torch.int16) + d).view(torch.bfloat16)
+
+    hit = torch.zeros(got.shape, dtype=torch.bool, device=got.device)
+    for dg in (-1, 0, 1):
+        for du in (-1, 0, 1):
+            hit |= act_mul(nudge(g, dg), nudge(u, du), act) == got
+    return hit
+
+
 def decode_attn_case(L: int, B: int, Hkv: int, G: int, S: int, D: int, Dc: int,
                      lens: list, device, seed: int = 0, quantized: bool = False) -> tuple:
     """Positional arguments of ``ops.decode_attention.decode_attn`` over layer
@@ -591,7 +655,8 @@ def decode_attn_mutants(args: tuple) -> dict:
     """``decode_attn`` arguments that make the plain version compute what
     wrong kernels would on ``args``: the self term dropped, the last valid
     column missed, one column past the end read, for an int8 cache the v
-    scales ignored, and for a head dim over 64 lanes 64-127 ignored."""
+    scales ignored, for a head dim over 64 lanes 64-127 ignored, and for one
+    over 128 (a 256-lane cache) lanes 128-255 dropped."""
     q, kc, vc, layer, lens, win, softcap, sk, sv, ok, *scales = args
     rest = (win, softcap, sk, sv)
     out = {
@@ -603,17 +668,21 @@ def decode_attn_mutants(args: tuple) -> dict:
     if scales:
         out["v scales ignored"] = (*args[:11], torch.ones_like(scales[1]))
     if q[..., 64:].abs().amax() > 0:  # a head dim over 64 fills lanes 64-127
-        lo = _lanes_below_64
+        lo = functools.partial(_lanes_below, n=64)
         out["lanes 64-127 ignored"] = (lo(q), lo(kc), lo(vc), layer, lens, win, softcap,
                                        lo(sk), lo(sv), ok, *scales)
+    if q.shape[-1] > 128 and q[..., 128:].abs().amax() > 0:  # a head dim over 128: lanes 128-255
+        lo = functools.partial(_lanes_below, n=128)
+        out["lanes 128-255 dropped"] = (lo(q), lo(kc), lo(vc), layer, lens, win, softcap,
+                                        lo(sk), lo(sv), ok, *scales)
     return out
 
 
-def _lanes_below_64(t: torch.Tensor) -> torch.Tensor:
-    """t with lanes 64.. of its last axis zeroed: what a kernel that reads
-    only the first 64 lanes sees (its output lanes 64.. then stay zero)."""
+def _lanes_below(t: torch.Tensor, n: int) -> torch.Tensor:
+    """t with lanes n.. of its last axis zeroed: what a kernel that reads
+    only the first n lanes sees (its output lanes n.. then stay zero)."""
     t = t.clone()
-    t[..., 64:] = 0
+    t[..., n:] = 0
     return t
 
 
@@ -674,7 +743,8 @@ def prefill_attn_mutants(args: tuple) -> dict:
     """``prefill_attn`` arguments that make the plain version compute what
     wrong kernels would on ``args``: each row's own column dropped, the last
     valid column missed, one column past the end read, the v scales
-    ignored, and for a head dim over 64 lanes 64-127 ignored."""
+    ignored, for a head dim over 64 lanes 64-127 ignored, and for one over
+    128 lanes 128-255 dropped."""
     q, k, v, ks, vs, pos0, lens, win, softcap = args
     out = {
         "self term dropped": (q, k, v, ks, vs, pos0 - 1, lens, win, softcap),
@@ -683,8 +753,11 @@ def prefill_attn_mutants(args: tuple) -> dict:
         "v scales ignored": (q, k, v, ks, torch.ones_like(vs), pos0, lens, win, softcap),
     }
     if q[..., 64:].abs().amax() > 0:
-        lo = _lanes_below_64
+        lo = functools.partial(_lanes_below, n=64)
         out["lanes 64-127 ignored"] = (lo(q), lo(k), lo(v), ks, vs, pos0, lens, win, softcap)
+    if q.shape[-1] > 128 and q[..., 128:].abs().amax() > 0:
+        lo = functools.partial(_lanes_below, n=128)
+        out["lanes 128-255 dropped"] = (lo(q), lo(k), lo(v), ks, vs, pos0, lens, win, softcap)
     return out
 
 
@@ -699,7 +772,7 @@ def prefill_attn_limit(args: tuple) -> torch.Tensor:
 
 
 _NEG = -1e30
-_COLS, _SUB, _WARPS = 128, 16, 8  # csrc/attn_mma.cuh: columns a stage, a sub-block; warps
+_SUB, _WARPS = 16, 8  # csrc/attn_mma.cuh: columns a sub-block; warps a block
 
 
 def _stage_states(s, v, vs, valid, stages) -> tuple:
@@ -753,13 +826,18 @@ def decode_attn_split(args: tuple, nsplit: int) -> torch.Tensor:
     """What csrc/decode_attn.cu computes for ``decode_attn(*args)`` split
     `nsplit` ways, in plain torch (CPU; tests only).  Per slot the live range
     [lo, hi) is cut into slices of ceil((hi - lo) / nsplit) columns rounded
-    up to a 128-column stage; in a slice warp w takes columns 16w .. 16w + 15
-    of each stage (``_stage_states``); the live slices merge in order in f32
-    and the self term is added once, in f32, as in the plain version.  A
-    slot with no live column and no self term gives 0."""
+    up to a stage (128 columns; 64 for a bf16 cache at 256 lanes:
+    ``ops.decode_attention.stage_cols``); in a slice warp w takes columns
+    16w .. 16w + 15 of each stage (``_stage_states``: at 64 columns warps
+    4-7 take none); the live slices merge in order in f32 and the self term
+    is added once, in f32, as in the plain version.  A slot with no live
+    column and no self term gives 0."""
+    from booster_tpu_torch.ops.decode_attention import stage_cols
+
     q, kc, vc, layer, lens, win, softcap, sk, sv, ok, *scales = args
     quant = bool(scales)
     S, D = kc.shape[3], kc.shape[4]
+    cols = stage_cols(D, quant)
     k, v = kc[layer].float(), vc[layer].float()
     qf = q.float()
     s_all = torch.einsum("bhgd,bhsd->bhgs", qf, k)
@@ -774,15 +852,16 @@ def decode_attn_split(args: tuple, nsplit: int) -> torch.Tensor:
         lo, hi = max(n_b - win + int(has_self), 0), min(n_b, S)
         n = max(hi - lo, 0)
         per = -(-n // nsplit)
-        span = -(-per // _COLS) * _COLS
+        span = -(-per // cols) * cols
         live = -(-n // span) if span else 0
         states = []
         for sl in range(live):
             s_lo = lo + sl * span
             s_hi = min(s_lo + span, hi)
-            stages = [[torch.arange(min(c0 + _SUB * w, s_hi), min(c0 + _SUB * (w + 1), s_hi),
+            stages = [[torch.arange(min(c0 + _SUB * w, c0 + cols, s_hi),
+                                    min(c0 + _SUB * (w + 1), c0 + cols, s_hi),
                                     device=q.device) for w in range(_WARPS)]
-                      for c0 in range(s_lo, s_hi, _COLS)]
+                      for c0 in range(s_lo, s_hi, cols)]
             valid = torch.ones(s_all.shape[1:], dtype=torch.bool, device=q.device)
             states.append(_stage_states(s_all[b], v[b], scales[1][layer][b, ..., 0] if quant
                                         else None, valid, stages))
@@ -806,16 +885,20 @@ def decode_attn_split(args: tuple, nsplit: int) -> torch.Tensor:
 
 def prefill_attn_split(args: tuple) -> torch.Tensor:
     """What csrc/prefill_attn.cu computes for ``prefill_attn(*args)``, in
-    plain torch (CPU; tests only).  A block holds TQ = min(128 / G, T)
-    positions of the G heads (rows r: head r // TQ, position t0 + r % TQ)
-    and walks the columns its rows can see in 128-column stages; its m16
+    plain torch (CPU; tests only).  A block holds TQ = min(R / G, T)
+    positions of the G heads (R = 128 rows, 64 at 256 lanes:
+    ``ops.prefill_attention.block_rows``; rows r: head r // TQ, position
+    t0 + r % TQ) and walks the columns its rows can see in 128-column
+    stages; its m16
     tiles share the 8 warps, so cs = 8 / (the tiles rounded up to a power of
     2) warps share a tile's rows, warp c taking the 16-column sub-blocks c,
     c + cs, ... of each stage (``_stage_states``), added in warp order."""
+    from booster_tpu_torch.ops.prefill_attention import block_rows
+
     q, k, v, ks, vs, pos0, lens, win, softcap = args
     BH, G, T, D = q.shape
     S = k.shape[1]
-    TQ = min(128 // G, T)
+    TQ = min(block_rows(D) // G, T)
     tiles = -(-(G * TQ) // 16)
     cs = _WARPS // (1 << (tiles - 1).bit_length())
     out = torch.zeros(q.shape, device=q.device)
@@ -837,8 +920,8 @@ def prefill_attn_split(args: tuple) -> torch.Tensor:
             valid = live[:, None] & (col < hi) & (col <= qpos) & (col >= qpos - win + 1)
             stages = [[torch.cat([torch.arange(min(c0 + _SUB * sb, hi),
                                                min(c0 + _SUB * (sb + 1), hi), device=dev)
-                                  for sb in range(c, _COLS // _SUB, cs)]) for c in range(cs)]
-                      for c0 in range(lo, hi, _COLS)]
+                                  for sb in range(c, 128 // _SUB, cs)]) for c in range(cs)]
+                      for c0 in range(lo, hi, 128)]
             M, L, A = _stage_states(s, v[bh].float(), vs[bh], valid, stages)
             o = A / torch.clamp_min(L, 1e-30)[:, None]
             out[bh, g[live], t[live]] = o[live]

@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--phases build,kernels,probes,parity,generate,batch,generate_i8,
                            generate_q8,batch_q8,server,generate_i8c,batch_i8c,generate_q6k,
                            batch_q6k,generate_q5k,batch_q5k,generate_mpt,batch_mpt,
-                           generate_q4k,generate_q2k,batch_q2k,generate_moe,batch_moe]
+                           generate_q4k,generate_q2k,batch_q2k,generate_gemma,batch_gemma,
+                           generate_moe,batch_moe]
 
 Phases, each printing one JSON line with its seconds:
 
@@ -118,7 +119,18 @@ Phases, each printing one JSON line with its seconds:
    on random Q3_K weights (on no path) at M = 1, 64 and 2048; the same
    checks and wrong kernels as the Q4_K
    rows, counted under each group-16 form's own name
-   (ops.qmm.i4t_count_name).
+   (ops.qmm.i4t_count_name).  Gemma-2B's forms (_gemma_kernels): the i4t
+   gate-up with the GELU epilogue on a Q4_0 [2048, 2·16384] weight at
+   M = 1, 16, 64 and 64·BATCH_GEMMA_T (bit-equal to the matmul + gelu·mul;
+   the SiLU epilogue among its wrong kernels), and the attention and append
+   kernels at the 256-lane cache (GEMMA_ATTN: bf16 decode at B = 1, lens
+   150 and 500; int8 decode at B = 64; the 32-row prefill at G = 8; the
+   all-layer appends at L 18; lanes 128-255 dropped among the attention's
+   wrong kernels), counted under their _d256 names; the 256-lane decode
+   where a slice spans several stages (_multi_stage_checks: Gemma-2B's 64
+   slots, Gemma-7B's 16 kv heads; against the plain version and the CPU
+   mirror, untimed); and the tied head at
+   V = 256000 (a torch product, timed beside its bound; no kernel).
    Median times of kernel,
    plain version and one library call (the yardstick), each call after an
    L2 scrub (cold, as on the decode path), and the kernel's time warm
@@ -203,7 +215,15 @@ Phases, each printing one JSON line with its seconds:
    head Q6_K; q, k and v three matmuls), loaded with those kinds on both
    devices, the single-stream path over a bf16 cache, 2 decode steps, whose
    card launches (the path "parity (m)") must hold every group-16 form of
-   the path at M = 1 and in the tile.  The
+   the path at M = 1 and in the tile; (n) Gemma-2B's width (the GELU
+   gate-up, the 256-lane cache, the tied head) loaded on the card and its
+   params moved to the CPU, the first 4096 rows of its token table held
+   against the file's numpy dequantization, the single-stream path over a
+   bf16 cache and the batched path over an int8 cache (4 slots, 2 live, T
+   = 32), 2 decode steps each, its card launches (the path "parity (n)")
+   holding every new form and no SiLU gate-up.  (a), (b), (e)'s Q4_0
+   Mixtral, (f)'s TinyLlama and (n) read the first 2 layers of their
+   full-depth file (PARITY_SHARED) in place of a 2-layer file.  The
    live slots' logits agree within the stated tolerance at every step, and
    the greedy tokens wherever the CPU's top-2 margin exceeds it.
 4. generate — the full 22-layer TinyLlama-shaped Q4_0 GGUF (random weights
@@ -407,6 +427,21 @@ Phases, each printing one JSON line with its seconds:
    at M = 64 and 2048; no dequantize-path matmul, no host sync in a decode
    dispatch; the profile windows watch the group-16 kernels by name.
 
+   generate_gemma and batch_gemma (after batch_q2k) — Gemma-2B (the public
+   google/gemma-2b config: GEMMA_2B) at its full 18 layers as llama.cpp's
+   Q4_0 mix writes it (Q4_0 layers, a Q6_K token table, no output.weight:
+   1.54 GB), loaded once with ``load_model(weights="native")`` (every layer
+   weight K-major i4t; the table dense bf16, dequantized on the card);
+   phase 4's generate (128 greedy tokens, a 16-row prefill) and phase 5's
+   bench_batch (64 streams, T = BATCH_GEMMA_T) on it.  Exact counts by
+   kernel form and shape: per generate step 3·18 i4t matvecs (qkv, wo,
+   down) and 18 M = 1 gate-ups with the GELU epilogue, 18 bf16 decode
+   attentions and one append at 256 lanes; at the prefill the tile's forms;
+   per batch step and prefill chunk the same at M = 64 and 2048 with the
+   int8 forms; the tied head a torch product (no kernel); the profile
+   windows watch the GELU gate-ups and the 256-lane kernels by name and
+   fail on a SiLU gate-up or a 128-lane attention.
+
 Then one ``{"kernels": [...]}`` line (each kernel's launches are those of
 the path that runs it: generate / generate_q8 for the M = 1 kernels and
 bf16-cache attention, batch / batch_q8 for the int8 ones, server for the
@@ -415,7 +450,8 @@ batch_i8c for the i8c ones, generate_q6k / batch_q6k for the group-16
 forms, the M = 1 fused gate-up and the 1.3B down, generate_q5k /
 batch_q5k for the int8 forms with mins at the 1.3B shapes, parity (k) for
 the whole MLP with mins, generate_q2k / batch_q2k for the i4t forms at
-group 16, generate_mpt /
+group 16, generate_gemma / batch_gemma for the GELU gate-up and the
+256-lane attention and appends, generate_mpt /
 batch_mpt for the per-layer appends, generate_q4k for config 2's Q4_K rows
 (its long run, generate_q4k_8k, for the 8192-row qkv), parity (j) for the
 lane-major mins form's grouped rows; the bf16-pool
@@ -432,6 +468,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -451,7 +488,8 @@ from booster_tpu_torch.tools.timing import bound, release as release_scrub, time
 PHASES = ("build", "kernels", "probes", "parity", "generate", "batch", "generate_i8",
           "generate_q8", "batch_q8", "server", "generate_i8c", "batch_i8c", "generate_q6k",
           "batch_q6k", "generate_q5k", "batch_q5k", "generate_mpt", "batch_mpt", "generate_q4k",
-          "generate_q2k", "batch_q2k", "generate_moe", "batch_moe")
+          "generate_q2k", "batch_q2k", "generate_gemma", "batch_gemma", "generate_moe",
+          "batch_moe")
 
 # TinyLlama-1.1B (config 1 of bench.py), Q4_0
 TINYLLAMA = dict(vocab_size=32000, hidden=2048, heads=32, kv_heads=4, ff=5632,
@@ -512,6 +550,16 @@ LLAMA3_8B_Q5KS = dict(LLAMA3_8B, output_quant="Q6_K")
 LLAMA3_8B_Q2K = dict(LLAMA3_8B, output_quant="Q6_K",
                      tensor_quant={"attn_v.weight": "Q4_K", "attn_output.weight": "Q3_K",
                                    "ffn_down.weight": "Q3_K"})
+# the public google/gemma-2b config.json: hidden 2048, 18 layers, 8 heads over
+# 1 kv head of 256 (G = 8, the 256-lane cache), ff 16384 (gelu_pytorch_tanh:
+# the gated tanh-GELU), vocab 256000, rms_norm_eps 1e-6, rope_theta 10000,
+# 8192 context, the head tied to the token table; as llama.cpp's Q4_0 mix
+# writes it (every 2-D layer weight Q4_0; no output.weight, so token_embd
+# takes Q6_K), blocks drawn from the seed (1.54 GB); the SPM test vocab
+# stands in for Gemma's own
+GEMMA_2B = dict(vocab_size=256000, hidden=2048, heads=8, kv_heads=1, head_dim=256, ff=16384,
+                arch="gemma", embd_quant="Q6_K", rms_eps=1e-6, rope_base=10000.0,
+                context=8192, seed=0, weight_scale=0.05, draw="blocks")
 # config 2's run (bench.py:72-100): its prompt, engine and sampling
 Q4K_PROMPT = "benchmark " * 12
 Q4K_MAX_SEQ, Q4K_CHUNK = 8192, 64
@@ -525,6 +573,9 @@ BATCH_MPT_T = 16
 # batch_q2k's prompt bucket: its prefill runs the group-16 tile at M = 64·T,
 # 128 rows a block (the kernels phase times it there; phase_batch checks it)
 BATCH_Q2K_T = 32
+# batch_gemma's prompt bucket (its 64 prompts on the 256000-token vocab): the
+# GELU gate-up at M = 64·T and the 256-lane prefill attention at T rows
+BATCH_GEMMA_T = 32
 # parity (e)'s decode steps after its prefill: on the CPU each step
 # dequantizes every routed expert of its 2 layers, so the steps are few
 # (cut from 8 to 3, then to 2 when MPT-7B's phases came)
@@ -542,7 +593,18 @@ MISTRAL_ATTN = dict(name="7B", L=32, Hkv=8, G=4, D=128, Dc=128, S1=1024, B=64, S
                     prefill_T=(32,), gen_path="generate_q8", batch_path="batch_q8")
 DEEPSEEK_ATTN = dict(name="1.3B", L=24, Hkv=16, G=1, D=128, Dc=128, S1=1024, B=64, S=512,
                      prefill_T=(16, 32), gen_path="generate_q6k", batch_path="batch_q6k")
+# Gemma-2B: one kv head of 8 query heads, head dim 256 at 256 lanes (the
+# attention and append kernels' _d256 forms); generate's cache lengths 15-143
+# (mean ~80) and a long context's ~500, the batch's after its 26-token prompts
+GEMMA_ATTN = dict(name="Gemma-2B", L=18, Hkv=1, G=8, D=256, Dc=256, S1=1024, B=64, S=512,
+                  prefill_T=(BATCH_GEMMA_T,), gen_path="generate_gemma",
+                  batch_path="batch_gemma", gen_lens=(150, 500), batch_lens=(150, 500))
 PROMPT = "hello world and the end"  # 15 tokens: the 16-row prefill bucket
+
+# the i4t gate-up's M = 1 matvec pair by its epilogue (the profile names the
+# i8mv::Out template argument as a cast number or as the enumerator)
+GELU_MV = r"re:i4mv::mv_kernel<32, false, [^>]*(3|kGateUpGelu)>"
+SILU_MV = r"i4mv::mv_kernel<32, false, [^>]*(2|kGateUp)>"
 
 # tolerances of kernel vs plain version on the card, and why
 CHECKS = {
@@ -625,17 +687,44 @@ class _Laps:
 # -- phase 1 -----------------------------------------------------------------
 
 
+def _warm_profiler() -> float:
+    """The card's context and torch.profiler's first trace (its CUDA
+    tracing set up: about 10 s the first time), on a thread while nvcc
+    builds the kernels, so the first path's profile does not pay them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    x = torch.ones(1024, device="cuda")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        (x + 1).sum().item()
+    sum(1 for _ in prof.profiler.kineto_results.events())
+    return time.perf_counter() - t0
+
+
 def phase_build() -> dict:
+    from concurrent.futures import ThreadPoolExecutor
+
     from booster_tpu_torch.ops import kernels
 
     t0 = time.perf_counter()
-    report = kernels.build()
+    with ThreadPoolExecutor(1) as ex:
+        warm = ex.submit(_warm_profiler)
+        report = kernels.build()
+        warm_s = warm.result()
     libs = {}
     for name, r in report.items():
         lines = [ln.strip() for ln in r["log"].splitlines()
-                 if "registers" in ln or "spill" in ln]
-        libs[name] = {"seconds": round(r["seconds"], 2), "ptxas": lines[:8]}
-    return {"phase": "build", "seconds": time.perf_counter() - t0, "libraries": libs}
+                 if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+        # each kernel that spills: its entry line, then the spill line after it
+        spilling = [(lines[i - 1][-120:], ln) for i, ln in enumerate(lines)
+                    if "spill" in ln and not ln.startswith("0 bytes stack frame, 0 bytes spill")
+                    and i > 0]
+        libs[name] = {"seconds": round(r["seconds"], 2),
+                      "ptxas": [ln for ln in lines if "Compiling entry" not in ln][:8],
+                      "spilling": spilling}
+    return {"phase": "build", "seconds": time.perf_counter() - t0, "libraries": libs,
+            "profiler_warm_s": warm_s}
 
 
 # -- phase 2 -----------------------------------------------------------------
@@ -673,7 +762,7 @@ def _i4t_split_groups(M, K, N, G=32):
 
 
 def _i4t_row(entries, failures, label, w, M, gen, path, gateup=False, trials=5,
-             mins_on_path=False, on_path=True):
+             mins_on_path=False, on_path=True, act="silu"):
     """One i4t kernel row: qmm_i4t (or the fused gate-up) on x [M, K] against
     its plain version (2e-4 of the largest output; the gate-up per element,
     and bit-equal to the unfused kernel + silu·mul), equal to itself on a
@@ -682,12 +771,13 @@ def _i4t_row(entries, failures, label, w, M, gen, path, gateup=False, trials=5,
     warm with the plain version and the bf16 library call.  A row with mins
     counts its launches on `path` where `mins_on_path` (Q4_K's path), else
     under a key no path counts; a row at a shape no path runs (`on_path`
-    false) likewise."""
+    false) likewise.  A gate-up's `act` is its epilogue ("gelu": Gemma's
+    tanh-GELU, whose wrong kernel the SiLU epilogue is)."""
     import torch
 
     from booster_tpu_torch.ops import qmm as tq
     from booster_tpu_torch.quant.qtensor import dequantize
-    from booster_tpu_torch.testing import qmm_i4t_mutants, qmm_mins_mutants
+    from booster_tpu_torch.testing import gateup_flips, qmm_i4t_mutants, qmm_mins_mutants
 
     N, K = w.shape
     R, G = w.resolved().scales.shape[0], w.group
@@ -695,7 +785,13 @@ def _i4t_row(entries, failures, label, w, M, gen, path, gateup=False, trials=5,
     flips = None  # gate-up outputs that one-ulp roundings of g and u explain
     if gateup:
         ff = N // 2
-        kern, plain = tq.qmm_i4t_gateup, tq.qmm_gateup_plain
+
+        def kern(x_, w_):
+            return tq.qmm_i4t_gateup(x_, w_, act)
+
+        def plain(x_, w_):
+            return tq.qmm_gateup_plain(x_, w_, act=act)
+
         got, want = kern(x, w), plain(x, w)
         limit = 2 ** -7 * want.float().abs() + 1e-5 * want.float().abs().max()
         gu = tq.qmm_i4t(x, w)
@@ -703,10 +799,11 @@ def _i4t_row(entries, failures, label, w, M, gen, path, gateup=False, trials=5,
         if float((gu - gp).abs().max()) > 2e-4 * float(gp.abs().max()):
             failures.append(f"{label} M={M}: the gate-up's f32 sums past qmm's limit")
         gu = gu.to(torch.bfloat16)
-        if not torch.equal(got, tq.silu(gu[:, :ff]) * gu[:, ff:]):
-            failures.append(f"{label} M={M}: fused gate-up != qmm + silu·mul")
-        flips = _gateup_flips(got, gp[:, :ff].to(torch.bfloat16), gp[:, ff:].to(torch.bfloat16))
-        name, out_bytes = tq.i4t_count_name(True, M, G, R == 4), M * ff * 2
+        if not torch.equal(got, tq.act_mul(gu[:, :ff], gu[:, ff:], act)):
+            failures.append(f"{label} M={M}: fused gate-up != qmm + {act}·mul")
+        flips = gateup_flips(got, gp[:, :ff].to(torch.bfloat16), gp[:, ff:].to(torch.bfloat16),
+                             act)
+        name, out_bytes = tq.i4t_count_name(True, M, G, R == 4, act), M * ff * 2
     else:
         kern, plain = tq.qmm_i4t, tq.qmm_plain
         got, want = kern(x, w), plain(x, w)
@@ -725,6 +822,8 @@ def _i4t_row(entries, failures, label, w, M, gen, path, gateup=False, trials=5,
     mutants = {**qmm_i4t_mutants(x, w, _i4t_split_groups(M, K, N, G)),
                **qmm_mins_mutants(x, w)}
     seen = {what: share(plain(xm, wm)) for what, (xm, wm) in mutants.items()}
+    if gateup and act == "gelu":  # the epilogue's own wrong kernel
+        seen["SiLU in place of GELU"] = share(tq.qmm_gateup_plain(x, w, act="silu"))
     for what, v in seen.items():
         if v < 8:
             failures.append(f"{name} {label} M={M}: the check cannot see {what} ({v})")
@@ -755,30 +854,11 @@ def _i4t_row(entries, failures, label, w, M, gen, path, gateup=False, trials=5,
         "warm_ms": timed(lambda: kern(x, w), trials=trials, cold=False),
         "plain_ms": timed(lambda: plain(x, w), reps=3, trials=3),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-        "library": ("null: no one torch call (gate-up + SiLU·mul)" if gateup
-                    else "torch.matmul on the dequantized bf16 weight"),
+        "library": (f"null: no one torch call (gate-up + {'GELU' if act == 'gelu' else 'SiLU'}"
+                    "·mul)" if gateup else "torch.matmul on the dequantized bf16 weight"),
         "check": (CHECKS["gateup"] + ", or an output of one-ulp roundings of g and u; "
-                  "equal to qmm_i4t + silu·mul, whose f32 sums hold qmm's check" if gateup
+                  f"equal to qmm_i4t + {act}·mul, whose f32 sums hold qmm's check" if gateup
                   else CHECKS["qmm"]) + "; wrong kernels at 8x"})
-
-
-def _gateup_flips(got, g, u):
-    """Where the bf16 gate-up output `got` equals silu(g')·u' for g', u'
-    each equal to the plain version's bf16 g, u or one bf16 ulp away: where
-    its f32 sums, in another order than the plain version's, rounded g or u
-    the other way (the tensor-core gate-up; CHECKS["gateup_i8"])."""
-    import torch
-
-    from booster_tpu_torch.ops import qmm as tq
-
-    def nudge(t, d):  # d ulps along the bit pattern (toward or away from zero)
-        return (t.view(torch.int16) + d).view(torch.bfloat16)
-
-    hit = torch.zeros(got.shape, dtype=torch.bool, device=got.device)
-    for dg in (-1, 0, 1):
-        for du in (-1, 0, 1):
-            hit |= tq.silu(nudge(g, dg)) * nudge(u, du) == got
-    return hit
 
 
 def phase_kernels(entries: list) -> dict:
@@ -852,6 +932,9 @@ def phase_kernels(entries: list) -> dict:
     _q4k_lane_kernels(entries, failures)
     _q5k_kernels(entries, failures)
     _q2k_kernels(entries, failures)
+    _gemma_kernels(entries, failures)
+    multi_stage = _multi_stage_checks(failures)
+    tied = _tied_head_row(failures)
     floor = _append_floor()
     for e in entries:  # beside every append row: a row near it sits at the launch floor
         if e["name"].startswith("kv_append"):
@@ -863,7 +946,100 @@ def phase_kernels(entries: list) -> dict:
     return {"phase": "kernels", "seconds": time.perf_counter() - t0,
             "checks": {e["name"] + " " + e["shape"]: e["max_abs_err"] for e in entries},
             "paged_checks": paged_checks, "layer_append_checks": append_checks,
-            "append": floor}
+            "append": floor, "tied_head": tied, "multi_stage_checks": multi_stage}
+
+
+def _gemma_kernels(entries: list, failures: list) -> None:
+    """Gemma-2B's new kernel forms: qmm_i4t.cu's gate-up with the GELU
+    epilogue on a Q4_0 [2048, 2·16384] weight at generate_gemma's M = 1 and
+    16-row prefill and batch_gemma's M = 64 and 64·BATCH_GEMMA_T (the SiLU
+    epilogue among its wrong kernels), and decode_attn.cu, prefill_attn.cu
+    and kv_append.cu at the 256-lane cache (GEMMA_ATTN: bf16 at B = 1, lens
+    150 and 500; int8 at B = 64; the 32-row prefill; the appends at L 18;
+    lanes 128-255 dropped among the attention's wrong kernels)."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(20)
+    C, ff = GEMMA_2B["hidden"], GEMMA_2B["ff"]
+    w = _stacked_i4t(2, C, 2 * ff, gen)
+    for M, path in ((1, "generate_gemma"), (16, "generate_gemma"), (64, "batch_gemma"),
+                    (64 * BATCH_GEMMA_T, "batch_gemma")):
+        _i4t_row(entries, failures, "Gemma-2B gateup", w.at(1), M, gen, path, gateup=True,
+                 trials=3, act="gelu")
+    del w
+    torch.cuda.empty_cache()
+    _bf16_attn_kernels(entries, failures, GEMMA_ATTN)
+    _int8_kernels(entries, failures, GEMMA_ATTN)
+
+
+def _multi_stage_checks(failures: list) -> dict:
+    """decode_attn.cu at 256 lanes where a slice spans several stages (few
+    slices against lens): Gemma-2B's 64 slots over a 512-row cache (2
+    slices; lens 150 and 500) and Gemma-7B's 16 kv heads at B = 1 (8
+    slices; lens 2000), bf16 and int8, each held within its limit of the
+    plain version and of the CPU mirror (testing.decode_attn_split, run on
+    the card): max error over each."""
+    import torch
+
+    from booster_tpu_torch.ops import decode_attention as da
+    from booster_tpu_torch.testing import decode_attn_case, decode_attn_limit, decode_attn_split
+
+    out = {}
+    for quant in (False, True):
+        for label, B, Hkv, G, S, lens in (("Gemma-2B B=64", 64, 1, 8, 512, [150, 500] * 32),
+                                          ("Gemma-7B B=1", 1, 16, 1, 2048, [2000])):
+            nsplit = da.decode_splits(B, Hkv, S, quant, 256)
+            args = decode_attn_case(2, B, Hkv, G, S, 256, 256, lens, "cuda", seed=B + Hkv,
+                                    quantized=quant)
+            got, limit = da.decode_attn(*args), decode_attn_limit(args)
+            errs = [(got - ref).abs() for ref in (da.decode_attn_plain(*args),
+                                                  decode_attn_split(args, nsplit))]
+            name = f"decode_attn{'_i8' if quant else ''}_d256 {label} nsplit={nsplit}"
+            if not (torch.isfinite(got).all() and all(bool((d <= limit).all()) for d in errs)):
+                failures.append(f"{name}: max err {[float(d.max()) for d in errs]} "
+                                "(plain, mirror) past its limit")
+            out[name] = {"plain": float(errs[0].max()), "mirror": float(errs[1].max())}
+    return out
+
+
+def _tied_head_row(failures: list) -> dict:
+    """Gemma-2B's tied head at one row and at batch_gemma's 64: a torch
+    product of the bf16 x and the bf16 [256000, 2048] token table with f32
+    accumulation and output (models.llama.tied_head; no kernel of the
+    port's: the reference leaves it to XLA), timed as the kernel rows are
+    and beside its byte bound, held against the f32 product of the same
+    operands on the card; and the card's memory it takes beside its output
+    (no f32 copy of the table)."""
+    import torch
+
+    from booster_tpu_torch.models.llama import tied_head
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(21)
+    V, C = GEMMA_2B["vocab_size"], GEMMA_2B["hidden"]
+    emb = (torch.randn(V, C, device="cuda", generator=gen) * 0.05).to(torch.bfloat16)
+    out = {"shape": f"V={V} C={C}", "source": "torch.mm(x, table.t(), out_dtype=torch.float32)"}
+    for M in (1, 64):
+        x = torch.randn(M, 1, C, device="cuda", generator=gen).to(torch.bfloat16)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = tied_head(x, emb)
+        extra = torch.cuda.max_memory_allocated() - before - got.numel() * 4
+        want = x.float().reshape(M, C) @ emb.float().t()
+        err = float((got.reshape(M, V) - want).abs().max())
+        if err > 1e-5 * float(want.abs().max()) or extra > 64 << 20:
+            failures.append(f"tied head M={M}: err {err}, {extra} bytes beside its output")
+        b_ms, b_by = bound(V * C * 2 + M * C * 2 + M * V * 4, 2 * M * V * C)
+        out[f"M={M}"] = {"ms": timed(lambda: tied_head(x, emb), trials=3),
+                         "warm_ms": timed(lambda: tied_head(x, emb), trials=3, cold=False),
+                         "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+                         "bytes_beside_output": extra}
+        del want
+    del emb
+    torch.cuda.empty_cache()
+    return out
 
 
 def _append_floor() -> dict:
@@ -896,6 +1072,7 @@ def _bf16_attn_kernels(entries: list, failures: list, lay: dict) -> None:
                                            decode_attn_mutants)
 
     L, Hkv, G, D, Dc, S = (lay[k] for k in ("L", "Hkv", "G", "D", "Dc", "S1"))
+    sfx = "_d256" if Dc == 256 else ""  # the 256-lane forms count under their own names
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     # decode attention over layer L - 1 of an [L, 1, Hkv, 1024, Dc] cache with
@@ -906,7 +1083,8 @@ def _bf16_attn_kernels(entries: list, failures: list, lay: dict) -> None:
     # a dropped self term or a column missed or read past the end shows
     # (booster_tpu_torch.testing).  At B = 1 the kernel splits each range
     # over da.decode_splits(1, Hkv, S, False) blocks, merged by the last one
-    cases = [(L, S, 79), (L, S, 1000)] + ([(2, 8192, 8192)] if lay is MISTRAL_ATTN else [])
+    cases = ([(L, S, n) for n in lay.get("gen_lens", (79, 1000))]
+             + ([(2, 8192, 8192)] if lay is MISTRAL_ATTN else []))
     for L, S, lens_v in cases:
         args = decode_attn_case(L, 1, Hkv, G, S, D, Dc, [lens_v], "cuda", seed=lens_v)
 
@@ -939,20 +1117,21 @@ def _bf16_attn_kernels(entries: list, failures: list, lay: dict) -> None:
         # output's are sliced off; the Dc figure is what the padded layout moves
         b_ms, b_by = bound(attn_bytes(D), 4 * Hkv * G * (lens_v + 1) * D)
         entries.append({
-            "name": "decode_attn",
+            "name": "decode_attn" + sfx,
             "shape": f"{lay['name']} L={L} B=1 Hkv={Hkv} G={G} S={S} D={D} Dc={Dc} lens={lens_v}",
-            "key": ("decode_attn", None), "path": lay["gen_path"], "route": "cuda",
+            "key": ("decode_attn" + sfx, None), "path": lay["gen_path"], "route": "cuda",
             "source": "booster_tpu_torch/csrc/decode_attn.cu",
             "replaces": "booster_tpu/ops/pallas_attention.py:177",
             "max_abs_err": err, "max_err_of_limit": share, "min_wrong_kernel_of_limit": seen,
-            "nsplit": da.decode_splits(1, Hkv, S, False), "split_replays_equal": reset,
+            "nsplit": da.decode_splits(1, Hkv, S, False, Dc), "split_replays_equal": reset,
             "ms": ms, "warm_ms": warm_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "bound_ms_at_Dc": bound(attn_bytes(Dc), 0)[0],
             "library_ms": lib_ms, "check": CHECKS["attention"]})
         del args, kcat, vcat
         torch.cuda.empty_cache()
     L, S = lay["L"], lay["S1"]
-    args = decode_attn_case(L, 1, Hkv, G, S, D, Dc, [1000], "cuda", seed=1000)
+    args = decode_attn_case(L, 1, Hkv, G, S, D, Dc, [lay.get("gen_lens", (1000,))[-1]], "cuda",
+                            seed=1000)
     kc, vc = args[1], args[2]
 
     # all-layer append of one token into the same cache
@@ -965,7 +1144,7 @@ def _bf16_attn_kernels(entries: list, failures: list, lay: dict) -> None:
     err = max(float((k1.float() - k2.float()).abs().max()),
               float((v1.float() - v2.float()).abs().max()))
     if err != 0.0:
-        failures.append(f"kv_append: max err {err}")
+        failures.append(f"kv_append{sfx}: max err {err}")
     ms = timed(lambda: ka.kv_append(k1, v1, nk, nv, off))
     warm_ms = timed(lambda: ka.kv_append(k1, v1, nk, nv, off), cold=False)
     plain_ms = timed(lambda: ka.kv_append_plain(k2, v2, nk, nv, off))
@@ -979,8 +1158,8 @@ def _bf16_attn_kernels(entries: list, failures: list, lay: dict) -> None:
     # cache are zero already); the Dc figure writes the padded rows
     b_ms, b_by = bound(2 * L * Hkv * 2 * D * 2, 0)
     entries.append({
-        "name": "kv_append", "shape": f"{lay['name']} L={L} B=1 H={Hkv} S={S} Dc={Dc} d={D}",
-        "key": ("kv_append", None), "path": lay["gen_path"], "route": "cuda",
+        "name": "kv_append" + sfx, "shape": f"{lay['name']} L={L} B=1 H={Hkv} S={S} Dc={Dc} d={D}",
+        "key": ("kv_append" + sfx, None), "path": lay["gen_path"], "route": "cuda",
         "source": "booster_tpu_torch/csrc/kv_append.cu",
         "replaces": "booster_tpu/ops/pallas_kv.py:246",
         "max_abs_err": err, "ms": ms, "warm_ms": warm_ms, "plain_ms": plain_ms,
@@ -1057,6 +1236,7 @@ def _int8_kernels(entries: list, failures: list, lay: dict) -> None:
                                            prefill_attn_limit, prefill_attn_mutants)
 
     L, B, Hkv, G, D, Dc, S = (lay[k] for k in ("L", "B", "Hkv", "G", "D", "Dc", "S"))
+    sfx = "_d256" if Dc == 256 else ""  # the 256-lane forms count under their own names
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
 
@@ -1067,7 +1247,7 @@ def _int8_kernels(entries: list, failures: list, lay: dict) -> None:
 
     # K4: int8 decode attention over layer L - 1, every slot at one length
     # (a short and a long context), the self term live
-    for lens_v in (30, 500):
+    for lens_v in lay.get("batch_lens", (30, 500)):
         args = decode_attn_case(L, B, Hkv, G, S, D, Dc, [lens_v] * B, "cuda", seed=lens_v,
                                 quantized=True)
         err, share, seen = _attn_check(f"decode_attn_i8 lens={lens_v}", da.decode_attn,
@@ -1088,9 +1268,9 @@ def _int8_kernels(entries: list, failures: list, lay: dict) -> None:
                   + 2 * B * Hkv * D * 2 + B * Hkv * G * D * 4)
         b_ms, b_by = bound(nbytes, 4 * B * Hkv * G * (lens_v + 1) * D)
         entries.append({
-            "name": "decode_attn_i8",
+            "name": "decode_attn_i8" + sfx,
             "shape": f"{lay['name']} L={L} B={B} Hkv={Hkv} G={G} S={S} D={D} Dc={Dc} lens={lens_v}",
-            "key": ("decode_attn_i8", None), "path": lay["batch_path"], "route": "cuda",
+            "key": ("decode_attn_i8" + sfx, None), "path": lay["batch_path"], "route": "cuda",
             "source": "booster_tpu_torch/csrc/decode_attn.cu",
             "replaces": "booster_tpu/ops/pallas_attention.py:177",
             "max_abs_err": err, "max_err_of_limit": share, "min_wrong_kernel_of_limit": seen,
@@ -1113,7 +1293,7 @@ def _int8_kernels(entries: list, failures: list, lay: dict) -> None:
     ka.kv_append_plain(out[1][0], out[1][1], nk, nv, off, out[1][2], out[1][3])
     exact = all(torch.equal(a, b) for a, b in zip(*out))
     if not exact:
-        failures.append("kv_append_i8: payload or scales differ from the plain version")
+        failures.append(f"kv_append_i8{sfx}: payload or scales differ from the plain version")
     k1, v1, ks1, vs1 = out[0]
     ms = timed(lambda: ka.kv_append(k1, v1, nk, nv, off, ks1, vs1))
     warm_ms = timed(lambda: ka.kv_append(k1, v1, nk, nv, off, ks1, vs1), cold=False)
@@ -1121,8 +1301,9 @@ def _int8_kernels(entries: list, failures: list, lay: dict) -> None:
     # the new rows read, the int8 rows (at the head dim D) and scales written
     b_ms, b_by = bound(2 * L * B * Hkv * D * 2 + 2 * L * B * Hkv * (D + 4), 0)
     entries.append({
-        "name": "kv_append_i8", "shape": f"{lay['name']} L={L} B={B} H={Hkv} S={S} Dc={Dc} d={D}",
-        "key": ("kv_append_i8", None), "path": lay["batch_path"], "route": "cuda",
+        "name": "kv_append_i8" + sfx,
+        "shape": f"{lay['name']} L={L} B={B} H={Hkv} S={S} Dc={Dc} d={D}",
+        "key": ("kv_append_i8" + sfx, None), "path": lay["batch_path"], "route": "cuda",
         "source": "booster_tpu_torch/csrc/kv_append.cu",
         "replaces": "booster_tpu/ops/pallas_kv.py:218",
         "max_abs_err": 0.0 if exact else None, "ms": ms, "warm_ms": warm_ms,
@@ -1161,9 +1342,9 @@ def _int8_kernels(entries: list, failures: list, lay: dict) -> None:
         nbytes = B * Hkv * G * T * D * 2 + 2 * live_cols * (D + 4) + B * Hkv * G * T * D * 4
         b_ms, b_by = bound(nbytes, 4 * n_pairs * D)
         entries.append({
-            "name": "prefill_attn_i8",
+            "name": "prefill_attn_i8" + sfx,
             "shape": f"{lay['name']} B={B} Hkv={Hkv} G={G} T={T} S={S} D={D} Dc={Dc} pos0={pos}",
-            "key": ("prefill_attn_i8", None), "path": lay["batch_path"], "route": "cuda",
+            "key": ("prefill_attn_i8" + sfx, None), "path": lay["batch_path"], "route": "cuda",
             "source": "booster_tpu_torch/csrc/prefill_attn.cu",
             "replaces": "booster_tpu/ops/pallas_attention.py:552",
             "max_abs_err": err, "max_err_of_limit": share, "min_wrong_kernel_of_limit": seen,
@@ -3308,13 +3489,14 @@ GGUFS = {"tiny": ("tinyllama-shape-q4_0", "TINYLLAMA", "Q4_0"),
          "moe_q4k": ("mixtral8x7b-shape-q4_k", "MIXTRAL", "Q4_K"),
          "q5k": ("deepseek-coder-1.3b-shape-q5_k_s", "DEEPSEEK_Q5KS", "Q5_K"),
          "q5k_8b": ("llama3-8b-shape-q5_k_s", "LLAMA3_8B_Q5KS", "Q5_K"),
-         "q2k": ("llama3-8b-shape-q2_k", "LLAMA3_8B_Q2K", "Q2_K")}
+         "q2k": ("llama3-8b-shape-q2_k", "LLAMA3_8B_Q2K", "Q2_K"),
+         "gemma": ("gemma-2b-shape-q4_0", "GEMMA_2B", "Q4_0")}
 # each model's depth on its full-size phases
 # (Mixtral cut to 20 of its 32: the card's machine takes 45 GiB of disk writes
 # a call; with config 2's files a 32-layer Mixtral came to 49 GiB, and at 24
 # layers the Q2_K mix's 2.8 GB did not fit beside the rest)
 LAYERS = {"tiny": 22, "q8": 32, "moe": 20, "q6k": 24, "mpt": 32, "q4k": 32, "q5k": 24,
-          "q2k": 32}
+          "q2k": 32, "gemma": 18}
 
 
 def _gguf_path(layers: int, model: str = "tiny") -> Path:
@@ -3335,8 +3517,9 @@ def _gguf(layers: int, model: str = "tiny") -> str:
         tmp = path.with_suffix(".tmp")
         _, shape, quant = GGUFS[model]
         kw = dict(globals()[shape])
-        if "output_quant" in kw:
-            kw["output_quant"] = GGMLType[kw["output_quant"]]
+        for key in ("output_quant", "embd_quant"):
+            if key in kw:
+                kw[key] = GGMLType[kw[key]]
         if "tensor_quant" in kw:
             kw["tensor_quant"] = {k: GGMLType[v] for k, v in kw["tensor_quant"].items()}
         make_model(str(tmp), layers=layers, quant=GGMLType[quant], **kw)
@@ -3351,6 +3534,68 @@ def _gguf_sizes() -> dict:
     files = sorted((ROOT / "build" / "smoke").glob("*.gguf"))
     sizes = {f.name: f.stat().st_size / 1e9 for f in files}
     return {"files_gb": sizes, "total_gib": sum(f.stat().st_size for f in files) / 2**30}
+
+
+# parity's 2-layer models that are the first 2 layers of a full-depth file
+# (testing.load_first_layers): the card's machine takes 45 GiB of writes a
+# call, and a 2-layer file of its own would cost Mixtral's 1.78 GB, Gemma's
+# 0.49, TinyLlama's 0.12
+PARITY_SHARED = ("tiny", "moe", "gemma")
+
+
+def _parity_model(model: str, dev: str, **kw):
+    """load_model of parity's 2-layer `model` on `dev`: the first 2 layers of
+    its full-depth file where PARITY_SHARED has it, else its own file."""
+    from booster_tpu_torch.models import load_model
+    from booster_tpu_torch.testing import load_first_layers
+
+    if model in PARITY_SHARED:
+        return load_first_layers(_wait_gguf(model, LAYERS[model])[0], 2, device=dev, **kw)
+    return load_model(_wait_gguf(model, 2)[0], device=dev, **kw)
+
+
+def _both(load) -> dict:
+    """{"cpu": load("cpu"), "cuda": load("cuda")}, the two loads at once in
+    two threads: the CPU's repack (numpy and torch CPU ops, which let go of
+    the GIL) overlaps the card's (file reads, then device ops)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(2) as ex:
+        futures = {dev: ex.submit(load, dev) for dev in ("cpu", "cuda")}
+        return {dev: f.result() for dev, f in futures.items()}
+
+
+# parity's 2-layer loads (model, load_model's keywords) in the order its
+# cases take them: while a case runs, the next one's load runs on a thread
+# (_parity_models)
+_NATIVE = (("weights", "native"),)
+PARITY_LOADS = (("tiny", ()), ("tiny", (("weights", "bf16"),)), ("q8", _NATIVE),
+                ("q8", (("weights", "i8c"),)), ("tiny", (("weights", "i8"),)),
+                ("tiny", (("weights", "i8c"),)), ("moe", _NATIVE), ("moe_q8", _NATIVE),
+                ("q6k", _NATIVE), ("mpt", _NATIVE), ("q4k", _NATIVE), ("moe_q4k", _NATIVE),
+                ("q5k_8b", _NATIVE), ("q5k", _NATIVE), ("q2k", _NATIVE))
+_prefetch: dict = {}  # "pool": the loading thread; PARITY_LOADS entry → its future
+
+
+def _parity_models(model: str, **kw) -> dict:
+    """Both devices' 2-layer `model` (_both of _parity_model) for a parity
+    case, taken from the thread that loaded it while the case before ran;
+    as it returns, the next case's load (PARITY_LOADS) starts on that
+    thread.  The CPU forwards of one case and the loads of the next use the
+    host's cores together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    key = (model, tuple(sorted(kw.items())))
+    fut = _prefetch.pop(key, None)
+    models = fut.result() if fut is not None else _both(
+        lambda dev: _parity_model(model, dev, **kw))
+    i = PARITY_LOADS.index(key) if key in PARITY_LOADS else len(PARITY_LOADS)
+    if i + 1 < len(PARITY_LOADS):
+        nm, nkw = PARITY_LOADS[i + 1]
+        pool = _prefetch.setdefault("pool", ThreadPoolExecutor(1))
+        _prefetch[PARITY_LOADS[i + 1]] = pool.submit(
+            _both, lambda dev: _parity_model(nm, dev, **dict(nkw)))
+    return models
 
 
 def _teacher_forced(models, caches, prompts, T, live, laps, tag, steps=16) -> list:
@@ -3412,17 +3657,26 @@ def _compare_logits(name, got, want, tol) -> dict:
 
 
 def phase_parity() -> dict:
-    from booster_tpu_torch.models import load_model
+    try:
+        return _phase_parity()
+    finally:  # a failed case leaves the next one's load behind
+        pool = _prefetch.pop("pool", None)
+        _prefetch.clear()
+        if pool is not None:
+            pool.shutdown(wait=True, cancel_futures=True)
+
+
+def _phase_parity() -> dict:
     from booster_tpu_torch.ops.kv_cache import KVCache
 
     t0 = time.perf_counter()
     laps = _Laps()
-    path, _ = _wait_gguf("tiny", 2)
+    _wait_gguf("tiny", LAYERS["tiny"])
     tol = 2 ** -5
     out = {"phase": "parity", "layers": 2, "tolerance": CHECKS["logits"]}
     # (a) batch 1, Q4_0 weights, bf16 cache (the generate path)
     laps("a wait")
-    models = {dev: load_model(path, device=dev) for dev in ("cpu", "cuda")}
+    models = _parity_models("tiny")
     cfg = models["cpu"].cfg
     ids = models["cpu"].tokenizer.encode(PROMPT)
     T = max(16, 1 << (len(ids) - 1).bit_length())  # the engine's prompt bucket
@@ -3432,7 +3686,7 @@ def phase_parity() -> dict:
     got, want = _teacher_forced(models, caches, [ids], T, [True], laps, "a")
     out["q4_0_bf16_cache_1_slot"] = _compare_logits("q4_0", got, want, tol)
     # (b) the batched path: bf16 weights, int8 cache, 4 slots, 2 of them live
-    models = {dev: load_model(path, device=dev, weights="bf16") for dev in ("cpu", "cuda")}
+    models = _parity_models("tiny", weights="bf16")
     tok = models["cpu"].tokenizer
     prompts = [tok.encode("stream 0 benchmark prompt"), [],
                tok.encode("stream 2 benchmark prompt"), []]
@@ -3452,9 +3706,8 @@ def phase_parity() -> dict:
     # bf16 cache; PARITY_7B_STEPS each
     del models, caches
     laps("b check")
-    path, _ = _wait_gguf("q8", 2)
     laps("c wait")
-    models = {dev: load_model(path, device=dev, weights="native") for dev in ("cpu", "cuda")}
+    models = _parity_models("q8", weights="native")
     cfg = models["cpu"].cfg
     kinds = {v.kind for v in models["cuda"].params["layers"].values() if hasattr(v, "kind")}
     if kinds != {"i8t"} or models["cuda"].params["output"].kind != "i8t":
@@ -3511,14 +3764,15 @@ def phase_parity() -> dict:
     out.update(_parity_moe(tol, laps, ("moe_q4k",), "j"))
     out.update(_parity_q5k(tol, laps, out))
     out.update(_parity_q2k(tol, laps, out))
+    out.update(_parity_gemma(tol, laps, out))
     out["seconds"] = time.perf_counter() - t0
     out["part_s"] = laps.parts
     return out
 
 
-def _i8c_scale_rows(path: str, device: str = "cuda") -> dict:
+def _i8c_scale_rows(path: str, device: str = "cuda", layers: int = 2) -> dict:
     """For each weight of the GGUF at `path` that weights="i8c" requantizes
-    (every non-expert Q4_0/Q8_0 tensor), the rows of its channel scale
+    (every non-expert Q4_0/Q8_0 tensor of its first `layers` layers), the rows of its channel scale
     max|w| / 127 computed on the card three ways: as channel_quantize does
     (dividing by a tensor: IEEE), as ``amax · f32(1/127)`` (the reciprocal
     multiply), and as ``amax / 127.0`` (torch's CUDA division by a Python
@@ -3534,7 +3788,8 @@ def _i8c_scale_rows(path: str, device: str = "cuda") -> dict:
     try:
         for name, info in reader.tensors.items():
             requantized = name == "output.weight" or (
-                name.startswith("blk.") and "_exps" not in name)
+                name.startswith("blk.") and "_exps" not in name
+                and int(name.split(".")[1]) < layers)
             if info.ggml_type not in (GGMLType.Q4_0, GGMLType.Q8_0) or not requantized:
                 continue
             qt = repack_gguf_tensor(reader.tensor_bytes(info), info.ggml_type, info.shape,
@@ -3561,14 +3816,12 @@ def _parity_i8(tol: float, laps, ids: list) -> dict:
     127·d, whose two quotients agree), so the bit-equality can see it."""
     import torch
 
-    from booster_tpu_torch.models import load_model
     from booster_tpu_torch.ops.kv_cache import KVCache
 
     out = {}
     for model, weights in (("q8", "i8c"), ("tiny", "i8"), ("tiny", "i8c")):
         tag = f"f {model} {weights}"
-        path, _ = _wait_gguf(model, 2)
-        models = {dev: load_model(path, device=dev, weights=weights) for dev in ("cpu", "cuda")}
+        models = _parity_models(model, weights=weights)
         laps(f"{tag} load")
         cfg = models["cpu"].cfg
         want_kind = "i8c" if weights == "i8c" else "i8t"
@@ -3583,7 +3836,8 @@ def _parity_i8(tol: float, laps, ids: list) -> dict:
                 raise AssertionError(f"parity {tag}: {key} differs between the devices")
         res = {"tensors_bit_equal": keys + ["output"]}
         if weights == "i8c":
-            res["scale_rows"] = _i8c_scale_rows(path)
+            res["scale_rows"] = _i8c_scale_rows(
+                _wait_gguf(model, LAYERS[model] if model in PARITY_SHARED else 2)[0])
             laps(f"{tag} repack check")
         if (model, weights) != ("tiny", "i8c"):  # its forward is parity (f) q8's at another width
             caches = {dev: KVCache.create(cfg.n_layers, 1, 256, cfg.n_kv_heads, cfg.head_dim,
@@ -3616,7 +3870,7 @@ def _parity_moe(tol: float, laps, files=("moe", "moe_q8"), case: str = "e") -> d
     import numpy as np
     import torch
 
-    from booster_tpu_torch.models import llama, load_model
+    from booster_tpu_torch.models import llama
     from booster_tpu_torch.ops import kernels
     from booster_tpu_torch.ops.kv_cache import KVCache
 
@@ -3624,9 +3878,8 @@ def _parity_moe(tol: float, laps, files=("moe", "moe_q8"), case: str = "e") -> d
     k = MIXTRAL["experts_used"]
     for model in files:
         tag = f"{case} {model}"
-        path, _ = _wait_gguf(model, 2)
         laps(f"{tag} wait")
-        models = {dev: load_model(path, device=dev, weights="native") for dev in ("cpu", "cuda")}
+        models = _parity_models(model, weights="native")
         cfg = models["cpu"].cfg
         lay = models["cuda"].params["layers"]
         kinds = {key: lay[key].kind for key in ("wqkv", "wo", "gate_exps", "down_exps")}
@@ -3702,12 +3955,10 @@ def _parity_q4k(tol: float, laps) -> dict:
     single-stream path over a bf16 cache, a 16-row prefill and
     PARITY_7B_STEPS decode steps, the CPU's plain versions against the
     card's kernels."""
-    from booster_tpu_torch.models import load_model
     from booster_tpu_torch.ops.kv_cache import KVCache
 
-    path, _ = _wait_gguf("q4k", 2)
     laps("i wait")
-    models = {dev: load_model(path, device=dev, weights="native") for dev in ("cpu", "cuda")}
+    models = _parity_models("q4k", weights="native")
     cfg = models["cpu"].cfg
     lay = models["cuda"].params["layers"]
     planes = {k: (v.kind, v.scales.shape[-3]) for k, v in lay.items() if hasattr(v, "kind")}
@@ -3737,16 +3988,14 @@ def _parity_q5k(tol: float, laps, out: dict) -> dict:
     int8 cache (4 slots, 2 live, T = 32), 6 decode steps each.  The CPU
     (plain versions) against the card (kernels), fed the CPU's greedy
     tokens."""
-    from booster_tpu_torch.models import load_model
     from booster_tpu_torch.ops import kernels
     from booster_tpu_torch.ops import mlp as tm
     from booster_tpu_torch.ops.kv_cache import KVCache
 
     res = {}
     for case, model in (("k", "q5k_8b"), ("l", "q5k")):
-        path, _ = _wait_gguf(model, 2)
         laps(f"{case} wait")
-        models = {dev: load_model(path, device=dev, weights="native") for dev in ("cpu", "cuda")}
+        models = _parity_models(model, weights="native")
         cfg = models["cpu"].cfg
         for dev, m in models.items():
             lay = m.params["layers"]
@@ -3813,13 +4062,11 @@ def _parity_q2k(tol: float, laps, out: dict) -> dict:
     the CPU's plain versions against the card's kernels (its launches are
     the path "parity (m)", and must hold both group-16 forms at M = 1 and
     in the tile)."""
-    from booster_tpu_torch.models import load_model
     from booster_tpu_torch.ops import kernels
     from booster_tpu_torch.ops.kv_cache import KVCache
 
-    path, _ = _wait_gguf("q2k", 2)
     laps("m wait")
-    models = {dev: load_model(path, device=dev, weights="native") for dev in ("cpu", "cuda")}
+    models = _parity_models("q2k", weights="native")
     cfg = models["cpu"].cfg
     want = {"wq": (16, 4, 0), "wk": (16, 4, 0), "wv": (32, 4, 0), "wo": (16, 2, 4),
             "w_gateup": (16, 4, 0), "w_down": (16, 2, 4)}
@@ -3849,6 +4096,77 @@ def _parity_q2k(tol: float, laps, out: dict) -> dict:
     return {"q2_k_llama3_8b_width_bf16_cache_1_slot": res}
 
 
+def _parity_gemma(tol: float, laps, out: dict) -> dict:
+    """(n) Gemma-2B at 2 layers: the first 2 layers of generate_gemma's
+    18-layer file (testing.load_first_layers), loaded on the card (Q4_0 i4t,
+    the Q6_K token table dequantized there) and its params moved to the CPU
+    (a CPU load of the 256000-row table takes about half a minute of numpy;
+    the CPU tests hold the two loads equal at a small width, and the first
+    4096 rows of the card's table are held here against the file's numpy
+    dequantization); then the single-stream path over a bf16 cache (a
+    16-row prefill, then decode steps: the GELU gate-up's matvec pair, the
+    256-lane decode attention and append) and the batched path over an
+    int8 cache (4 slots, 2 live, T = 32: the GELU tile, the 256-lane
+    chunked prefill and int8 decode), the CPU's plain versions against the
+    card's kernels (launches: the path "parity (n)")."""
+    import dataclasses
+
+    import torch
+
+    from booster_tpu_torch.gguf import GGUFReader
+    from booster_tpu_torch.models.loader import _to_device
+    from booster_tpu_torch.ops import kernels
+    from booster_tpu_torch.ops.kv_cache import KVCache
+    from booster_tpu_torch.quant import dequantize
+
+    laps("n wait")
+    card = _parity_model("gemma", "cuda", weights="native")
+    models = {"cpu": dataclasses.replace(card, params=_to_device(card.params, torch.device("cpu")),
+                                         device=torch.device("cpu")), "cuda": card}
+    reader = GGUFReader(_gguf_path(LAYERS["gemma"], "gemma"))
+    try:
+        info = reader.tensors["token_embd.weight"]
+        n = 4096 * info.shape[-1]
+        rows = dequantize(reader.tensor_bytes(info)[:n * info.nbytes // (info.shape[0]
+                                                                        * info.shape[-1])],
+                          info.ggml_type, shape=(4096, info.shape[-1]))
+    finally:
+        reader.close()
+    table = card.params["tok_embd"][:4096].cpu()
+    if not torch.equal(table, torch.from_numpy(rows).to(torch.bfloat16)):
+        raise AssertionError("parity gemma (n): the card's token table differs from the file's")
+    cfg = card.cfg
+    if card.params["output"] is not None or cfg.head_dim != 256 or cfg.act != "gelu":
+        raise AssertionError(f"parity gemma (n): head {card.params['output']}, {cfg}")
+    laps("n load")
+    kernels.reset_counts()
+    ids = models["cpu"].tokenizer.encode(PROMPT)
+    caches = {dev: KVCache.create(cfg.n_layers, 1, 256, cfg.n_kv_heads, cfg.head_dim, dev)
+              for dev in models}
+    got, want = _teacher_forced(models, caches, [ids], 16, [True], laps, "n",
+                                steps=PARITY_7B_STEPS)
+    res = {"single": _compare_logits("gemma (n) single", got, want, tol)}
+    tok = models["cpu"].tokenizer
+    prompts = [tok.encode("stream 0 benchmark prompt"), [],
+               tok.encode("stream 2 benchmark prompt"), []]
+    caches = {dev: KVCache.create(cfg.n_layers, 4, 512, cfg.n_kv_heads, cfg.head_dim, dev,
+                                  quantized=True) for dev in models}
+    got, want = _teacher_forced(models, caches, prompts, 32, [True, False, True, False], laps,
+                                "n", steps=PARITY_7B_STEPS)
+    res["batched"] = _compare_logits("gemma (n) batched", got, want, tol)
+    counts = dict(kernels.launch_counts)
+    res["card_launches"] = {k: v for k, v in counts.items() if v}
+    need = ("qmm_i4t_gateup_gelu_gd", "qmm_i4t_gateup_gelu_dq", "decode_attn_d256",
+            "kv_append_d256", "decode_attn_i8_d256", "kv_append_i8_d256", "prefill_attn_i8_d256")
+    if not all(counts[k] for k in need) or counts["qmm_i4t_gateup_gd"] or counts[
+            "qmm_i4t_gateup_dq"]:
+        raise AssertionError(f"parity gemma (n): the card's launches {res['card_launches']}")
+    out.setdefault("_paths", {})["parity (n)"] = (counts, dict(kernels.shape_counts))
+    del models, caches, card
+    laps("n check")
+    return {"gemma_2b_width_bf16_cache_1_slot_and_int8_cache_4_slots": res}
+
+
 def _parity_q6k(tol: float, laps) -> dict:
     """(g) the DeepSeek-Coder-1.3B width at 2 layers as llama.cpp's Q6_K
     file (Q8_0 ffn_down): loaded on the CPU and the card with the
@@ -3860,12 +4178,10 @@ def _parity_q6k(tol: float, laps) -> dict:
     dequant forms at group 16 and prefill attention at G = 1), the CPU
     (plain versions) against the card (kernels), fed the CPU's greedy
     tokens."""
-    from booster_tpu_torch.models import load_model
     from booster_tpu_torch.ops.kv_cache import KVCache
 
-    path, _ = _wait_gguf("q6k", 2)
     laps("g wait")
-    models = {dev: load_model(path, device=dev, weights="native") for dev in ("cpu", "cuda")}
+    models = _parity_models("q6k", weights="native")
     cfg = models["cpu"].cfg
     for dev, m in models.items():
         lay = m.params["layers"]
@@ -3909,13 +4225,11 @@ def _parity_mpt(tol: float, laps) -> dict:
     rows (no multiple of 128: the plain row writes); 2 decode steps each,
     the CPU (plain versions) against the card (kernels), fed the CPU's
     greedy tokens."""
-    from booster_tpu_torch.models import load_model
     from booster_tpu_torch.ops import kernels
     from booster_tpu_torch.ops.kv_cache import KVCache
 
-    path, _ = _wait_gguf("mpt", 2)
     laps("h wait")
-    models = {dev: load_model(path, device=dev, weights="native") for dev in ("cpu", "cuda")}
+    models = _parity_models("mpt", weights="native")
     cfg = models["cpu"].cfg
     for dev, m in models.items():
         lay = m.params["layers"]
@@ -3958,12 +4272,14 @@ def _parity_mpt(tol: float, laps) -> dict:
 # -- phase 4 -----------------------------------------------------------------
 
 
-def _profile(run, steps: int, watch=()) -> dict:
+def _profile(run, steps: int, watch=(), forbid=()) -> dict:
     """One more run of a path under torch.profiler: the kernels' device time (the
     sum over CUDA kernel events; one stream, so they do not overlap), their
     count per decoded token, the kernels that take the most time, and for
     each name in `watch` the time, count and share of the kernel time of the
-    kernels whose names hold it.  The
+    kernels whose names hold it (a name "re:<pattern>": whose names match
+    the regular expression); a kernel whose name matches a pattern of
+    `forbid` fails the run (a form the path must not take).  The
     profiler stretches the host side, so shares are taken against the wall
     time of the unprofiled run by the caller.  The device events are summed
     from the trace's own records: key_averages() first builds a Python event
@@ -3986,13 +4302,21 @@ def _profile(run, steps: int, watch=()) -> dict:
     if not rows:
         return {"kernel_ms": None, "note": "the trace held no device events", **secs}
     kernel_ms = sum(r[1] for r in rows)
+
+    def hit(w, k):
+        return re.search(w[3:], k) is not None if w.startswith("re:") else w in k
+
     watched = {}
     for w in watch:
-        ms = sum(ns for k, (ns, _) in by_name.items() if w in k) / 1e6
-        watched[w] = {"ms": ms, "launches": sum(n for k, (_, n) in by_name.items() if w in k),
+        ms = sum(ns for k, (ns, _) in by_name.items() if hit(w, k)) / 1e6
+        watched[w] = {"ms": ms, "launches": sum(n for k, (_, n) in by_name.items() if hit(w, k)),
                       "share_of_kernel_ms": ms / kernel_ms}
         if not watched[w]["launches"]:  # the path's counts saw it: the name is wrong
             raise AssertionError(f"profile: no kernel named like {w!r} in the trace")
+    for f in forbid:
+        seen = [k for k in by_name if re.search(f, k)]
+        if seen:
+            raise AssertionError(f"profile: the path launched {seen[:3]}, a form it must not take")
     return {**secs, "kernel_ms": kernel_ms,
             "kernel_launches_per_decoded_token": sum(r[2] for r in rows) / steps,
             "top_kernels_ms": [[k, round(ms, 3), n] for k, ms, n in rows[:12]],
@@ -4097,7 +4421,8 @@ def _big_model(model: str, layers: int = 32, weights: str = "auto"):
                          load_max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 2**30)
         kinds = {k: (v.kind, v.group) for k, v in m.params["layers"].items()
                  if hasattr(v, "kind")}
-        kinds["output"] = (m.params["output"].kind, m.params["output"].group)
+        if m.params["output"] is not None:  # Gemma ties its head to the token table
+            kinds["output"] = (m.params["output"].kind, m.params["output"].group)
         if weights == "i8c":
             kinds = {k: kind for k, (kind, _) in kinds.items()}
             want = dict.fromkeys(kinds, "i8c")
@@ -4124,6 +4449,12 @@ def _big_model(model: str, layers: int = 32, weights: str = "auto"):
             if forms != {"wq": (4, 0), "wk": (4, 0), "wv": (4, 0), "wo": (2, 4),
                          "w_gateup": (4, 0), "w_down": (2, 4)}:
                 raise AssertionError(f"{model}: (planes, zero) {forms}")
+        elif model == "gemma":  # llama.cpp's Q4_0 mix, no head: the bf16 token table
+            want = dict.fromkeys(kinds, ("i4t", 32))
+            emb = m.params["tok_embd"]
+            if m.params["output"] is not None or emb.dtype != torch.bfloat16 or tuple(
+                    emb.shape) != (GEMMA_2B["vocab_size"], GEMMA_2B["hidden"]):
+                raise AssertionError(f"{model}: head {m.params['output']}, table {emb.shape}")
         elif model == "q4k":  # every weight K-major i4t with Q4_K's four planes
             want = dict.fromkeys(kinds, ("i4t", 32))
             planes = {k: v.scales.shape[-3] for k, v in m.params["layers"].items()
@@ -4164,11 +4495,11 @@ GENERATE = {"generate": ("tiny", None), "generate_q8": ("q8", None),
             "generate_moe": ("moe", None), "generate_i8": ("tiny", "i8"),
             "generate_i8c": ("q8", "i8c"), "generate_q6k": ("q6k", "native"),
             "generate_q5k": ("q5k", "native"), "generate_mpt": ("mpt", "native"),
-            "generate_q2k": ("q2k", "native")}
+            "generate_q2k": ("q2k", "native"), "generate_gemma": ("gemma", "native")}
 BATCH = {"batch": ("tiny", None), "batch_q8": ("q8", None), "batch_moe": ("moe", None),
          "batch_i8c": ("q8", "i8c"), "batch_q6k": ("q6k", "native"),
          "batch_q5k": ("q5k", "native"), "batch_mpt": ("mpt", "native"),
-         "batch_q2k": ("q2k", "native")}
+         "batch_q2k": ("q2k", "native"), "batch_gemma": ("gemma", "native")}
 
 
 def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str] = None) -> dict:
@@ -4191,9 +4522,10 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
     name = {v: k for k, v in GENERATE.items()}[(model_name, weights)]
     q8, moe, q6k = model_name == "q8" and weights is None, model_name == "moe", model_name == "q6k"
     mpt, q5k, q2k = model_name == "mpt", model_name == "q5k", model_name == "q2k"
+    gemma = model_name == "gemma"
     load_gpu_gb = None
     torch.cuda.reset_peak_memory_stats()
-    if model_name in ("q8", "moe", "q6k", "mpt", "q5k", "q2k"):
+    if model_name in ("q8", "moe", "q6k", "mpt", "q5k", "q2k", "gemma"):
         big = _big_model(model_name, layers, weights or "auto")
         model, t_build, t_load = big["model"], big["build_s"], big["load_s"]
         t_wait, load_rss = big["wait_s"], big["load_rss_gb"]
@@ -4252,6 +4584,13 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
             "qmm_i4t_g16m_dq": 2 * L, "qmm_i4t_dq": L, "qmm_i4t_g16_dq": 2 * L,
             "qmm_i4t_gateup_g16m_dq": L, "qmm_i8t_gd": steps + 1,
             "decode_attn": L * steps, "kv_append": steps}
+    elif gemma:  # qkv, wo and down on the M = 1 matvec, the gate-up with its GELU
+        # epilogue; at the 16-row prefill the tile's forms; the 256-lane decode
+        # attention and append; the tied head one torch product (no kernel)
+        expected = dict.fromkeys(counts, 0) | {
+            "qmm_i4t_gd": 3 * L * steps, "qmm_i4t_dq": 3 * L,
+            "qmm_i4t_gateup_gelu_gd": L * steps, "qmm_i4t_gateup_gelu_dq": L,
+            "decode_attn_d256": L * steps, "kv_append_d256": steps}
     elif mpt:  # ALiBi closes the fused decode gate (llama.py:96): each step runs the
         # masked layer loop, whose update_layer takes the per-layer append
         # (kv_cache.py:137-143) and whose attention is plain; qkv, wo, up and
@@ -4301,6 +4640,16 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
         want[("qmm_i8t_gd", (C, V))] = steps + 1
         if shape_counts != want:
             raise AssertionError(f"{name}: launches by shape {shape_counts} != {want}")
+    if gemma:  # every matmul launch by shape: qkv, wo, down and the GELU gate-up
+        C, FF, Dh = model.cfg.n_embd, model.cfg.n_ff, model.cfg.head_dim
+        nq, nqkv = model.cfg.n_heads * Dh, (model.cfg.n_heads + 2 * model.cfg.n_kv_heads) * Dh
+        want = {}
+        for form, n in (("gd", L * steps), ("dq", L)):
+            want |= {(f"qmm_i4t_{form}", (C, nqkv)): n, (f"qmm_i4t_{form}", (nq, C)): n,
+                     (f"qmm_i4t_{form}", (FF, C)): n,
+                     (f"qmm_i4t_gateup_gelu_{form}", (C, 2 * FF)): n}
+        if shape_counts != want:
+            raise AssertionError(f"{name}: launches by shape {shape_counts} != {want}")
     if weights and fallbacks.calls:
         raise AssertionError(f"{name}: {fallbacks.calls} matmuls took the dequantize path")
     # the trace covers a 32-token generate: summing one of 128 tokens (130 K
@@ -4323,9 +4672,14 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
                  "dq_kernel<16, 32, false, true>", "dq_kernel<16, 32, true, true>")
     if q2k:  # the group-16 matvecs (with mins, with zero 4), the prefill's tile at G 16
         watch = ("i4mv::mv_kernel<16, true", "i4mv::mv_kernel<16, false",
-                 "mm_kernel<32, false, 16>", "mm_kernel<32, true, 16>")
+                 "mm_kernel<32, true, 16,", "mm_kernel<32, false, 16,")
+    forbid = ()
+    if gemma:  # the GELU gate-up's matvec pair (i8mv::kGateUpGelu) and prefill tile (act
+        # 1), the 256-lane decode attention; no SiLU gate-up, no 128-lane attention
+        watch = (GELU_MV, "mm_kernel<32, true, 32, 1>", "decode_attn_kernel<false, false, 256>")
+        forbid = (SILU_MV, r"mm_kernel<\d+, true, 32, 0>", r"decode_attn_kernel<.*128>")
     prof = _profile(lambda: short.generate(ids, sp, max_new_tokens=32), steps=32,
-                    watch=watch + (("::kv_append_kernel",) if mpt else ()))
+                    watch=watch + (("::kv_append_kernel",) if mpt else ()), forbid=forbid)
     prof["window"] = "a 32-token generate (decode_chunk 32)"
     del short
     laps("profile")
@@ -4347,7 +4701,9 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
                         "generate_mpt": "q4_0 (i4t) with a q6_k head (i8t g16)",
                         "generate_q2k": "q2_k mix: q2_k (i4t g16 with mins), q3_k wo and "
                                         "ffn_down (i4t g16, zero 4), a q4_k attn_v (i4t g32 "
-                                        "with mins), a q6_k head (i8t g16)"}[name],
+                                        "with mins), a q6_k head (i8t g16)",
+                        "generate_gemma": "q4_0 (i4t; the gate-up's GELU epilogue), a q6_k "
+                                          "token table (dense bf16: the tied head)"}[name],
             "gguf_build_s": t_build, "gguf_wait_s": t_wait, "load_s": t_load,
             "load_rss_gb": load_rss, "load_max_memory_allocated_gb": load_gpu_gb,
             "dequantize_fallbacks": fallbacks.calls,
@@ -4611,17 +4967,19 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
     name = {v: k for k, v in BATCH.items()}[(model_name, weights)]
     q8, moe, i8c = model_name == "q8" and weights is None, model_name == "moe", weights == "i8c"
     q6k, mpt, q5k = model_name == "q6k", model_name == "mpt", model_name == "q5k"
-    q2k = model_name == "q2k"
+    q2k, gemma = model_name == "q2k", model_name == "gemma"
     torch.cuda.reset_peak_memory_stats()
-    if q8 or moe or i8c or q6k or mpt or q5k or q2k:
+    if q8 or moe or i8c or q6k or mpt or q5k or q2k or gemma:
         big = _big_model(model_name, layers, weights or "auto")
         model, t_load = big["model"], big["load_s"]
         reader = GGUFReader(_gguf_path(layers, model_name))
         try:  # bench_batch's load_model(weights="auto", batch_hint=64): the same model
             # (the 1.3B file fits 6 GiB as bf16, so "auto" would take bf16
             # there: batch_q6k asks for native weights, to run the Q6_K kernels)
-            # (the 8B Q2_K file is loaded native too: its kernels are the phase's point)
-            if not (i8c or q6k or q5k or q2k) and resolve_weights(reader, "auto", 64) != "native":
+            # (the 8B Q2_K file is loaded native too: its kernels are the phase's point;
+            # so is Gemma-2B's, which "auto" would take as bf16 at 64 streams)
+            if not (i8c or q6k or q5k or q2k or gemma) and resolve_weights(
+                    reader, "auto", 64) != "native":
                 raise AssertionError(f"{model_name}: weights=auto at batch_hint=64 is not native")
         finally:
             reader.close()
@@ -4643,7 +5001,7 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
     # chunk of any length runs the same ops
     _bench_batch(eng, model.tokenizer, B, *((4, 4) if mpt else (32,)))
     laps("warm-up")
-    syncs = _SyncCheck(eng) if moe or i8c or q6k or mpt or q5k or q2k else None
+    syncs = _SyncCheck(eng) if moe or i8c or q6k or mpt or q5k or q2k or gemma else None
     kernels.reset_counts()
     with _FallbackCount() as fallbacks:
         res = _bench_batch(eng, model.tokenizer, B, n_tokens)
@@ -4661,10 +5019,14 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
     if q2k and T != BATCH_Q2K_T:
         raise AssertionError(f"batch_q2k: prompt bucket {T}, the kernels phase times "
                              f"{BATCH_Q2K_T}")
+    if gemma and T != BATCH_GEMMA_T:
+        raise AssertionError(f"batch_gemma: prompt bucket {T}, the kernels phase times "
+                             f"{BATCH_GEMMA_T}")
     prefill_chunks = 1  # every prompt fits one chunk of the engine's 512
+    sfx = "_d256" if gemma else ""  # Gemma's 256-lane cache: the attention's _d256 forms
     expected = dict.fromkeys(counts, 0) | ({} if mpt else {
-        "decode_attn_i8": layers * steps, "kv_append_i8": steps,
-        "prefill_attn_i8": layers * prefill_chunks})
+        "decode_attn_i8" + sfx: layers * steps, "kv_append_i8" + sfx: steps,
+        "prefill_attn_i8" + sfx: layers * prefill_chunks})
     if q8:  # M = 64 a step; M = 64·T at the prefill, its lm head on 64 rows
         expected |= {"qmm_i8t_dq": (2 * layers + 1) * steps + (3 * layers + 1) * prefill_chunks,
                      "mlp_i8t": layers * steps, "qmm_i8t_gateup_dq": layers * prefill_chunks}
@@ -4689,8 +5051,12 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
         expected |= {"qmm_i4t_g16m_dq": 2 * layers * n, "qmm_i4t_dq": layers * n,
                      "qmm_i4t_g16_dq": 2 * layers * n, "qmm_i4t_gateup_g16m_dq": layers * n,
                      "qmm_i8t_dq": n}
+    if gemma:  # qkv, wo, down and the GELU gate-up at M = 64 and 64·T; the tied head a
+        # torch product
+        n = steps + prefill_chunks
+        expected |= {"qmm_i4t_dq": 3 * layers * n, "qmm_i4t_gateup_gelu_dq": layers * n}
     if counts != expected or (kernels.shape_counts and not (q8 or moe or i8c or q6k or mpt
-                                                             or q5k or q2k)):
+                                                             or q5k or q2k or gemma)):
         raise AssertionError(f"batch: launch counts {counts} != expected {expected}")
     if q5k:  # every matmul launch by shape, at the decode steps and the prefill chunk
         C, V, FF, n = model.cfg.n_embd, model.cfg.n_vocab, model.cfg.n_ff, steps + prefill_chunks
@@ -4708,7 +5074,15 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
                 ("qmm_i4t_gateup_g16m_dq", (C, 2 * FF)): layers * n, ("qmm_i8t_dq", (C, V)): n}
         if kernels.shape_counts != want:
             raise AssertionError(f"{name}: launches by shape {kernels.shape_counts} != {want}")
-    if (i8c or q6k or mpt or q5k or q2k) and fallbacks.calls:
+    if gemma:  # every matmul launch by shape, at the decode steps and the prefill chunk
+        C, FF, Dh, n = model.cfg.n_embd, model.cfg.n_ff, model.cfg.head_dim, steps + prefill_chunks
+        nq, nqkv = model.cfg.n_heads * Dh, (model.cfg.n_heads + 2 * model.cfg.n_kv_heads) * Dh
+        want = {("qmm_i4t_dq", (C, nqkv)): layers * n, ("qmm_i4t_dq", (nq, C)): layers * n,
+                ("qmm_i4t_dq", (FF, C)): layers * n,
+                ("qmm_i4t_gateup_gelu_dq", (C, 2 * FF)): layers * n}
+        if kernels.shape_counts != want:
+            raise AssertionError(f"{name}: launches by shape {kernels.shape_counts} != {want}")
+    if (i8c or q6k or mpt or q5k or q2k or gemma) and fallbacks.calls:
         raise AssertionError(f"{name}: {fallbacks.calls} matmuls took the dequantize path")
     shape_counts = dict(kernels.shape_counts)
     V = model.cfg.n_vocab
@@ -4732,10 +5106,18 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
         watch = ("dq_kernel<64, 32, false, true>", "dq_kernel<64, 32, true, true>",
                  "lane_kernel<false, 64, true>", "dq_kernel<256, 32, true, true>")
     if q2k:  # the tile at G 16 at the decode steps' M = 64 and the 2048-row prefill
-        watch = ("mm_kernel<64, false, 16>", "mm_kernel<64, true, 16>",
-                 "mm_kernel<128, false, 16>")
+        watch = ("mm_kernel<64, false, 16,", "mm_kernel<64, true, 16,",
+                 "mm_kernel<128, false, 16,")
+    forbid = ()
+    if gemma:  # the GELU gate-up tile at M = 64 and the 2048-row prefill, the 256-lane
+        # int8 decode and prefill attention (64 rows a block: 4 m16 tiles, 2 warps
+        # a tile) and append (two passes a row); no SiLU gate-up, no 128-lane form
+        watch = ("mm_kernel<64, true, 32, 1>", "mm_kernel<128, true, 32, 1>",
+                 "decode_attn_kernel<true, false, 256>", "prefill_attn_kernel<2, 256>",
+                 "kv_append_i8_kernel<2>")
+        forbid = (r"mm_kernel<\d+, true, 32, 0>", r"attn_kernel<.*128>", r"kv_append_i8_kernel<1>")
     prof = _profile(lambda: _bench_batch(eng, model.tokenizer, B, 32),
-                    steps=short["decode_steps"], watch=watch)
+                    steps=short["decode_steps"], watch=watch, forbid=forbid)
     laps("profile")
     prof["window"] = f"bench_batch to 32 tokens ({short['decode_steps']} steps)"
     if prof["kernel_ms"] is not None:
@@ -4750,7 +5132,9 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
                         "batch_mpt": "q4_0 (i4t) with a q6_k head (i8t g16)",
                         "batch_q2k": "q2_k mix: q2_k (i4t g16 with mins), q3_k wo and "
                                      "ffn_down (i4t g16, zero 4), a q4_k attn_v (i4t g32 with "
-                                     "mins), a q6_k head (i8t g16)"}[name],
+                                     "mins), a q6_k head (i8t g16)",
+                        "batch_gemma": "q4_0 (i4t; the gate-up's GELU epilogue), a q6_k "
+                                       "token table (dense bf16: the tied head)"}[name],
             "load_s": t_load, "dequantize_fallbacks": fallbacks.calls,
             "host_syncs_in_dispatches": None if syncs is None else syncs.host_syncs,
             "decode_dispatches_checked": None if syncs is None else syncs.chunks,
@@ -5072,10 +5456,14 @@ def main(argv=None) -> int:
             failed.append(name)
             return None
 
-    jobs = (([("tiny", 2), ("q8", 2)] if "parity" in phases else [])
+    # parity reads the first 2 layers of the full-depth TinyLlama, Mixtral
+    # and Gemma files (PARITY_SHARED), so those come early; the rest of its
+    # files are 2-layer files of their own
+    jobs = (([("tiny", LAYERS["tiny"]), ("q8", 2)] if "parity" in phases else [])
             + ([("tiny", 22)] if {"generate", "batch", "generate_i8"} & set(phases) else [])
-            + ([("moe", 2), ("moe_q8", 2), ("q6k", 2), ("mpt", 2), ("q4k", 2), ("moe_q4k", 2),
-                ("q5k_8b", 2), ("q5k", 2), ("q2k", 2)] if "parity" in phases else [])
+            + ([("moe", LAYERS["moe"]), ("gemma", LAYERS["gemma"]), ("moe_q8", 2), ("q6k", 2),
+                ("mpt", 2), ("q4k", 2), ("moe_q4k", 2), ("q5k_8b", 2), ("q5k", 2), ("q2k", 2)]
+               if "parity" in phases else [])
             + ([("q8", 32)] if {"generate_q8", "batch_q8", "server", "generate_i8c",
                                 "batch_i8c"} & set(phases) else [])
             + ([("q6k", 24)] if {"generate_q6k", "batch_q6k"} & set(phases) else [])
@@ -5083,9 +5471,11 @@ def main(argv=None) -> int:
             + ([("mpt", 32)] if {"generate_mpt", "batch_mpt"} & set(phases) else [])
             + ([("q4k", 32)] if "generate_q4k" in phases else [])
             + ([("q2k", 32)] if {"generate_q2k", "batch_q2k"} & set(phases) else [])
+            + ([("gemma", LAYERS["gemma"])] if {"generate_gemma", "batch_gemma"} & set(phases)
+               else [])
             + ([("moe", LAYERS["moe"])] if {"generate_moe", "batch_moe"} & set(phases)
                else []))
-    _start_writer(jobs)
+    _start_writer(list(dict.fromkeys(jobs)))
     try:
         return _run_phases(phases, run, entries, failed, t_all)
     finally:
@@ -5123,7 +5513,7 @@ def _run_phases(phases, run, entries, failed, t_all) -> int:
     runs = ("generate", "batch", "generate_i8", "generate_q8", "batch_q8", "server",
             "generate_i8c", "batch_i8c", "generate_q6k", "batch_q6k", "generate_q5k",
             "batch_q5k", "generate_mpt", "batch_mpt", "generate_q4k", "generate_q2k",
-            "batch_q2k", "generate_moe", "batch_moe")
+            "batch_q2k", "generate_gemma", "batch_gemma", "generate_moe", "batch_moe")
     for name in runs:
         phase = (phase_generate if name in GENERATE else phase_batch if name in BATCH
                  else (lambda layers, *_: phase_generate_q4k(layers))
@@ -5142,6 +5532,8 @@ def _run_phases(phases, run, entries, failed, t_all) -> int:
             _big.pop(("mpt", "native"), None)
         if model == "q2k":
             _big.pop(("q4k", "auto"), None)
+        if model == "gemma":
+            _big.pop(("q2k", "native"), None)
         if model == "moe":
             _big.clear()  # the 7B models make room for the Mixtral's 16.5 GB
         if name not in phases:

@@ -27,8 +27,16 @@ from booster_tpu_torch.ops import decode_attention as tda  # noqa: E402
 from booster_tpu_torch.ops import kv_append as tka  # noqa: E402
 from booster_tpu_torch.testing import (decode_attn_case, decode_attn_limit,  # noqa: E402
                                        decode_attn_mutants)
+from booster_tpu_torch.testing import torch_threads  # noqa: E402
 
 ATOL = 2e-3
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads a worker while this file runs (testing.torch_threads)."""
+    with torch_threads(2):
+        yield
 
 
 @pytest.fixture(autouse=True)

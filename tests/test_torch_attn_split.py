@@ -21,6 +21,7 @@ from booster_tpu_torch.ops.prefill_attention import prefill_attn_plain
 from booster_tpu_torch.testing import (decode_attn_case, decode_attn_limit, decode_attn_mutants,
                                        decode_attn_split, prefill_attn_case, prefill_attn_limit,
                                        prefill_attn_mutants, prefill_attn_split)
+from booster_tpu_torch.testing import torch_threads
 
 S = 512
 # 0 and 1 column, each side of the 128- and 256-column slice boundaries, the
@@ -28,6 +29,13 @@ S = 512
 LENS = [0, 1, 127, 128, 129, 255, 256, 257, S]
 FORMS = {"self": (S + 1, 0.0, True), "no self": (S + 1, 0.0, False),
          "window 64 softcap 30": (64, 30.0, True), "window 300": (300, 0.0, True)}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads a worker while this file runs (testing.torch_threads)."""
+    with torch_threads(2):
+        yield
 
 
 def _decode_args(quantized, G, form):

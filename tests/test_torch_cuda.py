@@ -211,7 +211,7 @@ def test_i4t_cluster_launch_refuses_a_bad_split_count(cuda):
     stream = torch.cuda.current_stream().cuda_stream
     for ks in (0, 9):
         rc = lib.bt_qmm_i4t(x.data_ptr(), w.qw.data_ptr(), w.scales.data_ptr(), out.data_ptr(),
-                            1024, 256, 2, 8, 32, 0, ks, stream)
+                            1024, 256, 2, 8, 32, 0, 0, ks, stream)
         assert rc != 0
     torch.cuda.synchronize()
     assert bool((out == 7.0).all())
@@ -1489,3 +1489,178 @@ def test_janus_shortlist_on_cuda_equals_cpu(cuda):
     keep = torch.isfinite(a)
     rel = ((a[keep] - b[keep]).abs() / a[keep].abs()).max()
     assert rel <= 1e-5, rel
+
+
+# -- Gemma: the GELU gate-up and the 256-lane attention and appends ------------
+
+
+@pytest.mark.parametrize("m", [1, 2, 16, 64, 130])
+@pytest.mark.parametrize("mins", [False, True], ids=["R2", "R4"])
+def test_gateup_gelu_equals_qmm_then_gelu_mul(cuda, m, mins):
+    """The i4t gate-up with the GELU epilogue (group 32: the M = 1 matvec
+    pair of i4mv.cuh, the tile above) equals the matmul kernel on the fused
+    weight + gelu·mul bit for bit, holds the gate-up limit against its
+    plain version (or gives an output of one-ulp roundings of g and u:
+    testing.gateup_flips), and is not its SiLU form."""
+    from booster_tpu_torch.testing import gateup_flips
+
+    gen = torch.Generator(device="cuda").manual_seed(60 + m)
+    w = _w(2, 2048, 2 * 512, gen, mins).at(1)
+    x = torch.randn(m, 2048, device="cuda", generator=gen).to(torch.bfloat16)
+    got = tq.qmm_i4t_gateup(x, w, "gelu")
+    gu = tq.qmm_i4t(x, w).to(torch.bfloat16)
+    assert torch.equal(got, tq.gelu(gu[:, :512]) * gu[:, 512:])
+    want = tq.qmm_gateup_plain(x, w, act="gelu").float()
+    d = (got.float() - want).abs()
+    gp = tq.qmm_plain(x, w).to(torch.bfloat16)
+    flips = gateup_flips(got, gp[:, :512], gp[:, 512:], "gelu")
+    assert ((d <= 2 ** -7 * want.abs() + 1e-5 * want.abs().max()) | flips).all()
+    assert not torch.equal(got, tq.qmm_i4t_gateup(x, w, "silu"))
+
+
+def test_gateup_acts_not_ported_raise(cuda):
+    """ReLU on any kind, GELU at group 16 and GELU on int8 weights raise
+    "not ported yet" on the card: nothing falls back."""
+    gen = torch.Generator(device="cuda").manual_seed(66)
+    x = torch.randn(1, 1024, device="cuda", generator=gen).to(torch.bfloat16)
+    w = _w(1, 1024, 512, gen).at(0)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        tq.qmm_i4t_gateup(x, w, "relu")
+    w16 = dataclasses.replace(w.resolved(), group=16,
+                              scales=torch.zeros(2, 32, 512, device="cuda", dtype=torch.bfloat16))
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        tq.qmm_i4t_gateup(x, w16, "gelu")
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        tq.qmm_i8t_gateup(x, _w8(1, 1024, 512, gen).at(0), "gelu")
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("B,lens", [(1, [150]), (1, [500]), (3, [300, 1, 1023])])
+def test_decode_attn_256_lanes(cuda, quantized, B, lens):
+    """Decode attention over a 256-lane cache (Gemma: one kv head of 8 query
+    heads, head dim 256) within its limit, and each wrong kernel of
+    testing.decode_attn_mutants (lanes 128-255 dropped among them) 8x past
+    it; the launch counts under the 256-lane form's name."""
+    from booster_tpu_torch.testing import decode_attn_mutants
+
+    args = decode_attn_case(2, B, 1, 8, 1024, 256, 256, lens, "cuda", seed=sum(lens),
+                            quantized=quantized)
+    kernels.reset_counts()
+    got, want = da.decode_attn(*args), da.decode_attn_plain(*args)
+    name = "decode_attn_i8_d256" if quantized else "decode_attn_d256"
+    assert kernels.launch_counts[name] == 1
+    limit = decode_attn_limit(args)
+    assert ((got - want).abs() <= limit).all()
+    mutants = decode_attn_mutants(args)
+    assert "lanes 128-255 dropped" in mutants
+    for what, margs in mutants.items():
+        if what == "column past the end read" and max(lens) == 1023:
+            continue
+        seen = float(((da.decode_attn_plain(*margs) - want).abs() / limit).max())
+        assert seen >= 8, (what, seen)
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("B,Hkv,G,S,lens", [(64, 1, 8, 512, [150, 500] * 32),
+                                            (1, 16, 1, 2048, [2000])],
+                         ids=["gemma2b-batch", "gemma7b"])
+def test_decode_attn_256_lanes_multi_stage(cuda, quantized, B, Hkv, G, S, lens):
+    """Decode attention over a 256-lane cache where a slice spans several
+    stages (few slices against lens: Gemma-2B's 64 slots take 2, Gemma-7B's
+    16 kv heads 8): within its limit of the plain version and of the CPU
+    mirror testing.decode_attn_split, whose warps take no column past their
+    stage (at 64 bf16 columns a stage, warps 4-7 none)."""
+    from booster_tpu_torch.testing import decode_attn_split
+
+    nsplit = da.decode_splits(B, Hkv, S, quantized, 256)
+    per = -(-max(lens) // nsplit)
+    assert per > da.stage_cols(256, quantized)  # some slice spans several stages
+    args = decode_attn_case(2, B, Hkv, G, S, 256, 256, lens, "cuda", seed=B + Hkv,
+                            quantized=quantized)
+    got, want = da.decode_attn(*args), da.decode_attn_plain(*args)
+    limit = decode_attn_limit(args)
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs() <= limit).all()
+    assert ((got - decode_attn_split(args, nsplit)).abs() <= limit).all()
+
+
+@pytest.mark.parametrize("G,T,pos", [(2, 16, 0), (2, 32, 200), (8, 32, 0), (8, 32, 200)])
+def test_prefill_attn_256_lanes(cuda, G, T, pos):
+    """Chunked-prefill attention over a 256-lane int8 cache at G = 2 and
+    Gemma's G = 8 (64 query rows a block) within its limit, each wrong
+    kernel 8x past it."""
+    from booster_tpu_torch.testing import prefill_attn_mutants
+
+    n_valid = [T, max(1, T // 3), 1]
+    args = prefill_attn_case(3, 1, G, T, 512, 256, 256, [pos] * 3, n_valid, "cuda", seed=G + T)
+    kernels.reset_counts()
+    got, want = pa.prefill_attn(*args), pa.prefill_attn_plain(*args)
+    assert kernels.launch_counts["prefill_attn_i8_d256"] == 1
+    limit = prefill_attn_limit(args)
+    assert ((got - want).abs() <= limit).all()
+    mutants = prefill_attn_mutants(args)
+    assert "lanes 128-255 dropped" in mutants
+    for what, margs in mutants.items():
+        seen = float(((pa.prefill_attn_plain(*margs) - want).abs() / limit).max())
+        assert seen >= 8, (what, seen)
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("L,B", [(18, 1), (3, 64)])
+def test_kv_append_all_layers_256_lanes(cuda, quantized, L, B):
+    """The all-layer append into a 256-lane cache (a warp a row: 8 values a
+    lane at int8) equals its plain version bit for bit, payloads and
+    scales, a zero row and offsets at 0 and S - 1 among them."""
+    gen = torch.Generator(device="cuda").manual_seed(70 + B)
+    S, D = 64, 256
+    base = torch.randn(L, B, 1, S, D, device="cuda", generator=gen)
+    if quantized:
+        k, ks = _quantize_kv(base)
+        cache = [k, k.clone(), ks, ks.clone()]
+    else:
+        cache = [base.to(torch.bfloat16), (-base).to(torch.bfloat16), None, None]
+    out = [cache, [None if t is None else t.clone() for t in cache]]
+    new = (torch.randn(2, L, B, 1, D, device="cuda", generator=gen) * 3).to(torch.bfloat16)
+    new[0, 0, 0] = 0
+    off = torch.randint(0, S, (B,), dtype=torch.int32, device="cuda", generator=gen)
+    off[0] = S - 1
+    kernels.reset_counts()
+    ka.kv_append(out[0][0], out[0][1], new[0], new[1], off, out[0][2], out[0][3])
+    assert kernels.launch_counts["kv_append_i8_d256" if quantized else "kv_append_d256"] == 1
+    ka.kv_append_plain(out[1][0], out[1][1], new[0], new[1], off, out[1][2], out[1][3])
+    for got, want in zip(*out):
+        assert got is None or torch.equal(got, want)
+
+
+def test_paged_forms_refuse_256_lanes(cuda):
+    """The paged decode attention and append stay at 128 lanes: a 256-lane
+    pool raises "not ported yet"."""
+    args = paged_attn_case(1, 2, 1, 8, 128, 2, 256, 256, [100, 50], "cuda", seed=3)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        pga.paged_attn(*args)
+    pool = torch.zeros(1, 3, 1, 128, 256, device="cuda", dtype=torch.bfloat16)
+    row = torch.zeros(1, 2, 1, 256, device="cuda", dtype=torch.bfloat16)
+    table = torch.tensor([[1], [2]], dtype=torch.int32, device="cuda")
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        ka.kv_append_all_layers_paged(pool, pool.clone(), row, row,
+                                      torch.zeros(2, dtype=torch.int32, device="cuda"), table)
+
+
+def test_tied_head_on_the_card(cuda):
+    """The tied head at Gemma's width: one product of the bf16 x and the bf16
+    table with an f32 output, within f32 summation order of the CPU's f32
+    product of the same operands, and no f32 copy of the table."""
+    from booster_tpu_torch.models.llama import tied_head
+
+    gen = torch.Generator(device="cuda").manual_seed(80)
+    emb = (torch.randn(4096, 2048, device="cuda", generator=gen) * 0.05).to(torch.bfloat16)
+    x = torch.randn(3, 1, 2048, device="cuda", generator=gen).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    got = tied_head(x, emb)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (3, 1, 4096)
+    assert torch.cuda.max_memory_allocated() - before < emb.numel() * 4 // 4
+    want = tied_head(x.cpu(), emb.cpu())
+    assert (got.cpu() - want).abs().max() <= 1e-5 * want.abs().max()

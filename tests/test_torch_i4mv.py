@@ -30,6 +30,7 @@ from booster_tpu_torch.ops import qmm as tq
 from booster_tpu_torch.quant.qtensor import QTensor
 from booster_tpu_torch.testing import (i4t_mv_groups, i4t_mv_last, qmm_i4t_mutants,
                                        qmm_i4t_mv_split)
+from booster_tpu_torch.testing import torch_threads
 
 G = 32  # Q4_0's group, the only one the kernel takes yet
 
@@ -45,6 +46,13 @@ GATEUPS = [(2048, 11264)]
 # ragged: fewer groups than warps, a group count no power of two, splits of
 # a group a warp or fewer, one tile
 RAGGED = [(64, 128), (512, 128), (1088, 384), (1024, 384), (5632, 640), (16384, 128)]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads a worker while this file runs (testing.torch_threads)."""
+    with torch_threads(2):
+        yield
 
 
 @pytest.mark.parametrize("K,N", MATVECS + GATEUPS + RAGGED)
@@ -180,9 +188,9 @@ def test_every_path_shape_is_taken_with_its_plan(lib, K, N, gateup, R, zero):
     assert out.shape == (1, N // 2 if gateup else N)
     assert out.dtype == (torch.bfloat16 if gateup else torch.float32)
     ((name, args),) = lib.calls
-    assert name == "bt_qmm_i4t" and len(args) == 12
-    # (K, N, R, zero, G, gateup, KS)
-    assert args[4:11] == (K, N, R, zero, G, int(gateup), tq.i4t_mv_plan(K, N, G))
+    assert name == "bt_qmm_i4t" and len(args) == 13
+    # (K, N, R, zero, G, gateup, act, KS): act 0, SiLU
+    assert args[4:12] == (K, N, R, zero, G, int(gateup), 0, tq.i4t_mv_plan(K, N, G))
     assert tq._tickets == before
 
 
@@ -314,7 +322,8 @@ def test_paged_append_hands_the_library_its_rows(lib, quantized):
 
 def test_appends_refuse_widths_not_ported(lib):
     """The int8 appends take D a multiple of 128 (the per-layer form up to
-    1024, the all-layer forms 128): anything else raises, nothing launches."""
+    1024, the all-layer forms 128 and 256, the paged form 128): anything
+    else raises, nothing launches."""
     row = torch.zeros(1, 1, 1, 64, dtype=torch.bfloat16)
     off = torch.zeros(1, dtype=torch.int32)
     for D in (64, 192, 1152):
@@ -322,8 +331,13 @@ def test_appends_refuse_widths_not_ported(lib):
         s = torch.zeros(1, 1, 4, 1)
         with pytest.raises(NotImplementedError, match="not ported yet"):
             ka._launch_layer(k, k.clone(), row, row, off, s, s.clone())
-    k = torch.zeros(1, 1, 1, 4, 256, dtype=torch.int8)
+    k = torch.zeros(1, 1, 1, 4, 384, dtype=torch.int8)
     s = torch.zeros(1, 1, 1, 4, 1)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         ka._launch_all(k, k.clone(), row, row, off, s, s.clone())
+    pool = torch.zeros(1, 2, 1, 4, 256, dtype=torch.int8)
+    ps = torch.zeros(1, 2, 1, 4, 1)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        ka._launch_paged(pool, pool.clone(), row, row, off, torch.ones(1, 1, dtype=torch.int32),
+                         ps, ps.clone())
     assert lib.calls == []

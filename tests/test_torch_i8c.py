@@ -53,12 +53,20 @@ from booster_tpu_torch.quant import qtensor as tqt  # noqa: E402
 from booster_tpu_torch.sampling import SamplingParams  # noqa: E402
 from booster_tpu_torch.serving import Engine  # noqa: E402
 from booster_tpu_torch.testing import make_model  # noqa: E402
+from booster_tpu_torch.testing import torch_threads  # noqa: E402
 
 QMM_TOL = 2e-4
 LOGIT_TOL = 2 ** -5
 MAX_SEQ = 128
 FORMATS = {"q8_0": (JT.Q8_0, TT.Q8_0), "q4_0": (JT.Q4_0, TT.Q4_0)}
 RECIP = np.float32(1 / 127)  # the reciprocal a CUDA divide by a CPU scalar multiplies by
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads a worker while this file runs (testing.torch_threads)."""
+    with torch_threads(2):
+        yield
 
 
 @pytest.fixture

@@ -28,6 +28,7 @@ from booster_tpu_torch.ops import mlp as tm
 from booster_tpu_torch.ops import qmm as tq
 from booster_tpu_torch.quant.qtensor import QTensor
 from booster_tpu_torch.testing import qmm_i8k_mutants, qmm_i8k_split
+from booster_tpu_torch.testing import torch_threads
 
 TICKETS = 4096  # the shared ticket buffer's first size (ops.qmm._ticket_buffer)
 SMS = 132
@@ -42,6 +43,13 @@ WIDTHS = [(4096, 6144), (4096, 4096), (14336, 4096), (4096, 28672), (4096, 32000
 # single stream's prefill, a 64-stream step, the server's and the tests'
 # ragged counts, and the 64 x 32-row batch prefill
 ROWS = [1, 16, 64, 100, 130, 2048]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads a worker while this file runs (testing.torch_threads)."""
+    with torch_threads(2):
+        yield
 
 
 @pytest.mark.parametrize("M", ROWS)

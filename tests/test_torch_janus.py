@@ -32,6 +32,7 @@ from booster_tpu_torch.sampling import SamplingParams  # noqa: E402
 from booster_tpu_torch.sampling import janus as tjanus  # noqa: E402
 from booster_tpu_torch.tokenizer import Tokenizer  # noqa: E402
 from booster_tpu_torch.testing import make_model  # noqa: E402
+from booster_tpu_torch.testing import torch_threads  # noqa: E402
 
 V = 512
 SHAPE_TOL = 1e-6
@@ -50,6 +51,13 @@ CORPUS = [
     b"\xff\xfe", b"\xd0\x81", b"\xd1\x91", b"\xd0\xb0", b"\xd1\x8f", b"\xd0\xaf",
 ] + [bytes(np.random.default_rng(s).integers(0, 256, s % 7 + 1, dtype=np.uint8))
      for s in range(200)]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads a worker while this file runs (testing.torch_threads)."""
+    with torch_threads(2):
+        yield
 
 
 def test_byte_classifiers_equal():

@@ -26,6 +26,14 @@ from booster_tpu.ops import pallas_kv as pk  # noqa: E402
 from booster_tpu_torch.ops import kv_append as tka  # noqa: E402
 from booster_tpu_torch.ops import kv_cache as tkv  # noqa: E402
 from booster_tpu_torch.ops.decode_attention import self_row  # noqa: E402
+from booster_tpu_torch.testing import torch_threads  # noqa: E402
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads a worker while this file runs (testing.torch_threads)."""
+    with torch_threads(2):
+        yield
 
 
 @pytest.fixture

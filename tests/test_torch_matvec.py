@@ -25,6 +25,7 @@ from booster_tpu_torch.ops import kernels
 from booster_tpu_torch.ops import qmm as tq
 from booster_tpu_torch.quant.qtensor import QTensor
 from booster_tpu_torch.testing import mv_chunks, qmm_mv_mutants, qmm_mv_split
+from booster_tpu_torch.testing import torch_threads
 
 SMS = 132
 
@@ -40,6 +41,13 @@ PATHS = [(4096, 6144, 0), (4096, 4096, 0), (4096, 28672, 0), (14336, 4096, 0), (
 # multiple of 128 only, a single tile, splits with a chunk a warp or fewer
 RAGGED = [(1088, 384, 32), (1088, 384, 16), (64, 128, 32), (64, 128, 16), (5632, 2048, 32),
           (768, 640, 0), (256, 128, 0), (1280, 384, 0), (14336, 128, 16), (4096, 1152, 32)]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads a worker while this file runs (testing.torch_threads)."""
+    with torch_threads(2):
+        yield
 
 
 @pytest.mark.parametrize("K,N,G", PATHS + RAGGED)

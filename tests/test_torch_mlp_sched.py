@@ -26,6 +26,7 @@ from booster_tpu_torch.ops import mlp as tm
 from booster_tpu_torch.ops import probes
 from booster_tpu_torch.quant.qtensor import QTensor
 from booster_tpu_torch.testing import mlp_queue_sim, s8mm_stages
+from booster_tpu_torch.testing import torch_threads
 
 SMS = 132
 TICKETS = 4096  # the shared ticket buffer's first size (ops.qmm._ticket_buffer)
@@ -33,6 +34,13 @@ TICKETS = 4096  # the shared ticket buffer's first size (ops.qmm._ticket_buffer)
 # and the tests' ragged 100; TinyLlama's (weights="i8") at the same rows
 MLPS = [(m, 4096, 14336, 4096) for m in (1, 16, 64, 100)] + [
     (m, 2048, 5632, 2048) for m in (1, 16, 64, 100)]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads a worker while this file runs (testing.torch_threads)."""
+    with torch_threads(2):
+        yield
 
 
 def _ids(plan):

@@ -39,9 +39,17 @@ from booster_tpu_torch.quant.qtensor import QTensor  # noqa: E402
 from booster_tpu_torch.sampling import SamplingParams  # noqa: E402
 from booster_tpu_torch.serving import Engine  # noqa: E402
 from booster_tpu_torch.testing import make_model  # noqa: E402
+from booster_tpu_torch.testing import torch_threads  # noqa: E402
 
 LOGIT_TOL = 2 ** -5
 MAX_SEQ = 128
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads a worker while this file runs (testing.torch_threads)."""
+    with torch_threads(2):
+        yield
 
 
 @pytest.fixture(scope="module")

@@ -61,12 +61,20 @@ from booster_tpu_torch.quant import qtensor as tqt  # noqa: E402
 from booster_tpu_torch.sampling import SamplingParams  # noqa: E402
 from booster_tpu_torch.serving import Engine  # noqa: E402
 from booster_tpu_torch.testing import make_model  # noqa: E402
+from booster_tpu_torch.testing import torch_threads  # noqa: E402
 
 E, K_USED, C, FF = 4, 2, 256, 256
 LOGIT_TOL = 2 ** -5
 MM_TOL = 1e-4
 MAX_SEQ = 128
 FORMATS = {"q4_0": (JT.Q4_0, TT.Q4_0), "q8_0": (JT.Q8_0, TT.Q8_0)}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads a worker while this file runs (testing.torch_threads)."""
+    with torch_threads(2):
+        yield
 
 
 @pytest.fixture

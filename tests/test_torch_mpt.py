@@ -72,6 +72,7 @@ from booster_tpu_torch.ops.linear import qlinear  # noqa: E402
 from booster_tpu_torch.sampling import SamplingParams  # noqa: E402
 from booster_tpu_torch.serving import Engine  # noqa: E402
 from booster_tpu_torch.testing import make_model  # noqa: E402
+from booster_tpu_torch.testing import torch_threads  # noqa: E402
 from booster_tpu_torch.tokenizer import Tokenizer  # noqa: E402
 from booster_tpu_torch.tokenizer.bpe import gpt2_split  # noqa: E402
 
@@ -109,6 +110,13 @@ def _t(a) -> torch.Tensor:
 
 def _np(t: torch.Tensor) -> np.ndarray:
     return t.float().numpy() if t.dtype == torch.bfloat16 else t.numpy()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads a worker while this file runs (testing.torch_threads)."""
+    with torch_threads(2):
+        yield
 
 
 @pytest.fixture(scope="module")

@@ -37,10 +37,18 @@ from booster_tpu_torch.ops import paged_attention as tpa  # noqa: E402
 from booster_tpu_torch.ops.paged_kv import paged_append_all_layers  # noqa: E402
 from booster_tpu_torch.testing import (paged_attn_case, paged_attn_limit,  # noqa: E402
                                        paged_attn_mutants)
+from booster_tpu_torch.testing import torch_threads  # noqa: E402
 
 jatt = importlib.import_module("booster_tpu.ops.attention")  # the package exports a function
 L, B, Hkv, G, P, MAXP, D = 2, 4, 2, 2, 128, 3, 128
 LENS = [300, 257, 128, 1]  # mid-page (rows 0 and 1 share two pages), a page boundary, one row
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads a worker while this file runs (testing.torch_threads)."""
+    with torch_threads(2):
+        yield
 
 
 @pytest.fixture

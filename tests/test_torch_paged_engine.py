@@ -37,9 +37,17 @@ from booster_tpu_torch.serving import Engine  # noqa: E402
 from booster_tpu_torch.serving.config import PromptSpec  # noqa: E402
 from booster_tpu_torch.serving.scheduler import Scheduler  # noqa: E402
 from booster_tpu_torch.testing import make_model  # noqa: E402
+from booster_tpu_torch.testing import torch_threads  # noqa: E402
 
 LOGIT_TOL = 2 ** -5
 GREEDY = SamplingParams(temp=0.0, penalty_repeat=1.0)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads a worker while this file runs (testing.torch_threads)."""
+    with torch_threads(2):
+        yield
 
 
 @pytest.fixture(scope="module")

@@ -22,8 +22,16 @@ from booster_tpu.ops import kv_cache as jkv  # noqa: E402
 from booster_tpu.ops import paged_kv as jpk  # noqa: E402
 from booster_tpu_torch.ops import kv_cache as tkv  # noqa: E402
 from booster_tpu_torch.ops import paged_kv as tpk  # noqa: E402
+from booster_tpu_torch.testing import torch_threads  # noqa: E402
 
 L, Hkv, P, MAXP, D = 2, 2, 16, 4, 64
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads a worker while this file runs (testing.torch_threads)."""
+    with torch_threads(2):
+        yield
 
 
 def _t(a):

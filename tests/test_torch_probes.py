@@ -41,8 +41,16 @@ from tools import kernel_micro as j_micro  # noqa: E402
 from tools import mmq_probe as j_mmq  # noqa: E402
 from tools import qmm_gap as j_gap  # noqa: E402
 from tools import qmm_probe as j_probe  # noqa: E402
+from booster_tpu_torch.testing import torch_threads  # noqa: E402
 
 REL = 2e-4  # of the largest |reference|: f32 sums of the same products in another order
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads a worker while this file runs (testing.torch_threads)."""
+    with torch_threads(2):
+        yield
 
 
 class _Stop(Exception):

@@ -52,6 +52,7 @@ from tools import expander_probe as j_exp  # noqa: E402
 from tools import groupdot_probe as j_gd  # noqa: E402
 from tools import nibble_probe as j_nib  # noqa: E402
 from tools import tqmm_probe as j_tq  # noqa: E402
+from booster_tpu_torch.testing import torch_threads  # noqa: E402
 
 REL = 2e-4  # of the largest |reference|: f32 sums of the same products in another order
 # XLA's CPU compile may keep a bf16 product in f32 where the next op widens
@@ -63,6 +64,13 @@ N2, K2, G, BM = 256, 512, 32, 8  # expander part 2's and tqmm's small sizes
 PART2 = (("dot_f32", 256, 128), ("dot_bf16", 256, 128), ("reshape", 256, 128),
          ("jrepeat", 256, 128), ("ptile", 256, 128), ("ptile", 128, 256), ("noscale", 256, 128),
          ("castonly", 256, 128), ("castonly", 128, 256), ("gloop", 256, 128))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads a worker while this file runs (testing.torch_threads)."""
+    with torch_threads(2):
+        yield
 
 
 def _t(a: np.ndarray) -> torch.Tensor:

@@ -62,6 +62,7 @@ from booster_tpu_torch.serving import Engine  # noqa: E402
 from booster_tpu_torch.testing import (I4T_MIRROR_MUTANTS, make_model, q2k_mix,  # noqa: E402
                                        qmm_i4t_mutants, qmm_i4t_mv_split, qmm_i4t_split,
                                        qmm_mins_mutants, random_blocks)
+from booster_tpu_torch.testing import torch_threads  # noqa: E402
 
 QMM_TOL = 2e-4
 LOGIT_TOL = 2 ** -5
@@ -70,6 +71,13 @@ C, L = 512, 2  # the small models' hidden width and layers
 PROMPT = "hello world the and of to in"
 FORMATS = ("Q2_K", "Q3_K")
 assert JT.Q2_K == TT.Q2_K and JT.Q3_K == TT.Q3_K
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads a worker while this file runs (testing.torch_threads)."""
+    with torch_threads(2):
+        yield
 
 
 @pytest.fixture
@@ -401,9 +409,9 @@ def test_prefill_and_decode_logits_match(models, pallas, monkeypatch):
     orig = (tq.qmm_i4t, tq.qmm_i4t_gateup)
 
     def spy(key, fn):
-        def call(x, w):
+        def call(x, w, *act):
             rows[key].append((x.shape[0], w.group))
-            return fn(x, w)
+            return fn(x, w, *act)
         return call
 
     monkeypatch.setattr(tq, "qmm_i4t", spy("i4t", orig[0]))

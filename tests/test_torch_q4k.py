@@ -62,6 +62,7 @@ from booster_tpu_torch.serving import scheduler as tsched  # noqa: E402
 from booster_tpu_torch.testing import (i4t_mv_last, make_model, qmm_i4t_mutants,  # noqa: E402
                                        qmm_i4t_mv_split, qmm_i4t_split, qmm_lane_mutants,
                                        qmm_lane_split, qmm_mins_mutants, random_blocks)
+from booster_tpu_torch.testing import torch_threads  # noqa: E402
 
 QMM_TOL = 2e-4
 LOGIT_TOL = 2 ** -5
@@ -69,6 +70,13 @@ MAX_SEQ = 128
 C, FF, L = 512, 1024, 2  # the small model's hidden width, ff and layers
 PROMPT = "hello world the and of to in"
 assert JT.Q4_K == TT.Q4_K
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads a worker while this file runs (testing.torch_threads)."""
+    with torch_threads(2):
+        yield
 
 
 @pytest.fixture

@@ -65,6 +65,7 @@ from booster_tpu_torch.sampling import SamplingParams  # noqa: E402
 from booster_tpu_torch.serving import Engine  # noqa: E402
 from booster_tpu_torch.testing import (make_model, qmm_i8k_split, qmm_lane_mutants,  # noqa: E402
                                        qmm_lane_split, qmm_mins_mutants, random_blocks)
+from booster_tpu_torch.testing import torch_threads  # noqa: E402
 
 QMM_TOL = 2e-4
 LOGIT_TOL = 2 ** -5
@@ -73,6 +74,13 @@ C, L = 512, 2  # the small models' hidden width and layers
 PROMPT = "hello world the and of to in"
 FORMATS = ("Q5_K", "Q5_1")
 assert JT.Q5_K == TT.Q5_K and JT.Q5_1 == TT.Q5_1
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads a worker while this file runs (testing.torch_threads)."""
+    with torch_threads(2):
+        yield
 
 
 @pytest.fixture

@@ -58,6 +58,7 @@ from booster_tpu_torch.quant import quantize as tquantize  # noqa: E402
 from booster_tpu_torch.sampling import SamplingParams  # noqa: E402
 from booster_tpu_torch.serving import Engine  # noqa: E402
 from booster_tpu_torch.testing import make_model, random_blocks  # noqa: E402
+from booster_tpu_torch.testing import torch_threads  # noqa: E402
 
 QMM_TOL = 2e-4
 LOGIT_TOL = 2 ** -5
@@ -65,6 +66,13 @@ MAX_SEQ = 128
 C, FF, L = 256, 384, 2  # the small model's hidden width, ff and layers
 PROMPT = "hello world the and of to in"
 assert JT.Q6_K == TT.Q6_K and JT.Q8_0 == TT.Q8_0
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads a worker while this file runs (testing.torch_threads)."""
+    with torch_threads(2):
+        yield
 
 
 @pytest.fixture
@@ -364,9 +372,9 @@ def test_prefill_and_decode_logits_match(models, pallas, gd_spy, monkeypatch):
     rows = []
     orig = tq.qmm_i8t_gateup
 
-    def spy(x, w):
+    def spy(x, w, *act):
         rows.append(x.shape[0])
-        return orig(x, w)
+        return orig(x, w, *act)
 
     monkeypatch.setattr(tq, "qmm_i8t_gateup", spy)
     for got, want in _prefill_decode(jm, tm, steps=6):

@@ -27,6 +27,14 @@ from booster_tpu_torch.quant import formats as tformats  # noqa: E402
 from booster_tpu_torch.quant import qtensor as tqt  # noqa: E402
 from booster_tpu_torch.testing import make_model as tmake  # noqa: E402
 from tools.make_test_model import make_model as jmake  # noqa: E402
+from booster_tpu_torch.testing import torch_threads  # noqa: E402
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads a worker while this file runs (testing.torch_threads)."""
+    with torch_threads(2):
+        yield
 
 
 def _bits(a) -> np.ndarray:

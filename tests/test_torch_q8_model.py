@@ -43,10 +43,18 @@ from booster_tpu_torch.ops.kv_cache import KVCache  # noqa: E402
 from booster_tpu_torch.sampling import SamplingParams  # noqa: E402
 from booster_tpu_torch.serving import Engine  # noqa: E402
 from booster_tpu_torch.testing import make_model  # noqa: E402
+from booster_tpu_torch.testing import torch_threads  # noqa: E402
 
 LOGIT_TOL = 2 ** -5
 MAX_SEQ = 128
 assert JT.Q8_0 == TT.Q8_0
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads a worker while this file runs (testing.torch_threads)."""
+    with torch_threads(2):
+        yield
 
 
 @pytest.fixture(scope="module")

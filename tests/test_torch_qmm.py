@@ -27,9 +27,17 @@ from booster_tpu_torch.gguf import GGMLType as TT  # noqa: E402
 from booster_tpu_torch.models.loader import _kernel_layout, _stack_qtensors  # noqa: E402
 from booster_tpu_torch.ops import qmm as tq  # noqa: E402
 from booster_tpu_torch.quant import qtensor as tqt  # noqa: E402
+from booster_tpu_torch.testing import torch_threads  # noqa: E402
 
 N, K, L = 256, 1024, 2
 QMM_TOL = 1e-5
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads a worker while this file runs (testing.torch_threads)."""
+    with torch_threads(2):
+        yield
 
 
 @pytest.fixture(autouse=True)

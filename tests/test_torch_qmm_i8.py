@@ -36,9 +36,17 @@ from booster_tpu_torch.models.loader import _kernel_layout, _stack_qtensors  # n
 from booster_tpu_torch.ops import mlp as tm  # noqa: E402
 from booster_tpu_torch.ops import qmm as tq  # noqa: E402
 from booster_tpu_torch.quant import qtensor as tqt  # noqa: E402
+from booster_tpu_torch.testing import torch_threads  # noqa: E402
 
 K, C, FF, L = 512, 512, 1024, 2  # the small Q8_0 model's widths
 QMM_TOL = 2e-4
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads a worker while this file runs (testing.torch_threads)."""
+    with torch_threads(2):
+        yield
 
 
 @pytest.fixture(autouse=True)

@@ -23,6 +23,7 @@ from booster_tpu_torch.ops import qmm as tq
 from booster_tpu_torch.quant.qtensor import QTensor
 from booster_tpu_torch.testing import (qmm_i4t_mutants, qmm_i4t_split, qmm_lane_mutants,
                                        qmm_lane_split)
+from booster_tpu_torch.testing import torch_threads
 
 TICKETS = 4096  # the shared ticket buffer's first size (ops.qmm._ticket_buffer)
 
@@ -39,6 +40,13 @@ I4T_SHAPES = [(16, 2048, 2560), (16, 2048, 2048), (16, 5632, 2048), (16, 2048, 1
 LANE_SHAPES = [(M, 5504, 2048, 0) for M in (1, 64, 2048)] + [
     (M, K, N, 0) for M in (1, 64, 2048) for K, N in ((4096, 6144), (14336, 4096))] + [
     (Mp, K, N, 8) for Mp in (288, 384, 4352) for K, N in ((4096, 14336), (14336, 4096))]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads a worker while this file runs (testing.torch_threads)."""
+    with torch_threads(2):
+        yield
 
 
 def _i4t_groups(M, K, N):

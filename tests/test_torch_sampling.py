@@ -24,8 +24,16 @@ from booster_tpu.sampling import samplers as js  # noqa: E402
 from booster_tpu.sampling.params import SamplingParams as JSP  # noqa: E402
 from booster_tpu_torch.sampling import samplers as ts  # noqa: E402
 from booster_tpu_torch.sampling.params import SamplingParams  # noqa: E402
+from booster_tpu_torch.testing import torch_threads  # noqa: E402
 
 B, V, RING = 3, 512, 64
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads a worker while this file runs (testing.torch_threads)."""
+    with torch_threads(2):
+        yield
 
 
 def _logits(seed=0):

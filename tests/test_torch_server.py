@@ -28,6 +28,14 @@ from booster_tpu_torch.serving.config import PromptSpec  # noqa: E402
 from booster_tpu_torch.serving.scheduler import Job, Scheduler  # noqa: E402
 from booster_tpu_torch.serving.server import ServerThread  # noqa: E402
 from booster_tpu_torch.testing import make_model  # noqa: E402
+from booster_tpu_torch.testing import torch_threads  # noqa: E402
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads a worker while this file runs (testing.torch_threads)."""
+    with torch_threads(2):
+        yield
 
 
 @pytest.fixture(scope="module")

@@ -28,6 +28,7 @@ from booster_tpu.sampling.params import SamplingParams as JSP  # noqa: E402
 from booster_tpu_torch.sampling import samplers as ts  # noqa: E402
 from booster_tpu_torch.sampling import vector as tv  # noqa: E402
 from booster_tpu_torch.sampling.params import SamplingParams  # noqa: E402
+from booster_tpu_torch.testing import torch_threads  # noqa: E402
 
 V, RING = 512, 64
 PARAMS = [  # one row per slot: every filter on somewhere, off somewhere
@@ -41,6 +42,13 @@ PARAMS = [  # one row per slot: every filter on somewhere, off somewhere
          penalize_nl=False, penalty_repeat=1.1),
 ]
 B = len(PARAMS)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads a worker while this file runs (testing.torch_threads)."""
+    with torch_threads(2):
+        yield
 
 
 def _vps():
