@@ -99,9 +99,6 @@ def main(argv=None) -> int:
     cfg = model.cfg
     log.info(f"arch={cfg.arch} layers={cfg.n_layers} embd={cfg.n_embd} "
              f"vocab={cfg.n_vocab} device={model.device}")
-    if args.server and cfg.head_dim > 128:  # Gemma's 256: the server's pool
-        raise NotImplementedError(f"--server with head dim {cfg.head_dim} (a 256-lane cache and "
-                                  "page pool): not ported yet")
     sampling = config.samplings.get(pod.sampling, SamplingParams())
     engine = Engine(model, max_batch=max(pod.count, 1), max_seq=model_spec.context,
                     kv_quantized=args.kv_quant, decode_chunk=args.decode_chunk,

@@ -35,12 +35,14 @@
 // moves half the cache bytes.
 //
 // The storage width D (head dims up to 128 at 128 lanes, Gemma's 256 at
-// 256) is a template parameter of the dense forms; the paged form takes 128
-// only (the 256-lane pool is not ported yet).  At D = 256 the bf16 stages
-// hold 64 columns (attn_mma.cuh), so slices round to 64 columns there and
-// warps 4-7 take no column of a stage (stage_scores and stage_pv cap a
-// stage's columns at its kCols, whatever is left of the slice), and both
-// forms run one block an SM (their shared memory, 150 KB).
+// 256) is a template parameter of the dense and the paged forms.  At D = 256
+// the bf16 stages hold 64 columns (attn_mma.cuh), so slices round to 64
+// columns there and warps 4-7 take no column of a stage (stage_scores and
+// stage_pv cap a stage's columns at its kCols, whatever is left of the
+// slice, on every stage of a page as of a dense range), and both forms run
+// one block an SM (their shared memory, 150 KB).  A 256-row page is then 4
+// bf16 stages or 2 int8 ones; each column's row still comes through the
+// table as its copy is issued.
 //
 // What bounds it on the H100: the K and V bytes of the valid columns,
 // 2·2·D bytes per column per kv head (int8: 2·(D + 4)), over 3.35 TB/s; the
@@ -385,7 +387,7 @@ extern "C" int bt_decode_attn(const void* q, const void* k, const void* v, const
 
 // The paged form: k, v are layer l's pool [Np, Hkv, P, D] (bf16, or int8 with
 // scales ks, vs [Np, Hkv, P] f32), table [B, maxp] int32; the rest as
-// bt_decode_attn, with S = maxp · P and D = 128 only.
+// bt_decode_attn, with S = maxp · P and D 128 or 256.
 extern "C" int bt_paged_decode_attn(const void* q, const void* k, const void* v, const void* ks,
                                     const void* vs, const void* sk, const void* sv,
                                     const void* table, const void* lens, const void* self_ok,
@@ -399,10 +401,13 @@ extern "C" int bt_paged_decode_attn(const void* q, const void* k, const void* v,
                Hkv, G, P * maxp, win, softcap, static_cast<const int*>(table), P, maxp,
                nsplit, static_cast<float*>(part), static_cast<int*>(tickets)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (G > kMaxG || G < 1 || D != 128 || P < 1 || maxp < 1 || table == nullptr
+  if (G > kMaxG || G < 1 || (D != 128 && D != 256) || P < 1 || maxp < 1 || table == nullptr
       || (ks == nullptr) != (vs == nullptr) || bad_split(nsplit, part, tickets))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t e = ks != nullptr ? launch<true, true, 128>(p, B, st)
-                                      : launch<false, true, 128>(p, B, st);
+  cudaError_t e;
+  if (D == 256)
+    e = ks != nullptr ? launch<true, true, 256>(p, B, st) : launch<false, true, 256>(p, B, st);
+  else
+    e = ks != nullptr ? launch<true, true, 128>(p, B, st) : launch<false, true, 128>(p, B, st);
   return static_cast<int>(e);
 }

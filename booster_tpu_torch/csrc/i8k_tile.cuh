@@ -54,7 +54,7 @@
 // invariants below hold with mins too.
 //
 // The tile's sums go to shared memory (f32, over the ring).  At one split
-// the block writes its output (f32, bf16, or the gate-up's silu(g)·u)
+// the block writes its output (f32, bf16, or the gate-up's act(g)·u)
 // straight from there.  At KS splits (KS <= 8, a power of two: the plan's)
 // the standalone kernels launch a tile's splits as one thread-block
 // cluster, and block s adds rows [s·BM/KS, (s+1)·BM/KS) of the KS tiles
@@ -69,7 +69,7 @@
 // consecutive columns (col1 = col0 + 64).  Every column goes through the
 // same wgmma m64nBM instruction, the same k16 steps from zero over the same
 // split's stages and the same split order in either, so the gate-up equals
-// the matmul on its fused weight + silu·mul, and the whole MLP its unfused
+// the matmul on its fused weight + act·mul, and the whole MLP its unfused
 // kernels, bit for bit, as long as all of them take (BM, KS) from one plan
 // (ops/qmm.py i8k_plan).
 #pragma once
@@ -597,12 +597,13 @@ __device__ void dq_item(const Op& op, int N, int K, int KS, int j, int s, int mt
 
 // One item of the fused gate-up over the [K, 2ff] payload: column pair j
 // (gate columns j·64 + [0, 64), up columns ff + j·64 + [0, 64)), split s, M
-// tile mt.  Writes mid [M, ff] = silu(g)·u (bf16): at once when KS is 1;
+// tile mt.  Writes mid [M, ff] = act(g)·u (bf16; ACT: bf16_ops.cuh act_mul,
+// SiLU or the tanh-GELU of gated-GELU models): at once when KS is 1;
 // with CLUSTER block s its rows; else the pair's partials go into part [KS,
 // M, 2ff], and the last block of the pair's splits (ticket mt·ff/64 + j)
 // adds them in split order.  Returns true in a block that wrote the tile of
 // mid (the last one without CLUSTER).
-template <int BM, int G, bool CLUSTER, bool MINS = false>
+template <int BM, int G, bool CLUSTER, bool MINS = false, int ACT = kActSilu>
 __device__ bool gateup_item(const Op& op, int ff, int K, int KS, int j, int s, int mt,
                             float* part, uint16_t* mid, int* tickets, uint8_t* sm) {
   using C = Cfg<BM>;
@@ -615,10 +616,10 @@ __device__ bool gateup_item(const Op& op, int ff, int K, int KS, int j, int s, i
   store_tile<BM>(acc, t);
   auto put = [&](int r, int c, float4 g, float4 u) {  // mid columns c0 + c .. c0 + c + 3
     uint2 b;
-    b.x = static_cast<uint32_t>(silu_mul(g.x, u.x))
-          | (static_cast<uint32_t>(silu_mul(g.y, u.y)) << 16);
-    b.y = static_cast<uint32_t>(silu_mul(g.z, u.z))
-          | (static_cast<uint32_t>(silu_mul(g.w, u.w)) << 16);
+    b.x = static_cast<uint32_t>(act_mul<ACT>(g.x, u.x))
+          | (static_cast<uint32_t>(act_mul<ACT>(g.y, u.y)) << 16);
+    b.y = static_cast<uint32_t>(act_mul<ACT>(g.z, u.z))
+          | (static_cast<uint32_t>(act_mul<ACT>(g.w, u.w)) << 16);
     *reinterpret_cast<uint2*>(mid + static_cast<size_t>(m0 + r) * ff + c0 + c) = b;
   };
   if (KS == 1) {

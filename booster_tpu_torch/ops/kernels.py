@@ -35,6 +35,7 @@ SOURCES = {
     "prefill_attn": "prefill_attn.cu",
     "qmm_i8t": "qmm_i8t.cu",
     "mlp_i8t": "mlp_i8t.cu",
+    "mlp_i8t_gelu": "mlp_i8t_gelu.cu",
     "qmm_lane": "qmm_lane.cu",
     "qmm_i8c": "qmm_i8c.cu",
     "probe_i8": "probe_i8.cu",
@@ -47,8 +48,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # kernel name → launches made by its wrapper (reset by callers that count);
 # _gd is the M = 1 group-dot form, _dq the M > 1 dequantize form (i4t at
 # group 16: _g16m with mins, _g16 without; _gelu a gate-up's GELU epilogue;
-# ops.qmm.i4t_count_name), _i8 the int8-cache form, _d256 the attention and
-# append forms over a 256-lane cache (head dims 129-256: Gemma), _layer the
+# ops.qmm.i4t_count_name; the whole MLP's _g16 and _gelu forms likewise,
+# ops.mlp.mlp_count_name), _i8 the int8-cache form, _d256 the attention and
+# append forms over a 256-lane cache or pool (head dims 129-256: Gemma), _layer the
 # per-layer T = 1 append, paged_ the paged-pool
 # forms, moe_ the grouped (routed expert) form of the lane-major matmul; the
 # i8c matmul's _mv is its M = 1 streaming matvec, _mm its M > 1 tensor-core form;
@@ -85,10 +87,17 @@ launch_counts = {
     "qmm_i8t_gateup_gd": 0,
     "qmm_i8t_gateup_dq": 0,
     "mlp_i8t": 0,
+    "mlp_i8t_gelu": 0,
+    "mlp_i8t_g16": 0,
+    "mlp_i8t_g16_gelu": 0,
     "paged_attn": 0,
     "paged_attn_i8": 0,
     "kv_append_paged": 0,
     "kv_append_paged_i8": 0,
+    "paged_attn_d256": 0,
+    "paged_attn_i8_d256": 0,
+    "kv_append_paged_d256": 0,
+    "kv_append_paged_i8_d256": 0,
     "qmm_i4p": 0,
     "qmm_i8": 0,
     "moe_qmm_i4p": 0,

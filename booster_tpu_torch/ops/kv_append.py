@@ -198,15 +198,16 @@ def _launch_paged(pool_k, pool_v, new_k, new_v, offsets, table, pool_ks, pool_vs
         raise ValueError("kv_append_all_layers_paged kernel: the pool must be contiguous")
     if new_k.shape != (L, B, H, d) or new_v.shape != new_k.shape or d > D:
         raise ValueError("kv_append_all_layers_paged kernel: new rows must be [L, B, H, d <= D]")
-    if D != 128:
+    if D not in (128, 256):
         raise NotImplementedError(f"kv_append_all_layers_paged kernel: storage head dim {D}: "
-                                  "not ported yet (the 128-lane pool is)")
+                                  "not ported yet (the 128- and 256-lane pools are)")
     new_k = new_k.to(torch.bfloat16).contiguous()
     new_v = new_v.to(torch.bfloat16).contiguous()
     offsets = offsets.to(torch.int32).contiguous()
     table = table.to(torch.int32).contiguous()
     stream = torch.cuda.current_stream(pool_k.device).cuda_stream
     lib = kernels.library("kv_append", _SIGNATURES)
+    suffix = "_d256" if D == 256 else ""
     if quant:
         if (pool_vs is None or pool_ks.shape != (L, Np, H, P, 1)
                 or pool_vs.shape != pool_ks.shape
@@ -218,11 +219,11 @@ def _launch_paged(pool_k, pool_v, new_k, new_v, offsets, table, pool_ks, pool_vs
                                        pool_vs.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
                                        offsets.data_ptr(), table.data_ptr(), L, B, H, Np, P,
                                        maxp, D, d, stream)
-        kernels.check(rc, "kv_append_paged_i8")
-        kernels.count("kv_append_paged_i8")
+        kernels.check(rc, "kv_append_paged_i8" + suffix)
+        kernels.count("kv_append_paged_i8" + suffix)
         return
     rc = lib.bt_kv_append_paged(pool_k.data_ptr(), pool_v.data_ptr(), new_k.data_ptr(),
                                 new_v.data_ptr(), offsets.data_ptr(), table.data_ptr(), L, B, H,
                                 Np, P, maxp, D, d, stream)
-    kernels.check(rc, "kv_append_paged")
-    kernels.count("kv_append_paged")
+    kernels.check(rc, "kv_append_paged" + suffix)
+    kernels.count("kv_append_paged" + suffix)

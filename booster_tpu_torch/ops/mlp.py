@@ -1,15 +1,19 @@
 """The whole gated MLP in one kernel, for K-major int8 weights (i8t).
 
 Counterpart of ``qmm_mlp`` in ``booster_tpu/ops/pallas_qmm.py``:
-``(silu(x @ Wg^T) * (x @ Wu^T)) @ Wd^T`` from the fused [2ff, K] gate-up
-QTensor and the [C, ff] down QTensor, returned as bf16 [.., C]; with mins
-planes on both weights (Q5_K: ``has_mins`` and ``d_has_mins``) each
-product subtracts its min term, the f32 group sums of its bf16 input
-times f32(bf16 m).
-``qmm_mlp_i8t`` runs the kernel of ``csrc/mlp_i8t.cu`` on CUDA tensors and
+``(act(x @ Wg^T) * (x @ Wu^T)) @ Wd^T`` from the fused [2ff, K] gate-up
+QTensor and the [C, ff] down QTensor, returned as bf16 [.., C], with act
+SiLU or the tanh-GELU of gated-GELU models (Gemma; ``ops.qmm.act_mul``),
+at group 32 (Q8_0, Q5_K, and 4-bit weights widened by ``weights="i8"``) or
+16 (Q6_K); with mins planes on both weights (Q5_K: ``has_mins`` and
+``d_has_mins``; group 32) each product subtracts its min term, the f32
+group sums of its bf16 input times f32(bf16 m).
+``qmm_mlp_i8t`` runs the kernel of ``csrc/mlp_i8t.cuh`` (a library an act:
+``mlp_i8t.cu``, ``mlp_i8t_gelu.cu``) on CUDA tensors and
 ``qmm_mlp_plain`` on CPU tensors: the unfused sequence (the dequantize
-forms of the gate-up and of the down matmul, at M = 1 too) rounded to
-bf16, which the kernel equals bit for bit.  The kernel's blocks take the
+form of the matmul on the fused gate-up weight, act·mul in bf16, the
+dequantize form of the down matmul) rounded to bf16, which the kernel
+equals bit for bit.  The kernel's blocks take the
 items of ``mlp_plan`` (the unfused kernels' tiles and splits) by their ids
 in order, the order ``mlp_schedule`` spells out for the tests.
 
@@ -17,7 +21,8 @@ Which M takes the kernel is the reference's rule: ``mlp_fits`` is a copy of
 ``_pick_bf_mlp``'s arithmetic (``pallas_qmm.py:1281``), the reference's
 dispatch between the whole-MLP kernel and gate-up + down, so the port runs
 the same kernels at the same M (the 7B shape: the MLP kernel up to M = 64
-and at M = 1; gate-up + down at the batch prefill's M = 2048).
+and at M = 1; gate-up + down at the batch prefill's M = 2048; Gemma-2B's
+widths, at groups 32 and 16: the MLP kernel at every M up to 4096).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import torch
 
 from booster_tpu_torch.ops import kernels
 from booster_tpu_torch.ops.qmm import (
+    ACT_IDS,
     _SUB,
     _VMEM_LIMIT,
     _rows,
@@ -42,35 +48,35 @@ from booster_tpu_torch.ops.qmm import (
 from booster_tpu_torch.quant.qtensor import QTensor, kernel_scales
 
 _SIGNATURES = {
-    "bt_mlp_i8t": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 + [ctypes.c_void_p],
+    "bt_mlp_i8t": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 13 + [ctypes.c_void_p],
     "bt_mlp_i8t_ws_ints": [ctypes.c_int] * 4,
 }
 _MAX_SPLITS = 8  # ready counts an M tile (i8k::kMaxSplits)
 
 
-def mlp_plan(M: int, K: int, ff: int, C: int) -> dict:
-    """The whole MLP's items at M rows: the tile rows ``bm`` and the splits
-    ``ks1`` (gate-up, over K) and ``ks2`` (down, over ff) of the unfused
-    kernels (``i8k_plan``), the M tiles, the gate/up column pairs of 64
-    (``nF``), the down's column tiles of 128 (``nC``), and the item counts:
-    ``nA`` gate-up items (pair, split, M tile), ``nD`` down items (split,
-    column tile, M tile)."""
+def mlp_plan(M: int, K: int, ff: int, C: int, G: int = 32) -> dict:
+    """The whole MLP's items at M rows of weights at group G: the tile rows
+    ``bm`` and the splits ``ks1`` (gate-up, over K) and ``ks2`` (down, over
+    ff) of the unfused kernels (``i8k_plan``), the M tiles, the gate/up
+    column pairs of 64 (``nF``), the down's column tiles of 128 (``nC``),
+    and the item counts: ``nA`` gate-up items (pair, split, M tile), ``nD``
+    down items (split, column tile, M tile)."""
     (bm, ks1), (_, ks2) = i8k_plan(M, K, 2 * ff), i8k_plan(M, ff, C)
     mtiles, nF, nC = -(-M // bm), ff // 64, C // 128
-    return {"M": M, "K": K, "ff": ff, "C": C, "bm": bm, "ks1": ks1, "ks2": ks2,
+    return {"M": M, "K": K, "ff": ff, "C": C, "G": G, "bm": bm, "ks1": ks1, "ks2": ks2,
             "mtiles": mtiles, "nF": nF, "nC": nC, "nA": mtiles * nF * ks1,
             "nD": mtiles * nC * ks2}
 
 
 def mlp_ws_ints(M: int, ff: int, C: int, bm: int) -> int:
-    """Ints of csrc/mlp_i8t.cu's zeroed workspace (bt_mlp_i8t_ws_ints):
+    """Ints of csrc/mlp_i8t.cuh's zeroed workspace (bt_mlp_i8t_ws_ints):
     counter, exits, then per M tile 8 ready counts (one a down split), a
     ticket per gate/up pair and a ticket per down column tile."""
     return 2 + -(-M // bm) * (_MAX_SPLITS + ff // 64 + C // 128)
 
 
 def gateup_id(plan: dict, fj: int, s: int, mt: int) -> int:
-    """Item id of pair fj's split s at M tile mt (csrc/mlp_i8t.cu's decoding)."""
+    """Item id of pair fj's split s at M tile mt (csrc/mlp_i8t.cuh's decoding)."""
     return (fj * plan["ks1"] + s) * plan["mtiles"] + mt
 
 
@@ -81,7 +87,7 @@ def down_id(plan: dict, s: int, j: int, mt: int) -> int:
 
 def split_of_pair(plan: dict, fj: int) -> int:
     """The down split whose stages [s·nF/ks2, (s+1)·nF/ks2) of 64 mid
-    columns hold pair fj (csrc/mlp_i8t.cu's ready count)."""
+    columns hold pair fj (csrc/mlp_i8t.cuh's ready count)."""
     return ((fj + 1) * plan["ks2"] - 1) // plan["nF"]
 
 
@@ -91,12 +97,13 @@ def pairs_of_split(plan: dict, s: int) -> range:
 
 
 def item_bytes(plan: dict, item: int) -> int:
-    """Payload and scale bytes that an item streams (x and mid come from L2)."""
+    """Payload and scale bytes that an item streams (x and mid come from L2):
+    128 payload columns a row of K, and a bf16 scale row of them a group."""
     if item < plan["nA"]:
         rows = plan["K"] // plan["ks1"]
     else:
         rows = plan["ff"] // plan["ks2"]
-    return rows * 128 + rows // 32 * 256
+    return rows * 128 + rows // plan["G"] * 256
 
 
 def mlp_schedule(plan: dict) -> list:
@@ -170,16 +177,24 @@ def mlp_supported(w_gu: QTensor, w_down: QTensor, K: int, M: int) -> bool:
     return mlp_fits(ff, K, C, M, sgu.shape[-3], sd.shape[-3], G, s_item)
 
 
-def qmm_mlp_plain(x: torch.Tensor, w_gu: QTensor, w_down: QTensor) -> torch.Tensor:
+def mlp_count_name(G: int, act: str) -> str:
+    """The launch count of a whole-MLP kernel form: mlp_i8t, then _g16 at
+    group 16 and _gelu with the GELU epilogue (the group-32 SiLU forms,
+    with or without mins, keep the one name)."""
+    return "mlp_i8t" + ("_g16" if G == 16 else "") + ("_gelu" if act == "gelu" else "")
+
+
+def qmm_mlp_plain(x: torch.Tensor, w_gu: QTensor, w_down: QTensor,
+                  act: str = "silu") -> torch.Tensor:
     """x [M, K] → [M, C] bf16 in plain torch: the dequantize-form gate-up
-    (silu·mul in bf16), then the dequantize-form down matmul, rounded."""
-    mid = qmm_gateup_plain(x, w_gu, dq=True)
+    (act·mul in bf16), then the dequantize-form down matmul, rounded."""
+    mid = qmm_gateup_plain(x, w_gu, dq=True, act=act)
     return qmm_plain(mid, w_down, dq=True).to(torch.bfloat16)
 
 
 def _run(x: torch.Tensor, w_gu: QTensor, w_down: QTensor, first: int = 0,
          n: Optional[int] = None, workers: int = 0,
-         mid: Optional[torch.Tensor] = None) -> tuple:
+         mid: Optional[torch.Tensor] = None, act: str = "silu") -> tuple:
     """One launch of the kernel → (out, mid).  By default the whole MLP, its
     item ids [0, nA + nD) on the library's grid (two blocks an SM); the
     range [`first`, `first` + `n`), `workers` blocks and a `mid` computed
@@ -189,13 +204,17 @@ def _run(x: torch.Tensor, w_gu: QTensor, w_down: QTensor, first: int = 0,
     M, K = x.shape
     ff = w_gu.shape[0] // 2
     C = w_down.shape[0]
-    # group 32 only (Q8_0, Q5_K, Q5_1): a uniform Q6_K file (group 16) of a
-    # model whose ff is a multiple of 256 would take the reference's MLP
-    # kernel at group 16
-    sgu = check_i8t(x, w_gu, "mlp_i8t", groups=(32,))
+    G = w_gu.group
+    if act not in ACT_IDS:
+        raise NotImplementedError(f"mlp_i8t kernel with act {act!r}: not ported yet "
+                                  f"({tuple(ACT_IDS)} are)")
+    # groups 32 (Q8_0, Q5_K, widened 4-bit weights) and 16 (Q6_K); mins at 32
+    sgu = check_i8t(x, w_gu, "mlp_i8t")
     if mid is None:
         mid = torch.empty(M, ff, device=x.device, dtype=torch.bfloat16)
-    sd = check_i8t(mid, w_down, "mlp_i8t", groups=(32,))
+    sd = check_i8t(mid, w_down, "mlp_i8t")
+    if w_down.group != G:
+        raise ValueError(f"mlp_i8t kernel: gate-up group {G}, down group {w_down.group}")
     if ff % 128:
         raise NotImplementedError(f"mlp_i8t kernel: ff = {ff}: not ported yet (a multiple of 128)")
     mins = sgu.shape[0] == 2
@@ -203,7 +222,7 @@ def _run(x: torch.Tensor, w_gu: QTensor, w_down: QTensor, first: int = 0,
         raise NotImplementedError("mlp_i8t kernel: mins on one of its weights only: not ported "
                                   "yet (Q5_K_S gives both, Q8_0 neither)")
     # the unfused kernels' plans: one tile (a function of M), each product's splits
-    plan = mlp_plan(M, K, ff, C)
+    plan = mlp_plan(M, K, ff, C, G)
     bm, ks1, ks2 = plan["bm"], plan["ks1"], plan["ks2"]
     if n is None:
         n = plan["nA"] + plan["nD"] - first
@@ -212,40 +231,46 @@ def _run(x: torch.Tensor, w_gu: QTensor, w_down: QTensor, first: int = 0,
     part1 = torch.empty(ks1 * M * 2 * ff, dtype=f32, device=dev) if ks1 > 1 else None
     part2 = torch.empty(ks2 * M * C, dtype=f32, device=dev) if ks2 > 1 else None
     out = torch.empty(M, C, device=dev, dtype=torch.bfloat16)
-    lib = kernels.library("mlp_i8t", _SIGNATURES)
+    # one library an epilogue (csrc/mlp_i8t.cu, mlp_i8t_gelu.cu: built at once)
+    lib = kernels.library("mlp_i8t_gelu" if act == "gelu" else "mlp_i8t", _SIGNATURES)
     ws = _ticket_buffer(dev, lib.bt_mlp_i8t_ws_ints(M, ff, C, bm))
     rc = lib.bt_mlp_i8t(x.data_ptr(), w_gu.qw.data_ptr(), sgu.data_ptr(), w_down.qw.data_ptr(),
                         sd.data_ptr(), None if part1 is None else part1.data_ptr(),
                         mid.data_ptr(), None if part2 is None else part2.data_ptr(),
                         out.data_ptr(), ws.data_ptr(), M, K, ff, C, ks1, ks2, bm,
-                        first, n, workers, int(mins), torch.cuda.current_stream(dev).cuda_stream)
-    kernels.check(rc, "mlp_i8t")
-    kernels.count("mlp_i8t", (K, C))
+                        first, n, workers, int(mins), G, ACT_IDS[act],
+                        torch.cuda.current_stream(dev).cuda_stream)
+    name = mlp_count_name(G, act)
+    kernels.check(rc, name)
+    kernels.count(name, (K, C))
     return out, mid
 
 
-def _launch(x: torch.Tensor, w_gu: QTensor, w_down: QTensor) -> torch.Tensor:
-    return _run(x, w_gu, w_down)[0]
+def _launch(x: torch.Tensor, w_gu: QTensor, w_down: QTensor, act: str = "silu") -> torch.Tensor:
+    return _run(x, w_gu, w_down, act=act)[0]
 
 
-def qmm_mlp_i8t(x: torch.Tensor, w_gu: QTensor, w_down: QTensor) -> torch.Tensor:
-    """Kernel-level entry: x [M, K] bf16 → [M, C] bf16 (the plain version
-    for CPU tensors, the kernel for CUDA tensors)."""
+def qmm_mlp_i8t(x: torch.Tensor, w_gu: QTensor, w_down: QTensor,
+                act: str = "silu") -> torch.Tensor:
+    """Kernel-level entry: x [M, K] bf16 → [M, C] bf16 with act "silu" or
+    "gelu" (the plain version for CPU tensors, the kernel for CUDA
+    tensors)."""
     if x.device.type == "cpu":
-        return qmm_mlp_plain(x, w_gu, w_down)
-    return _launch(x, w_gu, w_down)
+        return qmm_mlp_plain(x, w_gu, w_down, act)
+    return _launch(x, w_gu, w_down, act)
 
 
 def qmm_mlp(x: torch.Tensor, w_gu: QTensor, w_down: QTensor,
             act: str = "silu") -> Optional[torch.Tensor]:
     """The whole gated MLP → [..., C] bf16, or None when the kinds or shapes
-    are not taken (the caller then runs gate-up + down).  SiLU only: where
-    the reference would take its kernel with another act, this raises."""
+    are not taken (the caller then runs gate-up + down).  SiLU and GELU:
+    where the reference would take its kernel with another act (ReLU), this
+    raises."""
     K = x.shape[-1]
     M = _rows(x)
     if not mlp_supported(w_gu, w_down, K, M):
         return None
-    if act != "silu":
+    if act not in ACT_IDS:
         raise NotImplementedError(f"the whole MLP with act {act!r}: not ported yet")
-    y = qmm_mlp_i8t(x.reshape(M, K).to(torch.bfloat16).contiguous(), w_gu, w_down)
+    y = qmm_mlp_i8t(x.reshape(M, K).to(torch.bfloat16).contiguous(), w_gu, w_down, act)
     return y.reshape(*x.shape[:-1], w_down.shape[0])

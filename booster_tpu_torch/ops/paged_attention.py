@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from booster_tpu_torch.ops import kernels
-from booster_tpu_torch.ops.decode_attention import decode_attn_plain, split_scratch
+from booster_tpu_torch.ops.decode_attention import WIDTHS, decode_attn_plain, split_scratch
 from booster_tpu_torch.ops.paged_kv import gather_layer
 
 _SIGNATURES = {
@@ -88,9 +88,9 @@ def paged_attn(qb, pool_k, pool_v, table, layer: int, lens, win: int, softcap: f
                   or v_scale.dtype != torch.float32
                   or not (k_scale.is_contiguous() and v_scale.is_contiguous())):
         raise ValueError("paged_attn kernel: scales must be contiguous f32 [L, Np, Hkv, P, 1]")
-    if D != 128:
+    if D not in WIDTHS:
         raise NotImplementedError(f"paged_attn kernel: pool head dim {D}: not ported yet "
-                                  "(the kernel takes the 128-lane storage width)")
+                                  "(the kernel takes the 128- and 256-lane storage widths)")
     if G > 16 or not 0 <= layer < L:
         raise ValueError("paged_attn kernel: needs G <= 16 and a valid layer")
     table = table.to(torch.int32).contiguous()
@@ -114,7 +114,7 @@ def paged_attn(qb, pool_k, pool_v, table, layer: int, lens, win: int, softcap: f
         out.data_ptr(), None if part is None else part.data_ptr(),
         None if tickets is None else tickets.data_ptr(), B, Hkv, G, P, MAXP, D, int(win),
         float(softcap), nsplit, torch.cuda.current_stream(qb.device).cuda_stream)
-    name = "paged_attn_i8" if quant else "paged_attn"
+    name = ("paged_attn_i8" if quant else "paged_attn") + ("_d256" if D == 256 else "")
     kernels.check(rc, name)
     kernels.count(name)
     return out

@@ -11,7 +11,9 @@ mins plane), those of ``csrc/qmm_i8t.cu``
 ``qmm_gateup`` runs their act·mul forms (``_gateup_i4_gd_kernel`` /
 ``_gateup_i4_kernel``, ``_gateup_i8_gd_kernel`` / ``_gateup_i8_kernel``):
 SiLU on every kind, the tanh-GELU of gated-GELU models (Gemma) on i4t at
-group 32; GELU on int8 weights and ReLU are not ported yet.
+group 32; GELU on the int8 gate-ups and ReLU are not ported yet (int8
+weights take GELU in the whole MLP, ``ops.mlp``, at every M of Gemma's
+widths).
 The M > 1 tiles take their rows per block and K splits from ``i4t_plan``
 (i4t), ``lane_plan`` (lane-major) and ``i8k_plan`` (i8t and i8c, whose tile
 is ``csrc/i8k_tile.cuh``), the i8t and i8c matvecs at M = 1 (the

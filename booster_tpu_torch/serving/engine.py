@@ -52,7 +52,7 @@ import torch
 
 from booster_tpu_torch.models.llama import forward
 from booster_tpu_torch.models.loader import LoadedModel
-from booster_tpu_torch.ops.kv_cache import KVCache, pad_head_dim, shift_slot_cache
+from booster_tpu_torch.ops.kv_cache import KVCache, shift_slot_cache
 from booster_tpu_torch.ops.paged_kv import (PageAllocator, PagedKVCache, gather_layer,
                                             scatter_layer)
 from booster_tpu_torch.sampling.janus import JanusTables, janus_sample
@@ -154,9 +154,6 @@ class Engine:
         self.prefix_lookups = self.prefix_hits = self.prefix_tokens_reused = 0
         self.paged = paged
         self.page_size = page_size
-        if paged and pad_head_dim(model.cfg.head_dim) != 128:
-            raise NotImplementedError(f"a paged pool at {pad_head_dim(model.cfg.head_dim)} "
-                                      "lanes: not ported yet (128 lanes are)")
         if paged:
             maxp = -(-max_seq // page_size)
             self.n_pages = n_pages or (max_batch * maxp + maxp + 1)

@@ -995,7 +995,8 @@ def paged_attn_mutants(args: tuple) -> dict:
     wrong kernels would on ``args``: the table ignored (slot b's pages taken
     as the contiguous run from 1 + b·MAXP), every page read one physical
     page off, the in-page row ignored (each column reads its page's first
-    row), and for an int8 pool each page's scales taken from the next page."""
+    row), for an int8 pool each page's scales taken from the next page, and
+    for a head dim over 128 (a 256-lane pool) lanes 128-255 dropped."""
     q, kc, vc, table, layer, *rest = args
     Np, MAXP = kc.shape[1], table.shape[1]
     B = table.shape[0]
@@ -1014,6 +1015,14 @@ def paged_attn_mutants(args: tuple) -> dict:
         ks, vs = rest[6:]
         out["scales from the wrong page"] = (q, kc, vc, table, layer, *rest[:6],
                                              torch.roll(ks, -1, 1), torch.roll(vs, -1, 1))
+    if q.shape[-1] > 128 and q[..., 128:].abs().amax() > 0:
+
+        def lo(t):
+            return None if t is None else _lanes_below(t, 128)
+
+        lens, win, softcap, sk, sv, ok = rest[:6]
+        out["lanes 128-255 dropped"] = (lo(q), lo(kc), lo(vc), table, layer, lens, win,
+                                        softcap, lo(sk), lo(sv), ok, *rest[6:])
     return out
 
 

@@ -92,7 +92,7 @@ def main(argv=None) -> dict:
             res["rows"].append({"M": M, "name": "mlp", "ms": NOT_MEASURED, "bound_ms": b_ms,
                                 "equal": bool(torch.equal(got, want))})
             continue
-        plan = tm.mlp_plan(M, K, ff, C)
+        plan = tm.mlp_plan(M, K, ff, C, wg.group)
         nA, nD = plan["nA"], plan["nD"]
         _, mid = tm._run(x, wg, wd)
         cases = {"mlp": (lambda: tm.qmm_mlp_i8t(x, wg, wd), True, (b_ms, b_by)),

@@ -2,10 +2,11 @@
 """Smoke run of the PyTorch/CUDA port (booster_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--phases build,kernels,probes,parity,generate,batch,generate_i8,
-                           generate_q8,batch_q8,server,generate_i8c,batch_i8c,generate_q6k,
-                           batch_q6k,generate_q5k,batch_q5k,generate_mpt,batch_mpt,
-                           generate_q4k,generate_q2k,batch_q2k,generate_gemma,batch_gemma,
-                           generate_moe,batch_moe]
+                           generate_gemma,batch_gemma,generate_gemma_i8,generate_gemma_q6k,
+                           batch_gemma_q6k,server_gemma,generate_q8,batch_q8,server,
+                           generate_i8c,batch_i8c,generate_q6k,batch_q6k,generate_q5k,
+                           batch_q5k,generate_mpt,batch_mpt,generate_q4k,generate_q2k,
+                           batch_q2k,generate_moe,batch_moe]
 
 Phases, each printing one JSON line with its seconds:
 
@@ -131,6 +132,17 @@ Phases, each printing one JSON line with its seconds:
    slots, Gemma-7B's 16 kv heads; against the plain version and the CPU
    mirror, untimed); and the tied head at
    V = 256000 (a torch product, timed beside its bound; no kernel).
+   Gemma-2B's int8 forms (_gemma_mlp_kernels): mlp_i8t_gelu.cu (the whole
+   MLP's GELU epilogue) at K 2048, ff 16384, C 2048 at group 32 (Q4_0 widened by
+   weights="i8"), at group 32 with mins planes (on no path) and at group 16
+   (Q6_K), M = 1, 16, 64 and 2048, each equal to its unfused sequence bit
+   for bit, its mid too, the SiLU epilogue (on mid) and the tile's wrong
+   gate-up kernels 8x past their limits (the SiLU form at group 16 too, at
+   M = 1 and 64, on no path); and the paged decode attention
+   and append at Gemma-2B's 256-lane pool (18 layers, one kv head of 8
+   query heads, the 7B's page pattern; int8 and bf16, with and without the
+   self term; lanes 128-255 dropped among the wrong kernels), counted
+   under their _d256 names.
    Median times of kernel,
    plain version and one library call (the yardstick), each call after an
    L2 scrub (cold, as on the decode path), and the kernel's time warm
@@ -221,8 +233,14 @@ Phases, each printing one JSON line with its seconds:
    against the file's numpy dequantization, the single-stream path over a
    bf16 cache and the batched path over an int8 cache (4 slots, 2 live, T
    = 32), 2 decode steps each, its card launches (the path "parity (n)")
-   holding every new form and no SiLU gate-up.  (a), (b), (e)'s Q4_0
-   Mixtral, (f)'s TinyLlama and (n) read the first 2 layers of their
+   holding every new form and no SiLU gate-up; (o) the same Gemma file
+   with weights="i8" (the whole MLP with GELU at group 32 at every M; its
+   cases as (n)'s, and a paged int8 pool of 4 slots, 2 live: the paged
+   attention and append at 256 lanes) and (p) llama.cpp's Q6_K mix of
+   Gemma-2B (the MLP at group 16), their card launches (the paths
+   "parity (o)" and "parity (p)") holding those forms and no 4-bit kernel
+   or int8 gate-up.  (a), (b), (e)'s Q4_0 Mixtral, (f)'s TinyLlama, (g),
+   (h), (i), (l), (m), (n), (o) and (p) read the first 2 layers of their
    full-depth file (PARITY_SHARED) in place of a 2-layer file.  The
    live slots' logits agree within the stated tolerance at every step, and
    the greedy tokens wherever the CPU's top-2 margin exceeds it.
@@ -442,6 +460,24 @@ Phases, each printing one JSON line with its seconds:
    windows watch the GELU gate-ups and the 256-lane kernels by name and
    fail on a SiLU gate-up or a 128-lane attention.
 
+   generate_gemma_i8, generate_gemma_q6k, batch_gemma_q6k and server_gemma
+   (after batch_gemma; the Gemma phases run before generate_q8, so that
+   the writer's 7B file, its slowest, comes late) — the same Gemma-2B
+   file loaded with ``weights="i8"`` (i8t at group 32), and llama.cpp's
+   Q6_K mix of the same config (GEMMA_2B_Q6K: every 2-D weight and the
+   token table Q6_K, 2.06 GB, i8t at group 16 throughout), through phase
+   4's generate and (Q6_K) phase 5's bench_batch.  The reference's gate
+   takes the whole MLP at every M of these widths, so exact counts: per
+   generate step 2·18 int8 matvecs (qkv, wo) and 18 whole MLPs with GELU
+   (mlp_i8t_gelu, mlp_i8t_g16_gelu), 18 bf16 decode attentions and one
+   append at 256 lanes, at the prefill the tile's qkv and wo and 18 MLPs;
+   per batch step and prefill chunk 2·18 tile matmuls and 18 MLPs at
+   group 16 (M 64 and 2048), the int8 256-lane attention and append; no
+   4-bit kernel, int8 gate-up or SiLU MLP (the profiles fail on them).
+   server_gemma: phase 8 on generate_gemma's Q4_0 model (no second load),
+   its 256-lane paged pool: per decode step 18 int8 paged attentions and
+   one paged append (their _d256 forms), nothing else of the cache's.
+
 Then one ``{"kernels": [...]}`` line (each kernel's launches are those of
 the path that runs it: generate / generate_q8 for the M = 1 kernels and
 bf16-cache attention, batch / batch_q8 for the int8 ones, server for the
@@ -451,7 +487,9 @@ forms, the M = 1 fused gate-up and the 1.3B down, generate_q5k /
 batch_q5k for the int8 forms with mins at the 1.3B shapes, parity (k) for
 the whole MLP with mins, generate_q2k / batch_q2k for the i4t forms at
 group 16, generate_gemma / batch_gemma for the GELU gate-up and the
-256-lane attention and appends, generate_mpt /
+256-lane attention and appends, generate_gemma_i8 / parity (o) and
+generate_gemma_q6k / batch_gemma_q6k for the whole MLP with GELU at
+groups 32 and 16, server_gemma for the 256-lane paged forms, generate_mpt /
 batch_mpt for the per-layer appends, generate_q4k for config 2's Q4_K rows
 (its long run, generate_q4k_8k, for the 8192-row qkv), parity (j) for the
 lane-major mins form's grouped rows; the bf16-pool
@@ -486,10 +524,11 @@ sys.path.insert(0, str(ROOT))
 # the card's bounds: one timer for the kernels phase and the probe tools
 from booster_tpu_torch.tools.timing import bound, release as release_scrub, timed  # noqa: E402
 PHASES = ("build", "kernels", "probes", "parity", "generate", "batch", "generate_i8",
-          "generate_q8", "batch_q8", "server", "generate_i8c", "batch_i8c", "generate_q6k",
-          "batch_q6k", "generate_q5k", "batch_q5k", "generate_mpt", "batch_mpt", "generate_q4k",
-          "generate_q2k", "batch_q2k", "generate_gemma", "batch_gemma", "generate_moe",
-          "batch_moe")
+          "generate_gemma", "batch_gemma", "generate_gemma_i8", "generate_gemma_q6k",
+          "batch_gemma_q6k", "server_gemma", "generate_q8", "batch_q8", "server",
+          "generate_i8c", "batch_i8c", "generate_q6k", "batch_q6k", "generate_q5k", "batch_q5k",
+          "generate_mpt", "batch_mpt", "generate_q4k", "generate_q2k", "batch_q2k",
+          "generate_moe", "batch_moe")
 
 # TinyLlama-1.1B (config 1 of bench.py), Q4_0
 TINYLLAMA = dict(vocab_size=32000, hidden=2048, heads=32, kv_heads=4, ff=5632,
@@ -560,6 +599,10 @@ LLAMA3_8B_Q2K = dict(LLAMA3_8B, output_quant="Q6_K",
 GEMMA_2B = dict(vocab_size=256000, hidden=2048, heads=8, kv_heads=1, head_dim=256, ff=16384,
                 arch="gemma", embd_quant="Q6_K", rms_eps=1e-6, rope_base=10000.0,
                 context=8192, seed=0, weight_scale=0.05, draw="blocks")
+# the same config as llama.cpp's Q6_K mix writes it: every 2-D weight Q6_K
+# (2048 and 16384 are multiples of 256: no fallback type), the token table
+# too; every layer weight K-major i8t at group 16 (2.06 GB at 18 layers)
+GEMMA_2B_Q6K = dict(GEMMA_2B)
 # config 2's run (bench.py:72-100): its prompt, engine and sampling
 Q4K_PROMPT = "benchmark " * 12
 Q4K_MAX_SEQ, Q4K_CHUNK = 8192, 64
@@ -933,6 +976,8 @@ def phase_kernels(entries: list) -> dict:
     _q5k_kernels(entries, failures)
     _q2k_kernels(entries, failures)
     _gemma_kernels(entries, failures)
+    _gemma_mlp_kernels(entries, failures)
+    _paged_kernels(entries, failures, paged_checks, PAGED_GEMMA)
     multi_stage = _multi_stage_checks(failures)
     tied = _tied_head_row(failures)
     floor = _append_floor()
@@ -971,6 +1016,148 @@ def _gemma_kernels(entries: list, failures: list) -> None:
     torch.cuda.empty_cache()
     _bf16_attn_kernels(entries, failures, GEMMA_ATTN)
     _int8_kernels(entries, failures, GEMMA_ATTN)
+
+
+def _gemma_mlp_kernels(entries: list, failures: list) -> None:
+    """csrc/mlp_i8t_gelu.cu's forms at Gemma-2B's widths (K 2048, ff 16384,
+    C 2048; random weights on the card): group 32 (Q4_0 widened by
+    weights="i8", as Q8_0), group 32 with mins planes (real Q5_K planes,
+    testing.q5k_weight; on no path) and group 16 (Q6_K), each at M = 1 and
+    16 (generate's steps and
+    prefill), 64 and 2048 (a batch step and its prefill: the reference's
+    gate takes the whole MLP there too, 256 rows a tile).  Each equal bit
+    for bit to its unfused sequence (the dequant matmul on the fused weight,
+    gelu·mul, the dequant matmul on mid, a cast), its mid to gelu·mul of the
+    unfused sums, within the MLP's limit of its plain version (mid within
+    the gate-up's, or an output of one-ulp roundings of g and u), its
+    workspace zero after the launch; the SiLU epilogue 8x past the mid's
+    limit and the tile's wrong gate-up kernels (testing.qmm_i8k_mutants: a
+    group read as the other among them; with mins, the mins dropped or of
+    the wrong sign on either weight, testing.qmm_mins_mutants, as the Q5_K
+    8B rows) 8x past the output's; timed beside the unfused sequence.  And the
+    SiLU form at group 16 (a uniform Q6_K llama's; on no path) at M = 1 and
+    64, equal to its unfused sequence."""
+    import torch
+
+    from booster_tpu_torch.ops import mlp as tm
+    from booster_tpu_torch.ops import qmm as tq
+    from booster_tpu_torch.testing import (gateup_flips, q5k_weight, qmm_i8k_mutants,
+                                           qmm_mins_mutants)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(22)
+    C, ff = GEMMA_2B["hidden"], GEMMA_2B["ff"]
+    bf = torch.bfloat16
+    # (label, group, mins, the path of M 1 and 16, of M 64 and 2048)
+    forms = (("g32", 32, False, "generate_gemma_i8", "parity (o)"),
+             ("g32 mins", 32, True, None, None),
+             ("g16", 16, False, "generate_gemma_q6k", "batch_gemma_q6k"))
+    for label, G, mins, path1, path2 in forms:
+        if mins:
+            gu = q5k_weight(2 * ff, C, seed=220, device="cuda")
+            dn = q5k_weight(C, ff, seed=221, device="cuda")
+        else:
+            gu = _stacked_i8t(2, C, 2 * ff, gen, G).at(1)
+            dn = _stacked_i8t(2, ff, C, gen, G).at(1)
+        name = tm.mlp_count_name(G, "gelu")
+        sbytes = sum(w.resolved().qw.numel() + w.resolved().scales.numel() * 2 for w in (gu, dn))
+
+        def unfused(x):
+            g = tq.qmm_i8t(x, gu, dq=True).to(bf)
+            return tq.qmm_i8t(tq.gelu(g[:, :ff]) * g[:, ff:], dn, dq=True).to(bf)
+
+        for M in (1, 16, 64, 2048):
+            tag = f"mlp {label} M={M}"
+            x = torch.randn(M, C, device="cuda", generator=gen).to(bf)
+            got, mid_k = tm._run(x, gu, dn, act="gelu")
+            want = tm.qmm_mlp_plain(x, gu, dn, "gelu").float()
+            err = float((got.float() - want).abs().max())
+            limit = 2 ** -7 * float(want.abs().max())
+            if not (torch.isfinite(got).all() and err <= limit):
+                failures.append(f"{name} {tag}: max err {err}")
+            g = tq.qmm_i8t(x, gu, dq=True).to(bf)
+            if not torch.equal(mid_k, tq.gelu(g[:, :ff]) * g[:, ff:]):
+                failures.append(f"{name} {tag}: mid != qmm_i8t (dq) + gelu·mul")
+            if not torch.equal(got, unfused(x)):
+                failures.append(f"{name} {tag}: != qmm_i8t (dq) + gelu·mul + qmm_i8t (dq)")
+            torch.cuda.synchronize()
+            if int(tq._tickets[x.device].abs().sum()):
+                failures.append(f"{name} {tag}: its workspace is not zero after the launch")
+            gp = tq.qmm_plain(x, gu, dq=True).to(bf)
+            midp = (tq.gelu(gp[:, :ff]) * gp[:, ff:]).float()
+            mlim = 2 ** -7 * midp.abs() + 1e-5 * midp.abs().max()
+            flips = gateup_flips(mid_k, gp[:, :ff], gp[:, ff:], "gelu")
+            if not bool((((mid_k.float() - midp).abs() <= mlim) | flips).all()):
+                failures.append(f"{name} {tag}: mid past the gate-up limit")
+            seen = {"SiLU for GELU (mid)": float(((tq.silu(gp[:, :ff]) * gp[:, ff:]).float()
+                                                   - midp).abs().div(mlim).max())}
+            nst, ks = C // 64, tq.i8k_plan(M, C, 2 * ff)[1]
+            if mins:
+                mutants = {f"gate-up: {k}": (xm, wm, dn)
+                           for k, (xm, wm) in qmm_mins_mutants(x, gu).items()}
+                mutants |= {f"down: {k}": (x, gu, wm)
+                            for k, (_, wm) in qmm_mins_mutants(mid_k, dn).items()}
+            else:
+                mutants = {k: (xm, wm, dn) for k, (xm, wm) in
+                           qmm_i8k_mutants(x, gu, ((ks - 1) * nst // ks, nst)).items()}
+            for what, margs in mutants.items():
+                seen[what] = float((tm.qmm_mlp_plain(*margs, "gelu").float()
+                                    - want).abs().max()) / limit
+            for what, v in seen.items():
+                if v < 8:
+                    failures.append(f"{name} {tag}: the check cannot see {what} ({v})")
+            del gp, midp, mlim, flips, g, want
+            b_ms, b_by = bound(sbytes + M * C * 2 + M * C * 2, 2 * M * C * 2 * ff + 2 * M * ff * C)
+            path = path1 if M <= 16 else path2
+            row = {
+                "name": name, "shape": f"Gemma-2B mlp {label} M={M} K={C} ff={ff} C={C}",
+                "key": (name, (C, C)), "path": path or "batch_gemma_q6k", "route": "cuda",
+                "source": "booster_tpu_torch/csrc/mlp_i8t_gelu.cu",
+                "replaces": "booster_tpu/ops/pallas_qmm.py:1172",
+                "max_abs_err": err,
+                "min_wrong_kernel_of_limit": min(seen.values()),
+                "ms": timed(lambda: tm.qmm_mlp_i8t(x, gu, dn, "gelu"), trials=3),
+                "warm_ms": timed(lambda: tm.qmm_mlp_i8t(x, gu, dn, "gelu"), trials=3, cold=False),
+                "plain_ms": timed(lambda: tm.qmm_mlp_plain(x, gu, dn, "gelu"), reps=3, trials=3),
+                "unfused_ms": timed(lambda: unfused(x), trials=3),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "library": "none: no one torch call (gate-up, GELU·mul, down)",
+                "check": CHECKS["mlp"] + "; equal to qmm_i8t (dq) + gelu·mul + qmm_i8t (dq); "
+                         "mid per CHECKS['gateup'] or one-ulp flips; workspace zero; wrong "
+                         "kernels at 8x"}
+            if path is None:  # counted under the form without mins' name
+                row["launches_note"] = ("on no path (no Q5_K Gemma file); read on "
+                                        "batch_gemma_q6k, which runs the group-16 form")
+            entries.append(row)
+            del x, got, mid_k
+        if G == 16:  # the SiLU form at group 16 (a uniform Q6_K llama; on no path here)
+            for M in (1, 64):
+                x = torch.randn(M, C, device="cuda", generator=gen).to(bf)
+                got = tm.qmm_mlp_i8t(x, gu, dn)
+                g = tq.qmm_i8t(x, gu, dq=True).to(bf)
+                want = tm.qmm_mlp_plain(x, gu, dn).float()
+                err, limit = float((got.float() - want).abs().max()), 2 ** -7 * float(
+                    want.abs().max())
+                if not (err <= limit and torch.equal(got, tq.qmm_i8t(
+                        tq.silu(g[:, :ff]) * g[:, ff:], dn, dq=True).to(bf))):
+                    failures.append(f"mlp_i8t_g16 M={M}: max err {err}, or != its unfused "
+                                    "sequence")
+                b_ms, b_by = bound(sbytes + 4 * M * C, 2 * M * C * 2 * ff + 2 * M * ff * C)
+                entries.append({
+                    "name": "mlp_i8t_g16", "shape": f"Gemma-2B widths mlp g16 SiLU M={M}",
+                    "key": ("mlp_i8t_g16", (C, C)), "path": "batch_gemma_q6k", "route": "cuda",
+                    "source": "booster_tpu_torch/csrc/mlp_i8t.cu",
+                    "replaces": "booster_tpu/ops/pallas_qmm.py:1172", "max_abs_err": err,
+                    "ms": timed(lambda: tm.qmm_mlp_i8t(x, gu, dn), trials=3),
+                    "warm_ms": timed(lambda: tm.qmm_mlp_i8t(x, gu, dn), trials=3, cold=False),
+                    "plain_ms": timed(lambda: tm.qmm_mlp_plain(x, gu, dn), reps=3, trials=3),
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                    "library": "none: no one torch call (gate-up, SiLU·mul, down)",
+                    "launches_note": "on no path (no Q6_K llama with ff a multiple of 256)",
+                    "check": CHECKS["mlp"] + "; equal to qmm_i8t (dq) + silu·mul + qmm_i8t (dq)"})
+                del x, got, g, want
+        del gu, dn
+        torch.cuda.empty_cache()
 
 
 def _multi_stage_checks(failures: list) -> dict:
@@ -1434,10 +1621,17 @@ def _layer_append_kernels(entries: list, failures: list, checks: dict) -> None:
         torch.cuda.empty_cache()
 
 
-def _paged_kernels(entries: list, failures: list, checks: dict) -> None:
-    """Paged decode attention and the paged all-layer append at the server
-    path's layout: the 7B model's 32 layers of 8 kv heads (G = 4, head dim
-    128), pages of 256 rows, 64 slots of up to 16 pages (4096 rows).  The
+# the server paths' pool layouts: (kv heads, G, head dim) of a layer, its layers
+PAGED_7B = dict(name="7B", L=32, Hkv=8, G=4, D=128, path="server")
+PAGED_GEMMA = dict(name="Gemma-2B", L=18, Hkv=1, G=8, D=256, path="server_gemma")
+
+
+def _paged_kernels(entries: list, failures: list, checks: dict, lay: dict = PAGED_7B) -> None:
+    """Paged decode attention and the paged all-layer append at a server
+    path's layout (`lay`): the 7B model's 32 layers of 8 kv heads (G = 4,
+    head dim 128) or Gemma-2B's 18 layers of one kv head (G = 8, head dim
+    256: the _d256 forms, the four cases of self term and pool type only),
+    pages of 256 rows, 64 slots of up to 16 pages (4096 rows).  The
     slots' pages lie scattered over the pool, slots 0-15 share their first
     two pages, and the lengths end mid-page, on a page boundary, at one row
     and at the full 4096 (``booster_tpu_torch.testing.paged_attn_case``).
@@ -1458,7 +1652,8 @@ def _paged_kernels(entries: list, failures: list, checks: dict) -> None:
     from booster_tpu_torch.testing import (paged_attn_case, paged_attn_limit,
                                            paged_attn_mutants)
 
-    L, Hkv, G, D, P, B, MAXP = 32, 8, 4, 128, 256, 64, 16
+    L, Hkv, G, D, P, B, MAXP = lay["L"], lay["Hkv"], lay["G"], lay["D"], 256, 64, 16
+    sfx, where = ("_d256" if D == 256 else ""), lay["name"]
     rng = np.random.default_rng(4)
     lens = ([600 + 53 * i for i in range(16)]  # the slots that share two pages
             + [1, 256, 512, 4096, 300, 255, 257, 1000, 2047, 700, 128, 2, 3000, 768, 511, 1025]
@@ -1473,12 +1668,14 @@ def _paged_kernels(entries: list, failures: list, checks: dict) -> None:
              ("int8 no-self", lens, 16, True, False, 0, 0.0),
              ("bf16 no-self", lens, 16, False, False, 0, 0.0),
              ("int8 window 300 softcap 30", lens, 16, True, True, 300, 30.0))
+    if D == 256:
+        cases = cases[:2] + cases[3:5]
     for label, lens, shared, quant, with_self, win, softcap in cases:
         args = paged_attn_case(L, B, Hkv, G, P, MAXP, D, D, lens, "cuda", seed=5, quantized=quant,
                                shared=shared, win=win, softcap=softcap)
         if not with_self:
             args = (*args[:8], None, None, None, *args[11:])
-        name = "paged_attn_i8" if quant else "paged_attn"
+        name = ("paged_attn_i8" if quant else "paged_attn") + sfx
 
         def limit(a):
             if a[8] is None:  # no self term: the limit of the case with it dropped
@@ -1530,9 +1727,9 @@ def _paged_kernels(entries: list, failures: list, checks: dict) -> None:
         b_ms, b_by = bound(other + Hkv * rows * per_col, 4 * Hkv * G * (cols + B) * D)
         per_slot_ms, _ = bound(other + Hkv * cols * per_col, 0)
         entries.append({
-            "name": name, "shape": f"7B L={L} B={B} Hkv={Hkv} G={G} P={P} MAXP={MAXP} D={D} "
-                                   f"{label} cols={cols} distinct_rows={rows}",
-            "key": (name, None), "path": "server", "route": "cuda", "source": src,
+            "name": name, "shape": f"{where} L={L} B={B} Hkv={Hkv} G={G} P={P} MAXP={MAXP} "
+                                   f"D={D} {label} cols={cols} distinct_rows={rows}",
+            "key": (name, None), "path": lay["path"], "route": "cuda", "source": src,
             "replaces": "booster_tpu/ops/pallas_paged_attention.py:348",
             "max_abs_err": err, "max_err_of_limit": share, "min_wrong_kernel_of_limit": seen,
             "ms": ms, "warm_ms": warm_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
@@ -1572,7 +1769,7 @@ def _paged_kernels(entries: list, failures: list, checks: dict) -> None:
                                 pools[1][3])
         exact = all(torch.equal(a[:, 1:], b[:, 1:]) for a, b in zip(*pools) if a is not None)
         wrote = bool(pools[0][0][:, 1:].abs().sum() > 0)
-        name = "kv_append_paged_i8" if quant else "kv_append_paged"
+        name = ("kv_append_paged_i8" if quant else "kv_append_paged") + sfx
         if not (exact and wrote):
             failures.append(f"{name}: differs from the plain version off the scratch page")
         k1, v1, ks1, vs1 = pools[0]
@@ -1592,8 +1789,8 @@ def _paged_kernels(entries: list, failures: list, checks: dict) -> None:
         rows = L * B * Hkv
         b_ms, b_by = bound(2 * rows * D * 2 + 2 * rows * (D + 4 if quant else 2 * D), 0)
         entries.append({
-            "name": name, "shape": f"7B L={L} B={B} H={Hkv} P={P} MAXP={MAXP} d={D}",
-            "key": (name, None), "path": "server", "route": "cuda",
+            "name": name, "shape": f"{where} L={L} B={B} H={Hkv} P={P} MAXP={MAXP} d={D}",
+            "key": (name, None), "path": lay["path"], "route": "cuda",
             "source": "booster_tpu_torch/csrc/kv_append.cu",
             "replaces": "booster_tpu/ops/pallas_kv.py:" + ("415" if quant else "447"),
             "max_abs_err": 0.0 if exact else None, "ms": ms, "warm_ms": warm_ms,
@@ -1604,17 +1801,19 @@ def _paged_kernels(entries: list, failures: list, checks: dict) -> None:
         torch.cuda.empty_cache()
 
 
-def _stacked_i8t(L, K, N, gen):
+def _stacked_i8t(L, K, N, gen, group=32):
     """A random stacked i8t weight [L, K, N] (Q8_0's form: int8 payload, one
-    bf16 scale plane [L, 1, K/32, N]), made on the card."""
+    bf16 scale plane [L, 1, K/32, N]; Q6_K's at group 16), made on the
+    card."""
     import torch
 
     from booster_tpu_torch.gguf import GGMLType
     from booster_tpu_torch.quant.qtensor import QTensor
 
     qw = torch.randint(-127, 128, (L, K, N), dtype=torch.int8, device="cuda", generator=gen)
-    s = torch.rand((L, 1, K // 32, N), device="cuda", generator=gen) * 2e-3 + 1e-4
-    return QTensor("i8t", qw, s.to(torch.bfloat16), None, 32, (N, K), GGMLType.Q8_0)
+    s = torch.rand((L, 1, K // group, N), device="cuda", generator=gen) * 2e-3 + 1e-4
+    return QTensor("i8t", qw, s.to(torch.bfloat16), None, group, (N, K),
+                   GGMLType.Q6_K if group == 16 else GGMLType.Q8_0)
 
 
 def _i8t_kernels(entries: list, failures: list) -> None:
@@ -3490,13 +3689,14 @@ GGUFS = {"tiny": ("tinyllama-shape-q4_0", "TINYLLAMA", "Q4_0"),
          "q5k": ("deepseek-coder-1.3b-shape-q5_k_s", "DEEPSEEK_Q5KS", "Q5_K"),
          "q5k_8b": ("llama3-8b-shape-q5_k_s", "LLAMA3_8B_Q5KS", "Q5_K"),
          "q2k": ("llama3-8b-shape-q2_k", "LLAMA3_8B_Q2K", "Q2_K"),
-         "gemma": ("gemma-2b-shape-q4_0", "GEMMA_2B", "Q4_0")}
+         "gemma": ("gemma-2b-shape-q4_0", "GEMMA_2B", "Q4_0"),
+         "gemma_q6k": ("gemma-2b-shape-q6_k", "GEMMA_2B_Q6K", "Q6_K")}
 # each model's depth on its full-size phases
 # (Mixtral cut to 20 of its 32: the card's machine takes 45 GiB of disk writes
 # a call; with config 2's files a 32-layer Mixtral came to 49 GiB, and at 24
 # layers the Q2_K mix's 2.8 GB did not fit beside the rest)
 LAYERS = {"tiny": 22, "q8": 32, "moe": 20, "q6k": 24, "mpt": 32, "q4k": 32, "q5k": 24,
-          "q2k": 32, "gemma": 18}
+          "q2k": 32, "gemma": 18, "gemma_q6k": 18}
 
 
 def _gguf_path(layers: int, model: str = "tiny") -> Path:
@@ -3539,8 +3739,10 @@ def _gguf_sizes() -> dict:
 # parity's 2-layer models that are the first 2 layers of a full-depth file
 # (testing.load_first_layers): the card's machine takes 45 GiB of writes a
 # call, and a 2-layer file of its own would cost Mixtral's 1.78 GB, Gemma's
-# 0.49, TinyLlama's 0.12
-PARITY_SHARED = ("tiny", "moe", "gemma")
+# 0.49, MPT-7B's 0.51, the 8B Q4_K's 0.39 and Q2_K's 0.31, the 1.3B Q6_K's
+# 0.20 and Q5_K_S's 0.17, TinyLlama's 0.12 (the last five pay for Gemma-2B's
+# Q6_K file; the writer writes these files before parity needs them)
+PARITY_SHARED = ("tiny", "moe", "gemma", "gemma_q6k", "q6k", "mpt", "q4k", "q5k", "q2k")
 
 
 def _parity_model(model: str, dev: str, **kw):
@@ -3765,6 +3967,8 @@ def _phase_parity() -> dict:
     out.update(_parity_q5k(tol, laps, out))
     out.update(_parity_q2k(tol, laps, out))
     out.update(_parity_gemma(tol, laps, out))
+    out.update(_parity_gemma8(tol, laps, out, "o"))
+    out.update(_parity_gemma8(tol, laps, out, "p"))
     out["seconds"] = time.perf_counter() - t0
     out["part_s"] = laps.parts
     return out
@@ -4014,10 +4218,10 @@ def _parity_q5k(tol: float, laps, out: dict) -> dict:
         mlp_rows = []
         orig = tm.qmm_mlp_i8t
 
-        def spy(x, w_gu, w_down):
+        def spy(x, w_gu, w_down, *act):
             if x.is_cuda:
                 mlp_rows.append(x.shape[0])
-            return orig(x, w_gu, w_down)
+            return orig(x, w_gu, w_down, *act)
 
         tm.qmm_mlp_i8t = spy
         kernels.reset_counts()
@@ -4165,6 +4369,88 @@ def _parity_gemma(tol: float, laps, out: dict) -> dict:
     del models, caches, card
     laps("n check")
     return {"gemma_2b_width_bf16_cache_1_slot_and_int8_cache_4_slots": res}
+
+
+def _parity_gemma8(tol: float, laps, out: dict, case: str) -> dict:
+    """(o) Gemma-2B at 2 layers with weights="i8" (the first 2 layers of the
+    18-layer Q4_0 file, the nibbles widened on the card to i8t at group 32)
+    and (p) in llama.cpp's Q6_K mix (the first 2 layers of the 18-layer
+    Q6_K file: i8t at group 16), loaded on the card and their params moved
+    to the CPU, as (n): the single-stream path over a bf16 cache (the whole
+    MLP with GELU at the 16-row prefill and at each step, the 256-lane
+    decode attention and append) and the batched path over an int8 cache
+    (4 slots, 2 live, T = 32: the MLP at 128 and 4 rows, the 256-lane
+    chunked prefill and int8 decode); (o) also over a paged int8 pool of 4
+    slots, 2 live (``Engine(paged=True, page_size=256)``: the paged
+    attention and append at 256 lanes).  The CPU's plain versions against
+    the card's kernels; the card's launches (the path "parity (o)" or
+    "parity (p)") hold the MLP's GELU form at its group and no 4-bit
+    kernel, int8 gate-up or other MLP form."""
+    import dataclasses
+
+    import torch
+
+    from booster_tpu_torch.models.loader import _to_device
+    from booster_tpu_torch.ops import kernels
+    from booster_tpu_torch.ops.kv_cache import KVCache
+    from booster_tpu_torch.ops.mlp import mlp_count_name
+    from booster_tpu_torch.serving import Engine
+
+    model, weights, G = ("gemma", "i8", 32) if case == "o" else ("gemma_q6k", "native", 16)
+    laps(f"{case} wait")
+    card = _parity_model(model, "cuda", weights=weights)
+    models = {"cpu": dataclasses.replace(card, params=_to_device(card.params, torch.device("cpu")),
+                                         device=torch.device("cpu")), "cuda": card}
+    cfg = card.cfg
+    kinds = {(v.kind, v.group) for v in card.params["layers"].values() if hasattr(v, "kind")}
+    if kinds != {("i8t", G)} or card.params["output"] is not None or cfg.act != "gelu":
+        raise AssertionError(f"parity gemma ({case}): weights {kinds}, head "
+                             f"{card.params['output']}, act {cfg.act}")
+    laps(f"{case} load")
+    kernels.reset_counts()
+    tok = models["cpu"].tokenizer
+    caches = {dev: KVCache.create(cfg.n_layers, 1, 256, cfg.n_kv_heads, cfg.head_dim, dev)
+              for dev in models}
+    got, want = _teacher_forced(models, caches, [tok.encode(PROMPT)], 16, [True], laps, case,
+                                steps=PARITY_7B_STEPS)
+    res = {"single": _compare_logits(f"gemma ({case}) single", got, want, tol)}
+    prompts = [tok.encode("stream 0 benchmark prompt"), [],
+               tok.encode("stream 2 benchmark prompt"), []]
+    caches = {dev: KVCache.create(cfg.n_layers, 4, 512, cfg.n_kv_heads, cfg.head_dim, dev,
+                                  quantized=True) for dev in models}
+    got, want = _teacher_forced(models, caches, prompts, 32, [True, False, True, False], laps,
+                                case, steps=PARITY_7B_STEPS)
+    res["batched"] = _compare_logits(f"gemma ({case}) batched", got, want, tol)
+    need = [mlp_count_name(G, "gelu"), "qmm_i8t_gd", "qmm_i8t_dq", "decode_attn_d256",
+            "kv_append_d256", "decode_attn_i8_d256", "kv_append_i8_d256", "prefill_attn_i8_d256"]
+    if case == "o":  # the server's paged int8 pool at 256 lanes, as (d) runs the 7B's
+        caches = {}
+        for dev, m in models.items():
+            eng = Engine(m, max_batch=4, max_seq=512, kv_quantized=True, paged=True,
+                         page_size=256)
+            eng.init_batch_state()
+            for s_ in (2, 0):
+                eng.ensure_slot_pages(s_, 32 + 8)
+            caches[dev] = eng.cache
+        got, want = _teacher_forced(models, caches, prompts, 32, [True, False, True, False],
+                                    laps, case, steps=PARITY_7B_STEPS)
+        res["paged_int8_pool"] = _compare_logits(f"gemma ({case}) paged", got, want, tol)
+        lengths = [caches[dev].lengths.tolist() for dev in ("cpu", "cuda")]
+        expect = [len(prompts[0]) + PARITY_7B_STEPS, 0, len(prompts[2]) + PARITY_7B_STEPS, 0]
+        if lengths != [expect, expect]:
+            raise AssertionError(f"parity gemma ({case}) paged: cache lengths {lengths}")
+        need += ["paged_attn_i8_d256", "kv_append_paged_i8_d256"]
+    counts = dict(kernels.launch_counts)
+    res["card_launches"] = {k: v for k, v in counts.items() if v}
+    wrong = [k for k, v in counts.items() if v and (k.startswith(("qmm_i4t", "qmm_i8t_gateup"))
+                                                  or k.startswith("mlp_i8t") and k != need[0])]
+    if not all(counts[k] for k in need) or wrong:
+        raise AssertionError(f"parity gemma ({case}): the card's launches {res['card_launches']}")
+    out.setdefault("_paths", {})[f"parity ({case})"] = (counts, dict(kernels.shape_counts))
+    del models, caches, card
+    laps(f"{case} check")
+    return {{"o": "gemma_2b_width_i8_weights", "p": "gemma_2b_width_q6_k"}[case]
+            + "_bf16_cache_1_slot_and_int8_cache_4_slots": res}
 
 
 def _parity_q6k(tol: float, laps) -> dict:
@@ -4449,8 +4735,11 @@ def _big_model(model: str, layers: int = 32, weights: str = "auto"):
             if forms != {"wq": (4, 0), "wk": (4, 0), "wv": (4, 0), "wo": (2, 4),
                          "w_gateup": (4, 0), "w_down": (2, 4)}:
                 raise AssertionError(f"{model}: (planes, zero) {forms}")
-        elif model == "gemma":  # llama.cpp's Q4_0 mix, no head: the bf16 token table
-            want = dict.fromkeys(kinds, ("i4t", 32))
+        elif model in ("gemma", "gemma_q6k"):  # llama.cpp's Q4_0 mix (with weights="i8"
+            # widened to i8t at group 32) or Q6_K mix (i8t at group 16), no head: the
+            # bf16 token table
+            want = dict.fromkeys(kinds, ("i8t", 32) if weights == "i8" else (
+                ("i8t", 16) if model == "gemma_q6k" else ("i4t", 32)))
             emb = m.params["tok_embd"]
             if m.params["output"] is not None or emb.dtype != torch.bfloat16 or tuple(
                     emb.shape) != (GEMMA_2B["vocab_size"], GEMMA_2B["hidden"]):
@@ -4495,11 +4784,13 @@ GENERATE = {"generate": ("tiny", None), "generate_q8": ("q8", None),
             "generate_moe": ("moe", None), "generate_i8": ("tiny", "i8"),
             "generate_i8c": ("q8", "i8c"), "generate_q6k": ("q6k", "native"),
             "generate_q5k": ("q5k", "native"), "generate_mpt": ("mpt", "native"),
-            "generate_q2k": ("q2k", "native"), "generate_gemma": ("gemma", "native")}
+            "generate_q2k": ("q2k", "native"), "generate_gemma": ("gemma", "native"),
+            "generate_gemma_i8": ("gemma", "i8"), "generate_gemma_q6k": ("gemma_q6k", "native")}
 BATCH = {"batch": ("tiny", None), "batch_q8": ("q8", None), "batch_moe": ("moe", None),
          "batch_i8c": ("q8", "i8c"), "batch_q6k": ("q6k", "native"),
          "batch_q5k": ("q5k", "native"), "batch_mpt": ("mpt", "native"),
-         "batch_q2k": ("q2k", "native"), "batch_gemma": ("gemma", "native")}
+         "batch_q2k": ("q2k", "native"), "batch_gemma": ("gemma", "native"),
+         "batch_gemma_q6k": ("gemma_q6k", "native")}
 
 
 def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str] = None) -> dict:
@@ -4513,6 +4804,7 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
 
     from booster_tpu_torch.models import load_model
     from booster_tpu_torch.ops import kernels
+    from booster_tpu_torch.ops.mlp import mlp_count_name
     from booster_tpu_torch.sampling import SamplingParams
     from booster_tpu_torch.serving import Engine
 
@@ -4522,10 +4814,11 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
     name = {v: k for k, v in GENERATE.items()}[(model_name, weights)]
     q8, moe, q6k = model_name == "q8" and weights is None, model_name == "moe", model_name == "q6k"
     mpt, q5k, q2k = model_name == "mpt", model_name == "q5k", model_name == "q2k"
-    gemma = model_name == "gemma"
+    gemma = model_name in ("gemma", "gemma_q6k")
+    gemma8 = gemma and (weights == "i8" or model_name == "gemma_q6k")  # int8 weights
     load_gpu_gb = None
     torch.cuda.reset_peak_memory_stats()
-    if model_name in ("q8", "moe", "q6k", "mpt", "q5k", "q2k", "gemma"):
+    if model_name in ("q8", "moe", "q6k", "mpt", "q5k", "q2k", "gemma", "gemma_q6k"):
         big = _big_model(model_name, layers, weights or "auto")
         model, t_build, t_load = big["model"], big["build_s"], big["load_s"]
         t_wait, load_rss = big["wait_s"], big["load_rss_gb"]
@@ -4553,7 +4846,14 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
     shapes = {f"{k[0]}:{k[1][0]}x{k[1][1]}": v for k, v in shape_counts.items()}
     steps = 128  # one chunk of decode_chunk steps runs whatever the host keeps
     L = layers
-    if q8 or weights == "i8":  # qkv and wo per layer + the lm head, and the whole MLP
+    mlp_gelu = mlp_count_name(16 if model_name == "gemma_q6k" else 32, "gelu")
+    if gemma8:  # qkv and wo on the int8 matvec, the whole MLP with GELU at every M (group
+        # 32: Q4_0 widened by weights="i8"; 16: Q6_K), the 256-lane decode attention
+        # and append; the tied head one torch product (no kernel)
+        expected = dict.fromkeys(counts, 0) | {
+            "qmm_i8t_gd": 2 * L * steps, "qmm_i8t_dq": 2 * L, mlp_gelu: L * (steps + 1),
+            "decode_attn_d256": L * steps, "kv_append_d256": steps}
+    elif q8 or weights == "i8":  # qkv and wo per layer + the lm head, and the whole MLP
         expected = dict.fromkeys(counts, 0) | {
             "qmm_i8t_gd": (2 * L + 1) * steps + 1, "qmm_i8t_dq": 2 * L,
             "mlp_i8t": L * steps + L, "decode_attn": L * steps, "kv_append": steps}
@@ -4640,7 +4940,15 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
         want[("qmm_i8t_gd", (C, V))] = steps + 1
         if shape_counts != want:
             raise AssertionError(f"{name}: launches by shape {shape_counts} != {want}")
-    if gemma:  # every matmul launch by shape: qkv, wo, down and the GELU gate-up
+    if gemma8:  # every launch by shape: qkv and wo each step and at the prefill, the MLP
+        C, Dh = model.cfg.n_embd, model.cfg.head_dim
+        nq, nqkv = model.cfg.n_heads * Dh, (model.cfg.n_heads + 2 * model.cfg.n_kv_heads) * Dh
+        want = {("qmm_i8t_gd", (C, nqkv)): L * steps, ("qmm_i8t_gd", (nq, C)): L * steps,
+                ("qmm_i8t_dq", (C, nqkv)): L, ("qmm_i8t_dq", (nq, C)): L,
+                (mlp_gelu, (C, C)): L * (steps + 1)}
+        if shape_counts != want:
+            raise AssertionError(f"{name}: launches by shape {shape_counts} != {want}")
+    elif gemma:  # every matmul launch by shape: qkv, wo, down and the GELU gate-up
         C, FF, Dh = model.cfg.n_embd, model.cfg.n_ff, model.cfg.head_dim
         nq, nqkv = model.cfg.n_heads * Dh, (model.cfg.n_heads + 2 * model.cfg.n_kv_heads) * Dh
         want = {}
@@ -4674,7 +4982,15 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
         watch = ("i4mv::mv_kernel<16, true", "i4mv::mv_kernel<16, false",
                  "mm_kernel<32, true, 16,", "mm_kernel<32, false, 16,")
     forbid = ()
-    if gemma:  # the GELU gate-up's matvec pair (i8mv::kGateUpGelu) and prefill tile (act
+    if gemma8:  # the whole MLP's GELU form at the steps' M = 1 and the 16-row prefill (both
+        # 16 rows a tile), the 256-lane decode attention; no SiLU MLP, no 4-bit kernel,
+        # no int8 gate-up, no 128-lane attention
+        G = 16 if model_name == "gemma_q6k" else 32
+        watch = (f"mlp_kernel<16, {G}, false, 1>", "decode_attn_kernel<false, false, 256>")
+        forbid = (r"mlp_kernel<\d+, \d+, \w+, 0>", r"i4mv::|mm_kernel<",
+                  r"dq_kernel<\d+, \d+, true",
+                  r"decode_attn_kernel<.*128>")
+    elif gemma:  # the GELU gate-up's matvec pair (i8mv::kGateUpGelu) and prefill tile (act
         # 1), the 256-lane decode attention; no SiLU gate-up, no 128-lane attention
         watch = (GELU_MV, "mm_kernel<32, true, 32, 1>", "decode_attn_kernel<false, false, 256>")
         forbid = (SILU_MV, r"mm_kernel<\d+, true, 32, 0>", r"decode_attn_kernel<.*128>")
@@ -4703,7 +5019,11 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
                                         "ffn_down (i4t g16, zero 4), a q4_k attn_v (i4t g32 "
                                         "with mins), a q6_k head (i8t g16)",
                         "generate_gemma": "q4_0 (i4t; the gate-up's GELU epilogue), a q6_k "
-                                          "token table (dense bf16: the tied head)"}[name],
+                                          "token table (dense bf16: the tied head)",
+                        "generate_gemma_i8": "q4_0 widened to int8 (i8t g32; the whole MLP "
+                                             "with GELU), a q6_k token table (the tied head)",
+                        "generate_gemma_q6k": "q6_k (i8t g16; the whole MLP with GELU), a "
+                                              "q6_k token table (the tied head)"}[name],
             "gguf_build_s": t_build, "gguf_wait_s": t_wait, "load_s": t_load,
             "load_rss_gb": load_rss, "load_max_memory_allocated_gb": load_gpu_gb,
             "dequantize_fallbacks": fallbacks.calls,
@@ -4715,8 +5035,9 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
             "prompt_ms_per_token": res.prompt_ms_per_token, "ttft_ms": res.ttft_ms,
             "launches": counts, "launches_per_decoded_token": {
                 k: v / steps for k, v in counts.items() if k.endswith("_gd") or k in (
-                    "decode_attn", "kv_append", "mlp_i8t", "moe_qmm_i4p", "qmm_i8c_mv",
-                    "qmm_i8", "kv_append_layer")},
+                    "decode_attn", "kv_append", "moe_qmm_i4p", "qmm_i8c_mv", "qmm_i8",
+                    "kv_append_layer", "decode_attn_d256", "kv_append_d256")
+                or k.startswith("mlp_i8t")},
             "launches_by_shape": shapes, "tokens_head": res.token_ids[:16],
             "wall_ms": wall_ms, "profile": prof, "part_s": laps.parts,
             "_shape_counts": shape_counts}
@@ -4967,7 +5288,8 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
     name = {v: k for k, v in BATCH.items()}[(model_name, weights)]
     q8, moe, i8c = model_name == "q8" and weights is None, model_name == "moe", weights == "i8c"
     q6k, mpt, q5k = model_name == "q6k", model_name == "mpt", model_name == "q5k"
-    q2k, gemma = model_name == "q2k", model_name == "gemma"
+    q2k, gemma = model_name == "q2k", model_name in ("gemma", "gemma_q6k")
+    gemma16 = model_name == "gemma_q6k"  # int8 weights at group 16: the whole MLP
     torch.cuda.reset_peak_memory_stats()
     if q8 or moe or i8c or q6k or mpt or q5k or q2k or gemma:
         big = _big_model(model_name, layers, weights or "auto")
@@ -5051,7 +5373,11 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
         expected |= {"qmm_i4t_g16m_dq": 2 * layers * n, "qmm_i4t_dq": layers * n,
                      "qmm_i4t_g16_dq": 2 * layers * n, "qmm_i4t_gateup_g16m_dq": layers * n,
                      "qmm_i8t_dq": n}
-    if gemma:  # qkv, wo, down and the GELU gate-up at M = 64 and 64·T; the tied head a
+    if gemma16:  # qkv and wo on the int8 tile and the whole MLP with GELU at group 16, at
+        # M = 64 and 64·T (the reference's gate takes the MLP at both); the tied head
+        n = steps + prefill_chunks
+        expected |= {"qmm_i8t_dq": 2 * layers * n, "mlp_i8t_g16_gelu": layers * n}
+    elif gemma:  # qkv, wo, down and the GELU gate-up at M = 64 and 64·T; the tied head a
         # torch product
         n = steps + prefill_chunks
         expected |= {"qmm_i4t_dq": 3 * layers * n, "qmm_i4t_gateup_gelu_dq": layers * n}
@@ -5077,9 +5403,13 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
     if gemma:  # every matmul launch by shape, at the decode steps and the prefill chunk
         C, FF, Dh, n = model.cfg.n_embd, model.cfg.n_ff, model.cfg.head_dim, steps + prefill_chunks
         nq, nqkv = model.cfg.n_heads * Dh, (model.cfg.n_heads + 2 * model.cfg.n_kv_heads) * Dh
-        want = {("qmm_i4t_dq", (C, nqkv)): layers * n, ("qmm_i4t_dq", (nq, C)): layers * n,
-                ("qmm_i4t_dq", (FF, C)): layers * n,
-                ("qmm_i4t_gateup_gelu_dq", (C, 2 * FF)): layers * n}
+        if gemma16:
+            want = {("qmm_i8t_dq", (C, nqkv)): layers * n, ("qmm_i8t_dq", (nq, C)): layers * n,
+                    ("mlp_i8t_g16_gelu", (C, C)): layers * n}
+        else:
+            want = {("qmm_i4t_dq", (C, nqkv)): layers * n, ("qmm_i4t_dq", (nq, C)): layers * n,
+                    ("qmm_i4t_dq", (FF, C)): layers * n,
+                    ("qmm_i4t_gateup_gelu_dq", (C, 2 * FF)): layers * n}
         if kernels.shape_counts != want:
             raise AssertionError(f"{name}: launches by shape {kernels.shape_counts} != {want}")
     if (i8c or q6k or mpt or q5k or q2k or gemma) and fallbacks.calls:
@@ -5109,7 +5439,16 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
         watch = ("mm_kernel<64, false, 16,", "mm_kernel<64, true, 16,",
                  "mm_kernel<128, false, 16,")
     forbid = ()
-    if gemma:  # the GELU gate-up tile at M = 64 and the 2048-row prefill, the 256-lane
+    if gemma16:  # the whole MLP's GELU form at group 16 at M = 64 and the 2048-row prefill
+        # (256 rows a tile), the 256-lane int8 attention and append; no SiLU MLP, no
+        # 4-bit kernel, no int8 gate-up, no 128-lane form
+        watch = ("mlp_kernel<64, 16, false, 1>", "mlp_kernel<256, 16, false, 1>",
+                 "decode_attn_kernel<true, false, 256>", "prefill_attn_kernel<2, 256>",
+                 "kv_append_i8_kernel<2>")
+        forbid = (r"mlp_kernel<\d+, \d+, \w+, 0>", r"i4mv::|mm_kernel<",
+                  r"dq_kernel<\d+, \d+, true",
+                  r"attn_kernel<.*128>", r"kv_append_i8_kernel<1>")
+    elif gemma:  # the GELU gate-up tile at M = 64 and the 2048-row prefill, the 256-lane
         # int8 decode and prefill attention (64 rows a block: 4 m16 tiles, 2 warps
         # a tile) and append (two passes a row); no SiLU gate-up, no 128-lane form
         watch = ("mm_kernel<64, true, 32, 1>", "mm_kernel<128, true, 32, 1>",
@@ -5134,7 +5473,9 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
                                      "ffn_down (i4t g16, zero 4), a q4_k attn_v (i4t g32 with "
                                      "mins), a q6_k head (i8t g16)",
                         "batch_gemma": "q4_0 (i4t; the gate-up's GELU epilogue), a q6_k "
-                                       "token table (dense bf16: the tied head)"}[name],
+                                       "token table (dense bf16: the tied head)",
+                        "batch_gemma_q6k": "q6_k (i8t g16; the whole MLP with GELU), a q6_k "
+                                           "token table (the tied head)"}[name],
             "load_s": t_load, "dequantize_fallbacks": fallbacks.calls,
             "host_syncs_in_dispatches": None if syncs is None else syncs.host_syncs,
             "decode_dispatches_checked": None if syncs is None else syncs.chunks,
@@ -5294,9 +5635,12 @@ def _server_traffic(port: int, tag: str) -> dict:
     return {"results": results, "wall_s": wall}
 
 
-def phase_server() -> dict:
+def phase_server(model_name: str = "q8") -> dict:
     """The HTTP server of ``python -m booster_tpu_torch --server --paged-kv
-    --kv-quant --slots 64`` on config 3's model, through the port's own
+    --kv-quant --slots 64`` on config 3's model (phase server), or on
+    Gemma-2B's Q4_0 model that generate_gemma loaded ("gemma": phase
+    server_gemma, its 256-lane pool: the paged kernels' _d256 forms, 18
+    layers), through the port's own
     ``serve`` (on a thread of its own, ``ServerThread``), with the CLI's
     default sampling and limits: a paged int8 pool of 256-row pages at a
     4096-token context, decode chunks of 8 steps.  ``warmup`` first; then
@@ -5304,7 +5648,8 @@ def phase_server() -> dict:
     published when it finishes), then 64 requests at once (_server_traffic).
     The launch counts are reset just before those 64 and read when the
     scheduler is idle again: each decode step of each dispatched chunk
-    launches 32 paged attentions and one paged append, and nothing launches
+    launches a paged attention a layer (32 at the 7B, 18 at Gemma-2B) and one
+    paged append, and nothing launches
     the dense decode attention, the dense appends or the prefill attention
     kernel (a paged prefill attends over views gathered from the pool).  The
     decode dispatches run with torch's synchronization check on: a dispatch
@@ -5322,7 +5667,10 @@ def phase_server() -> dict:
     t0 = time.perf_counter()
     laps = _Laps()
     torch.cuda.reset_peak_memory_stats()
-    model = _big_model("q8")["model"]
+    gemma = model_name == "gemma"
+    model = (_big_model("gemma", LAYERS["gemma"], "native") if gemma else _big_model("q8"))["model"]
+    L = model.cfg.n_layers
+    sfx = "_d256" if gemma else ""  # the 256-lane pool's forms
     n_sys = len(model.tokenizer.encode(SYSTEM))
     if not 2 * 256 < n_sys < 3 * 256:
         raise AssertionError(f"the system message is {n_sys} tokens, not two pages and some")
@@ -5340,7 +5688,7 @@ def phase_server() -> dict:
                       default_max_tokens=spec.predict, deadline_s=cfg.deadline)
 
     syncs = _SyncCheck(eng)  # the decode chunks, their host syncs, their pipelining
-    srv = ServerThread(sched, cfg, model_name="mistral7b-shape-q8_0")
+    srv = ServerThread(sched, cfg, model_name=GGUFS[model_name][0])
     peak_pages = [0]
     sampling_on = threading.Event()
 
@@ -5378,9 +5726,9 @@ def phase_server() -> dict:
         measured = {"host_syncs": syncs.host_syncs, "prev_chunk_busy": syncs.prev_chunk_busy}
         steps = chunks * eng.decode_chunk
         delivered = srv.call(lambda: sum(j.n_generated for j in list(sched.jobs.values())[-64:]))
-        expected = {"paged_attn_i8": 32 * steps, "kv_append_paged_i8": steps, "paged_attn": 0,
-                    "kv_append_paged": 0, "decode_attn_i8": 0, "decode_attn": 0,
-                    "kv_append_i8": 0, "kv_append": 0, "prefill_attn_i8": 0}
+        expected = {f"paged_attn_i8{sfx}": L * steps, f"kv_append_paged_i8{sfx}": steps}
+        expected |= {k: 0 for k in counts if k.startswith(
+            ("paged_attn", "kv_append", "decode_attn", "prefill_attn")) and k not in expected}
         got = {k: counts[k] for k in expected}
         if got != expected or steps == 0:
             raise AssertionError(f"server: launch counts {got} != {expected} ({chunks} chunks)")
@@ -5391,7 +5739,9 @@ def phase_server() -> dict:
             raise AssertionError(f"server: /health {health}")
         laps("run")
         prof = _profile(lambda: _server_traffic(srv.port, "b"), steps=steps,
-                        watch=("::kv_append_i8_kernel",))
+                        watch=("kv_append_i8_kernel<2>", "decode_attn_kernel<true, true, 256>")
+                        if gemma else ("::kv_append_i8_kernel",),
+                        forbid=(r"attn_kernel<.*128>", r"kv_append_i8_kernel<1>") if gemma else ())
         laps("profile")
         if prof["kernel_ms"] is not None:
             prof["device_busy_share"] = prof["kernel_ms"] / (1e3 * run["wall_s"])
@@ -5406,7 +5756,8 @@ def phase_server() -> dict:
     def pct(xs, q):
         return 1e3 * xs[min(len(xs) - 1, int(q * len(xs)))]
 
-    return {"phase": "server", "seconds": time.perf_counter() - t0, "part_s": laps.parts,
+    return {"phase": "server_gemma" if gemma else "server", "seconds": time.perf_counter() - t0,
+            "part_s": laps.parts,
             "warmup_s": laps.parts["warm-up"],
             "system_message_tokens": n_sys, "requests": len(res), "step2_wall_s": run["wall_s"],
             "tokens_delivered": delivered, "agg_tok_per_s": delivered / run["wall_s"],
@@ -5456,14 +5807,18 @@ def main(argv=None) -> int:
             failed.append(name)
             return None
 
-    # parity reads the first 2 layers of the full-depth TinyLlama, Mixtral
-    # and Gemma files (PARITY_SHARED), so those come early; the rest of its
-    # files are 2-layer files of their own
-    jobs = (([("tiny", LAYERS["tiny"]), ("q8", 2)] if "parity" in phases else [])
+    # parity reads the first 2 layers of the full-depth files of
+    # PARITY_SHARED, so those come early, in the order of its cases; the
+    # rest of its files are 2-layer files of their own
+    parity = ["tiny", "q8", "moe", "moe_q8", "q6k", "mpt", "q4k", "moe_q4k", "q5k_8b", "q5k",
+              "q2k", "gemma", "gemma_q6k"]
+    gemma_phases = {"generate_gemma", "batch_gemma", "generate_gemma_i8", "server_gemma"}
+    jobs = (([(m, LAYERS[m] if m in PARITY_SHARED else 2) for m in parity]
+             if "parity" in phases else [])
             + ([("tiny", 22)] if {"generate", "batch", "generate_i8"} & set(phases) else [])
-            + ([("moe", LAYERS["moe"]), ("gemma", LAYERS["gemma"]), ("moe_q8", 2), ("q6k", 2),
-                ("mpt", 2), ("q4k", 2), ("moe_q4k", 2), ("q5k_8b", 2), ("q5k", 2), ("q2k", 2)]
-               if "parity" in phases else [])
+            + ([("gemma", LAYERS["gemma"])] if gemma_phases & set(phases) else [])
+            + ([("gemma_q6k", LAYERS["gemma_q6k"])]
+               if {"generate_gemma_q6k", "batch_gemma_q6k"} & set(phases) else [])
             + ([("q8", 32)] if {"generate_q8", "batch_q8", "server", "generate_i8c",
                                 "batch_i8c"} & set(phases) else [])
             + ([("q6k", 24)] if {"generate_q6k", "batch_q6k"} & set(phases) else [])
@@ -5471,8 +5826,6 @@ def main(argv=None) -> int:
             + ([("mpt", 32)] if {"generate_mpt", "batch_mpt"} & set(phases) else [])
             + ([("q4k", 32)] if "generate_q4k" in phases else [])
             + ([("q2k", 32)] if {"generate_q2k", "batch_q2k"} & set(phases) else [])
-            + ([("gemma", LAYERS["gemma"])] if {"generate_gemma", "batch_gemma"} & set(phases)
-               else [])
             + ([("moe", LAYERS["moe"])] if {"generate_moe", "batch_moe"} & set(phases)
                else []))
     _start_writer(list(dict.fromkeys(jobs)))
@@ -5510,16 +5863,19 @@ def _run_phases(phases, run, entries, failed, t_all) -> int:
                 for path, (c, sh) in res.pop("_paths", {}).items():  # parity's counted cases
                     path_counts[path], path_shapes[path] = c, sh
                 emit(res)
-    runs = ("generate", "batch", "generate_i8", "generate_q8", "batch_q8", "server",
-            "generate_i8c", "batch_i8c", "generate_q6k", "batch_q6k", "generate_q5k",
-            "batch_q5k", "generate_mpt", "batch_mpt", "generate_q4k", "generate_q2k",
-            "batch_q2k", "generate_gemma", "batch_gemma", "generate_moe", "batch_moe")
-    for name in runs:
+    # the Gemma-2B phases come before the 7B's: the 7B file, the writer's
+    # slowest (its normal draws), is written after parity's full-depth files
+    for name in PHASES[PHASES.index("generate"):]:
         phase = (phase_generate if name in GENERATE else phase_batch if name in BATCH
                  else (lambda layers, *_: phase_generate_q4k(layers))
                  if name == "generate_q4k" else None)
         model, weights = (GENERATE.get(name) or BATCH.get(name)
-                          or (("q4k", "auto") if name == "generate_q4k" else ("q8", None)))
+                          or (("q4k", "auto") if name == "generate_q4k"
+                              else ("gemma", "native") if name == "server_gemma"
+                              else ("q8", None)))
+        if model == "q8":  # Gemma-2B's models (about 10 GB on the card), done with
+            for key in [k for k in _big if k[0] in ("gemma", "gemma_q6k")]:
+                _big.pop(key)
         if weights == "i8c":
             _big.pop(("q8", "auto"), None)  # the native 7B model's 8 GB, done with
         if model == "q6k":
@@ -5532,14 +5888,12 @@ def _run_phases(phases, run, entries, failed, t_all) -> int:
             _big.pop(("mpt", "native"), None)
         if model == "q2k":
             _big.pop(("q4k", "auto"), None)
-        if model == "gemma":
-            _big.pop(("q2k", "native"), None)
         if model == "moe":
             _big.clear()  # the 7B models make room for the Mixtral's 16.5 GB
         if name not in phases:
             continue
         if phase is None:
-            res = run(name, phase_server)
+            res = run(name, lambda: phase_server(model))
         else:
             res = run(name, lambda: phase(LAYERS[model], model, weights))
         if res is not None:

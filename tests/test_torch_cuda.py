@@ -660,9 +660,13 @@ def test_i8t_wrappers_refuse_shapes_not_ported(cuda):
     wm = _w8(1, 1024, 256, gen, group=16, mins=True).at(0)
     with pytest.raises(NotImplementedError, match="not ported yet"):  # mins at M > 1
         tq.qmm_i8t(x2, wm)
-    w16 = _w8(1, 1024, 256, gen, group=16).at(0)
-    with pytest.raises(NotImplementedError, match="not ported yet"):  # the MLP at group 16
-        tm.qmm_mlp_i8t(x, w16, _w8(1, 128, 1024, gen, group=16).at(0))
+    w16, d16 = _w8(1, 1024, 256, gen, group=16).at(0), _w8(1, 128, 1024, gen, group=16).at(0)
+    xr = torch.randn(1, 1024, device="cuda", generator=gen).to(torch.bfloat16)
+    assert torch.equal(tm.qmm_mlp_i8t(xr, w16, d16), tm.qmm_mlp_plain(xr, w16, d16))  # group 16
+    with pytest.raises(NotImplementedError, match="not ported yet"):  # mins at group 16
+        tm.qmm_mlp_i8t(x, wm, _w8(1, 128, 1024, gen, group=16, mins=True).at(0))
+    with pytest.raises(NotImplementedError, match="not ported yet"):  # ReLU
+        tm.qmm_mlp_i8t(x, w16, d16, "relu")
     w96 = QTensor("i8t", w.qw[0, :, :96].contiguous(), w.scales[0, :, :, :96].contiguous(),
                   None, 32, (96, 1024), GGMLType.Q8_0)
     with pytest.raises(NotImplementedError, match="not ported yet"):
@@ -1633,17 +1637,137 @@ def test_kv_append_all_layers_256_lanes(cuda, quantized, L, B):
 
 
 def test_paged_forms_refuse_256_lanes(cuda):
-    """The paged decode attention and append stay at 128 lanes: a 256-lane
-    pool raises "not ported yet"."""
+    """The paged decode attention and append take 256 lanes (counted under
+    their _d256 names, the attention equal to its plain version within its
+    limit); a 384-lane pool raises "not ported yet"."""
     args = paged_attn_case(1, 2, 1, 8, 128, 2, 256, 256, [100, 50], "cuda", seed=3)
+    kernels.reset_counts()
+    got = pga.paged_attn(*args)
+    assert kernels.launch_counts["paged_attn_d256"] == 1
+    assert ((got - pga.paged_attn_plain(*args)).abs() <= paged_attn_limit(args)).all()
+    wide = paged_attn_case(1, 2, 1, 8, 128, 2, 384, 384, [100, 50], "cuda", seed=3)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        pga.paged_attn(*args)
-    pool = torch.zeros(1, 3, 1, 128, 256, device="cuda", dtype=torch.bfloat16)
-    row = torch.zeros(1, 2, 1, 256, device="cuda", dtype=torch.bfloat16)
+        pga.paged_attn(*wide)
     table = torch.tensor([[1], [2]], dtype=torch.int32, device="cuda")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ka.kv_append_all_layers_paged(pool, pool.clone(), row, row,
-                                      torch.zeros(2, dtype=torch.int32, device="cuda"), table)
+    off = torch.zeros(2, dtype=torch.int32, device="cuda")
+    for D in (256, 384):
+        pool = torch.zeros(1, 3, 1, 128, D, device="cuda", dtype=torch.bfloat16)
+        row = torch.ones(1, 2, 1, D, device="cuda", dtype=torch.bfloat16)
+        if D == 256:
+            ka.kv_append_all_layers_paged(pool, pool.clone(), row, row, off, table)
+            assert kernels.launch_counts["kv_append_paged_d256"] == 1
+            assert bool((pool[0, 1:, 0, 0] == 1).all())
+            continue
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            ka.kv_append_all_layers_paged(pool, pool.clone(), row, row, off, table)
+
+
+# -- Gemma's int8 MLP with GELU (groups 32 and 16) and its 256-lane paged pool ----
+
+
+@pytest.mark.parametrize("m", [1, 2, 16, 64, 100, 2048])
+@pytest.mark.parametrize("group,mins", [(32, False), (32, True), (16, False)],
+                         ids=["g32", "g32-mins", "g16"])
+def test_mlp_gelu_equals_unfused(cuda, m, group, mins):
+    """csrc/mlp_i8t_gelu.cu (the GELU epilogue) at Gemma-2B's widths (K 2048,
+    ff 16384, C 2048; at M = 2048 tiles of 256 rows): equal bit for bit to
+    the dequant matmul on the fused weight + gelu·mul + the dequant matmul
+    on mid, its mid equal to gelu·mul of the gate-up sums, within the MLP's
+    limit of its plain version, its workspace zero after the launch, and
+    counted under its form's name; SiLU is another result."""
+    gen = torch.Generator(device="cuda").manual_seed(90 + m + group)
+    K, ff = 2048, 16384
+    gu = _w8(1, K, 2 * ff, gen, group=group, mins=mins).at(0)
+    dn = _w8(1, ff, K, gen, group=group, mins=mins).at(0)
+    assert tm.mlp_supported(gu, dn, K, m)
+    x = torch.randn(m, K, device="cuda", generator=gen).to(torch.bfloat16)
+    kernels.reset_counts()
+    got, mid_k = tm._run(x, gu, dn, act="gelu")
+    assert kernels.launch_counts[tm.mlp_count_name(group, "gelu")] == 1
+    g = tq.qmm_i8t(x, gu, dq=True).to(torch.bfloat16)
+    mid = tq.gelu(g[:, :ff]) * g[:, ff:]
+    assert torch.equal(mid_k, mid)
+    assert torch.equal(got, tq.qmm_i8t(mid, dn, dq=True).to(torch.bfloat16))
+    torch.cuda.synchronize()
+    assert not int(tq._tickets[x.device].abs().sum())
+    want = tm.qmm_mlp_plain(x, gu, dn, "gelu")
+    assert (got.float() - want.float()).abs().max() <= 2 ** -7 * want.float().abs().max()
+    assert not torch.equal(got, tm.qmm_mlp_i8t(x, gu, dn, "silu"))
+
+
+@pytest.mark.parametrize("m", [1, 64])
+def test_mlp_silu_group_16_equals_unfused(cuda, m):
+    """The whole MLP's SiLU form at group 16 (a uniform Q6_K llama, ff a
+    multiple of 256) equals the gate-up + silu·mul + the dequant matmul."""
+    gen = torch.Generator(device="cuda").manual_seed(95 + m)
+    gu, dn = _w8(1, 2048, 2 * 1024, gen, group=16).at(0), _w8(1, 1024, 2048, gen, group=16).at(0)
+    x = torch.randn(m, 2048, device="cuda", generator=gen).to(torch.bfloat16)
+    kernels.reset_counts()
+    got = tm.qmm_mlp_i8t(x, gu, dn)
+    assert kernels.launch_counts["mlp_i8t_g16"] == 1
+    g = tq.qmm_i8t(x, gu, dq=True).to(torch.bfloat16)
+    mid = tq.silu(g[:, :1024]) * g[:, 1024:]
+    assert torch.equal(got, tq.qmm_i8t(mid, dn, dq=True).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("with_self", [False, True], ids=["no-self", "self"])
+def test_paged_attn_256_lanes(cuda, quantized, with_self):
+    """The paged decode attention over a 256-lane pool at Gemma-2B's layout
+    (one kv head of 8 query heads, pages of 256 rows scattered, 16 slots
+    sharing two, lengths mid-page, on a boundary, of one row and of the
+    whole table) within its limit, each wrong kernel of
+    testing.paged_attn_mutants (lanes 128-255 dropped among them) 8x past
+    it, counted under its _d256 name."""
+    from booster_tpu_torch.testing import paged_attn_mutants
+
+    lens = [600 + 53 * i for i in range(16)] + [1, 256, 512, 4096, 300, 255, 257, 1000]
+    args = paged_attn_case(3, len(lens), 1, 8, 256, 16, 256, 256, lens, "cuda", seed=17,
+                           quantized=quantized, shared=16)
+    if not with_self:
+        args = (*args[:10], torch.zeros_like(args[10]), *args[11:])
+    kernels.reset_counts()
+    got, want = pga.paged_attn(*args), pga.paged_attn_plain(*args)
+    assert kernels.launch_counts["paged_attn_i8_d256" if quantized else "paged_attn_d256"] == 1
+    limit = paged_attn_limit(args)
+    assert torch.isfinite(got).all() and ((got - want).abs() <= limit).all()
+    for what, margs in paged_attn_mutants(args).items():
+        seen = float(((pga.paged_attn_plain(*margs) - want).abs() / limit).max())
+        assert seen >= 8, (what, seen)
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+def test_kv_append_paged_256_lanes_is_exact(cuda, quantized):
+    """The paged all-layer append into a 256-lane pool (18 layers, one kv
+    head; int8 two passes of 4 values a lane) equals its plain version (the
+    scatter) bit for bit off the scratch page 0: offsets on a page
+    boundary, mid-page, on a page's last row and past the table."""
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    L, B, H, P, MAXP, D = 18, 8, 1, 256, 4, 256
+    Np = B * MAXP + 1
+    table = (1 + torch.randperm(Np - 1, generator=torch.Generator().manual_seed(1))).reshape(
+        B, MAXP).to("cuda", torch.int32)
+    new = (torch.randn(2, L, B, H, D, device="cuda", generator=gen) * 3).to(torch.bfloat16)
+    new[0, 0, 0, 0] = 0  # a zero row
+    off = torch.tensor([0, P, 137, P - 1, 2 * P + 5, 3 * P + 255, 600, MAXP * P + 3],
+                       dtype=torch.int32, device="cuda")
+    k = torch.randn(L, Np, H, P, D, device="cuda", generator=gen)
+    if quantized:
+        k, ks = _quantize_kv(k)
+        pool = [k, k.clone(), ks, ks.clone()]
+    else:
+        pool = [k.to(torch.bfloat16), k.to(torch.bfloat16), None, None]
+    plain = [None if t is None else t.clone() for t in pool]
+    kernels.reset_counts()
+    ka.kv_append_all_layers_paged(*pool[:2], new[0], new[1], off, table, *pool[2:])
+    assert kernels.launch_counts["kv_append_paged_i8_d256" if quantized
+                                 else "kv_append_paged_d256"] == 1
+    from booster_tpu_torch.ops.paged_kv import paged_append_all_layers
+
+    paged_append_all_layers(*plain[:2], new[0], new[1], off, table, *plain[2:])
+    for got, want in zip(pool, plain):
+        if got is not None:
+            assert torch.equal(got[:, 1:], want[:, 1:])
 
 
 def test_tied_head_on_the_card(cuda):

@@ -184,8 +184,9 @@ def test_first_layers_of_a_file_load_as_a_shallower_file(gguf, models):
 
 def test_gemma2_and_unported_acts_refused(models):
     """gemma2's options (softcaps, windows, post norms) and a gated ReLU
-    FFN raise "not ported yet"; GELU on an int8 gate-up and in the whole
-    int8 MLP raise where the reference would take its kernels."""
+    FFN raise "not ported yet"; GELU on an int8 gate-up raises where the
+    reference would take its kernel (the whole int8 MLP takes GELU:
+    tests/test_torch_gemma_i8.py)."""
     _, tm = models
     for change in (dict(arch="gemma2"), dict(final_logit_softcap=30.0),
                    dict(attn_logit_softcap=50.0), dict(sliding_window=64),
@@ -474,16 +475,52 @@ def test_batch_4_streams_greedy_tokens_equal(models, pallas):
         assert [first[s]] + toks[s] == [jfirst[s]] + jtoks[s], s
 
 
-def test_cli_one_shot_and_server_refused(gguf, capsys):
+def test_cli_one_shot_and_server_refused(gguf, capsys, monkeypatch):
     """``python -m booster_tpu_torch`` runs the Gemma file one-shot on the
-    CPU; ``--server`` on it (a 256-lane cache and page pool) and a paged
-    engine raise "not ported yet"."""
+    CPU; ``--server --paged-kv --kv-quant`` on it (a 256-lane page pool,
+    which no longer raises) sets up and warms up its paged engine and hands
+    the scheduler to ``serve``; and a paged engine on the Gemma model under
+    the scheduler and the HTTP server (``ServerThread``) answers one chat
+    completion."""
+    import json
+    from http.client import HTTPConnection
+
     from booster_tpu_torch.__main__ import main
+    from booster_tpu_torch.serving import server as srv_mod
+    from booster_tpu_torch.serving.config import PromptSpec
+    from booster_tpu_torch.serving.scheduler import Scheduler
 
     assert main(["--model", gguf, "--prompt", "hello", "--n-predict", "3", "--device", "cpu",
                  "--context", "128"]) == 0
     assert capsys.readouterr().out.strip() != ""
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        main(["--model", gguf, "--server", "--device", "cpu", "--context", "128"])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        Engine(load_model(gguf, device="cpu"), max_batch=2, max_seq=MAX_SEQ, paged=True)
+    handed = []
+
+    class Served(Exception):
+        pass
+
+    async def serve(scheduler, *a, **kw):
+        handed.append(scheduler)
+        raise Served
+
+    monkeypatch.setattr(srv_mod, "serve", serve)
+    with pytest.raises(Served):
+        main(["--model", gguf, "--server", "--device", "cpu", "--context", "256", "--slots",
+              "2", "--paged-kv", "--kv-quant", "--page-size", "128"])
+    eng = handed[0].engine
+    assert eng.paged and eng.cache.k.shape[-1] == D and eng.cache.k.dtype == torch.int8
+    monkeypatch.undo()
+    eng = Engine(load_model(gguf, device="cpu"), max_batch=2, max_seq=MAX_SEQ, paged=True,
+                 page_size=128, kv_quantized=True, decode_chunk=4)
+    sched = Scheduler(eng, prompt_spec=PromptSpec(id="default"),
+                      default_sampling=SamplingParams(temp=0.0), default_max_tokens=4)
+    srv = srv_mod.ServerThread(sched, model_name="gemma")
+    try:
+        conn = HTTPConnection("127.0.0.1", srv.port, timeout=120)
+        conn.request("POST", "/v1/chat/completions", body=json.dumps(
+            {"messages": [{"role": "user", "content": "hello"}], "max_tokens": 4}))
+        r = conn.getresponse()
+        body = json.loads(r.read())
+        conn.close()
+    finally:
+        srv.stop()
+    assert r.status == 200 and 1 <= body["usage"]["completion_tokens"] <= 4

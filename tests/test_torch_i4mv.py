@@ -322,8 +322,8 @@ def test_paged_append_hands_the_library_its_rows(lib, quantized):
 
 def test_appends_refuse_widths_not_ported(lib):
     """The int8 appends take D a multiple of 128 (the per-layer form up to
-    1024, the all-layer forms 128 and 256, the paged form 128): anything
-    else raises, nothing launches."""
+    1024, the all-layer and paged forms 128 and 256): anything else raises,
+    nothing launches; a 256-lane pool launches the paged form."""
     row = torch.zeros(1, 1, 1, 64, dtype=torch.bfloat16)
     off = torch.zeros(1, dtype=torch.int32)
     for D in (64, 192, 1152):
@@ -335,9 +335,14 @@ def test_appends_refuse_widths_not_ported(lib):
     s = torch.zeros(1, 1, 1, 4, 1)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         ka._launch_all(k, k.clone(), row, row, off, s, s.clone())
-    pool = torch.zeros(1, 2, 1, 4, 256, dtype=torch.int8)
     ps = torch.zeros(1, 2, 1, 4, 1)
+    pool = torch.zeros(1, 2, 1, 4, 384, dtype=torch.int8)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         ka._launch_paged(pool, pool.clone(), row, row, off, torch.ones(1, 1, dtype=torch.int32),
                          ps, ps.clone())
     assert lib.calls == []
+    pool = torch.zeros(1, 2, 1, 4, 256, dtype=torch.int8)
+    ka._launch_paged(pool, pool.clone(), row, row, off, torch.ones(1, 1, dtype=torch.int32),
+                     ps, ps.clone())
+    (name, a), = lib.calls
+    assert name == "bt_kv_append_paged_i8" and a[14:16] == (256, 64)  # D, d

@@ -1,6 +1,6 @@
 """The whole MLP's queue and the s8 probe kernel's plan, on the CPU.
 
-csrc/mlp_i8t.cu runs the items of the whole MLP (the fused gate-up's, then
+csrc/mlp_i8t.cuh runs the items of the whole MLP (the fused gate-up's, then
 the down product's, each the i8k tile's own code) by their ids in order,
 taken one at a time by the running blocks (``ops.mlp.mlp_schedule`` spells
 that order out); a down item waits for the ready count of its split (the
@@ -75,6 +75,28 @@ def test_queue_holds_every_item_once_after_the_pairs_it_reads(M, K, ff, C):
         mlp_queue_sim(plan, items, workers, SMS)
 
 
+@pytest.mark.parametrize("G", [16, 32])
+@pytest.mark.parametrize("M", [1, 64, 2048])
+def test_item_bytes_count_the_scale_rows_of_the_group(G, M):
+    """An item streams 128 payload bytes a row of its K range and one bf16
+    scale row of 128 columns (256 bytes) a group of G rows: at Gemma-2B's
+    widths (K 2048, ff 16384, C 2048) group 16 doubles the scale bytes of
+    group 32's, and all items together stream the weights' payload and
+    scales once an M tile."""
+    K, ff, C = 2048, 16384, 2048
+    plan = tm.mlp_plan(M, K, ff, C, G)
+    assert plan["G"] == G
+    gu_rows, dn_rows = K // plan["ks1"], ff // plan["ks2"]
+    assert tm.item_bytes(plan, 0) == gu_rows * 128 + gu_rows // G * 256
+    assert tm.item_bytes(plan, plan["nA"]) == dn_rows * 128 + dn_rows // G * 256
+    total = sum(tm.item_bytes(plan, i) for i in range(plan["nA"] + plan["nD"]))
+    assert total == plan["mtiles"] * (K * 2 * ff + ff * C + (K * 2 * ff + ff * C) // G * 2)
+    if G == 16:
+        g32 = tm.mlp_plan(M, K, ff, C)
+        assert tm.item_bytes(plan, 0) - gu_rows * 128 == 2 * (tm.item_bytes(g32, 0)
+                                                               - gu_rows * 128)
+
+
 @pytest.mark.parametrize("nF,ks2", [(nF, ks2) for nF in (4, 5, 28, 88, 224)
                                      for ks2 in (1, 2, 4, 8) if ks2 <= nF])
 def test_each_pair_counts_into_the_split_that_reads_it(nF, ks2):
@@ -109,7 +131,7 @@ def test_queue_spreads_the_bytes_over_the_sms(M, K, ff, C):
 
 @pytest.mark.parametrize("M,K,ff,C", MLPS)
 def test_workspace_fits_the_shared_buffer(M, K, ff, C):
-    """csrc/mlp_i8t.cu's workspace (bt_mlp_i8t_ws_ints: counter, exits, 8
+    """csrc/mlp_i8t.cuh's workspace (bt_mlp_i8t_ws_ints: counter, exits, 8
     ready counts, a ticket per pair and per down tile, each per M tile)
     holds every index the kernel touches and fits the shared ticket
     buffer."""
