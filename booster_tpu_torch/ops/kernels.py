@@ -34,6 +34,7 @@ SOURCES = {
     "kv_append": "kv_append.cu",
     "prefill_attn": "prefill_attn.cu",
     "qmm_i8t": "qmm_i8t.cu",
+    "qmm_i8t_gelu": "qmm_i8t_gelu.cu",
     "mlp_i8t": "mlp_i8t.cu",
     "mlp_i8t_gelu": "mlp_i8t_gelu.cu",
     "qmm_lane": "qmm_lane.cu",
@@ -48,7 +49,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # kernel name → launches made by its wrapper (reset by callers that count);
 # _gd is the M = 1 group-dot form, _dq the M > 1 dequantize form (i4t at
 # group 16: _g16m with mins, _g16 without; _gelu a gate-up's GELU epilogue;
-# ops.qmm.i4t_count_name; the whole MLP's _g16 and _gelu forms likewise,
+# ops.qmm.i4t_count_name, and on the i8t gate-up ops.qmm.i8t_count_name;
+# the whole MLP's _g16 and _gelu forms likewise,
 # ops.mlp.mlp_count_name), _i8 the int8-cache form, _d256 the attention and
 # append forms over a 256-lane cache or pool (head dims 129-256: Gemma), _layer the
 # per-layer T = 1 append, paged_ the paged-pool
@@ -86,6 +88,8 @@ launch_counts = {
     "qmm_i8t_dq": 0,
     "qmm_i8t_gateup_gd": 0,
     "qmm_i8t_gateup_dq": 0,
+    "qmm_i8t_gateup_gelu_gd": 0,
+    "qmm_i8t_gateup_gelu_dq": 0,
     "mlp_i8t": 0,
     "mlp_i8t_gelu": 0,
     "mlp_i8t_g16": 0,

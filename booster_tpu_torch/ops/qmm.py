@@ -6,14 +6,17 @@ Counterpart of ``booster_tpu/ops/pallas_qmm.py``.
 16), the kernel of ``csrc/qmm_i4t.cu`` (the port of
 ``_tqmm_i4_gd_kernel`` at M = 1 and ``_tqmm_i4_kernel`` at M > 1) and, for
 i8t (Q8_0 at group 32, Q6_K at group 16, Q5_K and Q5_1 at group 32 with a
-mins plane), those of ``csrc/qmm_i8t.cu``
-(``_tqmm_i8_gd_kernel`` at M = 1, ``_tqmm_i8_kernel`` at M > 1).
+mins plane), those of ``csrc/qmm_i8t.cuh``
+(``_tqmm_i8_gd_kernel`` at M = 1, ``_tqmm_i8_kernel`` at M > 1; a library
+an epilogue: ``qmm_i8t.cu`` the matmuls and SiLU gate-ups,
+``qmm_i8t_gelu.cu`` the GELU gate-ups).
 ``qmm_gateup`` runs their act·mul forms (``_gateup_i4_gd_kernel`` /
 ``_gateup_i4_kernel``, ``_gateup_i8_gd_kernel`` / ``_gateup_i8_kernel``):
 SiLU on every kind, the tanh-GELU of gated-GELU models (Gemma) on i4t at
-group 32; GELU on the int8 gate-ups and ReLU are not ported yet (int8
-weights take GELU in the whole MLP, ``ops.mlp``, at every M of Gemma's
-widths).
+group 32 and on i8t at every group it takes; ReLU is not ported yet.  Int8
+weights take the whole MLP (``ops.mlp``) where the reference's does; the
+i8t gate-up with GELU where it declines (Gemma-7B's widths above 141 rows,
+a down of another group than the gate-up).
 The M > 1 tiles take their rows per block and K splits from ``i4t_plan``
 (i4t), ``lane_plan`` (lane-major) and ``i8k_plan`` (i8t and i8c, whose tile
 is ``csrc/i8k_tile.cuh``), the i8t and i8c matvecs at M = 1 (the
@@ -63,8 +66,8 @@ _SIGNATURES = {
     "bt_qmm_i4t_mm": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p],
 }
 _I8_SIGNATURES = {
-    "bt_qmm_i8t_gd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
-    "bt_qmm_i8t_dq": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    "bt_qmm_i8t_gd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    "bt_qmm_i8t_dq": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
 }
 _I8C_SIGNATURES = {
     "bt_qmm_i8c_mv": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
@@ -560,7 +563,18 @@ def check_i8t(x: torch.Tensor, w: QTensor, what: str, groups=(16, 32),
     return s3
 
 
-def _launch_i8t(x: torch.Tensor, w: QTensor, gateup: bool, dq: bool) -> torch.Tensor:
+def i8t_count_name(gateup: bool, gd: bool, act: str = "silu") -> str:
+    """The launch count of an i8t kernel form: qmm_i8t[_gateup], a gate-up's
+    _gelu epilogue, then _gd (the M = 1 group-dot form) or _dq."""
+    epi = "_gelu" if gateup and act == "gelu" else ""
+    return ("qmm_i8t_gateup" if gateup else "qmm_i8t") + epi + ("_gd" if gd else "_dq")
+
+
+def _launch_i8t(x: torch.Tensor, w: QTensor, gateup: bool, dq: bool,
+                act: str = "silu") -> torch.Tensor:
+    if act not in ACT_IDS:
+        raise NotImplementedError(f"qmm_i8t gate-up with act {act!r}: not ported yet "
+                                  "(silu and gelu are)")
     w = w.resolved()
     M, K = x.shape
     N = w.shape[0]
@@ -568,7 +582,9 @@ def _launch_i8t(x: torch.Tensor, w: QTensor, gateup: bool, dq: bool) -> torch.Te
     s3 = check_i8t(x, w, "qmm_i8t", mins=(16, 32) if gd else (32,))
     G = w.group
     dev = x.device
-    lib = kernels.library("qmm_i8t", _I8_SIGNATURES)
+    # one library an epilogue (csrc/qmm_i8t.cu, qmm_i8t_gelu.cu: built at once)
+    lib = kernels.library("qmm_i8t_gelu" if gateup and act == "gelu" else "qmm_i8t",
+                          _I8_SIGNATURES)
     stream = torch.cuda.current_stream(dev).cuda_stream
     if gateup and N % 256:
         raise NotImplementedError(f"qmm_i8t gate-up kernel: ff = {N // 2}: not ported yet "
@@ -580,8 +596,8 @@ def _launch_i8t(x: torch.Tensor, w: QTensor, gateup: bool, dq: bool) -> torch.Te
                           dtype=torch.bfloat16 if gateup else torch.float32)
         rc = lib.bt_qmm_i8t_gd(x.data_ptr(), w.qw.data_ptr(), s3.data_ptr(), out.data_ptr(),
                                K, N, G, int(s3.shape[0] == 2), int(gateup), mv_plan(K, N, G),
-                               stream)
-        name = "qmm_i8t_gateup_gd" if gateup else "qmm_i8t_gd"
+                               ACT_IDS[act], stream)
+        name = i8t_count_name(gateup, True, act)
         kernels.check(rc, name)
         kernels.count(name, (K, N))
         return out
@@ -591,8 +607,9 @@ def _launch_i8t(x: torch.Tensor, w: QTensor, gateup: bool, dq: bool) -> torch.Te
     else:
         out = torch.empty(M, N, device=dev, dtype=torch.float32)
     rc = lib.bt_qmm_i8t_dq(x.data_ptr(), w.qw.data_ptr(), s3.data_ptr(), out.data_ptr(),
-                           M, K, N, ks, int(gateup), G, bm, int(s3.shape[0] == 2), stream)
-    name = "qmm_i8t_gateup_dq" if gateup else "qmm_i8t_dq"
+                           M, K, N, ks, int(gateup), G, bm, int(s3.shape[0] == 2),
+                           ACT_IDS[act], stream)
+    name = i8t_count_name(gateup, False, act)
     kernels.check(rc, name)
     kernels.count(name, (K, N))
     return out
@@ -729,16 +746,17 @@ def qmm_i8t(x: torch.Tensor, w: QTensor, dq: bool = False) -> torch.Tensor:
 
 
 def qmm_i8t_gateup(x: torch.Tensor, w: QTensor, act: str = "silu") -> torch.Tensor:
-    """Kernel-level entry of the i8t fused gate+up → [M, ff] bf16: at M = 1
-    the group-dot form (``_gateup_i8_gd_kernel``; equal to qmm_i8t's M = 1
-    kernel + silu·mul bit for bit), above the dequant form
-    (``_gateup_i8_kernel``).  SiLU only: the GELU epilogues of
-    ``csrc/i8mv.cuh`` and ``csrc/i8k_tile.cuh`` are not ported yet."""
-    if act != "silu":
-        raise NotImplementedError(f"qmm_i8t gate-up with act {act!r}: not ported yet")
+    """Kernel-level entry of the i8t fused gate+up → [M, ff] bf16, act(gate)·up
+    with act "silu" or "gelu": at M = 1 the group-dot form
+    (``_gateup_i8_gd_kernel``; equal to qmm_i8t's M = 1 kernel + act·mul
+    bit for bit), above the dequant form (``_gateup_i8_kernel``; equal to
+    qmm_i8t's M > 1 kernel + act·mul)."""
+    if act not in ACT_IDS:
+        raise NotImplementedError(f"qmm_i8t gate-up with act {act!r}: not ported yet "
+                                  "(silu and gelu are)")
     if x.device.type == "cpu":
-        return qmm_gateup_plain(x, w)
-    return _launch_i8t(x, w, gateup=True, dq=x.shape[0] > 1)
+        return qmm_gateup_plain(x, w, act=act)
+    return _launch_i8t(x, w, gateup=True, dq=x.shape[0] > 1, act=act)
 
 
 def qmm_i8c(x: torch.Tensor, w: QTensor) -> torch.Tensor:

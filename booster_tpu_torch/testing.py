@@ -177,7 +177,7 @@ def make_model(
     rms_eps: float = 1e-5,
     rope_scaling: tuple[str, float] | None = None,  # ("linear", 4.0): rope.scaling.type, .factor
     output_quant: GGMLType | None = None,  # output.weight's type where it differs from `quant`
-    tensor_quant: dict | None = None,  # a layer tensor's type by its name after "blk.N."
+    tensor_quant: dict | None = None,  # a layer tensor's type by its name (or after "blk.N.")
     output: bool = True,  # False: no output.weight (the head tied to token_embd)
     embd_quant: GGMLType | None = None,  # token_embd.weight's type where it differs from `quant`
     norm_bias: bool = False,  # mpt: LayerNorm biases (attn_norm, ffn_norm, output_norm)
@@ -204,7 +204,9 @@ def make_model(
     model whose ff is not a multiple of 256).  ``quant=Q5_K`` with
     ``output_quant=Q6_K`` is llama.cpp's Q5_K_S mix.  `tensor_quant` gives
     a layer tensor its own type by the name after ``blk.N.`` (for example
-    ``{"attn_v.weight": GGMLType.Q4_K}``), in every layer alike;
+    ``{"attn_v.weight": GGMLType.Q4_K}``), in every layer alike, or by its
+    full name (``{"blk.1.ffn_down.weight": GGMLType.Q5_K}``), in that layer
+    only, which takes precedence;
     ``quant=Q2_K``, ``output_quant=Q6_K`` and ``tensor_quant=q2k_mix(heads,
     kv_heads)`` is llama.cpp's Q2_K mix.
 
@@ -290,7 +292,7 @@ def make_model(
         if name == "token_embd.weight" and embd_quant is not None:
             want = embd_quant
         if tensor_quant and name.startswith("blk."):
-            want = tensor_quant.get(name.split(".", 2)[2], want)
+            want = tensor_quant.get(name, tensor_quant.get(name.split(".", 2)[2], want))
         qt = want if len(shape) >= 2 and shape[-1] % 256 == 0 else GGMLType.F32
         # llama.cpp's fallback for rows that hold no 256-element super-block
         # (llama_tensor_get_type): Q6_K → Q8_0, Q5_K → Q5_1

@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--phases build,kernels,probes,parity,generate,batch,generate_i8,
                            generate_gemma,batch_gemma,generate_gemma_i8,generate_gemma_q6k,
-                           batch_gemma_q6k,server_gemma,generate_q8,batch_q8,server,
+                           batch_gemma_q6k,server_gemma,generate_gemma7b_i8,
+                           batch_gemma7b_i8,generate_q8,batch_q8,server,
                            generate_i8c,batch_i8c,generate_q6k,batch_q6k,generate_q5k,
                            batch_q5k,generate_mpt,batch_mpt,generate_q4k,generate_q2k,
                            batch_q2k,generate_moe,batch_moe]
@@ -142,7 +143,20 @@ Phases, each printing one JSON line with its seconds:
    and append at Gemma-2B's 256-lane pool (18 layers, one kv head of 8
    query heads, the 7B's page pattern; int8 and bf16, with and without the
    self term; lanes 128-255 dropped among the wrong kernels), counted
-   under their _d256 names.
+   under their _d256 names.  Gemma-7B's forms (_gemma7b_kernels, GEMMA_7B:
+   K 3072, ff 24576): qmm_i8t_gelu.cu's gate-up with the GELU epilogue in the
+   tile (dq_kernel with act 1) at M = 256 and 2048 at group 32 (the two
+   paths' prefills), and at M = 2048 with mins planes and at group 16 (on
+   no path), and in the M = 1 matvec pair (i8mv::kGateUpGelu) at group 32,
+   32 with mins and 16 (reached by parity (r) only), each equal to
+   qmm_i8t + gelu·mul bit for bit, within the gate-up's limit of its plain
+   version per element, and the SiLU epilogue and a dropped group of K
+   (with the tile's and the matvec's wrong kernels) 8x past that limit
+   per element; the whole MLP with GELU at M = 1 and 64
+   (_gemma_mlp_kernels at GEMMA7B_MLP); the 256-lane attention and append
+   kernels at 16 kv heads of 256, G = 1 (GEMMA7B_ATTN: bf16 at B = 1,
+   generate's lengths; int8 at B = 64; the 32-row prefill; the appends at
+   L 4); the tied head at 256000 x 3072.
    Median times of kernel,
    plain version and one library call (the yardstick), each call after an
    L2 scrub (cold, as on the decode path), and the kernel's time warm
@@ -239,9 +253,26 @@ Phases, each printing one JSON line with its seconds:
    attention and append at 256 lanes) and (p) llama.cpp's Q6_K mix of
    Gemma-2B (the MLP at group 16), their card launches (the paths
    "parity (o)" and "parity (p)") holding those forms and no 4-bit kernel
-   or int8 gate-up.  (a), (b), (e)'s Q4_0 Mixtral, (f)'s TinyLlama, (g),
-   (h), (i), (l), (m), (n), (o) and (p) read the first 2 layers of their
-   full-depth file (PARITY_SHARED) in place of a 2-layer file.  The
+   or int8 gate-up; (q) Gemma-7B's width (GEMMA_7B: q width 4096 beside a
+   hidden 3072, 16 kv heads of 256, ff 24576) with weights="i8", loaded on
+   the card and moved to the CPU as (n), the single-stream path over a
+   bf16 cache with a prompt in the 256-row bucket (the whole MLP declines
+   from 142 rows: the int8 gate-up with GELU, qmm_i8t_gelu.cu's dq_kernel with
+   act 1) and 2 decode steps (the whole MLP with GELU), its card launches
+   the path "parity (q)"; (r) two narrow Gemma-shaped files (GEMMA_MIX:
+   hidden 512, 4 heads of 256 over 4 kv heads) whose ffn_down is Q6_K
+   (group 16) beside Q8_0 or Q5_K gate/up (group 32, the latter with
+   mins) in every layer, so the whole MLP declines at every M: the
+   single-stream path over a bf16 cache (a 16-row prefill, then 3 steps
+   through the M = 1 gate-up with GELU, i8mv::kGateUpGelu), the card's
+   Engine.generate on the same prompt (its tokens the CPU's greedy ones),
+   and the 4-stream batch over an int8 cache (the prefill at 64 rows),
+   each file's card launches a path ("parity (r) q8_0", "parity (r)
+   q5_k").  (c), (d) and (f)'s 7B width run last: they read the first 2
+   layers of the 32-layer Q8_0 file, which the writer draws last.  (a),
+   (b), (c), (d), (e)'s Q4_0 Mixtral, (f), (g), (h), (i), (l), (m), (n),
+   (o), (p) and (q) read the first 2 layers of their full-depth file
+   (PARITY_SHARED) in place of a 2-layer file.  The
    live slots' logits agree within the stated tolerance at every step, and
    the greedy tokens wherever the CPU's top-2 margin exceeds it.
 4. generate — the full 22-layer TinyLlama-shaped Q4_0 GGUF (random weights
@@ -478,6 +509,25 @@ Phases, each printing one JSON line with its seconds:
    its 256-lane paged pool: per decode step 18 int8 paged attentions and
    one paged append (their _d256 forms), nothing else of the cache's.
 
+   generate_gemma7b_i8 and batch_gemma7b_i8 (after server_gemma) —
+   Gemma-7B (the public google/gemma-7b config: GEMMA_7B) as llama.cpp's
+   Q4_0 mix writes it, cut to LAYERS["gemma7b"] = 4 of its 28 layers (the
+   card machine's 45 GiB of writes a call: 1.27 GB), loaded once with
+   ``weights="i8"`` (i8t at group 32; the 256000 x 3072 table dense bf16,
+   the tied head).  generate: phase 4's with a prompt of GEMMA7B_PREFILL_M
+   = 256 rows (the reference's whole-MLP gate declines from 142 rows at
+   these widths, so the prefill runs the int8 gate-up with GELU, then the
+   down, beside qkv and wo in the tile) and 128 greedy steps (2·L int8
+   matvecs, L whole MLPs with GELU, L bf16 decode attentions at 16 kv heads
+   of 256, G = 1, and one append a step).  batch: phase 5's bench_batch on
+   the same model (64 streams, T = BATCH_GEMMA_T: the prefill's 2048 rows
+   through the GELU gate-up, each step's 64 through the whole MLP, the
+   int8 256-lane attention and append).  Exact counts by form and shape;
+   the profile windows watch the GELU dq_kernel, the MLP and the 256-lane
+   decode attention by name and fail on a SiLU gate-up, a SiLU MLP, a
+   4-bit kernel or a 128-lane attention.  At 4 layers the rates are the
+   tied head's and the host's more than the layers'.
+
 Then one ``{"kernels": [...]}`` line (each kernel's launches are those of
 the path that runs it: generate / generate_q8 for the M = 1 kernels and
 bf16-cache attention, batch / batch_q8 for the int8 ones, server for the
@@ -489,7 +539,10 @@ the whole MLP with mins, generate_q2k / batch_q2k for the i4t forms at
 group 16, generate_gemma / batch_gemma for the GELU gate-up and the
 256-lane attention and appends, generate_gemma_i8 / parity (o) and
 generate_gemma_q6k / batch_gemma_q6k for the whole MLP with GELU at
-groups 32 and 16, server_gemma for the 256-lane paged forms, generate_mpt /
+groups 32 and 16, generate_gemma7b_i8 / batch_gemma7b_i8 for the int8
+gate-up with GELU at 256 and 2048 rows and the Gemma-7B shapes, parity (r)
+q8_0 / q5_k for its M = 1 form, server_gemma for the 256-lane paged forms,
+generate_mpt /
 batch_mpt for the per-layer appends, generate_q4k for config 2's Q4_K rows
 (its long run, generate_q4k_8k, for the 8192-row qkv), parity (j) for the
 lane-major mins form's grouped rows; the bf16-pool
@@ -525,7 +578,8 @@ sys.path.insert(0, str(ROOT))
 from booster_tpu_torch.tools.timing import bound, release as release_scrub, timed  # noqa: E402
 PHASES = ("build", "kernels", "probes", "parity", "generate", "batch", "generate_i8",
           "generate_gemma", "batch_gemma", "generate_gemma_i8", "generate_gemma_q6k",
-          "batch_gemma_q6k", "server_gemma", "generate_q8", "batch_q8", "server",
+          "batch_gemma_q6k", "server_gemma", "generate_gemma7b_i8", "batch_gemma7b_i8",
+          "generate_q8", "batch_q8", "server",
           "generate_i8c", "batch_i8c", "generate_q6k", "batch_q6k", "generate_q5k", "batch_q5k",
           "generate_mpt", "batch_mpt", "generate_q4k", "generate_q2k", "batch_q2k",
           "generate_moe", "batch_moe")
@@ -603,6 +657,30 @@ GEMMA_2B = dict(vocab_size=256000, hidden=2048, heads=8, kv_heads=1, head_dim=25
 # (2048 and 16384 are multiples of 256: no fallback type), the token table
 # too; every layer weight K-major i8t at group 16 (2.06 GB at 18 layers)
 GEMMA_2B_Q6K = dict(GEMMA_2B)
+# the public google/gemma-7b config.json: hidden 3072, 28 layers, 16 heads
+# over 16 kv heads of 256 (G = 1, the 256-lane cache; the q width 4096
+# beside the hidden 3072, so wo takes K = 4096), ff 24576
+# (gelu_pytorch_tanh), vocab 256000, rms_norm_eps 1e-6, rope_theta 10000,
+# 8192 context, the head tied to the token table; as llama.cpp's Q4_0 mix
+# writes it (Q4_0 layers, a Q6_K token table, no output.weight), blocks
+# drawn from the seed: 0.156 GB a layer beside the table's 0.645 GB
+# (LAYERS cuts it to 4 of its 28)
+GEMMA_7B = dict(vocab_size=256000, hidden=3072, heads=16, kv_heads=16, head_dim=256, ff=24576,
+                arch="gemma", embd_quant="Q6_K", rms_eps=1e-6, rope_base=10000.0,
+                context=8192, seed=0, weight_scale=0.05, draw="blocks")
+# generate_gemma7b_i8's prompt: its 182 ids on the seeded SPM vocab take
+# the 256-row bucket (phase_generate checks it), past the 141 rows up to
+# which the reference's whole MLP takes Gemma-7B's widths (_pick_bf_mlp)
+GEMMA7B_PROMPT = "benchmark " * 20
+GEMMA7B_PREFILL_M = 256
+# parity (r)'s narrow Gemma-shaped files: hidden 512, 4 heads of 256 over 4
+# kv heads (Gemma-7B's G = 1), ff 512, vocab 512, a Q6_K token table; the
+# ffn_down Q6_K (group 16) in every layer beside Q8_0 or (GGUFS
+# "gemma_mix_q5k") Q5_K gate/up (group 32): the whole MLP wants one group,
+# so the reference runs the int8 gate-up with GELU at every M (a few MB)
+GEMMA_MIX = dict(vocab_size=512, hidden=512, heads=4, kv_heads=4, head_dim=256, ff=512,
+                 arch="gemma", embd_quant="Q6_K", rms_eps=1e-6, seed=0, weight_scale=0.05,
+                 draw="blocks", tensor_quant={"ffn_down.weight": "Q6_K"})
 # config 2's run (bench.py:72-100): its prompt, engine and sampling
 Q4K_PROMPT = "benchmark " * 12
 Q4K_MAX_SEQ, Q4K_CHUNK = 8192, 64
@@ -642,6 +720,11 @@ DEEPSEEK_ATTN = dict(name="1.3B", L=24, Hkv=16, G=1, D=128, Dc=128, S1=1024, B=6
 GEMMA_ATTN = dict(name="Gemma-2B", L=18, Hkv=1, G=8, D=256, Dc=256, S1=1024, B=64, S=512,
                   prefill_T=(BATCH_GEMMA_T,), gen_path="generate_gemma",
                   batch_path="batch_gemma", gen_lens=(150, 500), batch_lens=(150, 500))
+# Gemma-7B at its 4 layers: 16 kv heads of one query head each, head dim 256;
+# generate's cache lengths 182-310 (its 182-token prompt, 128 steps)
+GEMMA7B_ATTN = dict(name="Gemma-7B", L=4, Hkv=16, G=1, D=256, Dc=256, S1=1024, B=64, S=512,
+                    prefill_T=(BATCH_GEMMA_T,), gen_path="generate_gemma7b_i8",
+                    batch_path="batch_gemma7b_i8", gen_lens=(246, 310), batch_lens=(150, 500))
 PROMPT = "hello world and the end"  # 15 tokens: the 16-row prefill bucket
 
 # the i4t gate-up's M = 1 matvec pair by its epilogue (the profile names the
@@ -978,8 +1061,10 @@ def phase_kernels(entries: list) -> dict:
     _gemma_kernels(entries, failures)
     _gemma_mlp_kernels(entries, failures)
     _paged_kernels(entries, failures, paged_checks, PAGED_GEMMA)
+    _gemma7b_kernels(entries, failures)
     multi_stage = _multi_stage_checks(failures)
     tied = _tied_head_row(failures)
+    tied_7b = _tied_head_row(failures, GEMMA_7B)
     floor = _append_floor()
     for e in entries:  # beside every append row: a row near it sits at the launch floor
         if e["name"].startswith("kv_append"):
@@ -991,7 +1076,8 @@ def phase_kernels(entries: list) -> dict:
     return {"phase": "kernels", "seconds": time.perf_counter() - t0,
             "checks": {e["name"] + " " + e["shape"]: e["max_abs_err"] for e in entries},
             "paged_checks": paged_checks, "layer_append_checks": append_checks,
-            "append": floor, "tied_head": tied, "multi_stage_checks": multi_stage}
+            "append": floor, "tied_head": tied, "tied_head_gemma7b": tied_7b,
+            "multi_stage_checks": multi_stage}
 
 
 def _gemma_kernels(entries: list, failures: list) -> None:
@@ -1018,9 +1104,19 @@ def _gemma_kernels(entries: list, failures: list) -> None:
     _int8_kernels(entries, failures, GEMMA_ATTN)
 
 
-def _gemma_mlp_kernels(entries: list, failures: list) -> None:
+# the whole MLP's GELU rows of _gemma_mlp_kernels: the model, its widths, its
+# forms (label, group, mins, the path of M <= 16, of M > 16) and rows M
+GEMMA2B_MLP = dict(name="Gemma-2B", conf=GEMMA_2B, Ms=(1, 16, 64, 2048), forms=(
+    ("g32", 32, False, "generate_gemma_i8", "parity (o)"), ("g32 mins", 32, True, None, None),
+    ("g16", 16, False, "generate_gemma_q6k", "batch_gemma_q6k")))
+GEMMA7B_MLP = dict(name="Gemma-7B", conf=GEMMA_7B, Ms=(1, 64), forms=(
+    ("g32", 32, False, "generate_gemma7b_i8", "batch_gemma7b_i8"),))
+
+
+def _gemma_mlp_kernels(entries: list, failures: list, lay: dict = GEMMA2B_MLP) -> None:
     """csrc/mlp_i8t_gelu.cu's forms at Gemma-2B's widths (K 2048, ff 16384,
-    C 2048; random weights on the card): group 32 (Q4_0 widened by
+    C 2048; random weights on the card; or lay's: GEMMA7B_MLP, Gemma-7B's K
+    3072, ff 24576 at group 32, M = 1 and 64): group 32 (Q4_0 widened by
     weights="i8", as Q8_0), group 32 with mins planes (real Q5_K planes,
     testing.q5k_weight; on no path) and group 16 (Q6_K), each at M = 1 and
     16 (generate's steps and
@@ -1046,13 +1142,9 @@ def _gemma_mlp_kernels(entries: list, failures: list) -> None:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(22)
-    C, ff = GEMMA_2B["hidden"], GEMMA_2B["ff"]
+    C, ff = lay["conf"]["hidden"], lay["conf"]["ff"]
     bf = torch.bfloat16
-    # (label, group, mins, the path of M 1 and 16, of M 64 and 2048)
-    forms = (("g32", 32, False, "generate_gemma_i8", "parity (o)"),
-             ("g32 mins", 32, True, None, None),
-             ("g16", 16, False, "generate_gemma_q6k", "batch_gemma_q6k"))
-    for label, G, mins, path1, path2 in forms:
+    for label, G, mins, path1, path2 in lay["forms"]:
         if mins:
             gu = q5k_weight(2 * ff, C, seed=220, device="cuda")
             dn = q5k_weight(C, ff, seed=221, device="cuda")
@@ -1066,8 +1158,8 @@ def _gemma_mlp_kernels(entries: list, failures: list) -> None:
             g = tq.qmm_i8t(x, gu, dq=True).to(bf)
             return tq.qmm_i8t(tq.gelu(g[:, :ff]) * g[:, ff:], dn, dq=True).to(bf)
 
-        for M in (1, 16, 64, 2048):
-            tag = f"mlp {label} M={M}"
+        for M in lay["Ms"]:
+            tag = f"{lay['name']} mlp {label} M={M}"
             x = torch.randn(M, C, device="cuda", generator=gen).to(bf)
             got, mid_k = tm._run(x, gu, dn, act="gelu")
             want = tm.qmm_mlp_plain(x, gu, dn, "gelu").float()
@@ -1110,7 +1202,7 @@ def _gemma_mlp_kernels(entries: list, failures: list) -> None:
             b_ms, b_by = bound(sbytes + M * C * 2 + M * C * 2, 2 * M * C * 2 * ff + 2 * M * ff * C)
             path = path1 if M <= 16 else path2
             row = {
-                "name": name, "shape": f"Gemma-2B mlp {label} M={M} K={C} ff={ff} C={C}",
+                "name": name, "shape": f"{lay['name']} mlp {label} M={M} K={C} ff={ff} C={C}",
                 "key": (name, (C, C)), "path": path or "batch_gemma_q6k", "route": "cuda",
                 "source": "booster_tpu_torch/csrc/mlp_i8t_gelu.cu",
                 "replaces": "booster_tpu/ops/pallas_qmm.py:1172",
@@ -1160,6 +1252,135 @@ def _gemma_mlp_kernels(entries: list, failures: list) -> None:
         torch.cuda.empty_cache()
 
 
+def _gemma7b_kernels(entries: list, failures: list) -> None:
+    """Gemma-7B's int8 gate-up with the GELU epilogue (qmm_i8t_gelu.cu) on a
+    [3072, 2·24576] weight (GEMMA_7B): the tile (dq_kernel, act 1) at
+    generate_gemma7b_i8's 256-row prefill and batch_gemma7b_i8's 2048 at
+    group 32, and at 2048 rows with mins planes (real Q5_K planes,
+    testing.q5k_weight) and at group 16 (on no path); the M = 1 matvec pair
+    (i8mv::kGateUpGelu) at group 32, 32 with mins and 16 (parity (r) runs
+    the first two at its narrow width; no full-size path reaches it).  Each
+    equal to the unfused kernel of its form + gelu·mul bit for bit, within
+    the gate-up limit of its plain version per element (or an output of
+    one-ulp roundings of g and u: testing.gateup_flips), and each wrong
+    kernel 8x past that limit per element: the SiLU epilogue, a group of K
+    dropped, the up half read for the gate, the tile's or the matvec's
+    wrong kernels (testing.qmm_i8k_mutants, qmm_mv_mutants) and, with
+    mins, testing.qmm_mins_mutants.  Then the whole MLP with GELU at M = 1
+    and 64 (GEMMA7B_MLP), the 256-lane attention and appends at 16 kv
+    heads, G = 1 (GEMMA7B_ATTN)."""
+    import dataclasses
+
+    import torch
+
+    from booster_tpu_torch.ops import qmm as tq
+    from booster_tpu_torch.testing import (gateup_flips, q5k_weight, qmm_i8k_mutants,
+                                           qmm_mins_mutants, qmm_mv_mutants)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    C, ff = GEMMA_7B["hidden"], GEMMA_7B["ff"]
+    bf = torch.bfloat16
+
+    def unfused(x, w):  # the unfused kernel of the form, then gelu·mul
+        g = tq.qmm_i8t(x, w).to(bf)
+        return tq.gelu(g[:, :ff]) * g[:, ff:]
+
+    # (label, group, mins, M, path: None on no path)
+    cases = (("g32", 32, False, 256, "generate_gemma7b_i8"),
+             ("g32", 32, False, 2048, "batch_gemma7b_i8"),
+             ("g32 mins", 32, True, 2048, None), ("g16", 16, False, 2048, None),
+             ("g32", 32, False, 1, "parity (r) q8_0"), ("g32 mins", 32, True, 1, "parity (r) q5_k"),
+             ("g16", 16, False, 1, None))
+    weights = {}
+    for label, G, mins, M, path in cases:
+        if label not in weights:
+            weights[label] = (q5k_weight(2 * ff, C, seed=230, device="cuda") if mins
+                              else _stacked_i8t(2, C, 2 * ff, gen, G).at(1))
+        w = weights[label]
+        r = w.resolved()
+        x = torch.randn(M, C, device="cuda", generator=gen).to(bf)
+        name = tq.i8t_count_name(True, M == 1, "gelu")
+        tag = f"{name} {label} M={M}"
+        got = tq.qmm_i8t_gateup(x, w, "gelu")
+        want = tq.qmm_gateup_plain(x, w, act="gelu").float()
+        gp = tq.qmm_plain(x, w).to(bf)  # the plain sums (the gd form at M = 1)
+        tol = 2 ** -7 if M == 1 else 2 ** -5  # CHECKS "gateup" / "gateup_i8"
+        limit = tol * want.abs() + 1e-5 * want.abs().max()
+        d = (got.float() - want).abs()
+        ok = (d <= limit) | gateup_flips(got, gp[:, :ff], gp[:, ff:], "gelu")
+        if not (bool(ok.all()) and torch.isfinite(got.float()).all()):
+            failures.append(f"{tag}: max err {float(d.max())}, {int((~ok).sum())} outputs past "
+                            "the limit and no one-ulp rounding")
+        if not torch.equal(got, unfused(x, w)):
+            failures.append(f"{tag}: fused != qmm_i8t + gelu·mul")
+        del ok
+        s = r.scales
+        g0 = s.shape[-2] // 2  # a group of K in the middle
+        dropped = s.clone()
+        dropped[..., g0, :] = 0
+        wrong = {"SiLU for GELU": tq.silu(gp[:, :ff]) * gp[:, ff:],
+                 "a group of K dropped": tq.qmm_gateup_plain(
+                     x, dataclasses.replace(r, scales=dropped), act="gelu"),
+                 "the up half read for the gate": tq.qmm_gateup_plain(x, dataclasses.replace(
+                     r, qw=torch.cat([r.qw[:, ff:], r.qw[:, ff:]], 1),
+                     scales=torch.cat([s[..., ff:], s[..., ff:]], -1)), act="gelu")}
+        del dropped
+        if M == 1:
+            mutants = qmm_mv_mutants(x, r)
+        else:
+            nst, ks = C // 64, tq.i8k_plan(M, C, 2 * ff)[1]
+            mutants = qmm_i8k_mutants(x, r, ((ks - 1) * nst // ks, nst))
+        if mins:
+            mutants |= qmm_mins_mutants(x, r)
+        seen = {}
+        for what, m in wrong.items():
+            seen[what] = float(((m.float() - want).abs() / limit).max())
+        del wrong
+        for what, (xm, wm) in mutants.items():
+            seen[what] = float(((tq.qmm_gateup_plain(xm, wm, act="gelu").float() - want).abs()
+                                / limit).max())
+        del mutants
+        for what, v in seen.items():
+            if v < 8:
+                failures.append(f"{tag}: the check cannot see {what} ({v} of the limit)")
+        sbytes = r.qw.numel() + 2 * s.numel()
+        b_ms, b_by = bound(sbytes + M * C * 2 + M * ff * 2, 2 * M * C * 2 * ff)
+        trials = 3 if M > 256 else 5
+        row = {
+            "name": name, "shape": f"Gemma-7B gateup {label} M={M} K={C} N={2 * ff} G={G}",
+            "key": (name, None if path and path.startswith("parity (r)") else (
+                (C, 2 * ff) + (() if path else (label,)))),
+            "path": path or "batch_gemma7b_i8", "route": "cuda",
+            "source": "booster_tpu_torch/csrc/qmm_i8t_gelu.cu",
+            "replaces": "booster_tpu/ops/pallas_qmm.py:" + ("873" if M == 1 else "726"),
+            "max_abs_err": float(d.max()), "max_err_of_limit": float((d / limit).max()),
+            "min_wrong_kernel_of_limit": min(seen.values()),
+            "ms": timed(lambda: tq.qmm_i8t_gateup(x, w, "gelu"), trials=trials),
+            "warm_ms": timed(lambda: tq.qmm_i8t_gateup(x, w, "gelu"), trials=trials, cold=False),
+            "silu_ms": timed(lambda: tq.qmm_i8t_gateup(x, w), trials=trials),
+            "unfused_ms": timed(lambda: unfused(x, w), trials=trials),
+            "plain_ms": timed(lambda: tq.qmm_gateup_plain(x, w, act="gelu"), reps=3, trials=3),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "library": "null: no one torch call (gate-up + GELU·mul)",
+            "check": (CHECKS["gateup"] if M == 1 else CHECKS["gateup_i8"])
+            + " or one-ulp flips of g and u; equal to qmm_i8t + gelu·mul; wrong kernels "
+              "(SiLU, a group dropped) at 8x per element"}
+        if path is None:
+            row["launches_note"] = "on no path (no full-size file gives this form)"
+        elif M == 1:
+            row["launches_note"] = ("launched at parity (r)'s narrow width (K 512, ff 512); no "
+                                    "full-size path reaches the M = 1 form")
+        entries.append(row)
+        del x, got, want, gp, d, limit
+        torch.cuda.empty_cache()
+    del weights
+    torch.cuda.empty_cache()
+    _gemma_mlp_kernels(entries, failures, GEMMA7B_MLP)
+    _bf16_attn_kernels(entries, failures, GEMMA7B_ATTN)
+    _int8_kernels(entries, failures, GEMMA7B_ATTN)
+
+
 def _multi_stage_checks(failures: list) -> dict:
     """decode_attn.cu at 256 lanes where a slice spans several stages (few
     slices against lens): Gemma-2B's 64 slots over a 512-row cache (2
@@ -1190,8 +1411,9 @@ def _multi_stage_checks(failures: list) -> dict:
     return out
 
 
-def _tied_head_row(failures: list) -> dict:
-    """Gemma-2B's tied head at one row and at batch_gemma's 64: a torch
+def _tied_head_row(failures: list, conf: dict = GEMMA_2B) -> dict:
+    """Gemma-2B's (or `conf`'s: GEMMA_7B) tied head at one row and at
+    batch_gemma's 64: a torch
     product of the bf16 x and the bf16 [256000, 2048] token table with f32
     accumulation and output (models.llama.tied_head; no kernel of the
     port's: the reference leaves it to XLA), timed as the kernel rows are
@@ -1204,7 +1426,7 @@ def _tied_head_row(failures: list) -> dict:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(21)
-    V, C = GEMMA_2B["vocab_size"], GEMMA_2B["hidden"]
+    V, C = conf["vocab_size"], conf["hidden"]
     emb = (torch.randn(V, C, device="cuda", generator=gen) * 0.05).to(torch.bfloat16)
     out = {"shape": f"V={V} C={C}", "source": "torch.mm(x, table.t(), out_dtype=torch.float32)"}
     for M in (1, 64):
@@ -3690,13 +3912,17 @@ GGUFS = {"tiny": ("tinyllama-shape-q4_0", "TINYLLAMA", "Q4_0"),
          "q5k_8b": ("llama3-8b-shape-q5_k_s", "LLAMA3_8B_Q5KS", "Q5_K"),
          "q2k": ("llama3-8b-shape-q2_k", "LLAMA3_8B_Q2K", "Q2_K"),
          "gemma": ("gemma-2b-shape-q4_0", "GEMMA_2B", "Q4_0"),
-         "gemma_q6k": ("gemma-2b-shape-q6_k", "GEMMA_2B_Q6K", "Q6_K")}
+         "gemma_q6k": ("gemma-2b-shape-q6_k", "GEMMA_2B_Q6K", "Q6_K"),
+         "gemma7b": ("gemma-7b-shape-q4_0", "GEMMA_7B", "Q4_0"),
+         "gemma_mix": ("gemma-narrow-q8_0-q6_k-down", "GEMMA_MIX", "Q8_0"),
+         "gemma_mix_q5k": ("gemma-narrow-q5_k-q6_k-down", "GEMMA_MIX", "Q5_K")}
 # each model's depth on its full-size phases
 # (Mixtral cut to 20 of its 32: the card's machine takes 45 GiB of disk writes
 # a call; with config 2's files a 32-layer Mixtral came to 49 GiB, and at 24
-# layers the Q2_K mix's 2.8 GB did not fit beside the rest)
+# layers the Q2_K mix's 2.8 GB did not fit beside the rest; Gemma-7B cut to
+# 4 of its 28, 1.27 GB, the room that parity's 2-layer Q8_0 file gave back)
 LAYERS = {"tiny": 22, "q8": 32, "moe": 20, "q6k": 24, "mpt": 32, "q4k": 32, "q5k": 24,
-          "q2k": 32, "gemma": 18, "gemma_q6k": 18}
+          "q2k": 32, "gemma": 18, "gemma_q6k": 18, "gemma7b": 4}
 
 
 def _gguf_path(layers: int, model: str = "tiny") -> Path:
@@ -3738,11 +3964,14 @@ def _gguf_sizes() -> dict:
 
 # parity's 2-layer models that are the first 2 layers of a full-depth file
 # (testing.load_first_layers): the card's machine takes 45 GiB of writes a
-# call, and a 2-layer file of its own would cost Mixtral's 1.78 GB, Gemma's
-# 0.49, MPT-7B's 0.51, the 8B Q4_K's 0.39 and Q2_K's 0.31, the 1.3B Q6_K's
-# 0.20 and Q5_K_S's 0.17, TinyLlama's 0.12 (the last five pay for Gemma-2B's
-# Q6_K file; the writer writes these files before parity needs them)
-PARITY_SHARED = ("tiny", "moe", "gemma", "gemma_q6k", "q6k", "mpt", "q4k", "q5k", "q2k")
+# call, and a 2-layer file of its own would cost Mixtral's 1.78 GB, the 7B
+# Q8_0's 0.74 (which pays for Gemma-7B's file), Gemma's 0.49, MPT-7B's 0.51,
+# the 8B Q4_K's 0.39 and Q2_K's 0.31, the 1.3B Q6_K's 0.20 and Q5_K_S's
+# 0.17, TinyLlama's 0.12 (the last five pay for Gemma-2B's Q6_K file; the
+# writer writes these files before parity needs them, the 7B's last, and
+# parity's cases on it come last)
+PARITY_SHARED = ("tiny", "moe", "gemma", "gemma_q6k", "q6k", "mpt", "q4k", "q5k", "q2k",
+                 "gemma7b", "q8")
 
 
 def _parity_model(model: str, dev: str, **kw):
@@ -3771,11 +4000,11 @@ def _both(load) -> dict:
 # cases take them: while a case runs, the next one's load runs on a thread
 # (_parity_models)
 _NATIVE = (("weights", "native"),)
-PARITY_LOADS = (("tiny", ()), ("tiny", (("weights", "bf16"),)), ("q8", _NATIVE),
-                ("q8", (("weights", "i8c"),)), ("tiny", (("weights", "i8"),)),
+PARITY_LOADS = (("tiny", ()), ("tiny", (("weights", "bf16"),)), ("tiny", (("weights", "i8"),)),
                 ("tiny", (("weights", "i8c"),)), ("moe", _NATIVE), ("moe_q8", _NATIVE),
                 ("q6k", _NATIVE), ("mpt", _NATIVE), ("q4k", _NATIVE), ("moe_q4k", _NATIVE),
-                ("q5k_8b", _NATIVE), ("q5k", _NATIVE), ("q2k", _NATIVE))
+                ("q5k_8b", _NATIVE), ("q5k", _NATIVE), ("q2k", _NATIVE), ("q8", _NATIVE),
+                ("q8", (("weights", "i8c"),)))
 _prefetch: dict = {}  # "pool": the loading thread; PARITY_LOADS entry → its future
 
 
@@ -3903,11 +4132,44 @@ def _phase_parity() -> dict:
     expect = [len(prompts[0]) + 16, 0, len(prompts[2]) + 16, 0]
     if lengths != [expect, expect]:
         raise AssertionError(f"parity batched: cache lengths {lengths} != {expect}")
-    # (c) the 7B width, Q8_0 weights (native i8t): the batched path over an
-    # int8 cache at the T = 32 bucket, then the single-stream path over a
-    # bf16 cache; PARITY_7B_STEPS each
+    ids = tok.encode(PROMPT)
     del models, caches
     laps("b check")
+    out.update(_parity_i8(tol, laps, ids, (("tiny", "i8"), ("tiny", "i8c"))))
+    out.update(_parity_moe(tol, laps))
+    out.update(_parity_q6k(tol, laps))
+    out.update(_parity_mpt(tol, laps))
+    out.update(_parity_q4k(tol, laps))
+    out.update(_parity_moe(tol, laps, ("moe_q4k",), "j"))
+    out.update(_parity_q5k(tol, laps, out))
+    out.update(_parity_q2k(tol, laps, out))
+    out.update(_parity_gemma(tol, laps, out))
+    out.update(_parity_gemma8(tol, laps, out, "o"))
+    out.update(_parity_gemma8(tol, laps, out, "p"))
+    out.update(_parity_gemma7b(tol, laps, out))
+    out.update(_parity_gemma_mix(tol, laps, out))
+    # the 7B width last: its 32-layer Q8_0 file is the writer's last
+    out.update(_parity_q8(tol, laps))
+    out.update(_parity_i8(tol, laps, ids, (("q8", "i8c"),)))
+    recip = sum(v["scale_rows"]["reciprocal_multiply_differs"] for k, v in out.items()
+                if isinstance(v, dict) and "scale_rows" in v)
+    if not recip:
+        raise AssertionError("parity (f): the reciprocal multiply differs on no row; "
+                             "the bit-equality of the scales cannot see it")
+    out["seconds"] = time.perf_counter() - t0
+    out["part_s"] = laps.parts
+    return out
+
+
+def _parity_q8(tol: float, laps) -> dict:
+    """(c) the 7B width, Q8_0 weights (native i8t): the batched path over an
+    int8 cache at the T = 32 bucket, then the single-stream path over a
+    bf16 cache; PARITY_7B_STEPS each; (d) the same model over the server
+    path's paged pool."""
+    from booster_tpu_torch.ops.kv_cache import KVCache
+    from booster_tpu_torch.serving import Engine
+
+    out = {}
     laps("c wait")
     models = _parity_models("q8", weights="native")
     cfg = models["cpu"].cfg
@@ -3936,8 +4198,6 @@ def _phase_parity() -> dict:
     # pages of 256 rows (the paged prefill through gathered views, then the
     # paged decode kernels), 4 slots of which 2 live, their pages given by
     # the engine's allocator (slot 2 first); an int8 pool, then a bf16 one
-    from booster_tpu_torch.serving import Engine
-
     for quant in (True, False):
         caches = {}
         for dev, m in models.items():
@@ -3958,19 +4218,6 @@ def _phase_parity() -> dict:
             raise AssertionError(f"parity paged: cache lengths {lengths} != {expect}")
     del models, caches
     laps("d check")
-    out.update(_parity_i8(tol, laps, tok.encode(PROMPT)))
-    out.update(_parity_moe(tol, laps))
-    out.update(_parity_q6k(tol, laps))
-    out.update(_parity_mpt(tol, laps))
-    out.update(_parity_q4k(tol, laps))
-    out.update(_parity_moe(tol, laps, ("moe_q4k",), "j"))
-    out.update(_parity_q5k(tol, laps, out))
-    out.update(_parity_q2k(tol, laps, out))
-    out.update(_parity_gemma(tol, laps, out))
-    out.update(_parity_gemma8(tol, laps, out, "o"))
-    out.update(_parity_gemma8(tol, laps, out, "p"))
-    out["seconds"] = time.perf_counter() - t0
-    out["part_s"] = laps.parts
     return out
 
 
@@ -4009,21 +4256,23 @@ def _i8c_scale_rows(path: str, device: str = "cuda", layers: int = 2) -> dict:
     return rows
 
 
-def _parity_i8(tol: float, laps, ids: list) -> dict:
-    """(f) the 7B-width file with weights="i8c" and the TinyLlama-width file
-    with weights="i8" (and "i8c"), loaded on the CPU and on the card: every
+def _parity_i8(tol: float, laps, ids: list, cases) -> dict:
+    """(f) of `cases` ((model, weights)): the 7B-width file with
+    weights="i8c" and the TinyLlama-width file with weights="i8" (and
+    "i8c"), loaded on the CPU and on the card: every
     i8c tensor (requantized on each device) bit-equal between the two, and
     the i8c / i8 single-stream path over a bf16 cache, a 16-row prefill and
     3 decode steps, the CPU (plain versions) against the card (the i8c and
     i8t kernels).  The reciprocal multiply amax · f32(1/127) must differ
     from the scales on at least one row of the Q4_0 file (Q8_0 rows hold
-    127·d, whose two quotients agree), so the bit-equality can see it."""
+    127·d, whose two quotients agree), so the bit-equality can see it: the
+    caller checks that over every case's "scale_rows"."""
     import torch
 
     from booster_tpu_torch.ops.kv_cache import KVCache
 
     out = {}
-    for model, weights in (("q8", "i8c"), ("tiny", "i8"), ("tiny", "i8c")):
+    for model, weights in cases:
         tag = f"f {model} {weights}"
         models = _parity_models(model, weights=weights)
         laps(f"{tag} load")
@@ -4051,11 +4300,6 @@ def _parity_i8(tol: float, laps, ids: list) -> dict:
         out[f"{model}_{weights}_bf16_cache_1_slot"] = res
         del models, ps
         laps(f"{tag} check")
-    recip = sum(v["scale_rows"]["reciprocal_multiply_differs"] for k, v in out.items()
-                if "scale_rows" in v)
-    if not recip:
-        raise AssertionError("parity (f): the reciprocal multiply differs on no row; "
-                             "the bit-equality of the scales cannot see it")
     return out
 
 
@@ -4453,6 +4697,142 @@ def _parity_gemma8(tol: float, laps, out: dict, case: str) -> dict:
             + "_bf16_cache_1_slot_and_int8_cache_4_slots": res}
 
 
+def _parity_gemma7b(tol: float, laps, out: dict) -> dict:
+    """(q) Gemma-7B at 2 layers with weights="i8": the first 2 layers of the
+    4-layer Q4_0 file (the nibbles widened on the card to i8t at group 32),
+    loaded on the card and its params moved to the CPU, as (n); the
+    single-stream path over a bf16 cache with GEMMA7B_PROMPT, whose ids
+    take the 256-row bucket (the reference's whole MLP declines from 142
+    rows at these widths: the int8 gate-up with GELU, then the down), and
+    PARITY_7B_STEPS decode steps (the whole MLP with GELU, the 256-lane
+    decode attention at 16 kv heads, G = 1).  The CPU's plain versions
+    against the card's kernels; the card's launches (the path "parity
+    (q)") hold the gate-up's GELU tile form and the MLP's GELU form, and
+    no 4-bit kernel, SiLU gate-up or SiLU MLP."""
+    import dataclasses
+
+    import torch
+
+    from booster_tpu_torch.models.loader import _to_device
+    from booster_tpu_torch.ops import kernels
+    from booster_tpu_torch.ops.kv_cache import KVCache
+    from booster_tpu_torch.ops.mlp import mlp_count_name
+    from booster_tpu_torch.serving.engine import _bucket
+
+    laps("q wait")
+    card = _parity_model("gemma7b", "cuda", weights="i8")
+    models = {"cpu": dataclasses.replace(card, params=_to_device(card.params, torch.device("cpu")),
+                                         device=torch.device("cpu")), "cuda": card}
+    cfg = card.cfg
+    kinds = {(v.kind, v.group) for v in card.params["layers"].values() if hasattr(v, "kind")}
+    shape = (cfg.n_embd, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_ff, cfg.act)
+    if kinds != {("i8t", 32)} or card.params["output"] is not None or shape != (
+            GEMMA_7B["hidden"], GEMMA_7B["heads"], GEMMA_7B["kv_heads"], GEMMA_7B["head_dim"],
+            GEMMA_7B["ff"], "gelu"):
+        raise AssertionError(f"parity gemma-7b (q): weights {kinds}, head "
+                             f"{card.params['output']}, (C, H, Hkv, D, ff, act) {shape}")
+    laps("q load")
+    ids = models["cpu"].tokenizer.encode(GEMMA7B_PROMPT)
+    T = _bucket(len(ids), 512)
+    if T != GEMMA7B_PREFILL_M:
+        raise AssertionError(f"parity gemma-7b (q): {len(ids)} ids take the {T}-row bucket, "
+                             f"not {GEMMA7B_PREFILL_M}")
+    kernels.reset_counts()
+    caches = {dev: KVCache.create(cfg.n_layers, 1, 512, cfg.n_kv_heads, cfg.head_dim, dev)
+              for dev in models}
+    got, want = _teacher_forced(models, caches, [ids], T, [True], laps, "q",
+                                steps=PARITY_7B_STEPS)
+    res = {"single": _compare_logits("gemma-7b (q) single", got, want, tol), "prefill_T": T}
+    counts = dict(kernels.launch_counts)
+    res["card_launches"] = {k: v for k, v in counts.items() if v}
+    need = ["qmm_i8t_gateup_gelu_dq", mlp_count_name(32, "gelu"), "qmm_i8t_gd", "qmm_i8t_dq",
+            "decode_attn_d256", "kv_append_d256"]
+    wrong = [k for k, v in counts.items() if v and (
+        k.startswith(("qmm_i4t", "mlp_i8t")) and k != need[1]
+        or k.startswith("qmm_i8t_gateup") and k != need[0])]
+    if not all(counts[k] for k in need) or wrong:
+        raise AssertionError(f"parity gemma-7b (q): the card's launches {res['card_launches']}")
+    out.setdefault("_paths", {})["parity (q)"] = (counts, dict(kernels.shape_counts))
+    del models, caches, card
+    laps("q check")
+    return {"gemma_7b_width_i8_weights_bf16_cache_1_slot_256_rows": res}
+
+
+def _parity_gemma_mix(tol: float, laps, out: dict) -> dict:
+    """(r) the narrow Gemma-shaped files of GEMMA_MIX (ffn_down Q6_K at group
+    16 beside Q8_0, then Q5_K with mins, gate/up at group 32: the whole MLP
+    declines at every M), loaded on both devices: the single-stream path
+    over a bf16 cache (a 16-row prefill in the gate-up's tile form, then 3
+    steps in its M = 1 matvec pair with GELU), the card's Engine.generate
+    of 4 greedy tokens on the same prompt (equal to the CPU's greedy
+    tokens up to a near-tie of the CPU's logits), and the 4-stream batched
+    path over an int8 cache (the 64-row prefill, steps at M = 4), the CPU's
+    plain versions against the card's kernels.  Each file's card launches
+    (the paths "parity (r) q8_0" and "parity (r) q5_k") hold both GELU
+    gate-up forms and no MLP kernel, SiLU gate-up or 4-bit kernel."""
+    import torch
+
+    from booster_tpu_torch.models import load_model
+    from booster_tpu_torch.ops import kernels
+    from booster_tpu_torch.ops.kv_cache import KVCache
+    from booster_tpu_torch.sampling import SamplingParams
+    from booster_tpu_torch.serving import Engine
+
+    res = {}
+    for model, tag, planes in (("gemma_mix", "q8_0", 1), ("gemma_mix_q5k", "q5_k", 2)):
+        case = f"r {tag}"
+        laps(f"{case} wait")
+        path = _wait_gguf(model, 2)[0]
+        models = _both(lambda dev: load_model(path, device=dev))
+        card, cfg = models["cuda"], models["cuda"].cfg
+        lay = card.params["layers"]
+        forms = {k: (lay[k].kind, lay[k].group, lay[k].scales.shape[-3])
+                 for k in ("w_gateup", "w_down")}
+        if forms != {"w_gateup": ("i8t", 32, planes), "w_down": ("i8t", 16, 1)} \
+                or (cfg.n_kv_heads, cfg.head_dim, cfg.act) != (4, 256, "gelu"):
+            raise AssertionError(f"parity gemma ({case}): weights {forms}, {cfg}")
+        laps(f"{case} load")
+        kernels.reset_counts()
+        tok = models["cpu"].tokenizer
+        ids = tok.encode(PROMPT)
+        caches = {dev: KVCache.create(cfg.n_layers, 1, 256, cfg.n_kv_heads, cfg.head_dim, dev)
+                  for dev in models}
+        got, want = _teacher_forced(models, caches, [ids], 16, [True], laps, case, steps=3)
+        r = {"single": _compare_logits(f"gemma ({case}) single", got, want, tol)}
+        gen = Engine(card, max_batch=1, max_seq=256, decode_chunk=4).generate(
+            ids, SamplingParams(temp=0.0), max_new_tokens=4)
+        w = want[:, 0]  # [steps + 1, V]: the CPU's logits along its own greedy tokens
+        top2 = torch.topk(w, 2, dim=-1).values
+        clear = ((top2[:, 0] - top2[:, 1]) / w.abs().amax(-1) > tol).tolist()
+        cpu_tokens = torch.argmax(w, -1).tolist()
+        n_same = next((i for i, (a, b) in enumerate(zip(gen.token_ids, cpu_tokens)) if a != b),
+                      len(cpu_tokens))
+        if len(gen.token_ids) != 4 or n_same < 4 and clear[n_same]:
+            raise AssertionError(f"parity gemma ({case}): the card's generate gave "
+                                 f"{gen.token_ids}, the CPU's greedy tokens {cpu_tokens}")
+        r["generate_tokens_equal"] = f"{n_same}/4"
+        prompts = [tok.encode(f"stream {s} the end") for s in range(4)]
+        caches = {dev: KVCache.create(cfg.n_layers, 4, 256, cfg.n_kv_heads, cfg.head_dim, dev,
+                                      quantized=True) for dev in models}
+        got, want = _teacher_forced(models, caches, prompts, 16, [True] * 4, laps, case,
+                                    steps=2)
+        r["batched"] = _compare_logits(f"gemma ({case}) batched", got, want, tol)
+        counts = dict(kernels.launch_counts)
+        r["card_launches"] = {k: v for k, v in counts.items() if v}
+        need = ("qmm_i8t_gateup_gelu_gd", "qmm_i8t_gateup_gelu_dq")
+        wrong = [k for k, v in counts.items() if v and (
+            k.startswith(("qmm_i4t", "mlp_i8t")) or k.startswith("qmm_i8t_gateup")
+            and k not in need)]
+        if not all(counts[k] for k in need) or wrong:
+            raise AssertionError(f"parity gemma ({case}): the card's launches "
+                                 f"{r['card_launches']}")
+        out.setdefault("_paths", {})[f"parity (r) {tag}"] = (counts, dict(kernels.shape_counts))
+        res[tag] = r
+        del models, caches, card
+        laps(f"{case} check")
+    return {"gemma_narrow_q6_k_down_bf16_cache_1_slot_and_int8_cache_4_slots": res}
+
+
 def _parity_q6k(tol: float, laps) -> dict:
     """(g) the DeepSeek-Coder-1.3B width at 2 layers as llama.cpp's Q6_K
     file (Q8_0 ffn_down): loaded on the CPU and the card with the
@@ -4735,14 +5115,15 @@ def _big_model(model: str, layers: int = 32, weights: str = "auto"):
             if forms != {"wq": (4, 0), "wk": (4, 0), "wv": (4, 0), "wo": (2, 4),
                          "w_gateup": (4, 0), "w_down": (2, 4)}:
                 raise AssertionError(f"{model}: (planes, zero) {forms}")
-        elif model in ("gemma", "gemma_q6k"):  # llama.cpp's Q4_0 mix (with weights="i8"
-            # widened to i8t at group 32) or Q6_K mix (i8t at group 16), no head: the
-            # bf16 token table
+        elif model in ("gemma", "gemma_q6k", "gemma7b"):  # llama.cpp's Q4_0 mix (with
+            # weights="i8" widened to i8t at group 32) or Q6_K mix (i8t at group 16),
+            # no head: the bf16 token table
             want = dict.fromkeys(kinds, ("i8t", 32) if weights == "i8" else (
                 ("i8t", 16) if model == "gemma_q6k" else ("i4t", 32)))
             emb = m.params["tok_embd"]
+            conf = GEMMA_7B if model == "gemma7b" else GEMMA_2B
             if m.params["output"] is not None or emb.dtype != torch.bfloat16 or tuple(
-                    emb.shape) != (GEMMA_2B["vocab_size"], GEMMA_2B["hidden"]):
+                    emb.shape) != (conf["vocab_size"], conf["hidden"]):
                 raise AssertionError(f"{model}: head {m.params['output']}, table {emb.shape}")
         elif model == "q4k":  # every weight K-major i4t with Q4_K's four planes
             want = dict.fromkeys(kinds, ("i4t", 32))
@@ -4785,12 +5166,13 @@ GENERATE = {"generate": ("tiny", None), "generate_q8": ("q8", None),
             "generate_i8c": ("q8", "i8c"), "generate_q6k": ("q6k", "native"),
             "generate_q5k": ("q5k", "native"), "generate_mpt": ("mpt", "native"),
             "generate_q2k": ("q2k", "native"), "generate_gemma": ("gemma", "native"),
-            "generate_gemma_i8": ("gemma", "i8"), "generate_gemma_q6k": ("gemma_q6k", "native")}
+            "generate_gemma_i8": ("gemma", "i8"), "generate_gemma_q6k": ("gemma_q6k", "native"),
+            "generate_gemma7b_i8": ("gemma7b", "i8")}
 BATCH = {"batch": ("tiny", None), "batch_q8": ("q8", None), "batch_moe": ("moe", None),
          "batch_i8c": ("q8", "i8c"), "batch_q6k": ("q6k", "native"),
          "batch_q5k": ("q5k", "native"), "batch_mpt": ("mpt", "native"),
          "batch_q2k": ("q2k", "native"), "batch_gemma": ("gemma", "native"),
-         "batch_gemma_q6k": ("gemma_q6k", "native")}
+         "batch_gemma_q6k": ("gemma_q6k", "native"), "batch_gemma7b_i8": ("gemma7b", "i8")}
 
 
 def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str] = None) -> dict:
@@ -4798,8 +5180,10 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
     "i8", phase generate_i8), the 7B Q8_0 model ("q8", phase generate_q8;
     with weights "i8c", phase generate_i8c), the DeepSeek-Coder-1.3B Q6_K
     mix ("q6k", native, phase generate_q6k) or its Q5_K_S mix ("q5k", native,
-    phase generate_q5k), MPT-7B ("mpt", native, phase generate_mpt) or the
-    Mixtral-8x7B shape ("moe", phase generate_moe)."""
+    phase generate_q5k), MPT-7B ("mpt", native, phase generate_mpt), the
+    Mixtral-8x7B shape ("moe", phase generate_moe), Gemma-2B ("gemma",
+    "gemma_q6k") or Gemma-7B ("gemma7b" with weights "i8": a prompt of
+    GEMMA7B_PREFILL_M rows)."""
     import torch
 
     from booster_tpu_torch.models import load_model
@@ -4807,6 +5191,7 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
     from booster_tpu_torch.ops.mlp import mlp_count_name
     from booster_tpu_torch.sampling import SamplingParams
     from booster_tpu_torch.serving import Engine
+    from booster_tpu_torch.serving.engine import _bucket
 
     t0 = time.perf_counter()
     laps = _Laps()
@@ -4814,11 +5199,12 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
     name = {v: k for k, v in GENERATE.items()}[(model_name, weights)]
     q8, moe, q6k = model_name == "q8" and weights is None, model_name == "moe", model_name == "q6k"
     mpt, q5k, q2k = model_name == "mpt", model_name == "q5k", model_name == "q2k"
-    gemma = model_name in ("gemma", "gemma_q6k")
+    gemma7b = model_name == "gemma7b"
+    gemma = model_name in ("gemma", "gemma_q6k", "gemma7b")
     gemma8 = gemma and (weights == "i8" or model_name == "gemma_q6k")  # int8 weights
     load_gpu_gb = None
     torch.cuda.reset_peak_memory_stats()
-    if model_name in ("q8", "moe", "q6k", "mpt", "q5k", "q2k", "gemma", "gemma_q6k"):
+    if model_name in ("q8", "moe", "q6k", "mpt", "q5k", "q2k", "gemma", "gemma_q6k", "gemma7b"):
         big = _big_model(model_name, layers, weights or "auto")
         model, t_build, t_load = big["model"], big["build_s"], big["load_s"]
         t_wait, load_rss = big["wait_s"], big["load_rss_gb"]
@@ -4829,7 +5215,10 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
         model = load_model(path, device="cuda", weights=weights or "native")
         t_load = time.perf_counter() - t0 - t_wait
     eng = Engine(model, max_batch=1, max_seq=1024, decode_chunk=128)
-    ids = model.tokenizer.encode(PROMPT)
+    ids = model.tokenizer.encode(GEMMA7B_PROMPT if gemma7b else PROMPT)
+    if gemma7b and _bucket(len(ids), eng.max_seq) != GEMMA7B_PREFILL_M:
+        raise AssertionError(f"{name}: {len(ids)} prompt ids do not take the "
+                             f"{GEMMA7B_PREFILL_M}-row bucket the kernels phase times")
     sp = SamplingParams(temp=0.0)
     laps("load")
     eng.generate(ids, sp, max_new_tokens=128)  # warm-up: first calls of every op
@@ -4847,7 +5236,14 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
     steps = 128  # one chunk of decode_chunk steps runs whatever the host keeps
     L = layers
     mlp_gelu = mlp_count_name(16 if model_name == "gemma_q6k" else 32, "gelu")
-    if gemma8:  # qkv and wo on the int8 matvec, the whole MLP with GELU at every M (group
+    if gemma7b:  # Gemma-7B's 256-row prefill: qkv, wo, the int8 gate-up with GELU (the
+        # whole MLP declines from 142 rows at these widths) and the down in the tile;
+        # per step qkv and wo on the int8 matvec, the whole MLP with GELU, the 256-lane
+        # decode attention and append; the tied head one torch product (no kernel)
+        expected = dict.fromkeys(counts, 0) | {
+            "qmm_i8t_gd": 2 * L * steps, "qmm_i8t_dq": 3 * L, "qmm_i8t_gateup_gelu_dq": L,
+            mlp_gelu: L * steps, "decode_attn_d256": L * steps, "kv_append_d256": steps}
+    elif gemma8:  # qkv and wo on the int8 matvec, the whole MLP with GELU at every M (group
         # 32: Q4_0 widened by weights="i8"; 16: Q6_K), the 256-lane decode attention
         # and append; the tied head one torch product (no kernel)
         expected = dict.fromkeys(counts, 0) | {
@@ -4946,6 +5342,10 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
         want = {("qmm_i8t_gd", (C, nqkv)): L * steps, ("qmm_i8t_gd", (nq, C)): L * steps,
                 ("qmm_i8t_dq", (C, nqkv)): L, ("qmm_i8t_dq", (nq, C)): L,
                 (mlp_gelu, (C, C)): L * (steps + 1)}
+        if gemma7b:  # the prefill's gate-up and down in place of its MLP
+            FF = model.cfg.n_ff
+            want |= {(mlp_gelu, (C, C)): L * steps, ("qmm_i8t_gateup_gelu_dq", (C, 2 * FF)): L,
+                     ("qmm_i8t_dq", (FF, C)): L}
         if shape_counts != want:
             raise AssertionError(f"{name}: launches by shape {shape_counts} != {want}")
     elif gemma:  # every matmul launch by shape: qkv, wo, down and the GELU gate-up
@@ -4977,12 +5377,19 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
              else ())
     if q5k:  # the mins forms: the matvec and gate-up, the lane-major down, the prefill's tile
         watch = ("i8mv::mv_kernel<32, true", "lane_kernel<false, 32, true>",
-                 "dq_kernel<16, 32, false, true>", "dq_kernel<16, 32, true, true>")
+                 "dq_kernel<16, 32, false, true, 0>", "dq_kernel<16, 32, true, true, 0>")
     if q2k:  # the group-16 matvecs (with mins, with zero 4), the prefill's tile at G 16
         watch = ("i4mv::mv_kernel<16, true", "i4mv::mv_kernel<16, false",
                  "mm_kernel<32, true, 16,", "mm_kernel<32, false, 16,")
     forbid = ()
-    if gemma8:  # the whole MLP's GELU form at the steps' M = 1 and the 16-row prefill (both
+    if gemma7b:  # the int8 gate-up's GELU tile at the 256-row prefill, the whole MLP's
+        # GELU form at the steps' M = 1, the 256-lane decode attention; no SiLU gate-up
+        # or MLP, no 4-bit kernel, no 128-lane attention
+        watch = (r"re:dq_kernel<\d+, 32, true, false, 1>", "mlp_kernel<16, 32, false, 1>",
+                 "decode_attn_kernel<false, false, 256>")
+        forbid = (r"mlp_kernel<\d+, \d+, \w+, 0>", r"i4mv::|mm_kernel<",
+                  r"dq_kernel<\d+, \d+, true, \w+, 0>", r"decode_attn_kernel<.*128>")
+    elif gemma8:  # the whole MLP's GELU form at the steps' M = 1 and the 16-row prefill (both
         # 16 rows a tile), the 256-lane decode attention; no SiLU MLP, no 4-bit kernel,
         # no int8 gate-up, no 128-lane attention
         G = 16 if model_name == "gemma_q6k" else 32
@@ -5023,7 +5430,11 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
                         "generate_gemma_i8": "q4_0 widened to int8 (i8t g32; the whole MLP "
                                              "with GELU), a q6_k token table (the tied head)",
                         "generate_gemma_q6k": "q6_k (i8t g16; the whole MLP with GELU), a "
-                                              "q6_k token table (the tied head)"}[name],
+                                              "q6_k token table (the tied head)",
+                        "generate_gemma7b_i8": "q4_0 widened to int8 (i8t g32; the gate-up "
+                                               "with GELU at the 256-row prefill, the whole "
+                                               "MLP with GELU at each step), a q6_k token "
+                                               "table (the tied head)"}[name],
             "gguf_build_s": t_build, "gguf_wait_s": t_wait, "load_s": t_load,
             "load_rss_gb": load_rss, "load_max_memory_allocated_gb": load_gpu_gb,
             "dequantize_fallbacks": fallbacks.calls,
@@ -5272,8 +5683,9 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
     DeepSeek-Coder-1.3B Q6_K mix ("q6k", native: i8t at group 16 and the
     lane-major Q8_0 down; phase batch_q6k) or its Q5_K_S mix ("q5k", native:
     the int8 forms with mins; phase batch_q5k), MPT-7B ("mpt", native; phase
-    batch_mpt), or the Mixtral-8x7B shape ("moe": native i4t and i4p; phase
-    batch_moe).  The decode dispatches of batch_moe, batch_i8c, batch_q6k,
+    batch_mpt), the Mixtral-8x7B shape ("moe": native i4t and i4p; phase
+    batch_moe), Gemma-2B ("gemma", "gemma_q6k") or Gemma-7B ("gemma7b" with
+    weights "i8", generate_gemma7b_i8's model).  The decode dispatches of batch_moe, batch_i8c, batch_q6k,
     batch_q5k and batch_mpt run under torch's synchronization check."""
     import torch
 
@@ -5288,8 +5700,9 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
     name = {v: k for k, v in BATCH.items()}[(model_name, weights)]
     q8, moe, i8c = model_name == "q8" and weights is None, model_name == "moe", weights == "i8c"
     q6k, mpt, q5k = model_name == "q6k", model_name == "mpt", model_name == "q5k"
-    q2k, gemma = model_name == "q2k", model_name in ("gemma", "gemma_q6k")
+    q2k, gemma = model_name == "q2k", model_name in ("gemma", "gemma_q6k", "gemma7b")
     gemma16 = model_name == "gemma_q6k"  # int8 weights at group 16: the whole MLP
+    gemma7b = model_name == "gemma7b"  # int8 weights at group 32: the MLP, the GELU gate-up
     torch.cuda.reset_peak_memory_stats()
     if q8 or moe or i8c or q6k or mpt or q5k or q2k or gemma:
         big = _big_model(model_name, layers, weights or "auto")
@@ -5377,6 +5790,13 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
         # M = 64 and 64·T (the reference's gate takes the MLP at both); the tied head
         n = steps + prefill_chunks
         expected |= {"qmm_i8t_dq": 2 * layers * n, "mlp_i8t_g16_gelu": layers * n}
+    elif gemma7b:  # qkv and wo on the int8 tile at M = 64 and 64·T; the whole MLP with
+        # GELU at each step's 64 rows; at the 2048-row prefill (past the reference's
+        # whole-MLP gate, 141 rows at these widths) the GELU gate-up and the down
+        n = steps + prefill_chunks
+        expected |= {"qmm_i8t_dq": 2 * layers * n + layers * prefill_chunks,
+                     "mlp_i8t_gelu": layers * steps,
+                     "qmm_i8t_gateup_gelu_dq": layers * prefill_chunks}
     elif gemma:  # qkv, wo, down and the GELU gate-up at M = 64 and 64·T; the tied head a
         # torch product
         n = steps + prefill_chunks
@@ -5406,6 +5826,11 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
         if gemma16:
             want = {("qmm_i8t_dq", (C, nqkv)): layers * n, ("qmm_i8t_dq", (nq, C)): layers * n,
                     ("mlp_i8t_g16_gelu", (C, C)): layers * n}
+        elif gemma7b:
+            want = {("qmm_i8t_dq", (C, nqkv)): layers * n, ("qmm_i8t_dq", (nq, C)): layers * n,
+                    ("mlp_i8t_gelu", (C, C)): layers * steps,
+                    ("qmm_i8t_gateup_gelu_dq", (C, 2 * FF)): layers * prefill_chunks,
+                    ("qmm_i8t_dq", (FF, C)): layers * prefill_chunks}
         else:
             want = {("qmm_i4t_dq", (C, nqkv)): layers * n, ("qmm_i4t_dq", (nq, C)): layers * n,
                     ("qmm_i4t_dq", (FF, C)): layers * n,
@@ -5433,13 +5858,22 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
     laps("window")
     watch = ("::kv_append_i8_kernel",) if mpt else ()
     if q5k:  # the mins forms at the decode steps' M = 64 (and the 2048-row prefill's tile)
-        watch = ("dq_kernel<64, 32, false, true>", "dq_kernel<64, 32, true, true>",
-                 "lane_kernel<false, 64, true>", "dq_kernel<256, 32, true, true>")
+        watch = ("dq_kernel<64, 32, false, true, 0>", "dq_kernel<64, 32, true, true, 0>",
+                 "lane_kernel<false, 64, true>", "dq_kernel<256, 32, true, true, 0>")
     if q2k:  # the tile at G 16 at the decode steps' M = 64 and the 2048-row prefill
         watch = ("mm_kernel<64, false, 16,", "mm_kernel<64, true, 16,",
                  "mm_kernel<128, false, 16,")
     forbid = ()
-    if gemma16:  # the whole MLP's GELU form at group 16 at M = 64 and the 2048-row prefill
+    if gemma7b:  # the int8 gate-up's GELU tile at the 2048-row prefill, the whole MLP's
+        # GELU form at M = 64, the 256-lane int8 attention at 16 kv heads (G = 1) and
+        # append; no SiLU gate-up or MLP, no 4-bit kernel, no 128-lane form
+        watch = (r"re:dq_kernel<\d+, 32, true, false, 1>", "mlp_kernel<64, 32, false, 1>",
+                 "decode_attn_kernel<true, false, 256>", r"re:prefill_attn_kernel<\d+, 256>",
+                 "kv_append_i8_kernel<2>")
+        forbid = (r"mlp_kernel<\d+, \d+, \w+, 0>", r"i4mv::|mm_kernel<",
+                  r"dq_kernel<\d+, \d+, true, \w+, 0>", r"attn_kernel<.*128>",
+                  r"kv_append_i8_kernel<1>")
+    elif gemma16:  # the whole MLP's GELU form at group 16 at M = 64 and the 2048-row prefill
         # (256 rows a tile), the 256-lane int8 attention and append; no SiLU MLP, no
         # 4-bit kernel, no int8 gate-up, no 128-lane form
         watch = ("mlp_kernel<64, 16, false, 1>", "mlp_kernel<256, 16, false, 1>",
@@ -5475,7 +5909,11 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
                         "batch_gemma": "q4_0 (i4t; the gate-up's GELU epilogue), a q6_k "
                                        "token table (dense bf16: the tied head)",
                         "batch_gemma_q6k": "q6_k (i8t g16; the whole MLP with GELU), a q6_k "
-                                           "token table (the tied head)"}[name],
+                                           "token table (the tied head)",
+                        "batch_gemma7b_i8": "q4_0 widened to int8 (i8t g32; the gate-up with "
+                                            "GELU at the 2048-row prefill, the whole MLP "
+                                            "with GELU at each step), a q6_k token table "
+                                            "(the tied head)"}[name],
             "load_s": t_load, "dequantize_fallbacks": fallbacks.calls,
             "host_syncs_in_dispatches": None if syncs is None else syncs.host_syncs,
             "decode_dispatches_checked": None if syncs is None else syncs.chunks,
@@ -5809,9 +6247,10 @@ def main(argv=None) -> int:
 
     # parity reads the first 2 layers of the full-depth files of
     # PARITY_SHARED, so those come early, in the order of its cases; the
-    # rest of its files are 2-layer files of their own
-    parity = ["tiny", "q8", "moe", "moe_q8", "q6k", "mpt", "q4k", "moe_q4k", "q5k_8b", "q5k",
-              "q2k", "gemma", "gemma_q6k"]
+    # rest of its files are 2-layer files of their own; the 7B Q8_0 file,
+    # the slowest to draw (its normal draws), last, as parity's cases on it
+    parity = ["tiny", "moe", "moe_q8", "q6k", "mpt", "q4k", "moe_q4k", "q5k_8b", "q5k", "q2k",
+              "gemma", "gemma_q6k", "gemma7b", "gemma_mix", "gemma_mix_q5k", "q8"]
     gemma_phases = {"generate_gemma", "batch_gemma", "generate_gemma_i8", "server_gemma"}
     jobs = (([(m, LAYERS[m] if m in PARITY_SHARED else 2) for m in parity]
              if "parity" in phases else [])
@@ -5819,6 +6258,8 @@ def main(argv=None) -> int:
             + ([("gemma", LAYERS["gemma"])] if gemma_phases & set(phases) else [])
             + ([("gemma_q6k", LAYERS["gemma_q6k"])]
                if {"generate_gemma_q6k", "batch_gemma_q6k"} & set(phases) else [])
+            + ([("gemma7b", LAYERS["gemma7b"])]
+               if {"generate_gemma7b_i8", "batch_gemma7b_i8"} & set(phases) else [])
             + ([("q8", 32)] if {"generate_q8", "batch_q8", "server", "generate_i8c",
                                 "batch_i8c"} & set(phases) else [])
             + ([("q6k", 24)] if {"generate_q6k", "batch_q6k"} & set(phases) else [])
@@ -5873,8 +6314,8 @@ def _run_phases(phases, run, entries, failed, t_all) -> int:
                           or (("q4k", "auto") if name == "generate_q4k"
                               else ("gemma", "native") if name == "server_gemma"
                               else ("q8", None)))
-        if model == "q8":  # Gemma-2B's models (about 10 GB on the card), done with
-            for key in [k for k in _big if k[0] in ("gemma", "gemma_q6k")]:
+        if model == "q8":  # the Gemma models (about 13 GB on the card), done with
+            for key in [k for k in _big if k[0] in ("gemma", "gemma_q6k", "gemma7b")]:
                 _big.pop(key)
         if weights == "i8c":
             _big.pop(("q8", "auto"), None)  # the native 7B model's 8 GB, done with

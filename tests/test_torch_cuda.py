@@ -1522,9 +1522,42 @@ def test_gateup_gelu_equals_qmm_then_gelu_mul(cuda, m, mins):
     assert not torch.equal(got, tq.qmm_i4t_gateup(x, w, "silu"))
 
 
+@pytest.mark.parametrize("m", [1, 16, 64, 2048])
+@pytest.mark.parametrize("group,mins", [(32, False), (32, True), (16, False)],
+                         ids=["g32", "g32-mins", "g16"])
+def test_i8t_gateup_gelu_equals_qmm_then_gelu_mul(cuda, m, group, mins):
+    """The int8 gate-up with the GELU epilogue (qmm_i8t_gelu.cu: the M = 1
+    matvec pair of i8mv.cuh, kGateUpGelu; the tile above, dq_kernel with act
+    1)
+    equals qmm_i8t of its form on the fused weight + gelu·mul bit for bit,
+    holds the gate-up limit against its plain version per element (or gives
+    one-ulp roundings of g and u: testing.gateup_flips), launches its own
+    count, and its SiLU epilogue is 8x past that limit."""
+    from booster_tpu_torch.testing import gateup_flips
+
+    gen = torch.Generator(device="cuda").manual_seed(70 + m + group)
+    ff = 512
+    w = _w8(2, 1024, 2 * ff, gen, group, mins).at(1)
+    x = torch.randn(m, 1024, device="cuda", generator=gen).to(torch.bfloat16)
+    name = "qmm_i8t_gateup_gelu_" + ("gd" if m == 1 else "dq")
+    before = kernels.launch_counts[name]
+    got = tq.qmm_i8t_gateup(x, w, "gelu")
+    assert kernels.launch_counts[name] == before + 1
+    gu = tq.qmm_i8t(x, w).to(torch.bfloat16)
+    assert torch.equal(got, tq.gelu(gu[:, :ff]) * gu[:, ff:])
+    want = tq.qmm_gateup_plain(x, w, act="gelu").float()
+    limit = (2 ** -7 if m == 1 else 2 ** -5) * want.abs() + 1e-5 * want.abs().max()
+    gp = tq.qmm_plain(x, w).to(torch.bfloat16)
+    flips = gateup_flips(got, gp[:, :ff], gp[:, ff:], "gelu")
+    assert (((got.float() - want).abs() <= limit) | flips).all()
+    silu = (tq.silu(gp[:, :ff]) * gp[:, ff:]).float()
+    assert float(((silu - want).abs() / limit).max()) >= 8
+
+
 def test_gateup_acts_not_ported_raise(cuda):
-    """ReLU on any kind, GELU at group 16 and GELU on int8 weights raise
-    "not ported yet" on the card: nothing falls back."""
+    """ReLU on any kind and GELU on i4t at group 16 raise "not ported yet"
+    on the card: nothing falls back; GELU on int8 weights runs its kernel
+    (equal to qmm_i8t + gelu·mul)."""
     gen = torch.Generator(device="cuda").manual_seed(66)
     x = torch.randn(1, 1024, device="cuda", generator=gen).to(torch.bfloat16)
     w = _w(1, 1024, 512, gen).at(0)
@@ -1535,7 +1568,13 @@ def test_gateup_acts_not_ported_raise(cuda):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tq.qmm_i4t_gateup(x, w16, "gelu")
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        tq.qmm_i8t_gateup(x, _w8(1, 1024, 512, gen).at(0), "gelu")
+        tq.qmm_i8t_gateup(x, _w8(1, 1024, 512, gen).at(0), "relu")
+    w8 = _w8(1, 1024, 512, gen).at(0)
+    before = kernels.launch_counts["qmm_i8t_gateup_gelu_gd"]
+    got = tq.qmm_i8t_gateup(x, w8, "gelu")
+    assert kernels.launch_counts["qmm_i8t_gateup_gelu_gd"] == before + 1
+    gu = tq.qmm_i8t(x, w8).to(torch.bfloat16)
+    assert torch.equal(got, tq.gelu(gu[:, :256]) * gu[:, 256:])
 
 
 @pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])

@@ -184,9 +184,9 @@ def test_first_layers_of_a_file_load_as_a_shallower_file(gguf, models):
 
 def test_gemma2_and_unported_acts_refused(models):
     """gemma2's options (softcaps, windows, post norms) and a gated ReLU
-    FFN raise "not ported yet"; GELU on an int8 gate-up raises where the
-    reference would take its kernel (the whole int8 MLP takes GELU:
-    tests/test_torch_gemma_i8.py)."""
+    FFN raise "not ported yet", ReLU on an int8 gate-up too; GELU on an
+    int8 gate-up runs where the reference would take its kernel (the
+    whole int8 MLP takes GELU too: tests/test_torch_gemma_i8.py)."""
     _, tm = models
     for change in (dict(arch="gemma2"), dict(final_logit_softcap=30.0),
                    dict(attn_logit_softcap=50.0), dict(sliding_window=64),
@@ -198,7 +198,15 @@ def test_gemma2_and_unported_acts_refused(models):
                     TT.Q8_0)
     x = torch.zeros(1, 512, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        tq.qmm_gateup(x, w, "gelu")
+        tq.qmm_gateup(x, w, "relu")
+    gen = torch.Generator().manual_seed(0)
+    w = dataclasses.replace(w, qw=torch.randint(-127, 128, (512, 512), dtype=torch.int8,
+                                                generator=gen))
+    x = torch.linspace(-1, 1, 512).to(torch.bfloat16)[None]
+    got = tq.qmm_gateup(x, w, "gelu")
+    g = tq.qmm_plain(x, w).to(torch.bfloat16)
+    assert torch.equal(got, tq.gelu(g[:, :256]) * g[:, 256:])
+    assert got.shape == (1, 256) and bool(got.any())
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tq.act_mul(x, x, "relu")
 

@@ -179,16 +179,24 @@ def test_mlp_gelu_matches_pallas(mlp_weights, form, m, pallas):
 
 
 def test_relu_and_the_int8_gelu_gate_ups_still_refused(mlp_weights):
-    """ReLU in the whole MLP, and GELU in the int8 gate-ups (the shapes the
-    reference's gate-up kernels take), raise "not ported yet"."""
+    """ReLU in the whole MLP and in the int8 gate-ups raises "not ported
+    yet"; GELU in the int8 gate-ups (the shapes the reference's gate-up
+    kernels take) runs, and computes GELU (not SiLU) at M = 1 and above."""
     (_, tgu), (_, td) = mlp_weights["g32"]
     _, xt = _x(2, C, seed=0)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tm.qmm_mlp(xt, tgu, td, "relu")
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        tq.qmm_gateup(xt, tgu, "gelu")
+        tq.qmm_gateup(xt, tgu, "relu")
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        tq.qmm_i8t_gateup(xt[:1], tgu, "gelu")
+        tq.qmm_i8t_gateup(xt[:1], tgu, "relu")
+    for x, dq in ((xt, True), (xt[:1], False)):
+        g = tq.qmm_plain(x, tgu, dq=dq).to(torch.bfloat16)
+        ff = g.shape[-1] // 2
+        got = tq.qmm_i8t_gateup(x, tgu, "gelu")
+        assert torch.equal(got, tq.gelu(g[:, :ff]) * g[:, ff:])
+        assert torch.equal(tq.qmm_gateup(x, tgu, "gelu"), got)
+        assert not torch.equal(got, tq.silu(g[:, :ff]) * g[:, ff:])
 
 
 # -- the models ---------------------------------------------------------------------
