@@ -17,6 +17,19 @@ __device__ __forceinline__ uint16_t bf16_bits(float v) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(v));
 }
 
+// The three bf16 parts of an f32 value v: hi = bf16(v), mid = bf16(v - hi),
+// lo = bf16(v - hi - mid), each difference exact in f32.  hi + mid + lo ==
+// v exactly for a normal v (8 + 8 + 8 bits of its 24), and each part times
+// a bf16 factor is exact in f32, so the tensor cores take an f32 group sum
+// of x against bf16 mins without rounding it to bf16 (ops/qmm.py
+// min_split repeats it).
+__device__ __forceinline__ void split3(float v, uint16_t (&part)[3]) {
+  part[0] = bf16_bits(v);
+  const float r = __fsub_rn(v, bf16f(part[0]));
+  part[1] = bf16_bits(r);
+  part[2] = bf16_bits(__fsub_rn(r, bf16f(part[1])));
+}
+
 // out = bf16(bf16(g · bf16(sigmoid_f32(g))) · u) with g, u rounded to bf16
 // first: torch's op sequence for x·sigmoid(x) then ·u in bf16 (ops/qmm.py
 // silu), so a fused gate-up equals qmm + silu·mul bit for bit.

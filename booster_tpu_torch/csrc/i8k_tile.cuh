@@ -40,18 +40,38 @@
 // are in flight ahead of the one being dequantized.  cp.async writes reach
 // wgmma's async proxy through fence.proxy.async before the barrier.
 //
-// Mins.  The stage's two mins rows ride the ring after its two scale rows
-// (the slot's 1 KB of scale rows holds all four).  While a stage's A
-// fragments are made, its x rows (in the slot, swizzled) give the group
-// sums: four threads a (row, group), each 8 bf16 of one 16-byte chunk in
-// order, then (p0 + p1) + (p2 + p3) by shuffles, into a small f32 buffer
-// past the ring (two stages' worth, by parity).  After the stage's wgmma
-// has completed (wait_group 0) and before the next one is issued, each
-// thread subtracts xs_0·m_0 + xs_1·m_1 from its accumulators on the CUDA
-// cores: one f32 product a group and output, and no f32 scratch in device
-// memory.  The gate-up's and the whole MLP's products run the same code per
-// column (the down items on mid's group sums), so the bit-for-bit
-// invariants below hold with mins too.
+// Mins (MINS, G = 32).  The min term runs on the tensor cores, as extra
+// rows of K of the same transposed product: A = -m^T (registers, as the
+// dequantized weight is) and B = [hi | mid | lo] of the f32 group sums xs
+// (shared memory, as x is), bf16_ops.cuh split3: hi + mid + lo == xs
+// exactly and each part times a bf16 min is exact in f32, so the term is
+// the reference's f32 xs against f32(bf16 m) with no rounding of xs to
+// bf16.  The stage's two mins rows ride the ring after its two scale rows
+// (the slot's 1 KB of scale rows holds all four).  The group sums run on
+// the tensor cores too from 128 rows a block: before a stage's wgmma is
+// issued, each warp multiplies an m16 tile of the stage's x rows by a 0/1
+// matrix E with mma.sync (4 k16 steps; exact products, f32 sums) — on the
+// CUDA cores the sums of 128-256 rows cost more than the stage's
+// dequantization and kept the tensor cores waiting, and an mma.sync issued
+// while a wgmma is in flight waits for it; once the wgmma is issued, the
+// sums' three parts go to the min term's B tile past the ring.  Below 128
+// rows a thread sums one or two 16-byte chunks of x on the CUDA cores in
+// the wgmma's shadow (group_sums_cc).  The stage's mins rows go to a small
+// buffer beside the B tile in the next stage's preparation.  A batch is 4
+// stages, 8 groups: one k16 step of [hi | mid] and one of [lo | 0] against
+// A = [-m | -m] and [-m | 0] (a thread's two k slots of -m are its
+// columns' mins of one stage's two groups).  The B tile holds two batches
+// (k 0-31 and 32-63 of one 128-byte swizzled row a row of x) and the mins
+// buffer two, so a batch's wgmma, issued with the next batch's first stage
+// (its parts are fenced and behind that stage's barrier), has completed
+// before its half is written again; the split's last batch runs after the
+// loop, behind a barrier of its own.  2 k16 steps for the 16 of the main
+// product and no CUDA-core pass over the accumulators.  (An accumulator of
+// their own for the min term's steps at 16 and 32 rows a block measured
+// slower.)  At BM 128 the ring holds 3 stages with mins (4 without), so that two blocks
+// still fit an SM.  The gate-up's and the whole MLP's products run the
+// same code per column (the down items on mid's group sums), so the
+// bit-for-bit invariants below hold with mins too.
 //
 // The tile's sums go to shared memory (f32, over the ring).  At one split
 // the block writes its output (f32, bf16, or the gate-up's act(g)·u)
@@ -90,19 +110,22 @@ constexpr int kBK = 64;        // rows of K a stage: 128 bytes of bf16 x a row, 
 constexpr int kThreads = 256;  // two warpgroups
 constexpr int kMaxSplits = 8;  // a tile's splits form one cluster (its portable size)
 
-template <int BM>
+template <int BM, bool MINS = false>
 struct Cfg {
   static_assert(BM == 16 || BM == 32 || BM == 64 || BM == 128 || BM == 256,
                 "a tile has 16, 32, 64, 128 or 256 rows");
-  static constexpr int kRing = BM >= 128 ? 4 : 5;                   // stages of the ring
+  static constexpr int kRing = BM >= 128 ? (MINS && BM == 128 ? 3 : 4) : 5;  // stages of the ring
   static constexpr int kMinBlocks = BM == 256 ? 1 : BM >= 64 ? 2 : 3;  // blocks an SM
   static constexpr int kXB = BM * 128;            // x bytes of a stage
   static constexpr int kQB = kBK * kBN;           // payload bytes of a stage
   static constexpr int kSB = 1024;                // scale rows of a stage (64/G x 256 bytes)
   static constexpr int kSlot = kXB + kQB + kSB;   // a multiple of 1024
   static constexpr int kLdt = kBN + 4;            // floats a row of the output tile
-  static constexpr int kSmem = kRing * kSlot + 1024;  // + slack to align on 1 KB
-  static constexpr int kSmemMins = kSmem + 2 * 2 * BM * 4;  // + two stages' group sums
+  // MINS: the min term's B tile (BM rows of 128 bytes: two batches' parts)
+  // and the -m rows of two batches ([2][8][128] bf16), past the ring
+  static constexpr int kMinsB = MINS ? BM * 128 : 0;
+  static constexpr int kMinsM = MINS ? 2 * 8 * kBN * 2 : 0;
+  static constexpr int kSmem = kRing * kSlot + kMinsB + kMinsM + 1024;  // + slack to align on 1 KB
   static_assert(BM * kLdt * 4 <= kRing * kSlot, "the output tile fits over the ring");
 };
 
@@ -195,6 +218,11 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 __device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
 #pragma unroll
   for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(a[i / 4][i % 4])::"memory");
+}
+
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
 // d (64 x N) += A (64 x 16, bf16 in registers: the m16n8k16 A fragment of
@@ -330,56 +358,181 @@ __device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], const uint32_t (&
 
 // -- the tile ------------------------------------------------------------------
 
-// The f32 group sums of the stage's bf16 x rows (in the slot, swizzled) →
-// xs [2][BM] (group, row), by all threads: four a (row, group), each the
-// sum of one 16-byte chunk's 8 values in order, then (p0 + p1) + (p2 + p3)
-// across the four lanes (the loop is warp-uniform: 8·BM is 128 or a
-// multiple of 256).
+template <bool EVEN>
+struct Parity {  // a stage's parity as a type (tile_sum's lambdas)
+  static constexpr bool value = EVEN;
+};
+
+// The group sums of a stage on the tensor cores: its x rows (in the slot,
+// swizzled) times E, E's column n all ones on the 32 rows of k of group n
+// % 2 (mma.sync m16n8k16: exact products, f32 sums; k16 steps 0 and 2 in
+// one accumulator, 1 and 3 in another, then their f32 sum), an m16 tile
+// of rows a warp, the tiles dealt to both warpgroups in turn (tile w % 4 ·
+// 2 + w / 4, + 8, ...: kSumTiles a warp).  xs[t]: tile t's sums, rows gid
+// and gid + 8 of it, groups 0 and 1 (columns 2·tig and 2·tig + 1).
 template <int BM>
-__device__ __forceinline__ void group_sums(const uint8_t* slot, float* xs) {
-  for (int u = threadIdx.x; u < 8 * BM; u += kThreads) {
-    const int r = u >> 3, c = u & 7;  // row r, chunk c: group c / 4
-    const uint4 v = *reinterpret_cast<const uint4*>(slot + r * 128 + ((c ^ (r & 7)) << 4));
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-    float p = bf16f(w[0] & 0xffffu);
-    p = __fadd_rn(p, bf16f(w[0] >> 16));
+constexpr int kSumTiles = BM >= 256 ? 2 : 1;
+
+// Below 128 rows a block the sums stay on the CUDA cores (a thread's one or
+// two 16-byte chunks of x, in the wgmma's shadow): one warp's mma.sync
+// chain before each issue costs a small tile more than that
+template <int BM>
+constexpr bool kSumsOnTensorCores = BM >= 128;
+
+__device__ __forceinline__ int sum_tile(int t) {  // this warp's m16 tile t of the stage
+  const int w = threadIdx.x >> 5;
+  return (w & 3) * 2 + (w >> 2) + 8 * t;
+}
+
+template <int BM>
+__device__ __forceinline__ void group_sums(const uint8_t* slot, float (&xs)[kSumTiles<BM>][4]) {
+  const int lane = threadIdx.x & 31, mat = lane >> 3, gid = lane >> 2;
 #pragma unroll
-    for (int e = 1; e < 4; ++e) {
-      p = __fadd_rn(p, bf16f(w[e] & 0xffffu));
-      p = __fadd_rn(p, bf16f(w[e] >> 16));
+  for (int t = 0; t < kSumTiles<BM>; ++t) {
+    float odd[4] = {0.f, 0.f, 0.f, 0.f};  // k16 steps 1 and 3: two chains of two, not one of four
+#pragma unroll
+    for (int e = 0; e < 4; ++e) xs[t][e] = 0.f;
+    if (sum_tile(t) < BM / 16) {  // warp-uniform
+      const int r = sum_tile(t) * 16 + (mat & 1) * 8 + (lane & 7);  // this lane's ldmatrix row
+      uint32_t a[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        i8t::ldmatrix_x4(a[kk], slot + r * 128 + (((2 * kk + (mat >> 1)) ^ (r & 7)) << 4), false);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {  // k16 steps 0, 1: group 0; 2, 3: group 1
+        const uint32_t e = (gid & 1) == (kk >> 1) ? 0x3f803f80u : 0u;
+        i8t::mma_bf16(kk & 1 ? odd : xs[t], a[kk], e, e);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) xs[t][e] = __fadd_rn(xs[t][e], odd[e]);
     }
-    p = __fadd_rn(p, __shfl_xor_sync(0xffffffffu, p, 1));
-    p = __fadd_rn(p, __shfl_xor_sync(0xffffffffu, p, 2));
-    if ((c & 3) == 0) xs[(c >> 2) * BM + r] = p;
   }
+}
+
+// The same on the CUDA cores (BM < 128), in prepare: four threads a (row,
+// group), each the sum of one 16-byte chunk's 8 values as a tree, ((v0 +
+// v1) + (v2 + v3)) + ((v4 + v5) + (v6 + v7)), then (p0 + p1) + (p2 + p3)
+// across the four lanes by shuffles (each lane then holds the sum); lane
+// `part` of the four writes that part of it to pb as store_sum_parts does.
+template <int BM>
+__device__ __forceinline__ void group_sums_cc(const uint8_t* slot, uint8_t* pb, int q, int b) {
+  constexpr int IT = (8 * BM + kThreads - 1) / kThreads;  // chunks a thread: 1 or 2
+  uint4 v[IT];
+#pragma unroll
+  for (int j = 0; j < IT; ++j) {
+    const int u = threadIdx.x + j * kThreads, r = u >> 3, c = u & 7;
+    if (8 * BM % kThreads == 0 || u < 8 * BM)
+      v[j] = *reinterpret_cast<const uint4*>(slot + r * 128 + ((c ^ (r & 7)) << 4));
+  }
+#pragma unroll
+  for (int j = 0; j < IT; ++j) {
+    const int u = threadIdx.x + j * kThreads, r = u >> 3, c = u & 7;
+    if (8 * BM % kThreads == 0 || u < 8 * BM) {  // warp-uniform: 8·BM is 128 or k·256
+      const uint32_t w[4] = {v[j].x, v[j].y, v[j].z, v[j].w};
+      float e[8];
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        e[2 * h] = bf16f(w[h] & 0xffffu);
+        e[2 * h + 1] = bf16f(w[h] >> 16);
+      }
+      float p = __fadd_rn(__fadd_rn(__fadd_rn(e[0], e[1]), __fadd_rn(e[2], e[3])),
+                          __fadd_rn(__fadd_rn(e[4], e[5]), __fadd_rn(e[6], e[7])));
+      p = __fadd_rn(p, __shfl_xor_sync(0xffffffffu, p, 1));
+      p = __fadd_rn(p, __shfl_xor_sync(0xffffffffu, p, 2));
+      const int k = c & 3;  // this lane's part
+      if (k < 3) {
+        uint16_t part[3];
+        split3(p, part);
+        *reinterpret_cast<uint16_t*>(pb + r * 128 + (((4 * q + k) ^ (r & 7)) << 4)
+                                     + (2 * b + (c >> 2)) * 2) =
+            k == 0 ? part[0] : k == 1 ? part[1] : part[2];
+      }
+    }
+  }
+}
+
+// The stage's group sums xs (group_sums) → the min term's B tile pb (BM rows
+// of 128 bytes, swizzled as x) as their three bf16 parts at k = 32q +
+// 8·part + 2b + g (group g of stage b of a batch of parity q): lane tig < 3
+// of each quad writes part tig of its rows' sums.
+template <int BM>
+__device__ __forceinline__ void store_sum_parts(const float (&xs)[kSumTiles<BM>][4], uint8_t* pb,
+                                                int q, int b) {
+  const int lane = threadIdx.x & 31, gid = lane >> 2, k = lane & 3;
+  if (k == 3) return;
+#pragma unroll
+  for (int t = 0; t < kSumTiles<BM>; ++t)
+    if (sum_tile(t) < BM / 16) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // rows gid, gid + 8; groups 0, 1
+        const int r = sum_tile(t) * 16 + gid + (e >> 1) * 8;
+        uint16_t part[3];
+        split3(xs[t][e], part);
+        *reinterpret_cast<uint16_t*>(pb + r * 128 + (((4 * q + k) ^ (r & 7)) << 4)
+                                     + (2 * b + (e & 1)) * 2) =
+            k == 0 ? part[0] : k == 1 ? part[1] : part[2];
+      }
+    }
+}
+
+// A thread's A fragment of the min term of a batch of nb stages: rows (tile
+// columns) 16w + 2·(l / 4) and + 1, k slots 2·(l % 4), + 1 (stage l % 4's
+// two groups) of -m from the batch's mins rows mr [8][128] bf16, zero for a
+// stage past nb; hm = [-m | -m] (the [hi | mid] step), lo = [-m | 0].
+__device__ __forceinline__ void mins_frag(const uint16_t* mr, int nb, uint32_t (&hm)[4],
+                                          uint32_t (&lo)[4]) {
+  const int warp = threadIdx.x >> 5, l = threadIdx.x & 31, t = l & 3;
+  const int col = 16 * warp + 2 * (l >> 2);
+  const uint32_t e = *reinterpret_cast<const uint32_t*>(mr + (2 * t) * kBN + col);
+  const uint32_t o = *reinterpret_cast<const uint32_t*>(mr + (2 * t + 1) * kBN + col);
+  const uint32_t a0 = t < nb ? __byte_perm(e, o, 0x5410) ^ 0x80008000u : 0u;  // column col
+  const uint32_t a1 = t < nb ? __byte_perm(e, o, 0x7632) ^ 0x80008000u : 0u;  // column col + 1
+  hm[0] = a0;
+  hm[1] = a1;
+  hm[2] = a0;
+  hm[3] = a1;
+  lo[0] = a0;
+  lo[1] = a1;
+  lo[2] = 0u;
+  lo[3] = 0u;
 }
 
 // acc = the transposed BM x 128 tile at rows m0 of x @ W over K rows [kb,
 // ke), from zero: thread t (warp w = t / 32, lane l) holds, for i < BM / 2,
 // tile column 16·w + 2·(l / 4) + (i / 2) % 2 and row 8·(i / 4) + 2·(l % 4) +
 // i % 2 (wgmma's accumulator layout, its rows being tile columns).  sm: the
-// ring (and, with MINS, the group sums' buffer past it).  With MINS (G =
-// 32) each stage's min term is subtracted once its wgmma has completed.
+// ring (and, with MINS, the min term's B tile and mins rows past it).  With
+// MINS (G = 32) each batch of 4 stages adds its min term in two k16 steps
+// of wgmma, issued with the next batch's first stage (the last batch's
+// after the loop).
 template <int BM, int G, bool MINS = false>
 __device__ __forceinline__ void tile_sum(const Op& op, int m0, int col0, int col1, int kb, int ke,
                                          uint8_t* sm, float (&acc)[BM / 2]) {
-  using C = Cfg<BM>;
+  using C = Cfg<BM, MINS>;
   constexpr int S = C::kRing;
   constexpr int NG = G > 0 ? kBK / G : 1;  // groups of a stage
   static_assert(!MINS || G == 32, "mins at group 32 (Q5_K, Q5_1)");
-  float* xsb = reinterpret_cast<float*>(sm + S * C::kSlot);  // [2 stages][2 groups][BM]
+  uint8_t* pb = sm + S * C::kSlot;  // MINS: the min term's B tile, [BM][64] bf16 swizzled
+  uint16_t* mrows = reinterpret_cast<uint16_t*>(pb + C::kMinsB);  // MINS: [2][8][128] mins
   const int n = (ke - kb) / kBK;
   const int warp = threadIdx.x >> 5, l = threadIdx.x & 31;  // warp: 16 tile columns
 #pragma unroll
   for (int i = 0; i < BM / 2; ++i) acc[i] = 0.f;
+  if constexpr (MINS)  // slots a short batch leaves unset meet zero -m: no NaN there
+    for (int u = threadIdx.x; u < BM * 8; u += kThreads)
+      reinterpret_cast<uint4*>(pb)[u] = make_uint4(0u, 0u, 0u, 0u);
+  uint32_t mhm[4] = {0u, 0u, 0u, 0u}, mlo[4] = {0u, 0u, 0u, 0u};  // MINS: the last batch's -m
 #pragma unroll
   for (int i = 0; i < S - 2; ++i) {
     if (i < n) load_stage<BM, G, MINS>(op, m0, col0, col1, kb + i * kBK, sm + i * C::kSlot);
     cpasync::cp_commit();
   }
   // Stage i's A fragments into a (while stage i - 1's wgmma runs), after its
-  // data is in and the slot of stage i - 2 is refilled.
-  auto prepare = [&](int i, uint32_t (&a)[4][4]) {
+  // data is in and the slot of stage i - 2 is refilled.  even: i is even
+  // (a compile-time tag, so that the min term's registers are written only
+  // where no wgmma that reads them is in flight: mhm and mlo feed the even
+  // stages' wgmma and are written while the odd ones' run).
+  auto prepare = [&](int i, uint32_t (&a)[4][4], auto even) {
     cpasync::cp_wait<S - 3>();
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // x for wgmma
     __syncthreads();  // stage i is in; every wgmma of stage i - 2 is done
@@ -388,7 +541,17 @@ __device__ __forceinline__ void tile_sum(const Op& op, int m0, int col0, int col
                               sm + ((i + S - 2) % S) * C::kSlot);
     cpasync::cp_commit();
     const uint8_t* slot = sm + (i % S) * C::kSlot;
-    if constexpr (MINS) group_sums<BM>(slot, xsb + (i & 1) * 2 * BM);
+    if constexpr (MINS) {
+      const int q = (i >> 2) & 1, b = i & 3;  // the batch's parity, the stage's place in it
+      if constexpr (decltype(even)::value)
+        if (b == 0 && i > 0)  // the last batch's -m (its rows are behind this barrier)
+          mins_frag(mrows + (q ^ 1) * 8 * kBN, 4, mhm, mlo);
+      if (threadIdx.x < 32) {  // the stage's two mins rows → rows 2b, 2b + 1 of the batch's
+        const int g = threadIdx.x >> 4, cs = threadIdx.x & 15;
+        *reinterpret_cast<uint4*>(mrows + (q * 8 + 2 * b + g) * kBN + cs * 8) =
+            *reinterpret_cast<const uint4*>(slot + C::kXB + C::kQB + (2 + g) * 256 + cs * 16);
+      }
+    }
     // the scales of this thread's columns 2·(l / 4), + 1 of its 16, per group
     uint32_t sl[NG], sh[NG];
 #pragma unroll
@@ -415,11 +578,14 @@ __device__ __forceinline__ void tile_sum(const Op& op, int m0, int col0, int col
         a[kk][3] = qring::dq_spread<(G > 0)>(r[2 * q + 1] >> 8, sh[gi]);
       }
     }
+    if constexpr (MINS && !kSumsOnTensorCores<BM>)  // read a batch later
+      group_sums_cc<BM>(slot, pb, (i >> 2) & 1, i & 3);
   };
   // Stage i's wgmma on a; the next stage is prepared into b while it runs
   // (b's definitions lie in this wgmma's pipeline stage but feed only the
   // next one, issued after the wait: ptxas keeps both asynchronous).
-  auto step = [&](int i, uint32_t (&a)[4][4], uint32_t (&b)[4][4]) {
+  auto step = [&](int i, uint32_t (&a)[4][4], uint32_t (&b)[4][4], auto even) {
+    constexpr bool kMinStep = MINS && decltype(even)::value;  // a batch's first stage is even
     const uint8_t* slot = sm + (i % S) * C::kSlot;
     uint64_t db[kBK / 16];  // x at the 4 k16 steps: +32 bytes each
 #pragma unroll
@@ -427,40 +593,61 @@ __device__ __forceinline__ void tile_sum(const Op& op, int m0, int col0, int col
       db[kk] = desc(slot) + 2 * kk;
       asm volatile("" : "+l"(db[kk])::"memory");
     }
+    // MINS: the stage's group sums on mma.sync, before the issue: the
+    // tensor cores run an mma.sync only after an in-flight wgmma (in its
+    // shadow the sums cost more than here)
+    [[maybe_unused]] float xs[kSumTiles<BM>][4];
+    if constexpr (MINS && kSumsOnTensorCores<BM>) group_sums<BM>(slot, xs);
     fence_regs(a);
     fence_regs(acc);
+    if constexpr (kMinStep) {
+      fence_regs(mhm);
+      fence_regs(mlo);
+    }
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    if constexpr (kMinStep)
+      if ((i & 3) == 0 && i > 0) {  // the last batch's min term: parts at k 32q' + [0, 32)
+        const uint64_t dp = desc(pb) + 4 * (((i >> 2) - 1) & 1);
+        wgmma_rs<BM>(acc, mhm, dp);
+        wgmma_rs<BM>(acc, mlo, dp + 2);
+      }
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) wgmma_rs<BM>(acc, a[kk], db[kk]);
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    if (i + 1 < n) prepare(i + 1, b);
+    if constexpr (MINS && kSumsOnTensorCores<BM>)  // read a batch later
+      store_sum_parts<BM>(xs, pb, (i >> 2) & 1, i & 3);
+    if (i + 1 < n) prepare(i + 1, b, Parity<!decltype(even)::value>{});
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
     fence_regs(acc);
     fence_regs(a);
-    if constexpr (MINS) {
-      // the group sums written in prepare(i) are visible after the barrier
-      // of prepare(i + 1), which the last stage lacks
-      if (i + 1 >= n) __syncthreads();
-      const uint8_t* mr = slot + C::kXB + C::kQB + 2 * 256 + 32 * warp + 4 * (l >> 2);
-      const uint32_t w0 = *reinterpret_cast<const uint32_t*>(mr);        // group 0's mins
-      const uint32_t w1 = *reinterpret_cast<const uint32_t*>(mr + 256);  // group 1's
-      const float m0c[2] = {bf16f(w0 & 0xffffu), bf16f(w0 >> 16)};    // columns 2j, 2j + 1
-      const float m1c[2] = {bf16f(w1 & 0xffffu), bf16f(w1 >> 16)};
-      const float* xs = xsb + (i & 1) * 2 * BM;
-#pragma unroll
-      for (int e = 0; e < BM / 2; ++e) {
-        const int r = 8 * (e >> 2) + 2 * (l & 3) + (e & 1), c = (e >> 1) & 1;
-        acc[e] = __fsub_rn(acc[e], __fadd_rn(__fmul_rn(xs[r], m0c[c]),
-                                             __fmul_rn(xs[BM + r], m1c[c])));
-      }
+    if constexpr (kMinStep) {
+      fence_regs(mhm);
+      fence_regs(mlo);
     }
   };
   uint32_t a0[4][4], a1[4][4];
-  if (n > 0) prepare(0, a0);
+  if (n > 0) prepare(0, a0, Parity<true>{});
   for (int i = 0; i < n; i += 2) {
-    step(i, a0, a1);
-    if (i + 1 < n) step(i + 1, a1, a0);
+    step(i, a0, a1, Parity<true>{});
+    if (i + 1 < n) step(i + 1, a1, a0, Parity<false>{});
   }
+  if constexpr (MINS)
+    if (n > 0) {  // the split's last batch: its parts and rows behind a barrier of their own
+      const int last = (n - 1) >> 2;
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+      mins_frag(mrows + (last & 1) * 8 * kBN, n - 4 * last, mhm, mlo);
+      const uint64_t dp = desc(pb) + 4 * (last & 1);
+      fence_regs(mhm);
+      fence_regs(mlo);
+      fence_regs(acc);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      wgmma_rs<BM>(acc, mhm, dp);
+      wgmma_rs<BM>(acc, mlo, dp + 2);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_regs(acc);
+    }
   cpasync::cp_wait<0>();
   __syncthreads();  // the ring is free for the output tile
 }

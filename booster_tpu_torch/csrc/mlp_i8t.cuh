@@ -189,7 +189,7 @@ struct LaunchMlp {
 
   template <int BM, int G_, bool MINS>
   cudaError_t go() const {
-    constexpr int bytes = MINS ? i8k::Cfg<BM>::kSmemMins : i8k::Cfg<BM>::kSmem;
+    constexpr int bytes = i8k::Cfg<BM, MINS>::kSmem;
     static bool ready = false;
     static int sms = 0;  // the device's SMs (asked once)
     cudaError_t e = qring::allow_smem(mlp_kernel<BM, G_, MINS, ACT>, bytes, ready);

@@ -21,7 +21,8 @@
 //           - f32(bf16 m)·xs, each group adding c_lo + c_hi; y = sum of the
 //           groups' c in i4mv.cuh's fixed order.
 //   M > 1:  w = bf16(bf16(q - zero)·bf16(s)); y = sum bf16(x)·w in f32, minus
-//           the min term sum_g xs_g·f32(bf16 m_g) with f32 group sums xs.
+//           the min term sum_g xs_g·f32(bf16 m_g) with f32 group sums xs
+//           (on the tensor cores: below).
 //   gate-up: g, u = bf16 of the f32 sums of columns n and ff + n;
 //           out = bf16(bf16(g·bf16(sigmoid_f32(g)))·u) (SiLU), or
 //           bf16(bf16(g·0.5·(1 + tanh z))·u) with z = c·(g + 0.044715·g³)
@@ -58,13 +59,34 @@
 // stage's unpack and products); the stage in use is unpacked from shared
 // memory (qring::dq_nibbles) into the bf16 [64 k][128 n] tile, and the
 // warps run 4 k16 steps of mma.sync on ldmatrix fragments (.trans for this
-// [k][n] tile).  With mins (R = 4) each
-// stage then subtracts xs_lo·m_lo + xs_hi·m_hi for each of its groups in
-// turn, xs the f32 sums of the group's G bf16 x in row order (shared
-// memory).  The zero point is in the unpack (qring::nibble_bias: bf16(q -
-// zero) exactly for any zero below 16).  Splits cover whole stages; each writes
-// f32 partials and the last block (ticket, reset by it) adds them in split
-// order.  The gate-up tile holds gate columns n0 + [0, 64) and up columns
+// [k][n] tile).  The zero point is in the unpack (qring::nibble_bias: bf16(q -
+// zero) exactly for any zero below 16).
+//
+// Mins (R = 4: Q4_K at G = 32, Q2_K at 16; MINS below).  The min term runs
+// on the tensor cores as extra rows of K: A = [hi | mid | lo] of the f32
+// group sums xs, B = [-m; -m; -m] (bf16_ops.cuh split3: hi + mid + lo ==
+// xs exactly and each part times a bf16 min is exact, so the term is the
+// reference's f32 xs against f32(bf16 m), pallas_qmm.py:47-74, with no
+// rounding of xs to bf16).  The group sums come off the x fragments the
+// stage's mma steps already hold: each k16 step adds one mma of x with a
+// 0/1 matrix E (column c all ones: an exact f32 sum on the tensor cores)
+// into an accumulator tile of the warp's group sums, one column a group.
+// A batch of 16 groups (8 stages at G = 32, 4 at 16) fills two such n8
+// tiles, which are already the A fragment of a k16 step (the m16n8 C
+// layout is the m16n8k16 A layout's first half); the batch's -m rows
+// (negation is exact) go from each stage's scale rows to a 16-row buffer
+// while it is unpacked.  At the batch's last stage (or the split's) each
+// warp splits its sums into the three parts and runs three k16 steps of
+// mma against that buffer into the accumulator it already holds: 3 steps
+// for 32 (G = 32) or 16 (G = 16) steps of the main product, and the E
+// products a quarter (BM 32, 64) or an eighth (BM 128) of the main ones.
+// No CUDA-core pass over x or the accumulators, no extra barrier, no extra
+// accumulator registers but the 8·MI of the sums.  (Splitting the sums
+// between the two warps of a BM 128 row band, half the E products and
+// registers, and swapping them through shared memory measured the same.)
+//
+// Splits cover whole stages; each writes f32 partials and the last block
+// (ticket, reset by it) adds them in split order.  The gate-up tile holds gate columns n0 + [0, 64) and up columns
 // ff + n0 + [0, 64), each warp both halves of its 16-column pairs, so g
 // and u of a column meet in one thread's registers.  A column's sum is the
 // same chain of mma steps as in the matmul on the fused weight (mma.sync
@@ -91,19 +113,28 @@ constexpr int kWS = kBN + 8;       // bf16 per row of the dequantized [64 k][128
 template <int BM>
 constexpr int kRing = BM == 128 ? 3 : 6;  // stages of the ring
 
+constexpr int kSlots = 16;  // groups of a batch of the min term (MINS): one k16 step a part
+
 // A stage holds 32 rows of k of each half: one group at G = 32, two at G =
 // 16, so SPG = 32 / G scale rows of each plane.
 template <int BM, int G>
+struct alignas(16) MmStage {
+  static constexpr int SPG = kSR / G;
+  uint8_t q[kSR * kBN];       // the stage's 32 payload rows
+  uint16_t s[4 * SPG][kBN];   // its scale rows, plane-major: row plane·SPG + j (R planes of 4)
+  uint16_t x[BM * kXS];       // the block's x at the stage's k: 32 of each half
+};
+
+
+template <int BM, int G, bool MINS>
 struct MmSmem {
   static constexpr int SPG = kSR / G;
-  struct alignas(16) Stage {
-    uint8_t q[kSR * kBN];       // the stage's 32 payload rows
-    uint16_t s[4 * SPG][kBN];   // its scale rows, plane-major: row plane·SPG + j (R planes of 4)
-    uint16_t x[BM * kXS];       // the block's x at the stage's k: 32 of each half
-  };
+  using Stage = MmStage<BM, G>;
   Stage st[kRing<BM>];
   alignas(16) uint16_t w[2 * kSR * kWS];  // rows 0-31 the low half's k, 32-63 the high half's
-  float xs[2 * SPG][BM];                   // f32 group sums of bf16 x, row h·SPG + j (mins)
+  // MINS: -m of the batch's 16 groups as B rows, [16 k][128 n]: row 8h + T·j
+  // + b holds group j of half h of the batch's stage b (T = 8 / SPG stages)
+  alignas(16) uint16_t mb[MINS ? kSlots * kWS : 8];
 };
 
 struct MmParams {
@@ -177,7 +208,7 @@ struct MmLoad {
 
 template <int BM, bool GATEUP, int G>
 __device__ __forceinline__ void mm_load(const MmParams& p, const MmLoad<BM, GATEUP, G>& L,
-                                        typename MmSmem<BM, G>::Stage& st, int g) {
+                                        MmStage<BM, G>& st, int g) {
   constexpr int SPG = kSR / G;
   const int t = threadIdx.x;
   qring::cp_async16(&st.q[t * 16], L.q != nullptr ? L.q + static_cast<size_t>(g) * kSR * p.N
@@ -197,9 +228,9 @@ __device__ __forceinline__ void mm_load(const MmParams& p, const MmLoad<BM, GATE
 // the stage's payload unpacked into the [64 k][128 n] bf16 tile: thread t
 // takes 16 bytes of payload row r = t / 8 (16 columns, both nibbles), scaled
 // by its group's rows: row r / G of each half's plane
-template <int BM, int G>
-__device__ __forceinline__ void mm_dequant(const typename MmSmem<BM, G>::Stage& st,
-                                           MmSmem<BM, G>& sm, uint32_t bias) {
+template <int BM, int G, bool MINS>
+__device__ __forceinline__ void mm_dequant(const MmStage<BM, G>& st, MmSmem<BM, G, MINS>& sm,
+                                           uint32_t bias) {
   constexpr int SPG = kSR / G;
   const int t = threadIdx.x, r = t >> 3, c = (t & 7) * 16, j = r / G;
   const uint4 q = *reinterpret_cast<const uint4*>(&st.q[r * kBN + c]);
@@ -222,13 +253,64 @@ __device__ __forceinline__ void mm_dequant(const typename MmSmem<BM, G>::Stage& 
   dh[1] = make_uint4(hi[4], hi[5], hi[6], hi[7]);
 }
 
-template <int BM, bool GATEUP, int G, int ACT>
+// MINS: the stage's mins rows (plane 2 + h, row j: group j of half h),
+// negated, into the batch's B rows 8h + T·j + b (stage b of the batch)
+template <int BM, int G>
+__device__ __forceinline__ void mm_mins_rows(const MmStage<BM, G>& st, uint16_t* mb, int b) {
+  constexpr int SPG = kSR / G, T = 8 / SPG;
+  const int t = threadIdx.x;
+  if (t < 2 * SPG * 16) {  // 2·SPG rows x 16 chunks of 8 bf16
+    const int hj = t >> 4, c = (t & 15) * 8, h = hj / SPG, j = hj % SPG;
+    uint4 v = *reinterpret_cast<const uint4*>(&st.s[2 * SPG + hj][c]);
+    v.x ^= 0x80008000u;
+    v.y ^= 0x80008000u;
+    v.z ^= 0x80008000u;
+    v.w ^= 0x80008000u;
+    *reinterpret_cast<uint4*>(&mb[(8 * h + T * j + b) * kWS + c]) = v;
+  }
+}
+
+// MINS: acc += [hi | mid | lo](xs) · (-m) over the batch's 16 groups, three
+// k16 steps of mma.  xt[mi][h] is the m16n8 accumulator of the group sums
+// (column c: row 8h + c of mb), so tiles 0 and 1 are the A fragment's
+// columns 0-7 and 8-15; each f32 sum is split into its three bf16 parts
+// (split3).
+template <int MI, int NI, bool GATEUP>
+__device__ __forceinline__ void mm_mins_flush(float (&acc)[MI][NI][4],
+                                              const float (&xt)[MI][2][4], const uint16_t* mb,
+                                              int wn) {
+  const int lane = threadIdx.x & 31, mat = lane >> 3, lr = lane & 7;
+  uint32_t ap[3][MI][4];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {  // a[r]: tile r / 2, its elements 2·(r % 2), + 1
+      const float* c = &xt[mi][r >> 1][(r & 1) * 2];
+      uint16_t p0[3], p1[3];
+      split3(c[0], p0);
+      split3(c[1], p1);
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+        ap[q][mi][r] = static_cast<uint32_t>(p0[q]) | (static_cast<uint32_t>(p1[q]) << 16);
+    }
+#pragma unroll
+  for (int j = 0; j < NI / 2; ++j) {
+    uint32_t b[4];
+    i8t::ldmatrix_x4(b, &mb[((mat & 1) * 8 + lr) * kWS + pair_col<GATEUP, NI>(wn, j)
+                            + (mat >> 1) * 8], true);
+#pragma unroll
+    for (int q = 0; q < 3; ++q) qring::mma_pair(acc, ap[q], b, j);
+  }
+}
+
+template <int BM, bool GATEUP, int G, int ACT, bool MINS>
 __global__ void __launch_bounds__(qring::kThreads, 2) mm_kernel(MmParams p) {
   static_assert(G == 16 || G == 32, "a stage holds one group (G = 32) or two (G = 16)");
   using W = qring::Warps<BM>;
-  using Smem = MmSmem<BM, G>;
+  using Smem = MmSmem<BM, G, MINS>;
   constexpr int S = kRing<BM>;
   constexpr int SPG = Smem::SPG;
+  constexpr int T = 8 / SPG;  // stages of a batch of the min term (MINS)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
@@ -245,6 +327,11 @@ __global__ void __launch_bounds__(qring::kThreads, 2) mm_kernel(MmParams p) {
   const int gid = lane >> 2, tig = lane & 3;
   float acc[W::MI][W::NI][4];
   qring::zero_acc(acc);
+  float xc[MINS ? W::MI : 1][2][4];  // MINS: the batch's group sums, a column a group
+  qring::zero_acc(xc);
+  if constexpr (MINS)  // -m rows a short batch leaves unset meet zero sums: no NaN there
+    for (int e = t; e < kSlots * kWS / 8; e += qring::kThreads)
+      reinterpret_cast<uint4*>(sm.mb)[e] = make_uint4(0u, 0u, 0u, 0u);
   const MmLoad<BM, GATEUP, G> L(p, m0, n0);
 
 #pragma unroll
@@ -256,17 +343,9 @@ __global__ void __launch_bounds__(qring::kThreads, 2) mm_kernel(MmParams p) {
     qring::cp_wait<S - 2>();
     __syncthreads();  // stage i is in; the last stage's tile and slot are free
     const typename Smem::Stage& st = sm.st[i % S];
-    mm_dequant<BM, G>(st, sm, bias);
-    if (p.R == 4) {  // the group sums of x: group j of half h, in row order
-      for (int e = t; e < 2 * SPG * BM; e += qring::kThreads) {
-        const int hj = e / BM, m = e - hj * BM;
-        const uint16_t* xr = &st.x[m * kXS + (hj / SPG) * kSR + (hj % SPG) * G];
-        float s = 0.f;
-#pragma unroll
-        for (int k = 0; k < G; ++k) s = __fadd_rn(s, bf16f(xr[k]));
-        sm.xs[hj][m] = s;
-      }
-    }
+    const int b = i % T;  // MINS: the stage's place in its batch
+    mm_dequant<BM, G, MINS>(st, sm, bias);
+    if constexpr (MINS) mm_mins_rows<BM, G>(st, sm.mb, b);
     __syncthreads();  // the tile is dequantized
     if (warp_live) {
 #pragma unroll
@@ -275,29 +354,22 @@ __global__ void __launch_bounds__(qring::kThreads, 2) mm_kernel(MmParams p) {
         qring::a_frags<W::MI>(a, st.x, kXS, r0, kk * 16);
 #pragma unroll
         for (int j = 0; j < W::NI / 2; ++j) {
-          uint32_t b[4];
-          i8t::ldmatrix_x4(b, &sm.w[(kk * 16 + (mat & 1) * 8 + lr) * kWS
-                                    + pair_col<GATEUP, W::NI>(wn, j) + (mat >> 1) * 8], true);
-          qring::mma_pair(acc, a, b, j);
+          uint32_t bw[4];
+          i8t::ldmatrix_x4(bw, &sm.w[(kk * 16 + (mat & 1) * 8 + lr) * kWS
+                                     + pair_col<GATEUP, W::NI>(wn, j) + (mat >> 1) * 8], true);
+          qring::mma_pair(acc, a, bw, j);
+        }
+        if constexpr (MINS) {  // the group sums: x · E, E's column b + T·j all ones
+          const uint32_t e = gid == b + T * (kk & (SPG - 1)) ? 0x3f803f80u : 0u;
+#pragma unroll
+          for (int mi = 0; mi < W::MI; ++mi) i8t::mma_bf16(xc[mi][kk >> 1], a[mi], e, e);
         }
       }
-      if (p.R == 4) {  // less xs_lo·m_lo + xs_hi·m_hi of each group of the stage, in turn
-#pragma unroll
-        for (int mi = 0; mi < W::MI; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < W::NI; ++ni)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int r = r0 + mi * 16 + gid + (e >> 1) * 8;
-              const int c = pair_col<GATEUP, W::NI>(wn, ni >> 1) + (ni & 1) * 8 + tig * 2 + (e & 1);
-#pragma unroll
-              for (int j = 0; j < SPG; ++j)
-                acc[mi][ni][e] = __fsub_rn(
-                    acc[mi][ni][e],
-                    __fadd_rn(__fmul_rn(sm.xs[j][r], bf16f(st.s[2 * SPG + j][c])),
-                              __fmul_rn(sm.xs[SPG + j][r], bf16f(st.s[3 * SPG + j][c]))));
-            }
-      }
+      if constexpr (MINS)
+        if (b == T - 1 || i == n - 1) {  // the batch's min term
+          mm_mins_flush<W::MI, W::NI, GATEUP>(acc, xc, sm.mb, wn);
+          qring::zero_acc(xc);
+        }
     }
     // the copy into the slot stage i - 1 left, after this stage's work
     if (i + S - 1 < n) mm_load<BM, GATEUP, G>(p, L, sm.st[(i + S - 1) % S], g0 + i + S - 1);
@@ -365,17 +437,24 @@ __global__ void __launch_bounds__(qring::kThreads, 2) mm_kernel(MmParams p) {
   }
 }
 
-template <int BM, bool GATEUP, int G, int ACT>
-cudaError_t launch_mm(const MmParams& p, cudaStream_t st) {
-  constexpr int bytes = sizeof(MmSmem<BM, G>);
+template <int BM, bool GATEUP, int G, int ACT, bool MINS>
+cudaError_t launch_mm_form(const MmParams& p, cudaStream_t st) {
+  constexpr int bytes = sizeof(MmSmem<BM, G, MINS>);
   static bool ready = false;
-  const cudaError_t e = qring::allow_smem(mm_kernel<BM, GATEUP, G, ACT>, bytes, ready);
+  const cudaError_t e = qring::allow_smem(mm_kernel<BM, GATEUP, G, ACT, MINS>, bytes, ready);
   if (e != cudaSuccess) return e;
   const int tn = GATEUP ? 64 : kBN;
   const int ncols = GATEUP ? p.N / 2 : p.N;
   const dim3 grid((ncols + tn - 1) / tn, p.KS, (p.M + BM - 1) / BM);
-  mm_kernel<BM, GATEUP, G, ACT><<<grid, qring::kThreads, bytes, st>>>(p);
+  mm_kernel<BM, GATEUP, G, ACT, MINS><<<grid, qring::kThreads, bytes, st>>>(p);
   return cudaGetLastError();
+}
+
+// R = 4 (mins) or 2
+template <int BM, bool GATEUP, int G, int ACT>
+cudaError_t launch_mm(const MmParams& p, cudaStream_t st) {
+  return p.R == 4 ? launch_mm_form<BM, GATEUP, G, ACT, true>(p, st)
+                  : launch_mm_form<BM, GATEUP, G, ACT, false>(p, st);
 }
 
 // the GELU gate-up is built at G = 32 only (Q4_0, Q4_K: Gemma's files)

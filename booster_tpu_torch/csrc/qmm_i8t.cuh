@@ -27,9 +27,9 @@
 //           products), c = f32(bf16 s)·p (- f32(bf16 m)·xs, xs the f32 sum of
 //           the group's bf16(x)), y = sum over groups of c.
 //   M > 1:  w = bf16(f32(q)·f32(bf16 s)); y = bf16(x) @ w with f32
-//           accumulation (wgmma; see i8k_tile.cuh), with mins less each
-//           stage's xs_0·f32(bf16 m_0) + xs_1·f32(bf16 m_1) (f32 group sums
-//           of bf16(x)).
+//           accumulation (wgmma; see i8k_tile.cuh), with mins less
+//           sum_g xs_g·f32(bf16 m_g) (f32 group sums of bf16(x), as three
+//           exact bf16 parts against -m on wgmma, four stages a batch).
 //   gate-up: g, u = bf16 of the sums of columns n and ff + n of the fused
 //           [K, 2ff] payload (the gd sums at M = 1, the dq sums above);
 //           out = bf16(bf16(g·bf16(sigmoid_f32(g)))·u) (SiLU), or
@@ -96,7 +96,7 @@ struct LaunchDq {
 
   template <int BM, int G_, bool GATEUP, bool MINS>
   cudaError_t go() const {
-    constexpr int bytes = MINS ? i8k::Cfg<BM>::kSmemMins : i8k::Cfg<BM>::kSmem;
+    constexpr int bytes = i8k::Cfg<BM, MINS>::kSmem;
     static bool ready = false;
     const cudaError_t e = qring::allow_smem(dq_kernel<BM, G_, GATEUP, MINS, ACT>, bytes, ready);
     if (e != cudaSuccess) return e;

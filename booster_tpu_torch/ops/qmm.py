@@ -101,7 +101,7 @@ def _ticket_buffer(device: torch.device, n: int) -> torch.Tensor:
     return t
 
 
-def i8k_plan(M: int, K: int, N: int) -> tuple[int, int]:
+def i8k_plan(M: int, K: int, N: int, bm: Optional[int] = None) -> tuple[int, int]:
     """(BM, KS) of csrc/i8k_tile.cuh for y [M, N] = x [M, K] @ W (i8t or
     i8c, K-major; N = 2ff for a fused gate-up): rows of x a block (wgmma's
     N: the least of 16, 32, 64, 128 and 256 that holds M, 256 above) and K
@@ -112,8 +112,9 @@ def i8k_plan(M: int, K: int, N: int) -> tuple[int, int]:
     most 8 (a tile's splits run as one thread-block cluster).  The matmul,
     the fused gate-up and both products of the whole MLP take this function
     of the shapes alone, so they add their splits alike and agree bit for
-    bit."""
-    bm = next((b for b in (16, 32, 64, 128) if M <= b), 256)
+    bit.  `bm` takes another tile height, its splits by the same rule
+    (tools/mins_tiles.py)."""
+    bm = bm or next((b for b in (16, 32, 64, 128) if M <= b), 256)
     tiles = -(-M // bm) * (N // _TILE_N)
     ks = _pow2_floor(max(1, min(_TARGET_BLOCKS // tiles, K // 512, _MAX_SPLITS)))
     if 8 * ks * M > K:  # no more splits than one block an SM needs
@@ -177,14 +178,16 @@ def _rows_tile(rows: int) -> int:
     return 32 if rows <= 32 else 64 if rows < 512 else 128
 
 
-def i4t_plan(M: int, K: int, N: int) -> tuple[int, int]:
+def i4t_plan(M: int, K: int, N: int, bm: Optional[int] = None) -> tuple[int, int]:
     """(BM, KS) of csrc/qmm_i4t.cu's M > 1 tile for y [M, N] = x [M, K] @ W:
     rows of x per block and K splits on whole stages (64 columns of K a
     stage, 32 of each half: one group at G = 32, two at G = 16, so the
     plan needs no G).  N is the payload's width, 2ff for a fused gate-up, whose blocks
     hold 64 gate and 64 up columns: the gate-up and the matmul on one fused
-    weight take one plan, so they add alike and agree bit for bit."""
-    bm = _rows_tile(M)
+    weight take one plan, so they add alike and agree bit for bit.  `bm`
+    takes another tile height, its splits by the same rule
+    (tools/mins_tiles.py)."""
+    bm = bm or _rows_tile(M)
     return bm, _tile_splits(-(-M // bm) * -(-N // _TILE_N), K)
 
 
@@ -419,6 +422,30 @@ def qmm_plain(x: torch.Tensor, w: QTensor, dq: bool = False) -> torch.Tensor:
         xs = xb.reshape(M, 2 * ngh, G).sum(-1)  # [M, 2·ngh] f32 group sums
         y = y - xs @ sf[2:4].reshape(2 * ngh, N)
     return y
+
+
+def min_split(xs: torch.Tensor, parts: int = 3) -> list[torch.Tensor]:
+    """The bf16 parts into which the M > 1 tiles split an f32 group sum xs
+    (csrc/bf16_ops.cuh split3): hi = bf16(xs), mid = bf16(xs - hi), lo =
+    bf16(xs - hi - mid), each difference exact in f32; the first `parts` of
+    them, as f32 tensors of bf16 values.  With all three, hi + mid + lo ==
+    xs exactly for every normal xs (8 bits of its 24 each), and a part times
+    a bf16 min is exact in f32."""
+    out, r = [], xs.float()
+    for _ in range(parts):
+        p = r.to(torch.bfloat16).float()
+        out.append(p)
+        r = r - p
+    return out
+
+
+def min_term(xs: torch.Tensor, mf: torch.Tensor, parts: int = 3) -> torch.Tensor:
+    """sum_g xs[m, g]·mf[g, n] as the M > 1 tiles run the min term: extra
+    rows of K, [hi | mid | lo] of the f32 group sums xs [M, ng] against
+    [mf; mf; mf] (mf [ng, N], the f32 of the bf16 mins), one f32 product.
+    parts = 1 is the rounding the reference warns of (xs rounded to bf16,
+    pallas_qmm.py:66-73); 3 is the tiles'."""
+    return torch.cat(min_split(xs, parts), -1) @ mf.float().repeat(parts, 1)
 
 
 def qmm_i8c_plain(x: torch.Tensor, w: QTensor) -> torch.Tensor:

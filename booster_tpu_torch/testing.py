@@ -53,7 +53,7 @@ from booster_tpu_torch.ops.kv_append import kv_append_layer_plain
 from booster_tpu_torch.ops.kv_cache import _quantize_kv
 from booster_tpu_torch.ops.paged_attention import paged_attn_plain
 from booster_tpu_torch.ops.prefill_attention import prefill_attn_plain
-from booster_tpu_torch.ops.qmm import _MV_WARPS, lane_dequant, mv_chunk_rows, mv_plan
+from booster_tpu_torch.ops.qmm import _MV_WARPS, lane_dequant, min_term, mv_chunk_rows, mv_plan
 from booster_tpu_torch.quant import quantize
 from booster_tpu_torch.quant.formats import _pack_kscales_6bit
 from booster_tpu_torch.quant.qtensor import (QTensor, compact_scales, kernel_scales,
@@ -1169,9 +1169,11 @@ def qmm_i4t_split(x: torch.Tensor, w: QTensor, ks: int, drop: Optional[int] = No
     split s takes stages [s·nst/ks, (s+1)·nst/ks) (nst = K/64); per stage,
     the two k16 steps of its low-half rows, then of its high-half rows, each
     added to the f32 sum as one 16-term dot of bf16(x) with w = bf16(bf16(q
-    - zero)·bf16(s)), s the row of the row's group; with mins the stage then
-    subtracts xs_lo·m_lo + xs_hi·m_hi of each of its groups in turn (f32
-    sums of the group's bf16 x).  The splits' sums are added in split order
+    - zero)·bf16(s)), s the row of the row's group; with mins each batch of
+    16 groups (8 stages at G = 32, 4 at G = 16, or the split's last
+    stages) then adds its min term as one f32 product of the three bf16
+    parts of the groups' f32 sums of bf16 x against -m (``ops.qmm.min_term``:
+    the tile's three k16 steps).  The splits' sums are added in split order
     from zero; `drop` leaves that split out, and `mutant` (one of
     ``I4T_MIRROR_MUTANTS``) computes that wrong kernel's sum."""
     w = w.resolved()
@@ -1188,15 +1190,21 @@ def qmm_i4t_split(x: torch.Tensor, w: QTensor, ks: int, drop: Optional[int] = No
     xb = x.to(torch.bfloat16).float().reshape(M, 2, half)
     xs = _i4t_group_sums(xb, G, mutant)  # [M, 2, ngh]
     y = torch.zeros(M, N, device=x.device)
+    per_batch = 8 // spg  # stages of a batch of 16 groups
     for s in range(ks):
         acc = torch.zeros(M, N, device=x.device)
-        for st in range(s * nst // ks, (s + 1) * nst // ks):
+        stages = range(s * nst // ks, (s + 1) * nst // ks)
+        groups = []  # the batch's (half, group)
+        for j, st in enumerate(stages):
             for h in (0, 1):
                 for k0 in range(st * _I4T_STAGE, (st + 1) * _I4T_STAGE, _K16):
                     acc = acc + xb[:, h, k0:k0 + _K16] @ wd[h, k0:k0 + _K16]
             if has_mins:
-                for g in range(st * spg, (st + 1) * spg):
-                    acc = acc - (xs[:, :1, g] * sf[2, g] + xs[:, 1:, g] * sf[3, g])
+                groups += [(h, g) for h in (0, 1) for g in range(st * spg, (st + 1) * spg)]
+                if j % per_batch == per_batch - 1 or j == len(stages) - 1:
+                    hs, gs = torch.tensor([h for h, _ in groups]), torch.tensor([g for _, g in groups])
+                    acc = acc + min_term(xs[:, hs, gs], -sf[2 + hs, gs])
+                    groups = []
         if s != drop:
             y = y + acc
     return y
@@ -1357,6 +1365,74 @@ def qmm_mins_mutants(x: torch.Tensor, w: QTensor) -> dict:
             "mins with the wrong sign": (x, dataclasses.replace(w, scales=flip))}
 
 
+def without_mins(w: QTensor) -> QTensor:
+    """The same weight without its mins plane(s) (K-major [R, SG, N] or
+    lane-major [N, R, SG] planes, the mins after the scales): the form
+    without mins of the same kernel, the twin a mins form is timed beside."""
+    r = w.resolved()
+    dim = -3 if r.transposed else -2
+    rows = r.scales.shape[dim] // 2
+    return dataclasses.replace(r, scales=r.scales.narrow(dim, 0, rows).contiguous())
+
+
+def min_term_weight(w: QTensor) -> QTensor:
+    """An affine K-major weight (i4t with four planes, i8t with two) with
+    every nibble or byte at its zero point: the main dot is 0, so a matmul
+    on it computes its min term alone, -sum_g xs·f32(bf16 m)."""
+    w = w.resolved()
+    if w.kind == "i4t":
+        return dataclasses.replace(w, qw=torch.full_like(w.qw, w.zero | (w.zero << 4)))
+    return dataclasses.replace(w, qw=torch.zeros_like(w.qw))
+
+
+def _min_operands(x: torch.Tensor, w: QTensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(xs [M, ng] f32, mf [ng, N] f32): the f32 group sums of bf16 x and the
+    f32 of the bf16 mins of a K-major affine weight, groups in K order (i4t:
+    the low half's, then the high half's)."""
+    w = w.resolved()
+    s3, has_mins = kernel_scales(w)
+    if not has_mins or w.kind not in ("i4t", "i8t"):
+        raise ValueError("a K-major weight with mins")
+    sf = s3.to(torch.bfloat16).float()
+    M, G = x.shape[0], w.group
+    xs = x.to(torch.bfloat16).float().reshape(M, -1, G).sum(-1)
+    mf = sf[2:4].reshape(-1, sf.shape[-1]) if w.kind == "i4t" else sf[1]
+    return xs, mf
+
+
+def min_term_reference(x: torch.Tensor, w: QTensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The min term alone of ``qmm(x, min_term_weight(w))`` in f64, -xs·m
+    with the exact group sums of bf16 x and the bf16 mins, and the bound a
+    kernel must meet at each output: 2^-16 of sum_g |xs_g·m_g|."""
+    w = w.resolved()
+    s3, _ = kernel_scales(w)
+    sf = s3.to(torch.bfloat16).double()
+    M, G = x.shape[0], w.group
+    xs = x.to(torch.bfloat16).double().reshape(M, -1, G).sum(-1)
+    mf = sf[2:4].reshape(-1, sf.shape[-1]) if w.kind == "i4t" else sf[1]
+    return -(xs @ mf), 2.0 ** -16 * (xs.abs() @ mf.abs())
+
+
+def min_term_alone(x: torch.Tensor, w: QTensor, parts: int = 3) -> torch.Tensor:
+    """What a tile computes for the min term alone with the f32 group sums
+    split into `parts` bf16 parts (``ops.qmm.min_term``): 3 the kernels'
+    split, 2 one part short, 1 the sums rounded to bf16."""
+    xs, mf = _min_operands(x, w)
+    return -min_term(xs, mf, parts)
+
+
+def qmm_min_term_mutants(x: torch.Tensor, w: QTensor) -> dict:
+    """The min term alone (``min_term_weight``) as wrong kernels compute it:
+    the one-part split (the f32 group sums rounded to bf16, the rounding the
+    reference warns of), each group taking the next group's mins, and the
+    min term dropped; each output f32 [M, N], to be held against
+    ``min_term_reference``'s bound."""
+    xs, mf = _min_operands(x, w)
+    return {"one-part split (xs rounded to bf16)": -min_term(xs, mf, 1),
+            "the next group's mins": -min_term(xs, torch.roll(mf, -1, 0)),
+            "min term dropped": torch.zeros(x.shape[0], mf.shape[1], device=x.device)}
+
+
 def qmm_lane_mutants(x: torch.Tensor, w: QTensor, stages: tuple[int, int], sk: int) -> dict:
     """(x, w) pairs on which ``qmm_lane_plain`` computes what a wrong
     lane-major kernel would: the nibble halves swapped (i4p), each group's
@@ -1386,10 +1462,13 @@ def qmm_i8k_split(x: torch.Tensor, w: QTensor, ks: int,
     tests only).  Split s takes stages [s·nst/ks, (s+1)·nst/ks) of 64 rows
     (nst = K/64), each in 4 k16 steps, each added to the f32 sum as one
     16-term dot of bf16(x) with w (i8t: bf16(f32(q)·f32(bf16 s)); i8c:
-    bf16(q)); with mins (G = 32) each stage then subtracts xs_0·m_0 +
-    xs_1·m_1, its two groups' f32 sums of bf16(x) (each four sums of 8
-    values in order, added as (p0 + p1) + (p2 + p3)) times f32(bf16 m); the
-    splits' sums are added in split order from zero, `drop` left out (a
+    bf16(q)); with mins (G = 32) each batch of 4 stages (8 groups) adds its
+    min term, one f32 product of the three bf16 parts of its groups' f32
+    sums of bf16(x) (from 128 rows a block on the tensor cores, x times a
+    0/1 matrix; below, four tree sums of 8 values added as (p0 + p1) + (p2 +
+    p3)) against -f32(bf16 m) (``ops.qmm.min_term``), before the
+    next batch's first stage (the split's last batch after its last stage);
+    the splits' sums are added in split order from zero, `drop` left out (a
     wrong kernel's sum); i8c then scales each column."""
     w = w.resolved()
     M, K = x.shape
@@ -1403,22 +1482,21 @@ def qmm_i8k_split(x: torch.Tensor, w: QTensor, ks: int,
         mf = s3[1].to(torch.bfloat16).float() if has_mins else None  # [K/32, N]
     xb = x.to(torch.bfloat16).float()
     if has_mins:
-        c8 = xb.reshape(M, K // 8, 8)
-        p = c8[..., 0]
-        for i in range(1, 8):
-            p = p + c8[..., i]
-        p = p.reshape(M, K // 32, 4)
-        xs = (p[..., 0] + p[..., 1]) + (p[..., 2] + p[..., 3])  # [M, K/32]
+        s16 = xb.reshape(M, K // 32, 2, 16).sum(-1)
+        xs = s16[..., 0] + s16[..., 1]  # [M, K/32]
     nst = K // _I8K_STAGE
     y = torch.zeros(M, wd.shape[1], device=x.device)
     for s in range(ks):
         acc = torch.zeros_like(y)
-        for st in range(s * nst // ks, (s + 1) * nst // ks):
+        s0, s1 = s * nst // ks, (s + 1) * nst // ks
+        for st in range(s0, s1):
+            if has_mins and (st - s0) % 4 == 0 and st > s0:  # the last batch's min term
+                acc = acc + min_term(xs[:, 2 * st - 8:2 * st], -mf[2 * st - 8:2 * st])
             for k0 in range(st * _I8K_STAGE, (st + 1) * _I8K_STAGE, _K16):
                 acc = acc + xb[:, k0:k0 + _K16] @ wd[k0:k0 + _K16]
-            if has_mins:
-                g = 2 * st
-                acc = acc - (xs[:, g:g + 1] * mf[g] + xs[:, g + 1:g + 2] * mf[g + 1])
+        if has_mins and s1 > s0:  # the split's last batch
+            b0 = s0 + (s1 - s0 - 1) // 4 * 4
+            acc = acc + min_term(xs[:, 2 * b0:2 * s1], -mf[2 * b0:2 * s1])
         if s != drop:
             y = y + acc
     return y * w.scales.float() if w.kind == "i8c" else y

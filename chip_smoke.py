@@ -848,9 +848,43 @@ def phase_build() -> dict:
                     and i > 0]
         libs[name] = {"seconds": round(r["seconds"], 2),
                       "ptxas": [ln for ln in lines if "Compiling entry" not in ln][:8],
-                      "spilling": spilling}
+                      "spilling": spilling,
+                      "warnings": [ln.strip()[-200:] for ln in r["log"].splitlines()
+                                   if "warning" in ln.lower()][:6]}
+    mins = {}
+    for name in ("qmm_i4t", "qmm_i8t", "qmm_i8t_gelu", "mlp_i8t", "mlp_i8t_gelu"):
+        if name in report:
+            mins.update(_mins_forms_ptxas(report[name]["log"]))
     return {"phase": "build", "seconds": time.perf_counter() - t0, "libraries": libs,
-            "profiler_warm_s": warm_s}
+            "mins_forms": mins, "profiler_warm_s": warm_s}
+
+
+# The M > 1 tiles' instantiations with mins (their template arguments: the
+# i4t tile's mm_kernel<BM, GATEUP, G, ACT, MINS>, the int8 tile's
+# dq_kernel<BM, G, GATEUP, MINS, ACT> and mlp_kernel<BM, G, MINS, ACT>)
+_MINS_FORM = re.compile(r"(mm_kernel|dq_kernel|mlp_kernel)I((?:L[ib]\d+E)+)E")
+_MINS_ARG = {"mm_kernel": 4, "dq_kernel": 3, "mlp_kernel": 2}  # the MINS argument's place
+
+
+def _mins_forms_ptxas(log: str) -> dict:
+    """`nvcc -Xptxas -v`'s registers and spills of each mins instantiation
+    of the M > 1 tiles in a library's build log: {"dq_kernel<256,32,0,1,0>":
+    {"registers": 168, "spill": "0 bytes stack frame, ..."}, ...}."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            f = _MINS_FORM.search(m.group(1))
+            args = re.findall(r"L[ib](\d+)E", f.group(2)) if f else []
+            cur = (f"{f.group(1)}<{','.join(args)}>"
+                   if f and args[_MINS_ARG[f.group(1)]] == "1" else None)
+            if cur:
+                out[cur] = {}
+        elif cur and "spill stores" in ln:
+            out[cur]["spill"] = ln.strip()
+        elif cur and (r := re.search(r"Used (\d+) registers", ln)):
+            out[cur]["registers"] = int(r.group(1))
+    return out
 
 
 # -- phase 2 -----------------------------------------------------------------
@@ -903,7 +937,8 @@ def _i4t_row(entries, failures, label, w, M, gen, path, gateup=False, trials=5,
 
     from booster_tpu_torch.ops import qmm as tq
     from booster_tpu_torch.quant.qtensor import dequantize
-    from booster_tpu_torch.testing import gateup_flips, qmm_i4t_mutants, qmm_mins_mutants
+    from booster_tpu_torch.testing import (gateup_flips, qmm_i4t_mutants, qmm_mins_mutants,
+                                           without_mins)
 
     N, K = w.shape
     R, G = w.resolved().scales.shape[0], w.group
@@ -953,11 +988,18 @@ def _i4t_row(entries, failures, label, w, M, gen, path, gateup=False, trials=5,
     for what, v in seen.items():
         if v < 8:
             failures.append(f"{name} {label} M={M}: the check cannot see {what} ({v})")
-    lib_ms = None
-    if not gateup:
+    lib_ms = matmul_ms = no_mins_ms = None
+    if not gateup or R == 4:
         deq = dequantize(w, torch.bfloat16)
-        lib_ms = timed(lambda: torch.matmul(x, deq.t()), trials=trials)
+        if gateup:  # beside the mins forms: the bf16 product on the fused weight
+            matmul_ms = timed(lambda: torch.matmul(x, deq.t()), trials=trials)
+        else:
+            lib_ms = timed(lambda: torch.matmul(x, deq.t()), trials=trials)
         del deq
+    if R == 4:  # the same kernel on the weight without its mins plane
+        wn = without_mins(w)
+        no_mins_ms = timed(lambda: kern(x, wn), trials=trials)
+        del wn
     nbytes = K // 2 * N + R * (K // (2 * G)) * N * 2 + M * K * 2 + out_bytes
     b_ms, b_by = bound(nbytes, 2 * M * K * N)
     entries.append({
@@ -979,9 +1021,11 @@ def _i4t_row(entries, failures, label, w, M, gen, path, gateup=False, trials=5,
         "ms": timed(lambda: kern(x, w), trials=trials),
         "warm_ms": timed(lambda: kern(x, w), trials=trials, cold=False),
         "plain_ms": timed(lambda: plain(x, w), reps=3, trials=3),
+        "no_mins_ms": no_mins_ms, "matmul_ms": matmul_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
         "library": (f"null: no one torch call (gate-up + {'GELU' if act == 'gelu' else 'SiLU'}"
-                    "·mul)" if gateup else "torch.matmul on the dequantized bf16 weight"),
+                    "·mul; matmul_ms: torch.matmul on the fused dequantized weight)" if gateup
+                    else "torch.matmul on the dequantized bf16 weight"),
         "check": (CHECKS["gateup"] + ", or an output of one-ulp roundings of g and u; "
                   f"equal to qmm_i4t + {act}·mul, whose f32 sums hold qmm's check" if gateup
                   else CHECKS["qmm"]) + "; wrong kernels at 8x"})
@@ -1063,6 +1107,7 @@ def phase_kernels(entries: list) -> dict:
     _paged_kernels(entries, failures, paged_checks, PAGED_GEMMA)
     _gemma7b_kernels(entries, failures)
     multi_stage = _multi_stage_checks(failures)
+    min_term = _min_term_checks(failures)
     tied = _tied_head_row(failures)
     tied_7b = _tied_head_row(failures, GEMMA_7B)
     floor = _append_floor()
@@ -1077,7 +1122,7 @@ def phase_kernels(entries: list) -> dict:
             "checks": {e["name"] + " " + e["shape"]: e["max_abs_err"] for e in entries},
             "paged_checks": paged_checks, "layer_append_checks": append_checks,
             "append": floor, "tied_head": tied, "tied_head_gemma7b": tied_7b,
-            "multi_stage_checks": multi_stage}
+            "multi_stage_checks": multi_stage, "min_term_checks": min_term}
 
 
 def _gemma_kernels(entries: list, failures: list) -> None:
@@ -1138,7 +1183,7 @@ def _gemma_mlp_kernels(entries: list, failures: list, lay: dict = GEMMA2B_MLP) -
     from booster_tpu_torch.ops import mlp as tm
     from booster_tpu_torch.ops import qmm as tq
     from booster_tpu_torch.testing import (gateup_flips, q5k_weight, qmm_i8k_mutants,
-                                           qmm_mins_mutants)
+                                           qmm_mins_mutants, without_mins)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(22)
@@ -1217,6 +1262,10 @@ def _gemma_mlp_kernels(entries: list, failures: list, lay: dict = GEMMA2B_MLP) -
                 "check": CHECKS["mlp"] + "; equal to qmm_i8t (dq) + gelu·mul + qmm_i8t (dq); "
                          "mid per CHECKS['gateup'] or one-ulp flips; workspace zero; wrong "
                          "kernels at 8x"}
+            if mins:  # the same kernel on both weights without their mins planes
+                gun, dnn = without_mins(gu), without_mins(dn)
+                row["no_mins_ms"] = timed(lambda: tm.qmm_mlp_i8t(x, gun, dnn, "gelu"), trials=3)
+                del gun, dnn
             if path is None:  # counted under the form without mins' name
                 row["launches_note"] = ("on no path (no Q5_K Gemma file); read on "
                                         "batch_gemma_q6k, which runs the group-16 form")
@@ -1274,8 +1323,9 @@ def _gemma7b_kernels(entries: list, failures: list) -> None:
     import torch
 
     from booster_tpu_torch.ops import qmm as tq
+    from booster_tpu_torch.quant.qtensor import dequantize
     from booster_tpu_torch.testing import (gateup_flips, q5k_weight, qmm_i8k_mutants,
-                                           qmm_mins_mutants, qmm_mv_mutants)
+                                           qmm_mins_mutants, qmm_mv_mutants, without_mins)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(23)
@@ -1366,6 +1416,12 @@ def _gemma7b_kernels(entries: list, failures: list) -> None:
             "check": (CHECKS["gateup"] if M == 1 else CHECKS["gateup_i8"])
             + " or one-ulp flips of g and u; equal to qmm_i8t + gelu·mul; wrong kernels "
               "(SiLU, a group dropped) at 8x per element"}
+        if mins and M > 1:  # the same kernel without the mins plane; the bf16 product
+            wn = without_mins(w)
+            row["no_mins_ms"] = timed(lambda: tq.qmm_i8t_gateup(x, wn, "gelu"), trials=trials)
+            deq = dequantize(w, bf)
+            row["matmul_ms"] = timed(lambda: torch.matmul(x, deq.t()), trials=trials)
+            del wn, deq
         if path is None:
             row["launches_note"] = "on no path (no full-size file gives this form)"
         elif M == 1:
@@ -1379,6 +1435,63 @@ def _gemma7b_kernels(entries: list, failures: list) -> None:
     _gemma_mlp_kernels(entries, failures, GEMMA7B_MLP)
     _bf16_attn_kernels(entries, failures, GEMMA7B_ATTN)
     _int8_kernels(entries, failures, GEMMA7B_ATTN)
+
+
+def _min_term_checks(failures: list) -> dict:
+    """The min term alone of the M > 1 tiles with mins, at path shapes: the
+    i4t tile on real Q4_K (config 2's qkv at M = 128 and 8192: 64 and 128
+    rows a block) and Q2_K planes (the 8B q at 64 and 2048: group 16), the
+    int8 tile on real Q5_K (the 1.3B qkv at 16, 64 and 2048: 16, 64 and
+    256 rows a block), each on its weight with every nibble or byte at the
+    zero point (testing.min_term_weight), so the kernel's output is
+    -sum_g xs·f32(bf16 m).  Each output's error against the f64 product, as
+    a share of 2^-16 of sum_g |xs_g·m_g| (testing.min_term_reference): the
+    kernel's (at most 1), the plain split's with three, two and one bf16
+    parts (testing.min_term_alone), and the wrong kernels'
+    (testing.qmm_min_term_mutants: the one-part split, the next group's
+    mins, the min term dropped; each past 1)."""
+    import torch
+
+    from booster_tpu_torch.ops import qmm as tq
+    from booster_tpu_torch.testing import (min_term_alone, min_term_reference, min_term_weight,
+                                           q2k_weight, q4k_weight, q5k_weight,
+                                           qmm_min_term_mutants)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(24)
+    C8 = LLAMA3_8B["hidden"]
+    n8 = C8 + 2 * LLAMA3_8B["kv_heads"] * (C8 // LLAMA3_8B["heads"])
+    C1 = DEEPSEEK["hidden"]
+    n1 = C1 + 2 * DEEPSEEK["kv_heads"] * (C1 // DEEPSEEK["heads"])
+    forms = (("Q4_K qkv", q4k_weight, C8, n8, tq.qmm_i4t, (Q4K_PREFILL_M, Q4K_MAX_SEQ)),
+             ("Q2_K q", q2k_weight, C8, C8, tq.qmm_i4t, (64, 64 * BATCH_Q2K_T)),
+             ("Q5_K qkv", q5k_weight, C1, n1, tq.qmm_i8t, (16, 64, 2048)))
+    out = {}
+    for i, (label, make, K, N, kern, ms) in enumerate(forms):
+        w = make(N, K, seed=240 + i, device="cuda")
+        wz = min_term_weight(w)
+        for M in ms:
+            x = torch.randn(M, K, device="cuda", generator=gen).to(torch.bfloat16)
+            ref, bnd = min_term_reference(x, w)
+
+            def of_bound(y):
+                return float(((y.double() - ref).abs() / bnd).max())
+
+            row = {"kernel": of_bound(kern(x, wz))}
+            row |= {f"plain_{p}_parts": of_bound(min_term_alone(x, w, p)) for p in (3, 2, 1)}
+            row["wrong_kernels"] = {what: of_bound(y)
+                                    for what, y in qmm_min_term_mutants(x, w).items()}
+            tag = f"min term alone {label} M={M}"
+            if not row["kernel"] <= 1:
+                failures.append(f"{tag}: {row['kernel']} of the 2^-16 bound")
+            for what, v in row["wrong_kernels"].items():
+                if not v > 1:
+                    failures.append(f"{tag}: the check cannot see {what} ({v})")
+            out[f"{label} M={M} K={K} N={N}"] = row
+            del x, ref, bnd
+        del w, wz
+        torch.cuda.empty_cache()
+    return out
 
 
 def _multi_stage_checks(failures: list) -> dict:
@@ -2958,7 +3071,8 @@ def _q5k_kernels(entries: list, failures: list) -> None:
     from booster_tpu_torch.ops import qmm as tq
     from booster_tpu_torch.quant.qtensor import dequantize
     from booster_tpu_torch.testing import (q5_1_weight, q5k_weight, qmm_i8k_mutants,
-                                           qmm_lane_mutants, qmm_mins_mutants, qmm_mv_mutants)
+                                           qmm_lane_mutants, qmm_mins_mutants, qmm_mv_mutants,
+                                           without_mins)
     from booster_tpu_torch.tools.mlp_sched import unfused as mlp_unfused
 
     gen = torch.Generator(device="cuda")
@@ -2967,11 +3081,6 @@ def _q5k_kernels(entries: list, failures: list) -> None:
     C, ff = DEEPSEEK["hidden"], DEEPSEEK["ff"]
     nqkv = C + 2 * DEEPSEEK["kv_heads"] * (C // DEEPSEEK["heads"])
     src = "booster_tpu_torch/csrc/qmm_i8t.cu"
-
-    def no_mins(w):  # the same weight without its mins plane: the form without mins
-        r = w.resolved()
-        dim = -3 if r.transposed else -2
-        return dataclasses.replace(r, scales=r.scales.narrow(dim, 0, 1).contiguous())
 
     def wbytes(w):  # payload and bf16 planes
         r = w.resolved()
@@ -2996,7 +3105,7 @@ def _q5k_kernels(entries: list, failures: list) -> None:
     # the K-major matmuls: the group-dot matvec at M = 1, the wgmma tile above
     for i, (label, N) in enumerate((("qkv", nqkv), ("wo", C))):
         w = q5k_weight(N, C, seed=300 + i, device="cuda")
-        wn = no_mins(w)
+        wn = without_mins(w)
         deq = dequantize(w, bf)
         for M in (1, 16, 64, 2048):
             x = x_of(M, C)
@@ -3036,7 +3145,8 @@ def _q5k_kernels(entries: list, failures: list) -> None:
 
     # the fused gate-up: the group-dot form at M = 1, the tile's above
     w = q5k_weight(2 * ff, C, seed=310, device="cuda")
-    wn = no_mins(w)
+    wn = without_mins(w)
+    deq = dequantize(w, bf)
     for M in (1, 16, 64, 2048):
         x = x_of(M, C)
         name = "qmm_i8t_gateup_gd" if M == 1 else "qmm_i8t_gateup_dq"
@@ -3071,6 +3181,7 @@ def _q5k_kernels(entries: list, failures: list) -> None:
             "ms": timed(lambda: tq.qmm_i8t_gateup(x, w), trials=3),
             "warm_ms": timed(lambda: tq.qmm_i8t_gateup(x, w), trials=3, cold=False),
             "no_mins_ms": timed(lambda: tq.qmm_i8t_gateup(x, wn), trials=3),
+            "matmul_ms": timed(lambda: torch.matmul(x, deq.t()), trials=3) if M > 1 else None,
             "unfused_ms": timed(lambda: tq.qmm_i8t(x, w, dq=M > 1), trials=3),
             "plain_ms": timed(lambda: tq.qmm_gateup_plain(x, w), reps=3, trials=3),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
@@ -3078,12 +3189,12 @@ def _q5k_kernels(entries: list, failures: list) -> None:
             "check": (CHECKS["gateup"] if M == 1 else CHECKS["gateup_i8"])
             + "; equal to qmm_i8t + silu·mul; the mins mutants at 8x"})
         del x, got, want, gu, d, limit
-    del w, wn
+    del w, wn, deq
     torch.cuda.empty_cache()
 
     # the lane-major down: Q5_1 (mins -m), 5504 → 2048
     w = q5_1_weight(C, ff, seed=320, device="cuda")
-    wn = no_mins(w)
+    wn = without_mins(w)
     deq = dequantize(w, bf)
     for M in (1, 16, 64, 2048):
         x = x_of(M, ff)
@@ -3117,7 +3228,7 @@ def _q5k_kernels(entries: list, failures: list) -> None:
     C8, ff8 = LLAMA3_8B["hidden"], LLAMA3_8B["ff"]
     wg = q5k_weight(2 * ff8, C8, seed=330, device="cuda")
     wd = q5k_weight(C8, ff8, seed=331, device="cuda")
-    wgn, wdn = no_mins(wg), no_mins(wd)
+    wgn, wdn = without_mins(wg), without_mins(wd)
     for M in (1, 16, 64):
         x = x_of(M, C8)
         tag = f"mlp_i8t Q5_K 8B M={M}"
@@ -3171,7 +3282,7 @@ def _q5k_kernels(entries: list, failures: list) -> None:
     E, k, CM, ffm = MIXTRAL["experts"], MIXTRAL["experts_used"], MIXTRAL["hidden"], MIXTRAL["ff"]
     for i, (label, Ne, K) in enumerate((("gate/up", ffm, CM), ("down", CM, ffm))):
         w = q5k_weight(E * Ne, K, seed=340 + i, device="cuda", kmajor=False)
-        wn = no_mins(w)
+        wn = without_mins(w)
         wb = wbytes(w) // E
         wdq = dequantize(w, bf).reshape(E, Ne, K)
         for rlabel, n_tok in (("decode B=1", 1), ("decode B=64", 64)):
@@ -5399,8 +5510,9 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
                   r"decode_attn_kernel<.*128>")
     elif gemma:  # the GELU gate-up's matvec pair (i8mv::kGateUpGelu) and prefill tile (act
         # 1), the 256-lane decode attention; no SiLU gate-up, no 128-lane attention
-        watch = (GELU_MV, "mm_kernel<32, true, 32, 1>", "decode_attn_kernel<false, false, 256>")
-        forbid = (SILU_MV, r"mm_kernel<\d+, true, 32, 0>", r"decode_attn_kernel<.*128>")
+        watch = (GELU_MV, "mm_kernel<32, true, 32, 1, false>",
+                 "decode_attn_kernel<false, false, 256>")
+        forbid = (SILU_MV, r"mm_kernel<\d+, true, 32, 0,", r"decode_attn_kernel<.*128>")
     prof = _profile(lambda: short.generate(ids, sp, max_new_tokens=32), steps=32,
                     watch=watch + (("::kv_append_kernel",) if mpt else ()), forbid=forbid)
     prof["window"] = "a 32-token generate (decode_chunk 32)"
@@ -5885,10 +5997,10 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
     elif gemma:  # the GELU gate-up tile at M = 64 and the 2048-row prefill, the 256-lane
         # int8 decode and prefill attention (64 rows a block: 4 m16 tiles, 2 warps
         # a tile) and append (two passes a row); no SiLU gate-up, no 128-lane form
-        watch = ("mm_kernel<64, true, 32, 1>", "mm_kernel<128, true, 32, 1>",
+        watch = ("mm_kernel<64, true, 32, 1, false>", "mm_kernel<128, true, 32, 1, false>",
                  "decode_attn_kernel<true, false, 256>", "prefill_attn_kernel<2, 256>",
                  "kv_append_i8_kernel<2>")
-        forbid = (r"mm_kernel<\d+, true, 32, 0>", r"attn_kernel<.*128>", r"kv_append_i8_kernel<1>")
+        forbid = (r"mm_kernel<\d+, true, 32, 0,", r"attn_kernel<.*128>", r"kv_append_i8_kernel<1>")
     prof = _profile(lambda: _bench_batch(eng, model.tokenizer, B, 32),
                     steps=short["decode_steps"], watch=watch, forbid=forbid)
     laps("profile")

@@ -1827,3 +1827,68 @@ def test_tied_head_on_the_card(cuda):
     assert torch.cuda.max_memory_allocated() - before < emb.numel() * 4 // 4
     want = tied_head(x.cpu(), emb.cpu())
     assert (got.cpu() - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+# -- the min term of the M > 1 tiles on the tensor cores ---------------------
+
+# (form, path shape K, N) of the redesigned mins forms: the i4t tile at
+# groups 32 (Q4_K: config 2's qkv) and 16 (Q2_K: the Llama-3-8B q), the
+# int8 wgmma tile at group 32 (Q5_K: the 1.3B qkv)
+MIN_FORMS = {"q4k": (4096, 6144), "q2k": (4096, 4096), "q5k": (2048, 6144)}
+
+
+def _mins_weight(fmt, N, K, seed):
+    from booster_tpu_torch.testing import q2k_weight, q4k_weight, q5k_weight
+
+    return {"q4k": q4k_weight, "q2k": q2k_weight, "q5k": q5k_weight}[fmt](N, K, seed, "cuda")
+
+
+def _mins_qmm(fmt, x, w):
+    return tq.qmm_i8t(x, w) if fmt == "q5k" else tq.qmm_i4t(x, w)
+
+
+@pytest.mark.parametrize("fmt", sorted(MIN_FORMS))
+@pytest.mark.parametrize("m", [17, 100, 600, 2051])
+def test_min_term_alone_within_bound_and_mutants_past_it(cuda, fmt, m):
+    """Each redesigned mins form at its path shape, ragged M (the tiles'
+    32-256 rows a block, K split over blocks where the plan splits it): on
+    the weight whose every nibble or byte sits at its zero point the kernel
+    computes the min term alone, -sum_g xs·f32(bf16 m), within 2^-16 of
+    sum_g |xs_g·m_g| of the f64 product at every output; the wrong kernels
+    (testing.qmm_min_term_mutants: the one-part split, the next group's
+    mins, the min term dropped) each land past it by the factor asserted;
+    the kernel on the weight itself within 2e-4 of the largest output of
+    its plain version."""
+    from booster_tpu_torch.testing import (min_term_reference, min_term_weight,
+                                           qmm_min_term_mutants)
+
+    K, N = MIN_FORMS[fmt]
+    w = _mins_weight(fmt, N, K, seed=90 + m)
+    gen = torch.Generator(device="cuda").manual_seed(90 + m)
+    x = torch.randn(m, K, device="cuda", generator=gen).to(torch.bfloat16)
+    ref, bound = min_term_reference(x, w)
+    got = _mins_qmm(fmt, x, min_term_weight(w)).double()
+    assert float(((got - ref).abs() / bound).max()) <= 1
+    for what, out in qmm_min_term_mutants(x, w).items():
+        assert float(((out.double() - ref).abs() / bound).max()) > 4, what
+    want = tq.qmm_plain(x, w)
+    assert (_mins_qmm(fmt, x, w) - want).abs().max() <= 2e-4 * want.abs().max()
+
+
+@pytest.mark.parametrize("fmt", sorted(MIN_FORMS))
+@pytest.mark.parametrize("m", [64, 130, 2048])
+def test_mins_gateups_equal_matmul_then_act_mul(cuda, fmt, m):
+    """The fused gate-ups of the redesigned mins forms (SiLU; GELU where it
+    is built: the i4t tile at group 32, the int8 tile) equal the matmul on
+    their fused weight + act·mul bit for bit: the min term's steps run the
+    same code per column in both."""
+    K = MIN_FORMS[fmt][0]
+    ff = 1024
+    w = _mins_weight(fmt, 2 * ff, K, seed=95 + m)
+    gen = torch.Generator(device="cuda").manual_seed(95 + m)
+    x = torch.randn(m, K, device="cuda", generator=gen).to(torch.bfloat16)
+    gu = _mins_qmm(fmt, x, w).to(torch.bfloat16)
+    fused = tq.qmm_i8t_gateup if fmt == "q5k" else tq.qmm_i4t_gateup
+    assert torch.equal(fused(x, w), tq.silu(gu[:, :ff]) * gu[:, ff:])
+    if fmt != "q2k":
+        assert torch.equal(fused(x, w, "gelu"), tq.gelu(gu[:, :ff]) * gu[:, ff:])
