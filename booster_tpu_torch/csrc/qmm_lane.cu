@@ -1,11 +1,14 @@
-// Lane-major quantized matmul (i4p, i8): the plain form and the grouped
-// form of the routed experts (MoE).
+// Lane-major quantized matmul (i4p, i8): the i4p plain form and the grouped
+// forms of the routed experts (MoE).
 //
 // Replaces the Pallas kernels of booster_tpu/ops/pallas_qmm.py:
 //   _qmm_i4_kernel (:96, via _qmm_i4 :225)  -> lane_kernel<true, BM, MN>, no tile table
-//   _qmm_i8_kernel (:135, via _qmm_i8 :265) -> lane_kernel<false, BM, MN>, no tile table
 // and the same bodies as booster_tpu/ops/pallas_moe.py::grouped_qmm (:72)
-// calls them (pallas_calls :113, :150) -> the same kernels with a tile table.
+// calls them (pallas_calls :113, :150; _qmm_i8_kernel :135 in the i8 branch)
+// -> lane_kernel<I4, BM, MN> with a tile table.  The i8 form without a
+// tile table (_qmm_i8 :265: the Q8_0 and Q5_1 downs) runs qmm_lane_i8.cu;
+// this kernel takes it only where a caller names it (ops/qmm.py
+// lane_launch; tools/lane_forms.py times the two side by side).
 //
 // y[m, n] = sum_k x[m, k] · W[n, k] over the payload's rows (lane-major: a
 // row of W holds every k of one output column).
@@ -33,9 +36,8 @@
 //
 // What bounds it on the H100.  Decode (one row, or 2 and 128 real rows of 8
 // experts): the bytes of the payload and scales (0.5625 byte per weight for
-// i4p, 1.0625 for i8) over 3.35 TB/s: 3.6 µs for the 1.3B down (i8, 2048 x
-// 5504), about 20 µs per expert matrix of Mixtral-8x7B.  Prefill (2048 rows;
-// 4352 padded rows): the bf16 operations.  Design (qmm_ring.cuh): a block of
+// i4p, 1.0625 for i8) over 3.35 TB/s: about 20 µs per expert matrix of
+// Mixtral-8x7B.  Prefill (4352 padded rows): the bf16 operations.  Design (qmm_ring.cuh): a block of
 // 8 warps owns a BM x 128 output tile and one split of K, and walks it in
 // stages of 64 or 128 columns of K (i4p: 32 or 64 payload bytes a row, whose
 // low and high nibbles are columns j and K/2 + j).  cp.async keeps the next
@@ -49,9 +51,8 @@
 // ring, and each dequantized pair less its group's min.  ops/qmm.py
 // lane_plan picks BM (32, 64 or 128) and the split from
 // (M, K, N) (and, grouped, the experts E): where the output tiles cannot
-// fill the card (the 1.3B down at M = 1: 16 tiles), K splits on whole
-// stages, each split writes f32 partials and the last block (ticket, reset
-// by it) adds them in split order, all its loads of a split issued at once
+// fill the card, K splits on whole stages, each split writes f32 partials
+// and the last block (ticket, reset by it) adds them in split order, all its loads of a split issued at once
 // (qring::reduce_splits); at large M a block's 64 or 128 rows reuse each
 // dequantized weight.  A grouped block takes BM / 32 consecutive expert
 // tiles: it runs its K range once per run of tiles of one expert (table and
@@ -206,20 +207,6 @@ __device__ __forceinline__ uint32_t stage_scale(const Params& p, const uint32_t*
   return reinterpret_cast<const uint16_t*>(words)[idx];
 }
 
-// bf16 pair w less the min pair m: the difference of two bf16 values
-// rounded to bf16 once (a bf16x2 subtraction).  The plain version rounds it
-// to f32 first, which is the same number: f32 holds the difference exactly
-// unless the exponents are 16 or more apart, and then it lies within
-// 2^-15 of the larger, far from a bf16 rounding tie.  The explicit .rn keeps
-// ptxas from contracting it with the product that formed w (i8's
-// dq_bytes, a bf16x2 multiply) into one fma, which would skip w's rounding
-// (__hsub2 carries no rounding modifier).
-__device__ __forceinline__ uint32_t sub_min(uint32_t w, uint32_t m) {
-  uint32_t r;
-  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(r) : "r"(w), "r"(m));
-  return r;
-}
-
 // The stage's payload dequantized into the [128 n][SK k] bf16 tile: thread
 // t takes half of payload row t / 2 (i4p: both nibbles of its bytes; i8:
 // its bytes), 16 columns of K a scale (and a min, MN).
@@ -248,8 +235,8 @@ __device__ __forceinline__ void lane_dequant(const Params& p, const Lane<I4, BM,
         const uint32_t mh = stage_scale<I4, BM>(p, st.m[r][1], L.sdq[1] + kg, stg, b) * 0x10001u;
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
-          lo[i] = sub_min(lo[i], ml);
-          hi[i] = sub_min(hi[i], mh);
+          lo[i] = qring::sub_min(lo[i], ml);
+          hi[i] = qring::sub_min(hi[i], mh);
         }
       }
     } else {
@@ -259,7 +246,7 @@ __device__ __forceinline__ void lane_dequant(const Params& p, const Lane<I4, BM,
         const uint32_t ml =
             stage_scale<I4, BM>(p, st.m[r][0], L.sdq[0] + gdiv(p, p.K), stg, b) * 0x10001u;
 #pragma unroll
-        for (int i = 0; i < 8; ++i) lo[i] = sub_min(lo[i], ml);
+        for (int i = 0; i < 8; ++i) lo[i] = qring::sub_min(lo[i], ml);
       }
     }
     uint4* dl = reinterpret_cast<uint4*>(&w[r * XS + b]);

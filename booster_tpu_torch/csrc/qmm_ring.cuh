@@ -96,6 +96,20 @@ __device__ __forceinline__ uint32_t dq_bytes(uint32_t h, uint32_t sp) {
   return dq_spread(__byte_perm(h, 0u, 0x4140), sp);  // byte 0 in bits 0-7, byte 1 in 16-23
 }
 
+// bf16 pair w less the min pair m (qmm_lane.cu, qmm_lane_i8.cu): the difference of two bf16 values
+// rounded to bf16 once (a bf16x2 subtraction).  The plain version rounds it
+// to f32 first, which is the same number: f32 holds the difference exactly
+// unless the exponents are 16 or more apart, and then it lies within
+// 2^-15 of the larger, far from a bf16 rounding tie.  The explicit .rn keeps
+// ptxas from contracting it with the product that formed w (i8's
+// dq_bytes, a bf16x2 multiply) into one fma, which would skip w's rounding
+// (__hsub2 carries no rounding modifier).
+__device__ __forceinline__ uint32_t sub_min(uint32_t w, uint32_t m) {
+  uint32_t r;
+  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(r) : "r"(w), "r"(m));
+  return r;
+}
+
 // The A fragments of a warp's MI m16 tiles at columns k0 .. k0 + 15 of a
 // row-major bf16 x tile (row stride xs elements), rows from r0.
 template <int MI>

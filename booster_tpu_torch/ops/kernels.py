@@ -38,6 +38,7 @@ SOURCES = {
     "mlp_i8t": "mlp_i8t.cu",
     "mlp_i8t_gelu": "mlp_i8t_gelu.cu",
     "qmm_lane": "qmm_lane.cu",
+    "qmm_lane_i8": "qmm_lane_i8.cu",
     "qmm_i8c": "qmm_i8c.cu",
     "probe_i8": "probe_i8.cu",
     "probe_i4": "probe_i4.cu",
@@ -55,7 +56,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # append forms over a 256-lane cache or pool (head dims 129-256: Gemma), _layer the
 # per-layer T = 1 append, paged_ the paged-pool
 # forms, moe_ the grouped (routed expert) form of the lane-major matmul; the
-# i8c matmul's _mv is its M = 1 streaming matvec, _mm its M > 1 tensor-core form;
+# i8c matmul's _mv is its M = 1 streaming matvec, _mm its M > 1 tensor-core form,
+# and the int8 lane-major matmul's (no tile table) its matvec at few rows and
+# its wgmma tile above (ops.qmm.lane_i8_count_name);
 # probe_ the probe tools' kernels (ops/probes.py, ops/probes_i4.py), on no
 # serving path, and probe_qmm_i4t_ the serving path's i4t kernel launched by
 # a probe tool
@@ -104,6 +107,8 @@ launch_counts = {
     "kv_append_paged_i8_d256": 0,
     "qmm_i4p": 0,
     "qmm_i8": 0,
+    "qmm_i8_mv": 0,
+    "qmm_i8_mm": 0,
     "moe_qmm_i4p": 0,
     "moe_qmm_i8": 0,
     "qmm_i8c_mv": 0,

@@ -29,8 +29,10 @@ torch, with the same rounding points; a wrapper uses them only for tensors
 on the CPU.  Lane-major weights that the reference's ``_supported`` takes
 run ``csrc/qmm_lane.cu`` (the port of ``_qmm_i4_kernel``/``_qmm_i8_kernel``;
 ``qmm_lane``, plain version ``qmm_lane_plain``), whose grouped form
-``ops.moe`` runs over the routed experts.  Per-channel int8 weights (i8c,
-``weights="i8c"``) that the reference's ``_supported_i8c`` takes run
+``ops.moe`` runs over the routed experts; an int8 one without a tile table
+(the Q8_0 and Q5_1 downs) runs ``csrc/qmm_lane_i8.cu`` instead, a matvec at
+few rows and a ``wgmma`` tile above (``lane_i8_plan``).  Per-channel int8
+weights (i8c, ``weights="i8c"``) that the reference's ``_supported_i8c`` takes run
 ``csrc/qmm_i8c.cu`` (the port of ``_i8c_kernel``; ``qmm_i8c``, plain version
 ``qmm_i8c_plain``).  Shapes the kernels do not take go to the
 dequantize-matmul path, as in the JAX package.
@@ -78,6 +80,19 @@ _MV_WARPS = 8  # warps of a block of csrc/i8mv.cuh (kWarps)
 _LANE_SIGNATURES = {
     "bt_qmm_lane": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
 }
+_LANE_I8_SIGNATURES = {
+    "bt_qmm_lane_i8_mv": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "bt_qmm_lane_i8_mm": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+}
+LANE_MV_ROWS = 16  # payload rows a block of csrc/qmm_lane_i8.cu's matvec (kMvRows)
+LANE_MV_WARPS = 8  # its warps, each 64-k chunks of all of K in turn
+LANE_MV_MAX_K = 16384  # K up to which its block's scale planes fit (kMvMaxK)
+LANE_BK = 64  # k of the matvec's chunk and of the tile's stage
+_LANE_MV_MAX = 32  # rows up to which lane_i8_plan takes the matvec (PERF.md §6)
+# past this K, at 17-64 rows, csrc/qmm_lane.cu's kernel measured faster than
+# the matvec and the tile (the 7B down, 14336 → 4096, at M = 32 and 64 without
+# mins; PERF.md §6): the plan keeps it there
+_LANE_OLD_K = 8192
 _TILE_N = 128  # output columns of a block of the M > 1 tiles (i4t, lane-major, i8k)
 _I8K_BK = 64  # rows of K a stage of csrc/i8k_tile.cuh
 _SMS = 132  # the H100's SMs
@@ -208,7 +223,9 @@ def lane_stage(bm: int, kind: str) -> int:
 
 
 def lane_plan(M: int, K: int, N: int, E: int = 0) -> tuple[int, int]:
-    """(BM, KS) of csrc/qmm_lane.cu for y [M, N] = x [M, K] @ W^T: rows of x
+    """(BM, KS) of csrc/qmm_lane.cu for y [M, N] = x [M, K] @ W^T (the i4p
+    forms and the grouped int8 form; the int8 form without a tile table
+    takes ``lane_i8_plan``): rows of x
     per block and K splits on whole stages (``lane_stage``).  The grouped
     form (E experts, M = route_pad's padded rows) plans from the shapes
     alone, as its sum order must: route_pad reserves a tile of padding per
@@ -221,6 +238,38 @@ def lane_plan(M: int, K: int, N: int, E: int = 0) -> tuple[int, int]:
     bm = _rows_tile(rows // E)
     live = rows + 32 * min(E, -(-rows // 32))  # rows of the tiles that hold real rows
     return bm, _tile_splits(-(-live // bm) * (N // _TILE_N), K)
+
+
+def lane_i8_plan(M: int, K: int, N: int, bm: Optional[int] = None) -> tuple:
+    """The form of csrc/qmm_lane_i8.cu for y [M, N] = x [M, K] @ W^T on an
+    int8 lane-major weight without a tile table: ``("mv", mt)``, the matvec
+    with mt m8 tiles of x (1 up to 8 rows, 2 up to 16, 4 up to 32), up to
+    ``_LANE_MV_MAX`` rows where K is at most ``LANE_MV_MAX_K`` (the matvec
+    was faster than the tile at every M up to 32 on the card);
+    above, ``("mm", bm, ks)``, the wgmma tile with bm rows of x a block (the
+    least of 64 and 128 that holds M, else 256) and K split ks ways on
+    whole 64-k stages, as ``i8k_plan`` splits (as many splits as keep the
+    blocks within two an SM, one at 256 rows, each split at least 512 k, a
+    power of two, at most 8: a tile's splits are one cluster); at 17-64
+    rows where K passes ``_LANE_OLD_K``, ``("lane",)``: csrc/qmm_lane.cu's
+    kernel, which measured faster there.  A function of the shapes only.
+    `bm` takes the tile at another height, its splits by the same rule
+    (tools/lane_forms.py)."""
+    if bm is None and K > _LANE_OLD_K and 16 < M <= 64:
+        return ("lane",)
+    if bm is None and M <= _LANE_MV_MAX and K <= LANE_MV_MAX_K:
+        return ("mv", 1 if M <= 8 else 2 if M <= 16 else 4)
+    bm = bm or next((b for b in (64, 128) if M <= b), 256)
+    tiles = -(-M // bm) * (N // _TILE_N)
+    target = _SMS if bm == 256 else _TARGET_BLOCKS  # 256 rows a block: one block an SM
+    return ("mm", bm, _pow2_floor(max(1, min(target // tiles, K // 512, _MAX_SPLITS))))
+
+
+def lane_i8_count_name(plan: tuple) -> str:
+    """The launch count of a form of ``lane_i8_plan``: ``qmm_i8_mv`` (the
+    matvec), ``qmm_i8_mm`` (the wgmma tile), ``qmm_i8`` (``("lane",)``:
+    csrc/qmm_lane.cu's kernel, where the plan keeps it or a tool asks)."""
+    return "qmm_i8" if plan[0] == "lane" else f"qmm_i8_{plan[0]}"
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -678,20 +727,10 @@ def _launch_i8c(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     return out
 
 
-def lane_launch(x: torch.Tensor, w: QTensor, N: int, name: str,
-                tile_expert: Optional[torch.Tensor] = None,
-                rows_used: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch csrc/qmm_lane.cu: y [M, N] f32 = x [M, K] @ W^T over rows
-    [0, N) of a lane-major weight, or, with a tile table, over the rows of
-    each 32-row tile's expert (ops.moe.grouped_qmm).  Raises unless the
-    kernel takes the operands: contiguous bf16 x on 16 bytes; an i4p (u8
-    [R, K/2]) payload with bf16 prepared planes (the halves' scales, then
-    their mins when affine: Q4_K) or an i8 (int8 [R, K]) one with bf16
-    prepared planes (the scales, then the mins when affine: Q5_K, Q5_1); N
-    a multiple of 128; K of 128 and of 2G; G of 16.  Rows per block and K
-    splits: ``lane_plan`` (with the experts E = rows / N of the stacked
-    payload for a tile table)."""
-    w = w.resolved()
+def _lane_operands(x: torch.Tensor, w: QTensor, N: int, name: str,
+                   tabs: tuple = ()) -> tuple:
+    """(M, K, R, s3, has_mins) of a lane-major launch; raises unless the
+    kernels take the operands (``lane_launch``'s list)."""
     M, K = x.shape
     i4 = w.kind == "i4p"
     s3, has_mins = kernel_scales(w)
@@ -710,7 +749,31 @@ def lane_launch(x: torch.Tensor, w: QTensor, N: int, name: str,
     if N % 128 or K % 128 or K % (2 * w.group) or w.group % 16:
         raise NotImplementedError(f"{name} kernel: N = {N}, K = {K}, G = {w.group}: "
                                   "not ported yet (N, K multiples of 128, G of 16)")
-    tabs = [t for t in (tile_expert, rows_used) if t is not None]
+    if any(t.device != x.device for t in (w.qw, s3, *tabs)):
+        raise ValueError(f"{name} kernel: all operands must be on one device")
+    if w.qw.data_ptr() % 16:
+        raise ValueError(f"{name} kernel: the payload must lie on 16 bytes")
+    return M, K, R, s3, has_mins
+
+
+def lane_launch(x: torch.Tensor, w: QTensor, N: int, name: str,
+                tile_expert: Optional[torch.Tensor] = None,
+                rows_used: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch csrc/qmm_lane.cu: y [M, N] f32 = x [M, K] @ W^T over rows
+    [0, N) of a lane-major weight, or, with a tile table, over the rows of
+    each 32-row tile's expert (ops.moe.grouped_qmm): the i4p forms, the
+    grouped i8 form, and the int8 form without a table where a caller asks
+    for it by name (``qmm_lane`` runs that one on csrc/qmm_lane_i8.cu).
+    Raises unless the kernel takes the operands: contiguous bf16 x on 16
+    bytes; an i4p (u8 [R, K/2]) payload with bf16 prepared planes (the
+    halves' scales, then their mins when affine: Q4_K) or an i8 (int8 [R,
+    K]) one with bf16 prepared planes (the scales, then the mins when
+    affine: Q5_K, Q5_1); N a multiple of 128; K of 128 and of 2G; G of 16.
+    Rows per block and K splits: ``lane_plan`` (with the experts E = rows /
+    N of the stacked payload for a tile table)."""
+    w = w.resolved()
+    tabs = tuple(t for t in (tile_expert, rows_used) if t is not None)
+    M, K, R, s3, has_mins = _lane_operands(x, w, N, name, tabs)
     if any(t.dtype != torch.int32 or not t.is_contiguous() for t in tabs):
         raise ValueError(f"{name} kernel: tile table and row count must be contiguous int32")
     if tile_expert is not None and (tile_expert.numel() != -(-M // 32) or R % N):
@@ -718,10 +781,6 @@ def lane_launch(x: torch.Tensor, w: QTensor, N: int, name: str,
                          "and a payload of whole experts")
     if tile_expert is None and R < N:
         raise ValueError(f"{name} kernel: the payload has {R} rows, not {N}")
-    if any(t.device != x.device for t in (w.qw, s3, *tabs)):
-        raise ValueError(f"{name} kernel: all operands must be on one device")
-    if w.qw.data_ptr() % 16:
-        raise ValueError(f"{name} kernel: the payload must lie on 16 bytes")
     bm, ks = lane_plan(M, K, N, 0 if tile_expert is None else R // N)
     out = torch.empty(M, N, device=x.device, dtype=torch.float32)
     part = torch.empty(ks * M * N, dtype=torch.float32, device=x.device) if ks > 1 else None
@@ -731,8 +790,42 @@ def lane_launch(x: torch.Tensor, w: QTensor, N: int, name: str,
                          None if part is None else part.data_ptr(), tickets.data_ptr(),
                          None if tile_expert is None else tile_expert.data_ptr(),
                          None if rows_used is None else rows_used.data_ptr(),
-                         M, K, N, w.group, w.zero, int(i4), int(has_mins), bm, ks,
+                         M, K, N, w.group, w.zero, int(w.kind == "i4p"), int(has_mins), bm, ks,
                          torch.cuda.current_stream(x.device).cuda_stream)
+    kernels.check(rc, name)
+    kernels.count(name, (K, N))
+    return out
+
+
+def lane_i8_launch(x: torch.Tensor, w: QTensor, plan: Optional[tuple] = None) -> torch.Tensor:
+    """Launch csrc/qmm_lane_i8.cu: y [M, N] f32 = x [M, K] @ W^T for an int8
+    lane-major weight [N, K] without a tile table (the Q8_0 and Q5_1 downs),
+    in the form of `plan` (``lane_i8_plan`` by default; a tool may name
+    another), counted under ``lane_i8_count_name``.  Raises where
+    ``lane_launch`` would, and for a weight of another kind."""
+    w = w.resolved()
+    N = w.shape[0]
+    plan = plan or lane_i8_plan(x.shape[0], x.shape[1], N)
+    name = lane_i8_count_name(plan)
+    if w.kind != "i8" or w.qw.shape[0] != N:
+        raise ValueError(f"{name} kernel: an int8 lane-major weight of {N} rows, not "
+                         f"{w.kind} {tuple(w.qw.shape)}")
+    if plan[0] == "lane":
+        return lane_launch(x, w, N, name)
+    M, K, _, s3, has_mins = _lane_operands(x, w, N, name)
+    if plan[0] == "mv" and not (plan[1] in (1, 2, 4) and M <= 8 * plan[1]
+                                and K <= LANE_MV_MAX_K):
+        raise ValueError(f"{name} kernel: {M} rows do not fit {plan[1]} m8 tiles, or K "
+                         f"= {K} is past {LANE_MV_MAX_K}")
+    out = torch.empty(M, N, device=x.device, dtype=torch.float32)
+    lib = kernels.library("qmm_lane_i8", _LANE_I8_SIGNATURES)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if plan[0] == "mv":
+        rc = lib.bt_qmm_lane_i8_mv(x.data_ptr(), w.qw.data_ptr(), s3.data_ptr(), out.data_ptr(),
+                                   M, K, N, w.group, int(has_mins), plan[1], stream)
+    else:
+        rc = lib.bt_qmm_lane_i8_mm(x.data_ptr(), w.qw.data_ptr(), s3.data_ptr(), out.data_ptr(),
+                                   M, K, N, w.group, int(has_mins), plan[1], plan[2], stream)
     kernels.check(rc, name)
     kernels.count(name, (K, N))
     return out
@@ -744,7 +837,9 @@ def qmm_lane(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     CUDA tensors)."""
     if x.device.type == "cpu":
         return qmm_lane_plain(x, w)
-    return lane_launch(x, w, w.shape[0], "qmm_i4p" if w.kind == "i4p" else "qmm_i8")
+    if w.kind == "i8":
+        return lane_i8_launch(x, w)
+    return lane_launch(x, w, w.shape[0], "qmm_i4p")
 
 
 def qmm_i4t(x: torch.Tensor, w: QTensor) -> torch.Tensor:

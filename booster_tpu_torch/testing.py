@@ -32,7 +32,9 @@ mirrors at groups 16 and 32, with the wrong kernels of
 versions compute what wrong matmul kernels would; ``qmm_mv_split`` and
 ``qmm_mv_mutants`` do the same for the M = 1 int8 matvec of csrc/i8mv.cuh,
 and ``qmm_i4t_mv_split`` (with ``i4t_mv_groups``) for the M = 1 i4t matvec
-of csrc/i4mv.cuh.
+of csrc/i4mv.cuh; ``qmm_lane_mv_split``, ``qmm_lane_mm_split`` and
+``qmm_lane_i8_mutants`` for the two forms of the int8 lane-major matmul of
+csrc/qmm_lane_i8.cu (``ops.qmm.lane_i8_plan``).
 """
 
 from __future__ import annotations
@@ -53,7 +55,8 @@ from booster_tpu_torch.ops.kv_append import kv_append_layer_plain
 from booster_tpu_torch.ops.kv_cache import _quantize_kv
 from booster_tpu_torch.ops.paged_attention import paged_attn_plain
 from booster_tpu_torch.ops.prefill_attention import prefill_attn_plain
-from booster_tpu_torch.ops.qmm import _MV_WARPS, lane_dequant, min_term, mv_chunk_rows, mv_plan
+from booster_tpu_torch.ops.qmm import (_MV_WARPS, LANE_BK, LANE_MV_WARPS, lane_dequant,
+                                       min_term, mv_chunk_rows, mv_plan)
 from booster_tpu_torch.quant import quantize
 from booster_tpu_torch.quant.formats import _pack_kscales_6bit
 from booster_tpu_torch.quant.qtensor import (QTensor, compact_scales, kernel_scales,
@@ -1449,6 +1452,118 @@ def qmm_lane_mutants(x: torch.Tensor, w: QTensor, stages: tuple[int, int], sk: i
     for st in range(*stages):
         xd[:, _lane_stage_cols(w.kind, x.shape[1], sk, st).to(x.device)] = 0
     out["one K split's partial dropped"] = (xd, w)
+    return out
+
+
+def lane_pi() -> torch.Tensor:
+    """The k order of csrc/qmm_lane_i8.cu's matvec: slot s of a k16 step
+    holds k π(s) of a lane's 16-k piece, π(2u + e) = 4u + e and π(2u + 8 +
+    e) = 4u + 2 + e (4 consecutive payload bytes feed A slots 2u, 2u + 1 and
+    2u + 8, 2u + 9); the tile's steps keep the fragment's own order."""
+    return torch.tensor([4 * u + e for u in range(4) for e in (0, 1)]
+                        + [4 * u + 2 + e for u in range(4) for e in (0, 1)])
+
+
+def lane_mv_chunks(K: int) -> list[list[int]]:
+    """The 64-k chunks each of the 8 warps of a block of csrc/qmm_lane_i8.cu's
+    matvec takes, in the order it adds them: warp w chunks w, w + 8, ... of
+    K/64 (no K split)."""
+    nc = K // LANE_BK
+    return [list(range(w, nc, LANE_MV_WARPS)) for w in range(LANE_MV_WARPS)]
+
+
+def _mv_step_cols(c: int, s: int) -> torch.Tensor:
+    """The k of step s of chunk c of the matvec, in slot order: lane t of a
+    row's quad holds bytes 64c + 16t .. + 15 and gives bytes 4s .. 4s + 3 to
+    slots 2t, 2t + 1, 2t + 8, 2t + 9."""
+    pi = lane_pi()
+    return c * LANE_BK + 16 * (pi // 4) + 4 * s + pi % 4
+
+
+def qmm_lane_mv_split(x: torch.Tensor, w: QTensor, drop: Optional[int] = None) -> torch.Tensor:
+    """What csrc/qmm_lane_i8.cu's matvec computes for an int8 lane-major
+    ``qmm_lane(x, w)`` (any M; the plan gives it up to 16 rows), in plain
+    torch (CPU; tests only): each of the 8 warps of a 16-row block
+    (``lane_mv_chunks``)
+    adds, chunk by chunk, 4 k16 steps from zero, step s of chunk c the
+    16-term dot of bf16(x) with ``lane_dequant``'s w over k 64c + 16t + 4s +
+    i (t, i in 0..3: ``_mv_step_cols``); the block adds its warps' sums in
+    order from zero.  `drop`: a chunk left out (a wrong kernel that loses
+    one)."""
+    wd = lane_dequant(w)
+    xb = x.to(torch.bfloat16).float()
+    y = torch.zeros(x.shape[0], wd.shape[0], device=x.device)
+    for chunks in lane_mv_chunks(x.shape[1]):
+        acc = torch.zeros_like(y)
+        for c in chunks:
+            if c == drop:
+                continue
+            for s in range(4):
+                cols = _mv_step_cols(c, s).to(x.device)
+                acc = acc + xb[:, cols] @ wd[:, cols].t()
+        y = y + acc
+    return y
+
+
+def qmm_lane_mm_split(x: torch.Tensor, w: QTensor, ks: int,
+                      drop: Optional[int] = None) -> torch.Tensor:
+    """What csrc/qmm_lane_i8.cu's wgmma tile computes for an int8 lane-major
+    ``qmm_lane(x, w)`` split `ks` ways over K, in plain torch (CPU; tests
+    only): split s takes the 64-k stages [s·nst/ks, (s+1)·nst/ks) (nst =
+    K/64), each in 4 k16 steps from zero, step kk the 16-term dot of bf16(x)
+    with ``lane_dequant``'s w over its 16 k; the splits' sums in split order
+    from zero (the cluster's), `drop` left out (a wrong kernel's sum)."""
+    wd = lane_dequant(w)
+    xb = x.to(torch.bfloat16).float()
+    nst = x.shape[1] // LANE_BK
+    y = torch.zeros(x.shape[0], wd.shape[0], device=x.device)
+    for s in range(ks):
+        acc = torch.zeros_like(y)
+        for st in range(s * nst // ks, (s + 1) * nst // ks):
+            for k0 in range(st * LANE_BK, (st + 1) * LANE_BK, 16):
+                acc = acc + xb[:, k0:k0 + 16] @ wd[:, k0:k0 + 16].t()
+        if s != drop:
+            y = y + acc
+    return y
+
+
+def qmm_lane_i8_mutants(x: torch.Tensor, w: QTensor, plan: tuple) -> dict:
+    """(x, w) pairs on which ``qmm_lane_plain`` computes what a wrong kernel
+    of csrc/qmm_lane_i8.cu in the form `plan` (``ops.qmm.lane_i8_plan``)
+    would: each group's scale (and min) from the next group, each group's
+    min alone from the next group, the mins dropped and taken with the wrong
+    sign (``qmm_mins_mutants``, where the weight has them), the matvec's k
+    order π (``lane_pi``) applied to the payload only (x read in slot order:
+    x'[16p + π(j)] = x[16p + j]), and a piece of K left out: the matvec's
+    last chunk (x zero there), the tile's last K split (its stages), or its
+    last stage where the plan has one split.  `plan` is a matvec's or a
+    tile's (``("lane",)`` runs csrc/qmm_lane.cu: ``qmm_lane_mutants``)."""
+    if plan[0] not in ("mv", "mm"):
+        raise ValueError(f"the wrong kernels of a matvec or a tile, not of {plan}")
+    w = w.resolved()
+    K = x.shape[1]
+    s3, has_mins = kernel_scales(w)
+    out = {"each group's scale from the next group": (x, dataclasses.replace(
+        w, scales=torch.roll(w.scales, -1, -1))), **qmm_mins_mutants(x, w)}
+    if has_mins:
+        m = s3.clone()
+        m[:, 1] = torch.roll(m[:, 1], -1, -1)
+        out["each group's min from the next group"] = (x, dataclasses.replace(w, scales=m))
+    pi = lane_pi().to(x.device)
+    xp = torch.empty_like(x)
+    for p in range(K // 16):
+        xp[:, 16 * p + pi] = x[:, 16 * p:16 * p + 16]
+    out["the k order on the payload only"] = (xp, w)
+    xd = x.clone()
+    if plan[0] == "mv":
+        c = K // LANE_BK - 1
+        xd[:, c * LANE_BK:(c + 1) * LANE_BK] = 0
+        out["one chunk dropped"] = (xd, w)
+    else:
+        ks, nst = plan[2], K // LANE_BK
+        s0 = (ks - 1) * nst // ks if ks > 1 else nst - 1
+        xd[:, s0 * LANE_BK:] = 0
+        out["one K split's partial dropped" if ks > 1 else "one stage dropped"] = (xd, w)
     return out
 
 

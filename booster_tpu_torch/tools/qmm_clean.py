@@ -47,7 +47,8 @@ def weight(w: np.ndarray, gt: GGMLType, layout: str, device) -> QTensor:
 def kernel_name(w: QTensor, M: int) -> str:
     """The launch counter ops.qmm.qmm adds one to for this weight at M rows."""
     if w.kind in ("i4p", "i8"):
-        return "qmm_i4p" if w.kind == "i4p" else "qmm_i8"
+        return "qmm_i4p" if w.kind == "i4p" else tq.lane_i8_count_name(
+            tq.lane_i8_plan(M, w.shape[1], w.shape[0]))
     return f"qmm_{w.kind}_{'gd' if M == 1 else 'dq'}"
 
 

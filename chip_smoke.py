@@ -56,7 +56,8 @@ Phases, each printing one JSON line with its seconds:
    grouped form (the routed experts), i4p and i8, at Mixtral-8x7B's expert
    shapes under seeded routings (one decode token, 64, and the 64 x 32
    prefill), and in its plain form at M = 1, 64 and 2048 on the 7B's qkv
-   and down shapes: within 2e-4 of the largest output of its plain
+   and down shapes (the int8 one on csrc/qmm_lane_i8.cu, its matvec and
+   its wgmma tile): within 2e-4 of the largest output of its plain
    version, zero on the padding tiles it skips, and each wrong kernel (the
    tile table ignored, the expert off by one, the nibble halves swapped, a
    group's scale from its neighbour, one K split's partial dropped) past 8x
@@ -75,7 +76,8 @@ Phases, each printing one JSON line with its seconds:
    _gateup_i8_gd_kernel) at (K 2048, ff 5504, G 16), at the 7B's (4096,
    14336, G 32) and with a synthetic mins plane, equal to the matvec
    kernel + silu·mul bit for bit; the lane-major i8 matmul of the Q8_0
-   down (5504 → 2048) at M = 1, 64 and 2048; every wrong kernel (a
+   down (5504 → 2048) at M = 1, 64 and 2048 (csrc/qmm_lane_i8.cu: the
+   matvec at one row, the wgmma tile above); every wrong kernel (a
    neighbour group's scale, the group read as the other one, the mins
    dropped, the up half read for the gate, silu left out) past 8x the
    limit; and the attention kernels at the 1.3B model's MHA layout (24
@@ -2458,7 +2460,7 @@ def _q6k_kernels(entries: list, failures: list) -> None:
     from booster_tpu_torch.gguf import GGMLType
     from booster_tpu_torch.ops import qmm as tq
     from booster_tpu_torch.quant.qtensor import QTensor, dequantize
-    from booster_tpu_torch.testing import qmm_lane_mutants, qmm_mv_mutants
+    from booster_tpu_torch.testing import qmm_lane_i8_mutants, qmm_mv_mutants
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(9)
@@ -2619,17 +2621,17 @@ def _q6k_kernels(entries: list, failures: list) -> None:
         err = float((got - want).abs().max())
         if not (err <= limit and torch.isfinite(got).all()):
             failures.append(f"qmm_i8 1.3B down M={M}: max err {err} over {limit}")
+        plan = tq.lane_i8_plan(M, ff, C)
         seen = {what: float((tq.qmm_lane_plain(xm, wm) - want).abs().max()) / limit
-                for what, (xm, wm) in qmm_lane_mutants(
-                    x, w, *_lane_split_stages(M, ff, C, "i8")).items()}
+                for what, (xm, wm) in qmm_lane_i8_mutants(x, w, plan).items()}
         for what, v in seen.items():
             if v < 8:
                 failures.append(f"qmm_i8 1.3B down M={M}: the check cannot see {what} ({v})")
         b_ms, b_by = bound(C * ff + C * (ff // 32) * 2 + M * ff * 2 + M * C * 4, 2 * M * C * ff)
         entries.append({
             "name": "qmm_i8", "shape": f"1.3B down M={M} K={ff} N={C} G=32",
-            "key": ("qmm_i8", (ff, C)), "path": path, "route": "cuda",
-            "source": "booster_tpu_torch/csrc/qmm_lane.cu",
+            "key": (tq.lane_i8_count_name(plan), (ff, C)), "path": path, "route": "cuda",
+            "source": "booster_tpu_torch/csrc/qmm_lane_i8.cu", "form": list(plan),
             "replaces": "booster_tpu/ops/pallas_qmm.py:135",
             "max_abs_err": err, "min_wrong_kernel_of_limit": min(seen.values()),
             "ms": timed(lambda: tq.qmm_lane(x, w)),
@@ -2753,7 +2755,7 @@ def _moe_kernels(entries: list, failures: list) -> None:
     from booster_tpu_torch.ops import moe
     from booster_tpu_torch.ops import qmm as tq
     from booster_tpu_torch.quant.qtensor import dequantize
-    from booster_tpu_torch.testing import qmm_lane_mutants
+    from booster_tpu_torch.testing import qmm_lane_i8_mutants, qmm_lane_mutants
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(8)
@@ -2831,15 +2833,21 @@ def _moe_kernels(entries: list, failures: list) -> None:
             for M in (1, 64, 2048):
                 x = torch.randn(M, K, device="cuda", generator=gen).to(torch.bfloat16)
                 got, want = tq.qmm_lane(x, w), tq.qmm_lane_plain(x, w)
-                mutants = qmm_lane_mutants(x, w, *_lane_split_stages(M, K, N, kind))
+                plan = tq.lane_i8_plan(M, K, N) if kind == "i8" else ("lane",)
+                if plan[0] != "lane":  # csrc/qmm_lane_i8.cu in the plan's form
+                    key, source = tq.lane_i8_count_name(plan), src.replace(".cu", "_i8.cu")
+                    mutants = qmm_lane_i8_mutants(x, w, plan)
+                else:  # csrc/qmm_lane.cu: the i4p form, and the i8 one where the plan keeps it
+                    key, source = name, src
+                    mutants = qmm_lane_mutants(x, w, *_lane_split_stages(M, K, N, kind))
                 err, seen = check(f"{name} {label} M={M}", got, want, mutants,
                                   lambda m: tq.qmm_lane_plain(*m))
                 w_bytes = N * (K // 2 if kind == "i4p" else K) + N * (K // 32) * 2
                 b_ms, b_by = bound(w_bytes + M * K * 2 + M * N * 4, 2 * M * N * K)
                 entries.append({
                     "name": name, "shape": f"7B {label} M={M} K={K} N={N}",
-                    "key": (name, (K, N)), "path": "generate_moe", "route": "cuda",
-                    "source": src, "replaces": "booster_tpu/ops/pallas_qmm.py:" + (
+                    "key": (key, (K, N)), "path": "generate_moe", "route": "cuda",
+                    "source": source, "replaces": "booster_tpu/ops/pallas_qmm.py:" + (
                         "225" if kind == "i4p" else "265"),
                     "max_abs_err": err, "min_wrong_kernel_of_limit": seen,
                     "ms": timed(lambda: tq.qmm_lane(x, w)),
@@ -3071,8 +3079,8 @@ def _q5k_kernels(entries: list, failures: list) -> None:
     from booster_tpu_torch.ops import qmm as tq
     from booster_tpu_torch.quant.qtensor import dequantize
     from booster_tpu_torch.testing import (q5_1_weight, q5k_weight, qmm_i8k_mutants,
-                                           qmm_lane_mutants, qmm_mins_mutants, qmm_mv_mutants,
-                                           without_mins)
+                                           qmm_lane_i8_mutants, qmm_lane_mutants,
+                                           qmm_mins_mutants, qmm_mv_mutants, without_mins)
     from booster_tpu_torch.tools.mlp_sched import unfused as mlp_unfused
 
     gen = torch.Generator(device="cuda")
@@ -3199,16 +3207,22 @@ def _q5k_kernels(entries: list, failures: list) -> None:
     for M in (1, 16, 64, 2048):
         x = x_of(M, ff)
         tag = f"qmm_i8 Q5_1 1.3B down M={M}"
+        plan = tq.lane_i8_plan(M, ff, C)
         got, want = tq.qmm_lane(x, w), tq.qmm_lane_plain(x, w)
-        err, seen = _lane_check(failures, tag, got, want, qmm_lane_mutants(
-            x, w, *_lane_split_stages(M, ff, C, "i8")), lambda m: tq.qmm_lane_plain(*m))
-        if not {"mins dropped", "mins with the wrong sign"} <= set(qmm_mins_mutants(x, w)):
+        mutants = qmm_lane_i8_mutants(x, w, plan)
+        err, seen = _lane_check(failures, tag, got, want, mutants,
+                                lambda m: tq.qmm_lane_plain(*m))
+        if not {"mins dropped", "mins with the wrong sign",
+                "each group's min from the next group"} <= set(mutants):
             failures.append(f"{tag}: the mins mutants did not run")
+        # the same form on the weight without its mins plane (the Q8_0 down's form)
+        _lane_check(failures, f"{tag} without mins", tq.qmm_lane(x, wn), tq.qmm_lane_plain(x, wn),
+                    qmm_lane_i8_mutants(x, wn, plan), lambda m: tq.qmm_lane_plain(*m))
         b_ms, b_by = bound(wbytes(w) + M * ff * 2 + M * C * 4, 2 * M * C * ff)
         entries.append({
             "name": "qmm_i8", "shape": f"Q5_1 1.3B down M={M} K={ff} N={C} G=32 mins",
-            "key": ("qmm_i8", (ff, C)), "path": path_of(M), "route": "cuda",
-            "source": "booster_tpu_torch/csrc/qmm_lane.cu",
+            "key": (tq.lane_i8_count_name(plan), (ff, C)), "path": path_of(M), "route": "cuda",
+            "source": "booster_tpu_torch/csrc/qmm_lane_i8.cu", "form": list(plan),
             "replaces": "booster_tpu/ops/pallas_qmm.py:135 (has_mins, via _qmm_i8 :265)",
             "max_abs_err": err, "min_wrong_kernel_of_limit": seen,
             "ms": timed(lambda: tq.qmm_lane(x, w), trials=3),
@@ -3218,8 +3232,8 @@ def _q5k_kernels(entries: list, failures: list) -> None:
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": timed(lambda: torch.matmul(x, deq.t()), trials=3),
             "library": "torch.matmul on the dequantized bf16 weight",
-            "check": CHECKS["qmm"] + "; wrong kernels (the mins dropped, with the wrong sign "
-                                     "among them) at 8x"})
+            "check": CHECKS["qmm"] + "; wrong kernels (the mins dropped, with the wrong sign, "
+                                     "from the next group among them) at 8x"})
         del x, got, want
     del w, wn, deq
     torch.cuda.empty_cache()
@@ -5380,7 +5394,7 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
         expected = dict.fromkeys(counts, 0) | {
             "qmm_i8t_gd": (2 * L + 1) * steps + 1, "qmm_i8t_dq": 2 * L,
             "qmm_i8t_gateup_gd": L * steps, "qmm_i8t_gateup_dq": L,
-            "qmm_i8": L * (steps + 1), "decode_attn": L * steps, "kv_append": steps}
+            "qmm_i8_mv": L * (steps + 1), "decode_attn": L * steps, "kv_append": steps}
     elif q2k:  # llama.cpp's Q2_K mix: per step q and k (G16 with mins), v (Q4_K's
         # G32), wo and down (G16, zero 4) and the fused gate-up (G16 with mins)
         # on the M = 1 kernels, the Q6_K head in the group-16 i8t matvec; at
@@ -5432,7 +5446,7 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
         want = {("qmm_i8t_gd", (C, 3 * C)): L * steps, ("qmm_i8t_gd", (C, C)): L * steps,
                 ("qmm_i8t_gd", (C, V)): steps + 1, ("qmm_i8t_dq", (C, 3 * C)): L,
                 ("qmm_i8t_dq", (C, C)): L, ("qmm_i8t_gateup_gd", (C, 2 * FF)): L * steps,
-                ("qmm_i8t_gateup_dq", (C, 2 * FF)): L, ("qmm_i8", (FF, C)): L * (steps + 1)}
+                ("qmm_i8t_gateup_dq", (C, 2 * FF)): L, ("qmm_i8_mv", (FF, C)): L * (steps + 1)}
         if shape_counts != want:
             raise AssertionError(f"{name}: launches by shape {shape_counts} != {want}")
     if q2k:  # every matmul launch by shape: q 4096 → 4096 and wo share a shape, not a form
@@ -5487,12 +5501,16 @@ def phase_generate(layers: int, model_name: str = "tiny", weights: Optional[str]
     watch = (("i4mv::mv_kernel",) if weights is None and model_name in ("tiny", "moe") or mpt
              else ())
     if q5k:  # the mins forms: the matvec and gate-up, the lane-major down, the prefill's tile
-        watch = ("i8mv::mv_kernel<32, true", "lane_kernel<false, 32, true>",
+        watch = ("i8mv::mv_kernel<32, true", "lane_mv_kernel<1, true>",
                  "dq_kernel<16, 32, false, true, 0>", "dq_kernel<16, 32, true, true, 0>")
+    if q6k:  # the lane-major Q8_0 down on csrc/qmm_lane_i8.cu's matvec
+        watch = ("lane_mv_kernel<1, false>",)
     if q2k:  # the group-16 matvecs (with mins, with zero 4), the prefill's tile at G 16
         watch = ("i4mv::mv_kernel<16, true", "i4mv::mv_kernel<16, false",
                  "mm_kernel<32, true, 16,", "mm_kernel<32, false, 16,")
     forbid = ()
+    if q5k or q6k:  # the int8 down never on qmm_lane.cu's kernel
+        forbid = (r"lane_kernel<false",)
     if gemma7b:  # the int8 gate-up's GELU tile at the 256-row prefill, the whole MLP's
         # GELU form at the steps' M = 1, the 256-lane decode attention; no SiLU gate-up
         # or MLP, no 4-bit kernel, no 128-lane attention
@@ -5892,7 +5910,7 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
         # M = 64 and 64·T (Q5_K_S: the mins forms, the head's G16 without)
         expected |= {"qmm_i8t_dq": (2 * layers + 1) * (steps + prefill_chunks),
                      "qmm_i8t_gateup_dq": layers * (steps + prefill_chunks),
-                     "qmm_i8": layers * (steps + prefill_chunks)}
+                     "qmm_i8_mm": layers * (steps + prefill_chunks)}
     if q2k:  # q and k, v, wo and down, the gate-up (and the Q6_K head) at M = 64 and 64·T
         n = steps + prefill_chunks
         expected |= {"qmm_i4t_g16m_dq": 2 * layers * n, "qmm_i4t_dq": layers * n,
@@ -5920,7 +5938,7 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
         C, V, FF, n = model.cfg.n_embd, model.cfg.n_vocab, model.cfg.n_ff, steps + prefill_chunks
         want = {("qmm_i8t_dq", (C, 3 * C)): layers * n, ("qmm_i8t_dq", (C, C)): layers * n,
                 ("qmm_i8t_dq", (C, V)): n, ("qmm_i8t_gateup_dq", (C, 2 * FF)): layers * n,
-                ("qmm_i8", (FF, C)): layers * n}
+                ("qmm_i8_mm", (FF, C)): layers * n}
         if kernels.shape_counts != want:
             raise AssertionError(f"{name}: launches by shape {kernels.shape_counts} != {want}")
     if q2k:  # every matmul launch by shape, at the decode steps and the prefill chunk
@@ -5971,11 +5989,15 @@ def phase_batch(layers: int, model_name: str = "tiny", weights: Optional[str] = 
     watch = ("::kv_append_i8_kernel",) if mpt else ()
     if q5k:  # the mins forms at the decode steps' M = 64 (and the 2048-row prefill's tile)
         watch = ("dq_kernel<64, 32, false, true, 0>", "dq_kernel<64, 32, true, true, 0>",
-                 "lane_kernel<false, 64, true>", "dq_kernel<256, 32, true, true, 0>")
+                 "lane_mm_kernel<64, true>", "dq_kernel<256, 32, true, true, 0>")
+    if q6k:  # the lane-major Q8_0 down on csrc/qmm_lane_i8.cu's tile at M = 64
+        watch = ("lane_mm_kernel<64, false>",)
     if q2k:  # the tile at G 16 at the decode steps' M = 64 and the 2048-row prefill
         watch = ("mm_kernel<64, false, 16,", "mm_kernel<64, true, 16,",
                  "mm_kernel<128, false, 16,")
     forbid = ()
+    if q5k or q6k:  # the int8 down never on qmm_lane.cu's kernel
+        forbid = (r"lane_kernel<false",)
     if gemma7b:  # the int8 gate-up's GELU tile at the 2048-row prefill, the whole MLP's
         # GELU form at M = 64, the 256-lane int8 attention at 16 kv heads (G = 1) and
         # append; no SiLU gate-up or MLP, no 4-bit kernel, no 128-lane form

@@ -132,7 +132,8 @@ def _replays_equal(fn):
         g.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, first)
-    assert int(tq._tickets[first.device].abs().sum()) == 0
+    tickets = tq._tickets.get(first.device)  # None where no kernel of the run takes them
+    assert tickets is None or int(tickets.abs().sum()) == 0
     return first
 
 
@@ -829,7 +830,8 @@ def test_qmm_lane_kernel_matches_plain(cuda, kind, m, k, n):
     got, want = tq.qmm_lane(x, w), tq.qmm_lane_plain(x, w)
     torch.cuda.synchronize()
     assert (got - want).abs().max() <= 2e-4 * want.abs().max()
-    assert kernels.launch_counts["qmm_i4p" if kind == "i4p" else "qmm_i8"] == 1
+    name = "qmm_i4p" if kind == "i4p" else tq.lane_i8_count_name(tq.lane_i8_plan(m, k, n))
+    assert kernels.launch_counts[name] == 1
 
 
 @pytest.mark.parametrize("kind", ["i4p", "i8"])
@@ -861,25 +863,28 @@ def test_grouped_kernel_matches_plain(cuda, kind, n_tok):
 
 @pytest.mark.parametrize("m", [1, 64])
 def test_qmm_lane_k_split_at_the_down(cuda, m):
-    """The 1.3B down (i8, K 5504, N 2048) at M = 1 and 64: K split over
-    lane_plan's splits (16 column tiles), within the limit of the plain
-    version, and one launch; its tickets reset across graph replays."""
-    from booster_tpu_torch.testing import qmm_lane_mutants
+    """The 1.3B down (i8, K 5504, N 2048) at M = 1 and 64 in the forms of
+    lane_i8_plan (csrc/qmm_lane_i8.cu): at one row the matvec, whose 16-row
+    blocks stream whole rows (128 blocks, no K split); at 64 the wgmma tile,
+    K split over a cluster of its 16 column tiles' blocks; within the limit
+    of the plain version, one launch a call, the same bits across graph
+    replays, and every wrong kernel of testing.qmm_lane_i8_mutants 8x past
+    the limit."""
+    from booster_tpu_torch.testing import qmm_lane_i8_mutants
 
     gen = torch.Generator(device="cuda").manual_seed(34)
     w = _lane("i8", 2048, 5504, gen)
     x = torch.randn(m, 5504, device="cuda", generator=gen).to(torch.bfloat16)
-    bm, ks = tq.lane_plan(m, 5504, 2048)
-    assert 16 * ks >= 132
+    plan = tq.lane_i8_plan(m, 5504, 2048)
+    assert plan[0] == ("mv" if m == 1 else "mm")
+    assert (2048 // tq.LANE_MV_ROWS if m == 1 else 16 * plan[2]) >= 128
     kernels.reset_counts()
     got = _replays_equal(lambda: tq.qmm_lane(x, w))
-    assert kernels.launch_counts["qmm_i8"] == 3  # two calls and the captured one
+    assert kernels.launch_counts[tq.lane_i8_count_name(plan)] == 3  # two calls, the captured one
     want = tq.qmm_lane_plain(x, w)
     limit = 2e-4 * want.abs().max()
     assert (got - want).abs().max() <= limit
-    sk = tq.lane_stage(bm, "i8")
-    nst = 5504 // sk
-    for what, (xm, wm) in qmm_lane_mutants(x, w, ((ks - 1) * nst // ks, nst), sk).items():
+    for what, (xm, wm) in qmm_lane_i8_mutants(x, w, plan).items():
         assert (tq.qmm_lane_plain(xm, wm) - want).abs().max() > 8 * limit, what
 
 
@@ -904,6 +909,110 @@ def test_grouped_kernel_blocks_of_several_tiles(cuda, kind, n_tok, k_used):
     want = moe.grouped_qmm_plain(xp, w, te, E, used)
     assert (got - want).abs().max() <= 2e-4 * want.abs().max()
     assert not got[int(used[0]):].any()
+
+
+def _lane_i8_forms(m):
+    """Every form of csrc/qmm_lane_i8.cu that takes m rows (the matvec up to
+    32 rows; the tile at each height and at one and at several splits, at
+    256 rows at two)."""
+    out = [("mv", mt) for mt in (1, 2, 4) if m <= 8 * mt]
+    return out + [("mm", bm, ks) for bm in (32, 64, 128) for ks in (1, 4)] + [("mm", 256, 2)]
+
+
+@pytest.mark.parametrize("group,offset", [(32, 0), (16, 1), (64, 0)])
+@pytest.mark.parametrize("mins", [False, True])
+@pytest.mark.parametrize("m", [1, 7, 16, 23, 100])
+def test_lane_i8_forms_match_plain(cuda, m, mins, group, offset):
+    """Every form of the int8 lane-major kernels (the matvec with 1, 2 and 4
+    m8 tiles where they hold M; the tile at 32, 64
+    and 128 rows a block, at one split and at a cluster of 4, and at 256
+    rows at 2) within 2e-4 of the largest output of
+    the plain version, at K 1536 (24 chunks: 3 a warp; 24 stages) and N 256,
+    groups 32, 16 and 64, with and without a mins plane, the planes' base
+    off 4-byte alignment (offset 1: a scale's word is found from its
+    element), each form counted under its own name."""
+    gen = torch.Generator(device="cuda").manual_seed(60 + m)
+    k, n = 1536, 256
+    w = _lane("i8", n, k, gen, mins=mins)
+    if group != 32 or offset:
+        rows = 2 if mins else 1
+        flat = torch.rand(offset + n * rows * (k // group), device="cuda", generator=gen)
+        s = (flat[offset:] * 0.02 + 1e-3).to(torch.bfloat16)
+        buf = torch.empty(offset + s.numel(), dtype=torch.bfloat16, device="cuda")
+        buf[offset:] = s
+        planes = buf[offset:].view(n, rows, k // group)
+        assert planes.is_contiguous() and planes.data_ptr() % 4 == 2 * offset
+        w = dataclasses.replace(w, group=group, scales=planes)
+    x = torch.randn(m, k, device="cuda", generator=gen).to(torch.bfloat16)
+    want = tq.qmm_lane_plain(x, w)
+    limit = 2e-4 * want.abs().max()
+    for form in _lane_i8_forms(m):
+        kernels.reset_counts()
+        got = tq.lane_i8_launch(x, w, form)
+        torch.cuda.synchronize()
+        assert (got - want).abs().max() <= limit, form
+        assert kernels.launch_counts[tq.lane_i8_count_name(form)] == 1
+
+
+@pytest.mark.parametrize("mins", [False, True])
+@pytest.mark.parametrize("m", [1, 16, 64, 2048])
+def test_lane_i8_plan_forms_at_the_down(cuda, m, mins):
+    """The plan's form at the 1.3B down (5504 → 2048; real Q5_1 planes, and
+    the same weight without its mins plane: the Q8_0 down's form) against
+    its CPU mirror (testing.qmm_lane_mv_split / qmm_lane_mm_split, the
+    kernels' sum order in plain torch) and the plain version, both within
+    2e-4 of the largest output; the mirror with a chunk or a split left out
+    8x past it."""
+    from booster_tpu_torch.testing import (q5_1_weight, qmm_lane_mm_split, qmm_lane_mv_split,
+                                           without_mins)
+
+    k, n = 5504, 2048
+    w = q5_1_weight(n, k, seed=90 + m, device="cuda")
+    w = w if mins else without_mins(w)
+    gen = torch.Generator(device="cuda").manual_seed(90 + m)
+    x = torch.randn(m, k, device="cuda", generator=gen).to(torch.bfloat16)
+    plan = tq.lane_i8_plan(m, k, n)
+    got = tq.qmm_lane(x, w)
+    want = tq.qmm_lane_plain(x, w)
+    limit = 2e-4 * want.abs().max()
+    assert (got - want).abs().max() <= limit
+    xc, wc = x.cpu(), dataclasses.replace(w, qw=w.qw.cpu(), scales=w.scales.cpu())
+    if plan[0] == "mv":
+        mirror, wrong = qmm_lane_mv_split(xc, wc), qmm_lane_mv_split(xc, wc, drop=0)
+    else:
+        mirror = qmm_lane_mm_split(xc, wc, plan[2])
+        wrong = qmm_lane_mm_split(xc, wc, plan[2], drop=plan[2] - 1)
+    assert (got.cpu() - mirror).abs().max() <= limit.cpu()
+    assert (wrong - want.cpu()).abs().max() > 8 * limit.cpu()
+
+
+def test_lane_i8_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    """csrc/qmm_lane_i8.cu's wrapper raises, never falls back: a group of 8,
+    N not a multiple of 128, f32 planes, x off 16 bytes, an i4p weight, more
+    rows than the matvec's m8 tiles hold, a bad tile height or split count
+    (the library refuses the launch)."""
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    x = torch.randn(3, 512, device="cuda", generator=gen).to(torch.bfloat16)
+    w = _lane("i8", 128, 512, gen, mins=True)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        tq.lane_i8_launch(x, dataclasses.replace(w, group=8, scales=torch.zeros(
+            128, 2, 64, device="cuda", dtype=torch.bfloat16)))
+    with pytest.raises(NotImplementedError):  # N not a multiple of 128
+        tq.lane_i8_launch(x, _lane("i8", 96, 512, gen))
+    with pytest.raises(ValueError):  # f32 scale planes (not compacted)
+        tq.lane_i8_launch(x, dataclasses.replace(w, scales=w.scales.float()))
+    with pytest.raises(ValueError):  # x off 16 bytes
+        tq.lane_i8_launch(torch.zeros(3 * 512 + 1, device="cuda", dtype=torch.bfloat16)[1:]
+                          .view(3, 512), w)
+    with pytest.raises(ValueError):  # a 4-bit weight
+        tq.lane_i8_launch(x, _lane("i4p", 128, 512, gen))
+    with pytest.raises(ValueError):  # 9 rows, one m8 tile
+        tq.lane_i8_launch(torch.zeros(9, 512, device="cuda", dtype=torch.bfloat16), w,
+                          ("mv", 1))
+    for form in (("mm", 48, 1), ("mm", 64, 9), ("mv", 3)):
+        with pytest.raises((RuntimeError, ValueError)):
+            tq.lane_i8_launch(torch.zeros(2, 512, device="cuda", dtype=torch.bfloat16), w, form)
+        torch.cuda.synchronize()
 
 
 def test_lane_wrappers_refuse_what_the_kernel_does_not_take(cuda):
@@ -1389,13 +1498,14 @@ def test_q5k_mlp_with_mins_equals_unfused(cuda, m):
 
 @pytest.mark.parametrize("m", [1, 5, 16, 40, 600, 2048])
 def test_q5_1_lane_kernel_with_mins(cuda, m):
-    """qmm_lane.cu's i8 form with mins on real Q5_1 planes (negative m, so
-    mins of -m) at the 1.3B down (5504 → 2048, lane-major: (5504/32) % 8 =
-    4): within the limit of the plain version (each value bf16(q·s) less its
-    bf16 min, rounded again), each wrong kernel of testing.qmm_lane_mutants
-    (the mins dropped and with the wrong sign among them) 8x past it, the
-    same bits across graph replays."""
-    from booster_tpu_torch.testing import q5_1_weight, qmm_lane_mutants
+    """The int8 lane-major form with mins (csrc/qmm_lane_i8.cu, the plan's
+    form at each M) on real Q5_1 planes (negative m, so mins of -m) at the
+    1.3B down (5504 → 2048, lane-major: (5504/32) % 8 = 4): within the
+    limit of the plain version (each value bf16(q·s) less its bf16 min,
+    rounded again), each wrong kernel of testing.qmm_lane_i8_mutants (the
+    mins dropped, with the wrong sign and from the next group among them)
+    8x past it, the same bits across graph replays."""
+    from booster_tpu_torch.testing import q5_1_weight, qmm_lane_i8_mutants
 
     k, n = 5504, 2048
     w = q5_1_weight(n, k, seed=m, device="cuda")
@@ -1405,15 +1515,14 @@ def test_q5_1_lane_kernel_with_mins(cuda, m):
     x = torch.randn(m, k, device="cuda", generator=gen).to(torch.bfloat16)
     kernels.reset_counts()
     got = _replays_equal(lambda: tq.qmm_lane(x, w))
-    assert kernels.launch_counts["qmm_i8"] == 3
+    plan = tq.lane_i8_plan(m, k, n)
+    assert kernels.launch_counts[tq.lane_i8_count_name(plan)] == 3
     want = tq.qmm_lane_plain(x, w)
     limit = 2e-4 * want.abs().max()
     assert (got - want).abs().max() <= limit
-    bm, ks = tq.lane_plan(m, k, n)
-    sk = tq.lane_stage(bm, "i8")
-    nst = k // sk
-    seen = qmm_lane_mutants(x, w, ((ks - 1) * nst // ks, nst), sk)
-    assert {"mins dropped", "mins with the wrong sign"} <= set(seen)
+    seen = qmm_lane_i8_mutants(x, w, plan)
+    assert {"mins dropped", "mins with the wrong sign",
+            "each group's min from the next group"} <= set(seen)
     for what, (xm, wm) in seen.items():
         assert (tq.qmm_lane_plain(xm, wm) - want).abs().max() > 8 * limit, what
 

@@ -63,8 +63,9 @@ from booster_tpu_torch.quant import qtensor as tqt  # noqa: E402
 from booster_tpu_torch.quant import quantize as tquantize  # noqa: E402
 from booster_tpu_torch.sampling import SamplingParams  # noqa: E402
 from booster_tpu_torch.serving import Engine  # noqa: E402
-from booster_tpu_torch.testing import (make_model, qmm_i8k_split, qmm_lane_mutants,  # noqa: E402
-                                       qmm_lane_split, qmm_mins_mutants, random_blocks)
+from booster_tpu_torch.testing import (make_model, qmm_i8k_split,  # noqa: E402
+                                       qmm_lane_i8_mutants, qmm_lane_mm_split,
+                                       qmm_lane_mv_split, qmm_mins_mutants, random_blocks)
 from booster_tpu_torch.testing import torch_threads  # noqa: E402
 
 QMM_TOL = 2e-4
@@ -306,8 +307,9 @@ def test_lane_major_i8_with_mins_matches_pallas(qt, k, m, interpret):
     keeps it from the K-major kernels), Q5_K at K 768 (a dense weight of
     that width is K-major; an expert stack's rows stay lane-major); decode
     (M = 1) held to the reference's M = 2 form of the row (the deviation of
-    its M = 1 row is recorded in ROADMAP.md); the wrong kernels 8x past the
-    limit."""
+    its M = 1 row is recorded in ROADMAP.md); the mirror is
+    csrc/qmm_lane_i8.cu's form at M (``ops.qmm.lane_i8_plan``), the wrong
+    kernels (``testing.qmm_lane_i8_mutants``) 8x past the limit."""
     n = C
     jw, tw = _q5_pair(qt, n, k, seed=40, kmajor=False)
     assert tq.lane_supported(tw) and pq._supported(jw, k, m)
@@ -315,15 +317,14 @@ def test_lane_major_i8_with_mins_matches_pallas(qt, k, m, interpret):
     xj, xt = _x(max(m, 2), k, seed=9)
     want = np.asarray(pq._qmm_i8(jnp.asarray(xj), jw))[:m]
     _close(tq.qmm(xt[:m], tw).numpy(), want, QMM_TOL)
-    bm, ks = tq.lane_plan(m, k, n)
-    sk = tq.lane_stage(bm, "i8")
-    _close(qmm_lane_split(xt[:m], tw, ks, sk).numpy(), want, QMM_TOL)
+    plan = tq.lane_i8_plan(m, k, n)  # csrc/qmm_lane_i8.cu's form at m rows
+    mirror = (qmm_lane_mv_split(xt[:m], tw) if plan[0] == "mv"
+              else qmm_lane_mm_split(xt[:m], tw, plan[2]))
+    _close(mirror.numpy(), want, QMM_TOL)
     plain = tq.qmm_lane_plain(xt[:m], tw)
     limit = QMM_TOL * float(plain.abs().max())
-    nst = k // sk
     seen = {what: float((tq.qmm_lane_plain(xm, wm) - plain).abs().max()) / limit
-            for what, (xm, wm) in qmm_lane_mutants(xt[:m], tw, (0, max(1, nst // ks)),
-                                                   sk).items()}
+            for what, (xm, wm) in qmm_lane_i8_mutants(xt[:m], tw, plan).items()}
     assert {"mins dropped", "mins with the wrong sign"} <= set(seen)
     assert min(seen.values()) >= 8, seen
 
@@ -371,8 +372,8 @@ def lib(monkeypatch):
 def test_wrappers_hand_the_mins_forms_to_the_kernels(lib):
     """The i8t matmul and gate-up above M = 1 pass mins = 1 to
     bt_qmm_i8t_dq, the whole MLP mins = 1 to bt_mlp_i8t, the lane-major
-    wrapper (i4, mins) = (0, 1) to bt_qmm_lane; the M = 1 form keeps its
-    mins flag."""
+    wrapper (i4, mins) = (0, 1) to bt_qmm_lane and mins = 1 to both forms of
+    bt_qmm_lane_i8; the M = 1 form keeps its mins flag."""
     _, gu = _q5_pair("Q5_K", 2 * 1024, C, seed=60)
     _, dn = _q5_pair("Q5_K", C, 1024, seed=61)
     _, lane = _q5_pair("Q5_1", C, 384, seed=62, kmajor=False)
@@ -382,6 +383,8 @@ def test_wrappers_hand_the_mins_forms_to_the_kernels(lib):
     tq._launch_i8t(x[:1], gu, gateup=True, dq=False)
     tm_mlp._launch(x, gu, dn)
     tq.lane_launch(torch.zeros(3, 384, dtype=torch.bfloat16), lane, C, "qmm_i8")
+    for m in (3, 40):  # qmm_lane's int8 form: csrc/qmm_lane_i8.cu's matvec, then its tile
+        tq.lane_i8_launch(torch.zeros(m, 384, dtype=torch.bfloat16), lane)
     by = {}
     for name, a in lib:
         by.setdefault(name, []).append(a)
@@ -394,6 +397,9 @@ def test_wrappers_hand_the_mins_forms_to_the_kernels(lib):
     assert by["bt_mlp_i8t"][0][20] == 1
     # (M, K, N, G, zero, i4, mins)
     assert by["bt_qmm_lane"][0][8:15] == (3, 384, C, 32, 0, 0, 1)
+    # (M, K, N, G, mins)
+    assert by["bt_qmm_lane_i8_mv"][0][4:9] == (3, 384, C, 32, 1)
+    assert by["bt_qmm_lane_i8_mm"][0][4:9] == (40, 384, C, 32, 1)
 
 
 def test_wrappers_refuse_the_mins_forms_still_not_ported(lib):

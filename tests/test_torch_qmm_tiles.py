@@ -12,7 +12,10 @@ tests hold the plans to what the kernels need, and the kernels' sum order,
 mirrored in plain torch (``testing.qmm_i4t_split``, ``qmm_lane_split``), to
 the matmuls' limit (2e-4 of the largest output) against the plain versions;
 each wrong kernel of ``testing.qmm_i4t_mutants`` / ``qmm_lane_mutants`` must
-land 8x past it."""
+land 8x past it.  The int8 lane-major form without a tile table runs
+csrc/qmm_lane_i8.cu (``ops.qmm.lane_i8_plan``; its mirrors
+``testing.qmm_lane_mv_split`` / ``qmm_lane_mm_split``, its wrong kernels
+``qmm_lane_i8_mutants``; tests/test_torch_lane_i8.py)."""
 
 import numpy as np
 import pytest
@@ -21,7 +24,8 @@ import torch
 from booster_tpu_torch.gguf import GGMLType
 from booster_tpu_torch.ops import qmm as tq
 from booster_tpu_torch.quant.qtensor import QTensor
-from booster_tpu_torch.testing import (qmm_i4t_mutants, qmm_i4t_split, qmm_lane_mutants,
+from booster_tpu_torch.testing import (qmm_i4t_mutants, qmm_i4t_split, qmm_lane_i8_mutants,
+                                       qmm_lane_mm_split, qmm_lane_mutants, qmm_lane_mv_split,
                                        qmm_lane_split)
 from booster_tpu_torch.testing import torch_threads
 
@@ -77,6 +81,25 @@ def test_i4t_gateup_and_matmul_share_the_plan(M, K, N):
 @pytest.mark.parametrize("kind", ["i4p", "i8"])
 @pytest.mark.parametrize("M,K,N,E", LANE_SHAPES)
 def test_lane_splits_cover_whole_stages_and_fit_the_tickets(M, K, N, E, kind):
+    """csrc/qmm_lane.cu's plan (the i4p forms, the grouped int8 form): whole
+    stages, splits of 512 columns or more, the tickets within the buffer,
+    the partials under the weight's bytes.  The int8 form without a tile
+    table runs csrc/qmm_lane_i8.cu: the matvec (no split) up to 32 rows, the
+    tile's splits on whole 64-k stages, at most 8 (one cluster); at 17-64
+    rows past K 8192 the plan keeps this kernel, whose plan then holds."""
+    if kind == "i8" and E == 0:
+        plan = tq.lane_i8_plan(M, K, N)
+        if plan[0] == "mv":
+            assert M <= 32 and K % tq.LANE_BK == 0
+            return
+        if plan[0] == "lane":  # qmm_lane.cu's kernel kept there: its plan below holds
+            assert 16 < M <= 64 and K > 8192
+        else:
+            ks, nst = plan[2], K // tq.LANE_BK
+            assert plan[1] in (64, 128, 256) and ks in (1, 2, 4, 8) and K % tq.LANE_BK == 0
+            assert ks == 1 or all(((s + 1) * nst // ks - s * nst // ks) * tq.LANE_BK >= 512
+                                  for s in range(ks))
+            return
     bm, ks = tq.lane_plan(M, K, N, E)
     sk = tq.lane_stage(bm, kind)
     nst = K // sk
@@ -91,11 +114,13 @@ def test_lane_splits_cover_whole_stages_and_fit_the_tickets(M, K, N, E, kind):
 
 
 def test_lane_down_at_one_row_fills_the_card():
-    """The 1.3B down at M = 1 (N 2048 = 16 column tiles, K 5504) splits K so
-    that about two blocks run on each of the 132 SMs, not 16."""
-    bm, ks = tq.lane_plan(1, 5504, 2048)
-    blocks = (2048 // 128) * ks
-    assert 132 <= blocks <= 300
+    """The 1.3B down at M = 1 (N 2048, K 5504) runs csrc/qmm_lane_i8.cu's
+    matvec: 16 payload rows a block read whole, so its 128 blocks of 8
+    warps sit on 97 % of the 132 SMs without a K split, not 16 tiles."""
+    plan = tq.lane_i8_plan(1, 5504, 2048)
+    assert plan[0] == "mv"
+    blocks = 2048 // tq.LANE_MV_ROWS
+    assert 0.95 * 132 <= blocks <= 300
 
 
 def _i4t(K, N, R, zero, seed):
@@ -144,12 +169,29 @@ def test_lane_split_within_limit_and_mutants_past_it(kind, zero, M):
     w = QTensor(kind, qw, torch.from_numpy(s.astype(np.float32)).to(torch.bfloat16), None, 32,
                 (N, K), GGMLType.Q4_0 if kind == "i4p" else GGMLType.Q8_0, zero=zero)
     x = _x(M, K, seed=100 + M)
+    want = tq.qmm_lane_plain(x, w)
+    limit = 2e-4 * float(want.abs().max())
+    if kind == "i8":  # csrc/qmm_lane_i8.cu: the matvec up to 16 rows, the tile above
+        plan = tq.lane_i8_plan(M, K, N)
+        if plan[0] == "mv":
+            mirror = lambda drop=None: qmm_lane_mv_split(x, w, drop=drop)  # noqa: E731
+            drops = (0, K // tq.LANE_BK - 1)  # a chunk
+        else:
+            assert plan[2] > 1
+            mirror = lambda drop=None: qmm_lane_mm_split(x, w, plan[2], drop=drop)  # noqa: E731
+            drops = (0, plan[2] - 1)  # a split
+        assert float((mirror() - want).abs().max()) <= limit
+        seen = {what: float((tq.qmm_lane_plain(xm, wm) - want).abs().max()) / limit
+                for what, (xm, wm) in qmm_lane_i8_mutants(x, w, plan).items()}
+        for d in drops:
+            seen[f"{d} dropped"] = float((mirror(d) - want).abs().max()) / limit
+        assert len(seen) == 5
+        assert min(seen.values()) >= 8, seen
+        return
     bm, ks = tq.lane_plan(M, K, N)
     sk = tq.lane_stage(bm, kind)
     assert ks > 1
     nst = K // sk
-    want = tq.qmm_lane_plain(x, w)
-    limit = 2e-4 * float(want.abs().max())
     assert float((qmm_lane_split(x, w, ks, sk) - want).abs().max()) <= limit
     seen = {what: float((tq.qmm_lane_plain(xm, wm) - want).abs().max()) / limit
             for what, (xm, wm) in qmm_lane_mutants(x, w, (0, nst // ks), sk).items()}
